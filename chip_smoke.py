@@ -4,13 +4,23 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It builds the CUDA kernels from
-``pdwt_tpu_torch/kernels/csrc``, holds each kernel against its plain
-PyTorch version at the shapes of the main path, then drives the main path
-(the ``Wavelets`` facade: db7, 5 levels, a 2048x2048 float32 image) and
-checks its output, the launch counters and a roundtrip.  It prints one
-JSON line with the per-kernel results and, last, one JSON line with
-``"ok": true``.  Any failed check exits non-zero before that line; so does
-a machine without a CUDA device.  Imports no JAX.
+``pdwt_tpu_torch/kernels/csrc`` and drives the port's two paths, each
+with the launch counters set to 0 just before it and read just after:
+
+* the DWT path: each of its four kernels against its plain PyTorch version
+  at the path's shapes, then the ``Wavelets`` facade (db7, 5 levels, a
+  2048x2048 float32 image), the golden coefficients and roundtrip timings;
+* the TI-denoise path (``bench.py``'s second metric: db7, 3 levels, a
+  1024x1024 float32 image, soft threshold at beta 10): the two stationary
+  kernels against their plain versions (levels 1-3 and 6 of 1024x1024,
+  every threshold, small, odd and batched shapes), then
+  ``Wavelets(do_swt=True)`` through ``run_denoise`` and through
+  forward/threshold/norm1/inverse, a roundtrip, the fused norm, and the
+  TI step's timings.
+
+It prints one JSON line with the per-kernel results and, last, one JSON
+line with ``"ok": true``.  Any failed check exits non-zero before that
+line; so does a machine without a CUDA device.  Imports no JAX.
 """
 from __future__ import annotations
 
@@ -24,20 +34,29 @@ import numpy as np
 import torch
 
 N, WNAME, LEVELS, BETA = 2048, "db7", 5, 10.0
+# the TI-denoise step (bench.py:126-145)
+TI_N, TI_LEVELS, TI_BETA = 1024, 3, 10.0
 # kernel vs plain version: max|diff| <= KERNEL_RTOL * max|plain|.  nvcc
 # contracts each multiply-add into one FMA, the plain version rounds twice.
 KERNEL_RTOL = 1e-5
 # main path vs the plain path on the card, same bound and reason
 PATH_RTOL = 1e-5
-# max |idwt2d(dwt2d(x)) - x| on [0, 255] float32 data
+# max |idwt2d(dwt2d(x)) - x| (and of iswt2d(swt2d(x))) on [0, 255] float32 data
 ROUNDTRIP_ATOL = 1e-3
+# thresholded_norm1(c) against norm1(soft_threshold(c)): float32 sums in
+# another order
+NORM_RTOL = 1e-5
 REPLACES = {
     "fwd_level_2d": "pdwt_tpu/kernels/separable_pallas.py:234",
     "inv_level_2d": "pdwt_tpu/kernels/separable_pallas.py:385",
     "fwd_tail_2d": "pdwt_tpu/kernels/separable_pallas.py:576",
     "inv_tail_2d": "pdwt_tpu/kernels/separable_pallas.py:648",
+    "swt_fwd_level_2d": "pdwt_tpu/kernels/swt_pallas.py:95",
+    "swt_inv_level_2d": "pdwt_tpu/kernels/swt_pallas.py:231",
 }
-SOURCE = "pdwt_tpu_torch/kernels/csrc/separable.cu"
+SOURCES = {name: "pdwt_tpu_torch/kernels/csrc/" + ("swt.cu" if name.startswith("swt")
+                                                   else "separable.cu")
+           for name in REPLACES}
 
 
 def fail(msg: str) -> None:
@@ -94,6 +113,9 @@ def fmt(ms) -> str:
 
 
 def max_err(got, want) -> tuple:
+    """(max |got - want|, max |want|) over all outputs of one call: at a
+    dilation as large as the image the stationary H and D are roundoff, so
+    the bound is relative to the call's largest output."""
     if isinstance(got, torch.Tensor):
         got, want = [got], [want]
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
@@ -101,14 +123,59 @@ def max_err(got, want) -> tuple:
     return err, scale
 
 
+def run_cases(cases, report, card) -> None:
+    """Hold each kernel call against its plain version on the same input;
+    time the calls marked ``timed`` (the path's shapes) and add them to the
+    kernel's row of ``report``."""
+    for name, arg, kern, plain, label, timed in cases:
+        got, want = kern(arg), plain(arg)
+        torch.cuda.synchronize()
+        err, scale = max_err(got, want)
+        line = (f"kernel {name} at {label}: max|kernel-plain| {err:.3e} "
+                f"(limit {KERNEL_RTOL * scale:.3e})")
+        rep = report[name]
+        rep["max_abs_err"] = max(rep["max_abs_err"], err)
+        if timed:
+            k_ms, p_ms = cuda_ms(lambda: kern(arg)), cuda_ms(lambda: plain(arg))
+            k_dev, p_dev = device_ms(lambda: kern(arg))[0], device_ms(lambda: plain(arg))[0]
+            line += (f"; per call {k_ms:.4f} ms vs plain {p_ms:.4f} ms; device busy "
+                     f"{fmt(k_dev)} vs plain {fmt(p_dev)} [{card}]")
+            rep["ms"] += k_ms
+            rep["plain_ms"] += p_ms
+            for key, val in (("device_ms", k_dev), ("plain_device_ms", p_dev)):
+                rep[key] = None if val is None or rep[key] is None else rep[key] + val
+        print(line, flush=True)
+        check(err <= KERNEL_RTOL * scale, f"{name} at {label} disagrees with its plain version")
+
+
+def time_in_turns(label, kern_fn, plain_fn, card) -> None:
+    """CUDA-event medians of the kernel and plain versions of one step, in
+    turns (plain, kernels, kernels, plain), then device busy time and idle
+    share by torch.profiler, with the busiest kernels."""
+    times = {"plain": [], "kernels": []}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        times[which].append(cuda_ms(plain_fn if which == "plain" else kern_fn))
+    print(f"{label}, median of 20 (CUDA events): kernels {min(times['kernels']):.4f} ms, "
+          f"plain {min(times['plain']):.4f} ms (runs {times}) [{card}]", flush=True)
+    for which, fn in (("kernels", kern_fn), ("plain", plain_fn)):
+        busy, by_name = device_ms(fn)
+        idle = "not measured" if busy is None else f"{1 - busy / min(times[which]):.3f}"
+        print(f"{label} {which}: device busy {fmt(busy)} per call, idle share {idle}")
+        for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"  {ms:.4f} ms  {kname[:100]}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this script needs a CUDA card")
-    from pdwt_tpu_torch import Coeffs2D, Wavelets, dwt2d, get_wavelet, idwt2d, ops
+    from pdwt_tpu_torch import (Coeffs2D, Wavelets, dwt2d, get_wavelet, idwt2d, iswt2d,
+                                iswt2d_denoise, ops, swt2d)
     from pdwt_tpu_torch.core import conv
     from pdwt_tpu_torch.core.shapes import level_sizes
+    from pdwt_tpu_torch.filters import make_custom_wavelet
     from pdwt_tpu_torch.kernels import _build
     from pdwt_tpu_torch.kernels import separable as K
+    from pdwt_tpu_torch.kernels import swt as S
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -146,40 +213,24 @@ def main() -> None:
     m0 = tail_r >> tail_k
     # (name, input, kernel, plain version, shape) for each launch of one pass
     cases = [("fwd_level_2d", rand(1, n, n), lambda x: K.fwd_level_2d(x, lo, hi),
-              lambda x: K.fwd_level_2d_ref(x, lo, hi), (n, n)) for n in fwd_shapes]
+              lambda x: K.fwd_level_2d_ref(x, lo, hi), (n, n), True) for n in fwd_shapes]
     cases += [("inv_level_2d", [rand(1, m, m) for _ in range(4)],
                lambda b: K.inv_level_2d(*b, rlo, rhi),
-               lambda b: K.inv_level_2d_ref(*b, rlo, rhi), (m, m)) for m in inv_shapes]
+               lambda b: K.inv_level_2d_ref(*b, rlo, rhi), (m, m), True) for m in inv_shapes]
     cases.append(("fwd_tail_2d", rand(1, tail_r, tail_r),
                   lambda x: flat(*K.fwd_tail_2d(x, lo, hi, tail_k)),
-                  lambda x: flat(*K.fwd_tail_2d_ref(x, lo, hi, tail_k)), (tail_r, tail_r)))
+                  lambda x: flat(*K.fwd_tail_2d_ref(x, lo, hi, tail_k)), (tail_r, tail_r), True))
     tail_in = (rand(1, m0, m0), [tuple(rand(1, m0 << j, m0 << j) for _ in range(3))
                                  for j in range(tail_k)])
     cases.append(("inv_tail_2d", tail_in, lambda t: K.inv_tail_2d(t[0], t[1], rlo, rhi),
-                  lambda t: K.inv_tail_2d_ref(t[0], t[1], rlo, rhi), (m0, m0)))
+                  lambda t: K.inv_tail_2d_ref(t[0], t[1], rlo, rhi), (m0, m0), True))
 
     # per kernel: worst error and the summed time of its launches in one pass
-    # ms: per call by CUDA events (host launch gaps included); device_ms:
-    # busy time on the card by torch.profiler
+    # of its path; ms: per call by CUDA events (host launch gaps included);
+    # device_ms: busy time on the card by torch.profiler
     report = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
                      "plain_device_ms": 0.0} for name in REPLACES}
-    for name, arg, kern, plain, shape in cases:
-        got, want = kern(arg), plain(arg)
-        torch.cuda.synchronize()
-        err, scale = max_err(got, want)
-        k_ms, p_ms = cuda_ms(lambda: kern(arg)), cuda_ms(lambda: plain(arg))
-        k_dev, p_dev = device_ms(lambda: kern(arg))[0], device_ms(lambda: plain(arg))[0]
-        print(f"kernel {name} at {shape}: max|kernel-plain| {err:.3e} "
-              f"(limit {KERNEL_RTOL * scale:.3e}); per call {k_ms:.4f} ms vs plain "
-              f"{p_ms:.4f} ms; device busy {fmt(k_dev)} vs plain {fmt(p_dev)} [{card}]",
-              flush=True)
-        check(err <= KERNEL_RTOL * scale, f"{name} at {shape} disagrees with its plain version")
-        rep = report[name]
-        rep["max_abs_err"] = max(rep["max_abs_err"], err)
-        rep["ms"] += k_ms
-        rep["plain_ms"] += p_ms
-        for key, val in (("device_ms", k_dev), ("plain_device_ms", p_dev)):
-            rep[key] = None if val is None or rep[key] is None else rep[key] + val
+    run_cases(cases, report, card)
 
     # -- main path: the facade, as a user drives it
     img = np.random.default_rng(0).uniform(0, 255, (N, N)).astype(np.float32)
@@ -197,7 +248,7 @@ def main() -> None:
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     print(f"main path launches: {launches}", flush=True)
-    for name in REPLACES:
+    for name in ("fwd_level_2d", "inv_level_2d", "fwd_tail_2d", "inv_tail_2d"):
         check(launches[name] > 0, f"the main path never launched {name}")
     check(tuple(den.shape) == (N, N) and bool(torch.isfinite(den).all()),
           "denoised image is not finite or has the wrong shape")
@@ -250,23 +301,110 @@ def main() -> None:
           "golden coefficients")
 
     # roundtrip times, kernels and plain path, on the same card in turns
-    kern_rt = lambda: idwt2d(dwt2d(x, wav, LEVELS), wav, (N, N))
-    plain_rt = lambda: plain_idwt2d(plain_dwt2d(x))
-    times = {"plain": [], "kernels": []}
-    for which in ("plain", "kernels", "kernels", "plain"):
-        times[which].append(cuda_ms(plain_rt if which == "plain" else kern_rt))
-    print(f"roundtrip {N}x{N} {WNAME} {LEVELS} levels, median of 20 (CUDA events): "
-          f"kernels {min(times['kernels']):.4f} ms, plain {min(times['plain']):.4f} ms "
-          f"(runs {times}) [{card}]", flush=True)
-    for label, fn in (("kernels", kern_rt), ("plain", plain_rt)):
-        busy, by_name = device_ms(fn)
-        idle = "not measured" if busy is None else f"{1 - busy / min(times[label]):.3f}"
-        print(f"roundtrip {label}: device busy {fmt(busy)} per call, idle share {idle}")
-        for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"  {ms:.4f} ms  {kname[:100]}")
+    time_in_turns(f"roundtrip {N}x{N} {WNAME} {LEVELS} levels",
+                  lambda: idwt2d(dwt2d(x, wav, LEVELS), wav, (N, N)),
+                  lambda: plain_idwt2d(plain_dwt2d(x)), card)
 
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-                "launches": launches[name], **report[name]} for name in REPLACES]
+    # ======================= the TI-denoise path =======================
+    # -- each stationary kernel against its plain version.  The inverse
+    # runs on the plain forward's subbands, so the hard and garrote masks
+    # see the same values in both versions.  Timed: the path's own calls
+    # (1024^2, levels 1-3, forward and the soft-thresholded inverse).
+    odd5 = make_custom_wavelet("odd5", *np.random.default_rng(5).standard_normal((4, 5)))
+    thresholds = [("soft", TI_BETA), None, ("hard", TI_BETA), ("garrote", TI_BETA)]
+    ti_cases = []
+
+    def swt_cases(w, shape, level, timed):
+        xl = rand(*shape)
+        ti_cases.append(("swt_fwd_level_2d", xl,
+                         lambda t: S.swt_fwd_level_2d(t, w.dec_lo, w.dec_hi, level),
+                         lambda t: S.swt_fwd_level_2d_ref(t, w.dec_lo, w.dec_hi, level),
+                         f"{w.name} {shape} level {level}", timed))
+        bands = S.swt_fwd_level_2d_ref(xl, w.dec_lo, w.dec_hi, level)
+        for thr in thresholds:
+            ti_cases.append((
+                "swt_inv_level_2d", bands,
+                lambda b, thr=thr: S.swt_inv_level_2d(*b, w.rec_lo, w.rec_hi, level, thr),
+                lambda b, thr=thr: S.swt_inv_level_2d_ref(*b, w.rec_lo, w.rec_hi, level, thr),
+                f"{w.name} {shape} level {level} threshold {thr and thr[0]}",
+                timed and thr is not None and thr[0] == "soft"))
+
+    for level in range(1, TI_LEVELS + 1):
+        swt_cases(wav, (1, TI_N, TI_N), level, True)
+    swt_cases(wav, (1, TI_N, TI_N), 6, False)  # the facade's deepest level at 1024^2
+    for level in range(1, 5):  # db2 8x16: at level 4 the support (25) exceeds 8 rows
+        swt_cases(get_wavelet("db2"), (1, 8, 16), level, False)
+    for level in (1, 2):
+        swt_cases(wav, (1, 37, 53), level, False)
+    swt_cases(wav, (3, 256, 256), 2, False)  # batch 3
+    swt_cases(odd5, (1, 23, 29), 3, False)   # an odd-length custom bank
+    run_cases(ti_cases, report, card)
+
+    # -- the TI path, as a user drives it
+    ti_img = np.random.default_rng(1).uniform(0, 255, (TI_N, TI_N)).astype(np.float32)
+    xt = torch.from_numpy(ti_img).to(dev)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    T = Wavelets(xt, wname=WNAME, levels=TI_LEVELS, do_swt=True, device=dev)
+    run_out, run_n1 = T.run_denoise(TI_BETA)
+    T.forward()
+    T.soft_threshold(TI_BETA)
+    ti_n1 = T.norm1()
+    ti_den = T.inverse()
+    T2 = Wavelets(xt, wname=WNAME, levels=TI_LEVELS, do_swt=True, device=dev)
+    T2.forward()
+    ti_rt = T2.inverse()
+    torch.cuda.synchronize()
+    ti_launches = dict(K.LAUNCHES)
+    print(f"TI path launches: {ti_launches}", flush=True)
+    for name in ("swt_fwd_level_2d", "swt_inv_level_2d"):
+        check(ti_launches[name] > 0, f"the TI path never launched {name}")
+        launches[name] = ti_launches[name]
+    for label, img in (("run_denoise", run_out), ("inverse", ti_den)):
+        check(tuple(img.shape) == (TI_N, TI_N) and bool(torch.isfinite(img).all()),
+              f"TI {label} image is not finite or has the wrong shape")
+    rt_err = float((ti_rt - xt).abs().max())
+    print(f"roundtrip max|iswt2d(swt2d(x)) - x| = {rt_err:.3e} (limit {ROUNDTRIP_ATOL})")
+    check(rt_err <= ROUNDTRIP_ATOL, "SWT roundtrip error")
+
+    def plain_swt2d(t):
+        a, dets = t[None], []
+        for level in range(1, TI_LEVELS + 1):
+            a, h, v, d = S.swt_fwd_level_2d_ref(a, lo, hi, level)
+            dets.append((h[0], v[0], d[0]))
+        return Coeffs2D(a[0], tuple(dets))
+
+    def plain_iswt2d(c, threshold=None):
+        a = c.approx[None]
+        for i in range(TI_LEVELS - 1, -1, -1):
+            h, v, d = (t[None] for t in c.details[i])
+            a = S.swt_inv_level_2d_ref(a, h, v, d, rlo, rhi, i + 1, threshold)
+        return a[0]
+
+    pc = ops.soft_threshold(plain_swt2d(xt), TI_BETA)
+    p_n1 = float(ops.norm1(pc))
+    p_den = plain_iswt2d(pc)
+    for label, img, n1v in (("run_denoise", run_out, float(run_n1)), ("inverse", ti_den, ti_n1)):
+        err, scale = max_err(img, p_den)
+        print(f"TI {label} vs plain path: max|diff| {err:.3e} (limit {PATH_RTOL * scale:.3e}); "
+              f"norm1 {n1v!r} vs plain {p_n1!r}", flush=True)
+        check(err <= PATH_RTOL * scale, f"TI {label} disagrees with the plain path")
+        check(abs(n1v - p_n1) <= PATH_RTOL * abs(p_n1), f"TI {label} norm1 disagrees")
+    kc = swt2d(xt, wav, TI_LEVELS)
+    fused = float(ops.thresholded_norm1(kc, TI_BETA))
+    full = float(ops.norm1(ops.soft_threshold(kc, TI_BETA)))
+    print(f"thresholded_norm1 {fused!r} vs norm1(soft_threshold) {full!r} "
+          f"(limit {NORM_RTOL * abs(full):.3e})")
+    check(abs(fused - full) <= NORM_RTOL * abs(full), "thresholded_norm1")
+
+    # -- the TI step (bench.py's ti_swt_mpix_s), kernels and plain path, in turns
+    time_in_turns(f"TI step {TI_N}x{TI_N} {WNAME} {TI_LEVELS} levels soft beta {TI_BETA}",
+                  lambda: iswt2d_denoise(swt2d(xt, wav, TI_LEVELS), wav, TI_BETA),
+                  lambda: plain_iswt2d(plain_swt2d(xt), ("soft", TI_BETA)), card)
+
+    kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": launches[name], **report[name]}
+               for name in REPLACES]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,11 @@
 """Stateful ``Wavelets`` facade (counterpart of ``pdwt_tpu/api.py``).
 
-This slice covers one 2D image, the separable periodization DWT, the
-exact precision tier: construction with level clamping, ``forward``,
-``inverse``, ``soft_threshold``, ``hard_threshold``, ``norm1``,
-``norm2sq``, ``get_image``, ``set_image`` and cycle spinning.  Other
+This slice covers one 2D image, the separable periodization DWT and SWT
+(``do_swt=True``), the exact precision tier: construction with level
+clamping, ``forward``, ``inverse``, ``soft_threshold``,
+``hard_threshold``, ``garrote_threshold``, ``norm1``, ``norm2sq``,
+``run_denoise`` (the whole denoise step, with the threshold fused into the
+SWT inverse), ``get_image``, ``set_image`` and cycle spinning.  Other
 flags raise ``NotImplementedError`` naming the ROADMAP item that adds
 them.
 
@@ -24,7 +26,8 @@ import torch
 
 from . import ops
 from .core.precision import check_tier
-from .core.separable import Coeffs2D, all_periodization, dwt2d, idwt2d
+from .core.separable import (Coeffs2D, all_periodization, dwt2d, idwt2d, iswt2d,
+                              iswt2d_denoise, swt2d)
 from .core.shapes import coeff_shapes_2d, max_level
 from .filters import Wavelet, get_wavelet
 
@@ -47,6 +50,7 @@ class WaveletSpec:
     do_cycle_spinning: bool
     dtype: torch.dtype
     hlen: int
+    do_swt: bool
 
 
 def _later(what: str, item: int):
@@ -63,6 +67,8 @@ class Wavelets:
 
     >>> W = Wavelets(img, wname="db7", levels=5, device="cuda")
     >>> W.forward(); W.soft_threshold(10.0); img_dn = W.inverse()
+    >>> T = Wavelets(img, wname="db7", levels=3, do_swt=True, device="cuda")
+    >>> img_dn, n1 = T.run_denoise(10.0)   # the TI-denoise step
     """
 
     def __init__(self, img=None, nr: Optional[int] = None, nc: Optional[int] = None,
@@ -70,8 +76,6 @@ class Wavelets:
                  do_cycle_spinning: bool = False, do_swt: bool = False,
                  ndim: int = 2, dtype=None, seed: int = 0, mode="periodization",
                  precision: Optional[str] = None, device=None):
-        if do_swt:
-            raise _later("the stationary transform (do_swt=True)", 6)
         if not do_separable:
             raise _later("the non-separable transform (do_separable=False)", 11)
         if ndim == 1:
@@ -115,6 +119,9 @@ class Wavelets:
             warnings.warn("cannot initialize wavelet coefficients with nlevels < 1; "
                           "forcing nlevels = 1")
             levels = 1
+        if do_cycle_spinning and do_swt:
+            warnings.warn("makes little sense to use cycle spinning with stationary "
+                          "wavelet transform")
         self._wavelet: Wavelet = get_wavelet(wname)
         hlen = self._wavelet.hlen
         wmax = max_level(min(nr, nc), hlen)
@@ -127,14 +134,14 @@ class Wavelets:
 
         self.spec = WaveletSpec(wname=wname, nr=nr, nc=nc, nlevels=levels,
                                 do_cycle_spinning=do_cycle_spinning, dtype=dtype,
-                                hlen=hlen)
+                                hlen=hlen, do_swt=do_swt)
         self.device = img.device
         self.d_image = img
         self.state = WState.INIT
         self.current_shift_r = 0
         self.current_shift_c = 0
         self._rng = np.random.default_rng(seed)
-        a_shape, det_shapes = coeff_shapes_2d(nr, nc, levels)
+        a_shape, det_shapes = coeff_shapes_2d(nr, nc, levels, do_swt)
         z = lambda s: torch.zeros(s, dtype=dtype, device=self.device)
         self._coeffs = Coeffs2D(z(a_shape), tuple((z(s), z(s), z(s)) for s in det_shapes))
 
@@ -158,6 +165,23 @@ class Wavelets:
             return False
         return True
 
+    def _draw_shifts(self):
+        """The row then the column shift, from ``numpy.random.default_rng(seed)``."""
+        s = self.spec
+        return int(self._rng.integers(0, s.nr)), int(self._rng.integers(0, s.nc))
+
+    def _analysis(self, img: torch.Tensor) -> Coeffs2D:
+        s = self.spec
+        if s.do_swt:
+            return swt2d(img, self._wavelet, s.nlevels)
+        return dwt2d(img, self._wavelet, s.nlevels)
+
+    def _synthesis(self, coeffs: Coeffs2D) -> torch.Tensor:
+        s = self.spec
+        if s.do_swt:
+            return iswt2d(coeffs, self._wavelet)
+        return idwt2d(coeffs, self._wavelet, (s.nr, s.nc))
+
     def forward(self) -> Coeffs2D:
         """Compute the coefficients of the current image.  With cycle
         spinning, the row then the column shift are drawn first from
@@ -165,12 +189,45 @@ class Wavelets:
         s = self.spec
         img = self.d_image
         if s.do_cycle_spinning:
-            self.current_shift_r = int(self._rng.integers(0, s.nr))
-            self.current_shift_c = int(self._rng.integers(0, s.nc))
+            self.current_shift_r, self.current_shift_c = self._draw_shifts()
             img = ops.circshift2d(img, self.current_shift_r, self.current_shift_c)
-        self._coeffs = dwt2d(img, self._wavelet, s.nlevels)
+        self._coeffs = self._analysis(img)
         self.state = WState.FORWARD
         return self._coeffs
+
+    def run_denoise(self, beta, mode: str = "soft", do_thresh_appcoeffs: bool = False,
+                    normalize: bool = False):
+        """The whole denoise step: (cycle-spinning shift) -> analysis ->
+        threshold -> norm1 -> synthesis -> unshift.  With ``do_swt`` and a
+        soft, hard or garrote threshold, the threshold runs inside the
+        synthesis kernels and the norm comes from the un-thresholded
+        coefficients (``ops.thresholded_norm1``).  Returns ``(denoised,
+        norm1)`` as tensors on the facade's device and leaves the facade's
+        image and coefficients as they were; a shift is drawn as in
+        :meth:`forward`."""
+        from .models.denoiser import _THRESH, check_mode
+
+        check_mode(mode)
+        s = self.spec
+        img = self.d_image
+        sr = sc = 0
+        if s.do_cycle_spinning:
+            sr, sc = self._draw_shifts()
+            img = ops.circshift2d(img, sr, sc)
+        c = self._analysis(img)
+        if s.do_swt:
+            n1 = ops.thresholded_norm1(c, beta, mode=mode, normalize=normalize,
+                                       do_thresh_appcoeffs=do_thresh_appcoeffs)
+            out = iswt2d_denoise(c, self._wavelet, beta, mode=mode, normalize=normalize,
+                                 do_thresh_appcoeffs=do_thresh_appcoeffs)
+        else:
+            c = _THRESH[mode](c, beta, normalize=normalize,
+                              do_thresh_appcoeffs=do_thresh_appcoeffs)
+            n1 = ops.norm1(c)
+            out = self._synthesis(c)
+        if s.do_cycle_spinning:
+            out = ops.circshift2d(out, -sr, -sc)
+        return out, n1
 
     def inverse(self) -> torch.Tensor:
         """Reconstruct the image from the coefficients."""
@@ -179,30 +236,31 @@ class Wavelets:
                           "via get_image()")
             return self.d_image
         s = self.spec
-        img = idwt2d(self._coeffs, self._wavelet, (s.nr, s.nc))
+        img = self._synthesis(self._coeffs)
         if s.do_cycle_spinning:
             img = ops.circshift2d(img, -self.current_shift_r, -self.current_shift_c)
         self.d_image = img
         self.state = WState.INVERSE
         return img
 
-    def soft_threshold(self, beta, do_thresh_appcoeffs: bool = False,
-                       normalize: bool = False) -> None:
+    def _threshold(self, fn, beta, do_thresh_appcoeffs: bool, normalize: bool) -> None:
         if not self._check_not_inverse("threshold coefficients"):
             return
-        self._coeffs = ops.soft_threshold(self._coeffs, beta,
-                                          do_thresh_appcoeffs=do_thresh_appcoeffs,
-                                          normalize=normalize)
+        self._coeffs = fn(self._coeffs, beta, do_thresh_appcoeffs=do_thresh_appcoeffs,
+                          normalize=normalize)
         self.state = WState.THRESHOLD
+
+    def soft_threshold(self, beta, do_thresh_appcoeffs: bool = False,
+                       normalize: bool = False) -> None:
+        self._threshold(ops.soft_threshold, beta, do_thresh_appcoeffs, normalize)
 
     def hard_threshold(self, beta, do_thresh_appcoeffs: bool = False,
                        normalize: bool = False) -> None:
-        if not self._check_not_inverse("threshold coefficients"):
-            return
-        self._coeffs = ops.hard_threshold(self._coeffs, beta,
-                                          do_thresh_appcoeffs=do_thresh_appcoeffs,
-                                          normalize=normalize)
-        self.state = WState.THRESHOLD
+        self._threshold(ops.hard_threshold, beta, do_thresh_appcoeffs, normalize)
+
+    def garrote_threshold(self, beta, do_thresh_appcoeffs: bool = False,
+                          normalize: bool = False) -> None:
+        self._threshold(ops.garrote_threshold, beta, do_thresh_appcoeffs, normalize)
 
     def norm1(self) -> float:
         return float(ops.norm1(self._coeffs))
@@ -233,5 +291,5 @@ class Wavelets:
     def __repr__(self):
         s = self.spec
         return (f"Wavelets({s.wname!r}, shape=({s.nr}, {s.nc}), levels={s.nlevels}, "
-                f"cycle_spinning={s.do_cycle_spinning}, dtype={s.dtype}, "
+                f"swt={s.do_swt}, cycle_spinning={s.do_cycle_spinning}, dtype={s.dtype}, "
                 f"device={self.device}, state={self.state.value})")

@@ -1,17 +1,21 @@
-"""Separable multi-level 2D DWT, forward and inverse (periodization).
+"""Separable multi-level 2D transforms (periodization): the decimated DWT
+and the stationary (a-trous) SWT, forward and inverse, and the fused
+threshold-in-inverse of the TI-denoise step.
 
-Counterpart of ``dwt2d``/``idwt2d`` in ``pdwt_tpu/core/separable.py`` and
-of their Pallas dispatch (``_dwt2d_pallas``/``_idwt2d_pallas``).  The
+Counterpart of ``dwt2d``/``idwt2d``/``swt2d``/``iswt2d``/``iswt2d_denoise``
+in ``pdwt_tpu/core/separable.py`` and of their Pallas dispatch.  The
 coefficient layout is the same, ``[A_n, (H1,V1,D1), ..., (Hn,Vn,Dn)]``:
 ``Coeffs2D(approx, details)`` with ``details[i] = (H, V, D)`` of level
 i+1, H being high-pass along the rows and V high-pass along the columns.
-Leading dimensions act as the batch.
+The SWT keeps every band at the image's size.  Leading dimensions act as
+the batch.
 
 Every level runs through the kernel wrappers of ``pdwt_tpu_torch.kernels``:
 the CUDA kernels for CUDA tensors, their plain versions for CPU tensors.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
@@ -57,6 +61,10 @@ def _flat(t: torch.Tensor) -> torch.Tensor:
     return t.reshape((-1,) + tuple(t.shape[-2:])).contiguous()
 
 
+def _unflat(t: torch.Tensor, batch: Tuple[int, ...]) -> torch.Tensor:
+    return t.reshape(batch + tuple(t.shape[1:]))
+
+
 def dwt2d(x: torch.Tensor, wav: Wavelet, levels: int, *,
           mode="periodization") -> Coeffs2D:
     """Multi-level separable 2D DWT over the trailing two axes.
@@ -80,8 +88,8 @@ def dwt2d(x: torch.Tensor, wav: Wavelet, levels: int, *,
             break
         a, h, v, d = kernels.fwd_level_2d_ad(a, lo, hi)
         details.append((h, v, d))
-    unflat = lambda t: t.reshape(batch + tuple(t.shape[1:]))
-    return Coeffs2D(unflat(a), tuple(tuple(map(unflat, band)) for band in details))
+    return Coeffs2D(_unflat(a, batch),
+                    tuple(tuple(_unflat(t, batch) for t in band) for band in details))
 
 
 def idwt2d(coeffs: Coeffs2D, wav: Wavelet, shape: Tuple[int, int], *,
@@ -115,4 +123,66 @@ def idwt2d(coeffs: Coeffs2D, wav: Wavelet, shape: Tuple[int, int], *,
         h, v, d = map(_flat, coeffs.details[i])
         y = kernels.inv_level_2d_ad(a, h, v, d, lo, hi)
         a = y[:, :rows[i], :cols[i]].contiguous()
-    return a.reshape(batch + tuple(a.shape[1:]))
+    return _unflat(a, batch)
+
+
+def swt2d(x: torch.Tensor, wav: Wavelet, levels: int, *, keep_approx: bool = False):
+    """Stationary (a-trous) 2D transform over the trailing two axes: level
+    L filters with taps ``2^(L-1)`` apart, one kernel launch per level.
+    ``keep_approx=True`` also returns the approximations
+    ``(A_1, ..., A_levels)``, as ``(coeffs, approxs)``."""
+    if x.ndim < 2:
+        raise ValueError(f"expected at least 2D input, got shape {tuple(x.shape)}")
+    check_supported(x, "periodization")
+    batch = tuple(x.shape[:-2])
+    a = _flat(x)
+    details, approxs = [], []
+    for lvl in range(1, levels + 1):
+        a, h, v, d = kernels.swt_fwd_level_2d_ad(a, wav.dec_lo, wav.dec_hi, lvl)
+        details.append(tuple(_unflat(t, batch) for t in (h, v, d)))
+        if keep_approx:
+            approxs.append(_unflat(a, batch))
+    coeffs = Coeffs2D(_unflat(a, batch), tuple(details))
+    return (coeffs, tuple(approxs)) if keep_approx else coeffs
+
+
+def iswt2d(coeffs: Coeffs2D, wav: Wavelet) -> torch.Tensor:
+    """Inverse of :func:`swt2d`, one kernel launch per level, deepest first."""
+    check_supported(coeffs.approx, "periodization")
+    batch = tuple(coeffs.approx.shape[:-2])
+    a = _flat(coeffs.approx)
+    for i in range(coeffs.levels - 1, -1, -1):
+        h, v, d = map(_flat, coeffs.details[i])
+        a = kernels.swt_inv_level_2d_ad(a, h, v, d, wav.rec_lo, wav.rec_hi, i + 1)
+    return _unflat(a, batch)
+
+
+def iswt2d_denoise(coeffs: Coeffs2D, wav: Wavelet, beta, *, mode: str = "soft",
+                   normalize: bool = False, do_thresh_appcoeffs: bool = False
+                   ) -> torch.Tensor:
+    """Threshold the details and invert the SWT in one pass per level: the
+    same values as ``<mode>_threshold`` followed by :func:`iswt2d`, with
+    the threshold inside the synthesis kernel, so thresholded details are
+    never stored.  ``mode`` is soft, hard or garrote; a scalar ``beta`` (a
+    number or a one-element tensor, differentiable) is divided by
+    sqrt(2)^(i+1) at level i+1 under ``normalize``; a per-level (per-band)
+    sequence goes through the threshold ops and :func:`iswt2d`."""
+    from ..ops.threshold import THR_ELEM, THRESHOLD_OPS, _app_beta
+
+    if mode not in THR_ELEM:
+        raise ValueError(f"the fused denoise takes {sorted(THR_ELEM)}, got {mode!r}")
+    if isinstance(beta, (list, tuple)):
+        return iswt2d(THRESHOLD_OPS[mode](coeffs, beta, normalize=normalize,
+                                          do_thresh_appcoeffs=do_thresh_appcoeffs), wav)
+    check_supported(coeffs.approx, "periodization")
+    levels = coeffs.levels
+    batch = tuple(coeffs.approx.shape[:-2])
+    a = _flat(coeffs.approx)
+    if do_thresh_appcoeffs:
+        a = THR_ELEM[mode](a, _app_beta(beta, levels, normalize))
+    for i in range(levels - 1, -1, -1):
+        h, v, d = map(_flat, coeffs.details[i])
+        bi = beta / math.sqrt(2.0) ** (i + 1) if normalize else beta
+        a = kernels.swt_inv_level_2d_denoise_ad(a, h, v, d, bi, wav.rec_lo, wav.rec_hi,
+                                                i + 1, mode)
+    return _unflat(a, batch)

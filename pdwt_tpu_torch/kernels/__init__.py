@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
 Importing this package builds nothing; the CUDA library is compiled at
-the first kernel launch (see ``_build.py``)."""
+the first kernel launch (see ``_build.py``).  ``LAUNCHES`` counts the
+launches of every kernel of the package."""
+from ._launch import LAUNCHES, reset_launch_counts
 from .separable import (
-    LAUNCHES,
     fwd_level_2d,
     fwd_level_2d_ad,
     fwd_level_2d_ref,
@@ -16,8 +17,16 @@ from .separable import (
     inv_tail_2d,
     inv_tail_2d_ad,
     inv_tail_2d_ref,
-    reset_launch_counts,
     tail_supported,
+)
+from .swt import (
+    swt_fwd_level_2d,
+    swt_fwd_level_2d_ad,
+    swt_fwd_level_2d_ref,
+    swt_inv_level_2d,
+    swt_inv_level_2d_ad,
+    swt_inv_level_2d_denoise_ad,
+    swt_inv_level_2d_ref,
 )
 
 __all__ = [
@@ -25,4 +34,6 @@ __all__ = [
     "fwd_level_2d", "inv_level_2d", "fwd_tail_2d", "inv_tail_2d",
     "fwd_level_2d_ref", "inv_level_2d_ref", "fwd_tail_2d_ref", "inv_tail_2d_ref",
     "fwd_level_2d_ad", "inv_level_2d_ad", "fwd_tail_2d_ad", "inv_tail_2d_ad",
+    "swt_fwd_level_2d", "swt_inv_level_2d", "swt_fwd_level_2d_ref", "swt_inv_level_2d_ref",
+    "swt_fwd_level_2d_ad", "swt_inv_level_2d_ad", "swt_inv_level_2d_denoise_ad",
 ]

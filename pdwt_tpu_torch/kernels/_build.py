@@ -1,10 +1,12 @@
-"""Build and load the CUDA kernels of ``csrc/separable.cu``.
+"""Build and load the CUDA kernels of ``csrc/*.cu``.
 
-The source is compiled with ``nvcc`` into a shared library with a plain C
-interface, on first use, into ``kernels/_build/`` (listed in
+Each source is compiled with ``nvcc`` into an object file, all of them at
+once in parallel, and the objects are linked into one shared library with
+a plain C interface, on first use, into ``kernels/_build/`` (listed in
 ``.gitignore``), and loaded with ctypes.  The library's file name carries a
-hash of the source and the flags, so an edited source is rebuilt.  Nothing
-is built when the package is imported, and a failed build or load raises.
+hash of every source and the flags, so editing any source rebuilds it.
+Nothing is built when the package is imported, and a failed build or load
+raises.
 """
 from __future__ import annotations
 
@@ -15,10 +17,10 @@ import os
 import subprocess
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "separable.cu")
+SOURCES = tuple(os.path.join(_HERE, "csrc", name) for name in ("separable.cu", "swt.cu"))
 BUILD_DIR = os.path.join(_HERE, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -34,9 +36,11 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libpdwt_separable_{digest.hexdigest()[:16]}.so")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"libpdwt_kernels_{digest.hexdigest()[:16]}.so")
 
 
 def build_log() -> str:
@@ -49,22 +53,35 @@ def build_log() -> str:
         return f.read()
 
 
+def _run_all(cmds):
+    """Run the commands at once; raise with nvcc's output if one fails,
+    else return their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {p.returncode} on {cmd[-1]}:\n{out}")
+    return "".join(outs)
+
+
 def _build(so: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    tmp = f"{so}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, src] for o, src in zip(objs, SOURCES)])
+    log += _run_all([[nvcc, *ARCH, "-shared", "-o", tmp + ".tmp", *objs]])
+    for o in objs:
+        os.remove(o)
     with open(so + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
+        f.write(log)
+    os.replace(tmp + ".tmp", so)
 
 
 @functools.cache
 def load() -> ctypes.CDLL:
-    """The kernel library, built first if its source changed."""
+    """The kernel library, built first if a source changed."""
     so = library_path()
     if not os.path.isfile(so):
         _build(so)
@@ -75,6 +92,11 @@ def load() -> ctypes.CDLL:
         "pdwt_inv_level_2d": [P, P, P, P, P, I, I, I, P, P, I, P, P],
         "pdwt_fwd_tail_2d": [P, P, P, I, I, I, I, P, P, I, I, P],
         "pdwt_inv_tail_2d": [P, P, P, I, I, I, I, P, P, I, P, P],
+        # x, a, h, v, d, B, R, C, taps_lo, taps_hi, hlen, dilation, center, stream
+        "pdwt_swt_fwd_level_2d": [P, P, P, P, P, I, I, I, P, P, I, I, I, P],
+        # a, h, v, d, out, B, R, C, taps_lo, taps_hi, hlen, dilation, center,
+        # thresh_mode, beta (one float on the device), stream
+        "pdwt_swt_inv_level_2d": [P, P, P, P, P, I, I, I, P, P, I, I, I, I, P, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

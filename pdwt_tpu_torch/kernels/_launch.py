@@ -1,0 +1,79 @@
+"""Launch plumbing shared by the kernel wrappers: the launch counters,
+the CPU/CUDA dispatch check, tap conversion and the ctypes call."""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import numpy as np
+import torch
+
+#: Longest filter the CUDA kernels take (PDWT_MAX_HLEN in csrc/*.cu).
+MAX_HLEN = 128
+
+#: Kernel launches per wrapper since the last reset_launch_counts().
+LAUNCHES: Dict[str, int] = {"fwd_level_2d": 0, "inv_level_2d": 0,
+                            "fwd_tail_2d": 0, "inv_tail_2d": 0,
+                            "swt_fwd_level_2d": 0, "swt_inv_level_2d": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def on_cpu(*ts: torch.Tensor) -> bool:
+    """True for CPU tensors (the wrapper runs its plain version); False for
+    tensors a CUDA kernel takes; raises on anything else."""
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for t in ts:
+        if t.dtype != torch.float32:
+            raise NotImplementedError(
+                f"the CUDA kernels take float32, got {t.dtype}; other dtypes "
+                "come with the precision tiers (ROADMAP queue 1, item 9)")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernels take contiguous tensors")
+        if t.dim() != 3 or t.numel() == 0:
+            raise ValueError(f"expected a non-empty (B, R, C) tensor, got {tuple(t.shape)}")
+    return False
+
+
+def taps(f) -> np.ndarray:
+    """Correlation-order float32 taps (kept alive by the caller)."""
+    f = np.asarray(f, dtype=np.float64)
+    if not 2 <= len(f) <= MAX_HLEN:
+        raise ValueError(f"the CUDA kernels take filters of 2..{MAX_HLEN} taps, got {len(f)}")
+    return np.ascontiguousarray(f[::-1], dtype=np.float32)
+
+
+def ptr(a) -> ctypes.c_void_p:
+    if isinstance(a, torch.Tensor):
+        return ctypes.c_void_p(a.data_ptr())
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def launch(name: str, device: torch.device, args) -> None:
+    """Call ``pdwt_<name>`` of the kernel library on the current stream of
+    ``device``; raise if the launch was refused, else count it."""
+    from . import _build
+
+    lib = _build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, "pdwt_" + name)(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        msg = lib.pdwt_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {err})")
+    LAUNCHES[name] += 1
+
+
+def rev(f) -> np.ndarray:
+    """Reversed float64 filter: the adjoint pairing's taps."""
+    return np.asarray(f, dtype=np.float64)[::-1].copy()

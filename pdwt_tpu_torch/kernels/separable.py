@@ -14,7 +14,8 @@ wrapper            computes                                    plain version
 
 A wrapper given a CPU tensor returns its plain version, built on
 ``core/conv.py``; given a CUDA tensor it launches its kernel or raises.
-Each launch adds one to ``LAUNCHES[<wrapper name>]``.
+Each launch adds one to ``LAUNCHES[<wrapper name>]`` (one dict for
+every kernel of the package, in ``_launch.py``).
 
 Filters are forward-convention float64 arrays (``dec_lo``/``dec_hi`` for
 analysis, ``rec_lo``/``rec_hi`` for synthesis), as in the JAX kernels; the
@@ -29,28 +30,19 @@ autograd Function's backward is the paired kernel with reversed taps.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core import conv
+from ._launch import LAUNCHES, MAX_HLEN, reset_launch_counts  # noqa: F401 (re-exported)
+from ._launch import launch, on_cpu, ptr, rev, taps
 
-#: Longest filter the CUDA kernels take (PDWT_MAX_HLEN in separable.cu).
-MAX_HLEN = 128
 #: Most levels one tail launch fuses (PDWT_MAX_TAIL_LEVELS).
 MAX_TAIL_LEVELS = 16
 #: Dynamic shared memory one block may use on Hopper (227 KiB).
 SMEM_PER_BLOCK = 232448
-
-#: Kernel launches per wrapper since the last reset_launch_counts().
-LAUNCHES: Dict[str, int] = {"fwd_level_2d": 0, "inv_level_2d": 0,
-                            "fwd_tail_2d": 0, "inv_tail_2d": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 Bands = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -109,57 +101,9 @@ def tail_supported(shape: Tuple[int, int], hlen: int, levels: int) -> bool:
     return 2 * r * c * 4 <= SMEM_PER_BLOCK
 
 
-def _is_cpu(*ts: torch.Tensor) -> bool:
-    devs = {t.device for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    for t in ts:
-        if t.dtype != torch.float32:
-            raise NotImplementedError(
-                f"the CUDA kernels take float32, got {t.dtype}; other dtypes "
-                "come with the precision tiers (ROADMAP queue 1, item 9)")
-        if not t.is_contiguous():
-            raise ValueError("the CUDA kernels take contiguous tensors")
-        if t.dim() != 3 or t.numel() == 0:
-            raise ValueError(f"expected a non-empty (B, R, C) tensor, got {tuple(t.shape)}")
-    return False
-
-
-def _taps(f) -> np.ndarray:
-    """Correlation-order float32 taps (kept alive by the caller)."""
-    f = np.asarray(f, dtype=np.float64)
-    if not 2 <= len(f) <= MAX_HLEN:
-        raise ValueError(f"the CUDA kernels take filters of 2..{MAX_HLEN} taps, got {len(f)}")
-    return np.ascontiguousarray(f[::-1], dtype=np.float32)
-
-
 def _geo(hlen: int) -> np.ndarray:
     g = conv.poly_geometry(hlen)
     return np.array([*g.p, *g.o, *g.nb, g.lo, g.hi], dtype=np.int32)
-
-
-def _ptr(a) -> ctypes.c_void_p:
-    if isinstance(a, torch.Tensor):
-        return ctypes.c_void_p(a.data_ptr())
-    return a.ctypes.data_as(ctypes.c_void_p)
-
-
-def _launch(name: str, device: torch.device, args) -> None:
-    from . import _build
-
-    lib = _build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, "pdwt_" + name)(*args, ctypes.c_void_p(stream))
-    if err != 0:
-        msg = lib.pdwt_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {err})")
-    LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -169,46 +113,46 @@ def _launch(name: str, device: torch.device, args) -> None:
 def fwd_level_2d(x: torch.Tensor, dec_lo, dec_hi):
     """One analysis level on an even-sized (B, R, C) image -> (a, h, v, d),
     each (B, R/2, C/2)."""
-    if _is_cpu(x):
+    if on_cpu(x):
         return fwd_level_2d_ref(x, dec_lo, dec_hi)
     B, R, C = x.shape
     if R % 2 or C % 2:
         raise ValueError(f"fwd_level_2d takes even sizes, got {(R, C)}")
-    tl, th = _taps(dec_lo), _taps(dec_hi)
+    tl, th = taps(dec_lo), taps(dec_hi)
     outs = [torch.empty((B, R // 2, C // 2), device=x.device, dtype=x.dtype)
             for _ in range(4)]
-    _launch("fwd_level_2d", x.device,
-            [_ptr(x), *map(_ptr, outs), B, R, C, _ptr(tl), _ptr(th), len(tl),
-             conv.fwd_center(len(tl))])
+    launch("fwd_level_2d", x.device,
+           [ptr(x), *map(ptr, outs), B, R, C, ptr(tl), ptr(th), len(tl),
+            conv.fwd_center(len(tl))])
     return tuple(outs)
 
 
 def inv_level_2d(a, h, v, d, rec_lo, rec_hi) -> torch.Tensor:
     """One synthesis level: (B, Mr, Mc) subbands -> (B, 2Mr, 2Mc)."""
-    if _is_cpu(a, h, v, d):
+    if on_cpu(a, h, v, d):
         return inv_level_2d_ref(a, h, v, d, rec_lo, rec_hi)
     if not a.shape == h.shape == v.shape == d.shape:
         raise ValueError("the four subbands must have one shape")
     B, mr, mc = a.shape
-    tl, th = _taps(rec_lo), _taps(rec_hi)
+    tl, th = taps(rec_lo), taps(rec_hi)
     geo = _geo(len(tl))
     out = torch.empty((B, 2 * mr, 2 * mc), device=a.device, dtype=a.dtype)
-    _launch("inv_level_2d", a.device,
-            [*map(_ptr, (a, h, v, d, out)), B, mr, mc, _ptr(tl), _ptr(th),
-             len(tl), _ptr(geo)])
+    launch("inv_level_2d", a.device,
+           [*map(ptr, (a, h, v, d, out)), B, mr, mc, ptr(tl), ptr(th),
+            len(tl), ptr(geo)])
     return out
 
 
 def fwd_tail_2d(x: torch.Tensor, dec_lo, dec_hi, levels: int):
     """All ``levels`` remaining analysis levels of a (B, R, C) image in one
     launch -> (a, [(h, v, d) of level 1, level 2, ...])."""
-    if _is_cpu(x):
+    if on_cpu(x):
         return fwd_tail_2d_ref(x, dec_lo, dec_hi, levels)
     B, R, C = x.shape
     if not tail_supported((R, C), len(dec_lo), levels):
         raise ValueError(f"fwd_tail_2d: {levels} levels of {(R, C)} with "
                          f"{len(dec_lo)} taps is not tail_supported")
-    tl, th = _taps(dec_lo), _taps(dec_hi)
+    tl, th = taps(dec_lo), taps(dec_hi)
     a = torch.empty((B, R >> levels, C >> levels), device=x.device, dtype=x.dtype)
     dets: List[Bands] = []
     for lvl in range(1, levels + 1):
@@ -216,9 +160,9 @@ def fwd_tail_2d(x: torch.Tensor, dec_lo, dec_hi, levels: int):
                                       dtype=x.dtype) for _ in range(3)))
     ptrs = (ctypes.c_void_p * (3 * levels))(
         *[t.data_ptr() for band in dets for t in band])
-    _launch("fwd_tail_2d", x.device,
-            [_ptr(x), _ptr(a), ptrs, B, R, C, levels, _ptr(tl), _ptr(th),
-             len(tl), conv.fwd_center(len(tl))])
+    launch("fwd_tail_2d", x.device,
+           [ptr(x), ptr(a), ptrs, B, R, C, levels, ptr(tl), ptr(th),
+            len(tl), conv.fwd_center(len(tl))])
     return a, dets
 
 
@@ -226,7 +170,7 @@ def inv_tail_2d(a: torch.Tensor, details: Sequence[Bands], rec_lo, rec_hi):
     """Inverse of :func:`fwd_tail_2d`: ``a`` (B, m, m') and ``details``
     (deepest level first) -> (B, m << k, m' << k), k = len(details)."""
     flat = [t for band in details for t in band]
-    if _is_cpu(a, *flat):
+    if on_cpu(a, *flat):
         return inv_tail_2d_ref(a, details, rec_lo, rec_hi)
     levels = len(details)
     B, mr, mc = a.shape
@@ -238,23 +182,19 @@ def inv_tail_2d(a: torch.Tensor, details: Sequence[Bands], rec_lo, rec_hi):
     if not tail_supported((mr << levels, mc << levels), len(rec_lo), levels):
         raise ValueError(f"inv_tail_2d: {levels} levels of {(mr, mc)} with "
                          f"{len(rec_lo)} taps is not tail_supported")
-    tl, th = _taps(rec_lo), _taps(rec_hi)
+    tl, th = taps(rec_lo), taps(rec_hi)
     geo = _geo(len(tl))
     out = torch.empty((B, mr << levels, mc << levels), device=a.device, dtype=a.dtype)
     ptrs = (ctypes.c_void_p * (3 * levels))(*[t.data_ptr() for t in flat])
-    _launch("inv_tail_2d", a.device,
-            [_ptr(a), ptrs, _ptr(out), B, mr, mc, levels, _ptr(tl), _ptr(th),
-             len(tl), _ptr(geo)])
+    launch("inv_tail_2d", a.device,
+           [ptr(a), ptrs, ptr(out), B, mr, mc, levels, ptr(tl), ptr(th),
+            len(tl), ptr(geo)])
     return out
 
 
 # ---------------------------------------------------------------------------
 # autograd: each backward is the paired kernel with reversed taps
 # ---------------------------------------------------------------------------
-
-def _rev(f) -> np.ndarray:
-    return np.asarray(f, dtype=np.float64)[::-1].copy()
-
 
 def _c(ts):
     return [t.contiguous() for t in ts]
@@ -269,7 +209,7 @@ class _FwdLevel2D(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ga, gh, gv, gd):
         lo, hi = ctx.filters
-        return inv_level_2d(*_c((ga, gh, gv, gd)), _rev(lo), _rev(hi)), None, None
+        return inv_level_2d(*_c((ga, gh, gv, gd)), rev(lo), rev(hi)), None, None
 
 
 class _InvLevel2D(torch.autograd.Function):
@@ -281,7 +221,7 @@ class _InvLevel2D(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         lo, hi = ctx.filters
-        return (*fwd_level_2d(gy.contiguous(), _rev(lo), _rev(hi)), None, None)
+        return (*fwd_level_2d(gy.contiguous(), rev(lo), rev(hi)), None, None)
 
 
 class _FwdTail2D(torch.autograd.Function):
@@ -296,7 +236,7 @@ class _FwdTail2D(torch.autograd.Function):
         lo, hi = ctx.filters
         gdets = _c(gdets)
         bands = [tuple(gdets[3 * k:3 * k + 3]) for k in range(len(gdets) // 3)]
-        y = inv_tail_2d(ga.contiguous(), bands[::-1], _rev(lo), _rev(hi))
+        y = inv_tail_2d(ga.contiguous(), bands[::-1], rev(lo), rev(hi))
         return y, None, None, None
 
 
@@ -311,7 +251,7 @@ class _InvTail2D(torch.autograd.Function):
     def backward(ctx, gy):
         lo, hi = ctx.filters
         levels = len(ctx.needs_input_grad[3:]) // 3
-        ga, gdets = fwd_tail_2d(gy.contiguous(), _rev(lo), _rev(hi), levels)
+        ga, gdets = fwd_tail_2d(gy.contiguous(), rev(lo), rev(hi), levels)
         flat = [t for band in gdets[::-1] for t in band]  # deepest first
         return (None, None, ga, *flat)
 

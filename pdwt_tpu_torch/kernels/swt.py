@@ -1,0 +1,241 @@
+"""Stationary (a-trous) 2D level kernels: wrappers, plain versions, gradients.
+
+Counterpart of the 2D part of ``pdwt_tpu/kernels/swt_pallas.py``.  Two
+CUDA kernels (``csrc/swt.cu``) carry the TI-denoise path:
+
+====================  ===============================================  ===========================
+wrapper               computes                                         plain version
+====================  ===============================================  ===========================
+``swt_fwd_level_2d``  one a-trous analysis level, both passes fused    ``swt_fwd_level_2d_ref``
+``swt_inv_level_2d``  one a-trous synthesis level, optionally with a   ``swt_inv_level_2d_ref``
+                      soft/hard/garrote threshold of H, V, D fused
+====================  ===============================================  ===========================
+
+Level L dilates the taps by ``f = 2^(L-1)``; every output is full size.  A
+wrapper given a CPU tensor returns its plain version, built on
+``core/conv.py``; given a CUDA tensor it launches its kernel or raises.
+Each launch adds one to ``LAUNCHES[<wrapper name>]``.
+
+Filters are forward-convention float64 arrays.  As in the JAX wrapper
+(``swt_pallas.py:369``), the synthesis's 1/2 per pass is folded into the
+inverse's taps here, not in the kernel.
+
+Gradients: the a-trous analysis with filters g at center
+``fwd_center(hlen) * f`` has as adjoint the synthesis with filters g[::-1]
+at ``(hlen - 1 - fwd_center(hlen)) * f``, and that equals
+``swt_inv_center(hlen) * f`` for odd as for even ``hlen``.  The inverse
+kernel scales its taps by 1/2, so the forward's backward is the inverse
+kernel with ``2 * g[::-1]``, and the inverse's backward the forward kernel
+with ``0.5 * g[::-1]`` (``swt_pallas.py:703-737``).  The fused denoise's
+backward runs the forward kernel on the cotangent and chains it through
+the threshold's a.e. derivative, masked by the un-thresholded details
+(``swt_pallas.py:767-786``).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core import conv
+from ._launch import launch, on_cpu, ptr, rev, taps
+
+#: thresh_mode codes of pdwt_swt_inv_level_2d (csrc/swt.cu)
+THRESH_CODES = {None: 0, "soft": 1, "hard": 2, "garrote": 3}
+
+Threshold = Optional[Tuple[str, object]]
+
+
+def _dilation(level: int) -> int:
+    if level < 1:
+        raise ValueError(f"level must be >= 1, got {level}")
+    return 1 << (level - 1)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (core/conv.py), any device, float32 or float64
+# ---------------------------------------------------------------------------
+
+def swt_fwd_level_2d_ref(x: torch.Tensor, dec_lo, dec_hi, level: int):
+    """One a-trous analysis level on (B, R, C): columns, then rows."""
+    f = _dilation(level)
+    dec = (dec_lo, dec_hi)
+    z = conv.analysis_pass(x[:, None], dec, axis=-1, dilation=f, decimate=False)
+    z = conv.analysis_pass(z, dec, axis=-2, dilation=f, decimate=False)
+    return tuple(z[:, k].contiguous() for k in range(4))
+
+
+def swt_inv_level_2d_ref(a, h, v, d, rec_lo, rec_hi, level: int,
+                         threshold: Threshold = None) -> torch.Tensor:
+    """One a-trous synthesis level, rows then columns, 1/2 per pass;
+    ``threshold=(mode, beta)`` first thresholds H, V and D."""
+    f = _dilation(level)
+    if threshold is not None:
+        from ..ops.threshold import THR_ELEM
+
+        mode, beta = threshold
+        h, v, d = (THR_ELEM[mode](t, beta) for t in (h, v, d))
+    rec = (0.5 * np.asarray(rec_lo, np.float64), 0.5 * np.asarray(rec_hi, np.float64))
+    z = torch.stack([a, h, v, d], dim=1)
+    t = conv.synthesis_pass(z, rec, axis=-2, dilation=f, decimated=False)
+    return conv.synthesis_pass(t, rec, axis=-1, dilation=f, decimated=False)[:, 0].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _check_span(hlen: int, f: int) -> None:
+    if hlen * f >= 2 ** 31:
+        raise ValueError(f"a dilated support of {hlen} x {f} taps overflows the kernels' "
+                         "32-bit indices")
+
+
+def swt_fwd_level_2d(x: torch.Tensor, dec_lo, dec_hi, level: int):
+    """One a-trous analysis level: (B, R, C) -> (a, h, v, d), each (B, R, C).
+    Any size, including one smaller than the dilated support."""
+    if on_cpu(x):
+        return swt_fwd_level_2d_ref(x, dec_lo, dec_hi, level)
+    f = _dilation(level)
+    tl, th = taps(dec_lo), taps(dec_hi)
+    _check_span(len(tl), f)
+    B, R, C = x.shape
+    outs = [torch.empty_like(x) for _ in range(4)]
+    launch("swt_fwd_level_2d", x.device,
+           [ptr(x), *map(ptr, outs), B, R, C, ptr(tl), ptr(th), len(tl), f,
+            conv.fwd_center(len(tl)) * f])
+    return tuple(outs)
+
+
+def _beta_buffer(beta, device: torch.device) -> torch.Tensor:
+    """beta as one float32 on ``device``, with no host synchronisation."""
+    if isinstance(beta, torch.Tensor):
+        if beta.numel() != 1:
+            raise ValueError(f"the fused threshold takes one beta, got shape {tuple(beta.shape)}")
+        return beta.detach().to(device=device, dtype=torch.float32).reshape(1).contiguous()
+    return torch.full((1,), float(beta), dtype=torch.float32, device=device)
+
+
+def swt_inv_level_2d(a, h, v, d, rec_lo, rec_hi, level: int,
+                     threshold: Threshold = None) -> torch.Tensor:
+    """One a-trous synthesis level: four (B, R, C) subbands -> (B, R, C).
+    ``threshold=(mode, beta)``, mode in soft/hard/garrote, thresholds H, V
+    and D as they are read; beta is a number or a one-element tensor.  Not
+    differentiable: see :func:`swt_inv_level_2d_denoise_ad`."""
+    mode, beta = (None, None) if threshold is None else threshold
+    if mode not in THRESH_CODES:
+        raise ValueError(f"threshold mode {mode!r}: the kernel takes soft, hard or garrote")
+    if on_cpu(a, h, v, d):
+        return swt_inv_level_2d_ref(a, h, v, d, rec_lo, rec_hi, level, threshold)
+    if not a.shape == h.shape == v.shape == d.shape:
+        raise ValueError("the four subbands must have one shape")
+    f = _dilation(level)
+    tl = taps(0.5 * np.asarray(rec_lo, np.float64))
+    th = taps(0.5 * np.asarray(rec_hi, np.float64))
+    _check_span(len(tl), f)
+    B, R, C = a.shape
+    out = torch.empty_like(a)
+    buf = None if mode is None else _beta_buffer(beta, a.device)
+    launch("swt_inv_level_2d", a.device,
+           [*map(ptr, (a, h, v, d, out)), B, R, C, ptr(tl), ptr(th), len(tl), f,
+            conv.swt_inv_center(len(tl)) * f, THRESH_CODES[mode],
+            None if buf is None else ptr(buf)])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+def _c(ts):
+    return [t.contiguous() for t in ts]
+
+
+class _SwtFwdLevel2D(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dec_lo, dec_hi, level):
+        ctx.args = (dec_lo, dec_hi, level)
+        return swt_fwd_level_2d(x, dec_lo, dec_hi, level)
+
+    @staticmethod
+    def backward(ctx, ga, gh, gv, gd):
+        lo, hi, level = ctx.args
+        y = swt_inv_level_2d(*_c((ga, gh, gv, gd)), 2.0 * rev(lo), 2.0 * rev(hi), level)
+        return y, None, None, None
+
+
+class _SwtInvLevel2D(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, h, v, d, rec_lo, rec_hi, level):
+        ctx.args = (rec_lo, rec_hi, level)
+        return swt_inv_level_2d(a, h, v, d, rec_lo, rec_hi, level)
+
+    @staticmethod
+    def backward(ctx, gy):
+        lo, hi, level = ctx.args
+        return (*swt_fwd_level_2d(gy.contiguous(), 0.5 * rev(lo), 0.5 * rev(hi), level),
+                None, None, None)
+
+
+def _thresh_vjp_factors(mode: str, t: torch.Tensor, b):
+    """(d thresh / d x, d thresh / d beta) where |t| > b, the a.e.
+    derivatives of the thresholds (``swt_pallas.py:217-228``); None for a
+    zero derivative."""
+    if mode == "soft":
+        return None, -torch.sign(t)
+    if mode == "hard":
+        return None, None
+    if mode == "garrote":
+        safe = torch.where(t == 0, 1.0, t)
+        return 1.0 + (b * b) / (safe * safe), -2.0 * b / safe
+    raise ValueError(mode)
+
+
+class _SwtInvLevel2DDenoise(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, h, v, d, beta, rec_lo, rec_hi, level, mode):
+        ctx.args = (rec_lo, rec_hi, level, mode)
+        ctx.beta_is_tensor = isinstance(beta, torch.Tensor)
+        ctx.beta = None if ctx.beta_is_tensor else beta
+        ctx.save_for_backward(h, v, d, *([beta] if ctx.beta_is_tensor else []))
+        return swt_inv_level_2d(a, h, v, d, rec_lo, rec_hi, level, threshold=(mode, beta))
+
+    @staticmethod
+    def backward(ctx, gy):
+        lo, hi, level, mode = ctx.args
+        h, v, d, *rest = ctx.saved_tensors
+        beta = rest[0] if ctx.beta_is_tensor else ctx.beta
+        ga, *gbands = swt_fwd_level_2d(gy.contiguous(), 0.5 * rev(lo), 0.5 * rev(hi), level)
+        b = (beta.detach().to(h.dtype) if ctx.beta_is_tensor
+             else torch.tensor(beta, dtype=h.dtype))
+        outs, gbeta = [], None
+        for t, g in zip((h, v, d), gbands):
+            mask = t.abs() > b
+            dfdx, dfdb = _thresh_vjp_factors(mode, t, b)
+            outs.append(torch.where(mask, g if dfdx is None else g * dfdx, 0.0))
+            if dfdb is not None and ctx.beta_is_tensor:
+                term = torch.where(mask, g * dfdb, 0.0).sum()
+                gbeta = term if gbeta is None else gbeta + term
+        if ctx.beta_is_tensor:
+            gbeta = (torch.zeros_like(beta) if gbeta is None
+                     else gbeta.to(beta.dtype).reshape(beta.shape))
+        return (ga, *outs, gbeta, None, None, None, None)
+
+
+def swt_fwd_level_2d_ad(x, dec_lo, dec_hi, level: int):
+    """Differentiable :func:`swt_fwd_level_2d`."""
+    return _SwtFwdLevel2D.apply(x, dec_lo, dec_hi, level)
+
+
+def swt_inv_level_2d_ad(a, h, v, d, rec_lo, rec_hi, level: int):
+    """Differentiable :func:`swt_inv_level_2d` without a threshold."""
+    return _SwtInvLevel2D.apply(a, h, v, d, rec_lo, rec_hi, level)
+
+
+def swt_inv_level_2d_denoise_ad(a, h, v, d, beta, rec_lo, rec_hi, level: int,
+                                mode: str):
+    """Differentiable fused threshold + synthesis level: the same values as
+    ``swt_inv_level_2d(..., threshold=(mode, beta))``, with gradients for
+    the four subbands and, when ``beta`` is a tensor, for beta."""
+    return _SwtInvLevel2DDenoise.apply(a, h, v, d, beta, rec_lo, rec_hi, level, mode)

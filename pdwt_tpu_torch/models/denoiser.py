@@ -1,6 +1,7 @@
 """Wavelet denoising step (counterpart of ``denoise_step`` in
-``pdwt_tpu/models/denoiser.py``, its DWT branch): random circular shift,
-DWT, threshold, norm, inverse, unshift."""
+``pdwt_tpu/models/denoiser.py``): random circular shift, DWT or SWT,
+threshold, norm, inverse, unshift.  On the SWT branch the TI-denoise step
+fuses the threshold into the inverse."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -8,10 +9,17 @@ from typing import Optional, Tuple
 import torch
 
 from .. import ops
-from ..core.separable import all_periodization, dwt2d, idwt2d
+from ..core.separable import all_periodization, dwt2d, idwt2d, iswt2d, iswt2d_denoise, swt2d
 from ..filters import get_wavelet
+from ..ops.threshold import THRESHOLD_OPS as _THRESH
 
-_THRESH = {"soft": ops.soft_threshold, "hard": ops.hard_threshold}
+
+def check_mode(mode: str) -> None:
+    """Raise on a threshold type the port does not have yet."""
+    if mode not in _THRESH:
+        raise NotImplementedError(
+            f"threshold mode {mode!r}: the port has {sorted(_THRESH)}; the "
+            "others come with ROADMAP queue 1, item 4")
 
 
 def denoise_step(img: torch.Tensor, generator: Optional[torch.Generator], wav,
@@ -22,16 +30,15 @@ def denoise_step(img: torch.Tensor, generator: Optional[torch.Generator], wav,
 
     ``generator=None`` disables cycle spinning.  Otherwise the row and
     column shifts are drawn, in that order, uniformly in [0, Nr) and
-    [0, Nc) from ``generator``.  ``mode`` is the threshold type."""
-    if swt:
-        raise NotImplementedError("swt=True comes with ROADMAP queue 1, item 6")
+    [0, Nc) from ``generator``.  ``mode`` is the threshold type.  With
+    ``swt=True`` and a scalar ``beta`` the threshold runs inside the
+    inverse's kernel and the norm comes from the un-thresholded
+    coefficients (``ops.thresholded_norm1``): the thresholded tree is never
+    built."""
     if not all_periodization(boundary):
         raise NotImplementedError(
             f"boundary={boundary!r} comes with ROADMAP queue 1, item 10")
-    if mode not in _THRESH:
-        raise NotImplementedError(
-            f"threshold mode {mode!r}: the port has {sorted(_THRESH)}; the "
-            "others come with ROADMAP queue 1, item 4")
+    check_mode(mode)
     wav = get_wavelet(wav) if isinstance(wav, str) else wav
     nr, nc = img.shape[-2:]
     if generator is not None:
@@ -39,10 +46,18 @@ def denoise_step(img: torch.Tensor, generator: Optional[torch.Generator], wav,
                                            device=generator.device))
         sr, sc = draw(nr), draw(nc)
         img = ops.circshift2d(img, sr, sc)
-    coeffs = dwt2d(img, wav, levels)
-    coeffs = _THRESH[mode](coeffs, beta, normalize=normalize)
-    n1 = ops.norm1(coeffs)
-    out = idwt2d(coeffs, wav, (nr, nc))
+    if swt and not isinstance(beta, (list, tuple)):
+        coeffs = swt2d(img, wav, levels)
+        n1 = ops.thresholded_norm1(coeffs, beta, mode=mode, normalize=normalize)
+        out = iswt2d_denoise(coeffs, wav, beta, mode=mode, normalize=normalize)
+    elif swt:
+        coeffs = _THRESH[mode](swt2d(img, wav, levels), beta, normalize=normalize)
+        n1 = ops.norm1(coeffs)
+        out = iswt2d(coeffs, wav)
+    else:
+        coeffs = _THRESH[mode](dwt2d(img, wav, levels), beta, normalize=normalize)
+        n1 = ops.norm1(coeffs)
+        out = idwt2d(coeffs, wav, (nr, nc))
     if generator is not None:
         out = ops.circshift2d(out, -sr, -sc)
     return out, n1

@@ -1,6 +1,7 @@
 """Norms over a whole coefficient tree (counterpart of
 ``pdwt_tpu/ops/norms.py``): one 0-dim tensor on the coefficients' device,
-summed over the approximation and every detail band."""
+summed over the approximation and every detail band.  ``norm_l21`` and the
+algebra ops come with ROADMAP queue 1, item 4."""
 from __future__ import annotations
 
 import torch
@@ -22,3 +23,37 @@ def norm1(coeffs: Coeffs2D) -> torch.Tensor:
 def norm2sq(coeffs: Coeffs2D) -> torch.Tensor:
     """Squared L2 norm over all subbands, approximation included."""
     return sum(torch.sum(torch.square(x)) for x in _leaves(coeffs))
+
+
+def thresholded_norm1(coeffs: Coeffs2D, beta, *, mode: str = "soft",
+                      normalize: bool = False,
+                      do_thresh_appcoeffs: bool = False) -> torch.Tensor:
+    """``norm1(threshold(coeffs))`` without building the thresholded tree:
+    soft gives sum max(|x| - b, 0), hard sum |x| [|x| > b], garrote
+    sum (|x| - b^2 / |x|) [|x| > b].  ``beta`` is a scalar or a per-level
+    (per-band) sequence, as for the threshold ops; ``mode`` is soft, hard
+    or garrote."""
+    from .threshold import _app_beta, _resolve_beta, beta_squared
+
+    def term(x, b):
+        ax = x.abs()
+        if isinstance(b, torch.Tensor):
+            b = b.to(ax.dtype)
+        if mode == "soft":
+            return torch.clamp_min(ax - b, 0).sum()
+        if mode == "hard":
+            return torch.where(ax > b, ax, 0.0).sum()
+        if mode == "garrote":
+            keep = ax > b
+            safe = torch.where(keep, ax, 1.0)
+            return torch.where(keep, ax - beta_squared(b, ax) / safe, 0.0).sum()
+        raise ValueError(f"thresholded_norm1 takes soft, hard or garrote, got {mode!r}")
+
+    total = 0.0
+    for i, band in enumerate(coeffs.details):
+        for j, x in enumerate(band):
+            total = total + term(x, _resolve_beta(beta, i, j, normalize))
+    a = coeffs.approx
+    if do_thresh_appcoeffs:
+        return total + term(a, _app_beta(beta, coeffs.levels, normalize))
+    return total + a.abs().sum()

@@ -1,4 +1,4 @@
-"""Soft and hard thresholds on coefficient trees (counterpart of
+"""Soft, hard and garrote thresholds on coefficient trees (counterpart of
 ``pdwt_tpu/ops/threshold.py``).
 
 * ``normalize``: beta is divided by sqrt(2) per level from level 1, and
@@ -6,8 +6,10 @@
 * ``beta`` may be a scalar or a per-level (or per-level, per-band)
   sequence, which is already level-scaled, so ``normalize`` ignores it.
 
-The other thresholds of the JAX package (group, garrote, firm, linf,
-shrink) come with ROADMAP queue 1, item 4.
+``THR_ELEM`` holds the elementwise forms, which the fused
+threshold-in-inverse kernel (``kernels/swt.py``) also applies.  The other
+thresholds of the JAX package (group, firm, linf, shrink) come with
+ROADMAP queue 1, item 4.
 """
 from __future__ import annotations
 
@@ -49,6 +51,26 @@ def _hard(x: torch.Tensor, b) -> torch.Tensor:
     return torch.where(x.abs() > b, x, 0.0)
 
 
+def beta_squared(b, x: torch.Tensor):
+    """b * b rounded in ``x``'s dtype, as the JAX package and the CUDA
+    kernel square beta: a number for a number, a tensor for a tensor."""
+    if isinstance(b, torch.Tensor):
+        b = b.to(x.dtype)
+        return b * b
+    b = torch.tensor(b, dtype=x.dtype)
+    return float(b * b)
+
+
+def _garrote(x: torch.Tensor, b) -> torch.Tensor:
+    """Non-negative garrote, x * max(1 - (b/x)^2, 0)."""
+    b2 = beta_squared(b, x)
+    return torch.where(x * x > b2, x - b2 / torch.where(x == 0, 1.0, x), 0.0)
+
+
+#: the elementwise thresholds the fused threshold-in-inverse kernel takes
+THR_ELEM = {"soft": _soft, "hard": _hard, "garrote": _garrote}
+
+
 def _apply(fn, coeffs: Coeffs2D, beta, do_thresh_appcoeffs, normalize):
     details = tuple(
         tuple(fn(x, _resolve_beta(beta, i, j, normalize)) for j, x in enumerate(band))
@@ -69,3 +91,15 @@ def hard_threshold(coeffs: Coeffs2D, beta, *, do_thresh_appcoeffs: bool = False,
                    normalize: bool = False) -> Coeffs2D:
     """Elementwise hard threshold."""
     return _apply(_hard, coeffs, beta, do_thresh_appcoeffs, normalize)
+
+
+def garrote_threshold(coeffs: Coeffs2D, beta, *, do_thresh_appcoeffs: bool = False,
+                      normalize: bool = False) -> Coeffs2D:
+    """Elementwise non-negative garrote threshold (Gao 1998): continuous
+    like soft, asymptotically unbiased like hard."""
+    return _apply(_garrote, coeffs, beta, do_thresh_appcoeffs, normalize)
+
+
+#: the threshold ops on a coefficient tree, by mode name
+THRESHOLD_OPS = {"soft": soft_threshold, "hard": hard_threshold,
+                 "garrote": garrote_threshold}

@@ -167,7 +167,7 @@ def test_denoise_step_cycle_spins_with_the_generator():
 
 def test_unsupported_flags_name_their_roadmap_item():
     img = _img((16, 16))
-    for kwargs, item in [({"do_swt": True}, 6), ({"do_separable": False}, 11),
+    for kwargs, item in [({"do_separable": False}, 11),
                          ({"ndim": 1}, 7), ({"ndim": 3}, 12), ({"mode": "symmetric"}, 10),
                          ({"precision": "mixed"}, 9), ({"precision": "bf16-fast"}, 9)]:
         with pytest.raises(NotImplementedError, match=f"item {item}"):
@@ -179,10 +179,8 @@ def test_unsupported_flags_name_their_roadmap_item():
     with pytest.raises(ValueError, match="unknown precision tier"):
         Wavelets(img, wname="db2", levels=1, precision="fast")
     x = torch.from_numpy(img)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        denoise_step(x, None, "db2", 1, 1.0, swt=True)
     with pytest.raises(NotImplementedError, match="item 4"):
-        denoise_step(x, None, "db2", 1, 1.0, mode="garrote")
+        denoise_step(x, None, "db2", 1, 1.0, mode="group")
     with pytest.raises(NotImplementedError, match="item 10"):
         denoise_step(x, None, "db2", 1, 1.0, boundary="symmetric")
 

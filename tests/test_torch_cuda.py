@@ -7,15 +7,18 @@ with a card (which need not have JAX):
 
 Tolerance: max|kernel - plain| <= 1e-5 * max|plain| in float32, because
 nvcc contracts each multiply-add into one FMA where the plain version
-rounds twice.
+rounds twice.  For the stationary kernels max|plain| is taken over the four
+subbands of a call together: at a dilation as large as the image the row
+high-pass sums its taps over one row, and H and D are roundoff.
 """
 import numpy as np
 import pytest
 import torch
 
-from pdwt_tpu_torch import dwt2d, get_wavelet, idwt2d
+from pdwt_tpu_torch import dwt2d, get_wavelet, idwt2d, iswt2d, iswt2d_denoise, swt2d
 from pdwt_tpu_torch.filters import make_custom_wavelet
 from pdwt_tpu_torch.kernels import separable as K
+from pdwt_tpu_torch.kernels import swt as S
 
 pytestmark = pytest.mark.cuda
 
@@ -44,6 +47,15 @@ def _close(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
         err = float((g - w).abs().max().detach())
         assert err <= RTOL * float(w.abs().max().detach()), err
+
+
+def _close_joint(got, want):
+    """The stationary kernels' bound: relative to the largest plain output."""
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        err = float((g - w).abs().max().detach())
+        assert err <= RTOL * scale, err
 
 
 def _rand(dev, *shape, seed=0):
@@ -112,7 +124,8 @@ def test_launch_counters(dev):
     c = dwt2d(_rand(dev, 512, 512), w, 3)
     idwt2d(c, w, (512, 512))
     assert K.LAUNCHES == {"fwd_level_2d": 2, "inv_level_2d": 2,
-                          "fwd_tail_2d": 1, "inv_tail_2d": 1}
+                          "fwd_tail_2d": 1, "inv_tail_2d": 1,
+                          "swt_fwd_level_2d": 0, "swt_inv_level_2d": 0}
 
 
 def test_cuda_rejects_what_the_kernels_do_not_take(dev):
@@ -130,3 +143,92 @@ def test_cuda_rejects_what_the_kernels_do_not_take(dev):
         K.fwd_level_2d(_rand(dev, 1, 8, 8), long, long)
     with pytest.raises(ValueError, match="tail_supported"):
         K.fwd_tail_2d(_rand(dev, 1, 256, 256), w.dec_lo, w.dec_hi, 1)
+
+
+# ---------------------------------------------------------------------------
+# stationary (a-trous) kernels, the TI-denoise path
+# ---------------------------------------------------------------------------
+
+SWT_CASES = [("db7", (1, 1024, 1024), 1), ("db7", (1, 1024, 1024), 2),
+             ("db7", (1, 1024, 1024), 3), ("db7", (1, 1024, 1024), 6),
+             ("db2", (1, 8, 16), 1), ("db2", (1, 8, 16), 4),
+             ("db7", (1, 37, 53), 2), ("db7", (3, 64, 96), 2), ("odd5", (1, 23, 29), 3),
+             ("db20", (1, 40, 50), 3)]
+THRESHOLDS = [None, ("soft", 10.0), ("hard", 10.0), ("garrote", 10.0)]
+
+
+@pytest.mark.parametrize("wname,shape,level", SWT_CASES)
+def test_swt_kernels_match_plain(dev, wname, shape, level):
+    """The inverse runs on the plain forward's subbands, so the hard and
+    garrote masks see the same values in both versions."""
+    w = _wavelet(wname)
+    x = _rand(dev, *shape) * 255
+    want = S.swt_fwd_level_2d_ref(x, w.dec_lo, w.dec_hi, level)
+    _close_joint(S.swt_fwd_level_2d(x, w.dec_lo, w.dec_hi, level), want)
+    for thr in THRESHOLDS:
+        _close(S.swt_inv_level_2d(*want, w.rec_lo, w.rec_hi, level, threshold=thr),
+               S.swt_inv_level_2d_ref(*want, w.rec_lo, w.rec_hi, level, threshold=thr))
+    beta = torch.tensor([10.0], device=dev)  # beta on the device, no host round trip
+    _close(S.swt_inv_level_2d(*want, w.rec_lo, w.rec_hi, level, threshold=("soft", beta)),
+           S.swt_inv_level_2d_ref(*want, w.rec_lo, w.rec_hi, level, threshold=("soft", 10.0)))
+
+
+@pytest.mark.parametrize("mode", ["soft", "hard", "garrote"])
+def test_swt_gradients_match_autograd_through_plain(dev, mode):
+    """torch.autograd.grad through each kernel's Function against autograd
+    through the plain versions on the card, beta included."""
+    w = _wavelet("db7")
+    x = (_rand(dev, 2, 64, 96) * 255).requires_grad_(True)
+    cts = [_rand(dev, 2, 64, 96, seed=s) for s in range(1, 5)]
+    lin = lambda outs: sum((o * c).sum() for o, c in zip(outs, cts))
+    _close(torch.autograd.grad(lin(S.swt_fwd_level_2d_ad(x, w.dec_lo, w.dec_hi, 2)), x),
+           torch.autograd.grad(lin(S.swt_fwd_level_2d_ref(x, w.dec_lo, w.dec_hi, 2)), x))
+    bands = [t.detach().requires_grad_(True)
+             for t in S.swt_fwd_level_2d_ref(x.detach(), w.dec_lo, w.dec_hi, 2)]
+    beta = torch.tensor(60.0, device=dev, requires_grad=True)
+    got = torch.autograd.grad(
+        lin([S.swt_inv_level_2d_denoise_ad(*bands, beta, w.rec_lo, w.rec_hi, 2, mode)]),
+        bands + [beta])
+    want = torch.autograd.grad(
+        lin([S.swt_inv_level_2d_ref(*bands, w.rec_lo, w.rec_hi, 2, threshold=(mode, beta))]),
+        bands + [beta], allow_unused=True)
+    _close(list(got[:4]), list(want[:4]))
+    if mode == "hard":
+        assert want[4] is None and float(got[4]) == 0.0
+    else:  # a sum over 36864 terms: 1e-4 relative
+        assert abs(float(got[4]) - float(want[4])) <= 1e-4 * abs(float(want[4]))
+    y = iswt2d(swt2d(x, w, 3), w)
+    (g,) = torch.autograd.grad((y * cts[0]).sum(), x)
+    assert float((g - cts[0]).abs().max()) < 1e-4  # iswt2d o swt2d is the identity
+
+
+def test_ti_path_launches_the_kernels_and_no_plain_version(dev, monkeypatch):
+    """On a CUDA tensor the TI step runs on the kernels: one forward launch
+    and one fused inverse launch per level, and no plain version."""
+    def boom(*args, **kwargs):
+        raise AssertionError("a plain version ran on the CUDA path")
+
+    for name in ("swt_fwd_level_2d_ref", "swt_inv_level_2d_ref"):
+        monkeypatch.setattr(S, name, boom)
+    w = get_wavelet("db7")
+    x = _rand(dev, 256, 256) * 255
+    K.reset_launch_counts()
+    c = swt2d(x, w, 3)
+    y = iswt2d_denoise(c, w, 10.0, mode="garrote", normalize=True)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["swt_fwd_level_2d"] == 3 and K.LAUNCHES["swt_inv_level_2d"] == 3
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+
+
+def test_swt_cuda_rejects_what_the_kernels_do_not_take(dev):
+    w = get_wavelet("db2")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        S.swt_fwd_level_2d(_rand(dev, 1, 8, 8).double(), w.dec_lo, w.dec_hi, 1)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        swt2d(_rand(dev, 8, 8).double(), w, 1)
+    bands = [_rand(dev, 1, 8, 8) for _ in range(4)]
+    with pytest.raises(ValueError, match="threshold mode"):
+        S.swt_inv_level_2d(*bands, w.rec_lo, w.rec_hi, 1, threshold=("firm", 1.0))
+    with pytest.raises(ValueError, match="one beta"):
+        S.swt_inv_level_2d(*bands, w.rec_lo, w.rec_hi, 1,
+                           threshold=("soft", torch.ones(2, device=dev)))
