@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It builds the CUDA kernels from
-``pdwt_tpu_torch/kernels/csrc`` and drives the port's two paths, each
+``pdwt_tpu_torch/kernels/csrc`` and drives the port's three paths, each
 with the launch counters set to 0 just before it and read just after:
 
 * the DWT path: each of its four kernels against its plain PyTorch version
@@ -16,7 +16,15 @@ with the launch counters set to 0 just before it and read just after:
   every threshold, small, odd and batched shapes), then
   ``Wavelets(do_swt=True)`` through ``run_denoise`` and through
   forward/threshold/norm1/inverse, a roundtrip, the fused norm, and the
-  TI step's timings.
+  TI step's timings;
+* the batched 1D path (``bench_all.py``'s third configuration: sym8, 4
+  levels, 1024 signals of 4096 float32 samples, soft threshold at beta
+  0.1, ``norm1``, inverse): the four 1D kernels against their plain
+  versions (the path's levels, then odd, short, long, many, Haar and
+  odd-length cases), ``Wavelets(ndim=1)`` with ``do_swt`` off and on,
+  through forward/threshold/norm1/inverse and ``run_denoise``, for the
+  batch and for one signal, roundtrips, the golden 1D coefficients, and
+  the denoise step's timings.
 
 It prints one JSON line with the per-kernel results and, last, one JSON
 line with ``"ok": true``.  Any failed check exits non-zero before that
@@ -36,6 +44,8 @@ import torch
 N, WNAME, LEVELS, BETA = 2048, "db7", 5, 10.0
 # the TI-denoise step (bench.py:126-145)
 TI_N, TI_LEVELS, TI_BETA = 1024, 3, 10.0
+# the batched 1D denoise step (bench_all.py:87-97): standard normal signals
+B1_SIGNALS, B1_N, B1_WNAME, B1_LEVELS, B1_BETA = 1024, 4096, "sym8", 4, 0.1
 # kernel vs plain version: max|diff| <= KERNEL_RTOL * max|plain|.  nvcc
 # contracts each multiply-add into one FMA, the plain version rounds twice.
 KERNEL_RTOL = 1e-5
@@ -53,10 +63,14 @@ REPLACES = {
     "inv_tail_2d": "pdwt_tpu/kernels/separable_pallas.py:648",
     "swt_fwd_level_2d": "pdwt_tpu/kernels/swt_pallas.py:95",
     "swt_inv_level_2d": "pdwt_tpu/kernels/swt_pallas.py:231",
+    "fwd_level_1d": "pdwt_tpu/kernels/swt_pallas.py:395",
+    "inv_level_1d": "pdwt_tpu/kernels/swt_pallas.py:455",
+    "swt_fwd_level_1d": "pdwt_tpu/kernels/swt_pallas.py:528",
+    "swt_inv_level_1d": "pdwt_tpu/kernels/swt_pallas.py:593",
 }
-SOURCES = {name: "pdwt_tpu_torch/kernels/csrc/" + ("swt.cu" if name.startswith("swt")
-                                                   else "separable.cu")
-           for name in REPLACES}
+SOURCES = {name: "pdwt_tpu_torch/kernels/csrc/" + (
+    "batched1d.cu" if name.endswith("_1d") else
+    "swt.cu" if name.startswith("swt") else "separable.cu") for name in REPLACES}
 
 
 def fail(msg: str) -> None:
@@ -89,23 +103,25 @@ def cuda_ms(fn, reps: int = 20) -> float:
 
 def device_ms(fn, reps: int = 10):
     """(busy milliseconds per fn() call, {kernel name: ms per call}) from
-    the device activity torch.profiler records; (None, {}) when it records
-    none."""
+    the device activity torch.profiler records; (None, {}) when three
+    profiled windows in a row record none (the profiler now and then
+    returns a window without device events)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
-    if not by_name:
-        return None, {}
-    return sum(by_name.values()), by_name
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+        if by_name:
+            return sum(by_name.values()), by_name
+    return None, {}
 
 
 def fmt(ms) -> str:
@@ -168,12 +184,14 @@ def time_in_turns(label, kern_fn, plain_fn, card) -> None:
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this script needs a CUDA card")
-    from pdwt_tpu_torch import (Coeffs2D, Wavelets, dwt2d, get_wavelet, idwt2d, iswt2d,
-                                iswt2d_denoise, ops, swt2d)
+    from pdwt_tpu_torch import (Coeffs1D, Coeffs2D, Wavelets, dwt1d, dwt2d, get_wavelet,
+                                idwt1d, idwt2d, iswt1d, iswt2d, iswt2d_denoise, ops, swt1d,
+                                swt2d)
     from pdwt_tpu_torch.core import conv
     from pdwt_tpu_torch.core.shapes import level_sizes
     from pdwt_tpu_torch.filters import make_custom_wavelet
     from pdwt_tpu_torch.kernels import _build
+    from pdwt_tpu_torch.kernels import batched1d as K1
     from pdwt_tpu_torch.kernels import separable as K
     from pdwt_tpu_torch.kernels import swt as S
 
@@ -401,6 +419,168 @@ def main() -> None:
     time_in_turns(f"TI step {TI_N}x{TI_N} {WNAME} {TI_LEVELS} levels soft beta {TI_BETA}",
                   lambda: iswt2d_denoise(swt2d(xt, wav, TI_LEVELS), wav, TI_BETA),
                   lambda: plain_iswt2d(plain_swt2d(xt), ("soft", TI_BETA)), card)
+
+    # ======================= the batched 1D path =======================
+    # -- each 1D kernel against its plain version.  The inverses run on the
+    # plain forwards' bands.  Timed: the path's own calls (1024 signals;
+    # decimated levels 1-4 of 4096 samples each way, stationary levels 1-4).
+    w8 = get_wavelet(B1_WNAME)
+    randn = lambda *s: torch.randn(s, device=dev, generator=gen)
+    b1_cases = []
+
+    def dwt1d_cases(w, x, timed):
+        xe = conv.odd_extend(x, -1)
+        label = f"{w.name} {tuple(xe.shape)}"
+        b1_cases.append(("fwd_level_1d", xe, lambda t: K1.fwd_level_1d(t, w.dec_lo, w.dec_hi),
+                         lambda t: K1.fwd_level_1d_ref(t, w.dec_lo, w.dec_hi), label, timed))
+        bands = K1.fwd_level_1d_ref(xe, w.dec_lo, w.dec_hi)
+        b1_cases.append(("inv_level_1d", bands,
+                         lambda b: K1.inv_level_1d(*b, w.rec_lo, w.rec_hi),
+                         lambda b: K1.inv_level_1d_ref(*b, w.rec_lo, w.rec_hi),
+                         f"{w.name} bands {tuple(bands[0].shape)}", timed))
+        return bands[0]
+
+    def swt1d_cases(w, x, levels, timed):
+        for level in levels:
+            b1_cases.append(("swt_fwd_level_1d", x,
+                             lambda t, lv=level: K1.swt_fwd_level_1d(t, w.dec_lo, w.dec_hi, lv),
+                             lambda t, lv=level: K1.swt_fwd_level_1d_ref(t, w.dec_lo, w.dec_hi,
+                                                                         lv),
+                             f"{w.name} {tuple(x.shape)} level {level}", timed))
+            bands = K1.swt_fwd_level_1d_ref(x, w.dec_lo, w.dec_hi, level)
+            b1_cases.append(("swt_inv_level_1d", bands,
+                             lambda b, lv=level: K1.swt_inv_level_1d(*b, w.rec_lo, w.rec_hi, lv),
+                             lambda b, lv=level: K1.swt_inv_level_1d_ref(*b, w.rec_lo,
+                                                                         w.rec_hi, lv),
+                             f"{w.name} {tuple(x.shape)} level {level}", timed))
+
+    xa = randn(B1_SIGNALS, B1_N)
+    for _ in range(B1_LEVELS):  # the shapes dwt1d hands each level
+        xa = dwt1d_cases(w8, xa, True)
+    swt1d_cases(w8, randn(B1_SIGNALS, B1_N), range(1, B1_LEVELS + 1), True)
+    for w, shape, levels in [(w8, (3, 1023), (1, 2)),          # odd length
+                             (w8, (2, 10), (1, 3)),            # shorter than the support
+                             (get_wavelet("db2"), (4, 8), (1, 2, 3, 4)),  # dilation 8 > 8 samples
+                             (w8, (1, 1 << 22), (1, 4)),       # one long signal
+                             (w8, (70000, 64), (1, 4)),        # more signals than gridDim.y
+                             (get_wavelet("haar"), (5, 64), (1, 4)),
+                             (odd5, (3, 29), (1, 3))]:         # an odd-length bank
+        x = randn(*shape)
+        dwt1d_cases(w, x, False)
+        swt1d_cases(w, x, levels, False)
+    run_cases(b1_cases, report, card)
+
+    # -- the batched 1D path, as a user drives it: the batch and one signal,
+    # decimated and stationary, step by step and through run_denoise
+    sig = np.random.default_rng(2).standard_normal((B1_SIGNALS, B1_N)).astype(np.float32)
+    xs = torch.from_numpy(sig).to(dev)
+    rt_sig = np.random.default_rng(3).uniform(0, 255, (B1_SIGNALS, B1_N)).astype(np.float32)
+    xr = torch.from_numpy(rt_sig).to(dev)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    b1_out = {}
+    for swt in (False, True):
+        for label, data in (("batch", xs), ("one signal", sig[0])):
+            D = Wavelets(data, wname=B1_WNAME, levels=B1_LEVELS, ndim=1, do_swt=swt, device=dev)
+            D.forward()
+            D.soft_threshold(B1_BETA)
+            n1 = D.norm1()
+            den = D.inverse()
+            run, run_n1 = Wavelets(data, wname=B1_WNAME, levels=B1_LEVELS, ndim=1,
+                                   do_swt=swt, device=dev).run_denoise(B1_BETA)
+            b1_out[swt, label] = (den, n1, run, float(run_n1))
+        R = Wavelets(xr, wname=B1_WNAME, levels=B1_LEVELS, ndim=1, do_swt=swt, device=dev)
+        R.forward()
+        b1_out[swt, "roundtrip"] = R.inverse()
+    torch.cuda.synchronize()
+    b1_launches = dict(K.LAUNCHES)
+    print(f"batched 1D path launches: {b1_launches}", flush=True)
+    for name in ("fwd_level_1d", "inv_level_1d", "swt_fwd_level_1d", "swt_inv_level_1d"):
+        check(b1_launches[name] > 0, f"the batched 1D path never launched {name}")
+        launches[name] = b1_launches[name]
+
+    def plain_dwt1d(t):
+        a, dets = t, []
+        for _ in range(B1_LEVELS):
+            a, d = K1.fwd_level_1d_ref(conv.odd_extend(a, -1), w8.dec_lo, w8.dec_hi)
+            dets.append(d)
+        return Coeffs1D(a, tuple(dets))
+
+    def plain_idwt1d(c):
+        sizes = level_sizes(B1_N, B1_LEVELS)
+        a = c.approx
+        for i in range(B1_LEVELS - 1, -1, -1):
+            a = K1.inv_level_1d_ref(a, c.details[i], w8.rec_lo, w8.rec_hi)[:, :sizes[i]]
+        return a
+
+    def plain_swt1d(t):
+        a, dets = t, []
+        for level in range(1, B1_LEVELS + 1):
+            a, d = K1.swt_fwd_level_1d_ref(a, w8.dec_lo, w8.dec_hi, level)
+            dets.append(d)
+        return Coeffs1D(a, tuple(dets))
+
+    def plain_iswt1d(c):
+        a = c.approx
+        for i in range(B1_LEVELS - 1, -1, -1):
+            a = K1.swt_inv_level_1d_ref(a, c.details[i], w8.rec_lo, w8.rec_hi, i + 1)
+        return a
+
+    for swt in (False, True):
+        kind = "SWT" if swt else "DWT"
+        pc = ops.soft_threshold((plain_swt1d if swt else plain_dwt1d)(xs), B1_BETA)
+        p_n1 = float(ops.norm1(pc))
+        p_den = (plain_iswt1d if swt else plain_idwt1d)(pc)
+        for label in ("batch", "one signal"):
+            den, n1, run, run_n1 = b1_out[swt, label]
+            want = p_den if label == "batch" else p_den[:1]
+            w_n1 = p_n1 if label == "batch" else float(ops.norm1(ops.soft_threshold(
+                (plain_swt1d if swt else plain_dwt1d)(xs[:1]), B1_BETA)))
+            for how, img, n1v in (("inverse", den, n1), ("run_denoise", run, run_n1)):
+                check(tuple(img.shape) == tuple(want.shape) and bool(torch.isfinite(img).all()),
+                      f"1D {kind} {label} {how}: not finite or the wrong shape")
+                err, scale = max_err(img, want)
+                print(f"1D {kind} {label} {how} vs plain path: max|diff| {err:.3e} "
+                      f"(limit {PATH_RTOL * scale:.3e}); norm1 {n1v!r} vs plain {w_n1!r}",
+                      flush=True)
+                check(err <= PATH_RTOL * scale, f"1D {kind} {label} {how} disagrees with the "
+                      "plain path")
+                check(abs(n1v - w_n1) <= PATH_RTOL * abs(w_n1), f"1D {kind} {label} {how} norm1")
+        rt_err = float((b1_out[swt, "roundtrip"] - xr).abs().max())
+        print(f"1D {kind} roundtrip max|inverse(forward(x)) - x| = {rt_err:.3e} "
+              f"(limit {ROUNDTRIP_ATOL})")
+        check(rt_err <= ROUNDTRIP_ATOL, f"1D {kind} roundtrip error")
+
+    # against the repository's golden 1D coefficients (float64 reference data)
+    for key in ("dwt1d/sym4", "dwt1d/db2", "dwt1d/db5", "swt1d/db2"):
+        kind, gname = key.split("/")
+        gw = get_wavelet(gname)
+        gx = torch.tensor(gold[f"{key}/x"], dtype=torch.float32, device=dev)
+        gl = int(gold[f"{key}/levels"]) if kind == "dwt1d" else 2
+        gc = (dwt1d if kind == "dwt1d" else swt1d)(gx, gw, gl)
+        want = [gold[f"{key}/a"]] + [gold[f"{key}/L{i}/d"] for i in range(1, gl + 1)]
+        gerr = max(float(np.abs(g.cpu().numpy() - w).max())
+                   for g, w in zip([gc.approx, *gc.details], want))
+        gscale = max(float(np.abs(w).max()) for w in want)
+        yr = idwt1d(gc, gw, gx.shape[-1]) if kind == "dwt1d" else iswt1d(gc, gw)
+        rerr = float((yr - gx).abs().max())
+        print(f"golden {key} ({tuple(gx.shape)}, {gl} levels): max err {gerr:.3e} "
+              f"(limit {KERNEL_RTOL * gscale:.3e}); roundtrip {rerr:.3e}")
+        check(gerr <= KERNEL_RTOL * gscale and rerr <= KERNEL_RTOL * float(gx.abs().max()),
+              f"golden {key}")
+
+    # -- the batched 1D denoise step (bench_all.py:91-95), kernels and plain
+    # path, in turns
+    def b1_step(fwd, inv):
+        c = ops.soft_threshold(fwd(xs), B1_BETA)
+        ops.norm1(c)
+        return inv(c)
+
+    time_in_turns(f"batched 1D step {B1_SIGNALS}x{B1_N} {B1_WNAME} {B1_LEVELS} levels soft "
+                  f"beta {B1_BETA}",
+                  lambda: b1_step(lambda t: dwt1d(t, w8, B1_LEVELS),
+                                  lambda c: idwt1d(c, w8, B1_N)),
+                  lambda: b1_step(plain_dwt1d, plain_idwt1d), card)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name], **report[name]}

@@ -1,11 +1,12 @@
 """Stateful ``Wavelets`` facade (counterpart of ``pdwt_tpu/api.py``).
 
-This slice covers one 2D image, the separable periodization DWT and SWT
+This slice covers one 2D image or a batch of 1D signals (``ndim=1``, or a
+1D array, or ``nr == 1``), the separable periodization DWT and SWT
 (``do_swt=True``), the exact precision tier: construction with level
 clamping, ``forward``, ``inverse``, ``soft_threshold``,
 ``hard_threshold``, ``garrote_threshold``, ``norm1``, ``norm2sq``,
 ``run_denoise`` (the whole denoise step, with the threshold fused into the
-SWT inverse), ``get_image``, ``set_image`` and cycle spinning.  Other
+2D SWT inverse), ``get_image``, ``set_image`` and cycle spinning (2D).  Other
 flags raise ``NotImplementedError`` naming the ROADMAP item that adds
 them.
 
@@ -26,9 +27,9 @@ import torch
 
 from . import ops
 from .core.precision import check_tier
-from .core.separable import (Coeffs2D, all_periodization, dwt2d, idwt2d, iswt2d,
-                              iswt2d_denoise, swt2d)
-from .core.shapes import coeff_shapes_2d, max_level
+from .core.separable import (Coeffs1D, Coeffs2D, all_periodization, dwt1d, dwt2d, idwt1d,
+                             idwt2d, iswt1d, iswt2d, iswt2d_denoise, swt1d, swt2d)
+from .core.shapes import coeff_shapes_1d, coeff_shapes_2d, max_level
 from .filters import Wavelet, get_wavelet
 
 
@@ -51,6 +52,7 @@ class WaveletSpec:
     dtype: torch.dtype
     hlen: int
     do_swt: bool
+    ndim: int = 2
 
 
 def _later(what: str, item: int):
@@ -69,6 +71,8 @@ class Wavelets:
     >>> W.forward(); W.soft_threshold(10.0); img_dn = W.inverse()
     >>> T = Wavelets(img, wname="db7", levels=3, do_swt=True, device="cuda")
     >>> img_dn, n1 = T.run_denoise(10.0)   # the TI-denoise step
+    >>> S = Wavelets(sig, wname="sym8", levels=4, ndim=1, device="cuda")
+    >>> sig_dn, n1 = S.run_denoise(0.1)    # sig: (batch, n) signals or one (n,)
     """
 
     def __init__(self, img=None, nr: Optional[int] = None, nc: Optional[int] = None,
@@ -76,13 +80,9 @@ class Wavelets:
                  do_cycle_spinning: bool = False, do_swt: bool = False,
                  ndim: int = 2, dtype=None, seed: int = 0, mode="periodization",
                  precision: Optional[str] = None, device=None):
-        if not do_separable:
-            raise _later("the non-separable transform (do_separable=False)", 11)
-        if ndim == 1:
-            raise _later("the batched 1D transform (ndim=1)", 7)
         if ndim == 3:
             raise _later("the 3D transform (ndim=3)", 12)
-        if ndim != 2:
+        if ndim not in (1, 2):
             raise ValueError(f"ndim={ndim} is not implemented")
         if not all_periodization(mode):
             raise _later(f"boundary mode {mode!r}", 10)
@@ -99,11 +99,12 @@ class Wavelets:
             else:
                 img = torch.as_tensor(np.asarray(img), dtype=dtype, device=device)
             if img.ndim == 1:
-                raise _later("1D signals", 7)
+                img = img[None, :]
+                ndim = 1
             if img.ndim == 3:
                 raise _later("3D volumes", 12)
             if img.ndim != 2:
-                raise ValueError(f"expected a 2D image, got shape {tuple(img.shape)}")
+                raise ValueError(f"expected a 1D or 2D array, got shape {tuple(img.shape)}")
             if (nr, nc) != (None, None) and (nr, nc) != tuple(img.shape):
                 raise ValueError(f"nr, nc = {nr!r}, {nc!r} contradict the image's shape "
                                  f"{tuple(img.shape)} (pass wname= and levels= by keyword)")
@@ -112,49 +113,62 @@ class Wavelets:
             raise ValueError("provide either an image or (nr, nc)")
         else:
             img = torch.zeros((nr, nc), dtype=dtype, device=device)
-        if nr == 1:
-            raise _later("1D signals (nr == 1)", 7)
 
         if levels < 1:
             warnings.warn("cannot initialize wavelet coefficients with nlevels < 1; "
                           "forcing nlevels = 1")
             levels = 1
+        if nr == 1:  # one signal
+            ndim = 1
+        if not do_separable:
+            if ndim != 1:
+                raise _later("the non-separable transform (do_separable=False)", 11)
+            warnings.warn("1D DWT is incompatible with non-separable transform; "
+                          "ignoring do_separable")
         if do_cycle_spinning and do_swt:
             warnings.warn("makes little sense to use cycle spinning with stationary "
                           "wavelet transform")
+        if do_cycle_spinning and ndim == 1:
+            raise ValueError("cycle spinning is not implemented for 1D; use SWT instead")
         self._wavelet: Wavelet = get_wavelet(wname)
         hlen = self._wavelet.hlen
-        wmax = max_level(min(nr, nc), hlen)
+        wmax = max_level(nc if ndim == 1 else min(nr, nc), hlen)
         if levels > wmax:
+            dims = f"length-{nc} signal" if ndim == 1 else f"{nr}x{nc} image"
             warnings.warn(
                 f"required level ({levels}) is greater than the maximum possible "
-                f"level for {wname} ({wmax}) on a {nr}x{nc} image; forcing "
+                f"level for {wname} ({wmax}) on a {dims}; forcing "
                 f"nlevels = {max(wmax, 1)}")
             levels = max(wmax, 1)
 
         self.spec = WaveletSpec(wname=wname, nr=nr, nc=nc, nlevels=levels,
                                 do_cycle_spinning=do_cycle_spinning, dtype=dtype,
-                                hlen=hlen, do_swt=do_swt)
+                                hlen=hlen, do_swt=do_swt, ndim=ndim)
         self.device = img.device
         self.d_image = img
         self.state = WState.INIT
         self.current_shift_r = 0
         self.current_shift_c = 0
         self._rng = np.random.default_rng(seed)
-        a_shape, det_shapes = coeff_shapes_2d(nr, nc, levels, do_swt)
         z = lambda s: torch.zeros(s, dtype=dtype, device=self.device)
-        self._coeffs = Coeffs2D(z(a_shape), tuple((z(s), z(s), z(s)) for s in det_shapes))
+        if ndim == 1:
+            a_len, det_lens = coeff_shapes_1d(nc, levels, do_swt)
+            self._coeffs = Coeffs1D(z((nr, a_len)), tuple(z((nr, n)) for n in det_lens))
+        else:
+            a_shape, det_shapes = coeff_shapes_2d(nr, nc, levels, do_swt)
+            self._coeffs = Coeffs2D(z(a_shape), tuple((z(s), z(s), z(s)) for s in det_shapes))
 
     @property
     def wname(self) -> str:
         return self.spec.wname
 
     @property
-    def coeffs(self) -> Coeffs2D:
+    def coeffs(self):
+        """The coefficient tree: a :class:`Coeffs1D` or a :class:`Coeffs2D`."""
         return self._coeffs
 
     @coeffs.setter
-    def coeffs(self, value: Coeffs2D):
+    def coeffs(self, value):
         self._coeffs = value
         self.state = WState.FORWARD
 
@@ -170,19 +184,23 @@ class Wavelets:
         s = self.spec
         return int(self._rng.integers(0, s.nr)), int(self._rng.integers(0, s.nc))
 
-    def _analysis(self, img: torch.Tensor) -> Coeffs2D:
+    def _analysis(self, img: torch.Tensor):
         s = self.spec
-        if s.do_swt:
-            return swt2d(img, self._wavelet, s.nlevels)
-        return dwt2d(img, self._wavelet, s.nlevels)
+        if s.ndim == 1:
+            fwd = swt1d if s.do_swt else dwt1d
+        else:
+            fwd = swt2d if s.do_swt else dwt2d
+        return fwd(img, self._wavelet, s.nlevels)
 
-    def _synthesis(self, coeffs: Coeffs2D) -> torch.Tensor:
+    def _synthesis(self, coeffs) -> torch.Tensor:
         s = self.spec
         if s.do_swt:
-            return iswt2d(coeffs, self._wavelet)
+            return (iswt1d if s.ndim == 1 else iswt2d)(coeffs, self._wavelet)
+        if s.ndim == 1:
+            return idwt1d(coeffs, self._wavelet, s.nc)
         return idwt2d(coeffs, self._wavelet, (s.nr, s.nc))
 
-    def forward(self) -> Coeffs2D:
+    def forward(self):
         """Compute the coefficients of the current image.  With cycle
         spinning, the row then the column shift are drawn first from
         ``numpy.random.default_rng(seed)``."""
@@ -198,10 +216,11 @@ class Wavelets:
     def run_denoise(self, beta, mode: str = "soft", do_thresh_appcoeffs: bool = False,
                     normalize: bool = False):
         """The whole denoise step: (cycle-spinning shift) -> analysis ->
-        threshold -> norm1 -> synthesis -> unshift.  With ``do_swt`` and a
-        soft, hard or garrote threshold, the threshold runs inside the
-        synthesis kernels and the norm comes from the un-thresholded
-        coefficients (``ops.thresholded_norm1``).  Returns ``(denoised,
+        threshold -> norm1 -> synthesis -> unshift.  With ``do_swt`` in 2D,
+        the threshold runs inside the synthesis kernels and the norm comes
+        from the un-thresholded coefficients (``ops.thresholded_norm1``);
+        1D runs the threshold, ``norm1`` and the synthesis in turn, as the
+        JAX facade does.  Returns ``(denoised,
         norm1)`` as tensors on the facade's device and leaves the facade's
         image and coefficients as they were; a shift is drawn as in
         :meth:`forward`."""
@@ -215,7 +234,7 @@ class Wavelets:
             sr, sc = self._draw_shifts()
             img = ops.circshift2d(img, sr, sc)
         c = self._analysis(img)
-        if s.do_swt:
+        if s.do_swt and s.ndim != 1:
             n1 = ops.thresholded_norm1(c, beta, mode=mode, normalize=normalize,
                                        do_thresh_appcoeffs=do_thresh_appcoeffs)
             out = iswt2d_denoise(c, self._wavelet, beta, mode=mode, normalize=normalize,
@@ -290,6 +309,7 @@ class Wavelets:
 
     def __repr__(self):
         s = self.spec
-        return (f"Wavelets({s.wname!r}, shape=({s.nr}, {s.nc}), levels={s.nlevels}, "
+        return (f"Wavelets({s.wname!r}, shape=({s.nr}, {s.nc}), ndim={s.ndim}, "
+                f"levels={s.nlevels}, "
                 f"swt={s.do_swt}, cycle_spinning={s.do_cycle_spinning}, dtype={s.dtype}, "
                 f"device={self.device}, state={self.state.value})")

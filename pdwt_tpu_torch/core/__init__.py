@@ -1,3 +1,3 @@
-from .separable import Coeffs2D, dwt2d, idwt2d
+from .separable import Coeffs1D, Coeffs2D, dwt1d, dwt2d, idwt1d, idwt2d, iswt1d, swt1d
 
-__all__ = ["Coeffs2D", "dwt2d", "idwt2d"]
+__all__ = ["Coeffs1D", "Coeffs2D", "dwt1d", "dwt2d", "idwt1d", "idwt2d", "iswt1d", "swt1d"]

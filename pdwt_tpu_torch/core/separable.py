@@ -1,13 +1,15 @@
-"""Separable multi-level 2D transforms (periodization): the decimated DWT
-and the stationary (a-trous) SWT, forward and inverse, and the fused
-threshold-in-inverse of the TI-denoise step.
+"""Separable multi-level transforms (periodization): the decimated DWT and
+the stationary (a-trous) SWT, forward and inverse, in 2D and batched 1D,
+and the fused threshold-in-inverse of the 2D TI-denoise step.
 
 Counterpart of ``dwt2d``/``idwt2d``/``swt2d``/``iswt2d``/``iswt2d_denoise``
-in ``pdwt_tpu/core/separable.py`` and of their Pallas dispatch.  The
+and ``dwt1d``/``idwt1d``/``swt1d``/``iswt1d`` in
+``pdwt_tpu/core/separable.py`` and of their Pallas dispatch.  The
 coefficient layout is the same, ``[A_n, (H1,V1,D1), ..., (Hn,Vn,Dn)]``:
 ``Coeffs2D(approx, details)`` with ``details[i] = (H, V, D)`` of level
-i+1, H being high-pass along the rows and V high-pass along the columns.
-The SWT keeps every band at the image's size.  Leading dimensions act as
+i+1, H being high-pass along the rows and V high-pass along the columns;
+in 1D ``Coeffs1D(approx, details)`` with one detail tensor per level.
+The SWT keeps every band at the input's size.  Leading dimensions act as
 the batch.
 
 Every level runs through the kernel wrappers of ``pdwt_tpu_torch.kernels``:
@@ -24,6 +26,15 @@ from .. import kernels
 from ..filters import Wavelet
 from . import conv
 from .shapes import level_sizes
+
+
+class Coeffs1D(NamedTuple):
+    approx: torch.Tensor
+    details: Tuple[torch.Tensor, ...]
+
+    @property
+    def levels(self) -> int:
+        return len(self.details)
 
 
 class Coeffs2D(NamedTuple):
@@ -185,4 +196,75 @@ def iswt2d_denoise(coeffs: Coeffs2D, wav: Wavelet, beta, *, mode: str = "soft",
         bi = beta / math.sqrt(2.0) ** (i + 1) if normalize else beta
         a = kernels.swt_inv_level_2d_denoise_ad(a, h, v, d, bi, wav.rec_lo, wav.rec_hi,
                                                 i + 1, mode)
+    return _unflat(a, batch)
+
+
+# ---------------------------------------------------------------------------
+# batched 1D, along the last axis
+# ---------------------------------------------------------------------------
+
+def _flat1(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, t.shape[-1]).contiguous()
+
+
+def _check_1d(x: torch.Tensor) -> None:
+    if x.ndim < 1:
+        raise ValueError(f"expected at least 1D input, got shape {tuple(x.shape)}")
+
+
+def dwt1d(x: torch.Tensor, wav: Wavelet, levels: int, *,
+          mode="periodization") -> Coeffs1D:
+    """Multi-level 1D DWT along the last axis, one level kernel launch per
+    level; an odd length is first extended by one sample."""
+    _check_1d(x)
+    check_supported(x, mode)
+    batch = tuple(x.shape[:-1])
+    a = _flat1(x)
+    details = []
+    for _ in range(levels):
+        a, d = kernels.fwd_level_1d_ad(conv.odd_extend(a, -1), wav.dec_lo, wav.dec_hi)
+        details.append(_unflat(d, batch))
+    return Coeffs1D(_unflat(a, batch), tuple(details))
+
+
+def idwt1d(coeffs: Coeffs1D, wav: Wavelet, length: int, *,
+           mode="periodization") -> torch.Tensor:
+    """Inverse of :func:`dwt1d`; ``length`` is the original signal's.  Each
+    level runs the level kernel, deepest first, and is sliced back to its
+    odd length."""
+    check_supported(coeffs.approx, mode)
+    sizes = level_sizes(length, coeffs.levels)
+    batch = tuple(coeffs.approx.shape[:-1])
+    a = _flat1(coeffs.approx)
+    for i in range(coeffs.levels - 1, -1, -1):
+        y = kernels.inv_level_1d_ad(a, _flat1(coeffs.details[i]), wav.rec_lo, wav.rec_hi)
+        a = y[:, :sizes[i]].contiguous()
+    return _unflat(a, batch)
+
+
+def swt1d(x: torch.Tensor, wav: Wavelet, levels: int, *, keep_approx: bool = False):
+    """Stationary (a-trous) 1D transform along the last axis, one kernel
+    launch per level; ``keep_approx`` as in :func:`swt2d`."""
+    _check_1d(x)
+    check_supported(x, "periodization")
+    batch = tuple(x.shape[:-1])
+    a = _flat1(x)
+    details, approxs = [], []
+    for lvl in range(1, levels + 1):
+        a, d = kernels.swt_fwd_level_1d_ad(a, wav.dec_lo, wav.dec_hi, lvl)
+        details.append(_unflat(d, batch))
+        if keep_approx:
+            approxs.append(_unflat(a, batch))
+    coeffs = Coeffs1D(_unflat(a, batch), tuple(details))
+    return (coeffs, tuple(approxs)) if keep_approx else coeffs
+
+
+def iswt1d(coeffs: Coeffs1D, wav: Wavelet) -> torch.Tensor:
+    """Inverse of :func:`swt1d`, one kernel launch per level, deepest first."""
+    check_supported(coeffs.approx, "periodization")
+    batch = tuple(coeffs.approx.shape[:-1])
+    a = _flat1(coeffs.approx)
+    for i in range(coeffs.levels - 1, -1, -1):
+        a = kernels.swt_inv_level_1d_ad(a, _flat1(coeffs.details[i]), wav.rec_lo,
+                                        wav.rec_hi, i + 1)
     return _unflat(a, batch)

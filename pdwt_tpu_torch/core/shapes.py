@@ -39,3 +39,12 @@ def coeff_shapes_2d(nr: int, nc: int, levels: int, do_swt: bool = False
     cols = level_sizes(nc, levels)
     details = [(rows[i + 1], cols[i + 1]) for i in range(levels)]
     return details[-1], details
+
+
+def coeff_shapes_1d(n: int, levels: int, do_swt: bool = False) -> Tuple[int, List[int]]:
+    """(approx_length, [detail_length per level 1..levels]) of a length-n
+    signal, by the same rules."""
+    if do_swt:
+        return n, [n] * levels
+    sizes = level_sizes(n, levels)
+    return sizes[-1], sizes[1:]

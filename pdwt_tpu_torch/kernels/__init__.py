@@ -4,6 +4,20 @@ Importing this package builds nothing; the CUDA library is compiled at
 the first kernel launch (see ``_build.py``).  ``LAUNCHES`` counts the
 launches of every kernel of the package."""
 from ._launch import LAUNCHES, reset_launch_counts
+from .batched1d import (
+    fwd_level_1d,
+    fwd_level_1d_ad,
+    fwd_level_1d_ref,
+    inv_level_1d,
+    inv_level_1d_ad,
+    inv_level_1d_ref,
+    swt_fwd_level_1d,
+    swt_fwd_level_1d_ad,
+    swt_fwd_level_1d_ref,
+    swt_inv_level_1d,
+    swt_inv_level_1d_ad,
+    swt_inv_level_1d_ref,
+)
 from .separable import (
     fwd_level_2d,
     fwd_level_2d_ad,
@@ -36,4 +50,7 @@ __all__ = [
     "fwd_level_2d_ad", "inv_level_2d_ad", "fwd_tail_2d_ad", "inv_tail_2d_ad",
     "swt_fwd_level_2d", "swt_inv_level_2d", "swt_fwd_level_2d_ref", "swt_inv_level_2d_ref",
     "swt_fwd_level_2d_ad", "swt_inv_level_2d_ad", "swt_inv_level_2d_denoise_ad",
+    "fwd_level_1d", "inv_level_1d", "swt_fwd_level_1d", "swt_inv_level_1d",
+    "fwd_level_1d_ref", "inv_level_1d_ref", "swt_fwd_level_1d_ref", "swt_inv_level_1d_ref",
+    "fwd_level_1d_ad", "inv_level_1d_ad", "swt_fwd_level_1d_ad", "swt_inv_level_1d_ad",
 ]

@@ -17,7 +17,8 @@ import os
 import subprocess
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = tuple(os.path.join(_HERE, "csrc", name) for name in ("separable.cu", "swt.cu"))
+SOURCES = tuple(os.path.join(_HERE, "csrc", name)
+                for name in ("separable.cu", "swt.cu", "batched1d.cu"))
 BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -97,6 +98,14 @@ def load() -> ctypes.CDLL:
         # a, h, v, d, out, B, R, C, taps_lo, taps_hi, hlen, dilation, center,
         # thresh_mode, beta (one float on the device), stream
         "pdwt_swt_inv_level_2d": [P, P, P, P, P, I, I, I, P, P, I, I, I, I, P, P],
+        # x, lo, hi, B, N, taps_lo, taps_hi, hlen, center, stream
+        "pdwt_fwd_level_1d": [P, P, P, I, I, P, P, I, I, P],
+        # lo, hi, out, B, M, taps_lo, taps_hi, hlen, geometry, stream
+        "pdwt_inv_level_1d": [P, P, P, I, I, P, P, I, P, P],
+        # x, lo, hi (forward) or lo, hi, out (inverse), B, N, taps_lo, taps_hi,
+        # hlen, dilation, center, stream
+        "pdwt_swt_fwd_level_1d": [P, P, P, I, I, P, P, I, I, I, P],
+        "pdwt_swt_inv_level_1d": [P, P, P, I, I, P, P, I, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

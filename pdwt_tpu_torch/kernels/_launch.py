@@ -1,5 +1,6 @@
 """Launch plumbing shared by the kernel wrappers: the launch counters,
-the CPU/CUDA dispatch check, tap conversion and the ctypes call."""
+the CPU/CUDA dispatch check, tap and offset conversion and the ctypes
+call."""
 from __future__ import annotations
 
 import ctypes
@@ -8,13 +9,17 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..core import conv
+
 #: Longest filter the CUDA kernels take (PDWT_MAX_HLEN in csrc/*.cu).
 MAX_HLEN = 128
 
 #: Kernel launches per wrapper since the last reset_launch_counts().
 LAUNCHES: Dict[str, int] = {"fwd_level_2d": 0, "inv_level_2d": 0,
                             "fwd_tail_2d": 0, "inv_tail_2d": 0,
-                            "swt_fwd_level_2d": 0, "swt_inv_level_2d": 0}
+                            "swt_fwd_level_2d": 0, "swt_inv_level_2d": 0,
+                            "fwd_level_1d": 0, "inv_level_1d": 0,
+                            "swt_fwd_level_1d": 0, "swt_inv_level_1d": 0}
 
 
 def reset_launch_counts() -> None:
@@ -22,9 +27,10 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def on_cpu(*ts: torch.Tensor) -> bool:
+def on_cpu(*ts: torch.Tensor, ndim: int = 3) -> bool:
     """True for CPU tensors (the wrapper runs its plain version); False for
-    tensors a CUDA kernel takes; raises on anything else."""
+    tensors a CUDA kernel takes, of rank ``ndim``: (B, R, C) images or
+    (B, N) signals; raises on anything else."""
     devs = {t.device for t in ts}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
@@ -40,8 +46,9 @@ def on_cpu(*ts: torch.Tensor) -> bool:
                 "come with the precision tiers (ROADMAP queue 1, item 9)")
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")
-        if t.dim() != 3 or t.numel() == 0:
-            raise ValueError(f"expected a non-empty (B, R, C) tensor, got {tuple(t.shape)}")
+        if t.dim() != ndim or t.numel() == 0:
+            want = "(B, R, C)" if ndim == 3 else "(B, N)"
+            raise ValueError(f"expected a non-empty {want} tensor, got {tuple(t.shape)}")
     return False
 
 
@@ -64,6 +71,9 @@ def launch(name: str, device: torch.device, args) -> None:
     ``device``; raise if the launch was refused, else count it."""
     from . import _build
 
+    for a in args:
+        if isinstance(a, int) and not -2 ** 31 <= a < 2 ** 31:
+            raise ValueError(f"{name}: {a} does not fit the kernels' 32-bit int arguments")
     lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -77,3 +87,23 @@ def launch(name: str, device: torch.device, args) -> None:
 def rev(f) -> np.ndarray:
     """Reversed float64 filter: the adjoint pairing's taps."""
     return np.asarray(f, dtype=np.float64)[::-1].copy()
+
+
+def poly_geo(hlen: int) -> np.ndarray:
+    """``conv.poly_geometry(hlen)`` as the int32 array the synthesis kernels
+    read: p[0], p[1], o[0], o[1], nb[0], nb[1], lo, hi."""
+    g = conv.poly_geometry(hlen)
+    return np.array([*g.p, *g.o, *g.nb, g.lo, g.hi], dtype=np.int32)
+
+
+def dilation(level: int) -> int:
+    """The a-trous dilation 2^(level-1) of a stationary level."""
+    if level < 1:
+        raise ValueError(f"level must be >= 1, got {level}")
+    return 1 << (level - 1)
+
+
+def check_span(hlen: int, f: int) -> None:
+    if hlen * f >= 2 ** 31:
+        raise ValueError(f"a dilated support of {hlen} x {f} taps overflows the kernels' "
+                         "32-bit indices")

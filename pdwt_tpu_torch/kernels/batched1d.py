@@ -1,0 +1,222 @@
+"""Batched 1D level kernels: wrappers, plain versions, gradients.
+
+Counterpart of the batched 1D part of ``pdwt_tpu/kernels/swt_pallas.py``.
+Four CUDA kernels (``csrc/batched1d.cu``) carry the batched 1D path, each
+filtering along the last axis of a (B, N) batch of signals:
+
+=====================  ========================================  ============================
+wrapper                computes                                  plain version
+=====================  ========================================  ============================
+``fwd_level_1d``       one decimated analysis level              ``fwd_level_1d_ref``
+``inv_level_1d``       one polyphase synthesis level             ``inv_level_1d_ref``
+``swt_fwd_level_1d``   one a-trous analysis level                ``swt_fwd_level_1d_ref``
+``swt_inv_level_1d``   one a-trous synthesis level               ``swt_inv_level_1d_ref``
+=====================  ========================================  ============================
+
+A wrapper given a CPU tensor returns its plain version, built on
+``core/conv.py``; given a CUDA tensor it launches its kernel or raises.
+Each launch adds one to ``LAUNCHES[<wrapper name>]``.  The kernels take
+any batch, length, filter length (odd included) and dilation.
+
+Filters are forward-convention float64 arrays.  A 1D a-trous synthesis is
+one pass, so the wrapper folds ONE 1/2 into the inverse's taps
+(``swt_pallas.py:660``), where the 2D inverse folds one per pass.
+
+Gradients (``swt_pallas.py:792-907``): the decimated analysis's backward is
+the synthesis kernel with ``g[::-1]`` and the synthesis's backward the
+analysis kernel with ``g[::-1]``; the a-trous analysis's backward is the
+a-trous synthesis kernel with ``2 * g[::-1]`` (cancelling its 1/2), and the
+a-trous synthesis's backward the a-trous analysis kernel with
+``0.5 * g[::-1]``.  The centers pair for odd as for even ``hlen``
+(``tests/test_torch_batched1d_kernels.py``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import conv
+from ._launch import check_span, dilation, launch, on_cpu, poly_geo, ptr, rev, taps
+
+
+def _half(f) -> np.ndarray:
+    return 0.5 * np.asarray(f, dtype=np.float64)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (core/conv.py), any device, float32 or float64
+# ---------------------------------------------------------------------------
+
+def fwd_level_1d_ref(x: torch.Tensor, dec_lo, dec_hi):
+    """One decimated analysis level, (B, N) -> (lo, hi), each (B, N/2)."""
+    z = conv.analysis_pass(x[:, None, None], (dec_lo, dec_hi), axis=-1)
+    return z[:, 0, 0].contiguous(), z[:, 1, 0].contiguous()
+
+
+def inv_level_1d_ref(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi) -> torch.Tensor:
+    """One polyphase synthesis level, 2 x (B, M) -> (B, 2M)."""
+    z = torch.stack([lo, hi], dim=1)[:, :, None]
+    return conv.synthesis_pass(z, (rec_lo, rec_hi), axis=-1)[:, 0, 0].contiguous()
+
+
+def swt_fwd_level_1d_ref(x: torch.Tensor, dec_lo, dec_hi, level: int):
+    """One a-trous analysis level, (B, N) -> (lo, hi), each (B, N)."""
+    z = conv.analysis_pass(x[:, None, None], (dec_lo, dec_hi), axis=-1,
+                           dilation=dilation(level), decimate=False)
+    return z[:, 0, 0].contiguous(), z[:, 1, 0].contiguous()
+
+
+def swt_inv_level_1d_ref(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi,
+                         level: int) -> torch.Tensor:
+    """One a-trous synthesis level with one 1/2, 2 x (B, N) -> (B, N)."""
+    z = torch.stack([lo, hi], dim=1)[:, :, None]
+    return conv.synthesis_pass(z, (_half(rec_lo), _half(rec_hi)), axis=-1,
+                               dilation=dilation(level), decimated=False)[:, 0, 0].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _pair_shape(lo: torch.Tensor, hi: torch.Tensor):
+    if lo.shape != hi.shape:
+        raise ValueError(f"the two bands must have one shape, got {tuple(lo.shape)} "
+                         f"and {tuple(hi.shape)}")
+    return lo.shape
+
+
+def fwd_level_1d(x: torch.Tensor, dec_lo, dec_hi):
+    """One decimated analysis level on (B, N), N even -> (lo, hi), each
+    (B, N/2)."""
+    if on_cpu(x, ndim=2):
+        return fwd_level_1d_ref(x, dec_lo, dec_hi)
+    B, n = x.shape
+    if n % 2:
+        raise ValueError(f"fwd_level_1d takes an even length, got {n}")
+    tl, th = taps(dec_lo), taps(dec_hi)
+    lo, hi = (torch.empty((B, n // 2), device=x.device, dtype=x.dtype) for _ in range(2))
+    launch("fwd_level_1d", x.device,
+           [ptr(x), ptr(lo), ptr(hi), B, n, ptr(tl), ptr(th), len(tl),
+            conv.fwd_center(len(tl))])
+    return lo, hi
+
+
+def inv_level_1d(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi) -> torch.Tensor:
+    """One polyphase synthesis level: 2 x (B, M) -> (B, 2M)."""
+    if on_cpu(lo, hi, ndim=2):
+        return inv_level_1d_ref(lo, hi, rec_lo, rec_hi)
+    B, m = _pair_shape(lo, hi)
+    tl, th = taps(rec_lo), taps(rec_hi)
+    geo = poly_geo(len(tl))
+    out = torch.empty((B, 2 * m), device=lo.device, dtype=lo.dtype)
+    launch("inv_level_1d", lo.device,
+           [ptr(lo), ptr(hi), ptr(out), B, m, ptr(tl), ptr(th), len(tl), ptr(geo)])
+    return out
+
+
+def swt_fwd_level_1d(x: torch.Tensor, dec_lo, dec_hi, level: int):
+    """One a-trous analysis level: (B, N) -> (lo, hi), each (B, N).  Any
+    length, including one shorter than the dilated support."""
+    if on_cpu(x, ndim=2):
+        return swt_fwd_level_1d_ref(x, dec_lo, dec_hi, level)
+    f = dilation(level)
+    tl, th = taps(dec_lo), taps(dec_hi)
+    check_span(len(tl), f)
+    B, n = x.shape
+    lo, hi = torch.empty_like(x), torch.empty_like(x)
+    launch("swt_fwd_level_1d", x.device,
+           [ptr(x), ptr(lo), ptr(hi), B, n, ptr(tl), ptr(th), len(tl), f,
+            conv.fwd_center(len(tl)) * f])
+    return lo, hi
+
+
+def swt_inv_level_1d(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi,
+                     level: int) -> torch.Tensor:
+    """One a-trous synthesis level: 2 x (B, N) -> (B, N), the one 1/2 of a
+    1D synthesis folded into the taps."""
+    if on_cpu(lo, hi, ndim=2):
+        return swt_inv_level_1d_ref(lo, hi, rec_lo, rec_hi, level)
+    f = dilation(level)
+    tl, th = taps(_half(rec_lo)), taps(_half(rec_hi))
+    check_span(len(tl), f)
+    B, n = _pair_shape(lo, hi)
+    out = torch.empty_like(lo)
+    launch("swt_inv_level_1d", lo.device,
+           [ptr(lo), ptr(hi), ptr(out), B, n, ptr(tl), ptr(th), len(tl), f,
+            conv.swt_inv_center(len(tl)) * f])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# autograd: each backward is the paired kernel with reversed (rescaled) taps
+# ---------------------------------------------------------------------------
+
+class _FwdLevel1D(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dec_lo, dec_hi):
+        ctx.filters = (dec_lo, dec_hi)
+        return fwd_level_1d(x, dec_lo, dec_hi)
+
+    @staticmethod
+    def backward(ctx, glo, ghi):
+        lo, hi = ctx.filters
+        return inv_level_1d(glo.contiguous(), ghi.contiguous(), rev(lo), rev(hi)), None, None
+
+
+class _InvLevel1D(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lo, hi, rec_lo, rec_hi):
+        ctx.filters = (rec_lo, rec_hi)
+        return inv_level_1d(lo, hi, rec_lo, rec_hi)
+
+    @staticmethod
+    def backward(ctx, gy):
+        lo, hi = ctx.filters
+        return (*fwd_level_1d(gy.contiguous(), rev(lo), rev(hi)), None, None)
+
+
+class _SwtFwdLevel1D(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dec_lo, dec_hi, level):
+        ctx.args = (dec_lo, dec_hi, level)
+        return swt_fwd_level_1d(x, dec_lo, dec_hi, level)
+
+    @staticmethod
+    def backward(ctx, glo, ghi):
+        lo, hi, level = ctx.args
+        y = swt_inv_level_1d(glo.contiguous(), ghi.contiguous(), 2.0 * rev(lo),
+                             2.0 * rev(hi), level)
+        return y, None, None, None
+
+
+class _SwtInvLevel1D(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lo, hi, rec_lo, rec_hi, level):
+        ctx.args = (rec_lo, rec_hi, level)
+        return swt_inv_level_1d(lo, hi, rec_lo, rec_hi, level)
+
+    @staticmethod
+    def backward(ctx, gy):
+        lo, hi, level = ctx.args
+        return (*swt_fwd_level_1d(gy.contiguous(), 0.5 * rev(lo), 0.5 * rev(hi), level),
+                None, None, None)
+
+
+def fwd_level_1d_ad(x, dec_lo, dec_hi):
+    """Differentiable :func:`fwd_level_1d`."""
+    return _FwdLevel1D.apply(x, dec_lo, dec_hi)
+
+
+def inv_level_1d_ad(lo, hi, rec_lo, rec_hi):
+    """Differentiable :func:`inv_level_1d`."""
+    return _InvLevel1D.apply(lo, hi, rec_lo, rec_hi)
+
+
+def swt_fwd_level_1d_ad(x, dec_lo, dec_hi, level: int):
+    """Differentiable :func:`swt_fwd_level_1d`."""
+    return _SwtFwdLevel1D.apply(x, dec_lo, dec_hi, level)
+
+
+def swt_inv_level_1d_ad(lo, hi, rec_lo, rec_hi, level: int):
+    """Differentiable :func:`swt_inv_level_1d`."""
+    return _SwtInvLevel1D.apply(lo, hi, rec_lo, rec_hi, level)

@@ -1,0 +1,333 @@
+// Batched 1D wavelet kernels for Hopper (sm_90a), with a plain C interface
+// loaded through ctypes (pdwt_tpu_torch/kernels/_build.py, which links this
+// file with separable.cu and swt.cu into one library).
+//
+// Four kernels, one per Pallas kernel of the batched 1D part of
+// pdwt_tpu/kernels/swt_pallas.py:
+//
+//   fwd_level_1d_kernel      <- _make_1d_fwd_kernel      (swt_pallas.py:395)
+//   inv_level_1d_kernel      <- _make_1d_inv_kernel      (swt_pallas.py:455)
+//   swt_fwd_level_1d_kernel  <- _make_swt1d_fwd_kernel   (swt_pallas.py:528)
+//   swt_inv_level_1d_kernel  <- _make_swt1d_inv_kernel   (swt_pallas.py:593)
+//
+// Every kernel filters along the last axis of a (B, N) batch of signals.
+// Index spec (pdwt_tpu_torch/core/conv.py, the same as pdwt_tpu/core/conv.py),
+// with t the reversed filter (correlation order):
+//   decimated analysis   out[n]      = sum_j t[j] * x[(2n - cen + j) mod N],
+//                        cen = fwd_center(hlen), N even
+//   polyphase synthesis  out[2m + q] = sum_band sum_b t_band[p_q + 2b] *
+//                                      x_band[(m + o_q + b) mod M],
+//                        (p, o, nb, lo, hi) = poly_geometry(hlen)
+//   a-trous analysis     out[n] = sum_j t[j] * x[(n - cen + j*f) mod N],
+//                        cen = fwd_center(hlen) * f
+//   a-trous synthesis    out[n] = sum_band sum_j t_band[j] * x_band[(n - cen + j*f) mod N],
+//                        cen = swt_inv_center(hlen) * f
+// at level L with dilation f = 2^(L-1).  The wrappers (kernels/batched1d.py)
+// compute the offsets with those Python helpers and pass them in, and fold the
+// a-trous synthesis's single 1/2 (one pass in 1D) into its taps, so the kernels
+// hard-code no offset and no scale.  Each band's sum runs over its taps in the
+// order of the plain version, so the two differ only by FMA contraction.
+//
+// Layout.  The TPU kernels transpose each tile so that the signal runs along
+// sublanes; here the signal axis is contiguous and runs along the lanes, so a
+// warp's loads of one tap are 32 neighbouring floats.  A block has NT threads
+// laid out TW x RB: TW consecutive output positions (a power of two, 32..NT)
+// of each of RB = NT / TW signals, so short signals fill the block with rows
+// instead of idling lanes.  The grid is one-dimensional, (signal group, tile)
+// flattened, so any batch fits (65 535 caps only gridDim.y and .z); offsets
+// into the batch are size_t.
+//
+// Periodic boundaries are an index mod N at load time; nothing is padded on
+// the host.  An output whose taps lie inside the signal indexes with no wrap;
+// one near an edge steps its index and wraps it, starting from a full mod, so
+// a support wider than the signal (n = 10 with hlen 16, or a dilation larger
+// than the signal) wraps as often as it needs.
+//
+// Bound: device memory.  Per level a kernel reads its input once and writes
+// its output once; the taps' re-reads of neighbouring samples hit L1 (or
+// shared memory for the decimated analysis), and 2*hlen FMAs per output are
+// cheap beside the bytes.  The dilated support is never staged, so nothing
+// grows with the level.
+
+#include <cuda_runtime.h>
+
+#define PDWT_MAX_HLEN 128
+
+namespace {
+
+struct Taps {
+  float lo[PDWT_MAX_HLEN];
+  float hi[PDWT_MAX_HLEN];
+};
+
+struct Poly {
+  int p[2];
+  int o[2];
+  int nb[2];
+  int lo;
+  int hi;
+};
+
+constexpr int NT = 256;  // threads per block
+
+__device__ __forceinline__ int wrapl(long long i, int n) {
+  const int r = static_cast<int>(i % n);
+  return r < 0 ? r + n : r;
+}
+
+// The block's signal group and tile: signal row = group * RB + threadIdx.y,
+// output position = tile * TW + threadIdx.x.
+struct Place {
+  long long row;
+  int pos0;
+};
+
+__device__ __forceinline__ Place place(int ntile) {
+  const unsigned g = blockIdx.x / ntile, t = blockIdx.x % ntile;
+  return {(long long)g * blockDim.y + threadIdx.y, static_cast<int>(t) * (int)blockDim.x};
+}
+
+// sum_j t[j] * s[(k0 + j*step) mod N] for the two filters, in tap order.
+__device__ __forceinline__ void dual_fir(const float* __restrict__ s, int N, long long k0,
+                                         int step, int hlen, const float* tlo,
+                                         const float* thi, float& lo, float& hi) {
+  lo = 0.f;
+  hi = 0.f;
+  if (k0 >= 0 && k0 + (long long)(hlen - 1) * step < N) {
+    const int k = static_cast<int>(k0);
+    for (int j = 0; j < hlen; ++j) {
+      const float v = __ldg(s + k + j * step);
+      lo = fmaf(tlo[j], v, lo);
+      hi = fmaf(thi[j], v, hi);
+    }
+    return;
+  }
+  const int st = step % N;
+  long long k = wrapl(k0, N);  // k + st may pass INT_MAX when N > 2^30
+  for (int j = 0; j < hlen; ++j) {
+    const float v = __ldg(s + k);
+    lo = fmaf(tlo[j], v, lo);
+    hi = fmaf(thi[j], v, hi);
+    k += st;
+    if (k >= N) k -= N;
+  }
+}
+
+// sum_b t[p + 2b] * s[(k0 + b*step) mod N], b < nb, in tap order.
+__device__ __forceinline__ float fir(const float* __restrict__ s, int N, long long k0,
+                                     int step, int nb, const float* t, int p, int tstride,
+                                     float acc) {
+  if (k0 >= 0 && k0 + (long long)(nb - 1) * step < N) {
+    const int k = static_cast<int>(k0);
+    for (int b = 0; b < nb; ++b) acc = fmaf(t[p + b * tstride], __ldg(s + k + b * step), acc);
+    return acc;
+  }
+  const int st = step % N;
+  long long k = wrapl(k0, N);
+  for (int b = 0; b < nb; ++b) {
+    acc = fmaf(t[p + b * tstride], __ldg(s + k), acc);
+    k += st;
+    if (k >= N) k -= N;
+  }
+  return acc;
+}
+
+// ---------------------------------------------------------------------------
+// Decimated analysis level.  Replaces _make_1d_fwd_kernel (swt_pallas.py:395).
+// Output n reads x[2n - cen + j]: read straight from memory, a warp's load of
+// one tap spans 64 floats at stride 2.  So the block stages, for each of its
+// rows, the window x[w0 .. w0 + 2*TW + hlen - 2), w0 = 2*pos0 - cen, with
+// coalesced loads, split by parity into E[i] = x[w0 + 2i] and O[i] = x[w0 + 2i
+// + 1] (the even/odd split of core/conv.py:_fma_analysis).  Tap j = 2a reads
+// E[tx + a], tap j = 2a + 1 reads O[tx + a]: consecutive words across the
+// warp, free of bank conflicts.  Shared memory: RB * 2 * (TW + ceil(hlen/2))
+// floats, at most 6 KB.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(NT)
+fwd_level_1d_kernel(const float* __restrict__ x, float* __restrict__ lo,
+                    float* __restrict__ hi, int B, int N, int hlen, int cen, int ntile,
+                    const __grid_constant__ Taps taps) {
+  extern __shared__ float smem[];
+  const int TW = blockDim.x, tx = threadIdx.x;
+  const int S = TW + (hlen + 1) / 2;  // staged samples per parity
+  float* E = smem + threadIdx.y * 2 * S;
+  float* O = E + S;
+  const Place pl = place(ntile);
+  const int M = N / 2;
+  const bool live = pl.row < B;
+  if (live) {
+    const float* xr = x + (size_t)pl.row * N;
+    const long long w0 = 2LL * pl.pos0 - cen;
+    for (int i = tx; i < 2 * S; i += TW) {
+      long long k = w0 + i;
+      if (k < 0 || k >= N) k = wrapl(k, N);
+      (i & 1 ? O : E)[i >> 1] = __ldg(xr + k);
+    }
+  }
+  __syncthreads();
+  const int n = pl.pos0 + tx;
+  if (!live || n >= M) return;
+  float l = 0.f, h = 0.f;
+  for (int j = 0; j < hlen; ++j) {
+    const float v = (j & 1 ? O : E)[tx + (j >> 1)];
+    l = fmaf(taps.lo[j], v, l);
+    h = fmaf(taps.hi[j], v, h);
+  }
+  const size_t o = (size_t)pl.row * M + n;
+  lo[o] = l;
+  hi[o] = h;
+}
+
+// ---------------------------------------------------------------------------
+// Polyphase synthesis level.  Replaces _make_1d_inv_kernel (swt_pallas.py:455).
+// Thread m computes both output parities, 2m and 2m + 1, each a half-length
+// FIR over the un-stuffed lo and hi bands (no stuffed zeros are read), and
+// stores them as one float2.  Loads of one tap are 32 consecutive floats of a
+// band across the warp; the nb neighbours a thread reads again hit L1.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(NT)
+inv_level_1d_kernel(const float* __restrict__ lo, const float* __restrict__ hi,
+                    float* __restrict__ out, int B, int M, int ntile, const Poly g,
+                    const __grid_constant__ Taps taps) {
+  const Place pl = place(ntile);
+  const int m = pl.pos0 + threadIdx.x;
+  if (pl.row >= B || m >= M) return;
+  const float* lr = lo + (size_t)pl.row * M;
+  const float* hr = hi + (size_t)pl.row * M;
+  float res[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const long long k0 = (long long)m + g.o[q];
+    float acc = fir(lr, M, k0, 1, g.nb[q], taps.lo, g.p[q], 2, 0.f);
+    res[q] = fir(hr, M, k0, 1, g.nb[q], taps.hi, g.p[q], 2, acc);
+  }
+  *reinterpret_cast<float2*>(out + (size_t)pl.row * 2 * M + 2 * m) = make_float2(res[0], res[1]);
+}
+
+// ---------------------------------------------------------------------------
+// A-trous analysis level.  Replaces _make_swt1d_fwd_kernel (swt_pallas.py:528).
+// Thread n reads its hlen taps f apart straight from memory: for each tap a
+// warp reads 32 consecutive floats, coalesced, through L1, and for small f the
+// neighbouring taps hit the same lines.  Nothing is staged, so the dilated
+// support ((hlen - 1) * f samples, past shared memory at large f) costs no
+// shared memory at any level.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(NT)
+swt_fwd_level_1d_kernel(const float* __restrict__ x, float* __restrict__ lo,
+                        float* __restrict__ hi, int B, int N, int hlen, int f, int cen,
+                        int ntile, const __grid_constant__ Taps taps) {
+  const Place pl = place(ntile);
+  const int n = pl.pos0 + threadIdx.x;
+  if (pl.row >= B || n >= N) return;
+  float l, h;
+  dual_fir(x + (size_t)pl.row * N, N, (long long)n - cen, f, hlen, taps.lo, taps.hi, l, h);
+  const size_t o = (size_t)pl.row * N + n;
+  lo[o] = l;
+  hi[o] = h;
+}
+
+// ---------------------------------------------------------------------------
+// A-trous synthesis level.  Replaces _make_swt1d_inv_kernel (swt_pallas.py:593).
+// out[n] sums the lo band's dilated FIR, then the hi band's, read as in the
+// analysis kernel.  The wrapper has folded the one 1/2 of a 1D synthesis into
+// the taps.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(NT)
+swt_inv_level_1d_kernel(const float* __restrict__ lo, const float* __restrict__ hi,
+                        float* __restrict__ out, int B, int N, int hlen, int f, int cen,
+                        int ntile, const __grid_constant__ Taps taps) {
+  const Place pl = place(ntile);
+  const int n = pl.pos0 + threadIdx.x;
+  if (pl.row >= B || n >= N) return;
+  const size_t r = (size_t)pl.row * N;
+  const long long k0 = (long long)n - cen;
+  const float acc = fir(lo + r, N, k0, f, hlen, taps.lo, 0, 1, 0.f);
+  out[r + n] = fir(hi + r, N, k0, f, hlen, taps.hi, 0, 1, acc);
+}
+
+Taps make_taps(const float* lo, const float* hi, int hlen) {
+  Taps t = {};
+  for (int i = 0; i < hlen; ++i) {
+    t.lo[i] = lo[i];
+    t.hi[i] = hi[i];
+  }
+  return t;
+}
+
+// Block shape and grid for `npos` output positions per signal: TW a power of
+// two in [32, NT], RB = NT / TW signals per block, one block per (signal
+// group, tile of TW positions).
+struct Geometry {
+  dim3 grid, block;
+  int ntile;
+};
+
+cudaError_t geometry(int B, int npos, int hlen, Geometry* g) {
+  if (hlen < 2 || hlen > PDWT_MAX_HLEN || B < 1 || npos < 1) return cudaErrorInvalidValue;
+  int tw = 32;
+  while (tw < NT && tw < npos) tw *= 2;
+  const int rb = NT / tw;
+  g->ntile = (npos + tw - 1) / tw;
+  const long long blocks = (long long)g->ntile * (((long long)B + rb - 1) / rb);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  g->grid = dim3(static_cast<unsigned>(blocks));
+  g->block = dim3(tw, rb);
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// Every entry point returns a cudaError_t as int: 0 once the launch has been
+// queued on `stream`, else the reason it was refused (cudaGetLastError()).
+
+extern "C" int pdwt_fwd_level_1d(const float* x, float* lo, float* hi, int B, int N,
+                                 const float* taps_lo, const float* taps_hi, int hlen,
+                                 int cen, void* stream) {
+  if (N < 2 || N % 2) return cudaErrorInvalidValue;
+  Geometry g;
+  cudaError_t e = geometry(B, N / 2, hlen, &g);
+  if (e != cudaSuccess) return e;
+  const size_t smem = sizeof(float) * g.block.y * 2 * (g.block.x + (hlen + 1) / 2);
+  fwd_level_1d_kernel<<<g.grid, g.block, smem, (cudaStream_t)stream>>>(
+      x, lo, hi, B, N, hlen, cen, g.ntile, make_taps(taps_lo, taps_hi, hlen));
+  return cudaGetLastError();
+}
+
+// geo: p[0], p[1], o[0], o[1], nb[0], nb[1], lo, hi of poly_geometry(hlen).
+extern "C" int pdwt_inv_level_1d(const float* lo, const float* hi, float* out, int B, int M,
+                                 const float* taps_lo, const float* taps_hi, int hlen,
+                                 const int* geo, void* stream) {
+  Geometry g;
+  cudaError_t e = geometry(B, M, hlen, &g);
+  if (e != cudaSuccess) return e;
+  const Poly poly = {{geo[0], geo[1]}, {geo[2], geo[3]}, {geo[4], geo[5]}, geo[6], geo[7]};
+  inv_level_1d_kernel<<<g.grid, g.block, 0, (cudaStream_t)stream>>>(
+      lo, hi, out, B, M, g.ntile, poly, make_taps(taps_lo, taps_hi, hlen));
+  return cudaGetLastError();
+}
+
+// `cen` is the dilated center: fwd_center(hlen) * f.
+extern "C" int pdwt_swt_fwd_level_1d(const float* x, float* lo, float* hi, int B, int N,
+                                     const float* taps_lo, const float* taps_hi, int hlen,
+                                     int f, int cen, void* stream) {
+  if (f < 1) return cudaErrorInvalidValue;
+  Geometry g;
+  cudaError_t e = geometry(B, N, hlen, &g);
+  if (e != cudaSuccess) return e;
+  swt_fwd_level_1d_kernel<<<g.grid, g.block, 0, (cudaStream_t)stream>>>(
+      x, lo, hi, B, N, hlen, f, cen, g.ntile, make_taps(taps_lo, taps_hi, hlen));
+  return cudaGetLastError();
+}
+
+// `cen` is the dilated center: swt_inv_center(hlen) * f.
+extern "C" int pdwt_swt_inv_level_1d(const float* lo, const float* hi, float* out, int B,
+                                     int N, const float* taps_lo, const float* taps_hi,
+                                     int hlen, int f, int cen, void* stream) {
+  if (f < 1) return cudaErrorInvalidValue;
+  Geometry g;
+  cudaError_t e = geometry(B, N, hlen, &g);
+  if (e != cudaSuccess) return e;
+  swt_inv_level_1d_kernel<<<g.grid, g.block, 0, (cudaStream_t)stream>>>(
+      lo, hi, out, B, N, hlen, f, cen, g.ntile, make_taps(taps_lo, taps_hi, hlen));
+  return cudaGetLastError();
+}

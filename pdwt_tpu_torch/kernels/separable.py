@@ -37,7 +37,7 @@ import torch
 
 from ..core import conv
 from ._launch import LAUNCHES, MAX_HLEN, reset_launch_counts  # noqa: F401 (re-exported)
-from ._launch import launch, on_cpu, ptr, rev, taps
+from ._launch import launch, on_cpu, poly_geo, ptr, rev, taps
 
 #: Most levels one tail launch fuses (PDWT_MAX_TAIL_LEVELS).
 MAX_TAIL_LEVELS = 16
@@ -101,11 +101,6 @@ def tail_supported(shape: Tuple[int, int], hlen: int, levels: int) -> bool:
     return 2 * r * c * 4 <= SMEM_PER_BLOCK
 
 
-def _geo(hlen: int) -> np.ndarray:
-    g = conv.poly_geometry(hlen)
-    return np.array([*g.p, *g.o, *g.nb, g.lo, g.hi], dtype=np.int32)
-
-
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -135,7 +130,7 @@ def inv_level_2d(a, h, v, d, rec_lo, rec_hi) -> torch.Tensor:
         raise ValueError("the four subbands must have one shape")
     B, mr, mc = a.shape
     tl, th = taps(rec_lo), taps(rec_hi)
-    geo = _geo(len(tl))
+    geo = poly_geo(len(tl))
     out = torch.empty((B, 2 * mr, 2 * mc), device=a.device, dtype=a.dtype)
     launch("inv_level_2d", a.device,
            [*map(ptr, (a, h, v, d, out)), B, mr, mc, ptr(tl), ptr(th),
@@ -183,7 +178,7 @@ def inv_tail_2d(a: torch.Tensor, details: Sequence[Bands], rec_lo, rec_hi):
         raise ValueError(f"inv_tail_2d: {levels} levels of {(mr, mc)} with "
                          f"{len(rec_lo)} taps is not tail_supported")
     tl, th = taps(rec_lo), taps(rec_hi)
-    geo = _geo(len(tl))
+    geo = poly_geo(len(tl))
     out = torch.empty((B, mr << levels, mc << levels), device=a.device, dtype=a.dtype)
     ptrs = (ctypes.c_void_p * (3 * levels))(*[t.data_ptr() for t in flat])
     launch("inv_tail_2d", a.device,

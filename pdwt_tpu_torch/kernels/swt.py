@@ -39,18 +39,12 @@ import numpy as np
 import torch
 
 from ..core import conv
-from ._launch import launch, on_cpu, ptr, rev, taps
+from ._launch import check_span, dilation, launch, on_cpu, ptr, rev, taps
 
 #: thresh_mode codes of pdwt_swt_inv_level_2d (csrc/swt.cu)
 THRESH_CODES = {None: 0, "soft": 1, "hard": 2, "garrote": 3}
 
 Threshold = Optional[Tuple[str, object]]
-
-
-def _dilation(level: int) -> int:
-    if level < 1:
-        raise ValueError(f"level must be >= 1, got {level}")
-    return 1 << (level - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -59,7 +53,7 @@ def _dilation(level: int) -> int:
 
 def swt_fwd_level_2d_ref(x: torch.Tensor, dec_lo, dec_hi, level: int):
     """One a-trous analysis level on (B, R, C): columns, then rows."""
-    f = _dilation(level)
+    f = dilation(level)
     dec = (dec_lo, dec_hi)
     z = conv.analysis_pass(x[:, None], dec, axis=-1, dilation=f, decimate=False)
     z = conv.analysis_pass(z, dec, axis=-2, dilation=f, decimate=False)
@@ -70,7 +64,7 @@ def swt_inv_level_2d_ref(a, h, v, d, rec_lo, rec_hi, level: int,
                          threshold: Threshold = None) -> torch.Tensor:
     """One a-trous synthesis level, rows then columns, 1/2 per pass;
     ``threshold=(mode, beta)`` first thresholds H, V and D."""
-    f = _dilation(level)
+    f = dilation(level)
     if threshold is not None:
         from ..ops.threshold import THR_ELEM
 
@@ -86,20 +80,14 @@ def swt_inv_level_2d_ref(a, h, v, d, rec_lo, rec_hi, level: int,
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _check_span(hlen: int, f: int) -> None:
-    if hlen * f >= 2 ** 31:
-        raise ValueError(f"a dilated support of {hlen} x {f} taps overflows the kernels' "
-                         "32-bit indices")
-
-
 def swt_fwd_level_2d(x: torch.Tensor, dec_lo, dec_hi, level: int):
     """One a-trous analysis level: (B, R, C) -> (a, h, v, d), each (B, R, C).
     Any size, including one smaller than the dilated support."""
     if on_cpu(x):
         return swt_fwd_level_2d_ref(x, dec_lo, dec_hi, level)
-    f = _dilation(level)
+    f = dilation(level)
     tl, th = taps(dec_lo), taps(dec_hi)
-    _check_span(len(tl), f)
+    check_span(len(tl), f)
     B, R, C = x.shape
     outs = [torch.empty_like(x) for _ in range(4)]
     launch("swt_fwd_level_2d", x.device,
@@ -130,10 +118,10 @@ def swt_inv_level_2d(a, h, v, d, rec_lo, rec_hi, level: int,
         return swt_inv_level_2d_ref(a, h, v, d, rec_lo, rec_hi, level, threshold)
     if not a.shape == h.shape == v.shape == d.shape:
         raise ValueError("the four subbands must have one shape")
-    f = _dilation(level)
+    f = dilation(level)
     tl = taps(0.5 * np.asarray(rec_lo, np.float64))
     th = taps(0.5 * np.asarray(rec_hi, np.float64))
-    _check_span(len(tl), f)
+    check_span(len(tl), f)
     B, R, C = a.shape
     out = torch.empty_like(a)
     buf = None if mode is None else _beta_buffer(beta, a.device)

@@ -1,4 +1,4 @@
-"""Norms over a whole coefficient tree (counterpart of
+"""Norms over a whole coefficient tree, 2D or 1D (counterpart of
 ``pdwt_tpu/ops/norms.py``): one 0-dim tensor on the coefficients' device,
 summed over the approximation and every detail band.  ``norm_l21`` and the
 algebra ops come with ROADMAP queue 1, item 4."""
@@ -6,26 +6,26 @@ from __future__ import annotations
 
 import torch
 
-from ..core.separable import Coeffs2D
+from .threshold import Coeffs, detail_bands
 
 
-def _leaves(coeffs: Coeffs2D):
+def _leaves(coeffs: Coeffs):
     yield coeffs.approx
-    for band in coeffs.details:
-        yield from band
+    for _, _, x in detail_bands(coeffs):
+        yield x
 
 
-def norm1(coeffs: Coeffs2D) -> torch.Tensor:
+def norm1(coeffs: Coeffs) -> torch.Tensor:
     """Sum of |coeff| over all subbands, approximation included."""
     return sum(torch.sum(torch.abs(x)) for x in _leaves(coeffs))
 
 
-def norm2sq(coeffs: Coeffs2D) -> torch.Tensor:
+def norm2sq(coeffs: Coeffs) -> torch.Tensor:
     """Squared L2 norm over all subbands, approximation included."""
     return sum(torch.sum(torch.square(x)) for x in _leaves(coeffs))
 
 
-def thresholded_norm1(coeffs: Coeffs2D, beta, *, mode: str = "soft",
+def thresholded_norm1(coeffs: Coeffs, beta, *, mode: str = "soft",
                       normalize: bool = False,
                       do_thresh_appcoeffs: bool = False) -> torch.Tensor:
     """``norm1(threshold(coeffs))`` without building the thresholded tree:
@@ -50,9 +50,8 @@ def thresholded_norm1(coeffs: Coeffs2D, beta, *, mode: str = "soft",
         raise ValueError(f"thresholded_norm1 takes soft, hard or garrote, got {mode!r}")
 
     total = 0.0
-    for i, band in enumerate(coeffs.details):
-        for j, x in enumerate(band):
-            total = total + term(x, _resolve_beta(beta, i, j, normalize))
+    for i, j, x in detail_bands(coeffs):
+        total = total + term(x, _resolve_beta(beta, i, j, normalize))
     a = coeffs.approx
     if do_thresh_appcoeffs:
         return total + term(a, _app_beta(beta, coeffs.levels, normalize))

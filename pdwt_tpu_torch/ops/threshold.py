@@ -1,5 +1,5 @@
-"""Soft, hard and garrote thresholds on coefficient trees (counterpart of
-``pdwt_tpu/ops/threshold.py``).
+"""Soft, hard and garrote thresholds on coefficient trees, 2D or 1D
+(counterpart of ``pdwt_tpu/ops/threshold.py``).
 
 * ``normalize``: beta is divided by sqrt(2) per level from level 1, and
   the approximation threshold is beta / sqrt(2)^nlevels;
@@ -14,10 +14,13 @@ ROADMAP queue 1, item 4.
 from __future__ import annotations
 
 import math
+from typing import Union
 
 import torch
 
-from ..core.separable import Coeffs2D
+from ..core.separable import Coeffs1D, Coeffs2D
+
+Coeffs = Union[Coeffs1D, Coeffs2D]
 
 _SQRT2 = math.sqrt(2.0)
 
@@ -71,30 +74,43 @@ def _garrote(x: torch.Tensor, b) -> torch.Tensor:
 THR_ELEM = {"soft": _soft, "hard": _hard, "garrote": _garrote}
 
 
-def _apply(fn, coeffs: Coeffs2D, beta, do_thresh_appcoeffs, normalize):
-    details = tuple(
-        tuple(fn(x, _resolve_beta(beta, i, j, normalize)) for j, x in enumerate(band))
-        for i, band in enumerate(coeffs.details))
+def detail_bands(coeffs: Coeffs):
+    """(level i, band j, tensor) of every detail band: (H, V, D) of each 2D
+    level with j = 0, 1, 2; the one band of each 1D level with j = None,
+    as JAX's ``_map_details`` numbers them."""
+    for i, det in enumerate(coeffs.details):
+        if isinstance(det, torch.Tensor):
+            yield i, None, det
+        else:
+            for j, x in enumerate(det):
+                yield i, j, x
+
+
+def _apply(fn, coeffs: Coeffs, beta, do_thresh_appcoeffs, normalize):
+    thr = lambda x, i, j: fn(x, _resolve_beta(beta, i, j, normalize))
+    details = tuple(thr(det, i, None) if isinstance(det, torch.Tensor)
+                    else tuple(thr(x, i, j) for j, x in enumerate(det))
+                    for i, det in enumerate(coeffs.details))
     approx = coeffs.approx
     if do_thresh_appcoeffs:
         approx = fn(approx, _app_beta(beta, coeffs.levels, normalize))
-    return Coeffs2D(approx, details)
+    return type(coeffs)(approx, details)
 
 
-def soft_threshold(coeffs: Coeffs2D, beta, *, do_thresh_appcoeffs: bool = False,
-                   normalize: bool = False) -> Coeffs2D:
+def soft_threshold(coeffs: Coeffs, beta, *, do_thresh_appcoeffs: bool = False,
+                   normalize: bool = False) -> Coeffs:
     """Elementwise soft threshold (the L1 proximal operator)."""
     return _apply(_soft, coeffs, beta, do_thresh_appcoeffs, normalize)
 
 
-def hard_threshold(coeffs: Coeffs2D, beta, *, do_thresh_appcoeffs: bool = False,
-                   normalize: bool = False) -> Coeffs2D:
+def hard_threshold(coeffs: Coeffs, beta, *, do_thresh_appcoeffs: bool = False,
+                   normalize: bool = False) -> Coeffs:
     """Elementwise hard threshold."""
     return _apply(_hard, coeffs, beta, do_thresh_appcoeffs, normalize)
 
 
-def garrote_threshold(coeffs: Coeffs2D, beta, *, do_thresh_appcoeffs: bool = False,
-                      normalize: bool = False) -> Coeffs2D:
+def garrote_threshold(coeffs: Coeffs, beta, *, do_thresh_appcoeffs: bool = False,
+                      normalize: bool = False) -> Coeffs:
     """Elementwise non-negative garrote threshold (Gao 1998): continuous
     like soft, asymptotically unbiased like hard."""
     return _apply(_garrote, coeffs, beta, do_thresh_appcoeffs, normalize)

@@ -7,7 +7,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.separable import Coeffs2D
+from ..core.separable import Coeffs1D, Coeffs2D
 from ..filters import Wavelet
 
 
@@ -26,6 +26,10 @@ def wavelet_from_arrays(obj_or_name, dec_lo=None, dec_hi=None, rec_lo=None,
                      for f in ("dec_lo", "dec_hi", "rec_lo", "rec_hi")))
 
 
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def coeffs2d_from_numpy(approx, details: Sequence[Sequence], device="cpu") -> Coeffs2D:
     """A :class:`Coeffs2D` of tensors on ``device`` from numpy arrays
     (``details[i] = (H, V, D)`` of level i+1), copied, dtypes kept."""
@@ -36,6 +40,18 @@ def coeffs2d_from_numpy(approx, details: Sequence[Sequence], device="cpu") -> Co
 def coeffs2d_to_numpy(coeffs) -> Tuple[np.ndarray, List[Tuple[np.ndarray, ...]]]:
     """(approx, [(H, V, D), ...]) as host numpy arrays, from a port
     :class:`Coeffs2D` or any pair of array-likes in the same layout."""
-    n = lambda x: (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
-                   else np.asarray(x))
-    return n(coeffs[0]), [tuple(n(x) for x in band) for band in coeffs[1]]
+    return _host(coeffs[0]), [tuple(_host(x) for x in band) for band in coeffs[1]]
+
+
+def coeffs1d_from_numpy(approx, details: Sequence, device="cpu") -> Coeffs1D:
+    """A :class:`Coeffs1D` of tensors on ``device`` from numpy arrays
+    (``details[i]`` the detail band of level i+1), copied, dtypes kept."""
+    t = lambda arr: torch.tensor(np.asarray(arr), device=device)
+    return Coeffs1D(t(approx), tuple(t(x) for x in details))
+
+
+def coeffs1d_to_numpy(coeffs) -> Tuple[np.ndarray, List[np.ndarray]]:
+    """(approx, [detail of level 1, 2, ...]) as host numpy arrays, from a
+    port :class:`Coeffs1D` or any pair of array-likes in the same layout
+    (such as a JAX ``Coeffs1D``)."""
+    return _host(coeffs[0]), [_host(x) for x in coeffs[1]]

@@ -7,16 +7,18 @@ with a card (which need not have JAX):
 
 Tolerance: max|kernel - plain| <= 1e-5 * max|plain| in float32, because
 nvcc contracts each multiply-add into one FMA where the plain version
-rounds twice.  For the stationary kernels max|plain| is taken over the four
-subbands of a call together: at a dilation as large as the image the row
-high-pass sums its taps over one row, and H and D are roundoff.
+rounds twice.  For the stationary kernels max|plain| is taken over the
+subbands of a call together: at a dilation as large as the image (or the
+signal) the high-pass sums its taps over one period, and is roundoff.
 """
 import numpy as np
 import pytest
 import torch
 
-from pdwt_tpu_torch import dwt2d, get_wavelet, idwt2d, iswt2d, iswt2d_denoise, swt2d
+from pdwt_tpu_torch import (Wavelets, dwt1d, dwt2d, get_wavelet, idwt1d, idwt2d, iswt1d,
+                            iswt2d, iswt2d_denoise, ops, swt1d, swt2d)
 from pdwt_tpu_torch.filters import make_custom_wavelet
+from pdwt_tpu_torch.kernels import batched1d as K1
 from pdwt_tpu_torch.kernels import separable as K
 from pdwt_tpu_torch.kernels import swt as S
 
@@ -125,7 +127,9 @@ def test_launch_counters(dev):
     idwt2d(c, w, (512, 512))
     assert K.LAUNCHES == {"fwd_level_2d": 2, "inv_level_2d": 2,
                           "fwd_tail_2d": 1, "inv_tail_2d": 1,
-                          "swt_fwd_level_2d": 0, "swt_inv_level_2d": 0}
+                          "swt_fwd_level_2d": 0, "swt_inv_level_2d": 0,
+                          "fwd_level_1d": 0, "inv_level_1d": 0,
+                          "swt_fwd_level_1d": 0, "swt_inv_level_1d": 0}
 
 
 def test_cuda_rejects_what_the_kernels_do_not_take(dev):
@@ -232,3 +236,106 @@ def test_swt_cuda_rejects_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="one beta"):
         S.swt_inv_level_2d(*bands, w.rec_lo, w.rec_hi, 1,
                            threshold=("soft", torch.ones(2, device=dev)))
+
+
+# ---------------------------------------------------------------------------
+# batched 1D kernels, the batched 1D path
+# ---------------------------------------------------------------------------
+
+# (wavelet, batch, length): the path's own shape (sym8, 1024 x 4096), an
+# odd length, signals shorter than the support, one long signal, more
+# signals than a grid dimension holds, Haar and an odd-length bank
+CASES_1D = [("sym8", 1024, 4096), ("sym8", 3, 1023), ("sym8", 2, 10), ("db2", 4, 8),
+            ("sym8", 1, 1 << 22), ("sym8", 70000, 64), ("haar", 5, 64), ("odd5", 3, 29)]
+
+
+@pytest.mark.parametrize("wname,batch,n", CASES_1D)
+def test_batched1d_kernels_match_plain(dev, wname, batch, n):
+    """Levels 1-4 of the stationary pair (db2 on 8 samples: a dilation of 8
+    at level 4); the decimated pair on the odd-extended length."""
+    w = _wavelet(wname)
+    x = _rand(dev, batch, n) * 255
+    xe = x if n % 2 == 0 else torch.cat([x, x[:, -1:]], dim=1)
+    _close(K1.fwd_level_1d(xe, w.dec_lo, w.dec_hi), K1.fwd_level_1d_ref(xe, w.dec_lo, w.dec_hi))
+    m = xe.shape[1] // 2
+    lo, hi = _rand(dev, batch, m, seed=1), _rand(dev, batch, m, seed=2)
+    _close(K1.inv_level_1d(lo, hi, w.rec_lo, w.rec_hi),
+           K1.inv_level_1d_ref(lo, hi, w.rec_lo, w.rec_hi))
+    for level in range(1, 5):
+        want = K1.swt_fwd_level_1d_ref(x, w.dec_lo, w.dec_hi, level)
+        _close_joint(K1.swt_fwd_level_1d(x, w.dec_lo, w.dec_hi, level), want)
+        _close(K1.swt_inv_level_1d(*want, w.rec_lo, w.rec_hi, level),
+               K1.swt_inv_level_1d_ref(*want, w.rec_lo, w.rec_hi, level))
+
+
+@pytest.mark.parametrize("wname,shape,levels", [("sym8", (2, 3, 301), 4), ("db2", (4, 8), 3),
+                                                ("odd5", (29,), 2)])
+@pytest.mark.parametrize("swt", [False, True], ids=["dwt", "swt"])
+def test_1d_transforms_match_cpu(dev, wname, shape, levels, swt):
+    """The CUDA path (kernels) against the CPU one (plain versions),
+    forward, inverse and the gradient of a linear loss."""
+    w = _wavelet(wname)
+    x = (_rand(dev, *shape) * 255).requires_grad_(True)
+    xc = x.detach().cpu().requires_grad_(True)
+    fwd = (lambda t: swt1d(t, w, levels)) if swt else (lambda t: dwt1d(t, w, levels))
+    inv = (lambda c: iswt1d(c, w)) if swt else (lambda c: idwt1d(c, w, shape[-1]))
+    c, cc = fwd(x), fwd(xc)
+    leaves = lambda c: [c.approx, *c.details]
+    (_close_joint if swt else _close)([t.cpu() for t in leaves(c)], leaves(cc))
+    y, yc = inv(c), inv(cc)
+    _close(y.cpu(), yc)
+    if wname != "odd5":  # a random bank does not reconstruct
+        assert float((y - x).abs().max().detach()) < 1e-3
+    wt = _rand(dev, *shape, seed=7)
+    (y * wt).sum().backward()
+    (yc * wt.cpu()).sum().backward()
+    _close(x.grad.cpu(), xc.grad)
+
+
+def test_1d_path_launches_the_kernels_and_no_plain_version(dev, monkeypatch):
+    """On a CUDA tensor the facade's 1D steps run on the kernels, one launch
+    per level each way, and no plain version."""
+    def boom(*args, **kwargs):
+        raise AssertionError("a plain version ran on the CUDA path")
+
+    for name in ("fwd_level_1d_ref", "inv_level_1d_ref", "swt_fwd_level_1d_ref",
+                 "swt_inv_level_1d_ref"):
+        monkeypatch.setattr(K1, name, boom)
+    sig = _rand(dev, 64, 1000) * 255
+    K.reset_launch_counts()
+    for swt in (False, True):
+        out, n1 = Wavelets(sig, wname="sym8", levels=4, ndim=1, do_swt=swt,
+                           device=dev).run_denoise(25.0)
+        assert out.shape == sig.shape and bool(torch.isfinite(out).all())
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+        "fwd_level_1d": 4, "inv_level_1d": 4, "swt_fwd_level_1d": 4, "swt_inv_level_1d": 4}
+
+
+def test_1d_facade_matches_cpu(dev):
+    sig = _rand(dev, 3, 777) * 255
+    for swt in (False, True):
+        got = Wavelets(sig, wname="sym8", levels=4, ndim=1, do_swt=swt).run_denoise(25.0)
+        want = Wavelets(sig.cpu(), wname="sym8", levels=4, ndim=1, do_swt=swt).run_denoise(25.0)
+        _close(got[0].cpu(), want[0])
+        assert abs(float(got[1]) - float(want[1])) <= 1e-5 * float(want[1])
+        W = Wavelets(sig, wname="sym8", levels=4, ndim=1, do_swt=swt)
+        W.forward()
+        W.soft_threshold(25.0)
+        assert abs(W.norm1() - float(want[1])) <= 1e-5 * float(want[1])
+        _close(W.inverse().cpu(), want[0])
+        assert isinstance(ops.norm2sq(W.coeffs), torch.Tensor)
+
+
+def test_1d_cuda_rejects_what_the_kernels_do_not_take(dev):
+    w = get_wavelet("db2")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        K1.fwd_level_1d(_rand(dev, 2, 8).double(), w.dec_lo, w.dec_hi)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        swt1d(_rand(dev, 8).double(), w, 1)
+    with pytest.raises(ValueError, match="even length"):
+        K1.fwd_level_1d(_rand(dev, 2, 7), w.dec_lo, w.dec_hi)
+    with pytest.raises(ValueError, match=r"\(B, N\)"):
+        K1.swt_fwd_level_1d(_rand(dev, 1, 2, 8), w.dec_lo, w.dec_hi, 1)
+    with pytest.raises(ValueError, match="one shape"):
+        K1.inv_level_1d(_rand(dev, 2, 8), _rand(dev, 2, 4), w.rec_lo, w.rec_hi)
