@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It builds the CUDA kernels from
-``pdwt_tpu_torch/kernels/csrc`` and drives the port's three paths, each
+``pdwt_tpu_torch/kernels/csrc`` and drives the port's four paths, each
 with the launch counters set to 0 just before it and read just after:
 
 * the DWT path: each of its four kernels against its plain PyTorch version
@@ -24,11 +24,23 @@ with the launch counters set to 0 just before it and read just after:
   odd-length cases), ``Wavelets(ndim=1)`` with ``do_swt`` off and on,
   through forward/threshold/norm1/inverse and ``run_denoise``, for the
   batch and for one signal, roundtrips, the golden 1D coefficients, and
-  the denoise step's timings.
+  the denoise step's timings;
+* the precision tiers (``mixed``, ``bf16-fast``, ``bf16-balanced``,
+  ``bf16-accurate``) on the DWT path's image and the batched 1D path's
+  signals: the four banded-product kernels against their plain versions in
+  every scheme the tiers route at the paths' shapes (plus shapes off the
+  route rule and ``b2d``), then ``Wavelets(precision=...)`` and
+  ``dwt2d``/``idwt2d``, ``dwt1d``/``idwt1d``, ``swt1d``/``iswt1d`` with
+  ``precision=``: the launch counts the route rule predicts, the dtype
+  contract, the path against the same route on plain versions, the
+  roundtrip error against README's tier column, and each tier's roundtrip
+  timings beside the exact one's.
 
-It prints one JSON line with the per-kernel results and, last, one JSON
-line with ``"ok": true``.  Any failed check exits non-zero before that
-line; so does a machine without a CUDA device.  Imports no JAX.
+It prints one JSON line with the per-kernel results (times, launches, the
+least time the card could take and a PyTorch yardstick), the card's name
+and power limit before it, and, last, one JSON line with ``"ok": true``.
+Any failed check exits non-zero before that line; so does a machine without
+a CUDA device.  Imports no JAX.
 """
 from __future__ import annotations
 
@@ -37,6 +49,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -56,6 +69,49 @@ ROUNDTRIP_ATOL = 1e-3
 # thresholded_norm1(c) against norm1(soft_threshold(c)): float32 sums in
 # another order
 NORM_RTOL = 1e-5
+# the precision tiers.  A banded-product kernel against its plain version:
+# float32-stored outputs within 1e-5 (products of bf16 values are exact and
+# both sum in one order, so only fd's FMAs differ), bf16-stored outputs
+# within 2^-7 (a float32 sum one ulp apart can flip one bf16 rounding)
+TIER_RTOL, BF16_RTOL = 1e-5, 2.0 ** -7
+# a tier's path against the same route on plain versions.  The exact
+# tail's FMAs move its outputs by a float32 ulp; the next levels' split of
+# their data then differs by up to 2^-17 relative per pass (b3, b2d), so
+# float32-stored outputs within 1e-4; and it can flip the bf16 rounding of
+# a b1/b2f row-pass result inside a level, which moves an output by up to
+# one bf16 ulp before its own rounding, so bf16-stored outputs within 2^-6
+PATH_TIER_RTOL, PATH_BF16_RTOL = 1e-4, 2.0 ** -6
+TIERS = ("mixed", "bf16-fast", "bf16-balanced", "bf16-accurate")
+# level-1 (forward, inverse) scheme of each tier; deeper levels run b3
+L1_SCHEMES = {"mixed": ("b3", "b3"), "bf16-fast": ("b1", "fd"),
+              "bf16-balanced": ("b2f", "b2f"), "bf16-accurate": ("b3", "b3")}
+# a-trous forward scheme of the bf16 tiers at level 1 (bf16 input) and
+# deeper (float32 input); every a-trous inverse level runs fd
+SWT_SCHEMES = {"bf16-fast": ("b1", "fd"), "bf16-balanced": ("b2f", "b2f"),
+               "bf16-accurate": ("b2f", "b2f")}
+TERMS = {"b1": 1, "fd": 1, "b2f": 2, "b2d": 2, "b3": 3}
+# max |inverse(forward(x)) - x| on [0, 255] data, README.md's tier column
+ROUNDTRIP_LIMIT = {"mixed": 2.0e-2, "bf16-fast": 4.0, "bf16-balanced": 2.0,
+                   "bf16-accurate": 1.0}
+# the same error of the JAX package on the CPU (Pallas interpret mode), on
+# the inputs this script uses (tools/tier_roundtrip_cpu.py, whose port
+# column is the same to the last bit for the bf16 tiers).  Where it is
+# larger than README's figure, it is the limit: the port computes JAX's
+# function, and README's figures were taken on a TPU
+JAX_CPU_ROUNDTRIP = {
+    "2D": {"mixed": 0.020751953125, "bf16-fast": 2.4999542236328125,
+           "bf16-balanced": 2.4998626708984375, "bf16-accurate": 1.4983673095703125},
+    "1D DWT": {"mixed": 0.0089874267578125, "bf16-fast": 1.4999237060546875,
+               "bf16-balanced": 1.4999847412109375, "bf16-accurate": 1.496124267578125},
+    "1D SWT": {"mixed": 0.0001220703125, "bf16-fast": 1.3996734619140625,
+               "bf16-balanced": 1.4999847412109375, "bf16-accurate": 1.4999847412109375},
+}
+# the timed calls of the bf16-fast tier (the bf16 default) fill the
+# banded-product kernels' rows of the JSON line
+ROW_TIER = "bf16-fast"
+# NVIDIA H100 SXM data sheet: HBM bytes/s; float32 outside the tensor
+# cores; bf16 on the tensor cores (dense)
+HBM_BPS, FP32_PEAK, BF16_PEAK = 3.35e12, 67e12, 989e12
 REPLACES = {
     "fwd_level_2d": "pdwt_tpu/kernels/separable_pallas.py:234",
     "inv_level_2d": "pdwt_tpu/kernels/separable_pallas.py:385",
@@ -67,10 +123,32 @@ REPLACES = {
     "inv_level_1d": "pdwt_tpu/kernels/swt_pallas.py:455",
     "swt_fwd_level_1d": "pdwt_tpu/kernels/swt_pallas.py:528",
     "swt_inv_level_1d": "pdwt_tpu/kernels/swt_pallas.py:593",
+    "fwd_level_2d_mxu": "pdwt_tpu/kernels/matmul_pallas.py:242",
+    "inv_level_2d_mxu": "pdwt_tpu/kernels/matmul_pallas.py:360",
+    "fwd_level_1d_mxu": "pdwt_tpu/kernels/mxu1d_pallas.py:102",
+    "swt_fwd_level_1d_mxu": "pdwt_tpu/kernels/mxu1d_pallas.py:102",
+    "inv_level_1d_mxu": "pdwt_tpu/kernels/mxu1d_pallas.py:153",
+    "swt_inv_level_1d_mxu": "pdwt_tpu/kernels/mxu1d_pallas.py:153",
 }
 SOURCES = {name: "pdwt_tpu_torch/kernels/csrc/" + (
+    ("matmul.cu" if "2d" in name else "mxu1d.cu") if name.endswith("_mxu") else
     "batched1d.cu" if name.endswith("_1d") else
     "swt.cu" if name.startswith("swt") else "separable.cu") for name in REPLACES}
+
+
+class Case(NamedTuple):
+    """One kernel call held against its plain version on the same input."""
+    name: str
+    arg: object
+    kern: Callable
+    plain: Callable
+    label: str
+    timed: bool = False      # a call of its path: timed
+    flops: float = 0.0       # the operations the call needs
+    peak: float = FP32_PEAK  # the card's rate for them
+    limit: Optional[Callable] = None  # output -> relative limit (default KERNEL_RTOL)
+    library: Optional[Callable] = None  # arg -> () -> one PyTorch yardstick call
+    in_row: bool = True      # a timed call that fills the kernel's JSON row
 
 
 def fail(msg: str) -> None:
@@ -128,57 +206,169 @@ def fmt(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
+def leaves(t) -> list:
+    if isinstance(t, torch.Tensor):
+        return [t]
+    return [x for item in t for x in leaves(item)]
+
+
+def nbytes(t) -> int:
+    return sum(x.numel() * x.element_size() for x in leaves(t))
+
+
 def max_err(got, want) -> tuple:
     """(max |got - want|, max |want|) over all outputs of one call: at a
     dilation as large as the image the stationary H and D are roundoff, so
     the bound is relative to the call's largest output."""
-    if isinstance(got, torch.Tensor):
-        got, want = [got], [want]
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    scale = max(float(w.abs().max()) for w in want)
+    got, want = leaves(got), leaves(want)
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.float().abs().max()) for w in want)
     return err, scale
+
+
+def tier_limit(outs) -> float:
+    """A banded-product call's limit: 2^-7 if any output is stored bf16."""
+    return BF16_RTOL if any(t.dtype == torch.bfloat16 for t in leaves(outs)) else TIER_RTOL
 
 
 def run_cases(cases, report, card) -> None:
     """Hold each kernel call against its plain version on the same input;
-    time the calls marked ``timed`` (the path's shapes) and add them to the
-    kernel's row of ``report``."""
-    for name, arg, kern, plain, label, timed in cases:
-        got, want = kern(arg), plain(arg)
+    time the calls marked ``timed`` (the paths' shapes) and add those
+    marked ``in_row`` to the kernel's row of ``report``: CUDA-event and
+    profiler times, the bound and the PyTorch yardstick."""
+    for c in cases:
+        got, want = c.kern(c.arg), c.plain(c.arg)
         torch.cuda.synchronize()
+        check(all(g.dtype == w.dtype and g.shape == w.shape
+                  for g, w in zip(leaves(got), leaves(want))),
+              f"{c.name} at {c.label}: dtypes or shapes differ from the plain version")
         err, scale = max_err(got, want)
-        line = (f"kernel {name} at {label}: max|kernel-plain| {err:.3e} "
-                f"(limit {KERNEL_RTOL * scale:.3e})")
-        rep = report[name]
+        limit = KERNEL_RTOL if c.limit is None else c.limit(want)
+        line = (f"kernel {c.name} at {c.label}: max|kernel-plain| {err:.3e} "
+                f"(limit {limit * scale:.3e})")
+        rep = report[c.name]
         rep["max_abs_err"] = max(rep["max_abs_err"], err)
-        if timed:
-            k_ms, p_ms = cuda_ms(lambda: kern(arg)), cuda_ms(lambda: plain(arg))
-            k_dev, p_dev = device_ms(lambda: kern(arg))[0], device_ms(lambda: plain(arg))[0]
+        if c.timed:
+            k_ms, p_ms = cuda_ms(lambda: c.kern(c.arg)), cuda_ms(lambda: c.plain(c.arg))
+            k_dev, p_dev = device_ms(lambda: c.kern(c.arg))[0], device_ms(lambda: c.plain(c.arg))[0]
+            bytes_ms, ops_ms = nbytes(c.arg) + nbytes(got), c.flops / c.peak * 1e3
+            bytes_ms = bytes_ms / HBM_BPS * 1e3
             line += (f"; per call {k_ms:.4f} ms vs plain {p_ms:.4f} ms; device busy "
-                     f"{fmt(k_dev)} vs plain {fmt(p_dev)} [{card}]")
-            rep["ms"] += k_ms
-            rep["plain_ms"] += p_ms
-            for key, val in (("device_ms", k_dev), ("plain_device_ms", p_dev)):
-                rep[key] = None if val is None or rep[key] is None else rep[key] + val
+                     f"{fmt(k_dev)} vs plain {fmt(p_dev)}; bound {max(bytes_ms, ops_ms):.4f} ms "
+                     f"(bytes {bytes_ms:.4f}, operations {ops_ms:.4f})")
+            lib_ms = None
+            if c.library is not None:
+                lib_ms = cuda_ms(c.library(c.arg))
+                line += f"; PyTorch yardstick {lib_ms:.4f} ms"
+            line += f" [{card}]"
+            if c.in_row:
+                rep["ms"] += k_ms
+                rep["plain_ms"] += p_ms
+                rep["bytes_ms"] += bytes_ms
+                rep["ops_ms"] += ops_ms
+                rep["bound_ms"] += max(bytes_ms, ops_ms)
+                for key, val in (("device_ms", k_dev), ("plain_device_ms", p_dev),
+                                 ("library_ms", lib_ms)):
+                    rep[key] = None if val is None or rep[key] is None else rep[key] + val
         print(line, flush=True)
-        check(err <= KERNEL_RTOL * scale, f"{name} at {label} disagrees with its plain version")
+        check(err <= limit * scale, f"{c.name} at {c.label} disagrees with its plain version")
 
 
-def time_in_turns(label, kern_fn, plain_fn, card) -> None:
-    """CUDA-event medians of the kernel and plain versions of one step, in
-    turns (plain, kernels, kernels, plain), then device busy time and idle
-    share by torch.profiler, with the busiest kernels."""
-    times = {"plain": [], "kernels": []}
-    for which in ("plain", "kernels", "kernels", "plain"):
-        times[which].append(cuda_ms(plain_fn if which == "plain" else kern_fn))
-    print(f"{label}, median of 20 (CUDA events): kernels {min(times['kernels']):.4f} ms, "
-          f"plain {min(times['plain']):.4f} ms (runs {times}) [{card}]", flush=True)
-    for which, fn in (("kernels", kern_fn), ("plain", plain_fn)):
+def time_in_turns(label, kern_fn, plain_fn, card, names=("kernels", "plain")) -> None:
+    """CUDA-event medians of the kernel and plain versions of one step (or
+    of two other versions, ``names``), in turns (plain, kernels, kernels,
+    plain), then device busy time and idle share by torch.profiler, with
+    the busiest kernels."""
+    kn, pn = names
+    times = {pn: [], kn: []}
+    for which in (pn, kn, kn, pn):
+        times[which].append(cuda_ms(plain_fn if which == pn else kern_fn))
+    print(f"{label}, median of 20 (CUDA events): {kn} {min(times[kn]):.4f} ms, "
+          f"{pn} {min(times[pn]):.4f} ms (runs {times}) [{card}]", flush=True)
+    for which, fn in ((kn, kern_fn), (pn, plain_fn)):
         busy, by_name = device_ms(fn)
         idle = "not measured" if busy is None else f"{1 - busy / min(times[which]):.3f}"
         print(f"{label} {which}: device busy {fmt(busy)} per call, idle share {idle}")
         for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             print(f"  {ms:.4f} ms  {kname[:100]}")
+
+
+# -- work counts: multiply-adds of one call, from its shapes (2 operations each)
+
+def flops_2d(r: int, c: int, hlen: int, terms: int = 1) -> float:
+    """A separable 2D level (analysis of an r x c image, or synthesis of
+    one): two passes, each r*c outputs of hlen multiply-adds."""
+    return 2.0 * 2 * r * c * hlen * terms
+
+
+def flops_swt_2d(r: int, c: int, hlen: int) -> float:
+    """A stationary 2D level, either way: 6*r*c outputs of hlen."""
+    return 2.0 * 6 * r * c * hlen
+
+
+def flops_1d(b: int, n: int, hlen: int, terms: int = 1, swt: bool = False) -> float:
+    """A batched 1D level on b signals of n samples (the longer side):
+    n outputs of hlen (decimated), 2n of hlen (a-trous)."""
+    return 2.0 * b * n * hlen * terms * (2 if swt else 1)
+
+
+def scheme_peak(scheme: str) -> float:
+    """The products of fd are float32, the others' bf16."""
+    return FP32_PEAK if scheme == "fd" else BF16_PEAK
+
+
+_BANDS = {}
+
+
+def band_matrix(kind: str, n: int, w, level: int, dtype, device) -> torch.Tensor:
+    """The dense band matrix of one 1D level, from its plain version applied
+    to the identity (row i is the response to sample i): an analysis is
+    x @ M, a synthesis [lo | hi] @ M."""
+    from pdwt_tpu_torch.kernels import batched1d as K1
+
+    key = (kind, n, w.name, level, dtype, str(device))
+    if key not in _BANDS:
+        eye = torch.eye(n, device=device)
+        z = torch.zeros_like(eye)
+        if kind == "fwd":
+            m = torch.cat(K1.fwd_level_1d_ref(eye, w.dec_lo, w.dec_hi), 1)
+        elif kind == "swt_fwd":
+            m = torch.cat(K1.swt_fwd_level_1d_ref(eye, w.dec_lo, w.dec_hi, level), 1)
+        elif kind == "inv":
+            m = torch.cat([K1.inv_level_1d_ref(eye, z, w.rec_lo, w.rec_hi),
+                           K1.inv_level_1d_ref(z, eye, w.rec_lo, w.rec_hi)], 0)
+        else:
+            m = torch.cat([K1.swt_inv_level_1d_ref(eye, z, w.rec_lo, w.rec_hi, level),
+                           K1.swt_inv_level_1d_ref(z, eye, w.rec_lo, w.rec_hi, level)], 0)
+        _BANDS[key] = m.to(dtype).contiguous()
+    return _BANDS[key]
+
+
+def yardstick(kind: str, w, dtype=torch.float32, level: int = 1) -> Callable:
+    """arg -> () -> the PyTorch yardstick of a kernel call: one dense-band
+    matrix product (torch.matmul on cuBLAS) for a 1D level, a pair of them
+    (rows, then columns) for a 2D level, in ``dtype``."""
+    def make(arg):
+        if kind in ("fwd2d", "swt_fwd2d"):
+            one = "fwd" if kind == "fwd2d" else "swt_fwd"
+            r, c = arg.shape[-2:]
+            A = band_matrix(one, r, w, level, dtype, arg.device).t().contiguous()
+            B, xm = band_matrix(one, c, w, level, dtype, arg.device), arg[0].to(dtype)
+            return lambda: (A @ xm) @ B
+        if kind == "inv2d":  # [[a, v], [h, d]] by rows, then by columns
+            a, h, v, d = (t[0].to(dtype) for t in arg)
+            P = torch.cat([torch.cat([a, v], 1), torch.cat([h, d], 1)], 0)
+            A = band_matrix("inv", a.shape[0], w, 1, dtype, a.device).t().contiguous()
+            B = band_matrix("inv", a.shape[1], w, 1, dtype, a.device)
+            return lambda: (A @ P) @ B
+        if kind in ("fwd", "swt_fwd"):
+            xm = arg.to(dtype)
+            Mx = band_matrix(kind, xm.shape[-1], w, level, dtype, xm.device)
+            return lambda: xm @ Mx
+        u = torch.cat([arg[0].float(), arg[1].float()], 1).to(dtype)
+        Mx = band_matrix(kind, arg[0].shape[-1], w, level, dtype, u.device)
+        return lambda: u @ Mx
+    return make
 
 
 def main() -> None:
@@ -229,29 +419,38 @@ def main() -> None:
 
     flat = lambda a, dets: [a, *[t for band in dets for t in band]]
     m0 = tail_r >> tail_k
-    # (name, input, kernel, plain version, shape) for each launch of one pass
-    cases = [("fwd_level_2d", rand(1, n, n), lambda x: K.fwd_level_2d(x, lo, hi),
-              lambda x: K.fwd_level_2d_ref(x, lo, hi), (n, n), True) for n in fwd_shapes]
-    cases += [("inv_level_2d", [rand(1, m, m) for _ in range(4)],
-               lambda b: K.inv_level_2d(*b, rlo, rhi),
-               lambda b: K.inv_level_2d_ref(*b, rlo, rhi), (m, m), True) for m in inv_shapes]
-    cases.append(("fwd_tail_2d", rand(1, tail_r, tail_r),
-                  lambda x: flat(*K.fwd_tail_2d(x, lo, hi, tail_k)),
-                  lambda x: flat(*K.fwd_tail_2d_ref(x, lo, hi, tail_k)), (tail_r, tail_r), True))
+    h7 = wav.hlen
+    # one Case for each launch of one pass
+    cases = [Case("fwd_level_2d", rand(1, n, n), lambda x: K.fwd_level_2d(x, lo, hi),
+                  lambda x: K.fwd_level_2d_ref(x, lo, hi), (n, n), True, flops_2d(n, n, h7),
+                  library=yardstick("fwd2d", wav)) for n in fwd_shapes]
+    cases += [Case("inv_level_2d", [rand(1, m, m) for _ in range(4)],
+                   lambda b: K.inv_level_2d(*b, rlo, rhi),
+                   lambda b: K.inv_level_2d_ref(*b, rlo, rhi), (m, m), True,
+                   flops_2d(2 * m, 2 * m, h7), library=yardstick("inv2d", wav))
+              for m in inv_shapes]
+    cases.append(Case("fwd_tail_2d", rand(1, tail_r, tail_r),
+                      lambda x: flat(*K.fwd_tail_2d(x, lo, hi, tail_k)),
+                      lambda x: flat(*K.fwd_tail_2d_ref(x, lo, hi, tail_k)), (tail_r, tail_r),
+                      True, sum(flops_2d(tail_r >> j, tail_r >> j, h7) for j in range(tail_k))))
     tail_in = (rand(1, m0, m0), [tuple(rand(1, m0 << j, m0 << j) for _ in range(3))
                                  for j in range(tail_k)])
-    cases.append(("inv_tail_2d", tail_in, lambda t: K.inv_tail_2d(t[0], t[1], rlo, rhi),
-                  lambda t: K.inv_tail_2d_ref(t[0], t[1], rlo, rhi), (m0, m0), True))
+    cases.append(Case("inv_tail_2d", tail_in, lambda t: K.inv_tail_2d(t[0], t[1], rlo, rhi),
+                      lambda t: K.inv_tail_2d_ref(t[0], t[1], rlo, rhi), (m0, m0), True,
+                      sum(flops_2d(m0 << (j + 1), m0 << (j + 1), h7) for j in range(tail_k))))
 
-    # per kernel: worst error and the summed time of its launches in one pass
-    # of its path; ms: per call by CUDA events (host launch gaps included);
-    # device_ms: busy time on the card by torch.profiler
+    # per kernel: worst error and, over the calls of one pass of its path,
+    # the summed times (ms: per call by CUDA events, host launch gaps
+    # included; device_ms: busy time on the card by torch.profiler), the
+    # bound (bytes each read or written once at HBM_BPS, operations at the
+    # peak for their type) and the PyTorch yardstick (library_ms)
     report = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
-                     "plain_device_ms": 0.0} for name in REPLACES}
+                     "plain_device_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
+                     "library_ms": 0.0} for name in REPLACES}
     run_cases(cases, report, card)
 
     # -- main path: the facade, as a user drives it
-    img = np.random.default_rng(0).uniform(0, 255, (N, N)).astype(np.float32)
+    img = dwt_img = np.random.default_rng(0).uniform(0, 255, (N, N)).astype(np.float32)
     x = torch.from_numpy(img).to(dev)
     torch.cuda.synchronize()
     K.reset_launch_counts()
@@ -334,18 +533,20 @@ def main() -> None:
 
     def swt_cases(w, shape, level, timed):
         xl = rand(*shape)
-        ti_cases.append(("swt_fwd_level_2d", xl,
-                         lambda t: S.swt_fwd_level_2d(t, w.dec_lo, w.dec_hi, level),
-                         lambda t: S.swt_fwd_level_2d_ref(t, w.dec_lo, w.dec_hi, level),
-                         f"{w.name} {shape} level {level}", timed))
+        fl = flops_swt_2d(shape[-2], shape[-1], w.hlen) * shape[0]
+        ti_cases.append(Case("swt_fwd_level_2d", xl,
+                             lambda t: S.swt_fwd_level_2d(t, w.dec_lo, w.dec_hi, level),
+                             lambda t: S.swt_fwd_level_2d_ref(t, w.dec_lo, w.dec_hi, level),
+                             f"{w.name} {shape} level {level}", timed, fl,
+                             library=yardstick("swt_fwd2d", w, level=level)))
         bands = S.swt_fwd_level_2d_ref(xl, w.dec_lo, w.dec_hi, level)
         for thr in thresholds:
-            ti_cases.append((
+            ti_cases.append(Case(
                 "swt_inv_level_2d", bands,
                 lambda b, thr=thr: S.swt_inv_level_2d(*b, w.rec_lo, w.rec_hi, level, thr),
                 lambda b, thr=thr: S.swt_inv_level_2d_ref(*b, w.rec_lo, w.rec_hi, level, thr),
                 f"{w.name} {shape} level {level} threshold {thr and thr[0]}",
-                timed and thr is not None and thr[0] == "soft"))
+                timed and thr is not None and thr[0] == "soft", fl))
 
     for level in range(1, TI_LEVELS + 1):
         swt_cases(wav, (1, TI_N, TI_N), level, True)
@@ -431,28 +632,36 @@ def main() -> None:
     def dwt1d_cases(w, x, timed):
         xe = conv.odd_extend(x, -1)
         label = f"{w.name} {tuple(xe.shape)}"
-        b1_cases.append(("fwd_level_1d", xe, lambda t: K1.fwd_level_1d(t, w.dec_lo, w.dec_hi),
-                         lambda t: K1.fwd_level_1d_ref(t, w.dec_lo, w.dec_hi), label, timed))
+        fl = flops_1d(xe.shape[0], xe.shape[1], w.hlen)
+        b1_cases.append(Case("fwd_level_1d", xe, lambda t: K1.fwd_level_1d(t, w.dec_lo, w.dec_hi),
+                             lambda t: K1.fwd_level_1d_ref(t, w.dec_lo, w.dec_hi), label, timed,
+                             fl, library=yardstick("fwd", w)))
         bands = K1.fwd_level_1d_ref(xe, w.dec_lo, w.dec_hi)
-        b1_cases.append(("inv_level_1d", bands,
-                         lambda b: K1.inv_level_1d(*b, w.rec_lo, w.rec_hi),
-                         lambda b: K1.inv_level_1d_ref(*b, w.rec_lo, w.rec_hi),
-                         f"{w.name} bands {tuple(bands[0].shape)}", timed))
+        b1_cases.append(Case("inv_level_1d", bands,
+                             lambda b: K1.inv_level_1d(*b, w.rec_lo, w.rec_hi),
+                             lambda b: K1.inv_level_1d_ref(*b, w.rec_lo, w.rec_hi),
+                             f"{w.name} bands {tuple(bands[0].shape)}", timed, fl,
+                             library=yardstick("inv", w)))
         return bands[0]
 
     def swt1d_cases(w, x, levels, timed):
+        fl = flops_1d(x.shape[0], x.shape[1], w.hlen, swt=True)
         for level in levels:
-            b1_cases.append(("swt_fwd_level_1d", x,
-                             lambda t, lv=level: K1.swt_fwd_level_1d(t, w.dec_lo, w.dec_hi, lv),
-                             lambda t, lv=level: K1.swt_fwd_level_1d_ref(t, w.dec_lo, w.dec_hi,
+            b1_cases.append(Case("swt_fwd_level_1d", x,
+                                 lambda t, lv=level: K1.swt_fwd_level_1d(t, w.dec_lo, w.dec_hi,
                                                                          lv),
-                             f"{w.name} {tuple(x.shape)} level {level}", timed))
+                                 lambda t, lv=level: K1.swt_fwd_level_1d_ref(t, w.dec_lo,
+                                                                             w.dec_hi, lv),
+                                 f"{w.name} {tuple(x.shape)} level {level}", timed, fl,
+                                 library=yardstick("swt_fwd", w, level=level)))
             bands = K1.swt_fwd_level_1d_ref(x, w.dec_lo, w.dec_hi, level)
-            b1_cases.append(("swt_inv_level_1d", bands,
-                             lambda b, lv=level: K1.swt_inv_level_1d(*b, w.rec_lo, w.rec_hi, lv),
-                             lambda b, lv=level: K1.swt_inv_level_1d_ref(*b, w.rec_lo,
-                                                                         w.rec_hi, lv),
-                             f"{w.name} {tuple(x.shape)} level {level}", timed))
+            b1_cases.append(Case("swt_inv_level_1d", bands,
+                                 lambda b, lv=level: K1.swt_inv_level_1d(*b, w.rec_lo, w.rec_hi,
+                                                                         lv),
+                                 lambda b, lv=level: K1.swt_inv_level_1d_ref(*b, w.rec_lo,
+                                                                             w.rec_hi, lv),
+                                 f"{w.name} {tuple(x.shape)} level {level}", timed, fl,
+                                 library=yardstick("swt_inv", w, level=level)))
 
     xa = randn(B1_SIGNALS, B1_N)
     for _ in range(B1_LEVELS):  # the shapes dwt1d hands each level
@@ -465,9 +674,9 @@ def main() -> None:
                              (w8, (70000, 64), (1, 4)),        # more signals than gridDim.y
                              (get_wavelet("haar"), (5, 64), (1, 4)),
                              (odd5, (3, 29), (1, 3))]:         # an odd-length bank
-        x = randn(*shape)
-        dwt1d_cases(w, x, False)
-        swt1d_cases(w, x, levels, False)
+        x1 = randn(*shape)
+        dwt1d_cases(w, x1, False)
+        swt1d_cases(w, x1, levels, False)
     run_cases(b1_cases, report, card)
 
     # -- the batched 1D path, as a user drives it: the batch and one signal,
@@ -582,8 +791,17 @@ def main() -> None:
                                   lambda c: idwt1d(c, w8, B1_N)),
                   lambda: b1_step(plain_dwt1d, plain_idwt1d), card)
 
+    precision_phase(dev, card, report, launches, x, dwt_img, xr, rt_sig, gen)
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name], "launches": launches[name], **report[name]}
+                "replaces": REPLACES[name], "launches": launches[name],
+                "max_abs_err": report[name]["max_abs_err"], "ms": report[name]["ms"],
+                "plain_ms": report[name]["plain_ms"], "bound_ms": report[name]["bound_ms"],
+                "bound_by": ("bytes" if report[name]["bytes_ms"] >= report[name]["ops_ms"]
+                             else "operations"),
+                "library_ms": report[name]["library_ms"] or None,
+                "device_ms": report[name]["device_ms"],
+                "plain_device_ms": report[name]["plain_device_ms"]}
                for name in REPLACES]
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -591,6 +809,390 @@ def main() -> None:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 
+
+def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> None:
+    """The precision tiers on the DWT path's image and the batched 1D path's
+    signals: (a) each banded-product kernel against its plain version in
+    every scheme the tiers route there, and off the route rule; (b) the 2D
+    and (c) the 1D transforms through the facade and the functions with
+    ``precision=``; (d) each tier's roundtrip times beside the exact one's."""
+    from pdwt_tpu_torch import (Wavelets, dwt1d, dwt2d, get_wavelet, idwt1d, idwt2d, iswt1d,
+                                swt1d)
+    from pdwt_tpu_torch.core.separable import Coeffs1D, Coeffs2D
+    from pdwt_tpu_torch.core.shapes import level_sizes
+    from pdwt_tpu_torch.kernels import batched1d as K1
+    from pdwt_tpu_torch.kernels import matmul as M
+    from pdwt_tpu_torch.kernels import mxu1d as M1
+    from pdwt_tpu_torch.kernels import separable as K
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    wav, w8 = get_wavelet(WNAME), get_wavelet(B1_WNAME)
+    lo, hi, rlo, rhi = wav.dec_lo, wav.dec_hi, wav.rec_lo, wav.rec_hi
+    rand = lambda *s: torch.rand(s, device=dev, generator=gen) * 255.0
+    randn = lambda *s: torch.randn(s, device=dev, generator=gen)
+
+    def fwd_schemes(tier, levels):
+        """(scheme, input dtype, detail dtype) of each forward level."""
+        det = f32 if tier == "mixed" else bf16
+        first = L1_SCHEMES[tier][0]
+        return [(first if lvl == 0 else "b3", bf16 if lvl == 0 and det == bf16 else f32, det)
+                for lvl in range(levels)]
+
+    def inv_schemes(tier, levels):
+        """(scheme, detail dtype, output dtype) of each inverse level, level 1 first."""
+        det = f32 if tier == "mixed" else bf16
+        return [(L1_SCHEMES[tier][1] if i == 0 else "b3", det,
+                 bf16 if i == 0 and det == bf16 else f32) for i in range(levels)]
+
+    # ---------------- (a) each kernel against its plain version ----------------
+    cases, seen = [], set()
+
+    def add(case, key):
+        """Add a case once; a tier that reaches the same call again only
+        makes it count for its row."""
+        if key in seen:
+            return
+        seen.add(key)
+        cases.append(case)
+
+    h7, h8 = wav.hlen, w8.hlen
+    lib_f2, lib_i2 = yardstick("fwd2d", wav, bf16), yardstick("inv2d", wav, bf16)
+    for tier in TIERS:
+        row = tier == ROW_TIER
+        # 2D: forward levels 1-4 (level 5 runs the exact tail), inverse 4..1
+        n = N
+        for lvl, (sch, in_dt, det) in enumerate(fwd_schemes(tier, LEVELS - 1)):
+            xin = rand(1, n, n).to(in_dt)
+            add(Case("fwd_level_2d_mxu", xin,
+                     lambda t, s=sch, d=det: M.fwd_level_2d_mxu(t, lo, hi, s, (f32, d)),
+                     lambda t, s=sch, d=det: M.fwd_level_2d_mxu_ref(t, lo, hi, s, (f32, d)),
+                     f"{tier} level {lvl + 1} {sch} {in_dt} in, {det} details, {(n, n)}", True,
+                     flops_2d(n, n, h7, TERMS[sch]), scheme_peak(sch), tier_limit,
+                     lib_f2 if row else None, row),
+                (tier if row else "", "f", lvl, sch, in_dt, det))
+            n //= 2
+        for i, (sch, det, out) in enumerate(inv_schemes(tier, LEVELS - 1)):
+            m = N >> (i + 1)
+            bands = [rand(1, m, m)] + [(rand(1, m, m) - 127.5).to(det) for _ in range(3)]
+            add(Case("inv_level_2d_mxu", bands,
+                     lambda b, s=sch, o=out: M.inv_level_2d_mxu(*b, rlo, rhi, s, o),
+                     lambda b, s=sch, o=out: M.inv_level_2d_mxu_ref(*b, rlo, rhi, s, o),
+                     f"{tier} level {i + 1} {sch} {det} details, {out} out, subbands {(m, m)}",
+                     True, flops_2d(2 * m, 2 * m, h7, TERMS[sch]), scheme_peak(sch), tier_limit,
+                     lib_i2 if row else None, row),
+                (tier if row else "", "i", i, sch, det, out))
+        # batched 1D, decimated: levels 1-4 each way
+        n = B1_N
+        for lvl, (sch, in_dt, det) in enumerate(fwd_schemes(tier, B1_LEVELS)):
+            add(Case("fwd_level_1d_mxu", randn(B1_SIGNALS, n).to(in_dt),
+                     lambda t, s=sch, d=det: M1.fwd_level_1d_mxu(t, w8.dec_lo, w8.dec_hi, s, d),
+                     lambda t, s=sch, d=det: M1.fwd_level_1d_mxu_ref(t, w8.dec_lo, w8.dec_hi, s,
+                                                                      d),
+                     f"{tier} level {lvl + 1} {sch} {in_dt} in, {det} hi, {(B1_SIGNALS, n)}",
+                     True, flops_1d(B1_SIGNALS, n, h8, TERMS[sch]), scheme_peak(sch), tier_limit,
+                     yardstick("fwd", w8, bf16) if row else None, row),
+                (tier if row else "", "f1", lvl, sch, in_dt, det))
+            n //= 2
+        for i, (sch, det, out) in enumerate(inv_schemes(tier, B1_LEVELS)):
+            m = B1_N >> (i + 1)
+            add(Case("inv_level_1d_mxu", [randn(B1_SIGNALS, m), randn(B1_SIGNALS, m).to(det)],
+                     lambda b, s=sch, o=out: M1.inv_level_1d_mxu(*b, w8.rec_lo, w8.rec_hi, s, o),
+                     lambda b, s=sch, o=out: M1.inv_level_1d_mxu_ref(*b, w8.rec_lo, w8.rec_hi, s,
+                                                                      o),
+                     f"{tier} level {i + 1} {sch} {det} hi, {out} out, bands {(B1_SIGNALS, m)}",
+                     True, flops_1d(B1_SIGNALS, 2 * m, h8, TERMS[sch]), scheme_peak(sch),
+                     tier_limit, yardstick("inv", w8, bf16) if row else None, row),
+                (tier if row else "", "i1", i, sch, det, out))
+        if tier == "mixed":
+            continue  # mixed runs the a-trous levels on the exact kernels
+        # batched 1D, a-trous: levels 1-4 each way, full length
+        for lvl in range(1, B1_LEVELS + 1):
+            sch = SWT_SCHEMES[tier][0 if lvl == 1 else 1]
+            in_dt = bf16 if lvl == 1 else f32
+            add(Case("swt_fwd_level_1d_mxu", randn(B1_SIGNALS, B1_N).to(in_dt),
+                     lambda t, s=sch, lv=lvl: M1.swt_fwd_level_1d_mxu(t, w8.dec_lo, w8.dec_hi,
+                                                                       lv, s, bf16),
+                     lambda t, s=sch, lv=lvl: M1.swt_fwd_level_1d_mxu_ref(t, w8.dec_lo,
+                                                                           w8.dec_hi, lv, s,
+                                                                           bf16),
+                     f"{tier} level {lvl} {sch} {in_dt} in, bf16 hi, {(B1_SIGNALS, B1_N)}", True,
+                     flops_1d(B1_SIGNALS, B1_N, h8, TERMS[sch], swt=True), scheme_peak(sch),
+                     tier_limit,
+                     yardstick("swt_fwd", w8, bf16, lvl) if row else None, row),
+                (tier if row else "", "sf", lvl, sch, in_dt))
+            out = bf16 if lvl == 1 else f32
+            add(Case("swt_inv_level_1d_mxu",
+                     [randn(B1_SIGNALS, B1_N), randn(B1_SIGNALS, B1_N).to(bf16)],
+                     lambda b, lv=lvl, o=out: M1.swt_inv_level_1d_mxu(*b, w8.rec_lo, w8.rec_hi,
+                                                                       lv, "fd", o),
+                     lambda b, lv=lvl, o=out: M1.swt_inv_level_1d_mxu_ref(*b, w8.rec_lo,
+                                                                           w8.rec_hi, lv, "fd",
+                                                                           o),
+                     f"{tier} level {lvl} fd bf16 hi, {out} out, {(B1_SIGNALS, B1_N)}", True,
+                     flops_1d(B1_SIGNALS, B1_N, h8, 1, swt=True), FP32_PEAK, tier_limit,
+                     yardstick("swt_inv", w8, bf16, lvl) if row else None, row),
+                (tier if row else "", "si", lvl, out))
+    # off the route rule: sizes no TPU tile divides, a batch of 3, b2d, an
+    # odd filter, a dilation longer than the signal
+    for sch in M.SCHEMES:
+        for shape, in_dt in (((3, 70, 134), bf16), ((1, 250, 198), f32)):
+            xin = rand(*shape).to(in_dt)
+            cases.append(Case("fwd_level_2d_mxu", xin,
+                              lambda t, s=sch: M.fwd_level_2d_mxu(t, lo, hi, s, (f32, bf16)),
+                              lambda t, s=sch: M.fwd_level_2d_mxu_ref(t, lo, hi, s, (f32, bf16)),
+                              f"{sch} {in_dt} in, {shape}", limit=tier_limit))
+            m = (shape[1] // 2, shape[2] // 2)
+            bands = [rand(shape[0], *m)] + [(rand(shape[0], *m) - 127.5).to(in_dt)
+                                            for _ in range(3)]
+            cases.append(Case("inv_level_2d_mxu", bands,
+                              lambda b, s=sch: M.inv_level_2d_mxu(*b, rlo, rhi, s, f32),
+                              lambda b, s=sch: M.inv_level_2d_mxu_ref(*b, rlo, rhi, s, f32),
+                              f"{sch} {in_dt} details, subbands {(shape[0], *m)}",
+                              limit=tier_limit))
+        # (2, 5000) at level 12: windows past 48 KB (forward) and past shared
+        # memory (inverse, the direct kernel)
+        for w, (b, n), lvl in ((w8, (3, 202), 3), (get_wavelet("db3"), (5, 1000), 2),
+                               (get_wavelet("db2"), (2, 6), 4), (w8, (2, 5000), 12)):
+            xin = randn(b, n).to(bf16)
+            cases.append(Case("fwd_level_1d_mxu", xin,
+                              lambda t, s=sch, w=w: M1.fwd_level_1d_mxu(t, w.dec_lo, w.dec_hi,
+                                                                         s, bf16),
+                              lambda t, s=sch, w=w: M1.fwd_level_1d_mxu_ref(t, w.dec_lo,
+                                                                             w.dec_hi, s, bf16),
+                              f"{w.name} {sch} {(b, n)}", limit=tier_limit))
+            cases.append(Case("swt_fwd_level_1d_mxu", xin,
+                              lambda t, s=sch, w=w, lv=lvl: M1.swt_fwd_level_1d_mxu(
+                                  t, w.dec_lo, w.dec_hi, lv, s, f32),
+                              lambda t, s=sch, w=w, lv=lvl: M1.swt_fwd_level_1d_mxu_ref(
+                                  t, w.dec_lo, w.dec_hi, lv, s, f32),
+                              f"{w.name} {sch} {(b, n)} level {lvl}", limit=tier_limit))
+            bands = [randn(b, n // 2), randn(b, n // 2).to(bf16)]
+            cases.append(Case("inv_level_1d_mxu", bands,
+                              lambda u, s=sch, w=w: M1.inv_level_1d_mxu(*u, w.rec_lo, w.rec_hi,
+                                                                         s, bf16),
+                              lambda u, s=sch, w=w: M1.inv_level_1d_mxu_ref(*u, w.rec_lo,
+                                                                             w.rec_hi, s, bf16),
+                              f"{w.name} {sch} bands {(b, n // 2)}", limit=tier_limit))
+            sbands = [randn(b, n), randn(b, n)]
+            cases.append(Case("swt_inv_level_1d_mxu", sbands,
+                              lambda u, s=sch, w=w, lv=lvl: M1.swt_inv_level_1d_mxu(
+                                  *u, w.rec_lo, w.rec_hi, lv, s, f32),
+                              lambda u, s=sch, w=w, lv=lvl: M1.swt_inv_level_1d_mxu_ref(
+                                  *u, w.rec_lo, w.rec_hi, lv, s, f32),
+                              f"{w.name} {sch} {(b, n)} level {lvl}", limit=tier_limit))
+    run_cases(cases, report, card)
+
+    # ---------------- (b) and (c): the tiers through the entry points ----------------
+    hlen = wav.hlen
+
+    def predict_2d():
+        """Launches of one dwt2d + idwt2d at N, LEVELS under an MXU mode,
+        from the route rule and the tail rule, as core/separable.py picks."""
+        counts = {"fwd_level_2d_mxu": 0, "inv_level_2d_mxu": 0}
+        r = N
+        for lvl in range(LEVELS):
+            if M.mxu_route_2d(r // 2, r // 2, hlen):
+                counts["fwd_level_2d_mxu"] += 1
+                counts["inv_level_2d_mxu"] += 1
+                r //= 2
+                continue
+            check(K.tail_supported((r, r), hlen, LEVELS - lvl), "the tier path's tail")
+            counts["fwd_tail_2d"] = counts["inv_tail_2d"] = 1
+            break
+        return counts
+
+    def plain_tier_2d(t, tier):
+        """The same route on plain versions."""
+        mode_det = f32 if tier == "mixed" else bf16
+        a, dets = t[None], []
+        for lvl, (sch, in_dt, det) in enumerate(fwd_schemes(tier, LEVELS)):
+            r = a.shape[-1]
+            if M.mxu_route_2d(r // 2, r // 2, hlen):
+                a, h, v, d = M.fwd_level_2d_mxu_ref(a, lo, hi, sch, (f32, det))
+                dets.append((h, v, d))
+                continue
+            a, tail = K.fwd_tail_2d_ref(a.float(), lo, hi, LEVELS - lvl)
+            dets.extend(tuple(u.to(mode_det) for u in band) for band in tail)
+            break
+        return Coeffs2D(a[0], tuple(tuple(u[0] for u in band) for band in dets))
+
+    def plain_tier_idwt2d(c, tier):
+        rows = level_sizes(N, LEVELS)
+        det_all = inv_schemes(tier, LEVELS)
+        a = c.approx[None].float()
+        k = 0
+        while k < LEVELS and not M.mxu_route_2d(rows[LEVELS - 1 - k] // 2,
+                                                rows[LEVELS - 1 - k] // 2, hlen):
+            k += 1
+        if k:
+            dets = [tuple(u[None].float() for u in c.details[i])
+                    for i in range(LEVELS - 1, LEVELS - 1 - k, -1)]
+            a = K.inv_tail_2d_ref(a, dets, rlo, rhi)
+        for i in range(LEVELS - 1 - k, -1, -1):
+            sch, _, out = det_all[i]
+            h, v, d = (u[None] for u in c.details[i])
+            a = M.inv_level_2d_mxu_ref(a, h, v, d, rlo, rhi, sch, out)[:, :rows[i], :rows[i]]
+        return a[0]
+
+    def compare(label, got, want, bf16_rtol):
+        gl, wl = leaves(got), leaves(want)
+        check(len(gl) == len(wl) and all(g.dtype == w.dtype and g.shape == w.shape
+                                         for g, w in zip(gl, wl)),
+              f"{label}: dtypes or shapes differ from the plain route")
+        for g, w in zip(gl, wl):
+            err, scale = max_err(g, w)
+            limit = bf16_rtol if w.dtype == bf16 else PATH_TIER_RTOL
+            check(err <= limit * scale, f"{label} disagrees with the plain route: {err:.3e} "
+                  f"> {limit * scale:.3e}")
+        worst = max(max_err(g, w)[0] / max(max_err(g, w)[1], 1e-30) for g, w in zip(gl, wl))
+        print(f"{label} vs the same route on plain versions: worst relative {worst:.3e}",
+              flush=True)
+
+    from pdwt_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+
+    def roundtrip_check(label, kind, tier, err, plain_err):
+        """The roundtrip error against README's figure, or JAX's on the CPU
+        where that is larger (1D: README's 2D column)."""
+        jax_err = JAX_CPU_ROUNDTRIP[kind][tier]
+        limit = max(ROUNDTRIP_LIMIT[tier], jax_err)
+        print(f"{label} roundtrip max|y - x| = {err!r} on [0, 255]; the plain route on the "
+              f"card {plain_err!r}; the JAX package on the CPU {jax_err!r}; README "
+              f"{ROUNDTRIP_LIMIT[tier]}; limit {limit!r}", flush=True)
+        check(err <= limit, f"{label} roundtrip error")
+
+    tier_launches = {}
+    x_tier = {t: (x if t == "mixed" else x.to(bf16)) for t in TIERS}
+    for tier in TIERS:
+        det_dt, out_dt = (f32, f32) if tier == "mixed" else (bf16, bf16)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        Wt = Wavelets(img, wname=WNAME, levels=LEVELS, precision=tier, device=dev)
+        wc = Wt.forward()
+        wy = Wt.inverse()
+        fc = dwt2d(x_tier[tier], wav, LEVELS, precision=tier)
+        fy = idwt2d(fc, wav, (N, N), precision=tier)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in LAUNCHES.items() if v}
+        want = {k: 2 * v for k, v in predict_2d().items()}
+        print(f"tier {tier} 2D path launches: {got} (route rule predicts {want})", flush=True)
+        check(got == want, f"tier {tier}: the 2D path's launches differ from the route rule's")
+        for k, v in got.items():
+            tier_launches[k] = tier_launches.get(k, 0) + v
+        for c in (wc, fc):
+            check(c.approx.dtype == f32 and all(u.dtype == det_dt for band in c.details
+                                                for u in band),
+                  f"tier {tier}: the coefficients break the dtype contract")
+        check(wy.dtype == out_dt and fy.dtype == out_dt and tuple(fy.shape) == (N, N),
+              f"tier {tier}: the image breaks the dtype contract")
+        check(bool(torch.isfinite(fy.float()).all()), f"tier {tier}: the image is not finite")
+        pc2 = plain_tier_2d(x_tier[tier], tier)
+        compare(f"tier {tier} dwt2d", fc, pc2, BF16_RTOL)
+        compare(f"tier {tier} facade forward", wc, pc2, BF16_RTOL)
+        compare(f"tier {tier} idwt2d", fy, plain_tier_idwt2d(fc, tier), PATH_BF16_RTOL)
+        perr = float((plain_tier_idwt2d(pc2, tier).float() - x).abs().max())
+        for label, y in (("facade", wy), ("dwt2d/idwt2d", fy)):
+            roundtrip_check(f"tier {tier} 2D {label}", "2D", tier,
+                            float((y.float() - x).abs().max()), perr)
+
+    # (c) batched 1D, decimated and a-trous
+    def plain_tier_1d(t, tier, swt):
+        det = f32 if tier == "mixed" else bf16
+        a, dets = t, []
+        for lvl in range(B1_LEVELS):
+            if swt and tier == "mixed":
+                a, d = K1.swt_fwd_level_1d_ref(a, w8.dec_lo, w8.dec_hi, lvl + 1)
+            elif swt:
+                sch = SWT_SCHEMES[tier][0 if lvl == 0 else 1]
+                a, d = M1.swt_fwd_level_1d_mxu_ref(a, w8.dec_lo, w8.dec_hi, lvl + 1, sch, det)
+            else:
+                sch = fwd_schemes(tier, B1_LEVELS)[lvl][0]
+                a, d = M1.fwd_level_1d_mxu_ref(a, w8.dec_lo, w8.dec_hi, sch, det)
+            dets.append(d)
+        return Coeffs1D(a, tuple(dets))
+
+    def plain_tier_inv_1d(c, tier, swt):
+        a = c.approx
+        for i in range(B1_LEVELS - 1, -1, -1):
+            sch, _, out = inv_schemes(tier, B1_LEVELS)[i]
+            if swt and tier == "mixed":
+                a = K1.swt_inv_level_1d_ref(a, c.details[i], w8.rec_lo, w8.rec_hi, i + 1)
+            elif swt:
+                a = M1.swt_inv_level_1d_mxu_ref(a, c.details[i], w8.rec_lo, w8.rec_hi, i + 1,
+                                                "fd", out)
+            else:
+                a = M1.inv_level_1d_mxu_ref(a, c.details[i], w8.rec_lo, w8.rec_hi, sch, out)
+        return a
+
+    xr_tier = {t: (xr if t == "mixed" else xr.to(bf16)) for t in TIERS}
+    for tier in TIERS:
+        det_dt, out_dt = (f32, f32) if tier == "mixed" else (bf16, bf16)
+        for swt in (False, True):
+            kind = "SWT" if swt else "DWT"
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            Dt = Wavelets(rt_sig, wname=B1_WNAME, levels=B1_LEVELS, ndim=1, do_swt=swt,
+                          precision=tier, device=dev)
+            dc = Dt.forward()
+            dy = Dt.inverse()
+            fwd, inv = (swt1d, iswt1d) if swt else (dwt1d, lambda c, w, **k: idwt1d(c, w, B1_N,
+                                                                                   **k))
+            fc = fwd(xr_tier[tier], w8, B1_LEVELS, precision=tier)
+            fy = inv(fc, w8, precision=tier)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in LAUNCHES.items() if v}
+            if swt and tier == "mixed":
+                want = {"swt_fwd_level_1d": 2 * B1_LEVELS, "swt_inv_level_1d": 2 * B1_LEVELS}
+            else:
+                pre = "swt_" if swt else ""
+                want = {}
+                for lvl in range(B1_LEVELS):
+                    n = B1_N if swt else B1_N >> lvl
+                    ok = M1.mxu_route_1d(B1_SIGNALS, n, w8.hlen, lvl + 1 if swt else None)
+                    for d in ("fwd", "inv"):
+                        k = f"{pre}{d}_level_1d" + ("_mxu" if ok else "")
+                        want[k] = want.get(k, 0) + 2
+            print(f"tier {tier} 1D {kind} path launches: {got} (route rule predicts {want})",
+                  flush=True)
+            check(got == want, f"tier {tier}: the 1D {kind} path's launches differ from the "
+                  "route rule's")
+            for k, v in got.items():
+                tier_launches[k] = tier_launches.get(k, 0) + v
+            for c in (dc, fc):
+                check(c.approx.dtype == f32 and all(d.dtype == det_dt for d in c.details),
+                      f"tier {tier} 1D {kind}: the coefficients break the dtype contract")
+            check(dy.dtype == out_dt and fy.dtype == out_dt and tuple(fy.shape) == tuple(xr.shape),
+                  f"tier {tier} 1D {kind}: the signals break the dtype contract")
+            pc1 = plain_tier_1d(xr_tier[tier], tier, swt)
+            compare(f"tier {tier} 1D {kind} forward", fc, pc1, BF16_RTOL)
+            compare(f"tier {tier} 1D {kind} facade forward", dc, pc1, BF16_RTOL)
+            compare(f"tier {tier} 1D {kind} inverse", fy, plain_tier_inv_1d(fc, tier, swt),
+                    PATH_BF16_RTOL)
+            perr = float((plain_tier_inv_1d(pc1, tier, swt).float() - xr).abs().max())
+            for label, y in (("facade", dy), ("functions", fy)):
+                roundtrip_check(f"tier {tier} 1D {kind} {label}", f"1D {kind}", tier,
+                                float((y.float() - xr).abs().max()), perr)
+    for name in ("fwd_level_2d_mxu", "inv_level_2d_mxu", "fwd_level_1d_mxu", "inv_level_1d_mxu",
+                 "swt_fwd_level_1d_mxu", "swt_inv_level_1d_mxu"):
+        check(tier_launches.get(name, 0) > 0, f"the tier paths never launched {name}")
+        launches[name] = tier_launches[name]
+
+    # ---------------- (d) each tier's roundtrip beside the exact one ----------------
+    exact = {"2D": lambda: idwt2d(dwt2d(x, wav, LEVELS), wav, (N, N)),
+             "1D DWT": lambda: idwt1d(dwt1d(xr, w8, B1_LEVELS), w8, B1_N),
+             "1D SWT": lambda: iswt1d(swt1d(xr, w8, B1_LEVELS), w8)}
+    for tier in TIERS:
+        x2, s1 = x_tier[tier], xr_tier[tier]
+        tiered = {"2D": lambda: idwt2d(dwt2d(x2, wav, LEVELS, precision=tier), wav, (N, N),
+                                       precision=tier),
+                  "1D DWT": lambda: idwt1d(dwt1d(s1, w8, B1_LEVELS, precision=tier), w8, B1_N,
+                                           precision=tier),
+                  "1D SWT": lambda: iswt1d(swt1d(s1, w8, B1_LEVELS, precision=tier), w8,
+                                           precision=tier)}
+        for kind, shape in (("2D", f"{N}x{N} {WNAME} {LEVELS}"),
+                            ("1D DWT", f"{B1_SIGNALS}x{B1_N} {B1_WNAME} {B1_LEVELS}"),
+                            ("1D SWT", f"{B1_SIGNALS}x{B1_N} {B1_WNAME} {B1_LEVELS}")):
+            time_in_turns(f"{kind} roundtrip {shape} levels, {tier} beside exact", tiered[kind],
+                          exact[kind], card, names=(tier, "exact"))
 
 if __name__ == "__main__":
     main()

@@ -17,14 +17,19 @@ it is), with the same module names:
 
 The port so far covers the 2D separable periodization DWT, the 2D
 stationary transform with its TI-denoise step (the threshold fused into
-the inverse), and the batched 1D DWT and SWT (``Wavelets(ndim=1)``), on
-ten CUDA kernels.  Importing the package needs no GPU and builds nothing;
+the inverse), and the batched 1D DWT and SWT (``Wavelets(ndim=1)``), each
+in the exact tier, and the precision tiers (``mixed``, ``bf16-fast``,
+``bf16-balanced``, ``bf16-accurate``; ``precision=`` on every entry point,
+or ``precision_scope``) on the 2D DWT and the batched 1D transforms, on
+fourteen CUDA kernels.  Importing the package needs no GPU and builds nothing;
 the CUDA kernels are compiled at their first launch.
 """
 from .api import Wavelets
+from .core.precision import TIERS, precision_scope
 from .core.separable import (Coeffs1D, Coeffs2D, dwt1d, dwt2d, idwt1d, idwt2d, iswt1d,
                              iswt2d, iswt2d_denoise, swt1d, swt2d)
 from .filters import get_wavelet
 
 __all__ = ["Wavelets", "get_wavelet", "dwt2d", "idwt2d", "swt2d", "iswt2d",
-           "iswt2d_denoise", "Coeffs2D", "dwt1d", "idwt1d", "swt1d", "iswt1d", "Coeffs1D"]
+           "iswt2d_denoise", "Coeffs2D", "dwt1d", "idwt1d", "swt1d", "iswt1d", "Coeffs1D",
+           "TIERS", "precision_scope"]

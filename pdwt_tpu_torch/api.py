@@ -2,7 +2,8 @@
 
 This slice covers one 2D image or a batch of 1D signals (``ndim=1``, or a
 1D array, or ``nr == 1``), the separable periodization DWT and SWT
-(``do_swt=True``), the exact precision tier: construction with level
+(``do_swt=True``), the precision tiers (``precision=``; the 2D SWT in
+bf16 waits for kernels 13-14): construction with level
 clamping, ``forward``, ``inverse``, ``soft_threshold``,
 ``hard_threshold``, ``garrote_threshold``, ``norm1``, ``norm2sq``,
 ``run_denoise`` (the whole denoise step, with the threshold fused into the
@@ -10,10 +11,15 @@ clamping, ``forward``, ``inverse``, ``soft_threshold``,
 flags raise ``NotImplementedError`` naming the ROADMAP item that adds
 them.
 
-The image and coefficients are tensors on one device: the device of the
-image given, or ``device=``.  The facade never moves a tensor between
-devices; ``get_image()`` copies to a host numpy array only when asked
-(``copy=True``).
+The image and coefficients are tensors on one device: the device of an
+image given as a tensor, else ``device=``, which defaults to the CUDA card
+(without one, ``device="cpu"`` must be asked for).  The facade never moves
+a tensor between devices; ``get_image()`` copies to a host numpy array
+only when asked (``copy=True``).
+
+Precision: ``precision=None`` keeps the environment defaults ("auto");
+``dtype=None`` means bf16 under a ``bf16-*`` tier, else float32; every
+transform the facade runs runs inside ``precision_scope`` of its tier.
 """
 from __future__ import annotations
 
@@ -26,11 +32,12 @@ import numpy as np
 import torch
 
 from . import ops
-from .core.precision import check_tier
+from .core.precision import check_tier, precision_scope, tier_for
 from .core.separable import (Coeffs1D, Coeffs2D, all_periodization, dwt1d, dwt2d, idwt1d,
                              idwt2d, iswt1d, iswt2d, iswt2d_denoise, swt1d, swt2d)
 from .core.shapes import coeff_shapes_1d, coeff_shapes_2d, max_level
 from .filters import Wavelet, get_wavelet
+from .utils.convert import tensor_from_numpy, tensor_to_numpy
 
 
 class WState(enum.Enum):
@@ -53,10 +60,23 @@ class WaveletSpec:
     hlen: int
     do_swt: bool
     ndim: int = 2
+    #: precision tier (core/precision.py); "auto" = the environment defaults
+    precision: str = "auto"
 
 
 def _later(what: str, item: int):
     return NotImplementedError(f"{what} comes with ROADMAP queue 1, item {item}")
+
+
+def _default_device(device) -> torch.device:
+    """``device``, or the CUDA card; never the CPU unless asked for."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("Wavelets runs on the CUDA card unless device= names another "
+                           "device, and torch finds no CUDA card here; pass device=\"cpu\" "
+                           "to run on the CPU")
+    return torch.device("cuda")
 
 
 def _same_device(t: torch.Tensor, device: torch.device) -> bool:
@@ -86,18 +106,21 @@ class Wavelets:
             raise ValueError(f"ndim={ndim} is not implemented")
         if not all_periodization(mode):
             raise _later(f"boundary mode {mode!r}", 10)
-        check_tier(precision)
-        dtype = torch.float32 if dtype is None else dtype
-        device = None if device is None else torch.device(device)
+        if precision is not None:
+            check_tier(precision)
+        if dtype is None:
+            bf16_tier = precision is not None and precision.startswith("bf16-")
+            dtype = torch.bfloat16 if bf16_tier else torch.float32
+        tier = "auto" if precision is None else tier_for(dtype, precision)
 
         if img is not None:
             if isinstance(img, torch.Tensor):
-                if device is not None and not _same_device(img, device):
+                if device is not None and not _same_device(img, torch.device(device)):
                     raise ValueError(f"img lies on {img.device}, not on device={device}; "
                                      "move it first")
                 img = img.to(dtype=dtype)
             else:
-                img = torch.as_tensor(np.asarray(img), dtype=dtype, device=device)
+                img = tensor_from_numpy(img, _default_device(device), dtype)
             if img.ndim == 1:
                 img = img[None, :]
                 ndim = 1
@@ -112,7 +135,7 @@ class Wavelets:
         elif nr is None or nc is None:
             raise ValueError("provide either an image or (nr, nc)")
         else:
-            img = torch.zeros((nr, nc), dtype=dtype, device=device)
+            img = torch.zeros((nr, nc), dtype=dtype, device=_default_device(device))
 
         if levels < 1:
             warnings.warn("cannot initialize wavelet coefficients with nlevels < 1; "
@@ -130,6 +153,11 @@ class Wavelets:
                           "wavelet transform")
         if do_cycle_spinning and ndim == 1:
             raise ValueError("cycle spinning is not implemented for 1D; use SWT instead")
+        if do_swt and ndim == 2 and dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "the 2D stationary transform in bf16 (do_swt=True with a bf16-* tier) runs "
+                "kernels 13-14, the next slice of the port (ROADMAP queue 2); the mixed "
+                "tier runs it exact")
         self._wavelet: Wavelet = get_wavelet(wname)
         hlen = self._wavelet.hlen
         wmax = max_level(nc if ndim == 1 else min(nr, nc), hlen)
@@ -143,7 +171,7 @@ class Wavelets:
 
         self.spec = WaveletSpec(wname=wname, nr=nr, nc=nc, nlevels=levels,
                                 do_cycle_spinning=do_cycle_spinning, dtype=dtype,
-                                hlen=hlen, do_swt=do_swt, ndim=ndim)
+                                hlen=hlen, do_swt=do_swt, ndim=ndim, precision=tier)
         self.device = img.device
         self.d_image = img
         self.state = WState.INIT
@@ -151,12 +179,14 @@ class Wavelets:
         self.current_shift_c = 0
         self._rng = np.random.default_rng(seed)
         z = lambda s: torch.zeros(s, dtype=dtype, device=self.device)
+        # the bf16 contract carries the approximation in float32
+        za = lambda s: z(s).float() if dtype == torch.bfloat16 else z(s)
         if ndim == 1:
             a_len, det_lens = coeff_shapes_1d(nc, levels, do_swt)
-            self._coeffs = Coeffs1D(z((nr, a_len)), tuple(z((nr, n)) for n in det_lens))
+            self._coeffs = Coeffs1D(za((nr, a_len)), tuple(z((nr, n)) for n in det_lens))
         else:
             a_shape, det_shapes = coeff_shapes_2d(nr, nc, levels, do_swt)
-            self._coeffs = Coeffs2D(z(a_shape), tuple((z(s), z(s), z(s)) for s in det_shapes))
+            self._coeffs = Coeffs2D(za(a_shape), tuple((z(s), z(s), z(s)) for s in det_shapes))
 
     @property
     def wname(self) -> str:
@@ -184,21 +214,28 @@ class Wavelets:
         s = self.spec
         return int(self._rng.integers(0, s.nr)), int(self._rng.integers(0, s.nc))
 
+    def _tier(self):
+        """The facade's tier, active for the transforms run inside."""
+        tier = self.spec.precision
+        return precision_scope(None if tier == "auto" else tier)
+
     def _analysis(self, img: torch.Tensor):
         s = self.spec
         if s.ndim == 1:
             fwd = swt1d if s.do_swt else dwt1d
         else:
             fwd = swt2d if s.do_swt else dwt2d
-        return fwd(img, self._wavelet, s.nlevels)
+        with self._tier():
+            return fwd(img, self._wavelet, s.nlevels)
 
     def _synthesis(self, coeffs) -> torch.Tensor:
         s = self.spec
-        if s.do_swt:
-            return (iswt1d if s.ndim == 1 else iswt2d)(coeffs, self._wavelet)
-        if s.ndim == 1:
-            return idwt1d(coeffs, self._wavelet, s.nc)
-        return idwt2d(coeffs, self._wavelet, (s.nr, s.nc))
+        with self._tier():
+            if s.do_swt:
+                return (iswt1d if s.ndim == 1 else iswt2d)(coeffs, self._wavelet)
+            if s.ndim == 1:
+                return idwt1d(coeffs, self._wavelet, s.nc)
+            return idwt2d(coeffs, self._wavelet, (s.nr, s.nc))
 
     def forward(self):
         """Compute the coefficients of the current image.  With cycle
@@ -237,8 +274,9 @@ class Wavelets:
         if s.do_swt and s.ndim != 1:
             n1 = ops.thresholded_norm1(c, beta, mode=mode, normalize=normalize,
                                        do_thresh_appcoeffs=do_thresh_appcoeffs)
-            out = iswt2d_denoise(c, self._wavelet, beta, mode=mode, normalize=normalize,
-                                 do_thresh_appcoeffs=do_thresh_appcoeffs)
+            with self._tier():
+                out = iswt2d_denoise(c, self._wavelet, beta, mode=mode, normalize=normalize,
+                                     do_thresh_appcoeffs=do_thresh_appcoeffs)
         else:
             c = _THRESH[mode](c, beta, normalize=normalize,
                               do_thresh_appcoeffs=do_thresh_appcoeffs)
@@ -291,7 +329,7 @@ class Wavelets:
         """A host numpy copy of the image (``copy=True``), or the tensor
         itself on its device."""
         if copy:
-            return self.d_image.detach().cpu().numpy()
+            return tensor_to_numpy(self.d_image)
         return self.d_image
 
     def set_image(self, img) -> None:
@@ -303,7 +341,7 @@ class Wavelets:
                                  f"{self.device}; move it first")
             img = img.to(dtype=s.dtype)
         else:
-            img = torch.as_tensor(np.asarray(img), dtype=s.dtype, device=self.device)
+            img = tensor_from_numpy(img, self.device, s.dtype)
         self.d_image = img.reshape(s.nr, s.nc)
         self.state = WState.INIT
 
@@ -312,4 +350,5 @@ class Wavelets:
         return (f"Wavelets({s.wname!r}, shape=({s.nr}, {s.nc}), ndim={s.ndim}, "
                 f"levels={s.nlevels}, "
                 f"swt={s.do_swt}, cycle_spinning={s.do_cycle_spinning}, dtype={s.dtype}, "
+                f"precision={s.precision}, "
                 f"device={self.device}, state={self.state.value})")

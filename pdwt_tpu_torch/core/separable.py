@@ -14,18 +14,33 @@ the batch.
 
 Every level runs through the kernel wrappers of ``pdwt_tpu_torch.kernels``:
 the CUDA kernels for CUDA tensors, their plain versions for CPU tensors.
+
+Precision tiers (``core/precision.py``; ``pdwt_tpu/core/separable.py``'s
+Pallas dispatch).  The MXU mode comes from the dtype: bf16 tensors run
+"bf16", float32 tensors under the ``mixed`` tier "mixed", everything else
+the exact kernels.  In an MXU mode each decimated level whose geometry the
+route rule (``kernels.mxu_route_2d`` / ``mxu_route_1d``) accepts runs the
+banded-product kernels; the others run the exact kernels on float32.
+Under "bf16" the approximation chain is float32 and the details bf16, and
+the inverse's last level writes bf16.  The inverse takes its mode from the
+detail dtype.  ``mixed`` runs the stationary transforms exact, as JAX
+does; bf16 2D stationary transforms wait for kernels 13-14.  Every entry
+point takes ``precision=`` (:func:`precision.takes_precision`).
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .. import kernels
 from ..filters import Wavelet
-from . import conv
+from . import conv, precision
+from .precision import takes_precision
 from .shapes import level_sizes
+
+F32, BF16 = torch.float32, torch.bfloat16
 
 
 class Coeffs1D(NamedTuple):
@@ -60,12 +75,30 @@ def check_supported(x: torch.Tensor, mode) -> None:
         raise NotImplementedError(
             f"mode={mode!r}: boundary modes other than 'periodization' come "
             "with ROADMAP queue 1, item 10")
-    if x.device.type == "cuda" and x.dtype != torch.float32:
+    if x.dtype not in (F32, torch.float64, BF16):
+        raise TypeError(f"expected float32 or float64 (or bfloat16 under the precision "
+                        f"tiers), got {x.dtype}")
+    if x.device.type == "cuda" and x.dtype == torch.float64:
+        raise NotImplementedError("the CUDA path takes float32, or bfloat16 under the "
+                                  "precision tiers, got float64")
+
+
+def mxu_mode(dtype: torch.dtype) -> Optional[str]:
+    """The banded-product mode of a dtype under the active tier: "bf16"
+    for bf16, "mixed" for float32 under ``mixed``, else None (exact)."""
+    if dtype == BF16:
+        return "bf16"
+    if dtype == F32 and precision.mixed_requested():
+        return "mixed"
+    return None
+
+
+def _no_bf16_swt2d(x: torch.Tensor) -> None:
+    if x.dtype == BF16:
         raise NotImplementedError(
-            f"the CUDA path takes float32, got {x.dtype}; other dtypes come "
-            "with the precision tiers (ROADMAP queue 1, item 9)")
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"expected float32 or float64, got {x.dtype}")
+            "the 2D stationary transform in bf16 runs the a-trous banded-product "
+            "kernels 13-14 (swt_matmul_pallas.py), the next slice of the port "
+            "(ROADMAP queue 2); use float32, or the mixed tier (exact here)")
 
 
 def _flat(t: torch.Tensor) -> torch.Tensor:
@@ -76,47 +109,62 @@ def _unflat(t: torch.Tensor, batch: Tuple[int, ...]) -> torch.Tensor:
     return t.reshape(batch + tuple(t.shape[1:]))
 
 
+@takes_precision
 def dwt2d(x: torch.Tensor, wav: Wavelet, levels: int, *,
           mode="periodization") -> Coeffs2D:
     """Multi-level separable 2D DWT over the trailing two axes.
 
-    Per level, odd sizes are first extended by one sample; then one tail
-    launch takes all remaining levels when ``tail_supported`` allows it,
-    else one level kernel takes this level."""
+    Per level, odd sizes are first extended by one sample; in an MXU mode a
+    level the route rule accepts runs the banded-product kernel; otherwise
+    one tail launch takes all remaining levels when ``tail_supported``
+    allows it (on float32), else one level kernel takes this level."""
     if x.ndim < 2:
         raise ValueError(f"expected at least 2D input, got shape {tuple(x.shape)}")
     check_supported(x, mode)
     batch = tuple(x.shape[:-2])
     lo, hi = wav.dec_lo, wav.dec_hi
+    mxu = mxu_mode(x.dtype)
+    det_dt = BF16 if mxu == "bf16" else None
+    cast = (lambda ts: tuple(t.to(det_dt) for t in ts)) if det_dt else tuple
     a = _flat(x)
     details = []
     for lvl in range(levels):
         a = conv.odd_extend(conv.odd_extend(a, -1), -2)
+        r, c = a.shape[-2:]
+        if mxu and kernels.mxu_route_2d(r // 2, c // 2, wav.hlen):
+            a, h, v, d = kernels.fwd_level_2d_mxu_ad(a, lo, hi, mxu)
+            details.append((h, v, d))
+            continue
         remaining = levels - lvl
-        if kernels.tail_supported(tuple(a.shape[-2:]), wav.hlen, remaining):
+        if a.dtype != BF16 and kernels.tail_supported((r, c), wav.hlen, remaining):
             a, dets = kernels.fwd_tail_2d_ad(a, lo, hi, remaining)
-            details.extend(dets)
+            details.extend(cast(band) for band in dets)
             break
-        a, h, v, d = kernels.fwd_level_2d_ad(a, lo, hi)
-        details.append((h, v, d))
+        a, h, v, d = kernels.fwd_level_2d_ad(a.float() if mxu else a, lo, hi)
+        details.append(cast((h, v, d)))
     return Coeffs2D(_unflat(a, batch),
                     tuple(tuple(_unflat(t, batch) for t in band) for band in details))
 
 
+@takes_precision
 def idwt2d(coeffs: Coeffs2D, wav: Wavelet, shape: Tuple[int, int], *,
            mode="periodization") -> torch.Tensor:
     """Inverse of :func:`dwt2d`; ``shape`` = (Nr, Nc) of the original image.
 
-    The deepest k levels whose sizes halve exactly and that
-    ``tail_supported`` allows run as one tail launch; each level above
-    runs the level kernel and is sliced back to odd sizes."""
+    The deepest k levels whose sizes halve exactly, that ``tail_supported``
+    allows and that the MXU route does not cover run as one tail launch;
+    each level above runs the banded-product kernel where the route rule
+    accepts it, else the level kernel, and is sliced back to odd sizes."""
     check_supported(coeffs.approx, mode)
     levels = coeffs.levels
     rows = level_sizes(shape[0], levels)
     cols = level_sizes(shape[1], levels)
     lo, hi = wav.rec_lo, wav.rec_hi
     batch = tuple(coeffs.approx.shape[:-2])
+    mxu = mxu_mode(coeffs.details[-1][0].dtype if levels else coeffs.approx.dtype)
+    f32 = (lambda t: t.float()) if mxu else (lambda t: t)
     a = _flat(coeffs.approx)
+    a = a.float() if mxu == "bf16" else a
     mr, mc = a.shape[-2:]
     k = 0
     while k < levels:
@@ -125,18 +173,28 @@ def idwt2d(coeffs: Coeffs2D, wav: Wavelet, shape: Tuple[int, int], *,
             break
         if not kernels.tail_supported((mr << (k + 1), mc << (k + 1)), wav.hlen, k + 1):
             break
+        if mxu and kernels.mxu_route_2d(rows[i] // 2, cols[i] // 2, wav.hlen):
+            break  # the banded-product kernel covers this level
         k += 1
     if k:
-        dets = [tuple(map(_flat, coeffs.details[i]))
+        dets = [tuple(f32(_flat(t)) for t in coeffs.details[i])
                 for i in range(levels - 1, levels - 1 - k, -1)]
-        a = kernels.inv_tail_2d_ad(a, dets, lo, hi)
+        a = kernels.inv_tail_2d_ad(f32(a), dets, lo, hi)
     for i in range(levels - 1 - k, -1, -1):
         h, v, d = map(_flat, coeffs.details[i])
-        y = kernels.inv_level_2d_ad(a, h, v, d, lo, hi)
+        last_bf16 = mxu == "bf16" and i == 0
+        if mxu and kernels.mxu_route_2d(a.shape[-2], a.shape[-1], wav.hlen):
+            y = kernels.inv_level_2d_mxu_ad(a, h, v, d, lo, hi, mxu, BF16 if last_bf16 else F32)
+        else:
+            y = kernels.inv_level_2d_ad(f32(a), f32(h), f32(v), f32(d), lo, hi)
+            y = y.to(BF16) if last_bf16 else y
         a = y[:, :rows[i], :cols[i]].contiguous()
+    if mxu == "bf16":  # the tail may have covered every level
+        a = a.to(BF16)
     return _unflat(a, batch)
 
 
+@takes_precision
 def swt2d(x: torch.Tensor, wav: Wavelet, levels: int, *, keep_approx: bool = False):
     """Stationary (a-trous) 2D transform over the trailing two axes: level
     L filters with taps ``2^(L-1)`` apart, one kernel launch per level.
@@ -145,6 +203,7 @@ def swt2d(x: torch.Tensor, wav: Wavelet, levels: int, *, keep_approx: bool = Fal
     if x.ndim < 2:
         raise ValueError(f"expected at least 2D input, got shape {tuple(x.shape)}")
     check_supported(x, "periodization")
+    _no_bf16_swt2d(x)
     batch = tuple(x.shape[:-2])
     a = _flat(x)
     details, approxs = [], []
@@ -157,9 +216,12 @@ def swt2d(x: torch.Tensor, wav: Wavelet, levels: int, *, keep_approx: bool = Fal
     return (coeffs, tuple(approxs)) if keep_approx else coeffs
 
 
+@takes_precision
 def iswt2d(coeffs: Coeffs2D, wav: Wavelet) -> torch.Tensor:
     """Inverse of :func:`swt2d`, one kernel launch per level, deepest first."""
     check_supported(coeffs.approx, "periodization")
+    for band in coeffs.details[-1:]:
+        _no_bf16_swt2d(band[0])
     batch = tuple(coeffs.approx.shape[:-2])
     a = _flat(coeffs.approx)
     for i in range(coeffs.levels - 1, -1, -1):
@@ -168,6 +230,7 @@ def iswt2d(coeffs: Coeffs2D, wav: Wavelet) -> torch.Tensor:
     return _unflat(a, batch)
 
 
+@takes_precision
 def iswt2d_denoise(coeffs: Coeffs2D, wav: Wavelet, beta, *, mode: str = "soft",
                    normalize: bool = False, do_thresh_appcoeffs: bool = False
                    ) -> torch.Tensor:
@@ -186,6 +249,8 @@ def iswt2d_denoise(coeffs: Coeffs2D, wav: Wavelet, beta, *, mode: str = "soft",
         return iswt2d(THRESHOLD_OPS[mode](coeffs, beta, normalize=normalize,
                                           do_thresh_appcoeffs=do_thresh_appcoeffs), wav)
     check_supported(coeffs.approx, "periodization")
+    for band in coeffs.details[-1:]:
+        _no_bf16_swt2d(band[0])
     levels = coeffs.levels
     batch = tuple(coeffs.approx.shape[:-2])
     a = _flat(coeffs.approx)
@@ -212,46 +277,80 @@ def _check_1d(x: torch.Tensor) -> None:
         raise ValueError(f"expected at least 1D input, got shape {tuple(x.shape)}")
 
 
+@takes_precision
 def dwt1d(x: torch.Tensor, wav: Wavelet, levels: int, *,
           mode="periodization") -> Coeffs1D:
     """Multi-level 1D DWT along the last axis, one level kernel launch per
-    level; an odd length is first extended by one sample."""
+    level (the banded-product kernel where an MXU mode's route rule
+    accepts the level); an odd length is first extended by one sample."""
     _check_1d(x)
     check_supported(x, mode)
     batch = tuple(x.shape[:-1])
+    mxu = mxu_mode(x.dtype)
     a = _flat1(x)
     details = []
     for _ in range(levels):
-        a, d = kernels.fwd_level_1d_ad(conv.odd_extend(a, -1), wav.dec_lo, wav.dec_hi)
+        a = conv.odd_extend(a, -1)
+        if mxu and kernels.mxu_route_1d(a.shape[0], a.shape[1], wav.hlen):
+            a, d = kernels.fwd_level_1d_mxu_ad(a, wav.dec_lo, wav.dec_hi, mxu)
+        else:
+            a, d = kernels.fwd_level_1d_ad(a.float() if mxu else a, wav.dec_lo, wav.dec_hi)
+            d = d.to(BF16) if mxu == "bf16" else d
         details.append(_unflat(d, batch))
     return Coeffs1D(_unflat(a, batch), tuple(details))
 
 
+@takes_precision
 def idwt1d(coeffs: Coeffs1D, wav: Wavelet, length: int, *,
            mode="periodization") -> torch.Tensor:
     """Inverse of :func:`dwt1d`; ``length`` is the original signal's.  Each
-    level runs the level kernel, deepest first, and is sliced back to its
+    level runs one level kernel, deepest first, and is sliced back to its
     odd length."""
     check_supported(coeffs.approx, mode)
     sizes = level_sizes(length, coeffs.levels)
     batch = tuple(coeffs.approx.shape[:-1])
+    mxu = mxu_mode(coeffs.details[-1].dtype if coeffs.levels else coeffs.approx.dtype)
     a = _flat1(coeffs.approx)
+    a = a.float() if mxu == "bf16" else a
     for i in range(coeffs.levels - 1, -1, -1):
-        y = kernels.inv_level_1d_ad(a, _flat1(coeffs.details[i]), wav.rec_lo, wav.rec_hi)
+        d = _flat1(coeffs.details[i])
+        last_bf16 = mxu == "bf16" and i == 0
+        if mxu and kernels.mxu_route_1d(a.shape[0], 2 * a.shape[1], wav.hlen):
+            y = kernels.inv_level_1d_mxu_ad(a, d, wav.rec_lo, wav.rec_hi, mxu,
+                                            BF16 if last_bf16 else F32)
+        else:
+            if mxu:
+                a, d = a.float(), d.float()
+            y = kernels.inv_level_1d_ad(a, d, wav.rec_lo, wav.rec_hi)
+            y = y.to(BF16) if last_bf16 else y
         a = y[:, :sizes[i]].contiguous()
     return _unflat(a, batch)
 
 
+def _swt_mxu_mode(dtype: torch.dtype) -> Optional[str]:
+    """``mixed`` runs the stationary transforms on the exact kernels
+    (``pdwt_tpu/core/separable.py:1108``)."""
+    mxu = mxu_mode(dtype)
+    return None if mxu == "mixed" else mxu
+
+
+@takes_precision
 def swt1d(x: torch.Tensor, wav: Wavelet, levels: int, *, keep_approx: bool = False):
     """Stationary (a-trous) 1D transform along the last axis, one kernel
     launch per level; ``keep_approx`` as in :func:`swt2d`."""
     _check_1d(x)
     check_supported(x, "periodization")
     batch = tuple(x.shape[:-1])
+    mxu = _swt_mxu_mode(x.dtype)
     a = _flat1(x)
     details, approxs = [], []
     for lvl in range(1, levels + 1):
-        a, d = kernels.swt_fwd_level_1d_ad(a, wav.dec_lo, wav.dec_hi, lvl)
+        if mxu and kernels.mxu_route_1d(a.shape[0], a.shape[1], wav.hlen, level=lvl):
+            a, d = kernels.swt_fwd_level_1d_mxu_ad(a, wav.dec_lo, wav.dec_hi, lvl, mxu)
+        else:
+            a, d = kernels.swt_fwd_level_1d_ad(a.float() if mxu else a, wav.dec_lo,
+                                               wav.dec_hi, lvl)
+            d = d.to(BF16) if mxu else d
         details.append(_unflat(d, batch))
         if keep_approx:
             approxs.append(_unflat(a, batch))
@@ -259,12 +358,22 @@ def swt1d(x: torch.Tensor, wav: Wavelet, levels: int, *, keep_approx: bool = Fal
     return (coeffs, tuple(approxs)) if keep_approx else coeffs
 
 
+@takes_precision
 def iswt1d(coeffs: Coeffs1D, wav: Wavelet) -> torch.Tensor:
     """Inverse of :func:`swt1d`, one kernel launch per level, deepest first."""
     check_supported(coeffs.approx, "periodization")
     batch = tuple(coeffs.approx.shape[:-1])
+    mxu = _swt_mxu_mode(coeffs.details[-1].dtype if coeffs.levels else coeffs.approx.dtype)
     a = _flat1(coeffs.approx)
+    a = a.float() if mxu else a
     for i in range(coeffs.levels - 1, -1, -1):
-        a = kernels.swt_inv_level_1d_ad(a, _flat1(coeffs.details[i]), wav.rec_lo,
-                                        wav.rec_hi, i + 1)
+        d = _flat1(coeffs.details[i])
+        last_bf16 = mxu == "bf16" and i == 0
+        if mxu and kernels.mxu_route_1d(a.shape[0], a.shape[1], wav.hlen, level=i + 1):
+            a = kernels.swt_inv_level_1d_mxu_ad(a, d, wav.rec_lo, wav.rec_hi, i + 1, mxu,
+                                                BF16 if last_bf16 else F32)
+        else:
+            a = kernels.swt_inv_level_1d_ad(a.float() if mxu else a, d.float() if mxu else d,
+                                            wav.rec_lo, wav.rec_hi, i + 1)
+            a = a.to(BF16) if last_bf16 else a
     return _unflat(a, batch)

@@ -4,7 +4,7 @@ Each source is compiled with ``nvcc`` into an object file, all of them at
 once in parallel, and the objects are linked into one shared library with
 a plain C interface, on first use, into ``kernels/_build/`` (listed in
 ``.gitignore``), and loaded with ctypes.  The library's file name carries a
-hash of every source and the flags, so editing any source rebuilds it.
+hash of every source, header and flag, so editing any of them rebuilds it.
 Nothing is built when the package is imported, and a failed build or load
 raises.
 """
@@ -18,7 +18,9 @@ import subprocess
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(os.path.join(_HERE, "csrc", name)
-                for name in ("separable.cu", "swt.cu", "batched1d.cu"))
+                for name in ("separable.cu", "swt.cu", "batched1d.cu", "matmul.cu", "mxu1d.cu"))
+#: headers the sources include; hashed with them, so editing one rebuilds
+HEADERS = (os.path.join(_HERE, "csrc", "mxu_common.cuh"),)
 BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,7 +40,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"libpdwt_kernels_{digest.hexdigest()[:16]}.so")
@@ -106,6 +108,20 @@ def load() -> ctypes.CDLL:
         # hlen, dilation, center, stream
         "pdwt_swt_fwd_level_1d": [P, P, P, I, I, P, P, I, I, I, P],
         "pdwt_swt_inv_level_1d": [P, P, P, I, I, P, P, I, I, I, P],
+        # x, a, h, v, d, B, R, C, taps lo1, lo2, hi1, hi2, hlen, center, scheme,
+        # in_bf16, det_bf16, stream
+        "pdwt_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, P, P, P, I, I, I, I, I, P],
+        # a, h, v, d, out, B, Mr, Mc, taps lo1, lo2, hi1, hi2, hlen, geometry,
+        # scheme, det_bf16, out_bf16, stream
+        "pdwt_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, P, P, P, I, P, I, I, I, P],
+        # x, lo, hi, B, N, taps lo1, lo2, hi1, hi2, hlen, dilation, center, scheme,
+        # in_bf16, hi_bf16, stream
+        "pdwt_fwd_level_1d_mxu": [P, P, P, I, I, P, P, P, P, I, I, I, I, I, I, P],
+        "pdwt_swt_fwd_level_1d_mxu": [P, P, P, I, I, P, P, P, P, I, I, I, I, I, I, P],
+        # lo, hi, out, B, M, taps lo1, lo2, hi1, hi2, hlen, dilation, center,
+        # geometry, scheme, hi_bf16, out_bf16, stream
+        "pdwt_inv_level_1d_mxu": [P, P, P, I, I, P, P, P, P, I, I, I, P, I, I, I, P],
+        "pdwt_swt_inv_level_1d_mxu": [P, P, P, I, I, P, P, P, P, I, I, I, P, I, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

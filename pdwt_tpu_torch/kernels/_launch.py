@@ -19,7 +19,10 @@ LAUNCHES: Dict[str, int] = {"fwd_level_2d": 0, "inv_level_2d": 0,
                             "fwd_tail_2d": 0, "inv_tail_2d": 0,
                             "swt_fwd_level_2d": 0, "swt_inv_level_2d": 0,
                             "fwd_level_1d": 0, "inv_level_1d": 0,
-                            "swt_fwd_level_1d": 0, "swt_inv_level_1d": 0}
+                            "swt_fwd_level_1d": 0, "swt_inv_level_1d": 0,
+                            "fwd_level_2d_mxu": 0, "inv_level_2d_mxu": 0,
+                            "fwd_level_1d_mxu": 0, "inv_level_1d_mxu": 0,
+                            "swt_fwd_level_1d_mxu": 0, "swt_inv_level_1d_mxu": 0}
 
 
 def reset_launch_counts() -> None:
@@ -27,10 +30,10 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def on_cpu(*ts: torch.Tensor, ndim: int = 3) -> bool:
+def on_cpu(*ts: torch.Tensor, ndim: int = 3, dtypes=(torch.float32,)) -> bool:
     """True for CPU tensors (the wrapper runs its plain version); False for
-    tensors a CUDA kernel takes, of rank ``ndim``: (B, R, C) images or
-    (B, N) signals; raises on anything else."""
+    tensors a CUDA kernel takes, of rank ``ndim`` ((B, R, C) images or
+    (B, N) signals) and of one of ``dtypes``; raises on anything else."""
     devs = {t.device for t in ts}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
@@ -40,10 +43,10 @@ def on_cpu(*ts: torch.Tensor, ndim: int = 3) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     for t in ts:
-        if t.dtype != torch.float32:
+        if t.dtype not in dtypes:
             raise NotImplementedError(
-                f"the CUDA kernels take float32, got {t.dtype}; other dtypes "
-                "come with the precision tiers (ROADMAP queue 1, item 9)")
+                f"this CUDA kernel takes {', '.join(map(str, dtypes))}, got {t.dtype}; "
+                "bfloat16 tensors run the banded-product kernels of the precision tiers")
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")
         if t.dim() != ndim or t.numel() == 0:

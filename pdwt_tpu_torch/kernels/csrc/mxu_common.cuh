@@ -1,0 +1,197 @@
+// The compute schemes of the precision tiers, shared by matmul.cu (2D) and
+// mxu1d.cu (batched 1D).  The scheme table is pdwt_tpu_torch/kernels/matmul.py's:
+//
+//   b1   sum h(f) h(x)                       (one term)
+//   fd   sum f x in float32                  (one term)
+//   b2f  sum f_h h(x) + sum f_l h(x)
+//   b2d  sum f_h x_h + sum f_h x_l
+//   b3   sum f_h x_h + sum f_h x_l + sum f_l x_h
+//
+// h() rounds to bf16, nearest even; x_h = h(x), x_l = h(x - x_h).  The host
+// splits the taps (t1 = f_h, or f for fd; t2 = f_l); the kernels split the
+// data.  Every product of two bf16 values is exact in float32, so an FMA
+// gives the plain version's product-then-sum bit for bit; each term keeps
+// its own float32 sum over the taps, in the plain version's tap order, and
+// the terms are added in table order at the end.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <type_traits>
+
+#define PDWT_MXU_MAX_HLEN 128
+
+namespace pdwt_mxu {
+
+// The order of kernels/matmul.py:SCHEMES.
+enum Scheme { B1 = 0, FD = 1, B2F = 2, B2D = 3, B3 = 4 };
+
+// Taps of the two filters, correlation order: first and second of each.
+struct Taps4 {
+  float lo1[PDWT_MXU_MAX_HLEN];
+  float lo2[PDWT_MXU_MAX_HLEN];
+  float hi1[PDWT_MXU_MAX_HLEN];
+  float hi2[PDWT_MXU_MAX_HLEN];
+};
+
+inline Taps4 make_taps4(const float* lo1, const float* lo2, const float* hi1,
+                        const float* hi2, int hlen) {
+  Taps4 t = {};
+  for (int i = 0; i < hlen; ++i) {
+    t.lo1[i] = lo1[i];
+    t.lo2[i] = lo2[i];
+    t.hi1[i] = hi1[i];
+    t.hi2[i] = hi2[i];
+  }
+  return t;
+}
+
+// poly_geometry(hlen) of core/conv.py: the polyphase synthesis's offsets.
+struct Poly {
+  int p[2];
+  int o[2];
+  int nb[2];
+  int lo;
+  int hi;
+};
+
+// The Poly of the int32 array kernels/_launch.py:poly_geo passes:
+// p[0], p[1], o[0], o[1], nb[0], nb[1], lo, hi.
+inline Poly make_poly(const int* geo) {
+  return {{geo[0], geo[1]}, {geo[2], geo[3]}, {geo[4], geo[5]}, geo[6], geo[7]};
+}
+
+// Does the scheme use the data's second operand x_l?
+template <int S>
+constexpr bool kDataLo = (S == B2D || S == B3);
+
+// How a scheme's data operands are kept in shared memory: float for fd,
+// bf16 (exact: they are bf16 values) for the others.
+template <int S>
+using Stage = std::conditional_t<S == FD, float, __nv_bfloat16>;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// The scheme's data operands of one value: (x, -) for fd, (h(x), -) for
+// b1/b2f, (x_h, x_l) for b2d/b3.
+template <int S>
+__device__ __forceinline__ void split(float v, float& d1, float& d2) {
+  if constexpr (S == FD) {
+    d1 = v;
+    d2 = 0.f;
+  } else {
+    d1 = round_bf16(v);
+    d2 = kDataLo<S> ? round_bf16(v - d1) : 0.f;
+  }
+}
+
+// Split v and store its operands at index i of the two staging arrays.
+template <int S>
+__device__ __forceinline__ void stage(float v, Stage<S>* s1, Stage<S>* s2, int i) {
+  float d1, d2;
+  split<S>(v, d1, d2);
+  s1[i] = from_f<Stage<S>>(d1);
+  if constexpr (kDataLo<S>) s2[i] = from_f<Stage<S>>(d2);
+}
+
+// One output's sums, one float32 accumulator per term.
+template <int S>
+struct Acc {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+  // one tap: t1, t2 its first and second value, d1, d2 the data operands
+  __device__ __forceinline__ void add(float t1, float t2, float d1, float d2) {
+    s0 = fmaf(t1, d1, s0);
+    if constexpr (S == B2F) s1 = fmaf(t2, d1, s1);
+    if constexpr (kDataLo<S>) s1 = fmaf(t1, d2, s1);
+    if constexpr (S == B3) s2 = fmaf(t2, d1, s2);
+  }
+  __device__ __forceinline__ float total() const {
+    if constexpr (S == B3) return (s0 + s1) + s2;
+    if constexpr (S == B2F || S == B2D) return s0 + s1;
+    return s0;
+  }
+};
+
+template <typename T>
+struct Type {
+  using type = T;
+};
+
+// Call f(Type<__nv_bfloat16>) or f(Type<float>): a storage type picked at run
+// time, a template argument inside f.
+template <typename F>
+cudaError_t with_type(int is_bf16, F&& f) {
+  return is_bf16 ? f(Type<__nv_bfloat16>{}) : f(Type<float>{});
+}
+
+// Call f(std::integral_constant<int, S>) for a runtime scheme S.
+template <typename F>
+cudaError_t with_scheme(int scheme, F&& f) {
+  switch (scheme) {
+    case B1: return f(std::integral_constant<int, B1>{});
+    case FD: return f(std::integral_constant<int, FD>{});
+    case B2F: return f(std::integral_constant<int, B2F>{});
+    case B2D: return f(std::integral_constant<int, B2D>{});
+    case B3: return f(std::integral_constant<int, B3>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float x, float y);
+template <>
+__device__ __forceinline__ void store_pair<float>(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+template <>
+__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// The block's copy of the taps, one float4 (lo1, lo2, hi1, hi2) per tap, in
+// static shared memory: one broadcast load gives a tap of both filters and
+// both terms.  Read from the kernel parameter at a tap index that varies at
+// run time, each tap is a constant-bank load, and the pair schemes (four
+// taps per index) ran 2-4x slower so on an H100.
+constexpr size_t kTapsSmem = PDWT_MXU_MAX_HLEN * sizeof(float4);
+
+__device__ __forceinline__ void stage_taps(float4* tq, const Taps4& tp, int hlen) {
+  const int t = (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x;
+  for (int j = t; j < hlen; j += blockDim.x * blockDim.y * blockDim.z)
+    tq[j] = make_float4(tp.lo1[j], tp.lo2[j], tp.hi1[j], tp.hi2[j]);
+}
+
+constexpr size_t kSmemLimit = 232448;  // shared memory a block may use
+
+// Allow `smem` bytes of dynamic shared memory beside the static taps.
+template <typename K>
+cudaError_t prepare(K kernel, size_t smem) {
+  if (smem + kTapsSmem > kSmemLimit) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024)
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
+  return cudaSuccess;
+}
+
+}  // namespace pdwt_mxu

@@ -1,0 +1,326 @@
+"""Banded-product level kernels of the precision tiers, 2D: the compute
+schemes, the route rule, wrappers, plain versions and gradients.
+
+Counterpart of ``pdwt_tpu/kernels/matmul_pallas.py`` (kernels 11 and 12)
+and of the scheme helpers of ``swt_matmul_pallas.py:111-159``.  On the TPU
+a decimating dual FIR runs as a banded matrix product on the MXU; what the
+product computes is fixed by its compute scheme, and that is what the CUDA
+kernels (``csrc/matmul.cu``) and the plain versions here reproduce:
+
+=======================  ====================================  =========================
+wrapper                  computes                              plain version
+=======================  ====================================  =========================
+``fwd_level_2d_mxu``     one analysis level, rows then columns ``fwd_level_2d_mxu_ref``
+``inv_level_2d_mxu``     one synthesis level, rows then cols   ``inv_level_2d_mxu_ref``
+=======================  ====================================  =========================
+
+Schemes.  Each pass pairs constant taps f with data x; every product of
+two bf16 values is exact in float32 and every sum is float32.  h() rounds
+to bf16 (nearest even), x_h = h(x), x_l = h(x - x_h), and f_h, f_l split
+the float32 tap the same way (taps go float64 -> float32 -> bf16, as the
+TPU's float32 band matrices do):
+
+======  ====================================================
+b1      sum h(f) h(x)
+fd      sum f x in float32 (on the TPU one bf16 pass; the port
+        follows JAX on the CPU)
+b2f     sum f_h h(x) + sum f_l h(x)
+b2d     sum f_h x_h + sum f_h x_l
+b3      sum f_h x_h + sum f_h x_l + sum f_l x_h
+======  ====================================================
+
+The terms are summed in that order, each over its taps in correlation
+order (the plain version's order).  A 2D level runs rows (axis -2) first,
+then columns, and the float32 row-pass result is split per scheme before
+the column pass (for b1/b2f it is rounded to bf16).  Outputs are rounded
+once, from float32, to their dtype.
+
+A wrapper given a CPU tensor returns its plain version (``core/conv.py``
+passes over float32 tensors that hold the rounded values); given a CUDA
+tensor it launches its kernel or raises.
+
+Gradients (``matmul_pallas.py:502-555``): the backward of each level is
+the paired wrapper with reversed taps in the same mode, its output in the
+forward input's dtype.  The schemes are fixed when the forward runs.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core import conv, precision
+from ._launch import launch, on_cpu, poly_geo, ptr, rev, taps
+from .separable import _c
+
+F32, BF16 = torch.float32, torch.bfloat16
+SCHEMES = ("b1", "fd", "b2f", "b2d", "b3")
+#: schemes whose taps ship as a bf16 (hi, lo) split and sum several terms
+PAIR_SCHEMES = ("b3", "b2f", "b2d")
+#: (tap, data) index of each term: tap 0 is f_h (f for fd), tap 1 f_l;
+#: data 0 is h(x) (x for fd), data 1 x_l
+_TERMS = {"b1": ((0, 0),), "fd": ((0, 0),), "b2f": ((0, 0), (1, 0)),
+          "b2d": ((0, 0), (0, 1)), "b3": ((0, 0), (0, 1), (1, 0))}
+#: bf16 rung -> (forward, inverse) scheme of the bf16 level-1 passes
+_BF16_TIERS = {"fast": ("b1", "fd"), "balanced": ("b2f", "b2f"),
+               "accurate": ("b3", "b3")}
+#: longest filter and tile divisors of the MXU route (matmul_pallas.py:71-97)
+MXU_MAX_HLEN, MXU_ROWS, MXU_COLS = 40, 32, 128
+
+
+# ---------------------------------------------------------------------------
+# schemes and the route rule
+# ---------------------------------------------------------------------------
+
+def bf16_l1_schemes() -> Tuple[str, str]:
+    """(forward, inverse) scheme of the bf16 level-1 passes under the
+    active bf16 rung."""
+    return _BF16_TIERS[precision.bf16_accuracy()]
+
+
+def mode_scheme(mode: str, in_dtype: torch.dtype) -> str:
+    """Forward scheme of a decimated level: ``mixed`` runs b3; ``bf16``
+    runs the rung's level-1 scheme on bf16 input and b3 on the float32
+    approximation chain."""
+    if mode == "mixed":
+        return "b3"
+    if mode == "bf16":
+        return bf16_l1_schemes()[0] if in_dtype == BF16 else "b3"
+    raise ValueError(f"unknown MXU mode {mode!r}")
+
+
+def swt_bf16_scheme(default: str) -> str:
+    """A-trous bf16 scheme: b2f under the balanced and accurate rungs,
+    else ``default``."""
+    return "b2f" if precision.bf16_accuracy() != "fast" else default
+
+
+def swt_scheme(mode: str, in_dtype: torch.dtype) -> str:
+    """Forward scheme of an a-trous level: ``mixed`` b3; ``bf16`` one pass
+    (b1 on bf16 input, fd on float32) unless the rung asks for b2f."""
+    if mode == "mixed":
+        return "b3"
+    if mode == "bf16":
+        return swt_bf16_scheme("b1" if in_dtype == BF16 else "fd")
+    raise ValueError(f"unknown MXU mode {mode!r}")
+
+
+def inv_plan(mode: str, out_dtype: Optional[torch.dtype]) -> Tuple[str, torch.dtype]:
+    """(scheme, output dtype) of a decimated synthesis level: ``mixed`` b3
+    into float32; ``bf16`` the rung's inverse scheme where the output is
+    bf16 (the last level), b3 into float32 on the deep levels."""
+    if mode == "mixed":
+        return "b3", F32
+    if mode == "bf16":
+        out = BF16 if out_dtype is None else out_dtype
+        return (bf16_l1_schemes()[1] if out == BF16 else "b3"), out
+    raise ValueError(f"unknown MXU mode {mode!r}")
+
+
+def mode_out_dtypes(mode: str) -> Tuple[torch.dtype, torch.dtype]:
+    """(approximation, detail) dtypes of a forward level: all float32
+    under ``mixed``; a float32 approximation chain and bf16 details under
+    ``bf16``."""
+    return (F32, F32) if mode == "mixed" else (F32, BF16)
+
+
+def mxu_route_2d(mr: int, mc: int, hlen: int) -> bool:
+    """Does a 2D level with (mr, mc) subbands take the banded-product
+    kernels?  The gate of ``_pick_mxu_tiles`` (``matmul_pallas.py:89-97``):
+    an even filter of at most 40 taps, and subbands that some TPU tile
+    (TR in {128, 64, 32}, TC in {256, 128}) divides."""
+    return (hlen % 2 == 0 and hlen <= MXU_MAX_HLEN and mr % MXU_ROWS == 0
+            and mc % MXU_COLS == 0)
+
+
+def _check_scheme(scheme: str) -> None:
+    if scheme not in SCHEMES:
+        raise ValueError(f"unknown compute scheme {scheme!r}; expected one of {SCHEMES}")
+
+
+# ---------------------------------------------------------------------------
+# rounding and the scheme's terms (plain versions)
+# ---------------------------------------------------------------------------
+
+def scheme_taps(f, scheme: str) -> Tuple[np.ndarray, np.ndarray]:
+    """The (first, second) taps of a scheme in forward convention, float64
+    arrays that hold float32 values: (f32(f), 0) for fd, else the bf16
+    split (f_h, f_l) of f32(f)."""
+    f32 = torch.tensor(np.asarray(f, dtype=np.float64)).float()
+    if scheme == "fd":
+        return f32.double().numpy(), np.zeros(len(f32))
+    hi = f32.to(BF16).float()
+    lo = (f32 - hi).to(BF16).float()
+    return hi.double().numpy(), lo.double().numpy()
+
+
+def split_data(x: torch.Tensor, scheme: str):
+    """(first, second) data operands of a scheme as float32 tensors: x for
+    fd, h(x) for b1/b2f, (x_h, x_l) for b2d/b3."""
+    x = x.float()
+    if scheme == "fd":
+        return x, None
+    xh = x.to(BF16).float()
+    if scheme in ("b1", "b2f"):
+        return xh, None
+    return xh, (x - xh).to(BF16).float()
+
+
+def scheme_pass(x: torch.Tensor, filters: Sequence, scheme: str, pass_fn) -> torch.Tensor:
+    """One pass under a scheme: the sum over its terms, in order, of
+    ``pass_fn(data, filters)`` with the term's rounded data and taps."""
+    split = [scheme_taps(f, scheme) for f in filters]
+    data = split_data(x, scheme)
+    out = None
+    for ti, di in _TERMS[scheme]:
+        y = pass_fn(data[di], [s[ti] for s in split])
+        out = y if out is None else out + y
+    return out
+
+
+def fwd_level_2d_mxu_ref(x: torch.Tensor, dec_lo, dec_hi, scheme: str,
+                         out_dtypes=(F32, F32)):
+    """One analysis level on (B, R, C), rows then columns -> (a, h, v, d),
+    a in ``out_dtypes[0]``, h, v, d in ``out_dtypes[1]``."""
+    _check_scheme(scheme)
+    dec = (dec_lo, dec_hi)
+    t = scheme_pass(x[:, None], dec, scheme, lambda d, f: conv.analysis_pass(d, f, axis=-2))
+    z = scheme_pass(t, dec, scheme, lambda d, f: conv.analysis_pass(d, f, axis=-1))
+    a_dt, d_dt = out_dtypes
+    # channels: lo rows lo cols, lo rows hi cols (V), hi rows lo cols (H), hi hi
+    return (z[:, 0].to(a_dt).contiguous(), z[:, 2].to(d_dt).contiguous(),
+            z[:, 1].to(d_dt).contiguous(), z[:, 3].to(d_dt).contiguous())
+
+
+def inv_level_2d_mxu_ref(a, h, v, d, rec_lo, rec_hi, scheme: str,
+                         out_dtype=F32) -> torch.Tensor:
+    """One synthesis level, (B, Mr, Mc) subbands -> (B, 2Mr, 2Mc), rows
+    then columns."""
+    _check_scheme(scheme)
+    rec = (rec_lo, rec_hi)
+    z = torch.stack([t.float() for t in (a, h, v, d)], dim=1)
+    t = scheme_pass(z, rec, scheme, lambda u, f: conv.synthesis_pass(u, f, axis=-2))
+    y = scheme_pass(t, rec, scheme, lambda u, f: conv.synthesis_pass(u, f, axis=-1))
+    return y[:, 0].to(out_dtype).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+_DT = (F32, BF16)
+
+
+def kernel_taps(filters: Sequence, scheme: str):
+    """Correlation-order float32 (first, second) taps of each filter for
+    the kernels, kept alive by the caller."""
+    out = []
+    for f in filters:
+        t1, t2 = scheme_taps(f, scheme)
+        out.extend((taps(t1), taps(t2)))
+    return out
+
+
+def _is_bf16(dtype: torch.dtype) -> int:
+    if dtype not in _DT:
+        raise ValueError(f"the banded-product kernels store float32 or bfloat16, got {dtype}")
+    return int(dtype == BF16)
+
+
+def fwd_level_2d_mxu(x: torch.Tensor, dec_lo, dec_hi, scheme: str, out_dtypes=(F32, F32)):
+    """One analysis level on an even-sized (B, R, C) image (float32 or
+    bf16) under ``scheme`` -> (a, h, v, d), each (B, R/2, C/2); a is
+    float32, h, v, d are ``out_dtypes[1]``."""
+    if on_cpu(x, dtypes=_DT):
+        return fwd_level_2d_mxu_ref(x, dec_lo, dec_hi, scheme, out_dtypes)
+    _check_scheme(scheme)
+    B, R, C = x.shape
+    if R % 2 or C % 2:
+        raise ValueError(f"fwd_level_2d_mxu takes even sizes, got {(R, C)}")
+    if out_dtypes[0] != F32:
+        raise ValueError("the banded-product kernels keep the approximation in float32")
+    tp = kernel_taps((dec_lo, dec_hi), scheme)
+    a = torch.empty((B, R // 2, C // 2), device=x.device, dtype=F32)
+    dets = [torch.empty((B, R // 2, C // 2), device=x.device, dtype=out_dtypes[1])
+            for _ in range(3)]
+    launch("fwd_level_2d_mxu", x.device,
+           [ptr(x), ptr(a), *map(ptr, dets), B, R, C, *map(ptr, tp), len(tp[0]),
+            conv.fwd_center(len(tp[0])), SCHEMES.index(scheme), _is_bf16(x.dtype),
+            _is_bf16(out_dtypes[1])])
+    return (a, *dets)
+
+
+def inv_level_2d_mxu(a, h, v, d, rec_lo, rec_hi, scheme: str, out_dtype=F32) -> torch.Tensor:
+    """One synthesis level under ``scheme``: a float32 (B, Mr, Mc)
+    approximation and h, v, d of one dtype (float32 or bf16) ->
+    (B, 2Mr, 2Mc) in ``out_dtype``."""
+    if on_cpu(a, h, v, d, dtypes=_DT):
+        return inv_level_2d_mxu_ref(a, h, v, d, rec_lo, rec_hi, scheme, out_dtype)
+    _check_scheme(scheme)
+    if not a.shape == h.shape == v.shape == d.shape:
+        raise ValueError("the four subbands must have one shape")
+    if a.dtype != F32 or not h.dtype == v.dtype == d.dtype:
+        raise ValueError("inv_level_2d_mxu takes a float32 approximation and details "
+                         "of one dtype")
+    B, mr, mc = a.shape
+    tp = kernel_taps((rec_lo, rec_hi), scheme)
+    geo = poly_geo(len(tp[0]))
+    out = torch.empty((B, 2 * mr, 2 * mc), device=a.device, dtype=out_dtype)
+    launch("inv_level_2d_mxu", a.device,
+           [*map(ptr, (a, h, v, d, out)), B, mr, mc, *map(ptr, tp), len(tp[0]), ptr(geo),
+            SCHEMES.index(scheme), _is_bf16(h.dtype), _is_bf16(out_dtype)])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# autograd: each backward is the paired wrapper with reversed taps
+# ---------------------------------------------------------------------------
+
+class _FwdLevel2DMxu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dec_lo, dec_hi, mode):
+        ctx.filters = (dec_lo, dec_hi)
+        ctx.back = inv_plan(mode, x.dtype)
+        return fwd_level_2d_mxu(x, dec_lo, dec_hi, mode_scheme(mode, x.dtype),
+                                mode_out_dtypes(mode))
+
+    @staticmethod
+    def backward(ctx, ga, gh, gv, gd):
+        lo, hi = ctx.filters
+        scheme, out_dtype = ctx.back
+        y = inv_level_2d_mxu(*_c((ga.float(), gh, gv, gd)), rev(lo), rev(hi), scheme,
+                             out_dtype)
+        return y, None, None, None
+
+
+class _InvLevel2DMxu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, h, v, d, rec_lo, rec_hi, mode, out_dtype):
+        scheme, out_dtype = inv_plan(mode, out_dtype)
+        ctx.filters = (rec_lo, rec_hi)
+        ctx.back = (mode_scheme(mode, out_dtype), mode_out_dtypes(mode))
+        ctx.in_dtypes = tuple(t.dtype for t in (a, h, v, d))
+        if mode == "mixed":
+            h, v, d = (t.float() for t in (h, v, d))
+        return inv_level_2d_mxu(a.float(), h, v, d, rec_lo, rec_hi, scheme, out_dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        lo, hi = ctx.filters
+        scheme, out_dtypes = ctx.back
+        res = fwd_level_2d_mxu(gy.contiguous(), rev(lo), rev(hi), scheme, out_dtypes)
+        return (*(t.to(dt) for t, dt in zip(res, ctx.in_dtypes)), None, None, None, None)
+
+
+def fwd_level_2d_mxu_ad(x, dec_lo, dec_hi, mode: str):
+    """Differentiable forward level in an MXU ``mode`` ("mixed" or
+    "bf16"): the scheme and output dtypes follow the mode and the input
+    dtype, as ``matmul_pallas.fwd_level_2d_mxu`` picks them."""
+    return _FwdLevel2DMxu.apply(x, dec_lo, dec_hi, mode)
+
+
+def inv_level_2d_mxu_ad(a, h, v, d, rec_lo, rec_hi, mode: str, out_dtype=None):
+    """Differentiable inverse level in an MXU ``mode``; ``out_dtype`` as
+    in :func:`inv_plan`."""
+    return _InvLevel2DMxu.apply(a, h, v, d, rec_lo, rec_hi, mode, out_dtype)

@@ -4,7 +4,10 @@
 * ``normalize``: beta is divided by sqrt(2) per level from level 1, and
   the approximation threshold is beta / sqrt(2)^nlevels;
 * ``beta`` may be a scalar or a per-level (or per-level, per-band)
-  sequence, which is already level-scaled, so ``normalize`` ignores it.
+  sequence, which is already level-scaled, so ``normalize`` ignores it;
+* beta is rounded to each band's dtype first, as JAX does, so a tree that
+  mixes a float32 approximation with bf16 details (the bf16 tiers) takes
+  a bf16 beta on its details.
 
 ``THR_ELEM`` holds the elementwise forms, which the fused
 threshold-in-inverse kernel (``kernels/swt.py``) also applies.  The other
@@ -46,12 +49,20 @@ def _resolve_beta(beta, i: int, j, normalize: bool):
     return beta / (_SQRT2 ** (i + 1)) if normalize else beta
 
 
+def as_dtype_of(b, x: torch.Tensor):
+    """beta rounded to ``x``'s dtype: a tensor for a tensor, a number for a
+    number."""
+    if isinstance(b, torch.Tensor):
+        return b.to(x.dtype)
+    return float(torch.tensor(b, dtype=x.dtype))
+
+
 def _soft(x: torch.Tensor, b) -> torch.Tensor:
-    return torch.sign(x) * torch.clamp_min(x.abs() - b, 0)
+    return torch.sign(x) * torch.clamp_min(x.abs() - as_dtype_of(b, x), 0)
 
 
 def _hard(x: torch.Tensor, b) -> torch.Tensor:
-    return torch.where(x.abs() > b, x, 0.0)
+    return torch.where(x.abs() > as_dtype_of(b, x), x, 0.0)
 
 
 def beta_squared(b, x: torch.Tensor):
@@ -65,8 +76,10 @@ def beta_squared(b, x: torch.Tensor):
 
 
 def _garrote(x: torch.Tensor, b) -> torch.Tensor:
-    """Non-negative garrote, x * max(1 - (b/x)^2, 0)."""
-    b2 = beta_squared(b, x)
+    """Non-negative garrote, x * max(1 - (b/x)^2, 0).  b^2 is a 0-dim
+    tensor: a number divided by a tensor would be its reciprocal times the
+    number, rounded twice."""
+    b2 = torch.as_tensor(beta_squared(b, x), dtype=x.dtype)
     return torch.where(x * x > b2, x - b2 / torch.where(x == 0, 1.0, x), 0.0)
 
 

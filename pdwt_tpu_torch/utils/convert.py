@@ -1,5 +1,10 @@
 """Carry filters and coefficients between the JAX package and the port
-without importing JAX: both sides meet in numpy arrays."""
+without importing JAX: both sides meet in numpy arrays.
+
+bfloat16 crosses without ``ml_dtypes``: a numpy array whose dtype is named
+``bfloat16`` (as JAX hands one out) comes in through its 16-bit view, bit
+for bit; a bf16 tensor goes out as a float32 array, which holds every bf16
+value exactly."""
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
@@ -26,14 +31,32 @@ def wavelet_from_arrays(obj_or_name, dec_lo=None, dec_hi=None, rec_lo=None,
                      for f in ("dec_lo", "dec_hi", "rec_lo", "rec_hi")))
 
 
+def tensor_from_numpy(arr, device="cpu", dtype=None) -> torch.Tensor:
+    """A tensor on ``device`` copied from an array-like, in ``dtype`` (None
+    keeps the array's); a bfloat16 numpy array comes in bit for bit."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr))
+    return t.to(device=device, dtype=dtype)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy of a tensor; bf16 comes out as float32 (exact)."""
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
 def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return tensor_to_numpy(x) if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def coeffs2d_from_numpy(approx, details: Sequence[Sequence], device="cpu") -> Coeffs2D:
     """A :class:`Coeffs2D` of tensors on ``device`` from numpy arrays
-    (``details[i] = (H, V, D)`` of level i+1), copied, dtypes kept."""
-    t = lambda arr: torch.tensor(np.asarray(arr), device=device)
+    (``details[i] = (H, V, D)`` of level i+1), copied, dtypes kept (a
+    bfloat16 array becomes a bf16 tensor)."""
+    t = lambda arr: tensor_from_numpy(arr, device)
     return Coeffs2D(t(approx), tuple(tuple(t(x) for x in band) for band in details))
 
 
@@ -46,7 +69,7 @@ def coeffs2d_to_numpy(coeffs) -> Tuple[np.ndarray, List[Tuple[np.ndarray, ...]]]
 def coeffs1d_from_numpy(approx, details: Sequence, device="cpu") -> Coeffs1D:
     """A :class:`Coeffs1D` of tensors on ``device`` from numpy arrays
     (``details[i]`` the detail band of level i+1), copied, dtypes kept."""
-    t = lambda arr: torch.tensor(np.asarray(arr), device=device)
+    t = lambda arr: tensor_from_numpy(arr, device)
     return Coeffs1D(t(approx), tuple(t(x) for x in details))
 
 

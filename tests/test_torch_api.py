@@ -57,7 +57,7 @@ def test_facade_matches_jax(wname, shape, levels, beta):
     """forward, soft_threshold, norm1, norm2sq, inverse.  haar runs the
     separable kernels' plain versions here, the butterfly path in JAX."""
     img = _img(shape)
-    W, J = Wavelets(img, wname=wname, levels=levels), JWavelets(img, wname=wname,
+    W, J = Wavelets(img, wname=wname, levels=levels, device="cpu"), JWavelets(img, wname=wname,
                                                                 levels=levels, backend="fma")
     assert W.spec.nlevels == J.spec.nlevels == levels
     _close(_leaves(W.forward()), _leaves(J.forward()))
@@ -73,7 +73,7 @@ def test_facade_matches_jax(wname, shape, levels, beta):
 def test_cycle_spinning_matches_jax():
     """The same seed draws the same shifts from numpy's default_rng."""
     img = _img((40, 56), seed=1)
-    W = Wavelets(img, wname="db3", levels=2, do_cycle_spinning=True, seed=7)
+    W = Wavelets(img, wname="db3", levels=2, do_cycle_spinning=True, seed=7, device="cpu")
     J = JWavelets(img, wname="db3", levels=2, do_cycle_spinning=True, seed=7, backend="fma")
     for _ in range(3):
         _close(_leaves(W.forward()), _leaves(J.forward()))
@@ -87,7 +87,7 @@ def test_cycle_spinning_matches_jax():
 @pytest.mark.parametrize("beta", [12.0, [30.0, 20.0, 10.0], [[30.0, 25.0, 20.0]] * 3])
 def test_hard_threshold_options_match_jax(beta):
     img = _img((122, 128), seed=2)
-    W = Wavelets(img, wname="sym8", levels=3)
+    W = Wavelets(img, wname="sym8", levels=3, device="cpu")
     J = JWavelets(img, wname="sym8", levels=3, backend="fma")
     W.forward()
     J.forward()
@@ -103,7 +103,7 @@ def test_hard_threshold_options_match_jax(beta):
 def test_level_clamping_matches_jax(shape, levels):
     with warnings.catch_warnings(record=True) as ours:
         warnings.simplefilter("always")
-        W = Wavelets(nr=shape[0], nc=shape[1], wname="db7", levels=levels)
+        W = Wavelets(nr=shape[0], nc=shape[1], wname="db7", levels=levels, device="cpu")
     with warnings.catch_warnings(record=True) as theirs:
         warnings.simplefilter("always")
         J = JWavelets(nr=shape[0], nc=shape[1], wname="db7", levels=levels)
@@ -114,7 +114,7 @@ def test_level_clamping_matches_jax(shape, levels):
 
 def test_get_set_image_and_state():
     img = _img((32, 32))
-    W = Wavelets(img, wname="db2", levels=2)
+    W = Wavelets(img, wname="db2", levels=2, device="cpu")
     W.set_image(img[::-1].copy())
     np.testing.assert_array_equal(W.get_image(), img[::-1])
     assert W.get_image(copy=False).device == W.device
@@ -125,6 +125,18 @@ def test_get_set_image_and_state():
     with pytest.warns(UserWarning, match="already been run"):
         assert W.inverse() is W.d_image
     _close(W.get_image(), img[::-1])
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the facade on a host without a card")
+@pytest.mark.parametrize("kwargs", [{"img": np.zeros((16, 16), np.float32)}, {"nr": 16, "nc": 16}])
+def test_facade_defaults_to_the_card_and_never_falls_back_to_the_cpu(kwargs):
+    """An image given as numpy, or by its size, goes to the CUDA card unless
+    ``device=`` names another; without a card that is an error naming
+    ``device="cpu"``, never a silent CPU run.  A tensor keeps its device."""
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Wavelets(wname="db2", levels=1, **kwargs)
+    assert Wavelets(wname="db2", levels=1, device="cpu", **kwargs).device.type == "cpu"
+    assert Wavelets(torch.zeros(16, 16), wname="db2", levels=1).device.type == "cpu"
 
 
 def test_facade_never_moves_data_between_devices():
@@ -168,14 +180,15 @@ def test_denoise_step_cycle_spins_with_the_generator():
 def test_unsupported_flags_name_their_roadmap_item():
     img = _img((16, 16))
     for kwargs, item in [({"do_separable": False}, 11), ({"ndim": 3}, 12),
-                         ({"mode": "symmetric"}, 10),
-                         ({"precision": "mixed"}, 9), ({"precision": "bf16-fast"}, 9)]:
+                         ({"mode": "symmetric"}, 10)]:
         with pytest.raises(NotImplementedError, match=f"item {item}"):
-            Wavelets(img, wname="db2", levels=1, **kwargs)
+            Wavelets(img, wname="db2", levels=1, device="cpu", **kwargs)
     with pytest.raises(NotImplementedError, match="item 12"):
-        Wavelets(np.zeros((4, 16, 16), np.float32), wname="db2", levels=1)
+        Wavelets(np.zeros((4, 16, 16), np.float32), wname="db2", levels=1, device="cpu")
+    with pytest.raises(NotImplementedError, match="kernels 13-14"):
+        Wavelets(img, wname="db2", levels=1, do_swt=True, precision="bf16-fast", device="cpu")
     with pytest.raises(ValueError, match="unknown precision tier"):
-        Wavelets(img, wname="db2", levels=1, precision="fast")
+        Wavelets(img, wname="db2", levels=1, precision="fast", device="cpu")
     x = torch.from_numpy(img)
     with pytest.raises(NotImplementedError, match="item 4"):
         denoise_step(x, None, "db2", 1, 1.0, mode="group")

@@ -10,6 +10,13 @@ nvcc contracts each multiply-add into one FMA where the plain version
 rounds twice.  For the stationary kernels max|plain| is taken over the
 subbands of a call together: at a dilation as large as the image (or the
 signal) the high-pass sums its taps over one period, and is roundoff.
+The banded-product kernels of the precision tiers: float32-stored outputs
+within 1e-5, bf16-stored outputs within 2^-7 (a float32 sum one ulp apart
+flips one bf16 rounding); a tier's whole path against the CPU's within
+1e-4 on float32 outputs (an exact level's FMAs move a value by an ulp,
+and the next b3 level's split of it then differs by up to 2^-17 per pass)
+and 2^-6 on bf16 outputs (such a flip inside a level moves its output by
+up to one more bf16 ulp).
 """
 import numpy as np
 import pytest
@@ -19,6 +26,8 @@ from pdwt_tpu_torch import (Wavelets, dwt1d, dwt2d, get_wavelet, idwt1d, idwt2d,
                             iswt2d, iswt2d_denoise, ops, swt1d, swt2d)
 from pdwt_tpu_torch.filters import make_custom_wavelet
 from pdwt_tpu_torch.kernels import batched1d as K1
+from pdwt_tpu_torch.kernels import matmul as M
+from pdwt_tpu_torch.kernels import mxu1d as M1
 from pdwt_tpu_torch.kernels import separable as K
 from pdwt_tpu_torch.kernels import swt as S
 
@@ -129,14 +138,17 @@ def test_launch_counters(dev):
                           "fwd_tail_2d": 1, "inv_tail_2d": 1,
                           "swt_fwd_level_2d": 0, "swt_inv_level_2d": 0,
                           "fwd_level_1d": 0, "inv_level_1d": 0,
-                          "swt_fwd_level_1d": 0, "swt_inv_level_1d": 0}
+                          "swt_fwd_level_1d": 0, "swt_inv_level_1d": 0,
+                          "fwd_level_2d_mxu": 0, "inv_level_2d_mxu": 0,
+                          "fwd_level_1d_mxu": 0, "inv_level_1d_mxu": 0,
+                          "swt_fwd_level_1d_mxu": 0, "swt_inv_level_1d_mxu": 0}
 
 
 def test_cuda_rejects_what_the_kernels_do_not_take(dev):
     w = get_wavelet("db2")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="float64"):
         K.fwd_level_2d(_rand(dev, 1, 8, 8).double(), w.dec_lo, w.dec_hi)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="float64"):
         dwt2d(_rand(dev, 8, 8).double(), w, 1)
     with pytest.raises(ValueError, match="contiguous"):
         K.fwd_level_2d(_rand(dev, 1, 8, 16)[:, :, ::2], w.dec_lo, w.dec_hi)
@@ -226,9 +238,9 @@ def test_ti_path_launches_the_kernels_and_no_plain_version(dev, monkeypatch):
 
 def test_swt_cuda_rejects_what_the_kernels_do_not_take(dev):
     w = get_wavelet("db2")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="float64"):
         S.swt_fwd_level_2d(_rand(dev, 1, 8, 8).double(), w.dec_lo, w.dec_hi, 1)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="float64"):
         swt2d(_rand(dev, 8, 8).double(), w, 1)
     bands = [_rand(dev, 1, 8, 8) for _ in range(4)]
     with pytest.raises(ValueError, match="threshold mode"):
@@ -329,9 +341,9 @@ def test_1d_facade_matches_cpu(dev):
 
 def test_1d_cuda_rejects_what_the_kernels_do_not_take(dev):
     w = get_wavelet("db2")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="float64"):
         K1.fwd_level_1d(_rand(dev, 2, 8).double(), w.dec_lo, w.dec_hi)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="float64"):
         swt1d(_rand(dev, 8).double(), w, 1)
     with pytest.raises(ValueError, match="even length"):
         K1.fwd_level_1d(_rand(dev, 2, 7), w.dec_lo, w.dec_hi)
@@ -339,3 +351,159 @@ def test_1d_cuda_rejects_what_the_kernels_do_not_take(dev):
         K1.swt_fwd_level_1d(_rand(dev, 1, 2, 8), w.dec_lo, w.dec_hi, 1)
     with pytest.raises(ValueError, match="one shape"):
         K1.inv_level_1d(_rand(dev, 2, 8), _rand(dev, 2, 4), w.rec_lo, w.rec_hi)
+
+
+# ---------------------------------------------------------------------------
+# banded-product kernels, the precision tiers
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def _close_tier(got, want, bf16_rtol=2.0 ** -7, rtol=RTOL):
+    """float32 outputs within ``rtol``, bf16 ones within ``bf16_rtol``, of
+    the output's largest plain value."""
+    got = got if isinstance(got, (list, tuple)) else [got]
+    want = want if isinstance(want, (list, tuple)) else [want]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        err = float((g.float() - w.float().to(g.device)).abs().max())
+        tol = bf16_rtol if w.dtype == BF16 else rtol
+        assert err <= tol * float(w.float().abs().max()), (err, w.dtype)
+
+
+MXU_2D_CASES = [("db7", (1, 256, 256), BF16), ("db7", (3, 70, 134), torch.float32),
+                ("db4", (2, 64, 258), BF16), ("db20", (1, 96, 160), torch.float32)]
+
+
+@pytest.mark.parametrize("scheme", ["b1", "fd", "b2f", "b2d", "b3"])
+@pytest.mark.parametrize("wname,shape,in_dtype", MXU_2D_CASES)
+def test_mxu_2d_kernels_match_plain(dev, wname, shape, in_dtype, scheme):
+    """Kernels 11 and 12 in every scheme, float32 or bf16 in, float32 or
+    bf16 details and outputs, on shapes on and off the route rule."""
+    w = _wavelet(wname)
+    x = (_rand(dev, *shape) * 255).to(in_dtype)
+    for det in (torch.float32, BF16):
+        _close_tier(M.fwd_level_2d_mxu(x, w.dec_lo, w.dec_hi, scheme, (torch.float32, det)),
+                    M.fwd_level_2d_mxu_ref(x, w.dec_lo, w.dec_hi, scheme, (torch.float32, det)))
+    m = (shape[0], shape[1] // 2, shape[2] // 2)
+    a = _rand(dev, *m) * 255
+    for det in (torch.float32, BF16):
+        h, v, d = ((_rand(dev, *m, seed=s) * 127).to(det) for s in (1, 2, 3))
+        for out in (torch.float32, BF16):
+            _close_tier(M.inv_level_2d_mxu(a, h, v, d, w.rec_lo, w.rec_hi, scheme, out),
+                        M.inv_level_2d_mxu_ref(a, h, v, d, w.rec_lo, w.rec_hi, scheme, out))
+
+
+MXU_1D_CASES = [("sym8", 32, 512), ("sym8", 3, 202), ("db2", 2, 6), ("db20", 5, 1000)]
+
+
+@pytest.mark.parametrize("scheme", ["b1", "fd", "b2f", "b2d", "b3"])
+@pytest.mark.parametrize("wname,batch,n", MXU_1D_CASES)
+def test_mxu_1d_kernels_match_plain(dev, wname, batch, n, scheme):
+    """Kernels 15 and 16, decimated and a-trous (levels 1-4: db2 on 6
+    samples reaches a dilation of 8), bf16 and float32 in and out."""
+    w = _wavelet(wname)
+    for in_dt in (torch.float32, BF16):
+        x = (_rand(dev, batch, n) * 255).to(in_dt)
+        _close_tier(M1.fwd_level_1d_mxu(x, w.dec_lo, w.dec_hi, scheme, BF16),
+                    M1.fwd_level_1d_mxu_ref(x, w.dec_lo, w.dec_hi, scheme, BF16))
+        for level in range(1, 5):
+            _close_tier(M1.swt_fwd_level_1d_mxu(x, w.dec_lo, w.dec_hi, level, scheme),
+                        M1.swt_fwd_level_1d_mxu_ref(x, w.dec_lo, w.dec_hi, level, scheme))
+    lo = _rand(dev, batch, n // 2) * 255
+    hi = (_rand(dev, batch, n // 2, seed=1) * 127).to(BF16)
+    for out in (torch.float32, BF16):
+        _close_tier(M1.inv_level_1d_mxu(lo, hi, w.rec_lo, w.rec_hi, scheme, out),
+                    M1.inv_level_1d_mxu_ref(lo, hi, w.rec_lo, w.rec_hi, scheme, out))
+    slo, shi = _rand(dev, batch, n) * 255, _rand(dev, batch, n, seed=2) * 127
+    for level in (1, 3):
+        _close_tier(M1.swt_inv_level_1d_mxu(slo, shi, w.rec_lo, w.rec_hi, level, scheme, BF16),
+                    M1.swt_inv_level_1d_mxu_ref(slo, shi, w.rec_lo, w.rec_hi, level, scheme,
+                                                BF16))
+
+
+@pytest.mark.parametrize("scheme", ["fd", "b3"])
+def test_mxu_1d_kernels_past_shared_memory(dev, scheme):
+    """sym8 at level 12 (dilation 2048): the a-trous analysis stages a
+    window past 48 KB of shared memory, the synthesis's two windows pass the
+    card's limit and it runs the direct kernel."""
+    w = get_wavelet("sym8")
+    x = _rand(dev, 2, 5000) * 255
+    _close_tier(M1.swt_fwd_level_1d_mxu(x, w.dec_lo, w.dec_hi, 12, scheme),
+                M1.swt_fwd_level_1d_mxu_ref(x, w.dec_lo, w.dec_hi, 12, scheme))
+    lo, hi = _rand(dev, 2, 5000, seed=1), _rand(dev, 2, 5000, seed=2)
+    _close_tier(M1.swt_inv_level_1d_mxu(lo, hi, w.rec_lo, w.rec_hi, 12, scheme),
+                M1.swt_inv_level_1d_mxu_ref(lo, hi, w.rec_lo, w.rec_hi, 12, scheme))
+
+
+@pytest.mark.parametrize("tier", ["mixed", "bf16-fast", "bf16-balanced", "bf16-accurate"])
+def test_tier_paths_match_cpu(dev, tier):
+    """The six entry points under a tier on the card (banded-product kernels
+    on the levels the route rule takes) against the CPU (plain versions),
+    with the dtype contract and a roundtrip."""
+    w7, w8 = get_wavelet("db7"), get_wavelet("sym8")
+    dt = BF16 if tier.startswith("bf16-") else torch.float32
+    x = (_rand(dev, 512, 512) * 127).to(dt)
+    s = (_rand(dev, 32, 1024, seed=1) * 127).to(dt)
+    leaves = lambda c: [c.approx, *(sum(c.details, ()) if isinstance(c.details[0], tuple)
+                                    else c.details)]
+    K.reset_launch_counts()
+    for fwd, inv, inp in ((lambda t: dwt2d(t, w7, 3, precision=tier),
+                           lambda c: idwt2d(c, w7, (512, 512), precision=tier), x),
+                          (lambda t: dwt1d(t, w8, 3, precision=tier),
+                           lambda c: idwt1d(c, w8, 1024, precision=tier), s),
+                          (lambda t: swt1d(t, w8, 3, precision=tier),
+                           lambda c: iswt1d(c, w8, precision=tier), s)):
+        c, cc = fwd(inp), fwd(inp.cpu())
+        assert c.approx.dtype == torch.float32
+        assert all(t.dtype == dt for t in leaves(c)[1:])
+        _close_tier([t.cpu() for t in leaves(c)], leaves(cc), 2.0 ** -6, 1e-4)
+        y = inv(c)
+        assert y.dtype == dt and y.shape == inp.shape
+        _close_tier(y.cpu(), inv(cc), 2.0 ** -6, 1e-4)
+        assert float((y.float() - inp.float()).abs().max()) < (3.0 if dt == BF16 else 0.05)
+    torch.cuda.synchronize()
+    launched = {k for k, v in K.LAUNCHES.items() if v}
+    assert {"fwd_level_2d_mxu", "inv_level_2d_mxu", "fwd_level_1d_mxu",
+            "inv_level_1d_mxu"} <= launched
+    assert ("swt_fwd_level_1d_mxu" in launched) == (tier != "mixed")
+
+
+def test_tier_gradients_match_cpu(dev):
+    """Autograd through the banded-product kernels (each backward the paired
+    kernel) against the CPU's plain versions."""
+    w = get_wavelet("db4")
+    x = (_rand(dev, 256, 256) * 10).requires_grad_(True)
+    xc = x.detach().cpu().requires_grad_(True)
+    wt = _rand(dev, 256, 256, seed=3)
+    for t, weight in ((x, wt), (xc, wt.cpu())):
+        y = idwt2d(dwt2d(t, w, 2, precision="mixed"), w, (256, 256), precision="mixed")
+        (y * weight).sum().backward()
+    _close_tier(x.grad.cpu(), xc.grad, rtol=1e-4)
+    s = (_rand(dev, 16, 512) * 10).requires_grad_(True)
+    sc = s.detach().cpu().requires_grad_(True)
+    for t in (s, sc):
+        c = swt1d(t.to(BF16), w, 2, precision="bf16-balanced")
+        iswt1d(c, w, precision="bf16-balanced").float().sum().backward()
+    # the gradient passes through bf16 bands: a tier path's bf16 tolerance
+    err = float((s.grad.cpu() - sc.grad).abs().max())
+    assert err <= 2.0 ** -6 * float(sc.grad.abs().max()), err
+
+
+def test_mxu_cuda_rejects_what_the_kernels_do_not_take(dev):
+    w = get_wavelet("db2")
+    with pytest.raises(NotImplementedError, match="float64"):
+        M.fwd_level_2d_mxu(_rand(dev, 1, 8, 8).double(), w.dec_lo, w.dec_hi, "b1")
+    with pytest.raises(ValueError, match="even sizes"):
+        M.fwd_level_2d_mxu(_rand(dev, 1, 7, 8), w.dec_lo, w.dec_hi, "b1")
+    bands = [_rand(dev, 1, 8, 8) for _ in range(4)]
+    with pytest.raises(ValueError, match="one dtype"):
+        M.inv_level_2d_mxu(bands[0], bands[1].to(BF16), bands[2], bands[3], w.rec_lo, w.rec_hi,
+                           "b3")
+    with pytest.raises(ValueError, match="float32 low band"):
+        M1.inv_level_1d_mxu(_rand(dev, 2, 8).to(BF16), _rand(dev, 2, 8), w.rec_lo, w.rec_hi, "fd")
+    with pytest.raises(ValueError, match="even length"):
+        M1.fwd_level_1d_mxu(_rand(dev, 2, 7), w.dec_lo, w.dec_hi, "b1")
+    with pytest.raises(NotImplementedError, match="kernels 13-14"):
+        swt2d(_rand(dev, 16, 16).to(BF16), w, 1)

@@ -222,7 +222,7 @@ def test_1d_transforms_refuse_what_they_do_not_take():
 # ---------------------------------------------------------------------------
 
 def _pair_facade(sig, **kw):
-    W, J = Wavelets(sig, **kw), JWavelets(sig, backend="fma", **kw)
+    W, J = Wavelets(sig, device="cpu", **kw), JWavelets(sig, backend="fma", **kw)
     assert W.spec.ndim == J.spec.ndim == 1 and W.spec.nlevels == J.spec.nlevels
     return W, J
 
@@ -280,7 +280,7 @@ def test_facade_ndim1_haar_rides_the_level_kernels():
 def test_facade_ndim1_level_clamping_matches_jax(nc, levels):
     with warnings.catch_warnings(record=True) as ours:
         warnings.simplefilter("always")
-        W = Wavelets(nr=3, nc=nc, wname="db7", levels=levels, ndim=1)
+        W = Wavelets(nr=3, nc=nc, wname="db7", levels=levels, ndim=1, device="cpu")
     with warnings.catch_warnings(record=True) as theirs:
         warnings.simplefilter("always")
         J = JWavelets(nr=3, nc=nc, wname="db7", levels=levels, ndim=1)
@@ -294,12 +294,13 @@ def test_facade_ndim1_flags_follow_jax():
     """Cycle spinning raises; do_separable=False warns and is ignored."""
     sig = _sig((2, 64))
     for cls in (Wavelets, JWavelets):
+        kw = {"device": "cpu"} if cls is Wavelets else {}
         with pytest.raises(ValueError, match="cycle spinning is not implemented for 1D"):
-            cls(sig, wname="db2", levels=1, ndim=1, do_cycle_spinning=True)
+            cls(sig, wname="db2", levels=1, ndim=1, do_cycle_spinning=True, **kw)
         with pytest.warns(UserWarning, match="ignoring do_separable"):
-            W = cls(sig[0], wname="db2", levels=1, do_separable=False)
+            W = cls(sig[0], wname="db2", levels=1, do_separable=False, **kw)
         assert W.spec.ndim == 1
-    W = Wavelets(sig[0], wname="db2", levels=2)
+    W = Wavelets(sig[0], wname="db2", levels=2, device="cpu")
     W.forward()
     W.set_image(sig[1])
     assert tuple(W.d_image.shape) == (1, 64)

@@ -168,7 +168,7 @@ def test_denoise_step_swt_matches_jax(mode, normalize, beta):
 def test_swt_facade_matches_jax(mode):
     """forward, the threshold, norm1, norm2sq and inverse with do_swt=True."""
     img = _img((40, 56), seed=7)
-    W = Wavelets(img, wname="db3", levels=3, do_swt=True)
+    W = Wavelets(img, wname="db3", levels=3, do_swt=True, device="cpu")
     J = JWavelets(img, wname="db3", levels=3, do_swt=True, backend="fma")
     assert W.spec.nlevels == J.spec.nlevels == 3
     assert [tuple(t.shape) for t in _torch_leaves(W.coeffs)] == [t.shape for t in
@@ -197,7 +197,7 @@ def test_run_denoise_matches_jax(do_swt, spin, mode, app):
     kw = dict(wname="db2", levels=2, do_swt=do_swt, do_cycle_spinning=spin, seed=3)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        W = Wavelets(img, **kw)
+        W = Wavelets(img, device="cpu", **kw)
         J = JWavelets(img, backend="fma", **kw)
     for _ in range(2):
         out, n1 = W.run_denoise(10.0, mode=mode, do_thresh_appcoeffs=app, normalize=True)
@@ -210,7 +210,8 @@ def test_run_denoise_matches_jax(do_swt, spin, mode, app):
 def test_swt_facade_warns_like_jax_on_cycle_spinning():
     with warnings.catch_warnings(record=True) as ours:
         warnings.simplefilter("always")
-        Wavelets(nr=64, nc=64, wname="db7", levels=9, do_swt=True, do_cycle_spinning=True)
+        Wavelets(nr=64, nc=64, wname="db7", levels=9, do_swt=True, do_cycle_spinning=True,
+                 device="cpu")
     with warnings.catch_warnings(record=True) as theirs:
         warnings.simplefilter("always")
         JWavelets(nr=64, nc=64, wname="db7", levels=9, do_swt=True, do_cycle_spinning=True)
