@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It builds the CUDA kernels from
-``pdwt_tpu_torch/kernels/csrc`` and drives the port's four paths, each
+``pdwt_tpu_torch/kernels/csrc`` and drives the port's six paths, each
 with the launch counters set to 0 just before it and read just after:
 
 * the DWT path: each of its four kernels against its plain PyTorch version
@@ -34,7 +34,27 @@ with the launch counters set to 0 just before it and read just after:
   ``precision=``: the launch counts the route rule predicts, the dtype
   contract, the path against the same route on plain versions, the
   roundtrip error against README's tier column, and each tier's roundtrip
-  timings beside the exact one's.
+  timings beside the exact one's;
+* the TI step under the tiers (db7, 3 levels, a 1024x1024 image, soft beta
+  10; bf16 under the ``bf16-*`` tiers, float32 under ``mixed``): the two
+  a-trous banded-product kernels against their plain versions in every
+  scheme the tiers route (levels 1-3, every threshold, plus shapes off the
+  route rule), then ``Wavelets(do_swt=True, precision=...)`` through
+  ``run_denoise`` and forward/threshold/inverse and ``swt2d``/``iswt2d``/
+  ``iswt2d_denoise(precision=...)``, with an odd size and db7 level 6 off
+  the route: launch counts the route rule predicts (``mixed``: none of the
+  banded-product kernels), the dtype contract, the path against the same
+  route on plain versions, roundtrip errors against README's figure or
+  the JAX package's on the CPU, and each tier's TI step timed beside the
+  exact one;
+* the non-separable engine: ``Wavelets(do_separable=False)`` with db7
+  (isotropic quads: the separable kernels) and with custom rank-3 quads
+  set through ``set_filters_forward``/``set_filters_inverse``, a 2048x2048
+  DWT with 5 levels and a 1024x1024 SWT with 3 levels, under ``exact`` (no
+  kernel launch, as in JAX), ``mixed`` and the bf16 tiers; the two rank-r
+  kernels against their plain versions at every routed level, both
+  strides; launch counts, the dtype contract, the path against the plain
+  route, roundtrips, and the timings.
 
 It prints one JSON line with the per-kernel results (times, launches, the
 least time the card could take and a PyTorch yardstick), the card's name
@@ -105,7 +125,24 @@ JAX_CPU_ROUNDTRIP = {
                "bf16-balanced": 1.4999847412109375, "bf16-accurate": 1.496124267578125},
     "1D SWT": {"mixed": 0.0001220703125, "bf16-fast": 1.3996734619140625,
                "bf16-balanced": 1.4999847412109375, "bf16-accurate": 1.4999847412109375},
+    # the TI tiers and the non-separable cells (db7 SWT of the TI image,
+    # 3 levels; rank-3 quads on a 2048^2 image, 5 levels, and on the TI
+    # image, 3 levels), from scripts/jax_roundtrip_figures.py (the JAX
+    # package's Pallas path in interpret mode on the CPU)
+    "2D SWT": {"mixed": 0.0001678466796875, "bf16-fast": 2.4991455078125,
+               "bf16-balanced": 2.4705963134765625, "bf16-accurate": 2.4705963134765625},
+    "NS DWT": {"mixed": 0.011749267578125, "bf16-fast": 2.4994049072265625,
+               "bf16-balanced": 3.490936279296875, "bf16-accurate": 1.7311477661132812},
+    "NS SWT": {"mixed": 9.1552734375e-05, "bf16-fast": 1.4998626708984375,
+               "bf16-balanced": 1.4998931884765625, "bf16-accurate": 1.4998931884765625},
 }
+# README.md:239: the 2D SWT roundtrip in bf16, one pass (6.5) and b2f (2.4);
+# under mixed the SWT is exact.  The non-separable cells take the 2D
+# column of ROUNDTRIP_LIMIT
+SWT_ROUNDTRIP_LIMIT = {"mixed": ROUNDTRIP_ATOL, "bf16-fast": 6.5, "bf16-balanced": 2.4,
+                       "bf16-accurate": 2.4}
+# the non-separable cells (a 2048^2 DWT with 5 levels, a 1024^2 SWT with 3)
+NS_N, NS_LEVELS, NS_SWT_N, NS_SWT_LEVELS = 2048, 5, 1024, 3
 # the timed calls of the bf16-fast tier (the bf16 default) fill the
 # banded-product kernels' rows of the JSON line
 ROW_TIER = "bf16-fast"
@@ -129,11 +166,28 @@ REPLACES = {
     "swt_fwd_level_1d_mxu": "pdwt_tpu/kernels/mxu1d_pallas.py:102",
     "inv_level_1d_mxu": "pdwt_tpu/kernels/mxu1d_pallas.py:153",
     "swt_inv_level_1d_mxu": "pdwt_tpu/kernels/mxu1d_pallas.py:153",
+    "swt_fwd_level_2d_mxu": "pdwt_tpu/kernels/swt_matmul_pallas.py:166",
+    "swt_inv_level_2d_mxu": "pdwt_tpu/kernels/swt_matmul_pallas.py:293",
+    "ns_fwd_level_2d_mxu": "pdwt_tpu/kernels/ns_matmul_pallas.py:100",
+    "ns_swt_fwd_level_2d_mxu": "pdwt_tpu/kernels/ns_matmul_pallas.py:100",
+    "ns_inv_level_2d_mxu": "pdwt_tpu/kernels/ns_matmul_pallas.py:206",
+    "ns_swt_inv_level_2d_mxu": "pdwt_tpu/kernels/ns_matmul_pallas.py:206",
 }
-SOURCES = {name: "pdwt_tpu_torch/kernels/csrc/" + (
-    ("matmul.cu" if "2d" in name else "mxu1d.cu") if name.endswith("_mxu") else
-    "batched1d.cu" if name.endswith("_1d") else
-    "swt.cu" if name.startswith("swt") else "separable.cu") for name in REPLACES}
+
+
+def _source(name: str) -> str:
+    if name.startswith("ns_"):
+        return "ns_matmul.cu"
+    if name.endswith("_2d_mxu"):
+        return "swt_matmul.cu" if name.startswith("swt") else "matmul.cu"
+    if name.endswith("_mxu"):
+        return "mxu1d.cu"
+    if name.endswith("_1d"):
+        return "batched1d.cu"
+    return "swt.cu" if name.startswith("swt") else "separable.cu"
+
+
+SOURCES = {name: "pdwt_tpu_torch/kernels/csrc/" + _source(name) for name in REPLACES}
 
 
 class Case(NamedTuple):
@@ -274,6 +328,24 @@ def run_cases(cases, report, card) -> None:
         check(err <= limit * scale, f"{c.name} at {c.label} disagrees with its plain version")
 
 
+def compare_route(label, got, want, bf16_rtol=PATH_BF16_RTOL) -> None:
+    """A tier's path against the same route on plain versions: every output
+    of one dtype and shape, float32 ones within PATH_TIER_RTOL and bf16 ones
+    within ``bf16_rtol`` of their largest plain value."""
+    gl, wl = leaves(got), leaves(want)
+    check(len(gl) == len(wl) and all(g.dtype == w.dtype and g.shape == w.shape
+                                     for g, w in zip(gl, wl)),
+          f"{label}: dtypes or shapes differ from the plain route")
+    worst = 0.0
+    for g, w in zip(gl, wl):
+        err, scale = max_err(g, w)
+        limit = bf16_rtol if w.dtype == torch.bfloat16 else PATH_TIER_RTOL
+        check(err <= limit * scale, f"{label} disagrees with the plain route: {err:.3e} "
+              f"> {limit * scale:.3e}")
+        worst = max(worst, err / max(scale, 1e-30))
+    print(f"{label} vs the same route on plain versions: worst relative {worst:.3e}", flush=True)
+
+
 def time_in_turns(label, kern_fn, plain_fn, card, names=("kernels", "plain")) -> None:
     """CUDA-event medians of the kernel and plain versions of one step (or
     of two other versions, ``names``), in turns (plain, kernels, kernels,
@@ -355,11 +427,12 @@ def yardstick(kind: str, w, dtype=torch.float32, level: int = 1) -> Callable:
             A = band_matrix(one, r, w, level, dtype, arg.device).t().contiguous()
             B, xm = band_matrix(one, c, w, level, dtype, arg.device), arg[0].to(dtype)
             return lambda: (A @ xm) @ B
-        if kind == "inv2d":  # [[a, v], [h, d]] by rows, then by columns
+        if kind in ("inv2d", "swt_inv2d"):  # [[a, v], [h, d]] by rows, then by columns
+            one = "inv" if kind == "inv2d" else "swt_inv"
             a, h, v, d = (t[0].to(dtype) for t in arg)
             P = torch.cat([torch.cat([a, v], 1), torch.cat([h, d], 1)], 0)
-            A = band_matrix("inv", a.shape[0], w, 1, dtype, a.device).t().contiguous()
-            B = band_matrix("inv", a.shape[1], w, 1, dtype, a.device)
+            A = band_matrix(one, a.shape[0], w, level, dtype, a.device).t().contiguous()
+            B = band_matrix(one, a.shape[1], w, level, dtype, a.device)
             return lambda: (A @ P) @ B
         if kind in ("fwd", "swt_fwd"):
             xm = arg.to(dtype)
@@ -792,6 +865,8 @@ def main() -> None:
                   lambda: b1_step(plain_dwt1d, plain_idwt1d), card)
 
     precision_phase(dev, card, report, launches, x, dwt_img, xr, rt_sig, gen)
+    ti_tier_phase(dev, card, report, launches, ti_img, gen)
+    ns_phase(dev, card, report, launches, dwt_img, ti_img, gen)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
@@ -1034,20 +1109,6 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
             a = M.inv_level_2d_mxu_ref(a, h, v, d, rlo, rhi, sch, out)[:, :rows[i], :rows[i]]
         return a[0]
 
-    def compare(label, got, want, bf16_rtol):
-        gl, wl = leaves(got), leaves(want)
-        check(len(gl) == len(wl) and all(g.dtype == w.dtype and g.shape == w.shape
-                                         for g, w in zip(gl, wl)),
-              f"{label}: dtypes or shapes differ from the plain route")
-        for g, w in zip(gl, wl):
-            err, scale = max_err(g, w)
-            limit = bf16_rtol if w.dtype == bf16 else PATH_TIER_RTOL
-            check(err <= limit * scale, f"{label} disagrees with the plain route: {err:.3e} "
-                  f"> {limit * scale:.3e}")
-        worst = max(max_err(g, w)[0] / max(max_err(g, w)[1], 1e-30) for g, w in zip(gl, wl))
-        print(f"{label} vs the same route on plain versions: worst relative {worst:.3e}",
-              flush=True)
-
     from pdwt_tpu_torch.kernels import LAUNCHES, reset_launch_counts
 
     def roundtrip_check(label, kind, tier, err, plain_err):
@@ -1086,9 +1147,9 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
               f"tier {tier}: the image breaks the dtype contract")
         check(bool(torch.isfinite(fy.float()).all()), f"tier {tier}: the image is not finite")
         pc2 = plain_tier_2d(x_tier[tier], tier)
-        compare(f"tier {tier} dwt2d", fc, pc2, BF16_RTOL)
-        compare(f"tier {tier} facade forward", wc, pc2, BF16_RTOL)
-        compare(f"tier {tier} idwt2d", fy, plain_tier_idwt2d(fc, tier), PATH_BF16_RTOL)
+        compare_route(f"tier {tier} dwt2d", fc, pc2, BF16_RTOL)
+        compare_route(f"tier {tier} facade forward", wc, pc2, BF16_RTOL)
+        compare_route(f"tier {tier} idwt2d", fy, plain_tier_idwt2d(fc, tier), PATH_BF16_RTOL)
         perr = float((plain_tier_idwt2d(pc2, tier).float() - x).abs().max())
         for label, y in (("facade", wy), ("dwt2d/idwt2d", fy)):
             roundtrip_check(f"tier {tier} 2D {label}", "2D", tier,
@@ -1163,10 +1224,10 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
             check(dy.dtype == out_dt and fy.dtype == out_dt and tuple(fy.shape) == tuple(xr.shape),
                   f"tier {tier} 1D {kind}: the signals break the dtype contract")
             pc1 = plain_tier_1d(xr_tier[tier], tier, swt)
-            compare(f"tier {tier} 1D {kind} forward", fc, pc1, BF16_RTOL)
-            compare(f"tier {tier} 1D {kind} facade forward", dc, pc1, BF16_RTOL)
-            compare(f"tier {tier} 1D {kind} inverse", fy, plain_tier_inv_1d(fc, tier, swt),
-                    PATH_BF16_RTOL)
+            compare_route(f"tier {tier} 1D {kind} forward", fc, pc1, BF16_RTOL)
+            compare_route(f"tier {tier} 1D {kind} facade forward", dc, pc1, BF16_RTOL)
+            compare_route(f"tier {tier} 1D {kind} inverse", fy,
+                          plain_tier_inv_1d(fc, tier, swt), PATH_BF16_RTOL)
             perr = float((plain_tier_inv_1d(pc1, tier, swt).float() - xr).abs().max())
             for label, y in (("facade", dy), ("functions", fy)):
                 roundtrip_check(f"tier {tier} 1D {kind} {label}", f"1D {kind}", tier,
@@ -1193,6 +1254,588 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
                             ("1D SWT", f"{B1_SIGNALS}x{B1_N} {B1_WNAME} {B1_LEVELS}")):
             time_in_turns(f"{kind} roundtrip {shape} levels, {tier} beside exact", tiered[kind],
                           exact[kind], card, names=(tier, "exact"))
+
+
+
+def rank3_quads(seed: int = 7, hlen: int = 8) -> np.ndarray:
+    """Rank-3 quads from a seed, as tests/test_mxu_kernels.py:301-306 makes them."""
+    q = np.zeros((4, hlen, hlen))
+    g = np.random.default_rng(seed)
+    for _ in range(3):
+        q += np.einsum("si,j->sij", g.standard_normal((4, hlen)), g.standard_normal(hlen))
+    return q / np.abs(q).sum(axis=(1, 2), keepdims=True)
+
+
+def pr_quads(seed: int = 3):
+    """(forward, inverse) rank-3 8x8 quads that reconstruct perfectly: db2's
+    quads padded to 8 taps, the HH column filter delayed by one subband
+    sample, mixed by an orthogonal 4x4 matrix from a seed (as in
+    tests/test_torch_nonseparable.py)."""
+    from pdwt_tpu_torch import get_wavelet
+
+    w = get_wavelet("db2")
+    pad = lambda f, lo, hi: np.concatenate([np.zeros(lo), f, np.zeros(hi)])
+    c = lambda f: pad(f, 2, 2)
+    quads = lambda lo, hi, hh: np.stack([np.outer(c(lo), c(lo)), np.outer(c(hi), c(lo)),
+                                         np.outer(c(lo), c(hi)), np.outer(c(hi), hh)])
+    U = np.linalg.qr(np.random.default_rng(seed).standard_normal((4, 4)))[0]
+    return (np.einsum("st,tij->sij", U, quads(w.dec_lo, w.dec_hi, pad(w.dec_hi, 0, 4))),
+            np.einsum("st,tij->sij", U, quads(w.rec_lo, w.rec_hi, pad(w.rec_hi, 4, 0))))
+
+
+def flops_ns(r: int, c: int, hlen: int, rank: int, swt: bool, terms: int = 1) -> float:
+    """A rank-r level on an r x c image (forward input, inverse output):
+    decimated 1.5 rank r c hlen multiply-adds, a-trous 5 rank r c hlen."""
+    return 2.0 * (5.0 if swt else 1.5) * rank * r * c * hlen * terms
+
+
+def ns_yardstick(kind: str, A, Bc, level: int = 1) -> Callable:
+    """arg -> () -> the PyTorch yardstick of a rank-r kernel call in bf16:
+    the r column products and the stacked row product (forward), or the r
+    row products and the stacked column product (inverse), on dense band
+    matrices built from the plain passes."""
+    from pdwt_tpu_torch.core import conv
+
+    f = 1 << (level - 1)
+    swt = kind.startswith("swt")
+    fwd = kind.endswith("fwd")
+    rank = Bc.shape[0]
+    bc = Bc if fwd or not swt else 0.25 * Bc
+
+    def band(n, g, device):
+        eye = torch.eye(n, device=device)[None, None]
+        kw = {"dilation": f, "decimate": False} if swt else {}
+        if fwd:
+            m = conv.analysis_pass(eye, [g], axis=-1, **kw)
+        else:
+            kw = {"dilation": f, "decimated": False} if swt else {}
+            m = conv.synthesis_pass(eye, [g], axis=-1, **kw)
+        return m[0, 0].to(torch.bfloat16)
+
+    def make(arg):
+        if fwd:
+            x = arg[0].to(torch.bfloat16)
+            R, C = x.shape
+            Bk = [band(C, bc[k], x.device) for k in range(rank)]
+            M = torch.cat([torch.cat([band(R, A[s, k], x.device).t() for k in range(rank)], 1)
+                           for s in range(4)], 0)
+            return lambda: M @ torch.cat([x @ b for b in Bk], 0)
+        bands = [t[0].to(torch.bfloat16) for t in arg]
+        m, n = bands[0].shape
+        U = torch.cat(bands, 0)
+        S = [torch.cat([band(m, A[s, k], U.device).t() for s in range(4)], 1) for k in range(rank)]
+        G = torch.cat([band(n, bc[k], U.device) for k in range(rank)], 0)
+        return lambda: torch.cat([s @ U for s in S], 1) @ G
+    return make
+
+
+def ti_tier_phase(dev, card, report, launches, ti_img, gen) -> None:
+    """The TI step under the tiers: (a) the a-trous banded-product kernels
+    against their plain versions; (b) the facade and the functions with
+    ``precision=``: launch counts, dtype contract, the plain route,
+    roundtrips; (c) each tier's TI step timed beside the exact one."""
+    from pdwt_tpu_torch import Wavelets, get_wavelet, iswt2d, iswt2d_denoise, ops, swt2d
+    from pdwt_tpu_torch.core.separable import Coeffs2D
+    from pdwt_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from pdwt_tpu_torch.kernels import swt as S
+    from pdwt_tpu_torch.kernels import swt_matmul as SM
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    wav = get_wavelet(WNAME)
+    lo, hi, rlo, rhi = wav.dec_lo, wav.dec_hi, wav.rec_lo, wav.rec_hi
+    h7 = wav.hlen
+    rand = lambda *s: torch.rand(s, device=dev, generator=gen) * 255.0
+    thresholds = [("soft", TI_BETA), None, ("hard", TI_BETA), ("garrote", TI_BETA)]
+    fwd_scheme = lambda tier, dt: SWT_SCHEMES[tier][0 if dt == bf16 else 1]
+    inv_scheme = lambda tier: "fd" if tier == "bf16-fast" else "b2f"
+    routed = lambda tier, r, c, lvl: tier != "mixed" and SM.mxu_route_swt_2d(r, c, h7, lvl)
+
+    # ---------------- (a) kernels 13-14 against their plain versions ----------------
+    cases, seen = [], set()
+    fl = flops_swt_2d(TI_N, TI_N, h7)
+    for tier in TIERS[1:]:  # mixed runs the a-trous levels on kernels 5-6
+        row = tier == ROW_TIER
+        for lvl in range(1, TI_LEVELS + 1):
+            in_dt = bf16 if lvl == 1 else f32
+            sch = fwd_scheme(tier, in_dt)
+            if (row, "f", lvl, sch) not in seen:
+                seen.add((row, "f", lvl, sch))
+                cases.append(Case(
+                    "swt_fwd_level_2d_mxu", rand(1, TI_N, TI_N).to(in_dt),
+                    lambda t, s=sch, lv=lvl: SM.swt_fwd_level_2d_mxu(t, lo, hi, lv, s,
+                                                                     (f32, bf16)),
+                    lambda t, s=sch, lv=lvl: SM.swt_fwd_level_2d_mxu_ref(t, lo, hi, lv, s,
+                                                                         (f32, bf16)),
+                    f"{tier} level {lvl} {sch} {in_dt} in, bf16 details, {(TI_N, TI_N)}", True,
+                    fl * TERMS[sch], scheme_peak(sch), tier_limit,
+                    yardstick("swt_fwd2d", wav, bf16, lvl) if row else None, row))
+            isch, out = inv_scheme(tier), bf16 if lvl == 1 else f32
+            bands = [rand(1, TI_N, TI_N)] + [(rand(1, TI_N, TI_N) - 127.5).to(bf16)
+                                             for _ in range(3)]
+            for thr in thresholds if lvl == 1 else thresholds[:1]:
+                if (row, "i", lvl, isch, thr) in seen:
+                    continue
+                seen.add((row, "i", lvl, isch, thr))
+                soft = thr is not None and thr[0] == "soft"
+                cases.append(Case(
+                    "swt_inv_level_2d_mxu", bands,
+                    lambda b, s=isch, lv=lvl, o=out, th=thr: SM.swt_inv_level_2d_mxu(
+                        *b, rlo, rhi, lv, s, o, th),
+                    lambda b, s=isch, lv=lvl, o=out, th=thr: SM.swt_inv_level_2d_mxu_ref(
+                        *b, rlo, rhi, lv, s, o, th),
+                    f"{tier} level {lvl} {isch} bf16 details, {out} out, threshold "
+                    f"{thr and thr[0]}, {(TI_N, TI_N)}", soft, fl * TERMS[isch],
+                    scheme_peak(isch), tier_limit,
+                    yardstick("swt_inv2d", wav, bf16, lvl) if row and soft else None,
+                    row and soft))
+    # off the route rule (the kernels take them; the entry points run 5-6
+    # there), and the two schemes no tier routes here
+    for sch, shape, lvl in (("b1", (1, 37, 53), 1), ("fd", (1, TI_N, TI_N), 6),
+                            ("b2d", (2, 96, 160), 2), ("b3", (1, 256, 384), 3)):
+        xin, bands = rand(*shape).to(bf16), [rand(*shape)] + [rand(*shape) - 127.5
+                                                               for _ in range(3)]
+        cases.append(Case("swt_fwd_level_2d_mxu", xin,
+                          lambda t, s=sch, lv=lvl: SM.swt_fwd_level_2d_mxu(t, lo, hi, lv, s),
+                          lambda t, s=sch, lv=lvl: SM.swt_fwd_level_2d_mxu_ref(t, lo, hi, lv, s),
+                          f"{sch} {shape} level {lvl}", limit=tier_limit))
+        cases.append(Case("swt_inv_level_2d_mxu", bands,
+                          lambda b, s=sch, lv=lvl: SM.swt_inv_level_2d_mxu(
+                              *b, rlo, rhi, lv, s, f32, ("garrote", TI_BETA)),
+                          lambda b, s=sch, lv=lvl: SM.swt_inv_level_2d_mxu_ref(
+                              *b, rlo, rhi, lv, s, f32, ("garrote", TI_BETA)),
+                          f"{sch} {shape} level {lvl} garrote", limit=tier_limit))
+    run_cases(cases, report, card)
+
+    # ---------------- (b) the TI path under each tier ----------------
+    def predict(r, c, levels, tier):
+        """Launches of one swt2d and one inverse as core/separable.py routes."""
+        out = {}
+        for lvl in range(1, levels + 1):
+            sfx = "_mxu" if routed(tier, r, c, lvl) else ""
+            for d in ("fwd", "inv"):
+                out[f"swt_{d}_level_2d{sfx}"] = out.get(f"swt_{d}_level_2d{sfx}", 0) + 1
+        return out
+
+    def plain_fwd(t, tier, levels):
+        a, dets = t[None], []
+        for lvl in range(1, levels + 1):
+            if routed(tier, a.shape[-2], a.shape[-1], lvl):
+                a, h, v, d = SM.swt_fwd_level_2d_mxu_ref(a, lo, hi, lvl, fwd_scheme(tier, a.dtype),
+                                                         (f32, bf16))
+            else:
+                a, h, v, d = S.swt_fwd_level_2d_ref(a.float(), lo, hi, lvl)
+                if tier != "mixed":
+                    h, v, d = (u.to(bf16) for u in (h, v, d))
+            dets.append((h[0], v[0], d[0]))
+        return Coeffs2D(a[0], tuple(dets))
+
+    def plain_inv(c, tier, threshold=None):
+        a = c.approx[None].float()
+        for i in range(c.levels - 1, -1, -1):
+            h, v, d = (u[None] for u in c.details[i])
+            out = bf16 if tier != "mixed" and i == 0 else f32
+            if routed(tier, a.shape[-2], a.shape[-1], i + 1):
+                a = SM.swt_inv_level_2d_mxu_ref(a, h, v, d, rlo, rhi, i + 1, inv_scheme(tier),
+                                                out, threshold)
+            else:
+                a = S.swt_inv_level_2d_ref(a, h.float(), v.float(), d.float(), rlo, rhi, i + 1,
+                                           threshold).to(out)
+        return a[0]
+
+    xt = torch.from_numpy(ti_img).to(dev)
+    odd = rand(37, 53)
+    tier_launches = {}
+    for tier in TIERS:
+        dt = f32 if tier == "mixed" else bf16
+        x_t, odd_t = xt.to(dt), odd.to(dt)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        T = Wavelets(x_t, wname=WNAME, levels=TI_LEVELS, do_swt=True, precision=tier, device=dev)
+        run_out, run_n1 = T.run_denoise(TI_BETA)
+        tc = T.forward()
+        T.soft_threshold(TI_BETA)
+        t_den = T.inverse()
+        fc = swt2d(x_t, wav, TI_LEVELS, precision=tier)
+        fden = iswt2d_denoise(fc, wav, TI_BETA, precision=tier)
+        fy = iswt2d(fc, wav, precision=tier)
+        oc = swt2d(odd_t, wav, 2, precision=tier)  # odd: off the route
+        oy = iswt2d(oc, wav, precision=tier)
+        dc = swt2d(x_t, wav, 6, precision=tier)    # level 6: span 416 > 2 * 128
+        dy = iswt2d(dc, wav, precision=tier)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in LAUNCHES.items() if v}
+        want = {}
+        for r, c, levels, calls in ((TI_N, TI_N, TI_LEVELS, (3, 4)), (37, 53, 2, (1, 1)),
+                                    (TI_N, TI_N, 6, (1, 1))):
+            for k, v in predict(r, c, levels, tier).items():
+                want[k] = want.get(k, 0) + v * calls[0 if "_fwd_" in k else 1]
+        print(f"tier {tier} TI path launches: {got} (route rule predicts {want})", flush=True)
+        check(got == want, f"tier {tier}: the TI path's launches differ from the route rule's")
+        for k, v in got.items():
+            tier_launches[k] = tier_launches.get(k, 0) + v
+        for c in (tc, fc, oc, dc):
+            check(c.approx.dtype == f32 and all(u.dtype == dt for band in c.details
+                                                for u in band),
+                  f"tier {tier}: the SWT coefficients break the dtype contract")
+        for y, shape in ((run_out, xt.shape), (t_den, xt.shape), (fden, xt.shape),
+                         (fy, xt.shape), (oy, odd.shape), (dy, xt.shape)):
+            check(y.dtype == dt and y.shape == shape and bool(torch.isfinite(y.float()).all()),
+                  f"tier {tier}: a TI image breaks the dtype contract or is not finite")
+        pc = plain_fwd(x_t, tier, TI_LEVELS)
+        compare_route(f"tier {tier} swt2d", fc, pc)
+        compare_route(f"tier {tier} facade forward", tc, pc)
+        compare_route(f"tier {tier} swt2d odd", oc, plain_fwd(odd_t, tier, 2))
+        compare_route(f"tier {tier} swt2d 6 levels", dc, plain_fwd(x_t, tier, 6))
+        compare_route(f"tier {tier} iswt2d_denoise", fden, plain_inv(fc, tier, ("soft", TI_BETA)))
+        compare_route(f"tier {tier} run_denoise", run_out, plain_inv(pc, tier, ("soft", TI_BETA)))
+        compare_route(f"tier {tier} iswt2d", fy, plain_inv(fc, tier))
+        compare_route(f"tier {tier} iswt2d 6 levels", dy, plain_inv(dc, tier))
+        p_n1 = float(ops.thresholded_norm1(pc, TI_BETA))
+        check(abs(float(run_n1) - p_n1) <= PATH_TIER_RTOL * abs(p_n1),
+              f"tier {tier}: run_denoise's norm1 {float(run_n1)!r} vs plain {p_n1!r}")
+        jax_err = JAX_CPU_ROUNDTRIP["2D SWT"][tier]
+        limit = max(SWT_ROUNDTRIP_LIMIT[tier], jax_err)
+        perr = float((plain_inv(pc, tier).float() - xt).abs().max())
+        for label, y in (("swt2d/iswt2d", fy),):
+            err = float((y.float() - xt).abs().max())
+            print(f"tier {tier} TI {label} roundtrip max|y - x| = {err!r} on [0, 255]; the plain "
+                  f"route on the card {perr!r}; the JAX package on the CPU {jax_err!r}; README "
+                  f"{SWT_ROUNDTRIP_LIMIT[tier]}; limit {limit!r}", flush=True)
+            check(err <= limit, f"tier {tier} TI roundtrip error")
+    for name in ("swt_fwd_level_2d_mxu", "swt_inv_level_2d_mxu"):
+        check(tier_launches.get(name, 0) > 0, f"the TI tier paths never launched {name}")
+        launches[name] = tier_launches[name]
+
+    # ---------------- (c) each tier's TI step beside the exact one ----------------
+    for tier in TIERS:
+        x_t = xt if tier == "mixed" else xt.to(bf16)
+        time_in_turns(f"TI step {TI_N}x{TI_N} {WNAME} {TI_LEVELS} levels soft beta {TI_BETA}, "
+                      f"{tier} beside exact",
+                      lambda: iswt2d_denoise(swt2d(x_t, wav, TI_LEVELS, precision=tier), wav,
+                                             TI_BETA, precision=tier),
+                      lambda: iswt2d_denoise(swt2d(xt, wav, TI_LEVELS), wav, TI_BETA), card,
+                      names=(tier, "exact"))
+
+
+def ns_phase(dev, card, report, launches, dwt_img, ti_img, gen) -> None:
+    """The non-separable engine: (a) the rank-r kernels against their plain
+    versions at every routed level of the two cells, both strides; (b)
+    ``Wavelets(do_separable=False)`` with db7 and with custom rank-3 quads,
+    and the ``_ns`` functions, under exact, ``mixed`` and the bf16 tiers:
+    launch counts, dtype contract, the plain route, roundtrips; (c) the
+    cells' roundtrips timed beside the exact ones."""
+    from pdwt_tpu_torch import Wavelets, get_wavelet
+    from pdwt_tpu_torch.core import nonseparable as NSC
+    from pdwt_tpu_torch.core.separable import Coeffs2D
+    from pdwt_tpu_torch.core.shapes import level_sizes
+    from pdwt_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+    from pdwt_tpu_torch.kernels import matmul as M
+    from pdwt_tpu_torch.kernels import ns_matmul as NM
+    from pdwt_tpu_torch.kernels import separable as K
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    qf, qi = pr_quads()
+    A, Bc = NSC._rank_decomp(qf)
+    Ai, Bi = NSC._rank_decomp(qi)
+    rank, hq = Bc.shape
+    check(rank == 3 and Ai.shape[1] == 3, f"the custom quads' ranks {rank}, {Ai.shape[1]}")
+    rand = lambda *s: torch.rand(s, device=dev, generator=gen) * 255.0
+    bf16_tier = lambda tier: tier.startswith("bf16-")
+
+    def fwd_plan(tier, in_dt):
+        """(scheme, detail dtype) of a decimated forward level."""
+        det = bf16 if bf16_tier(tier) else f32
+        return (L1_SCHEMES[tier][0] if in_dt == bf16 else "b3"), det
+
+    def inv_plan(tier, out):
+        return (L1_SCHEMES[tier][1] if out == bf16 else "b3")
+
+    # ---------------- (a) kernels 17-18 against their plain versions ----------------
+    cases, seen = [], set()
+
+    def add(case, key):
+        if key not in seen:
+            seen.add(key)
+            cases.append(case)
+
+    for tier in TIERS:
+        row = tier == ROW_TIER
+        r = NS_N
+        for lvl in range(NS_LEVELS):
+            if not NM.mxu_route_ns_2d(r // 2, r // 2, hq, rank):
+                break
+            in_dt = bf16 if lvl == 0 and bf16_tier(tier) else f32
+            sch, det = fwd_plan(tier, in_dt)
+            add(Case("ns_fwd_level_2d_mxu", rand(1, r, r).to(in_dt),
+                     lambda t, s=sch, d=det: NM.ns_fwd_level_2d_mxu(t, A, Bc, s, (f32, d)),
+                     lambda t, s=sch, d=det: NM.ns_fwd_level_2d_mxu_ref(t, A, Bc, s, (f32, d)),
+                     f"{tier} level {lvl + 1} {sch} {in_dt} in, {det} details, {(r, r)}", True,
+                     flops_ns(r, r, hq, rank, False, TERMS[sch]), scheme_peak(sch), tier_limit,
+                     ns_yardstick("fwd", A, Bc) if row else None, row),
+                (row, "f", r, sch, in_dt, det))
+            m = r // 2
+            out = bf16 if lvl == 0 and bf16_tier(tier) else f32
+            isch, idet = inv_plan(tier, out), (bf16 if bf16_tier(tier) else f32)
+            bands = [rand(1, m, m)] + [(rand(1, m, m) - 127.5).to(idet) for _ in range(3)]
+            add(Case("ns_inv_level_2d_mxu", bands,
+                     lambda b, s=isch, o=out: NM.ns_inv_level_2d_mxu(*b, Ai, Bi, s, o),
+                     lambda b, s=isch, o=out: NM.ns_inv_level_2d_mxu_ref(*b, Ai, Bi, s, o),
+                     f"{tier} level {lvl + 1} {isch} {idet} details, {out} out, subbands "
+                     f"{(m, m)}", True, flops_ns(r, r, hq, rank, False, TERMS[isch]),
+                     scheme_peak(isch), tier_limit, ns_yardstick("inv", Ai, Bi) if row else None,
+                     row),
+                (row, "i", m, isch, idet, out))
+            r //= 2
+        if not bf16_tier(tier):
+            continue  # mixed runs the a-trous levels exact
+        for lvl in range(1, NS_SWT_LEVELS + 1):
+            in_dt = bf16 if lvl == 1 else f32
+            sch = SWT_SCHEMES[tier][0 if lvl == 1 else 1]
+            n = NS_SWT_N
+            check(NM.mxu_route_ns_swt_2d(n, n, hq, rank, lvl, sch), "the SWT cell's route")
+            add(Case("ns_swt_fwd_level_2d_mxu", rand(1, n, n).to(in_dt),
+                     lambda t, s=sch, lv=lvl: NM.ns_swt_fwd_level_2d_mxu(t, A, Bc, lv, s,
+                                                                          (f32, bf16)),
+                     lambda t, s=sch, lv=lvl: NM.ns_swt_fwd_level_2d_mxu_ref(t, A, Bc, lv, s,
+                                                                              (f32, bf16)),
+                     f"{tier} level {lvl} {sch} {in_dt} in, bf16 details, {(n, n)}", True,
+                     flops_ns(n, n, hq, rank, True, TERMS[sch]), scheme_peak(sch), tier_limit,
+                     ns_yardstick("swt_fwd", A, Bc, lvl) if row else None, row),
+                (row, "sf", lvl, sch, in_dt))
+            out = bf16 if lvl == 1 else f32
+            bands = [rand(1, n, n)] + [(rand(1, n, n) - 127.5).to(bf16) for _ in range(3)]
+            add(Case("ns_swt_inv_level_2d_mxu", bands,
+                     lambda b, lv=lvl, o=out: NM.ns_swt_inv_level_2d_mxu(*b, Ai, Bi, lv, "fd", o),
+                     lambda b, lv=lvl, o=out: NM.ns_swt_inv_level_2d_mxu_ref(*b, Ai, Bi, lv, "fd",
+                                                                              o),
+                     f"{tier} level {lvl} fd bf16 details, {out} out, {(n, n)}", True,
+                     flops_ns(n, n, hq, rank, True), FP32_PEAK, tier_limit,
+                     ns_yardstick("swt_inv", Ai, Bi, lvl) if row else None, row),
+                (row, "si", lvl, out))
+    # the random rank-3 set, odd and small shapes off the route, every scheme
+    Ar, Br = NSC._rank_decomp(rank3_quads())
+    for sch in M.SCHEMES:
+        xin = rand(2, 70, 134).to(bf16)
+        bands = [rand(2, 35, 67)] + [rand(2, 35, 67) - 127.5 for _ in range(3)]
+        sbands = [rand(1, 37, 53)] + [(rand(1, 37, 53) - 127.5).to(bf16) for _ in range(3)]
+        cases += [
+            Case("ns_fwd_level_2d_mxu", xin, lambda t, s=sch: NM.ns_fwd_level_2d_mxu(t, Ar, Br, s),
+                 lambda t, s=sch: NM.ns_fwd_level_2d_mxu_ref(t, Ar, Br, s),
+                 f"rank3 {sch} (2, 70, 134)", limit=tier_limit),
+            Case("ns_inv_level_2d_mxu", bands,
+                 lambda b, s=sch: NM.ns_inv_level_2d_mxu(*b, Ar, Br, s, bf16),
+                 lambda b, s=sch: NM.ns_inv_level_2d_mxu_ref(*b, Ar, Br, s, bf16),
+                 f"rank3 {sch} subbands (2, 35, 67)", limit=tier_limit),
+            Case("ns_swt_fwd_level_2d_mxu", sbands[0],
+                 lambda t, s=sch: NM.ns_swt_fwd_level_2d_mxu(t, Ar, Br, 4, s),
+                 lambda t, s=sch: NM.ns_swt_fwd_level_2d_mxu_ref(t, Ar, Br, 4, s),
+                 f"rank3 {sch} (1, 37, 53) level 4", limit=tier_limit),
+            Case("ns_swt_inv_level_2d_mxu", sbands,
+                 lambda b, s=sch: NM.ns_swt_inv_level_2d_mxu(*b, Ar, Br, 4, s),
+                 lambda b, s=sch: NM.ns_swt_inv_level_2d_mxu_ref(*b, Ar, Br, 4, s),
+                 f"rank3 {sch} (1, 37, 53) level 4", limit=tier_limit)]
+    run_cases(cases, report, card)
+
+    # ---------------- (b) the non-separable paths ----------------
+    def predict_dwt(tier):
+        """Launches of one dwt2d_ns + idwt2d_ns of the DWT cell."""
+        if tier == "exact":
+            return {}
+        out, r = {}, NS_N
+        for _ in range(NS_LEVELS):
+            if r % 2 == 0 and NM.mxu_route_ns_2d(r // 2, r // 2, hq, rank):
+                out["ns_fwd_level_2d_mxu"] = out.get("ns_fwd_level_2d_mxu", 0) + 1
+            r = -(-r // 2)
+        for m in level_sizes(NS_N, NS_LEVELS)[1:] + [r]:
+            if NM.mxu_route_ns_2d(m, m, hq, rank):
+                out["ns_inv_level_2d_mxu"] = out.get("ns_inv_level_2d_mxu", 0) + 1
+        return out
+
+    def predict_swt(tier):
+        if not bf16_tier(tier):
+            return {}
+        out = {}
+        for lvl in range(1, NS_SWT_LEVELS + 1):
+            sch = SWT_SCHEMES[tier][0 if lvl == 1 else 1]
+            if NM.mxu_route_ns_swt_2d(NS_SWT_N, NS_SWT_N, hq, rank, lvl, sch):
+                out["ns_swt_fwd_level_2d_mxu"] = out.get("ns_swt_fwd_level_2d_mxu", 0) + 1
+            if NM.mxu_route_ns_swt_2d(NS_SWT_N, NS_SWT_N, hq, rank, lvl, "fd"):
+                out["ns_swt_inv_level_2d_mxu"] = out.get("ns_swt_inv_level_2d_mxu", 0) + 1
+        return out
+
+    def predict_named(tier):
+        """db7's quads run the separable DWT: as the main and tier paths."""
+        out, r = {}, NS_N
+        for lvl in range(NS_LEVELS):
+            if tier != "exact" and M.mxu_route_2d(r // 2, r // 2, 14):
+                out["fwd_level_2d_mxu"] = out.get("fwd_level_2d_mxu", 0) + 1
+                out["inv_level_2d_mxu"] = out.get("inv_level_2d_mxu", 0) + 1
+            elif K.tail_supported((r, r), 14, NS_LEVELS - lvl):
+                out["fwd_tail_2d"] = out["inv_tail_2d"] = 1
+                break
+            else:
+                out["fwd_level_2d"] = out.get("fwd_level_2d", 0) + 1
+                out["inv_level_2d"] = out.get("inv_level_2d", 0) + 1
+            r //= 2
+        return out
+
+    def plain_dwt(t, tier):
+        a, dets = t[None], []
+        for _ in range(NS_LEVELS):
+            r, c = a.shape[-2:]
+            if tier != "exact" and r % 2 == 0 and NM.mxu_route_ns_2d(r // 2, c // 2, hq, rank):
+                sch, det = fwd_plan(tier, a.dtype)
+                a, h, v, d = NM.ns_fwd_level_2d_mxu_ref(a, A, Bc, sch, (f32, det))
+            else:
+                z = NSC._rank_fwd_level(a.float()[:, None], A, Bc)
+                a, h, v, d = (z[:, k] for k in range(4))
+                if bf16_tier(tier):
+                    h, v, d = (u.to(bf16) for u in (h, v, d))
+            dets.append((h[0], v[0], d[0]))
+        return Coeffs2D(a[0], tuple(dets))
+
+    def plain_idwt(c, tier):
+        rows = level_sizes(NS_N, NS_LEVELS)
+        a = c.approx[None].float()
+        for i in range(NS_LEVELS - 1, -1, -1):
+            h, v, d = (u[None] for u in c.details[i])
+            out = bf16 if bf16_tier(tier) and i == 0 else f32
+            m = a.shape[-1]
+            if tier != "exact" and NM.mxu_route_ns_2d(m, m, hq, rank):
+                a = NM.ns_inv_level_2d_mxu_ref(a, h, v, d, Ai, Bi, inv_plan(tier, out), out)
+                a = a[:, :rows[i], :rows[i]]
+            else:
+                z = torch.stack([a, h.float(), v.float(), d.float()], 1)
+                a = NSC._rank_inv_level(z, Ai, Bi, (rows[i], rows[i]))[:, 0].to(out)
+        return a[0]
+
+    def plain_swt(t, tier):
+        a, dets = t[None], []
+        for lvl in range(1, NS_SWT_LEVELS + 1):
+            sch = SWT_SCHEMES[tier][0 if lvl == 1 else 1] if bf16_tier(tier) else None
+            if sch and NM.mxu_route_ns_swt_2d(NS_SWT_N, NS_SWT_N, hq, rank, lvl, sch):
+                a, h, v, d = NM.ns_swt_fwd_level_2d_mxu_ref(a, A, Bc, lvl, sch, (f32, bf16))
+            else:
+                z = NSC._rank_fwd_level(a.float()[:, None], A, Bc, 1 << (lvl - 1), False)
+                a, h, v, d = (z[:, k] for k in range(4))
+                if bf16_tier(tier):
+                    h, v, d = (u.to(bf16) for u in (h, v, d))
+            dets.append((h[0], v[0], d[0]))
+        return Coeffs2D(a[0], tuple(dets))
+
+    def plain_iswt(c, tier):
+        a = c.approx[None].float()
+        for i in range(NS_SWT_LEVELS - 1, -1, -1):
+            h, v, d = (u[None] for u in c.details[i])
+            out = bf16 if bf16_tier(tier) and i == 0 else f32
+            if bf16_tier(tier) and NM.mxu_route_ns_swt_2d(NS_SWT_N, NS_SWT_N, hq, rank, i + 1,
+                                                          "fd"):
+                a = NM.ns_swt_inv_level_2d_mxu_ref(a, h, v, d, Ai, Bi, i + 1, "fd", out)
+            else:
+                z = torch.stack([a, h.float(), v.float(), d.float()], 1)
+                a = NSC._rank_inv_level(z, Ai, 0.25 * Bi, f=1 << i, decimated=False)[:, 0]
+                a = a.to(out)
+        return a[0]
+
+    xd = torch.from_numpy(dwt_img).to(dev)
+    xs = torch.from_numpy(ti_img).to(dev)
+    from pdwt_tpu_torch.core.nonseparable import dwt2d_ns, idwt2d_ns, iswt2d_ns, swt2d_ns
+
+    ns_launches = {}
+    for tier in ("exact",) + TIERS:
+        dt = bf16 if bf16_tier(tier) else f32
+        xd_t, xs_t = xd.to(dt), xs.to(dt)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        Wn = Wavelets(xd_t, wname=WNAME, levels=NS_LEVELS, do_separable=False, precision=tier,
+                      device=dev)
+        nc = Wn.forward()
+        ny = Wn.inverse()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in LAUNCHES.items() if v}
+        want = predict_named(tier)
+        print(f"{tier} non-separable db7 launches: {got} (the separable route predicts {want})",
+              flush=True)
+        check(got == want, f"{tier}: db7's quads did not take the separable kernels")
+        nerr = float((ny.float() - xd).abs().max())
+        check(nc.approx.dtype == f32 and ny.dtype == dt and nerr <= max(
+            ROUNDTRIP_LIMIT.get(tier, ROUNDTRIP_ATOL), JAX_CPU_ROUNDTRIP["2D"].get(tier, 0.0)),
+              f"{tier}: db7 non-separable roundtrip {nerr!r}")
+        print(f"{tier} non-separable db7 roundtrip max|y - x| = {nerr!r}", flush=True)
+
+        reset_launch_counts()
+        Wd = Wavelets(xd_t, wname="db2", levels=NS_LEVELS, do_separable=False, precision=tier,
+                      device=dev)
+        Wd.set_filters_forward("rank3", *qf)
+        Wd.set_filters_inverse(*qi)
+        wc, wy = Wd.forward(), Wd.inverse()
+        fc = dwt2d_ns(xd_t, qf, NS_LEVELS, precision=tier)
+        fy = idwt2d_ns(fc, qi, (NS_N, NS_N), precision=tier)
+        Ws = Wavelets(xs_t, wname="db2", levels=NS_SWT_LEVELS, do_separable=False, do_swt=True,
+                      precision=tier, device=dev)
+        Ws.set_filters_forward("rank3", *qf)
+        Ws.set_filters_inverse(*qi)
+        sc, sy = Ws.forward(), Ws.inverse()
+        fsc = swt2d_ns(xs_t, qf, NS_SWT_LEVELS, precision=tier)
+        fsy = iswt2d_ns(fsc, qi, precision=tier)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in LAUNCHES.items() if v}
+        want = {k: 2 * v for k, v in {**predict_dwt(tier), **predict_swt(tier)}.items()}
+        print(f"{tier} non-separable rank-3 launches: {got} (route rules predict {want})",
+              flush=True)
+        check(got == want, f"{tier}: the non-separable path's launches differ from the rules'")
+        for k, v in got.items():
+            ns_launches[k] = ns_launches.get(k, 0) + v
+        for c in (wc, fc, sc, fsc):
+            check(c.approx.dtype == f32 and all(u.dtype == dt for band in c.details
+                                                for u in band),
+                  f"{tier}: the non-separable coefficients break the dtype contract")
+        for y, ref in ((wy, xd), (fy, xd), (sy, xs), (fsy, xs)):
+            check(y.dtype == dt and y.shape == ref.shape, f"{tier}: a non-separable image "
+                  "breaks the dtype contract")
+        pdc, psc = plain_dwt(xd_t, tier), plain_swt(xs_t, tier)
+        compare_route(f"{tier} dwt2d_ns", fc, pdc)
+        compare_route(f"{tier} facade non-separable DWT", wc, pdc)
+        compare_route(f"{tier} idwt2d_ns", fy, plain_idwt(fc, tier))
+        compare_route(f"{tier} swt2d_ns", fsc, psc)
+        compare_route(f"{tier} facade non-separable SWT", sc, psc)
+        compare_route(f"{tier} iswt2d_ns", fsy, plain_iswt(fsc, tier))
+        for kind, y, ref, plain_y in (("NS DWT", fy, xd, plain_idwt(pdc, tier)),
+                                      ("NS SWT", fsy, xs, plain_iswt(psc, tier))):
+            err = float((y.float() - ref).abs().max())
+            perr = float((plain_y.float() - ref).abs().max())
+            if tier == "exact":
+                jax_err, readme = None, ROUNDTRIP_ATOL
+            else:
+                jax_err = JAX_CPU_ROUNDTRIP[kind][tier]
+                readme = (ROUNDTRIP_LIMIT if kind == "NS DWT" else SWT_ROUNDTRIP_LIMIT)[tier]
+            limit = max(readme, jax_err or 0.0)
+            print(f"{tier} {kind} rank-3 roundtrip max|y - x| = {err!r} on [0, 255]; the plain "
+                  f"route on the card {perr!r}; the JAX package on the CPU {jax_err!r}; "
+                  f"README's 2D figure {readme}; limit {limit!r}", flush=True)
+            check(err <= limit, f"{tier} {kind} roundtrip error")
+    for name in ("ns_fwd_level_2d_mxu", "ns_inv_level_2d_mxu", "ns_swt_fwd_level_2d_mxu",
+                 "ns_swt_inv_level_2d_mxu"):
+        check(ns_launches.get(name, 0) > 0, f"the non-separable paths never launched {name}")
+        launches[name] = ns_launches[name]
+
+    # ---------------- (c) the cells' roundtrips beside the exact ones ----------------
+    for tier in TIERS:
+        dt = bf16 if bf16_tier(tier) else f32
+        xd_t, xs_t = xd.to(dt), xs.to(dt)
+        time_in_turns(f"non-separable DWT roundtrip {NS_N}x{NS_N} rank 3, {NS_LEVELS} levels, "
+                      f"{tier} beside exact",
+                      lambda: idwt2d_ns(dwt2d_ns(xd_t, qf, NS_LEVELS, precision=tier), qi,
+                                        (NS_N, NS_N), precision=tier),
+                      lambda: idwt2d_ns(dwt2d_ns(xd, qf, NS_LEVELS), qi, (NS_N, NS_N)), card,
+                      names=(tier, "exact"))
+        time_in_turns(f"non-separable SWT roundtrip {NS_SWT_N}x{NS_SWT_N} rank 3, "
+                      f"{NS_SWT_LEVELS} levels, {tier} beside exact",
+                      lambda: iswt2d_ns(swt2d_ns(xs_t, qf, NS_SWT_LEVELS, precision=tier), qi,
+                                        precision=tier),
+                      lambda: iswt2d_ns(swt2d_ns(xs, qf, NS_SWT_LEVELS), qi), card,
+                      names=(tier, "exact"))
+
 
 if __name__ == "__main__":
     main()

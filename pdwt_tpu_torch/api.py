@@ -1,15 +1,16 @@
 """Stateful ``Wavelets`` facade (counterpart of ``pdwt_tpu/api.py``).
 
-This slice covers one 2D image or a batch of 1D signals (``ndim=1``, or a
-1D array, or ``nr == 1``), the separable periodization DWT and SWT
-(``do_swt=True``), the precision tiers (``precision=``; the 2D SWT in
-bf16 waits for kernels 13-14): construction with level
-clamping, ``forward``, ``inverse``, ``soft_threshold``,
-``hard_threshold``, ``garrote_threshold``, ``norm1``, ``norm2sq``,
-``run_denoise`` (the whole denoise step, with the threshold fused into the
-2D SWT inverse), ``get_image``, ``set_image`` and cycle spinning (2D).  Other
-flags raise ``NotImplementedError`` naming the ROADMAP item that adds
-them.
+The port covers one 2D image or a batch of 1D signals (``ndim=1``, or a
+1D array, or ``nr == 1``), the separable and (2D, ``do_separable=False``)
+non-separable periodization DWT and SWT (``do_swt=True``), and the
+precision tiers (``precision=``): construction with level clamping,
+``forward``, ``inverse``, ``soft_threshold``, ``hard_threshold``,
+``garrote_threshold``, ``norm1``, ``norm2sq``, ``run_denoise`` (the whole
+denoise step, with the threshold fused into the 2D SWT inverse; separable
+only), ``set_filters_forward`` / ``set_filters_inverse`` (two filters, or
+four quads when non-separable), ``get_image``, ``set_image`` and cycle
+spinning (2D).  Other flags raise ``NotImplementedError`` naming the
+ROADMAP item that adds them.
 
 The image and coefficients are tensors on one device: the device of an
 image given as a tensor, else ``device=``, which defaults to the CUDA card
@@ -32,11 +33,12 @@ import numpy as np
 import torch
 
 from . import ops
+from .core.nonseparable import dwt2d_ns, idwt2d_ns, iswt2d_ns, swt2d_ns
 from .core.precision import check_tier, precision_scope, tier_for
 from .core.separable import (Coeffs1D, Coeffs2D, all_periodization, dwt1d, dwt2d, idwt1d,
                              idwt2d, iswt1d, iswt2d, iswt2d_denoise, swt1d, swt2d)
 from .core.shapes import coeff_shapes_1d, coeff_shapes_2d, max_level
-from .filters import Wavelet, get_wavelet
+from .filters import Wavelet, get_wavelet, make_custom_wavelet, quad_filters
 from .utils.convert import tensor_from_numpy, tensor_to_numpy
 
 
@@ -62,6 +64,7 @@ class WaveletSpec:
     ndim: int = 2
     #: precision tier (core/precision.py); "auto" = the environment defaults
     precision: str = "auto"
+    do_separable: bool = True
 
 
 def _later(what: str, item: int):
@@ -143,23 +146,22 @@ class Wavelets:
             levels = 1
         if nr == 1:  # one signal
             ndim = 1
-        if not do_separable:
-            if ndim != 1:
-                raise _later("the non-separable transform (do_separable=False)", 11)
+        if not do_separable and ndim == 1:
             warnings.warn("1D DWT is incompatible with non-separable transform; "
                           "ignoring do_separable")
+            do_separable = True
         if do_cycle_spinning and do_swt:
             warnings.warn("makes little sense to use cycle spinning with stationary "
                           "wavelet transform")
         if do_cycle_spinning and ndim == 1:
             raise ValueError("cycle spinning is not implemented for 1D; use SWT instead")
-        if do_swt and ndim == 2 and dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "the 2D stationary transform in bf16 (do_swt=True with a bf16-* tier) runs "
-                "kernels 13-14, the next slice of the port (ROADMAP queue 2); the mixed "
-                "tier runs it exact")
         self._wavelet: Wavelet = get_wavelet(wname)
         hlen = self._wavelet.hlen
+        self._quads_fwd = self._quads_inv = None
+        if not do_separable:
+            w = self._wavelet
+            self._quads_fwd = quad_filters(w.dec_lo, w.dec_hi)
+            self._quads_inv = quad_filters(w.rec_lo, w.rec_hi)
         wmax = max_level(nc if ndim == 1 else min(nr, nc), hlen)
         if levels > wmax:
             dims = f"length-{nc} signal" if ndim == 1 else f"{nr}x{nc} image"
@@ -171,7 +173,8 @@ class Wavelets:
 
         self.spec = WaveletSpec(wname=wname, nr=nr, nc=nc, nlevels=levels,
                                 do_cycle_spinning=do_cycle_spinning, dtype=dtype,
-                                hlen=hlen, do_swt=do_swt, ndim=ndim, precision=tier)
+                                hlen=hlen, do_swt=do_swt, ndim=ndim, precision=tier,
+                                do_separable=do_separable)
         self.device = img.device
         self.d_image = img
         self.state = WState.INIT
@@ -221,6 +224,9 @@ class Wavelets:
 
     def _analysis(self, img: torch.Tensor):
         s = self.spec
+        if not s.do_separable:
+            with self._tier():
+                return (swt2d_ns if s.do_swt else dwt2d_ns)(img, self._quads_fwd, s.nlevels)
         if s.ndim == 1:
             fwd = swt1d if s.do_swt else dwt1d
         else:
@@ -231,6 +237,10 @@ class Wavelets:
     def _synthesis(self, coeffs) -> torch.Tensor:
         s = self.spec
         with self._tier():
+            if not s.do_separable:
+                if s.do_swt:
+                    return iswt2d_ns(coeffs, self._quads_inv)
+                return idwt2d_ns(coeffs, self._quads_inv, (s.nr, s.nc))
             if s.do_swt:
                 return (iswt1d if s.ndim == 1 else iswt2d)(coeffs, self._wavelet)
             if s.ndim == 1:
@@ -265,6 +275,8 @@ class Wavelets:
 
         check_mode(mode)
         s = self.spec
+        if not s.do_separable:
+            raise ValueError("run_denoise supports separable specs only")
         img = self.d_image
         sr = sc = 0
         if s.do_cycle_spinning:
@@ -319,6 +331,45 @@ class Wavelets:
                           normalize: bool = False) -> None:
         self._threshold(ops.garrote_threshold, beta, do_thresh_appcoeffs, normalize)
 
+    def set_filters_forward(self, filtername: str, filter1, filter2, filter3=None,
+                            filter4=None) -> int:
+        """Custom analysis filters: (lo, hi) for the separable transform,
+        which keeps the synthesis filters when they have the same length
+        (else zeros until ``set_filters_inverse``); the four quads (LL, LH,
+        HL, HH) for the non-separable one.  Renames the spec to
+        ``filtername``."""
+        s = self.spec
+        if s.do_separable:
+            n = len(np.atleast_1d(np.asarray(filter1)))
+            w = self._wavelet
+            same = w.hlen == n
+            self._wavelet = make_custom_wavelet(filtername, filter1, filter2,
+                                                w.rec_lo if same else np.zeros(n),
+                                                w.rec_hi if same else np.zeros(n))
+        else:
+            if filter3 is None or filter4 is None:
+                raise ValueError("set_filters_forward(): expected 4 filters for "
+                                 "non-separable filtering")
+            self._quads_fwd = np.stack([np.asarray(f, np.float64)
+                                        for f in (filter1, filter2, filter3, filter4)])
+            n = self._quads_fwd.shape[-1]
+        self.spec = dataclasses.replace(s, wname=filtername, hlen=n)
+        return 0
+
+    def set_filters_inverse(self, filter1, filter2, filter3=None, filter4=None) -> int:
+        """Custom synthesis filters: (lo, hi), or the four inverse quads."""
+        if self.spec.do_separable:
+            w = self._wavelet
+            self._wavelet = make_custom_wavelet(self.spec.wname, w.dec_lo, w.dec_hi, filter1,
+                                                filter2)
+        else:
+            if filter3 is None or filter4 is None:
+                raise ValueError("set_filters_inverse(): expected 4 filters for "
+                                 "non-separable filtering")
+            self._quads_inv = np.stack([np.asarray(f, np.float64)
+                                        for f in (filter1, filter2, filter3, filter4)])
+        return 0
+
     def norm1(self) -> float:
         return float(ops.norm1(self._coeffs))
 
@@ -349,6 +400,7 @@ class Wavelets:
         s = self.spec
         return (f"Wavelets({s.wname!r}, shape=({s.nr}, {s.nc}), ndim={s.ndim}, "
                 f"levels={s.nlevels}, "
-                f"swt={s.do_swt}, cycle_spinning={s.do_cycle_spinning}, dtype={s.dtype}, "
+                f"swt={s.do_swt}, separable={s.do_separable}, "
+                f"cycle_spinning={s.do_cycle_spinning}, dtype={s.dtype}, "
                 f"precision={s.precision}, "
                 f"device={self.device}, state={self.state.value})")

@@ -24,8 +24,11 @@ banded-product kernels; the others run the exact kernels on float32.
 Under "bf16" the approximation chain is float32 and the details bf16, and
 the inverse's last level writes bf16.  The inverse takes its mode from the
 detail dtype.  ``mixed`` runs the stationary transforms exact, as JAX
-does; bf16 2D stationary transforms wait for kernels 13-14.  Every entry
-point takes ``precision=`` (:func:`precision.takes_precision`).
+does; under "bf16" each a-trous level the route rule
+(``kernels.mxu_route_swt_2d`` / ``mxu_route_1d``) accepts runs the a-trous
+banded-product kernels, the others the exact kernels on float32 with the
+details cast to bf16.  Every entry point takes ``precision=``
+(:func:`precision.takes_precision`).
 """
 from __future__ import annotations
 
@@ -91,14 +94,6 @@ def mxu_mode(dtype: torch.dtype) -> Optional[str]:
     if dtype == F32 and precision.mixed_requested():
         return "mixed"
     return None
-
-
-def _no_bf16_swt2d(x: torch.Tensor) -> None:
-    if x.dtype == BF16:
-        raise NotImplementedError(
-            "the 2D stationary transform in bf16 runs the a-trous banded-product "
-            "kernels 13-14 (swt_matmul_pallas.py), the next slice of the port "
-            "(ROADMAP queue 2); use float32, or the mixed tier (exact here)")
 
 
 def _flat(t: torch.Tensor) -> torch.Tensor:
@@ -194,21 +189,35 @@ def idwt2d(coeffs: Coeffs2D, wav: Wavelet, shape: Tuple[int, int], *,
     return _unflat(a, batch)
 
 
+def _swt_mxu_mode(dtype: torch.dtype) -> Optional[str]:
+    """``mixed`` runs the stationary transforms on the exact kernels
+    (``pdwt_tpu/core/separable.py:731-736, 1108``)."""
+    mxu = mxu_mode(dtype)
+    return None if mxu == "mixed" else mxu
+
+
 @takes_precision
 def swt2d(x: torch.Tensor, wav: Wavelet, levels: int, *, keep_approx: bool = False):
     """Stationary (a-trous) 2D transform over the trailing two axes: level
-    L filters with taps ``2^(L-1)`` apart, one kernel launch per level.
-    ``keep_approx=True`` also returns the approximations
+    L filters with taps ``2^(L-1)`` apart, one kernel launch per level (in
+    bf16, the a-trous banded-product kernel where the route rule accepts
+    the level).  ``keep_approx=True`` also returns the approximations
     ``(A_1, ..., A_levels)``, as ``(coeffs, approxs)``."""
     if x.ndim < 2:
         raise ValueError(f"expected at least 2D input, got shape {tuple(x.shape)}")
     check_supported(x, "periodization")
-    _no_bf16_swt2d(x)
     batch = tuple(x.shape[:-2])
+    mxu = _swt_mxu_mode(x.dtype)
     a = _flat(x)
     details, approxs = [], []
     for lvl in range(1, levels + 1):
-        a, h, v, d = kernels.swt_fwd_level_2d_ad(a, wav.dec_lo, wav.dec_hi, lvl)
+        if mxu and kernels.mxu_route_swt_2d(a.shape[-2], a.shape[-1], wav.hlen, lvl):
+            a, h, v, d = kernels.swt_fwd_level_2d_mxu_ad(a, wav.dec_lo, wav.dec_hi, lvl, mxu)
+        else:
+            a, h, v, d = kernels.swt_fwd_level_2d_ad(a.float() if mxu else a, wav.dec_lo,
+                                                     wav.dec_hi, lvl)
+            if mxu:
+                h, v, d = (t.to(BF16) for t in (h, v, d))
         details.append(tuple(_unflat(t, batch) for t in (h, v, d)))
         if keep_approx:
             approxs.append(_unflat(a, batch))
@@ -216,18 +225,43 @@ def swt2d(x: torch.Tensor, wav: Wavelet, levels: int, *, keep_approx: bool = Fal
     return (coeffs, tuple(approxs)) if keep_approx else coeffs
 
 
+def _iswt2d_levels(coeffs: Coeffs2D, wav: Wavelet, level_fn, a_fn=None) -> torch.Tensor:
+    """Invert a 2D SWT deepest level first.  ``level_fn(a, h, v, d, level,
+    mxu, out_dtype)`` runs one level on the banded-product kernel (``mxu``
+    set, the route rule accepting it) or on the exact kernel (``mxu`` None,
+    float32 bands in an MXU mode); in bf16 the last level writes bf16.
+    ``a_fn`` maps the float32 approximation first."""
+    batch = tuple(coeffs.approx.shape[:-2])
+    mxu = _swt_mxu_mode(coeffs.details[-1][0].dtype if coeffs.levels else coeffs.approx.dtype)
+    a = _flat(coeffs.approx)
+    a = a.float() if mxu == "bf16" else a
+    if a_fn is not None:
+        a = a_fn(a)
+    for i in range(coeffs.levels - 1, -1, -1):
+        h, v, d = map(_flat, coeffs.details[i])
+        out_dt = BF16 if mxu == "bf16" and i == 0 else F32
+        if mxu and kernels.mxu_route_swt_2d(a.shape[-2], a.shape[-1], wav.hlen, i + 1):
+            a = level_fn(a, h, v, d, i + 1, mxu, out_dt)
+        elif mxu:
+            a = level_fn(a.float(), h.float(), v.float(), d.float(), i + 1, None,
+                         None).to(out_dt)
+        else:
+            a = level_fn(a, h, v, d, i + 1, None, None)
+    return _unflat(a, batch)
+
+
 @takes_precision
 def iswt2d(coeffs: Coeffs2D, wav: Wavelet) -> torch.Tensor:
     """Inverse of :func:`swt2d`, one kernel launch per level, deepest first."""
     check_supported(coeffs.approx, "periodization")
-    for band in coeffs.details[-1:]:
-        _no_bf16_swt2d(band[0])
-    batch = tuple(coeffs.approx.shape[:-2])
-    a = _flat(coeffs.approx)
-    for i in range(coeffs.levels - 1, -1, -1):
-        h, v, d = map(_flat, coeffs.details[i])
-        a = kernels.swt_inv_level_2d_ad(a, h, v, d, wav.rec_lo, wav.rec_hi, i + 1)
-    return _unflat(a, batch)
+    lo, hi = wav.rec_lo, wav.rec_hi
+
+    def level(a, h, v, d, lvl, mxu, out_dt):
+        if mxu:
+            return kernels.swt_inv_level_2d_mxu_ad(a, h, v, d, lo, hi, lvl, mxu, out_dt)
+        return kernels.swt_inv_level_2d_ad(a, h, v, d, lo, hi, lvl)
+
+    return _iswt2d_levels(coeffs, wav, level)
 
 
 @takes_precision
@@ -249,19 +283,19 @@ def iswt2d_denoise(coeffs: Coeffs2D, wav: Wavelet, beta, *, mode: str = "soft",
         return iswt2d(THRESHOLD_OPS[mode](coeffs, beta, normalize=normalize,
                                           do_thresh_appcoeffs=do_thresh_appcoeffs), wav)
     check_supported(coeffs.approx, "periodization")
-    for band in coeffs.details[-1:]:
-        _no_bf16_swt2d(band[0])
-    levels = coeffs.levels
-    batch = tuple(coeffs.approx.shape[:-2])
-    a = _flat(coeffs.approx)
+    lo, hi = wav.rec_lo, wav.rec_hi
+
+    def level(a, h, v, d, lvl, mxu, out_dt):
+        bi = beta / math.sqrt(2.0) ** lvl if normalize else beta
+        if mxu:
+            return kernels.swt_inv_level_2d_mxu_denoise_ad(a, h, v, d, bi, lo, hi, lvl, mxu,
+                                                           mode, out_dt)
+        return kernels.swt_inv_level_2d_denoise_ad(a, h, v, d, bi, lo, hi, lvl, mode)
+
+    app = None
     if do_thresh_appcoeffs:
-        a = THR_ELEM[mode](a, _app_beta(beta, levels, normalize))
-    for i in range(levels - 1, -1, -1):
-        h, v, d = map(_flat, coeffs.details[i])
-        bi = beta / math.sqrt(2.0) ** (i + 1) if normalize else beta
-        a = kernels.swt_inv_level_2d_denoise_ad(a, h, v, d, bi, wav.rec_lo, wav.rec_hi,
-                                                i + 1, mode)
-    return _unflat(a, batch)
+        app = lambda a: THR_ELEM[mode](a, _app_beta(beta, coeffs.levels, normalize))
+    return _iswt2d_levels(coeffs, wav, level, app)
 
 
 # ---------------------------------------------------------------------------
@@ -325,13 +359,6 @@ def idwt1d(coeffs: Coeffs1D, wav: Wavelet, length: int, *,
             y = y.to(BF16) if last_bf16 else y
         a = y[:, :sizes[i]].contiguous()
     return _unflat(a, batch)
-
-
-def _swt_mxu_mode(dtype: torch.dtype) -> Optional[str]:
-    """``mixed`` runs the stationary transforms on the exact kernels
-    (``pdwt_tpu/core/separable.py:1108``)."""
-    mxu = mxu_mode(dtype)
-    return None if mxu == "mixed" else mxu
 
 
 @takes_precision

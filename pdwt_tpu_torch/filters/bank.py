@@ -8,7 +8,9 @@ path: importing ``pdwt_tpu`` would pull in JAX.
   rbio1.1 / rbior1.1 resolve to haar;
 * a ``modwt-`` prefix resolves the base name and rescales it into the
   MODWT-normalised bank;
-* custom filters of any length are accepted.
+* custom filters of any length are accepted;
+* ``quad_filters`` builds the non-separable transform's outer-product
+  quads, and ``factor_quads`` recognises jointly separable quads.
 """
 from __future__ import annotations
 
@@ -114,3 +116,57 @@ def modwt_wavelet(wav) -> Wavelet:
     s = np.sqrt(0.5)
     return Wavelet("modwt-" + wav.name, wav.dec_lo * s, wav.dec_hi * s,
                    wav.rec_lo / s, wav.rec_hi / s)
+
+
+def quad_filters(lo, hi, transpose_detail_convention: bool = False) -> np.ndarray:
+    """The outer-product 2D quad (LL, LH, HL, HH), shape (4, hlen, hlen),
+    of the non-separable transform.  LH is H of the separable transform
+    (high-pass along the rows, the first axis), HL is V;
+    ``transpose_detail_convention=True`` swaps them, as the reference's
+    non-separable engine lays them out."""
+    ll = np.outer(lo, lo)
+    lh = np.outer(hi, lo)
+    hl = np.outer(lo, hi)
+    hh = np.outer(hi, hi)
+    if transpose_detail_convention:
+        lh, hl = hl, lh
+    return np.stack([ll, lh, hl, hh])
+
+
+def factor_quads(quads, rtol: float = 1e-9):
+    """Per-axis 1D filters ``(lo_rows, hi_rows, lo_cols, hi_cols)`` of a
+    jointly separable quad set (LL = outer(lo_r, lo_c), LH = outer(hi_r,
+    lo_c), HL = outer(lo_r, hi_c), HH = outer(hi_r, hi_c)), or None.  The
+    only tolerance is ``rtol`` times the largest entry."""
+    q = np.asarray(quads, dtype=np.float64)
+    if q.ndim != 3 or q.shape[0] != 4:
+        return None
+    scale = float(np.abs(q).max())
+    if scale == 0.0:
+        return None
+
+    def rank1(m):
+        u, s, vt = np.linalg.svd(m)
+        if s[0] < rtol * scale or (len(s) > 1 and s[1] > rtol * scale):
+            return None
+        r = np.sqrt(s[0])
+        return u[:, 0] * r, vt[0] * r
+
+    f_ll, f_hh = rank1(q[0]), rank1(q[3])
+    if f_ll is None or f_hh is None:
+        return None
+    lo_r, lo_c = f_ll
+    hi_r, hi_c = f_hh
+    # left free: hi_r *= a, hi_c /= a; LH fixes a, HL must then agree
+    base = np.outer(hi_r, lo_c)
+    denom = float(np.vdot(base, base))
+    if denom < (rtol * scale) ** 2:
+        return None
+    a = float(np.vdot(base, q[1])) / denom
+    if abs(a) < rtol:
+        return None
+    if not np.allclose(q[1], a * base, rtol=0.0, atol=rtol * scale):
+        return None
+    if not np.allclose(q[2], np.outer(lo_r, hi_c) / a, rtol=0.0, atol=rtol * scale):
+        return None
+    return lo_r, a * hi_r, lo_c, hi_c / a

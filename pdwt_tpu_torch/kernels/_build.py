@@ -18,7 +18,8 @@ import subprocess
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(os.path.join(_HERE, "csrc", name)
-                for name in ("separable.cu", "swt.cu", "batched1d.cu", "matmul.cu", "mxu1d.cu"))
+                for name in ("separable.cu", "swt.cu", "batched1d.cu", "matmul.cu", "mxu1d.cu",
+                             "swt_matmul.cu", "ns_matmul.cu"))
 #: headers the sources include; hashed with them, so editing one rebuilds
 HEADERS = (os.path.join(_HERE, "csrc", "mxu_common.cuh"),)
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -122,6 +123,21 @@ def load() -> ctypes.CDLL:
         # geometry, scheme, hi_bf16, out_bf16, stream
         "pdwt_inv_level_1d_mxu": [P, P, P, I, I, P, P, P, P, I, I, I, P, I, I, I, P],
         "pdwt_swt_inv_level_1d_mxu": [P, P, P, I, I, P, P, P, P, I, I, I, P, I, I, I, P],
+        # x, a, h, v, d, B, R, C, taps lo1, lo2, hi1, hi2, hlen, dilation, center,
+        # scheme, in_bf16, det_bf16, stream
+        "pdwt_swt_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, P, P, P, I, I, I, I, I, I, P],
+        # a, h, v, d, out, B, R, C, taps lo1, lo2, hi1, hi2, hlen, dilation, center,
+        # scheme, det_bf16, out_bf16, thresh_mode, beta (one float on the device), stream
+        "pdwt_swt_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, P, P, P, I, I, I, I, I, I, I, P,
+                                      P],
+        # x, a, h, v, d, B, R, C, taps (device), hlen, rank, stride, dilation, center,
+        # scheme, in_bf16, det_bf16, stream
+        "pdwt_ns_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, I, I, I, P],
+        "pdwt_ns_swt_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, I, I, I, P],
+        # a, h, v, d, out, B, Mr, Mc, taps (device), hlen, rank, dilation, geometry,
+        # scheme, det_bf16, out_bf16, stream
+        "pdwt_ns_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, P, I, I, I, P],
+        "pdwt_ns_swt_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, P, I, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -22,7 +22,10 @@ LAUNCHES: Dict[str, int] = {"fwd_level_2d": 0, "inv_level_2d": 0,
                             "swt_fwd_level_1d": 0, "swt_inv_level_1d": 0,
                             "fwd_level_2d_mxu": 0, "inv_level_2d_mxu": 0,
                             "fwd_level_1d_mxu": 0, "inv_level_1d_mxu": 0,
-                            "swt_fwd_level_1d_mxu": 0, "swt_inv_level_1d_mxu": 0}
+                            "swt_fwd_level_1d_mxu": 0, "swt_inv_level_1d_mxu": 0,
+                            "swt_fwd_level_2d_mxu": 0, "swt_inv_level_2d_mxu": 0,
+                            "ns_fwd_level_2d_mxu": 0, "ns_inv_level_2d_mxu": 0,
+                            "ns_swt_fwd_level_2d_mxu": 0, "ns_swt_inv_level_2d_mxu": 0}
 
 
 def reset_launch_counts() -> None:

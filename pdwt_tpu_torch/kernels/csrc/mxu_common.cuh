@@ -1,5 +1,7 @@
-// The compute schemes of the precision tiers, shared by matmul.cu (2D) and
-// mxu1d.cu (batched 1D).  The scheme table is pdwt_tpu_torch/kernels/matmul.py's:
+// The compute schemes of the precision tiers, shared by matmul.cu (2D),
+// mxu1d.cu (batched 1D), swt_matmul.cu (2D a-trous) and ns_matmul.cu (rank-r
+// non-separable); swt.cu takes the thresholds and the periodic index from here
+// too.  The scheme table is pdwt_tpu_torch/kernels/matmul.py's:
 //
 //   b1   sum h(f) h(x)                       (one term)
 //   fd   sum f x in float32                  (one term)
@@ -184,14 +186,67 @@ __device__ __forceinline__ void stage_taps(float4* tq, const Taps4& tp, int hlen
 
 constexpr size_t kSmemLimit = 232448;  // shared memory a block may use
 
-// Allow `smem` bytes of dynamic shared memory beside the static taps.
+// Allow `smem` bytes of dynamic shared memory beside `static_smem` bytes of
+// static shared memory (the taps).  Past 48 KB in all a launch needs the
+// kernel's opt-in, or it is refused.
 template <typename K>
-cudaError_t prepare(K kernel, size_t smem) {
-  if (smem + kTapsSmem > kSmemLimit) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024)
+cudaError_t prepare(K kernel, size_t smem, size_t static_smem = kTapsSmem) {
+  if (smem + static_smem > kSmemLimit) return cudaErrorInvalidValue;
+  if (smem + static_smem > 48 * 1024)
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)smem);
   return cudaSuccess;
+}
+
+// i mod n in [0, n), for any i.
+__device__ __forceinline__ int wrapl(long long i, int n) {
+  const int r = static_cast<int>(i % n);
+  return r < 0 ? r + n : r;
+}
+
+// thresh_mode of the fused a-trous syntheses (kernels/swt.py:THRESH_CODES).
+enum Thresh { kNone = 0, kSoft = 1, kHard = 2, kGarrote = 3 };
+
+// The elementwise thresholds of the TPU kernels (swt_pallas.py:206-214) in
+// float32: soft sign(x) max(|x| - b, 0), hard x where |x| > b, garrote
+// x - b^2 / x where x^2 > b^2, each else 0.
+__device__ __forceinline__ float thresh(float x, int mode, float b) {
+  if (mode == kSoft) {
+    const float m = fmaxf(fabsf(x) - b, 0.f);
+    return x > 0.f ? m : (x < 0.f ? -m : 0.f);
+  }
+  if (mode == kHard) return fabsf(x) > b ? x : 0.f;
+  if (mode == kGarrote) {
+    const float b2 = b * b;
+    return x * x > b2 ? x - b2 / (x == 0.f ? 1.f : x) : 0.f;
+  }
+  return x;
+}
+
+// A block's share of one axis of an a-trous level at dilation f: it owns the
+// LT positions rho + (q0 + t) * f, t < LT, of residue class rho mod f, so a
+// dilated tap of any of them lands in the same class and a window of
+// LT + hlen - 1 positions of that class covers the block's taps at any f.
+// The grid numbers (class, chunk) pairs: class = index % fr, fr = min(f, n).
+struct Axis {
+  int rho, q0, f;
+  // the position of tile (or window) entry t along the axis, before the wrap
+  __device__ __forceinline__ long long at(int t) const {
+    return rho + static_cast<long long>(q0 + t) * f;
+  }
+};
+
+template <int LT>
+__device__ __forceinline__ Axis axis_of(unsigned index, int fr, int f) {
+  return {static_cast<int>(index % fr), static_cast<int>(index / fr) * LT, f};
+}
+
+// Blocks along an axis of n positions at dilation f with tiles of LT: fr
+// classes, each of ceil(n / f) positions at most, cut into chunks of LT.
+inline long long axis_blocks(int n, int f, int lt) {
+  const long long fr = f < n ? f : n;
+  const long long nq = (n + static_cast<long long>(f) - 1) / f;
+  return fr * ((nq + lt - 1) / lt);
 }
 
 }  // namespace pdwt_mxu

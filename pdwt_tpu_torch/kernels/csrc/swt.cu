@@ -37,9 +37,18 @@
 
 #include <cuda_runtime.h>
 
+#include "mxu_common.cuh"
+
 #define PDWT_MAX_HLEN 128
 
 namespace {
+
+using pdwt_mxu::kGarrote;
+using pdwt_mxu::kHard;
+using pdwt_mxu::kNone;
+using pdwt_mxu::kSoft;
+using pdwt_mxu::thresh;
+using pdwt_mxu::wrapl;
 
 struct Taps {
   float lo[PDWT_MAX_HLEN];
@@ -49,29 +58,6 @@ struct Taps {
 constexpr int TX = 32;     // output columns per block, one per lane
 constexpr int TY = 8;      // warps per block
 constexpr int TROWS = 32;  // most output rows per block, one residue class mod f
-
-// thresh_mode of pdwt_swt_inv_level_2d
-enum { kNone = 0, kSoft = 1, kHard = 2, kGarrote = 3 };
-
-__device__ __forceinline__ int wrapl(long long i, int n) {
-  const int r = static_cast<int>(i % n);
-  return r < 0 ? r + n : r;
-}
-
-// The elementwise thresholds of pdwt_tpu_torch/ops/threshold.py (THR_ELEM).
-template <int MODE>
-__device__ __forceinline__ float thresh(float x, float b) {
-  if (MODE == kSoft) {
-    const float m = fmaxf(fabsf(x) - b, 0.f);
-    return x > 0.f ? m : (x < 0.f ? -m : 0.f);
-  }
-  if (MODE == kHard) return fabsf(x) > b ? x : 0.f;
-  if (MODE == kGarrote) {
-    const float b2 = b * b;
-    return x * x > b2 ? x - b2 / (x == 0.f ? 1.f : x) : 0.f;
-  }
-  return x;
-}
 
 // Which rows a block owns: class rho (blockIdx.y % fr), rows
 // rho + (q0 + t) * f for t in [0, T), q0 = (blockIdx.y / fr) * T.
@@ -188,14 +174,14 @@ swt_inv_level_kernel(const float* __restrict__ a, const float* __restrict__ h,
       int k = col0;
       for (int j = 0; j < hlen; ++j) {
         u1 = fmaf(taps.lo[j], __ldg(ar + k), u1);
-        u2 = fmaf(taps.lo[j], thresh<MODE>(__ldg(hr + k), bt), u2);
+        u2 = fmaf(taps.lo[j], thresh(__ldg(hr + k), MODE, bt), u2);
         k += fc;
         if (k >= C) k -= C;
       }
       k = col0;
       for (int j = 0; j < hlen; ++j) {
-        u1 = fmaf(taps.hi[j], thresh<MODE>(__ldg(vr + k), bt), u1);
-        u2 = fmaf(taps.hi[j], thresh<MODE>(__ldg(dr + k), bt), u2);
+        u1 = fmaf(taps.hi[j], thresh(__ldg(vr + k), MODE, bt), u1);
+        u2 = fmaf(taps.hi[j], thresh(__ldg(dr + k), MODE, bt), u2);
         k += fc;
         if (k >= C) k -= C;
       }

@@ -67,6 +67,10 @@ _BF16_TIERS = {"fast": ("b1", "fd"), "balanced": ("b2f", "b2f"),
                "accurate": ("b3", "b3")}
 #: longest filter and tile divisors of the MXU route (matmul_pallas.py:71-97)
 MXU_MAX_HLEN, MXU_ROWS, MXU_COLS = 40, 32, 128
+#: the TPU tiles (TR, TC) in the order the MXU kernels try them
+#: (matmul_pallas.py:71-86): b3 the small ones first, the others the big ones
+TILES_BIG = ((128, 256), (128, 128), (64, 128), (32, 128))
+TILES_SMALL = ((64, 128), (32, 128), (128, 128), (128, 256))
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +138,11 @@ def mxu_route_2d(mr: int, mc: int, hlen: int) -> bool:
             and mc % MXU_COLS == 0)
 
 
+def tile_candidates(scheme: str):
+    """The TPU tiles in the order the MXU kernels try them under ``scheme``."""
+    return TILES_SMALL if scheme == "b3" else TILES_BIG
+
+
 def _check_scheme(scheme: str) -> None:
     if scheme not in SCHEMES:
         raise ValueError(f"unknown compute scheme {scheme!r}; expected one of {SCHEMES}")
@@ -179,30 +188,43 @@ def scheme_pass(x: torch.Tensor, filters: Sequence, scheme: str, pass_fn) -> tor
     return out
 
 
-def fwd_level_2d_mxu_ref(x: torch.Tensor, dec_lo, dec_hi, scheme: str,
-                         out_dtypes=(F32, F32)):
-    """One analysis level on (B, R, C), rows then columns -> (a, h, v, d),
-    a in ``out_dtypes[0]``, h, v, d in ``out_dtypes[1]``."""
+def fwd2d_ref(x: torch.Tensor, filters, scheme: str, out_dtypes, **kw):
+    """A 2D analysis level under ``scheme``: rows then columns with the
+    ``core/conv.py`` analysis pass (``kw``: its dilation / decimate) ->
+    (a, h, v, d), a in ``out_dtypes[0]``, h, v, d in ``out_dtypes[1]``."""
     _check_scheme(scheme)
-    dec = (dec_lo, dec_hi)
-    t = scheme_pass(x[:, None], dec, scheme, lambda d, f: conv.analysis_pass(d, f, axis=-2))
-    z = scheme_pass(t, dec, scheme, lambda d, f: conv.analysis_pass(d, f, axis=-1))
+    t = scheme_pass(x[:, None], filters, scheme,
+                    lambda d, f: conv.analysis_pass(d, f, axis=-2, **kw))
+    z = scheme_pass(t, filters, scheme, lambda d, f: conv.analysis_pass(d, f, axis=-1, **kw))
     a_dt, d_dt = out_dtypes
     # channels: lo rows lo cols, lo rows hi cols (V), hi rows lo cols (H), hi hi
     return (z[:, 0].to(a_dt).contiguous(), z[:, 2].to(d_dt).contiguous(),
             z[:, 1].to(d_dt).contiguous(), z[:, 3].to(d_dt).contiguous())
 
 
+def inv2d_ref(bands, filters, scheme: str, out_dtype, **kw) -> torch.Tensor:
+    """A 2D synthesis level under ``scheme``: (A, H) and (V, D) along the
+    rows, then the two along the columns, with the ``core/conv.py``
+    synthesis pass (``kw``: its dilation / decimated)."""
+    _check_scheme(scheme)
+    z = torch.stack([t.float() for t in bands], dim=1)
+    t = scheme_pass(z, filters, scheme, lambda u, f: conv.synthesis_pass(u, f, axis=-2, **kw))
+    y = scheme_pass(t, filters, scheme, lambda u, f: conv.synthesis_pass(u, f, axis=-1, **kw))
+    return y[:, 0].to(out_dtype).contiguous()
+
+
+def fwd_level_2d_mxu_ref(x: torch.Tensor, dec_lo, dec_hi, scheme: str,
+                         out_dtypes=(F32, F32)):
+    """One analysis level on (B, R, C), rows then columns -> (a, h, v, d),
+    a in ``out_dtypes[0]``, h, v, d in ``out_dtypes[1]``."""
+    return fwd2d_ref(x, (dec_lo, dec_hi), scheme, out_dtypes)
+
+
 def inv_level_2d_mxu_ref(a, h, v, d, rec_lo, rec_hi, scheme: str,
                          out_dtype=F32) -> torch.Tensor:
     """One synthesis level, (B, Mr, Mc) subbands -> (B, 2Mr, 2Mc), rows
     then columns."""
-    _check_scheme(scheme)
-    rec = (rec_lo, rec_hi)
-    z = torch.stack([t.float() for t in (a, h, v, d)], dim=1)
-    t = scheme_pass(z, rec, scheme, lambda u, f: conv.synthesis_pass(u, f, axis=-2))
-    y = scheme_pass(t, rec, scheme, lambda u, f: conv.synthesis_pass(u, f, axis=-1))
-    return y[:, 0].to(out_dtype).contiguous()
+    return inv2d_ref((a, h, v, d), (rec_lo, rec_hi), scheme, out_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,278 @@
+"""Banded-product level kernels of the precision tiers, 2D a-trous: the
+route rule, wrappers, plain versions and gradients.
+
+Counterpart of ``pdwt_tpu/kernels/swt_matmul_pallas.py`` (kernels 13 and
+14), which carry the TI-denoise step under the bf16 tiers.  A dilated dual
+FIR is still a banded matrix product, its band with stride
+``f = 2^(level-1)``; the CUDA kernels (``csrc/swt_matmul.cu``) and the plain
+versions here compute it under a compute scheme of ``kernels/matmul.py``
+(its docstring states each scheme's arithmetic):
+
+==========================  ==========================================  ======================
+wrapper                     computes                                    plain version
+==========================  ==========================================  ======================
+``swt_fwd_level_2d_mxu``    one a-trous analysis level, rows then cols  ``*_ref``
+``swt_inv_level_2d_mxu``    one a-trous synthesis level, rows then      ``*_ref``
+                            cols, with an optional soft/hard/garrote
+                            threshold of H, V, D fused
+==========================  ==========================================  ======================
+
+The synthesis folds its 1/2 per pass into the taps before they are
+rounded (``swt_matmul_pallas.py:93-108``).  The fused threshold is the TPU
+kernel's (``swt_pallas.py:206-214``), applied in float32 to each detail
+before its scheme split; ``fused_threshold`` computes it as that kernel
+does (garrote divides a tensor by a tensor).  A wrapper given a CPU tensor
+returns its plain version; given a CUDA tensor it launches its kernel or
+raises.
+
+Gradients (``swt_matmul_pallas.py:459-570``): the forward's backward is
+the inverse kernel with ``2 * g[::-1]``, the inverse's the forward kernel
+with ``0.5 * g[::-1]``, each in the same mode and into the input's dtype;
+the fused denoise's backward runs the forward kernel on the cotangent and
+chains it through the threshold's a.e. derivative, masked by the
+un-thresholded details.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..core import conv
+from ._launch import check_span, dilation, launch, on_cpu, ptr, rev
+from .matmul import (_DT, BF16, F32, MXU_MAX_HLEN, SCHEMES, _check_scheme, _is_bf16,
+                     fwd2d_ref, inv2d_ref, kernel_taps, mode_out_dtypes, swt_bf16_scheme,
+                     swt_scheme, tile_candidates)
+from .mxu1d import _half
+from .separable import _c
+from .swt import THRESH_CODES, Threshold, _beta_buffer, _thresh_vjp_factors
+
+
+def mxu_route_swt_2d(r: int, c: int, hlen: int, level: int) -> bool:
+    """Does an a-trous 2D level on (r, c) images take the banded-product
+    kernels?  The gate of ``_swt_mxu_tiles`` (``swt_matmul_pallas.py:53-74``):
+    an even filter of at most 40 taps and some TPU tile (TR, TC) that
+    divides (r, c) with the dilated span ``(hlen-1) * 2^(level-1)`` at most
+    2 TR.  The TPU gate tries the tiles in a scheme's order and takes the
+    first that fits, so the scheme cannot change the answer; its VMEM
+    estimate never binds for 40 taps or fewer (both tested against JAX)."""
+    if hlen % 2 or hlen > MXU_MAX_HLEN:
+        return False
+    span = (hlen - 1) * dilation(level)
+    return any(r % tr == 0 and c % tc == 0 and span <= 2 * tr
+               for tr, tc in tile_candidates("b1"))
+
+
+def swt2d_inv_plan(mode: str, out_dtype: Optional[torch.dtype]):
+    """(scheme, output dtype) of an a-trous synthesis level
+    (``swt_matmul_pallas.py:410-421``): ``mixed`` b3 into float32; ``bf16``
+    fd, or b2f under the balanced and accurate rungs, into bf16 unless
+    ``out_dtype`` says otherwise."""
+    if mode == "mixed":
+        return "b3", F32
+    if mode == "bf16":
+        return swt_bf16_scheme("fd"), BF16 if out_dtype is None else out_dtype
+    raise ValueError(f"unknown MXU mode {mode!r}")
+
+
+def fused_threshold(x: torch.Tensor, mode: str, beta) -> torch.Tensor:
+    """The fused threshold of the TPU kernels (``swt_pallas.py:206-214``)
+    on a float32 tensor, with beta rounded to float32."""
+    b = _beta_buffer(beta, x.device).reshape(())
+    if mode == "soft":
+        return torch.sign(x) * torch.clamp(x.abs() - b, min=0.0)
+    if mode == "hard":
+        return torch.where(x.abs() > b, x, 0.0)
+    if mode == "garrote":
+        safe = torch.where(x == 0, 1.0, x)
+        return torch.where(x * x > b * b, x - torch.div((b * b).expand_as(safe), safe), 0.0)
+    raise ValueError(f"threshold mode {mode!r}: the kernel takes soft, hard or garrote")
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def swt_fwd_level_2d_mxu_ref(x: torch.Tensor, dec_lo, dec_hi, level: int, scheme: str,
+                             out_dtypes=(F32, F32)):
+    """One a-trous analysis level on (B, R, C), rows then columns ->
+    (a, h, v, d), each (B, R, C); a in ``out_dtypes[0]``, h, v, d in
+    ``out_dtypes[1]``."""
+    return fwd2d_ref(x, (dec_lo, dec_hi), scheme, out_dtypes, dilation=dilation(level),
+                     decimate=False)
+
+
+def swt_inv_level_2d_mxu_ref(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str,
+                             out_dtype=F32, threshold: Threshold = None) -> torch.Tensor:
+    """One a-trous synthesis level, 1/2 per pass in the taps, rows then
+    columns; ``threshold=(mode, beta)`` first thresholds H, V and D in
+    float32."""
+    bands = [a.float(), h.float(), v.float(), d.float()]
+    if threshold is not None:
+        bands[1:] = (fused_threshold(t, *threshold) for t in bands[1:])
+    return inv2d_ref(bands, (_half(rec_lo), _half(rec_hi)), scheme, out_dtype,
+                     dilation=dilation(level), decimated=False)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def swt_fwd_level_2d_mxu(x: torch.Tensor, dec_lo, dec_hi, level: int, scheme: str,
+                         out_dtypes=(F32, F32)):
+    """One a-trous analysis level on a (B, R, C) image (float32 or bf16),
+    any size and level, under ``scheme`` -> (a, h, v, d), each (B, R, C);
+    a is float32, h, v, d are ``out_dtypes[1]``."""
+    if on_cpu(x, dtypes=_DT):
+        return swt_fwd_level_2d_mxu_ref(x, dec_lo, dec_hi, level, scheme, out_dtypes)
+    _check_scheme(scheme)
+    if out_dtypes[0] != F32:
+        raise ValueError("the banded-product kernels keep the approximation in float32")
+    f = dilation(level)
+    tp = kernel_taps((dec_lo, dec_hi), scheme)
+    hlen = len(tp[0])
+    check_span(hlen, f)
+    B, R, C = x.shape
+    a = torch.empty(x.shape, device=x.device, dtype=F32)
+    dets = [torch.empty(x.shape, device=x.device, dtype=out_dtypes[1]) for _ in range(3)]
+    launch("swt_fwd_level_2d_mxu", x.device,
+           [ptr(x), ptr(a), *map(ptr, dets), B, R, C, *map(ptr, tp), hlen, f,
+            conv.fwd_center(hlen), SCHEMES.index(scheme), _is_bf16(x.dtype),
+            _is_bf16(out_dtypes[1])])
+    return (a, *dets)
+
+
+def swt_inv_level_2d_mxu(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str, out_dtype=F32,
+                         threshold: Threshold = None) -> torch.Tensor:
+    """One a-trous synthesis level under ``scheme``: a float32 (B, R, C)
+    approximation and h, v, d of one dtype (float32 or bf16) -> (B, R, C)
+    in ``out_dtype``.  ``threshold=(mode, beta)``, mode soft, hard or
+    garrote, thresholds H, V and D as they are read; beta is a number or a
+    one-element tensor.  Not differentiable: see the ``*_ad`` functions.
+    The CUDA kernel takes filters of up to 81 taps (its staged windows)."""
+    mode, beta = (None, None) if threshold is None else threshold
+    if mode not in THRESH_CODES:
+        raise ValueError(f"threshold mode {mode!r}: the kernel takes soft, hard or garrote")
+    if on_cpu(a, h, v, d, dtypes=_DT):
+        return swt_inv_level_2d_mxu_ref(a, h, v, d, rec_lo, rec_hi, level, scheme, out_dtype,
+                                        threshold)
+    _check_scheme(scheme)
+    if not a.shape == h.shape == v.shape == d.shape:
+        raise ValueError("the four subbands must have one shape")
+    if a.dtype != F32 or not h.dtype == v.dtype == d.dtype:
+        raise ValueError("swt_inv_level_2d_mxu takes a float32 approximation and details "
+                         "of one dtype")
+    f = dilation(level)
+    tp = kernel_taps((_half(rec_lo), _half(rec_hi)), scheme)
+    hlen = len(tp[0])
+    check_span(hlen, f)
+    B, R, C = a.shape
+    out = torch.empty(a.shape, device=a.device, dtype=out_dtype)
+    buf = None if mode is None else _beta_buffer(beta, a.device)
+    launch("swt_inv_level_2d_mxu", a.device,
+           [*map(ptr, (a, h, v, d, out)), B, R, C, *map(ptr, tp), hlen, f,
+            conv.swt_inv_center(hlen), SCHEMES.index(scheme), _is_bf16(h.dtype),
+            _is_bf16(out_dtype), THRESH_CODES[mode], None if buf is None else ptr(buf)])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+class _SwtFwdLevel2DMxu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dec_lo, dec_hi, level, mode):
+        ctx.args = (dec_lo, dec_hi, level)
+        ctx.back = swt2d_inv_plan(mode, x.dtype)
+        return swt_fwd_level_2d_mxu(x, dec_lo, dec_hi, level, swt_scheme(mode, x.dtype),
+                                    mode_out_dtypes(mode))
+
+    @staticmethod
+    def backward(ctx, ga, gh, gv, gd):
+        lo, hi, level = ctx.args
+        y = swt_inv_level_2d_mxu(*_c((ga.float(), gh, gv, gd)), 2.0 * rev(lo), 2.0 * rev(hi),
+                                 level, *ctx.back)
+        return y, None, None, None, None
+
+
+def _inv_forward(ctx, a, h, v, d, rec_lo, rec_hi, level, mode, out_dtype, thr=None):
+    scheme, out_dtype = swt2d_inv_plan(mode, out_dtype)
+    ctx.args = (rec_lo, rec_hi, level)
+    ctx.back = (swt_scheme(mode, out_dtype), mode_out_dtypes(mode))
+    ctx.in_dtypes = tuple(t.dtype for t in (a, h, v, d))
+    if mode == "mixed":
+        h, v, d = (t.float() for t in (h, v, d))
+    return swt_inv_level_2d_mxu(a.float(), h, v, d, rec_lo, rec_hi, level, scheme, out_dtype,
+                                thr)
+
+
+def _inv_backward(ctx, gy):
+    lo, hi, level = ctx.args
+    return swt_fwd_level_2d_mxu(gy.contiguous(), 0.5 * rev(lo), 0.5 * rev(hi), level,
+                                *ctx.back)
+
+
+class _SwtInvLevel2DMxu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, h, v, d, rec_lo, rec_hi, level, mode, out_dtype):
+        return _inv_forward(ctx, a, h, v, d, rec_lo, rec_hi, level, mode, out_dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        res = _inv_backward(ctx, gy)
+        return (*(t.to(dt) for t, dt in zip(res, ctx.in_dtypes)), None, None, None, None, None)
+
+
+class _SwtInvLevel2DMxuDenoise(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, h, v, d, beta, rec_lo, rec_hi, level, mode, thr_mode, out_dtype):
+        ctx.thr_mode = thr_mode
+        ctx.beta_is_tensor = isinstance(beta, torch.Tensor)
+        ctx.beta = None if ctx.beta_is_tensor else beta
+        ctx.save_for_backward(h, v, d, *([beta] if ctx.beta_is_tensor else []))
+        return _inv_forward(ctx, a, h, v, d, rec_lo, rec_hi, level, mode, out_dtype,
+                            (thr_mode, beta))
+
+    @staticmethod
+    def backward(ctx, gy):
+        h, v, d, *rest = ctx.saved_tensors
+        beta = rest[0] if ctx.beta_is_tensor else ctx.beta
+        ga, *gbands = _inv_backward(ctx, gy)
+        b = _beta_buffer(beta, gy.device).reshape(())
+        outs, gbeta = [], None
+        for t, g in zip((h, v, d), gbands):
+            tf, gf = t.float(), g.float()
+            mask = tf.abs() > b
+            dfdx, dfdb = _thresh_vjp_factors(ctx.thr_mode, tf, b)
+            outs.append(torch.where(mask, gf if dfdx is None else gf * dfdx, 0.0).to(t.dtype))
+            if dfdb is not None and ctx.beta_is_tensor:
+                term = torch.where(mask, gf * dfdb, 0.0).sum()
+                gbeta = term if gbeta is None else gbeta + term
+        if ctx.beta_is_tensor:
+            gbeta = (torch.zeros_like(beta) if gbeta is None
+                     else gbeta.to(beta.dtype).reshape(beta.shape))
+        return (ga.to(ctx.in_dtypes[0]), *outs, gbeta, None, None, None, None, None, None)
+
+
+def swt_fwd_level_2d_mxu_ad(x, dec_lo, dec_hi, level: int, mode: str):
+    """Differentiable a-trous analysis level in an MXU ``mode`` ("mixed" or
+    "bf16"): the scheme and output dtypes follow the mode and the input
+    dtype, as ``swt_matmul_pallas.swt_fwd_level_2d_mxu`` picks them."""
+    return _SwtFwdLevel2DMxu.apply(x, dec_lo, dec_hi, level, mode)
+
+
+def swt_inv_level_2d_mxu_ad(a, h, v, d, rec_lo, rec_hi, level: int, mode: str,
+                            out_dtype=None):
+    """Differentiable a-trous synthesis level in an MXU ``mode``;
+    ``out_dtype`` as in :func:`swt2d_inv_plan`."""
+    return _SwtInvLevel2DMxu.apply(a, h, v, d, rec_lo, rec_hi, level, mode, out_dtype)
+
+
+def swt_inv_level_2d_mxu_denoise_ad(a, h, v, d, beta, rec_lo, rec_hi, level: int, mode: str,
+                                    thr_mode: str, out_dtype=None):
+    """Differentiable fused threshold + a-trous synthesis level in an MXU
+    ``mode``: gradients for the four subbands and, when ``beta`` is a
+    tensor, for beta."""
+    return _SwtInvLevel2DMxuDenoise.apply(a, h, v, d, beta, rec_lo, rec_hi, level, mode,
+                                          thr_mode, out_dtype)

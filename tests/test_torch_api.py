@@ -179,14 +179,15 @@ def test_denoise_step_cycle_spins_with_the_generator():
 
 def test_unsupported_flags_name_their_roadmap_item():
     img = _img((16, 16))
-    for kwargs, item in [({"do_separable": False}, 11), ({"ndim": 3}, 12),
-                         ({"mode": "symmetric"}, 10)]:
+    for kwargs, item in [({"ndim": 3}, 12), ({"mode": "symmetric"}, 10)]:
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             Wavelets(img, wname="db2", levels=1, device="cpu", **kwargs)
     with pytest.raises(NotImplementedError, match="item 12"):
         Wavelets(np.zeros((4, 16, 16), np.float32), wname="db2", levels=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="kernels 13-14"):
-        Wavelets(img, wname="db2", levels=1, do_swt=True, precision="bf16-fast", device="cpu")
+    # the non-separable transform and the bf16 2D SWT are ported
+    for kwargs in ({"do_separable": False}, {"do_swt": True, "precision": "bf16-fast"}):
+        W = Wavelets(img, wname="db2", levels=1, device="cpu", **kwargs)
+        assert W.forward().approx.dtype == torch.float32
     with pytest.raises(ValueError, match="unknown precision tier"):
         Wavelets(img, wname="db2", levels=1, precision="fast", device="cpu")
     x = torch.from_numpy(img)

@@ -28,8 +28,10 @@ from pdwt_tpu_torch.filters import make_custom_wavelet
 from pdwt_tpu_torch.kernels import batched1d as K1
 from pdwt_tpu_torch.kernels import matmul as M
 from pdwt_tpu_torch.kernels import mxu1d as M1
+from pdwt_tpu_torch.kernels import ns_matmul as NM
 from pdwt_tpu_torch.kernels import separable as K
 from pdwt_tpu_torch.kernels import swt as S
+from pdwt_tpu_torch.kernels import swt_matmul as SM
 
 pytestmark = pytest.mark.cuda
 
@@ -141,7 +143,10 @@ def test_launch_counters(dev):
                           "swt_fwd_level_1d": 0, "swt_inv_level_1d": 0,
                           "fwd_level_2d_mxu": 0, "inv_level_2d_mxu": 0,
                           "fwd_level_1d_mxu": 0, "inv_level_1d_mxu": 0,
-                          "swt_fwd_level_1d_mxu": 0, "swt_inv_level_1d_mxu": 0}
+                          "swt_fwd_level_1d_mxu": 0, "swt_inv_level_1d_mxu": 0,
+                          "swt_fwd_level_2d_mxu": 0, "swt_inv_level_2d_mxu": 0,
+                          "ns_fwd_level_2d_mxu": 0, "ns_inv_level_2d_mxu": 0,
+                          "ns_swt_fwd_level_2d_mxu": 0, "ns_swt_inv_level_2d_mxu": 0}
 
 
 def test_cuda_rejects_what_the_kernels_do_not_take(dev):
@@ -505,5 +510,165 @@ def test_mxu_cuda_rejects_what_the_kernels_do_not_take(dev):
         M1.inv_level_1d_mxu(_rand(dev, 2, 8).to(BF16), _rand(dev, 2, 8), w.rec_lo, w.rec_hi, "fd")
     with pytest.raises(ValueError, match="even length"):
         M1.fwd_level_1d_mxu(_rand(dev, 2, 7), w.dec_lo, w.dec_hi, "b1")
-    with pytest.raises(NotImplementedError, match="kernels 13-14"):
-        swt2d(_rand(dev, 16, 16).to(BF16), w, 1)
+    with pytest.raises(ValueError, match="one dtype"):
+        SM.swt_inv_level_2d_mxu(bands[0], bands[1].to(BF16), bands[2], bands[3], w.rec_lo,
+                                w.rec_hi, 1, "fd")
+    A, Bc = np.ones((4, 5, 4)), np.ones((5, 4))
+    with pytest.raises(ValueError, match="ranks up to 4"):
+        NM.ns_fwd_level_2d_mxu(_rand(dev, 1, 8, 8), A, Bc, "b1")
+
+
+# ---------------------------------------------------------------------------
+# kernels 13-14 (a-trous banded products) and 17-18 (rank-r non-separable)
+# ---------------------------------------------------------------------------
+
+def _rank3(seed=7, hlen=8):
+    """Rank-3 quads from a seed (tests/test_mxu_kernels.py:301-306)."""
+    q = np.zeros((4, hlen, hlen))
+    g = np.random.default_rng(seed)
+    for _ in range(3):
+        q += np.einsum("si,j->sij", g.standard_normal((4, hlen)), g.standard_normal(hlen))
+    return q / np.abs(q).sum(axis=(1, 2), keepdims=True)
+
+
+def _pr_quads(seed=3):
+    """Rank-3 8 x 8 quads that reconstruct perfectly (as in
+    tests/test_torch_nonseparable.py)."""
+    w = get_wavelet("db2")
+    pad = lambda f, lo, hi: np.concatenate([np.zeros(lo), f, np.zeros(hi)])
+    c = lambda f: pad(f, 2, 2)
+    quads = lambda lo, hi, hh: np.stack([np.outer(c(lo), c(lo)), np.outer(c(hi), c(lo)),
+                                         np.outer(c(lo), c(hi)), np.outer(c(hi), hh)])
+    U = np.linalg.qr(np.random.default_rng(seed).standard_normal((4, 4)))[0]
+    return (np.einsum("st,tij->sij", U, quads(w.dec_lo, w.dec_hi, pad(w.dec_hi, 0, 4))),
+            np.einsum("st,tij->sij", U, quads(w.rec_lo, w.rec_hi, pad(w.rec_hi, 4, 0))))
+
+
+SWT_MXU_CASES = [("db7", (1, 256, 256), BF16, (1, 2, 3)),
+                 ("db7", (2, 37, 53), torch.float32, (1, 6)),
+                 ("db20", (1, 64, 128), BF16, (2,)), ("odd5", (1, 23, 29), torch.float32, (3,))]
+
+
+@pytest.mark.parametrize("scheme", ["b1", "fd", "b2f", "b2d", "b3"])
+@pytest.mark.parametrize("wname,shape,in_dtype,levels", SWT_MXU_CASES)
+def test_swt_mxu_2d_kernels_match_plain(dev, wname, shape, in_dtype, levels, scheme):
+    """Kernels 13 and 14 in every scheme, on and off the route rule (odd
+    sizes, a dilation past the image, an odd filter), every threshold."""
+    w = _wavelet(wname)
+    x = (_rand(dev, *shape) * 255).to(in_dtype)
+    a = _rand(dev, *shape, seed=4) * 255
+    for level in levels:
+        for det in (torch.float32, BF16):
+            _close_tier(SM.swt_fwd_level_2d_mxu(x, w.dec_lo, w.dec_hi, level, scheme,
+                                                (torch.float32, det)),
+                        SM.swt_fwd_level_2d_mxu_ref(x, w.dec_lo, w.dec_hi, level, scheme,
+                                                    (torch.float32, det)))
+            h, v, d = ((_rand(dev, *shape, seed=s) * 127).to(det) for s in (1, 2, 3))
+            for out in (torch.float32, BF16):
+                for thr in (None, ("soft", 20.0), ("hard", 20.0), ("garrote", 20.0)):
+                    _close_tier(SM.swt_inv_level_2d_mxu(a, h, v, d, w.rec_lo, w.rec_hi, level,
+                                                        scheme, out, thr),
+                                SM.swt_inv_level_2d_mxu_ref(a, h, v, d, w.rec_lo, w.rec_hi,
+                                                            level, scheme, out, thr))
+
+
+@pytest.mark.parametrize("scheme", ["b1", "fd", "b2f", "b2d", "b3"])
+@pytest.mark.parametrize("quads,shape,in_dtype", [("rank3", (1, 128, 256), BF16),
+                                                  ("pr", (2, 70, 134), torch.float32)])
+def test_ns_mxu_kernels_match_plain(dev, quads, shape, in_dtype, scheme):
+    """Kernels 17 and 18 at both strides, in every scheme, on and off the
+    route rule."""
+    from pdwt_tpu_torch.core.nonseparable import _rank_decomp
+
+    A, Bc = _rank_decomp(_rank3() if quads == "rank3" else _pr_quads()[0])
+    x = (_rand(dev, *shape) * 255).to(in_dtype)
+    m = (shape[0], shape[1] // 2, shape[2] // 2)
+    for det in (torch.float32, BF16):
+        _close_tier(NM.ns_fwd_level_2d_mxu(x, A, Bc, scheme, (torch.float32, det)),
+                    NM.ns_fwd_level_2d_mxu_ref(x, A, Bc, scheme, (torch.float32, det)))
+        for level in (1, 3):
+            _close_tier(NM.ns_swt_fwd_level_2d_mxu(x, A, Bc, level, scheme, (torch.float32, det)),
+                        NM.ns_swt_fwd_level_2d_mxu_ref(x, A, Bc, level, scheme,
+                                                       (torch.float32, det)))
+        for out in (torch.float32, BF16):
+            bands = [_rand(dev, *m) * 255] + [(_rand(dev, *m, seed=s) * 127).to(det)
+                                              for s in (1, 2, 3)]
+            _close_tier(NM.ns_inv_level_2d_mxu(*bands, A, Bc, scheme, out),
+                        NM.ns_inv_level_2d_mxu_ref(*bands, A, Bc, scheme, out))
+            bands = [_rand(dev, *shape) * 255] + [(_rand(dev, *shape, seed=s) * 127).to(det)
+                                                  for s in (1, 2, 3)]
+            for level in (1, 3):
+                _close_tier(NM.ns_swt_inv_level_2d_mxu(*bands, A, Bc, level, scheme, out),
+                            NM.ns_swt_inv_level_2d_mxu_ref(*bands, A, Bc, level, scheme, out))
+
+
+@pytest.mark.parametrize("tier", ["bf16-fast", "bf16-balanced", "bf16-accurate"])
+def test_bf16_swt2d_path_matches_cpu(dev, tier):
+    """swt2d, iswt2d and the fused iswt2d_denoise in bf16 on the card against
+    the CPU: levels 1-3 of 512^2 on kernels 13-14, the dtype contract."""
+    w = get_wavelet("db7")
+    x = (_rand(dev, 512, 512) * 127).to(BF16)
+    K.reset_launch_counts()
+    c, cc = swt2d(x, w, 3, precision=tier), swt2d(x.cpu(), w, 3, precision=tier)
+    assert c.approx.dtype == torch.float32 and c.details[0][0].dtype == BF16
+    _close_tier([c.approx.cpu(), *(t.cpu() for b in c.details for t in b)],
+                [cc.approx, *(t for b in cc.details for t in b)], 2.0 ** -6, 1e-4)
+    for y, yc in ((iswt2d(c, w, precision=tier), iswt2d(cc, w, precision=tier)),
+                  (iswt2d_denoise(c, w, 10.0, precision=tier),
+                   iswt2d_denoise(cc, w, 10.0, precision=tier))):
+        assert y.dtype == BF16
+        _close_tier(y.cpu(), yc, 2.0 ** -6, 1e-4)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["swt_fwd_level_2d_mxu"] == 3 and K.LAUNCHES["swt_inv_level_2d_mxu"] == 6
+
+
+@pytest.mark.parametrize("tier", ["exact", "mixed", "bf16-fast", "bf16-balanced"])
+def test_ns_paths_match_cpu(dev, tier):
+    """The four non-separable entry points with rank-3 quads on the card
+    against the CPU; exact launches no kernel, the tiers launch 17-18 on
+    the routed levels; roundtrip."""
+    from pdwt_tpu_torch.core import nonseparable as ns
+
+    qf, qi = _pr_quads()
+    dt = BF16 if tier.startswith("bf16-") else torch.float32
+    x = (_rand(dev, 256, 256) * 127 + 127).to(dt)
+    K.reset_launch_counts()
+    for fwd, inv in ((lambda t: ns.dwt2d_ns(t, qf, 3, precision=tier),
+                      lambda c: ns.idwt2d_ns(c, qi, (256, 256), precision=tier)),
+                     (lambda t: ns.swt2d_ns(t, qf, 2, precision=tier),
+                      lambda c: ns.iswt2d_ns(c, qi, precision=tier))):
+        c, cc = fwd(x), fwd(x.cpu())
+        _close_tier([c.approx.cpu(), *(t.cpu() for b in c.details for t in b)],
+                    [cc.approx, *(t for b in cc.details for t in b)], 2.0 ** -6, 1e-4)
+        y = inv(c)
+        assert y.dtype == dt
+        _close_tier(y.cpu(), inv(cc), 2.0 ** -6, 1e-4)
+        assert float((y.float() - x.float()).abs().max()) < (4.0 if dt == BF16 else 1e-2)
+    torch.cuda.synchronize()
+    launched = {k for k, v in K.LAUNCHES.items() if v}
+    if tier == "exact":
+        assert not launched
+    elif tier == "mixed":  # the a-trous pair runs exact under mixed
+        assert launched == {"ns_fwd_level_2d_mxu", "ns_inv_level_2d_mxu"}
+    else:
+        assert launched == {"ns_fwd_level_2d_mxu", "ns_inv_level_2d_mxu",
+                            "ns_swt_fwd_level_2d_mxu", "ns_swt_inv_level_2d_mxu"}
+
+
+def test_new_mxu_gradients_match_cpu(dev):
+    """The backward passes of kernels 13-14 and 17-18 on the card against
+    the CPU's."""
+    from pdwt_tpu_torch.core.nonseparable import _rank_decomp
+
+    w = get_wavelet("db4")
+    A, Bc = _rank_decomp(_rank3())
+    x = (_rand(dev, 1, 128, 256) * 127).to(BF16)
+    for f in (lambda t: SM.swt_fwd_level_2d_mxu_ad(t, w.dec_lo, w.dec_hi, 2, "bf16"),
+              lambda t: NM.ns_fwd_level_2d_mxu_ad(t, A, Bc, "bf16"),
+              lambda t: NM.ns_swt_fwd_level_2d_mxu_ad(t, A, Bc, 1, "bf16")):
+        grads = []
+        for t in (x, x.cpu()):
+            s = t.clone().requires_grad_(True)
+            sum(o.float().square().sum() for o in f(s)).backward()
+            grads.append(s.grad)
+        _close_tier(grads[0].cpu(), grads[1], 2.0 ** -6, 1e-4)

@@ -177,10 +177,10 @@ def test_precision_keyword_checks_the_dtypes_as_jax_does():
                 idwt1d(dwt1d(tx, w, 1), w, 16, precision=tier)
     with pytest.raises(ValueError, match="unknown precision tier"):
         swt1d(torch.zeros(16), w, 1, precision="nope")
-    with pytest.raises(NotImplementedError, match="kernels 13-14"):
-        swt2d(torch.zeros(16, 16, dtype=BF16), w, 1)
-    with pytest.raises(NotImplementedError, match="kernels 13-14"):
-        iswt2d_denoise(dwt2d(torch.zeros(16, 16, dtype=BF16), w, 1), w, 1.0)
+    # the bf16 2D SWT (kernels 13-14) keeps the bf16 dtype contract
+    c = swt2d(torch.zeros(16, 16, dtype=BF16), w, 1)
+    assert c.approx.dtype == F32 and c.details[0][0].dtype == BF16
+    assert iswt2d_denoise(c, w, 1.0).dtype == BF16
 
 
 # ---------------------------------------------------------------------------
