@@ -56,6 +56,14 @@ with the launch counters set to 0 just before it and read just after:
   strides; launch counts, the dtype contract, the path against the plain
   route, roundtrips, and the timings.
 
+The two inverses redesigned for Hopper's CUDA cores (kernels 14 and 18:
+``swt_inv_level_2d_mxu``, ``ns_inv_level_2d_mxu``,
+``ns_swt_inv_level_2d_mxu``) are held bit for bit to their plain versions
+in the b-schemes (``fd`` within ``tier_limit``), also on the code paths of
+their launch plans (dilations 2-16 on sizes no tile divides, the deep
+levels' small tiles, a batch of 3, ranks 1 and 4, 2 to 42 taps, every
+threshold), and each timed launch prints its device time beside its bound.
+
 It prints one JSON line with the per-kernel results (times, launches, the
 least time the card could take and a PyTorch yardstick), the card's name
 and power limit before it, and, last, one JSON line with ``"ok": true``.
@@ -237,7 +245,10 @@ def device_ms(fn, reps: int = 10):
     """(busy milliseconds per fn() call, {kernel name: ms per call}) from
     the device activity torch.profiler records; (None, {}) when three
     profiled windows in a row record none (the profiler now and then
-    returns a window without device events)."""
+    returns a window without device events).  Each kernel counts its mean
+    time per recorded event times its events per call (its recorded events
+    over reps, rounded), so a window that drops a few events does not read
+    low."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -247,10 +258,12 @@ def device_ms(fn, reps: int = 10):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        by_name = {}
+        sums, counts = {}, {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+                sums[e.name] = sums.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+                counts[e.name] = counts.get(e.name, 0) + 1
+        by_name = {k: sums[k] / counts[k] * max(1, round(counts[k] / reps)) for k in sums}
         if by_name:
             return sum(by_name.values()), by_name
     return None, {}
@@ -285,6 +298,18 @@ def tier_limit(outs) -> float:
     return BF16_RTOL if any(t.dtype == torch.bfloat16 for t in leaves(outs)) else TIER_RTOL
 
 
+def scheme_limit(scheme: str) -> Callable:
+    """Limit of a call of kernel 14 or 18: each keeps every output's sums in
+    its plain version's order, so the b-schemes agree bit for bit (limit 0);
+    fd's FMAs round once where the plain version rounds twice (tier_limit)."""
+    return tier_limit if scheme == "fd" else (lambda outs: 0.0)
+
+
+# the two inverses redesigned for Hopper's CUDA cores (kernels 14 and 18):
+# each timed launch's device time is printed beside its bound
+REDESIGNED = ("swt_inv_level_2d_mxu", "ns_inv_level_2d_mxu", "ns_swt_inv_level_2d_mxu")
+
+
 def run_cases(cases, report, card) -> None:
     """Hold each kernel call against its plain version on the same input;
     time the calls marked ``timed`` (the paths' shapes) and add those
@@ -315,6 +340,9 @@ def run_cases(cases, report, card) -> None:
                 lib_ms = cuda_ms(c.library(c.arg))
                 line += f"; PyTorch yardstick {lib_ms:.4f} ms"
             line += f" [{card}]"
+            if c.name in REDESIGNED:
+                print(f"per launch: {c.name} at {c.label}: device {fmt(k_dev)} beside its bound "
+                      f"{max(bytes_ms, ops_ms):.4f} ms [{card}]", flush=True)
             if c.in_row:
                 rep["ms"] += k_ms
                 rep["plain_ms"] += p_ms
@@ -1336,6 +1364,7 @@ def ti_tier_phase(dev, card, report, launches, ti_img, gen) -> None:
     roundtrips; (c) each tier's TI step timed beside the exact one."""
     from pdwt_tpu_torch import Wavelets, get_wavelet, iswt2d, iswt2d_denoise, ops, swt2d
     from pdwt_tpu_torch.core.separable import Coeffs2D
+    from pdwt_tpu_torch.filters import make_custom_wavelet
     from pdwt_tpu_torch.kernels import LAUNCHES, reset_launch_counts
     from pdwt_tpu_torch.kernels import swt as S
     from pdwt_tpu_torch.kernels import swt_matmul as SM
@@ -1385,7 +1414,7 @@ def ti_tier_phase(dev, card, report, launches, ti_img, gen) -> None:
                         *b, rlo, rhi, lv, s, o, th),
                     f"{tier} level {lvl} {isch} bf16 details, {out} out, threshold "
                     f"{thr and thr[0]}, {(TI_N, TI_N)}", soft, fl * TERMS[isch],
-                    scheme_peak(isch), tier_limit,
+                    scheme_peak(isch), scheme_limit(isch),
                     yardstick("swt_inv2d", wav, bf16, lvl) if row and soft else None,
                     row and soft))
     # off the route rule (the kernels take them; the entry points run 5-6
@@ -1403,7 +1432,28 @@ def ti_tier_phase(dev, card, report, launches, ti_img, gen) -> None:
                               *b, rlo, rhi, lv, s, f32, ("garrote", TI_BETA)),
                           lambda b, s=sch, lv=lvl: SM.swt_inv_level_2d_mxu_ref(
                               *b, rlo, rhi, lv, s, f32, ("garrote", TI_BETA)),
-                          f"{sch} {shape} level {lvl} garrote", limit=tier_limit))
+                          f"{sch} {shape} level {lvl} garrote", limit=scheme_limit(sch)))
+    # the redesigned inverse's code paths: dilations 2-16 on sizes no tile
+    # divides, a batch of 3, 2 and 42 taps, every threshold mode
+    w42 = make_custom_wavelet("w42", *np.random.default_rng(42).standard_normal((4, 42)))
+    modes = [None, ("soft", TI_BETA), ("hard", TI_BETA), ("garrote", TI_BETA)]
+    for i, (w, shape, lvl, sch) in enumerate([
+            (wav, (1, 301, 203), 2, "b1"), (wav, (1, 301, 203), 3, "b2f"),
+            (wav, (1, 301, 203), 4, "b3"), (wav, (1, 301, 203), 5, "b2d"),
+            (wav, (1, 301, 203), 3, "fd"), (wav, (3, 70, 134), 2, "b2f"),
+            (get_wavelet("haar"), (1, 64, 96), 3, "b1"), (w42, (1, 200, 150), 1, "b3"),
+            (w42, (1, 200, 150), 2, "fd")]):
+        bands = [rand(*shape)] + [(rand(*shape) - 127.5).to(bf16) for _ in range(3)]
+        out = bf16 if i % 2 else f32
+        for thr in modes if i == 0 else [modes[i % 4]]:
+            cases.append(Case(
+                "swt_inv_level_2d_mxu", bands,
+                lambda b, w=w, s=sch, lv=lvl, o=out, th=thr: SM.swt_inv_level_2d_mxu(
+                    *b, w.rec_lo, w.rec_hi, lv, s, o, th),
+                lambda b, w=w, s=sch, lv=lvl, o=out, th=thr: SM.swt_inv_level_2d_mxu_ref(
+                    *b, w.rec_lo, w.rec_hi, lv, s, o, th),
+                f"{w.name} {sch} {shape} level {lvl} threshold {thr and thr[0]}, {out} out",
+                limit=scheme_limit(sch)))
     run_cases(cases, report, card)
 
     # ---------------- (b) the TI path under each tier ----------------
@@ -1582,8 +1632,8 @@ def ns_phase(dev, card, report, launches, dwt_img, ti_img, gen) -> None:
                      lambda b, s=isch, o=out: NM.ns_inv_level_2d_mxu_ref(*b, Ai, Bi, s, o),
                      f"{tier} level {lvl + 1} {isch} {idet} details, {out} out, subbands "
                      f"{(m, m)}", True, flops_ns(r, r, hq, rank, False, TERMS[isch]),
-                     scheme_peak(isch), tier_limit, ns_yardstick("inv", Ai, Bi) if row else None,
-                     row),
+                     scheme_peak(isch), scheme_limit(isch),
+                     ns_yardstick("inv", Ai, Bi) if row else None, row),
                 (row, "i", m, isch, idet, out))
             r //= 2
         if not bf16_tier(tier):
@@ -1625,7 +1675,7 @@ def ns_phase(dev, card, report, launches, dwt_img, ti_img, gen) -> None:
             Case("ns_inv_level_2d_mxu", bands,
                  lambda b, s=sch: NM.ns_inv_level_2d_mxu(*b, Ar, Br, s, bf16),
                  lambda b, s=sch: NM.ns_inv_level_2d_mxu_ref(*b, Ar, Br, s, bf16),
-                 f"rank3 {sch} subbands (2, 35, 67)", limit=tier_limit),
+                 f"rank3 {sch} subbands (2, 35, 67)", limit=scheme_limit(sch)),
             Case("ns_swt_fwd_level_2d_mxu", sbands[0],
                  lambda t, s=sch: NM.ns_swt_fwd_level_2d_mxu(t, Ar, Br, 4, s),
                  lambda t, s=sch: NM.ns_swt_fwd_level_2d_mxu_ref(t, Ar, Br, 4, s),
@@ -1633,7 +1683,40 @@ def ns_phase(dev, card, report, launches, dwt_img, ti_img, gen) -> None:
             Case("ns_swt_inv_level_2d_mxu", sbands,
                  lambda b, s=sch: NM.ns_swt_inv_level_2d_mxu(*b, Ar, Br, 4, s),
                  lambda b, s=sch: NM.ns_swt_inv_level_2d_mxu_ref(*b, Ar, Br, 4, s),
-                 f"rank3 {sch} (1, 37, 53) level 4", limit=tier_limit)]
+                 f"rank3 {sch} (1, 37, 53) level 4", limit=scheme_limit(sch))]
+    # the redesigned inverse's code paths: the deep levels' small tiles (128^2
+    # and 64^2 subbands), dilations 2-16 on sizes no tile divides, a batch of
+    # 3, ranks 1 and 4, 2 and 40 taps
+    def seeded(rank, hlen, seed):
+        g = np.random.default_rng(seed)
+        return g.standard_normal((4, rank, hlen)) / hlen, g.standard_normal((rank, hlen)) / hlen
+
+    for (Aq, Bq), shape, f, sch, out in [
+            ((Ai, Bi), (1, 128, 128), None, "b3", f32), ((Ai, Bi), (1, 64, 64), None, "b2f", bf16),
+            ((Ai, Bi), (3, 37, 53), 2, "b3", f32), ((Ai, Bi), (1, 45, 61), 4, "b1", bf16),
+            ((Ai, Bi), (1, 101, 77), 8, "b2d", f32), ((Ai, Bi), (1, 101, 77), 16, "fd", f32),
+            (seeded(1, 2, 1), (1, 64, 80), None, "b3", f32),
+            (seeded(4, 40, 2), (1, 100, 70), None, "b2f", bf16),
+            (seeded(4, 40, 3), (2, 66, 90), 2, "fd", f32),
+            (seeded(1, 2, 4), (1, 33, 47), 4, "b1", f32),
+            (seeded(3, 8, 5), (3, 35, 67), None, "b2d", bf16)]:
+        bands = [rand(*shape)] + [(rand(*shape) - 127.5).to(bf16) for _ in range(3)]
+        label = f"rank {Bq.shape[0]}, {Bq.shape[1]} taps, {sch} {shape}"
+        if f is None:
+            cases.append(Case(
+                "ns_inv_level_2d_mxu", bands,
+                lambda b, A=Aq, B=Bq, s=sch, o=out: NM.ns_inv_level_2d_mxu(*b, A, B, s, o),
+                lambda b, A=Aq, B=Bq, s=sch, o=out: NM.ns_inv_level_2d_mxu_ref(*b, A, B, s, o),
+                label, limit=scheme_limit(sch)))
+        else:
+            lv = f.bit_length()
+            cases.append(Case(
+                "ns_swt_inv_level_2d_mxu", bands,
+                lambda b, A=Aq, B=Bq, s=sch, o=out, lv=lv: NM.ns_swt_inv_level_2d_mxu(
+                    *b, A, B, lv, s, o),
+                lambda b, A=Aq, B=Bq, s=sch, o=out, lv=lv: NM.ns_swt_inv_level_2d_mxu_ref(
+                    *b, A, B, lv, s, o),
+                f"{label} level {lv}", limit=scheme_limit(sch)))
     run_cases(cases, report, card)
 
     # ---------------- (b) the non-separable paths ----------------

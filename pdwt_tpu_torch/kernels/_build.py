@@ -21,7 +21,7 @@ SOURCES = tuple(os.path.join(_HERE, "csrc", name)
                 for name in ("separable.cu", "swt.cu", "batched1d.cu", "matmul.cu", "mxu1d.cu",
                              "swt_matmul.cu", "ns_matmul.cu"))
 #: headers the sources include; hashed with them, so editing one rebuilds
-HEADERS = (os.path.join(_HERE, "csrc", "mxu_common.cuh"),)
+HEADERS = tuple(os.path.join(_HERE, "csrc", name) for name in ("mxu_common.cuh", "band_strip.cuh"))
 BUILD_DIR = os.path.join(_HERE, "_build")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -126,18 +126,21 @@ def load() -> ctypes.CDLL:
         # x, a, h, v, d, B, R, C, taps lo1, lo2, hi1, hi2, hlen, dilation, center,
         # scheme, in_bf16, det_bf16, stream
         "pdwt_swt_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, P, P, P, I, I, I, I, I, I, P],
-        # a, h, v, d, out, B, R, C, taps lo1, lo2, hi1, hi2, hlen, dilation, center,
-        # scheme, det_bf16, out_bf16, thresh_mode, beta (one float on the device), stream
-        "pdwt_swt_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, P, P, P, I, I, I, I, I, I, I, P,
-                                      P],
+        # a, h, v, d, out, B, R, C, taps (4, hlen on the device), hlen, dilation, center,
+        # scheme, det_bf16, out_bf16, thresh_mode, beta (one float on the device), the
+        # launch plan (lr, lc, gc, nph, nt, threads, grid x, y, z, smem), stream
+        "pdwt_swt_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, I, I, P,
+                                      *[I] * 10, P],
         # x, a, h, v, d, B, R, C, taps (device), hlen, rank, stride, dilation, center,
         # scheme, in_bf16, det_bf16, stream
         "pdwt_ns_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, I, I, I, P],
         "pdwt_ns_swt_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, I, I, I, P],
         # a, h, v, d, out, B, Mr, Mc, taps (device), hlen, rank, dilation, geometry,
-        # scheme, det_bf16, out_bf16, stream
-        "pdwt_ns_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, P, I, I, I, P],
-        "pdwt_ns_swt_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, P, I, I, I, P],
+        # scheme, det_bf16, out_bf16, the launch plan (lr, lc, gc, nt, threads, grid x, y, z,
+        # smem), stream
+        "pdwt_ns_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, P, I, I, I, *[I] * 9, P],
+        "pdwt_ns_swt_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, P, I, I, I,
+                                         *[I] * 9, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

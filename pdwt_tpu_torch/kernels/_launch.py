@@ -4,7 +4,7 @@ call."""
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -113,3 +113,99 @@ def check_span(hlen: int, f: int) -> None:
     if hlen * f >= 2 ** 31:
         raise ValueError(f"a dilated support of {hlen} x {f} taps overflows the kernels' "
                          "32-bit indices")
+
+
+# ---------------------------------------------------------------------------
+# launch plans of the banded-product inverses (csrc/band_strip.cuh)
+# ---------------------------------------------------------------------------
+
+#: shared memory a block may use on an H100 (mxu_common.cuh: kSmemLimit)
+SMEM_LIMIT = 232448
+#: the most a block may take and still share its SM with a second block
+SMEM_TWO_BLOCKS = 113 * 1024
+#: SMs of an H100 SXM; the inverses aim at two blocks for each
+SMS = 132
+#: tile candidates (rows, columns), largest first
+PLAN_TILES = ((32, 64), (32, 32), (16, 32), (16, 16), (8, 16), (8, 8))
+#: strip lengths of the two passes (band_strip.cuh: kRowStrip, kColStrip)
+ROW_STRIP = {"b1": 8, "fd": 8, "b2f": 4, "b2d": 4, "b3": 4}
+COL_STRIP = 8
+
+
+class InvPlan(NamedTuple):
+    """Geometry of one launch of a banded-product inverse: tile (lr, lc)
+    of subband positions, column stride gc (1: consecutive columns; f: one
+    residue class), band phases nph (kernel 14), taps padded to nt, threads
+    per block, grid (x, y, z) and dynamic shared-memory bytes."""
+    lr: int
+    lc: int
+    gc: int
+    nph: int
+    nt: int
+    threads: int
+    grid: Tuple[int, int, int]
+    smem: int
+
+
+def stage_bytes(scheme: str) -> Tuple[int, int]:
+    """(operands, bytes per operand) a scheme stages per sample."""
+    return (2 if scheme in ("b2d", "b3") else 1), (4 if scheme == "fd" else 2)
+
+
+def temp_pitch(w: int, es: int) -> int:
+    """band_strip.cuh: temp_pitch, an odd number of 32-bit words >= w."""
+    return w | 1 if es == 4 else ((w + 1) // 4) * 4 + 2
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def align16(b: int) -> int:
+    return (b + 15) // 16 * 16
+
+
+def axis_blocks(n: int, f: int, lt: int) -> int:
+    """mxu_common.cuh: axis_blocks, one residue class mod f per block."""
+    fr = min(f, n)
+    return fr * cdiv(cdiv(n, f), lt)
+
+
+def plan_threads(items: int) -> int:
+    """Threads for a block whose busiest pass has ``items`` work items:
+    256, or the warps that take them all in one round where fewer do."""
+    return min(256, max(32, cdiv(items, 32) * 32))
+
+
+def pick_plan(cands, target: int) -> InvPlan:
+    """The first candidate plan (largest tile first) that fits two blocks
+    on an SM and has ``target`` blocks; else the one of those with the most
+    blocks; else the first that fits in shared memory."""
+    fits = [p for p in cands if p.smem <= SMEM_TWO_BLOCKS]
+    for p in fits:
+        if p.grid[0] * p.grid[1] * p.grid[2] >= target:
+            return p
+    if fits:
+        return max(fits, key=lambda p: p.grid[0] * p.grid[1] * p.grid[2])
+    for p in cands:
+        if p.smem <= SMEM_LIMIT:
+            return p
+    raise ValueError("no launch plan of the banded-product inverse fits in shared memory")
+
+
+def block_target(b: int, ro: int, co: int) -> int:
+    """Blocks an inverse aims at: about two per SM (256) where the output
+    has at least 2 * 132 tiles of 16 x 16, else one per two such tiles
+    (smaller tiles cost more halo than the idle SMs they fill, as measured
+    on an H100: PERF.md, section 6)."""
+    n16 = b * cdiv(ro, 16) * cdiv(co, 16)
+    return 256 if n16 >= 2 * SMS else max(1, n16 // 2)
+
+
+def consecutive_columns(f: int, lc: int, span: int) -> bool:
+    """Does a tile of lc columns at dilation f take consecutive columns
+    (coalesced loads and stores, a window of lc + span f columns) rather
+    than one residue class mod f (a window of lc + span)?  While the
+    consecutive window is at most 1.4x the other and a column strip of
+    COL_STRIP outputs f apart fits the tile."""
+    return f * COL_STRIP <= lc and 5 * (lc + span * f) <= 7 * (lc + span)

@@ -1,0 +1,199 @@
+// Register-blocked band sums for the banded-product inverses (swt_matmul.cu's
+// swt_inv_mxu_kernel and ns_matmul.cu's ns_inv_mxu_kernel), on Hopper's CUDA
+// cores.
+//
+// A thread computes a strip of P consecutive outputs of one filtered line
+// (along the window's rows or columns, at a step xs between samples), for R
+// sums at once that read the same data, each sum over `nbands` staged bands
+// of CH-padded taps.  It slides a register window over the line: a chunk of
+// CH taps loads P + CH - 1 samples once and CH taps per sum as float4
+// broadcasts, then does R * CH * P multiply-adds (fully unrolled), so a
+// shared-memory load feeds 2.7 (P = 8, CH = 4, R = 1) to 9 (R = 3, CH = 8)
+// multiply-adds.  Each output keeps one float32 sum per scheme term (Acc), in
+// the plain version's order: band outer, tap inner; the zero taps that pad a
+// filter to CH leave every sum as it is (0 * x + s = s for finite x).
+//
+// The tables below let the staging index its window with one 32-bit add per
+// sample: the wrapped global row and column of each window entry are computed
+// once per block.
+//
+// Why the CUDA cores and not the tensor cores: the fd scheme is a float32 x
+// float32 sum (TF32 keeps 10 mantissa bits), a tensor-core product reorders
+// each output's float32 sum (the b-schemes would no longer match their plain
+// versions bit for bit), and at the float32 rate the arithmetic of these
+// passes already fits inside their bytes bound; what bounds them is the
+// staging and the shared-memory traffic around each multiply-add.
+
+#pragma once
+
+#include "mxu_common.cuh"
+
+namespace pdwt_strip {
+
+using namespace pdwt_mxu;
+
+// Does the scheme read the taps' second value?
+template <int S>
+constexpr bool kTapLo = (S == B2F || S == B3);
+
+// Strip length of the passes that read the staged bands: 8 outputs for the
+// one-term schemes, 4 for the others (their accumulators take 2-3x the
+// registers).  The launch plans in kernels/swt_matmul.py and
+// kernels/ns_matmul.py mirror it.
+template <int S>
+constexpr int kRowStrip = (S == FD || S == B1) ? 8 : 4;
+constexpr int kColStrip = 8;
+
+// acc[k][p] += sum_b sum_j t[k][b][j] * x_b[(p + j) * xs], for p < P, k < R,
+// b < nbands, j < nt (a multiple of CH): x_b = x + b * bstride (its second
+// operand lo_off further on), t[k][b] = t1 + k * kstride + b * nt (16-byte
+// aligned; the second values at the same offset of t2).
+template <int S, int P, int R, int CH, typename St>
+__device__ __forceinline__ void band_strip(Acc<S> (&acc)[R][P], const St* __restrict__ x,
+                                           int lo_off, int bstride, int nbands, int xs,
+                                           const float* __restrict__ t1,
+                                           const float* __restrict__ t2, int kstride, int nt) {
+  static_assert(CH % 4 == 0, "taps are read as float4");
+  for (int b = 0; b < nbands; ++b) {
+    const St* xb = x + b * bstride;
+    for (int c = 0; c < nt; c += CH) {
+      float d1[P + CH - 1], d2[P + CH - 1];
+      const St* xc = xb + c * xs;
+#pragma unroll
+      for (int i = 0; i < P + CH - 1; ++i) {
+        d1[i] = to_f(xc[i * xs]);
+        d2[i] = kDataLo<S> ? to_f(xc[lo_off + i * xs]) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        float ta[CH], tb[CH];
+        const int o = k * kstride + b * nt + c;
+#pragma unroll
+        for (int q = 0; q < CH / 4; ++q) {
+          const float4 u = reinterpret_cast<const float4*>(t1 + o)[q];
+          ta[4 * q] = u.x, ta[4 * q + 1] = u.y, ta[4 * q + 2] = u.z, ta[4 * q + 3] = u.w;
+          if constexpr (kTapLo<S>) {
+            const float4 w = reinterpret_cast<const float4*>(t2 + o)[q];
+            tb[4 * q] = w.x, tb[4 * q + 1] = w.y, tb[4 * q + 2] = w.z, tb[4 * q + 3] = w.w;
+          } else {
+            tb[4 * q] = tb[4 * q + 1] = tb[4 * q + 2] = tb[4 * q + 3] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < CH; ++j)
+#pragma unroll
+          for (int p = 0; p < P; ++p) acc[k][p].add(ta[j], tb[j], d1[p + j], d2[p + j]);
+      }
+    }
+  }
+}
+
+// tab[w] = (base + step * w) mod n for w < nw: two 64-bit remainders per
+// thread, then a 32-bit one per entry.
+__device__ __forceinline__ void fill_index(int* tab, int nw, long long base, long long step,
+                                           int n) {
+  const unsigned long long b0 = wrapl(base, n), s = wrapl(step, n);
+  for (int w = threadIdx.x; w < nw; w += blockDim.x) {
+    const unsigned long long x = b0 + s * w;
+    tab[w] = x >> 32 ? (int)(x % n) : (int)((unsigned)x % (unsigned)n);
+  }
+}
+
+// dst[e] = src[idx(e)] (0 where idx(e) < 0) for e < n, around `work`: the
+// loads of the first blockDim.x values are issued before work() runs and
+// stored after it, so their latency hides behind it (the taps, behind the
+// first staging).
+template <typename I, typename W>
+__device__ __forceinline__ void fill_around(float* dst, int n, const float* __restrict__ src,
+                                            I idx, W work) {
+  const int e0 = threadIdx.x, i0 = e0 < n ? idx(e0) : -1;
+  const float v0 = i0 >= 0 ? __ldg(src + i0) : 0.f;
+  work();
+  if (e0 < n) dst[e0] = v0;
+  for (int e = e0 + blockDim.x; e < n; e += blockDim.x) {
+    const int i = idx(e);
+    dst[e] = i >= 0 ? __ldg(src + i) : 0.f;
+  }
+}
+
+// Sources of up to four bands, float32 or bf16 (bit k of `bf16` set: band k
+// is bf16); passed by value, so an unrolled band index stays in registers.
+struct Bands {
+  const void* p[4];
+  unsigned bf16;
+};
+
+__device__ __forceinline__ float load_band(const Bands& b, int k, size_t o) {
+  return (b.bf16 >> k & 1) ? load_f(static_cast<const __nv_bfloat16*>(b.p[k]) + o)
+                           : load_f(static_cast<const float*>(b.p[k]) + o);
+}
+
+// Stage the nr x nc windows of NB bands at dst + k * bstride (row-major,
+// pitch nc; second operand lo_off further on): sample (i, w) of band k =
+// src_k[rowoff + rows[i] * n_c + cols[w]], thresholded first where bit k of
+// `thr` is set.  Lanes run along the window's columns, so a warp reads
+// consecutive addresses where the columns are; each thread issues LOADS
+// loads before it uses one, so the staging pays the memory latency once per
+// batch, not once per sample.
+template <int S, int NB, int LOADS, typename St>
+__device__ __forceinline__ void stage_bands(const Bands src, unsigned thr, size_t rowoff, int n_c,
+                                            const int* rows, const int* cols, int nr, int nc,
+                                            St* dst, int bstride, int lo_off, int mode,
+                                            float beta) {
+  constexpr int U = LOADS / NB;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  for (int w = lane; w < nc; w += 32) {
+    const int cw = cols[w];
+    for (int i0 = warp; i0 < nr; i0 += nw * U) {
+      float v[NB][U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * nw;
+        const size_t o = rowoff + (size_t)rows[i < nr ? i : nr - 1] * n_c + cw;
+#pragma unroll
+        for (int k = 0; k < NB; ++k) v[k][u] = load_band(src, k, o);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * nw;
+        if (i >= nr) break;
+#pragma unroll
+        for (int k = 0; k < NB; ++k) {
+          const float x = (thr >> k & 1) ? thresh(v[k][u], mode, beta) : v[k][u];
+          St* d = dst + k * bstride;
+          stage<S>(x, d, d + lo_off, i * nc + w);
+        }
+      }
+    }
+  }
+}
+
+// Copy an nr x nc float tile (pitch `pitch`) to the output rows orow(i) and
+// columns ocol(u) where they fall inside (n_r, n_c); lanes along the columns.
+template <typename TO, typename FR, typename FC>
+__device__ __forceinline__ void store_tile(TO* __restrict__ out, size_t plane, int n_r, int n_c,
+                                           const float* ob, int pitch, int nr, int nc, FR orow,
+                                           FC ocol) {
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  for (int i = threadIdx.x >> 5; i < nr; i += nw) {
+    const long long r = orow(i);
+    if (r >= n_r) continue;
+    TO* dst = out + plane + (size_t)r * n_c;
+    for (int u = lane; u < nc; u += 32) {
+      const long long c = ocol(u);
+      if (c < n_c) dst[c] = from_f<TO>(ob[i * pitch + u]);
+    }
+  }
+}
+
+// Pitch of a temp read by lanes along its rows: an odd number of 32-bit
+// words, so the lanes fall on distinct banks.
+template <typename St>
+__host__ __device__ constexpr int temp_pitch(int w) {
+  if constexpr (sizeof(St) == 4) return w | 1;
+  return ((w + 1) / 4) * 4 + 2;  // w <= pitch, pitch = 2 mod 4
+}
+
+__host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) & ~size_t(15); }
+
+}  // namespace pdwt_strip

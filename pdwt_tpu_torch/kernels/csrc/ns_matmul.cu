@@ -32,24 +32,28 @@
 // geometry of poly_geometry(hlen) when decimated: org = lo, off_q = lo + o_q;
 // a-trous: org = swt_inv_center(hlen), one phase of all hlen taps).
 //
-// Layout.  A block owns a 32 x 32 tile of outputs (forward) or of subband
-// positions (inverse); at f > 1 the tile's positions along each axis are one
-// residue class mod f (mxu_common.cuh: Axis), so the staged windows do not
-// grow with the level.  The taps (at most 4 x 5 filters of 40 taps, both
-// terms) come from a small device buffer and are staged once per block.
+// Layout.  The forward's block owns a 32 x 32 tile of outputs; at f > 1 the
+// tile's positions along each axis are one residue class mod f
+// (mxu_common.cuh: Axis), so the staged windows do not grow with the level.
+// The inverse (redesigned for Hopper's CUDA cores, band_strip.cuh) takes its
+// tile, its column layout and its block size from a launch plan made on the
+// host; its own comment below says how.  The taps (at most 4 x 5 filters of
+// 40 taps, both terms) come from a small device buffer and are staged once
+// per block.
 //
 // Bound.  At 2048^2 a rank-3 level reads 8 MiB (bf16) and writes 4 MiB of
 // float32 plus 6 MiB of bf16 (5.6 us at 3.35 TB/s); with 8 taps it does
 // 1.5 r R C hlen = 150 M multiply-adds per term (decimated), 0.3 GFLOP, about
 // 5 us on the float32 cores for b1: balanced, as the separable kernels.  Each
 // input sample is staged once per window and split then; the temps never
-// leave shared memory.  Tensor cores over band tiles are later work.
+// leave shared memory.
 
-#include "mxu_common.cuh"
+#include "band_strip.cuh"
 
 namespace {
 
 using namespace pdwt_mxu;
+using namespace pdwt_strip;
 
 constexpr int LT = 32;
 constexpr int BX = 32;
@@ -75,10 +79,6 @@ __device__ __forceinline__ void stage_ns_taps(float2* ct, float4* rt1, float4* r
     rt2[e] = make_float4(__ldg(base + 3 * hlen), __ldg(base + 5 * hlen), __ldg(base + 7 * hlen),
                          __ldg(base + 9 * hlen));
   }
-}
-
-__device__ __forceinline__ float lane(const float4& t, int s) {
-  return s == 0 ? t.x : (s == 1 ? t.y : (s == 2 ? t.z : t.w));
 }
 
 // ---------------------------------------------------------------------------
@@ -164,6 +164,27 @@ ns_fwd_mxu_kernel(const TI* __restrict__ x, float* __restrict__ a, TD* __restric
   }
 }
 
+// ---------------------------------------------------------------------------
+// Inverse level, polyphase or a-trous.  Replaces _ns_inv_kernel
+// (ns_matmul_pallas.py:206).  Redesigned for Hopper's CUDA cores
+// (band_strip.cuh).  A block owns lr subband rows (one residue class mod f)
+// by lc subband columns (consecutive, gc = 1, or one residue class, gc = f;
+// as kernel 14's).  Per batch item: stage the split windows of the four
+// subbands; along the rows, each thread takes a strip of kRowStrip subband
+// rows of one window column and, per output phase q, sums the four subbands
+// (s outer, tap inner) for all R rank terms at once, so every staged sample
+// is read once for all k, into R shared temps (rows S tt + q), split again;
+// along the columns, each thread takes a strip of kColStrip positions of one
+// temp row and sums the R temps (k outer, tap inner) for each phase, into a
+// float tile of S lr x S lc outputs, written out with lanes along the
+// columns.  The taps of a phase (p_q + S b, b < nb_q) are padded with zeros
+// to nt, a multiple of 4.  The plan (kernels/ns_matmul.py:
+// ns_inv_launch_plan) picks the tile so that the deep levels still get about
+// two blocks per SM, and the entry point refuses a plan that does not add up.
+// ---------------------------------------------------------------------------
+constexpr int kInvCh = 4;       // taps per chunk of the inverse's strips
+constexpr int kStageLoads = 16;  // loads in flight per thread while staging
+
 // The inverse's phases (see the file's index spec), from the int array
 // kernels/ns_matmul.py passes: stride, org, p[0], p[1], nb[0], nb[1],
 // off[0], off[1].
@@ -172,97 +193,123 @@ struct Phase {
   int p[2], nb[2], off[2];
 };
 
-// ---------------------------------------------------------------------------
-// Inverse level, polyphase or a-trous.  Replaces _ns_inv_kernel
-// (ns_matmul_pallas.py:206).  Stages the W x W windows of the four subbands
-// split; for each k synthesises along the rows, summing the four subbands
-// (s outer, tap inner), into a shared temp (r x S LT x W), split again; then
-// along the columns, summing the r temps (k outer, tap inner), and writes each
-// output (pair, when decimated) once.
-// ---------------------------------------------------------------------------
-template <int S, typename TD, typename TO>
-__global__ void __launch_bounds__(BX * BY)
-ns_inv_mxu_kernel(const float* __restrict__ a, const TD* __restrict__ h,
-                  const TD* __restrict__ v, const TD* __restrict__ d, TO* __restrict__ out,
-                  int B, int Mr, int Mc, int hlen, int rank, int f, int frr, int frc, int W,
-                  const Phase g, const float* __restrict__ taps) {
+// Shared-memory bytes of the inverse: row and column taps, index tables, the
+// band windows (which hold the output tile once the row pass is done), the
+// R temps.  kernels/ns_matmul.py:_inv_smem mirrors it.
+template <int S>
+size_t ns_inv_smem(int rank, int st, int offmax, int lr, int lc, int dc, int nt) {
   using St = Stage<S>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const size_t nd = kDataLo<S> ? 2 : 1;
+  const size_t WR = lr + offmax + nt - 1, WC = lc + (size_t)(offmax + nt - 1) * dc;
+  const size_t win = 4 * nd * WR * WC * sizeof(St);
+  const size_t tile = (size_t)st * lr * (st * lc + 1) * sizeof(float);
+  return 40 * (size_t)st * rank * nt + align16((WR + WC) * sizeof(int)) +
+         align16(win > tile ? win : tile) +
+         (size_t)rank * nd * st * lr * temp_pitch<St>((int)WC) * sizeof(St);
+}
+
+template <int S, int R>
+__global__ void __launch_bounds__(256)
+ns_inv_mxu_kernel(const float* __restrict__ a, const void* __restrict__ h,
+                  const void* __restrict__ v, const void* __restrict__ d, void* __restrict__ out,
+                  int det_bf16, int out_bf16, int B, int Mr, int Mc, int hlen, int f,
+                  const Phase g, const float* __restrict__ taps, int lr, int lc, int gc,
+                  int nt) {
+  using St = Stage<S>;
   constexpr int nd = kDataLo<S> ? 2 : 1;
-  const int WW = W * W;
-  const int st = g.stride, SL = g.stride * LT;
-  St* sb = reinterpret_cast<St*>(smem_raw);  // band s, operand e at sb + (s*nd + e)*WW
-  St* tk1 = sb + 4 * nd * WW;                 // r x SL x W, rows synthesised per k
-  St* tk2 = tk1 + rank * SL * W;
-  __shared__ float2 ct[kMaxRank * kMaxHlen];
-  __shared__ float4 rt1[kMaxRank * kMaxHlen], rt2[kMaxRank * kMaxHlen];
-  stage_ns_taps(ct, rt1, rt2, taps, rank, hlen);
-  const Axis ar = axis_of<LT>(blockIdx.y, frr, f), ac = axis_of<LT>(blockIdx.x, frc, f);
-  const int tx = threadIdx.x, ty = threadIdx.y;
+  constexpr int PR = kRowStrip<S>, PC = kColStrip;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int st = g.stride, dc = f / gc;
+  const int offmax = g.off[0] > g.off[st - 1] ? g.off[0] : g.off[st - 1];
+  const int WR = lr + offmax + nt - 1, WC = lc + (offmax + nt - 1) * dc;
+  const int TP = temp_pitch<St>(WC), TR = st * lr, OC = st * lc + 1;
+  float* rt1 = reinterpret_cast<float*>(smem_raw);  // [q][k][s][nt], first values
+  float* rt2 = rt1 + st * R * 4 * nt;
+  float* ct1 = rt2 + st * R * 4 * nt;                // [q][k][nt]
+  float* ct2 = ct1 + st * R * nt;
+  int* rows = reinterpret_cast<int*>(ct2 + st * R * nt);
+  int* cols = rows + WR;
+  unsigned char* p = reinterpret_cast<unsigned char*>(rows) +
+                     align16((size_t)(WR + WC) * sizeof(int));
+  St* win = reinterpret_cast<St*>(p);  // band s, operand e at win + (s * nd + e) * WR * WC
+  float* tile = reinterpret_cast<float*>(p);  // S lr x (S lc + 1), after the row pass
+  const size_t wbytes = (size_t)4 * nd * WR * WC * sizeof(St);
+  const size_t tbytes = (size_t)TR * OC * sizeof(float);
+  St* tmp = reinterpret_cast<St*>(p + align16(wbytes > tbytes ? wbytes : tbytes));
+  const int BS = nd * WR * WC, TS = nd * TR * TP;  // band and temp strides
+
+  const int frr = f < Mr ? f : Mr, frc = gc == 1 ? 1 : (f < Mc ? f : Mc);
+  const int rho_r = blockIdx.y % frr, q0r = (blockIdx.y / frr) * lr;
+  const int rho_c = blockIdx.x % frc, q0c = (blockIdx.x / frc) * lc;
+  fill_index(rows, WR, rho_r + (long long)f * (q0r - g.org), f, Mr);
+  fill_index(cols, WC, rho_c + (long long)gc * q0c - (long long)g.org * f, gc, Mc);
+  const Bands src = {{a, h, v, d}, det_bf16 ? 0xeu : 0u};
   const int Ro = st * Mr, Co = st * Mc;
+  __syncthreads();
+  // rt1, rt2 [q][k][s][nt], ct1, ct2 [q][k][nt], one after the other, from
+  // taps[k][flt][e2][j] at ((k * 5 + flt) * 2 + e2) * hlen + j (flt 0 = b_k,
+  // flt 1 + s = a_k^(s)), j = p_q + S bb, zero past nb_q
+  auto tap = [&](int e) {
+    const int nr = st * R * 4 * nt, e2 = e >= nr && e < 2 * nr ? 1 : (e >= 2 * nr + st * R * nt);
+    const bool row = e < 2 * nr;
+    const int o = row ? e - e2 * nr : e - 2 * nr - e2 * st * R * nt;
+    const int bb = o % nt, flt = row ? 1 + (o / nt) % 4 : 0;
+    const int qk = row ? o / (4 * nt) : o / nt, q = qk / R, k = qk % R;
+    return bb < g.nb[q] ? ((k * 5 + flt) * 2 + e2) * hlen + g.p[q] + st * bb : -1;
+  };
 
   for (int b = blockIdx.z; b < B; b += gridDim.z) {
-    for (int i = ty; i < W; i += BY) {
-      const size_t roff = ((size_t)b * Mr + wrapl(ar.at(i - g.org), Mr)) * Mc;
-      for (int j = tx; j < W; j += BX) {
-        const size_t o = roff + wrapl(ac.at(j - g.org), Mc);
-        const int k = i * W + j;
-        stage<S>(__ldg(a + o), sb, sb + WW, k);
-        stage<S>(load_f(h + o), sb + nd * WW, sb + (nd + 1) * WW, k);
-        stage<S>(load_f(v + o), sb + 2 * nd * WW, sb + (2 * nd + 1) * WW, k);
-        stage<S>(load_f(d + o), sb + 3 * nd * WW, sb + (3 * nd + 1) * WW, k);
-      }
-    }
+    const size_t plane = (size_t)b * Mr * Mc;
+    auto stage_all = [&] {
+      stage_bands<S, 4, kStageLoads>(src, 0, plane, Mc, rows, cols, WR, WC, win, BS, WR * WC,
+                                     kNone, 0.f);
+    };
+    if (b == (int)blockIdx.z)
+      fill_around(rt1, 10 * st * R * nt, taps, tap, stage_all);
+    else
+      stage_all();
     __syncthreads();
-
-    // along the rows: temp row r2 = S tt + q of every window column, per k
-    for (int r2 = ty; r2 < SL; r2 += BY) {
-      const int tt = r2 / st, q = r2 % st;
-      const int p = g.p[q], nb = g.nb[q], base = (tt + g.off[q]) * W;
-      for (int col = tx; col < W; col += BX) {
-        for (int k = 0; k < rank; ++k) {
-          Acc<S> acc;
-#pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            const St* b1 = sb + s * nd * WW;
-            for (int bb = 0; bb < nb; ++bb) {
-              const int i = base + bb * W + col;
-              const float d2 = kDataLo<S> ? to_f(b1[i + WW]) : 0.f;
-              const int e = k * hlen + p + st * bb;
-              acc.add(lane(rt1[e], s), lane(rt2[e], s), to_f(b1[i]), d2);
-            }
-          }
-          stage<S>(acc.total(), tk1, tk2, (k * SL + r2) * W + col);
-        }
-      }
-    }
-    __syncthreads();
-
-    // along the columns: output column S (position of tx) + q, summing over k
-    for (int r2 = ty; r2 < SL; r2 += BY) {
-      float res[2] = {0.f, 0.f};
+    // along the rows: temp rows S (r0 + i) + q of window column w, all k at once
+    for (int it = threadIdx.x; it < (lr / PR) * WC; it += blockDim.x) {
+      const int r0 = (it / WC) * PR, w = it % WC;
       for (int q = 0; q < st; ++q) {
-        const int p = g.p[q], nb = g.nb[q];
-        Acc<S> acc;
-        for (int k = 0; k < rank; ++k) {
-          const int base = (k * SL + r2) * W + tx + g.off[q];
-          for (int bb = 0; bb < nb; ++bb) {
-            const float d2 = kDataLo<S> ? to_f(tk2[base + bb]) : 0.f;
-            const float2 t = ct[k * hlen + p + st * bb];
-            acc.add(t.x, t.y, to_f(tk1[base + bb]), d2);
-          }
-        }
-        res[q] = acc.total();
-      }
-      const long long orow = st * ar.at(r2 / st) + r2 % st, ocol = st * ac.at(tx);
-      if (orow < Ro && ocol < Co) {
-        TO* po = out + ((size_t)b * Ro + orow) * Co + ocol;
-        if (st == 2)
-          store_pair(po, res[0], res[1]);
-        else
-          *po = from_f<TO>(res[0]);
+        Acc<S> acc[R][PR];
+        band_strip<S, PR, R, kInvCh>(acc, win + (r0 + g.off[q]) * WC + w, WR * WC, BS, 4, WC,
+                                     rt1 + q * R * 4 * nt, rt2 + q * R * 4 * nt, 4 * nt, nt);
+#pragma unroll
+        for (int k = 0; k < R; ++k)
+#pragma unroll
+          for (int i = 0; i < PR; ++i)
+            stage<S>(acc[k][i].total(), tmp + k * TS, tmp + k * TS + TR * TP,
+                     (st * (r0 + i) + q) * TP + w);
       }
     }
+    __syncthreads();
+    // along the columns: temp row r2, positions t0 + dc i, both phases
+    for (int it = threadIdx.x; it < TR * (lc / PC); it += blockDim.x) {
+      const int r2 = it % TR, sp = it / TR, t0 = sp % dc + dc * (sp / dc) * PC;
+      for (int q = 0; q < st; ++q) {
+        Acc<S> acc[1][PC];
+        band_strip<S, PC, 1, kInvCh>(acc, tmp + r2 * TP + t0 + g.off[q] * dc, TR * TP, TS, R, dc,
+                                     ct1 + q * R * nt, ct2 + q * R * nt, 0, nt);
+#pragma unroll
+        for (int i = 0; i < PC; ++i) tile[r2 * OC + st * (t0 + dc * i) + q] = acc[0][i].total();
+      }
+    }
+    __syncthreads();
+    const int sh = st - 1;  // S is 1 or 2: u / S = u >> sh, u % S = u & sh
+    auto orow = [&](int r2) {
+      return st * (rho_r + (long long)f * (q0r + (r2 >> sh))) + (r2 & sh);
+    };
+    auto ocol = [&](int u) {
+      return st * (rho_c + (long long)gc * (q0c + (u >> sh))) + (u & sh);
+    };
+    const size_t oplane = (size_t)b * Ro * Co;
+    if (out_bf16)
+      store_tile(static_cast<__nv_bfloat16*>(out), oplane, Ro, Co, tile, OC, TR, st * lc, orow,
+                 ocol);
+    else
+      store_tile(static_cast<float*>(out), oplane, Ro, Co, tile, OC, TR, st * lc, orow, ocol);
     __syncthreads();
   }
 }
@@ -271,6 +318,18 @@ cudaError_t check(int B, int hlen, int rank) {
   if (hlen < 2 || hlen > kMaxHlen || rank < 1 || rank > kMaxRank || B < 1)
     return cudaErrorInvalidValue;
   return cudaSuccess;
+}
+
+// Call f(std::integral_constant<int, R>) for a runtime rank R in 1..kMaxRank.
+template <typename F>
+cudaError_t with_rank(int rank, F&& f) {
+  switch (rank) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // Grid over (Mr, Mc) tile positions at dilation f, batch in z.
@@ -328,45 +387,48 @@ extern "C" int pdwt_ns_fwd_level_2d_mxu(const void* x, float* a, void* h, void* 
 }
 
 // geo: stride, org, p[0], p[1], nb[0], nb[1], off[0], off[1] (Phase); the
-// output is (B, stride Mr, stride Mc).
+// output is (B, stride Mr, stride Mc).  The launch plan
+// (kernels/ns_matmul.py:ns_inv_launch_plan): tile lr x lc, column stride gc
+// (1 or f), nt padded taps per phase, threads, grid (gx, gy, gz) and dynamic
+// shared-memory bytes; a plan that does not add up is refused
+// (cudaErrorInvalidValue).
 extern "C" int pdwt_ns_inv_level_2d_mxu(const float* a, const void* h, const void* v,
                                         const void* d, void* out, int B, int Mr, int Mc,
                                         const float* taps, int hlen, int rank, int f,
                                         const int* geo, int scheme, int det_bf16, int out_bf16,
-                                        void* stream) {
+                                        int lr, int lc, int gc, int nt, int threads, int gx,
+                                        int gy, int gz, int smem, void* stream) {
   cudaError_t e = check(B, hlen, rank);
   if (e != cudaSuccess) return e;
   const Phase g = {geo[0], geo[1], {geo[2], geo[3]}, {geo[4], geo[5]}, {geo[6], geo[7]}};
   if (Mr < 1 || Mc < 1 || f < 1 || !(g.stride == 1 || (g.stride == 2 && f == 1)))
     return cudaErrorInvalidValue;
-  int span = 0;
+  int offmax = 0;
   for (int q = 0; q < g.stride; ++q) {
-    if (g.off[q] < 0 || g.p[q] < 0 || g.p[q] + g.stride * (g.nb[q] - 1) >= hlen)
+    if (g.off[q] < 0 || g.p[q] < 0 || g.nb[q] < 1 || g.nb[q] > nt ||
+        g.p[q] + g.stride * (g.nb[q] - 1) >= hlen)
       return cudaErrorInvalidValue;
-    span = span > g.off[q] + g.nb[q] - 1 ? span : g.off[q] + g.nb[q] - 1;
+    offmax = offmax > g.off[q] ? offmax : g.off[q];
   }
-  const int W = LT + span;
-  dim3 grid;
-  int frr, frc;
-  e = ns_grid(B, Mr, Mc, f, &grid, &frr, &frc);
-  if (e != cudaSuccess) return e;
+  if (nt % kInvCh || nt > kMaxHlen || !(gc == 1 || gc == f) || lr < 1 || lc < 1 ||
+      threads < 32 || threads > 256 || threads % 32 || lc % (kColStrip * (f / gc)))
+    return cudaErrorInvalidValue;
+  const long long want_x = gc == 1 ? (Mc + (long long)lc - 1) / lc : axis_blocks(Mc, f, lc);
+  if (gx != want_x || gy != axis_blocks(Mr, f, lr) || gy > 65535 || gz != (B < 65535 ? B : 65535))
+    return cudaErrorInvalidValue;
   return with_scheme(scheme, [&](auto sc) {
     constexpr int S = decltype(sc)::value;
-    return with_type(det_bf16, [&](auto td) {
-      using TD = typename decltype(td)::type;
-      return with_type(out_bf16, [&](auto to) -> cudaError_t {
-        using TO = typename decltype(to)::type;
-        constexpr int nd = kDataLo<S> ? 2 : 1;
-        const size_t smem =
-            sizeof(Stage<S>) * nd * (4 * (size_t)W * W + (size_t)rank * g.stride * LT * W);
-        auto kernel = ns_inv_mxu_kernel<S, TD, TO>;
-        cudaError_t e2 = prepare(kernel, smem, kNsTapsSmem);
-        if (e2 != cudaSuccess) return e2;
-        kernel<<<grid, dim3(BX, BY), smem, (cudaStream_t)stream>>>(
-            a, static_cast<const TD*>(h), static_cast<const TD*>(v), static_cast<const TD*>(d),
-            static_cast<TO*>(out), B, Mr, Mc, hlen, rank, f, frr, frc, W, g, taps);
-        return cudaGetLastError();
-      });
+    if (lr % kRowStrip<S> ||
+        (size_t)smem != ns_inv_smem<S>(rank, g.stride, offmax, lr, lc, f / gc, nt))
+      return cudaErrorInvalidValue;
+    return with_rank(rank, [&](auto rk) -> cudaError_t {
+      constexpr int R = decltype(rk)::value;
+      auto kernel = ns_inv_mxu_kernel<S, R>;
+      cudaError_t e2 = prepare(kernel, smem, 0);
+      if (e2 != cudaSuccess) return e2;
+      kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+          a, h, v, d, out, det_bf16, out_bf16, B, Mr, Mc, hlen, f, g, taps, lr, lc, gc, nt);
+      return cudaGetLastError();
     });
   });
 }
@@ -385,7 +447,10 @@ extern "C" int pdwt_ns_swt_inv_level_2d_mxu(const float* a, const void* h, const
                                             const void* d, void* out, int B, int Mr, int Mc,
                                             const float* taps, int hlen, int rank, int f,
                                             const int* geo, int scheme, int det_bf16,
-                                            int out_bf16, void* stream) {
+                                            int out_bf16, int lr, int lc, int gc, int nt,
+                                            int threads, int gx, int gy, int gz, int smem,
+                                            void* stream) {
   return pdwt_ns_inv_level_2d_mxu(a, h, v, d, out, B, Mr, Mc, taps, hlen, rank, f, geo, scheme,
-                                  det_bf16, out_bf16, stream);
+                                  det_bf16, out_bf16, lr, lc, gc, nt, threads, gx, gy, gz, smem,
+                                  stream);
 }

@@ -25,11 +25,14 @@
 // a device buffer) is applied in float32 to each staged detail before its
 // split, as the TPU kernel's det() does (swt_matmul_pallas.py:335-342).
 //
-// Layout.  A block owns a 32 x 32 tile of positions of one residue class mod f
-// along each axis (mxu_common.cuh: Axis), so every dilated tap of its outputs
-// lands in the staged window of (32 + hlen - 1)^2 samples of those classes:
-// shared memory does not grow with the level (db7: 45 x 45 samples at any f),
-// and any size and dilation runs, the route rule's or not.
+// Layout.  The forward's block owns a 32 x 32 tile of positions of one
+// residue class mod f along each axis (mxu_common.cuh: Axis), so every
+// dilated tap of its outputs lands in the staged window of (32 + hlen - 1)^2
+// samples of those classes: shared memory does not grow with the level, and
+// any size and dilation runs.  The inverse (redesigned for Hopper's CUDA
+// cores, band_strip.cuh) takes a tile of rows of one class by consecutive
+// columns where the window allows, register-blocked strips and a launch plan
+// from the host; its own comment below says how.
 //
 // Bound.  At 1024^2 a level reads one image and writes four planes (forward)
 // or the reverse: 4.2 MiB of bf16 in and 4 MiB of float32 plus 6 MiB of bf16
@@ -37,16 +40,15 @@
 // a 1024^2 plane are 88 M multiply-adds per term, 0.18 GFLOP per level and
 // term, 3 us for b1 and up to 8 us for b3 on the float32 cores: the level is
 // close to balanced, and the staging matters as much as the sums.  Each input
-// sample is staged once per window (1.98x for db7 at LT = 32) and split then,
-// never per tap; the row-pass temps never leave shared memory.  At f > 1 the
-// tile's global reads and writes are f apart (uncoalesced); a layout with
-// consecutive columns and tensor cores over band tiles are later work.
+// sample is staged once per window and split then, never per tap; the
+// row-pass temps never leave shared memory.
 
-#include "mxu_common.cuh"
+#include "band_strip.cuh"
 
 namespace {
 
 using namespace pdwt_mxu;
+using namespace pdwt_strip;
 
 constexpr int LT = 32;  // tile positions per axis
 constexpr int BX = 32;
@@ -136,97 +138,131 @@ swt_fwd_mxu_kernel(const TI* __restrict__ x, float* __restrict__ a, TD* __restri
 
 // ---------------------------------------------------------------------------
 // Inverse level.  Replaces _swt_inv_mxu_kernel (swt_matmul_pallas.py:293).
-// Stages the W x W windows of the four subbands split into the scheme's
-// operands (H, V, D thresholded first when `mode` asks); synthesises along
-// the rows from (A, H) and from (V, D) into two shared temps, each one
-// float32 sum over the low taps on the first band then the high taps on the
-// second, split again; then along the columns, the low taps on the first temp
-// then the high taps on the second, and writes the output once.
+// Redesigned for Hopper's CUDA cores (band_strip.cuh).  A block owns lr rows
+// of one residue class mod f (window row i <-> row rho + f (q0 + i - cen),
+// dilation 1 inside the window) and lc columns that are either consecutive
+// (gc = 1, for small f: the window's columns are consecutive in memory, so
+// the staging loads and the stores are coalesced, and a tap steps dc = f
+// window columns) or one residue class (gc = f, dc = 1, for large f, where a
+// consecutive window would grow with f).  Per batch item: stage the
+// thresholded, split windows of the four subbands (all four, or (A, H) then
+// (V, D) when shared memory is short: nph = 2), synthesise along the rows
+// into two shared temps, each one float32 sum over the low taps on the first
+// band then the high taps on the second (strips of kRowStrip rows per
+// thread, one window column per lane), split again; then along the columns,
+// the low taps on the first temp then the high taps on the second (strips of
+// kColStrip outputs dc apart per thread, one tile row per lane) into a float
+// tile, written out with lanes along the columns.  The taps are padded with
+// zeros to nt, a multiple of 8; the plan (kernels/swt_matmul.py:
+// swt_inv_launch_plan) picks lr, lc, gc, nph, the threads, the grid and the
+// shared-memory bytes, and the entry point refuses a plan that does not add
+// up.
 // ---------------------------------------------------------------------------
-template <int S, typename TD, typename TO>
-__global__ void __launch_bounds__(BX * BY)
-swt_inv_mxu_kernel(const float* __restrict__ a, const TD* __restrict__ h,
-                   const TD* __restrict__ v, const TD* __restrict__ d, TO* __restrict__ out,
-                   int B, int R, int C, int hlen, int f, int cen, int frr, int frc, int mode,
-                   const float* __restrict__ beta, const __grid_constant__ Taps4 tp) {
+constexpr int kInvCh = 8;       // taps per chunk of the inverse's strips
+constexpr int kStageLoads = 32;  // loads in flight per thread while staging
+
+// Shared-memory bytes of the inverse: taps, index tables, the band windows
+// (which hold the output tile once the row pass is done), the two temps.
+// kernels/swt_matmul.py:_inv_smem mirrors it.
+template <int S>
+size_t inv_smem(int lr, int lc, int dc, int nt, int nph) {
   using St = Stage<S>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const size_t nd = kDataLo<S> ? 2 : 1;
+  const size_t WR = lr + nt - 1, WC = lc + (size_t)(nt - 1) * dc;
+  const size_t win = (nph == 1 ? 4 : 2) * nd * WR * WC * sizeof(St);
+  const size_t tile = (size_t)lr * (lc + 1) * sizeof(float);
+  return 16 * (size_t)nt + align16((WR + WC) * sizeof(int)) + align16(win > tile ? win : tile) +
+         2 * nd * lr * temp_pitch<St>((int)WC) * sizeof(St);
+}
+
+template <int S>
+__global__ void __launch_bounds__(256)
+swt_inv_mxu_kernel(const float* __restrict__ a, const void* __restrict__ h,
+                   const void* __restrict__ v, const void* __restrict__ d, void* __restrict__ out,
+                   int det_bf16, int out_bf16, int B, int R, int C, int hlen, int f, int cen,
+                   int mode, const float* __restrict__ beta, int lr, int lc, int gc, int nph,
+                   int nt, const float* __restrict__ taps) {
+  using St = Stage<S>;
   constexpr int nd = kDataLo<S> ? 2 : 1;
-  const int W = LT + hlen - 1;
-  const int WW = W * W;
-  St* s = reinterpret_cast<St*>(smem_raw);  // band k, operand e at s + (k*nd + e)*WW
-  St* sa = s;
-  St* sh = s + nd * WW;
-  St* sv = s + 2 * nd * WW;
-  St* sd = s + 3 * nd * WW;
-  St* t1 = s + 4 * nd * WW;       // LT x W, rows synthesised from (A, H)
-  St* t2 = t1 + nd * LT * W;      // LT x W, rows synthesised from (V, D)
-  const int TW = LT * W;          // offset of a temp's second operand
-  __shared__ float4 tq[PDWT_MXU_MAX_HLEN];
-  stage_taps(tq, tp, hlen);
-  const Axis ar = axis_of<LT>(blockIdx.y, frr, f), ac = axis_of<LT>(blockIdx.x, frc, f);
-  const int tx = threadIdx.x, ty = threadIdx.y;
+  constexpr int PR = kRowStrip<S>, PC = kColStrip;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int dc = f / gc;
+  const int WR = lr + nt - 1, WC = lc + (nt - 1) * dc, TP = temp_pitch<St>(WC);
+  const int nbw = nph == 1 ? 4 : 2;
+  float* t1 = reinterpret_cast<float*>(smem_raw);  // lo | hi, first values
+  float* t2 = t1 + 2 * nt;                          // second values
+  int* rows = reinterpret_cast<int*>(t2 + 2 * nt);
+  int* cols = rows + WR;
+  unsigned char* p = smem_raw + 16 * (size_t)nt + align16((size_t)(WR + WC) * sizeof(int));
+  St* win = reinterpret_cast<St*>(p);  // band u, operand e at win + (u * nd + e) * WR * WC
+  float* tile = reinterpret_cast<float*>(p);  // lr x (lc + 1), after the row pass
+  const size_t wbytes = (size_t)nbw * nd * WR * WC * sizeof(St);
+  const size_t tbytes = (size_t)lr * (lc + 1) * sizeof(float);
+  St* tmp = reinterpret_cast<St*>(p + align16(wbytes > tbytes ? wbytes : tbytes));
+  const int BS = nd * WR * WC, TS = nd * lr * TP;  // band and temp strides
+
+  const int frr = f < R ? f : R, frc = gc == 1 ? 1 : (f < C ? f : C);
+  const int rho_r = blockIdx.y % frr, q0r = (blockIdx.y / frr) * lr;
+  const int rho_c = blockIdx.x % frc, q0c = (blockIdx.x / frc) * lc;
+  fill_index(rows, WR, rho_r + (long long)f * (q0r - cen), f, R);
+  fill_index(cols, WC, rho_c + (long long)gc * q0c - (long long)cen * f, gc, C);
   const float bt = mode == kNone ? 0.f : __ldg(beta);
+  const unsigned tb = det_bf16 ? 0xe : 0;  // H, V, D bf16
+  const Bands all = {{a, h, v, d}, tb}, ah = {{a, h}, tb & 3}, vd = {{v, d}, tb >> 2};
+  __syncthreads();
+  // t1 = (lo, hi) first values, t2 second values, from taps (4, hlen) = lo
+  // first, lo second, hi first, hi second
+  auto tap = [&](int e) {
+    const int k = e % nt, u = e / nt;  // u: lo1, hi1, lo2, hi2
+    return k < hlen ? ((u & 1) * 2 + (u >> 1)) * hlen + k : -1;
+  };
 
   for (int b = blockIdx.z; b < B; b += gridDim.z) {
-    for (int i = ty; i < W; i += BY) {
-      const size_t roff = ((size_t)b * R + wrapl(ar.at(i - cen), R)) * C;
-      for (int j = tx; j < W; j += BX) {
-        const size_t o = roff + wrapl(ac.at(j - cen), C);
-        const int k = i * W + j;
-        stage<S>(__ldg(a + o), sa, sa + WW, k);
-        stage<S>(thresh(load_f(h + o), mode, bt), sh, sh + WW, k);
-        stage<S>(thresh(load_f(v + o), mode, bt), sv, sv + WW, k);
-        stage<S>(thresh(load_f(d + o), mode, bt), sd, sd + WW, k);
+    const size_t plane = (size_t)b * R * C;
+    for (int ph = 0; ph < nph; ++ph) {
+      const unsigned thr = mode == kNone ? 0 : (nph == 1 ? 0xe : (ph == 0 ? 2 : 3));
+      auto stage_phase = [&] {
+        if (nph == 1)
+          stage_bands<S, 4, kStageLoads>(all, thr, plane, C, rows, cols, WR, WC, win, BS,
+                                         WR * WC, mode, bt);
+        else
+          stage_bands<S, 2, kStageLoads>(ph == 0 ? ah : vd, thr, plane, C, rows, cols, WR, WC,
+                                         win, BS, WR * WC, mode, bt);
+      };
+      if (b == (int)blockIdx.z && ph == 0)
+        fill_around(t1, 4 * nt, taps, tap, stage_phase);
+      else
+        stage_phase();
+      __syncthreads();
+      // along the rows: temp (u/2) from bands (u, u + 1) of this phase
+      const int ntau = nbw / 2, per = (lr / PR) * WC;
+      for (int it = threadIdx.x; it < ntau * per; it += blockDim.x) {
+        const int tl = it / per, rem = it % per, r0 = (rem / WC) * PR, w = rem % WC;
+        Acc<S> acc[1][PR];
+        band_strip<S, PR, 1, kInvCh>(acc, win + 2 * tl * BS + r0 * WC + w, WR * WC, BS, 2, WC,
+                                     t1, t2, 0, nt);
+        St* dst = tmp + (ph * ntau + tl) * TS;
+#pragma unroll
+        for (int q = 0; q < PR; ++q)
+          stage<S>(acc[0][q].total(), dst, dst + lr * TP, (r0 + q) * TP + w);
       }
+      __syncthreads();
+    }
+    // along the columns: tile row r, outputs t0 + dc q (q < PC)
+    for (int it = threadIdx.x; it < lr * (lc / PC); it += blockDim.x) {
+      const int r = it % lr, s = it / lr, t0 = s % dc + dc * (s / dc) * PC;
+      Acc<S> acc[1][PC];
+      band_strip<S, PC, 1, kInvCh>(acc, tmp + r * TP + t0, lr * TP, TS, 2, dc, t1, t2, 0, nt);
+#pragma unroll
+      for (int q = 0; q < PC; ++q) tile[r * (lc + 1) + t0 + dc * q] = acc[0][q].total();
     }
     __syncthreads();
-
-    // along the rows: output row tt of every window column
-    for (int tt = ty; tt < LT; tt += BY) {
-      for (int col = tx; col < W; col += BX) {
-        const int base = tt * W + col;
-        Acc<S> acc1, acc2;
-        for (int j = 0; j < hlen; ++j) {
-          const int i = base + j * W;
-          const float x1 = kDataLo<S> ? to_f(sa[i + WW]) : 0.f;
-          const float y1 = kDataLo<S> ? to_f(sv[i + WW]) : 0.f;
-          const float4 t = tq[j];
-          acc1.add(t.x, t.y, to_f(sa[i]), x1);
-          acc2.add(t.x, t.y, to_f(sv[i]), y1);
-        }
-        for (int j = 0; j < hlen; ++j) {
-          const int i = base + j * W;
-          const float x1 = kDataLo<S> ? to_f(sh[i + WW]) : 0.f;
-          const float y1 = kDataLo<S> ? to_f(sd[i + WW]) : 0.f;
-          const float4 t = tq[j];
-          acc1.add(t.z, t.w, to_f(sh[i]), x1);
-          acc2.add(t.z, t.w, to_f(sd[i]), y1);
-        }
-        stage<S>(acc1.total(), t1, t1 + TW, base);
-        stage<S>(acc2.total(), t2, t2 + TW, base);
-      }
-    }
-    __syncthreads();
-
-    // along the columns
-    const long long c = ac.at(tx);
-    for (int tt = ty; tt < LT; tt += BY) {
-      const int base = tt * W + tx;
-      Acc<S> acc;
-      for (int j = 0; j < hlen; ++j) {
-        const float x1 = kDataLo<S> ? to_f(t1[base + j + TW]) : 0.f;
-        const float4 t = tq[j];
-        acc.add(t.x, t.y, to_f(t1[base + j]), x1);
-      }
-      for (int j = 0; j < hlen; ++j) {
-        const float x1 = kDataLo<S> ? to_f(t2[base + j + TW]) : 0.f;
-        const float4 t = tq[j];
-        acc.add(t.z, t.w, to_f(t2[base + j]), x1);
-      }
-      const long long r = ar.at(tt);
-      if (r < R && c < C) out[((size_t)b * R + r) * C + c] = from_f<TO>(acc.total());
-    }
+    auto orow = [&](int i) { return rho_r + (long long)f * (q0r + i); };
+    auto ocol = [&](int u) { return rho_c + (long long)gc * (q0c + u); };
+    if (out_bf16)
+      store_tile(static_cast<__nv_bfloat16*>(out), plane, R, C, tile, lc + 1, lr, lc, orow, ocol);
+    else
+      store_tile(static_cast<float*>(out), plane, R, C, tile, lc + 1, lr, lc, orow, ocol);
     __syncthreads();
   }
 }
@@ -283,39 +319,42 @@ extern "C" int pdwt_swt_fwd_level_2d_mxu(const void* x, float* a, void* h, void*
   });
 }
 
-// thresh_mode: 0 none, 1 soft, 2 hard, 3 garrote of H, V and D with the float
-// at `beta` (device memory; unread when thresh_mode is 0).
+// `taps` is a (4, hlen) float32 device buffer: the low filter's first and
+// second values, then the high filter's, correlation order (the 1/2 per pass
+// folded in).  thresh_mode: 0 none, 1 soft, 2 hard, 3 garrote of H, V and D
+// with the float at `beta` (device memory; unread when thresh_mode is 0).
+// The launch plan
+// (kernels/swt_matmul.py:swt_inv_launch_plan): tile lr x lc, column stride gc
+// (1 or f), nph band phases, nt padded taps, threads, grid (gx, gy, gz) and
+// dynamic shared-memory bytes; a plan that does not add up is refused
+// (cudaErrorInvalidValue).
 extern "C" int pdwt_swt_inv_level_2d_mxu(const float* a, const void* h, const void* v,
                                          const void* d, void* out, int B, int R, int C,
-                                         const float* lo1, const float* lo2, const float* hi1,
-                                         const float* hi2, int hlen, int f, int cen, int scheme,
+                                         const float* taps, int hlen, int f, int cen, int scheme,
                                          int det_bf16, int out_bf16, int thresh_mode,
-                                         const float* beta, void* stream) {
+                                         const float* beta, int lr, int lc, int gc, int nph,
+                                         int nt, int threads, int gx, int gy, int gz, int smem,
+                                         void* stream) {
   if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || R < 1 || C < 1 || f < 1 ||
       thresh_mode < kNone || thresh_mode > kGarrote || (thresh_mode != kNone && !beta))
     return cudaErrorInvalidValue;
-  dim3 grid;
-  int frr, frc;
-  cudaError_t e = level_grid(B, R, C, f, &grid, &frr, &frc);
-  if (e != cudaSuccess) return e;
-  const Taps4 tp = make_taps4(lo1, lo2, hi1, hi2, hlen);
+  if (nt < hlen || nt > PDWT_MXU_MAX_HLEN || nt % kInvCh || !(gc == 1 || gc == f) ||
+      !(nph == 1 || nph == 2) || lr < 1 || lc < 1 || threads < 32 || threads > 256 ||
+      threads % 32 || lc % (kColStrip * (f / gc)))
+    return cudaErrorInvalidValue;
+  const long long want_x = gc == 1 ? (C + (long long)lc - 1) / lc : axis_blocks(C, f, lc);
+  if (gx != want_x || gy != axis_blocks(R, f, lr) || gy > 65535 || gz != (B < 65535 ? B : 65535))
+    return cudaErrorInvalidValue;
   return with_scheme(scheme, [&](auto sc) {
     constexpr int S = decltype(sc)::value;
-    return with_type(det_bf16, [&](auto td) {
-      using TD = typename decltype(td)::type;
-      return with_type(out_bf16, [&](auto to) -> cudaError_t {
-        using TO = typename decltype(to)::type;
-        constexpr int nd = kDataLo<S> ? 2 : 1;
-        const size_t W = LT + hlen - 1;
-        const size_t smem = sizeof(Stage<S>) * nd * (4 * W * W + 2 * LT * W);
-        auto kernel = swt_inv_mxu_kernel<S, TD, TO>;
-        cudaError_t e2 = prepare(kernel, smem);
-        if (e2 != cudaSuccess) return e2;
-        kernel<<<grid, dim3(BX, BY), smem, (cudaStream_t)stream>>>(
-            a, static_cast<const TD*>(h), static_cast<const TD*>(v), static_cast<const TD*>(d),
-            static_cast<TO*>(out), B, R, C, hlen, f, cen, frr, frc, thresh_mode, beta, tp);
-        return cudaGetLastError();
-      });
-    });
+    if (lr % pdwt_strip::kRowStrip<S> || (size_t)smem != inv_smem<S>(lr, lc, f / gc, nt, nph))
+      return cudaErrorInvalidValue;
+    auto kernel = swt_inv_mxu_kernel<S>;
+    cudaError_t e2 = prepare(kernel, smem, 0);
+    if (e2 != cudaSuccess) return e2;
+    kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+        a, h, v, d, out, det_bf16, out_bf16, B, R, C, hlen, f, cen, thresh_mode, beta, lr, lc, gc,
+        nph, nt, taps);
+    return cudaGetLastError();
   });
 }

@@ -44,7 +44,9 @@ import numpy as np
 import torch
 
 from ..core import conv
-from ._launch import check_span, dilation, launch, on_cpu, ptr, rev
+from ._launch import (COL_STRIP, PLAN_TILES, ROW_STRIP, InvPlan, align16, axis_blocks,
+                      block_target, cdiv, check_span, consecutive_columns, dilation, launch,
+                      on_cpu, pick_plan, plan_threads, ptr, rev, stage_bytes, temp_pitch)
 from .matmul import (_DT, BF16, F32, MXU_MAX_HLEN, SCHEMES, _check_scheme, _is_bf16, inv_plan,
                      mode_out_dtypes, mode_scheme, mxu_route_2d, scheme_pass, scheme_taps,
                      swt_scheme, tile_candidates)
@@ -210,6 +212,67 @@ def ns_swt_inv_level_2d_mxu_ref(a, h, v, d, A, Bc, level: int, scheme: str, out_
 
 
 # ---------------------------------------------------------------------------
+# launch plan of the inverse kernel (csrc/ns_matmul.cu: ns_inv_mxu_kernel)
+# ---------------------------------------------------------------------------
+
+#: taps per chunk of the inverse's strips (ns_matmul.cu: kInvCh)
+INV_CHUNK = 4
+
+
+def inv_phases(hlen: int, f: Optional[int]):
+    """The kernel's phase array (stride, org, p[0], p[1], nb[0], nb[1],
+    off[0], off[1]): polyphase (``f`` None) from ``conv.poly_geometry``,
+    else one a-trous phase of all hlen taps."""
+    if f is None:
+        g = conv.poly_geometry(hlen)
+        return [2, g.lo, *g.p, *g.nb, g.lo + g.o[0], g.lo + g.o[1]]
+    return [1, conv.swt_inv_center(hlen), 0, 0, hlen, 0, 0, 0]
+
+
+def _inv_smem(scheme: str, rank: int, st: int, offmax: int, lr: int, lc: int, dc: int,
+              nt: int) -> int:
+    """ns_matmul.cu: ns_inv_smem -- taps, index tables, band windows (the
+    output tile after the row pass), the rank temps."""
+    nd, es = stage_bytes(scheme)
+    wr, wc = lr + offmax + nt - 1, lc + (offmax + nt - 1) * dc
+    win = 4 * nd * wr * wc * es
+    tile = 4 * st * lr * (st * lc + 1)
+    return (40 * st * rank * nt + align16(4 * (wr + wc)) + align16(max(win, tile))
+            + rank * nd * st * lr * temp_pitch(wc, es) * es)
+
+
+@functools.lru_cache(maxsize=256)
+def ns_inv_launch_plan(B: int, Mr: int, Mc: int, hlen: int, rank: int, f: Optional[int],
+                       scheme: str) -> InvPlan:
+    """The launch of one rank-r synthesis level on (B, Mr, Mc) subbands,
+    polyphase (``f`` None) or a-trous at dilation f.  Candidates, largest
+    tile first: a tile of lr subband rows (one residue class mod f) by lc
+    columns, consecutive or one residue class (``consecutive_columns``).
+    The first that fits two blocks on an SM and gives ``block_target``
+    blocks, so the deep levels take smaller tiles."""
+    st, _, _, _, nb0, nb1, off0, off1 = inv_phases(hlen, f)
+    f = f or 1
+    nt = cdiv(max(nb0, nb1), INV_CHUNK) * INV_CHUNK
+    offmax = max(off0, off1) if st == 2 else off0
+    pr = ROW_STRIP[scheme]
+    cands = []
+    for lr, lc in PLAN_TILES:
+        if lr % pr:
+            continue
+        gc = 1 if consecutive_columns(f, lc, offmax + nt - 1) else f
+        dc = f // gc
+        wc = lc + (offmax + nt - 1) * dc
+        grid = (cdiv(Mc, lc) if gc == 1 else axis_blocks(Mc, f, lc), axis_blocks(Mr, f, lr),
+                min(B, 65535))
+        if grid[1] > 65535:
+            continue
+        items = max((lr // pr) * wc, st * lr * (lc // COL_STRIP))
+        cands.append(InvPlan(lr, lc, gc, 1, nt, plan_threads(items), grid,
+                             _inv_smem(scheme, rank, st, offmax, lr, lc, dc, nt)))
+    return pick_plan(cands, block_target(B, st * Mr, st * Mc))
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -276,17 +339,15 @@ def _inv_launch(name, bands, A, Bc, scheme, out_dtype, f: Optional[int]):
     taps = _device_taps(A, Bc, scheme, a.device)
     rank, _, _, hlen = taps.shape
     B, m, n = a.shape
-    if f is None:  # polyphase: stride, org, p, nb, off of conv.poly_geometry
-        g = conv.poly_geometry(hlen)
-        geo, stride, f = [2, g.lo, *g.p, *g.nb, g.lo + g.o[0], g.lo + g.o[1]], 2, 1
-    else:
-        geo, stride = [1, conv.swt_inv_center(hlen), 0, 0, hlen, 0, 0, 0], 1
+    geo = np.array(inv_phases(hlen, f), dtype=np.int32)
+    pl = ns_inv_launch_plan(B, m, n, hlen, rank, f, scheme)
+    stride, f = int(geo[0]), f or 1
     check_span(hlen, f)
-    geo = np.array(geo, dtype=np.int32)
     out = torch.empty((B, stride * m, stride * n), device=a.device, dtype=out_dtype)
     launch(name, a.device,
            [*map(ptr, (a, h, v, d, out)), B, m, n, ptr(taps), hlen, rank, f, ptr(geo),
-            SCHEMES.index(scheme), _is_bf16(h.dtype), _is_bf16(out_dtype)])
+            SCHEMES.index(scheme), _is_bf16(h.dtype), _is_bf16(out_dtype), pl.lr, pl.lc, pl.gc,
+            pl.nt, pl.threads, *pl.grid, pl.smem])
     return out
 
 

@@ -34,12 +34,16 @@ un-thresholded details.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..core import conv
-from ._launch import check_span, dilation, launch, on_cpu, ptr, rev
+from ._launch import (COL_STRIP, PLAN_TILES, ROW_STRIP, InvPlan, align16, axis_blocks,
+                      block_target, cdiv, check_span, consecutive_columns, dilation, launch,
+                      on_cpu, pick_plan, plan_threads, ptr, rev, stage_bytes, temp_pitch)
 from .matmul import (_DT, BF16, F32, MXU_MAX_HLEN, SCHEMES, _check_scheme, _is_bf16,
                      fwd2d_ref, inv2d_ref, kernel_taps, mode_out_dtypes, swt_bf16_scheme,
                      swt_scheme, tile_candidates)
@@ -115,6 +119,52 @@ def swt_inv_level_2d_mxu_ref(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str
 
 
 # ---------------------------------------------------------------------------
+# launch plan of the inverse kernel (csrc/swt_matmul.cu: swt_inv_mxu_kernel)
+# ---------------------------------------------------------------------------
+
+#: taps per chunk of the inverse's strips (swt_matmul.cu: kInvCh)
+INV_CHUNK = 8
+
+
+def _inv_smem(scheme: str, lr: int, lc: int, dc: int, nt: int, nph: int) -> int:
+    """swt_matmul.cu: inv_smem -- taps, index tables, band windows (the
+    output tile after the row pass), two temps."""
+    nd, es = stage_bytes(scheme)
+    wr, wc = lr + nt - 1, lc + (nt - 1) * dc
+    win = (4 if nph == 1 else 2) * nd * wr * wc * es
+    return (16 * nt + align16(4 * (wr + wc)) + align16(max(win, 4 * lr * (lc + 1)))
+            + 2 * nd * lr * temp_pitch(wc, es) * es)
+
+
+@functools.lru_cache(maxsize=256)
+def swt_inv_launch_plan(B: int, R: int, C: int, hlen: int, f: int, scheme: str) -> InvPlan:
+    """The launch of one a-trous synthesis level on (B, R, C) subbands.
+    Candidates, largest tile first: a tile of lr rows of one residue class
+    mod f by lc columns, consecutive or one residue class
+    (``consecutive_columns``); all four band windows staged at once
+    (nph = 1) or two at a time.  The first that fits two blocks on an SM
+    and gives ``block_target`` blocks (kernels/_launch.py: pick_plan)."""
+    nt = cdiv(hlen, INV_CHUNK) * INV_CHUNK
+    pr = ROW_STRIP[scheme]
+    cands = []
+    for lr, lc in PLAN_TILES:
+        if lr % pr:
+            continue
+        gc = 1 if consecutive_columns(f, lc, nt - 1) else f
+        dc = f // gc
+        wc = lc + (nt - 1) * dc
+        grid = (cdiv(C, lc) if gc == 1 else axis_blocks(C, f, lc), axis_blocks(R, f, lr),
+                min(B, 65535))
+        if grid[1] > 65535:
+            continue
+        for nph in (1, 2):
+            items = max((2 // nph) * (lr // pr) * wc, lr * lc // COL_STRIP)
+            cands.append(InvPlan(lr, lc, gc, nph, nt, plan_threads(items), grid,
+                                 _inv_smem(scheme, lr, lc, dc, nt, nph)))
+    return pick_plan(cands, block_target(B, R, C))
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -149,7 +199,8 @@ def swt_inv_level_2d_mxu(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str, ou
     in ``out_dtype``.  ``threshold=(mode, beta)``, mode soft, hard or
     garrote, thresholds H, V and D as they are read; beta is a number or a
     one-element tensor.  Not differentiable: see the ``*_ad`` functions.
-    The CUDA kernel takes filters of up to 81 taps (its staged windows)."""
+    The CUDA kernel takes filters of up to 128 taps; ``swt_inv_launch_plan``
+    picks its tile."""
     mode, beta = (None, None) if threshold is None else threshold
     if mode not in THRESH_CODES:
         raise ValueError(f"threshold mode {mode!r}: the kernel takes soft, hard or garrote")
@@ -163,17 +214,30 @@ def swt_inv_level_2d_mxu(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str, ou
         raise ValueError("swt_inv_level_2d_mxu takes a float32 approximation and details "
                          "of one dtype")
     f = dilation(level)
-    tp = kernel_taps((_half(rec_lo), _half(rec_hi)), scheme)
-    hlen = len(tp[0])
+    taps = _inv_taps(np.asarray(rec_lo, dtype=np.float64).tobytes(),
+                     np.asarray(rec_hi, dtype=np.float64).tobytes(), scheme, str(a.device))
+    hlen = taps.shape[1]
     check_span(hlen, f)
     B, R, C = a.shape
     out = torch.empty(a.shape, device=a.device, dtype=out_dtype)
     buf = None if mode is None else _beta_buffer(beta, a.device)
+    pl = swt_inv_launch_plan(B, R, C, hlen, f, scheme)
     launch("swt_inv_level_2d_mxu", a.device,
-           [*map(ptr, (a, h, v, d, out)), B, R, C, *map(ptr, tp), hlen, f,
+           [*map(ptr, (a, h, v, d, out)), B, R, C, ptr(taps), hlen, f,
             conv.swt_inv_center(hlen), SCHEMES.index(scheme), _is_bf16(h.dtype),
-            _is_bf16(out_dtype), THRESH_CODES[mode], None if buf is None else ptr(buf)])
+            _is_bf16(out_dtype), THRESH_CODES[mode], None if buf is None else ptr(buf),
+            pl.lr, pl.lc, pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def _inv_taps(lo_bytes: bytes, hi_bytes: bytes, scheme: str, device: str) -> torch.Tensor:
+    """The inverse kernel's taps on ``device``, (4, hlen) float32: the low
+    filter's first and second values, then the high filter's (``_half`` of
+    each, correlation order), copied there once per filter pair and scheme."""
+    lo, hi = (np.frombuffer(b, dtype=np.float64) for b in (lo_bytes, hi_bytes))
+    tp = kernel_taps((_half(lo), _half(hi)), scheme)
+    return torch.from_numpy(np.stack(tp)).to(device)
 
 
 # ---------------------------------------------------------------------------

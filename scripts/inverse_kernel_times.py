@@ -1,0 +1,87 @@
+"""Device time per level of the two banded-product inverses (kernels 14
+and 18) at the cells' shapes, for one checkout of the port.
+
+    python3 scripts/inverse_kernel_times.py ROOT
+
+ROOT is the checkout to import (``.`` for this one; an unpacked
+``git archive`` of another commit to compare in turns: parent, change,
+change, parent).  Needs a CUDA card.  It builds the kernels (and reports
+the build time), brings the card's clocks up with a few large products,
+then times with torch.profiler, per call, the device time of the inverse
+kernels' launches at: the TI cell's three levels (db7, 1024^2, soft beta 10;
+fd as under bf16-fast and b2f as under bf16-balanced), the rank-3 cell's
+a-trous levels 1-3 (1024^2, fd) and polyphase levels 1-4 (subbands 1024^2
+to 128^2; fd, then b3).  Prints one line: RESULT ROOT {json}, each level
+in ms and each pass summed.  Imports no JAX.
+"""
+import json
+import sys
+import time
+
+root = sys.argv[1]
+sys.path.insert(0, root)
+
+import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+import chip_smoke as CS  # noqa: E402
+from pdwt_tpu_torch import get_wavelet  # noqa: E402
+from pdwt_tpu_torch.core import nonseparable as NSC  # noqa: E402
+from pdwt_tpu_torch.kernels import _build  # noqa: E402
+from pdwt_tpu_torch.kernels import ns_matmul as NM  # noqa: E402
+from pdwt_tpu_torch.kernels import swt_matmul as SM  # noqa: E402
+
+t0 = time.time()
+_build.load()
+build_s = time.time() - t0
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(0)
+f32, bf16 = torch.float32, torch.bfloat16
+
+
+def rand(*shape):
+    return torch.rand(shape, device=dev, generator=gen) * 255.0
+
+
+def bands(n):
+    return [rand(1, n, n)] + [(rand(1, n, n) - 127.5).to(bf16) for _ in range(3)]
+
+
+big = torch.randn(4096, 4096, device=dev)
+for _ in range(50):  # bring the clocks up
+    big @ big
+torch.cuda.synchronize()
+
+
+def dev_ms(fn, reps=30):
+    """Device ms per fn() call of the inverse kernels' launches."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        t = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA and "inv_mxu" in e.name)
+        if t:
+            return t / 1e3 / reps
+
+
+w7 = get_wavelet("db7")
+A, Bc = NSC._rank_decomp(CS.pr_quads()[1])
+res = {"build_s": build_s}
+for lvl, out in ((1, bf16), (2, f32), (3, f32)):
+    b = bands(1024)
+    res[f"k14 L{lvl}"] = dev_ms(lambda: SM.swt_inv_level_2d_mxu(
+        *b, w7.rec_lo, w7.rec_hi, lvl, "fd", out, ("soft", 10.0)))
+    res[f"k14b L{lvl}"] = dev_ms(lambda: SM.swt_inv_level_2d_mxu(
+        *b, w7.rec_lo, w7.rec_hi, lvl, "b2f", out, ("soft", 10.0)))
+    res[f"k18s L{lvl}"] = dev_ms(lambda: NM.ns_swt_inv_level_2d_mxu(*b, A, Bc, lvl, "fd", out))
+for m, sch, out in ((1024, "fd", bf16), (512, "b3", f32), (256, "b3", f32), (128, "b3", f32)):
+    b = bands(m)
+    res[f"k18p {m} {sch}"] = dev_ms(lambda: NM.ns_inv_level_2d_mxu(*b, A, Bc, sch, out))
+for k in ("k14", "k14b", "k18s", "k18p"):
+    res[k + " pass"] = sum(v for n, v in res.items() if n.startswith(k + " ") and v)
+print("RESULT", root, json.dumps({k: round(v, 5) for k, v in res.items()}))

@@ -602,6 +602,93 @@ def test_ns_mxu_kernels_match_plain(dev, quads, shape, in_dtype, scheme):
                             NM.ns_swt_inv_level_2d_mxu_ref(*bands, A, Bc, level, scheme, out))
 
 
+def _exact_or_tier(got, want, scheme):
+    """Kernels 14 and 18 keep every output's sums in the plain version's
+    order: the b-schemes agree bit for bit, fd within _close_tier."""
+    if scheme == "fd":
+        _close_tier(got, want)
+    else:
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert float((got.float() - want.float()).abs().max()) == 0.0
+
+
+INV14_CASES = [("db7", (1, 301, 203), 2, "b1"), ("db7", (1, 301, 203), 3, "b2f"),
+               ("db7", (1, 301, 203), 4, "b3"), ("db7", (1, 301, 203), 5, "b2d"),
+               ("db7", (1, 301, 203), 3, "fd"), ("db7", (3, 70, 134), 2, "b2f"),
+               ("haar", (1, 64, 96), 3, "b1"), ("w42", (1, 200, 150), 1, "b3"),
+               ("w42", (1, 200, 150), 2, "fd"), ("db7", (1, 1024, 1024), 3, "b2f")]
+
+
+@pytest.mark.parametrize("thr", [None, "soft", "hard", "garrote"])
+@pytest.mark.parametrize("wname,shape,level,scheme", INV14_CASES)
+def test_swt_inv_mxu_redesign_matches_plain(dev, wname, shape, level, scheme, thr):
+    """Kernel 14's launch plans: dilations 2-16 on sizes no tile divides
+    (consecutive columns and residue classes), a batch of 3, 2 and 42 taps,
+    every threshold; the b-schemes bit for bit."""
+    w = (make_custom_wavelet("w42", *np.random.default_rng(42).standard_normal((4, 42)))
+         if wname == "w42" else _wavelet(wname))
+    a = _rand(dev, *shape, seed=4) * 255
+    h, v, d = ((_rand(dev, *shape, seed=s) * 127).to(BF16) for s in (1, 2, 3))
+    th = None if thr is None else (thr, 20.0)
+    for out in (torch.float32, BF16):
+        _exact_or_tier(SM.swt_inv_level_2d_mxu(a, h, v, d, w.rec_lo, w.rec_hi, level, scheme,
+                                               out, th),
+                       SM.swt_inv_level_2d_mxu_ref(a, h, v, d, w.rec_lo, w.rec_hi, level,
+                                                   scheme, out, th), scheme)
+
+
+def _seeded_quads(rank, hlen, seed):
+    g = np.random.default_rng(seed)
+    return g.standard_normal((4, rank, hlen)) / hlen, g.standard_normal((rank, hlen)) / hlen
+
+
+INV18_CASES = [((3, 8), (1, 128, 128), None, "b3"), ((3, 8), (1, 64, 64), None, "b2f"),
+               ((3, 8), (3, 37, 53), 2, "b3"), ((3, 8), (1, 45, 61), 4, "b1"),
+               ((3, 8), (1, 101, 77), 8, "b2d"), ((3, 8), (1, 101, 77), 16, "fd"),
+               ((1, 2), (1, 64, 80), None, "b3"), ((4, 40), (1, 100, 70), None, "b2f"),
+               ((4, 40), (2, 66, 90), 2, "fd"), ((1, 2), (1, 33, 47), 4, "b1"),
+               ((3, 8), (3, 35, 67), None, "b2d"), ((3, 8), (1, 512, 512), None, "b3")]
+
+
+@pytest.mark.parametrize("rank_hlen,shape,f,scheme", INV18_CASES)
+def test_ns_inv_mxu_redesign_matches_plain(dev, rank_hlen, shape, f, scheme):
+    """Kernel 18's launch plans: the deep levels' small tiles, dilations
+    2-16 on sizes no tile divides, a batch of 3, ranks 1 and 4, 2 and 40
+    taps; the b-schemes bit for bit."""
+    A, Bc = _seeded_quads(*rank_hlen, seed=sum(shape))
+    bands = [_rand(dev, *shape) * 255] + [(_rand(dev, *shape, seed=s) * 127).to(BF16)
+                                          for s in (1, 2, 3)]
+    for out in (torch.float32, BF16):
+        if f is None:
+            got = NM.ns_inv_level_2d_mxu(*bands, A, Bc, scheme, out)
+            want = NM.ns_inv_level_2d_mxu_ref(*bands, A, Bc, scheme, out)
+        else:
+            lv = f.bit_length()
+            got = NM.ns_swt_inv_level_2d_mxu(*bands, A, Bc, lv, scheme, out)
+            want = NM.ns_swt_inv_level_2d_mxu_ref(*bands, A, Bc, lv, scheme, out)
+        _exact_or_tier(got, want, scheme)
+
+
+def test_inverse_refuses_a_bad_launch_plan(dev):
+    """The entry points check the plan they are given."""
+    from pdwt_tpu_torch.kernels import _launch as L
+
+    w = get_wavelet("db7")
+    bands = [_rand(dev, 1, 64, 64) * 255] + [_rand(dev, 1, 64, 64, seed=s) for s in (1, 2, 3)]
+    good = SM.swt_inv_launch_plan(1, 64, 64, 14, 1, "b3")
+    for bad in (good._replace(smem=good.smem + 16), good._replace(lr=good.lr + 1),
+                good._replace(grid=(good.grid[0] + 1, *good.grid[1:])),
+                good._replace(threads=48), good._replace(nt=8)):
+        keep = SM.swt_inv_launch_plan
+        SM.swt_inv_launch_plan = lambda *a, bad=bad: bad
+        try:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                SM.swt_inv_level_2d_mxu(*bands, w.rec_lo, w.rec_hi, 1, "b3")
+        finally:
+            SM.swt_inv_launch_plan = keep
+    assert L.SMEM_LIMIT == 232448
+
+
 @pytest.mark.parametrize("tier", ["bf16-fast", "bf16-balanced", "bf16-accurate"])
 def test_bf16_swt2d_path_matches_cpu(dev, tier):
     """swt2d, iswt2d and the fused iswt2d_denoise in bf16 on the card against
