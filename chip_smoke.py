@@ -56,13 +56,18 @@ with the launch counters set to 0 just before it and read just after:
   strides; launch counts, the dtype contract, the path against the plain
   route, roundtrips, and the timings.
 
-The two inverses redesigned for Hopper's CUDA cores (kernels 14 and 18:
+The inverses redesigned for Hopper's CUDA cores (kernels 14 and 18:
 ``swt_inv_level_2d_mxu``, ``ns_inv_level_2d_mxu``,
 ``ns_swt_inv_level_2d_mxu``) are held bit for bit to their plain versions
 in the b-schemes (``fd`` within ``tier_limit``), also on the code paths of
 their launch plans (dilations 2-16 on sizes no tile divides, the deep
 levels' small tiles, a batch of 3, ranks 1 and 4, 2 to 42 taps, every
-threshold), and each timed launch prints its device time beside its bound.
+threshold); the exact-path inverses redesigned after them (kernels 2 and
+6: ``inv_level_2d``, ``swt_inv_level_2d``, which runs kernel 14's body in
+``fd`` on float32 subbands) within ``KERNEL_RTOL`` on theirs (every tile
+size, 2 to 128 taps, odd too, 8 x 8 subbands, dilations 2-16 on sizes no
+tile divides, every threshold).  Each timed launch of these inverses
+prints its device time beside its bound.
 
 It prints one JSON line with the per-kernel results (times, launches, the
 least time the card could take and a PyTorch yardstick), the card's name
@@ -186,7 +191,7 @@ REPLACES = {
 def _source(name: str) -> str:
     if name.startswith("ns_"):
         return "ns_matmul.cu"
-    if name.endswith("_2d_mxu"):
+    if name.endswith("_2d_mxu") or name == "swt_inv_level_2d":  # kernel 6 runs 14's body
         return "swt_matmul.cu" if name.startswith("swt") else "matmul.cu"
     if name.endswith("_mxu"):
         return "mxu1d.cu"
@@ -305,9 +310,10 @@ def scheme_limit(scheme: str) -> Callable:
     return tier_limit if scheme == "fd" else (lambda outs: 0.0)
 
 
-# the two inverses redesigned for Hopper's CUDA cores (kernels 14 and 18):
-# each timed launch's device time is printed beside its bound
-REDESIGNED = ("swt_inv_level_2d_mxu", "ns_inv_level_2d_mxu", "ns_swt_inv_level_2d_mxu")
+# the inverses redesigned for Hopper's CUDA cores (kernels 14 and 18, then 2
+# and 6): each timed launch's device time is printed beside its bound
+REDESIGNED = ("swt_inv_level_2d_mxu", "ns_inv_level_2d_mxu", "ns_swt_inv_level_2d_mxu",
+              "inv_level_2d", "swt_inv_level_2d")
 
 
 def run_cases(cases, report, card) -> None:
@@ -539,6 +545,18 @@ def main() -> None:
     cases.append(Case("inv_tail_2d", tail_in, lambda t: K.inv_tail_2d(t[0], t[1], rlo, rhi),
                       lambda t: K.inv_tail_2d_ref(t[0], t[1], rlo, rhi), (m0, m0), True,
                       sum(flops_2d(m0 << (j + 1), m0 << (j + 1), h7) for j in range(tail_k))))
+    # the redesigned synthesis level's code paths: every tile size, filters of
+    # 2 to 128 taps (odd too), subbands smaller than a tile, a batch of 3
+    odd5 = make_custom_wavelet("odd5", *np.random.default_rng(5).standard_normal((4, 5)))
+    w40, w128 = (make_custom_wavelet(f"w{n}", *np.random.default_rng(n).standard_normal((4, n)))
+                 for n in (40, 128))
+    for w, shape in [(get_wavelet("haar"), (1, 8, 8)), (wav, (1, 8, 8)), (w128, (3, 8, 8)),
+                     (wav, (3, 37, 53)), (odd5, (2, 35, 67)), (w40, (1, 70, 38)),
+                     (w128, (1, 40, 70))]:
+        cases.append(Case("inv_level_2d", [rand(*shape) for _ in range(4)],
+                          lambda b, w=w: K.inv_level_2d(*b, w.rec_lo, w.rec_hi),
+                          lambda b, w=w: K.inv_level_2d_ref(*b, w.rec_lo, w.rec_hi),
+                          f"{w.name} subbands {shape}"))
 
     # per kernel: worst error and, over the calls of one pass of its path,
     # the summed times (ms: per call by CUDA events, host launch gaps
@@ -628,7 +646,6 @@ def main() -> None:
     # runs on the plain forward's subbands, so the hard and garrote masks
     # see the same values in both versions.  Timed: the path's own calls
     # (1024^2, levels 1-3, forward and the soft-thresholded inverse).
-    odd5 = make_custom_wavelet("odd5", *np.random.default_rng(5).standard_normal((4, 5)))
     thresholds = [("soft", TI_BETA), None, ("hard", TI_BETA), ("garrote", TI_BETA)]
     ti_cases = []
 
@@ -647,7 +664,8 @@ def main() -> None:
                 lambda b, thr=thr: S.swt_inv_level_2d(*b, w.rec_lo, w.rec_hi, level, thr),
                 lambda b, thr=thr: S.swt_inv_level_2d_ref(*b, w.rec_lo, w.rec_hi, level, thr),
                 f"{w.name} {shape} level {level} threshold {thr and thr[0]}",
-                timed and thr is not None and thr[0] == "soft", fl))
+                timed and thr is not None and thr[0] == "soft", fl,
+                library=yardstick("swt_inv2d", w, level=level)))
 
     for level in range(1, TI_LEVELS + 1):
         swt_cases(wav, (1, TI_N, TI_N), level, True)
@@ -658,6 +676,21 @@ def main() -> None:
         swt_cases(wav, (1, 37, 53), level, False)
     swt_cases(wav, (3, 256, 256), 2, False)  # batch 3
     swt_cases(odd5, (1, 23, 29), 3, False)   # an odd-length custom bank
+    # the redesigned inverse's code paths (kernel 14's plans in fd on float32
+    # subbands): dilations 2-16 on sizes no tile divides, 2, 40 and 128 taps
+    for w, shape, level in [(wav, (1, 301, 203), 2), (wav, (1, 301, 203), 3),
+                            (wav, (1, 301, 203), 4), (wav, (1, 301, 203), 5),
+                            (get_wavelet("haar"), (1, 64, 96), 3), (w40, (1, 200, 150), 1),
+                            (w40, (1, 200, 150), 2), (w128, (1, 64, 96), 1)]:
+        bands = S.swt_fwd_level_2d_ref(rand(*shape), w.dec_lo, w.dec_hi, level)
+        for thr in thresholds:
+            ti_cases.append(Case(
+                "swt_inv_level_2d", bands,
+                lambda b, w=w, lv=level, thr=thr: S.swt_inv_level_2d(*b, w.rec_lo, w.rec_hi, lv,
+                                                                     thr),
+                lambda b, w=w, lv=level, thr=thr: S.swt_inv_level_2d_ref(*b, w.rec_lo, w.rec_hi,
+                                                                         lv, thr),
+                f"{w.name} {shape} level {level} threshold {thr and thr[0]}"))
     run_cases(ti_cases, report, card)
 
     # -- the TI path, as a user drives it

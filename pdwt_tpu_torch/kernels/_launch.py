@@ -4,7 +4,8 @@ call."""
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Tuple
+import functools
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +65,18 @@ def taps(f) -> np.ndarray:
     if not 2 <= len(f) <= MAX_HLEN:
         raise ValueError(f"the CUDA kernels take filters of 2..{MAX_HLEN} taps, got {len(f)}")
     return np.ascontiguousarray(f[::-1], dtype=np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _taps_on(raw: bytes, rows: int, device: str) -> torch.Tensor:
+    return torch.frombuffer(bytearray(raw), dtype=torch.float32).reshape(rows, -1).to(device)
+
+
+def device_taps(filters: Sequence, device: torch.device) -> torch.Tensor:
+    """``taps`` of each filter as one row of a float32 tensor on ``device``,
+    copied there once per filter set."""
+    tp = np.stack([taps(f) for f in filters])
+    return _taps_on(tp.tobytes(), len(tp), str(device))
 
 
 def ptr(a) -> ctypes.c_void_p:

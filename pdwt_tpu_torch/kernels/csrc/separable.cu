@@ -19,26 +19,23 @@
 //
 // Periodic boundaries are an index "mod N" at load time, as in the reference
 // CUDA library; nothing is padded on the host.  Taps travel as float32 kernel
-// parameters (__grid_constant__), read through the constant bank.
+// parameters (__grid_constant__), read through the constant bank, except for
+// the inverse level (redesigned for Hopper's CUDA cores on band_strip.cuh,
+// whose launch plan comes from the host), which reads them from a small device
+// buffer into shared memory.
 
-#include <cuda_runtime.h>
+#include "band_strip.cuh"
 
 #define PDWT_MAX_HLEN 128
 #define PDWT_MAX_TAIL_LEVELS 16
 
 namespace {
 
+using namespace pdwt_strip;
+
 struct Taps {
   float lo[PDWT_MAX_HLEN];
   float hi[PDWT_MAX_HLEN];
-};
-
-struct Poly {
-  int p[2];
-  int o[2];
-  int nb[2];
-  int lo;
-  int hi;
 };
 
 struct OutBands {
@@ -49,16 +46,13 @@ struct InBands {
   const float* p[3 * PDWT_MAX_TAIL_LEVELS];
 };
 
-// Level kernels: a block owns an LT x LT tile of coefficients (forward: of
-// each output subband; inverse: of each input subband) and runs with
-// BX x BY threads, BX == LT.
+// Forward level: a block owns an LT x LT tile of each output subband and runs
+// with BX x BY threads, BX == LT.
 constexpr int LT = 32;
 constexpr int BX = 32;
 constexpr int BY = 8;
 // Tail kernels: one block of TAIL_THREADS threads per batch element.
 constexpr int TAIL_THREADS = 1024;
-// Dynamic shared memory a block may use on Hopper.
-constexpr size_t SMEM_LIMIT = 232448;
 
 __device__ __forceinline__ int wrap(int i, int n) {
   i %= n;
@@ -139,85 +133,120 @@ fwd_level_kernel(const float* __restrict__ x, float* __restrict__ a,
 }
 
 // ---------------------------------------------------------------------------
-// Inverse level.  Replaces _make_inv_kernel (separable_pallas.py:385).
-// Bound: device memory, as the forward level: the four subbands are read once
-// and the image written once.  Design: the block loads the LT x LT windows of
-// the four subbands (halo lo/hi of poly_geometry) with the periodic index,
-// synthesises along the rows into two shared temps, (A,H) and (V,D), each with
-// both output parities, then along the columns, and writes each output pair
-// (2u, 2u+1) as one float2.  The polyphase form reads no stuffed zeros.
+// Inverse level.  Replaces _make_inv_kernel (separable_pallas.py:385).  Bound:
+// device memory, as the forward level: the four subbands are read once and the
+// image written once (32 MiB at 1024^2 subbands, 10 us at 3.35 TB/s); the 2
+// hlen multiply-adds per output of each pass take about a third of that at the
+// float32 rate.  Redesigned for Hopper's CUDA cores on band_strip.cuh, as
+// kernel 18's polyphase synthesis (ns_matmul.cu; its body would sum all four
+// subbands into each temp, twice this row pass's work, and takes 40 taps at
+// most): a block owns lr x lc subband positions, and its launch plan
+// (kernels/separable.py:inv_level_launch_plan) shrinks the tile on the deep
+// levels so that they still get about two blocks per SM.  Per batch item: stage
+// the windows of the four subbands (lr + offmax + nt - 1 rows by lc + offmax +
+// nt - 1 columns, wrapped through 32-bit index tables, 16 loads per thread in
+// flight, the taps read around the first staging); along the rows, each thread
+// takes a strip of kRowStrip subband rows of one window column and, per output
+// parity q, sums the low taps on A then the high taps on H (on V then D) into
+// the temp of (A, H) (of (V, D)), rows 2 (r0 + i) + q; along the columns, each
+// thread takes a strip of kColStrip positions of one temp row and, per parity,
+// sums the low taps on the first temp then the high taps on the second into a
+// float tile of 2 lr x 2 lc outputs, written out with lanes along the columns.
+// Parity q's taps p_q + 2 b (b < nb_q) of each filter are one zero-padded table
+// of nt taps (a multiple of kInvCh), read as float4 broadcasts.  The polyphase
+// form reads no stuffed zeros; the entry point refuses a plan that does not add
+// up.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(BX * BY)
+constexpr int kInvCh = 4;        // taps per chunk of the strips
+constexpr int kStageLoads = 16;  // loads in flight per thread while staging
+
+// Window offset of parity q's first tap: lo + o_q >= 0.
+__host__ __device__ inline int poly_off(const Poly& g, int q) { return g.lo + g.o[q]; }
+
+// Shared-memory bytes of the inverse level: taps, index tables, the four band
+// windows (which hold the output tile once the row pass is done), the two
+// temps.  kernels/separable.py:_inv_smem mirrors it.
+size_t inv_smem(int offmax, int lr, int lc, int nt) {
+  const size_t WR = lr + offmax + nt - 1, WC = lc + offmax + nt - 1;
+  const size_t win = 4 * WR * WC * sizeof(float);
+  const size_t tile = 2 * (size_t)lr * (2 * lc + 1) * sizeof(float);
+  return 16 * (size_t)nt + align16((WR + WC) * sizeof(int)) + align16(win > tile ? win : tile) +
+         2 * 2 * (size_t)lr * temp_pitch<float>((int)WC) * sizeof(float);
+}
+
+__global__ void __launch_bounds__(256)
 inv_level_kernel(const float* __restrict__ a, const float* __restrict__ h,
                  const float* __restrict__ v, const float* __restrict__ d,
-                 float* __restrict__ out, int B, int Mr, int Mc, int hlen,
-                 const Poly g, const __grid_constant__ Taps taps) {
-  extern __shared__ float smem[];
-  const int W = LT + g.lo + g.hi;  // coefficient window per axis
-  float* s_a = smem;
-  float* s_h = s_a + W * W;
-  float* s_v = s_h + W * W;
-  float* s_d = s_v + W * W;
-  float* s_t1 = s_d + W * W;         // 2LT x W, rows synthesised from (A, H)
-  float* s_t2 = s_t1 + 2 * LT * W;   // 2LT x W, rows synthesised from (V, D)
-  const int R = 2 * Mr, C = 2 * Mc;
-  const int t0 = blockIdx.y * LT, u0 = blockIdx.x * LT;
-  const int tx = threadIdx.x, ty = threadIdx.y;
+                 float* __restrict__ out, int B, int Mr, int Mc, int hlen, const Poly g,
+                 const float* __restrict__ taps, int lr, int lc, int nt) {
+  constexpr int PR = kRowStrip<FD>, PC = kColStrip;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int off[2] = {poly_off(g, 0), poly_off(g, 1)};
+  const int offmax = off[0] > off[1] ? off[0] : off[1];
+  const int WR = lr + offmax + nt - 1, WC = lc + offmax + nt - 1;
+  const int TP = temp_pitch<float>(WC), TR = 2 * lr, OC = 2 * lc + 1;
+  float* tq = reinterpret_cast<float*>(smem_raw);  // [q][low, high][nt]
+  int* rows = reinterpret_cast<int*>(tq + 4 * nt);
+  int* cols = rows + WR;
+  unsigned char* p = smem_raw + 16 * (size_t)nt + align16((size_t)(WR + WC) * sizeof(int));
+  float* win = reinterpret_cast<float*>(p);  // band s (A, H, V, D) at win + s * WR * WC
+  float* tile = win;                         // TR x OC, after the row pass
+  const size_t wbytes = (size_t)4 * WR * WC * sizeof(float);
+  const size_t tbytes = (size_t)TR * OC * sizeof(float);
+  float* tmp = reinterpret_cast<float*>(p + align16(wbytes > tbytes ? wbytes : tbytes));
+  const int BS = WR * WC, TS = TR * TP;  // band and temp strides
+
+  const int q0r = blockIdx.y * lr, q0c = blockIdx.x * lc;
+  fill_index(rows, WR, (long long)q0r - g.lo, 1, Mr);
+  fill_index(cols, WC, (long long)q0c - g.lo, 1, Mc);
+  const Bands src = {{a, h, v, d}, 0u};
+  __syncthreads();
+  // tq[(2 q + k) nt + j] = taps[k hlen + p_q + 2 j] (k = 0 low, 1 high), 0 past nb_q
+  auto tap = [&](int e) {
+    const int j = e % nt, qk = e / nt, q = qk >> 1;
+    return j < g.nb[q] ? (qk & 1) * hlen + g.p[q] + 2 * j : -1;
+  };
 
   for (int b = blockIdx.z; b < B; b += gridDim.z) {
-    const size_t boff = (size_t)b * Mr * Mc;
-    for (int i = ty; i < W; i += BY) {
-      const size_t roff = boff + (size_t)wrap(t0 - g.lo + i, Mr) * Mc;
-      for (int j = tx; j < W; j += BX) {
-        const size_t o = roff + wrap(u0 - g.lo + j, Mc);
-        s_a[i * W + j] = __ldg(a + o);
-        s_h[i * W + j] = __ldg(h + o);
-        s_v[i * W + j] = __ldg(v + o);
-        s_d[i * W + j] = __ldg(d + o);
-      }
-    }
+    const size_t plane = (size_t)b * Mr * Mc;
+    auto stage_all = [&] {
+      stage_bands<FD, 4, kStageLoads>(src, 0, plane, Mc, rows, cols, WR, WC, win, BS, 0, kNone,
+                                      0.f);
+    };
+    if (b == (int)blockIdx.z)
+      fill_around(tq, 4 * nt, taps, tap, stage_all);
+    else
+      stage_all();
     __syncthreads();
-
-    // along the rows: output rows 2t and 2t+1 of every window column
-    for (int t = ty; t < LT; t += BY) {
-      for (int col = tx; col < W; col += BX) {
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int p = g.p[q], nb = g.nb[q];
-          const int base = (t + g.o[q] + g.lo) * W + col;
-          float acc1 = 0.f, acc2 = 0.f;
-          for (int k = 0; k < nb; ++k) {
-            acc1 = fmaf(taps.lo[p + 2 * k], s_a[base + k * W], acc1);
-            acc2 = fmaf(taps.lo[p + 2 * k], s_v[base + k * W], acc2);
-          }
-          for (int k = 0; k < nb; ++k) {
-            acc1 = fmaf(taps.hi[p + 2 * k], s_h[base + k * W], acc1);
-            acc2 = fmaf(taps.hi[p + 2 * k], s_d[base + k * W], acc2);
-          }
-          s_t1[(2 * t + q) * W + col] = acc1;
-          s_t2[(2 * t + q) * W + col] = acc2;
-        }
-      }
-    }
-    __syncthreads();
-
-    // along the columns: output columns 2u and 2u+1, u = u0 + tx
-    for (int r2 = ty; r2 < 2 * LT; r2 += BY) {
-      float res[2];
+    // along the rows: temp k from bands (2k, 2k + 1), rows 2 (r0 + i) + q of window column w
+    const int per = (lr / PR) * WC;
+    for (int it = threadIdx.x; it < 2 * per; it += blockDim.x) {
+      const int k = it / per, rem = it % per, r0 = (rem / WC) * PR, w = rem % WC;
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
-        const int p = g.p[q], nb = g.nb[q];
-        const int base = r2 * W + tx + g.o[q] + g.lo;
-        float acc = 0.f;
-        for (int k = 0; k < nb; ++k) acc = fmaf(taps.lo[p + 2 * k], s_t1[base + k], acc);
-        for (int k = 0; k < nb; ++k) acc = fmaf(taps.hi[p + 2 * k], s_t2[base + k], acc);
-        res[q] = acc;
+        Acc<FD> acc[1][PR];
+        band_strip<FD, PR, 1, kInvCh>(acc, win + 2 * k * BS + (r0 + off[q]) * WC + w, 0, BS, 2,
+                                      WC, tq + 2 * q * nt, tq, 0, nt);
+#pragma unroll
+        for (int i = 0; i < PR; ++i) tmp[k * TS + (2 * (r0 + i) + q) * TP + w] = acc[0][i].total();
       }
-      const int orow = 2 * t0 + r2, ocol = 2 * (u0 + tx);
-      if (orow < R && ocol < C)
-        *reinterpret_cast<float2*>(out + ((size_t)b * R + orow) * C + ocol) =
-            make_float2(res[0], res[1]);
     }
+    __syncthreads();
+    // along the columns: temp row r2, outputs 2 (t0 + i) + q
+    for (int it = threadIdx.x; it < TR * (lc / PC); it += blockDim.x) {
+      const int r2 = it % TR, t0 = (it / TR) * PC;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        Acc<FD> acc[1][PC];
+        band_strip<FD, PC, 1, kInvCh>(acc, tmp + r2 * TP + t0 + off[q], 0, TS, 2, 1,
+                                      tq + 2 * q * nt, tq, 0, nt);
+#pragma unroll
+        for (int i = 0; i < PC; ++i) tile[r2 * OC + 2 * (t0 + i) + q] = acc[0][i].total();
+      }
+    }
+    __syncthreads();
+    store_tile(out, (size_t)b * 4 * Mr * Mc, 2 * Mr, 2 * Mc, tile, OC, TR, 2 * lc,
+               [&](int r2) { return 2LL * q0r + r2; }, [&](int u) { return 2LL * q0c + u; });
     __syncthreads();
   }
 }
@@ -388,28 +417,6 @@ Taps make_taps(const float* lo, const float* hi, int hlen) {
   return t;
 }
 
-Poly make_poly(const int* geo) {
-  Poly g;
-  g.p[0] = geo[0];
-  g.p[1] = geo[1];
-  g.o[0] = geo[2];
-  g.o[1] = geo[3];
-  g.nb[0] = geo[4];
-  g.nb[1] = geo[5];
-  g.lo = geo[6];
-  g.hi = geo[7];
-  return g;
-}
-
-template <typename K>
-cudaError_t prepare(K kernel, size_t smem) {
-  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024)
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem);
-  return cudaSuccess;
-}
-
 dim3 level_grid(int Mr, int Mc, int B) {
   return dim3((Mc + LT - 1) / LT, (Mr + LT - 1) / LT, B < 65535 ? B : 65535);
 }
@@ -426,7 +433,7 @@ extern "C" int pdwt_fwd_level_2d(const float* x, float* a, float* h, float* v, f
     return cudaErrorInvalidValue;
   const int W = 2 * LT + hlen - 2;
   const size_t smem = sizeof(float) * ((size_t)W * W + 2 * (size_t)W * LT);
-  cudaError_t e = prepare(fwd_level_kernel, smem);
+  cudaError_t e = prepare(fwd_level_kernel, smem, 0);
   if (e != cudaSuccess) return e;
   const dim3 grid = level_grid(R / 2, C / 2, B);
   if (grid.y > 65535) return cudaErrorInvalidConfiguration;
@@ -435,21 +442,36 @@ extern "C" int pdwt_fwd_level_2d(const float* x, float* a, float* h, float* v, f
   return cudaGetLastError();
 }
 
+// `taps` is a (2, hlen) float32 device buffer, the low then the high filter in
+// correlation order; `geo` is poly_geometry(hlen) (kernels/_launch.py:poly_geo).
+// The launch plan (kernels/separable.py:inv_level_launch_plan): tile lr x lc
+// subband positions, nt padded taps per parity, threads, grid (gx, gy, gz) and
+// dynamic shared-memory bytes; a plan that does not add up is refused
+// (cudaErrorInvalidValue).
 extern "C" int pdwt_inv_level_2d(const float* a, const float* h, const float* v,
                                  const float* d, float* out, int B, int Mr, int Mc,
-                                 const float* taps_lo, const float* taps_hi, int hlen,
-                                 const int* geo, void* stream) {
+                                 const float* taps, int hlen, const int* geo, int lr, int lc,
+                                 int nt, int threads, int gx, int gy, int gz, int smem,
+                                 void* stream) {
   if (hlen < 2 || hlen > PDWT_MAX_HLEN || B < 1 || Mr < 1 || Mc < 1)
     return cudaErrorInvalidValue;
   const Poly g = make_poly(geo);
-  const int W = LT + g.lo + g.hi;
-  const size_t smem = sizeof(float) * (4 * (size_t)W * W + 4 * (size_t)LT * W);
-  cudaError_t e = prepare(inv_level_kernel, smem);
+  for (int q = 0; q < 2; ++q)
+    if (poly_off(g, q) < 0 || g.p[q] < 0 || g.nb[q] < 1 || g.nb[q] > nt ||
+        g.p[q] + 2 * (g.nb[q] - 1) >= hlen)
+      return cudaErrorInvalidValue;
+  if (nt % kInvCh || nt > PDWT_MAX_HLEN || lr < 1 || lc < 1 || lr % kRowStrip<FD> ||
+      lc % kColStrip || threads < 32 || threads > 256 || threads % 32)
+    return cudaErrorInvalidValue;
+  const int offmax = poly_off(g, 0) > poly_off(g, 1) ? poly_off(g, 0) : poly_off(g, 1);
+  if (gx != (Mc + (long long)lc - 1) / lc || gy != (Mr + (long long)lr - 1) / lr ||
+      gy > 65535 || gz != (B < 65535 ? B : 65535) ||
+      (size_t)smem != inv_smem(offmax, lr, lc, nt))
+    return cudaErrorInvalidValue;
+  cudaError_t e = prepare(inv_level_kernel, smem, 0);
   if (e != cudaSuccess) return e;
-  const dim3 grid = level_grid(Mr, Mc, B);
-  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  inv_level_kernel<<<grid, dim3(BX, BY), smem, (cudaStream_t)stream>>>(
-      a, h, v, d, out, B, Mr, Mc, hlen, g, make_taps(taps_lo, taps_hi, hlen));
+  inv_level_kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+      a, h, v, d, out, B, Mr, Mc, hlen, g, taps, lr, lc, nt);
   return cudaGetLastError();
 }
 
@@ -463,7 +485,7 @@ extern "C" int pdwt_fwd_tail_2d(const float* x, float* a_out, void* const* det, 
   OutBands bands = {};
   for (int i = 0; i < 3 * levels; ++i) bands.p[i] = static_cast<float*>(det[i]);
   const size_t smem = sizeof(float) * 2 * (size_t)R * C;
-  cudaError_t e = prepare(fwd_tail_kernel, smem);
+  cudaError_t e = prepare(fwd_tail_kernel, smem, 0);
   if (e != cudaSuccess) return e;
   fwd_tail_kernel<<<B, TAIL_THREADS, smem, (cudaStream_t)stream>>>(
       x, a_out, bands, R, C, levels, hlen, cen, make_taps(taps_lo, taps_hi, hlen));
@@ -481,7 +503,7 @@ extern "C" int pdwt_inv_tail_2d(const float* a, void* const* det, float* out, in
   InBands bands = {};
   for (int i = 0; i < 3 * levels; ++i) bands.p[i] = static_cast<const float*>(det[i]);
   const size_t smem = sizeof(float) * 2 * ((size_t)Mr << levels) * ((size_t)Mc << levels);
-  cudaError_t e = prepare(inv_tail_kernel, smem);
+  cudaError_t e = prepare(inv_tail_kernel, smem, 0);
   if (e != cudaSuccess) return e;
   inv_tail_kernel<<<B, TAIL_THREADS, smem, (cudaStream_t)stream>>>(
       a, bands, out, Mr, Mc, levels, hlen, make_poly(geo), make_taps(taps_lo, taps_hi, hlen));

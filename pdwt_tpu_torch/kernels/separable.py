@@ -30,14 +30,15 @@ autograd Function's backward is the paired kernel with reversed taps.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from ..core import conv
 from ._launch import LAUNCHES, MAX_HLEN, reset_launch_counts  # noqa: F401 (re-exported)
-from ._launch import launch, on_cpu, poly_geo, ptr, rev, taps
+from ._launch import (PLAN_TILES, ROW_STRIP, InvPlan, align16, block_target, cdiv, device_taps,
+                      launch, on_cpu, pick_plan, poly_geo, ptr, rev, taps, temp_pitch)
 
 #: Most levels one tail launch fuses (PDWT_MAX_TAIL_LEVELS).
 MAX_TAIL_LEVELS = 16
@@ -102,6 +103,44 @@ def tail_supported(shape: Tuple[int, int], hlen: int, levels: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# launch plan of the inverse level (csrc/separable.cu: inv_level_kernel)
+# ---------------------------------------------------------------------------
+
+#: taps per chunk of the inverse level's strips (separable.cu: kInvCh)
+INV_CHUNK = 4
+
+
+def _inv_smem(offmax: int, lr: int, lc: int, nt: int) -> int:
+    """separable.cu: inv_smem -- taps, index tables, the four band windows
+    (the output tile after the row pass), the two temps."""
+    wr, wc = lr + offmax + nt - 1, lc + offmax + nt - 1
+    return (16 * nt + align16(4 * (wr + wc)) + align16(max(16 * wr * wc, 8 * lr * (2 * lc + 1)))
+            + 16 * lr * temp_pitch(wc, 4))
+
+
+@functools.lru_cache(maxsize=256)
+def inv_level_launch_plan(B: int, Mr: int, Mc: int, hlen: int) -> InvPlan:
+    """The launch of one polyphase synthesis level on (B, Mr, Mc) subbands:
+    a tile of lr x lc consecutive subband positions, largest first, taps
+    padded to nt per parity.  The first that fits two blocks on an SM and
+    gives ``block_target`` blocks (kernels/_launch.py: pick_plan), so the
+    deep levels take smaller tiles.  Always 256 threads: on the deep
+    levels' small tiles, more warps keep more staging loads in flight than
+    the work items need threads (timed 20 % faster at 256^2 and 128^2
+    subbands on an H100, PERF.md section 6)."""
+    g = conv.poly_geometry(hlen)
+    nt = cdiv(max(g.nb), INV_CHUNK) * INV_CHUNK
+    offmax = g.lo + max(g.o)
+    cands = []
+    for lr, lc in PLAN_TILES:
+        grid = (cdiv(Mc, lc), cdiv(Mr, lr), min(B, 65535))
+        if lr % ROW_STRIP["fd"] or grid[1] > 65535:
+            continue
+        cands.append(InvPlan(lr, lc, 1, 1, nt, 256, grid, _inv_smem(offmax, lr, lc, nt)))
+    return pick_plan(cands, block_target(B, 2 * Mr, 2 * Mc))
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -123,18 +162,22 @@ def fwd_level_2d(x: torch.Tensor, dec_lo, dec_hi):
 
 
 def inv_level_2d(a, h, v, d, rec_lo, rec_hi) -> torch.Tensor:
-    """One synthesis level: (B, Mr, Mc) subbands -> (B, 2Mr, 2Mc)."""
+    """One synthesis level: (B, Mr, Mc) subbands -> (B, 2Mr, 2Mc).  The
+    CUDA kernel takes filters of 2..128 taps; ``inv_level_launch_plan``
+    picks its tile."""
     if on_cpu(a, h, v, d):
         return inv_level_2d_ref(a, h, v, d, rec_lo, rec_hi)
     if not a.shape == h.shape == v.shape == d.shape:
         raise ValueError("the four subbands must have one shape")
     B, mr, mc = a.shape
-    tl, th = taps(rec_lo), taps(rec_hi)
-    geo = poly_geo(len(tl))
+    tp = device_taps((rec_lo, rec_hi), a.device)
+    hlen = tp.shape[1]
+    geo = poly_geo(hlen)
+    pl = inv_level_launch_plan(B, mr, mc, hlen)
     out = torch.empty((B, 2 * mr, 2 * mc), device=a.device, dtype=a.dtype)
     launch("inv_level_2d", a.device,
-           [*map(ptr, (a, h, v, d, out)), B, mr, mc, ptr(tl), ptr(th),
-            len(tl), ptr(geo)])
+           [*map(ptr, (a, h, v, d, out)), B, mr, mc, ptr(tp), hlen, ptr(geo), pl.lr, pl.lc,
+            pl.nt, pl.threads, *pl.grid, pl.smem])
     return out
 
 

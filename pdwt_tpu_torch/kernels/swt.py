@@ -1,7 +1,10 @@
 """Stationary (a-trous) 2D level kernels: wrappers, plain versions, gradients.
 
 Counterpart of the 2D part of ``pdwt_tpu/kernels/swt_pallas.py``.  Two
-CUDA kernels (``csrc/swt.cu``) carry the TI-denoise path:
+CUDA kernels carry the TI-denoise path: the forward in ``csrc/swt.cu``, and
+the inverse, which runs kernel 14's body (``csrc/swt_matmul.cu``:
+``swt_inv_mxu_kernel``) in the ``fd`` scheme on float32 subbands, with
+``swt_matmul.swt_inv_launch_plan``'s geometry:
 
 ====================  ===============================================  ===========================
 wrapper               computes                                         plain version
@@ -118,17 +121,21 @@ def swt_inv_level_2d(a, h, v, d, rec_lo, rec_hi, level: int,
         return swt_inv_level_2d_ref(a, h, v, d, rec_lo, rec_hi, level, threshold)
     if not a.shape == h.shape == v.shape == d.shape:
         raise ValueError("the four subbands must have one shape")
+    from .swt_matmul import _inv_taps, swt_inv_launch_plan  # swt_matmul imports this module
+
     f = dilation(level)
-    tl = taps(0.5 * np.asarray(rec_lo, np.float64))
-    th = taps(0.5 * np.asarray(rec_hi, np.float64))
-    check_span(len(tl), f)
+    tp = _inv_taps(np.asarray(rec_lo, dtype=np.float64).tobytes(),
+                   np.asarray(rec_hi, dtype=np.float64).tobytes(), "fd", str(a.device))
+    hlen = tp.shape[1]
+    check_span(hlen, f)
     B, R, C = a.shape
     out = torch.empty_like(a)
     buf = None if mode is None else _beta_buffer(beta, a.device)
+    pl = swt_inv_launch_plan(B, R, C, hlen, f, "fd")
     launch("swt_inv_level_2d", a.device,
-           [*map(ptr, (a, h, v, d, out)), B, R, C, ptr(tl), ptr(th), len(tl), f,
-            conv.swt_inv_center(len(tl)) * f, THRESH_CODES[mode],
-            None if buf is None else ptr(buf)])
+           [*map(ptr, (a, h, v, d, out)), B, R, C, ptr(tp), hlen, f, conv.swt_inv_center(hlen),
+            THRESH_CODES[mode], None if buf is None else ptr(buf), pl.lr, pl.lc, pl.gc, pl.nph,
+            pl.nt, pl.threads, *pl.grid, pl.smem])
     return out
 
 

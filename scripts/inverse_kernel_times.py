@@ -1,5 +1,6 @@
-"""Device time per level of the two banded-product inverses (kernels 14
-and 18) at the cells' shapes, for one checkout of the port.
+"""Device time per level of the inverses redesigned for Hopper's CUDA cores
+(kernels 14 and 18, the banded-product inverses; kernels 2 and 6, the exact
+ones) at the cells' shapes, for one checkout of the port.
 
     python3 scripts/inverse_kernel_times.py ROOT
 
@@ -9,9 +10,11 @@ change, parent).  Needs a CUDA card.  It builds the kernels (and reports
 the build time), brings the card's clocks up with a few large products,
 then times with torch.profiler, per call, the device time of the inverse
 kernels' launches at: the TI cell's three levels (db7, 1024^2, soft beta 10;
-fd as under bf16-fast and b2f as under bf16-balanced), the rank-3 cell's
-a-trous levels 1-3 (1024^2, fd) and polyphase levels 1-4 (subbands 1024^2
-to 128^2; fd, then b3).  Prints one line: RESULT ROOT {json}, each level
+fd as under bf16-fast and b2f as under bf16-balanced; float32 subbands on
+kernel 6 as under the exact tier), the rank-3 cell's a-trous levels 1-3
+(1024^2, fd) and polyphase levels 1-4 (subbands 1024^2 to 128^2; fd, then
+b3), and the DWT roundtrip's synthesis levels on kernel 2 (db7, float32
+subbands 1024^2 to 128^2).  Prints one line: RESULT ROOT {json}, each level
 in ms and each pass summed.  Imports no JAX.
 """
 import json
@@ -29,6 +32,8 @@ from pdwt_tpu_torch import get_wavelet  # noqa: E402
 from pdwt_tpu_torch.core import nonseparable as NSC  # noqa: E402
 from pdwt_tpu_torch.kernels import _build  # noqa: E402
 from pdwt_tpu_torch.kernels import ns_matmul as NM  # noqa: E402
+from pdwt_tpu_torch.kernels import separable as K  # noqa: E402
+from pdwt_tpu_torch.kernels import swt as S  # noqa: E402
 from pdwt_tpu_torch.kernels import swt_matmul as SM  # noqa: E402
 
 t0 = time.time()
@@ -54,7 +59,8 @@ torch.cuda.synchronize()
 
 
 def dev_ms(fn, reps=30):
-    """Device ms per fn() call of the inverse kernels' launches."""
+    """Device ms per fn() call of the inverse kernels' launches (by name:
+    kernel 2's and 6's old and new bodies, 14's and 18's)."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -63,10 +69,11 @@ def dev_ms(fn, reps=30):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        t = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA and "inv_mxu" in e.name)
-        if t:
-            return t / 1e3 / reps
+        t = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and ("inv_mxu" in e.name or "inv_level" in e.name)]
+        if t:  # the mean per recorded launch: a window may drop a few events
+            return sum(t) / len(t) / 1e3 * max(1, round(len(t) / reps))
 
 
 w7 = get_wavelet("db7")
@@ -82,6 +89,14 @@ for lvl, out in ((1, bf16), (2, f32), (3, f32)):
 for m, sch, out in ((1024, "fd", bf16), (512, "b3", f32), (256, "b3", f32), (128, "b3", f32)):
     b = bands(m)
     res[f"k18p {m} {sch}"] = dev_ms(lambda: NM.ns_inv_level_2d_mxu(*b, A, Bc, sch, out))
-for k in ("k14", "k14b", "k18s", "k18p"):
+beta = torch.tensor([10.0], device=dev)  # on the card: no fill kernel in the window
+for lvl in (1, 2, 3):
+    b = [rand(1, 1024, 1024)] + [rand(1, 1024, 1024) - 127.5 for _ in range(3)]
+    res[f"k6 L{lvl}"] = dev_ms(lambda: S.swt_inv_level_2d(*b, w7.rec_lo, w7.rec_hi, lvl,
+                                                          ("soft", beta)))
+for m in (1024, 512, 256, 128):
+    b = [rand(1, m, m) for _ in range(4)]
+    res[f"k2 {m}"] = dev_ms(lambda: K.inv_level_2d(*b, w7.rec_lo, w7.rec_hi))
+for k in ("k14", "k14b", "k18s", "k18p", "k6", "k2"):
     res[k + " pass"] = sum(v for n, v in res.items() if n.startswith(k + " ") and v)
 print("RESULT", root, json.dumps({k: round(v, 5) for k, v in res.items()}))

@@ -759,3 +759,93 @@ def test_new_mxu_gradients_match_cpu(dev):
             sum(o.float().square().sum() for o in f(s)).backward()
             grads.append(s.grad)
         _close_tier(grads[0].cpu(), grads[1], 2.0 ** -6, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# kernels 2 and 6, the exact-path inverses redesigned for Hopper's CUDA cores
+# ---------------------------------------------------------------------------
+
+def _long_wavelet(name):
+    """odd5, haar and named wavelets as _wavelet gives them; "w40" and
+    "w128" custom banks of 40 and 128 seeded taps."""
+    if name in ("w40", "w128"):
+        n = int(name[1:])
+        return make_custom_wavelet(name, *np.random.default_rng(n).standard_normal((4, n)))
+    return _wavelet(name)
+
+
+# hlen 2, odd, 14, 40 and 128; 8 x 8 subbands; sizes no tile divides; a
+# batch of 3; the main path's two deepest levels
+INV2_CASES = [("haar", (1, 8, 8)), ("db7", (1, 8, 8)), ("w128", (3, 8, 8)),
+              ("db7", (3, 37, 53)), ("odd5", (2, 35, 67)), ("w40", (1, 70, 38)),
+              ("w128", (1, 40, 70)), ("db7", (1, 128, 128)), ("db7", (1, 256, 256))]
+
+
+@pytest.mark.parametrize("wname,shape", INV2_CASES)
+def test_inv_level_redesign_matches_plain(dev, wname, shape):
+    """Kernel 2's launch plans: every tile size, filters of 2 to 128 taps
+    (odd too), subbands smaller than a tile, a batch of 3."""
+    w = _long_wavelet(wname)
+    bands = [_rand(dev, *shape, seed=s) * 255 for s in range(4)]
+    _close(K.inv_level_2d(*bands, w.rec_lo, w.rec_hi), K.inv_level_2d_ref(*bands, w.rec_lo,
+                                                                           w.rec_hi))
+
+
+# dilations 2-16 on sizes no tile divides (consecutive columns and residue
+# classes), a batch of 3, filters of 2, 5, 40 and 128 taps (two band phases)
+INV6_CASES = [("db7", (1, 301, 203), 2), ("db7", (1, 301, 203), 3), ("db7", (1, 301, 203), 4),
+              ("db7", (1, 301, 203), 5), ("db7", (3, 70, 134), 2), ("haar", (1, 64, 96), 3),
+              ("odd5", (1, 23, 29), 3), ("w40", (1, 200, 150), 1), ("w40", (1, 200, 150), 2),
+              ("w128", (1, 64, 96), 1)]
+
+
+@pytest.mark.parametrize("thr", [None, "soft", "hard", "garrote"])
+@pytest.mark.parametrize("wname,shape,level", INV6_CASES)
+def test_swt_inv_level_redesign_matches_plain(dev, wname, shape, level, thr):
+    """Kernel 6 on kernel 14's plans in fd, on float32 subbands, every
+    threshold, beta on the host and on the device."""
+    w = _long_wavelet(wname)
+    a = _rand(dev, *shape, seed=4) * 255
+    h, v, d = (_rand(dev, *shape, seed=s) * 127 for s in (1, 2, 3))
+    for beta in (20.0, torch.tensor([20.0], device=dev)):
+        th = None if thr is None else (thr, beta)
+        want = S.swt_inv_level_2d_ref(a, h, v, d, w.rec_lo, w.rec_hi, level,
+                                      None if thr is None else (thr, 20.0))
+        _close(S.swt_inv_level_2d(a, h, v, d, w.rec_lo, w.rec_hi, level, th), want)
+
+
+@pytest.mark.parametrize("wname", ["db7", "odd5", "haar"])
+def test_redesigned_inverses_as_backwards_match_autograd_through_plain(dev, wname):
+    """Kernel 2 is kernel 1's backward with rev(g), kernel 6 kernel 5's with
+    2 rev(g), odd filter lengths included."""
+    w = _wavelet(wname)
+    lin = lambda outs, cts: sum((o * c).sum() for o, c in zip(outs, cts))
+    x = (_rand(dev, 2, 38, 54) * 255).requires_grad_(True)
+    cts = [_rand(dev, 2, 19, 27, seed=s) for s in range(1, 5)]
+    _close(torch.autograd.grad(lin(K.fwd_level_2d_ad(x, w.dec_lo, w.dec_hi), cts), x),
+           torch.autograd.grad(lin(K.fwd_level_2d_ref(x, w.dec_lo, w.dec_hi), cts), x))
+    cts = [_rand(dev, 2, 38, 54, seed=s) for s in range(1, 5)]
+    for level in (1, 3):
+        _close(torch.autograd.grad(lin(S.swt_fwd_level_2d_ad(x, w.dec_lo, w.dec_hi, level),
+                                       cts), x),
+               torch.autograd.grad(lin(S.swt_fwd_level_2d_ref(x, w.dec_lo, w.dec_hi, level),
+                                       cts), x))
+
+
+def test_exact_inverses_refuse_a_bad_launch_plan(dev, monkeypatch):
+    """The entry points of kernels 2 and 6 check the plan they are given."""
+    w = get_wavelet("db7")
+    bands = [_rand(dev, 1, 64, 64, seed=s) for s in range(4)]
+    good = K.inv_level_launch_plan(1, 64, 64, 14)
+    for bad in (good._replace(smem=good.smem + 16), good._replace(lr=good.lr + 1),
+                good._replace(grid=(good.grid[0] + 1, *good.grid[1:])),
+                good._replace(threads=48), good._replace(nt=2)):
+        monkeypatch.setattr(K, "inv_level_launch_plan", lambda *a, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            K.inv_level_2d(*bands, w.rec_lo, w.rec_hi)
+    good = SM.swt_inv_launch_plan(1, 64, 64, 14, 2, "fd")
+    for bad in (good._replace(smem=good.smem + 16), good._replace(nt=8),
+                good._replace(grid=(good.grid[0], good.grid[1] + 1, 1))):
+        monkeypatch.setattr(SM, "swt_inv_launch_plan", lambda *a, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            S.swt_inv_level_2d(*bands, w.rec_lo, w.rec_hi, 2, ("soft", 1.0))
