@@ -56,18 +56,21 @@ with the launch counters set to 0 just before it and read just after:
   strides; launch counts, the dtype contract, the path against the plain
   route, roundtrips, and the timings.
 
-The inverses redesigned for Hopper's CUDA cores (kernels 14 and 18:
-``swt_inv_level_2d_mxu``, ``ns_inv_level_2d_mxu``,
-``ns_swt_inv_level_2d_mxu``) are held bit for bit to their plain versions
+The banded-product kernels redesigned for Hopper's CUDA cores (kernels 14
+and 18: ``swt_inv_level_2d_mxu``, ``ns_inv_level_2d_mxu``,
+``ns_swt_inv_level_2d_mxu``; then kernels 16 and 17: ``inv_level_1d_mxu``,
+``swt_inv_level_1d_mxu``, ``ns_fwd_level_2d_mxu``,
+``ns_swt_fwd_level_2d_mxu``) are held bit for bit to their plain versions
 in the b-schemes (``fd`` within ``tier_limit``), also on the code paths of
-their launch plans (dilations 2-16 on sizes no tile divides, the deep
-levels' small tiles, a batch of 3, ranks 1 and 4, 2 to 42 taps, every
-threshold); the exact-path inverses redesigned after them (kernels 2 and
-6: ``inv_level_2d``, ``swt_inv_level_2d``, which runs kernel 14's body in
-``fd`` on float32 subbands) within ``KERNEL_RTOL`` on theirs (every tile
-size, 2 to 128 taps, odd too, 8 x 8 subbands, dilations 2-16 on sizes no
-tile divides, every threshold).  Each timed launch of these inverses
-prints its device time beside its bound.
+their launch plans (dilations 2-16 on sizes no tile divides and past the
+signal, the deep levels' small tiles, a batch of 3, ranks 1 and 4, 2 to 42
+taps for 14 and 18, 2 to 40 for 17, 2 to 128 for 16, every threshold); the
+exact-path inverses (kernels 2 and 6: ``inv_level_2d``,
+``swt_inv_level_2d``, which runs kernel 14's body in ``fd`` on float32
+subbands) within ``KERNEL_RTOL`` on theirs (every tile size, 2 to 128
+taps, odd too, 8 x 8 subbands, dilations 2-16 on sizes no tile divides,
+every threshold).  Each timed launch of these redesigned kernels prints
+its device time beside its bound.
 
 It prints one JSON line with the per-kernel results (times, launches, the
 least time the card could take and a PyTorch yardstick), the card's name
@@ -304,16 +307,19 @@ def tier_limit(outs) -> float:
 
 
 def scheme_limit(scheme: str) -> Callable:
-    """Limit of a call of kernel 14 or 18: each keeps every output's sums in
-    its plain version's order, so the b-schemes agree bit for bit (limit 0);
-    fd's FMAs round once where the plain version rounds twice (tier_limit)."""
+    """Limit of a call of kernel 14, 16, 17 or 18: each keeps every output's
+    sums in its plain version's order, so the b-schemes agree bit for bit
+    (limit 0); fd's FMAs round once where the plain version rounds twice
+    (tier_limit)."""
     return tier_limit if scheme == "fd" else (lambda outs: 0.0)
 
 
-# the inverses redesigned for Hopper's CUDA cores (kernels 14 and 18, then 2
-# and 6): each timed launch's device time is printed beside its bound
+# the kernels redesigned for Hopper's CUDA cores (kernels 14 and 18, then 2
+# and 6, then 16 and 17): each timed launch's device time is printed beside
+# its bound
 REDESIGNED = ("swt_inv_level_2d_mxu", "ns_inv_level_2d_mxu", "ns_swt_inv_level_2d_mxu",
-              "inv_level_2d", "swt_inv_level_2d")
+              "inv_level_2d", "swt_inv_level_2d", "inv_level_1d_mxu", "swt_inv_level_1d_mxu",
+              "ns_fwd_level_2d_mxu", "ns_swt_fwd_level_2d_mxu")
 
 
 def run_cases(cases, report, card) -> None:
@@ -956,6 +962,7 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
                                 swt1d)
     from pdwt_tpu_torch.core.separable import Coeffs1D, Coeffs2D
     from pdwt_tpu_torch.core.shapes import level_sizes
+    from pdwt_tpu_torch.filters import make_custom_wavelet
     from pdwt_tpu_torch.kernels import batched1d as K1
     from pdwt_tpu_torch.kernels import matmul as M
     from pdwt_tpu_torch.kernels import mxu1d as M1
@@ -1037,7 +1044,7 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
                                                                       o),
                      f"{tier} level {i + 1} {sch} {det} hi, {out} out, bands {(B1_SIGNALS, m)}",
                      True, flops_1d(B1_SIGNALS, 2 * m, h8, TERMS[sch]), scheme_peak(sch),
-                     tier_limit, yardstick("inv", w8, bf16) if row else None, row),
+                     scheme_limit(sch), yardstick("inv", w8, bf16) if row else None, row),
                 (tier if row else "", "i1", i, sch, det, out))
         if tier == "mixed":
             continue  # mixed runs the a-trous levels on the exact kernels
@@ -1065,7 +1072,7 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
                                                                            w8.rec_hi, lv, "fd",
                                                                            o),
                      f"{tier} level {lvl} fd bf16 hi, {out} out, {(B1_SIGNALS, B1_N)}", True,
-                     flops_1d(B1_SIGNALS, B1_N, h8, 1, swt=True), FP32_PEAK, tier_limit,
+                     flops_1d(B1_SIGNALS, B1_N, h8, 1, swt=True), FP32_PEAK, scheme_limit("fd"),
                      yardstick("swt_inv", w8, bf16, lvl) if row else None, row),
                 (tier if row else "", "si", lvl, out))
     # off the route rule: sizes no TPU tile divides, a batch of 3, b2d, an
@@ -1085,8 +1092,8 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
                               lambda b, s=sch: M.inv_level_2d_mxu_ref(*b, rlo, rhi, s, f32),
                               f"{sch} {in_dt} details, subbands {(shape[0], *m)}",
                               limit=tier_limit))
-        # (2, 5000) at level 12: windows past 48 KB (forward) and past shared
-        # memory (inverse, the direct kernel)
+        # (2, 5000) at level 12: windows past 48 KB (forward) and one residue
+        # class of a dilation of 2048 (inverse)
         for w, (b, n), lvl in ((w8, (3, 202), 3), (get_wavelet("db3"), (5, 1000), 2),
                                (get_wavelet("db2"), (2, 6), 4), (w8, (2, 5000), 12)):
             xin = randn(b, n).to(bf16)
@@ -1108,14 +1115,47 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
                                                                          s, bf16),
                               lambda u, s=sch, w=w: M1.inv_level_1d_mxu_ref(*u, w.rec_lo,
                                                                              w.rec_hi, s, bf16),
-                              f"{w.name} {sch} bands {(b, n // 2)}", limit=tier_limit))
+                              f"{w.name} {sch} bands {(b, n // 2)}", limit=scheme_limit(sch)))
             sbands = [randn(b, n), randn(b, n)]
             cases.append(Case("swt_inv_level_1d_mxu", sbands,
                               lambda u, s=sch, w=w, lv=lvl: M1.swt_inv_level_1d_mxu(
                                   *u, w.rec_lo, w.rec_hi, lv, s, f32),
                               lambda u, s=sch, w=w, lv=lvl: M1.swt_inv_level_1d_mxu_ref(
                                   *u, w.rec_lo, w.rec_hi, lv, s, f32),
-                              f"{w.name} {sch} {(b, n)} level {lvl}", limit=tier_limit))
+                              f"{w.name} {sch} {(b, n)} level {lvl}", limit=scheme_limit(sch)))
+    # kernel 16's launch plans: the deep levels' short tiles, dilations 2-16
+    # on lengths no tile divides, a batch of 3, 2 and 128 taps (the (2, 5000)
+    # shape at level 12 above takes one residue class of a dilation past the
+    # signal)
+    # (inputs from a generator of their own: the later phases' inputs stay
+    # as they were before these cases were added)
+    w128 = make_custom_wavelet("w128", *np.random.default_rng(128).standard_normal((4, 128)))
+    haar = get_wavelet("haar")
+    g16 = torch.Generator(device=dev).manual_seed(16)
+    for w, (b, m), lvl, sch, hdt, out in [
+            (w8, (1024, 256), None, "b3", bf16, f32), (w8, (64, 128), None, "b2f", bf16, bf16),
+            (w8, (3, 101), 2, "b3", bf16, f32), (w8, (3, 101), 3, "b1", f32, bf16),
+            (w8, (35, 777), 4, "b2d", bf16, f32), (w8, (35, 777), 5, "fd", bf16, f32),
+            (haar, (3, 77), None, "b3", f32, f32), (haar, (40, 300), 4, "b2f", bf16, f32),
+            (w128, (3, 90), None, "b2f", bf16, f32), (w128, (2, 300), 2, "fd", f32, bf16)]:
+        bands = [torch.randn((b, m), device=dev, generator=g16),
+                 torch.randn((b, m), device=dev, generator=g16).to(hdt)]
+        label = f"{w.name} {sch} {hdt} hi, {out} out, bands {(b, m)}"
+        if lvl is None:
+            cases.append(Case(
+                "inv_level_1d_mxu", bands,
+                lambda u, w=w, s=sch, o=out: M1.inv_level_1d_mxu(*u, w.rec_lo, w.rec_hi, s, o),
+                lambda u, w=w, s=sch, o=out: M1.inv_level_1d_mxu_ref(*u, w.rec_lo, w.rec_hi, s,
+                                                                      o),
+                label, limit=scheme_limit(sch)))
+        else:
+            cases.append(Case(
+                "swt_inv_level_1d_mxu", bands,
+                lambda u, w=w, s=sch, o=out, lv=lvl: M1.swt_inv_level_1d_mxu(
+                    *u, w.rec_lo, w.rec_hi, lv, s, o),
+                lambda u, w=w, s=sch, o=out, lv=lvl: M1.swt_inv_level_1d_mxu_ref(
+                    *u, w.rec_lo, w.rec_hi, lv, s, o),
+                f"{label} level {lvl}", limit=scheme_limit(sch)))
     run_cases(cases, report, card)
 
     # ---------------- (b) and (c): the tiers through the entry points ----------------
@@ -1653,8 +1693,8 @@ def ns_phase(dev, card, report, launches, dwt_img, ti_img, gen) -> None:
                      lambda t, s=sch, d=det: NM.ns_fwd_level_2d_mxu(t, A, Bc, s, (f32, d)),
                      lambda t, s=sch, d=det: NM.ns_fwd_level_2d_mxu_ref(t, A, Bc, s, (f32, d)),
                      f"{tier} level {lvl + 1} {sch} {in_dt} in, {det} details, {(r, r)}", True,
-                     flops_ns(r, r, hq, rank, False, TERMS[sch]), scheme_peak(sch), tier_limit,
-                     ns_yardstick("fwd", A, Bc) if row else None, row),
+                     flops_ns(r, r, hq, rank, False, TERMS[sch]), scheme_peak(sch),
+                     scheme_limit(sch), ns_yardstick("fwd", A, Bc) if row else None, row),
                 (row, "f", r, sch, in_dt, det))
             m = r // 2
             out = bf16 if lvl == 0 and bf16_tier(tier) else f32
@@ -1682,8 +1722,9 @@ def ns_phase(dev, card, report, launches, dwt_img, ti_img, gen) -> None:
                      lambda t, s=sch, lv=lvl: NM.ns_swt_fwd_level_2d_mxu_ref(t, A, Bc, lv, s,
                                                                               (f32, bf16)),
                      f"{tier} level {lvl} {sch} {in_dt} in, bf16 details, {(n, n)}", True,
-                     flops_ns(n, n, hq, rank, True, TERMS[sch]), scheme_peak(sch), tier_limit,
-                     ns_yardstick("swt_fwd", A, Bc, lvl) if row else None, row),
+                     flops_ns(n, n, hq, rank, True, TERMS[sch]), scheme_peak(sch),
+                     scheme_limit(sch), ns_yardstick("swt_fwd", A, Bc, lvl) if row else None,
+                     row),
                 (row, "sf", lvl, sch, in_dt))
             out = bf16 if lvl == 1 else f32
             bands = [rand(1, n, n)] + [(rand(1, n, n) - 127.5).to(bf16) for _ in range(3)]
@@ -1704,7 +1745,7 @@ def ns_phase(dev, card, report, launches, dwt_img, ti_img, gen) -> None:
         cases += [
             Case("ns_fwd_level_2d_mxu", xin, lambda t, s=sch: NM.ns_fwd_level_2d_mxu(t, Ar, Br, s),
                  lambda t, s=sch: NM.ns_fwd_level_2d_mxu_ref(t, Ar, Br, s),
-                 f"rank3 {sch} (2, 70, 134)", limit=tier_limit),
+                 f"rank3 {sch} (2, 70, 134)", limit=scheme_limit(sch)),
             Case("ns_inv_level_2d_mxu", bands,
                  lambda b, s=sch: NM.ns_inv_level_2d_mxu(*b, Ar, Br, s, bf16),
                  lambda b, s=sch: NM.ns_inv_level_2d_mxu_ref(*b, Ar, Br, s, bf16),
@@ -1712,7 +1753,7 @@ def ns_phase(dev, card, report, launches, dwt_img, ti_img, gen) -> None:
             Case("ns_swt_fwd_level_2d_mxu", sbands[0],
                  lambda t, s=sch: NM.ns_swt_fwd_level_2d_mxu(t, Ar, Br, 4, s),
                  lambda t, s=sch: NM.ns_swt_fwd_level_2d_mxu_ref(t, Ar, Br, 4, s),
-                 f"rank3 {sch} (1, 37, 53) level 4", limit=tier_limit),
+                 f"rank3 {sch} (1, 37, 53) level 4", limit=scheme_limit(sch)),
             Case("ns_swt_inv_level_2d_mxu", sbands,
                  lambda b, s=sch: NM.ns_swt_inv_level_2d_mxu(*b, Ar, Br, 4, s),
                  lambda b, s=sch: NM.ns_swt_inv_level_2d_mxu_ref(*b, Ar, Br, 4, s),
@@ -1749,6 +1790,42 @@ def ns_phase(dev, card, report, launches, dwt_img, ti_img, gen) -> None:
                     *b, A, B, lv, s, o),
                 lambda b, A=Aq, B=Bq, s=sch, o=out, lv=lv: NM.ns_swt_inv_level_2d_mxu_ref(
                     *b, A, B, lv, s, o),
+                f"{label} level {lv}", limit=scheme_limit(sch)))
+    # kernel 17's launch plans: the deep levels' small tiles (256^2 and 128^2
+    # images), dilations 2-16 on sizes no tile divides and one past the image,
+    # a batch of 3, ranks 1 and 4, 2 and 40 taps, both input dtypes (inputs
+    # from a generator of their own, as kernel 16's cases)
+    g17 = torch.Generator(device=dev).manual_seed(17)
+    for (Aq, Bq), shape, f, sch, in_dt, det in [
+            ((A, Bc), (1, 256, 256), None, "b3", f32, bf16),
+            ((A, Bc), (1, 128, 128), None, "b2f", f32, f32),
+            ((A, Bc), (3, 37, 53), 2, "b3", f32, bf16),
+            ((A, Bc), (1, 45, 61), 4, "b1", bf16, bf16),
+            ((A, Bc), (1, 101, 77), 8, "b2d", f32, f32),
+            ((A, Bc), (1, 101, 77), 16, "fd", f32, bf16),
+            ((A, Bc), (1, 30, 41), 64, "b3", f32, f32),
+            (seeded(1, 2, 1), (1, 64, 80), None, "b3", bf16, f32),
+            (seeded(4, 40, 2), (1, 100, 70), None, "b2f", f32, bf16),
+            (seeded(4, 40, 3), (2, 66, 90), 2, "fd", bf16, f32),
+            (seeded(1, 2, 4), (1, 33, 47), 4, "b1", f32, f32),
+            (seeded(3, 8, 5), (3, 70, 134), None, "b2d", bf16, bf16)]:
+        x = (torch.rand(shape, device=dev, generator=g17) * 255.0).to(in_dt)
+        label = f"rank {Bq.shape[0]}, {Bq.shape[1]} taps, {sch} {in_dt} in, {det} details, {shape}"
+        if f is None:
+            cases.append(Case(
+                "ns_fwd_level_2d_mxu", x,
+                lambda t, A=Aq, B=Bq, s=sch, d=det: NM.ns_fwd_level_2d_mxu(t, A, B, s, (f32, d)),
+                lambda t, A=Aq, B=Bq, s=sch, d=det: NM.ns_fwd_level_2d_mxu_ref(t, A, B, s,
+                                                                                (f32, d)),
+                label, limit=scheme_limit(sch)))
+        else:
+            lv = f.bit_length()
+            cases.append(Case(
+                "ns_swt_fwd_level_2d_mxu", x,
+                lambda t, A=Aq, B=Bq, s=sch, d=det, lv=lv: NM.ns_swt_fwd_level_2d_mxu(
+                    t, A, B, lv, s, (f32, d)),
+                lambda t, A=Aq, B=Bq, s=sch, d=det, lv=lv: NM.ns_swt_fwd_level_2d_mxu_ref(
+                    t, A, B, lv, s, (f32, d)),
                 f"{label} level {lv}", limit=scheme_limit(sch)))
     run_cases(cases, report, card)
 

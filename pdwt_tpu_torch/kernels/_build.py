@@ -122,10 +122,11 @@ def load() -> ctypes.CDLL:
         # in_bf16, hi_bf16, stream
         "pdwt_fwd_level_1d_mxu": [P, P, P, I, I, P, P, P, P, I, I, I, I, I, I, P],
         "pdwt_swt_fwd_level_1d_mxu": [P, P, P, I, I, P, P, P, P, I, I, I, I, I, I, P],
-        # lo, hi, out, B, M, taps lo1, lo2, hi1, hi2, hlen, dilation, center,
-        # geometry, scheme, hi_bf16, out_bf16, stream
-        "pdwt_inv_level_1d_mxu": [P, P, P, I, I, P, P, P, P, I, I, I, P, I, I, I, P],
-        "pdwt_swt_inv_level_1d_mxu": [P, P, P, I, I, P, P, P, P, I, I, I, P, I, I, I, P],
+        # lo, hi, out, B, M, taps (4, hlen on the device), hlen, dilation, center,
+        # geometry, scheme, hi_bf16, out_bf16, the launch plan (lc, gc, nt, threads,
+        # grid x, y, z, smem), stream
+        "pdwt_inv_level_1d_mxu": [P, P, P, I, I, P, I, I, I, P, I, I, I, *[I] * 8, P],
+        "pdwt_swt_inv_level_1d_mxu": [P, P, P, I, I, P, I, I, I, P, I, I, I, *[I] * 8, P],
         # x, a, h, v, d, B, R, C, taps lo1, lo2, hi1, hi2, hlen, dilation, center,
         # scheme, in_bf16, det_bf16, stream
         "pdwt_swt_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, P, P, P, I, I, I, I, I, I, P],
@@ -135,9 +136,12 @@ def load() -> ctypes.CDLL:
         "pdwt_swt_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, I, I, P,
                                       *[I] * 10, P],
         # x, a, h, v, d, B, R, C, taps (device), hlen, rank, stride, dilation, center,
-        # scheme, in_bf16, det_bf16, stream
-        "pdwt_ns_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, I, I, I, P],
-        "pdwt_ns_swt_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, I, I, I, P],
+        # scheme, in_bf16, det_bf16, the launch plan (lr, lc, gc, nt, threads, grid x, y,
+        # z, smem), stream
+        "pdwt_ns_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, I, I, I,
+                                     *[I] * 9, P],
+        "pdwt_ns_swt_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, I, I, I,
+                                         *[I] * 9, P],
         # a, h, v, d, out, B, Mr, Mc, taps (device), hlen, rank, dilation, geometry,
         # scheme, det_bf16, out_bf16, the launch plan (lr, lc, gc, nt, threads, grid x, y, z,
         # smem), stream

@@ -129,7 +129,7 @@ def check_span(hlen: int, f: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# launch plans of the banded-product inverses (csrc/band_strip.cuh)
+# launch plans of the kernels on csrc/band_strip.cuh
 # ---------------------------------------------------------------------------
 
 #: shared memory a block may use on an H100 (mxu_common.cuh: kSmemLimit)
@@ -146,10 +146,12 @@ COL_STRIP = 8
 
 
 class InvPlan(NamedTuple):
-    """Geometry of one launch of a banded-product inverse: tile (lr, lc)
-    of subband positions, column stride gc (1: consecutive columns; f: one
-    residue class), band phases nph (kernel 14), taps padded to nt, threads
-    per block, grid (x, y, z) and dynamic shared-memory bytes."""
+    """Geometry of one launch of a kernel on ``band_strip.cuh`` (the
+    banded-product inverses, the exact inverses, kernel 17): tile (lr, lc)
+    of positions (kernel 16: lr signals), column stride gc (1: consecutive
+    columns; f: one residue class), band phases nph (kernel 14), taps
+    padded to nt, threads per block, grid (x, y, z) and dynamic
+    shared-memory bytes."""
     lr: int
     lc: int
     gc: int

@@ -1,13 +1,16 @@
-// Register-blocked band sums for the banded-product inverses (swt_matmul.cu's
-// swt_inv_mxu_kernel and ns_matmul.cu's ns_inv_mxu_kernel), on Hopper's CUDA
-// cores.
+// Register-blocked band sums for the kernels redesigned for Hopper's CUDA
+// cores: the banded-product inverses (swt_matmul.cu's swt_inv_mxu_kernel,
+// ns_matmul.cu's ns_inv_mxu_kernel, mxu1d.cu's inv1d_strip_kernel), the
+// rank-r analysis (ns_matmul.cu's ns_fwd_mxu_kernel) and the exact inverse
+// of separable.cu.
 //
-// A thread computes a strip of P consecutive outputs of one filtered line
-// (along the window's rows or columns, at a step xs between samples), for R
-// sums at once that read the same data, each sum over `nbands` staged bands
-// of CH-padded taps.  It slides a register window over the line: a chunk of
-// CH taps loads P + CH - 1 samples once and CH taps per sum as float4
-// broadcasts, then does R * CH * P multiply-adds (fully unrolled), so a
+// A thread computes a strip of P outputs of one filtered line (along the
+// window's rows or columns, at a step xs between samples; OS samples apart,
+// 2 for a decimated analysis), for R sums at once that read the same data,
+// each sum over `nbands` staged bands of CH-padded taps.  It slides a
+// register window over the line: a chunk of CH taps loads OS (P - 1) + CH
+// samples once and CH taps per sum as float4 broadcasts, then does
+// R * CH * P multiply-adds (fully unrolled), so a
 // shared-memory load feeds 2.7 (P = 8, CH = 4, R = 1) to 9 (R = 3, CH = 8)
 // multiply-adds.  Each output keeps one float32 sum per scheme term (Acc), in
 // the plain version's order: band outer, tap inner; the zero taps that pad a
@@ -38,29 +41,30 @@ constexpr bool kTapLo = (S == B2F || S == B3);
 
 // Strip length of the passes that read the staged bands: 8 outputs for the
 // one-term schemes, 4 for the others (their accumulators take 2-3x the
-// registers).  The launch plans in kernels/swt_matmul.py and
-// kernels/ns_matmul.py mirror it.
+// registers).  The launch plans in kernels/swt_matmul.py, kernels/ns_matmul.py
+// and kernels/mxu1d.py mirror it (kernels/_launch.py: ROW_STRIP).
 template <int S>
 constexpr int kRowStrip = (S == FD || S == B1) ? 8 : 4;
 constexpr int kColStrip = 8;
 
-// acc[k][p] += sum_b sum_j t[k][b][j] * x_b[(p + j) * xs], for p < P, k < R,
-// b < nbands, j < nt (a multiple of CH): x_b = x + b * bstride (its second
-// operand lo_off further on), t[k][b] = t1 + k * kstride + b * nt (16-byte
-// aligned; the second values at the same offset of t2).
-template <int S, int P, int R, int CH, typename St>
+// acc[k][p] += sum_b sum_j t[k][b][j] * x_b[(OS p + j) * xs], for p < P,
+// k < R, b < nbands, j < nt (a multiple of CH): x_b = x + b * bstride (its
+// second operand lo_off further on), t[k][b] = t1 + k * kstride + b * nt
+// (16-byte aligned; the second values at the same offset of t2).
+template <int S, int P, int R, int CH, int OS = 1, typename St>
 __device__ __forceinline__ void band_strip(Acc<S> (&acc)[R][P], const St* __restrict__ x,
                                            int lo_off, int bstride, int nbands, int xs,
                                            const float* __restrict__ t1,
                                            const float* __restrict__ t2, int kstride, int nt) {
   static_assert(CH % 4 == 0, "taps are read as float4");
+  constexpr int ND = OS * (P - 1) + CH;  // samples a chunk reads
   for (int b = 0; b < nbands; ++b) {
     const St* xb = x + b * bstride;
     for (int c = 0; c < nt; c += CH) {
-      float d1[P + CH - 1], d2[P + CH - 1];
+      float d1[ND], d2[ND];
       const St* xc = xb + c * xs;
 #pragma unroll
-      for (int i = 0; i < P + CH - 1; ++i) {
+      for (int i = 0; i < ND; ++i) {
         d1[i] = to_f(xc[i * xs]);
         d2[i] = kDataLo<S> ? to_f(xc[lo_off + i * xs]) : 0.f;
       }
@@ -82,7 +86,8 @@ __device__ __forceinline__ void band_strip(Acc<S> (&acc)[R][P], const St* __rest
 #pragma unroll
         for (int j = 0; j < CH; ++j)
 #pragma unroll
-          for (int p = 0; p < P; ++p) acc[k][p].add(ta[j], tb[j], d1[p + j], d2[p + j]);
+          for (int p = 0; p < P; ++p)
+            acc[k][p].add(ta[j], tb[j], d1[OS * p + j], d2[OS * p + j]);
       }
     }
   }
@@ -129,7 +134,8 @@ __device__ __forceinline__ float load_band(const Bands& b, int k, size_t o) {
 }
 
 // Stage the nr x nc windows of NB bands at dst + k * bstride (row-major,
-// pitch nc; second operand lo_off further on): sample (i, w) of band k =
+// pitch nc, or `pitch` where given; second operand lo_off further on):
+// sample (i, w) of band k =
 // src_k[rowoff + rows[i] * n_c + cols[w]], thresholded first where bit k of
 // `thr` is set.  Lanes run along the window's columns, so a warp reads
 // consecutive addresses where the columns are; each thread issues LOADS
@@ -139,8 +145,9 @@ template <int S, int NB, int LOADS, typename St>
 __device__ __forceinline__ void stage_bands(const Bands src, unsigned thr, size_t rowoff, int n_c,
                                             const int* rows, const int* cols, int nr, int nc,
                                             St* dst, int bstride, int lo_off, int mode,
-                                            float beta) {
+                                            float beta, int pitch = 0) {
   constexpr int U = LOADS / NB;
+  const int pt = pitch ? pitch : nc;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   for (int w = lane; w < nc; w += 32) {
     const int cw = cols[w];
@@ -161,7 +168,7 @@ __device__ __forceinline__ void stage_bands(const Bands src, unsigned thr, size_
         for (int k = 0; k < NB; ++k) {
           const float x = (thr >> k & 1) ? thresh(v[k][u], mode, beta) : v[k][u];
           St* d = dst + k * bstride;
-          stage<S>(x, d, d + lo_off, i * nc + w);
+          stage<S>(x, d, d + lo_off, i * pt + w);
         }
       }
     }

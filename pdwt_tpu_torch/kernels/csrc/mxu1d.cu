@@ -1,15 +1,15 @@
 // The batched 1D level kernels of the precision tiers for Hopper (sm_90a), with
 // a plain C interface loaded through ctypes (pdwt_tpu_torch/kernels/_build.py).
 //
-// Two kernels per Pallas kernel of pdwt_tpu/kernels/mxu1d_pallas.py, each
-// with a decimated and an a-trous instance (the TPU kernels' stride 2 and
-// dilated band matrices):
+// The kernels of the two Pallas kernels of pdwt_tpu/kernels/mxu1d_pallas.py,
+// each with a decimated and an a-trous instance (the TPU kernels' stride 2
+// and dilated band matrices):
 //
 //   fwd1d_staged_kernel, fwd1d_mxu_kernel  <- _fwd1d_kernel  (mxu1d_pallas.py:102)
-//   inv1d_staged_kernel, inv1d_mxu_kernel  <- _inv1d_kernel  (mxu1d_pallas.py:153)
+//   inv1d_strip_kernel                     <- _inv1d_kernel  (mxu1d_pallas.py:153)
 //
-// (the staged kernels where a block's windows fit shared memory, the direct
-// ones where they do not, see Layout)
+// (the analysis: the staged kernel where a block's windows fit shared
+// memory, the direct one where they do not, see Layout)
 //
 // Every kernel filters along the last axis of a (B, N) batch under a compute
 // scheme (mxu_common.cuh), with the index spec of core/conv.py, t the
@@ -22,30 +22,35 @@
 // The wrappers (kernels/mxu1d.py) pass the offsets and fold the a-trous
 // synthesis's 1/2 into the taps before they are split.
 //
-// Layout as batched1d.cu: the signal axis runs along the lanes; a block of NT
-// threads is TW x RB, TW output positions of RB = NT / TW signals; the grid is
-// one-dimensional.  Each row of the block stages the window of samples its TW
-// outputs read (each band's, for a synthesis), split once into the scheme's
+// Layout of the analysis as batched1d.cu: the signal axis runs along the
+// lanes; a block of NT threads is TW x RB, TW output positions of RB = NT /
+// TW signals; the grid is one-dimensional.  Each row of the block stages the
+// window of samples its TW outputs read, split once into the scheme's
 // operands (bf16, float32 for fd), in shared memory; the taps then read the
 // window at stride 1 (2 for the decimated analysis), with no index wrap.
 // Where a window outgrows shared memory (an a-trous dilation of thousands),
-// the level runs the direct kernels instead, which read and split every
+// the level runs the direct kernel instead, which reads and splits every
 // sample per tap straight from memory through L1.  Both sum in the plain
-// version's order, so they give the same bits.
+// version's order, so they give the same bits.  The synthesis was
+// redesigned for Hopper's CUDA cores on band_strip.cuh (its own comment
+// below says how): 32 signals per block, one per lane, register-blocked
+// strips, a launch plan from the host, and a window that does not grow with
+// the dilation, so it needs no direct kernel.
 //
 // Bound: device memory.  A level reads its input once and writes its output
 // once; at 1024 x 4096, sym8, b3 does 3 * 16 FMAs per output and filter on
 // operands split once per sample, about 0.4 GFLOP at level 1, 6 us on the
 // float32 cores against 7.5 us for the bytes.  Splitting each sample once per
-// tap instead (the direct kernels) costs up to 2 * 16 conversions per output
+// tap instead (the direct kernel) costs up to 2 * 16 conversions per output
 // and filter; at the paths' shapes that ran 4-8x slower than the exact
 // kernels of batched1d.cu on an H100.
 
-#include "mxu_common.cuh"
+#include "band_strip.cuh"
 
 namespace {
 
 using namespace pdwt_mxu;
+using namespace pdwt_strip;
 
 constexpr int NT = 256;  // threads per block
 // dynamic shared memory a staged block may use beside its static copy of the taps
@@ -61,23 +66,6 @@ __device__ __forceinline__ void place(int ntile, long long& row, int& pos0) {
   const unsigned grp = blockIdx.x / ntile, t = blockIdx.x % ntile;
   row = (long long)grp * blockDim.y + threadIdx.y;
   pos0 = static_cast<int>(t) * (int)blockDim.x;
-}
-
-// acc += sum_b t[p + b*ts] * s[(k0 + b*step) mod N], b < cnt, the samples
-// split per scheme as they are read.
-template <int S, typename T>
-__device__ __forceinline__ void fir(Acc<S>& acc, const T* __restrict__ s, int N, long long k0,
-                                    int step, int cnt, const float* t1, const float* t2,
-                                    int p, int ts) {
-  const int st = step % N;
-  long long k = wrapl(k0, N);
-  for (int b = 0; b < cnt; ++b) {
-    float d1, d2;
-    split<S>(load_f(s + k), d1, d2);
-    acc.add(t1[p + b * ts], t2[p + b * ts], d1, d2);
-    k += st;
-    if (k >= N) k -= N;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -111,44 +99,6 @@ fwd1d_mxu_kernel(const TI* __restrict__ x, float* __restrict__ lo, TD* __restric
   const size_t o = (size_t)row * n_out + n;
   lo[o] = l.total();
   hi[o] = from_f<TD>(h.total());
-}
-
-// ---------------------------------------------------------------------------
-// Synthesis level, direct.  Replaces _inv1d_kernel (mxu1d_pallas.py:153).  Decimated:
-// thread m writes the output pair (2m, 2m + 1), each parity a half-length FIR
-// over the lo band, then the hi band (no stuffed zeros are read).  A-trous:
-// thread n sums the lo band's dilated FIR, then the hi band's.
-// ---------------------------------------------------------------------------
-template <int S, typename TD, typename TO, bool DECIM>
-__global__ void __launch_bounds__(NT)
-inv1d_mxu_kernel(const float* __restrict__ lo, const TD* __restrict__ hi, TO* __restrict__ out,
-                 int B, int M, int hlen, int f, int cen, const Poly g, int ntile,
-                 const __grid_constant__ Taps4 tp) {
-  long long row;
-  int pos0;
-  place(ntile, row, pos0);
-  const int m = pos0 + threadIdx.x;
-  if (row >= B || m >= M) return;
-  const float* lr = lo + (size_t)row * M;
-  const TD* hr = hi + (size_t)row * M;
-  if constexpr (DECIM) {
-    float res[2];
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      Acc<S> acc;
-      const long long k0 = (long long)m + g.o[q];
-      fir(acc, lr, M, k0, 1, g.nb[q], tp.lo1, tp.lo2, g.p[q], 2);
-      fir(acc, hr, M, k0, 1, g.nb[q], tp.hi1, tp.hi2, g.p[q], 2);
-      res[q] = acc.total();
-    }
-    store_pair(out + (size_t)row * 2 * M + 2 * m, res[0], res[1]);
-  } else {
-    Acc<S> acc;
-    const long long k0 = (long long)m - cen;
-    fir(acc, lr, M, k0, f, hlen, tp.lo1, tp.lo2, 0, 1);
-    fir(acc, hr, M, k0, f, hlen, tp.hi1, tp.hi2, 0, 1);
-    out[(size_t)row * M + m] = from_f<TO>(acc.total());
-  }
 }
 
 // Stage the window s[(w0 + i) mod N], i < W, of one row, split into the
@@ -205,60 +155,149 @@ fwd1d_staged_kernel(const TI* __restrict__ x, float* __restrict__ lo, TD* __rest
 }
 
 // ---------------------------------------------------------------------------
-// Synthesis level, staged: both bands' windows, W = TW + lo + hi of
-// poly_geometry (decimated) or TW + (hlen - 1) * f (a-trous) per band.
+// Synthesis level.  Replaces _inv1d_kernel (mxu1d_pallas.py:153).  Redesigned
+// for Hopper's CUDA cores (band_strip.cuh).  A block owns kRows = 32 signals
+// (one per lane) by lc positions of the subbands: consecutive (gc = 1, the
+// polyphase synthesis, and the a-trous one while the window grows at most
+// 1.4x) or one residue class mod f (gc = f).  Per group of 32 signals: stage
+// both bands' windows (lc + (nt - 1) dc samples per signal, wrapped through
+// a 32-bit index table, 16 loads per thread in flight, lanes along the
+// positions and warps over the signals, split into the scheme's operands;
+// each signal's line an odd number of words long); then each thread takes a strip of kRowStrip
+// outputs of one signal, the 32 lanes of a warp the same strip of 32
+// signals, so a warp's loads fall on 32 distinct banks at any dilation, and
+// sums the low taps on the low band then the high taps on the high band, as
+// the plain version.  Polyphase: both output parities from one read of each
+// sample (R = 2), parity q's taps p_q + 2 b from poly_geometry, zero-padded
+// on a common origin (parity 1 starts off_1 - off_0 samples later); a-trous:
+// outputs dc apart, the taps dc samples apart.  The sums go to a float tile,
+// written out with lanes along the positions.  The taps (the (4, hlen)
+// device buffer: low first and second values, then the high filter's) are
+// read around the first staging.  The plan (kernels/mxu1d.py:
+// inv1d_launch_plan) picks lc and gc, and the entry point refuses a plan
+// that does not add up.  The window never grows with f past 1.4x, so no
+// level needs a kernel that reads past shared memory.
 // ---------------------------------------------------------------------------
-template <int S, typename TD, typename TO, bool DECIM>
-__global__ void __launch_bounds__(NT)
-inv1d_staged_kernel(const float* __restrict__ lo, const TD* __restrict__ hi,
-                    TO* __restrict__ out, int B, int M, int hlen, int f, int cen, const Poly g,
-                    int ntile, int W, const __grid_constant__ Taps4 tp) {
+constexpr int kRows = 32;        // signals per block, one per lane
+// taps per chunk of the strips: 8 for the a-trous synthesis (16 taps for
+// sym8), 4 for the polyphase one (the parities' tables are 9 long for sym8)
+template <int NPH>
+constexpr int kCh = NPH == 1 ? 8 : 4;
+// Shared-memory bytes of the synthesis: taps, the index table, both bands'
+// windows, the output tile.  kernels/mxu1d.py:_inv1d_smem mirrors it.
+template <int S>
+size_t inv1d_smem(int nph, int lc, int dc, int nt) {
   using St = Stage<S>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const size_t nd = kDataLo<S> ? 2 : 1, W = lc + (size_t)(nt - 1) * dc;
+  return 16 * (size_t)nph * nt + align16(W * sizeof(int)) +
+         align16(2 * nd * kRows * temp_pitch<St>((int)W) * sizeof(St)) +
+         (size_t)kRows * ((nph * lc) | 1) * sizeof(float);
+}
+
+template <int S, int NPH>
+__global__ void __launch_bounds__(256)
+inv1d_strip_kernel(const float* __restrict__ lo, const void* __restrict__ hi,
+                   void* __restrict__ out, int hi_bf16, int out_bf16, int B, int M, int hlen,
+                   int f, int cen, const Poly g, const float* __restrict__ taps, int lc, int gc,
+                   int nt) {
+  using St = Stage<S>;
   constexpr int nd = kDataLo<S> ? 2 : 1;
-  St* l1 = reinterpret_cast<St*>(smem_raw) + (size_t)threadIdx.y * 2 * nd * W;
-  St* l2 = l1 + W;
-  St* h1 = l1 + nd * W;
-  St* h2 = h1 + W;
-  __shared__ float4 tq[PDWT_MXU_MAX_HLEN];
-  long long row;
-  int pos0;
-  place(ntile, row, pos0);
-  stage_taps(tq, tp, hlen);
-  const long long w0 = DECIM ? (long long)pos0 - g.lo : (long long)pos0 - cen;
-  if (row < B) {
-    stage_row<S>(lo + (size_t)row * M, M, w0, W, l1, l2);
-    stage_row<S>(hi + (size_t)row * M, M, w0, W, h1, h2);
-  }
+  constexpr int P = kRowStrip<S>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int dc = f / gc, W = lc + (nt - 1) * dc, LP = temp_pitch<St>(W), OP = (NPH * lc) | 1;
+  float* t1 = reinterpret_cast<float*>(smem_raw);  // [q][band][nt], first values
+  float* t2 = t1 + NPH * 2 * nt;                    // second values
+  int* cols = reinterpret_cast<int*>(t2 + NPH * 2 * nt);
+  St* win = reinterpret_cast<St*>(reinterpret_cast<unsigned char*>(cols) +
+                                  align16((size_t)W * sizeof(int)));
+  float* tile = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(win) +
+      align16((size_t)2 * nd * kRows * LP * sizeof(St)));  // kRows x OP
+  const int BS = nd * kRows * LP;                            // band stride
+
+  // polyphase: the window starts at the earlier parity's first sample
+  const int o0 = g.lo + g.o[0], o1 = g.lo + g.o[1], omin = o0 < o1 ? o0 : o1;
+  const int frc = gc == 1 ? 1 : (f < M ? f : M);
+  const int rho = blockIdx.x % frc, q0 = (blockIdx.x / frc) * lc;
+  // window entry i <-> position rho + gc (q0 + i) + shift
+  const long long shift = NPH == 2 ? (long long)omin - g.lo : -(long long)cen;
+  fill_index(cols, W, rho + (long long)gc * q0 + shift, gc, M);
   __syncthreads();
-  const int m = pos0 + threadIdx.x;
-  if (row >= B || m >= M) return;
-  // one band's sum: its window (b1, b2), its taps (the lo or hi filter's)
-  auto band = [&](Acc<S>& acc, const St* b1, const St* b2, bool hi_band, int i0, int step,
-                  int cnt, int p, int ts) {
-    for (int b = 0; b < cnt; ++b) {
-      const int i = i0 + b * step;
-      const float4 t = tq[p + b * ts];
-      acc.add(hi_band ? t.z : t.x, hi_band ? t.w : t.y, to_f(b1[i]),
-              kDataLo<S> ? to_f(b2[i]) : 0.f);
-    }
+  // t1 [q][band][nt] then t2, from taps (4, hlen): band k's first values in
+  // row 2k, second values in row 2k + 1; parity q's tap b = j - (o_q - omin)
+  auto tap = [&](int e) {
+    const int per = NPH * 2 * nt, e2 = e / per, o = e % per, q = o / (2 * nt);
+    const int band = (o / nt) % 2, j = o % nt, row = (2 * band + e2) * hlen;
+    if (NPH == 1) return j < hlen ? row + j : -1;
+    const int bb = j - ((q ? o1 : o0) - omin);
+    return bb >= 0 && bb < g.nb[q] ? row + g.p[q] + 2 * bb : -1;
   };
-  if constexpr (DECIM) {
-    float res[2];
+  const int ngroups = (B + kRows - 1) / kRows;
+  const int Nout = NPH * M;
+  for (int grp = blockIdx.y; grp < ngroups; grp += gridDim.y) {
+    const long long row0 = (long long)grp * kRows;
+    // lanes along the window, a warp's rows warp, warp + nw, ...: each
+    // thread keeps 2 bands x 4 rows x 2 window entries (32 apart) in flight
+    auto stage_win = [&] {
+      const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+      for (int w = lane; w < W; w += 64) {
+        const int w2 = w + 32 < W ? w + 32 : w, c[2] = {cols[w], cols[w2]};
+        for (int r0 = warp; r0 < kRows; r0 += 4 * nw) {
+          float vl[4][2], vh[4][2];
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      Acc<S> acc;
-      const int i0 = threadIdx.x + g.lo + g.o[q];
-      band(acc, l1, l2, false, i0, 1, g.nb[q], g.p[q], 2);
-      band(acc, h1, h2, true, i0, 1, g.nb[q], g.p[q], 2);
-      res[q] = acc.total();
+          for (int u = 0; u < 4; ++u) {
+            const long long r = row0 + (r0 + u * nw < kRows ? r0 + u * nw : kRows - 1);
+            const size_t base = (size_t)(r < B ? r : B - 1) * M;
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {
+              vl[u][k] = __ldg(lo + base + c[k]);
+              vh[u][k] = hi_bf16 ? load_f(static_cast<const __nv_bfloat16*>(hi) + base + c[k])
+                                 : load_f(static_cast<const float*>(hi) + base + c[k]);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int r = r0 + u * nw;
+            if (r >= kRows) break;
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {
+              if (k && w2 == w) break;
+              const int i = r * LP + w + 32 * k;
+              stage<S>(vl[u][k], win, win + kRows * LP, i);
+              stage<S>(vh[u][k], win + BS, win + BS + kRows * LP, i);
+            }
+          }
+        }
+      }
+    };
+    if (grp == (int)blockIdx.y)
+      fill_around(t1, 2 * NPH * 2 * nt, taps, tap, stage_win);
+    else
+      stage_win();
+    __syncthreads();
+    // signal r (the lane), outputs t0 + dc q (q < P), every parity
+    for (int it = threadIdx.x; it < kRows * (lc / P); it += blockDim.x) {
+      const int r = it % kRows, sp = it / kRows, t0 = sp % dc + dc * (sp / dc) * P;
+      Acc<S> acc[NPH][P];
+      band_strip<S, P, NPH, kCh<NPH>>(acc, win + r * LP + t0, kRows * LP, BS, 2, dc, t1, t2,
+                                      2 * nt, nt);
+#pragma unroll
+      for (int q = 0; q < P; ++q)
+#pragma unroll
+        for (int ph = 0; ph < NPH; ++ph)
+          tile[r * OP + NPH * (t0 + dc * q) + ph] = acc[ph][q].total();
     }
-    store_pair(out + (size_t)row * 2 * M + 2 * m, res[0], res[1]);
-  } else {
-    Acc<S> acc;
-    band(acc, l1, l2, false, threadIdx.x, f, hlen, 0, 1);
-    band(acc, h1, h2, true, threadIdx.x, f, hlen, 0, 1);
-    out[(size_t)row * M + m] = from_f<TO>(acc.total());
+    __syncthreads();
+    auto orow = [&](int i) { return row0 + i; };
+    auto ocol = [&](int u) {
+      return NPH == 2 ? 2LL * q0 + u : rho + (long long)gc * (q0 + u);
+    };
+    if (out_bf16)
+      store_tile(static_cast<__nv_bfloat16*>(out), 0, B, Nout, tile, OP, kRows, NPH * lc, orow,
+                 ocol);
+    else
+      store_tile(static_cast<float*>(out), 0, B, Nout, tile, OP, kRows, NPH * lc, orow, ocol);
+    __syncthreads();
   }
 }
 
@@ -318,40 +357,42 @@ cudaError_t launch_fwd(const void* x, float* lo, void* hi, int B, int N, const T
   });
 }
 
+// Launch the synthesis on its plan, after checking that the plan adds up.
 template <bool DECIM>
 cudaError_t launch_inv(const float* lo, const void* hi, void* out, int B, int M,
-                       const Taps4& tp, int hlen, int f, int cen, const int* geo, int scheme,
-                       int hi_bf16, int out_bf16, void* stream) {
-  if (f < 1) return cudaErrorInvalidValue;
+                       const float* taps, int hlen, int f, int cen, const int* geo, int scheme,
+                       int hi_bf16, int out_bf16, int lc, int gc, int nt, int threads, int gx,
+                       int gy, int gz, int smem, void* stream) {
+  if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || M < 1 || f < 1 || (DECIM && f != 1))
+    return cudaErrorInvalidValue;
   const Poly g = make_poly(geo);
-  Geometry gm;
-  cudaError_t e = geometry(B, M, hlen, &gm);
-  if (e != cudaSuccess) return e;
-  return with_scheme(scheme, [&](auto sc) {
+  int need = hlen;  // taps the plan must hold on the common origin
+  if (DECIM) {
+    const int o0 = g.lo + g.o[0], o1 = g.lo + g.o[1], omin = o0 < o1 ? o0 : o1;
+    for (int q = 0; q < 2; ++q)
+      if ((q ? o1 : o0) < 0 || g.p[q] < 0 || g.nb[q] < 1 || g.p[q] + 2 * (g.nb[q] - 1) >= hlen)
+        return cudaErrorInvalidValue;
+    need = (o0 - omin + g.nb[0]) > (o1 - omin + g.nb[1]) ? o0 - omin + g.nb[0]
+                                                           : o1 - omin + g.nb[1];
+  }
+  const long long groups = (B + (long long)kRows - 1) / kRows;
+  const long long want_x = gc == 1 ? (M + (long long)lc - 1) / lc : axis_blocks(M, f, lc);
+  constexpr int CH = kCh<DECIM ? 2 : 1>;
+  if (nt < need || nt % CH || nt > PDWT_MXU_MAX_HLEN + CH || !(gc == 1 || gc == f) ||
+      (DECIM && gc != 1) || lc < 1 || threads < 32 || threads > 256 || threads % 32 ||
+      gx != want_x || gy != (groups < 65535 ? groups : 65535) || gz != 1)
+    return cudaErrorInvalidValue;
+  return with_scheme(scheme, [&](auto sc) -> cudaError_t {
     constexpr int S = decltype(sc)::value;
-    return with_type(hi_bf16, [&](auto td) {
-      using TD = typename decltype(td)::type;
-      return with_type(out_bf16, [&](auto to) -> cudaError_t {
-        using TO = typename decltype(to)::type;
-        const int tw = gm.block.x, rb = gm.block.y;
-        const long long W = DECIM ? (long long)tw + g.lo + g.hi
-                                  : tw + (long long)(hlen - 1) * f;
-        const long long smem = (long long)rb * 2 * (kDataLo<S> ? 2 : 1) * W * sizeof(Stage<S>);
-        if (smem <= kStagedLimit) {
-          auto kernel = inv1d_staged_kernel<S, TD, TO, DECIM>;
-          cudaError_t e = prepare(kernel, (size_t)smem);
-          if (e != cudaSuccess) return e;
-          kernel<<<gm.grid, gm.block, (size_t)smem, (cudaStream_t)stream>>>(
-              lo, static_cast<const TD*>(hi), static_cast<TO*>(out), B, M, hlen, f, cen, g,
-              gm.ntile, (int)W, tp);
-        } else {
-          inv1d_mxu_kernel<S, TD, TO, DECIM><<<gm.grid, gm.block, 0, (cudaStream_t)stream>>>(
-              lo, static_cast<const TD*>(hi), static_cast<TO*>(out), B, M, hlen, f, cen, g,
-              gm.ntile, tp);
-        }
-        return cudaGetLastError();
-      });
-    });
+    constexpr int NPH = DECIM ? 2 : 1;
+    if (lc % (kRowStrip<S> * (f / gc)) || (size_t)smem != inv1d_smem<S>(NPH, lc, f / gc, nt))
+      return cudaErrorInvalidValue;
+    auto kernel = inv1d_strip_kernel<S, NPH>;
+    cudaError_t e = prepare(kernel, smem, 0);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+        lo, hi, out, hi_bf16, out_bf16, B, M, hlen, f, cen, g, taps, lc, gc, nt);
+    return cudaGetLastError();
   });
 }
 
@@ -362,8 +403,8 @@ cudaError_t launch_inv(const float* lo, const void* hi, void* out, int B, int M,
 // `scheme` is the index in kernels/matmul.py:SCHEMES; the *_bf16 flags pick
 // bf16 (1) or float32 (0) storage.  The analysis entry points share one
 // signature (the decimated one reads no `f`), and so do the synthesis ones
-// (`geo`, poly_geometry(hlen), is read by the polyphase one only, `f` and
-// `cen`, the dilated center, by the a-trous one only).
+// (`geo`, poly_geometry(hlen) on the host, is read by the polyphase one
+// only, `f` and `cen`, the dilated center, by the a-trous one only).
 
 extern "C" int pdwt_fwd_level_1d_mxu(const void* x, float* lo, void* hi, int B, int N,
                                      const float* lo1, const float* lo2, const float* hi1,
@@ -381,19 +422,26 @@ extern "C" int pdwt_swt_fwd_level_1d_mxu(const void* x, float* lo, void* hi, int
                            scheme, in_bf16, hi_bf16, stream);
 }
 
+// `taps` is the (4, hlen) float32 device buffer of the synthesis: the low
+// filter's first and second values, then the high filter's, correlation
+// order.  The launch plan (kernels/mxu1d.py:inv1d_launch_plan): lc positions
+// of column stride gc (1 or f), nt padded taps, threads, grid (gx, gy, gz)
+// and dynamic shared-memory bytes; a plan that does not add up is refused
+// (cudaErrorInvalidValue).
 extern "C" int pdwt_inv_level_1d_mxu(const float* lo, const void* hi, void* out, int B, int M,
-                                     const float* lo1, const float* lo2, const float* hi1,
-                                     const float* hi2, int hlen, int f, int cen, const int* geo,
-                                     int scheme, int hi_bf16, int out_bf16, void* stream) {
-  return launch_inv<true>(lo, hi, out, B, M, make_taps4(lo1, lo2, hi1, hi2, hlen), hlen, 1, 0,
-                          geo, scheme, hi_bf16, out_bf16, stream);
+                                     const float* taps, int hlen, int f, int cen, const int* geo,
+                                     int scheme, int hi_bf16, int out_bf16, int lc, int gc,
+                                     int nt, int threads, int gx, int gy, int gz, int smem,
+                                     void* stream) {
+  return launch_inv<true>(lo, hi, out, B, M, taps, hlen, f, cen, geo, scheme, hi_bf16,
+                          out_bf16, lc, gc, nt, threads, gx, gy, gz, smem, stream);
 }
 
 extern "C" int pdwt_swt_inv_level_1d_mxu(const float* lo, const void* hi, void* out, int B,
-                                         int M, const float* lo1, const float* lo2,
-                                         const float* hi1, const float* hi2, int hlen, int f,
-                                         int cen, const int* geo, int scheme, int hi_bf16,
-                                         int out_bf16, void* stream) {
-  return launch_inv<false>(lo, hi, out, B, M, make_taps4(lo1, lo2, hi1, hi2, hlen), hlen, f,
-                           cen, geo, scheme, hi_bf16, out_bf16, stream);
+                                         int M, const float* taps, int hlen, int f, int cen,
+                                         const int* geo, int scheme, int hi_bf16, int out_bf16,
+                                         int lc, int gc, int nt, int threads, int gx, int gy,
+                                         int gz, int smem, void* stream) {
+  return launch_inv<false>(lo, hi, out, B, M, taps, hlen, f, cen, geo, scheme, hi_bf16,
+                           out_bf16, lc, gc, nt, threads, gx, gy, gz, smem, stream);
 }

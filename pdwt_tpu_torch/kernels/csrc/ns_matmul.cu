@@ -32,14 +32,15 @@
 // geometry of poly_geometry(hlen) when decimated: org = lo, off_q = lo + o_q;
 // a-trous: org = swt_inv_center(hlen), one phase of all hlen taps).
 //
-// Layout.  The forward's block owns a 32 x 32 tile of outputs; at f > 1 the
-// tile's positions along each axis are one residue class mod f
-// (mxu_common.cuh: Axis), so the staged windows do not grow with the level.
-// The inverse (redesigned for Hopper's CUDA cores, band_strip.cuh) takes its
-// tile, its column layout and its block size from a launch plan made on the
-// host; its own comment below says how.  The taps (at most 4 x 5 filters of
-// 40 taps, both terms) come from a small device buffer and are staged once
-// per block.
+// Layout.  Both kernels are redesigned for Hopper's CUDA cores on
+// band_strip.cuh: a block owns a tile of rows of one residue class mod f by
+// consecutive columns (or one residue class where a consecutive window
+// would grow more than 1.4x), so the staged windows do not grow with the
+// level; its tile, column layout, block size, grid and shared memory come
+// from a launch plan made on the host (kernels/ns_matmul.py), which the
+// entry point checks.  Each kernel's own comment below says how it runs.
+// The taps (at most 4 x 5 filters of 40 taps, both terms) come from a small
+// device buffer and are read once per block, around its first staging.
 //
 // Bound.  At 2048^2 a rank-3 level reads 8 MiB (bf16) and writes 4 MiB of
 // float32 plus 6 MiB of bf16 (5.6 us at 3.35 TB/s); with 8 taps it does
@@ -55,112 +56,149 @@ namespace {
 using namespace pdwt_mxu;
 using namespace pdwt_strip;
 
-constexpr int LT = 32;
-constexpr int BX = 32;
-constexpr int BY = 8;
 constexpr int kMaxRank = 4;
 constexpr int kMaxHlen = 40;
-constexpr size_t kNsTapsSmem = kMaxRank * kMaxHlen * (sizeof(float2) + 2 * sizeof(float4));
-
-// The block's copy of the taps buffer (rank, 5, 2, hlen) float32, filter 0 of
-// term k the column filter b_k, filters 1-4 the row filters a_k^(s), each as
-// (first, second) value of the scheme: ct[k*hlen + j] = (b_k first, second);
-// rt1/rt2[k*hlen + j] = the four a_k^(s) first / second values.
-__device__ __forceinline__ void stage_ns_taps(float2* ct, float4* rt1, float4* rt2,
-                                              const float* __restrict__ taps, int rank,
-                                              int hlen) {
-  const int t = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int e = t; e < rank * hlen; e += blockDim.x * blockDim.y) {
-    const int k = e / hlen, j = e % hlen;
-    const float* base = taps + (size_t)k * 10 * hlen + j;  // filter g, value e2 at (2g + e2)*hlen
-    ct[e] = make_float2(__ldg(base), __ldg(base + hlen));
-    rt1[e] = make_float4(__ldg(base + 2 * hlen), __ldg(base + 4 * hlen), __ldg(base + 6 * hlen),
-                         __ldg(base + 8 * hlen));
-    rt2[e] = make_float4(__ldg(base + 3 * hlen), __ldg(base + 5 * hlen), __ldg(base + 7 * hlen),
-                         __ldg(base + 9 * hlen));
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Forward level, stride 2 or 1.  Replaces _ns_fwd_kernel
-// (ns_matmul_pallas.py:100).  Stages the W x W window (W = S LT + hlen - S)
-// split into the scheme's operands; filters every window row along the
-// columns with each b_k into a shared temp (r x W x LT), split again; then
-// sums each subband's row filters over (k, tap) and writes A, H, V, D once.
+// (ns_matmul_pallas.py:100).  Redesigned for Hopper's CUDA cores
+// (band_strip.cuh), as the inverse below.  A block owns lr output rows (one
+// residue class mod f) by lc output columns (consecutive, gc = 1, or one
+// residue class, gc = f; always consecutive at stride 2).  Per batch item:
+// stage the input window (WR = S (lr - 1) + nt rows by WC = S (lc - 1) +
+// (nt - 1) dc + 1 columns, wrapped through 32-bit index tables, 16 loads per
+// thread in flight, split into the scheme's operands, an odd number of
+// words per row); along the columns, each thread takes a strip of kRowStrip
+// outputs (dc apart) of one window row, lanes along the rows, and sums the
+// R column filters b_k at once from one read of each sample (OS = S samples
+// between outputs), into R shared temps (WR rows by lc columns), split
+// again; along the rows, each thread takes a strip of kRowStrip output rows
+// of one temp column, lanes along the columns, and sums the four subbands'
+// row filters over (k, tap) at once, k outer and tap inner, as the plain
+// version; A, H, V and D go straight from the registers to device memory
+// (a warp stores consecutive columns).  The taps (b_k, then the a_k^(s)) are
+// padded with zeros to nt, a multiple of 4, and read around the first
+// staging.  The plan (kernels/ns_matmul.py: ns_fwd_launch_plan) picks the
+// tile so that the deep levels still get about two blocks per SM, and the
+// entry point refuses a plan that does not add up.
 // ---------------------------------------------------------------------------
-template <int S, typename TI, typename TD>
-__global__ void __launch_bounds__(BX * BY)
-ns_fwd_mxu_kernel(const TI* __restrict__ x, float* __restrict__ a, TD* __restrict__ h,
-                  TD* __restrict__ v, TD* __restrict__ d, int B, int R, int C, int Ro, int Co,
-                  int hlen, int rank, int stride, int f, int cen, int frr, int frc,
-                  const float* __restrict__ taps) {
+constexpr int kCh = 4;           // taps per chunk of the strips
+constexpr int kStageLoads = 16;  // loads in flight per thread while staging
+
+// Shared-memory bytes of the forward: column and row taps, index tables, the
+// window, the R temps.  kernels/ns_matmul.py:_fwd_smem mirrors it.
+template <int S>
+size_t ns_fwd_smem(int rank, int st, int lr, int lc, int dc, int nt) {
   using St = Stage<S>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const size_t nd = kDataLo<S> ? 2 : 1;
+  const size_t WR = (size_t)st * (lr - 1) + nt;
+  const size_t WC = (size_t)st * (lc - 1) + (size_t)(nt - 1) * dc + 1;
+  return 40 * (size_t)rank * nt + align16((WR + WC) * sizeof(int)) +
+         align16(nd * WR * temp_pitch<St>((int)WC) * sizeof(St)) +
+         (size_t)rank * nd * WR * temp_pitch<St>(lc) * sizeof(St);
+}
+
+template <int S, int R, int OS>
+__global__ void __launch_bounds__(256)
+ns_fwd_mxu_kernel(const void* __restrict__ x, float* __restrict__ a, void* __restrict__ h,
+                  void* __restrict__ v, void* __restrict__ d, int in_bf16, int det_bf16, int B,
+                  int Rin, int Cin, int Ro, int Co, int hlen, int f, int cen,
+                  const float* __restrict__ taps, int lr, int lc, int gc, int nt) {
+  using St = Stage<S>;
   constexpr int nd = kDataLo<S> ? 2 : 1;
-  const int W = stride * LT + hlen - stride;
-  St* in1 = reinterpret_cast<St*>(smem_raw);  // W x W window
-  St* in2 = in1 + W * W;
-  St* tk1 = in1 + nd * W * W;                  // r x W x LT, column-filtered rows
-  St* tk2 = tk1 + rank * W * LT;
-  __shared__ float2 ct[kMaxRank * kMaxHlen];
-  __shared__ float4 rt1[kMaxRank * kMaxHlen], rt2[kMaxRank * kMaxHlen];
-  stage_ns_taps(ct, rt1, rt2, taps, rank, hlen);
-  const Axis ar = axis_of<LT>(blockIdx.y, frr, f), ac = axis_of<LT>(blockIdx.x, frc, f);
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  // input position of window entry i: S rho + (S q0 + i - cen) f
-  auto in_pos = [&](const Axis& ax, int i) {
-    return stride * ax.rho + (static_cast<long long>(stride) * ax.q0 + i - cen) * ax.f;
+  constexpr int P = kRowStrip<S>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int dc = f / gc;
+  const int WR = OS * (lr - 1) + nt, WC = OS * (lc - 1) + (nt - 1) * dc + 1;
+  const int WP = temp_pitch<St>(WC), TP = temp_pitch<St>(lc);
+  float* ct1 = reinterpret_cast<float*>(smem_raw);  // [k][nt], b_k first values
+  float* ct2 = ct1 + R * nt;                         // second values
+  float* rt1 = ct2 + R * nt;                         // [s][k][nt], a_k^(s) first values
+  float* rt2 = rt1 + 4 * R * nt;
+  int* rows = reinterpret_cast<int*>(rt2 + 4 * R * nt);
+  int* cols = rows + WR;
+  unsigned char* p = reinterpret_cast<unsigned char*>(rows) +
+                     align16((size_t)(WR + WC) * sizeof(int));
+  St* win = reinterpret_cast<St*>(p);  // WR x WP, second operand WR * WP further on
+  St* tmp = reinterpret_cast<St*>(p + align16((size_t)nd * WR * WP * sizeof(St)));
+  const int TS = nd * WR * TP;  // temp stride
+
+  const int frr = f < Ro ? f : Ro, frc = gc == 1 ? 1 : (f < Co ? f : Co);
+  const int rho_r = blockIdx.y % frr, q0r = (blockIdx.y / frr) * lr;
+  const int rho_c = blockIdx.x % frc, q0c = (blockIdx.x / frc) * lc;
+  // window row i <-> input row S (rho_r + f q0r) + (i - cen) f; window
+  // column w <-> S (rho_c + gc q0c) - cen f + gc w
+  fill_index(rows, WR, OS * (rho_r + (long long)f * q0r) - (long long)cen * f, f, Rin);
+  fill_index(cols, WC, OS * (rho_c + (long long)gc * q0c) - (long long)cen * f, gc, Cin);
+  const Bands src = {{x}, in_bf16 ? 1u : 0u};
+  __syncthreads();
+  // ct1, ct2 [k][nt], rt1, rt2 [s][k][nt], one after the other, from
+  // taps[k][flt][e2][j] at ((k * 5 + flt) * 2 + e2) * hlen + j (flt 0 = b_k,
+  // flt 1 + s = a_k^(s)), zero past hlen
+  auto tap = [&](int e) {
+    const int nc = R * nt, j = e % nt;
+    int k, flt, e2;
+    if (e < 2 * nc) {
+      e2 = e / nc, k = (e % nc) / nt, flt = 0;
+    } else {
+      const int o = e - 2 * nc, sk = (o % (4 * nc)) / nt;
+      e2 = o / (4 * nc), flt = 1 + sk / R, k = sk % R;
+    }
+    return j < hlen ? ((k * 5 + flt) * 2 + e2) * hlen + j : -1;
   };
 
   for (int b = blockIdx.z; b < B; b += gridDim.z) {
-    const TI* xb = x + (size_t)b * R * C;
-    for (int i = ty; i < W; i += BY) {
-      const TI* row = xb + (size_t)wrapl(in_pos(ar, i), R) * C;
-      for (int j = tx; j < W; j += BX) stage<S>(load_f(row + wrapl(in_pos(ac, j), C)), in1, in2, i * W + j);
+    auto stage_win = [&] {
+      stage_bands<S, 1, kStageLoads>(src, 0, (size_t)b * Rin * Cin, Cin, rows, cols, WR, WC, win,
+                                     0, WR * WP, kNone, 0.f, WP);
+    };
+    if (b == (int)blockIdx.z)
+      fill_around(ct1, 10 * R * nt, taps, tap, stage_win);
+    else
+      stage_win();
+    __syncthreads();
+    // along the columns: window row i, outputs t0 + dc q (q < P), all k at once
+    for (int it = threadIdx.x; it < WR * (lc / P); it += blockDim.x) {
+      const int i = it % WR, sp = it / WR, t0 = sp % dc + dc * (sp / dc) * P;
+      Acc<S> acc[R][P];
+      band_strip<S, P, R, kCh, OS>(acc, win + i * WP + OS * t0, WR * WP, 0, 1, dc, ct1, ct2, nt,
+                                   nt);
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+#pragma unroll
+        for (int q = 0; q < P; ++q)
+          stage<S>(acc[k][q].total(), tmp + k * TS, tmp + k * TS + WR * TP,
+                   i * TP + t0 + dc * q);
     }
     __syncthreads();
-
-    // along the columns: t_k of every window row at output column tx
-    for (int i = ty; i < W; i += BY) {
-      const int base = i * W + stride * tx;
-      for (int k = 0; k < rank; ++k) {
-        Acc<S> acc;
-        for (int j = 0; j < hlen; ++j) {
-          const float d2 = kDataLo<S> ? to_f(in2[base + j]) : 0.f;
-          const float2 t = ct[k * hlen + j];
-          acc.add(t.x, t.y, to_f(in1[base + j]), d2);
+    // along the rows: temp column t, output rows r0 + q (q < P), all four
+    // subbands at once, each a sum over (k, tap); the next item's staging
+    // writes only the window, which no thread reads here
+    const size_t oplane = (size_t)b * Ro * Co;
+    for (int it = threadIdx.x; it < (lr / P) * lc; it += blockDim.x) {
+      const int t = it % lc, r0 = (it / lc) * P;
+      Acc<S> acc[4][P];
+      band_strip<S, P, 4, kCh, OS>(acc, tmp + OS * r0 * TP + t, WR * TP, TS, R, TP, rt1, rt2,
+                                   R * nt, nt);
+      const long long c = rho_c + (long long)gc * (q0c + t);
+      if (c >= Co) continue;
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const long long r = rho_r + (long long)f * (q0r + r0 + q);
+        if (r >= Ro) break;
+        const size_t o = oplane + (size_t)r * Co + c;
+        a[o] = acc[0][q].total();
+        if (det_bf16) {
+          static_cast<__nv_bfloat16*>(h)[o] = from_f<__nv_bfloat16>(acc[1][q].total());
+          static_cast<__nv_bfloat16*>(v)[o] = from_f<__nv_bfloat16>(acc[2][q].total());
+          static_cast<__nv_bfloat16*>(d)[o] = from_f<__nv_bfloat16>(acc[3][q].total());
+        } else {
+          static_cast<float*>(h)[o] = acc[1][q].total();
+          static_cast<float*>(v)[o] = acc[2][q].total();
+          static_cast<float*>(d)[o] = acc[3][q].total();
         }
-        stage<S>(acc.total(), tk1, tk2, (k * W + i) * LT + tx);
       }
     }
-    __syncthreads();
-
-    // along the rows: each subband sums its row filters over (k, tap)
-    const long long c = ac.at(tx);
-    for (int tt = ty; tt < LT; tt += BY) {
-      Acc<S> o[4];
-      for (int k = 0; k < rank; ++k) {
-        for (int j = 0; j < hlen; ++j) {
-          const int i = (k * W + stride * tt + j) * LT + tx;
-          const float d1 = to_f(tk1[i]);
-          const float d2 = kDataLo<S> ? to_f(tk2[i]) : 0.f;
-          const float4 t1 = rt1[k * hlen + j], t2 = rt2[k * hlen + j];
-          o[0].add(t1.x, t2.x, d1, d2);
-          o[1].add(t1.y, t2.y, d1, d2);
-          o[2].add(t1.z, t2.z, d1, d2);
-          o[3].add(t1.w, t2.w, d1, d2);
-        }
-      }
-      const long long r = ar.at(tt);
-      if (r < Ro && c < Co) {
-        const size_t oi = ((size_t)b * Ro + r) * Co + c;
-        a[oi] = o[0].total();
-        h[oi] = from_f<TD>(o[1].total());
-        v[oi] = from_f<TD>(o[2].total());
-        d[oi] = from_f<TD>(o[3].total());
-      }
-    }
-    __syncthreads();
   }
 }
 
@@ -182,8 +220,6 @@ ns_fwd_mxu_kernel(const TI* __restrict__ x, float* __restrict__ a, TD* __restric
 // ns_inv_launch_plan) picks the tile so that the deep levels still get about
 // two blocks per SM, and the entry point refuses a plan that does not add up.
 // ---------------------------------------------------------------------------
-constexpr int kInvCh = 4;       // taps per chunk of the inverse's strips
-constexpr int kStageLoads = 16;  // loads in flight per thread while staging
 
 // The inverse's phases (see the file's index spec), from the int array
 // kernels/ns_matmul.py passes: stride, org, p[0], p[1], nb[0], nb[1],
@@ -274,7 +310,7 @@ ns_inv_mxu_kernel(const float* __restrict__ a, const void* __restrict__ h,
       const int r0 = (it / WC) * PR, w = it % WC;
       for (int q = 0; q < st; ++q) {
         Acc<S> acc[R][PR];
-        band_strip<S, PR, R, kInvCh>(acc, win + (r0 + g.off[q]) * WC + w, WR * WC, BS, 4, WC,
+        band_strip<S, PR, R, kCh>(acc, win + (r0 + g.off[q]) * WC + w, WR * WC, BS, 4, WC,
                                      rt1 + q * R * 4 * nt, rt2 + q * R * 4 * nt, 4 * nt, nt);
 #pragma unroll
         for (int k = 0; k < R; ++k)
@@ -290,7 +326,7 @@ ns_inv_mxu_kernel(const float* __restrict__ a, const void* __restrict__ h,
       const int r2 = it % TR, sp = it / TR, t0 = sp % dc + dc * (sp / dc) * PC;
       for (int q = 0; q < st; ++q) {
         Acc<S> acc[1][PC];
-        band_strip<S, PC, 1, kInvCh>(acc, tmp + r2 * TP + t0 + g.off[q] * dc, TR * TP, TS, R, dc,
+        band_strip<S, PC, 1, kCh>(acc, tmp + r2 * TP + t0 + g.off[q] * dc, TR * TP, TS, R, dc,
                                      ct1 + q * R * nt, ct2 + q * R * nt, 0, nt);
 #pragma unroll
         for (int i = 0; i < PC; ++i) tile[r2 * OC + st * (t0 + dc * i) + q] = acc[0][i].total();
@@ -332,14 +368,18 @@ cudaError_t with_rank(int rank, F&& f) {
   }
 }
 
-// Grid over (Mr, Mc) tile positions at dilation f, batch in z.
-cudaError_t ns_grid(int B, int Mr, int Mc, int f, dim3* grid, int* frr, int* frc) {
-  const long long gx = axis_blocks(Mc, f, LT), gy = axis_blocks(Mr, f, LT);
-  if (gy > 65535 || gx > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  *grid = dim3((unsigned)gx, (unsigned)gy, B < 65535 ? B : 65535);
-  *frr = f < Mr ? f : Mr;
-  *frc = f < Mc ? f : Mc;
-  return cudaSuccess;
+// Does a plan's grid cover (Mr, Mc) positions at dilation f with lr x lc
+// tiles of the column stride gc?
+bool grid_fits(int B, int Mr, int Mc, int f, int lr, int lc, int gc, int gx, int gy, int gz) {
+  const long long want_x = gc == 1 ? (Mc + (long long)lc - 1) / lc : axis_blocks(Mc, f, lc);
+  return gx == want_x && gy == axis_blocks(Mr, f, lr) && gy <= 65535 &&
+         gz == (B < 65535 ? B : 65535);
+}
+
+// Does a plan's tile take whole strips (rows, and columns dc apart)?
+bool tile_fits(int lr, int lc, int f, int gc, int strip, int threads) {
+  return (gc == 1 || gc == f) && lr >= 1 && lc >= 1 && threads >= 32 && threads <= 256 &&
+         threads % 32 == 0 && lr % strip == 0 && lc % (strip * (f / gc)) == 0;
 }
 
 }  // namespace
@@ -351,37 +391,42 @@ cudaError_t ns_grid(int B, int Mr, int Mc, int f, dim3* grid, int* frr, int* frc
 // (1) or float32 (0) storage.
 
 // stride 2 (f = 1, even R and C, outputs R/2 x C/2) or 1 (dilation f,
-// outputs R x C); cen = fwd_center(hlen).
+// outputs R x C); cen = fwd_center(hlen).  The launch plan
+// (kernels/ns_matmul.py:ns_fwd_launch_plan): tile lr x lc outputs, column
+// stride gc (1 or f), nt padded taps, threads, grid (gx, gy, gz) and dynamic
+// shared-memory bytes; a plan that does not add up is refused
+// (cudaErrorInvalidValue).
 extern "C" int pdwt_ns_fwd_level_2d_mxu(const void* x, float* a, void* h, void* v, void* d,
                                         int B, int R, int C, const float* taps, int hlen,
                                         int rank, int stride, int f, int cen, int scheme,
-                                        int in_bf16, int det_bf16, void* stream) {
+                                        int in_bf16, int det_bf16, int lr, int lc, int gc,
+                                        int nt, int threads, int gx, int gy, int gz, int smem,
+                                        void* stream) {
   cudaError_t e = check(B, hlen, rank);
   if (e != cudaSuccess) return e;
   if (R < 1 || C < 1 || f < 1 || !(stride == 1 || (stride == 2 && f == 1 && !((R | C) & 1))))
     return cudaErrorInvalidValue;
   const int Ro = R / stride, Co = C / stride;
-  dim3 grid;
-  int frr, frc;
-  e = ns_grid(B, Ro, Co, f, &grid, &frr, &frc);
-  if (e != cudaSuccess) return e;
+  if (nt < hlen || nt > kMaxHlen || nt % kCh || (stride == 2 && gc != 1) ||
+      !grid_fits(B, Ro, Co, f, lr, lc, gc, gx, gy, gz))
+    return cudaErrorInvalidValue;
   return with_scheme(scheme, [&](auto sc) {
     constexpr int S = decltype(sc)::value;
-    return with_type(in_bf16, [&](auto ti) {
-      using TI = typename decltype(ti)::type;
-      return with_type(det_bf16, [&](auto td) -> cudaError_t {
-        using TD = typename decltype(td)::type;
-        constexpr int nd = kDataLo<S> ? 2 : 1;
-        const size_t W = stride * LT + hlen - stride;
-        const size_t smem = sizeof(Stage<S>) * nd * (W * W + (size_t)rank * W * LT);
-        auto kernel = ns_fwd_mxu_kernel<S, TI, TD>;
-        cudaError_t e2 = prepare(kernel, smem, kNsTapsSmem);
+    if (!tile_fits(lr, lc, f, gc, kRowStrip<S>, threads) ||
+        (size_t)smem != ns_fwd_smem<S>(rank, stride, lr, lc, f / gc, nt))
+      return cudaErrorInvalidValue;
+    return with_rank(rank, [&](auto rk) -> cudaError_t {
+      constexpr int Rk = decltype(rk)::value;
+      auto launch = [&](auto kernel) -> cudaError_t {
+        cudaError_t e2 = prepare(kernel, smem, 0);
         if (e2 != cudaSuccess) return e2;
-        kernel<<<grid, dim3(BX, BY), smem, (cudaStream_t)stream>>>(
-            static_cast<const TI*>(x), a, static_cast<TD*>(h), static_cast<TD*>(v),
-            static_cast<TD*>(d), B, R, C, Ro, Co, hlen, rank, stride, f, cen, frr, frc, taps);
+        kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+            x, a, h, v, d, in_bf16, det_bf16, B, R, C, Ro, Co, hlen, f, cen, taps, lr, lc, gc,
+            nt);
         return cudaGetLastError();
-      });
+      };
+      return stride == 2 ? launch(ns_fwd_mxu_kernel<S, Rk, 2>)
+                         : launch(ns_fwd_mxu_kernel<S, Rk, 1>);
     });
   });
 }
@@ -410,11 +455,8 @@ extern "C" int pdwt_ns_inv_level_2d_mxu(const float* a, const void* h, const voi
       return cudaErrorInvalidValue;
     offmax = offmax > g.off[q] ? offmax : g.off[q];
   }
-  if (nt % kInvCh || nt > kMaxHlen || !(gc == 1 || gc == f) || lr < 1 || lc < 1 ||
-      threads < 32 || threads > 256 || threads % 32 || lc % (kColStrip * (f / gc)))
-    return cudaErrorInvalidValue;
-  const long long want_x = gc == 1 ? (Mc + (long long)lc - 1) / lc : axis_blocks(Mc, f, lc);
-  if (gx != want_x || gy != axis_blocks(Mr, f, lr) || gy > 65535 || gz != (B < 65535 ? B : 65535))
+  if (nt % kCh || nt > kMaxHlen || !tile_fits(lr, lc, f, gc, 1, threads) ||
+      lc % (kColStrip * (f / gc)) || !grid_fits(B, Mr, Mc, f, lr, lc, gc, gx, gy, gz))
     return cudaErrorInvalidValue;
   return with_scheme(scheme, [&](auto sc) {
     constexpr int S = decltype(sc)::value;
@@ -438,9 +480,12 @@ extern "C" int pdwt_ns_inv_level_2d_mxu(const float* a, const void* h, const voi
 extern "C" int pdwt_ns_swt_fwd_level_2d_mxu(const void* x, float* a, void* h, void* v, void* d,
                                             int B, int R, int C, const float* taps, int hlen,
                                             int rank, int stride, int f, int cen, int scheme,
-                                            int in_bf16, int det_bf16, void* stream) {
+                                            int in_bf16, int det_bf16, int lr, int lc, int gc,
+                                            int nt, int threads, int gx, int gy, int gz,
+                                            int smem, void* stream) {
   return pdwt_ns_fwd_level_2d_mxu(x, a, h, v, d, B, R, C, taps, hlen, rank, stride, f, cen,
-                                  scheme, in_bf16, det_bf16, stream);
+                                  scheme, in_bf16, det_bf16, lr, lc, gc, nt, threads, gx, gy,
+                                  gz, smem, stream);
 }
 
 extern "C" int pdwt_ns_swt_inv_level_2d_mxu(const float* a, const void* h, const void* v,

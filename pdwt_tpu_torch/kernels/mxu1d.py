@@ -4,9 +4,10 @@ wrappers, plain versions, gradients and the route rule.
 Counterpart of ``pdwt_tpu/kernels/mxu1d_pallas.py`` (kernels 15 and 16).
 Each level is one pass along the last axis of a (B, N) batch, under a
 compute scheme of ``kernels/matmul.py`` (its docstring states each
-scheme's arithmetic).  The kernels of ``csrc/mxu1d.cu`` (per direction one
-that stages its window in shared memory, and one for windows past it)
-take four wrappers:
+scheme's arithmetic).  The kernels of ``csrc/mxu1d.cu`` (the analysis: one
+that stages its window in shared memory, and one for windows past it; the
+synthesis: one body on ``band_strip.cuh`` whose launch plan,
+:func:`inv1d_launch_plan`, is made here) take four wrappers:
 
 ==========================  ======================================  ==============
 wrapper                     computes                                kernel
@@ -28,13 +29,16 @@ its output in the forward input's dtype.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..core import conv
-from ._launch import check_span, dilation, launch, on_cpu, poly_geo, ptr, rev
+from ._launch import (ROW_STRIP, InvPlan, align16, axis_blocks, block_target, cdiv, check_span,
+                      dilation, launch, on_cpu, pick_plan, poly_geo, ptr, rev, stage_bytes,
+                      temp_pitch)
 from .matmul import (_DT, BF16, F32, MXU_COLS, MXU_MAX_HLEN, SCHEMES, _check_scheme, _is_bf16,
                      inv_plan, kernel_taps, mode_out_dtypes, mode_scheme, scheme_pass,
                      swt_scheme)
@@ -104,6 +108,101 @@ def swt_inv_level_1d_mxu_ref(lo, hi, rec_lo, rec_hi, level: int, scheme: str, ou
 
 
 # ---------------------------------------------------------------------------
+# launch plan of the synthesis kernel (csrc/mxu1d.cu: inv1d_strip_kernel)
+# ---------------------------------------------------------------------------
+
+#: signals per block of the synthesis, one per lane (mxu1d.cu: kRows)
+INV_ROWS = 32
+#: taps per chunk of its strips, polyphase and a-trous (mxu1d.cu: kCh)
+INV_CHUNK = {True: 4, False: 8}
+#: shared memory a block may take and still share its SM with two more
+SMEM_THREE_BLOCKS = 75 * 1024
+#: position tiles of the synthesis, largest first
+INV_TILES = (256, 128, 64, 32)
+
+
+def inv1d_taps(hlen: int, decimated: bool):
+    """(taps per parity on the common origin, parity offsets from it) of
+    the synthesis: polyphase, parity q's taps p_q + 2b (b < nb_q) start
+    o_q - min(o) samples after the window's origin; a-trous, one phase of
+    all hlen taps."""
+    if not decimated:
+        return hlen, (0,)
+    g = conv.poly_geometry(hlen)
+    sh = tuple(o - min(g.o) for o in g.o)
+    return max(s + n for s, n in zip(sh, g.nb)), sh
+
+
+def _inv1d_smem(scheme: str, nph: int, lc: int, dc: int, nt: int) -> int:
+    """mxu1d.cu: inv1d_smem -- taps, the index table, both bands' windows,
+    the output tile."""
+    nd, es = stage_bytes(scheme)
+    w = lc + (nt - 1) * dc
+    return (16 * nph * nt + align16(4 * w) + align16(2 * nd * INV_ROWS * temp_pitch(w, es) * es)
+            + 4 * INV_ROWS * ((nph * lc) | 1))
+
+
+def _traffic(plan: InvPlan, f: int, m: int) -> float:
+    """Bytes a plan's staging moves from L2 per band position of a signal,
+    in 4-byte samples: consecutive positions read their window whole; one
+    residue class mod f reads one 32-byte sector per sample once f >= 8 (f
+    samples' worth below); tiles past the end of a class count too."""
+    w = plan.lc + (plan.nt - 1) * (f // plan.gc)
+    return plan.grid[0] * w * (1 if plan.gc == 1 else min(f, 8)) / m
+
+
+@functools.lru_cache(maxsize=256)
+def inv1d_launch_plan(B: int, M: int, hlen: int, f: int, scheme: str,
+                      decimated: bool) -> InvPlan:
+    """The launch of one synthesis level on (B, M) bands, polyphase
+    (``decimated``, f = 1) or a-trous at dilation f: 32 signals (lr) by lc
+    band positions per block, consecutive or one residue class mod f
+    (always consecutive when decimated), the taps padded to nt.  Unlike the
+    2D plans, which keep consecutive columns while the window grows at most
+    1.4x, a 1D residue class strides through memory, so the candidates are
+    ordered by the staging's L2 traffic per position (``_traffic``), the
+    larger tile first on a tie, after those that let three blocks share an
+    SM (the block's staging, strips and store are fenced by barriers, and
+    three or four blocks in other phases hide them better than two: timed
+    fastest at every level of the cells on an H100, PERF.md section 6).
+    The first that fits two blocks on an SM and gives ``block_target``
+    blocks for the output wins (128 at least on the cells' deepest
+    levels), so the deep levels take shorter tiles and a dilation of
+    thousands takes one residue class.  Always 256 threads, as the other
+    strip kernels."""
+    need, _ = inv1d_taps(hlen, decimated)
+    nt = cdiv(need, INV_CHUNK[decimated]) * INV_CHUNK[decimated]
+    nph, p = (2 if decimated else 1), ROW_STRIP[scheme]
+    cands = []
+    for lc in INV_TILES:
+        for gc in ((1,) if decimated or f == 1 else (1, f)):
+            dc = f // gc
+            if lc % (p * dc):
+                continue
+            grid = (cdiv(M, lc) if gc == 1 else axis_blocks(M, f, lc),
+                    min(cdiv(B, INV_ROWS), 65535), 1)
+            cands.append(InvPlan(INV_ROWS, lc, gc, 1, nt, 256, grid,
+                                 _inv1d_smem(scheme, nph, lc, dc, nt)))
+    cands.sort(key=lambda pl: (pl.smem > SMEM_THREE_BLOCKS, _traffic(pl, f, M), -pl.lc))
+    return pick_plan(cands, block_target(1, B, nph * M))
+
+
+@functools.lru_cache(maxsize=64)
+def _taps_on(key, device: str) -> torch.Tensor:
+    lo, hi, scheme = key
+    filters = [np.frombuffer(f, dtype=np.float64) for f in (lo, hi)]
+    return torch.from_numpy(np.stack(kernel_taps(filters, scheme))).to(device)
+
+
+def _device_taps(filters, scheme: str, device: torch.device) -> torch.Tensor:
+    """The synthesis taps, (4, hlen) float32 (low first and second values,
+    then the high filter's, correlation order), copied to ``device`` once
+    per filter pair and scheme."""
+    lo, hi = (np.asarray(f, dtype=np.float64) for f in filters)
+    return _taps_on((lo.tobytes(), hi.tobytes(), scheme), str(device))
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -120,7 +219,7 @@ def _fwd_launch(name, x, filters, scheme, hi_dtype, n_out, f, cen):
     return lo, hi
 
 
-def _inv_launch(name, lo, hi, filters, scheme, out_dtype, n_out, f, cen):
+def _inv_launch(name, lo, hi, filters, scheme, out_dtype, f, cen, decimated: bool):
     _check_scheme(scheme)
     if lo.shape != hi.shape:
         raise ValueError(f"the two bands must have one shape, got {tuple(lo.shape)} "
@@ -128,13 +227,16 @@ def _inv_launch(name, lo, hi, filters, scheme, out_dtype, n_out, f, cen):
     if lo.dtype != F32:
         raise ValueError("the banded-product kernels take a float32 low band")
     B, m = lo.shape
-    tp = kernel_taps(filters, scheme)
-    check_span(len(tp[0]), f)
-    out = torch.empty((B, n_out), device=lo.device, dtype=out_dtype)
-    geo = poly_geo(len(tp[0]))  # read by the polyphase kernel only
+    tp = _device_taps(filters, scheme, lo.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
+    pl = inv1d_launch_plan(B, m, hlen, f, scheme, decimated)
+    out = torch.empty((B, 2 * m if decimated else m), device=lo.device, dtype=out_dtype)
+    geo = poly_geo(hlen)  # read by the polyphase kernel only
     launch(name, lo.device,
-           [ptr(lo), ptr(hi), ptr(out), B, m, *map(ptr, tp), len(tp[0]), f, cen, ptr(geo),
-            SCHEMES.index(scheme), _is_bf16(hi.dtype), _is_bf16(out_dtype)])
+           [ptr(lo), ptr(hi), ptr(out), B, m, ptr(tp), hlen, f, cen, ptr(geo),
+            SCHEMES.index(scheme), _is_bf16(hi.dtype), _is_bf16(out_dtype), pl.lc, pl.gc, pl.nt,
+            pl.threads, *pl.grid, pl.smem])
     return out
 
 
@@ -166,8 +268,8 @@ def inv_level_1d_mxu(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, scheme:
     band, each (B, M) -> (B, 2M) in ``out_dtype``."""
     if on_cpu(lo, hi, ndim=2, dtypes=_DT):
         return inv_level_1d_mxu_ref(lo, hi, rec_lo, rec_hi, scheme, out_dtype)
-    return _inv_launch("inv_level_1d_mxu", lo, hi, (rec_lo, rec_hi), scheme, out_dtype,
-                       2 * lo.shape[-1], 1, 0)
+    return _inv_launch("inv_level_1d_mxu", lo, hi, (rec_lo, rec_hi), scheme, out_dtype, 1, 0,
+                       True)
 
 
 def swt_inv_level_1d_mxu(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, level: int,
@@ -178,8 +280,7 @@ def swt_inv_level_1d_mxu(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, lev
         return swt_inv_level_1d_mxu_ref(lo, hi, rec_lo, rec_hi, level, scheme, out_dtype)
     f = dilation(level)
     return _inv_launch("swt_inv_level_1d_mxu", lo, hi, (_half(rec_lo), _half(rec_hi)),
-                       scheme, out_dtype, lo.shape[-1], f,
-                       conv.swt_inv_center(len(rec_lo)) * f)
+                       scheme, out_dtype, f, conv.swt_inv_center(len(rec_lo)) * f, False)
 
 
 # ---------------------------------------------------------------------------

@@ -212,11 +212,52 @@ def ns_swt_inv_level_2d_mxu_ref(a, h, v, d, A, Bc, level: int, scheme: str, out_
 
 
 # ---------------------------------------------------------------------------
-# launch plan of the inverse kernel (csrc/ns_matmul.cu: ns_inv_mxu_kernel)
+# launch plans of the two kernels (csrc/ns_matmul.cu)
 # ---------------------------------------------------------------------------
 
-#: taps per chunk of the inverse's strips (ns_matmul.cu: kInvCh)
+#: taps per chunk of both kernels' strips (ns_matmul.cu: kCh)
 INV_CHUNK = 4
+
+
+def _fwd_smem(scheme: str, rank: int, st: int, lr: int, lc: int, dc: int, nt: int) -> int:
+    """ns_matmul.cu: ns_fwd_smem -- taps, index tables, the window, the
+    rank temps."""
+    nd, es = stage_bytes(scheme)
+    wr, wc = st * (lr - 1) + nt, st * (lc - 1) + (nt - 1) * dc + 1
+    return (40 * rank * nt + align16(4 * (wr + wc)) + align16(nd * wr * temp_pitch(wc, es) * es)
+            + rank * nd * wr * temp_pitch(lc, es) * es)
+
+
+@functools.lru_cache(maxsize=256)
+def ns_fwd_launch_plan(B: int, R: int, C: int, hlen: int, rank: int, stride: int, f: int,
+                       scheme: str) -> InvPlan:
+    """The launch of one rank-r analysis level on a (B, R, C) image at
+    ``stride`` 2 (f = 1) or 1 (dilation f).  Candidates, largest tile
+    first: lr output rows (one residue class mod f) by lc output columns,
+    consecutive or one residue class (``consecutive_columns``; always
+    consecutive at stride 2); taps padded to nt.  The first that fits two
+    blocks on an SM and gives ``block_target`` blocks for the input's
+    size, but never more than 128 (about one per SM: a smaller tile pays
+    more halo than the SMs it fills win back, as timed on an H100, PERF.md
+    section 6), so the deep levels take smaller tiles (128 blocks at 128^2
+    outputs of stride 2).  Always 256 threads, as kernel 2's
+    plan: more staging loads in flight on the small tiles."""
+    nt = cdiv(hlen, INV_CHUNK) * INV_CHUNK
+    ro, co = R // stride, C // stride
+    p = ROW_STRIP[scheme]
+    cands = []
+    for lr, lc in PLAN_TILES:
+        if lr % p:
+            continue
+        gc = 1 if stride == 2 or consecutive_columns(f, lc, nt - 1) else f
+        dc = f // gc
+        grid = (cdiv(co, lc) if gc == 1 else axis_blocks(co, f, lc), axis_blocks(ro, f, lr),
+                min(B, 65535))
+        if lc % (p * dc) or grid[1] > 65535:
+            continue
+        cands.append(InvPlan(lr, lc, gc, 1, nt, 256, grid,
+                             _fwd_smem(scheme, rank, stride, lr, lc, dc, nt)))
+    return pick_plan(cands, min(block_target(B, R, C), 128))
 
 
 def inv_phases(hlen: int, f: Optional[int]):
@@ -319,13 +360,14 @@ def _fwd_launch(name, x, A, Bc, scheme, out_dtypes, stride: int, f: int):
     taps = _device_taps(A, Bc, scheme, x.device)
     rank, _, _, hlen = taps.shape
     check_span(hlen, f)
+    pl = ns_fwd_launch_plan(B, R, C, hlen, rank, stride, f, scheme)
     shape = (B, R // stride, C // stride)
     a = torch.empty(shape, device=x.device, dtype=F32)
     dets = [torch.empty(shape, device=x.device, dtype=out_dtypes[1]) for _ in range(3)]
     launch(name, x.device,
            [ptr(x), ptr(a), *map(ptr, dets), B, R, C, ptr(taps), hlen, rank, stride, f,
             conv.fwd_center(hlen), SCHEMES.index(scheme), _is_bf16(x.dtype),
-            _is_bf16(out_dtypes[1])])
+            _is_bf16(out_dtypes[1]), pl.lr, pl.lc, pl.gc, pl.nt, pl.threads, *pl.grid, pl.smem])
     return (a, *dets)
 
 

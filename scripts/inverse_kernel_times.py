@@ -1,6 +1,7 @@
-"""Device time per level of the inverses redesigned for Hopper's CUDA cores
+"""Device time per level of the kernels redesigned for Hopper's CUDA cores
 (kernels 14 and 18, the banded-product inverses; kernels 2 and 6, the exact
-ones) at the cells' shapes, for one checkout of the port.
+inverses; kernels 16 and 17, the batched 1D synthesis and the rank-r
+analysis) at the cells' shapes, for one checkout of the port.
 
     python3 scripts/inverse_kernel_times.py ROOT
 
@@ -8,14 +9,21 @@ ROOT is the checkout to import (``.`` for this one; an unpacked
 ``git archive`` of another commit to compare in turns: parent, change,
 change, parent).  Needs a CUDA card.  It builds the kernels (and reports
 the build time), brings the card's clocks up with a few large products,
-then times with torch.profiler, per call, the device time of the inverse
-kernels' launches at: the TI cell's three levels (db7, 1024^2, soft beta 10;
-fd as under bf16-fast and b2f as under bf16-balanced; float32 subbands on
-kernel 6 as under the exact tier), the rank-3 cell's a-trous levels 1-3
-(1024^2, fd) and polyphase levels 1-4 (subbands 1024^2 to 128^2; fd, then
-b3), and the DWT roundtrip's synthesis levels on kernel 2 (db7, float32
-subbands 1024^2 to 128^2).  Prints one line: RESULT ROOT {json}, each level
-in ms and each pass summed.  Imports no JAX.
+then times with torch.profiler, per call, the device time of these
+kernels' launches at: the TI cell's three levels (db7, 1024^2, soft beta
+10; fd as under bf16-fast and b2f as under bf16-balanced; float32 subbands
+on kernel 6 as under the exact tier), the rank-3 cell's a-trous synthesis
+levels 1-3 (1024^2, fd) and polyphase levels 1-4 (subbands 1024^2 to
+128^2; fd, then b3), the DWT roundtrip's synthesis levels on kernel 2 (db7,
+float32 subbands 1024^2 to 128^2), the rank-3 cell's analysis levels on
+kernel 17 (stride 2: 2048^2 to 256^2 images, b1 on bf16 then b3 on
+float32, bf16 details, as under bf16-fast; stride 1: 1024^2 levels 1-3, b1
+then fd as under bf16-fast, and b2f at every level as under bf16-balanced
+and -accurate) and the batched 1D cells' synthesis levels on kernel 16
+(sym8, 1024 signals; polyphase: bands of 2048 down to 256, fd into bf16
+then b3; a-trous: 4096 samples, levels 1-4, fd, bf16 out at level 1).
+Prints one line: RESULT ROOT {json}, each level in ms and each pass
+summed.  Imports no JAX.
 """
 import json
 import sys
@@ -31,6 +39,7 @@ import chip_smoke as CS  # noqa: E402
 from pdwt_tpu_torch import get_wavelet  # noqa: E402
 from pdwt_tpu_torch.core import nonseparable as NSC  # noqa: E402
 from pdwt_tpu_torch.kernels import _build  # noqa: E402
+from pdwt_tpu_torch.kernels import mxu1d as M1  # noqa: E402
 from pdwt_tpu_torch.kernels import ns_matmul as NM  # noqa: E402
 from pdwt_tpu_torch.kernels import separable as K  # noqa: E402
 from pdwt_tpu_torch.kernels import swt as S  # noqa: E402
@@ -58,9 +67,12 @@ for _ in range(50):  # bring the clocks up
 torch.cuda.synchronize()
 
 
+KERNELS = ("inv_mxu", "inv_level", "inv1d", "ns_fwd")
+
+
 def dev_ms(fn, reps=30):
-    """Device ms per fn() call of the inverse kernels' launches (by name:
-    kernel 2's and 6's old and new bodies, 14's and 18's)."""
+    """Device ms per fn() call of the timed kernels' launches (by name:
+    kernel 2's and 6's old and new bodies, 14's, 18's, 16's and 17's)."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -71,13 +83,14 @@ def dev_ms(fn, reps=30):
             torch.cuda.synchronize()
         t = [e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and ("inv_mxu" in e.name or "inv_level" in e.name)]
+             and any(k in e.name for k in KERNELS)]
         if t:  # the mean per recorded launch: a window may drop a few events
             return sum(t) / len(t) / 1e3 * max(1, round(len(t) / reps))
 
 
 w7 = get_wavelet("db7")
 A, Bc = NSC._rank_decomp(CS.pr_quads()[1])
+Af, Bf = NSC._rank_decomp(CS.pr_quads()[0])
 res = {"build_s": build_s}
 for lvl, out in ((1, bf16), (2, f32), (3, f32)):
     b = bands(1024)
@@ -97,6 +110,25 @@ for lvl in (1, 2, 3):
 for m in (1024, 512, 256, 128):
     b = [rand(1, m, m) for _ in range(4)]
     res[f"k2 {m}"] = dev_ms(lambda: K.inv_level_2d(*b, w7.rec_lo, w7.rec_hi))
-for k in ("k14", "k14b", "k18s", "k18p", "k6", "k2"):
+for r, sch, in_dt in ((2048, "b1", bf16), (1024, "b3", f32), (512, "b3", f32), (256, "b3", f32)):
+    x = rand(1, r, r).to(in_dt)
+    res[f"k17d {r} {sch}"] = dev_ms(lambda: NM.ns_fwd_level_2d_mxu(x, Af, Bf, sch, (f32, bf16)))
+for lvl, (fast, in_dt) in enumerate((("b1", bf16), ("fd", f32), ("fd", f32)), 1):
+    x = rand(1, 1024, 1024).to(in_dt)
+    res[f"k17s L{lvl} {fast}"] = dev_ms(lambda: NM.ns_swt_fwd_level_2d_mxu(x, Af, Bf, lvl, fast,
+                                                                           (f32, bf16)))
+    res[f"k17b L{lvl}"] = dev_ms(lambda: NM.ns_swt_fwd_level_2d_mxu(x, Af, Bf, lvl, "b2f",
+                                                                     (f32, bf16)))
+w8 = get_wavelet("sym8")
+for m, sch, out in ((2048, "fd", bf16), (1024, "b3", f32), (512, "b3", f32), (256, "b3", f32)):
+    lo, hi = torch.randn(1024, m, device=dev), torch.randn(1024, m, device=dev).to(bf16)
+    res[f"k16d {m} {sch}"] = dev_ms(lambda: M1.inv_level_1d_mxu(lo, hi, w8.rec_lo, w8.rec_hi, sch,
+                                                                out))
+for lvl in (1, 2, 3, 4):
+    lo, hi = torch.randn(1024, 4096, device=dev), torch.randn(1024, 4096, device=dev).to(bf16)
+    out = bf16 if lvl == 1 else f32
+    res[f"k16a L{lvl}"] = dev_ms(lambda: M1.swt_inv_level_1d_mxu(lo, hi, w8.rec_lo, w8.rec_hi,
+                                                                 lvl, "fd", out))
+for k in ("k14", "k14b", "k18s", "k18p", "k6", "k2", "k17d", "k17s", "k17b", "k16d", "k16a"):
     res[k + " pass"] = sum(v for n, v in res.items() if n.startswith(k + " ") and v)
 print("RESULT", root, json.dumps({k: round(v, 5) for k, v in res.items()}))

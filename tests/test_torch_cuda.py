@@ -431,8 +431,8 @@ def test_mxu_1d_kernels_match_plain(dev, wname, batch, n, scheme):
 @pytest.mark.parametrize("scheme", ["fd", "b3"])
 def test_mxu_1d_kernels_past_shared_memory(dev, scheme):
     """sym8 at level 12 (dilation 2048): the a-trous analysis stages a
-    window past 48 KB of shared memory, the synthesis's two windows pass the
-    card's limit and it runs the direct kernel."""
+    window past 48 KB of shared memory; the synthesis, whose consecutive
+    windows would pass the card's limit, takes one residue class."""
     w = get_wavelet("sym8")
     x = _rand(dev, 2, 5000) * 255
     _close_tier(M1.swt_fwd_level_1d_mxu(x, w.dec_lo, w.dec_hi, 12, scheme),
@@ -849,3 +849,158 @@ def test_exact_inverses_refuse_a_bad_launch_plan(dev, monkeypatch):
         monkeypatch.setattr(SM, "swt_inv_launch_plan", lambda *a, bad=bad: bad)
         with pytest.raises(RuntimeError, match="launch failed"):
             S.swt_inv_level_2d(*bands, w.rec_lo, w.rec_hi, 2, ("soft", 1.0))
+
+
+# ---------------------------------------------------------------------------
+# kernels 16 and 17, redesigned for Hopper's CUDA cores on band_strip.cuh
+# ---------------------------------------------------------------------------
+
+SCHEMES5 = ["b1", "fd", "b2f", "b2d", "b3"]
+
+# the cells' deep levels (short tiles), dilations 2-16 on lengths no tile
+# divides, one of thousands (one residue class), a batch of 3, 2 and 128 taps
+INV16_CASES = [("sym8", (1024, 256), None), ("sym8", (64, 128), None), ("sym8", (3, 101), 2),
+               ("sym8", (3, 101), 4), ("sym8", (35, 777), 8), ("sym8", (35, 777), 16),
+               ("haar", (3, 77), None), ("haar", (40, 300), 8), ("w128", (3, 90), None),
+               ("w128", (2, 300), 2), ("sym8", (2, 5000), 2048), ("db2", (2, 3), None)]
+
+
+@pytest.mark.parametrize("scheme", SCHEMES5)
+@pytest.mark.parametrize("wname,shape,f", INV16_CASES)
+def test_inv1d_mxu_redesign_matches_plain(dev, wname, shape, f, scheme):
+    """Kernel 16's launch plans, polyphase (f None) and a-trous, float32 or
+    bf16 high band and output; the b-schemes bit for bit."""
+    w = _long_wavelet(wname)
+    lo = _rand(dev, *shape, seed=4) * 255
+    for hdt in (torch.float32, BF16):
+        hi = (_rand(dev, *shape, seed=1) * 127).to(hdt)
+        for out in (torch.float32, BF16):
+            if f is None:
+                got = M1.inv_level_1d_mxu(lo, hi, w.rec_lo, w.rec_hi, scheme, out)
+                want = M1.inv_level_1d_mxu_ref(lo, hi, w.rec_lo, w.rec_hi, scheme, out)
+            else:
+                lv = f.bit_length()
+                got = M1.swt_inv_level_1d_mxu(lo, hi, w.rec_lo, w.rec_hi, lv, scheme, out)
+                want = M1.swt_inv_level_1d_mxu_ref(lo, hi, w.rec_lo, w.rec_hi, lv, scheme, out)
+            _exact_or_tier(got, want, scheme)
+
+
+# stride 2 (f None) at the deep levels' small tiles and off the route;
+# stride 1 at dilations 2-16 on sizes no tile divides and one past the image;
+# a batch of 3; ranks 1 and 4, 2 and 40 taps
+FWD17_CASES = [((3, 8), (1, 256, 256), None), ((3, 8), (1, 128, 128), None),
+               ((3, 8), (3, 37, 53), 2), ((3, 8), (1, 45, 61), 4), ((3, 8), (1, 101, 77), 8),
+               ((3, 8), (1, 101, 77), 16), ((3, 8), (1, 30, 41), 64),
+               ((1, 2), (1, 64, 80), None), ((4, 40), (1, 100, 70), None),
+               ((4, 40), (2, 66, 90), 2), ((1, 2), (1, 33, 47), 4), ((3, 8), (3, 70, 134), None),
+               ((3, 8), (1, 512, 512), None)]
+
+
+@pytest.mark.parametrize("scheme", SCHEMES5)
+@pytest.mark.parametrize("rank_hlen,shape,f", FWD17_CASES)
+def test_ns_fwd_mxu_redesign_matches_plain(dev, rank_hlen, shape, f, scheme):
+    """Kernel 17's launch plans at both strides, float32 or bf16 in and
+    details; the b-schemes bit for bit."""
+    A, Bc = _seeded_quads(*rank_hlen, seed=sum(shape))
+    for in_dt in (torch.float32, BF16):
+        x = (_rand(dev, *shape) * 255).to(in_dt)
+        for det in (torch.float32, BF16):
+            if f is None:
+                got = NM.ns_fwd_level_2d_mxu(x, A, Bc, scheme, (torch.float32, det))
+                want = NM.ns_fwd_level_2d_mxu_ref(x, A, Bc, scheme, (torch.float32, det))
+            else:
+                lv = f.bit_length()
+                got = NM.ns_swt_fwd_level_2d_mxu(x, A, Bc, lv, scheme, (torch.float32, det))
+                want = NM.ns_swt_fwd_level_2d_mxu_ref(x, A, Bc, lv, scheme,
+                                                      (torch.float32, det))
+            for g, wt in zip(got, want):
+                _exact_or_tier(g, wt, scheme)
+
+
+def test_redesigned_16_17_refuse_a_bad_launch_plan(dev, monkeypatch):
+    """The entry points of kernels 16 and 17 check the plan they are given."""
+    from pdwt_tpu_torch.core.nonseparable import _rank_decomp
+
+    w = get_wavelet("sym8")
+    lo, hi = _rand(dev, 32, 256), _rand(dev, 32, 256, seed=1)
+    for f, dec in ((1, True), (2, False)):
+        good = M1.inv1d_launch_plan(32, 256, 16, f, "b3", dec)
+        for bad in (good._replace(smem=good.smem + 16), good._replace(lc=good.lc + 1),
+                    good._replace(grid=(good.grid[0] + 1, *good.grid[1:])),
+                    good._replace(threads=48), good._replace(nt=4),
+                    good._replace(grid=(*good.grid[:2], 2))):
+            monkeypatch.setattr(M1, "inv1d_launch_plan", lambda *a, bad=bad: bad)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                if dec:
+                    M1.inv_level_1d_mxu(lo, hi, w.rec_lo, w.rec_hi, "b3")
+                else:
+                    M1.swt_inv_level_1d_mxu(lo, hi, w.rec_lo, w.rec_hi, 2, "b3")
+    A, Bc = _rank_decomp(_rank3())
+    x = _rand(dev, 1, 64, 64)
+    for stride, f in ((2, 1), (1, 2)):
+        good = NM.ns_fwd_launch_plan(1, 64, 64, 8, 3, stride, f, "b3")
+        for bad in (good._replace(smem=good.smem + 16), good._replace(lr=good.lr + 1),
+                    good._replace(grid=(good.grid[0] + 1, *good.grid[1:])),
+                    good._replace(threads=48), good._replace(nt=4),
+                    good._replace(gc=3)):
+            monkeypatch.setattr(NM, "ns_fwd_launch_plan", lambda *a, bad=bad: bad)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                if stride == 2:
+                    NM.ns_fwd_level_2d_mxu(x, A, Bc, "b3")
+                else:
+                    NM.ns_swt_fwd_level_2d_mxu(x, A, Bc, 2, "b3")
+
+
+def _grads_and_launches(fn, inputs, name):
+    """Gradients of sum(outputs^2) on the card and the CPU, and the launches
+    of kernel ``name`` during the card's backward pass."""
+    grads = []
+    for dv in ("cuda", "cpu"):
+        ins = [t.detach().to(dv).requires_grad_(True) for t in inputs]
+        outs = fn(*ins)
+        loss = sum(o.float().square().sum() for o in (outs if isinstance(outs, tuple)
+                                                       else (outs,)))
+        if dv == "cuda":
+            K.reset_launch_counts()
+        loss.backward()
+        if dv == "cuda":
+            torch.cuda.synchronize()
+            launched = K.LAUNCHES[name]
+        grads.append([t.grad for t in ins])
+    return grads, launched
+
+
+def test_gradients_flow_through_kernels_15_to_18(dev):
+    """Each backward of the 1D and rank-r banded-product pairs is the
+    paired kernel: 15 <-> 16 (decimated and a-trous), 17 <-> 18 (both
+    strides); gradients on the card against the CPU's."""
+    from pdwt_tpu_torch.core.nonseparable import _rank_decomp
+
+    w = get_wavelet("sym8")
+    A, Bc = _rank_decomp(_rank3())
+    s = _rand(dev, 32, 512) * 10
+    b1 = [_rand(dev, 32, 256) * 10, _rand(dev, 32, 256, seed=1) * 10]
+    b2 = [_rand(dev, 32, 512) * 10, _rand(dev, 32, 512, seed=1) * 10]
+    x = _rand(dev, 1, 64, 128) * 10
+    q = [_rand(dev, 1, 32, 64, seed=k) * 10 for k in range(4)]
+    q1 = [_rand(dev, 1, 64, 128, seed=k) * 10 for k in range(4)]
+    cases = [
+        (lambda t: M1.fwd_level_1d_mxu_ad(t, w.dec_lo, w.dec_hi, "mixed"), [s],
+         "inv_level_1d_mxu"),
+        (lambda a, b: M1.inv_level_1d_mxu_ad(a, b, w.rec_lo, w.rec_hi, "mixed"), b1,
+         "fwd_level_1d_mxu"),
+        (lambda t: M1.swt_fwd_level_1d_mxu_ad(t, w.dec_lo, w.dec_hi, 2, "mixed"), [s],
+         "swt_inv_level_1d_mxu"),
+        (lambda a, b: M1.swt_inv_level_1d_mxu_ad(a, b, w.rec_lo, w.rec_hi, 2, "mixed"), b2,
+         "swt_fwd_level_1d_mxu"),
+        (lambda t: NM.ns_fwd_level_2d_mxu_ad(t, A, Bc, "mixed"), [x], "ns_inv_level_2d_mxu"),
+        (lambda *b: NM.ns_inv_level_2d_mxu_ad(*b, A, Bc, "mixed"), q, "ns_fwd_level_2d_mxu"),
+        (lambda t: NM.ns_swt_fwd_level_2d_mxu_ad(t, A, Bc, 2, "mixed"), [x],
+         "ns_swt_inv_level_2d_mxu"),
+        (lambda *b: NM.ns_swt_inv_level_2d_mxu_ad(*b, A, Bc, 2, "mixed"), q1,
+         "ns_swt_fwd_level_2d_mxu")]
+    for fn, inputs, name in cases:
+        (gd, gc), launched = _grads_and_launches(fn, inputs, name)
+        assert launched >= 1, name
+        for g, gcpu in zip(gd, gc):
+            _close_tier(g.cpu(), gcpu, 2.0 ** -6, 1e-4)
