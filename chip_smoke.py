@@ -60,11 +60,14 @@ The banded-product kernels redesigned for Hopper's CUDA cores (kernels 14
 and 18: ``swt_inv_level_2d_mxu``, ``ns_inv_level_2d_mxu``,
 ``ns_swt_inv_level_2d_mxu``; then kernels 16 and 17: ``inv_level_1d_mxu``,
 ``swt_inv_level_1d_mxu``, ``ns_fwd_level_2d_mxu``,
-``ns_swt_fwd_level_2d_mxu``) are held bit for bit to their plain versions
-in the b-schemes (``fd`` within ``tier_limit``), also on the code paths of
-their launch plans (dilations 2-16 on sizes no tile divides and past the
-signal, the deep levels' small tiles, a batch of 3, ranks 1 and 4, 2 to 42
-taps for 14 and 18, 2 to 40 for 17, 2 to 128 for 16, every threshold); the
+``ns_swt_fwd_level_2d_mxu``; then kernels 13 and 15:
+``swt_fwd_level_2d_mxu``, ``fwd_level_1d_mxu``, ``swt_fwd_level_1d_mxu``)
+are held bit for bit to their plain versions in the b-schemes (``fd``
+within ``tier_limit``), also on the code paths of their launch plans
+(dilations 2-16 on sizes no tile divides and past the image or signal, odd
+sizes, the deep levels' small tiles, a batch of 3, ranks 1 and 4, 2 to 42
+taps for 14 and 18, 2 to 40 for 13, 15 and 17, 2 to 128 for 16, every
+threshold); the
 exact-path inverses (kernels 2 and 6: ``inv_level_2d``,
 ``swt_inv_level_2d``, which runs kernel 14's body in ``fd`` on float32
 subbands) within ``KERNEL_RTOL`` on theirs (every tile size, 2 to 128
@@ -307,7 +310,7 @@ def tier_limit(outs) -> float:
 
 
 def scheme_limit(scheme: str) -> Callable:
-    """Limit of a call of kernel 14, 16, 17 or 18: each keeps every output's
+    """Limit of a call of kernels 13-18: each keeps every output's
     sums in its plain version's order, so the b-schemes agree bit for bit
     (limit 0); fd's FMAs round once where the plain version rounds twice
     (tier_limit)."""
@@ -315,11 +318,12 @@ def scheme_limit(scheme: str) -> Callable:
 
 
 # the kernels redesigned for Hopper's CUDA cores (kernels 14 and 18, then 2
-# and 6, then 16 and 17): each timed launch's device time is printed beside
-# its bound
+# and 6, then 16 and 17, then 13 and 15): each timed launch's device time is
+# printed beside its bound
 REDESIGNED = ("swt_inv_level_2d_mxu", "ns_inv_level_2d_mxu", "ns_swt_inv_level_2d_mxu",
               "inv_level_2d", "swt_inv_level_2d", "inv_level_1d_mxu", "swt_inv_level_1d_mxu",
-              "ns_fwd_level_2d_mxu", "ns_swt_fwd_level_2d_mxu")
+              "ns_fwd_level_2d_mxu", "ns_swt_fwd_level_2d_mxu", "swt_fwd_level_2d_mxu",
+              "fwd_level_1d_mxu", "swt_fwd_level_1d_mxu")
 
 
 def run_cases(cases, report, card) -> None:
@@ -1032,8 +1036,8 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
                      lambda t, s=sch, d=det: M1.fwd_level_1d_mxu_ref(t, w8.dec_lo, w8.dec_hi, s,
                                                                       d),
                      f"{tier} level {lvl + 1} {sch} {in_dt} in, {det} hi, {(B1_SIGNALS, n)}",
-                     True, flops_1d(B1_SIGNALS, n, h8, TERMS[sch]), scheme_peak(sch), tier_limit,
-                     yardstick("fwd", w8, bf16) if row else None, row),
+                     True, flops_1d(B1_SIGNALS, n, h8, TERMS[sch]), scheme_peak(sch),
+                     scheme_limit(sch), yardstick("fwd", w8, bf16) if row else None, row),
                 (tier if row else "", "f1", lvl, sch, in_dt, det))
             n //= 2
         for i, (sch, det, out) in enumerate(inv_schemes(tier, B1_LEVELS)):
@@ -1060,7 +1064,7 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
                                                                            bf16),
                      f"{tier} level {lvl} {sch} {in_dt} in, bf16 hi, {(B1_SIGNALS, B1_N)}", True,
                      flops_1d(B1_SIGNALS, B1_N, h8, TERMS[sch], swt=True), scheme_peak(sch),
-                     tier_limit,
+                     scheme_limit(sch),
                      yardstick("swt_fwd", w8, bf16, lvl) if row else None, row),
                 (tier if row else "", "sf", lvl, sch, in_dt))
             out = bf16 if lvl == 1 else f32
@@ -1092,8 +1096,7 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
                               lambda b, s=sch: M.inv_level_2d_mxu_ref(*b, rlo, rhi, s, f32),
                               f"{sch} {in_dt} details, subbands {(shape[0], *m)}",
                               limit=tier_limit))
-        # (2, 5000) at level 12: windows past 48 KB (forward) and one residue
-        # class of a dilation of 2048 (inverse)
+        # (2, 5000) at level 12: one residue class of a dilation of 2048
         for w, (b, n), lvl in ((w8, (3, 202), 3), (get_wavelet("db3"), (5, 1000), 2),
                                (get_wavelet("db2"), (2, 6), 4), (w8, (2, 5000), 12)):
             xin = randn(b, n).to(bf16)
@@ -1102,13 +1105,13 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
                                                                          s, bf16),
                               lambda t, s=sch, w=w: M1.fwd_level_1d_mxu_ref(t, w.dec_lo,
                                                                              w.dec_hi, s, bf16),
-                              f"{w.name} {sch} {(b, n)}", limit=tier_limit))
+                              f"{w.name} {sch} {(b, n)}", limit=scheme_limit(sch)))
             cases.append(Case("swt_fwd_level_1d_mxu", xin,
                               lambda t, s=sch, w=w, lv=lvl: M1.swt_fwd_level_1d_mxu(
                                   t, w.dec_lo, w.dec_hi, lv, s, f32),
                               lambda t, s=sch, w=w, lv=lvl: M1.swt_fwd_level_1d_mxu_ref(
                                   t, w.dec_lo, w.dec_hi, lv, s, f32),
-                              f"{w.name} {sch} {(b, n)} level {lvl}", limit=tier_limit))
+                              f"{w.name} {sch} {(b, n)} level {lvl}", limit=scheme_limit(sch)))
             bands = [randn(b, n // 2), randn(b, n // 2).to(bf16)]
             cases.append(Case("inv_level_1d_mxu", bands,
                               lambda u, s=sch, w=w: M1.inv_level_1d_mxu(*u, w.rec_lo, w.rec_hi,
@@ -1155,6 +1158,36 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
                     *u, w.rec_lo, w.rec_hi, lv, s, o),
                 lambda u, w=w, s=sch, o=out, lv=lvl: M1.swt_inv_level_1d_mxu_ref(
                     *u, w.rec_lo, w.rec_hi, lv, s, o),
+                f"{label} level {lvl}", limit=scheme_limit(sch)))
+    # kernel 15's launch plans: the deep levels' short tiles, dilations 2-16
+    # on lengths no tile divides, a batch of 3, 2 and 40 taps, float32 and
+    # bf16 in and high band (the (2, 5000) shape at level 12 above takes one
+    # residue class of a dilation past the signal, as does (2, 6) at level 4)
+    w40 = make_custom_wavelet("w40", *np.random.default_rng(40).standard_normal((4, 40)))
+    g15 = torch.Generator(device=dev).manual_seed(15)
+    for i, (w, (b, n), lvl, sch) in enumerate([
+            (w8, (1024, 512), None, "b3"), (w8, (64, 256), None, "b2f"),
+            (w8, (3, 101), 2, "b3"), (w8, (3, 101), 3, "b1"), (w8, (35, 777), 4, "b2d"),
+            (w8, (35, 777), 5, "fd"), (w8, (33, 1000), 16, "b3"), (haar, (3, 78), None, "b3"),
+            (haar, (40, 300), 4, "b2f"), (w40, (3, 90), None, "b2f"),
+            (w40, (2, 300), 2, "fd")]):
+        in_dt, hdt = (bf16, f32) if i % 2 else (f32, bf16)
+        xin = torch.randn((b, n), device=dev, generator=g15).to(in_dt)
+        label = f"{w.name} {sch} {in_dt} in, {hdt} hi, {(b, n)}"
+        if lvl is None:
+            cases.append(Case(
+                "fwd_level_1d_mxu", xin,
+                lambda t, w=w, s=sch, d=hdt: M1.fwd_level_1d_mxu(t, w.dec_lo, w.dec_hi, s, d),
+                lambda t, w=w, s=sch, d=hdt: M1.fwd_level_1d_mxu_ref(t, w.dec_lo, w.dec_hi, s,
+                                                                      d),
+                label, limit=scheme_limit(sch)))
+        else:
+            cases.append(Case(
+                "swt_fwd_level_1d_mxu", xin,
+                lambda t, w=w, s=sch, d=hdt, lv=lvl: M1.swt_fwd_level_1d_mxu(
+                    t, w.dec_lo, w.dec_hi, lv, s, d),
+                lambda t, w=w, s=sch, d=hdt, lv=lvl: M1.swt_fwd_level_1d_mxu_ref(
+                    t, w.dec_lo, w.dec_hi, lv, s, d),
                 f"{label} level {lvl}", limit=scheme_limit(sch)))
     run_cases(cases, report, card)
 
@@ -1469,7 +1502,7 @@ def ti_tier_phase(dev, card, report, launches, ti_img, gen) -> None:
                     lambda t, s=sch, lv=lvl: SM.swt_fwd_level_2d_mxu_ref(t, lo, hi, lv, s,
                                                                          (f32, bf16)),
                     f"{tier} level {lvl} {sch} {in_dt} in, bf16 details, {(TI_N, TI_N)}", True,
-                    fl * TERMS[sch], scheme_peak(sch), tier_limit,
+                    fl * TERMS[sch], scheme_peak(sch), scheme_limit(sch),
                     yardstick("swt_fwd2d", wav, bf16, lvl) if row else None, row))
             isch, out = inv_scheme(tier), bf16 if lvl == 1 else f32
             bands = [rand(1, TI_N, TI_N)] + [(rand(1, TI_N, TI_N) - 127.5).to(bf16)
@@ -1499,7 +1532,7 @@ def ti_tier_phase(dev, card, report, launches, ti_img, gen) -> None:
         cases.append(Case("swt_fwd_level_2d_mxu", xin,
                           lambda t, s=sch, lv=lvl: SM.swt_fwd_level_2d_mxu(t, lo, hi, lv, s),
                           lambda t, s=sch, lv=lvl: SM.swt_fwd_level_2d_mxu_ref(t, lo, hi, lv, s),
-                          f"{sch} {shape} level {lvl}", limit=tier_limit))
+                          f"{sch} {shape} level {lvl}", limit=scheme_limit(sch)))
         cases.append(Case("swt_inv_level_2d_mxu", bands,
                           lambda b, s=sch, lv=lvl: SM.swt_inv_level_2d_mxu(
                               *b, rlo, rhi, lv, s, f32, ("garrote", TI_BETA)),
@@ -1527,6 +1560,30 @@ def ti_tier_phase(dev, card, report, launches, ti_img, gen) -> None:
                     *b, w.rec_lo, w.rec_hi, lv, s, o, th),
                 f"{w.name} {sch} {shape} level {lvl} threshold {thr and thr[0]}, {out} out",
                 limit=scheme_limit(sch)))
+    # the redesigned forward's code paths: the small tiles of small images,
+    # dilations 2-16 on odd sizes no tile divides and one past the image, a
+    # batch of 3, 2 and 40 taps, float32 and bf16 in and details (inputs
+    # from a generator of their own: the later phases' inputs stay as they
+    # were before these cases were added)
+    w40 = make_custom_wavelet("w40", *np.random.default_rng(40).standard_normal((4, 40)))
+    g13 = torch.Generator(device=dev).manual_seed(13)
+    for i, (w, shape, lvl, sch) in enumerate([
+            (wav, (1, 128, 128), 1, "b3"), (wav, (1, 64, 64), 3, "b1"),
+            (wav, (1, 301, 203), 2, "b1"), (wav, (1, 301, 203), 3, "b2f"),
+            (wav, (1, 301, 203), 4, "b3"), (wav, (1, 301, 203), 5, "b2d"),
+            (wav, (1, 301, 203), 3, "fd"), (wav, (1, 37, 53), 7, "b3"),
+            (wav, (3, 70, 134), 2, "b2f"), (get_wavelet("haar"), (1, 64, 96), 3, "b1"),
+            (w40, (1, 200, 150), 1, "b3"), (w40, (1, 200, 150), 2, "fd")]):
+        in_dt, det = (bf16, f32) if i % 2 else (f32, bf16)
+        xin = (torch.rand(shape, device=dev, generator=g13) * 255.0).to(in_dt)
+        cases.append(Case(
+            "swt_fwd_level_2d_mxu", xin,
+            lambda t, w=w, s=sch, lv=lvl, d=det: SM.swt_fwd_level_2d_mxu(
+                t, w.dec_lo, w.dec_hi, lv, s, (f32, d)),
+            lambda t, w=w, s=sch, lv=lvl, d=det: SM.swt_fwd_level_2d_mxu_ref(
+                t, w.dec_lo, w.dec_hi, lv, s, (f32, d)),
+            f"{w.name} {sch} {in_dt} in, {det} details, {shape} level {lvl}",
+            limit=scheme_limit(sch)))
     run_cases(cases, report, card)
 
     # ---------------- (b) the TI path under each tier ----------------

@@ -1,8 +1,9 @@
 // Register-blocked band sums for the kernels redesigned for Hopper's CUDA
 // cores: the banded-product inverses (swt_matmul.cu's swt_inv_mxu_kernel,
 // ns_matmul.cu's ns_inv_mxu_kernel, mxu1d.cu's inv1d_strip_kernel), the
-// rank-r analysis (ns_matmul.cu's ns_fwd_mxu_kernel) and the exact inverse
-// of separable.cu.
+// banded-product analyses (swt_matmul.cu's swt_fwd_mxu_kernel, mxu1d.cu's
+// fwd1d_strip_kernel, ns_matmul.cu's ns_fwd_mxu_kernel) and the exact
+// inverse of separable.cu.
 //
 // A thread computes a strip of P outputs of one filtered line (along the
 // window's rows or columns, at a step xs between samples; OS samples apart,
@@ -121,6 +122,14 @@ __device__ __forceinline__ void fill_around(float* dst, int n, const float* __re
   }
 }
 
+// The index in a (4, hlen) taps buffer (the low filter's first and second
+// values, then the high filter's) of entry e of the shared arrays
+// [lo1 | hi1] [lo2 | hi2], nt taps each; -1 (a zero tap) past hlen.
+__device__ __forceinline__ int dual_tap(int e, int nt, int hlen) {
+  const int k = e % nt, u = e / nt;  // u: lo1, hi1, lo2, hi2
+  return k < hlen ? ((u & 1) * 2 + (u >> 1)) * hlen + k : -1;
+}
+
 // Sources of up to four bands, float32 or bf16 (bit k of `bf16` set: band k
 // is bf16); passed by value, so an unrolled band index stays in registers.
 struct Bands {
@@ -175,6 +184,50 @@ __device__ __forceinline__ void stage_bands(const Bands src, unsigned thr, size_
   }
 }
 
+// Stage the nr x nc windows of NB bands at dst + k * bstride (pitch `pitch`,
+// second operand lo_off further on): sample (i, w) of band k =
+// src_k[row_base(i) + cols[w]], split per scheme.  Lanes run along the
+// window's columns and warps along its rows; each thread issues NB x UR x UW
+// loads (rows nw apart, columns 32 apart, those past the window's edge
+// clamped onto it and not stored) before it stores one, so a window of up
+// to nw UR rows by 32 UW columns costs one round trip to memory.
+template <int S, int NB, int UR, int UW, typename St, typename FR>
+__device__ __forceinline__ void stage_window(const Bands& src, FR row_base, const int* cols,
+                                             int nr, int nc, St* dst, int pitch, int bstride,
+                                             int lo_off) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  for (int i0 = warp; i0 < nr; i0 += nw * UR) {
+    for (int w0 = lane; w0 < nc; w0 += 32 * UW) {
+      float v[NB][UR][UW];
+#pragma unroll
+      for (int a = 0; a < UR; ++a) {
+        const int i = i0 + a * nw;
+        const size_t rb = row_base(i < nr ? i : nr - 1);
+#pragma unroll
+        for (int c = 0; c < UW; ++c) {
+          const int w = w0 + 32 * c;
+          const size_t o = rb + cols[w < nc ? w : nc - 1];
+#pragma unroll
+          for (int k = 0; k < NB; ++k) v[k][a][c] = load_band(src, k, o);
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < UR; ++a) {
+#pragma unroll
+        for (int c = 0; c < UW; ++c) {
+          const int i = i0 + a * nw, w = w0 + 32 * c;
+          if (i >= nr || w >= nc) continue;
+#pragma unroll
+          for (int k = 0; k < NB; ++k) {
+            St* d = dst + k * bstride;
+            stage<S>(v[k][a][c], d, d + lo_off, i * pitch + w);
+          }
+        }
+      }
+    }
+  }
+}
+
 // Copy an nr x nc float tile (pitch `pitch`) to the output rows orow(i) and
 // columns ocol(u) where they fall inside (n_r, n_c); lanes along the columns.
 template <typename TO, typename FR, typename FC>
@@ -202,5 +255,15 @@ __host__ __device__ constexpr int temp_pitch(int w) {
 }
 
 __host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) & ~size_t(15); }
+
+// Does a launch plan's grid cover (R, C) positions (B planes) at dilation f
+// with lr x lc tiles, rows of one residue class and columns consecutive (gc
+// = 1) or of one class (gc = f)?
+inline bool grid_fits(int B, int R, int C, int f, int lr, int lc, int gc, int gx, int gy,
+                      int gz) {
+  const long long want_x = gc == 1 ? (C + (long long)lc - 1) / lc : axis_blocks(C, f, lc);
+  return gx == want_x && gy == axis_blocks(R, f, lr) && gy <= 65535 &&
+         gz == (B < 65535 ? B : 65535);
+}
 
 }  // namespace pdwt_strip

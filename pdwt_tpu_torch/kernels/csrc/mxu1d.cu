@@ -5,11 +5,8 @@
 // each with a decimated and an a-trous instance (the TPU kernels' stride 2
 // and dilated band matrices):
 //
-//   fwd1d_staged_kernel, fwd1d_mxu_kernel  <- _fwd1d_kernel  (mxu1d_pallas.py:102)
-//   inv1d_strip_kernel                     <- _inv1d_kernel  (mxu1d_pallas.py:153)
-//
-// (the analysis: the staged kernel where a block's windows fit shared
-// memory, the direct one where they do not, see Layout)
+//   fwd1d_strip_kernel  <- _fwd1d_kernel  (mxu1d_pallas.py:102)
+//   inv1d_strip_kernel  <- _inv1d_kernel  (mxu1d_pallas.py:153)
 //
 // Every kernel filters along the last axis of a (B, N) batch under a compute
 // scheme (mxu_common.cuh), with the index spec of core/conv.py, t the
@@ -22,28 +19,23 @@
 // The wrappers (kernels/mxu1d.py) pass the offsets and fold the a-trous
 // synthesis's 1/2 into the taps before they are split.
 //
-// Layout of the analysis as batched1d.cu: the signal axis runs along the
-// lanes; a block of NT threads is TW x RB, TW output positions of RB = NT /
-// TW signals; the grid is one-dimensional.  Each row of the block stages the
-// window of samples its TW outputs read, split once into the scheme's
-// operands (bf16, float32 for fd), in shared memory; the taps then read the
-// window at stride 1 (2 for the decimated analysis), with no index wrap.
-// Where a window outgrows shared memory (an a-trous dilation of thousands),
-// the level runs the direct kernel instead, which reads and splits every
-// sample per tap straight from memory through L1.  Both sum in the plain
-// version's order, so they give the same bits.  The synthesis was
-// redesigned for Hopper's CUDA cores on band_strip.cuh (its own comment
-// below says how): 32 signals per block, one per lane, register-blocked
-// strips, a launch plan from the host, and a window that does not grow with
-// the dilation, so it needs no direct kernel.
+// Layout.  Both kernels are redesigned for Hopper's CUDA cores on
+// band_strip.cuh, as adjoints of each other: a block owns kRows = 32 signals,
+// one per lane, by lc positions, consecutive or one residue class mod f, so
+// a window never grows with the dilation past 1.4x and no level needs a
+// kernel that reads past shared memory; each signal's staged line is an odd
+// number of words long, so a warp's shared loads fall on 32 distinct banks at
+// any dilation and at stride 2; register-blocked strips sum both filters (or
+// both parities) from one read of each sample; a float tile takes the sums
+// and is written out with lanes along the positions.  The taps come from a
+// small device buffer, read around the first staging, and a launch plan from
+// the host (kernels/mxu1d.py), which the entry points check.
 //
 // Bound: device memory.  A level reads its input once and writes its output
 // once; at 1024 x 4096, sym8, b3 does 3 * 16 FMAs per output and filter on
 // operands split once per sample, about 0.4 GFLOP at level 1, 6 us on the
-// float32 cores against 7.5 us for the bytes.  Splitting each sample once per
-// tap instead (the direct kernel) costs up to 2 * 16 conversions per output
-// and filter; at the paths' shapes that ran 4-8x slower than the exact
-// kernels of batched1d.cu on an H100.
+// float32 cores against 7.5 us for the bytes.  Each sample is staged and
+// split once per window, never per tap.
 
 #include "band_strip.cuh"
 
@@ -52,106 +44,113 @@ namespace {
 using namespace pdwt_mxu;
 using namespace pdwt_strip;
 
-constexpr int NT = 256;  // threads per block
-// dynamic shared memory a staged block may use beside its static copy of the taps
-constexpr long long kStagedLimit = (long long)(kSmemLimit - kTapsSmem);
+constexpr int kRows = 32;  // signals per block, one per lane
 
-__device__ __forceinline__ long long wrapl(long long i, int n) {
-  const long long r = i % n;
-  return r < 0 ? r + n : r;
-}
-
-// The block's signal row and first output position (batched1d.cu's layout).
-__device__ __forceinline__ void place(int ntile, long long& row, int& pos0) {
-  const unsigned grp = blockIdx.x / ntile, t = blockIdx.x % ntile;
-  row = (long long)grp * blockDim.y + threadIdx.y;
-  pos0 = static_cast<int>(t) * (int)blockDim.x;
-}
-
-// ---------------------------------------------------------------------------
-// Analysis level, direct.  Replaces _fwd1d_kernel (mxu1d_pallas.py:102).  Output n
-// of a signal: the two filters' sums from one walk over its taps (stride 2
-// for the decimated level, dilation f for the a-trous one).
-// ---------------------------------------------------------------------------
-template <int S, typename TI, typename TD, bool DECIM>
-__global__ void __launch_bounds__(NT)
-fwd1d_mxu_kernel(const TI* __restrict__ x, float* __restrict__ lo, TD* __restrict__ hi,
-                 int B, int N, int n_out, int hlen, int f, int cen, int ntile,
-                 const __grid_constant__ Taps4 tp) {
-  long long row;
-  int pos0;
-  place(ntile, row, pos0);
-  const int n = pos0 + threadIdx.x;
-  if (row >= B || n >= n_out) return;
-  const TI* xr = x + (size_t)row * N;
-  const int step = DECIM ? 1 : f;
-  const int st = step % N;
-  long long k = wrapl((DECIM ? 2LL * n : (long long)n) - cen, N);
-  Acc<S> l, h;
-  for (int j = 0; j < hlen; ++j) {
-    float d1, d2;
-    split<S>(load_f(xr + k), d1, d2);
-    l.add(tp.lo1[j], tp.lo2[j], d1, d2);
-    h.add(tp.hi1[j], tp.hi2[j], d1, d2);
-    k += st;
-    if (k >= N) k -= N;
-  }
-  const size_t o = (size_t)row * n_out + n;
-  lo[o] = l.total();
-  hi[o] = from_f<TD>(h.total());
-}
-
-// Stage the window s[(w0 + i) mod N], i < W, of one row, split into the
-// scheme's operands s1[i] (and s2[i]); the row's TW threads share the work.
-template <int S, typename T>
-__device__ __forceinline__ void stage_row(const T* __restrict__ s, int N, long long w0, int W,
-                                          Stage<S>* s1, Stage<S>* s2) {
-  const bool inside = w0 >= 0 && w0 + W <= N;
-  for (int i = threadIdx.x; i < W; i += blockDim.x)
-    stage<S>(load_f(s + (inside ? w0 + i : wrapl(w0 + i, N))), s1, s2, i);
+// Stage the windows of NB bands for the kRows signals from row0 (the last
+// signal repeated past B), each signal's line at pitch LP, through the index
+// table `cols` of the window's W positions: lanes along the window, warps
+// over the signals, 16 loads per thread in flight.
+template <int S, int NB, typename St>
+__device__ __forceinline__ void stage_lines(const Bands& src, long long row0, int B, int M,
+                                            const int* cols, int W, St* win, int LP, int bstride) {
+  stage_window<S, NB, 4, 4 / NB>(
+      src, [&](int r) { return (size_t)(row0 + r < B ? row0 + r : B - 1) * M; }, cols, kRows, W,
+      win, LP, bstride, kRows * LP);
 }
 
 // ---------------------------------------------------------------------------
-// Analysis level, staged.  Output n of a row reads window sample
-// (DECIM ? 2 * tx : tx) + j * step, the window starting at (2n or n) - cen of
-// the row's first output.  W = 2 * TW + hlen - 2 (decimated) or
-// TW + (hlen - 1) * f (a-trous) per row.
+// Analysis level, decimated (OS = 2) or a-trous (OS = 1).  Replaces
+// _fwd1d_kernel (mxu1d_pallas.py:102).  Redesigned for Hopper's CUDA cores
+// (band_strip.cuh), the adjoint of the synthesis below.  A block owns kRows
+// = 32 signals (one per lane) by lc output positions: consecutive (gc = 1,
+// always when decimated) or one residue class mod f (gc = f, where the
+// plan's L2 traffic says so).  Per group of 32 signals: stage the window (W
+// = OS (lc - 1) + (nt - 1) dc + 1 samples per signal, window entry w <->
+// sample OS (rho + gc q0) - cen + gc w, wrapped through a 32-bit index
+// table, 16 loads per thread in flight, split into the scheme's operands;
+// each signal's line an odd number of words long); then each thread takes a
+// strip of kRowStrip outputs of one signal (OS = 2: consecutive outputs
+// reading samples two apart; a-trous: outputs and taps dc apart), the 32
+// lanes of a warp the same strip of 32 signals, and sums the low and the
+// high filter from one read of each sample (R = 2), each output one float32
+// sum per scheme term with the taps in order, as the plain version.  The
+// sums go to two float tiles, written out with lanes along the positions.
+// The taps (the (4, hlen) device buffer) are padded with zeros to nt, a
+// multiple of 8, and read around the first staging.  The plan
+// (kernels/mxu1d.py: fwd1d_launch_plan) picks lc and gc, and the entry
+// points refuse a plan that does not add up.
 // ---------------------------------------------------------------------------
-template <int S, typename TI, typename TD, bool DECIM>
-__global__ void __launch_bounds__(NT)
-fwd1d_staged_kernel(const TI* __restrict__ x, float* __restrict__ lo, TD* __restrict__ hi,
-                    int B, int N, int n_out, int hlen, int f, int cen, int ntile, int W,
-                    const __grid_constant__ Taps4 tp) {
+constexpr int kFwdCh = 8;  // taps per chunk of the analysis's strips
+
+// Shared-memory bytes of the analysis: taps, the index table, the window,
+// the two output tiles.  kernels/mxu1d.py:_fwd1d_smem mirrors it.
+template <int S>
+size_t fwd1d_smem(int os, int lc, int dc, int nt) {
   using St = Stage<S>;
+  const size_t nd = kDataLo<S> ? 2 : 1, W = os * (lc - 1) + (size_t)(nt - 1) * dc + 1;
+  return 16 * (size_t)nt + align16(W * sizeof(int)) +
+         align16(nd * kRows * temp_pitch<St>((int)W) * sizeof(St)) +
+         2 * (size_t)kRows * (lc | 1) * sizeof(float);
+}
+
+template <int S, int OS>
+__global__ void __launch_bounds__(256)
+fwd1d_strip_kernel(const void* __restrict__ x, float* __restrict__ lo, void* __restrict__ hi,
+                   int in_bf16, int hi_bf16, int B, int N, int hlen, int f, int cen,
+                   const float* __restrict__ taps, int lc, int gc, int nt) {
+  using St = Stage<S>;
+  constexpr int P = kRowStrip<S>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float4 tq[PDWT_MXU_MAX_HLEN];
-  constexpr int nd = kDataLo<S> ? 2 : 1;
-  St* s1 = reinterpret_cast<St*>(smem_raw) + (size_t)threadIdx.y * nd * W;
-  St* s2 = s1 + W;
-  long long row;
-  int pos0;
-  place(ntile, row, pos0);
-  stage_taps(tq, tp, hlen);
-  if (row < B)
-    stage_row<S>(x + (size_t)row * N, N, (DECIM ? 2LL * pos0 : (long long)pos0) - cen, W, s1,
-                 s2);
+  const int dc = f / gc, W = OS * (lc - 1) + (nt - 1) * dc + 1, LP = temp_pitch<St>(W);
+  const int OP = lc | 1;
+  float* t1 = reinterpret_cast<float*>(smem_raw);  // lo | hi, first values
+  float* t2 = t1 + 2 * nt;                          // second values
+  int* cols = reinterpret_cast<int*>(t2 + 2 * nt);
+  St* win = reinterpret_cast<St*>(reinterpret_cast<unsigned char*>(cols) +
+                                  align16((size_t)W * sizeof(int)));
+  float* tile = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(win) +
+      align16((size_t)(kDataLo<S> ? 2 : 1) * kRows * LP * sizeof(St)));  // lo, hi: kRows x OP
+
+  const int n_out = N / OS;
+  const int frc = gc == 1 ? 1 : (f < n_out ? f : n_out);
+  const int rho = blockIdx.x % frc, q0 = (blockIdx.x / frc) * lc;
+  fill_index(cols, W, OS * (rho + (long long)gc * q0) - cen, gc, N);
+  const Bands src = {{x}, in_bf16 ? 1u : 0u};
   __syncthreads();
-  const int n = pos0 + threadIdx.x;
-  if (row >= B || n >= n_out) return;
-  const int step = DECIM ? 1 : f;
-  const int base = DECIM ? 2 * threadIdx.x : threadIdx.x;
-  Acc<S> l, h;
-  for (int j = 0; j < hlen; ++j) {
-    const int i = base + j * step;
-    const float d1 = to_f(s1[i]);
-    const float d2 = kDataLo<S> ? to_f(s2[i]) : 0.f;
-    const float4 t = tq[j];
-    l.add(t.x, t.y, d1, d2);
-    h.add(t.z, t.w, d1, d2);
+  auto tap = [&](int e) { return dual_tap(e, nt, hlen); };
+  const int ngroups = (B + kRows - 1) / kRows;
+  for (int grp = blockIdx.y; grp < ngroups; grp += gridDim.y) {
+    const long long row0 = (long long)grp * kRows;
+    auto stage_win = [&] { stage_lines<S, 1>(src, row0, B, N, cols, W, win, LP, 0); };
+    if (grp == (int)blockIdx.y)
+      fill_around(t1, 4 * nt, taps, tap, stage_win);
+    else
+      stage_win();
+    __syncthreads();
+    // signal r (the lane), outputs t0 + dc q (q < P), both filters
+    for (int it = threadIdx.x; it < kRows * (lc / P); it += blockDim.x) {
+      const int r = it % kRows, sp = it / kRows, t0 = sp % dc + dc * (sp / dc) * P;
+      Acc<S> acc[2][P];
+      band_strip<S, P, 2, kFwdCh, OS>(acc, win + r * LP + OS * t0, kRows * LP, 0, 1, dc, t1, t2,
+                                      nt, nt);
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int q = 0; q < P; ++q) tile[(k * kRows + r) * OP + t0 + dc * q] = acc[k][q].total();
+    }
+    __syncthreads();
+    auto orow = [&](int i) { return row0 + i; };
+    auto ocol = [&](int u) { return rho + (long long)gc * (q0 + u); };
+    store_tile(lo, 0, B, n_out, tile, OP, kRows, lc, orow, ocol);
+    if (hi_bf16)
+      store_tile(static_cast<__nv_bfloat16*>(hi), 0, B, n_out, tile + kRows * OP, OP, kRows, lc,
+                 orow, ocol);
+    else
+      store_tile(static_cast<float*>(hi), 0, B, n_out, tile + kRows * OP, OP, kRows, lc, orow,
+                 ocol);
+    __syncthreads();
   }
-  const size_t o = (size_t)row * n_out + n;
-  lo[o] = l.total();
-  hi[o] = from_f<TD>(h.total());
 }
 
 // ---------------------------------------------------------------------------
@@ -178,7 +177,6 @@ fwd1d_staged_kernel(const TI* __restrict__ x, float* __restrict__ lo, TD* __rest
 // that does not add up.  The window never grows with f past 1.4x, so no
 // level needs a kernel that reads past shared memory.
 // ---------------------------------------------------------------------------
-constexpr int kRows = 32;        // signals per block, one per lane
 // taps per chunk of the strips: 8 for the a-trous synthesis (16 taps for
 // sym8), 4 for the polyphase one (the parities' tables are 9 long for sym8)
 template <int NPH>
@@ -232,44 +230,12 @@ inv1d_strip_kernel(const float* __restrict__ lo, const void* __restrict__ hi,
     const int bb = j - ((q ? o1 : o0) - omin);
     return bb >= 0 && bb < g.nb[q] ? row + g.p[q] + 2 * bb : -1;
   };
+  const Bands bands = {{lo, hi}, hi_bf16 ? 2u : 0u};
   const int ngroups = (B + kRows - 1) / kRows;
   const int Nout = NPH * M;
   for (int grp = blockIdx.y; grp < ngroups; grp += gridDim.y) {
     const long long row0 = (long long)grp * kRows;
-    // lanes along the window, a warp's rows warp, warp + nw, ...: each
-    // thread keeps 2 bands x 4 rows x 2 window entries (32 apart) in flight
-    auto stage_win = [&] {
-      const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-      for (int w = lane; w < W; w += 64) {
-        const int w2 = w + 32 < W ? w + 32 : w, c[2] = {cols[w], cols[w2]};
-        for (int r0 = warp; r0 < kRows; r0 += 4 * nw) {
-          float vl[4][2], vh[4][2];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const long long r = row0 + (r0 + u * nw < kRows ? r0 + u * nw : kRows - 1);
-            const size_t base = (size_t)(r < B ? r : B - 1) * M;
-#pragma unroll
-            for (int k = 0; k < 2; ++k) {
-              vl[u][k] = __ldg(lo + base + c[k]);
-              vh[u][k] = hi_bf16 ? load_f(static_cast<const __nv_bfloat16*>(hi) + base + c[k])
-                                 : load_f(static_cast<const float*>(hi) + base + c[k]);
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int r = r0 + u * nw;
-            if (r >= kRows) break;
-#pragma unroll
-            for (int k = 0; k < 2; ++k) {
-              if (k && w2 == w) break;
-              const int i = r * LP + w + 32 * k;
-              stage<S>(vl[u][k], win, win + kRows * LP, i);
-              stage<S>(vh[u][k], win + BS, win + BS + kRows * LP, i);
-            }
-          }
-        }
-      }
-    };
+    auto stage_win = [&] { stage_lines<S, 2>(bands, row0, B, M, cols, W, win, LP, BS); };
     if (grp == (int)blockIdx.y)
       fill_around(t1, 2 * NPH * 2 * nt, taps, tap, stage_win);
     else
@@ -301,59 +267,38 @@ inv1d_strip_kernel(const float* __restrict__ lo, const void* __restrict__ hi,
   }
 }
 
-// Block shape and grid for `npos` output positions per signal (batched1d.cu's
-// geometry): TW a power of two in [32, NT], RB = NT / TW signals per block.
-struct Geometry {
-  dim3 grid, block;
-  int ntile;
-};
-
-cudaError_t geometry(int B, int npos, int hlen, Geometry* g) {
-  if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || npos < 1) return cudaErrorInvalidValue;
-  int tw = 32;
-  while (tw < NT && tw < npos) tw *= 2;
-  const int rb = NT / tw;
-  g->ntile = (npos + tw - 1) / tw;
-  const long long blocks = (long long)g->ntile * (((long long)B + rb - 1) / rb);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  g->grid = dim3(static_cast<unsigned>(blocks));
-  g->block = dim3(tw, rb);
-  return cudaSuccess;
+// Does a plan's grid cover kRows-signal groups by n positions of lc,
+// consecutive or of one residue class mod f?
+bool lines_fit(int B, int n, int f, int lc, int gc, int gx, int gy, int gz) {
+  const long long groups = (B + (long long)kRows - 1) / kRows;
+  const long long want_x = gc == 1 ? (n + (long long)lc - 1) / lc : axis_blocks(n, f, lc);
+  return gx == want_x && gy == (groups < 65535 ? groups : 65535) && gz == 1;
 }
 
+// Launch the analysis on its plan, after checking that the plan adds up.
 template <bool DECIM>
-cudaError_t launch_fwd(const void* x, float* lo, void* hi, int B, int N, const Taps4& tp,
-                       int hlen, int f, int cen, int scheme, int in_bf16, int hi_bf16,
+cudaError_t launch_fwd(const void* x, float* lo, void* hi, int B, int N, const float* taps,
+                       int hlen, int f, int cen, int scheme, int in_bf16, int hi_bf16, int lc,
+                       int gc, int nt, int threads, int gx, int gy, int gz, int smem,
                        void* stream) {
-  if (N < 1 || f < 1 || (DECIM && N % 2)) return cudaErrorInvalidValue;
-  const int n_out = DECIM ? N / 2 : N;
-  Geometry geo;
-  cudaError_t e = geometry(B, n_out, hlen, &geo);
-  if (e != cudaSuccess) return e;
-  return with_scheme(scheme, [&](auto sc) {
+  if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || N < 1 || f < 1 ||
+      (DECIM && (f != 1 || N % 2)))
+    return cudaErrorInvalidValue;
+  constexpr int OS = DECIM ? 2 : 1;
+  if (nt < hlen || nt % kFwdCh || nt > PDWT_MXU_MAX_HLEN || !(gc == 1 || gc == f) || lc < 1 ||
+      threads < 32 || threads > 256 || threads % 32 ||
+      !lines_fit(B, N / OS, f, lc, gc, gx, gy, gz))
+    return cudaErrorInvalidValue;
+  return with_scheme(scheme, [&](auto sc) -> cudaError_t {
     constexpr int S = decltype(sc)::value;
-    return with_type(in_bf16, [&](auto ti) {
-      using TI = typename decltype(ti)::type;
-      return with_type(hi_bf16, [&](auto td) -> cudaError_t {
-        using TD = typename decltype(td)::type;
-        const int tw = geo.block.x, rb = geo.block.y;
-        const long long W = DECIM ? 2LL * tw + hlen - 2 : tw + (long long)(hlen - 1) * f;
-        const long long smem = (long long)rb * (kDataLo<S> ? 2 : 1) * W * sizeof(Stage<S>);
-        if (smem <= kStagedLimit) {
-          auto kernel = fwd1d_staged_kernel<S, TI, TD, DECIM>;
-          cudaError_t e = prepare(kernel, (size_t)smem);
-          if (e != cudaSuccess) return e;
-          kernel<<<geo.grid, geo.block, (size_t)smem, (cudaStream_t)stream>>>(
-              static_cast<const TI*>(x), lo, static_cast<TD*>(hi), B, N, n_out, hlen, f, cen,
-              geo.ntile, (int)W, tp);
-        } else {
-          fwd1d_mxu_kernel<S, TI, TD, DECIM><<<geo.grid, geo.block, 0, (cudaStream_t)stream>>>(
-              static_cast<const TI*>(x), lo, static_cast<TD*>(hi), B, N, n_out, hlen, f, cen,
-              geo.ntile, tp);
-        }
-        return cudaGetLastError();
-      });
-    });
+    if (lc % (kRowStrip<S> * (f / gc)) || (size_t)smem != fwd1d_smem<S>(OS, lc, f / gc, nt))
+      return cudaErrorInvalidValue;
+    auto kernel = fwd1d_strip_kernel<S, OS>;
+    cudaError_t e = prepare(kernel, smem, 0);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+        x, lo, hi, in_bf16, hi_bf16, B, N, hlen, f, cen, taps, lc, gc, nt);
+    return cudaGetLastError();
   });
 }
 
@@ -375,12 +320,10 @@ cudaError_t launch_inv(const float* lo, const void* hi, void* out, int B, int M,
     need = (o0 - omin + g.nb[0]) > (o1 - omin + g.nb[1]) ? o0 - omin + g.nb[0]
                                                            : o1 - omin + g.nb[1];
   }
-  const long long groups = (B + (long long)kRows - 1) / kRows;
-  const long long want_x = gc == 1 ? (M + (long long)lc - 1) / lc : axis_blocks(M, f, lc);
   constexpr int CH = kCh<DECIM ? 2 : 1>;
   if (nt < need || nt % CH || nt > PDWT_MXU_MAX_HLEN + CH || !(gc == 1 || gc == f) ||
       (DECIM && gc != 1) || lc < 1 || threads < 32 || threads > 256 || threads % 32 ||
-      gx != want_x || gy != (groups < 65535 ? groups : 65535) || gz != 1)
+      !lines_fit(B, M, f, lc, gc, gx, gy, gz))
     return cudaErrorInvalidValue;
   return with_scheme(scheme, [&](auto sc) -> cudaError_t {
     constexpr int S = decltype(sc)::value;
@@ -400,31 +343,36 @@ cudaError_t launch_inv(const float* lo, const void* hi, void* out, int B, int M,
 
 // Every entry point returns a cudaError_t as int: 0 once the launch has been
 // queued on `stream`, else the reason it was refused (cudaGetLastError()).
-// `scheme` is the index in kernels/matmul.py:SCHEMES; the *_bf16 flags pick
-// bf16 (1) or float32 (0) storage.  The analysis entry points share one
-// signature (the decimated one reads no `f`), and so do the synthesis ones
-// (`geo`, poly_geometry(hlen) on the host, is read by the polyphase one
-// only, `f` and `cen`, the dilated center, by the a-trous one only).
+// `taps` is a (4, hlen) float32 device buffer: the low filter's first and
+// second values, then the high filter's, correlation order; `scheme` is the
+// index in kernels/matmul.py:SCHEMES; the *_bf16 flags pick bf16 (1) or
+// float32 (0) storage.  The analysis entry points share one signature (the
+// decimated one takes f = 1), and so do the synthesis ones (`geo`,
+// poly_geometry(hlen) on the host, is read by the polyphase one only, `f`
+// and `cen`, the dilated center, by the a-trous one only).
 
+// The launch plan (kernels/mxu1d.py:fwd1d_launch_plan): lc positions of
+// column stride gc (1 or f), nt padded taps, threads, grid (gx, gy, gz) and
+// dynamic shared-memory bytes; a plan that does not add up is refused
+// (cudaErrorInvalidValue).
 extern "C" int pdwt_fwd_level_1d_mxu(const void* x, float* lo, void* hi, int B, int N,
-                                     const float* lo1, const float* lo2, const float* hi1,
-                                     const float* hi2, int hlen, int f, int cen, int scheme,
-                                     int in_bf16, int hi_bf16, void* stream) {
-  return launch_fwd<true>(x, lo, hi, B, N, make_taps4(lo1, lo2, hi1, hi2, hlen), hlen, 1, cen,
-                          scheme, in_bf16, hi_bf16, stream);
+                                     const float* taps, int hlen, int f, int cen, int scheme,
+                                     int in_bf16, int hi_bf16, int lc, int gc, int nt, int threads,
+                                     int gx, int gy, int gz, int smem, void* stream) {
+  return launch_fwd<true>(x, lo, hi, B, N, taps, hlen, f, cen, scheme, in_bf16, hi_bf16, lc, gc,
+                          nt, threads, gx, gy, gz, smem, stream);
 }
 
 extern "C" int pdwt_swt_fwd_level_1d_mxu(const void* x, float* lo, void* hi, int B, int N,
-                                         const float* lo1, const float* lo2, const float* hi1,
-                                         const float* hi2, int hlen, int f, int cen, int scheme,
-                                         int in_bf16, int hi_bf16, void* stream) {
-  return launch_fwd<false>(x, lo, hi, B, N, make_taps4(lo1, lo2, hi1, hi2, hlen), hlen, f, cen,
-                           scheme, in_bf16, hi_bf16, stream);
+                                         const float* taps, int hlen, int f, int cen, int scheme,
+                                         int in_bf16, int hi_bf16, int lc, int gc, int nt,
+                                         int threads, int gx, int gy, int gz, int smem,
+                                         void* stream) {
+  return launch_fwd<false>(x, lo, hi, B, N, taps, hlen, f, cen, scheme, in_bf16, hi_bf16, lc, gc,
+                           nt, threads, gx, gy, gz, smem, stream);
 }
 
-// `taps` is the (4, hlen) float32 device buffer of the synthesis: the low
-// filter's first and second values, then the high filter's, correlation
-// order.  The launch plan (kernels/mxu1d.py:inv1d_launch_plan): lc positions
+// The launch plan (kernels/mxu1d.py:inv1d_launch_plan): lc positions
 // of column stride gc (1 or f), nt padded taps, threads, grid (gx, gy, gz)
 // and dynamic shared-memory bytes; a plan that does not add up is refused
 // (cudaErrorInvalidValue).

@@ -368,14 +368,6 @@ cudaError_t with_rank(int rank, F&& f) {
   }
 }
 
-// Does a plan's grid cover (Mr, Mc) positions at dilation f with lr x lc
-// tiles of the column stride gc?
-bool grid_fits(int B, int Mr, int Mc, int f, int lr, int lc, int gc, int gx, int gy, int gz) {
-  const long long want_x = gc == 1 ? (Mc + (long long)lc - 1) / lc : axis_blocks(Mc, f, lc);
-  return gx == want_x && gy == axis_blocks(Mr, f, lr) && gy <= 65535 &&
-         gz == (B < 65535 ? B : 65535);
-}
-
 // Does a plan's tile take whole strips (rows, and columns dc apart)?
 bool tile_fits(int lr, int lc, int f, int gc, int strip, int threads) {
   return (gc == 1 || gc == f) && lr >= 1 && lc >= 1 && threads >= 32 && threads <= 256 &&

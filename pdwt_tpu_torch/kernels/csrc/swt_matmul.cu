@@ -25,14 +25,14 @@
 // a device buffer) is applied in float32 to each staged detail before its
 // split, as the TPU kernel's det() does (swt_matmul_pallas.py:335-342).
 //
-// Layout.  The forward's block owns a 32 x 32 tile of positions of one
-// residue class mod f along each axis (mxu_common.cuh: Axis), so every
-// dilated tap of its outputs lands in the staged window of (32 + hlen - 1)^2
-// samples of those classes: shared memory does not grow with the level, and
-// any size and dilation runs.  The inverse (redesigned for Hopper's CUDA
-// cores, band_strip.cuh) takes a tile of rows of one class by consecutive
-// columns where the window allows, register-blocked strips and a launch plan
-// from the host; its own comment below says how.
+// Layout.  Both kernels are redesigned for Hopper's CUDA cores on
+// band_strip.cuh: a block owns a tile of rows of one residue class mod f by
+// consecutive columns (or one residue class where a consecutive window would
+// grow more than 1.4x), so the staged windows do not grow with the level and
+// any size and dilation runs; register-blocked strips; the taps from a small
+// device buffer, read around the first staging; and a launch plan from the
+// host (kernels/swt_matmul.py), which the entry point checks.  Each kernel's
+// own comment below says how it runs.
 //
 // Bound.  At 1024^2 a level reads one image and writes four planes (forward)
 // or the reverse: 4.2 MiB of bf16 in and 4 MiB of float32 plus 6 MiB of bf16
@@ -50,89 +50,142 @@ namespace {
 using namespace pdwt_mxu;
 using namespace pdwt_strip;
 
-constexpr int LT = 32;  // tile positions per axis
-constexpr int BX = 32;
-constexpr int BY = 8;
-
 // ---------------------------------------------------------------------------
 // Forward level.  Replaces _swt_fwd_mxu_kernel (swt_matmul_pallas.py:166).
-// Stages the W x W window (W = LT + hlen - 1) split into the scheme's
-// operands; runs the dual pass along the rows for every window column into a
-// shared temp, split again; then the dual pass along the columns, and writes
-// A, H, V, D once.
+// Redesigned for Hopper's CUDA cores (band_strip.cuh), as the inverse below
+// and the rank-r analysis at stride 1 (ns_matmul.cu), in this kernel's pass
+// order: rows first.  A block owns lr output rows of one residue class mod f
+// (window row i <-> row rho + f (q0 + i - cen), dilation 1 inside the
+// window) by lc output columns, consecutive (gc = 1: a tap steps dc = f
+// window columns) or one residue class (gc = f, dc = 1, where a consecutive
+// window would grow more than 1.4x).  Per batch item: stage the input window
+// (WR = lr + nt - 1 rows by WC = lc + (nt - 1) dc columns, wrapped through
+// 32-bit index tables, up to 18 loads per thread in flight, split into the
+// scheme's operands); along the rows, each thread takes a strip of kRowStrip
+// output rows of one window column, lanes along the columns, and sums the
+// low and the high filter from one read of each sample (R = 2) into two
+// shared temps, split again; along the columns, each thread takes a strip
+// of kColStrip outputs dc apart of one temp row, lanes along the rows (the
+// temps' pitches are odd numbers of words), and sums both filters on the
+// low temp (A, V) and on the high temp (H, D) into float tiles in the
+// window's place, written out with lanes along the columns: all four at
+// once (nph = 1) or (A, V) then (H, D) when shared memory is short (nph =
+// 2, half the tiles).  Every output
+// keeps one float32 sum per scheme term in the plain version's order: taps
+// in order, the row-pass result split in between.  The taps (the (4, hlen)
+// device buffer) are padded with zeros to nt, a multiple of 8, and read
+// around the first staging.  The plan (kernels/swt_matmul.py:
+// swt_fwd_launch_plan) picks the tile so that the deep levels and small
+// images still fill the card, and the entry point refuses a plan that does
+// not add up.
 // ---------------------------------------------------------------------------
-template <int S, typename TI, typename TD>
-__global__ void __launch_bounds__(BX * BY)
-swt_fwd_mxu_kernel(const TI* __restrict__ x, float* __restrict__ a, TD* __restrict__ h,
-                   TD* __restrict__ v, TD* __restrict__ d, int B, int R, int C, int hlen,
-                   int f, int cen, int frr, int frc, const __grid_constant__ Taps4 tp) {
+constexpr int kFwdCh = 8;  // taps per chunk of the forward's strips
+
+// Shared-memory bytes of the forward: taps, index tables, the window (which
+// holds the 4 / nph output tiles once the row pass is done), the two temps.
+// kernels/swt_matmul.py:_fwd_smem mirrors it.
+template <int S>
+size_t fwd_smem(int lr, int lc, int dc, int nt, int nph) {
   using St = Stage<S>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const size_t nd = kDataLo<S> ? 2 : 1;
+  const size_t WR = lr + nt - 1, WC = lc + (size_t)(nt - 1) * dc;
+  const size_t win = nd * WR * WC * sizeof(St);
+  const size_t tile = (4 / nph) * (size_t)lr * (lc + 1) * sizeof(float);
+  return 16 * (size_t)nt + align16((WR + WC) * sizeof(int)) + align16(win > tile ? win : tile) +
+         2 * nd * lr * temp_pitch<St>((int)WC) * sizeof(St);
+}
+
+template <int S>
+__global__ void __launch_bounds__(256)
+swt_fwd_mxu_kernel(const void* __restrict__ x, float* __restrict__ a, void* __restrict__ h,
+                   void* __restrict__ v, void* __restrict__ d, int in_bf16, int det_bf16, int B,
+                   int R, int C, int hlen, int f, int cen, const float* __restrict__ taps, int lr,
+                   int lc, int gc, int nph, int nt) {
+  using St = Stage<S>;
   constexpr int nd = kDataLo<S> ? 2 : 1;
-  const int W = LT + hlen - 1;
-  St* in1 = reinterpret_cast<St*>(smem_raw);  // W x W window, first operand
-  St* in2 = in1 + W * W;                       // second operand (b2d, b3)
-  St* tl1 = in1 + nd * W * W;                  // LT x W, low-pass along the rows
-  St* tl2 = tl1 + LT * W;
-  St* th1 = tl1 + nd * LT * W;                 // LT x W, high-pass along the rows
-  St* th2 = th1 + LT * W;
-  __shared__ float4 tq[PDWT_MXU_MAX_HLEN];
-  stage_taps(tq, tp, hlen);
-  const Axis ar = axis_of<LT>(blockIdx.y, frr, f), ac = axis_of<LT>(blockIdx.x, frc, f);
-  const int tx = threadIdx.x, ty = threadIdx.y;
+  constexpr int PR = kRowStrip<S>, PC = kColStrip;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int dc = f / gc;
+  const int WR = lr + nt - 1, WC = lc + (nt - 1) * dc, TP = temp_pitch<St>(WC), OP = lc + 1;
+  float* t1 = reinterpret_cast<float*>(smem_raw);  // lo | hi, first values
+  float* t2 = t1 + 2 * nt;                          // second values
+  int* rows = reinterpret_cast<int*>(t2 + 2 * nt);
+  int* cols = rows + WR;
+  unsigned char* p = smem_raw + 16 * (size_t)nt + align16((size_t)(WR + WC) * sizeof(int));
+  St* win = reinterpret_cast<St*>(p);  // WR x WC, second operand WR * WC further on
+  float* tile = reinterpret_cast<float*>(p);  // 4 / nph tiles of lr x OP, after the row pass
+  const size_t wbytes = (size_t)nd * WR * WC * sizeof(St);
+  const size_t tbytes = (size_t)(4 / nph) * lr * OP * sizeof(float);
+  St* tmp = reinterpret_cast<St*>(p + align16(wbytes > tbytes ? wbytes : tbytes));
+  const int TS = nd * lr * TP;  // temp stride: the low temp, then the high one
+
+  const int frr = f < R ? f : R, frc = gc == 1 ? 1 : (f < C ? f : C);
+  const int rho_r = blockIdx.y % frr, q0r = (blockIdx.y / frr) * lr;
+  const int rho_c = blockIdx.x % frc, q0c = (blockIdx.x / frc) * lc;
+  // window column w <-> column rho_c + gc (q0c + w) - cen f
+  fill_index(rows, WR, rho_r + (long long)f * (q0r - cen), f, R);
+  fill_index(cols, WC, rho_c + (long long)gc * q0c - (long long)cen * f, gc, C);
+  const Bands src = {{x}, in_bf16 ? 1u : 0u};
+  __syncthreads();
+  auto tap = [&](int e) { return dual_tap(e, nt, hlen); };
 
   for (int b = blockIdx.z; b < B; b += gridDim.z) {
-    const TI* xb = x + (size_t)b * R * C;
-    for (int i = ty; i < W; i += BY) {
-      const TI* row = xb + (size_t)wrapl(ar.at(i - cen), R) * C;
-      for (int j = tx; j < W; j += BX) stage<S>(load_f(row + wrapl(ac.at(j - cen), C)), in1, in2, i * W + j);
+    const size_t plane = (size_t)b * R * C;
+    auto stage_win = [&] {
+      stage_window<S, 1, 6, 3>(src, [&](int i) { return plane + (size_t)rows[i] * C; }, cols,
+                               WR, WC, win, WC, 0, WR * WC);
+    };
+    if (b == (int)blockIdx.z)
+      fill_around(t1, 4 * nt, taps, tap, stage_win);
+    else
+      stage_win();
+    __syncthreads();
+    // along the rows: window column w, output rows r0 + q (q < PR), both filters
+    for (int it = threadIdx.x; it < (lr / PR) * WC; it += blockDim.x) {
+      const int r0 = (it / WC) * PR, w = it % WC;
+      Acc<S> acc[2][PR];
+      band_strip<S, PR, 2, kFwdCh>(acc, win + r0 * WC + w, WR * WC, 0, 1, WC, t1, t2, nt, nt);
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int q = 0; q < PR; ++q)
+          stage<S>(acc[k][q].total(), tmp + k * TS, tmp + k * TS + lr * TP, (r0 + q) * TP + w);
     }
     __syncthreads();
-
-    // along the rows: output row tt of every window column
-    for (int tt = ty; tt < LT; tt += BY) {
-      for (int col = tx; col < W; col += BX) {
-        Acc<S> lo, hi;
-        const int base = tt * W + col;
-        for (int j = 0; j < hlen; ++j) {
-          const float d1 = to_f(in1[base + j * W]);
-          const float d2 = kDataLo<S> ? to_f(in2[base + j * W]) : 0.f;
-          const float4 t = tq[j];
-          lo.add(t.x, t.y, d1, d2);
-          hi.add(t.z, t.w, d1, d2);
+    // along the columns: temp row r, outputs t0 + dc q (q < PC), filter k on
+    // temp u gives output u + 2k (A, H, V, D), in tile u + 2k (nph = 1) or k
+    // (nph = 2, phase u)
+    void* outs[4] = {a, h, v, d};
+    for (int ph = 0; ph < nph; ++ph) {
+      for (int it = threadIdx.x; it < lr * (lc / PC); it += blockDim.x) {
+        const int r = it % lr, s = it / lr, t0 = s % dc + dc * (s / dc) * PC;
+        for (int u = ph; u < 2; u += nph) {
+          Acc<S> acc[2][PC];
+          band_strip<S, PC, 2, kFwdCh>(acc, tmp + u * TS + r * TP + t0, lr * TP, 0, 1, dc, t1,
+                                       t2, nt, nt);
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+#pragma unroll
+            for (int q = 0; q < PC; ++q)
+              tile[((nph == 1 ? u + 2 * k : k) * lr + r) * OP + t0 + dc * q] = acc[k][q].total();
         }
-        stage<S>(lo.total(), tl1, tl2, tt * W + col);
-        stage<S>(hi.total(), th1, th2, tt * W + col);
       }
+      __syncthreads();
+      auto orow = [&](int i) { return rho_r + (long long)f * (q0r + i); };
+      auto ocol = [&](int u) { return rho_c + (long long)gc * (q0c + u); };
+      for (int t = 0; t < 4 / nph; ++t) {
+        const int o = nph == 1 ? t : ph + 2 * t;
+        const float* tt = tile + t * lr * OP;
+        if (o == 0)
+          store_tile(a, plane, R, C, tt, OP, lr, lc, orow, ocol);
+        else if (det_bf16)
+          store_tile(static_cast<__nv_bfloat16*>(outs[o]), plane, R, C, tt, OP, lr, lc, orow,
+                     ocol);
+        else
+          store_tile(static_cast<float*>(outs[o]), plane, R, C, tt, OP, lr, lc, orow, ocol);
+      }
+      __syncthreads();
     }
-    __syncthreads();
-
-    // along the columns: A = lo(lo rows), V = hi cols of lo rows, H = lo cols
-    // of hi rows, D = hi(hi rows)
-    const long long c = ac.at(tx);
-    for (int tt = ty; tt < LT; tt += BY) {
-      Acc<S> aa, vv, hh, dd;
-      const int base = tt * W + tx;
-      for (int j = 0; j < hlen; ++j) {
-        const float l1 = to_f(tl1[base + j]), g1 = to_f(th1[base + j]);
-        const float l2 = kDataLo<S> ? to_f(tl2[base + j]) : 0.f;
-        const float g2 = kDataLo<S> ? to_f(th2[base + j]) : 0.f;
-        const float4 t = tq[j];
-        aa.add(t.x, t.y, l1, l2);
-        vv.add(t.z, t.w, l1, l2);
-        hh.add(t.x, t.y, g1, g2);
-        dd.add(t.z, t.w, g1, g2);
-      }
-      const long long r = ar.at(tt);
-      if (r < R && c < C) {
-        const size_t o = ((size_t)b * R + r) * C + c;
-        a[o] = aa.total();
-        h[o] = from_f<TD>(hh.total());
-        v[o] = from_f<TD>(vv.total());
-        d[o] = from_f<TD>(dd.total());
-      }
-    }
-    __syncthreads();
   }
 }
 
@@ -210,12 +263,7 @@ swt_inv_mxu_kernel(const float* __restrict__ a, const void* __restrict__ h,
   const unsigned tb = det_bf16 ? 0xe : 0;  // H, V, D bf16
   const Bands all = {{a, h, v, d}, tb}, ah = {{a, h}, tb & 3}, vd = {{v, d}, tb >> 2};
   __syncthreads();
-  // t1 = (lo, hi) first values, t2 second values, from taps (4, hlen) = lo
-  // first, lo second, hi first, hi second
-  auto tap = [&](int e) {
-    const int k = e % nt, u = e / nt;  // u: lo1, hi1, lo2, hi2
-    return k < hlen ? ((u & 1) * 2 + (u >> 1)) * hlen + k : -1;
-  };
+  auto tap = [&](int e) { return dual_tap(e, nt, hlen); };
 
   for (int b = blockIdx.z; b < B; b += gridDim.z) {
     const size_t plane = (size_t)b * R * C;
@@ -267,17 +315,6 @@ swt_inv_mxu_kernel(const float* __restrict__ a, const void* __restrict__ h,
   }
 }
 
-// Grid of one level: (column class, chunk) in x, (row class, chunk) in y,
-// batch in z; fr* = the classes per axis.
-cudaError_t level_grid(int B, int R, int C, int f, dim3* grid, int* frr, int* frc) {
-  const long long gx = axis_blocks(C, f, LT), gy = axis_blocks(R, f, LT);
-  if (gy > 65535 || gx > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  *grid = dim3((unsigned)gx, (unsigned)gy, B < 65535 ? B : 65535);
-  *frr = f < R ? f : R;
-  *frc = f < C ? f : C;
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // Every entry point returns a cudaError_t as int: 0 once the launch has been
@@ -286,36 +323,34 @@ cudaError_t level_grid(int B, int R, int C, int f, dim3* grid, int* frr, int* fr
 // bf16 (1) or float32 (0) storage; `cen` is the center in taps
 // (fwd_center(hlen) forward, swt_inv_center(hlen) inverse), f the dilation.
 
+// `taps` is a (4, hlen) float32 device buffer: the low filter's first and
+// second values, then the high filter's, correlation order.  The launch plan
+// (kernels/swt_matmul.py:swt_fwd_launch_plan): tile lr x lc outputs, column
+// stride gc (1 or f), nph output phases, nt padded taps, threads, grid (gx,
+// gy, gz) and dynamic shared-memory bytes; a plan that does not add up is
+// refused (cudaErrorInvalidValue).
 extern "C" int pdwt_swt_fwd_level_2d_mxu(const void* x, float* a, void* h, void* v, void* d,
-                                         int B, int R, int C, const float* lo1, const float* lo2,
-                                         const float* hi1, const float* hi2, int hlen, int f,
-                                         int cen, int scheme, int in_bf16, int det_bf16,
-                                         void* stream) {
+                                         int B, int R, int C, const float* taps, int hlen, int f,
+                                         int cen, int scheme, int in_bf16, int det_bf16, int lr,
+                                         int lc, int gc, int nph, int nt, int threads, int gx,
+                                         int gy, int gz, int smem, void* stream) {
   if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || R < 1 || C < 1 || f < 1)
     return cudaErrorInvalidValue;
-  dim3 grid;
-  int frr, frc;
-  cudaError_t e = level_grid(B, R, C, f, &grid, &frr, &frc);
-  if (e != cudaSuccess) return e;
-  const Taps4 tp = make_taps4(lo1, lo2, hi1, hi2, hlen);
+  if (nt < hlen || nt > PDWT_MXU_MAX_HLEN || nt % kFwdCh || !(gc == 1 || gc == f) ||
+      !(nph == 1 || nph == 2) || lr < 1 || lc < 1 || threads < 32 || threads > 256 ||
+      threads % 32 || lc % (kColStrip * (f / gc)) ||
+      !grid_fits(B, R, C, f, lr, lc, gc, gx, gy, gz))
+    return cudaErrorInvalidValue;
   return with_scheme(scheme, [&](auto sc) {
     constexpr int S = decltype(sc)::value;
-    return with_type(in_bf16, [&](auto ti) {
-      using TI = typename decltype(ti)::type;
-      return with_type(det_bf16, [&](auto td) -> cudaError_t {
-        using TD = typename decltype(td)::type;
-        constexpr int nd = kDataLo<S> ? 2 : 1;
-        const size_t W = LT + hlen - 1;
-        const size_t smem = sizeof(Stage<S>) * nd * (W * W + 2 * LT * W);
-        auto kernel = swt_fwd_mxu_kernel<S, TI, TD>;
-        cudaError_t e2 = prepare(kernel, smem);
-        if (e2 != cudaSuccess) return e2;
-        kernel<<<grid, dim3(BX, BY), smem, (cudaStream_t)stream>>>(
-            static_cast<const TI*>(x), a, static_cast<TD*>(h), static_cast<TD*>(v),
-            static_cast<TD*>(d), B, R, C, hlen, f, cen, frr, frc, tp);
-        return cudaGetLastError();
-      });
-    });
+    if (lr % kRowStrip<S> || (size_t)smem != fwd_smem<S>(lr, lc, f / gc, nt, nph))
+      return cudaErrorInvalidValue;
+    auto kernel = swt_fwd_mxu_kernel<S>;
+    cudaError_t e = prepare(kernel, smem, 0);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+        x, a, h, v, d, in_bf16, det_bf16, B, R, C, hlen, f, cen, taps, lr, lc, gc, nph, nt);
+    return cudaGetLastError();
   });
 }
 
@@ -340,14 +375,12 @@ extern "C" int pdwt_swt_inv_level_2d_mxu(const float* a, const void* h, const vo
     return cudaErrorInvalidValue;
   if (nt < hlen || nt > PDWT_MXU_MAX_HLEN || nt % kInvCh || !(gc == 1 || gc == f) ||
       !(nph == 1 || nph == 2) || lr < 1 || lc < 1 || threads < 32 || threads > 256 ||
-      threads % 32 || lc % (kColStrip * (f / gc)))
-    return cudaErrorInvalidValue;
-  const long long want_x = gc == 1 ? (C + (long long)lc - 1) / lc : axis_blocks(C, f, lc);
-  if (gx != want_x || gy != axis_blocks(R, f, lr) || gy > 65535 || gz != (B < 65535 ? B : 65535))
+      threads % 32 || lc % (kColStrip * (f / gc)) ||
+      !grid_fits(B, R, C, f, lr, lc, gc, gx, gy, gz))
     return cudaErrorInvalidValue;
   return with_scheme(scheme, [&](auto sc) {
     constexpr int S = decltype(sc)::value;
-    if (lr % pdwt_strip::kRowStrip<S> || (size_t)smem != inv_smem<S>(lr, lc, f / gc, nt, nph))
+    if (lr % kRowStrip<S> || (size_t)smem != inv_smem<S>(lr, lc, f / gc, nt, nph))
       return cudaErrorInvalidValue;
     auto kernel = swt_inv_mxu_kernel<S>;
     cudaError_t e2 = prepare(kernel, smem, 0);

@@ -45,6 +45,7 @@ forward input's dtype.  The schemes are fixed when the forward runs.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -242,6 +243,22 @@ def kernel_taps(filters: Sequence, scheme: str):
         t1, t2 = scheme_taps(f, scheme)
         out.extend((taps(t1), taps(t2)))
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def _dual_taps_on(lo: bytes, hi: bytes, scheme: str, device: str) -> torch.Tensor:
+    filters = [np.frombuffer(f, dtype=np.float64) for f in (lo, hi)]
+    return torch.from_numpy(np.stack(kernel_taps(filters, scheme))).to(device)
+
+
+def dual_taps(filters, scheme: str, device) -> torch.Tensor:
+    """A filter pair's taps as the kernels on ``band_strip.cuh`` read them:
+    (4, hlen) float32 on ``device``, the low filter's first and second
+    values, then the high filter's, correlation order.  Copied there once
+    per filter pair and scheme; the key is the taps themselves, since the
+    backwards pass reversed and rescaled ones."""
+    lo, hi = (np.asarray(f, dtype=np.float64) for f in filters)
+    return _dual_taps_on(lo.tobytes(), hi.tobytes(), scheme, str(device))
 
 
 def _is_bf16(dtype: torch.dtype) -> int:

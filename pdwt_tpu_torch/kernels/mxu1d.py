@@ -4,10 +4,10 @@ wrappers, plain versions, gradients and the route rule.
 Counterpart of ``pdwt_tpu/kernels/mxu1d_pallas.py`` (kernels 15 and 16).
 Each level is one pass along the last axis of a (B, N) batch, under a
 compute scheme of ``kernels/matmul.py`` (its docstring states each
-scheme's arithmetic).  The kernels of ``csrc/mxu1d.cu`` (the analysis: one
-that stages its window in shared memory, and one for windows past it; the
-synthesis: one body on ``band_strip.cuh`` whose launch plan,
-:func:`inv1d_launch_plan`, is made here) take four wrappers:
+scheme's arithmetic).  The two kernels of ``csrc/mxu1d.cu``, the analysis
+and the synthesis, each on ``band_strip.cuh`` with a launch plan made here
+(:func:`fwd1d_launch_plan`, :func:`inv1d_launch_plan`), take four
+wrappers:
 
 ==========================  ======================================  ==============
 wrapper                     computes                                kernel
@@ -40,8 +40,7 @@ from ._launch import (ROW_STRIP, InvPlan, align16, axis_blocks, block_target, cd
                       dilation, launch, on_cpu, pick_plan, poly_geo, ptr, rev, stage_bytes,
                       temp_pitch)
 from .matmul import (_DT, BF16, F32, MXU_COLS, MXU_MAX_HLEN, SCHEMES, _check_scheme, _is_bf16,
-                     inv_plan, kernel_taps, mode_out_dtypes, mode_scheme, scheme_pass,
-                     swt_scheme)
+                     dual_taps, inv_plan, mode_out_dtypes, mode_scheme, scheme_pass, swt_scheme)
 
 #: batch divisor of the 1D route (the smallest TB of _pick_1d_tiles)
 MXU_BATCH = 16
@@ -108,16 +107,18 @@ def swt_inv_level_1d_mxu_ref(lo, hi, rec_lo, rec_hi, level: int, scheme: str, ou
 
 
 # ---------------------------------------------------------------------------
-# launch plan of the synthesis kernel (csrc/mxu1d.cu: inv1d_strip_kernel)
+# launch plans of the two kernels (csrc/mxu1d.cu)
 # ---------------------------------------------------------------------------
 
-#: signals per block of the synthesis, one per lane (mxu1d.cu: kRows)
+#: signals per block of both kernels, one per lane (mxu1d.cu: kRows)
 INV_ROWS = 32
-#: taps per chunk of its strips, polyphase and a-trous (mxu1d.cu: kCh)
+#: taps per chunk of the synthesis's strips, polyphase and a-trous (mxu1d.cu: kCh)
 INV_CHUNK = {True: 4, False: 8}
+#: taps per chunk of the analysis's strips (mxu1d.cu: kFwdCh)
+FWD_CHUNK = 8
 #: shared memory a block may take and still share its SM with two more
 SMEM_THREE_BLOCKS = 75 * 1024
-#: position tiles of the synthesis, largest first
+#: position tiles of both kernels, largest first
 INV_TILES = (256, 128, 64, 32)
 
 
@@ -142,13 +143,21 @@ def _inv1d_smem(scheme: str, nph: int, lc: int, dc: int, nt: int) -> int:
             + 4 * INV_ROWS * ((nph * lc) | 1))
 
 
-def _traffic(plan: InvPlan, f: int, m: int) -> float:
-    """Bytes a plan's staging moves from L2 per band position of a signal,
-    in 4-byte samples: consecutive positions read their window whole; one
-    residue class mod f reads one 32-byte sector per sample once f >= 8 (f
-    samples' worth below); tiles past the end of a class count too."""
-    w = plan.lc + (plan.nt - 1) * (f // plan.gc)
+def _traffic(plan: InvPlan, w: int, f: int, m: int) -> float:
+    """Bytes a plan's staging moves from L2 per position of a signal, in
+    4-byte samples, for a window of w samples a block: consecutive
+    positions read their window whole; one residue class mod f reads one
+    32-byte sector per sample once f >= 8 (f samples' worth below); tiles
+    past the end of a class count too."""
     return plan.grid[0] * w * (1 if plan.gc == 1 else min(f, 8)) / m
+
+
+def _plans_by_traffic(cands, f: int, m: int, window) -> list:
+    """Candidates ordered as both 1D plans try them: those that let three
+    blocks share an SM first, then by the staging's L2 traffic, the larger
+    tile first on a tie."""
+    return sorted(cands, key=lambda pl: (pl.smem > SMEM_THREE_BLOCKS,
+                                         _traffic(pl, window(pl), f, m), -pl.lc))
 
 
 @functools.lru_cache(maxsize=256)
@@ -183,39 +192,67 @@ def inv1d_launch_plan(B: int, M: int, hlen: int, f: int, scheme: str,
                     min(cdiv(B, INV_ROWS), 65535), 1)
             cands.append(InvPlan(INV_ROWS, lc, gc, 1, nt, 256, grid,
                                  _inv1d_smem(scheme, nph, lc, dc, nt)))
-    cands.sort(key=lambda pl: (pl.smem > SMEM_THREE_BLOCKS, _traffic(pl, f, M), -pl.lc))
+    cands = _plans_by_traffic(cands, f, M, lambda pl: pl.lc + (pl.nt - 1) * (f // pl.gc))
     return pick_plan(cands, block_target(1, B, nph * M))
 
 
-@functools.lru_cache(maxsize=64)
-def _taps_on(key, device: str) -> torch.Tensor:
-    lo, hi, scheme = key
-    filters = [np.frombuffer(f, dtype=np.float64) for f in (lo, hi)]
-    return torch.from_numpy(np.stack(kernel_taps(filters, scheme))).to(device)
+def _fwd1d_smem(scheme: str, os_: int, lc: int, dc: int, nt: int) -> int:
+    """mxu1d.cu: fwd1d_smem -- taps, the index table, the window, the two
+    output tiles."""
+    nd, es = stage_bytes(scheme)
+    w = os_ * (lc - 1) + (nt - 1) * dc + 1
+    return (16 * nt + align16(4 * w) + align16(nd * INV_ROWS * temp_pitch(w, es) * es)
+            + 8 * INV_ROWS * (lc | 1))
 
 
-def _device_taps(filters, scheme: str, device: torch.device) -> torch.Tensor:
-    """The synthesis taps, (4, hlen) float32 (low first and second values,
-    then the high filter's, correlation order), copied to ``device`` once
-    per filter pair and scheme."""
-    lo, hi = (np.asarray(f, dtype=np.float64) for f in filters)
-    return _taps_on((lo.tobytes(), hi.tobytes(), scheme), str(device))
+@functools.lru_cache(maxsize=256)
+def fwd1d_launch_plan(B: int, N: int, hlen: int, f: int, scheme: str,
+                      decimated: bool) -> InvPlan:
+    """The launch of one analysis level on (B, N) signals, decimated (f =
+    1, N even, N/2 outputs a signal) or a-trous at dilation f: 32 signals
+    (lr) by lc output positions per block, consecutive or one residue class
+    mod f (always consecutive when decimated), the taps padded to nt.  The
+    synthesis's rule (:func:`inv1d_launch_plan`): candidates by the three
+    blocks an SM, then the staging's L2 traffic, then the larger tile; the
+    first that fits two blocks on an SM and gives ``block_target`` blocks
+    for the output wins, so the deep levels take shorter tiles and a
+    dilation of thousands takes one residue class.  Always 256 threads."""
+    nt = cdiv(hlen, FWD_CHUNK) * FWD_CHUNK
+    os_, p = (2 if decimated else 1), ROW_STRIP[scheme]
+    n_out = N // os_
+    cands = []
+    for lc in INV_TILES:
+        for gc in ((1,) if decimated or f == 1 else (1, f)):
+            dc = f // gc
+            if lc % (p * dc):
+                continue
+            grid = (cdiv(n_out, lc) if gc == 1 else axis_blocks(n_out, f, lc),
+                    min(cdiv(B, INV_ROWS), 65535), 1)
+            cands.append(InvPlan(INV_ROWS, lc, gc, 1, nt, 256, grid,
+                                 _fwd1d_smem(scheme, os_, lc, dc, nt)))
+    cands = _plans_by_traffic(cands, f, N,
+                              lambda pl: os_ * (pl.lc - 1) + (pl.nt - 1) * (f // pl.gc) + 1)
+    return pick_plan(cands, block_target(1, B, n_out))
 
 
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _fwd_launch(name, x, filters, scheme, hi_dtype, n_out, f, cen):
+def _fwd_launch(name, x, filters, scheme, hi_dtype, f, cen, decimated: bool):
     _check_scheme(scheme)
     B, n = x.shape
-    tp = kernel_taps(filters, scheme)
-    check_span(len(tp[0]), f)
+    tp = dual_taps(filters, scheme, x.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
+    pl = fwd1d_launch_plan(B, n, hlen, f, scheme, decimated)
+    n_out = n // 2 if decimated else n
     lo = torch.empty((B, n_out), device=x.device, dtype=F32)
     hi = torch.empty((B, n_out), device=x.device, dtype=hi_dtype)
     launch(name, x.device,
-           [ptr(x), ptr(lo), ptr(hi), B, n, *map(ptr, tp), len(tp[0]), f, cen,
-            SCHEMES.index(scheme), _is_bf16(x.dtype), _is_bf16(hi_dtype)])
+           [ptr(x), ptr(lo), ptr(hi), B, n, ptr(tp), hlen, f, cen, SCHEMES.index(scheme),
+            _is_bf16(x.dtype), _is_bf16(hi_dtype), pl.lc, pl.gc, pl.nt, pl.threads, *pl.grid,
+            pl.smem])
     return lo, hi
 
 
@@ -227,7 +264,7 @@ def _inv_launch(name, lo, hi, filters, scheme, out_dtype, f, cen, decimated: boo
     if lo.dtype != F32:
         raise ValueError("the banded-product kernels take a float32 low band")
     B, m = lo.shape
-    tp = _device_taps(filters, scheme, lo.device)
+    tp = dual_taps(filters, scheme, lo.device)
     hlen = tp.shape[1]
     check_span(hlen, f)
     pl = inv1d_launch_plan(B, m, hlen, f, scheme, decimated)
@@ -248,8 +285,8 @@ def fwd_level_1d_mxu(x: torch.Tensor, dec_lo, dec_hi, scheme: str, hi_dtype=F32)
     B, n = x.shape
     if n % 2:
         raise ValueError(f"fwd_level_1d_mxu takes an even length, got {n}")
-    return _fwd_launch("fwd_level_1d_mxu", x, (dec_lo, dec_hi), scheme, hi_dtype, n // 2, 1,
-                       conv.fwd_center(len(dec_lo)))
+    return _fwd_launch("fwd_level_1d_mxu", x, (dec_lo, dec_hi), scheme, hi_dtype, 1,
+                       conv.fwd_center(len(dec_lo)), True)
 
 
 def swt_fwd_level_1d_mxu(x: torch.Tensor, dec_lo, dec_hi, level: int, scheme: str,
@@ -258,8 +295,8 @@ def swt_fwd_level_1d_mxu(x: torch.Tensor, dec_lo, dec_hi, level: int, scheme: st
     if on_cpu(x, ndim=2, dtypes=_DT):
         return swt_fwd_level_1d_mxu_ref(x, dec_lo, dec_hi, level, scheme, hi_dtype)
     f = dilation(level)
-    return _fwd_launch("swt_fwd_level_1d_mxu", x, (dec_lo, dec_hi), scheme, hi_dtype,
-                       x.shape[1], f, conv.fwd_center(len(dec_lo)) * f)
+    return _fwd_launch("swt_fwd_level_1d_mxu", x, (dec_lo, dec_hi), scheme, hi_dtype, f,
+                       conv.fwd_center(len(dec_lo)) * f, False)
 
 
 def inv_level_1d_mxu(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, scheme: str,

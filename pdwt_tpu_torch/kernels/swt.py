@@ -43,6 +43,8 @@ import torch
 
 from ..core import conv
 from ._launch import check_span, dilation, launch, on_cpu, ptr, rev, taps
+from .matmul import dual_taps
+from .mxu1d import _half
 
 #: thresh_mode codes of pdwt_swt_inv_level_2d (csrc/swt.cu)
 THRESH_CODES = {None: 0, "soft": 1, "hard": 2, "garrote": 3}
@@ -121,11 +123,10 @@ def swt_inv_level_2d(a, h, v, d, rec_lo, rec_hi, level: int,
         return swt_inv_level_2d_ref(a, h, v, d, rec_lo, rec_hi, level, threshold)
     if not a.shape == h.shape == v.shape == d.shape:
         raise ValueError("the four subbands must have one shape")
-    from .swt_matmul import _inv_taps, swt_inv_launch_plan  # swt_matmul imports this module
+    from .swt_matmul import swt_inv_launch_plan  # swt_matmul imports this module
 
     f = dilation(level)
-    tp = _inv_taps(np.asarray(rec_lo, dtype=np.float64).tobytes(),
-                   np.asarray(rec_hi, dtype=np.float64).tobytes(), "fd", str(a.device))
+    tp = dual_taps((_half(rec_lo), _half(rec_hi)), "fd", a.device)
     hlen = tp.shape[1]
     check_span(hlen, f)
     B, R, C = a.shape

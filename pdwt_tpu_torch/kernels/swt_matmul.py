@@ -37,7 +37,6 @@ from __future__ import annotations
 import functools
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..core import conv
@@ -45,7 +44,7 @@ from ._launch import (COL_STRIP, PLAN_TILES, ROW_STRIP, InvPlan, align16, axis_b
                       block_target, cdiv, check_span, consecutive_columns, dilation, launch,
                       on_cpu, pick_plan, plan_threads, ptr, rev, stage_bytes, temp_pitch)
 from .matmul import (_DT, BF16, F32, MXU_MAX_HLEN, SCHEMES, _check_scheme, _is_bf16,
-                     fwd2d_ref, inv2d_ref, kernel_taps, mode_out_dtypes, swt_bf16_scheme,
+                     dual_taps, fwd2d_ref, inv2d_ref, mode_out_dtypes, swt_bf16_scheme,
                      swt_scheme, tile_candidates)
 from .mxu1d import _half
 from .separable import _c
@@ -119,8 +118,52 @@ def swt_inv_level_2d_mxu_ref(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str
 
 
 # ---------------------------------------------------------------------------
-# launch plan of the inverse kernel (csrc/swt_matmul.cu: swt_inv_mxu_kernel)
+# launch plans of the two kernels (csrc/swt_matmul.cu)
 # ---------------------------------------------------------------------------
+
+#: taps per chunk of the forward's strips (swt_matmul.cu: kFwdCh)
+FWD_CHUNK = 8
+#: the forward's tiles: a wider one first (its halo is the smallest)
+FWD_TILES = ((32, 128),) + PLAN_TILES
+
+
+def _fwd_smem(scheme: str, lr: int, lc: int, dc: int, nt: int, nph: int) -> int:
+    """swt_matmul.cu: fwd_smem -- taps, index tables, the window (the 4 /
+    nph output tiles after the row pass), two temps."""
+    nd, es = stage_bytes(scheme)
+    wr, wc = lr + nt - 1, lc + (nt - 1) * dc
+    tile = 4 * (4 // nph) * lr * (lc + 1)
+    return (16 * nt + align16(4 * (wr + wc)) + align16(max(nd * wr * wc * es, tile))
+            + 2 * nd * lr * temp_pitch(wc, es) * es)
+
+
+@functools.lru_cache(maxsize=256)
+def swt_fwd_launch_plan(B: int, R: int, C: int, hlen: int, f: int, scheme: str) -> InvPlan:
+    """The launch of one a-trous analysis level on a (B, R, C) image.
+    Candidates, largest tile first: lr output rows of one residue class mod
+    f by lc output columns, consecutive or one residue class
+    (``consecutive_columns``); all four output tiles at once (nph = 1) or
+    two at a time; taps padded to nt.  The first that fits two blocks on an
+    SM and gives ``block_target`` blocks, so the deep levels of small
+    images take smaller tiles.  Always 256 threads, as the other analyses
+    on ``band_strip.cuh``."""
+    nt = cdiv(hlen, FWD_CHUNK) * FWD_CHUNK
+    pr = ROW_STRIP[scheme]
+    cands = []
+    for lr, lc in FWD_TILES:
+        if lr % pr:
+            continue
+        gc = 1 if consecutive_columns(f, lc, nt - 1) else f
+        dc = f // gc
+        grid = (cdiv(C, lc) if gc == 1 else axis_blocks(C, f, lc), axis_blocks(R, f, lr),
+                min(B, 65535))
+        if lc % (COL_STRIP * dc) or grid[1] > 65535:
+            continue
+        for nph in (1, 2):
+            cands.append(InvPlan(lr, lc, gc, nph, nt, 256, grid,
+                                 _fwd_smem(scheme, lr, lc, dc, nt, nph)))
+    return pick_plan(cands, block_target(B, R, C))
+
 
 #: taps per chunk of the inverse's strips (swt_matmul.cu: kInvCh)
 INV_CHUNK = 8
@@ -172,23 +215,25 @@ def swt_fwd_level_2d_mxu(x: torch.Tensor, dec_lo, dec_hi, level: int, scheme: st
                          out_dtypes=(F32, F32)):
     """One a-trous analysis level on a (B, R, C) image (float32 or bf16),
     any size and level, under ``scheme`` -> (a, h, v, d), each (B, R, C);
-    a is float32, h, v, d are ``out_dtypes[1]``."""
+    a is float32, h, v, d are ``out_dtypes[1]``.  The CUDA kernel takes
+    filters of up to 128 taps; ``swt_fwd_launch_plan`` picks its tile."""
     if on_cpu(x, dtypes=_DT):
         return swt_fwd_level_2d_mxu_ref(x, dec_lo, dec_hi, level, scheme, out_dtypes)
     _check_scheme(scheme)
     if out_dtypes[0] != F32:
         raise ValueError("the banded-product kernels keep the approximation in float32")
     f = dilation(level)
-    tp = kernel_taps((dec_lo, dec_hi), scheme)
-    hlen = len(tp[0])
+    tp = dual_taps((dec_lo, dec_hi), scheme, x.device)
+    hlen = tp.shape[1]
     check_span(hlen, f)
     B, R, C = x.shape
+    pl = swt_fwd_launch_plan(B, R, C, hlen, f, scheme)
     a = torch.empty(x.shape, device=x.device, dtype=F32)
     dets = [torch.empty(x.shape, device=x.device, dtype=out_dtypes[1]) for _ in range(3)]
     launch("swt_fwd_level_2d_mxu", x.device,
-           [ptr(x), ptr(a), *map(ptr, dets), B, R, C, *map(ptr, tp), hlen, f,
-            conv.fwd_center(hlen), SCHEMES.index(scheme), _is_bf16(x.dtype),
-            _is_bf16(out_dtypes[1])])
+           [ptr(x), ptr(a), *map(ptr, dets), B, R, C, ptr(tp), hlen, f, conv.fwd_center(hlen),
+            SCHEMES.index(scheme), _is_bf16(x.dtype), _is_bf16(out_dtypes[1]), pl.lr, pl.lc,
+            pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
     return (a, *dets)
 
 
@@ -214,8 +259,7 @@ def swt_inv_level_2d_mxu(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str, ou
         raise ValueError("swt_inv_level_2d_mxu takes a float32 approximation and details "
                          "of one dtype")
     f = dilation(level)
-    taps = _inv_taps(np.asarray(rec_lo, dtype=np.float64).tobytes(),
-                     np.asarray(rec_hi, dtype=np.float64).tobytes(), scheme, str(a.device))
+    taps = dual_taps((_half(rec_lo), _half(rec_hi)), scheme, a.device)
     hlen = taps.shape[1]
     check_span(hlen, f)
     B, R, C = a.shape
@@ -228,16 +272,6 @@ def swt_inv_level_2d_mxu(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str, ou
             _is_bf16(out_dtype), THRESH_CODES[mode], None if buf is None else ptr(buf),
             pl.lr, pl.lc, pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
     return out
-
-
-@functools.lru_cache(maxsize=64)
-def _inv_taps(lo_bytes: bytes, hi_bytes: bytes, scheme: str, device: str) -> torch.Tensor:
-    """The inverse kernel's taps on ``device``, (4, hlen) float32: the low
-    filter's first and second values, then the high filter's (``_half`` of
-    each, correlation order), copied there once per filter pair and scheme."""
-    lo, hi = (np.frombuffer(b, dtype=np.float64) for b in (lo_bytes, hi_bytes))
-    tp = kernel_taps((_half(lo), _half(hi)), scheme)
-    return torch.from_numpy(np.stack(tp)).to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Device time per level of the kernels redesigned for Hopper's CUDA cores
 (kernels 14 and 18, the banded-product inverses; kernels 2 and 6, the exact
 inverses; kernels 16 and 17, the batched 1D synthesis and the rank-r
-analysis) at the cells' shapes, for one checkout of the port.
+analysis; kernels 13 and 15, the 2D a-trous and the batched 1D analyses)
+at the cells' shapes, for one checkout of the port.
 
     python3 scripts/inverse_kernel_times.py ROOT
 
@@ -12,16 +13,24 @@ the build time), brings the card's clocks up with a few large products,
 then times with torch.profiler, per call, the device time of these
 kernels' launches at: the TI cell's three levels (db7, 1024^2, soft beta
 10; fd as under bf16-fast and b2f as under bf16-balanced; float32 subbands
-on kernel 6 as under the exact tier), the rank-3 cell's a-trous synthesis
-levels 1-3 (1024^2, fd) and polyphase levels 1-4 (subbands 1024^2 to
-128^2; fd, then b3), the DWT roundtrip's synthesis levels on kernel 2 (db7,
-float32 subbands 1024^2 to 128^2), the rank-3 cell's analysis levels on
-kernel 17 (stride 2: 2048^2 to 256^2 images, b1 on bf16 then b3 on
-float32, bf16 details, as under bf16-fast; stride 1: 1024^2 levels 1-3, b1
-then fd as under bf16-fast, and b2f at every level as under bf16-balanced
-and -accurate) and the batched 1D cells' synthesis levels on kernel 16
-(sym8, 1024 signals; polyphase: bands of 2048 down to 256, fd into bf16
-then b3; a-trous: 4096 samples, levels 1-4, fd, bf16 out at level 1).
+on kernel 6 as under the exact tier; kernel 13 in b1 on a bf16 image at
+level 1 then fd on float32 as under bf16-fast, and b2f at every level as
+under bf16-balanced and -accurate, bf16 details), the rank-3 cell's a-trous
+synthesis levels 1-3 (1024^2, fd) and polyphase levels 1-4 (subbands
+1024^2 to 128^2; fd, then b3), the DWT roundtrip's synthesis levels on
+kernel 2 (db7, float32 subbands 1024^2 to 128^2), the rank-3 cell's
+analysis levels on kernel 17 (stride 2: 2048^2 to 256^2 images, b1 on bf16
+then b3 on float32, bf16 details, as under bf16-fast; stride 1: 1024^2
+levels 1-3, b1 then fd as under bf16-fast, and b2f at every level as under
+bf16-balanced and -accurate) and the batched 1D cells' levels on kernels
+16 and 15 (sym8, 1024 signals; polyphase synthesis: bands of 2048 down to
+256, fd into bf16 then b3; a-trous synthesis: 4096 samples, levels 1-4,
+fd, bf16 out at level 1; decimated analysis: 4096 down to 512 samples in,
+b1 on bf16 then b3 on float32, bf16 high band; a-trous analysis: 4096
+samples, levels 1-4, b1 on bf16 then fd on float32, bf16 high band).
+Beside 13 and 15 it times their PyTorch yardsticks in the same call, by
+CUDA events: the dense-band bf16 ``torch.matmul`` products of
+``chip_smoke.yardstick`` (a pair per 2D level, one per 1D level).
 Prints one line: RESULT ROOT {json}, each level in ms and each pass
 summed.  Imports no JAX.
 """
@@ -67,12 +76,13 @@ for _ in range(50):  # bring the clocks up
 torch.cuda.synchronize()
 
 
-KERNELS = ("inv_mxu", "inv_level", "inv1d", "ns_fwd")
+KERNELS = ("inv_mxu", "inv_level", "inv1d", "ns_fwd", "swt_fwd_mxu", "fwd1d")
 
 
 def dev_ms(fn, reps=30):
     """Device ms per fn() call of the timed kernels' launches (by name:
-    kernel 2's and 6's old and new bodies, 14's, 18's, 16's and 17's)."""
+    kernel 2's and 6's old and new bodies, 14's, 18's, 16's and 17's, 13's
+    and 15's old and new bodies)."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -129,6 +139,25 @@ for lvl in (1, 2, 3, 4):
     out = bf16 if lvl == 1 else f32
     res[f"k16a L{lvl}"] = dev_ms(lambda: M1.swt_inv_level_1d_mxu(lo, hi, w8.rec_lo, w8.rec_hi,
                                                                  lvl, "fd", out))
-for k in ("k14", "k14b", "k18s", "k18p", "k6", "k2", "k17d", "k17s", "k17b", "k16d", "k16a"):
+for lvl, (fast, in_dt) in enumerate((("b1", bf16), ("fd", f32), ("fd", f32)), 1):
+    x = rand(1, 1024, 1024).to(in_dt)
+    res[f"k13 L{lvl} {fast}"] = dev_ms(lambda: SM.swt_fwd_level_2d_mxu(
+        x, w7.dec_lo, w7.dec_hi, lvl, fast, (f32, bf16)))
+    res[f"k13b L{lvl}"] = dev_ms(lambda: SM.swt_fwd_level_2d_mxu(x, w7.dec_lo, w7.dec_hi, lvl,
+                                                                 "b2f", (f32, bf16)))
+    res[f"y13 L{lvl}"] = CS.cuda_ms(CS.yardstick("swt_fwd2d", w7, bf16, lvl)(x))
+for n, sch, in_dt in ((4096, "b1", bf16), (2048, "b3", f32), (1024, "b3", f32), (512, "b3", f32)):
+    x = torch.randn(1024, n, device=dev).to(in_dt)
+    res[f"k15d {n} {sch}"] = dev_ms(lambda: M1.fwd_level_1d_mxu(x, w8.dec_lo, w8.dec_hi, sch,
+                                                                bf16))
+    res[f"y15d {n}"] = CS.cuda_ms(CS.yardstick("fwd", w8, bf16)(x))
+for lvl in (1, 2, 3, 4):
+    sch, in_dt = ("b1", bf16) if lvl == 1 else ("fd", f32)
+    x = torch.randn(1024, 4096, device=dev).to(in_dt)
+    res[f"k15a L{lvl} {sch}"] = dev_ms(lambda: M1.swt_fwd_level_1d_mxu(x, w8.dec_lo, w8.dec_hi,
+                                                                       lvl, sch, bf16))
+    res[f"y15a L{lvl}"] = CS.cuda_ms(CS.yardstick("swt_fwd", w8, bf16, lvl)(x))
+for k in ("k14", "k14b", "k18s", "k18p", "k6", "k2", "k17d", "k17s", "k17b", "k16d", "k16a",
+          "k13", "k13b", "y13", "k15d", "y15d", "k15a", "y15a"):
     res[k + " pass"] = sum(v for n, v in res.items() if n.startswith(k + " ") and v)
 print("RESULT", root, json.dumps({k: round(v, 5) for k, v in res.items()}))

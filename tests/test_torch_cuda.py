@@ -430,9 +430,9 @@ def test_mxu_1d_kernels_match_plain(dev, wname, batch, n, scheme):
 
 @pytest.mark.parametrize("scheme", ["fd", "b3"])
 def test_mxu_1d_kernels_past_shared_memory(dev, scheme):
-    """sym8 at level 12 (dilation 2048): the a-trous analysis stages a
-    window past 48 KB of shared memory; the synthesis, whose consecutive
-    windows would pass the card's limit, takes one residue class."""
+    """sym8 at level 12 (dilation 2048): the a-trous analysis and
+    synthesis, whose consecutive windows would pass the card's shared
+    memory, take one residue class."""
     w = get_wavelet("sym8")
     x = _rand(dev, 2, 5000) * 255
     _close_tier(M1.swt_fwd_level_1d_mxu(x, w.dec_lo, w.dec_hi, 12, scheme),
@@ -1004,3 +1004,129 @@ def test_gradients_flow_through_kernels_15_to_18(dev):
         assert launched >= 1, name
         for g, gcpu in zip(gd, gc):
             _close_tier(g.cpu(), gcpu, 2.0 ** -6, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# kernels 13 and 15, redesigned for Hopper's CUDA cores on band_strip.cuh
+# ---------------------------------------------------------------------------
+
+# the TI tier cell's levels, the small tiles of small images, dilations
+# 2-16 on odd sizes no tile divides and one past the image, a batch of 3,
+# 2 and 40 taps
+FWD13_CASES = [("db7", (1, 1024, 1024), 1), ("db7", (1, 1024, 1024), 3),
+               ("db7", (1, 128, 128), 1), ("db7", (1, 64, 64), 3), ("db7", (1, 301, 203), 2),
+               ("db7", (1, 301, 203), 4), ("db7", (1, 45, 61), 5), ("db7", (1, 37, 53), 7),
+               ("db7", (3, 70, 134), 2), ("haar", (1, 64, 96), 3), ("w40", (1, 200, 150), 1),
+               ("w40", (2, 66, 90), 2)]
+
+
+@pytest.mark.parametrize("scheme", SCHEMES5)
+@pytest.mark.parametrize("wname,shape,level", FWD13_CASES)
+def test_swt_fwd_mxu_redesign_matches_plain(dev, wname, shape, level, scheme):
+    """Kernel 13's launch plans, float32 or bf16 in and details; the
+    b-schemes bit for bit."""
+    w = _long_wavelet(wname)
+    for in_dt in (torch.float32, BF16):
+        x = (_rand(dev, *shape) * 255).to(in_dt)
+        for det in (torch.float32, BF16):
+            got = SM.swt_fwd_level_2d_mxu(x, w.dec_lo, w.dec_hi, level, scheme,
+                                          (torch.float32, det))
+            want = SM.swt_fwd_level_2d_mxu_ref(x, w.dec_lo, w.dec_hi, level, scheme,
+                                               (torch.float32, det))
+            for g, wt in zip(got, want):
+                _exact_or_tier(g, wt, scheme)
+
+
+# the cells' levels (decimated 4096 down to 512 samples, a-trous levels 1-4
+# of 4096), the deep levels' short tiles, dilations 2-16 on lengths no tile
+# divides, one of thousands (one residue class), a batch of 3, 2 and 40 taps
+FWD15_CASES = [("sym8", (1024, 4096), None), ("sym8", (1024, 512), None),
+               ("sym8", (1024, 4096), 1), ("sym8", (1024, 4096), 8), ("sym8", (64, 256), None),
+               ("sym8", (3, 101), 2), ("sym8", (3, 101), 4), ("sym8", (35, 777), 16),
+               ("sym8", (2, 5000), 2048), ("haar", (3, 78), None), ("haar", (40, 300), 8),
+               ("w40", (3, 90), None), ("w40", (2, 301), 2), ("db2", (2, 6), 8)]
+
+
+@pytest.mark.parametrize("scheme", SCHEMES5)
+@pytest.mark.parametrize("wname,shape,f", FWD15_CASES)
+def test_fwd1d_mxu_redesign_matches_plain(dev, wname, shape, f, scheme):
+    """Kernel 15's launch plans, decimated (f None) and a-trous, float32 or
+    bf16 in and high band; the b-schemes bit for bit."""
+    w = _long_wavelet(wname)
+    for in_dt in (torch.float32, BF16):
+        x = (_rand(dev, *shape) * 255).to(in_dt)
+        for hdt in (torch.float32, BF16):
+            if f is None:
+                got = M1.fwd_level_1d_mxu(x, w.dec_lo, w.dec_hi, scheme, hdt)
+                want = M1.fwd_level_1d_mxu_ref(x, w.dec_lo, w.dec_hi, scheme, hdt)
+            else:
+                lv = f.bit_length()
+                got = M1.swt_fwd_level_1d_mxu(x, w.dec_lo, w.dec_hi, lv, scheme, hdt)
+                want = M1.swt_fwd_level_1d_mxu_ref(x, w.dec_lo, w.dec_hi, lv, scheme, hdt)
+            for g, wt in zip(got, want):
+                _exact_or_tier(g, wt, scheme)
+
+
+def test_redesigned_13_15_refuse_a_bad_launch_plan(dev, monkeypatch):
+    """The entry points of kernels 13 and 15 check the plan they are given."""
+    w7, w8 = get_wavelet("db7"), get_wavelet("sym8")
+    x = _rand(dev, 1, 64, 64)
+    for f in (1, 4):
+        good = SM.swt_fwd_launch_plan(1, 64, 64, 14, f, "b3")
+        for bad in (good._replace(smem=good.smem + 16), good._replace(lr=good.lr + 1),
+                    good._replace(grid=(good.grid[0] + 1, *good.grid[1:])),
+                    good._replace(threads=48), good._replace(nt=4), good._replace(gc=3),
+                    good._replace(lc=good.lc + 8)):
+            monkeypatch.setattr(SM, "swt_fwd_launch_plan", lambda *a, bad=bad: bad)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                SM.swt_fwd_level_2d_mxu(x, w7.dec_lo, w7.dec_hi, f.bit_length(), "b3")
+    s = _rand(dev, 32, 512)
+    for f, dec in ((1, True), (2, False)):
+        good = M1.fwd1d_launch_plan(32, 512, 16, f, "b3", dec)
+        for bad in (good._replace(smem=good.smem + 16), good._replace(lc=good.lc + 1),
+                    good._replace(grid=(good.grid[0] + 1, *good.grid[1:])),
+                    good._replace(threads=48), good._replace(nt=12),
+                    good._replace(grid=(*good.grid[:2], 2))):
+            monkeypatch.setattr(M1, "fwd1d_launch_plan", lambda *a, bad=bad: bad)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                if dec:
+                    M1.fwd_level_1d_mxu(s, w8.dec_lo, w8.dec_hi, "b3")
+                else:
+                    M1.swt_fwd_level_1d_mxu(s, w8.dec_lo, w8.dec_hi, 2, "b3")
+
+
+@pytest.mark.parametrize("mode", ["mixed", "bf16"])
+def test_gradients_flow_through_kernels_13_and_15(dev, mode):
+    """Under both MXU modes: the forwards 13 and 15 and, in the backwards
+    of their partners 14 and 16 (decimated and a-trous, the fused denoise
+    too), the new kernels themselves; gradients on the card against the
+    CPU's, and the launches of each backward's kernel.  Under ``bf16`` a
+    float32 gradient is held to 2^-6 too: an fd pass's FMA can flip one
+    bf16 rounding of a forward output, and the gradient carries it."""
+    w7, w8 = get_wavelet("db7"), get_wavelet("sym8")
+    dt = BF16 if mode == "bf16" else torch.float32
+    x = (_rand(dev, 1, 64, 96) * 10).to(dt)
+    q = [_rand(dev, 1, 64, 96, seed=k) * 10 for k in range(4)]
+    s = (_rand(dev, 32, 512) * 10).to(dt)
+    b1 = [_rand(dev, 32, 256) * 10, _rand(dev, 32, 256, seed=1) * 10]
+    b2 = [_rand(dev, 32, 512) * 10, _rand(dev, 32, 512, seed=1) * 10]
+    cases = [
+        (lambda t: SM.swt_fwd_level_2d_mxu_ad(t, w7.dec_lo, w7.dec_hi, 2, mode), [x],
+         "swt_inv_level_2d_mxu"),
+        (lambda *b: SM.swt_inv_level_2d_mxu_ad(*b, w7.rec_lo, w7.rec_hi, 2, mode), q,
+         "swt_fwd_level_2d_mxu"),
+        (lambda *b: SM.swt_inv_level_2d_mxu_denoise_ad(*b, 3.0, w7.rec_lo, w7.rec_hi, 1, mode,
+                                                       "soft"), q, "swt_fwd_level_2d_mxu"),
+        (lambda t: M1.fwd_level_1d_mxu_ad(t, w8.dec_lo, w8.dec_hi, mode), [s],
+         "inv_level_1d_mxu"),
+        (lambda a, b: M1.inv_level_1d_mxu_ad(a, b, w8.rec_lo, w8.rec_hi, mode), b1,
+         "fwd_level_1d_mxu"),
+        (lambda t: M1.swt_fwd_level_1d_mxu_ad(t, w8.dec_lo, w8.dec_hi, 3, mode), [s],
+         "swt_inv_level_1d_mxu"),
+        (lambda a, b: M1.swt_inv_level_1d_mxu_ad(a, b, w8.rec_lo, w8.rec_hi, 3, mode), b2,
+         "swt_fwd_level_1d_mxu")]
+    for fn, inputs, name in cases:
+        (gd, gc), launched = _grads_and_launches(fn, inputs, name)
+        assert launched >= 1, name
+        for g, gcpu in zip(gd, gc):
+            _close_tier(g.cpu(), gcpu, 2.0 ** -6, 2.0 ** -6 if mode == "bf16" else 1e-4)
