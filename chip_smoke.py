@@ -61,17 +61,20 @@ and 18: ``swt_inv_level_2d_mxu``, ``ns_inv_level_2d_mxu``,
 ``ns_swt_inv_level_2d_mxu``; then kernels 16 and 17: ``inv_level_1d_mxu``,
 ``swt_inv_level_1d_mxu``, ``ns_fwd_level_2d_mxu``,
 ``ns_swt_fwd_level_2d_mxu``; then kernels 13 and 15:
-``swt_fwd_level_2d_mxu``, ``fwd_level_1d_mxu``, ``swt_fwd_level_1d_mxu``)
-are held bit for bit to their plain versions in the b-schemes (``fd``
-within ``tier_limit``), also on the code paths of their launch plans
-(dilations 2-16 on sizes no tile divides and past the image or signal, odd
-sizes, the deep levels' small tiles, a batch of 3, ranks 1 and 4, 2 to 42
-taps for 14 and 18, 2 to 40 for 13, 15 and 17, 2 to 128 for 16, every
-threshold); the
-exact-path inverses (kernels 2 and 6: ``inv_level_2d``,
-``swt_inv_level_2d``, which runs kernel 14's body in ``fd`` on float32
-subbands) within ``KERNEL_RTOL`` on theirs (every tile size, 2 to 128
-taps, odd too, 8 x 8 subbands, dilations 2-16 on sizes no tile divides,
+``swt_fwd_level_2d_mxu``, ``fwd_level_1d_mxu``, ``swt_fwd_level_1d_mxu``;
+then kernel 12: ``inv_level_2d_mxu``, which runs kernel 2's body in the
+scheme) are held bit for bit to their plain versions in the b-schemes
+(``fd`` within ``tier_limit``), also on the code paths of their launch
+plans (dilations 2-16 on sizes no tile divides and past the image or
+signal, odd sizes, the deep levels' small tiles, 37 x 53 and 1 x 1
+subbands, a batch of 3, ranks 1 and 4, 2 to 42 taps for 14 and 18, 2 to 40
+for 12, 13, 15 and 17, 2 to 128 for 16, every threshold); the exact-path
+inverses (kernels 2, 6 and 10: ``inv_level_2d``, ``swt_inv_level_2d``,
+which runs kernel 14's body in ``fd`` on float32 subbands, and
+``swt_inv_level_1d``, which runs kernel 16's a-trous body in ``fd`` on
+float32 bands) within ``KERNEL_RTOL`` on theirs (every tile size, 2 to 128
+taps, odd too, 8 x 8 subbands, dilations 2-16 on sizes no tile divides and
+up to 4096 past the signal, signals of 1 and 7 samples, a batch of 33,
 every threshold).  Each timed launch of these redesigned kernels prints
 its device time beside its bound.
 
@@ -195,11 +198,15 @@ REPLACES = {
 
 
 def _source(name: str) -> str:
+    """The file that holds the kernel's body (kernel 6 runs 14's, 12 runs
+    2's, 10 runs 16's)."""
     if name.startswith("ns_"):
         return "ns_matmul.cu"
-    if name.endswith("_2d_mxu") or name == "swt_inv_level_2d":  # kernel 6 runs 14's body
+    if name == "inv_level_2d_mxu":
+        return "separable.cu"
+    if name.endswith("_2d_mxu") or name == "swt_inv_level_2d":
         return "swt_matmul.cu" if name.startswith("swt") else "matmul.cu"
-    if name.endswith("_mxu"):
+    if name.endswith("_mxu") or name == "swt_inv_level_1d":
         return "mxu1d.cu"
     if name.endswith("_1d"):
         return "batched1d.cu"
@@ -318,12 +325,12 @@ def scheme_limit(scheme: str) -> Callable:
 
 
 # the kernels redesigned for Hopper's CUDA cores (kernels 14 and 18, then 2
-# and 6, then 16 and 17, then 13 and 15): each timed launch's device time is
-# printed beside its bound
+# and 6, then 16 and 17, then 13 and 15, then 12 and 10): each timed launch's
+# device time is printed beside its bound
 REDESIGNED = ("swt_inv_level_2d_mxu", "ns_inv_level_2d_mxu", "ns_swt_inv_level_2d_mxu",
               "inv_level_2d", "swt_inv_level_2d", "inv_level_1d_mxu", "swt_inv_level_1d_mxu",
               "ns_fwd_level_2d_mxu", "ns_swt_fwd_level_2d_mxu", "swt_fwd_level_2d_mxu",
-              "fwd_level_1d_mxu", "swt_fwd_level_1d_mxu")
+              "fwd_level_1d_mxu", "swt_fwd_level_1d_mxu", "inv_level_2d_mxu", "swt_inv_level_1d")
 
 
 def run_cases(cases, report, card) -> None:
@@ -821,6 +828,23 @@ def main() -> None:
         x1 = randn(*shape)
         dwt1d_cases(w, x1, False)
         swt1d_cases(w, x1, levels, False)
+    # kernel 10 on kernel 16's a-trous body: 3 (odd), 64 and 128 taps,
+    # dilations past the signal, 1 and 7 samples, a batch of 33 (inputs from
+    # a generator of their own: the later phases' inputs stay as they were)
+    odd3 = make_custom_wavelet("odd3", *np.random.default_rng(3).standard_normal((4, 3)))
+    w64 = make_custom_wavelet("w64", *np.random.default_rng(64).standard_normal((4, 64)))
+    g10 = torch.Generator(device=dev).manual_seed(10)
+    for w, shape, levels in [(odd3, (33, 7), (1, 4)), (w64, (2, 300), (1, 3)),
+                             (w128, (3, 90), (1, 2)), (w128, (1, 7), (13,)),
+                             (get_wavelet("db2"), (33, 1), (1, 3)), (w64, (33, 100), (8,))]:
+        bands = [torch.randn(shape, device=dev, generator=g10) for _ in range(2)]
+        for level in levels:
+            b1_cases.append(Case("swt_inv_level_1d", bands,
+                                 lambda b, w=w, lv=level: K1.swt_inv_level_1d(*b, w.rec_lo,
+                                                                              w.rec_hi, lv),
+                                 lambda b, w=w, lv=level: K1.swt_inv_level_1d_ref(*b, w.rec_lo,
+                                                                                  w.rec_hi, lv),
+                                 f"{w.name} bands {shape} level {level}"))
     run_cases(b1_cases, report, card)
 
     # -- the batched 1D path, as a user drives it: the batch and one signal,
@@ -1025,8 +1049,8 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
                      lambda b, s=sch, o=out: M.inv_level_2d_mxu(*b, rlo, rhi, s, o),
                      lambda b, s=sch, o=out: M.inv_level_2d_mxu_ref(*b, rlo, rhi, s, o),
                      f"{tier} level {i + 1} {sch} {det} details, {out} out, subbands {(m, m)}",
-                     True, flops_2d(2 * m, 2 * m, h7, TERMS[sch]), scheme_peak(sch), tier_limit,
-                     lib_i2 if row else None, row),
+                     True, flops_2d(2 * m, 2 * m, h7, TERMS[sch]), scheme_peak(sch),
+                     scheme_limit(sch), lib_i2 if row else None, row),
                 (tier if row else "", "i", i, sch, det, out))
         # batched 1D, decimated: levels 1-4 each way
         n = B1_N
@@ -1095,7 +1119,7 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
                               lambda b, s=sch: M.inv_level_2d_mxu(*b, rlo, rhi, s, f32),
                               lambda b, s=sch: M.inv_level_2d_mxu_ref(*b, rlo, rhi, s, f32),
                               f"{sch} {in_dt} details, subbands {(shape[0], *m)}",
-                              limit=tier_limit))
+                              limit=scheme_limit(sch)))
         # (2, 5000) at level 12: one residue class of a dilation of 2048
         for w, (b, n), lvl in ((w8, (3, 202), 3), (get_wavelet("db3"), (5, 1000), 2),
                                (get_wavelet("db2"), (2, 6), 4), (w8, (2, 5000), 12)):
@@ -1189,6 +1213,23 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
                 lambda t, w=w, s=sch, d=hdt, lv=lvl: M1.swt_fwd_level_1d_mxu_ref(
                     t, w.dec_lo, w.dec_hi, lv, s, d),
                 f"{label} level {lvl}", limit=scheme_limit(sch)))
+    # kernel 12 on kernel 2's body: every scheme, 37 x 53 and 1 x 1 subbands,
+    # a batch of 3, 2 and 40 taps, float32 and bf16 details and outputs
+    haar2 = get_wavelet("haar")
+    g12 = torch.Generator(device=dev).manual_seed(12)
+    for sch in M.SCHEMES:
+        for w, shape, det, out in [(haar2, (3, 37, 53), f32, f32), (w40, (1, 37, 53), bf16, bf16),
+                                   (w40, (3, 1, 1), f32, bf16), (haar2, (1, 1, 1), bf16, f32)]:
+            bands = [torch.rand(shape, device=dev, generator=g12) * 255.0]
+            bands += [((torch.rand(shape, device=dev, generator=g12) - 0.5) * 255.0).to(det)
+                      for _ in range(3)]
+            cases.append(Case(
+                "inv_level_2d_mxu", bands,
+                lambda b, w=w, s=sch, o=out: M.inv_level_2d_mxu(*b, w.rec_lo, w.rec_hi, s, o),
+                lambda b, w=w, s=sch, o=out: M.inv_level_2d_mxu_ref(*b, w.rec_lo, w.rec_hi, s,
+                                                                     o),
+                f"{w.name} {sch} {det} details, {out} out, subbands {shape}",
+                limit=scheme_limit(sch)))
     run_cases(cases, report, card)
 
     # ---------------- (b) and (c): the tiers through the entry points ----------------

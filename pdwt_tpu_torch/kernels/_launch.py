@@ -67,16 +67,42 @@ def taps(f) -> np.ndarray:
     return np.ascontiguousarray(f[::-1], dtype=np.float32)
 
 
+def scheme_taps(f, scheme: str) -> Tuple[np.ndarray, np.ndarray]:
+    """The (first, second) taps of a compute scheme (kernels/matmul.py) in
+    forward convention, float64 arrays that hold float32 values: (f32(f),
+    0) for fd, else the bf16 split (f_h, f_l) of f32(f)."""
+    f32 = torch.tensor(np.asarray(f, dtype=np.float64)).float()
+    if scheme == "fd":
+        return f32.double().numpy(), np.zeros(len(f32))
+    hi = f32.to(torch.bfloat16).float()
+    lo = (f32 - hi).to(torch.bfloat16).float()
+    return hi.double().numpy(), lo.double().numpy()
+
+
+def kernel_taps(filters: Sequence, scheme: str):
+    """Correlation-order float32 (first, second) taps of each filter for
+    the kernels, kept alive by the caller."""
+    out = []
+    for f in filters:
+        t1, t2 = scheme_taps(f, scheme)
+        out.extend((taps(t1), taps(t2)))
+    return out
+
+
 @functools.lru_cache(maxsize=64)
-def _taps_on(raw: bytes, rows: int, device: str) -> torch.Tensor:
-    return torch.frombuffer(bytearray(raw), dtype=torch.float32).reshape(rows, -1).to(device)
+def _dual_taps_on(lo: bytes, hi: bytes, scheme: str, device: str) -> torch.Tensor:
+    filters = [np.frombuffer(f, dtype=np.float64) for f in (lo, hi)]
+    return torch.from_numpy(np.stack(kernel_taps(filters, scheme))).to(device)
 
 
-def device_taps(filters: Sequence, device: torch.device) -> torch.Tensor:
-    """``taps`` of each filter as one row of a float32 tensor on ``device``,
-    copied there once per filter set."""
-    tp = np.stack([taps(f) for f in filters])
-    return _taps_on(tp.tobytes(), len(tp), str(device))
+def dual_taps(filters, scheme: str, device) -> torch.Tensor:
+    """A filter pair's taps as the kernels on ``band_strip.cuh`` read them:
+    (4, hlen) float32 on ``device``, the low filter's first and second
+    values, then the high filter's, correlation order.  Copied there once
+    per filter pair and scheme; the key is the taps themselves, since the
+    backwards pass reversed and rescaled ones."""
+    lo, hi = (np.asarray(f, dtype=np.float64) for f in filters)
+    return _dual_taps_on(lo.tobytes(), hi.tobytes(), scheme, str(device))
 
 
 def ptr(a) -> ctypes.c_void_p:

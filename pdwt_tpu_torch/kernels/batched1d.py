@@ -16,7 +16,9 @@ wrapper                computes                                  plain version
 A wrapper given a CPU tensor returns its plain version, built on
 ``core/conv.py``; given a CUDA tensor it launches its kernel or raises.
 Each launch adds one to ``LAUNCHES[<wrapper name>]``.  The kernels take
-any batch, length, filter length (odd included) and dilation.
+any batch, length, filter length (odd included) and dilation.  The a-trous
+synthesis runs kernel 16's a-trous body (``csrc/mxu1d.cu``) in the ``fd``
+scheme on float32 bands, on ``mxu1d.inv1d_launch_plan``'s plan.
 
 Filters are forward-convention float64 arrays.  A 1D a-trous synthesis is
 one pass, so the wrapper folds ONE 1/2 into the inverse's taps
@@ -36,7 +38,8 @@ import numpy as np
 import torch
 
 from ..core import conv
-from ._launch import check_span, dilation, launch, on_cpu, poly_geo, ptr, rev, taps
+from ._launch import check_span, dilation, dual_taps, launch, on_cpu, poly_geo, ptr, rev, taps
+from .mxu1d import inv1d_launch_plan
 
 
 def _half(f) -> np.ndarray:
@@ -137,13 +140,15 @@ def swt_inv_level_1d(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi,
     if on_cpu(lo, hi, ndim=2):
         return swt_inv_level_1d_ref(lo, hi, rec_lo, rec_hi, level)
     f = dilation(level)
-    tl, th = taps(_half(rec_lo)), taps(_half(rec_hi))
-    check_span(len(tl), f)
     B, n = _pair_shape(lo, hi)
+    tp = dual_taps((_half(rec_lo), _half(rec_hi)), "fd", lo.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
+    pl = inv1d_launch_plan(B, n, hlen, f, "fd", False)
     out = torch.empty_like(lo)
     launch("swt_inv_level_1d", lo.device,
-           [ptr(lo), ptr(hi), ptr(out), B, n, ptr(tl), ptr(th), len(tl), f,
-            conv.swt_inv_center(len(tl)) * f])
+           [ptr(lo), ptr(hi), ptr(out), B, n, ptr(tp), hlen, f, conv.swt_inv_center(hlen) * f,
+            pl.lc, pl.gc, pl.nt, pl.threads, *pl.grid, pl.smem])
     return out
 
 

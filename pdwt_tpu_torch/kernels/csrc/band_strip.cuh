@@ -2,8 +2,9 @@
 // cores: the banded-product inverses (swt_matmul.cu's swt_inv_mxu_kernel,
 // ns_matmul.cu's ns_inv_mxu_kernel, mxu1d.cu's inv1d_strip_kernel), the
 // banded-product analyses (swt_matmul.cu's swt_fwd_mxu_kernel, mxu1d.cu's
-// fwd1d_strip_kernel, ns_matmul.cu's ns_fwd_mxu_kernel) and the exact
-// inverse of separable.cu.
+// fwd1d_strip_kernel, ns_matmul.cu's ns_fwd_mxu_kernel) and the polyphase
+// inverse of separable.cu (the exact kernel 2 and, in the tiers' schemes,
+// kernel 12).
 //
 // A thread computes a strip of P outputs of one filtered line (along the
 // window's rows or columns, at a step xs between samples; OS samples apart,
@@ -132,6 +133,10 @@ __device__ __forceinline__ int dual_tap(int e, int nt, int hlen) {
 
 // Sources of up to four bands, float32 or bf16 (bit k of `bf16` set: band k
 // is bf16); passed by value, so an unrolled band index stays in registers.
+// Built from constant flags at the call site (one inlined staging per
+// storage type), the type test folds away; a flag known only at run time is
+// tested at every load and keeps fewer loads in flight (it cost kernels 2,
+// 10 and 16 5-16 % on an H100, PERF.md section 6).
 struct Bands {
   const void* p[4];
   unsigned bf16;

@@ -1,14 +1,19 @@
 // Batched 1D wavelet kernels for Hopper (sm_90a), with a plain C interface
 // loaded through ctypes (pdwt_tpu_torch/kernels/_build.py, which links this
-// file with separable.cu and swt.cu into one library).
+// file with the other sources into one library).
 //
-// Four kernels, one per Pallas kernel of the batched 1D part of
+// The kernels of the four Pallas kernels of the batched 1D part of
 // pdwt_tpu/kernels/swt_pallas.py:
 //
 //   fwd_level_1d_kernel      <- _make_1d_fwd_kernel      (swt_pallas.py:395)
 //   inv_level_1d_kernel      <- _make_1d_inv_kernel      (swt_pallas.py:455)
 //   swt_fwd_level_1d_kernel  <- _make_swt1d_fwd_kernel   (swt_pallas.py:528)
-//   swt_inv_level_1d_kernel  <- _make_swt1d_inv_kernel   (swt_pallas.py:593)
+//   mxu1d.cu: inv1d_strip_kernel<FD, 1>
+//                            <- _make_swt1d_inv_kernel   (swt_pallas.py:593)
+//
+// The a-trous synthesis (kernel 10) runs kernel 16's a-trous body in the fd
+// scheme on float32 bands (see its entry point below); the notes on layout
+// and bound here are the other three's.
 //
 // Every kernel filters along the last axis of a (B, N) batch of signals.
 // Index spec (pdwt_tpu_torch/core/conv.py, the same as pdwt_tpu/core/conv.py),
@@ -226,25 +231,6 @@ swt_fwd_level_1d_kernel(const float* __restrict__ x, float* __restrict__ lo,
   hi[o] = h;
 }
 
-// ---------------------------------------------------------------------------
-// A-trous synthesis level.  Replaces _make_swt1d_inv_kernel (swt_pallas.py:593).
-// out[n] sums the lo band's dilated FIR, then the hi band's, read as in the
-// analysis kernel.  The wrapper has folded the one 1/2 of a 1D synthesis into
-// the taps.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NT)
-swt_inv_level_1d_kernel(const float* __restrict__ lo, const float* __restrict__ hi,
-                        float* __restrict__ out, int B, int N, int hlen, int f, int cen,
-                        int ntile, const __grid_constant__ Taps taps) {
-  const Place pl = place(ntile);
-  const int n = pl.pos0 + threadIdx.x;
-  if (pl.row >= B || n >= N) return;
-  const size_t r = (size_t)pl.row * N;
-  const long long k0 = (long long)n - cen;
-  const float acc = fir(lo + r, N, k0, f, hlen, taps.lo, 0, 1, 0.f);
-  out[r + n] = fir(hi + r, N, k0, f, hlen, taps.hi, 0, 1, acc);
-}
-
 Taps make_taps(const float* lo, const float* hi, int hlen) {
   Taps t = {};
   for (int i = 0; i < hlen; ++i) {
@@ -319,15 +305,28 @@ extern "C" int pdwt_swt_fwd_level_1d(const float* x, float* lo, float* hi, int B
   return cudaGetLastError();
 }
 
-// `cen` is the dilated center: swt_inv_center(hlen) * f.
-extern "C" int pdwt_swt_inv_level_1d(const float* lo, const float* hi, float* out, int B,
-                                     int N, const float* taps_lo, const float* taps_hi,
-                                     int hlen, int f, int cen, void* stream) {
-  if (f < 1) return cudaErrorInvalidValue;
-  Geometry g;
-  cudaError_t e = geometry(B, N, hlen, &g);
-  if (e != cudaSuccess) return e;
-  swt_inv_level_1d_kernel<<<g.grid, g.block, 0, (cudaStream_t)stream>>>(
-      lo, hi, out, B, N, hlen, f, cen, g.ntile, make_taps(taps_lo, taps_hi, hlen));
-  return cudaGetLastError();
+// Kernel 10 runs kernel 16's a-trous body (mxu1d.cu: inv1d_strip_kernel<FD,
+// 1>) in the fd scheme on float32 bands and a float32 output: every output
+// sums the low taps on the low band, then the high taps on the high band,
+// each one FMA in tap order into one float32 sum, as the direct kernel this
+// replaces did (the zero taps that pad the filter to the strip's chunk leave
+// the sum as it is).
+extern "C" int pdwt_swt_inv_level_1d_mxu(const float* lo, const void* hi, void* out, int B, int M,
+                                         const float* taps, int hlen, int f, int cen,
+                                         const int* geo, int scheme, int hi_bf16, int out_bf16,
+                                         int lc, int gc, int nt, int threads, int gx, int gy,
+                                         int gz, int smem, void* stream);
+
+// `taps` is the (4, hlen) float32 device buffer of kernels/_launch.py:
+// dual_taps in fd of the halved filters (the second values 0); `cen` is the
+// dilated center, swt_inv_center(hlen) * f; the launch plan is
+// kernels/mxu1d.py:inv1d_launch_plan's (fd, a-trous), checked by the entry
+// point it calls.
+extern "C" int pdwt_swt_inv_level_1d(const float* lo, const float* hi, float* out, int B, int N,
+                                     const float* taps, int hlen, int f, int cen, int lc, int gc,
+                                     int nt, int threads, int gx, int gy, int gz, int smem,
+                                     void* stream) {
+  const int fd = 1;  // the scheme's index in kernels/matmul.py:SCHEMES
+  return pdwt_swt_inv_level_1d_mxu(lo, hi, out, B, N, taps, hlen, f, cen, nullptr, fd, 0, 0, lc,
+                                   gc, nt, threads, gx, gy, gz, smem, stream);
 }

@@ -175,7 +175,9 @@ fwd1d_strip_kernel(const void* __restrict__ x, float* __restrict__ lo, void* __r
 // read around the first staging.  The plan (kernels/mxu1d.py:
 // inv1d_launch_plan) picks lc and gc, and the entry point refuses a plan
 // that does not add up.  The window never grows with f past 1.4x, so no
-// level needs a kernel that reads past shared memory.
+// level needs a kernel that reads past shared memory.  Kernel 10, the exact
+// a-trous synthesis (batched1d.cu: pdwt_swt_inv_level_1d), runs the a-trous
+// instance in fd on float32 bands.
 // ---------------------------------------------------------------------------
 // taps per chunk of the strips: 8 for the a-trous synthesis (16 taps for
 // sym8), 4 for the polyphase one (the parities' tables are 9 long for sym8)
@@ -230,12 +232,18 @@ inv1d_strip_kernel(const float* __restrict__ lo, const void* __restrict__ hi,
     const int bb = j - ((q ? o1 : o0) - omin);
     return bb >= 0 && bb < g.nb[q] ? row + g.p[q] + 2 * bb : -1;
   };
-  const Bands bands = {{lo, hi}, hi_bf16 ? 2u : 0u};
   const int ngroups = (B + kRows - 1) / kRows;
   const int Nout = NPH * M;
   for (int grp = blockIdx.y; grp < ngroups; grp += gridDim.y) {
     const long long row0 = (long long)grp * kRows;
-    auto stage_win = [&] { stage_lines<S, 2>(bands, row0, B, M, cols, W, win, LP, BS); };
+    // one staging per type of the high band, each with the type a constant
+    // (band_strip.cuh: Bands)
+    auto stage_win = [&] {
+      if (hi_bf16)
+        stage_lines<S, 2>(Bands{{lo, hi}, 2u}, row0, B, M, cols, W, win, LP, BS);
+      else
+        stage_lines<S, 2>(Bands{{lo, hi}, 0u}, row0, B, M, cols, W, win, LP, BS);
+    };
     if (grp == (int)blockIdx.y)
       fill_around(t1, 2 * NPH * 2 * nt, taps, tap, stage_win);
     else
@@ -310,7 +318,7 @@ cudaError_t launch_inv(const float* lo, const void* hi, void* out, int B, int M,
                        int gy, int gz, int smem, void* stream) {
   if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || M < 1 || f < 1 || (DECIM && f != 1))
     return cudaErrorInvalidValue;
-  const Poly g = make_poly(geo);
+  const Poly g = DECIM ? make_poly(geo) : Poly{};
   int need = hlen;  // taps the plan must hold on the common origin
   if (DECIM) {
     const int o0 = g.lo + g.o[0], o1 = g.lo + g.o[1], omin = o0 < o1 ? o0 : o1;

@@ -1,5 +1,6 @@
-// The compute schemes of the precision tiers, shared by matmul.cu (2D),
-// mxu1d.cu (batched 1D), swt_matmul.cu (2D a-trous) and ns_matmul.cu (rank-r
+// The compute schemes of the precision tiers, shared by matmul.cu and
+// separable.cu (2D; kernel 12 runs separable.cu's synthesis), mxu1d.cu
+// (batched 1D), swt_matmul.cu (2D a-trous) and ns_matmul.cu (rank-r
 // non-separable); swt.cu takes the thresholds and the periodic index from here
 // too.  The scheme table is pdwt_tpu_torch/kernels/matmul.py's:
 //
@@ -158,17 +159,6 @@ cudaError_t with_scheme(int scheme, F&& f) {
     case B3: return f(std::integral_constant<int, B3>{});
     default: return cudaErrorInvalidValue;
   }
-}
-
-template <typename T>
-__device__ __forceinline__ void store_pair(T* p, float x, float y);
-template <>
-__device__ __forceinline__ void store_pair<float>(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-template <>
-__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 // The block's copy of the taps, one float4 (lo1, lo2, hi1, hi2) per tap, in

@@ -4,7 +4,9 @@
 // Four kernels, one per Pallas kernel of pdwt_tpu/kernels/separable_pallas.py:
 //
 //   fwd_level_kernel  <- _make_fwd_kernel       (separable_pallas.py:234)
-//   inv_level_kernel  <- _make_inv_kernel       (separable_pallas.py:385)
+//   inv_level_kernel  <- _make_inv_kernel       (separable_pallas.py:385),
+//                        and _inv_mxu_kernel (matmul_pallas.py:360) in the
+//                        precision tiers' compute schemes (kernel 12)
 //   fwd_tail_kernel   <- _make_tail_fwd_kernel  (separable_pallas.py:576)
 //   inv_tail_kernel   <- _make_tail_inv_kernel  (separable_pallas.py:648)
 //
@@ -133,29 +135,38 @@ fwd_level_kernel(const float* __restrict__ x, float* __restrict__ a,
 }
 
 // ---------------------------------------------------------------------------
-// Inverse level.  Replaces _make_inv_kernel (separable_pallas.py:385).  Bound:
-// device memory, as the forward level: the four subbands are read once and the
-// image written once (32 MiB at 1024^2 subbands, 10 us at 3.35 TB/s); the 2
-// hlen multiply-adds per output of each pass take about a third of that at the
-// float32 rate.  Redesigned for Hopper's CUDA cores on band_strip.cuh, as
-// kernel 18's polyphase synthesis (ns_matmul.cu; its body would sum all four
-// subbands into each temp, twice this row pass's work, and takes 40 taps at
-// most): a block owns lr x lc subband positions, and its launch plan
+// Inverse level.  Replaces _make_inv_kernel (separable_pallas.py:385) and,
+// in the compute schemes of the precision tiers, _inv_mxu_kernel
+// (matmul_pallas.py:360; matmul.cu's entry pdwt_inv_level_2d_mxu).  Bound:
+// device memory, as the forward level: the four subbands are read once and
+// the image written once (32 MiB at 1024^2 float32 subbands, 10 us at 3.35
+// TB/s); the 2 hlen multiply-adds per output of each pass take about a third
+// of that at the float32 rate (b3: three terms, as much as the bytes).
+// Redesigned for Hopper's CUDA cores on band_strip.cuh, as kernel 18's
+// polyphase synthesis (ns_matmul.cu; its body would sum all four subbands
+// into each temp, twice this row pass's work, and takes 40 taps at most): a
+// block owns lr x lc subband positions, and its launch plan
 // (kernels/separable.py:inv_level_launch_plan) shrinks the tile on the deep
-// levels so that they still get about two blocks per SM.  Per batch item: stage
-// the windows of the four subbands (lr + offmax + nt - 1 rows by lc + offmax +
-// nt - 1 columns, wrapped through 32-bit index tables, 16 loads per thread in
-// flight, the taps read around the first staging); along the rows, each thread
-// takes a strip of kRowStrip subband rows of one window column and, per output
-// parity q, sums the low taps on A then the high taps on H (on V then D) into
-// the temp of (A, H) (of (V, D)), rows 2 (r0 + i) + q; along the columns, each
-// thread takes a strip of kColStrip positions of one temp row and, per parity,
-// sums the low taps on the first temp then the high taps on the second into a
-// float tile of 2 lr x 2 lc outputs, written out with lanes along the columns.
-// Parity q's taps p_q + 2 b (b < nb_q) of each filter are one zero-padded table
-// of nt taps (a multiple of kInvCh), read as float4 broadcasts.  The polyphase
-// form reads no stuffed zeros; the entry point refuses a plan that does not add
-// up.
+// levels so that they still get about two blocks per SM.  Per batch item:
+// stage the windows of the four subbands (lr + offmax + nt - 1 rows by lc +
+// offmax + nt - 1 columns, wrapped through 32-bit index tables, 16 loads per
+// thread in flight, the taps read around the first staging, split into the
+// scheme's operands; H, V, D float32 or bf16); along the rows, each thread
+// takes a strip of kRowStrip subband rows of one window column and, per
+// output parity q, sums the low taps on A then the high taps on H (on V then
+// D) into the temp of (A, H) (of (V, D)), rows 2 (r0 + i) + q, split again
+// per scheme (b1, b2f: rounded to bf16; b2d, b3: hi and lo; fd: float32), as
+// the plain version splits the row pass's result; along the columns, each
+// thread takes a strip of kColStrip positions of one temp row and, per
+// parity, sums the low taps on the first temp then the high taps on the
+// second into a float tile of 2 lr x 2 lc outputs, written out once (float32
+// or rounded to bf16) with lanes along the columns.  Every output keeps one
+// float32 sum per scheme term in the plain version's order (band outer, tap
+// inner), so the b-schemes match it bit for bit.  Parity q's taps p_q + 2 b
+// (b < nb_q) of each filter are one zero-padded table of nt taps (a multiple
+// of kInvCh) per value the scheme reads, read as float4 broadcasts.  The
+// polyphase form reads no stuffed zeros; the checked launcher below refuses a
+// plan that does not add up.
 // ---------------------------------------------------------------------------
 constexpr int kInvCh = 4;        // taps per chunk of the strips
 constexpr int kStageLoads = 16;  // loads in flight per thread while staging
@@ -166,55 +177,69 @@ __host__ __device__ inline int poly_off(const Poly& g, int q) { return g.lo + g.
 // Shared-memory bytes of the inverse level: taps, index tables, the four band
 // windows (which hold the output tile once the row pass is done), the two
 // temps.  kernels/separable.py:_inv_smem mirrors it.
+template <int S>
 size_t inv_smem(int offmax, int lr, int lc, int nt) {
+  using St = Stage<S>;
+  const size_t nd = kDataLo<S> ? 2 : 1, nv = kTapLo<S> ? 2 : 1;
   const size_t WR = lr + offmax + nt - 1, WC = lc + offmax + nt - 1;
-  const size_t win = 4 * WR * WC * sizeof(float);
+  const size_t win = 4 * nd * WR * WC * sizeof(St);
   const size_t tile = 2 * (size_t)lr * (2 * lc + 1) * sizeof(float);
-  return 16 * (size_t)nt + align16((WR + WC) * sizeof(int)) + align16(win > tile ? win : tile) +
-         2 * 2 * (size_t)lr * temp_pitch<float>((int)WC) * sizeof(float);
+  return 16 * nv * (size_t)nt + align16((WR + WC) * sizeof(int)) +
+         align16(win > tile ? win : tile) +
+         2 * nd * 2 * (size_t)lr * temp_pitch<St>((int)WC) * sizeof(St);
 }
 
+template <int S>
 __global__ void __launch_bounds__(256)
-inv_level_kernel(const float* __restrict__ a, const float* __restrict__ h,
-                 const float* __restrict__ v, const float* __restrict__ d,
-                 float* __restrict__ out, int B, int Mr, int Mc, int hlen, const Poly g,
+inv_level_kernel(const float* __restrict__ a, const void* __restrict__ h,
+                 const void* __restrict__ v, const void* __restrict__ d, void* __restrict__ out,
+                 int det_bf16, int out_bf16, int B, int Mr, int Mc, int hlen, const Poly g,
                  const float* __restrict__ taps, int lr, int lc, int nt) {
-  constexpr int PR = kRowStrip<FD>, PC = kColStrip;
+  using St = Stage<S>;
+  constexpr int nd = kDataLo<S> ? 2 : 1, nv = kTapLo<S> ? 2 : 1;
+  constexpr int PR = kRowStrip<S>, PC = kColStrip;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int off[2] = {poly_off(g, 0), poly_off(g, 1)};
   const int offmax = off[0] > off[1] ? off[0] : off[1];
   const int WR = lr + offmax + nt - 1, WC = lc + offmax + nt - 1;
-  const int TP = temp_pitch<float>(WC), TR = 2 * lr, OC = 2 * lc + 1;
-  float* tq = reinterpret_cast<float*>(smem_raw);  // [q][low, high][nt]
-  int* rows = reinterpret_cast<int*>(tq + 4 * nt);
+  const int TP = temp_pitch<St>(WC), TR = 2 * lr, OC = 2 * lc + 1;
+  float* t1 = reinterpret_cast<float*>(smem_raw);  // [q][low, high][nt], first values
+  float* t2 = t1 + (nv - 1) * 4 * nt;               // second values (b2f, b3)
+  int* rows = reinterpret_cast<int*>(t1 + nv * 4 * nt);
   int* cols = rows + WR;
-  unsigned char* p = smem_raw + 16 * (size_t)nt + align16((size_t)(WR + WC) * sizeof(int));
-  float* win = reinterpret_cast<float*>(p);  // band s (A, H, V, D) at win + s * WR * WC
-  float* tile = win;                         // TR x OC, after the row pass
-  const size_t wbytes = (size_t)4 * WR * WC * sizeof(float);
+  unsigned char* p = smem_raw + 16 * nv * (size_t)nt + align16((size_t)(WR + WC) * sizeof(int));
+  St* win = reinterpret_cast<St*>(p);  // band s (A, H, V, D), operand e at win + (s nd + e) WR WC
+  float* tile = reinterpret_cast<float*>(p);  // TR x OC, after the row pass
+  const size_t wbytes = (size_t)4 * nd * WR * WC * sizeof(St);
   const size_t tbytes = (size_t)TR * OC * sizeof(float);
-  float* tmp = reinterpret_cast<float*>(p + align16(wbytes > tbytes ? wbytes : tbytes));
-  const int BS = WR * WC, TS = TR * TP;  // band and temp strides
+  St* tmp = reinterpret_cast<St*>(p + align16(wbytes > tbytes ? wbytes : tbytes));
+  const int BS = nd * WR * WC, TS = nd * TR * TP;  // band and temp strides
 
   const int q0r = blockIdx.y * lr, q0c = blockIdx.x * lc;
   fill_index(rows, WR, (long long)q0r - g.lo, 1, Mr);
   fill_index(cols, WC, (long long)q0c - g.lo, 1, Mc);
-  const Bands src = {{a, h, v, d}, 0u};
   __syncthreads();
-  // tq[(2 q + k) nt + j] = taps[k hlen + p_q + 2 j] (k = 0 low, 1 high), 0 past nb_q
+  // t1[(2 q + k) nt + j] = taps[2 k hlen + p_q + 2 j] (k = 0 low, 1 high), 0
+  // past nb_q; t2 the same from row 2 k + 1 (the (4, hlen) buffer's second
+  // values)
   auto tap = [&](int e) {
-    const int j = e % nt, qk = e / nt, q = qk >> 1;
-    return j < g.nb[q] ? (qk & 1) * hlen + g.p[q] + 2 * j : -1;
+    const int j = e % nt, qk = (e / nt) % 4, q = qk >> 1, val = e / (4 * nt);
+    return j < g.nb[q] ? (2 * (qk & 1) + val) * hlen + g.p[q] + 2 * j : -1;
   };
 
   for (int b = blockIdx.z; b < B; b += gridDim.z) {
     const size_t plane = (size_t)b * Mr * Mc;
+    // one staging per detail type, each with the type a constant (Bands)
     auto stage_all = [&] {
-      stage_bands<FD, 4, kStageLoads>(src, 0, plane, Mc, rows, cols, WR, WC, win, BS, 0, kNone,
-                                      0.f);
+      if (det_bf16)
+        stage_bands<S, 4, kStageLoads>(Bands{{a, h, v, d}, 0xeu}, 0, plane, Mc, rows, cols, WR,
+                                       WC, win, BS, WR * WC, kNone, 0.f);
+      else
+        stage_bands<S, 4, kStageLoads>(Bands{{a, h, v, d}, 0u}, 0, plane, Mc, rows, cols, WR, WC,
+                                       win, BS, WR * WC, kNone, 0.f);
     };
     if (b == (int)blockIdx.z)
-      fill_around(tq, 4 * nt, taps, tap, stage_all);
+      fill_around(t1, nv * 4 * nt, taps, tap, stage_all);
     else
       stage_all();
     __syncthreads();
@@ -222,13 +247,15 @@ inv_level_kernel(const float* __restrict__ a, const float* __restrict__ h,
     const int per = (lr / PR) * WC;
     for (int it = threadIdx.x; it < 2 * per; it += blockDim.x) {
       const int k = it / per, rem = it % per, r0 = (rem / WC) * PR, w = rem % WC;
+      St* dst = tmp + k * TS;
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
-        Acc<FD> acc[1][PR];
-        band_strip<FD, PR, 1, kInvCh>(acc, win + 2 * k * BS + (r0 + off[q]) * WC + w, 0, BS, 2,
-                                      WC, tq + 2 * q * nt, tq, 0, nt);
+        Acc<S> acc[1][PR];
+        band_strip<S, PR, 1, kInvCh>(acc, win + 2 * k * BS + (r0 + off[q]) * WC + w, WR * WC, BS,
+                                     2, WC, t1 + 2 * q * nt, t2 + 2 * q * nt, 0, nt);
 #pragma unroll
-        for (int i = 0; i < PR; ++i) tmp[k * TS + (2 * (r0 + i) + q) * TP + w] = acc[0][i].total();
+        for (int i = 0; i < PR; ++i)
+          stage<S>(acc[0][i].total(), dst, dst + TR * TP, (2 * (r0 + i) + q) * TP + w);
       }
     }
     __syncthreads();
@@ -237,16 +264,23 @@ inv_level_kernel(const float* __restrict__ a, const float* __restrict__ h,
       const int r2 = it % TR, t0 = (it / TR) * PC;
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
-        Acc<FD> acc[1][PC];
-        band_strip<FD, PC, 1, kInvCh>(acc, tmp + r2 * TP + t0 + off[q], 0, TS, 2, 1,
-                                      tq + 2 * q * nt, tq, 0, nt);
+        Acc<S> acc[1][PC];
+        band_strip<S, PC, 1, kInvCh>(acc, tmp + r2 * TP + t0 + off[q], TR * TP, TS, 2, 1,
+                                     t1 + 2 * q * nt, t2 + 2 * q * nt, 0, nt);
 #pragma unroll
         for (int i = 0; i < PC; ++i) tile[r2 * OC + 2 * (t0 + i) + q] = acc[0][i].total();
       }
     }
     __syncthreads();
-    store_tile(out, (size_t)b * 4 * Mr * Mc, 2 * Mr, 2 * Mc, tile, OC, TR, 2 * lc,
-               [&](int r2) { return 2LL * q0r + r2; }, [&](int u) { return 2LL * q0c + u; });
+    auto orow = [&](int r2) { return 2LL * q0r + r2; };
+    auto ocol = [&](int u) { return 2LL * q0c + u; };
+    const size_t oplane = (size_t)b * 4 * Mr * Mc;
+    if (out_bf16)
+      store_tile(static_cast<__nv_bfloat16*>(out), oplane, 2 * Mr, 2 * Mc, tile, OC, TR, 2 * lc,
+                 orow, ocol);
+    else
+      store_tile(static_cast<float*>(out), oplane, 2 * Mr, 2 * Mc, tile, OC, TR, 2 * lc, orow,
+                 ocol);
     __syncthreads();
   }
 }
@@ -423,6 +457,51 @@ dim3 level_grid(int Mr, int Mc, int B) {
 
 }  // namespace
 
+namespace pdwt_sep {
+
+// Launch the inverse level in compute scheme `scheme` (the index in
+// kernels/matmul.py:SCHEMES; H, V, D bf16 where det_bf16, the output bf16
+// where out_bf16) on its launch plan (kernels/separable.py:
+// inv_level_launch_plan): tile lr x lc subband positions, nt padded taps per
+// parity, threads, grid (gx, gy, gz) and dynamic shared-memory bytes; a plan
+// that does not add up is refused (cudaErrorInvalidValue).  `taps` is a (4,
+// hlen) float32 device buffer: the low filter's first and second values,
+// then the high filter's, correlation order; `geo` is poly_geometry(hlen).
+// Kernel 2 (pdwt_inv_level_2d, below) runs it in fd on float32, kernel 12
+// (matmul.cu: pdwt_inv_level_2d_mxu) in the tiers' schemes.
+int launch_inv_level(const float* a, const void* h, const void* v, const void* d, void* out,
+                     int B, int Mr, int Mc, const float* taps, int hlen, const int* geo,
+                     int scheme, int det_bf16, int out_bf16, int lr, int lc, int nt, int threads,
+                     int gx, int gy, int gz, int smem, void* stream) {
+  if (hlen < 2 || hlen > PDWT_MAX_HLEN || B < 1 || Mr < 1 || Mc < 1)
+    return cudaErrorInvalidValue;
+  const Poly g = make_poly(geo);
+  for (int q = 0; q < 2; ++q)
+    if (poly_off(g, q) < 0 || g.p[q] < 0 || g.nb[q] < 1 || g.nb[q] > nt ||
+        g.p[q] + 2 * (g.nb[q] - 1) >= hlen)
+      return cudaErrorInvalidValue;
+  if (nt % kInvCh || nt > PDWT_MAX_HLEN || lr < 1 || lc < 1 || lc % kColStrip || threads < 32 ||
+      threads > 256 || threads % 32)
+    return cudaErrorInvalidValue;
+  const int offmax = poly_off(g, 0) > poly_off(g, 1) ? poly_off(g, 0) : poly_off(g, 1);
+  if (gx != (Mc + (long long)lc - 1) / lc || gy != (Mr + (long long)lr - 1) / lr ||
+      gy > 65535 || gz != (B < 65535 ? B : 65535))
+    return cudaErrorInvalidValue;
+  return with_scheme(scheme, [&](auto sc) -> cudaError_t {
+    constexpr int S = decltype(sc)::value;
+    if (lr % kRowStrip<S> || (size_t)smem != inv_smem<S>(offmax, lr, lc, nt))
+      return cudaErrorInvalidValue;
+    auto kernel = inv_level_kernel<S>;
+    cudaError_t e = prepare(kernel, smem, 0);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+        a, h, v, d, out, det_bf16, out_bf16, B, Mr, Mc, hlen, g, taps, lr, lc, nt);
+    return cudaGetLastError();
+  });
+}
+
+}  // namespace pdwt_sep
+
 // Every entry point returns a cudaError_t as int: 0 once the launch has been
 // queued on `stream`, else the reason it was refused (cudaGetLastError()).
 
@@ -442,37 +521,18 @@ extern "C" int pdwt_fwd_level_2d(const float* x, float* a, float* h, float* v, f
   return cudaGetLastError();
 }
 
-// `taps` is a (2, hlen) float32 device buffer, the low then the high filter in
-// correlation order; `geo` is poly_geometry(hlen) (kernels/_launch.py:poly_geo).
-// The launch plan (kernels/separable.py:inv_level_launch_plan): tile lr x lc
-// subband positions, nt padded taps per parity, threads, grid (gx, gy, gz) and
-// dynamic shared-memory bytes; a plan that does not add up is refused
-// (cudaErrorInvalidValue).
+// `taps` is the (4, hlen) float32 device buffer of kernels/_launch.py:
+// dual_taps in fd (the second values 0); `geo` is poly_geometry(hlen)
+// (kernels/_launch.py:poly_geo); the launch plan is
+// kernels/separable.py:inv_level_launch_plan's for fd, checked by the
+// launcher.
 extern "C" int pdwt_inv_level_2d(const float* a, const float* h, const float* v,
                                  const float* d, float* out, int B, int Mr, int Mc,
                                  const float* taps, int hlen, const int* geo, int lr, int lc,
                                  int nt, int threads, int gx, int gy, int gz, int smem,
                                  void* stream) {
-  if (hlen < 2 || hlen > PDWT_MAX_HLEN || B < 1 || Mr < 1 || Mc < 1)
-    return cudaErrorInvalidValue;
-  const Poly g = make_poly(geo);
-  for (int q = 0; q < 2; ++q)
-    if (poly_off(g, q) < 0 || g.p[q] < 0 || g.nb[q] < 1 || g.nb[q] > nt ||
-        g.p[q] + 2 * (g.nb[q] - 1) >= hlen)
-      return cudaErrorInvalidValue;
-  if (nt % kInvCh || nt > PDWT_MAX_HLEN || lr < 1 || lc < 1 || lr % kRowStrip<FD> ||
-      lc % kColStrip || threads < 32 || threads > 256 || threads % 32)
-    return cudaErrorInvalidValue;
-  const int offmax = poly_off(g, 0) > poly_off(g, 1) ? poly_off(g, 0) : poly_off(g, 1);
-  if (gx != (Mc + (long long)lc - 1) / lc || gy != (Mr + (long long)lr - 1) / lr ||
-      gy > 65535 || gz != (B < 65535 ? B : 65535) ||
-      (size_t)smem != inv_smem(offmax, lr, lc, nt))
-    return cudaErrorInvalidValue;
-  cudaError_t e = prepare(inv_level_kernel, smem, 0);
-  if (e != cudaSuccess) return e;
-  inv_level_kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-      a, h, v, d, out, B, Mr, Mc, hlen, g, taps, lr, lc, nt);
-  return cudaGetLastError();
+  return pdwt_sep::launch_inv_level(a, h, v, d, out, B, Mr, Mc, taps, hlen, geo, FD, 0, 0, lr,
+                                    lc, nt, threads, gx, gy, gz, smem, stream);
 }
 
 // `det` holds 3*levels device pointers, (H, V, D) of level 1 first.

@@ -5,7 +5,8 @@ Counterpart of ``pdwt_tpu/kernels/matmul_pallas.py`` (kernels 11 and 12)
 and of the scheme helpers of ``swt_matmul_pallas.py:111-159``.  On the TPU
 a decimating dual FIR runs as a banded matrix product on the MXU; what the
 product computes is fixed by its compute scheme, and that is what the CUDA
-kernels (``csrc/matmul.cu``) and the plain versions here reproduce:
+kernels (``csrc/matmul.cu``; the synthesis runs kernel 2's body in
+``csrc/separable.cu``) and the plain versions here reproduce:
 
 =======================  ====================================  =========================
 wrapper                  computes                              plain version
@@ -45,15 +46,15 @@ forward input's dtype.  The schemes are fixed when the forward runs.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core import conv, precision
-from ._launch import launch, on_cpu, poly_geo, ptr, rev, taps
-from .separable import _c
+from ._launch import (dual_taps, kernel_taps, launch, on_cpu, poly_geo, ptr, rev,
+                      scheme_taps)
+from .separable import _c, inv_level_launch_plan
 
 F32, BF16 = torch.float32, torch.bfloat16
 SCHEMES = ("b1", "fd", "b2f", "b2d", "b3")
@@ -153,18 +154,6 @@ def _check_scheme(scheme: str) -> None:
 # rounding and the scheme's terms (plain versions)
 # ---------------------------------------------------------------------------
 
-def scheme_taps(f, scheme: str) -> Tuple[np.ndarray, np.ndarray]:
-    """The (first, second) taps of a scheme in forward convention, float64
-    arrays that hold float32 values: (f32(f), 0) for fd, else the bf16
-    split (f_h, f_l) of f32(f)."""
-    f32 = torch.tensor(np.asarray(f, dtype=np.float64)).float()
-    if scheme == "fd":
-        return f32.double().numpy(), np.zeros(len(f32))
-    hi = f32.to(BF16).float()
-    lo = (f32 - hi).to(BF16).float()
-    return hi.double().numpy(), lo.double().numpy()
-
-
 def split_data(x: torch.Tensor, scheme: str):
     """(first, second) data operands of a scheme as float32 tensors: x for
     fd, h(x) for b1/b2f, (x_h, x_l) for b2d/b3."""
@@ -235,32 +224,6 @@ def inv_level_2d_mxu_ref(a, h, v, d, rec_lo, rec_hi, scheme: str,
 _DT = (F32, BF16)
 
 
-def kernel_taps(filters: Sequence, scheme: str):
-    """Correlation-order float32 (first, second) taps of each filter for
-    the kernels, kept alive by the caller."""
-    out = []
-    for f in filters:
-        t1, t2 = scheme_taps(f, scheme)
-        out.extend((taps(t1), taps(t2)))
-    return out
-
-
-@functools.lru_cache(maxsize=64)
-def _dual_taps_on(lo: bytes, hi: bytes, scheme: str, device: str) -> torch.Tensor:
-    filters = [np.frombuffer(f, dtype=np.float64) for f in (lo, hi)]
-    return torch.from_numpy(np.stack(kernel_taps(filters, scheme))).to(device)
-
-
-def dual_taps(filters, scheme: str, device) -> torch.Tensor:
-    """A filter pair's taps as the kernels on ``band_strip.cuh`` read them:
-    (4, hlen) float32 on ``device``, the low filter's first and second
-    values, then the high filter's, correlation order.  Copied there once
-    per filter pair and scheme; the key is the taps themselves, since the
-    backwards pass reversed and rescaled ones."""
-    lo, hi = (np.asarray(f, dtype=np.float64) for f in filters)
-    return _dual_taps_on(lo.tobytes(), hi.tobytes(), scheme, str(device))
-
-
 def _is_bf16(dtype: torch.dtype) -> int:
     if dtype not in _DT:
         raise ValueError(f"the banded-product kernels store float32 or bfloat16, got {dtype}")
@@ -293,7 +256,9 @@ def fwd_level_2d_mxu(x: torch.Tensor, dec_lo, dec_hi, scheme: str, out_dtypes=(F
 def inv_level_2d_mxu(a, h, v, d, rec_lo, rec_hi, scheme: str, out_dtype=F32) -> torch.Tensor:
     """One synthesis level under ``scheme``: a float32 (B, Mr, Mc)
     approximation and h, v, d of one dtype (float32 or bf16) ->
-    (B, 2Mr, 2Mc) in ``out_dtype``."""
+    (B, 2Mr, 2Mc) in ``out_dtype``.  The kernel is kernel 2's body in the
+    scheme (``csrc/separable.cu: inv_level_kernel``), on the plan of
+    ``separable.inv_level_launch_plan``."""
     if on_cpu(a, h, v, d, dtypes=_DT):
         return inv_level_2d_mxu_ref(a, h, v, d, rec_lo, rec_hi, scheme, out_dtype)
     _check_scheme(scheme)
@@ -303,12 +268,15 @@ def inv_level_2d_mxu(a, h, v, d, rec_lo, rec_hi, scheme: str, out_dtype=F32) -> 
         raise ValueError("inv_level_2d_mxu takes a float32 approximation and details "
                          "of one dtype")
     B, mr, mc = a.shape
-    tp = kernel_taps((rec_lo, rec_hi), scheme)
-    geo = poly_geo(len(tp[0]))
+    tp = dual_taps((rec_lo, rec_hi), scheme, a.device)
+    hlen = tp.shape[1]
+    geo = poly_geo(hlen)
+    pl = inv_level_launch_plan(B, mr, mc, hlen, scheme)
     out = torch.empty((B, 2 * mr, 2 * mc), device=a.device, dtype=out_dtype)
     launch("inv_level_2d_mxu", a.device,
-           [*map(ptr, (a, h, v, d, out)), B, mr, mc, *map(ptr, tp), len(tp[0]), ptr(geo),
-            SCHEMES.index(scheme), _is_bf16(h.dtype), _is_bf16(out_dtype)])
+           [*map(ptr, (a, h, v, d, out)), B, mr, mc, ptr(tp), hlen, ptr(geo),
+            SCHEMES.index(scheme), _is_bf16(h.dtype), _is_bf16(out_dtype), pl.lr, pl.lc, pl.nt,
+            pl.threads, *pl.grid, pl.smem])
     return out
 
 

@@ -37,8 +37,9 @@ import torch
 
 from ..core import conv
 from ._launch import LAUNCHES, MAX_HLEN, reset_launch_counts  # noqa: F401 (re-exported)
-from ._launch import (PLAN_TILES, ROW_STRIP, InvPlan, align16, block_target, cdiv, device_taps,
-                      launch, on_cpu, pick_plan, poly_geo, ptr, rev, taps, temp_pitch)
+from ._launch import (PLAN_TILES, ROW_STRIP, InvPlan, align16, block_target, cdiv, dual_taps,
+                      launch, on_cpu, pick_plan, poly_geo, ptr, rev, stage_bytes, taps,
+                      temp_pitch)
 
 #: Most levels one tail launch fuses (PDWT_MAX_TAIL_LEVELS).
 MAX_TAIL_LEVELS = 16
@@ -103,40 +104,46 @@ def tail_supported(shape: Tuple[int, int], hlen: int, levels: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# launch plan of the inverse level (csrc/separable.cu: inv_level_kernel)
+# launch plan of the inverse level (csrc/separable.cu: inv_level_kernel),
+# kernel 2 in fd and kernel 12 (matmul.inv_level_2d_mxu) in every scheme
 # ---------------------------------------------------------------------------
 
 #: taps per chunk of the inverse level's strips (separable.cu: kInvCh)
 INV_CHUNK = 4
 
 
-def _inv_smem(offmax: int, lr: int, lc: int, nt: int) -> int:
-    """separable.cu: inv_smem -- taps, index tables, the four band windows
-    (the output tile after the row pass), the two temps."""
+def _inv_smem(offmax: int, lr: int, lc: int, nt: int, scheme: str = "fd") -> int:
+    """separable.cu: inv_smem<S> -- taps (first values, and second values
+    where the scheme reads them), index tables, the four band windows (the
+    output tile after the row pass), the two temps."""
+    nd, es = stage_bytes(scheme)
+    nv = 2 if scheme in ("b2f", "b3") else 1
     wr, wc = lr + offmax + nt - 1, lc + offmax + nt - 1
-    return (16 * nt + align16(4 * (wr + wc)) + align16(max(16 * wr * wc, 8 * lr * (2 * lc + 1)))
-            + 16 * lr * temp_pitch(wc, 4))
+    return (16 * nv * nt + align16(4 * (wr + wc))
+            + align16(max(4 * nd * es * wr * wc, 8 * lr * (2 * lc + 1)))
+            + 4 * nd * lr * temp_pitch(wc, es) * es)
 
 
 @functools.lru_cache(maxsize=256)
-def inv_level_launch_plan(B: int, Mr: int, Mc: int, hlen: int) -> InvPlan:
-    """The launch of one polyphase synthesis level on (B, Mr, Mc) subbands:
-    a tile of lr x lc consecutive subband positions, largest first, taps
-    padded to nt per parity.  The first that fits two blocks on an SM and
-    gives ``block_target`` blocks (kernels/_launch.py: pick_plan), so the
-    deep levels take smaller tiles.  Always 256 threads: on the deep
-    levels' small tiles, more warps keep more staging loads in flight than
-    the work items need threads (timed 20 % faster at 256^2 and 128^2
-    subbands on an H100, PERF.md section 6)."""
+def inv_level_launch_plan(B: int, Mr: int, Mc: int, hlen: int, scheme: str = "fd") -> InvPlan:
+    """The launch of one polyphase synthesis level on (B, Mr, Mc) subbands
+    under ``scheme`` (kernel 2: fd): a tile of lr x lc consecutive subband
+    positions, largest first, taps padded to nt per parity.  The first that
+    fits two blocks on an SM and gives ``block_target`` blocks
+    (kernels/_launch.py: pick_plan), so the deep levels take smaller tiles.
+    Always 256 threads: on the deep levels' small tiles, more warps keep
+    more staging loads in flight than the work items need threads (timed
+    20 % faster at 256^2 and 128^2 subbands on an H100, PERF.md section
+    6)."""
     g = conv.poly_geometry(hlen)
     nt = cdiv(max(g.nb), INV_CHUNK) * INV_CHUNK
     offmax = g.lo + max(g.o)
     cands = []
     for lr, lc in PLAN_TILES:
         grid = (cdiv(Mc, lc), cdiv(Mr, lr), min(B, 65535))
-        if lr % ROW_STRIP["fd"] or grid[1] > 65535:
+        if lr % ROW_STRIP[scheme] or grid[1] > 65535:
             continue
-        cands.append(InvPlan(lr, lc, 1, 1, nt, 256, grid, _inv_smem(offmax, lr, lc, nt)))
+        cands.append(InvPlan(lr, lc, 1, 1, nt, 256, grid, _inv_smem(offmax, lr, lc, nt, scheme)))
     return pick_plan(cands, block_target(B, 2 * Mr, 2 * Mc))
 
 
@@ -170,7 +177,7 @@ def inv_level_2d(a, h, v, d, rec_lo, rec_hi) -> torch.Tensor:
     if not a.shape == h.shape == v.shape == d.shape:
         raise ValueError("the four subbands must have one shape")
     B, mr, mc = a.shape
-    tp = device_taps((rec_lo, rec_hi), a.device)
+    tp = dual_taps((rec_lo, rec_hi), "fd", a.device)
     hlen = tp.shape[1]
     geo = poly_geo(hlen)
     pl = inv_level_launch_plan(B, mr, mc, hlen)

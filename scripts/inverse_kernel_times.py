@@ -27,13 +27,21 @@ bf16-balanced and -accurate) and the batched 1D cells' levels on kernels
 256, fd into bf16 then b3; a-trous synthesis: 4096 samples, levels 1-4,
 fd, bf16 out at level 1; decimated analysis: 4096 down to 512 samples in,
 b1 on bf16 then b3 on float32, bf16 high band; a-trous analysis: 4096
-samples, levels 1-4, b1 on bf16 then fd on float32, bf16 high band).
-Beside 13 and 15 it times their PyTorch yardsticks in the same call, by
-CUDA events: the dense-band bf16 ``torch.matmul`` products of
-``chip_smoke.yardstick`` (a pair per 2D level, one per 1D level).
+samples, levels 1-4, b1 on bf16 then fd on float32, bf16 high band), the
+tier DWT roundtrip's synthesis levels on kernel 12 (db7, subbands 1024^2
+to 128^2: under bf16-fast fd into bf16 then b3, under mixed b3 on float32
+details, under bf16-balanced b2f into bf16 then b3) and the exact 1D SWT
+cell's synthesis levels on kernel 10 (sym8, 1024 x 4096, levels 1-4,
+float32).  Beside 12, 13 and 15 it times their PyTorch yardsticks in the
+same call, by CUDA events: the dense-band bf16 ``torch.matmul`` products
+of ``chip_smoke.yardstick`` (a pair per 2D level, one per 1D level).
 Prints one line: RESULT ROOT {json}, each level in ms and each pass
-summed.  Imports no JAX.
+summed, and one line: SUMS ROOT {json}, a SHA-256 prefix of the bytes of
+each timed kernel's output (the same inputs on every checkout, made from
+one seed), so that runs in turns show where two checkouts agree bit for
+bit.  Imports no JAX.
 """
+import hashlib
 import json
 import sys
 import time
@@ -48,6 +56,8 @@ import chip_smoke as CS  # noqa: E402
 from pdwt_tpu_torch import get_wavelet  # noqa: E402
 from pdwt_tpu_torch.core import nonseparable as NSC  # noqa: E402
 from pdwt_tpu_torch.kernels import _build  # noqa: E402
+from pdwt_tpu_torch.kernels import batched1d as K1  # noqa: E402
+from pdwt_tpu_torch.kernels import matmul as M  # noqa: E402
 from pdwt_tpu_torch.kernels import mxu1d as M1  # noqa: E402
 from pdwt_tpu_torch.kernels import ns_matmul as NM  # noqa: E402
 from pdwt_tpu_torch.kernels import separable as K  # noqa: E402
@@ -79,10 +89,17 @@ torch.cuda.synchronize()
 KERNELS = ("inv_mxu", "inv_level", "inv1d", "ns_fwd", "swt_fwd_mxu", "fwd1d")
 
 
+def digest(t):
+    """A SHA-256 prefix of a tensor's bytes (any dtype)."""
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
 def dev_ms(fn, reps=30):
     """Device ms per fn() call of the timed kernels' launches (by name:
     kernel 2's and 6's old and new bodies, 14's, 18's, 16's and 17's, 13's
-    and 15's old and new bodies)."""
+    and 15's, 12's and 10's old and new bodies); the digest of one call's
+    output goes to ``sums`` under the row's key (``timed``)."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -96,6 +113,14 @@ def dev_ms(fn, reps=30):
              and any(k in e.name for k in KERNELS)]
         if t:  # the mean per recorded launch: a window may drop a few events
             return sum(t) / len(t) / 1e3 * max(1, round(len(t) / reps))
+
+
+sums = {}
+
+
+def timed(key, fn):
+    res[key] = dev_ms(fn)
+    sums[key] = digest(fn())
 
 
 w7 = get_wavelet("db7")
@@ -119,7 +144,7 @@ for lvl in (1, 2, 3):
                                                           ("soft", beta)))
 for m in (1024, 512, 256, 128):
     b = [rand(1, m, m) for _ in range(4)]
-    res[f"k2 {m}"] = dev_ms(lambda: K.inv_level_2d(*b, w7.rec_lo, w7.rec_hi))
+    timed(f"k2 {m}", lambda: K.inv_level_2d(*b, w7.rec_lo, w7.rec_hi))
 for r, sch, in_dt in ((2048, "b1", bf16), (1024, "b3", f32), (512, "b3", f32), (256, "b3", f32)):
     x = rand(1, r, r).to(in_dt)
     res[f"k17d {r} {sch}"] = dev_ms(lambda: NM.ns_fwd_level_2d_mxu(x, Af, Bf, sch, (f32, bf16)))
@@ -157,7 +182,25 @@ for lvl in (1, 2, 3, 4):
     res[f"k15a L{lvl} {sch}"] = dev_ms(lambda: M1.swt_fwd_level_1d_mxu(x, w8.dec_lo, w8.dec_hi,
                                                                        lvl, sch, bf16))
     res[f"y15a L{lvl}"] = CS.cuda_ms(CS.yardstick("swt_fwd", w8, bf16, lvl)(x))
+# kernel 12 at the tier DWT roundtrip's synthesis levels, its inputs from a
+# generator of its own (the rows above keep theirs)
+gen = torch.Generator(device=dev).manual_seed(12)
+for i, m in enumerate((1024, 512, 256, 128)):
+    a = rand(1, m, m)
+    dets = [rand(1, m, m) - 127.5 for _ in range(3)]
+    for key, sch, det, out in (("k12f", "fd" if i == 0 else "b3", bf16, bf16 if i == 0 else f32),
+                               ("k12m", "b3", f32, f32),
+                               ("k12b", "b2f" if i == 0 else "b3", bf16, bf16 if i == 0 else f32)):
+        b = [a] + [t.to(det) for t in dets]
+        timed(f"{key} {m} {sch}", lambda: M.inv_level_2d_mxu(*b, w7.rec_lo, w7.rec_hi, sch, out))
+    res[f"y12 {m}"] = CS.cuda_ms(CS.yardstick("inv2d", w7, bf16)([a] + [t.to(bf16) for t in dets]))
+# kernel 10 at the exact 1D SWT cell's synthesis levels
+for lvl in (1, 2, 3, 4):
+    lo, hi = (torch.randn(1024, 4096, device=dev, generator=gen) for _ in range(2))
+    timed(f"k10 L{lvl}", lambda: K1.swt_inv_level_1d(lo, hi, w8.rec_lo, w8.rec_hi, lvl))
 for k in ("k14", "k14b", "k18s", "k18p", "k6", "k2", "k17d", "k17s", "k17b", "k16d", "k16a",
-          "k13", "k13b", "y13", "k15d", "y15d", "k15a", "y15a"):
+          "k13", "k13b", "y13", "k15d", "y15d", "k15a", "y15a", "k12f", "k12m", "k12b", "y12",
+          "k10"):
     res[k + " pass"] = sum(v for n, v in res.items() if n.startswith(k + " ") and v)
 print("RESULT", root, json.dumps({k: round(v, 5) for k, v in res.items()}))
+print("SUMS", root, json.dumps(sums))

@@ -1130,3 +1130,69 @@ def test_gradients_flow_through_kernels_13_and_15(dev, mode):
         assert launched >= 1, name
         for g, gcpu in zip(gd, gc):
             _close_tier(g.cpu(), gcpu, 2.0 ** -6, 2.0 ** -6 if mode == "bf16" else 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# kernels 12 and 10, moved onto kernel 2's and kernel 16's strip bodies
+# ---------------------------------------------------------------------------
+
+# 37 x 53 and 1 x 1 subbands, a batch of 3, 2, 4, 14 and 40 taps, the tier
+# path's deepest level
+INV12_CASES = [("db7", (1, 128, 128)), ("db7", (3, 37, 53)), ("haar", (3, 1, 1)),
+               ("w40", (1, 37, 53)), ("db2", (2, 70, 134)), ("w40", (1, 1, 1))]
+
+
+@pytest.mark.parametrize("det,out", [(torch.float32, torch.float32), (BF16, BF16),
+                                     (torch.float32, BF16), (BF16, torch.float32)])
+@pytest.mark.parametrize("scheme", SCHEMES5)
+@pytest.mark.parametrize("wname,shape", INV12_CASES)
+def test_inv_level_2d_mxu_redesign_matches_plain(dev, wname, shape, scheme, det, out):
+    """Kernel 12 on kernel 2's body: b-schemes bit for bit, fd within
+    _close_tier, float32 and bf16 details and outputs."""
+    w = _long_wavelet(wname)
+    a = _rand(dev, *shape, seed=4) * 255
+    h, v, d = ((_rand(dev, *shape, seed=s) * 127).to(det) for s in (1, 2, 3))
+    _exact_or_tier(M.inv_level_2d_mxu(a, h, v, d, w.rec_lo, w.rec_hi, scheme, out),
+                   M.inv_level_2d_mxu_ref(a, h, v, d, w.rec_lo, w.rec_hi, scheme, out), scheme)
+
+
+# 3 (odd), 16, 64 and 128 taps; dilations past the signal; 1 and 7 samples;
+# a batch of 33
+INV10_CASES = [("odd3", (33, 7), 1), ("odd3", (33, 7), 4), ("w64", (2, 300), 3),
+               ("w128", (3, 90), 2), ("w128", (1, 7), 13), ("db2", (33, 1), 3),
+               ("sym8", (1024, 4096), 4), ("sym8", (35, 777), 5)]
+
+
+@pytest.mark.parametrize("wname,shape,level", INV10_CASES)
+def test_swt_inv_level_1d_redesign_matches_plain(dev, wname, shape, level):
+    """Kernel 10 on kernel 16's a-trous body in fd, on float32 bands."""
+    if wname in ("odd3", "w64"):
+        n = 3 if wname == "odd3" else 64
+        w = make_custom_wavelet(wname, *np.random.default_rng(n).standard_normal((4, n)))
+    else:
+        w = _long_wavelet(wname)
+    lo, hi = _rand(dev, *shape), _rand(dev, *shape, seed=1)
+    _close_joint([K1.swt_inv_level_1d(lo, hi, w.rec_lo, w.rec_hi, level)],
+                 [K1.swt_inv_level_1d_ref(lo, hi, w.rec_lo, w.rec_hi, level)])
+
+
+def test_redesigned_12_10_refuse_a_bad_launch_plan(dev, monkeypatch):
+    """The entry points of kernels 12 and 10 check the plan they are given."""
+    w7, w8 = get_wavelet("db7"), get_wavelet("sym8")
+    bands = [_rand(dev, 1, 64, 64, seed=s) for s in range(4)]
+    good = K.inv_level_launch_plan(1, 64, 64, 14, "b3")
+    for bad in (good._replace(smem=good.smem + 16), good._replace(lr=good.lr + 2),
+                good._replace(grid=(good.grid[0] + 1, *good.grid[1:])),
+                good._replace(threads=48), good._replace(nt=2),
+                K.inv_level_launch_plan(1, 64, 64, 14, "fd")):
+        monkeypatch.setattr(M, "inv_level_launch_plan", lambda *a, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            M.inv_level_2d_mxu(*bands, w7.rec_lo, w7.rec_hi, "b3")
+    lo, hi = _rand(dev, 32, 256), _rand(dev, 32, 256, seed=1)
+    good = M1.inv1d_launch_plan(32, 256, 16, 2, "fd", False)
+    for bad in (good._replace(smem=good.smem + 16), good._replace(lc=good.lc + 1),
+                good._replace(grid=(good.grid[0] + 1, *good.grid[1:])),
+                good._replace(threads=48), good._replace(nt=4), good._replace(gc=3)):
+        monkeypatch.setattr(K1, "inv1d_launch_plan", lambda *a, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            K1.swt_inv_level_1d(lo, hi, w8.rec_lo, w8.rec_hi, 2)
