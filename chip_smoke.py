@@ -63,20 +63,23 @@ and 18: ``swt_inv_level_2d_mxu``, ``ns_inv_level_2d_mxu``,
 ``ns_swt_fwd_level_2d_mxu``; then kernels 13 and 15:
 ``swt_fwd_level_2d_mxu``, ``fwd_level_1d_mxu``, ``swt_fwd_level_1d_mxu``;
 then kernel 12: ``inv_level_2d_mxu``, which runs kernel 2's body in the
-scheme) are held bit for bit to their plain versions in the b-schemes
-(``fd`` within ``tier_limit``), also on the code paths of their launch
-plans (dilations 2-16 on sizes no tile divides and past the image or
-signal, odd sizes, the deep levels' small tiles, 37 x 53 and 1 x 1
+scheme; then kernel 11: ``fwd_level_2d_mxu``, which runs kernel 13's body
+at output step 2) are held bit for bit to their plain versions in the
+b-schemes (``fd`` within ``tier_limit``), also on the code paths of their
+launch plans (dilations 2-16 on sizes no tile divides and past the image
+or signal, odd sizes, the deep levels' small tiles, 37 x 53 and 1 x 1
 subbands, a batch of 3, ranks 1 and 4, 2 to 42 taps for 14 and 18, 2 to 40
-for 12, 13, 15 and 17, 2 to 128 for 16, every threshold); the exact-path
-inverses (kernels 2, 6 and 10: ``inv_level_2d``, ``swt_inv_level_2d``,
-which runs kernel 14's body in ``fd`` on float32 subbands, and
-``swt_inv_level_1d``, which runs kernel 16's a-trous body in ``fd`` on
-float32 bands) within ``KERNEL_RTOL`` on theirs (every tile size, 2 to 128
-taps, odd too, 8 x 8 subbands, dilations 2-16 on sizes no tile divides and
-up to 4096 past the signal, signals of 1 and 7 samples, a batch of 33,
-every threshold).  Each timed launch of these redesigned kernels prints
-its device time beside its bound.
+for 12, 13, 15 and 17, 2 to 128 for 11 and 16, every threshold); the
+exact-path kernels redesigned (kernels 2, 6, 10 and 9: ``inv_level_2d``,
+``swt_inv_level_2d``, which runs kernel 14's body in ``fd`` on float32
+subbands, ``swt_inv_level_1d`` and ``swt_fwd_level_1d``, which run the
+a-trous bodies of kernels 16 and 15 in ``fd`` on float32 data) within
+``KERNEL_RTOL`` on theirs (every tile size, 2 to 128 taps, odd too, 8 x 8
+subbands, dilations 2-16 on sizes no tile divides and up to 4096 past the
+signal, signals of 1 and 7 samples, a batch of 33, every threshold).  Each
+timed launch of these redesigned kernels prints its device time beside its
+bound; a profiler window that dropped events is profiled again, and read
+as not measured if every try drops some.
 
 It prints one JSON line with the per-kernel results (times, launches, the
 least time the card could take and a PyTorch yardstick), the card's name
@@ -86,8 +89,10 @@ a CUDA device.  Imports no JAX.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -199,14 +204,14 @@ REPLACES = {
 
 def _source(name: str) -> str:
     """The file that holds the kernel's body (kernel 6 runs 14's, 12 runs
-    2's, 10 runs 16's)."""
+    2's, 10 runs 16's, 11 runs 13's, 9 runs 15's)."""
     if name.startswith("ns_"):
         return "ns_matmul.cu"
     if name == "inv_level_2d_mxu":
         return "separable.cu"
     if name.endswith("_2d_mxu") or name == "swt_inv_level_2d":
-        return "swt_matmul.cu" if name.startswith("swt") else "matmul.cu"
-    if name.endswith("_mxu") or name == "swt_inv_level_1d":
+        return "swt_matmul.cu"
+    if name.endswith("_mxu") or name in ("swt_fwd_level_1d", "swt_inv_level_1d"):
         return "mxu1d.cu"
     if name.endswith("_1d"):
         return "batched1d.cu"
@@ -259,31 +264,77 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
+@functools.lru_cache(maxsize=1)
+def port_kernels() -> frozenset:
+    """The names of the port's CUDA kernels, the ``__global__`` functions
+    of its sources."""
+    from pdwt_tpu_torch.kernels import _build
+
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)")
+    names = set()
+    for src in _build.SOURCES:
+        with open(src) as fh:
+            names.update(pat.findall(fh.read()))
+    return frozenset(names)
+
+
+def is_port_kernel(event_name: str) -> bool:
+    """Is a profiler event one of the port's kernels?  They sit in the
+    sources' top-level anonymous namespace."""
+    m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)[<(]", event_name)
+    return m is not None and m.group(1) in port_kernels()
+
+
+def busy_per_call(events, reps: int, launched: int):
+    """(busy ms per call, {kernel name: ms per call}) from one profiler
+    window over ``reps`` calls: ``events`` are its device events as (name,
+    ms), ``launched`` what the port's launch counters gained over it.  The
+    profiler now and then drops a few of a kernel's events, so a name's
+    time per call is its mean per recorded event times its launches per
+    call: its recorded events over ``reps``, rounded up (every call
+    launches the same kernels, and a drop only lowers the count; exact
+    while a name loses fewer than ``reps`` events in the window).  The
+    port's own kernels are held to the counters: None where their launches
+    per call do not add up to ``launched / reps`` (a count read low) or
+    the window recorded nothing."""
+    sums, counts = {}, {}
+    for name, ms in events:
+        sums[name] = sums.get(name, 0.0) + ms
+        counts[name] = counts.get(name, 0) + 1
+    per_call = {k: -(-n // reps) for k, n in counts.items()}
+    if not sums or reps * sum(n for k, n in per_call.items() if is_port_kernel(k)) != launched:
+        return None
+    by_name = {k: sums[k] / counts[k] * per_call[k] for k in sums}
+    return sum(by_name.values()), by_name
+
+
 def device_ms(fn, reps: int = 10):
     """(busy milliseconds per fn() call, {kernel name: ms per call}) from
-    the device activity torch.profiler records; (None, {}) when three
-    profiled windows in a row record none (the profiler now and then
-    returns a window without device events).  Each kernel counts its mean
-    time per recorded event times its events per call (its recorded events
-    over reps, rounded), so a window that drops a few events does not read
-    low."""
+    the device activity torch.profiler records over ``reps`` calls
+    (``busy_per_call``).  A window whose counts of the port's kernels read
+    low is profiled again, three windows in all; after that (None, {}),
+    reported as not measured rather than as a low figure."""
     from torch.profiler import ProfilerActivity, profile
+
+    from pdwt_tpu_torch.kernels import LAUNCHES
 
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        before = sum(LAUNCHES.values())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        sums, counts = {}, {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                sums[e.name] = sums.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-                counts[e.name] = counts.get(e.name, 0) + 1
-        by_name = {k: sums[k] / counts[k] * max(1, round(counts[k] / reps)) for k in sums}
-        if by_name:
-            return sum(by_name.values()), by_name
+        launched = sum(LAUNCHES.values()) - before
+        busy = busy_per_call([(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+                              if e.device_type == torch.autograd.DeviceType.CUDA],
+                             reps, launched)
+        if busy is not None:
+            return busy
+        print(f"  device_ms: the port's kernels' recorded launches fall short of the "
+              f"counters' {launched} over {reps} calls; profiling again", flush=True)
+    print("  device_ms: not measured after three windows", flush=True)
     return None, {}
 
 
@@ -325,12 +376,13 @@ def scheme_limit(scheme: str) -> Callable:
 
 
 # the kernels redesigned for Hopper's CUDA cores (kernels 14 and 18, then 2
-# and 6, then 16 and 17, then 13 and 15, then 12 and 10): each timed launch's
-# device time is printed beside its bound
+# and 6, then 16 and 17, then 13 and 15, then 12 and 10, then 11 and 9): each
+# timed launch's device time is printed beside its bound
 REDESIGNED = ("swt_inv_level_2d_mxu", "ns_inv_level_2d_mxu", "ns_swt_inv_level_2d_mxu",
               "inv_level_2d", "swt_inv_level_2d", "inv_level_1d_mxu", "swt_inv_level_1d_mxu",
               "ns_fwd_level_2d_mxu", "ns_swt_fwd_level_2d_mxu", "swt_fwd_level_2d_mxu",
-              "fwd_level_1d_mxu", "swt_fwd_level_1d_mxu", "inv_level_2d_mxu", "swt_inv_level_1d")
+              "fwd_level_1d_mxu", "swt_fwd_level_1d_mxu", "inv_level_2d_mxu", "swt_inv_level_1d",
+              "fwd_level_2d_mxu", "swt_fwd_level_1d")
 
 
 def run_cases(cases, report, card) -> None:
@@ -845,6 +897,20 @@ def main() -> None:
                                  lambda b, w=w, lv=level: K1.swt_inv_level_1d_ref(*b, w.rec_lo,
                                                                                   w.rec_hi, lv),
                                  f"{w.name} bands {shape} level {level}"))
+    # kernel 9 on kernel 15's a-trous body: the same taps, lengths, batches
+    # and dilations (inputs from a generator of their own)
+    g9 = torch.Generator(device=dev).manual_seed(9)
+    for w, shape, levels in [(odd3, (33, 7), (1, 4)), (w64, (2, 300), (1, 3)),
+                             (w128, (3, 90), (1, 2)), (w128, (1, 7), (13,)),
+                             (get_wavelet("db2"), (33, 1), (1, 3)), (w64, (33, 100), (8,))]:
+        x9 = torch.randn(shape, device=dev, generator=g9)
+        for level in levels:
+            b1_cases.append(Case("swt_fwd_level_1d", x9,
+                                 lambda t, w=w, lv=level: K1.swt_fwd_level_1d(t, w.dec_lo,
+                                                                              w.dec_hi, lv),
+                                 lambda t, w=w, lv=level: K1.swt_fwd_level_1d_ref(t, w.dec_lo,
+                                                                                  w.dec_hi, lv),
+                                 f"{w.name} {shape} level {level}"))
     run_cases(b1_cases, report, card)
 
     # -- the batched 1D path, as a user drives it: the batch and one signal,
@@ -1038,7 +1104,7 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
                      lambda t, s=sch, d=det: M.fwd_level_2d_mxu(t, lo, hi, s, (f32, d)),
                      lambda t, s=sch, d=det: M.fwd_level_2d_mxu_ref(t, lo, hi, s, (f32, d)),
                      f"{tier} level {lvl + 1} {sch} {in_dt} in, {det} details, {(n, n)}", True,
-                     flops_2d(n, n, h7, TERMS[sch]), scheme_peak(sch), tier_limit,
+                     flops_2d(n, n, h7, TERMS[sch]), scheme_peak(sch), scheme_limit(sch),
                      lib_f2 if row else None, row),
                 (tier if row else "", "f", lvl, sch, in_dt, det))
             n //= 2
@@ -1111,7 +1177,7 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
             cases.append(Case("fwd_level_2d_mxu", xin,
                               lambda t, s=sch: M.fwd_level_2d_mxu(t, lo, hi, s, (f32, bf16)),
                               lambda t, s=sch: M.fwd_level_2d_mxu_ref(t, lo, hi, s, (f32, bf16)),
-                              f"{sch} {in_dt} in, {shape}", limit=tier_limit))
+                              f"{sch} {in_dt} in, {shape}", limit=scheme_limit(sch)))
             m = (shape[1] // 2, shape[2] // 2)
             bands = [rand(shape[0], *m)] + [(rand(shape[0], *m) - 127.5).to(in_dt)
                                             for _ in range(3)]
@@ -1230,6 +1296,23 @@ def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> Non
                                                                      o),
                 f"{w.name} {sch} {det} details, {out} out, subbands {shape}",
                 limit=scheme_limit(sch)))
+    # kernel 11 on kernel 13's body at output step 2: every scheme, 37 x 53
+    # and 1 x 1 subbands, a batch of 3, 2, 5 (odd), 40 and 128 taps, float32
+    # and bf16 input and details (inputs from a generator of their own)
+    odd5 = make_custom_wavelet("odd5", *np.random.default_rng(5).standard_normal((4, 5)))
+    g11 = torch.Generator(device=dev).manual_seed(11)
+    for sch in M.SCHEMES:
+        for w, shape, in_dt, det in [(haar2, (3, 74, 106), bf16, f32),
+                                     (w40, (1, 74, 106), f32, bf16),
+                                     (w128, (1, 40, 70), bf16, bf16), (odd5, (3, 2, 2), f32, f32)]:
+            xin = (torch.rand(shape, device=dev, generator=g11) * 255.0).to(in_dt)
+            cases.append(Case(
+                "fwd_level_2d_mxu", xin,
+                lambda t, w=w, s=sch, d=det: M.fwd_level_2d_mxu(t, w.dec_lo, w.dec_hi, s,
+                                                                 (f32, d)),
+                lambda t, w=w, s=sch, d=det: M.fwd_level_2d_mxu_ref(t, w.dec_lo, w.dec_hi, s,
+                                                                     (f32, d)),
+                f"{w.name} {sch} {in_dt} in, {det} details, {shape}", limit=scheme_limit(sch)))
     run_cases(cases, report, card)
 
     # ---------------- (b) and (c): the tiers through the entry points ----------------

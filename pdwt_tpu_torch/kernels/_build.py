@@ -108,14 +108,16 @@ def load() -> ctypes.CDLL:
         "pdwt_fwd_level_1d": [P, P, P, I, I, P, P, I, I, P],
         # lo, hi, out, B, M, taps_lo, taps_hi, hlen, geometry, stream
         "pdwt_inv_level_1d": [P, P, P, I, I, P, P, I, P, P],
-        # x, lo, hi, B, N, taps_lo, taps_hi, hlen, dilation, center, stream
-        "pdwt_swt_fwd_level_1d": [P, P, P, I, I, P, P, I, I, I, P],
+        # x, lo, hi, B, N, taps (4, hlen on the device), hlen, dilation, center, the
+        # launch plan (lc, gc, nt, threads, grid x, y, z, smem), stream
+        "pdwt_swt_fwd_level_1d": [P, P, P, I, I, P, I, I, I, *[I] * 8, P],
         # lo, hi, out, B, N, taps (4, hlen on the device), hlen, dilation, center, the
         # launch plan (lc, gc, nt, threads, grid x, y, z, smem), stream
         "pdwt_swt_inv_level_1d": [P, P, P, I, I, P, I, I, I, *[I] * 8, P],
-        # x, a, h, v, d, B, R, C, taps lo1, lo2, hi1, hi2, hlen, center, scheme,
-        # in_bf16, det_bf16, stream
-        "pdwt_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, P, P, P, I, I, I, I, I, P],
+        # x, a, h, v, d, B, R, C, taps (4, hlen on the device), hlen, center, scheme,
+        # in_bf16, det_bf16, the launch plan (lr, lc, gc, nph, nt, threads, grid x, y, z,
+        # smem), stream
+        "pdwt_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, *[I] * 10, P],
         # a, h, v, d, out, B, Mr, Mc, taps (4, hlen on the device), hlen, geometry, scheme,
         # det_bf16, out_bf16, the launch plan (lr, lc, nt, threads, grid x, y, z, smem),
         # stream

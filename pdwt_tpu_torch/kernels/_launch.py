@@ -250,3 +250,51 @@ def consecutive_columns(f: int, lc: int, span: int) -> bool:
     consecutive window is at most 1.4x the other and a column strip of
     COL_STRIP outputs f apart fits the tile."""
     return f * COL_STRIP <= lc and 5 * (lc + span * f) <= 7 * (lc + span)
+
+
+#: taps per chunk of the 2D analysis's strips (swt_matmul.cu: kFwdCh)
+FWD_CHUNK = 8
+#: the 2D analysis's tiles: a wider one first (its halo is the smallest)
+FWD_TILES = ((32, 128),) + PLAN_TILES
+
+
+def fwd_smem(scheme: str, lr: int, lc: int, dc: int, nt: int, nph: int, os_: int = 1) -> int:
+    """swt_matmul.cu: fwd_smem at output step ``os_`` -- taps, index
+    tables, the window (the 4 / nph output tiles after the row pass), two
+    temps."""
+    nd, es = stage_bytes(scheme)
+    wr, wc = os_ * (lr - 1) + nt, os_ * (lc - 1) + (nt - 1) * dc + 1
+    tile = 4 * (4 // nph) * lr * (lc + 1)
+    return (16 * nt + align16(4 * (wr + wc)) + align16(max(nd * wr * wc * es, tile))
+            + 2 * nd * lr * temp_pitch(wc, es) * es)
+
+
+def fwd_plan(B: int, R: int, C: int, hlen: int, f: int, scheme: str, os_: int) -> InvPlan:
+    """The launch of swt_matmul.cu's 2D analysis body (kernel 13 at output
+    step 1, kernel 11 at step 2) on a (B, R, C) input at output step
+    ``os_`` (outputs R / os_ x C / os_): candidates, largest tile first, lr
+    output rows of one residue class mod f by lc output columns,
+    consecutive or one residue class (``consecutive_columns``; always
+    consecutive at f = 1); all four output tiles at once (nph = 1) or two
+    at a time; taps padded to nt.  The first that fits two blocks on an SM
+    and gives ``block_target`` blocks for the input's size (the four
+    subbands' outputs together), so the deep levels and small images take
+    smaller tiles.  Always 256 threads, as the other analyses on
+    ``band_strip.cuh``."""
+    nt = cdiv(hlen, FWD_CHUNK) * FWD_CHUNK
+    pr = ROW_STRIP[scheme]
+    ro, co = R // os_, C // os_
+    cands = []
+    for lr, lc in FWD_TILES:
+        if lr % pr:
+            continue
+        gc = 1 if consecutive_columns(f, lc, nt - 1) else f
+        dc = f // gc
+        grid = (cdiv(co, lc) if gc == 1 else axis_blocks(co, f, lc), axis_blocks(ro, f, lr),
+                min(B, 65535))
+        if lc % (COL_STRIP * dc) or grid[1] > 65535:
+            continue
+        for nph in (1, 2):
+            cands.append(InvPlan(lr, lc, gc, nph, nt, 256, grid,
+                                 fwd_smem(scheme, lr, lc, dc, nt, nph, os_)))
+    return pick_plan(cands, block_target(B, R, C))

@@ -17,8 +17,9 @@ A wrapper given a CPU tensor returns its plain version, built on
 ``core/conv.py``; given a CUDA tensor it launches its kernel or raises.
 Each launch adds one to ``LAUNCHES[<wrapper name>]``.  The kernels take
 any batch, length, filter length (odd included) and dilation.  The a-trous
-synthesis runs kernel 16's a-trous body (``csrc/mxu1d.cu``) in the ``fd``
-scheme on float32 bands, on ``mxu1d.inv1d_launch_plan``'s plan.
+pair runs the a-trous bodies of kernels 15 and 16 (``csrc/mxu1d.cu``) in the
+``fd`` scheme on float32 data, on the plans of ``mxu1d.fwd1d_launch_plan``
+and ``mxu1d.inv1d_launch_plan``.
 
 Filters are forward-convention float64 arrays.  A 1D a-trous synthesis is
 one pass, so the wrapper folds ONE 1/2 into the inverse's taps
@@ -39,7 +40,7 @@ import torch
 
 from ..core import conv
 from ._launch import check_span, dilation, dual_taps, launch, on_cpu, poly_geo, ptr, rev, taps
-from .mxu1d import inv1d_launch_plan
+from .mxu1d import fwd1d_launch_plan, inv1d_launch_plan
 
 
 def _half(f) -> np.ndarray:
@@ -123,13 +124,15 @@ def swt_fwd_level_1d(x: torch.Tensor, dec_lo, dec_hi, level: int):
     if on_cpu(x, ndim=2):
         return swt_fwd_level_1d_ref(x, dec_lo, dec_hi, level)
     f = dilation(level)
-    tl, th = taps(dec_lo), taps(dec_hi)
-    check_span(len(tl), f)
     B, n = x.shape
+    tp = dual_taps((dec_lo, dec_hi), "fd", x.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
+    pl = fwd1d_launch_plan(B, n, hlen, f, "fd", False)
     lo, hi = torch.empty_like(x), torch.empty_like(x)
     launch("swt_fwd_level_1d", x.device,
-           [ptr(x), ptr(lo), ptr(hi), B, n, ptr(tl), ptr(th), len(tl), f,
-            conv.fwd_center(len(tl)) * f])
+           [ptr(x), ptr(lo), ptr(hi), B, n, ptr(tp), hlen, f, conv.fwd_center(hlen) * f,
+            pl.lc, pl.gc, pl.nt, pl.threads, *pl.grid, pl.smem])
     return lo, hi
 
 

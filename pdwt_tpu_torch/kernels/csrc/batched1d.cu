@@ -7,13 +7,14 @@
 //
 //   fwd_level_1d_kernel      <- _make_1d_fwd_kernel      (swt_pallas.py:395)
 //   inv_level_1d_kernel      <- _make_1d_inv_kernel      (swt_pallas.py:455)
-//   swt_fwd_level_1d_kernel  <- _make_swt1d_fwd_kernel   (swt_pallas.py:528)
+//   mxu1d.cu: fwd1d_strip_kernel<FD, 1>
+//                            <- _make_swt1d_fwd_kernel   (swt_pallas.py:528)
 //   mxu1d.cu: inv1d_strip_kernel<FD, 1>
 //                            <- _make_swt1d_inv_kernel   (swt_pallas.py:593)
 //
-// The a-trous synthesis (kernel 10) runs kernel 16's a-trous body in the fd
-// scheme on float32 bands (see its entry point below); the notes on layout
-// and bound here are the other three's.
+// The a-trous pair (kernels 9 and 10) runs the a-trous bodies of kernels 15
+// and 16 in the fd scheme on float32 data (see their entry points below);
+// the notes on layout and bound here are the other two's.
 //
 // Every kernel filters along the last axis of a (B, N) batch of signals.
 // Index spec (pdwt_tpu_torch/core/conv.py, the same as pdwt_tpu/core/conv.py),
@@ -45,16 +46,17 @@
 // Periodic boundaries are an index mod N at load time; nothing is padded on
 // the host.  An output whose taps lie inside the signal indexes with no wrap;
 // one near an edge steps its index and wraps it, starting from a full mod, so
-// a support wider than the signal (n = 10 with hlen 16, or a dilation larger
-// than the signal) wraps as often as it needs.
+// a support wider than the signal (n = 10 with hlen 16) wraps as often as it
+// needs.
 //
 // Bound: device memory.  Per level a kernel reads its input once and writes
 // its output once; the taps' re-reads of neighbouring samples hit L1 (or
 // shared memory for the decimated analysis), and 2*hlen FMAs per output are
-// cheap beside the bytes.  The dilated support is never staged, so nothing
-// grows with the level.
+// cheap beside the bytes.
 
 #include <cuda_runtime.h>
+
+#include "mxu_common.cuh"
 
 #define PDWT_MAX_HLEN 128
 
@@ -90,32 +92,6 @@ struct Place {
 __device__ __forceinline__ Place place(int ntile) {
   const unsigned g = blockIdx.x / ntile, t = blockIdx.x % ntile;
   return {(long long)g * blockDim.y + threadIdx.y, static_cast<int>(t) * (int)blockDim.x};
-}
-
-// sum_j t[j] * s[(k0 + j*step) mod N] for the two filters, in tap order.
-__device__ __forceinline__ void dual_fir(const float* __restrict__ s, int N, long long k0,
-                                         int step, int hlen, const float* tlo,
-                                         const float* thi, float& lo, float& hi) {
-  lo = 0.f;
-  hi = 0.f;
-  if (k0 >= 0 && k0 + (long long)(hlen - 1) * step < N) {
-    const int k = static_cast<int>(k0);
-    for (int j = 0; j < hlen; ++j) {
-      const float v = __ldg(s + k + j * step);
-      lo = fmaf(tlo[j], v, lo);
-      hi = fmaf(thi[j], v, hi);
-    }
-    return;
-  }
-  const int st = step % N;
-  long long k = wrapl(k0, N);  // k + st may pass INT_MAX when N > 2^30
-  for (int j = 0; j < hlen; ++j) {
-    const float v = __ldg(s + k);
-    lo = fmaf(tlo[j], v, lo);
-    hi = fmaf(thi[j], v, hi);
-    k += st;
-    if (k >= N) k -= N;
-  }
 }
 
 // sum_b t[p + 2b] * s[(k0 + b*step) mod N], b < nb, in tap order.
@@ -209,28 +185,6 @@ inv_level_1d_kernel(const float* __restrict__ lo, const float* __restrict__ hi,
   *reinterpret_cast<float2*>(out + (size_t)pl.row * 2 * M + 2 * m) = make_float2(res[0], res[1]);
 }
 
-// ---------------------------------------------------------------------------
-// A-trous analysis level.  Replaces _make_swt1d_fwd_kernel (swt_pallas.py:528).
-// Thread n reads its hlen taps f apart straight from memory: for each tap a
-// warp reads 32 consecutive floats, coalesced, through L1, and for small f the
-// neighbouring taps hit the same lines.  Nothing is staged, so the dilated
-// support ((hlen - 1) * f samples, past shared memory at large f) costs no
-// shared memory at any level.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NT)
-swt_fwd_level_1d_kernel(const float* __restrict__ x, float* __restrict__ lo,
-                        float* __restrict__ hi, int B, int N, int hlen, int f, int cen,
-                        int ntile, const __grid_constant__ Taps taps) {
-  const Place pl = place(ntile);
-  const int n = pl.pos0 + threadIdx.x;
-  if (pl.row >= B || n >= N) return;
-  float l, h;
-  dual_fir(x + (size_t)pl.row * N, N, (long long)n - cen, f, hlen, taps.lo, taps.hi, l, h);
-  const size_t o = (size_t)pl.row * N + n;
-  lo[o] = l;
-  hi[o] = h;
-}
-
 Taps make_taps(const float* lo, const float* hi, int hlen) {
   Taps t = {};
   for (int i = 0; i < hlen; ++i) {
@@ -292,25 +246,31 @@ extern "C" int pdwt_inv_level_1d(const float* lo, const float* hi, float* out, i
   return cudaGetLastError();
 }
 
-// `cen` is the dilated center: fwd_center(hlen) * f.
+// Kernels 9 and 10 run the a-trous bodies of kernels 15 and 16 (mxu1d.cu:
+// fwd1d_strip_kernel<FD, 1>, inv1d_strip_kernel<FD, 1>) in the fd scheme on
+// float32 data: every output sums the taps in order, each one FMA into one
+// float32 sum per filter (the synthesis: the low taps on the low band, then
+// the high taps on the high band), as the direct kernels they replace did
+// (the zero taps that pad a filter to the strip's chunk leave the sum as it
+// is).
+extern "C" int pdwt_swt_fwd_level_1d_mxu(const void* x, float* lo, void* hi, int B, int N,
+                                         const float* taps, int hlen, int f, int cen, int scheme,
+                                         int in_bf16, int hi_bf16, int lc, int gc, int nt,
+                                         int threads, int gx, int gy, int gz, int smem,
+                                         void* stream);
+
+// `taps` is the (4, hlen) float32 device buffer of kernels/_launch.py:
+// dual_taps in fd (the second values 0); `cen` is the dilated center,
+// fwd_center(hlen) * f; the launch plan is kernels/mxu1d.py:
+// fwd1d_launch_plan's (fd, a-trous), checked by the entry point it calls.
 extern "C" int pdwt_swt_fwd_level_1d(const float* x, float* lo, float* hi, int B, int N,
-                                     const float* taps_lo, const float* taps_hi, int hlen,
-                                     int f, int cen, void* stream) {
-  if (f < 1) return cudaErrorInvalidValue;
-  Geometry g;
-  cudaError_t e = geometry(B, N, hlen, &g);
-  if (e != cudaSuccess) return e;
-  swt_fwd_level_1d_kernel<<<g.grid, g.block, 0, (cudaStream_t)stream>>>(
-      x, lo, hi, B, N, hlen, f, cen, g.ntile, make_taps(taps_lo, taps_hi, hlen));
-  return cudaGetLastError();
+                                     const float* taps, int hlen, int f, int cen, int lc, int gc,
+                                     int nt, int threads, int gx, int gy, int gz, int smem,
+                                     void* stream) {
+  return pdwt_swt_fwd_level_1d_mxu(x, lo, hi, B, N, taps, hlen, f, cen, pdwt_mxu::FD, 0, 0, lc,
+                                   gc, nt, threads, gx, gy, gz, smem, stream);
 }
 
-// Kernel 10 runs kernel 16's a-trous body (mxu1d.cu: inv1d_strip_kernel<FD,
-// 1>) in the fd scheme on float32 bands and a float32 output: every output
-// sums the low taps on the low band, then the high taps on the high band,
-// each one FMA in tap order into one float32 sum, as the direct kernel this
-// replaces did (the zero taps that pad the filter to the strip's chunk leave
-// the sum as it is).
 extern "C" int pdwt_swt_inv_level_1d_mxu(const float* lo, const void* hi, void* out, int B, int M,
                                          const float* taps, int hlen, int f, int cen,
                                          const int* geo, int scheme, int hi_bf16, int out_bf16,
@@ -326,7 +286,6 @@ extern "C" int pdwt_swt_inv_level_1d(const float* lo, const float* hi, float* ou
                                      const float* taps, int hlen, int f, int cen, int lc, int gc,
                                      int nt, int threads, int gx, int gy, int gz, int smem,
                                      void* stream) {
-  const int fd = 1;  // the scheme's index in kernels/matmul.py:SCHEMES
-  return pdwt_swt_inv_level_1d_mxu(lo, hi, out, B, N, taps, hlen, f, cen, nullptr, fd, 0, 0, lc,
-                                   gc, nt, threads, gx, gy, gz, smem, stream);
+  return pdwt_swt_inv_level_1d_mxu(lo, hi, out, B, N, taps, hlen, f, cen, nullptr, pdwt_mxu::FD,
+                                   0, 0, lc, gc, nt, threads, gx, gy, gz, smem, stream);
 }

@@ -78,7 +78,9 @@ __device__ __forceinline__ void stage_lines(const Bands& src, long long row0, in
 // The taps (the (4, hlen) device buffer) are padded with zeros to nt, a
 // multiple of 8, and read around the first staging.  The plan
 // (kernels/mxu1d.py: fwd1d_launch_plan) picks lc and gc, and the entry
-// points refuse a plan that does not add up.
+// points refuse a plan that does not add up.  Kernel 9, the exact a-trous
+// analysis (batched1d.cu: pdwt_swt_fwd_level_1d), runs the a-trous instance
+// in fd on a float32 input and high band.
 // ---------------------------------------------------------------------------
 constexpr int kFwdCh = 8;  // taps per chunk of the analysis's strips
 
@@ -116,13 +118,19 @@ fwd1d_strip_kernel(const void* __restrict__ x, float* __restrict__ lo, void* __r
   const int frc = gc == 1 ? 1 : (f < n_out ? f : n_out);
   const int rho = blockIdx.x % frc, q0 = (blockIdx.x / frc) * lc;
   fill_index(cols, W, OS * (rho + (long long)gc * q0) - cen, gc, N);
-  const Bands src = {{x}, in_bf16 ? 1u : 0u};
   __syncthreads();
   auto tap = [&](int e) { return dual_tap(e, nt, hlen); };
   const int ngroups = (B + kRows - 1) / kRows;
   for (int grp = blockIdx.y; grp < ngroups; grp += gridDim.y) {
     const long long row0 = (long long)grp * kRows;
-    auto stage_win = [&] { stage_lines<S, 1>(src, row0, B, N, cols, W, win, LP, 0); };
+    // one staging per input type, each with the type a constant
+    // (band_strip.cuh: Bands)
+    auto stage_win = [&] {
+      if (in_bf16)
+        stage_lines<S, 1>(Bands{{x}, 1u}, row0, B, N, cols, W, win, LP, 0);
+      else
+        stage_lines<S, 1>(Bands{{x}, 0u}, row0, B, N, cols, W, win, LP, 0);
+    };
     if (grp == (int)blockIdx.y)
       fill_around(t1, 4 * nt, taps, tap, stage_win);
     else
@@ -302,7 +310,7 @@ cudaError_t launch_fwd(const void* x, float* lo, void* hi, int B, int N, const f
     if (lc % (kRowStrip<S> * (f / gc)) || (size_t)smem != fwd1d_smem<S>(OS, lc, f / gc, nt))
       return cudaErrorInvalidValue;
     auto kernel = fwd1d_strip_kernel<S, OS>;
-    cudaError_t e = prepare(kernel, smem, 0);
+    cudaError_t e = prepare(kernel, smem);
     if (e != cudaSuccess) return e;
     kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
         x, lo, hi, in_bf16, hi_bf16, B, N, hlen, f, cen, taps, lc, gc, nt);
@@ -339,7 +347,7 @@ cudaError_t launch_inv(const float* lo, const void* hi, void* out, int B, int M,
     if (lc % (kRowStrip<S> * (f / gc)) || (size_t)smem != inv1d_smem<S>(NPH, lc, f / gc, nt))
       return cudaErrorInvalidValue;
     auto kernel = inv1d_strip_kernel<S, NPH>;
-    cudaError_t e = prepare(kernel, smem, 0);
+    cudaError_t e = prepare(kernel, smem);
     if (e != cudaSuccess) return e;
     kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
         lo, hi, out, hi_bf16, out_bf16, B, M, hlen, f, cen, g, taps, lc, gc, nt);

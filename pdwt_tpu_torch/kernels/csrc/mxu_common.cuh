@@ -1,6 +1,6 @@
-// The compute schemes of the precision tiers, shared by matmul.cu and
-// separable.cu (2D; kernel 12 runs separable.cu's synthesis), mxu1d.cu
-// (batched 1D), swt_matmul.cu (2D a-trous) and ns_matmul.cu (rank-r
+// The compute schemes of the precision tiers, shared by separable.cu (2D;
+// kernel 12 runs its synthesis), swt_matmul.cu (2D a-trous; kernel 11 runs its
+// analysis at step 2), mxu1d.cu (batched 1D) and ns_matmul.cu (rank-r
 // non-separable); swt.cu takes the thresholds and the periodic index from here
 // too.  The scheme table is pdwt_tpu_torch/kernels/matmul.py's:
 //
@@ -30,26 +30,6 @@ namespace pdwt_mxu {
 
 // The order of kernels/matmul.py:SCHEMES.
 enum Scheme { B1 = 0, FD = 1, B2F = 2, B2D = 3, B3 = 4 };
-
-// Taps of the two filters, correlation order: first and second of each.
-struct Taps4 {
-  float lo1[PDWT_MXU_MAX_HLEN];
-  float lo2[PDWT_MXU_MAX_HLEN];
-  float hi1[PDWT_MXU_MAX_HLEN];
-  float hi2[PDWT_MXU_MAX_HLEN];
-};
-
-inline Taps4 make_taps4(const float* lo1, const float* lo2, const float* hi1,
-                        const float* hi2, int hlen) {
-  Taps4 t = {};
-  for (int i = 0; i < hlen; ++i) {
-    t.lo1[i] = lo1[i];
-    t.lo2[i] = lo2[i];
-    t.hi1[i] = hi1[i];
-    t.hi2[i] = hi2[i];
-  }
-  return t;
-}
 
 // poly_geometry(hlen) of core/conv.py: the polyphase synthesis's offsets.
 struct Poly {
@@ -136,18 +116,6 @@ struct Acc {
   }
 };
 
-template <typename T>
-struct Type {
-  using type = T;
-};
-
-// Call f(Type<__nv_bfloat16>) or f(Type<float>): a storage type picked at run
-// time, a template argument inside f.
-template <typename F>
-cudaError_t with_type(int is_bf16, F&& f) {
-  return is_bf16 ? f(Type<__nv_bfloat16>{}) : f(Type<float>{});
-}
-
 // Call f(std::integral_constant<int, S>) for a runtime scheme S.
 template <typename F>
 cudaError_t with_scheme(int scheme, F&& f) {
@@ -161,28 +129,15 @@ cudaError_t with_scheme(int scheme, F&& f) {
   }
 }
 
-// The block's copy of the taps, one float4 (lo1, lo2, hi1, hi2) per tap, in
-// static shared memory: one broadcast load gives a tap of both filters and
-// both terms.  Read from the kernel parameter at a tap index that varies at
-// run time, each tap is a constant-bank load, and the pair schemes (four
-// taps per index) ran 2-4x slower so on an H100.
-constexpr size_t kTapsSmem = PDWT_MXU_MAX_HLEN * sizeof(float4);
-
-__device__ __forceinline__ void stage_taps(float4* tq, const Taps4& tp, int hlen) {
-  const int t = (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x + threadIdx.x;
-  for (int j = t; j < hlen; j += blockDim.x * blockDim.y * blockDim.z)
-    tq[j] = make_float4(tp.lo1[j], tp.lo2[j], tp.hi1[j], tp.hi2[j]);
-}
-
 constexpr size_t kSmemLimit = 232448;  // shared memory a block may use
 
-// Allow `smem` bytes of dynamic shared memory beside `static_smem` bytes of
-// static shared memory (the taps).  Past 48 KB in all a launch needs the
-// kernel's opt-in, or it is refused.
+// Allow `smem` bytes of dynamic shared memory (the kernels use no static
+// shared memory).  Past 48 KB a launch needs the kernel's opt-in, or it is
+// refused.
 template <typename K>
-cudaError_t prepare(K kernel, size_t smem, size_t static_smem = kTapsSmem) {
-  if (smem + static_smem > kSmemLimit) return cudaErrorInvalidValue;
-  if (smem + static_smem > 48 * 1024)
+cudaError_t prepare(K kernel, size_t smem) {
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024)
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)smem);
   return cudaSuccess;

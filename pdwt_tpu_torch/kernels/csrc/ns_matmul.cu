@@ -410,7 +410,7 @@ extern "C" int pdwt_ns_fwd_level_2d_mxu(const void* x, float* a, void* h, void* 
     return with_rank(rank, [&](auto rk) -> cudaError_t {
       constexpr int Rk = decltype(rk)::value;
       auto launch = [&](auto kernel) -> cudaError_t {
-        cudaError_t e2 = prepare(kernel, smem, 0);
+        cudaError_t e2 = prepare(kernel, smem);
         if (e2 != cudaSuccess) return e2;
         kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
             x, a, h, v, d, in_bf16, det_bf16, B, R, C, Ro, Co, hlen, f, cen, taps, lr, lc, gc,
@@ -458,7 +458,7 @@ extern "C" int pdwt_ns_inv_level_2d_mxu(const float* a, const void* h, const voi
     return with_rank(rank, [&](auto rk) -> cudaError_t {
       constexpr int R = decltype(rk)::value;
       auto kernel = ns_inv_mxu_kernel<S, R>;
-      cudaError_t e2 = prepare(kernel, smem, 0);
+      cudaError_t e2 = prepare(kernel, smem);
       if (e2 != cudaSuccess) return e2;
       kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
           a, h, v, d, out, det_bf16, out_bf16, B, Mr, Mc, hlen, f, g, taps, lr, lc, gc, nt);

@@ -492,7 +492,7 @@ int launch_inv_level(const float* a, const void* h, const void* v, const void* d
     if (lr % kRowStrip<S> || (size_t)smem != inv_smem<S>(offmax, lr, lc, nt))
       return cudaErrorInvalidValue;
     auto kernel = inv_level_kernel<S>;
-    cudaError_t e = prepare(kernel, smem, 0);
+    cudaError_t e = prepare(kernel, smem);
     if (e != cudaSuccess) return e;
     kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
         a, h, v, d, out, det_bf16, out_bf16, B, Mr, Mc, hlen, g, taps, lr, lc, nt);
@@ -512,7 +512,7 @@ extern "C" int pdwt_fwd_level_2d(const float* x, float* a, float* h, float* v, f
     return cudaErrorInvalidValue;
   const int W = 2 * LT + hlen - 2;
   const size_t smem = sizeof(float) * ((size_t)W * W + 2 * (size_t)W * LT);
-  cudaError_t e = prepare(fwd_level_kernel, smem, 0);
+  cudaError_t e = prepare(fwd_level_kernel, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid = level_grid(R / 2, C / 2, B);
   if (grid.y > 65535) return cudaErrorInvalidConfiguration;
@@ -545,7 +545,7 @@ extern "C" int pdwt_fwd_tail_2d(const float* x, float* a_out, void* const* det, 
   OutBands bands = {};
   for (int i = 0; i < 3 * levels; ++i) bands.p[i] = static_cast<float*>(det[i]);
   const size_t smem = sizeof(float) * 2 * (size_t)R * C;
-  cudaError_t e = prepare(fwd_tail_kernel, smem, 0);
+  cudaError_t e = prepare(fwd_tail_kernel, smem);
   if (e != cudaSuccess) return e;
   fwd_tail_kernel<<<B, TAIL_THREADS, smem, (cudaStream_t)stream>>>(
       x, a_out, bands, R, C, levels, hlen, cen, make_taps(taps_lo, taps_hi, hlen));
@@ -563,7 +563,7 @@ extern "C" int pdwt_inv_tail_2d(const float* a, void* const* det, float* out, in
   InBands bands = {};
   for (int i = 0; i < 3 * levels; ++i) bands.p[i] = static_cast<const float*>(det[i]);
   const size_t smem = sizeof(float) * 2 * ((size_t)Mr << levels) * ((size_t)Mc << levels);
-  cudaError_t e = prepare(inv_tail_kernel, smem, 0);
+  cudaError_t e = prepare(inv_tail_kernel, smem);
   if (e != cudaSuccess) return e;
   inv_tail_kernel<<<B, TAIL_THREADS, smem, (cudaStream_t)stream>>>(
       a, bands, out, Mr, Mc, levels, hlen, make_poly(geo), make_taps(taps_lo, taps_hi, hlen));

@@ -7,6 +7,10 @@
 //   swt_fwd_mxu_kernel  <- _swt_fwd_mxu_kernel  (swt_matmul_pallas.py:166)
 //   swt_inv_mxu_kernel  <- _swt_inv_mxu_kernel  (swt_matmul_pallas.py:293)
 //
+// The forward is templated on its output step: at step 2 and dilation 1 it
+// is also the tiers' decimated 2D analysis (kernel 11, _fwd_mxu_kernel of
+// matmul_pallas.py:242), reached through matmul.cu's entry point.
+//
 // On the TPU each pass of a stationary level is a banded matrix product on the
 // MXU whose band has stride f = 2^(level-1), in a compute scheme (b1, fd, b2f,
 // b2d, b3; mxu_common.cuh states each).  Here the band is evaluated directly on
@@ -51,51 +55,60 @@ using namespace pdwt_mxu;
 using namespace pdwt_strip;
 
 // ---------------------------------------------------------------------------
-// Forward level.  Replaces _swt_fwd_mxu_kernel (swt_matmul_pallas.py:166).
-// Redesigned for Hopper's CUDA cores (band_strip.cuh), as the inverse below
-// and the rank-r analysis at stride 1 (ns_matmul.cu), in this kernel's pass
-// order: rows first.  A block owns lr output rows of one residue class mod f
-// (window row i <-> row rho + f (q0 + i - cen), dilation 1 inside the
-// window) by lc output columns, consecutive (gc = 1: a tap steps dc = f
-// window columns) or one residue class (gc = f, dc = 1, where a consecutive
-// window would grow more than 1.4x).  Per batch item: stage the input window
-// (WR = lr + nt - 1 rows by WC = lc + (nt - 1) dc columns, wrapped through
-// 32-bit index tables, up to 18 loads per thread in flight, split into the
-// scheme's operands); along the rows, each thread takes a strip of kRowStrip
-// output rows of one window column, lanes along the columns, and sums the
-// low and the high filter from one read of each sample (R = 2) into two
-// shared temps, split again; along the columns, each thread takes a strip
-// of kColStrip outputs dc apart of one temp row, lanes along the rows (the
-// temps' pitches are odd numbers of words), and sums both filters on the
-// low temp (A, V) and on the high temp (H, D) into float tiles in the
-// window's place, written out with lanes along the columns: all four at
-// once (nph = 1) or (A, V) then (H, D) when shared memory is short (nph =
-// 2, half the tiles).  Every output
-// keeps one float32 sum per scheme term in the plain version's order: taps
-// in order, the row-pass result split in between.  The taps (the (4, hlen)
-// device buffer) are padded with zeros to nt, a multiple of 8, and read
-// around the first staging.  The plan (kernels/swt_matmul.py:
-// swt_fwd_launch_plan) picks the tile so that the deep levels and small
-// images still fill the card, and the entry point refuses a plan that does
-// not add up.
+// Forward level, output step OS: 1 (a-trous, dilation f) or 2 (decimated, f
+// = 1).  Replaces _swt_fwd_mxu_kernel (swt_matmul_pallas.py:166) at OS = 1
+// and, through matmul.cu's entry point, _fwd_mxu_kernel
+// (matmul_pallas.py:242) at OS = 2: the same sums in the same order (rows
+// first, both filters from one read, the row-pass result split per scheme,
+// then the columns), at another step between outputs.  Redesigned for
+// Hopper's CUDA cores (band_strip.cuh), as the inverse below and the rank-r
+// analysis (ns_matmul.cu), in this kernel's pass order: rows first.  A block
+// owns lr output rows of one residue class mod f (window row i <-> input row
+// OS (rho + f q0) + (i - cen) f, dilation 1 inside the window) by lc output
+// columns, consecutive (gc = 1: a tap steps dc = f window columns; always at
+// OS = 2) or one residue class (gc = f, dc = 1, where a consecutive window
+// would grow more than 1.4x).  Per batch item: stage the input window (WR =
+// OS (lr - 1) + nt rows by WC = OS (lc - 1) + (nt - 1) dc + 1 columns,
+// wrapped through 32-bit index tables, up to 18 loads per thread in flight,
+// split into the scheme's operands; one staging per input type, the type a
+// constant in each: band_strip.cuh, Bands); along the rows, each thread
+// takes a strip of kRowStrip output rows (OS window rows apart) of one
+// window column, lanes along the columns, and sums the low and the high
+// filter from one read of each sample (R = 2) into two shared temps, split
+// again; along the columns, each thread takes a strip of kColStrip outputs
+// dc apart (reading temp columns OS dc apart) of one temp row, lanes along
+// the rows (the temps' pitches are odd numbers of words), and sums both
+// filters on the low temp (A, V) and on the high temp (H, D) into float
+// tiles in the window's place, written out with lanes along the columns:
+// all four at once (nph = 1) or (A, V) then (H, D) when shared memory is
+// short (nph = 2, half the tiles).  Every output keeps one float32 sum per
+// scheme term in the plain version's order: taps in order, the row-pass
+// result split in between.  The taps (the (4, hlen) device buffer) are
+// padded with zeros to nt, a multiple of 8, and read around the first
+// staging.  The plans (kernels/swt_matmul.py: swt_fwd_launch_plan at OS =
+// 1, fwd_launch_plan at OS = 2) pick the tile so that the deep levels and
+// small images still fill the card, and the launcher refuses a plan that
+// does not add up.
 // ---------------------------------------------------------------------------
 constexpr int kFwdCh = 8;  // taps per chunk of the forward's strips
 
-// Shared-memory bytes of the forward: taps, index tables, the window (which
-// holds the 4 / nph output tiles once the row pass is done), the two temps.
-// kernels/swt_matmul.py:_fwd_smem mirrors it.
+// Shared-memory bytes of the forward at output step os: taps, index tables,
+// the window (which holds the 4 / nph output tiles once the row pass is
+// done), the two temps.  kernels/_launch.py:fwd_smem mirrors it.
 template <int S>
-size_t fwd_smem(int lr, int lc, int dc, int nt, int nph) {
+size_t fwd_smem(int os, int lr, int lc, int dc, int nt, int nph) {
   using St = Stage<S>;
   const size_t nd = kDataLo<S> ? 2 : 1;
-  const size_t WR = lr + nt - 1, WC = lc + (size_t)(nt - 1) * dc;
+  const size_t WR = (size_t)os * (lr - 1) + nt;
+  const size_t WC = (size_t)os * (lc - 1) + (size_t)(nt - 1) * dc + 1;
   const size_t win = nd * WR * WC * sizeof(St);
   const size_t tile = (4 / nph) * (size_t)lr * (lc + 1) * sizeof(float);
   return 16 * (size_t)nt + align16((WR + WC) * sizeof(int)) + align16(win > tile ? win : tile) +
          2 * nd * lr * temp_pitch<St>((int)WC) * sizeof(St);
 }
 
-template <int S>
+// R x C is the input, (R / OS) x (C / OS) each output.
+template <int S, int OS>
 __global__ void __launch_bounds__(256)
 swt_fwd_mxu_kernel(const void* __restrict__ x, float* __restrict__ a, void* __restrict__ h,
                    void* __restrict__ v, void* __restrict__ d, int in_bf16, int det_bf16, int B,
@@ -103,10 +116,14 @@ swt_fwd_mxu_kernel(const void* __restrict__ x, float* __restrict__ a, void* __re
                    int lc, int gc, int nph, int nt) {
   using St = Stage<S>;
   constexpr int nd = kDataLo<S> ? 2 : 1;
-  constexpr int PR = kRowStrip<S>, PC = kColStrip;
+  // at step 2 the column strips of the two- and three-term schemes hold
+  // kRowStrip outputs: eight of them took b3 to 216 registers (one block an
+  // SM) and 20-30 % more time on an H100 (PERF.md, section 6)
+  constexpr int PR = kRowStrip<S>, PC = OS == 2 ? kRowStrip<S> : kColStrip;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int dc = f / gc;
-  const int WR = lr + nt - 1, WC = lc + (nt - 1) * dc, TP = temp_pitch<St>(WC), OP = lc + 1;
+  const int Ro = R / OS, Co = C / OS, dc = f / gc;
+  const int WR = OS * (lr - 1) + nt, WC = OS * (lc - 1) + (nt - 1) * dc + 1;
+  const int TP = temp_pitch<St>(WC), OP = lc + 1;
   float* t1 = reinterpret_cast<float*>(smem_raw);  // lo | hi, first values
   float* t2 = t1 + 2 * nt;                          // second values
   int* rows = reinterpret_cast<int*>(t2 + 2 * nt);
@@ -119,21 +136,23 @@ swt_fwd_mxu_kernel(const void* __restrict__ x, float* __restrict__ a, void* __re
   St* tmp = reinterpret_cast<St*>(p + align16(wbytes > tbytes ? wbytes : tbytes));
   const int TS = nd * lr * TP;  // temp stride: the low temp, then the high one
 
-  const int frr = f < R ? f : R, frc = gc == 1 ? 1 : (f < C ? f : C);
+  const int frr = f < Ro ? f : Ro, frc = gc == 1 ? 1 : (f < Co ? f : Co);
   const int rho_r = blockIdx.y % frr, q0r = (blockIdx.y / frr) * lr;
   const int rho_c = blockIdx.x % frc, q0c = (blockIdx.x / frc) * lc;
-  // window column w <-> column rho_c + gc (q0c + w) - cen f
-  fill_index(rows, WR, rho_r + (long long)f * (q0r - cen), f, R);
-  fill_index(cols, WC, rho_c + (long long)gc * q0c - (long long)cen * f, gc, C);
-  const Bands src = {{x}, in_bf16 ? 1u : 0u};
+  // window column w <-> input column OS (rho_c + gc q0c) - cen f + gc w
+  fill_index(rows, WR, OS * (rho_r + (long long)f * q0r) - (long long)cen * f, f, R);
+  fill_index(cols, WC, OS * (rho_c + (long long)gc * q0c) - (long long)cen * f, gc, C);
   __syncthreads();
   auto tap = [&](int e) { return dual_tap(e, nt, hlen); };
 
   for (int b = blockIdx.z; b < B; b += gridDim.z) {
-    const size_t plane = (size_t)b * R * C;
+    const size_t plane = (size_t)b * R * C, oplane = (size_t)b * Ro * Co;
     auto stage_win = [&] {
-      stage_window<S, 1, 6, 3>(src, [&](int i) { return plane + (size_t)rows[i] * C; }, cols,
-                               WR, WC, win, WC, 0, WR * WC);
+      auto row = [&](int i) { return plane + (size_t)rows[i] * C; };
+      if (in_bf16)
+        stage_window<S, 1, 6, 3>(Bands{{x}, 1u}, row, cols, WR, WC, win, WC, 0, WR * WC);
+      else
+        stage_window<S, 1, 6, 3>(Bands{{x}, 0u}, row, cols, WR, WC, win, WC, 0, WR * WC);
     };
     if (b == (int)blockIdx.z)
       fill_around(t1, 4 * nt, taps, tap, stage_win);
@@ -144,7 +163,8 @@ swt_fwd_mxu_kernel(const void* __restrict__ x, float* __restrict__ a, void* __re
     for (int it = threadIdx.x; it < (lr / PR) * WC; it += blockDim.x) {
       const int r0 = (it / WC) * PR, w = it % WC;
       Acc<S> acc[2][PR];
-      band_strip<S, PR, 2, kFwdCh>(acc, win + r0 * WC + w, WR * WC, 0, 1, WC, t1, t2, nt, nt);
+      band_strip<S, PR, 2, kFwdCh, OS>(acc, win + OS * r0 * WC + w, WR * WC, 0, 1, WC, t1, t2,
+                                       nt, nt);
 #pragma unroll
       for (int k = 0; k < 2; ++k)
 #pragma unroll
@@ -161,8 +181,8 @@ swt_fwd_mxu_kernel(const void* __restrict__ x, float* __restrict__ a, void* __re
         const int r = it % lr, s = it / lr, t0 = s % dc + dc * (s / dc) * PC;
         for (int u = ph; u < 2; u += nph) {
           Acc<S> acc[2][PC];
-          band_strip<S, PC, 2, kFwdCh>(acc, tmp + u * TS + r * TP + t0, lr * TP, 0, 1, dc, t1,
-                                       t2, nt, nt);
+          band_strip<S, PC, 2, kFwdCh, OS>(acc, tmp + u * TS + r * TP + OS * t0, lr * TP, 0, 1,
+                                           dc, t1, t2, nt, nt);
 #pragma unroll
           for (int k = 0; k < 2; ++k)
 #pragma unroll
@@ -177,12 +197,12 @@ swt_fwd_mxu_kernel(const void* __restrict__ x, float* __restrict__ a, void* __re
         const int o = nph == 1 ? t : ph + 2 * t;
         const float* tt = tile + t * lr * OP;
         if (o == 0)
-          store_tile(a, plane, R, C, tt, OP, lr, lc, orow, ocol);
+          store_tile(a, oplane, Ro, Co, tt, OP, lr, lc, orow, ocol);
         else if (det_bf16)
-          store_tile(static_cast<__nv_bfloat16*>(outs[o]), plane, R, C, tt, OP, lr, lc, orow,
+          store_tile(static_cast<__nv_bfloat16*>(outs[o]), oplane, Ro, Co, tt, OP, lr, lc, orow,
                      ocol);
         else
-          store_tile(static_cast<float*>(outs[o]), plane, R, C, tt, OP, lr, lc, orow, ocol);
+          store_tile(static_cast<float*>(outs[o]), oplane, Ro, Co, tt, OP, lr, lc, orow, ocol);
       }
       __syncthreads();
     }
@@ -317,41 +337,65 @@ swt_inv_mxu_kernel(const float* __restrict__ a, const void* __restrict__ h,
 
 }  // namespace
 
+namespace pdwt_swtmm {
+
+// Launch the forward at output step os (1: a-trous at dilation f, outputs R
+// x C; 2: decimated, f = 1, R and C even, outputs R/2 x C/2) in compute
+// scheme `scheme` (the index in kernels/matmul.py:SCHEMES; the input bf16
+// where in_bf16, H, V, D bf16 where det_bf16) on its launch plan: tile lr x
+// lc outputs, column stride gc (1 or f), nph output phases, nt padded taps,
+// threads, grid (gx, gy, gz) and dynamic shared-memory bytes; a plan that
+// does not add up is refused (cudaErrorInvalidValue).  `taps` is a (4,
+// hlen) float32 device buffer: the low filter's first and second values,
+// then the high filter's, correlation order; `cen` is fwd_center(hlen).
+// Kernel 13 (pdwt_swt_fwd_level_2d_mxu, below) runs it at os = 1, kernel 11
+// (matmul.cu: pdwt_fwd_level_2d_mxu) at os = 2.
+int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R, int C,
+               const float* taps, int hlen, int os, int f, int cen, int scheme, int in_bf16,
+               int det_bf16, int lr, int lc, int gc, int nph, int nt, int threads, int gx,
+               int gy, int gz, int smem, void* stream) {
+  if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || R < 1 || C < 1 || f < 1 ||
+      !(os == 1 || (os == 2 && f == 1 && !((R | C) & 1))))
+    return cudaErrorInvalidValue;
+  const int Ro = R / os, Co = C / os;
+  if (nt < hlen || nt > PDWT_MXU_MAX_HLEN || nt % kFwdCh || !(gc == 1 || gc == f) ||
+      !(nph == 1 || nph == 2) || lr < 1 || lc < 1 || threads < 32 || threads > 256 ||
+      threads % 32 || lc % (kColStrip * (f / gc)) ||
+      !grid_fits(B, Ro, Co, f, lr, lc, gc, gx, gy, gz))
+    return cudaErrorInvalidValue;
+  return with_scheme(scheme, [&](auto sc) {
+    constexpr int S = decltype(sc)::value;
+    if (lr % kRowStrip<S> || (size_t)smem != fwd_smem<S>(os, lr, lc, f / gc, nt, nph))
+      return cudaErrorInvalidValue;
+    auto launch = [&](auto kernel) -> cudaError_t {
+      cudaError_t e = prepare(kernel, smem);
+      if (e != cudaSuccess) return e;
+      kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+          x, a, h, v, d, in_bf16, det_bf16, B, R, C, hlen, f, cen, taps, lr, lc, gc, nph, nt);
+      return cudaGetLastError();
+    };
+    return os == 2 ? launch(swt_fwd_mxu_kernel<S, 2>) : launch(swt_fwd_mxu_kernel<S, 1>);
+  });
+}
+
+}  // namespace pdwt_swtmm
+
 // Every entry point returns a cudaError_t as int: 0 once the launch has been
 // queued on `stream`, else the reason it was refused (cudaGetLastError()).
 // `scheme` is the index in kernels/matmul.py:SCHEMES; the *_bf16 flags pick
 // bf16 (1) or float32 (0) storage; `cen` is the center in taps
 // (fwd_center(hlen) forward, swt_inv_center(hlen) inverse), f the dilation.
 
-// `taps` is a (4, hlen) float32 device buffer: the low filter's first and
-// second values, then the high filter's, correlation order.  The launch plan
-// (kernels/swt_matmul.py:swt_fwd_launch_plan): tile lr x lc outputs, column
-// stride gc (1 or f), nph output phases, nt padded taps, threads, grid (gx,
-// gy, gz) and dynamic shared-memory bytes; a plan that does not add up is
-// refused (cudaErrorInvalidValue).
+// The forward at dilation f on the launch plan of
+// kernels/swt_matmul.py:swt_fwd_launch_plan (pdwt_swtmm::launch_fwd, os = 1).
 extern "C" int pdwt_swt_fwd_level_2d_mxu(const void* x, float* a, void* h, void* v, void* d,
                                          int B, int R, int C, const float* taps, int hlen, int f,
                                          int cen, int scheme, int in_bf16, int det_bf16, int lr,
                                          int lc, int gc, int nph, int nt, int threads, int gx,
                                          int gy, int gz, int smem, void* stream) {
-  if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || R < 1 || C < 1 || f < 1)
-    return cudaErrorInvalidValue;
-  if (nt < hlen || nt > PDWT_MXU_MAX_HLEN || nt % kFwdCh || !(gc == 1 || gc == f) ||
-      !(nph == 1 || nph == 2) || lr < 1 || lc < 1 || threads < 32 || threads > 256 ||
-      threads % 32 || lc % (kColStrip * (f / gc)) ||
-      !grid_fits(B, R, C, f, lr, lc, gc, gx, gy, gz))
-    return cudaErrorInvalidValue;
-  return with_scheme(scheme, [&](auto sc) {
-    constexpr int S = decltype(sc)::value;
-    if (lr % kRowStrip<S> || (size_t)smem != fwd_smem<S>(lr, lc, f / gc, nt, nph))
-      return cudaErrorInvalidValue;
-    auto kernel = swt_fwd_mxu_kernel<S>;
-    cudaError_t e = prepare(kernel, smem, 0);
-    if (e != cudaSuccess) return e;
-    kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-        x, a, h, v, d, in_bf16, det_bf16, B, R, C, hlen, f, cen, taps, lr, lc, gc, nph, nt);
-    return cudaGetLastError();
-  });
+  return pdwt_swtmm::launch_fwd(x, a, h, v, d, B, R, C, taps, hlen, 1, f, cen, scheme, in_bf16,
+                                det_bf16, lr, lc, gc, nph, nt, threads, gx, gy, gz, smem,
+                                stream);
 }
 
 // `taps` is a (4, hlen) float32 device buffer: the low filter's first and
@@ -383,7 +427,7 @@ extern "C" int pdwt_swt_inv_level_2d_mxu(const float* a, const void* h, const vo
     if (lr % kRowStrip<S> || (size_t)smem != inv_smem<S>(lr, lc, f / gc, nt, nph))
       return cudaErrorInvalidValue;
     auto kernel = swt_inv_mxu_kernel<S>;
-    cudaError_t e2 = prepare(kernel, smem, 0);
+    cudaError_t e2 = prepare(kernel, smem);
     if (e2 != cudaSuccess) return e2;
     kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
         a, h, v, d, out, det_bf16, out_bf16, B, R, C, hlen, f, cen, thresh_mode, beta, lr, lc, gc,

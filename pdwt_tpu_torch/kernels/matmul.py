@@ -5,8 +5,9 @@ Counterpart of ``pdwt_tpu/kernels/matmul_pallas.py`` (kernels 11 and 12)
 and of the scheme helpers of ``swt_matmul_pallas.py:111-159``.  On the TPU
 a decimating dual FIR runs as a banded matrix product on the MXU; what the
 product computes is fixed by its compute scheme, and that is what the CUDA
-kernels (``csrc/matmul.cu``; the synthesis runs kernel 2's body in
-``csrc/separable.cu``) and the plain versions here reproduce:
+kernels (entry points in ``csrc/matmul.cu``: the analysis runs kernel 13's
+body at output step 2 in ``csrc/swt_matmul.cu``, the synthesis kernel 2's
+body in ``csrc/separable.cu``) and the plain versions here reproduce:
 
 =======================  ====================================  =========================
 wrapper                  computes                              plain version
@@ -46,14 +47,16 @@ forward input's dtype.  The schemes are fixed when the forward runs.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..core import conv, precision
-from ._launch import (dual_taps, kernel_taps, launch, on_cpu, poly_geo, ptr, rev,
+from ._launch import (InvPlan, dual_taps, fwd_plan, launch, on_cpu, poly_geo, ptr, rev,
                       scheme_taps)
+from ._launch import kernel_taps  # noqa: F401 -- the plan tests' model of the taps
 from .separable import _c, inv_level_launch_plan
 
 F32, BF16 = torch.float32, torch.bfloat16
@@ -230,10 +233,21 @@ def _is_bf16(dtype: torch.dtype) -> int:
     return int(dtype == BF16)
 
 
+@functools.lru_cache(maxsize=256)
+def fwd_launch_plan(B: int, R: int, C: int, hlen: int, scheme: str) -> InvPlan:
+    """The launch of one decimated analysis level on an even (B, R, C)
+    image (kernel 11 on kernel 13's body: output step 2, dilation 1,
+    (R/2, C/2) subbands; ``_launch.fwd_plan``): the tier DWT's levels
+    (2048^2 down to 256^2 images) get 128-256 blocks."""
+    return fwd_plan(B, R, C, hlen, 1, scheme, 2)
+
+
 def fwd_level_2d_mxu(x: torch.Tensor, dec_lo, dec_hi, scheme: str, out_dtypes=(F32, F32)):
     """One analysis level on an even-sized (B, R, C) image (float32 or
     bf16) under ``scheme`` -> (a, h, v, d), each (B, R/2, C/2); a is
-    float32, h, v, d are ``out_dtypes[1]``."""
+    float32, h, v, d are ``out_dtypes[1]``.  The kernel is kernel 13's body
+    at output step 2 (``csrc/swt_matmul.cu: swt_fwd_mxu_kernel``), on the
+    plan of ``fwd_launch_plan``; it takes filters of up to 128 taps."""
     if on_cpu(x, dtypes=_DT):
         return fwd_level_2d_mxu_ref(x, dec_lo, dec_hi, scheme, out_dtypes)
     _check_scheme(scheme)
@@ -242,14 +256,16 @@ def fwd_level_2d_mxu(x: torch.Tensor, dec_lo, dec_hi, scheme: str, out_dtypes=(F
         raise ValueError(f"fwd_level_2d_mxu takes even sizes, got {(R, C)}")
     if out_dtypes[0] != F32:
         raise ValueError("the banded-product kernels keep the approximation in float32")
-    tp = kernel_taps((dec_lo, dec_hi), scheme)
+    tp = dual_taps((dec_lo, dec_hi), scheme, x.device)
+    hlen = tp.shape[1]
+    pl = fwd_launch_plan(B, R, C, hlen, scheme)
     a = torch.empty((B, R // 2, C // 2), device=x.device, dtype=F32)
     dets = [torch.empty((B, R // 2, C // 2), device=x.device, dtype=out_dtypes[1])
             for _ in range(3)]
     launch("fwd_level_2d_mxu", x.device,
-           [ptr(x), ptr(a), *map(ptr, dets), B, R, C, *map(ptr, tp), len(tp[0]),
-            conv.fwd_center(len(tp[0])), SCHEMES.index(scheme), _is_bf16(x.dtype),
-            _is_bf16(out_dtypes[1])])
+           [ptr(x), ptr(a), *map(ptr, dets), B, R, C, ptr(tp), hlen, conv.fwd_center(hlen),
+            SCHEMES.index(scheme), _is_bf16(x.dtype), _is_bf16(out_dtypes[1]), pl.lr, pl.lc,
+            pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
     return (a, *dets)
 
 

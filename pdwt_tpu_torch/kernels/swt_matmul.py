@@ -41,8 +41,9 @@ import torch
 
 from ..core import conv
 from ._launch import (COL_STRIP, PLAN_TILES, ROW_STRIP, InvPlan, align16, axis_blocks,
-                      block_target, cdiv, check_span, consecutive_columns, dilation, launch,
-                      on_cpu, pick_plan, plan_threads, ptr, rev, stage_bytes, temp_pitch)
+                      block_target, cdiv, check_span, consecutive_columns, dilation, fwd_plan,
+                      launch, on_cpu, pick_plan, plan_threads, ptr, rev, stage_bytes,
+                      temp_pitch)
 from .matmul import (_DT, BF16, F32, MXU_MAX_HLEN, SCHEMES, _check_scheme, _is_bf16,
                      dual_taps, fwd2d_ref, inv2d_ref, mode_out_dtypes, swt_bf16_scheme,
                      swt_scheme, tile_candidates)
@@ -121,48 +122,11 @@ def swt_inv_level_2d_mxu_ref(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str
 # launch plans of the two kernels (csrc/swt_matmul.cu)
 # ---------------------------------------------------------------------------
 
-#: taps per chunk of the forward's strips (swt_matmul.cu: kFwdCh)
-FWD_CHUNK = 8
-#: the forward's tiles: a wider one first (its halo is the smallest)
-FWD_TILES = ((32, 128),) + PLAN_TILES
-
-
-def _fwd_smem(scheme: str, lr: int, lc: int, dc: int, nt: int, nph: int) -> int:
-    """swt_matmul.cu: fwd_smem -- taps, index tables, the window (the 4 /
-    nph output tiles after the row pass), two temps."""
-    nd, es = stage_bytes(scheme)
-    wr, wc = lr + nt - 1, lc + (nt - 1) * dc
-    tile = 4 * (4 // nph) * lr * (lc + 1)
-    return (16 * nt + align16(4 * (wr + wc)) + align16(max(nd * wr * wc * es, tile))
-            + 2 * nd * lr * temp_pitch(wc, es) * es)
-
-
 @functools.lru_cache(maxsize=256)
 def swt_fwd_launch_plan(B: int, R: int, C: int, hlen: int, f: int, scheme: str) -> InvPlan:
-    """The launch of one a-trous analysis level on a (B, R, C) image.
-    Candidates, largest tile first: lr output rows of one residue class mod
-    f by lc output columns, consecutive or one residue class
-    (``consecutive_columns``); all four output tiles at once (nph = 1) or
-    two at a time; taps padded to nt.  The first that fits two blocks on an
-    SM and gives ``block_target`` blocks, so the deep levels of small
-    images take smaller tiles.  Always 256 threads, as the other analyses
-    on ``band_strip.cuh``."""
-    nt = cdiv(hlen, FWD_CHUNK) * FWD_CHUNK
-    pr = ROW_STRIP[scheme]
-    cands = []
-    for lr, lc in FWD_TILES:
-        if lr % pr:
-            continue
-        gc = 1 if consecutive_columns(f, lc, nt - 1) else f
-        dc = f // gc
-        grid = (cdiv(C, lc) if gc == 1 else axis_blocks(C, f, lc), axis_blocks(R, f, lr),
-                min(B, 65535))
-        if lc % (COL_STRIP * dc) or grid[1] > 65535:
-            continue
-        for nph in (1, 2):
-            cands.append(InvPlan(lr, lc, gc, nph, nt, 256, grid,
-                                 _fwd_smem(scheme, lr, lc, dc, nt, nph)))
-    return pick_plan(cands, block_target(B, R, C))
+    """The launch of one a-trous analysis level on a (B, R, C) image
+    (kernel 13: output step 1, dilation f; ``_launch.fwd_plan``)."""
+    return fwd_plan(B, R, C, hlen, f, scheme, 1)
 
 
 #: taps per chunk of the inverse's strips (swt_matmul.cu: kInvCh)

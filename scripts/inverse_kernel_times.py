@@ -1,7 +1,8 @@
 """Device time per level of the kernels redesigned for Hopper's CUDA cores
 (kernels 14 and 18, the banded-product inverses; kernels 2 and 6, the exact
 inverses; kernels 16 and 17, the batched 1D synthesis and the rank-r
-analysis; kernels 13 and 15, the 2D a-trous and the batched 1D analyses)
+analysis; kernels 13 and 15, the 2D a-trous and the batched 1D analyses;
+kernels 12 and 10, 11 and 9, which run the bodies of 2 and 16, 13 and 15)
 at the cells' shapes, for one checkout of the port.
 
     python3 scripts/inverse_kernel_times.py ROOT
@@ -30,11 +31,16 @@ b1 on bf16 then b3 on float32, bf16 high band; a-trous analysis: 4096
 samples, levels 1-4, b1 on bf16 then fd on float32, bf16 high band), the
 tier DWT roundtrip's synthesis levels on kernel 12 (db7, subbands 1024^2
 to 128^2: under bf16-fast fd into bf16 then b3, under mixed b3 on float32
-details, under bf16-balanced b2f into bf16 then b3) and the exact 1D SWT
+details, under bf16-balanced b2f into bf16 then b3), the exact 1D SWT
 cell's synthesis levels on kernel 10 (sym8, 1024 x 4096, levels 1-4,
-float32).  Beside 12, 13 and 15 it times their PyTorch yardsticks in the
-same call, by CUDA events: the dense-band bf16 ``torch.matmul`` products
-of ``chip_smoke.yardstick`` (a pair per 2D level, one per 1D level).
+float32), the tier DWT roundtrip's analysis levels on kernel 11 (db7,
+2048^2 down to 256^2 images: under bf16-fast b1 on bf16 then b3, under
+mixed b3 on float32, under bf16-balanced b2f on bf16 then b3) and the exact
+1D SWT cell's analysis levels on kernel 9 (sym8, 1024 x 4096, levels 1-4,
+float32).  Beside 9, 11, 12, 13 and 15 it times their PyTorch yardsticks in
+the same call, by CUDA events: the dense-band ``torch.matmul`` products of
+``chip_smoke.yardstick`` (a pair per 2D level, one per 1D level; bf16, and
+float32 for kernel 9).
 Prints one line: RESULT ROOT {json}, each level in ms and each pass
 summed, and one line: SUMS ROOT {json}, a SHA-256 prefix of the bytes of
 each timed kernel's output (the same inputs on every checkout, made from
@@ -55,7 +61,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 import chip_smoke as CS  # noqa: E402
 from pdwt_tpu_torch import get_wavelet  # noqa: E402
 from pdwt_tpu_torch.core import nonseparable as NSC  # noqa: E402
-from pdwt_tpu_torch.kernels import _build  # noqa: E402
+from pdwt_tpu_torch.kernels import LAUNCHES, _build  # noqa: E402
 from pdwt_tpu_torch.kernels import batched1d as K1  # noqa: E402
 from pdwt_tpu_torch.kernels import matmul as M  # noqa: E402
 from pdwt_tpu_torch.kernels import mxu1d as M1  # noqa: E402
@@ -86,33 +92,40 @@ for _ in range(50):  # bring the clocks up
 torch.cuda.synchronize()
 
 
-KERNELS = ("inv_mxu", "inv_level", "inv1d", "ns_fwd", "swt_fwd_mxu", "fwd1d")
+KERNELS = ("inv_mxu", "inv_level", "inv1d", "ns_fwd", "fwd_mxu", "fwd1d", "swt_fwd_level_1d")
 
 
 def digest(t):
-    """A SHA-256 prefix of a tensor's bytes (any dtype)."""
-    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()
-                          ).hexdigest()[:16]
+    """A SHA-256 prefix of the bytes of a tensor, or of a tuple of tensors
+    one after the other (any dtype)."""
+    h = hashlib.sha256()
+    for u in (t if isinstance(t, (tuple, list)) else (t,)):
+        h.update(u.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def dev_ms(fn, reps=30):
     """Device ms per fn() call of the timed kernels' launches (by name:
     kernel 2's and 6's old and new bodies, 14's, 18's, 16's and 17's, 13's
-    and 15's, 12's and 10's old and new bodies); the digest of one call's
-    output goes to ``sums`` under the row's key (``timed``)."""
+    and 15's, 12's, 10's, 11's and 9's old and new bodies); the digest of one
+    call's output goes to ``sums`` under the row's key (``timed``).  The
+    profiler now and then drops a few events, so the time is the mean per
+    recorded launch times the launches per call that the port's launch
+    counters gained over the window; None (not measured) if the window
+    recorded none."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        t = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and any(k in e.name for k in KERNELS)]
-        if t:  # the mean per recorded launch: a window may drop a few events
-            return sum(t) / len(t) / 1e3 * max(1, round(len(t) / reps))
+    before = sum(LAUNCHES.values())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    launched = sum(LAUNCHES.values()) - before
+    t = [e.time_range.elapsed_us() for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and any(k in e.name for k in KERNELS)]
+    return sum(t) / len(t) * launched / reps / 1e3 if t else None
 
 
 sums = {}
@@ -166,21 +179,20 @@ for lvl in (1, 2, 3, 4):
                                                                  lvl, "fd", out))
 for lvl, (fast, in_dt) in enumerate((("b1", bf16), ("fd", f32), ("fd", f32)), 1):
     x = rand(1, 1024, 1024).to(in_dt)
-    res[f"k13 L{lvl} {fast}"] = dev_ms(lambda: SM.swt_fwd_level_2d_mxu(
+    timed(f"k13 L{lvl} {fast}", lambda: SM.swt_fwd_level_2d_mxu(
         x, w7.dec_lo, w7.dec_hi, lvl, fast, (f32, bf16)))
-    res[f"k13b L{lvl}"] = dev_ms(lambda: SM.swt_fwd_level_2d_mxu(x, w7.dec_lo, w7.dec_hi, lvl,
-                                                                 "b2f", (f32, bf16)))
+    timed(f"k13b L{lvl}", lambda: SM.swt_fwd_level_2d_mxu(x, w7.dec_lo, w7.dec_hi, lvl, "b2f",
+                                                          (f32, bf16)))
     res[f"y13 L{lvl}"] = CS.cuda_ms(CS.yardstick("swt_fwd2d", w7, bf16, lvl)(x))
 for n, sch, in_dt in ((4096, "b1", bf16), (2048, "b3", f32), (1024, "b3", f32), (512, "b3", f32)):
-    x = torch.randn(1024, n, device=dev).to(in_dt)
-    res[f"k15d {n} {sch}"] = dev_ms(lambda: M1.fwd_level_1d_mxu(x, w8.dec_lo, w8.dec_hi, sch,
-                                                                bf16))
+    x = torch.randn(1024, n, device=dev, generator=gen).to(in_dt)
+    timed(f"k15d {n} {sch}", lambda: M1.fwd_level_1d_mxu(x, w8.dec_lo, w8.dec_hi, sch, bf16))
     res[f"y15d {n}"] = CS.cuda_ms(CS.yardstick("fwd", w8, bf16)(x))
 for lvl in (1, 2, 3, 4):
     sch, in_dt = ("b1", bf16) if lvl == 1 else ("fd", f32)
-    x = torch.randn(1024, 4096, device=dev).to(in_dt)
-    res[f"k15a L{lvl} {sch}"] = dev_ms(lambda: M1.swt_fwd_level_1d_mxu(x, w8.dec_lo, w8.dec_hi,
-                                                                       lvl, sch, bf16))
+    x = torch.randn(1024, 4096, device=dev, generator=gen).to(in_dt)
+    timed(f"k15a L{lvl} {sch}", lambda: M1.swt_fwd_level_1d_mxu(x, w8.dec_lo, w8.dec_hi, lvl,
+                                                                sch, bf16))
     res[f"y15a L{lvl}"] = CS.cuda_ms(CS.yardstick("swt_fwd", w8, bf16, lvl)(x))
 # kernel 12 at the tier DWT roundtrip's synthesis levels, its inputs from a
 # generator of its own (the rows above keep theirs)
@@ -198,9 +210,32 @@ for i, m in enumerate((1024, 512, 256, 128)):
 for lvl in (1, 2, 3, 4):
     lo, hi = (torch.randn(1024, 4096, device=dev, generator=gen) for _ in range(2))
     timed(f"k10 L{lvl}", lambda: K1.swt_inv_level_1d(lo, hi, w8.rec_lo, w8.rec_hi, lvl))
+# kernel 11 at the tier DWT roundtrip's analysis levels (db7, 2048^2 down to
+# 256^2 images): under bf16-fast b1 on a bf16 image then b3 on the float32
+# approximation chain, under mixed b3 on float32, under bf16-balanced b2f
+# then b3, bf16 details under the bf16 tiers (inputs from a generator of
+# their own)
+gen = torch.Generator(device=dev).manual_seed(11)
+for i, r in enumerate((2048, 1024, 512, 256)):
+    x = rand(1, r, r)
+    for key, sch, in_dt, det in (("k11f", "b1" if i == 0 else "b3", bf16 if i == 0 else f32, bf16),
+                                 ("k11m", "b3", f32, f32),
+                                 ("k11b", "b2f" if i == 0 else "b3", bf16 if i == 0 else f32,
+                                  bf16)):
+        xin = x.to(in_dt)
+        timed(f"{key} {r} {sch}", lambda: M.fwd_level_2d_mxu(xin, w7.dec_lo, w7.dec_hi, sch,
+                                                             (f32, det)))
+    res[f"y11 {r}"] = CS.cuda_ms(CS.yardstick("fwd2d", w7, bf16)(x.to(bf16)))
+# kernel 9 at the exact 1D SWT cell's analysis levels (sym8, 1024 x 4096,
+# levels 1-4, float32), beside its float32 dense-band yardstick
+gen = torch.Generator(device=dev).manual_seed(9)
+for lvl in (1, 2, 3, 4):
+    x = torch.randn(1024, 4096, device=dev, generator=gen)
+    timed(f"k9 L{lvl}", lambda: K1.swt_fwd_level_1d(x, w8.dec_lo, w8.dec_hi, lvl))
+    res[f"y9 L{lvl}"] = CS.cuda_ms(CS.yardstick("swt_fwd", w8, f32, lvl)(x))
 for k in ("k14", "k14b", "k18s", "k18p", "k6", "k2", "k17d", "k17s", "k17b", "k16d", "k16a",
           "k13", "k13b", "y13", "k15d", "y15d", "k15a", "y15a", "k12f", "k12m", "k12b", "y12",
-          "k10"):
+          "k10", "k11f", "k11m", "k11b", "y11", "k9", "y9"):
     res[k + " pass"] = sum(v for n, v in res.items() if n.startswith(k + " ") and v)
-print("RESULT", root, json.dumps({k: round(v, 5) for k, v in res.items()}))
+print("RESULT", root, json.dumps({k: None if v is None else round(v, 5) for k, v in res.items()}))
 print("SUMS", root, json.dumps(sums))

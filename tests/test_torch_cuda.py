@@ -1196,3 +1196,102 @@ def test_redesigned_12_10_refuse_a_bad_launch_plan(dev, monkeypatch):
         monkeypatch.setattr(K1, "inv1d_launch_plan", lambda *a, bad=bad: bad)
         with pytest.raises(RuntimeError, match="launch failed"):
             K1.swt_inv_level_1d(lo, hi, w8.rec_lo, w8.rec_hi, 2)
+
+
+# ---------------------------------------------------------------------------
+# kernels 11 and 9, moved onto kernel 13's and kernel 15's strip bodies
+# ---------------------------------------------------------------------------
+
+# the tier DWT's first and last levels (2048^2 and 256^2 images), odd
+# subband sizes, 1 x 1 subbands, a batch of 3, 2, 4, 5 (odd), 14, 40 and
+# 128 taps
+FWD11_CASES = [("db7", (1, 2048, 2048)), ("db7", (1, 256, 256)), ("db7", (3, 74, 106)),
+               ("haar", (3, 2, 2)), ("db2", (2, 70, 134)), ("odd5", (1, 202, 154)),
+               ("w40", (1, 140, 76)), ("w128", (1, 40, 70))]
+
+
+@pytest.mark.parametrize("scheme", SCHEMES5)
+@pytest.mark.parametrize("wname,shape", FWD11_CASES)
+def test_fwd_level_2d_mxu_redesign_matches_plain(dev, wname, shape, scheme):
+    """Kernel 11 on kernel 13's body at output step 2: b-schemes bit for
+    bit, fd within _close_tier, float32 and bf16 input and details."""
+    w = _long_wavelet(wname)
+    for in_dt in (torch.float32, BF16):
+        x = (_rand(dev, *shape) * 255).to(in_dt)
+        for det in (torch.float32, BF16):
+            got = M.fwd_level_2d_mxu(x, w.dec_lo, w.dec_hi, scheme, (torch.float32, det))
+            want = M.fwd_level_2d_mxu_ref(x, w.dec_lo, w.dec_hi, scheme, (torch.float32, det))
+            for g, wt in zip(got, want):
+                _exact_or_tier(g, wt, scheme)
+
+
+# 3 (odd), 16, 64 and 128 taps; dilations past the signal; 1 and 7 samples;
+# a batch of 33; the exact 1D SWT cell's levels
+FWD9_CASES = [("odd3", (33, 7), 1), ("odd3", (33, 7), 4), ("w64", (2, 300), 3),
+              ("w128", (3, 90), 2), ("w128", (1, 7), 13), ("db2", (33, 1), 3),
+              ("sym8", (1024, 4096), 1), ("sym8", (1024, 4096), 4), ("sym8", (35, 777), 5),
+              ("sym8", (2, 5000), 12)]
+
+
+@pytest.mark.parametrize("wname,shape,level", FWD9_CASES)
+def test_swt_fwd_level_1d_redesign_matches_plain(dev, wname, shape, level):
+    """Kernel 9 on kernel 15's a-trous body in fd, on a float32 input."""
+    if wname in ("odd3", "w64"):
+        n = 3 if wname == "odd3" else 64
+        w = make_custom_wavelet(wname, *np.random.default_rng(n).standard_normal((4, n)))
+    else:
+        w = _long_wavelet(wname)
+    x = _rand(dev, *shape)
+    _close_joint(K1.swt_fwd_level_1d(x, w.dec_lo, w.dec_hi, level),
+                 K1.swt_fwd_level_1d_ref(x, w.dec_lo, w.dec_hi, level))
+
+
+def test_redesigned_11_9_refuse_a_bad_launch_plan(dev, monkeypatch):
+    """The entry points of kernels 11 and 9 check the plan they are given
+    (kernel 13's plan at step 1 is not one of 11's)."""
+    w7, w8 = get_wavelet("db7"), get_wavelet("sym8")
+    x = _rand(dev, 1, 128, 128)
+    good = M.fwd_launch_plan(1, 128, 128, 14, "b3")
+    for bad in (good._replace(smem=good.smem + 16), good._replace(lr=good.lr + 1),
+                good._replace(grid=(good.grid[0] + 1, *good.grid[1:])),
+                good._replace(threads=48), good._replace(nt=4), good._replace(gc=2),
+                good._replace(lc=good.lc + 8), SM.swt_fwd_launch_plan(1, 128, 128, 14, 1, "b3")):
+        monkeypatch.setattr(M, "fwd_launch_plan", lambda *a, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            M.fwd_level_2d_mxu(x, w7.dec_lo, w7.dec_hi, "b3")
+    s = _rand(dev, 32, 512)
+    good = M1.fwd1d_launch_plan(32, 512, 16, 2, "fd", False)
+    for bad in (good._replace(smem=good.smem + 16), good._replace(lc=good.lc + 1),
+                good._replace(grid=(good.grid[0] + 1, *good.grid[1:])),
+                good._replace(threads=48), good._replace(nt=12), good._replace(gc=3)):
+        monkeypatch.setattr(K1, "fwd1d_launch_plan", lambda *a, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            K1.swt_fwd_level_1d(s, w8.dec_lo, w8.dec_hi, 2)
+
+
+@pytest.mark.parametrize("mode", ["mixed", "bf16"])
+def test_gradients_flow_through_kernels_11_and_9(dev, mode):
+    """11 forward and as the backward of 12 in both MXU modes, 9 forward
+    and as the backward of 10 (exact, float32): gradients on the card
+    against the CPU's, and the launches of each backward's kernel.  Under
+    ``bf16`` a float32 gradient of 11 and 12 is held to 2^-6 too (an fd
+    pass's FMA can flip one bf16 rounding of a forward output)."""
+    w7, w8 = get_wavelet("db7"), get_wavelet("sym8")
+    dt = BF16 if mode == "bf16" else torch.float32
+    x = (_rand(dev, 1, 64, 256) * 10).to(dt)
+    q = [_rand(dev, 1, 32, 128, seed=k) * 10 for k in range(4)]
+    s = _rand(dev, 32, 512) * 10
+    b = [_rand(dev, 32, 512) * 10, _rand(dev, 32, 512, seed=1) * 10]
+    cases = [
+        (lambda t: M.fwd_level_2d_mxu_ad(t, w7.dec_lo, w7.dec_hi, mode), [x],
+         "inv_level_2d_mxu"),
+        (lambda *u: M.inv_level_2d_mxu_ad(*u, w7.rec_lo, w7.rec_hi, mode), q,
+         "fwd_level_2d_mxu"),
+        (lambda t: K1.swt_fwd_level_1d_ad(t, w8.dec_lo, w8.dec_hi, 3), [s], "swt_inv_level_1d"),
+        (lambda lo, hi: K1.swt_inv_level_1d_ad(lo, hi, w8.rec_lo, w8.rec_hi, 3), b,
+         "swt_fwd_level_1d")]
+    for i, (fn, inputs, name) in enumerate(cases):
+        (gd, gc), launched = _grads_and_launches(fn, inputs, name)
+        assert launched >= 1, name
+        for g, gcpu in zip(gd, gc):
+            _close_tier(g.cpu(), gcpu, 2.0 ** -6, 2.0 ** -6 if mode == "bf16" and i < 2 else 1e-4)

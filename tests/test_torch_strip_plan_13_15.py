@@ -39,7 +39,7 @@ def _check_13(plan, scheme, f):
     dc = f // plan.gc
     assert plan.gc in (1, f)
     assert plan.lr % L.ROW_STRIP[scheme] == 0 and plan.lc % (L.COL_STRIP * dc) == 0
-    assert plan.threads == 256 and plan.nph in (1, 2) and plan.nt % SM.FWD_CHUNK == 0
+    assert plan.threads == 256 and plan.nph in (1, 2) and plan.nt % L.FWD_CHUNK == 0
     assert plan.smem <= L.SMEM_LIMIT
 
 
@@ -77,7 +77,7 @@ def test_swt_fwd_plan_fits_shared_memory_for_every_tap_count(scheme, shape, f):
         plan = SM.swt_fwd_launch_plan(*shape, hlen, f, scheme)
         _check_13(plan, scheme, f)
         assert plan.nt >= hlen
-        assert plan.smem == SM._fwd_smem(scheme, plan.lr, plan.lc, f // plan.gc, plan.nt,
+        assert plan.smem == L.fwd_smem(scheme, plan.lr, plan.lc, f // plan.gc, plan.nt,
                                          plan.nph)
 
 
