@@ -70,13 +70,16 @@ launch plans (dilations 2-16 on sizes no tile divides and past the image
 or signal, odd sizes, the deep levels' small tiles, 37 x 53 and 1 x 1
 subbands, a batch of 3, ranks 1 and 4, 2 to 42 taps for 14 and 18, 2 to 40
 for 12, 13, 15 and 17, 2 to 128 for 11 and 16, every threshold); the
-exact-path kernels redesigned (kernels 2, 6, 10 and 9: ``inv_level_2d``,
-``swt_inv_level_2d``, which runs kernel 14's body in ``fd`` on float32
-subbands, ``swt_inv_level_1d`` and ``swt_fwd_level_1d``, which run the
-a-trous bodies of kernels 16 and 15 in ``fd`` on float32 data) within
-``KERNEL_RTOL`` on theirs (every tile size, 2 to 128 taps, odd too, 8 x 8
-subbands, dilations 2-16 on sizes no tile divides and up to 4096 past the
-signal, signals of 1 and 7 samples, a batch of 33, every threshold).  Each
+exact-path kernels redesigned (kernels 2, 6, 10, 9, 8 and 5:
+``inv_level_2d``, ``swt_inv_level_2d``, which runs kernel 14's body in
+``fd`` on float32 subbands, ``swt_inv_level_1d`` and ``swt_fwd_level_1d``,
+which run the a-trous bodies of kernels 16 and 15 in ``fd`` on float32
+data, ``inv_level_1d``, which runs kernel 16's polyphase body, and
+``swt_fwd_level_2d``, which runs kernel 13's body at step 1, rows first,
+both in ``fd`` on float32 data) within ``KERNEL_RTOL`` on theirs (every
+tile size, 2 to 128 taps, odd too, 8 x 8 and 1 x 1 subbands or images,
+dilations 2-16 on sizes no tile divides and up to 4096 past the signal or
+image, signals of 1 and 7 samples, a batch of 33, every threshold).  Each
 timed launch of these redesigned kernels prints its device time beside its
 bound; a profiler window that dropped events is profiled again, and read
 as not measured if every try drops some.
@@ -204,18 +207,17 @@ REPLACES = {
 
 def _source(name: str) -> str:
     """The file that holds the kernel's body (kernel 6 runs 14's, 12 runs
-    2's, 10 runs 16's, 11 runs 13's, 9 runs 15's)."""
+    2's, 10 and 8 run 16's, 11 and 5 run 13's, 9 runs 15's)."""
     if name.startswith("ns_"):
         return "ns_matmul.cu"
     if name == "inv_level_2d_mxu":
         return "separable.cu"
-    if name.endswith("_2d_mxu") or name == "swt_inv_level_2d":
+    if name.endswith("_2d_mxu") or (name.startswith("swt_") and name.endswith("_2d")):
         return "swt_matmul.cu"
-    if name.endswith("_mxu") or name in ("swt_fwd_level_1d", "swt_inv_level_1d"):
+    if name.endswith("_mxu") or name in ("inv_level_1d", "swt_fwd_level_1d",
+                                         "swt_inv_level_1d"):
         return "mxu1d.cu"
-    if name.endswith("_1d"):
-        return "batched1d.cu"
-    return "swt.cu" if name.startswith("swt") else "separable.cu"
+    return "batched1d.cu" if name.endswith("_1d") else "separable.cu"
 
 
 SOURCES = {name: "pdwt_tpu_torch/kernels/csrc/" + _source(name) for name in REPLACES}
@@ -376,13 +378,13 @@ def scheme_limit(scheme: str) -> Callable:
 
 
 # the kernels redesigned for Hopper's CUDA cores (kernels 14 and 18, then 2
-# and 6, then 16 and 17, then 13 and 15, then 12 and 10, then 11 and 9): each
-# timed launch's device time is printed beside its bound
+# and 6, then 16 and 17, then 13 and 15, then 12 and 10, then 11 and 9, then
+# 8 and 5): each timed launch's device time is printed beside its bound
 REDESIGNED = ("swt_inv_level_2d_mxu", "ns_inv_level_2d_mxu", "ns_swt_inv_level_2d_mxu",
               "inv_level_2d", "swt_inv_level_2d", "inv_level_1d_mxu", "swt_inv_level_1d_mxu",
               "ns_fwd_level_2d_mxu", "ns_swt_fwd_level_2d_mxu", "swt_fwd_level_2d_mxu",
               "fwd_level_1d_mxu", "swt_fwd_level_1d_mxu", "inv_level_2d_mxu", "swt_inv_level_1d",
-              "fwd_level_2d_mxu", "swt_fwd_level_1d")
+              "fwd_level_2d_mxu", "swt_fwd_level_1d", "inv_level_1d", "swt_fwd_level_2d")
 
 
 def run_cases(cases, report, card) -> None:
@@ -760,6 +762,25 @@ def main() -> None:
                 lambda b, w=w, lv=level, thr=thr: S.swt_inv_level_2d_ref(*b, w.rec_lo, w.rec_hi,
                                                                          lv, thr),
                 f"{w.name} {shape} level {level} threshold {thr and thr[0]}"))
+    # kernel 5 on kernel 13's body at step 1 (rows first, the plain version
+    # columns first): 1 x 1 and 8 x 8 images, odd and prime sizes, 2, 3, 5,
+    # 40 and 128 taps, dilations up to 4096 past the image, a batch of 3
+    # (inputs from a generator of their own: the later phases' inputs stay
+    # as they were)
+    odd3 = make_custom_wavelet("odd3", *np.random.default_rng(3).standard_normal((4, 3)))
+    g5 = torch.Generator(device=dev).manual_seed(5)
+    for w, shape, level in [(get_wavelet("haar"), (1, 1, 1), 1), (wav, (1, 8, 8), 6),
+                            (w128, (3, 8, 8), 1), (w40, (1, 200, 150), 2),
+                            (odd3, (1, 37, 53), 4), (odd5, (3, 31, 17), 3),
+                            (wav, (1, 301, 203), 5), (w128, (1, 7, 13), 13),
+                            (get_wavelet("db2"), (2, 31, 17), 12)]:
+        ti_cases.append(Case("swt_fwd_level_2d",
+                             torch.rand(shape, device=dev, generator=g5) * 255.0,
+                             lambda t, w=w, lv=level: S.swt_fwd_level_2d(t, w.dec_lo, w.dec_hi,
+                                                                         lv),
+                             lambda t, w=w, lv=level: S.swt_fwd_level_2d_ref(t, w.dec_lo,
+                                                                             w.dec_hi, lv),
+                             f"{w.name} {shape} level {level}"))
     run_cases(ti_cases, report, card)
 
     # -- the TI path, as a user drives it
@@ -883,7 +904,6 @@ def main() -> None:
     # kernel 10 on kernel 16's a-trous body: 3 (odd), 64 and 128 taps,
     # dilations past the signal, 1 and 7 samples, a batch of 33 (inputs from
     # a generator of their own: the later phases' inputs stay as they were)
-    odd3 = make_custom_wavelet("odd3", *np.random.default_rng(3).standard_normal((4, 3)))
     w64 = make_custom_wavelet("w64", *np.random.default_rng(64).standard_normal((4, 64)))
     g10 = torch.Generator(device=dev).manual_seed(10)
     for w, shape, levels in [(odd3, (33, 7), (1, 4)), (w64, (2, 300), (1, 3)),
@@ -911,6 +931,17 @@ def main() -> None:
                                  lambda t, w=w, lv=level: K1.swt_fwd_level_1d_ref(t, w.dec_lo,
                                                                                   w.dec_hi, lv),
                                  f"{w.name} {shape} level {level}"))
+    # kernel 8 on kernel 16's polyphase body: 2, 3, 5, 16, 64 and 128 taps,
+    # bands of 1 and 7 samples, a batch of 33, the cell's deepest level
+    g8 = torch.Generator(device=dev).manual_seed(8)
+    for w, shape in [(odd3, (33, 7)), (w64, (2, 300)), (w128, (3, 90)), (w128, (1, 7)),
+                     (get_wavelet("db2"), (33, 1)), (get_wavelet("haar"), (5, 1)),
+                     (odd5, (3, 15)), (w8, (1024, 256))]:
+        bands = [torch.randn(shape, device=dev, generator=g8) for _ in range(2)]
+        b1_cases.append(Case("inv_level_1d", bands,
+                             lambda b, w=w: K1.inv_level_1d(*b, w.rec_lo, w.rec_hi),
+                             lambda b, w=w: K1.inv_level_1d_ref(*b, w.rec_lo, w.rec_hi),
+                             f"{w.name} bands {shape}"))
     run_cases(b1_cases, report, card)
 
     # -- the batched 1D path, as a user drives it: the batch and one signal,

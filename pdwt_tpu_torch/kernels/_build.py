@@ -98,16 +98,18 @@ def load() -> ctypes.CDLL:
         "pdwt_inv_level_2d": [P, P, P, P, P, I, I, I, P, I, P, *[I] * 8, P],
         "pdwt_fwd_tail_2d": [P, P, P, I, I, I, I, P, P, I, I, P],
         "pdwt_inv_tail_2d": [P, P, P, I, I, I, I, P, P, I, P, P],
-        # x, a, h, v, d, B, R, C, taps_lo, taps_hi, hlen, dilation, center, stream
-        "pdwt_swt_fwd_level_2d": [P, P, P, P, P, I, I, I, P, P, I, I, I, P],
+        # x, a, h, v, d, B, R, C, taps (4, hlen on the device), hlen, dilation, center,
+        # the launch plan (lr, lc, gc, nph, nt, threads, grid x, y, z, smem), stream
+        "pdwt_swt_fwd_level_2d": [P, P, P, P, P, I, I, I, P, I, I, I, *[I] * 10, P],
         # a, h, v, d, out, B, R, C, taps (4, hlen on the device), hlen, dilation, center,
         # thresh_mode, beta (one float on the device), the launch plan (lr, lc, gc, nph,
         # nt, threads, grid x, y, z, smem), stream
         "pdwt_swt_inv_level_2d": [P, P, P, P, P, I, I, I, P, I, I, I, I, P, *[I] * 10, P],
         # x, lo, hi, B, N, taps_lo, taps_hi, hlen, center, stream
         "pdwt_fwd_level_1d": [P, P, P, I, I, P, P, I, I, P],
-        # lo, hi, out, B, M, taps_lo, taps_hi, hlen, geometry, stream
-        "pdwt_inv_level_1d": [P, P, P, I, I, P, P, I, P, P],
+        # lo, hi, out, B, M, taps (4, hlen on the device), hlen, geometry, the launch
+        # plan (lc, gc, nt, threads, grid x, y, z, smem), stream
+        "pdwt_inv_level_1d": [P, P, P, I, I, P, I, P, *[I] * 8, P],
         # x, lo, hi, B, N, taps (4, hlen on the device), hlen, dilation, center, the
         # launch plan (lc, gc, nt, threads, grid x, y, z, smem), stream
         "pdwt_swt_fwd_level_1d": [P, P, P, I, I, P, I, I, I, *[I] * 8, P],

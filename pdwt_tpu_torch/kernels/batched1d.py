@@ -1,8 +1,8 @@
 """Batched 1D level kernels: wrappers, plain versions, gradients.
 
 Counterpart of the batched 1D part of ``pdwt_tpu/kernels/swt_pallas.py``.
-Four CUDA kernels (``csrc/batched1d.cu``) carry the batched 1D path, each
-filtering along the last axis of a (B, N) batch of signals:
+Four CUDA kernels (entry points in ``csrc/batched1d.cu``) carry the batched
+1D path, each filtering along the last axis of a (B, N) batch of signals:
 
 =====================  ========================================  ============================
 wrapper                computes                                  plain version
@@ -16,10 +16,11 @@ wrapper                computes                                  plain version
 A wrapper given a CPU tensor returns its plain version, built on
 ``core/conv.py``; given a CUDA tensor it launches its kernel or raises.
 Each launch adds one to ``LAUNCHES[<wrapper name>]``.  The kernels take
-any batch, length, filter length (odd included) and dilation.  The a-trous
-pair runs the a-trous bodies of kernels 15 and 16 (``csrc/mxu1d.cu``) in the
-``fd`` scheme on float32 data, on the plans of ``mxu1d.fwd1d_launch_plan``
-and ``mxu1d.inv1d_launch_plan``.
+any batch, length, filter length (odd included) and dilation.  The
+polyphase synthesis and the a-trous pair run the bodies of kernels 15 and
+16 (``csrc/mxu1d.cu``) in the ``fd`` scheme on float32 data, on the plans
+of ``mxu1d.inv1d_launch_plan`` and ``mxu1d.fwd1d_launch_plan``; only the
+decimated analysis keeps a body of its own.
 
 Filters are forward-convention float64 arrays.  A 1D a-trous synthesis is
 one pass, so the wrapper folds ONE 1/2 into the inverse's taps
@@ -110,11 +111,14 @@ def inv_level_1d(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi) -> torch.Te
     if on_cpu(lo, hi, ndim=2):
         return inv_level_1d_ref(lo, hi, rec_lo, rec_hi)
     B, m = _pair_shape(lo, hi)
-    tl, th = taps(rec_lo), taps(rec_hi)
-    geo = poly_geo(len(tl))
+    tp = dual_taps((rec_lo, rec_hi), "fd", lo.device)
+    hlen = tp.shape[1]
+    geo = poly_geo(hlen)
+    pl = inv1d_launch_plan(B, m, hlen, 1, "fd", True)
     out = torch.empty((B, 2 * m), device=lo.device, dtype=lo.dtype)
     launch("inv_level_1d", lo.device,
-           [ptr(lo), ptr(hi), ptr(out), B, m, ptr(tl), ptr(th), len(tl), ptr(geo)])
+           [ptr(lo), ptr(hi), ptr(out), B, m, ptr(tp), hlen, ptr(geo), pl.lc, pl.gc, pl.nt,
+            pl.threads, *pl.grid, pl.smem])
     return out
 
 

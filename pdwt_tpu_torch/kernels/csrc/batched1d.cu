@@ -2,19 +2,21 @@
 // loaded through ctypes (pdwt_tpu_torch/kernels/_build.py, which links this
 // file with the other sources into one library).
 //
-// The kernels of the four Pallas kernels of the batched 1D part of
+// The entry points of the four Pallas kernels of the batched 1D part of
 // pdwt_tpu/kernels/swt_pallas.py:
 //
 //   fwd_level_1d_kernel      <- _make_1d_fwd_kernel      (swt_pallas.py:395)
-//   inv_level_1d_kernel      <- _make_1d_inv_kernel      (swt_pallas.py:455)
+//   mxu1d.cu: inv1d_strip_kernel<FD, 2>
+//                            <- _make_1d_inv_kernel      (swt_pallas.py:455)
 //   mxu1d.cu: fwd1d_strip_kernel<FD, 1>
 //                            <- _make_swt1d_fwd_kernel   (swt_pallas.py:528)
 //   mxu1d.cu: inv1d_strip_kernel<FD, 1>
 //                            <- _make_swt1d_inv_kernel   (swt_pallas.py:593)
 //
-// The a-trous pair (kernels 9 and 10) runs the a-trous bodies of kernels 15
-// and 16 in the fd scheme on float32 data (see their entry points below);
-// the notes on layout and bound here are the other two's.
+// The polyphase synthesis (kernel 8) and the a-trous pair (kernels 9 and 10)
+// run the bodies of kernels 15 and 16 in the fd scheme on float32 data (see
+// their entry points below); the notes on layout and bound here are the
+// decimated analysis's, the one body this file still holds.
 //
 // Every kernel filters along the last axis of a (B, N) batch of signals.
 // Index spec (pdwt_tpu_torch/core/conv.py, the same as pdwt_tpu/core/conv.py),
@@ -44,15 +46,12 @@
 // into the batch are size_t.
 //
 // Periodic boundaries are an index mod N at load time; nothing is padded on
-// the host.  An output whose taps lie inside the signal indexes with no wrap;
-// one near an edge steps its index and wraps it, starting from a full mod, so
-// a support wider than the signal (n = 10 with hlen 16) wraps as often as it
-// needs.
+// the host, and a support wider than the signal (n = 10 with hlen 16) wraps
+// as often as it needs.
 //
-// Bound: device memory.  Per level a kernel reads its input once and writes
-// its output once; the taps' re-reads of neighbouring samples hit L1 (or
-// shared memory for the decimated analysis), and 2*hlen FMAs per output are
-// cheap beside the bytes.
+// Bound: device memory.  Per level the kernel reads its input once and writes
+// its output once; the taps' re-reads of neighbouring samples hit shared
+// memory, and 2*hlen FMAs per output are cheap beside the bytes.
 
 #include <cuda_runtime.h>
 
@@ -65,14 +64,6 @@ namespace {
 struct Taps {
   float lo[PDWT_MAX_HLEN];
   float hi[PDWT_MAX_HLEN];
-};
-
-struct Poly {
-  int p[2];
-  int o[2];
-  int nb[2];
-  int lo;
-  int hi;
 };
 
 constexpr int NT = 256;  // threads per block
@@ -92,25 +83,6 @@ struct Place {
 __device__ __forceinline__ Place place(int ntile) {
   const unsigned g = blockIdx.x / ntile, t = blockIdx.x % ntile;
   return {(long long)g * blockDim.y + threadIdx.y, static_cast<int>(t) * (int)blockDim.x};
-}
-
-// sum_b t[p + 2b] * s[(k0 + b*step) mod N], b < nb, in tap order.
-__device__ __forceinline__ float fir(const float* __restrict__ s, int N, long long k0,
-                                     int step, int nb, const float* t, int p, int tstride,
-                                     float acc) {
-  if (k0 >= 0 && k0 + (long long)(nb - 1) * step < N) {
-    const int k = static_cast<int>(k0);
-    for (int b = 0; b < nb; ++b) acc = fmaf(t[p + b * tstride], __ldg(s + k + b * step), acc);
-    return acc;
-  }
-  const int st = step % N;
-  long long k = wrapl(k0, N);
-  for (int b = 0; b < nb; ++b) {
-    acc = fmaf(t[p + b * tstride], __ldg(s + k), acc);
-    k += st;
-    if (k >= N) k -= N;
-  }
-  return acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -157,32 +129,6 @@ fwd_level_1d_kernel(const float* __restrict__ x, float* __restrict__ lo,
   const size_t o = (size_t)pl.row * M + n;
   lo[o] = l;
   hi[o] = h;
-}
-
-// ---------------------------------------------------------------------------
-// Polyphase synthesis level.  Replaces _make_1d_inv_kernel (swt_pallas.py:455).
-// Thread m computes both output parities, 2m and 2m + 1, each a half-length
-// FIR over the un-stuffed lo and hi bands (no stuffed zeros are read), and
-// stores them as one float2.  Loads of one tap are 32 consecutive floats of a
-// band across the warp; the nb neighbours a thread reads again hit L1.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NT)
-inv_level_1d_kernel(const float* __restrict__ lo, const float* __restrict__ hi,
-                    float* __restrict__ out, int B, int M, int ntile, const Poly g,
-                    const __grid_constant__ Taps taps) {
-  const Place pl = place(ntile);
-  const int m = pl.pos0 + threadIdx.x;
-  if (pl.row >= B || m >= M) return;
-  const float* lr = lo + (size_t)pl.row * M;
-  const float* hr = hi + (size_t)pl.row * M;
-  float res[2];
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const long long k0 = (long long)m + g.o[q];
-    float acc = fir(lr, M, k0, 1, g.nb[q], taps.lo, g.p[q], 2, 0.f);
-    res[q] = fir(hr, M, k0, 1, g.nb[q], taps.hi, g.p[q], 2, acc);
-  }
-  *reinterpret_cast<float2*>(out + (size_t)pl.row * 2 * M + 2 * m) = make_float2(res[0], res[1]);
 }
 
 Taps make_taps(const float* lo, const float* hi, int hlen) {
@@ -233,26 +179,33 @@ extern "C" int pdwt_fwd_level_1d(const float* x, float* lo, float* hi, int B, in
   return cudaGetLastError();
 }
 
-// geo: p[0], p[1], o[0], o[1], nb[0], nb[1], lo, hi of poly_geometry(hlen).
+// Kernels 8, 9 and 10 run the bodies of kernels 15 and 16 (mxu1d.cu:
+// inv1d_strip_kernel<FD, 2>, fwd1d_strip_kernel<FD, 1>,
+// inv1d_strip_kernel<FD, 1>) in the fd scheme on float32 data: every output
+// sums the taps in order, each one FMA into one float32 sum per filter (a
+// synthesis: the low taps on the low band, then the high taps on the high
+// band), as the direct kernels they replace did (the zero taps that pad a
+// filter to the strip's chunk, or a parity's table to the common origin,
+// leave a finite sum as it is).
+extern "C" int pdwt_inv_level_1d_mxu(const float* lo, const void* hi, void* out, int B, int M,
+                                     const float* taps, int hlen, int f, int cen, const int* geo,
+                                     int scheme, int hi_bf16, int out_bf16, int lc, int gc,
+                                     int nt, int threads, int gx, int gy, int gz, int smem,
+                                     void* stream);
+
+// `taps` is the (4, hlen) float32 device buffer of kernels/_launch.py:
+// dual_taps in fd (the second values 0); geo: p[0], p[1], o[0], o[1], nb[0],
+// nb[1], lo, hi of poly_geometry(hlen), on the host; the launch plan is
+// kernels/mxu1d.py:inv1d_launch_plan's (fd, polyphase), checked by the entry
+// point it calls.
 extern "C" int pdwt_inv_level_1d(const float* lo, const float* hi, float* out, int B, int M,
-                                 const float* taps_lo, const float* taps_hi, int hlen,
-                                 const int* geo, void* stream) {
-  Geometry g;
-  cudaError_t e = geometry(B, M, hlen, &g);
-  if (e != cudaSuccess) return e;
-  const Poly poly = {{geo[0], geo[1]}, {geo[2], geo[3]}, {geo[4], geo[5]}, geo[6], geo[7]};
-  inv_level_1d_kernel<<<g.grid, g.block, 0, (cudaStream_t)stream>>>(
-      lo, hi, out, B, M, g.ntile, poly, make_taps(taps_lo, taps_hi, hlen));
-  return cudaGetLastError();
+                                 const float* taps, int hlen, const int* geo, int lc, int gc,
+                                 int nt, int threads, int gx, int gy, int gz, int smem,
+                                 void* stream) {
+  return pdwt_inv_level_1d_mxu(lo, hi, out, B, M, taps, hlen, 1, 0, geo, pdwt_mxu::FD, 0, 0, lc,
+                               gc, nt, threads, gx, gy, gz, smem, stream);
 }
 
-// Kernels 9 and 10 run the a-trous bodies of kernels 15 and 16 (mxu1d.cu:
-// fwd1d_strip_kernel<FD, 1>, inv1d_strip_kernel<FD, 1>) in the fd scheme on
-// float32 data: every output sums the taps in order, each one FMA into one
-// float32 sum per filter (the synthesis: the low taps on the low band, then
-// the high taps on the high band), as the direct kernels they replace did
-// (the zero taps that pad a filter to the strip's chunk leave the sum as it
-// is).
 extern "C" int pdwt_swt_fwd_level_1d_mxu(const void* x, float* lo, void* hi, int B, int N,
                                          const float* taps, int hlen, int f, int cen, int scheme,
                                          int in_bf16, int hi_bf16, int lc, int gc, int nt,

@@ -183,9 +183,10 @@ fwd1d_strip_kernel(const void* __restrict__ x, float* __restrict__ lo, void* __r
 // read around the first staging.  The plan (kernels/mxu1d.py:
 // inv1d_launch_plan) picks lc and gc, and the entry point refuses a plan
 // that does not add up.  The window never grows with f past 1.4x, so no
-// level needs a kernel that reads past shared memory.  Kernel 10, the exact
-// a-trous synthesis (batched1d.cu: pdwt_swt_inv_level_1d), runs the a-trous
-// instance in fd on float32 bands.
+// level needs a kernel that reads past shared memory.  Kernels 8 and 10,
+// the exact polyphase and a-trous syntheses (batched1d.cu:
+// pdwt_inv_level_1d, pdwt_swt_inv_level_1d), run the polyphase and the
+// a-trous instance in fd on float32 bands.
 // ---------------------------------------------------------------------------
 // taps per chunk of the strips: 8 for the a-trous synthesis (16 taps for
 // sym8), 4 for the polyphase one (the parities' tables are 9 long for sym8)

@@ -9,7 +9,10 @@
 //
 // The forward is templated on its output step: at step 2 and dilation 1 it
 // is also the tiers' decimated 2D analysis (kernel 11, _fwd_mxu_kernel of
-// matmul_pallas.py:242), reached through matmul.cu's entry point.
+// matmul_pallas.py:242), reached through matmul.cu's entry point.  In the fd
+// scheme on float32 data the forward at step 1 is also the exact a-trous
+// analysis (kernel 5) and the inverse the exact synthesis (kernel 6),
+// reached through swt.cu's entry points.
 //
 // On the TPU each pass of a stationary level is a banded matrix product on the
 // MXU whose band has stride f = 2^(level-1), in a compute scheme (b1, fd, b2f,
@@ -348,8 +351,9 @@ namespace pdwt_swtmm {
 // does not add up is refused (cudaErrorInvalidValue).  `taps` is a (4,
 // hlen) float32 device buffer: the low filter's first and second values,
 // then the high filter's, correlation order; `cen` is fwd_center(hlen).
-// Kernel 13 (pdwt_swt_fwd_level_2d_mxu, below) runs it at os = 1, kernel 11
-// (matmul.cu: pdwt_fwd_level_2d_mxu) at os = 2.
+// Kernels 13 (pdwt_swt_fwd_level_2d_mxu, below) and 5 (swt.cu:
+// pdwt_swt_fwd_level_2d, fd) run it at os = 1, kernel 11 (matmul.cu:
+// pdwt_fwd_level_2d_mxu) at os = 2.
 int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R, int C,
                const float* taps, int hlen, int os, int f, int cen, int scheme, int in_bf16,
                int det_bf16, int lr, int lc, int gc, int nph, int nt, int threads, int gx,

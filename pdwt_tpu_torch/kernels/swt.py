@@ -1,10 +1,11 @@
 """Stationary (a-trous) 2D level kernels: wrappers, plain versions, gradients.
 
 Counterpart of the 2D part of ``pdwt_tpu/kernels/swt_pallas.py``.  Two
-CUDA kernels carry the TI-denoise path: the forward in ``csrc/swt.cu``, and
-the inverse, which runs kernel 14's body (``csrc/swt_matmul.cu``:
-``swt_inv_mxu_kernel``) in the ``fd`` scheme on float32 subbands, with
-``swt_matmul.swt_inv_launch_plan``'s geometry:
+CUDA kernels carry the TI-denoise path, entry points in ``csrc/swt.cu``
+onto the bodies of kernels 13 and 14 (``csrc/swt_matmul.cu``:
+``swt_fwd_mxu_kernel`` at output step 1, ``swt_inv_mxu_kernel``) in the
+``fd`` scheme on float32 data, with the geometry of
+``swt_matmul.swt_fwd_launch_plan`` and ``swt_inv_launch_plan``:
 
 ====================  ===============================================  ===========================
 wrapper               computes                                         plain version
@@ -17,7 +18,10 @@ wrapper               computes                                         plain ver
 Level L dilates the taps by ``f = 2^(L-1)``; every output is full size.  A
 wrapper given a CPU tensor returns its plain version, built on
 ``core/conv.py``; given a CUDA tensor it launches its kernel or raises.
-Each launch adds one to ``LAUNCHES[<wrapper name>]``.
+Each launch adds one to ``LAUNCHES[<wrapper name>]``.  The forward kernel
+runs its passes in kernel 13's order, rows first (as the Pallas kernel,
+``swt_pallas.py:129-133``), its plain version the columns first: the two
+agree to float32 roundoff.
 
 Filters are forward-convention float64 arrays.  As in the JAX wrapper
 (``swt_pallas.py:369``), the synthesis's 1/2 per pass is folded into the
@@ -42,7 +46,7 @@ import numpy as np
 import torch
 
 from ..core import conv
-from ._launch import check_span, dilation, launch, on_cpu, ptr, rev, taps
+from ._launch import check_span, dilation, launch, on_cpu, ptr, rev
 from .matmul import dual_taps
 from .mxu1d import _half
 
@@ -90,14 +94,18 @@ def swt_fwd_level_2d(x: torch.Tensor, dec_lo, dec_hi, level: int):
     Any size, including one smaller than the dilated support."""
     if on_cpu(x):
         return swt_fwd_level_2d_ref(x, dec_lo, dec_hi, level)
+    from .swt_matmul import swt_fwd_launch_plan  # swt_matmul imports this module
+
     f = dilation(level)
-    tl, th = taps(dec_lo), taps(dec_hi)
-    check_span(len(tl), f)
+    tp = dual_taps((dec_lo, dec_hi), "fd", x.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
     B, R, C = x.shape
+    pl = swt_fwd_launch_plan(B, R, C, hlen, f, "fd")
     outs = [torch.empty_like(x) for _ in range(4)]
     launch("swt_fwd_level_2d", x.device,
-           [ptr(x), *map(ptr, outs), B, R, C, ptr(tl), ptr(th), len(tl), f,
-            conv.fwd_center(len(tl)) * f])
+           [ptr(x), *map(ptr, outs), B, R, C, ptr(tp), hlen, f, conv.fwd_center(hlen), pl.lr,
+            pl.lc, pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
     return tuple(outs)
 
 

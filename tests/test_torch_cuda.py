@@ -1295,3 +1295,120 @@ def test_gradients_flow_through_kernels_11_and_9(dev, mode):
         assert launched >= 1, name
         for g, gcpu in zip(gd, gc):
             _close_tier(g.cpu(), gcpu, 2.0 ** -6, 2.0 ** -6 if mode == "bf16" and i < 2 else 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# kernels 8 and 5, moved onto kernel 16's polyphase body and kernel 13's body
+# ---------------------------------------------------------------------------
+
+def _bank(name):
+    """_long_wavelet's banks, and custom banks of 3 and 64 seeded taps."""
+    if name in ("odd3", "w64"):
+        n = 3 if name == "odd3" else 64
+        return make_custom_wavelet(name, *np.random.default_rng(n).standard_normal((4, n)))
+    return _long_wavelet(name)
+
+
+# 2, 3 (odd), 5 (odd), 16, 64 and 128 taps; bands of 1 and 7 samples; a batch
+# of 33 and one past gridDim.y; the batched 1D cell's first and last levels
+INV8_CASES = [("odd3", (33, 7)), ("w64", (2, 300)), ("w128", (3, 90)), ("w128", (1, 7)),
+              ("db2", (33, 1)), ("haar", (5, 1)), ("odd5", (3, 15)), ("sym8", (1024, 2048)),
+              ("sym8", (1024, 256)), ("sym8", (70000, 32)), ("sym8", (1, 1 << 21))]
+
+
+@pytest.mark.parametrize("wname,shape", INV8_CASES)
+def test_inv_level_1d_redesign_matches_plain(dev, wname, shape):
+    """Kernel 8 on kernel 16's polyphase body in fd, on float32 bands."""
+    w = _bank(wname)
+    lo, hi = _rand(dev, *shape), _rand(dev, *shape, seed=1)
+    _close(K1.inv_level_1d(lo, hi, w.rec_lo, w.rec_hi), K1.inv_level_1d_ref(lo, hi, w.rec_lo,
+                                                                             w.rec_hi))
+
+
+# 1 x 1, 8 x 8, odd and prime sizes, a batch of 3, 2, 3, 5, 14, 40 and 128
+# taps, dilations past the image (up to 4096), the TI cell's levels
+FWD5_CASES = [("haar", (1, 1, 1), 1), ("db7", (1, 8, 8), 6), ("w128", (3, 8, 8), 1),
+              ("w40", (1, 200, 150), 2), ("odd3", (1, 37, 53), 4), ("odd5", (3, 31, 17), 3),
+              ("db7", (1, 301, 203), 5), ("w128", (1, 7, 13), 13), ("db2", (2, 31, 17), 12),
+              ("db7", (1, 1024, 1024), 1), ("db7", (1, 1024, 1024), 3)]
+
+
+@pytest.mark.parametrize("wname,shape,level", FWD5_CASES)
+def test_swt_fwd_level_2d_redesign_matches_plain(dev, wname, shape, level):
+    """Kernel 5 on kernel 13's body in fd (rows first) against its plain
+    version (columns first), relative to the call's largest output."""
+    w = _bank(wname)
+    x = _rand(dev, *shape) * 255
+    _close_joint(S.swt_fwd_level_2d(x, w.dec_lo, w.dec_hi, level),
+                 S.swt_fwd_level_2d_ref(x, w.dec_lo, w.dec_hi, level))
+
+
+def test_redesigned_8_5_refuse_a_bad_launch_plan(dev, monkeypatch):
+    """The entry points of kernels 8 and 5 check the plan they are given (an
+    a-trous plan is not one of 8's, a b3 plan not one of 5's)."""
+    w7, w8 = get_wavelet("db7"), get_wavelet("sym8")
+    lo, hi = _rand(dev, 32, 256), _rand(dev, 32, 256, seed=1)
+    good = M1.inv1d_launch_plan(32, 256, 16, 1, "fd", True)
+    for bad in (good._replace(smem=good.smem + 16), good._replace(lc=good.lc + 1),
+                good._replace(grid=(good.grid[0] + 1, *good.grid[1:])),
+                good._replace(threads=48), good._replace(nt=4),
+                M1.inv1d_launch_plan(32, 256, 16, 1, "fd", False)):
+        monkeypatch.setattr(K1, "inv1d_launch_plan", lambda *a, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            K1.inv_level_1d(lo, hi, w8.rec_lo, w8.rec_hi)
+    x = _rand(dev, 1, 128, 128)
+    good = SM.swt_fwd_launch_plan(1, 128, 128, 14, 2, "fd")
+    for bad in (good._replace(smem=good.smem + 16), good._replace(lr=good.lr + 1),
+                good._replace(grid=(good.grid[0], good.grid[1] + 1, 1)),
+                good._replace(threads=48), good._replace(nt=8), good._replace(gc=3),
+                SM.swt_fwd_launch_plan(1, 128, 128, 14, 2, "b3")):
+        monkeypatch.setattr(SM, "swt_fwd_launch_plan", lambda *a, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            S.swt_fwd_level_2d(x, w7.dec_lo, w7.dec_hi, 2)
+
+
+@pytest.mark.parametrize("wname", ["db7", "odd5"])
+def test_gradients_flow_through_kernels_8_and_5(dev, wname):
+    """8 forward and as the backward of 7; 5 forward and as the backward of
+    6 and of the fused denoise (soft, beta a tensor): gradients on the card
+    against the CPU's, and the launches of each backward's kernel."""
+    w = _wavelet(wname)
+    s = _rand(dev, 33, 130) * 10
+    b = [_rand(dev, 33, 65, seed=k) * 10 for k in range(2)]
+    x = _rand(dev, 2, 37, 53) * 10
+    q = [_rand(dev, 2, 37, 53, seed=k) * 10 for k in range(4)]
+    beta = torch.tensor(3.0)
+    cases = [
+        (lambda t: K1.fwd_level_1d_ad(t, w.dec_lo, w.dec_hi), [s], "inv_level_1d"),
+        (lambda lo, hi: K1.inv_level_1d_ad(lo, hi, w.rec_lo, w.rec_hi), b, "fwd_level_1d"),
+        (lambda t: S.swt_fwd_level_2d_ad(t, w.dec_lo, w.dec_hi, 2), [x], "swt_inv_level_2d"),
+        (lambda *u: S.swt_inv_level_2d_ad(*u, w.rec_lo, w.rec_hi, 2), q, "swt_fwd_level_2d"),
+        (lambda *u: S.swt_inv_level_2d_denoise_ad(*u, beta.to(u[0].device), w.rec_lo,
+                                                  w.rec_hi, 3, "soft"), q, "swt_fwd_level_2d")]
+    for fn, inputs, name in cases:
+        (gd, gc), launched = _grads_and_launches(fn, inputs, name)
+        assert launched == 1, name
+        for g, gcpu in zip(gd, gc):
+            _close_tier(g.cpu(), gcpu, rtol=1e-4)
+
+
+def test_nonfinite_inputs_of_kernels_8_and_5_never_turn_finite(dev):
+    """An inf sample: every output the plain version gives as inf or NaN is
+    inf or NaN from the kernel too, and every output the kernel gives as
+    finite equals the plain one.  (The zero taps that pad a parity's table
+    or a chunk multiply real samples, so the kernels may give NaN where the
+    plain version is finite: ROADMAP, section 3.)"""
+    w7, w8 = get_wavelet("db7"), get_wavelet("sym8")
+    lo, hi = _rand(dev, 33, 200), _rand(dev, 33, 200, seed=1)
+    hi[3, 100] = float("inf")
+    x = _rand(dev, 1, 64, 96) * 255
+    x[0, 30, 40] = float("inf")
+    for got, want in ((K1.inv_level_1d(lo, hi, w8.rec_lo, w8.rec_hi),
+                       K1.inv_level_1d_ref(lo, hi, w8.rec_lo, w8.rec_hi)),
+                      *zip(S.swt_fwd_level_2d(x, w7.dec_lo, w7.dec_hi, 2),
+                           S.swt_fwd_level_2d_ref(x, w7.dec_lo, w7.dec_hi, 2))):
+        fin = torch.isfinite(got)
+        assert not bool((fin & ~torch.isfinite(want)).any())
+        assert bool(fin.any())
+        err = float((got[fin] - want[fin]).abs().max())
+        assert err <= RTOL * float(want[torch.isfinite(want)].abs().max()), err
