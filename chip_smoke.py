@@ -70,16 +70,18 @@ launch plans (dilations 2-16 on sizes no tile divides and past the image
 or signal, odd sizes, the deep levels' small tiles, 37 x 53 and 1 x 1
 subbands, a batch of 3, ranks 1 and 4, 2 to 42 taps for 14 and 18, 2 to 40
 for 12, 13, 15 and 17, 2 to 128 for 11 and 16, every threshold); the
-exact-path kernels redesigned (kernels 2, 6, 10, 9, 8 and 5:
+exact-path kernels redesigned (kernels 2, 6, 10, 9, 8, 5, 1 and 7:
 ``inv_level_2d``, ``swt_inv_level_2d``, which runs kernel 14's body in
 ``fd`` on float32 subbands, ``swt_inv_level_1d`` and ``swt_fwd_level_1d``,
 which run the a-trous bodies of kernels 16 and 15 in ``fd`` on float32
-data, ``inv_level_1d``, which runs kernel 16's polyphase body, and
-``swt_fwd_level_2d``, which runs kernel 13's body at step 1, rows first,
-both in ``fd`` on float32 data) within ``KERNEL_RTOL`` on theirs (every
-tile size, 2 to 128 taps, odd too, 8 x 8 and 1 x 1 subbands or images,
-dilations 2-16 on sizes no tile divides and up to 4096 past the signal or
-image, signals of 1 and 7 samples, a batch of 33, every threshold).  Each
+data, ``inv_level_1d``, which runs kernel 16's polyphase body,
+``swt_fwd_level_2d`` and ``fwd_level_2d``, which run kernel 13's body at
+steps 1 and 2, rows first, and ``fwd_level_1d``, which runs kernel 15's
+decimated body, all in ``fd`` on float32 data) within ``KERNEL_RTOL`` on
+theirs (every tile size, 2 to 128 taps, odd too, 8 x 8, 2 x 2 and 1 x 1
+subbands or images, dilations 2-16 on sizes no tile divides and up to 4096
+past the signal or image, signals of 1, 2 and 7 samples, a batch of 33 and
+one past the grid's limit, every threshold).  Each
 timed launch of these redesigned kernels prints its device time beside its
 bound; a profiler window that dropped events is profiled again, and read
 as not measured if every try drops some.
@@ -207,17 +209,17 @@ REPLACES = {
 
 def _source(name: str) -> str:
     """The file that holds the kernel's body (kernel 6 runs 14's, 12 runs
-    2's, 10 and 8 run 16's, 11 and 5 run 13's, 9 runs 15's)."""
+    2's, 10 and 8 run 16's, 11, 5 and 1 run 13's, 9 and 7 run 15's)."""
     if name.startswith("ns_"):
         return "ns_matmul.cu"
     if name == "inv_level_2d_mxu":
         return "separable.cu"
-    if name.endswith("_2d_mxu") or (name.startswith("swt_") and name.endswith("_2d")):
+    if name.endswith("_2d_mxu") or name == "fwd_level_2d" or (name.startswith("swt_")
+                                                              and name.endswith("_2d")):
         return "swt_matmul.cu"
-    if name.endswith("_mxu") or name in ("inv_level_1d", "swt_fwd_level_1d",
-                                         "swt_inv_level_1d"):
+    if name.endswith("_mxu") or name.endswith("_1d"):
         return "mxu1d.cu"
-    return "batched1d.cu" if name.endswith("_1d") else "separable.cu"
+    return "separable.cu"
 
 
 SOURCES = {name: "pdwt_tpu_torch/kernels/csrc/" + _source(name) for name in REPLACES}
@@ -379,12 +381,14 @@ def scheme_limit(scheme: str) -> Callable:
 
 # the kernels redesigned for Hopper's CUDA cores (kernels 14 and 18, then 2
 # and 6, then 16 and 17, then 13 and 15, then 12 and 10, then 11 and 9, then
-# 8 and 5): each timed launch's device time is printed beside its bound
+# 8 and 5, then 1 and 7): each timed launch's device time is printed beside
+# its bound
 REDESIGNED = ("swt_inv_level_2d_mxu", "ns_inv_level_2d_mxu", "ns_swt_inv_level_2d_mxu",
               "inv_level_2d", "swt_inv_level_2d", "inv_level_1d_mxu", "swt_inv_level_1d_mxu",
               "ns_fwd_level_2d_mxu", "ns_swt_fwd_level_2d_mxu", "swt_fwd_level_2d_mxu",
               "fwd_level_1d_mxu", "swt_fwd_level_1d_mxu", "inv_level_2d_mxu", "swt_inv_level_1d",
-              "fwd_level_2d_mxu", "swt_fwd_level_1d", "inv_level_1d", "swt_fwd_level_2d")
+              "fwd_level_2d_mxu", "swt_fwd_level_1d", "inv_level_1d", "swt_fwd_level_2d",
+              "fwd_level_2d", "fwd_level_1d")
 
 
 def run_cases(cases, report, card) -> None:
@@ -628,6 +632,18 @@ def main() -> None:
                           lambda b, w=w: K.inv_level_2d(*b, w.rec_lo, w.rec_hi),
                           lambda b, w=w: K.inv_level_2d_ref(*b, w.rec_lo, w.rec_hi),
                           f"{w.name} subbands {shape}"))
+    # kernel 1 on kernel 13's body at step 2 (rows first, the plain version
+    # columns first): every tile size, 2 to 128 taps (odd too), 2 x 2 images
+    # and odd subband sizes, a batch of 3 and one past gridDim.z (inputs from
+    # a generator of their own: the later cases' inputs stay as they were)
+    g1 = torch.Generator(device=dev).manual_seed(1)
+    for w, shape in [(get_wavelet("haar"), (1, 2, 2)), (wav, (1, 2, 2)), (w128, (3, 16, 16)),
+                     (wav, (3, 74, 106)), (odd5, (2, 70, 134)), (w40, (1, 140, 76)),
+                     (w128, (1, 80, 140)), (wav, (1, 16, 16)), (get_wavelet("db2"), (70000, 2, 2))]:
+        cases.append(Case("fwd_level_2d", torch.rand(shape, device=dev, generator=g1) * 255.0,
+                          lambda t, w=w: K.fwd_level_2d(t, w.dec_lo, w.dec_hi),
+                          lambda t, w=w: K.fwd_level_2d_ref(t, w.dec_lo, w.dec_hi),
+                          f"{w.name} image {shape}"))
 
     # per kernel: worst error and, over the calls of one pass of its path,
     # the summed times (ms: per call by CUDA events, host launch gaps
@@ -942,6 +958,16 @@ def main() -> None:
                              lambda b, w=w: K1.inv_level_1d(*b, w.rec_lo, w.rec_hi),
                              lambda b, w=w: K1.inv_level_1d_ref(*b, w.rec_lo, w.rec_hi),
                              f"{w.name} bands {shape}"))
+    # kernel 7 on kernel 15's decimated body: 2, 3, 5, 64 and 128 taps,
+    # signals of 2 and 14 samples, a batch of 33, the cell's deepest level
+    g7 = torch.Generator(device=dev).manual_seed(7)
+    for w, shape in [(odd3, (33, 14)), (w64, (2, 300)), (w128, (3, 90)), (w128, (1, 14)),
+                     (get_wavelet("db2"), (33, 2)), (get_wavelet("haar"), (5, 2)),
+                     (odd5, (3, 30)), (w8, (1024, 512))]:
+        b1_cases.append(Case("fwd_level_1d", torch.randn(shape, device=dev, generator=g7),
+                             lambda t, w=w: K1.fwd_level_1d(t, w.dec_lo, w.dec_hi),
+                             lambda t, w=w: K1.fwd_level_1d_ref(t, w.dec_lo, w.dec_hi),
+                             f"{w.name} {shape}"))
     run_cases(b1_cases, report, card)
 
     # -- the batched 1D path, as a user drives it: the batch and one signal,

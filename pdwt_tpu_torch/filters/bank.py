@@ -1,8 +1,9 @@
 """Wavelet filter bank of the PyTorch port.
 
 Counterpart of ``pdwt_tpu/filters/bank.py``.  The code is numpy only and
-reads the same coefficient tables, ``pdwt_tpu/filters/_data.npz``, by
-path: importing ``pdwt_tpu`` would pull in JAX.
+reads the port's own copy of the coefficient tables, ``_data.npz`` beside
+this module (the same arrays as the JAX package's; the port uses nothing
+of that package).
 
 * name lookup is case-insensitive, and the haar aliases db1 / bior1.1 /
   rbio1.1 / rbior1.1 resolve to haar;
@@ -20,9 +21,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-_DATA_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "pdwt_tpu", "filters", "_data.npz")
+_DATA_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_data.npz")
 
 _HAAR_ALIASES = ("db1", "bior1.1", "rbio1.1", "rbior1.1")
 

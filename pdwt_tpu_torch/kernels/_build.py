@@ -92,7 +92,9 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
     P, I = ctypes.c_void_p, ctypes.c_int
     sigs = {
-        "pdwt_fwd_level_2d": [P, P, P, P, P, I, I, I, P, P, I, I, P],
+        # x, a, h, v, d, B, R, C, taps (4, hlen on the device), hlen, center, the launch
+        # plan (lr, lc, gc, nph, nt, threads, grid x, y, z, smem), stream
+        "pdwt_fwd_level_2d": [P, P, P, P, P, I, I, I, P, I, I, *[I] * 10, P],
         # a, h, v, d, out, B, Mr, Mc, taps (4, hlen on the device), hlen, geometry, the
         # launch plan (lr, lc, nt, threads, grid x, y, z, smem), stream
         "pdwt_inv_level_2d": [P, P, P, P, P, I, I, I, P, I, P, *[I] * 8, P],
@@ -105,8 +107,9 @@ def load() -> ctypes.CDLL:
         # thresh_mode, beta (one float on the device), the launch plan (lr, lc, gc, nph,
         # nt, threads, grid x, y, z, smem), stream
         "pdwt_swt_inv_level_2d": [P, P, P, P, P, I, I, I, P, I, I, I, I, P, *[I] * 10, P],
-        # x, lo, hi, B, N, taps_lo, taps_hi, hlen, center, stream
-        "pdwt_fwd_level_1d": [P, P, P, I, I, P, P, I, I, P],
+        # x, lo, hi, B, N, taps (4, hlen on the device), hlen, center, the launch plan
+        # (lc, gc, nt, threads, grid x, y, z, smem), stream
+        "pdwt_fwd_level_1d": [P, P, P, I, I, P, I, I, *[I] * 8, P],
         # lo, hi, out, B, M, taps (4, hlen on the device), hlen, geometry, the launch
         # plan (lc, gc, nt, threads, grid x, y, z, smem), stream
         "pdwt_inv_level_1d": [P, P, P, I, I, P, I, P, *[I] * 8, P],

@@ -270,12 +270,12 @@ def fwd_smem(scheme: str, lr: int, lc: int, dc: int, nt: int, nph: int, os_: int
 
 
 def fwd_plan(B: int, R: int, C: int, hlen: int, f: int, scheme: str, os_: int) -> InvPlan:
-    """The launch of swt_matmul.cu's 2D analysis body (kernel 13 at output
-    step 1, kernel 11 at step 2) on a (B, R, C) input at output step
-    ``os_`` (outputs R / os_ x C / os_): candidates, largest tile first, lr
-    output rows of one residue class mod f by lc output columns,
-    consecutive or one residue class (``consecutive_columns``; always
-    consecutive at f = 1); all four output tiles at once (nph = 1) or two
+    """The launch of swt_matmul.cu's 2D analysis body (kernels 13 and 5 at
+    output step 1, kernels 11 and 1 at step 2) on a (B, R, C) input at
+    output step ``os_`` (outputs R / os_ x C / os_): candidates, largest
+    tile first, lr output rows of one residue class mod f by lc output
+    columns, consecutive or one residue class (``consecutive_columns``;
+    always consecutive at f = 1); all four output tiles at once (nph = 1) or two
     at a time; taps padded to nt.  The first that fits two blocks on an SM
     and gives ``block_target`` blocks for the input's size (the four
     subbands' outputs together), so the deep levels and small images take

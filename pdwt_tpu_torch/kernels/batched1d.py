@@ -16,11 +16,12 @@ wrapper                computes                                  plain version
 A wrapper given a CPU tensor returns its plain version, built on
 ``core/conv.py``; given a CUDA tensor it launches its kernel or raises.
 Each launch adds one to ``LAUNCHES[<wrapper name>]``.  The kernels take
-any batch, length, filter length (odd included) and dilation.  The
-polyphase synthesis and the a-trous pair run the bodies of kernels 15 and
-16 (``csrc/mxu1d.cu``) in the ``fd`` scheme on float32 data, on the plans
-of ``mxu1d.inv1d_launch_plan`` and ``mxu1d.fwd1d_launch_plan``; only the
-decimated analysis keeps a body of its own.
+any batch, length, filter length (odd included) and dilation.  All four
+run the bodies of kernels 15 and 16 (``csrc/mxu1d.cu``: the decimated or
+a-trous analysis, the polyphase or a-trous synthesis) in the ``fd`` scheme
+on float32 data, on the plans of ``mxu1d.fwd1d_launch_plan`` and
+``mxu1d.inv1d_launch_plan``; ``csrc/batched1d.cu`` holds their entry
+points only.
 
 Filters are forward-convention float64 arrays.  A 1D a-trous synthesis is
 one pass, so the wrapper folds ONE 1/2 into the inverse's taps
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 
 from ..core import conv
-from ._launch import check_span, dilation, dual_taps, launch, on_cpu, poly_geo, ptr, rev, taps
+from ._launch import check_span, dilation, dual_taps, launch, on_cpu, poly_geo, ptr, rev
 from .mxu1d import fwd1d_launch_plan, inv1d_launch_plan
 
 
@@ -98,11 +99,13 @@ def fwd_level_1d(x: torch.Tensor, dec_lo, dec_hi):
     B, n = x.shape
     if n % 2:
         raise ValueError(f"fwd_level_1d takes an even length, got {n}")
-    tl, th = taps(dec_lo), taps(dec_hi)
+    tp = dual_taps((dec_lo, dec_hi), "fd", x.device)
+    hlen = tp.shape[1]
+    pl = fwd1d_launch_plan(B, n, hlen, 1, "fd", True)
     lo, hi = (torch.empty((B, n // 2), device=x.device, dtype=x.dtype) for _ in range(2))
     launch("fwd_level_1d", x.device,
-           [ptr(x), ptr(lo), ptr(hi), B, n, ptr(tl), ptr(th), len(tl),
-            conv.fwd_center(len(tl))])
+           [ptr(x), ptr(lo), ptr(hi), B, n, ptr(tp), hlen, conv.fwd_center(hlen), pl.lc, pl.gc,
+            pl.nt, pl.threads, *pl.grid, pl.smem])
     return lo, hi
 
 

@@ -2,9 +2,9 @@
 // cores: the banded-product inverses (swt_matmul.cu's swt_inv_mxu_kernel,
 // ns_matmul.cu's ns_inv_mxu_kernel, mxu1d.cu's inv1d_strip_kernel), the
 // banded-product analyses (swt_matmul.cu's swt_fwd_mxu_kernel, kernel 13,
-// in fd the exact kernel 5 and, at output step 2, kernel 11; mxu1d.cu's
-// fwd1d_strip_kernel, kernel 15 and, in fd, the exact kernel 9;
-// ns_matmul.cu's ns_fwd_mxu_kernel) and the
+// in fd the exact kernel 5 and, at output step 2, kernel 11 and in fd the
+// exact kernel 1; mxu1d.cu's fwd1d_strip_kernel, kernel 15 and, in fd, the
+// exact kernels 7 and 9; ns_matmul.cu's ns_fwd_mxu_kernel) and the
 // polyphase inverse of separable.cu (the exact kernel 2 and, in the tiers'
 // schemes, kernel 12).
 //

@@ -8,6 +8,11 @@
 //   fwd1d_strip_kernel  <- _fwd1d_kernel  (mxu1d_pallas.py:102)
 //   inv1d_strip_kernel  <- _inv1d_kernel  (mxu1d_pallas.py:153)
 //
+// In the fd scheme on float32 data they are also the four exact batched 1D
+// kernels of swt_pallas.py (kernels 7-10: the decimated and a-trous
+// analyses, the polyphase and a-trous syntheses), reached through
+// batched1d.cu's entry points.
+//
 // Every kernel filters along the last axis of a (B, N) batch under a compute
 // scheme (mxu_common.cuh), with the index spec of core/conv.py, t the
 // reversed filter (correlation order):
@@ -78,9 +83,10 @@ __device__ __forceinline__ void stage_lines(const Bands& src, long long row0, in
 // The taps (the (4, hlen) device buffer) are padded with zeros to nt, a
 // multiple of 8, and read around the first staging.  The plan
 // (kernels/mxu1d.py: fwd1d_launch_plan) picks lc and gc, and the entry
-// points refuse a plan that does not add up.  Kernel 9, the exact a-trous
-// analysis (batched1d.cu: pdwt_swt_fwd_level_1d), runs the a-trous instance
-// in fd on a float32 input and high band.
+// points refuse a plan that does not add up.  Kernels 7 and 9, the exact
+// decimated and a-trous analyses (batched1d.cu: pdwt_fwd_level_1d,
+// pdwt_swt_fwd_level_1d), run the decimated and the a-trous instance in fd
+// on a float32 input and high band.
 // ---------------------------------------------------------------------------
 constexpr int kFwdCh = 8;  // taps per chunk of the analysis's strips
 

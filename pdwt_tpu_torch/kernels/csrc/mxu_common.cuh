@@ -1,8 +1,8 @@
 // The compute schemes of the precision tiers, shared by separable.cu (2D;
-// kernel 12 runs its synthesis), swt_matmul.cu (2D a-trous; kernel 11 runs its
-// analysis at step 2), mxu1d.cu (batched 1D) and ns_matmul.cu (rank-r
-// non-separable); swt.cu's entry points take the scheme index from here
-// too.  The scheme table is pdwt_tpu_torch/kernels/matmul.py's:
+// kernel 12 runs its synthesis), swt_matmul.cu (2D a-trous; kernels 11 and 1
+// run its analysis at step 2), mxu1d.cu (batched 1D) and ns_matmul.cu (rank-r
+// non-separable); the entry points of separable.cu, swt.cu and batched1d.cu
+// take the scheme index from here too.  The scheme table is pdwt_tpu_torch/kernels/matmul.py's:
 //
 //   b1   sum h(f) h(x)                       (one term)
 //   fd   sum f x in float32                  (one term)

@@ -1,9 +1,10 @@
 // Separable periodization DWT kernels for Hopper (sm_90a), with a plain C
 // interface loaded through ctypes (pdwt_tpu_torch/kernels/_build.py).
 //
-// Four kernels, one per Pallas kernel of pdwt_tpu/kernels/separable_pallas.py:
+// The kernels of the four Pallas kernels of pdwt_tpu/kernels/separable_pallas.py:
 //
-//   fwd_level_kernel  <- _make_fwd_kernel       (separable_pallas.py:234)
+//   swt_matmul.cu: swt_fwd_mxu_kernel<FD, 2>
+//                     <- _make_fwd_kernel       (separable_pallas.py:234)
 //   inv_level_kernel  <- _make_inv_kernel       (separable_pallas.py:385),
 //                        and _inv_mxu_kernel (matmul_pallas.py:360) in the
 //                        precision tiers' compute schemes (kernel 12)
@@ -19,12 +20,21 @@
 // are defined once.  Sizes reaching these kernels are even: odd sizes are
 // extended by one sample (odd_extend) before the call.
 //
+// The analysis level (kernel 1) is kernel 11's function in the fd scheme on
+// float32 data: one float32 sum per output and pass, the taps in order, one
+// FMA each.  So its entry point (pdwt_fwd_level_2d, below) runs kernel 13's
+// body at output step 2 (swt_matmul.cu: swt_fwd_mxu_kernel<FD, 2>, through
+// pdwt_swtmm::launch_fwd), on a launch plan made on the host
+// (kernels/separable.py: fwd_level_launch_plan): rows (axis -2) first, then
+// the columns, as the Pallas kernel (separable_pallas.py:272-283); its plain
+// version runs the columns first, so the two differ by float32 roundoff.
+//
 // Periodic boundaries are an index "mod N" at load time, as in the reference
-// CUDA library; nothing is padded on the host.  Taps travel as float32 kernel
-// parameters (__grid_constant__), read through the constant bank, except for
-// the inverse level (redesigned for Hopper's CUDA cores on band_strip.cuh,
-// whose launch plan comes from the host), which reads them from a small device
-// buffer into shared memory.
+// CUDA library; nothing is padded on the host.  The tails take their taps as
+// float32 kernel parameters (__grid_constant__), read through the constant
+// bank; the levels (redesigned for Hopper's CUDA cores on band_strip.cuh,
+// their launch plans from the host) read them from a small device buffer
+// into shared memory.
 
 #include "band_strip.cuh"
 
@@ -48,11 +58,6 @@ struct InBands {
   const float* p[3 * PDWT_MAX_TAIL_LEVELS];
 };
 
-// Forward level: a block owns an LT x LT tile of each output subband and runs
-// with BX x BY threads, BX == LT.
-constexpr int LT = 32;
-constexpr int BX = 32;
-constexpr int BY = 8;
 // Tail kernels: one block of TAIL_THREADS threads per batch element.
 constexpr int TAIL_THREADS = 1024;
 
@@ -62,83 +67,10 @@ __device__ __forceinline__ int wrap(int i, int n) {
 }
 
 // ---------------------------------------------------------------------------
-// Forward level.  Replaces _make_fwd_kernel (separable_pallas.py:234).
-// Bound: device memory.  Per level it reads the input once (R x C) and writes
-// the four subbands once (R x C in all); the 2*hlen FMAs per output of each
-// pass are cheap beside that.  Design: the block loads its input window, halo
-// included, into shared memory with the periodic index, runs the pass along
-// the columns (last axis) into a shared lo/hi temp, then the pass along the
-// rows from that temp, and writes A, H, V, D once.  The temp never reaches
-// device memory, which the two-launch reference design pays for.  The halo
-// re-read costs (2*LT + hlen - 2)^2 / (2*LT)^2 of the input (1.41x for db7).
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(BX * BY)
-fwd_level_kernel(const float* __restrict__ x, float* __restrict__ a,
-                 float* __restrict__ h, float* __restrict__ v,
-                 float* __restrict__ d, int B, int R, int C, int hlen, int cen,
-                 const __grid_constant__ Taps taps) {
-  extern __shared__ float smem[];
-  const int W = 2 * LT + hlen - 2;  // input window per axis
-  float* s_in = smem;               // W x W
-  float* s_lo = s_in + W * W;       // W x LT, low-pass along the columns
-  float* s_hi = s_lo + W * LT;      // W x LT, high-pass along the columns
-  const int Mr = R / 2, Mc = C / 2;
-  const int m0 = blockIdx.y * LT, n0 = blockIdx.x * LT;
-  const int r0 = 2 * m0 - cen, c0 = 2 * n0 - cen;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-
-  for (int b = blockIdx.z; b < B; b += gridDim.z) {
-    const float* xb = x + (size_t)b * R * C;
-    for (int i = ty; i < W; i += BY) {
-      const float* row = xb + (size_t)wrap(r0 + i, R) * C;
-      for (int j = tx; j < W; j += BX) s_in[i * W + j] = __ldg(row + wrap(c0 + j, C));
-    }
-    __syncthreads();
-
-    // along the columns: output column tx of every window row
-    for (int i = ty; i < W; i += BY) {
-      const float* src = s_in + i * W + 2 * tx;
-      float lo = 0.f, hi = 0.f;
-      for (int j = 0; j < hlen; ++j) {
-        const float s = src[j];
-        lo = fmaf(taps.lo[j], s, lo);
-        hi = fmaf(taps.hi[j], s, hi);
-      }
-      s_lo[i * LT + tx] = lo;
-      s_hi[i * LT + tx] = hi;
-    }
-    __syncthreads();
-
-    // along the rows: A = lo(lo), H = hi rows of lo, V = lo rows of hi, D
-    const int n = n0 + tx;
-    for (int mm = ty; mm < LT; mm += BY) {
-      float aa = 0.f, hh = 0.f, vv = 0.f, dd = 0.f;
-      for (int j = 0; j < hlen; ++j) {
-        const float l = s_lo[(2 * mm + j) * LT + tx];
-        const float g = s_hi[(2 * mm + j) * LT + tx];
-        aa = fmaf(taps.lo[j], l, aa);
-        hh = fmaf(taps.hi[j], l, hh);
-        vv = fmaf(taps.lo[j], g, vv);
-        dd = fmaf(taps.hi[j], g, dd);
-      }
-      const int m = m0 + mm;
-      if (m < Mr && n < Mc) {
-        const size_t o = ((size_t)b * Mr + m) * Mc + n;
-        a[o] = aa;
-        h[o] = hh;
-        v[o] = vv;
-        d[o] = dd;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Inverse level.  Replaces _make_inv_kernel (separable_pallas.py:385) and,
 // in the compute schemes of the precision tiers, _inv_mxu_kernel
 // (matmul_pallas.py:360; matmul.cu's entry pdwt_inv_level_2d_mxu).  Bound:
-// device memory, as the forward level: the four subbands are read once and
+// device memory, as the analysis level: the four subbands are read once and
 // the image written once (32 MiB at 1024^2 float32 subbands, 10 us at 3.35
 // TB/s); the 2 hlen multiply-adds per output of each pass take about a third
 // of that at the float32 rate (b3: three terms, as much as the bytes).
@@ -451,10 +383,6 @@ Taps make_taps(const float* lo, const float* hi, int hlen) {
   return t;
 }
 
-dim3 level_grid(int Mr, int Mc, int B) {
-  return dim3((Mc + LT - 1) / LT, (Mr + LT - 1) / LT, B < 65535 ? B : 65535);
-}
-
 }  // namespace
 
 namespace pdwt_sep {
@@ -502,23 +430,31 @@ int launch_inv_level(const float* a, const void* h, const void* v, const void* d
 
 }  // namespace pdwt_sep
 
+namespace pdwt_swtmm {
+int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R, int C,
+               const float* taps, int hlen, int os, int f, int cen, int scheme, int in_bf16,
+               int det_bf16, int lr, int lc, int gc, int nph, int nt, int threads, int gx,
+               int gy, int gz, int smem, void* stream);
+}
+
 // Every entry point returns a cudaError_t as int: 0 once the launch has been
 // queued on `stream`, else the reason it was refused (cudaGetLastError()).
 
-extern "C" int pdwt_fwd_level_2d(const float* x, float* a, float* h, float* v, float* d,
-                                 int B, int R, int C, const float* taps_lo,
-                                 const float* taps_hi, int hlen, int cen, void* stream) {
-  if (hlen < 2 || hlen > PDWT_MAX_HLEN || B < 1 || R < 2 || C < 2 || ((R | C) & 1))
-    return cudaErrorInvalidValue;
-  const int W = 2 * LT + hlen - 2;
-  const size_t smem = sizeof(float) * ((size_t)W * W + 2 * (size_t)W * LT);
-  cudaError_t e = prepare(fwd_level_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid = level_grid(R / 2, C / 2, B);
-  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
-  fwd_level_kernel<<<grid, dim3(BX, BY), smem, (cudaStream_t)stream>>>(
-      x, a, h, v, d, B, R, C, hlen, cen, make_taps(taps_lo, taps_hi, hlen));
-  return cudaGetLastError();
+// Kernel 1 runs kernel 13's body (swt_matmul.cu: swt_fwd_mxu_kernel) at
+// output step 2 in the fd scheme, on an even (B, R, C) float32 image into
+// four float32 subbands.  `taps` is the (4, hlen) float32 device buffer of
+// kernels/_launch.py: dual_taps in fd (the second values 0); `cen` =
+// fwd_center(hlen); the launch plan (kernels/separable.py:
+// fwd_level_launch_plan: tile lr x lc subband positions, column stride gc =
+// 1, nph output phases, nt padded taps, threads, grid (gx, gy, gz), dynamic
+// shared-memory bytes) is checked by the launcher, which refuses one that
+// does not add up.
+extern "C" int pdwt_fwd_level_2d(const float* x, float* a, float* h, float* v, float* d, int B,
+                                 int R, int C, const float* taps, int hlen, int cen, int lr,
+                                 int lc, int gc, int nph, int nt, int threads, int gx, int gy,
+                                 int gz, int smem, void* stream) {
+  return pdwt_swtmm::launch_fwd(x, a, h, v, d, B, R, C, taps, hlen, 2, 1, cen, pdwt_mxu::FD, 0,
+                                0, lr, lc, gc, nph, nt, threads, gx, gy, gz, smem, stream);
 }
 
 // `taps` is the (4, hlen) float32 device buffer of kernels/_launch.py:

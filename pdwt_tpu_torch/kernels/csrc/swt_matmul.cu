@@ -12,7 +12,9 @@
 // matmul_pallas.py:242), reached through matmul.cu's entry point.  In the fd
 // scheme on float32 data the forward at step 1 is also the exact a-trous
 // analysis (kernel 5) and the inverse the exact synthesis (kernel 6),
-// reached through swt.cu's entry points.
+// reached through swt.cu's entry points, and the forward at step 2 the
+// exact decimated analysis (kernel 1, _make_fwd_kernel of
+// separable_pallas.py:234), reached through separable.cu's.
 //
 // On the TPU each pass of a stationary level is a banded matrix product on the
 // MXU whose band has stride f = 2^(level-1), in a compute scheme (b1, fd, b2f,
@@ -61,7 +63,9 @@ using namespace pdwt_strip;
 // Forward level, output step OS: 1 (a-trous, dilation f) or 2 (decimated, f
 // = 1).  Replaces _swt_fwd_mxu_kernel (swt_matmul_pallas.py:166) at OS = 1
 // and, through matmul.cu's entry point, _fwd_mxu_kernel
-// (matmul_pallas.py:242) at OS = 2: the same sums in the same order (rows
+// (matmul_pallas.py:242) at OS = 2 (in fd, through separable.cu's,
+// _make_fwd_kernel of separable_pallas.py:234): the same sums in the same
+// order (rows
 // first, both filters from one read, the row-pass result split per scheme,
 // then the columns), at another step between outputs.  Redesigned for
 // Hopper's CUDA cores (band_strip.cuh), as the inverse below and the rank-r
@@ -89,7 +93,8 @@ using namespace pdwt_strip;
 // result split in between.  The taps (the (4, hlen) device buffer) are
 // padded with zeros to nt, a multiple of 8, and read around the first
 // staging.  The plans (kernels/swt_matmul.py: swt_fwd_launch_plan at OS =
-// 1, fwd_launch_plan at OS = 2) pick the tile so that the deep levels and
+// 1; kernels/matmul.py: fwd_launch_plan and kernels/separable.py:
+// fwd_level_launch_plan at OS = 2) pick the tile so that the deep levels and
 // small images still fill the card, and the launcher refuses a plan that
 // does not add up.
 // ---------------------------------------------------------------------------
@@ -352,8 +357,9 @@ namespace pdwt_swtmm {
 // hlen) float32 device buffer: the low filter's first and second values,
 // then the high filter's, correlation order; `cen` is fwd_center(hlen).
 // Kernels 13 (pdwt_swt_fwd_level_2d_mxu, below) and 5 (swt.cu:
-// pdwt_swt_fwd_level_2d, fd) run it at os = 1, kernel 11 (matmul.cu:
-// pdwt_fwd_level_2d_mxu) at os = 2.
+// pdwt_swt_fwd_level_2d, fd) run it at os = 1, kernels 11 (matmul.cu:
+// pdwt_fwd_level_2d_mxu) and 1 (separable.cu: pdwt_fwd_level_2d, fd) at os =
+// 2.
 int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R, int C,
                const float* taps, int hlen, int os, int f, int cen, int scheme, int in_bf16,
                int det_bf16, int lr, int lc, int gc, int nph, int nt, int threads, int gx,

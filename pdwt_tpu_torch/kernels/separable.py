@@ -1,7 +1,8 @@
 """Fused separable DWT level kernels: wrappers, plain versions, gradients.
 
 Counterpart of ``pdwt_tpu/kernels/separable_pallas.py``.  Four CUDA
-kernels (``csrc/separable.cu``) carry the 2D periodization main path:
+kernels (entry points in ``csrc/separable.cu``) carry the 2D periodization
+main path:
 
 =================  ==========================================  =======================
 wrapper            computes                                    plain version
@@ -16,6 +17,15 @@ A wrapper given a CPU tensor returns its plain version, built on
 ``core/conv.py``; given a CUDA tensor it launches its kernel or raises.
 Each launch adds one to ``LAUNCHES[<wrapper name>]`` (one dict for
 every kernel of the package, in ``_launch.py``).
+
+The analysis level runs kernel 13's body at output step 2
+(``csrc/swt_matmul.cu: swt_fwd_mxu_kernel``) in the ``fd`` scheme on
+float32 data, on the plan of ``fwd_level_launch_plan``, rows first as the
+Pallas kernel (``separable_pallas.py:272-283``); its plain version runs
+the columns first, so the two agree to float32 roundoff.  The synthesis
+level runs ``inv_level_kernel`` (``csrc/separable.cu``) on the plan of
+``inv_level_launch_plan``; both read their taps from ``dual_taps``.  The
+tails keep bodies of their own and take their taps by value.
 
 Filters are forward-convention float64 arrays (``dec_lo``/``dec_hi`` for
 analysis, ``rec_lo``/``rec_hi`` for synthesis), as in the JAX kernels; the
@@ -38,8 +48,8 @@ import torch
 from ..core import conv
 from ._launch import LAUNCHES, MAX_HLEN, reset_launch_counts  # noqa: F401 (re-exported)
 from ._launch import (PLAN_TILES, ROW_STRIP, InvPlan, align16, block_target, cdiv, dual_taps,
-                      launch, on_cpu, pick_plan, poly_geo, ptr, rev, stage_bytes, taps,
-                      temp_pitch)
+                      fwd_plan, launch, on_cpu, pick_plan, poly_geo, ptr, rev, stage_bytes,
+                      taps, temp_pitch)
 
 #: Most levels one tail launch fuses (PDWT_MAX_TAIL_LEVELS).
 MAX_TAIL_LEVELS = 16
@@ -103,6 +113,16 @@ def tail_supported(shape: Tuple[int, int], hlen: int, levels: int) -> bool:
     return 2 * r * c * 4 <= SMEM_PER_BLOCK
 
 
+@functools.lru_cache(maxsize=256)
+def fwd_level_launch_plan(B: int, R: int, C: int, hlen: int) -> InvPlan:
+    """The launch of one analysis level on an even (B, R, C) float32 image
+    (kernel 1 on kernel 13's body: output step 2, dilation 1, ``fd``,
+    (R/2, C/2) subbands; ``_launch.fwd_plan``), the plan kernel 11 takes
+    in ``fd``: the DWT cell's levels (2048^2 down to 256^2 images) get
+    128-512 blocks."""
+    return fwd_plan(B, R, C, hlen, 1, "fd", 2)
+
+
 # ---------------------------------------------------------------------------
 # launch plan of the inverse level (csrc/separable.cu: inv_level_kernel),
 # kernel 2 in fd and kernel 12 (matmul.inv_level_2d_mxu) in every scheme
@@ -153,18 +173,21 @@ def inv_level_launch_plan(B: int, Mr: int, Mc: int, hlen: int, scheme: str = "fd
 
 def fwd_level_2d(x: torch.Tensor, dec_lo, dec_hi):
     """One analysis level on an even-sized (B, R, C) image -> (a, h, v, d),
-    each (B, R/2, C/2)."""
+    each (B, R/2, C/2).  The CUDA kernel takes filters of 2..128 taps;
+    ``fwd_level_launch_plan`` picks its tile."""
     if on_cpu(x):
         return fwd_level_2d_ref(x, dec_lo, dec_hi)
     B, R, C = x.shape
     if R % 2 or C % 2:
         raise ValueError(f"fwd_level_2d takes even sizes, got {(R, C)}")
-    tl, th = taps(dec_lo), taps(dec_hi)
+    tp = dual_taps((dec_lo, dec_hi), "fd", x.device)
+    hlen = tp.shape[1]
+    pl = fwd_level_launch_plan(B, R, C, hlen)
     outs = [torch.empty((B, R // 2, C // 2), device=x.device, dtype=x.dtype)
             for _ in range(4)]
     launch("fwd_level_2d", x.device,
-           [ptr(x), *map(ptr, outs), B, R, C, ptr(tl), ptr(th), len(tl),
-            conv.fwd_center(len(tl))])
+           [ptr(x), *map(ptr, outs), B, R, C, ptr(tp), hlen, conv.fwd_center(hlen), pl.lr,
+            pl.lc, pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
     return tuple(outs)
 
 

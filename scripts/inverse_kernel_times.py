@@ -2,17 +2,18 @@
 (kernels 14 and 18, the banded-product inverses; kernels 2 and 6, the exact
 inverses; kernels 16 and 17, the batched 1D synthesis and the rank-r
 analysis; kernels 13 and 15, the 2D a-trous and the batched 1D analyses;
-kernels 12 and 10, 11 and 9, 8 and 5, which run the bodies of 2 and 16, 13
-and 15, 16 and 13) at the cells' shapes, for one checkout of the port.
+kernels 12 and 10, 11 and 9, 8 and 5, 1 and 7, which run the bodies of 2
+and 16, 13 and 15, 16 and 13, 13 and 15) at the cells' shapes, for one
+checkout of the port.
 
     python3 scripts/inverse_kernel_times.py ROOT [OUTDIR]
 
 ROOT is the checkout to import (``.`` for this one; an unpacked
 ``git archive`` of another commit to compare in turns: parent, change,
-change, parent).  With OUTDIR, kernel 5's outputs are saved there under
-ROOT's name, and for each other checkout's file already there it prints
-one line, K5DIFF ROOT OTHER {json}: per level, max|ROOT - OTHER| over
-max|OTHER| of the four planes.  Needs a CUDA card.  It builds the kernels (and reports
+change, parent).  With OUTDIR, kernel 5's and kernel 1's outputs are saved
+there under ROOT's name, and for each other checkout's file already there
+it prints one line each, K5DIFF (K1DIFF) ROOT OTHER {json}: per level,
+max|ROOT - OTHER| over max|OTHER| of the four planes.  Needs a CUDA card.  It builds the kernels (and reports
 the build time), brings the card's clocks up with a few large products,
 then times with torch.profiler, per call, the device time of these
 kernels' launches at: the TI cell's three levels (db7, 1024^2, soft beta
@@ -41,20 +42,23 @@ float32), the tier DWT roundtrip's analysis levels on kernel 11 (db7,
 mixed b3 on float32, under bf16-balanced b2f on bf16 then b3) and the exact
 1D SWT cell's analysis levels on kernel 9 (sym8, 1024 x 4096, levels 1-4,
 float32), the exact 1D DWT cell's synthesis levels on kernel 8 (sym8, 1024
-signals, float32 bands of 2048 down to 256 samples) and the exact TI cell's
-analysis levels on kernel 5 (db7, 1024^2, levels 1-3, float32).  Beside 5,
-8, 9, 11, 12, 13 and 15 it times their PyTorch yardsticks in the same call,
-by CUDA events: the dense-band ``torch.matmul`` products of
+signals, float32 bands of 2048 down to 256 samples), the exact TI cell's
+analysis levels on kernel 5 (db7, 1024^2, levels 1-3, float32), the DWT
+roundtrip's analysis levels on kernel 1 (db7, float32 images of 2048^2 down
+to 256^2) and the exact 1D DWT cell's analysis levels on kernel 7 (sym8,
+1024 float32 signals of 4096 down to 512 samples).  Beside 1, 5, 7, 8, 9,
+11, 12, 13 and 15 it times their PyTorch yardsticks in the same call, by
+CUDA events: the dense-band ``torch.matmul`` products of
 ``chip_smoke.yardstick`` (a pair per 2D level, one per 1D level; bf16, and
-float32 for kernels 5, 8 and 9).
+float32 for kernels 1, 5, 7, 8 and 9).
 Prints one line: RESULT ROOT {json}, each level in ms and each pass
 summed, and one line: SUMS ROOT {json}, a SHA-256 prefix of the bytes of
 each timed kernel's output (the same inputs on every checkout, made from
 one seed), so that runs in turns show where two checkouts agree bit for
-bit; and one line: NONFINITE ROOT {json}, for kernels 8 and 5 given one
-inf sample (sym8 on 33 x 200 bands, db7 level 2 on a 64 x 96 image), the
-outputs that are inf and that are NaN, from the kernel and from its plain
-version.  Imports no JAX.
+bit; and one line: NONFINITE ROOT {json}, for kernels 8, 5, 1 and 7 given
+one inf sample (sym8 on 33 x 200 bands, db7 level 2 and db7 on a 64 x 96
+image, sym8 on 33 x 400 signals), the outputs that are inf and that are
+NaN, from the kernel and from its plain version.  Imports no JAX.
 """
 import glob
 import hashlib
@@ -104,7 +108,8 @@ for _ in range(50):  # bring the clocks up
 torch.cuda.synchronize()
 
 
-KERNELS = ("inv_mxu", "inv_level", "inv1d", "ns_fwd", "fwd_mxu", "fwd1d", "swt_fwd_level")
+KERNELS = ("inv_mxu", "inv_level", "inv1d", "ns_fwd", "fwd_mxu", "fwd1d", "swt_fwd_level",
+           "fwd_level")
 
 
 def digest(t):
@@ -119,7 +124,8 @@ def digest(t):
 def dev_ms(fn, reps=30):
     """Device ms per fn() call of the timed kernels' launches (by name:
     kernel 2's and 6's old and new bodies, 14's, 18's, 16's and 17's, 13's
-    and 15's, 12's, 10's, 11's, 9's, 8's and 5's old and new bodies); the digest of one
+    and 15's, 12's, 10's, 11's, 9's, 8's, 5's, 1's and 7's old and new
+    bodies); the digest of one
     call's output goes to ``sums`` under the row's key (``timed``).  The
     profiler now and then drops a few events, so the time is the mean per
     recorded launch times the launches per call that the port's launch
@@ -261,24 +267,48 @@ for lvl in (1, 2, 3):
     timed(f"k5 L{lvl}", lambda: S.swt_fwd_level_2d(x, w7.dec_lo, w7.dec_hi, lvl))
     res[f"y5 L{lvl}"] = CS.cuda_ms(CS.yardstick("swt_fwd2d", w7, f32, lvl)(x))
     k5[lvl] = [t.cpu() for t in S.swt_fwd_level_2d(x, w7.dec_lo, w7.dec_hi, lvl)]
+# kernel 1 at the DWT roundtrip's analysis levels (db7, float32 images of
+# 2048^2 down to 256^2), beside its float32 yardstick; its outputs kept for
+# K1DIFF
+gen = torch.Generator(device=dev).manual_seed(1)
+k1 = {}
+for r in (2048, 1024, 512, 256):
+    x = rand(1, r, r)
+    timed(f"k1 {r}", lambda: K.fwd_level_2d(x, w7.dec_lo, w7.dec_hi))
+    res[f"y1 {r}"] = CS.cuda_ms(CS.yardstick("fwd2d", w7, f32)(x))
+    k1[r] = [t.cpu() for t in K.fwd_level_2d(x, w7.dec_lo, w7.dec_hi)]
+# kernel 7 at the exact 1D DWT cell's analysis levels (sym8, 1024 float32
+# signals of 4096 down to 512 samples), beside its float32 yardstick
+gen = torch.Generator(device=dev).manual_seed(7)
+for n in (4096, 2048, 1024, 512):
+    x = torch.randn(1024, n, device=dev, generator=gen)
+    timed(f"k7 {n}", lambda: K1.fwd_level_1d(x, w8.dec_lo, w8.dec_hi))
+    res[f"y7 {n}"] = CS.cuda_ms(CS.yardstick("fwd", w8, f32)(x))
 for k in ("k14", "k14b", "k18s", "k18p", "k6", "k2", "k17d", "k17s", "k17b", "k16d", "k16a",
           "k13", "k13b", "y13", "k15d", "y15d", "k15a", "y15a", "k12f", "k12m", "k12b", "y12",
-          "k10", "k11f", "k11m", "k11b", "y11", "k9", "y9", "k8", "y8", "k5", "y5"):
+          "k10", "k11f", "k11m", "k11b", "y11", "k9", "y9", "k8", "y8", "k5", "y5", "k1", "y1",
+          "k7", "y7"):
     res[k + " pass"] = sum(v for n, v in res.items() if n.startswith(k + " ") and v)
 print("RESULT", root, json.dumps({k: None if v is None else round(v, 5) for k, v in res.items()}))
 print("SUMS", root, json.dumps(sums))
-# one inf sample through kernels 8 and 5 and their plain versions
+# one inf sample through kernels 8, 5, 1 and 7 and their plain versions
 gen = torch.Generator(device=dev).manual_seed(1)
 lo, hi = (torch.rand(33, 200, device=dev, generator=gen) for _ in range(2))
 hi[3, 100] = float("inf")
 x = rand(1, 64, 96)
 x[0, 30, 40] = float("inf")
+s = torch.rand(33, 400, device=dev, generator=gen)
+s[3, 200] = float("inf")
 nonfinite = {}
 for key, kern, plain in (
         ("k8", lambda: [K1.inv_level_1d(lo, hi, w8.rec_lo, w8.rec_hi)],
          lambda: [K1.inv_level_1d_ref(lo, hi, w8.rec_lo, w8.rec_hi)]),
         ("k5", lambda: S.swt_fwd_level_2d(x, w7.dec_lo, w7.dec_hi, 2),
-         lambda: S.swt_fwd_level_2d_ref(x, w7.dec_lo, w7.dec_hi, 2))):
+         lambda: S.swt_fwd_level_2d_ref(x, w7.dec_lo, w7.dec_hi, 2)),
+        ("k1", lambda: K.fwd_level_2d(x, w7.dec_lo, w7.dec_hi),
+         lambda: K.fwd_level_2d_ref(x, w7.dec_lo, w7.dec_hi)),
+        ("k7", lambda: K1.fwd_level_1d(s, w8.dec_lo, w8.dec_hi),
+         lambda: K1.fwd_level_1d_ref(s, w8.dec_lo, w8.dec_hi))):
     for which, fn in (("kernel", kern), ("plain", plain)):
         outs = fn()
         nonfinite[f"{key} {which}"] = {"inf": sum(int(t.isinf().sum()) for t in outs),
@@ -287,12 +317,13 @@ print("NONFINITE", root, json.dumps(nonfinite))
 if outdir:
     os.makedirs(outdir, exist_ok=True)
     name = os.path.basename(os.path.abspath(root))
-    torch.save(k5, os.path.join(outdir, f"k5-{name}.pt"))
-    for other in sorted(glob.glob(os.path.join(outdir, "k5-*.pt"))):
-        oname = os.path.basename(other)[3:-3]
-        if oname == name:
-            continue
-        ref = torch.load(other)
-        rel = {lvl: max(float((a - b).abs().max()) for a, b in zip(k5[lvl], ref[lvl]))
-               / max(float(b.abs().max()) for b in ref[lvl]) for lvl in k5}
-        print("K5DIFF", name, oname, json.dumps(rel))
+    for key, outs in (("k5", k5), ("k1", k1)):
+        torch.save(outs, os.path.join(outdir, f"{key}-{name}.pt"))
+        for other in sorted(glob.glob(os.path.join(outdir, f"{key}-*.pt"))):
+            oname = os.path.basename(other)[3:-3]
+            if oname == name:
+                continue
+            ref = torch.load(other)
+            rel = {lvl: max(float((a - b).abs().max()) for a, b in zip(outs[lvl], ref[lvl]))
+                   / max(float(b.abs().max()) for b in ref[lvl]) for lvl in outs}
+            print(f"{key.upper()}DIFF", name, oname, json.dumps(rel))

@@ -1397,18 +1397,111 @@ def test_nonfinite_inputs_of_kernels_8_and_5_never_turn_finite(dev):
     inf or NaN from the kernel too, and every output the kernel gives as
     finite equals the plain one.  (The zero taps that pad a parity's table
     or a chunk multiply real samples, so the kernels may give NaN where the
-    plain version is finite: ROADMAP, section 3.)"""
+    plain version is finite: ROADMAP, section 3.)  Kernels 1 and 7, which
+    run the bodies of 13 and 15 on zero-padded taps too, likewise."""
     w7, w8 = get_wavelet("db7"), get_wavelet("sym8")
     lo, hi = _rand(dev, 33, 200), _rand(dev, 33, 200, seed=1)
     hi[3, 100] = float("inf")
     x = _rand(dev, 1, 64, 96) * 255
     x[0, 30, 40] = float("inf")
+    s = _rand(dev, 33, 400)
+    s[3, 200] = float("inf")
     for got, want in ((K1.inv_level_1d(lo, hi, w8.rec_lo, w8.rec_hi),
                        K1.inv_level_1d_ref(lo, hi, w8.rec_lo, w8.rec_hi)),
                       *zip(S.swt_fwd_level_2d(x, w7.dec_lo, w7.dec_hi, 2),
-                           S.swt_fwd_level_2d_ref(x, w7.dec_lo, w7.dec_hi, 2))):
+                           S.swt_fwd_level_2d_ref(x, w7.dec_lo, w7.dec_hi, 2)),
+                      *zip(K.fwd_level_2d(x, w7.dec_lo, w7.dec_hi),
+                           K.fwd_level_2d_ref(x, w7.dec_lo, w7.dec_hi)),
+                      *zip(K1.fwd_level_1d(s, w8.dec_lo, w8.dec_hi),
+                           K1.fwd_level_1d_ref(s, w8.dec_lo, w8.dec_hi))):
         fin = torch.isfinite(got)
         assert not bool((fin & ~torch.isfinite(want)).any())
         assert bool(fin.any())
         err = float((got[fin] - want[fin]).abs().max())
         assert err <= RTOL * float(want[torch.isfinite(want)].abs().max()), err
+
+
+# ---------------------------------------------------------------------------
+# kernels 1 and 7, moved onto kernel 13's body at step 2 and kernel 15's
+# decimated body
+# ---------------------------------------------------------------------------
+
+# 2, 3 (odd), 5 (odd), 14, 40 and 128 taps; 2 x 2 images and odd subband
+# sizes; a batch of 3 and one past gridDim.z; the DWT cell's first and last
+# levels
+FWD1_CASES = [("haar", (1, 2, 2)), ("db7", (1, 2, 2)), ("w128", (3, 16, 16)),
+              ("odd3", (1, 6, 10)), ("odd5", (2, 70, 134)), ("w40", (1, 140, 76)),
+              ("db7", (3, 74, 106)), ("w128", (1, 80, 140)), ("db2", (70000, 2, 2)),
+              ("db7", (1, 2048, 2048)), ("db7", (1, 256, 256))]
+
+
+@pytest.mark.parametrize("wname,shape", FWD1_CASES)
+def test_fwd_level_2d_redesign_matches_plain(dev, wname, shape):
+    """Kernel 1 on kernel 13's body at step 2 in fd (rows first) against its
+    plain version (columns first), relative to the call's largest output."""
+    w = _bank(wname)
+    x = _rand(dev, *shape) * 255
+    _close_joint(K.fwd_level_2d(x, w.dec_lo, w.dec_hi), K.fwd_level_2d_ref(x, w.dec_lo,
+                                                                            w.dec_hi))
+
+
+# 2, 3, 5, 16, 64 and 128 taps; signals of 2 and 14 samples; a batch of 33
+# and one past gridDim.y; the batched 1D cell's first and last levels; one
+# long signal
+FWD7_CASES = [("odd3", (33, 14)), ("w64", (2, 300)), ("w128", (3, 90)), ("w128", (1, 14)),
+              ("db2", (33, 2)), ("haar", (5, 2)), ("odd5", (3, 30)), ("sym8", (1024, 4096)),
+              ("sym8", (1024, 512)), ("sym8", (70000, 32)), ("sym8", (1, 1 << 21))]
+
+
+@pytest.mark.parametrize("wname,shape", FWD7_CASES)
+def test_fwd_level_1d_redesign_matches_plain(dev, wname, shape):
+    """Kernel 7 on kernel 15's decimated body in fd, on a float32 input."""
+    w = _bank(wname)
+    x = _rand(dev, *shape)
+    _close(K1.fwd_level_1d(x, w.dec_lo, w.dec_hi), K1.fwd_level_1d_ref(x, w.dec_lo, w.dec_hi))
+
+
+def test_redesigned_1_7_refuse_a_bad_launch_plan(dev, monkeypatch):
+    """The entry points of kernels 1 and 7 check the plan they are given (an
+    a-trous plan is not one of 7's, a b3 plan not one of 1's)."""
+    w7, w8 = get_wavelet("db7"), get_wavelet("sym8")
+    x = _rand(dev, 1, 256, 256)
+    good = K.fwd_level_launch_plan(1, 256, 256, 14)
+    for bad in (good._replace(smem=good.smem + 16), good._replace(lr=good.lr + 1),
+                good._replace(grid=(good.grid[0], good.grid[1] + 1, 1)),
+                good._replace(threads=48), good._replace(nt=8), good._replace(gc=3),
+                M.fwd_launch_plan(1, 256, 256, 14, "b3")):
+        monkeypatch.setattr(K, "fwd_level_launch_plan", lambda *a, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            K.fwd_level_2d(x, w7.dec_lo, w7.dec_hi)
+    s = _rand(dev, 64, 512)
+    good = M1.fwd1d_launch_plan(64, 512, 16, 1, "fd", True)
+    for bad in (good._replace(smem=good.smem + 16), good._replace(lc=good.lc + 1),
+                good._replace(grid=(good.grid[0] + 1, *good.grid[1:])),
+                good._replace(threads=48), good._replace(nt=8),
+                M1.fwd1d_launch_plan(64, 512, 16, 2, "fd", False)):
+        monkeypatch.setattr(K1, "fwd1d_launch_plan", lambda *a, bad=bad: bad)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            K1.fwd_level_1d(s, w8.dec_lo, w8.dec_hi)
+
+
+@pytest.mark.parametrize("wname", ["db7", "odd5"])
+def test_gradients_flow_through_kernels_1_and_7(dev, wname):
+    """1 forward and as the backward of 2; 7 forward and as the backward of
+    8: gradients on the card against the CPU's, and the launches of each
+    backward's kernel."""
+    w = _wavelet(wname)
+    x = _rand(dev, 2, 38, 54) * 10
+    q = [_rand(dev, 2, 19, 27, seed=k) * 10 for k in range(4)]
+    s = _rand(dev, 33, 130) * 10
+    b = [_rand(dev, 33, 65, seed=k) * 10 for k in range(2)]
+    cases = [
+        (lambda t: K.fwd_level_2d_ad(t, w.dec_lo, w.dec_hi), [x], "inv_level_2d"),
+        (lambda *u: K.inv_level_2d_ad(*u, w.rec_lo, w.rec_hi), q, "fwd_level_2d"),
+        (lambda t: K1.fwd_level_1d_ad(t, w.dec_lo, w.dec_hi), [s], "inv_level_1d"),
+        (lambda lo, hi: K1.inv_level_1d_ad(lo, hi, w.rec_lo, w.rec_hi), b, "fwd_level_1d")]
+    for fn, inputs, name in cases:
+        (gd, gc), launched = _grads_and_launches(fn, inputs, name)
+        assert launched == 1, name
+        for g, gcpu in zip(gd, gc):
+            _close_tier(g.cpu(), gcpu, rtol=1e-4)

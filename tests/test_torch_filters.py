@@ -1,4 +1,6 @@
 """The port's filter bank and size bookkeeping against the JAX package's."""
+import os
+
 import numpy as np
 import pytest
 
@@ -31,6 +33,17 @@ def test_bank_matches_jax_bit_for_bit(name):
                                    "modwt-db1"])
 def test_aliases_match_jax(alias):
     _same(get_wavelet(alias), jbank.get_wavelet(alias))
+
+
+def test_port_reads_its_own_tables_with_the_jax_packages_arrays():
+    """The port's ``_data.npz`` lies in the port's package and holds the
+    JAX package's arrays, name for name and bit for bit."""
+    assert os.path.dirname(bank._DATA_PATH) == os.path.dirname(os.path.abspath(bank.__file__))
+    assert os.path.abspath(bank._DATA_PATH) != os.path.abspath(jbank._DATA_PATH)
+    with np.load(bank._DATA_PATH) as mine, np.load(jbank._DATA_PATH) as ref:
+        assert sorted(mine.files) == sorted(ref.files)
+        for name in ref.files:
+            assert mine[name].dtype == ref[name].dtype and np.array_equal(mine[name], ref[name])
 
 
 def test_list_wavelets():

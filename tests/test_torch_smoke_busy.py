@@ -14,7 +14,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as CS  # noqa: E402
 
 OURS = "void (anonymous namespace)::ns_fwd_mxu_kernel<4, 3, 1>(void const*, float*)"
-PLAIN = "(anonymous namespace)::fwd_level_kernel(float const*, float*)"
+PLAIN = "(anonymous namespace)::fwd_tail_kernel(float const*, float*)"
 LIB = "void at::native::(anonymous namespace)::CatArrayBatchedCopy<float>(float*)"
 
 
@@ -27,7 +27,7 @@ def _window(per_call, reps, drop=None):
 
 
 def test_the_port_kernels_are_named_from_their_sources():
-    assert {"ns_fwd_mxu_kernel", "fwd_level_kernel", "fwd1d_strip_kernel"} <= CS.port_kernels()
+    assert {"ns_fwd_mxu_kernel", "fwd_tail_kernel", "fwd1d_strip_kernel"} <= CS.port_kernels()
     assert CS.is_port_kernel(OURS) and CS.is_port_kernel(PLAIN)
     assert not CS.is_port_kernel(LIB)
     assert not CS.is_port_kernel("void at::native::vectorized_elementwise_kernel<4>(int)")
