@@ -81,7 +81,13 @@ decimated body, all in ``fd`` on float32 data) within ``KERNEL_RTOL`` on
 theirs (every tile size, 2 to 128 taps, odd too, 8 x 8, 2 x 2 and 1 x 1
 subbands or images, dilations 2-16 on sizes no tile divides and up to 4096
 past the signal or image, signals of 1, 2 and 7 samples, a batch of 33 and
-one past the grid's limit, every threshold).  Each
+one past the grid's limit, every threshold); so are the tails (kernels 3
+and 4: ``fwd_tail_2d`` and ``inv_tail_2d``, which run the level bodies of
+kernels 1 and 2 level by level in one launch over a thread-block cluster;
+1-5 levels, 2 to 128 taps, halos wider than the deepest level, batches of
+3 and 70000), each also equal (``torch.equal``) to the chain of its level
+kernel and, with more than one level, to its own first result over 50
+repeats, with its launch plan printed.  Each
 timed launch of these redesigned kernels prints its device time beside its
 bound; a profiler window that dropped events is profiled again, and read
 as not measured if every try drops some.
@@ -209,13 +215,14 @@ REPLACES = {
 
 def _source(name: str) -> str:
     """The file that holds the kernel's body (kernel 6 runs 14's, 12 runs
-    2's, 10 and 8 run 16's, 11, 5 and 1 run 13's, 9 and 7 run 15's)."""
+    2's, 10 and 8 run 16's, 11, 5 and 1 run 13's, 9 and 7 run 15's; the
+    tails 3 and 4 run 1's and 2's level by level, 3 in swt_matmul.cu)."""
     if name.startswith("ns_"):
         return "ns_matmul.cu"
     if name == "inv_level_2d_mxu":
         return "separable.cu"
-    if name.endswith("_2d_mxu") or name == "fwd_level_2d" or (name.startswith("swt_")
-                                                              and name.endswith("_2d")):
+    if name.endswith("_2d_mxu") or name in ("fwd_level_2d", "fwd_tail_2d") or (
+            name.startswith("swt_") and name.endswith("_2d")):
         return "swt_matmul.cu"
     if name.endswith("_mxu") or name.endswith("_1d"):
         return "mxu1d.cu"
@@ -381,14 +388,14 @@ def scheme_limit(scheme: str) -> Callable:
 
 # the kernels redesigned for Hopper's CUDA cores (kernels 14 and 18, then 2
 # and 6, then 16 and 17, then 13 and 15, then 12 and 10, then 11 and 9, then
-# 8 and 5, then 1 and 7): each timed launch's device time is printed beside
-# its bound
+# 8 and 5, then 1 and 7, then the tails 3 and 4): each timed launch's device
+# time is printed beside its bound
 REDESIGNED = ("swt_inv_level_2d_mxu", "ns_inv_level_2d_mxu", "ns_swt_inv_level_2d_mxu",
               "inv_level_2d", "swt_inv_level_2d", "inv_level_1d_mxu", "swt_inv_level_1d_mxu",
               "ns_fwd_level_2d_mxu", "ns_swt_fwd_level_2d_mxu", "swt_fwd_level_2d_mxu",
               "fwd_level_1d_mxu", "swt_fwd_level_1d_mxu", "inv_level_2d_mxu", "swt_inv_level_1d",
               "fwd_level_2d_mxu", "swt_fwd_level_1d", "inv_level_1d", "swt_fwd_level_2d",
-              "fwd_level_2d", "fwd_level_1d")
+              "fwd_level_2d", "fwd_level_1d", "fwd_tail_2d", "inv_tail_2d")
 
 
 def run_cases(cases, report, card) -> None:
@@ -553,6 +560,80 @@ def yardstick(kind: str, w, dtype=torch.float32, level: int = 1) -> Callable:
     return make
 
 
+def tail_yardstick(w, levels: int, inverse: bool = False) -> Callable:
+    """arg -> () -> the PyTorch yardstick of a tail call: ``yardstick``'s
+    dense-band pair per level, level by level (the forward's next level on
+    the product's top-left quarter, the approximation; the inverse's on the
+    whole product)."""
+    f32 = torch.float32
+
+    def make(arg):
+        if not inverse:
+            r, c = arg.shape[-2:]
+            mats = [(band_matrix("fwd", r >> j, w, 1, f32, arg.device).t().contiguous(),
+                     band_matrix("fwd", c >> j, w, 1, f32, arg.device)) for j in range(levels)]
+
+            def run():
+                y = arg[0]
+                for A, B in mats:
+                    z = (A @ y) @ B
+                    y = z[:A.shape[0] // 2, :B.shape[1] // 2]
+                return z
+            return run
+        a, dets = arg
+        mr, mc = a.shape[-2:]
+        mats = [(band_matrix("inv", mr << j, w, 1, f32, a.device).t().contiguous(),
+                 band_matrix("inv", mc << j, w, 1, f32, a.device)) for j in range(levels)]
+
+        def run_inv():
+            y = a[0]
+            for (A, B), (h, v, d) in zip(mats, dets):
+                y = (A @ torch.cat([torch.cat([y, v[0]], 1), torch.cat([h[0], d[0]], 1)], 0)) @ B
+            return y
+        return run_inv
+    return make
+
+
+def tail_checks(K, cases) -> None:
+    """The tails against the level kernels they run, on the code-path
+    cases' inputs: the forward tail equals the chain of kernel 1 and the
+    inverse tail the chain of kernel 2 (torch.equal: each level sums the
+    same float32 terms in the same order); a multi-level case run 50 times
+    gives its first result each time (a stale read of the level before
+    would show now and then).  Prints each call's plan."""
+    for c in cases:
+        src, w, levels = c.arg
+        if c.name == "fwd_tail_2d":
+            B, R, C = src.shape
+            def call():
+                a, dets = K.fwd_tail_2d(src, w.dec_lo, w.dec_hi, levels)
+                return [u for band in dets for u in band] + [a]
+            chain, a = [], src
+            for _ in range(levels):
+                a, *det = K.fwd_level_2d(a, w.dec_lo, w.dec_hi)
+                chain.extend(det)
+            chain.append(a)
+        else:
+            a, bands = src
+            B, R, C = a.shape[0], a.shape[1] << levels, a.shape[2] << levels
+            call = lambda: [K.inv_tail_2d(a, bands, w.rec_lo, w.rec_hi)]
+            chain = [a]
+            for band in bands:
+                chain = [K.inv_level_2d(chain[0], *band, w.rec_lo, w.rec_hi)]
+        first = call()
+        pl = K.tail_launch_plan(B, R, C, w.hlen, levels, c.name == "inv_tail_2d")
+        same = all(torch.equal(g, h) for g, h in zip(first, chain))
+        print(f"{c.name} at {c.label}: plan nb {pl.nb}, cs {pl.cs}, tiles (lr, lc, nph) per "
+              f"level {[(p.lr, p.lc, p.nph) for p in pl.levels]}; equals the chain of its level "
+              f"kernel: {same}", flush=True)
+        check(same, f"{c.name} at {c.label} differs from the chain of its level kernel")
+        if levels > 1:
+            for _ in range(50):
+                check(all(torch.equal(g, h) for g, h in zip(call(), first)),
+                      f"{c.name} at {c.label}: a repeat differs from the first result")
+            print(f"{c.name} at {c.label}: 50 repeats equal the first result", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this script needs a CUDA card")
@@ -614,12 +695,14 @@ def main() -> None:
     cases.append(Case("fwd_tail_2d", rand(1, tail_r, tail_r),
                       lambda x: flat(*K.fwd_tail_2d(x, lo, hi, tail_k)),
                       lambda x: flat(*K.fwd_tail_2d_ref(x, lo, hi, tail_k)), (tail_r, tail_r),
-                      True, sum(flops_2d(tail_r >> j, tail_r >> j, h7) for j in range(tail_k))))
+                      True, sum(flops_2d(tail_r >> j, tail_r >> j, h7) for j in range(tail_k)),
+                      library=tail_yardstick(wav, tail_k)))
     tail_in = (rand(1, m0, m0), [tuple(rand(1, m0 << j, m0 << j) for _ in range(3))
                                  for j in range(tail_k)])
     cases.append(Case("inv_tail_2d", tail_in, lambda t: K.inv_tail_2d(t[0], t[1], rlo, rhi),
                       lambda t: K.inv_tail_2d_ref(t[0], t[1], rlo, rhi), (m0, m0), True,
-                      sum(flops_2d(m0 << (j + 1), m0 << (j + 1), h7) for j in range(tail_k))))
+                      sum(flops_2d(m0 << (j + 1), m0 << (j + 1), h7) for j in range(tail_k)),
+                      library=tail_yardstick(wav, tail_k, inverse=True)))
     # the redesigned synthesis level's code paths: every tile size, filters of
     # 2 to 128 taps (odd too), subbands smaller than a tile, a batch of 3
     odd5 = make_custom_wavelet("odd5", *np.random.default_rng(5).standard_normal((4, 5)))
@@ -644,6 +727,36 @@ def main() -> None:
                           lambda t, w=w: K.fwd_level_2d(t, w.dec_lo, w.dec_hi),
                           lambda t, w=w: K.fwd_level_2d_ref(t, w.dec_lo, w.dec_hi),
                           f"{w.name} image {shape}"))
+    # the tails 3 and 4 on the bodies of 1 and 2, one launch over a cluster:
+    # 1-5 levels, 2 to 128 taps (odd too), a halo wider than the deepest
+    # level (db18 at 8 rows, 128 taps on 4 x 4), a batch of 3 and one past
+    # gridDim.z, the cell's tail at 4 levels (inputs from a generator of
+    # their own); then each against the chain of its level kernel and, with
+    # more than one level, 50 repeats
+    g3 = torch.Generator(device=dev).manual_seed(3)
+    tail_cases = []
+    for w, shape, k in [(wav, (1, 128, 128), 1), (wav, (3, 32, 64), 3),
+                        (get_wavelet("db18"), (1, 64, 128), 3),
+                        (get_wavelet("haar"), (2, 16, 16), 4), (odd5, (1, 24, 40), 3),
+                        (w128, (1, 16, 16), 2),
+                        (get_wavelet("db2"), (70000, 4, 4), 2), (wav, (1, 160, 160), 5),
+                        (wav, (1, 128, 128), 4)]:
+        B, R, C = shape
+        x = torch.rand(shape, device=dev, generator=g3) * 255.0
+        sub = [torch.rand((B, R >> k, C >> k), device=dev, generator=g3) * 255.0]
+        sub.append([tuple(torch.rand((B, R >> j, C >> j), device=dev, generator=g3) * 255.0
+                          for _ in range(3)) for j in range(k, 0, -1)])
+        tail_cases.append(Case("fwd_tail_2d", (x, w, k),
+                               lambda t: flat(*K.fwd_tail_2d(t[0], t[1].dec_lo, t[1].dec_hi, t[2])),
+                               lambda t: flat(*K.fwd_tail_2d_ref(t[0], t[1].dec_lo, t[1].dec_hi,
+                                                                 t[2])),
+                               f"{w.name} image {shape}, {k} levels"))
+        tail_cases.append(Case("inv_tail_2d", (sub, w, k),
+                               lambda t: K.inv_tail_2d(t[0][0], t[0][1], t[1].rec_lo, t[1].rec_hi),
+                               lambda t: K.inv_tail_2d_ref(t[0][0], t[0][1], t[1].rec_lo,
+                                                           t[1].rec_hi),
+                               f"{w.name} subbands {(B, R >> k, C >> k)}, {k} levels"))
+    cases += tail_cases
 
     # per kernel: worst error and, over the calls of one pass of its path,
     # the summed times (ms: per call by CUDA events, host launch gaps
@@ -654,6 +767,7 @@ def main() -> None:
                      "plain_device_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0,
                      "library_ms": 0.0} for name in REPLACES}
     run_cases(cases, report, card)
+    tail_checks(K, tail_cases)
 
     # -- main path: the facade, as a user drives it
     img = dwt_img = np.random.default_rng(0).uniform(0, 255, (N, N)).astype(np.float32)

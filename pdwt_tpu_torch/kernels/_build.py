@@ -98,8 +98,14 @@ def load() -> ctypes.CDLL:
         # a, h, v, d, out, B, Mr, Mc, taps (4, hlen on the device), hlen, geometry, the
         # launch plan (lr, lc, nt, threads, grid x, y, z, smem), stream
         "pdwt_inv_level_2d": [P, P, P, P, P, I, I, I, P, I, P, *[I] * 8, P],
-        "pdwt_fwd_tail_2d": [P, P, P, I, I, I, I, P, P, I, I, P],
-        "pdwt_inv_tail_2d": [P, P, P, I, I, I, I, P, P, I, P, P],
+        # x, a, scratch, det (3 * levels pointers), B, R, C, levels, taps (4, hlen on the
+        # device), hlen, center, the launch plan (nb, cs, nt, threads, smem, tiles: lr, lc,
+        # nph per level), stream
+        "pdwt_fwd_tail_2d": [P, P, P, P, I, I, I, I, P, I, I, *[I] * 5, P, P],
+        # a, det (3 * levels pointers, deepest first), out, scratch, B, Mr, Mc, levels, taps
+        # (4, hlen on the device), hlen, geometry, the launch plan (nb, cs, nt, threads,
+        # smem, tiles), stream
+        "pdwt_inv_tail_2d": [P, P, P, P, I, I, I, I, P, I, P, *[I] * 5, P, P],
         # x, a, h, v, d, B, R, C, taps (4, hlen on the device), hlen, dilation, center,
         # the launch plan (lr, lc, gc, nph, nt, threads, grid x, y, z, smem), stream
         "pdwt_swt_fwd_level_2d": [P, P, P, P, P, I, I, I, P, I, I, I, *[I] * 10, P],

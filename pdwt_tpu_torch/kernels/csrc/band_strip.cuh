@@ -6,7 +6,9 @@
 // exact kernel 1; mxu1d.cu's fwd1d_strip_kernel, kernel 15 and, in fd, the
 // exact kernels 7 and 9; ns_matmul.cu's ns_fwd_mxu_kernel) and the
 // polyphase inverse of separable.cu (the exact kernel 2 and, in the tiers'
-// schemes, kernel 12).
+// schemes, kernel 12); and the tails (kernels 3 and 4), which run the work
+// of kernels 1 and 2 level by level in one launch over a thread-block
+// cluster (launch_clusters, below).
 //
 // A thread computes a strip of P outputs of one filtered line (along the
 // window's rows or columns, at a step xs between samples; OS samples apart,
@@ -32,6 +34,8 @@
 // staging and the shared-memory traffic around each multiply-add.
 
 #pragma once
+
+#include <utility>
 
 #include "mxu_common.cuh"
 
@@ -144,7 +148,15 @@ struct Bands {
   unsigned bf16;
 };
 
+// Bit k of CG set: band k is float32 that this launch wrote before a
+// barrier (the tails' approximation chain), read with a coherent load
+// (ld.global.cg, cached in L2 only); the others go through the read-only
+// path (__ldg, ld.global.nc), valid only for data no thread of the launch
+// writes.  A template argument, so the level kernels' stagings are the
+// same code as without it.
+template <unsigned CG = 0>
 __device__ __forceinline__ float load_band(const Bands& b, int k, size_t o) {
+  if (CG >> k & 1) return __ldcg(static_cast<const float*>(b.p[k]) + o);
   return (b.bf16 >> k & 1) ? load_f(static_cast<const __nv_bfloat16*>(b.p[k]) + o)
                            : load_f(static_cast<const float*>(b.p[k]) + o);
 }
@@ -157,7 +169,7 @@ __device__ __forceinline__ float load_band(const Bands& b, int k, size_t o) {
 // consecutive addresses where the columns are; each thread issues LOADS
 // loads before it uses one, so the staging pays the memory latency once per
 // batch, not once per sample.
-template <int S, int NB, int LOADS, typename St>
+template <int S, int NB, int LOADS, unsigned CG = 0, typename St>
 __device__ __forceinline__ void stage_bands(const Bands src, unsigned thr, size_t rowoff, int n_c,
                                             const int* rows, const int* cols, int nr, int nc,
                                             St* dst, int bstride, int lo_off, int mode,
@@ -174,7 +186,7 @@ __device__ __forceinline__ void stage_bands(const Bands src, unsigned thr, size_
         const int i = i0 + u * nw;
         const size_t o = rowoff + (size_t)rows[i < nr ? i : nr - 1] * n_c + cw;
 #pragma unroll
-        for (int k = 0; k < NB; ++k) v[k][u] = load_band(src, k, o);
+        for (int k = 0; k < NB; ++k) v[k][u] = load_band<CG>(src, k, o);
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
@@ -198,7 +210,7 @@ __device__ __forceinline__ void stage_bands(const Bands src, unsigned thr, size_
 // loads (rows nw apart, columns 32 apart, those past the window's edge
 // clamped onto it and not stored) before it stores one, so a window of up
 // to nw UR rows by 32 UW columns costs one round trip to memory.
-template <int S, int NB, int UR, int UW, typename St, typename FR>
+template <int S, int NB, int UR, int UW, unsigned CG = 0, typename St, typename FR>
 __device__ __forceinline__ void stage_window(const Bands& src, FR row_base, const int* cols,
                                              int nr, int nc, St* dst, int pitch, int bstride,
                                              int lo_off) {
@@ -215,7 +227,7 @@ __device__ __forceinline__ void stage_window(const Bands& src, FR row_base, cons
           const int w = w0 + 32 * c;
           const size_t o = rb + cols[w < nc ? w : nc - 1];
 #pragma unroll
-          for (int k = 0; k < NB; ++k) v[k][a][c] = load_band(src, k, o);
+          for (int k = 0; k < NB; ++k) v[k][a][c] = load_band<CG>(src, k, o);
         }
       }
 #pragma unroll
@@ -271,6 +283,66 @@ inline bool grid_fits(int B, int R, int C, int f, int lr, int lc, int gc, int gx
   const long long want_x = gc == 1 ? (C + (long long)lc - 1) / lc : axis_blocks(C, f, lc);
   return gx == want_x && gy == axis_blocks(R, f, lr) && gy <= 65535 &&
          gz == (B < 65535 ? B : 65535);
+}
+
+// The fused deep levels of the 2D DWT (the tails, kernels 3 and 4): one
+// launch of B * nb blocks, nb per batch item; where it runs more than one
+// level, the nb blocks of an item form one thread-block cluster (cs = nb)
+// and meet at a cluster barrier between levels.  Per level (in launch
+// order): the three detail planes and the tile (lr x lc positions, nph
+// output phases of the analysis) that the item's blocks share, tile k on
+// block k mod nb.  kernels/separable.py: tail_launch_plan makes the plan.
+#define PDWT_MAX_TAIL_LEVELS 16
+
+struct TailTile {
+  int lr, lc, nph;
+};
+
+struct TailArgs {
+  void* det[3 * PDWT_MAX_TAIL_LEVELS];
+  TailTile tile[PDWT_MAX_TAIL_LEVELS];
+};
+
+// Is cs a cluster size the tails take, and does the plan put an item's
+// blocks in one cluster where levels meet at a barrier?
+inline bool tail_grid_ok(int B, int levels, int nb, int cs, int threads) {
+  return (cs == 1 || cs == 2 || cs == 4 || cs == 8 || cs == 16) && nb >= 1 &&
+         cs == (levels == 1 ? 1 : nb) && (long long)B * nb < (1LL << 31) && threads >= 32 &&
+         threads <= 256 && threads % 32 == 0;
+}
+
+// Launch `kernel` on `grid` blocks of `threads` in clusters of cs along x
+// (cudaLaunchKernelEx; a cluster of more than 8 needs the non-portable
+// opt-in).  A plan the card cannot hold (no cluster of cs blocks with this
+// shared memory fits: cudaOccupancyMaxActiveClusters) is refused with
+// cudaErrorInvalidValue; nothing falls back to a smaller cluster.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(KArgs...), int grid, int threads, size_t smem, int cs,
+                            void* stream, Args&&... args) {
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return e;
+  if (cs > 8) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int fit = 0;
+  e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+  if (e != cudaSuccess) return e;
+  if (fit < 1) return cudaErrorInvalidValue;
+  e = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace pdwt_strip

@@ -8,7 +8,8 @@
 //   inv_level_kernel  <- _make_inv_kernel       (separable_pallas.py:385),
 //                        and _inv_mxu_kernel (matmul_pallas.py:360) in the
 //                        precision tiers' compute schemes (kernel 12)
-//   fwd_tail_kernel   <- _make_tail_fwd_kernel  (separable_pallas.py:576)
+//   swt_matmul.cu: fwd_tail_kernel
+//                     <- _make_tail_fwd_kernel  (separable_pallas.py:576)
 //   inv_tail_kernel   <- _make_tail_inv_kernel  (separable_pallas.py:648)
 //
 // Index spec (pdwt_tpu_torch/core/conv.py, the same as pdwt_tpu/core/conv.py):
@@ -29,42 +30,30 @@
 // the columns, as the Pallas kernel (separable_pallas.py:272-283); its plain
 // version runs the columns first, so the two differ by float32 roundoff.
 //
+// The tails (kernels 3 and 4) fuse the deep levels into one launch, as the
+// Pallas kernels do, and run each level as the level kernels run it: the
+// forward tail (swt_matmul.cu: fwd_tail_kernel) on kernel 1's per-tile
+// work (fwd_tile<FD, 2>), the inverse tail (below) on kernel 2's
+// (inv_level_kernel<FD>'s, in a body of its own), so each level sums the
+// same float32 terms in the same order as the level kernel.  A batch
+// item's levels are spread over the blocks of one thread-block cluster,
+// which meet at a cluster barrier between levels, on a launch plan from
+// the host (kernels/separable.py: tail_launch_plan).
+//
 // Periodic boundaries are an index "mod N" at load time, as in the reference
-// CUDA library; nothing is padded on the host.  The tails take their taps as
-// float32 kernel parameters (__grid_constant__), read through the constant
-// bank; the levels (redesigned for Hopper's CUDA cores on band_strip.cuh,
-// their launch plans from the host) read them from a small device buffer
-// into shared memory.
+// CUDA library; nothing is padded on the host.  Every kernel here is built
+// on band_strip.cuh, reads its taps from a small device buffer into shared
+// memory, and takes a launch plan from the host that its entry point checks.
+
+#include <cooperative_groups.h>
 
 #include "band_strip.cuh"
 
 #define PDWT_MAX_HLEN 128
-#define PDWT_MAX_TAIL_LEVELS 16
 
 namespace {
 
 using namespace pdwt_strip;
-
-struct Taps {
-  float lo[PDWT_MAX_HLEN];
-  float hi[PDWT_MAX_HLEN];
-};
-
-struct OutBands {
-  float* p[3 * PDWT_MAX_TAIL_LEVELS];
-};
-
-struct InBands {
-  const float* p[3 * PDWT_MAX_TAIL_LEVELS];
-};
-
-// Tail kernels: one block of TAIL_THREADS threads per batch element.
-constexpr int TAIL_THREADS = 1024;
-
-__device__ __forceinline__ int wrap(int i, int n) {
-  i %= n;
-  return i < 0 ? i + n : i;
-}
 
 // ---------------------------------------------------------------------------
 // Inverse level.  Replaces _make_inv_kernel (separable_pallas.py:385) and,
@@ -218,169 +207,122 @@ inv_level_kernel(const float* __restrict__ a, const void* __restrict__ h,
 }
 
 // ---------------------------------------------------------------------------
-// Forward tail.  Replaces _make_tail_fwd_kernel (separable_pallas.py:576).
-// Bound: at the small deep levels it serves, launch count and latency, not
-// bytes (a 128x128 level is 64 KiB).  Design: one block per batch element runs
-// all remaining levels in one launch; the approximation stays in shared memory
-// from level to level, and H, V, D of each level go straight to device memory.
-// The periodic index walks with the tap (k = k + 1, back to 0 at N), so halos
-// wider than the level (long filters at 8-pixel levels) need nothing special.
-// Shared memory: 2 * R * C floats (approximation and the lo/hi temp).
+// Inverse tail (kernel 4).  Replaces _make_tail_inv_kernel
+// (separable_pallas.py:648): the k deepest synthesis levels of (B, m, m')
+// float32 subbands in one launch, deepest first, each level kernel 2's
+// function (inv_level_kernel<FD> above: rows first, band outer and taps
+// inner, one FMA each, in the same order).  Bound: launch count and
+// latency, as the forward tail (swt_matmul.cu: fwd_tail_kernel), and spread
+// the same way: a batch item owns nb blocks (one cluster where k > 1), tile
+// j of a level on block j mod nb, a cluster barrier between levels, on the
+// plan of kernels/separable.py: tail_launch_plan.  Each level's
+// approximation goes to `scratch` and the next level stages it with
+// coherent loads (load_band<CG>); the first approximation and every H, V,
+// D are inputs no thread writes, read through the read-only path.  Only the
+// last level writes `out`.
+//
+// A tile's work is inv_level_kernel<FD>'s, on the same band_strip.cuh
+// pieces (fill_index, stage_bands, band_strip, store_tile), in a body of
+// its own: sharing one body with the level kernel cost kernels 2 and 12
+// 1-3 % on their 1024^2-256^2 levels on an H100 whatever its form (PERF.md,
+// section 6), so the level kernel stays as it was.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(TAIL_THREADS)
-fwd_tail_kernel(const float* __restrict__ x, float* __restrict__ a_out,
-                const __grid_constant__ OutBands det, int R, int C, int levels,
-                int hlen, int cen, const __grid_constant__ Taps taps) {
-  extern __shared__ float smem[];
-  float* s_a = smem;          // the current approximation, r x c
-  float* s_t = smem + R * C;  // lo then hi along the columns, r x c/2 each
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const float* xb = x + (size_t)b * R * C;
-  for (int i = tid; i < R * C; i += TAIL_THREADS) s_a[i] = xb[i];
-  __syncthreads();
-
-  int r = R, c = C;
-  for (int lvl = 0; lvl < levels; ++lvl) {
-    const int mr = r / 2, mc = c / 2;
-    float* s_lo = s_t;
-    float* s_hi = s_t + r * mc;
-    for (int idx = tid; idx < r * mc; idx += TAIL_THREADS) {
-      const int i = idx / mc, n = idx - i * mc;
-      const float* row = s_a + i * c;
-      int k = wrap(2 * n - cen, c);
-      float lo = 0.f, hi = 0.f;
-      for (int j = 0; j < hlen; ++j) {
-        const float s = row[k];
-        lo = fmaf(taps.lo[j], s, lo);
-        hi = fmaf(taps.hi[j], s, hi);
-        if (++k == c) k = 0;
-      }
-      s_lo[idx] = lo;
-      s_hi[idx] = hi;
-    }
-    __syncthreads();
-
-    const size_t boff = (size_t)b * mr * mc;
-    float* H = det.p[3 * lvl] + boff;
-    float* V = det.p[3 * lvl + 1] + boff;
-    float* D = det.p[3 * lvl + 2] + boff;
-    float* A = (lvl == levels - 1) ? a_out + boff : s_a;
-    for (int idx = tid; idx < mr * mc; idx += TAIL_THREADS) {
-      const int m = idx / mc, n = idx - m * mc;
-      int k = wrap(2 * m - cen, r);
-      float aa = 0.f, hh = 0.f, vv = 0.f, dd = 0.f;
-      for (int j = 0; j < hlen; ++j) {
-        const float l = s_lo[k * mc + n];
-        const float gg = s_hi[k * mc + n];
-        aa = fmaf(taps.lo[j], l, aa);
-        hh = fmaf(taps.hi[j], l, hh);
-        vv = fmaf(taps.lo[j], gg, vv);
-        dd = fmaf(taps.hi[j], gg, dd);
-        if (++k == r) k = 0;
-      }
-      A[idx] = aa;
-      H[idx] = hh;
-      V[idx] = vv;
-      D[idx] = dd;
-    }
-    __syncthreads();
-    r = mr;
-    c = mc;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Inverse tail.  Replaces _make_tail_inv_kernel (separable_pallas.py:648).
-// Bound: launch count and latency, as the forward tail.  Design: one block per
-// batch element synthesises the k deepest levels, deepest first; the
-// approximation stays in shared memory, H, V, D are read from device memory
-// where they are needed, and only the last level's output is written out.
-// Shared memory: R*C/4 floats for the approximation, R*C for the two row
-// temps; the wrapper reserves 2*R*C, the forward tail's size, so that one
-// predicate (tail_supported) covers both directions.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(TAIL_THREADS)
-inv_tail_kernel(const float* __restrict__ a_in, const __grid_constant__ InBands det,
-                float* __restrict__ out, int mr0, int mc0, int levels, int hlen,
-                const Poly g, const __grid_constant__ Taps taps) {
-  extern __shared__ float smem[];
-  const int R = mr0 << levels, C = mc0 << levels;
-  float* s_a = smem;                  // the current approximation, r x c
-  float* s_t = smem + (R / 2) * (C / 2);
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const float* ab = a_in + (size_t)b * mr0 * mc0;
-  for (int i = tid; i < mr0 * mc0; i += TAIL_THREADS) s_a[i] = ab[i];
-  __syncthreads();
-
-  int r = mr0, c = mc0;
-  for (int lvl = 0; lvl < levels; ++lvl) {
-    const size_t boff = (size_t)b * r * c;
-    const float* H = det.p[3 * lvl] + boff;
-    const float* V = det.p[3 * lvl + 1] + boff;
-    const float* D = det.p[3 * lvl + 2] + boff;
-    float* s_t1 = s_t;               // 2r x c, rows synthesised from (A, H)
-    float* s_t2 = s_t + 2 * r * c;   // 2r x c, rows synthesised from (V, D)
-    for (int idx = tid; idx < r * c; idx += TAIL_THREADS) {
-      const int t = idx / c, col = idx - t * c;
+__global__ void __launch_bounds__(256)
+inv_tail_kernel(const float* __restrict__ a_in, float* __restrict__ out, float* scratch,
+                const __grid_constant__ TailArgs t, int B, int mr0, int mc0, int levels, int hlen,
+                const Poly g, const float* __restrict__ taps, int nb, int nt) {
+  constexpr int PR = kRowStrip<FD>, PC = kColStrip;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.x / nb, rank = blockIdx.x % nb;
+  const int off[2] = {poly_off(g, 0), poly_off(g, 1)};
+  const int offmax = off[0] > off[1] ? off[0] : off[1];
+  float* t1 = reinterpret_cast<float*>(smem_raw);  // [q][low, high][nt]
+  int* rows = reinterpret_cast<int*>(t1 + 4 * nt);
+  // t1[(2 q + k) nt + j] = taps[2 k hlen + p_q + 2 j] (k = 0 low, 1 high), 0 past nb_q
+  auto tap = [&](int e) {
+    const int j = e % nt, qk = (e / nt) % 4, q = qk >> 1;
+    return j < g.nb[q] ? 2 * (qk & 1) * hlen + g.p[q] + 2 * j : -1;
+  };
+  bool load_taps = true;
+  const float* src = a_in;
+  float* scr = scratch;
+  int mr = mr0, mc = mc0;
+  for (int l = 0; l < levels; ++l) {
+    const int lr = t.tile[l].lr, lc = t.tile[l].lc;
+    const int tx = (mc + lc - 1) / lc, ntile = tx * ((mr + lr - 1) / lr);
+    const int WR = lr + offmax + nt - 1, WC = lc + offmax + nt - 1;
+    const int TP = temp_pitch<float>(WC), TR = 2 * lr, OC = 2 * lc + 1;
+    int* cols = rows + WR;
+    unsigned char* p = smem_raw + 16 * (size_t)nt + align16((size_t)(WR + WC) * sizeof(int));
+    float* win = reinterpret_cast<float*>(p);   // band s (A, H, V, D) at win + s WR WC
+    float* tile = reinterpret_cast<float*>(p);  // TR x OC, after the row pass
+    const size_t wbytes = (size_t)4 * WR * WC * sizeof(float);
+    const size_t tbytes = (size_t)TR * OC * sizeof(float);
+    float* tmp = reinterpret_cast<float*>(p + align16(wbytes > tbytes ? wbytes : tbytes));
+    const int BS = WR * WC, TS = TR * TP;  // band and temp strides
+    float* dst = l == levels - 1 ? out : scr;
+    const float* h = static_cast<const float*>(t.det[3 * l]);
+    const float* v = static_cast<const float*>(t.det[3 * l + 1]);
+    const float* d = static_cast<const float*>(t.det[3 * l + 2]);
+    const size_t plane = (size_t)b * mr * mc;
+    for (int k = rank; k < ntile; k += nb) {
+      const int q0r = (k / tx) * lr, q0c = (k % tx) * lc;
+      fill_index(rows, WR, (long long)q0r - g.lo, 1, mr);
+      fill_index(cols, WC, (long long)q0c - g.lo, 1, mc);
+      __syncthreads();
+      auto stage_all = [&] {
+        if (l == 0)
+          stage_bands<FD, 4, kStageLoads>(Bands{{a_in, h, v, d}, 0u}, 0, plane, mc, rows, cols,
+                                          WR, WC, win, BS, WR * WC, kNone, 0.f);
+        else
+          stage_bands<FD, 4, kStageLoads, 1u>(Bands{{src, h, v, d}, 0u}, 0, plane, mc, rows,
+                                              cols, WR, WC, win, BS, WR * WC, kNone, 0.f);
+      };
+      if (load_taps)
+        fill_around(t1, 4 * nt, taps, tap, stage_all);
+      else
+        stage_all();
+      load_taps = false;
+      __syncthreads();
+      // along the rows: temp k from bands (2k, 2k + 1), rows 2 (r0 + i) + q of window column w
+      const int per = (lr / PR) * WC;
+      for (int it = threadIdx.x; it < 2 * per; it += blockDim.x) {
+        const int kt = it / per, rem = it % per, r0 = (rem / WC) * PR, w = rem % WC;
+        float* tk = tmp + kt * TS;
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int p = g.p[q], nb = g.nb[q];
-        const int k0 = wrap(t + g.o[q], r);
-        float acc1 = 0.f, acc2 = 0.f;
-        int k = k0;
-        for (int j = 0; j < nb; ++j) {
-          acc1 = fmaf(taps.lo[p + 2 * j], s_a[k * c + col], acc1);
-          acc2 = fmaf(taps.lo[p + 2 * j], __ldg(V + k * c + col), acc2);
-          if (++k == r) k = 0;
-        }
-        k = k0;
-        for (int j = 0; j < nb; ++j) {
-          acc1 = fmaf(taps.hi[p + 2 * j], __ldg(H + k * c + col), acc1);
-          acc2 = fmaf(taps.hi[p + 2 * j], __ldg(D + k * c + col), acc2);
-          if (++k == r) k = 0;
-        }
-        s_t1[(2 * t + q) * c + col] = acc1;
-        s_t2[(2 * t + q) * c + col] = acc2;
-      }
-    }
-    __syncthreads();
-
-    float* dst = (lvl == levels - 1) ? out + (size_t)b * 4 * r * c : s_a;
-    for (int idx = tid; idx < 2 * r * c; idx += TAIL_THREADS) {
-      const int r2 = idx / c, u = idx - r2 * c;
-      const float* t1 = s_t1 + r2 * c;
-      const float* t2 = s_t2 + r2 * c;
+        for (int q = 0; q < 2; ++q) {
+          Acc<FD> acc[1][PR];
+          band_strip<FD, PR, 1, kInvCh>(acc, win + 2 * kt * BS + (r0 + off[q]) * WC + w, WR * WC,
+                                        BS, 2, WC, t1 + 2 * q * nt, t1, 0, nt);
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int p = g.p[q], nb = g.nb[q];
-        const int k0 = wrap(u + g.o[q], c);
-        float acc = 0.f;
-        int k = k0;
-        for (int j = 0; j < nb; ++j) {
-          acc = fmaf(taps.lo[p + 2 * j], t1[k], acc);
-          if (++k == c) k = 0;
+          for (int i = 0; i < PR; ++i) tk[(2 * (r0 + i) + q) * TP + w] = acc[0][i].total();
         }
-        k = k0;
-        for (int j = 0; j < nb; ++j) {
-          acc = fmaf(taps.hi[p + 2 * j], t2[k], acc);
-          if (++k == c) k = 0;
-        }
-        dst[r2 * 2 * c + 2 * u + q] = acc;
       }
+      __syncthreads();
+      // along the columns: temp row r2, outputs 2 (t0 + i) + q
+      for (int it = threadIdx.x; it < TR * (lc / PC); it += blockDim.x) {
+        const int r2 = it % TR, t0 = (it / TR) * PC;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          Acc<FD> acc[1][PC];
+          band_strip<FD, PC, 1, kInvCh>(acc, tmp + r2 * TP + t0 + off[q], TR * TP, TS, 2, 1,
+                                        t1 + 2 * q * nt, t1, 0, nt);
+#pragma unroll
+          for (int i = 0; i < PC; ++i) tile[r2 * OC + 2 * (t0 + i) + q] = acc[0][i].total();
+        }
+      }
+      __syncthreads();
+      auto orow = [&](int r2) { return 2LL * q0r + r2; };
+      auto ocol = [&](int u) { return 2LL * q0c + u; };
+      store_tile(dst, 4 * plane, 2 * mr, 2 * mc, tile, OC, TR, 2 * lc, orow, ocol);
+      __syncthreads();
     }
-    __syncthreads();
-    r *= 2;
-    c *= 2;
+    if (l + 1 < levels) cooperative_groups::this_cluster().sync();
+    src = dst;
+    scr = dst + (size_t)B * 4 * mr * mc;
+    mr *= 2;
+    mc *= 2;
   }
-}
-
-Taps make_taps(const float* lo, const float* hi, int hlen) {
-  Taps t = {};
-  for (int i = 0; i < hlen; ++i) {
-    t.lo[i] = lo[i];
-    t.hi[i] = hi[i];
-  }
-  return t;
 }
 
 }  // namespace
@@ -428,6 +370,46 @@ int launch_inv_level(const float* a, const void* h, const void* v, const void* d
   });
 }
 
+// Launch the inverse tail (kernel 4) on (B, Mr, Mc) deepest subbands and
+// `levels` levels on its plan (kernels/separable.py: tail_launch_plan): nb
+// blocks per batch item in clusters of cs, threads, dynamic shared-memory
+// bytes (the largest level's), and each level's tile in `tiles` (lr, lc,
+// nph = 1 per level, deepest first); `det` holds the 3 * levels detail
+// planes, (H, V, D) of the deepest level first; `scratch` the
+// approximations the levels before the last synthesise, one after the
+// other.  The taps and geometry are kernel 2's.  A plan that does not add
+// up, or that the card cannot hold, is refused (cudaErrorInvalidValue).
+int launch_inv_tail(const float* a, void* const* det, float* out, float* scratch, int B, int Mr,
+                    int Mc, int levels, const float* taps, int hlen, const int* geo, int nb,
+                    int cs, int nt, int threads, int smem, const int* tiles, void* stream) {
+  if (hlen < 2 || hlen > PDWT_MAX_HLEN || B < 1 || Mr < 1 || Mc < 1 || levels < 1 ||
+      levels > PDWT_MAX_TAIL_LEVELS || (long long)Mr << levels > (1 << 30) ||
+      (long long)Mc << levels > (1 << 30) || (levels > 1 && !scratch) ||
+      !tail_grid_ok(B, levels, nb, cs, threads))
+    return cudaErrorInvalidValue;
+  const Poly g = make_poly(geo);
+  for (int q = 0; q < 2; ++q)
+    if (poly_off(g, q) < 0 || g.p[q] < 0 || g.nb[q] < 1 || g.nb[q] > nt ||
+        g.p[q] + 2 * (g.nb[q] - 1) >= hlen)
+      return cudaErrorInvalidValue;
+  if (nt % kInvCh || nt > PDWT_MAX_HLEN) return cudaErrorInvalidValue;
+  const int offmax = poly_off(g, 0) > poly_off(g, 1) ? poly_off(g, 0) : poly_off(g, 1);
+  TailArgs t = {};
+  size_t need = 0;
+  for (int l = 0; l < levels; ++l) {
+    const TailTile tt = {tiles[3 * l], tiles[3 * l + 1], tiles[3 * l + 2]};
+    if (tt.lr < 1 || tt.lc < 1 || tt.lr % kRowStrip<FD> || tt.lc % kColStrip || tt.nph != 1)
+      return cudaErrorInvalidValue;
+    const size_t sm = inv_smem<FD>(offmax, tt.lr, tt.lc, nt);
+    need = sm > need ? sm : need;
+    t.tile[l] = tt;
+    for (int k = 0; k < 3; ++k) t.det[3 * l + k] = det[3 * l + k];
+  }
+  if ((size_t)smem != need) return cudaErrorInvalidValue;
+  return launch_clusters(inv_tail_kernel, B * nb, threads, need, cs, stream, a, out, scratch, t,
+                         B, Mr, Mc, levels, hlen, g, taps, nb, nt);
+}
+
 }  // namespace pdwt_sep
 
 namespace pdwt_swtmm {
@@ -435,6 +417,9 @@ int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R,
                const float* taps, int hlen, int os, int f, int cen, int scheme, int in_bf16,
                int det_bf16, int lr, int lc, int gc, int nph, int nt, int threads, int gx,
                int gy, int gz, int smem, void* stream);
+int launch_fwd_tail(const float* x, float* a, float* scratch, void* const* det, int B, int R,
+                    int C, int levels, const float* taps, int hlen, int cen, int nb, int cs,
+                    int nt, int threads, int smem, const int* tiles, void* stream);
 }
 
 // Every entry point returns a cudaError_t as int: 0 once the launch has been
@@ -471,39 +456,32 @@ extern "C" int pdwt_inv_level_2d(const float* a, const float* h, const float* v,
                                     lc, nt, threads, gx, gy, gz, smem, stream);
 }
 
-// `det` holds 3*levels device pointers, (H, V, D) of level 1 first.
-extern "C" int pdwt_fwd_tail_2d(const float* x, float* a_out, void* const* det, int B,
-                                int R, int C, int levels, const float* taps_lo,
-                                const float* taps_hi, int hlen, int cen, void* stream) {
-  if (hlen < 2 || hlen > PDWT_MAX_HLEN || B < 1 || levels < 1 ||
-      levels > PDWT_MAX_TAIL_LEVELS || R % (1 << levels) || C % (1 << levels))
-    return cudaErrorInvalidValue;
-  OutBands bands = {};
-  for (int i = 0; i < 3 * levels; ++i) bands.p[i] = static_cast<float*>(det[i]);
-  const size_t smem = sizeof(float) * 2 * (size_t)R * C;
-  cudaError_t e = prepare(fwd_tail_kernel, smem);
-  if (e != cudaSuccess) return e;
-  fwd_tail_kernel<<<B, TAIL_THREADS, smem, (cudaStream_t)stream>>>(
-      x, a_out, bands, R, C, levels, hlen, cen, make_taps(taps_lo, taps_hi, hlen));
-  return cudaGetLastError();
+// Kernel 3: `levels` analysis levels of a (B, R, C) float32 image in one
+// launch -> a_out (B, R >> levels, C >> levels) and the detail planes
+// `det` (3 * levels device pointers, (H, V, D) of level 1 first); `scratch`
+// holds the intermediate approximations.  `taps` and `cen` are kernel 1's;
+// the plan (kernels/separable.py: tail_launch_plan: nb, cs, nt, threads,
+// smem, and lr, lc, nph per level in `tiles`) is checked by the launcher.
+extern "C" int pdwt_fwd_tail_2d(const float* x, float* a_out, float* scratch, void* const* det,
+                                int B, int R, int C, int levels, const float* taps, int hlen,
+                                int cen, int nb, int cs, int nt, int threads, int smem,
+                                const int* tiles, void* stream) {
+  return pdwt_swtmm::launch_fwd_tail(x, a_out, scratch, det, B, R, C, levels, taps, hlen, cen, nb,
+                                     cs, nt, threads, smem, tiles, stream);
 }
 
-// `det` holds 3*levels device pointers, (H, V, D) of the deepest level first.
-extern "C" int pdwt_inv_tail_2d(const float* a, void* const* det, float* out, int B,
-                                int Mr, int Mc, int levels, const float* taps_lo,
-                                const float* taps_hi, int hlen, const int* geo,
-                                void* stream) {
-  if (hlen < 2 || hlen > PDWT_MAX_HLEN || B < 1 || Mr < 1 || Mc < 1 || levels < 1 ||
-      levels > PDWT_MAX_TAIL_LEVELS)
-    return cudaErrorInvalidValue;
-  InBands bands = {};
-  for (int i = 0; i < 3 * levels; ++i) bands.p[i] = static_cast<const float*>(det[i]);
-  const size_t smem = sizeof(float) * 2 * ((size_t)Mr << levels) * ((size_t)Mc << levels);
-  cudaError_t e = prepare(inv_tail_kernel, smem);
-  if (e != cudaSuccess) return e;
-  inv_tail_kernel<<<B, TAIL_THREADS, smem, (cudaStream_t)stream>>>(
-      a, bands, out, Mr, Mc, levels, hlen, make_poly(geo), make_taps(taps_lo, taps_hi, hlen));
-  return cudaGetLastError();
+// Kernel 4: the `levels` deepest synthesis levels of (B, Mr, Mc) float32
+// subbands in one launch -> out (B, Mr << levels, Mc << levels); `det`
+// holds 3 * levels device pointers, (H, V, D) of the deepest level first;
+// `scratch` the intermediate approximations.  `taps` and `geo` are kernel
+// 2's; the plan (tail_launch_plan(..., inverse=True)) is checked by the
+// launcher.
+extern "C" int pdwt_inv_tail_2d(const float* a, void* const* det, float* out, float* scratch,
+                                int B, int Mr, int Mc, int levels, const float* taps, int hlen,
+                                const int* geo, int nb, int cs, int nt, int threads, int smem,
+                                const int* tiles, void* stream) {
+  return pdwt_sep::launch_inv_tail(a, det, out, scratch, B, Mr, Mc, levels, taps, hlen, geo, nb,
+                                   cs, nt, threads, smem, tiles, stream);
 }
 
 extern "C" const char* pdwt_error_string(int code) {

@@ -7,14 +7,17 @@
 //   swt_fwd_mxu_kernel  <- _swt_fwd_mxu_kernel  (swt_matmul_pallas.py:166)
 //   swt_inv_mxu_kernel  <- _swt_inv_mxu_kernel  (swt_matmul_pallas.py:293)
 //
-// The forward is templated on its output step: at step 2 and dilation 1 it
-// is also the tiers' decimated 2D analysis (kernel 11, _fwd_mxu_kernel of
-// matmul_pallas.py:242), reached through matmul.cu's entry point.  In the fd
-// scheme on float32 data the forward at step 1 is also the exact a-trous
-// analysis (kernel 5) and the inverse the exact synthesis (kernel 6),
-// reached through swt.cu's entry points, and the forward at step 2 the
-// exact decimated analysis (kernel 1, _make_fwd_kernel of
-// separable_pallas.py:234), reached through separable.cu's.
+// The forward's per-tile work (fwd_tile) is templated on its output step:
+// at step 2 and dilation 1 it is also the tiers' decimated 2D analysis
+// (kernel 11, _fwd_mxu_kernel of matmul_pallas.py:242), reached through
+// matmul.cu's entry point.  In the fd scheme on float32 data the forward at
+// step 1 is also the exact a-trous analysis (kernel 5) and the inverse the
+// exact synthesis (kernel 6), reached through swt.cu's entry points; the
+// forward at step 2 is the exact decimated analysis (kernel 1,
+// _make_fwd_kernel of separable_pallas.py:234) and, level by level in one
+// launch spread over a thread-block cluster, the forward tail (kernel 3,
+// fwd_tail_kernel below, _make_tail_fwd_kernel of separable_pallas.py:576),
+// both reached through separable.cu's entry points.
 //
 // On the TPU each pass of a stationary level is a banded matrix product on the
 // MXU whose band has stride f = 2^(level-1), in a compute scheme (b1, fd, b2f,
@@ -51,6 +54,8 @@
 // close to balanced, and the staging matters as much as the sums.  Each input
 // sample is staged once per window and split then, never per tap; the
 // row-pass temps never leave shared memory.
+
+#include <cooperative_groups.h>
 
 #include "band_strip.cuh"
 
@@ -115,20 +120,33 @@ size_t fwd_smem(int os, int lr, int lc, int dc, int nt, int nph) {
          2 * nd * lr * temp_pitch<St>((int)WC) * sizeof(St);
 }
 
-// R x C is the input, (R / OS) x (C / OS) each output.
-template <int S, int OS>
-__global__ void __launch_bounds__(256)
-swt_fwd_mxu_kernel(const void* __restrict__ x, float* __restrict__ a, void* __restrict__ h,
-                   void* __restrict__ v, void* __restrict__ d, int in_bf16, int det_bf16, int B,
-                   int R, int C, int hlen, int f, int cen, const float* __restrict__ taps, int lr,
-                   int lc, int gc, int nph, int nt) {
+// Geometry of one tile of the forward: an R x C input (plane), (R / OS) x
+// (C / OS) outputs, lr x lc of them in the tile at rows rho_r + f (q0r + i)
+// and columns rho_c + gc (q0c + u).
+struct FwdTile {
+  int R, C, hlen, f, cen, lr, lc, gc, nph, nt;
+  int rho_r, q0r, rho_c, q0c;
+};
+
+// One tile of one batch item, the per-tile work of the level kernel below
+// and of the forward tail: fill the index tables, stage the window
+// (stage_src(rows, cols, WR, WC, win) reads it from the input; the taps
+// are read around it where load_taps), the row pass, the column pass,
+// store the tiles (output plane offset oplane; A float32, H, V, D bf16
+// where det_bf16).  Ends at a block barrier, so the next call may reuse
+// the shared memory; the taps at its start stay.
+template <int S, int OS, typename SW>
+__device__ __forceinline__ void fwd_tile(unsigned char* smem_raw, const FwdTile& g,
+                                         const float* __restrict__ taps, bool load_taps,
+                                         SW stage_src, float* a, void* h, void* v, void* d,
+                                         int det_bf16, size_t oplane) {
   using St = Stage<S>;
   constexpr int nd = kDataLo<S> ? 2 : 1;
   // at step 2 the column strips of the two- and three-term schemes hold
   // kRowStrip outputs: eight of them took b3 to 216 registers (one block an
   // SM) and 20-30 % more time on an H100 (PERF.md, section 6)
   constexpr int PR = kRowStrip<S>, PC = OS == 2 ? kRowStrip<S> : kColStrip;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int R = g.R, C = g.C, f = g.f, lr = g.lr, lc = g.lc, gc = g.gc, nph = g.nph, nt = g.nt;
   const int Ro = R / OS, Co = C / OS, dc = f / gc;
   const int WR = OS * (lr - 1) + nt, WC = OS * (lc - 1) + (nt - 1) * dc + 1;
   const int TP = temp_pitch<St>(WC), OP = lc + 1;
@@ -144,76 +162,151 @@ swt_fwd_mxu_kernel(const void* __restrict__ x, float* __restrict__ a, void* __re
   St* tmp = reinterpret_cast<St*>(p + align16(wbytes > tbytes ? wbytes : tbytes));
   const int TS = nd * lr * TP;  // temp stride: the low temp, then the high one
 
-  const int frr = f < Ro ? f : Ro, frc = gc == 1 ? 1 : (f < Co ? f : Co);
-  const int rho_r = blockIdx.y % frr, q0r = (blockIdx.y / frr) * lr;
-  const int rho_c = blockIdx.x % frc, q0c = (blockIdx.x / frc) * lc;
   // window column w <-> input column OS (rho_c + gc q0c) - cen f + gc w
-  fill_index(rows, WR, OS * (rho_r + (long long)f * q0r) - (long long)cen * f, f, R);
-  fill_index(cols, WC, OS * (rho_c + (long long)gc * q0c) - (long long)cen * f, gc, C);
+  fill_index(rows, WR, OS * (g.rho_r + (long long)f * g.q0r) - (long long)g.cen * f, f, R);
+  fill_index(cols, WC, OS * (g.rho_c + (long long)gc * g.q0c) - (long long)g.cen * f, gc, C);
   __syncthreads();
-  auto tap = [&](int e) { return dual_tap(e, nt, hlen); };
+  auto tap = [&](int e) { return dual_tap(e, nt, g.hlen); };
+  auto stage_win = [&] { stage_src(rows, cols, WR, WC, win); };
+  if (load_taps)
+    fill_around(t1, 4 * nt, taps, tap, stage_win);
+  else
+    stage_win();
+  __syncthreads();
+  // along the rows: window column w, output rows r0 + q (q < PR), both filters
+  for (int it = threadIdx.x; it < (lr / PR) * WC; it += blockDim.x) {
+    const int r0 = (it / WC) * PR, w = it % WC;
+    Acc<S> acc[2][PR];
+    band_strip<S, PR, 2, kFwdCh, OS>(acc, win + OS * r0 * WC + w, WR * WC, 0, 1, WC, t1, t2, nt,
+                                     nt);
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int q = 0; q < PR; ++q)
+        stage<S>(acc[k][q].total(), tmp + k * TS, tmp + k * TS + lr * TP, (r0 + q) * TP + w);
+  }
+  __syncthreads();
+  // along the columns: temp row r, outputs t0 + dc q (q < PC), filter k on
+  // temp u gives output u + 2k (A, H, V, D), in tile u + 2k (nph = 1) or k
+  // (nph = 2, phase u)
+  void* outs[4] = {a, h, v, d};
+  for (int ph = 0; ph < nph; ++ph) {
+    for (int it = threadIdx.x; it < lr * (lc / PC); it += blockDim.x) {
+      const int r = it % lr, s = it / lr, t0 = s % dc + dc * (s / dc) * PC;
+      for (int u = ph; u < 2; u += nph) {
+        Acc<S> acc[2][PC];
+        band_strip<S, PC, 2, kFwdCh, OS>(acc, tmp + u * TS + r * TP + OS * t0, lr * TP, 0, 1,
+                                         dc, t1, t2, nt, nt);
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int q = 0; q < PC; ++q)
+            tile[((nph == 1 ? u + 2 * k : k) * lr + r) * OP + t0 + dc * q] = acc[k][q].total();
+      }
+    }
+    __syncthreads();
+    auto orow = [&](int i) { return g.rho_r + (long long)f * (g.q0r + i); };
+    auto ocol = [&](int u) { return g.rho_c + (long long)gc * (g.q0c + u); };
+    for (int t = 0; t < 4 / nph; ++t) {
+      const int o = nph == 1 ? t : ph + 2 * t;
+      const float* tt = tile + t * lr * OP;
+      if (o == 0)
+        store_tile(a, oplane, Ro, Co, tt, OP, lr, lc, orow, ocol);
+      else if (det_bf16)
+        store_tile(static_cast<__nv_bfloat16*>(outs[o]), oplane, Ro, Co, tt, OP, lr, lc, orow,
+                   ocol);
+      else
+        store_tile(static_cast<float*>(outs[o]), oplane, Ro, Co, tt, OP, lr, lc, orow, ocol);
+    }
+    __syncthreads();
+  }
+}
 
+// R x C is the input, (R / OS) x (C / OS) each output.
+template <int S, int OS>
+__global__ void __launch_bounds__(256)
+swt_fwd_mxu_kernel(const void* __restrict__ x, float* __restrict__ a, void* __restrict__ h,
+                   void* __restrict__ v, void* __restrict__ d, int in_bf16, int det_bf16, int B,
+                   int R, int C, int hlen, int f, int cen, const float* __restrict__ taps, int lr,
+                   int lc, int gc, int nph, int nt) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Ro = R / OS, Co = C / OS;
+  const int frr = f < Ro ? f : Ro, frc = gc == 1 ? 1 : (f < Co ? f : Co);
+  const FwdTile g = {R,  C,  hlen, f,  cen, lr, lc, gc, nph, nt, (int)(blockIdx.y % frr),
+                     (int)(blockIdx.y / frr) * lr, (int)(blockIdx.x % frc),
+                     (int)(blockIdx.x / frc) * lc};
   for (int b = blockIdx.z; b < B; b += gridDim.z) {
-    const size_t plane = (size_t)b * R * C, oplane = (size_t)b * Ro * Co;
-    auto stage_win = [&] {
+    const size_t plane = (size_t)b * R * C;
+    // one staging per input type, each with the type a constant (Bands)
+    auto stage_src = [&](const int* rows, const int* cols, int WR, int WC, Stage<S>* win) {
       auto row = [&](int i) { return plane + (size_t)rows[i] * C; };
       if (in_bf16)
         stage_window<S, 1, 6, 3>(Bands{{x}, 1u}, row, cols, WR, WC, win, WC, 0, WR * WC);
       else
         stage_window<S, 1, 6, 3>(Bands{{x}, 0u}, row, cols, WR, WC, win, WC, 0, WR * WC);
     };
-    if (b == (int)blockIdx.z)
-      fill_around(t1, 4 * nt, taps, tap, stage_win);
-    else
-      stage_win();
-    __syncthreads();
-    // along the rows: window column w, output rows r0 + q (q < PR), both filters
-    for (int it = threadIdx.x; it < (lr / PR) * WC; it += blockDim.x) {
-      const int r0 = (it / WC) * PR, w = it % WC;
-      Acc<S> acc[2][PR];
-      band_strip<S, PR, 2, kFwdCh, OS>(acc, win + OS * r0 * WC + w, WR * WC, 0, 1, WC, t1, t2,
-                                       nt, nt);
-#pragma unroll
-      for (int k = 0; k < 2; ++k)
-#pragma unroll
-        for (int q = 0; q < PR; ++q)
-          stage<S>(acc[k][q].total(), tmp + k * TS, tmp + k * TS + lr * TP, (r0 + q) * TP + w);
-    }
-    __syncthreads();
-    // along the columns: temp row r, outputs t0 + dc q (q < PC), filter k on
-    // temp u gives output u + 2k (A, H, V, D), in tile u + 2k (nph = 1) or k
-    // (nph = 2, phase u)
-    void* outs[4] = {a, h, v, d};
-    for (int ph = 0; ph < nph; ++ph) {
-      for (int it = threadIdx.x; it < lr * (lc / PC); it += blockDim.x) {
-        const int r = it % lr, s = it / lr, t0 = s % dc + dc * (s / dc) * PC;
-        for (int u = ph; u < 2; u += nph) {
-          Acc<S> acc[2][PC];
-          band_strip<S, PC, 2, kFwdCh, OS>(acc, tmp + u * TS + r * TP + OS * t0, lr * TP, 0, 1,
-                                           dc, t1, t2, nt, nt);
-#pragma unroll
-          for (int k = 0; k < 2; ++k)
-#pragma unroll
-            for (int q = 0; q < PC; ++q)
-              tile[((nph == 1 ? u + 2 * k : k) * lr + r) * OP + t0 + dc * q] = acc[k][q].total();
-        }
-      }
-      __syncthreads();
-      auto orow = [&](int i) { return rho_r + (long long)f * (q0r + i); };
-      auto ocol = [&](int u) { return rho_c + (long long)gc * (q0c + u); };
-      for (int t = 0; t < 4 / nph; ++t) {
-        const int o = nph == 1 ? t : ph + 2 * t;
-        const float* tt = tile + t * lr * OP;
-        if (o == 0)
-          store_tile(a, oplane, Ro, Co, tt, OP, lr, lc, orow, ocol);
-        else if (det_bf16)
-          store_tile(static_cast<__nv_bfloat16*>(outs[o]), oplane, Ro, Co, tt, OP, lr, lc, orow,
-                     ocol);
+    fwd_tile<S, OS>(smem_raw, g, taps, b == (int)blockIdx.z, stage_src, a, h, v, d, det_bf16,
+                    (size_t)b * Ro * Co);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward tail (kernel 3).  Replaces _make_tail_fwd_kernel
+// (separable_pallas.py:576): all `levels` remaining analysis levels of a
+// (B, R, C) float32 image in one launch, each level kernel 1's function
+// (fwd_tile<FD, 2> above: rows first, the taps in order, one FMA each).
+// Bound: launch count and latency, not bytes (a 128 x 128 level is 64 KiB,
+// 0.02 us at 3.35 TB/s): the design spreads each level over the blocks of
+// a thread-block cluster instead of one block (one SM) per item.  A batch
+// item owns nb blocks, tile k of a level on block k mod nb, on the plan of
+// kernels/separable.py: tail_launch_plan (a tile per level; with one
+// level, kernel 1's plan and no barrier).  Level j's approximation goes to
+// `scratch` (the wrapper's, L2-resident at these sizes: 64 KiB at 128^2)
+// and the next level stages from it with coherent loads (load_band<CG>: the
+// read-only path is valid only for data no thread of the launch writes)
+// after a cluster barrier (release/acquire at cluster scope); the input
+// stays on the read-only path.  H, V, D of each level and the last A go
+// straight to the outputs.  The taps come from the (4, hlen) device buffer
+// into shared memory once per block; no level sits in shared memory past
+// its tile, so halos wider than a level need nothing special (the index
+// tables wrap mod N).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(256)
+fwd_tail_kernel(const float* __restrict__ x, float* __restrict__ a_out, float* scratch,
+                const __grid_constant__ TailArgs t, int B, int R, int C, int levels, int hlen,
+                int cen, const float* __restrict__ taps, int nb, int nt) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.x / nb, rank = blockIdx.x % nb;
+  bool load_taps = true;
+  const float* src = x;
+  float* scr = scratch;
+  int r = R, c = C;
+  for (int l = 0; l < levels; ++l) {
+    const int ro = r / 2, co = c / 2;
+    const TailTile tt = t.tile[l];
+    const int tx = (co + tt.lc - 1) / tt.lc, ntile = tx * ((ro + tt.lr - 1) / tt.lr);
+    float* a = l == levels - 1 ? a_out : scr;
+    const size_t plane = (size_t)b * r * c;
+    for (int k = rank; k < ntile; k += nb) {
+      const FwdTile g = {r, c, hlen, 1, cen, tt.lr, tt.lc, 1, tt.nph, nt,
+                         0, (k / tx) * tt.lr, 0, (k % tx) * tt.lc};
+      auto stage_src = [&](const int* rows, const int* cols, int WR, int WC, float* win) {
+        auto row = [&](int i) { return plane + (size_t)rows[i] * c; };
+        if (l == 0)
+          stage_window<FD, 1, 6, 3>(Bands{{x}, 0u}, row, cols, WR, WC, win, WC, 0, WR * WC);
         else
-          store_tile(static_cast<float*>(outs[o]), oplane, Ro, Co, tt, OP, lr, lc, orow, ocol);
-      }
-      __syncthreads();
+          stage_window<FD, 1, 6, 3, 1u>(Bands{{src}, 0u}, row, cols, WR, WC, win, WC, 0,
+                                        WR * WC);
+      };
+      fwd_tile<FD, 2>(smem_raw, g, taps, load_taps, stage_src, a, t.det[3 * l],
+                      t.det[3 * l + 1], t.det[3 * l + 2], 0, (size_t)b * ro * co);
+      load_taps = false;
     }
+    if (l + 1 < levels) cooperative_groups::this_cluster().sync();
+    src = a;
+    scr = a + (size_t)B * ro * co;
+    r = ro;
+    c = co;
   }
 }
 
@@ -386,6 +479,39 @@ int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R,
     };
     return os == 2 ? launch(swt_fwd_mxu_kernel<S, 2>) : launch(swt_fwd_mxu_kernel<S, 1>);
   });
+}
+
+// Launch the forward tail (kernel 3) on its plan (kernels/separable.py:
+// tail_launch_plan): nb blocks per batch item in clusters of cs, threads,
+// dynamic shared-memory bytes (the largest level's), and each level's tile
+// in `tiles` (lr, lc, nph per level, level 1 first); `det` holds the
+// 3 * levels detail planes, (H, V, D) of level 1 first; `scratch` the
+// approximations of levels 1 .. levels - 1, one after the other.  The
+// taps and cen are kernel 1's.  A plan that does not add up, or that the
+// card cannot hold, is refused (cudaErrorInvalidValue).
+int launch_fwd_tail(const float* x, float* a, float* scratch, void* const* det, int B, int R,
+                    int C, int levels, const float* taps, int hlen, int cen, int nb, int cs,
+                    int nt, int threads, int smem, const int* tiles, void* stream) {
+  if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || R < 2 || C < 2 || levels < 1 ||
+      levels > PDWT_MAX_TAIL_LEVELS || R % (1 << levels) || C % (1 << levels) ||
+      (levels > 1 && !scratch) || nt < hlen || nt > PDWT_MXU_MAX_HLEN || nt % kFwdCh ||
+      !tail_grid_ok(B, levels, nb, cs, threads))
+    return cudaErrorInvalidValue;
+  TailArgs t = {};
+  size_t need = 0;
+  for (int l = 0; l < levels; ++l) {
+    const TailTile tt = {tiles[3 * l], tiles[3 * l + 1], tiles[3 * l + 2]};
+    if (tt.lr < 1 || tt.lc < 1 || tt.lr % kRowStrip<FD> || tt.lc % kColStrip ||
+        !(tt.nph == 1 || tt.nph == 2))
+      return cudaErrorInvalidValue;
+    const size_t sm = fwd_smem<FD>(2, tt.lr, tt.lc, 1, nt, tt.nph);
+    need = sm > need ? sm : need;
+    t.tile[l] = tt;
+    for (int k = 0; k < 3; ++k) t.det[3 * l + k] = det[3 * l + k];
+  }
+  if ((size_t)smem != need) return cudaErrorInvalidValue;
+  return launch_clusters(fwd_tail_kernel, B * nb, threads, need, cs, stream, x, a, scratch, t, B,
+                         R, C, levels, hlen, cen, taps, nb, nt);
 }
 
 }  // namespace pdwt_swtmm

@@ -24,8 +24,13 @@ float32 data, on the plan of ``fwd_level_launch_plan``, rows first as the
 Pallas kernel (``separable_pallas.py:272-283``); its plain version runs
 the columns first, so the two agree to float32 roundoff.  The synthesis
 level runs ``inv_level_kernel`` (``csrc/separable.cu``) on the plan of
-``inv_level_launch_plan``; both read their taps from ``dual_taps``.  The
-tails keep bodies of their own and take their taps by value.
+``inv_level_launch_plan``.  The tails run those two levels' per-tile work
+(the forward ``fwd_tile<FD, 2>``, the inverse a copy of
+``inv_level_kernel<FD>``'s) level by level in one launch, a batch item's
+levels spread over the blocks of one thread-block cluster that meet at a
+cluster barrier between levels, on the plan of ``tail_launch_plan``; so
+each tail level equals the level kernel bit for bit on finite data.  All
+four read their taps from ``dual_taps``.
 
 Filters are forward-convention float64 arrays (``dec_lo``/``dec_hi`` for
 analysis, ``rec_lo``/``rec_hi`` for synthesis), as in the JAX kernels; the
@@ -41,15 +46,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
+
+import numpy as np
 
 import torch
 
 from ..core import conv
 from ._launch import LAUNCHES, MAX_HLEN, reset_launch_counts  # noqa: F401 (re-exported)
-from ._launch import (PLAN_TILES, ROW_STRIP, InvPlan, align16, block_target, cdiv, dual_taps,
-                      fwd_plan, launch, on_cpu, pick_plan, poly_geo, ptr, rev, stage_bytes,
-                      taps, temp_pitch)
+from ._launch import (FWD_CHUNK, FWD_TILES, PLAN_TILES, ROW_STRIP, SMEM_LIMIT, SMS, InvPlan,
+                      align16, block_target, cdiv, dual_taps, fwd_plan, fwd_smem, launch,
+                      on_cpu, pick_plan, poly_geo, ptr, rev, stage_bytes, temp_pitch)
 
 #: Most levels one tail launch fuses (PDWT_MAX_TAIL_LEVELS).
 MAX_TAIL_LEVELS = 16
@@ -168,6 +175,90 @@ def inv_level_launch_plan(B: int, Mr: int, Mc: int, hlen: int, scheme: str = "fd
 
 
 # ---------------------------------------------------------------------------
+# launch plan of the tails (kernels 3 and 4)
+# ---------------------------------------------------------------------------
+
+#: cluster sizes the tails take (16 needs the card's non-portable opt-in)
+TAIL_CLUSTERS = (1, 2, 4, 8, 16)
+
+
+class TailPlan(NamedTuple):
+    """Geometry of one tail launch: ``nb`` blocks per batch item (grid
+    ``B * nb``), in clusters of ``cs`` (``nb`` where the launch runs more
+    than one level and the item's blocks meet at a cluster barrier between
+    levels; 1 where it runs one), threads per block, dynamic shared-memory
+    bytes (the largest level's) and, per level in launch order (level 1
+    first forward, the deepest first inverse), the level kernel's plan of
+    that level: tile (lr, lc), nph, nt and the grid of tiles (x, y, batch),
+    tile k on block k mod nb."""
+    nb: int
+    cs: int
+    threads: int
+    smem: int
+    levels: Tuple[InvPlan, ...]
+
+
+def _tail_cluster(B: int, first_tiles: int) -> int:
+    """The cluster size of a multi-level tail: the largest of
+    TAIL_CLUSTERS that the first level's 8 x 8 tiles can keep busy and
+    that keeps B clusters within one block per SM (1 from 132 items on)."""
+    room = min(first_tiles, max(1, SMS // B))
+    return max(c for c in TAIL_CLUSTERS if c <= room)
+
+
+def _tail_level(cs: int, cands) -> InvPlan:
+    """A level's tile among the level kernel's candidates (InvPlans whose
+    grid counts the level's tiles): the fewest rounds of tiles per block
+    (ceil(tiles / cs)), then the least window staged per block (its
+    shared memory), within the card's limit."""
+    fits = [p for p in cands if p.smem <= SMEM_LIMIT]
+    return min(fits, key=lambda p: (cdiv(p.grid[0] * p.grid[1], cs), p.smem))
+
+
+@functools.lru_cache(maxsize=256)
+def tail_launch_plan(B: int, R: int, C: int, hlen: int, levels: int,
+                     inverse: bool = False) -> TailPlan:
+    """The launch of a tail over ``levels`` levels of (B, R, C) images (the
+    forward's input, the inverse's output): with one level, the level
+    kernel's own plan (``fwd_level_launch_plan`` / ``inv_level_launch_plan``:
+    a block per tile, no barrier, cs = 1); with more, one cluster of
+    ``_tail_cluster`` blocks per item sharing each level's tiles
+    (``_tail_level``: the 128^2 db7 level gets 16 x 16 output tiles, one
+    per block of a 16-cluster)."""
+    if levels < 1 or levels > MAX_TAIL_LEVELS or R % (1 << levels) or C % (1 << levels):
+        raise ValueError(f"a tail of {levels} levels takes sizes divisible by 2^{levels}, "
+                         f"got {(R, C)}")
+    if levels == 1:
+        pl = (inv_level_launch_plan(B, R // 2, C // 2, hlen) if inverse
+              else fwd_level_launch_plan(B, R, C, hlen))
+        return TailPlan(pl.grid[0] * pl.grid[1], 1, pl.threads, pl.smem, (pl,))
+    cs = _tail_cluster(B, cdiv(R // 2, 8) * cdiv(C // 2, 8))
+    g = conv.poly_geometry(hlen)
+    nt = cdiv(max(g.nb), INV_CHUNK) * INV_CHUNK if inverse else cdiv(hlen, FWD_CHUNK) * FWD_CHUNK
+    plans = []
+    for j in range(levels):
+        if inverse:  # subbands (mr, mc) of the deepest level first
+            mr, mc = R >> (levels - j), C >> (levels - j)
+            cands = [InvPlan(lr, lc, 1, 1, nt, 256, (cdiv(mc, lc), cdiv(mr, lr), min(B, 65535)),
+                             _inv_smem(g.lo + max(g.o), lr, lc, nt)) for lr, lc in PLAN_TILES]
+        else:  # outputs (ro, co) of level j + 1
+            ro, co = R >> (j + 1), C >> (j + 1)
+            cands = [InvPlan(lr, lc, 1, nph, nt, 256, (cdiv(co, lc), cdiv(ro, lr), min(B, 65535)),
+                             fwd_smem("fd", lr, lc, 1, nt, nph, 2))
+                     for lr, lc in FWD_TILES for nph in (1, 2)]
+        plans.append(_tail_level(cs, cands))
+    return TailPlan(cs, cs, 256, max(p.smem for p in plans), tuple(plans))
+
+
+def _tail_args(pl: TailPlan) -> list:
+    """The plan as the tail entry points take it: nb, cs, nt, threads,
+    smem and the int32 array of (lr, lc, nph) per level (kept alive by the
+    caller)."""
+    tiles = np.array([(p.lr, p.lc, p.nph) for p in pl.levels], dtype=np.int32)
+    return [pl.nb, pl.cs, pl.levels[0].nt, pl.threads, pl.smem, tiles]
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -213,30 +304,34 @@ def inv_level_2d(a, h, v, d, rec_lo, rec_hi) -> torch.Tensor:
 
 def fwd_tail_2d(x: torch.Tensor, dec_lo, dec_hi, levels: int):
     """All ``levels`` remaining analysis levels of a (B, R, C) image in one
-    launch -> (a, [(h, v, d) of level 1, level 2, ...])."""
+    launch -> (a, [(h, v, d) of level 1, level 2, ...]), on the plan of
+    ``tail_launch_plan``."""
     if on_cpu(x):
         return fwd_tail_2d_ref(x, dec_lo, dec_hi, levels)
     B, R, C = x.shape
     if not tail_supported((R, C), len(dec_lo), levels):
         raise ValueError(f"fwd_tail_2d: {levels} levels of {(R, C)} with "
                          f"{len(dec_lo)} taps is not tail_supported")
-    tl, th = taps(dec_lo), taps(dec_hi)
-    a = torch.empty((B, R >> levels, C >> levels), device=x.device, dtype=x.dtype)
-    dets: List[Bands] = []
-    for lvl in range(1, levels + 1):
-        dets.append(tuple(torch.empty((B, R >> lvl, C >> lvl), device=x.device,
-                                      dtype=x.dtype) for _ in range(3)))
-    ptrs = (ctypes.c_void_p * (3 * levels))(
-        *[t.data_ptr() for band in dets for t in band])
+    tp = dual_taps((dec_lo, dec_hi), "fd", x.device)
+    hlen = tp.shape[1]
+    pl = tail_launch_plan(B, R, C, hlen, levels)
+    new = functools.partial(torch.empty, device=x.device, dtype=x.dtype)
+    a = new((B, R >> levels, C >> levels))
+    dets: List[Bands] = [tuple(new((B, R >> lvl, C >> lvl)) for _ in range(3))
+                         for lvl in range(1, levels + 1)]
+    scratch = new(sum(B * (R >> lvl) * (C >> lvl) for lvl in range(1, levels)))
+    ptrs = (ctypes.c_void_p * (3 * levels))(*[t.data_ptr() for band in dets for t in band])
+    *plan, tiles = _tail_args(pl)
     launch("fwd_tail_2d", x.device,
-           [ptr(x), ptr(a), ptrs, B, R, C, levels, ptr(tl), ptr(th),
-            len(tl), conv.fwd_center(len(tl))])
+           [ptr(x), ptr(a), ptr(scratch), ptrs, B, R, C, levels, ptr(tp), hlen,
+            conv.fwd_center(hlen), *plan, ptr(tiles)])
     return a, dets
 
 
 def inv_tail_2d(a: torch.Tensor, details: Sequence[Bands], rec_lo, rec_hi):
     """Inverse of :func:`fwd_tail_2d`: ``a`` (B, m, m') and ``details``
-    (deepest level first) -> (B, m << k, m' << k), k = len(details)."""
+    (deepest level first) -> (B, m << k, m' << k), k = len(details), on the
+    plan of ``tail_launch_plan(..., inverse=True)``."""
     flat = [t for band in details for t in band]
     if on_cpu(a, *flat):
         return inv_tail_2d_ref(a, details, rec_lo, rec_hi)
@@ -247,16 +342,22 @@ def inv_tail_2d(a: torch.Tensor, details: Sequence[Bands], rec_lo, rec_hi):
         if any(tuple(t.shape) != want for t in band):
             raise ValueError(f"inv_tail_2d: level {lvl} (deepest first) must "
                              f"have shape {want}")
-    if not tail_supported((mr << levels, mc << levels), len(rec_lo), levels):
+    R, C = mr << levels, mc << levels
+    if not tail_supported((R, C), len(rec_lo), levels):
         raise ValueError(f"inv_tail_2d: {levels} levels of {(mr, mc)} with "
                          f"{len(rec_lo)} taps is not tail_supported")
-    tl, th = taps(rec_lo), taps(rec_hi)
-    geo = poly_geo(len(tl))
-    out = torch.empty((B, mr << levels, mc << levels), device=a.device, dtype=a.dtype)
+    tp = dual_taps((rec_lo, rec_hi), "fd", a.device)
+    hlen = tp.shape[1]
+    geo = poly_geo(hlen)
+    pl = tail_launch_plan(B, R, C, hlen, levels, inverse=True)
+    new = functools.partial(torch.empty, device=a.device, dtype=a.dtype)
+    out = new((B, R, C))
+    scratch = new(sum(B * (R >> lvl) * (C >> lvl) for lvl in range(1, levels)))
     ptrs = (ctypes.c_void_p * (3 * levels))(*[t.data_ptr() for t in flat])
+    *plan, tiles = _tail_args(pl)
     launch("inv_tail_2d", a.device,
-           [ptr(a), ptrs, ptr(out), B, mr, mc, levels, ptr(tl), ptr(th),
-            len(tl), ptr(geo)])
+           [ptr(a), ptrs, ptr(out), ptr(scratch), B, mr, mc, levels, ptr(tp), hlen, ptr(geo),
+            *plan, ptr(tiles)])
     return out
 
 

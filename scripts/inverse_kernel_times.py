@@ -3,17 +3,19 @@
 inverses; kernels 16 and 17, the batched 1D synthesis and the rank-r
 analysis; kernels 13 and 15, the 2D a-trous and the batched 1D analyses;
 kernels 12 and 10, 11 and 9, 8 and 5, 1 and 7, which run the bodies of 2
-and 16, 13 and 15, 16 and 13, 13 and 15) at the cells' shapes, for one
-checkout of the port.
+and 16, 13 and 15, 16 and 13, 13 and 15; the tails 3 and 4, which run the
+bodies of 1 and 2 level by level in one launch) at the cells' shapes, for
+one checkout of the port.
 
     python3 scripts/inverse_kernel_times.py ROOT [OUTDIR]
 
 ROOT is the checkout to import (``.`` for this one; an unpacked
 ``git archive`` of another commit to compare in turns: parent, change,
-change, parent).  With OUTDIR, kernel 5's and kernel 1's outputs are saved
-there under ROOT's name, and for each other checkout's file already there
-it prints one line each, K5DIFF (K1DIFF) ROOT OTHER {json}: per level,
-max|ROOT - OTHER| over max|OTHER| of the four planes.  Needs a CUDA card.  It builds the kernels (and reports
+change, parent).  With OUTDIR, the outputs of kernels 5, 1 and 3 are
+saved there under ROOT's name, and for each other checkout's file already
+there it prints one line each, K5DIFF (K1DIFF, T3DIFF) ROOT OTHER {json}:
+per level (per tail call), max|ROOT - OTHER| over max|OTHER| of the
+outputs.  Needs a CUDA card.  It builds the kernels (and reports
 the build time), brings the card's clocks up with a few large products,
 then times with torch.profiler, per call, the device time of these
 kernels' launches at: the TI cell's three levels (db7, 1024^2, soft beta
@@ -46,22 +48,28 @@ signals, float32 bands of 2048 down to 256 samples), the exact TI cell's
 analysis levels on kernel 5 (db7, 1024^2, levels 1-3, float32), the DWT
 roundtrip's analysis levels on kernel 1 (db7, float32 images of 2048^2 down
 to 256^2) and the exact 1D DWT cell's analysis levels on kernel 7 (sym8,
-1024 float32 signals of 4096 down to 512 samples).  Beside 1, 5, 7, 8, 9,
-11, 12, 13 and 15 it times their PyTorch yardsticks in the same call, by
-CUDA events: the dense-band ``torch.matmul`` products of
-``chip_smoke.yardstick`` (a pair per 2D level, one per 1D level; bf16, and
-float32 for kernels 1, 5, 7, 8 and 9).
+1024 float32 signals of 4096 down to 512 samples), and per call the tails
+3 and 4 at the DWT cell's shape (db7: a 128^2 image into 64^2 subbands and
+back, one level) and at 4 levels (down to 8^2 and back), these also at
+clusters of 8 and 16 where the checkout has ``tail_launch_plan``.  Beside
+1, 3, 4, 5, 7, 8, 9, 11, 12, 13 and 15 it times their PyTorch yardsticks
+in the same call, by CUDA events: the dense-band ``torch.matmul`` products
+of ``chip_smoke.yardstick`` (a pair per 2D level, one per 1D level; bf16,
+and float32 for kernels 1, 3, 4, 5, 7, 8 and 9).
 Prints one line: RESULT ROOT {json}, each level in ms and each pass
 summed, and one line: SUMS ROOT {json}, a SHA-256 prefix of the bytes of
 each timed kernel's output (the same inputs on every checkout, made from
 one seed), so that runs in turns show where two checkouts agree bit for
 bit; and one line: NONFINITE ROOT {json}, for kernels 8, 5, 1 and 7 given
 one inf sample (sym8 on 33 x 200 bands, db7 level 2 and db7 on a 64 x 96
-image, sym8 on 33 x 400 signals), the outputs that are inf and that are
-NaN, from the kernel and from its plain version.  Imports no JAX.
+image, sym8 on 33 x 400 signals), and for the tails 3 and 4 (db7, two
+levels: that image; 16 x 24 subbands, an inf in the deepest H), the
+outputs that are inf and that are NaN, from the kernel and from its plain
+version.  Imports no JAX.
 """
 import glob
 import hashlib
+import importlib.util
 import json
 import os
 import sys
@@ -109,7 +117,7 @@ torch.cuda.synchronize()
 
 
 KERNELS = ("inv_mxu", "inv_level", "inv1d", "ns_fwd", "fwd_mxu", "fwd1d", "swt_fwd_level",
-           "fwd_level")
+           "fwd_level", "tail")
 
 
 def digest(t):
@@ -284,6 +292,41 @@ for n in (4096, 2048, 1024, 512):
     x = torch.randn(1024, n, device=dev, generator=gen)
     timed(f"k7 {n}", lambda: K1.fwd_level_1d(x, w8.dec_lo, w8.dec_hi))
     res[f"y7 {n}"] = CS.cuda_ms(CS.yardstick("fwd", w8, f32)(x))
+# the tails 3 and 4 at the DWT cell's shape (db7, a 1 x 128^2 image into
+# 64^2 subbands, one level; 64^2 subbands into 128^2) and at 4 levels (128^2
+# down to 8^2, 8^2 subbands up to 128^2), beside their float32 yardsticks
+# (chip_smoke.tail_yardstick); on a checkout with tail_launch_plan, the
+# 4-level calls also at clusters of 8 and of 16; 3's outputs kept for T3DIFF
+gen = torch.Generator(device=dev).manual_seed(34)
+k3 = {}
+tail_plan = getattr(K, "tail_launch_plan", None)
+if not hasattr(CS, "tail_yardstick"):  # ROOT's chip_smoke predates it: this tree's
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                                        "chip_smoke.py"))
+    CS = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(CS)
+for levels in (1, 4):
+    x = rand(1, 128, 128)
+    a = rand(1, 128 >> levels, 128 >> levels)
+    dets = [tuple(rand(1, 128 >> j, 128 >> j) for _ in range(3)) for j in range(levels, 0, -1)]
+    fwd = lambda: K.fwd_tail_2d(x, w7.dec_lo, w7.dec_hi, levels)
+    inv = lambda: K.inv_tail_2d(a, dets, w7.rec_lo, w7.rec_hi)
+    flat = lambda o: [o[0], *[t for band in o[1] for t in band]]
+    timed(f"k3 {levels}L", lambda: flat(fwd()))
+    timed(f"k4 {levels}L", inv)
+    k3[levels] = [t.cpu() for t in flat(fwd())]
+    res[f"y3 {levels}L"] = CS.cuda_ms(CS.tail_yardstick(w7, levels)(x))
+    res[f"y4 {levels}L"] = CS.cuda_ms(CS.tail_yardstick(w7, levels, inverse=True)((a, dets)))
+    if tail_plan is not None and levels > 1:
+        pick = K._tail_cluster
+        for cs in (8, 16):
+            K._tail_cluster = lambda B, tiles, cs=cs: cs
+            tail_plan.cache_clear()
+            res[f"k3 {levels}L cs{cs}"] = dev_ms(fwd)
+            res[f"k4 {levels}L cs{cs}"] = dev_ms(inv)
+        K._tail_cluster = pick
+        tail_plan.cache_clear()
 for k in ("k14", "k14b", "k18s", "k18p", "k6", "k2", "k17d", "k17s", "k17b", "k16d", "k16a",
           "k13", "k13b", "y13", "k15d", "y15d", "k15a", "y15a", "k12f", "k12m", "k12b", "y12",
           "k10", "k11f", "k11m", "k11b", "y11", "k9", "y9", "k8", "y8", "k5", "y5", "k1", "y1",
@@ -299,6 +342,9 @@ x = rand(1, 64, 96)
 x[0, 30, 40] = float("inf")
 s = torch.rand(33, 400, device=dev, generator=gen)
 s[3, 200] = float("inf")
+ia = rand(1, 16, 24)
+ibands = [tuple(rand(1, 16 << k, 24 << k) for _ in range(3)) for k in range(2)]
+ibands[0][0][0, 5, 7] = float("inf")
 nonfinite = {}
 for key, kern, plain in (
         ("k8", lambda: [K1.inv_level_1d(lo, hi, w8.rec_lo, w8.rec_hi)],
@@ -308,7 +354,11 @@ for key, kern, plain in (
         ("k1", lambda: K.fwd_level_2d(x, w7.dec_lo, w7.dec_hi),
          lambda: K.fwd_level_2d_ref(x, w7.dec_lo, w7.dec_hi)),
         ("k7", lambda: K1.fwd_level_1d(s, w8.dec_lo, w8.dec_hi),
-         lambda: K1.fwd_level_1d_ref(s, w8.dec_lo, w8.dec_hi))):
+         lambda: K1.fwd_level_1d_ref(s, w8.dec_lo, w8.dec_hi)),
+        ("k3", lambda: flat(K.fwd_tail_2d(x, w7.dec_lo, w7.dec_hi, 2)),
+         lambda: flat(K.fwd_tail_2d_ref(x, w7.dec_lo, w7.dec_hi, 2))),
+        ("k4", lambda: [K.inv_tail_2d(ia, ibands, w7.rec_lo, w7.rec_hi)],
+         lambda: [K.inv_tail_2d_ref(ia, ibands, w7.rec_lo, w7.rec_hi)])):
     for which, fn in (("kernel", kern), ("plain", plain)):
         outs = fn()
         nonfinite[f"{key} {which}"] = {"inf": sum(int(t.isinf().sum()) for t in outs),
@@ -317,7 +367,7 @@ print("NONFINITE", root, json.dumps(nonfinite))
 if outdir:
     os.makedirs(outdir, exist_ok=True)
     name = os.path.basename(os.path.abspath(root))
-    for key, outs in (("k5", k5), ("k1", k1)):
+    for key, outs in (("k5", k5), ("k1", k1), ("k3", k3)):
         torch.save(outs, os.path.join(outdir, f"{key}-{name}.pt"))
         for other in sorted(glob.glob(os.path.join(outdir, f"{key}-*.pt"))):
             oname = os.path.basename(other)[3:-3]
@@ -326,4 +376,5 @@ if outdir:
             ref = torch.load(other)
             rel = {lvl: max(float((a - b).abs().max()) for a, b in zip(outs[lvl], ref[lvl]))
                    / max(float(b.abs().max()) for b in ref[lvl]) for lvl in outs}
-            print(f"{key.upper()}DIFF", name, oname, json.dumps(rel))
+            label = "T3DIFF" if key == "k3" else f"{key.upper()}DIFF"
+            print(label, name, oname, json.dumps(rel))

@@ -1398,7 +1398,8 @@ def test_nonfinite_inputs_of_kernels_8_and_5_never_turn_finite(dev):
     finite equals the plain one.  (The zero taps that pad a parity's table
     or a chunk multiply real samples, so the kernels may give NaN where the
     plain version is finite: ROADMAP, section 3.)  Kernels 1 and 7, which
-    run the bodies of 13 and 15 on zero-padded taps too, likewise."""
+    run the bodies of 13 and 15 on zero-padded taps too, likewise, and the
+    tails 3 and 4, which run the bodies of 1 and 2 (two levels each)."""
     w7, w8 = get_wavelet("db7"), get_wavelet("sym8")
     lo, hi = _rand(dev, 33, 200), _rand(dev, 33, 200, seed=1)
     hi[3, 100] = float("inf")
@@ -1406,8 +1407,17 @@ def test_nonfinite_inputs_of_kernels_8_and_5_never_turn_finite(dev):
     x[0, 30, 40] = float("inf")
     s = _rand(dev, 33, 400)
     s[3, 200] = float("inf")
+    ta, tdets = K.fwd_tail_2d(x, w7.dec_lo, w7.dec_hi, 2)
+    ra, rdets = K.fwd_tail_2d_ref(x, w7.dec_lo, w7.dec_hi, 2)
+    ia = _rand(dev, 1, 16, 24) * 255
+    ibands = [tuple(_rand(dev, 1, 16 << k, 24 << k, seed=3 * k + j) * 255 for j in range(3))
+              for k in range(2)]
+    ibands[0][0][0, 5, 7] = float("inf")
     for got, want in ((K1.inv_level_1d(lo, hi, w8.rec_lo, w8.rec_hi),
                        K1.inv_level_1d_ref(lo, hi, w8.rec_lo, w8.rec_hi)),
+                      *zip([ta, *sum(tdets, ())], [ra, *sum(rdets, ())]),
+                      (K.inv_tail_2d(ia, ibands, w7.rec_lo, w7.rec_hi),
+                       K.inv_tail_2d_ref(ia, ibands, w7.rec_lo, w7.rec_hi)),
                       *zip(S.swt_fwd_level_2d(x, w7.dec_lo, w7.dec_hi, 2),
                            S.swt_fwd_level_2d_ref(x, w7.dec_lo, w7.dec_hi, 2)),
                       *zip(K.fwd_level_2d(x, w7.dec_lo, w7.dec_hi),
@@ -1500,6 +1510,124 @@ def test_gradients_flow_through_kernels_1_and_7(dev, wname):
         (lambda *u: K.inv_level_2d_ad(*u, w.rec_lo, w.rec_hi), q, "fwd_level_2d"),
         (lambda t: K1.fwd_level_1d_ad(t, w.dec_lo, w.dec_hi), [s], "inv_level_1d"),
         (lambda lo, hi: K1.inv_level_1d_ad(lo, hi, w.rec_lo, w.rec_hi), b, "fwd_level_1d")]
+    for fn, inputs, name in cases:
+        (gd, gc), launched = _grads_and_launches(fn, inputs, name)
+        assert launched == 1, name
+        for g, gcpu in zip(gd, gc):
+            _close_tier(g.cpu(), gcpu, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# kernels 3 and 4, the tails, on the level bodies of kernels 1 and 2 in one
+# launch spread over a thread-block cluster
+# ---------------------------------------------------------------------------
+
+# TAIL_CASES, then 128 taps on 16 x 16, a batch of 70000 4 x 4 images, 160 x
+# 160 to 5 x 5, and the DWT cell's tail at 4 levels
+TAIL34_CASES = TAIL_CASES + [("w128", (1, 16, 16), 2), ("db2", (70000, 4, 4), 2),
+                             ("db7", (1, 160, 160), 5), ("db7", (1, 128, 128), 4)]
+
+
+def _tail_inputs(dev, w, shape, levels):
+    """An image, and subbands of its size (deepest first) for the inverse."""
+    B, R, C = shape
+    x = _rand(dev, *shape) * 255
+    a = _rand(dev, B, R >> levels, C >> levels, seed=1) * 255
+    bands = [tuple(_rand(dev, B, R >> k, C >> k, seed=10 * k + j) * 255 for j in range(3))
+             for k in range(levels, 0, -1)]
+    return x, a, bands
+
+
+@pytest.mark.parametrize("wname,shape,levels", TAIL34_CASES)
+def test_tail_redesign_matches_plain(dev, wname, shape, levels):
+    """Both tails against their plain versions, relative to the call's
+    largest output (the forward runs the rows first, its plain version the
+    columns first)."""
+    w = _long_wavelet(wname)
+    x, a, bands = _tail_inputs(dev, w, shape, levels)
+    ta, tdets = K.fwd_tail_2d(x, w.dec_lo, w.dec_hi, levels)
+    ra, rdets = K.fwd_tail_2d_ref(x, w.dec_lo, w.dec_hi, levels)
+    _close_joint([ta, *sum(tdets, ())], [ra, *sum(rdets, ())])
+    _close_joint([K.inv_tail_2d(a, bands, w.rec_lo, w.rec_hi)],
+                 [K.inv_tail_2d_ref(a, bands, w.rec_lo, w.rec_hi)])
+
+
+@pytest.mark.parametrize("wname,shape,levels", TAIL34_CASES)
+def test_tails_equal_the_level_kernels_level_by_level(dev, wname, shape, levels):
+    """Each tail level is the level kernel's function in the same sum order:
+    the tails equal the chain of kernel 1 (forward) and of kernel 2
+    (inverse) on finite data, whatever the tiles."""
+    w = _long_wavelet(wname)
+    x, a, bands = _tail_inputs(dev, w, shape, levels)
+    ta, tdets = K.fwd_tail_2d(x, w.dec_lo, w.dec_hi, levels)
+    ca, cdets = x, []
+    for _ in range(levels):
+        ca, h, v, d = K.fwd_level_2d(ca, w.dec_lo, w.dec_hi)
+        cdets.append((h, v, d))
+    for got, want in zip([ta, *sum(tdets, ())], [ca, *sum(cdets, ())]):
+        assert torch.equal(got, want)
+    y = a
+    for band in bands:
+        y = K.inv_level_2d(y, *band, w.rec_lo, w.rec_hi)
+    assert torch.equal(K.inv_tail_2d(a, bands, w.rec_lo, w.rec_hi), y)
+
+
+@pytest.mark.parametrize("wname,shape,levels", [c for c in TAIL34_CASES if c[2] > 1])
+def test_multilevel_tails_give_one_result_50_times(dev, wname, shape, levels):
+    """A level stages what the one before wrote in the same launch (after a
+    cluster barrier, with coherent loads): a stale read would show now and
+    then, so each multi-level case runs 50 times against its first."""
+    w = _long_wavelet(wname)
+    x, a, bands = _tail_inputs(dev, w, shape, levels)
+    first = K.fwd_tail_2d(x, w.dec_lo, w.dec_hi, levels)
+    first_y = K.inv_tail_2d(a, bands, w.rec_lo, w.rec_hi)
+    for _ in range(50):
+        ta, tdets = K.fwd_tail_2d(x, w.dec_lo, w.dec_hi, levels)
+        assert all(torch.equal(g, f) for g, f in zip([ta, *sum(tdets, ())],
+                                                      [first[0], *sum(first[1], ())]))
+        assert torch.equal(K.inv_tail_2d(a, bands, w.rec_lo, w.rec_hi), first_y)
+
+
+def test_redesigned_3_4_refuse_a_bad_launch_plan(dev, monkeypatch):
+    """The tails' entry points check the plan they are given (shared memory
+    not the largest level's, a cluster size the card does not take, blocks
+    of one item in more than one cluster, tiles off the strips, the
+    forward's nph on the inverse); nothing falls back."""
+    w = get_wavelet("db7")
+    x, a, bands = _tail_inputs(dev, w, (1, 128, 128), 4)
+    real = K.tail_launch_plan
+    for inverse in (False, True):
+        good = real(1, 128, 128, 14, 4, inverse)
+        lv = good.levels
+        bad_plans = [good._replace(smem=good.smem + 16), good._replace(cs=3, nb=3),
+                     good._replace(cs=8), good._replace(threads=48),
+                     good._replace(levels=(lv[0]._replace(lr=4),) + lv[1:]),
+                     good._replace(levels=(lv[0]._replace(lc=12),) + lv[1:]),
+                     good._replace(levels=(lv[0]._replace(nph=2 if inverse else 3),) + lv[1:])]
+        for bad in bad_plans:
+            monkeypatch.setattr(K, "tail_launch_plan", lambda *args, bad=bad, **kw: bad)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                if inverse:
+                    K.inv_tail_2d(a, bands, w.rec_lo, w.rec_hi)
+                else:
+                    K.fwd_tail_2d(x, w.dec_lo, w.dec_hi, 4)
+        monkeypatch.setattr(K, "tail_launch_plan", real)
+
+
+@pytest.mark.parametrize("wname", ["db7", "odd5"])
+def test_gradients_flow_through_kernels_3_and_4(dev, wname):
+    """3 forward and as the backward of 4, and the reverse, at 3 levels:
+    gradients on the card against the CPU's, and the launches of each
+    backward's kernel."""
+    w = _wavelet(wname)
+    x = _rand(dev, 2, 32, 64) * 10
+    a = _rand(dev, 2, 4, 8) * 10
+    flat = [_rand(dev, 2, 4 << k, 8 << k, seed=3 * k + j) * 10 for k in range(3)
+            for j in range(3)]
+    cases = [
+        (lambda t: K.fwd_tail_2d_ad(t, w.dec_lo, w.dec_hi, 3)[0], [x], "inv_tail_2d"),
+        (lambda t, *u: K.inv_tail_2d_ad(t, [tuple(u[3 * k:3 * k + 3]) for k in range(3)],
+                                        w.rec_lo, w.rec_hi), [a, *flat], "fwd_tail_2d")]
     for fn, inputs, name in cases:
         (gd, gc), launched = _grads_and_launches(fn, inputs, name)
         assert launched == 1, name
