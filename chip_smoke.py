@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It builds the CUDA kernels from
-``pdwt_tpu_torch/kernels/csrc`` and drives the port's six paths, each
+``pdwt_tpu_torch/kernels/csrc`` and drives the port's seven paths, each
 with the launch counters set to 0 just before it and read just after:
 
 * the DWT path: each of its four kernels against its plain PyTorch version
@@ -54,7 +54,20 @@ with the launch counters set to 0 just before it and read just after:
   kernel launch, as in JAX), ``mixed`` and the bf16 tiers; the two rank-r
   kernels against their plain versions at every routed level, both
   strides; launch counts, the dtype contract, the path against the plain
-  route, roundtrips, and the timings.
+  route, roundtrips, and the timings;
+* the operators: the reference's operator set and the models on it at
+  the paths' sizes, through the facade and the models' entry points
+  (group, firm, shrink, L-infinity, BayesShrink, the L2,1 norms, the
+  axpy, get/set_coeff, circshift and copy on the 2048x2048 db7 5-level
+  coefficients; ``auto_denoise`` with each method on the DWT at 2048x2048
+  and the SWT at 1024x1024; the group TI step; ``cycle_spin_denoise`` with
+  8 spins and FISTA with 50 iterations at 1024x1024, the latter with the
+  identity, a 7x7 blur and the group lasso; the operators on the batched
+  1D coefficients, decimated and stationary; Haar on the card; the demo's
+  scenarios 1-3 on a 2048x2048 ``.dat``): each result against the same
+  computation on the plain route on the card, each call between a reset
+  and a read of the launch counters (exactly the exact kernels its
+  transform dispatches), each call's time and device busy time.
 
 The banded-product kernels redesigned for Hopper's CUDA cores (kernels 14
 and 18: ``swt_inv_level_2d_mxu``, ``ns_inv_level_2d_mxu``,
@@ -102,6 +115,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 import re
 import subprocess
@@ -634,6 +648,98 @@ def tail_checks(K, cases) -> None:
             print(f"{c.name} at {c.label}: 50 repeats equal the first result", flush=True)
 
 
+# -- the plain route: the kernels' plain versions, level by level, on the
+# card, in the order the entry points run them
+
+def plain_dwt2d(t, w, levels):
+    from pdwt_tpu_torch import Coeffs2D
+    from pdwt_tpu_torch.core import conv
+    from pdwt_tpu_torch.kernels import separable as K
+
+    a, dets = t[None], []
+    for _ in range(levels):
+        a = conv.odd_extend(conv.odd_extend(a, -1), -2)
+        a, h, v, d = K.fwd_level_2d_ref(a, w.dec_lo, w.dec_hi)
+        dets.append((h[0], v[0], d[0]))
+    return Coeffs2D(a[0], tuple(dets))
+
+
+def plain_idwt2d(c, w, shape):
+    from pdwt_tpu_torch.core.shapes import level_sizes
+    from pdwt_tpu_torch.kernels import separable as K
+
+    rows, cols = level_sizes(shape[0], c.levels), level_sizes(shape[1], c.levels)
+    a = c.approx[None]
+    for i in range(c.levels - 1, -1, -1):
+        h, v, d = (t[None] for t in c.details[i])
+        a = K.inv_level_2d_ref(a, h, v, d, w.rec_lo, w.rec_hi)[:, :rows[i], :cols[i]]
+    return a[0]
+
+
+def plain_swt2d(t, w, levels):
+    from pdwt_tpu_torch import Coeffs2D
+    from pdwt_tpu_torch.kernels import swt as S
+
+    a, dets = t[None], []
+    for level in range(1, levels + 1):
+        a, h, v, d = S.swt_fwd_level_2d_ref(a, w.dec_lo, w.dec_hi, level)
+        dets.append((h[0], v[0], d[0]))
+    return Coeffs2D(a[0], tuple(dets))
+
+
+def plain_iswt2d(c, w, threshold=None):
+    from pdwt_tpu_torch.kernels import swt as S
+
+    a = c.approx[None]
+    for i in range(c.levels - 1, -1, -1):
+        h, v, d = (t[None] for t in c.details[i])
+        a = S.swt_inv_level_2d_ref(a, h, v, d, w.rec_lo, w.rec_hi, i + 1, threshold)
+    return a[0]
+
+
+def plain_dwt1d(t, w, levels):
+    from pdwt_tpu_torch import Coeffs1D
+    from pdwt_tpu_torch.core import conv
+    from pdwt_tpu_torch.kernels import batched1d as K1
+
+    a, dets = t, []
+    for _ in range(levels):
+        a, d = K1.fwd_level_1d_ref(conv.odd_extend(a, -1), w.dec_lo, w.dec_hi)
+        dets.append(d)
+    return Coeffs1D(a, tuple(dets))
+
+
+def plain_idwt1d(c, w, n):
+    from pdwt_tpu_torch.core.shapes import level_sizes
+    from pdwt_tpu_torch.kernels import batched1d as K1
+
+    sizes = level_sizes(n, c.levels)
+    a = c.approx
+    for i in range(c.levels - 1, -1, -1):
+        a = K1.inv_level_1d_ref(a, c.details[i], w.rec_lo, w.rec_hi)[:, :sizes[i]]
+    return a
+
+
+def plain_swt1d(t, w, levels):
+    from pdwt_tpu_torch import Coeffs1D
+    from pdwt_tpu_torch.kernels import batched1d as K1
+
+    a, dets = t, []
+    for level in range(1, levels + 1):
+        a, d = K1.swt_fwd_level_1d_ref(a, w.dec_lo, w.dec_hi, level)
+        dets.append(d)
+    return Coeffs1D(a, tuple(dets))
+
+
+def plain_iswt1d(c, w):
+    from pdwt_tpu_torch.kernels import batched1d as K1
+
+    a = c.approx
+    for i in range(c.levels - 1, -1, -1):
+        a = K1.swt_inv_level_1d_ref(a, c.details[i], w.rec_lo, w.rec_hi, i + 1)
+    return a
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this script needs a CUDA card")
@@ -794,25 +900,9 @@ def main() -> None:
     check(rt_err <= ROUNDTRIP_ATOL, "roundtrip error")
 
     # the plain path on the card: the kernels' plain versions, level by level
-    def plain_dwt2d(t):
-        a, dets = t[None], []
-        for _ in range(LEVELS):
-            a = conv.odd_extend(conv.odd_extend(a, -1), -2)
-            a, h, v, d = K.fwd_level_2d_ref(a, lo, hi)
-            dets.append((h[0], v[0], d[0]))
-        return Coeffs2D(a[0], tuple(dets))
-
-    def plain_idwt2d(c):
-        rows = level_sizes(N, LEVELS)
-        a = c.approx[None]
-        for i in range(LEVELS - 1, -1, -1):
-            h, v, d = (t[None] for t in c.details[i])
-            a = K.inv_level_2d_ref(a, h, v, d, rlo, rhi)[:, :rows[i], :rows[i]]
-        return a[0]
-
-    pc = ops.soft_threshold(plain_dwt2d(x), BETA)
+    pc = ops.soft_threshold(plain_dwt2d(x, wav, LEVELS), BETA)
     p_n1 = float(ops.norm1(pc))
-    p_den = plain_idwt2d(pc)
+    p_den = plain_idwt2d(pc, wav, (N, N))
     err, scale = max_err(den, p_den)
     print(f"denoised vs plain path: max|diff| {err:.3e} (limit {PATH_RTOL * scale:.3e}); "
           f"norm1 {n1!r} vs plain {p_n1!r}", flush=True)
@@ -840,7 +930,7 @@ def main() -> None:
     # roundtrip times, kernels and plain path, on the same card in turns
     time_in_turns(f"roundtrip {N}x{N} {WNAME} {LEVELS} levels",
                   lambda: idwt2d(dwt2d(x, wav, LEVELS), wav, (N, N)),
-                  lambda: plain_idwt2d(plain_dwt2d(x)), card)
+                  lambda: plain_idwt2d(plain_dwt2d(x, wav, LEVELS), wav, (N, N)), card)
 
     # ======================= the TI-denoise path =======================
     # -- each stationary kernel against its plain version.  The inverse
@@ -940,23 +1030,9 @@ def main() -> None:
     print(f"roundtrip max|iswt2d(swt2d(x)) - x| = {rt_err:.3e} (limit {ROUNDTRIP_ATOL})")
     check(rt_err <= ROUNDTRIP_ATOL, "SWT roundtrip error")
 
-    def plain_swt2d(t):
-        a, dets = t[None], []
-        for level in range(1, TI_LEVELS + 1):
-            a, h, v, d = S.swt_fwd_level_2d_ref(a, lo, hi, level)
-            dets.append((h[0], v[0], d[0]))
-        return Coeffs2D(a[0], tuple(dets))
-
-    def plain_iswt2d(c, threshold=None):
-        a = c.approx[None]
-        for i in range(TI_LEVELS - 1, -1, -1):
-            h, v, d = (t[None] for t in c.details[i])
-            a = S.swt_inv_level_2d_ref(a, h, v, d, rlo, rhi, i + 1, threshold)
-        return a[0]
-
-    pc = ops.soft_threshold(plain_swt2d(xt), TI_BETA)
+    pc = ops.soft_threshold(plain_swt2d(xt, wav, TI_LEVELS), TI_BETA)
     p_n1 = float(ops.norm1(pc))
-    p_den = plain_iswt2d(pc)
+    p_den = plain_iswt2d(pc, wav)
     for label, img, n1v in (("run_denoise", run_out, float(run_n1)), ("inverse", ti_den, ti_n1)):
         err, scale = max_err(img, p_den)
         print(f"TI {label} vs plain path: max|diff| {err:.3e} (limit {PATH_RTOL * scale:.3e}); "
@@ -973,7 +1049,8 @@ def main() -> None:
     # -- the TI step (bench.py's ti_swt_mpix_s), kernels and plain path, in turns
     time_in_turns(f"TI step {TI_N}x{TI_N} {WNAME} {TI_LEVELS} levels soft beta {TI_BETA}",
                   lambda: iswt2d_denoise(swt2d(xt, wav, TI_LEVELS), wav, TI_BETA),
-                  lambda: plain_iswt2d(plain_swt2d(xt), ("soft", TI_BETA)), card)
+                  lambda: plain_iswt2d(plain_swt2d(xt, wav, TI_LEVELS), wav, ("soft", TI_BETA)),
+                  card)
 
     # ======================= the batched 1D path =======================
     # -- each 1D kernel against its plain version.  The inverses run on the
@@ -1113,43 +1190,19 @@ def main() -> None:
         check(b1_launches[name] > 0, f"the batched 1D path never launched {name}")
         launches[name] = b1_launches[name]
 
-    def plain_dwt1d(t):
-        a, dets = t, []
-        for _ in range(B1_LEVELS):
-            a, d = K1.fwd_level_1d_ref(conv.odd_extend(a, -1), w8.dec_lo, w8.dec_hi)
-            dets.append(d)
-        return Coeffs1D(a, tuple(dets))
-
-    def plain_idwt1d(c):
-        sizes = level_sizes(B1_N, B1_LEVELS)
-        a = c.approx
-        for i in range(B1_LEVELS - 1, -1, -1):
-            a = K1.inv_level_1d_ref(a, c.details[i], w8.rec_lo, w8.rec_hi)[:, :sizes[i]]
-        return a
-
-    def plain_swt1d(t):
-        a, dets = t, []
-        for level in range(1, B1_LEVELS + 1):
-            a, d = K1.swt_fwd_level_1d_ref(a, w8.dec_lo, w8.dec_hi, level)
-            dets.append(d)
-        return Coeffs1D(a, tuple(dets))
-
-    def plain_iswt1d(c):
-        a = c.approx
-        for i in range(B1_LEVELS - 1, -1, -1):
-            a = K1.swt_inv_level_1d_ref(a, c.details[i], w8.rec_lo, w8.rec_hi, i + 1)
-        return a
-
+    p_fwd1 = {False: lambda t: plain_dwt1d(t, w8, B1_LEVELS),
+              True: lambda t: plain_swt1d(t, w8, B1_LEVELS)}
+    p_inv1 = {False: lambda c: plain_idwt1d(c, w8, B1_N), True: lambda c: plain_iswt1d(c, w8)}
     for swt in (False, True):
         kind = "SWT" if swt else "DWT"
-        pc = ops.soft_threshold((plain_swt1d if swt else plain_dwt1d)(xs), B1_BETA)
+        pc = ops.soft_threshold(p_fwd1[swt](xs), B1_BETA)
         p_n1 = float(ops.norm1(pc))
-        p_den = (plain_iswt1d if swt else plain_idwt1d)(pc)
+        p_den = p_inv1[swt](pc)
         for label in ("batch", "one signal"):
             den, n1, run, run_n1 = b1_out[swt, label]
             want = p_den if label == "batch" else p_den[:1]
             w_n1 = p_n1 if label == "batch" else float(ops.norm1(ops.soft_threshold(
-                (plain_swt1d if swt else plain_dwt1d)(xs[:1]), B1_BETA)))
+                p_fwd1[swt](xs[:1]), B1_BETA)))
             for how, img, n1v in (("inverse", den, n1), ("run_denoise", run, run_n1)):
                 check(tuple(img.shape) == tuple(want.shape) and bool(torch.isfinite(img).all()),
                       f"1D {kind} {label} {how}: not finite or the wrong shape")
@@ -1194,11 +1247,12 @@ def main() -> None:
                   f"beta {B1_BETA}",
                   lambda: b1_step(lambda t: dwt1d(t, w8, B1_LEVELS),
                                   lambda c: idwt1d(c, w8, B1_N)),
-                  lambda: b1_step(plain_dwt1d, plain_idwt1d), card)
+                  lambda: b1_step(p_fwd1[False], p_inv1[False]), card)
 
     precision_phase(dev, card, report, launches, x, dwt_img, xr, rt_sig, gen)
     ti_tier_phase(dev, card, report, launches, ti_img, gen)
     ns_phase(dev, card, report, launches, dwt_img, ti_img, gen)
+    operators_phase(dev, card, dwt_img, ti_img, sig)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
@@ -2380,6 +2434,437 @@ def ns_phase(dev, card, report, launches, dwt_img, ti_img, gen) -> None:
                                         precision=tier),
                       lambda: iswt2d_ns(swt2d_ns(xs, qf, NS_SWT_LEVELS), qi), card,
                       names=(tier, "exact"))
+
+
+# the operators phase (the reference's operator set and the models on it)
+CS_N, CS_LEVELS, CS_SPINS, CS_BETA = 1024, 3, 8, 10.0    # cycle_spin_denoise
+IS_N, IS_LEVELS, IS_ITERS, IS_LAM = 1024, 4, 50, 10.0    # ista (FISTA)
+# rows 1-10 of the table: the exact kernels an operator's call may launch
+EXACT_KERNELS = frozenset(("fwd_level_2d", "inv_level_2d", "fwd_tail_2d", "inv_tail_2d",
+                           "swt_fwd_level_2d", "swt_inv_level_2d", "fwd_level_1d",
+                           "inv_level_1d", "swt_fwd_level_1d", "swt_inv_level_1d"))
+
+
+def dwt2d_kernels(n: int, hlen: int, levels: int) -> frozenset:
+    """The kernels that idwt2d(dwt2d(x)) launches on an exact n x n float32
+    image (core/separable.py's dispatch: level kernels, then one tail)."""
+    from pdwt_tpu_torch.kernels import separable as K
+
+    names, r = set(), n
+    for lvl in range(levels):
+        if K.tail_supported((r, r), hlen, levels - lvl):
+            names.add("fwd_tail_2d")
+            break
+        names.add("fwd_level_2d")
+        r //= 2
+    m, k = n >> levels, 0
+    while k < levels and K.tail_supported((m << (k + 1), m << (k + 1)), hlen, k + 1):
+        k += 1
+    names.update(["inv_tail_2d"] * bool(k) + ["inv_level_2d"] * (k < levels))
+    return frozenset(names)
+
+
+def counted(label, fn, required):
+    """fn() between a reset and a read of the launch counters: exactly the
+    kernels ``required`` (of rows 1-10) were launched."""
+    from pdwt_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in LAUNCHES.items() if v}
+    print(f"operators: {label}: launches {got}", flush=True)
+    check(set(got) == set(required) and set(got) <= EXACT_KERNELS,
+          f"operators: {label} launched {sorted(got)}, expected {sorted(required)}")
+    return out
+
+
+def hold(label, got, want, rtol=PATH_RTOL, scale=None) -> None:
+    """A result against the same computation on the plain route: one dtype
+    and shape per output, within rtol of the call's largest plain value,
+    or of ``scale``: an operator on coefficients moves their differences by
+    at most its Lipschitz constant, so it is held to that times the
+    largest coefficient the transform was held to (clipping to 40 shrinks
+    the outputs, not the inputs' differences)."""
+    gl, wl = leaves(got), leaves(want)
+    check(len(gl) == len(wl) and all(g.dtype == w.dtype and g.shape == w.shape
+                                     for g, w in zip(gl, wl)),
+          f"operators: {label}: dtypes or shapes differ from the plain route")
+    check(all(bool(torch.isfinite(g).all()) for g in gl), f"operators: {label}: not finite")
+    err, out_scale = max_err(got, want)
+    scale = out_scale if scale is None else scale
+    print(f"operators: {label} vs plain route: max|diff| {err:.3e} (limit "
+          f"{rtol * scale:.3e})", flush=True)
+    check(err <= rtol * scale, f"operators: {label} disagrees with the plain route")
+
+
+def hold_value(label, got, want, rtol=PATH_RTOL) -> None:
+    got, want = float(got), float(want)
+    print(f"operators: {label} {got!r} vs plain route {want!r}", flush=True)
+    check(abs(got - want) <= rtol * abs(want), f"operators: {label} disagrees with the plain route")
+
+
+# the card's estimators against a float64 evaluation of the same
+# coefficients on the host: noise sigma and VisuShrink within EST_RTOL (a
+# float32 median and product); BayesShrink within EST_RTOL times its rule's
+# condition number 1 + m / (m - sigma^2) in the band's mean square m (a
+# float32 sum of up to 4 M squares); SURE's threshold where its float64
+# risk is within SURE_RTOL of the float64 minimum, relative to n sigma^2 +
+# sum d^2 (the card's risk curve is a float32 cumulative sum)
+EST_RTOL, SURE_RTOL = 1e-6, 1e-5
+
+
+def hold_estimators(label, coeffs) -> None:
+    """noise_sigma, universal_threshold, bayes_thresholds and
+    sure_thresholds on the card (a CUDA sort, sum, cumsum and argmin)
+    against the same rules in float64 on the host (numpy) on the same
+    coefficients; the per-band rules at the card's sigma."""
+    from pdwt_tpu_torch import ops
+
+    det0 = coeffs.details[0]
+    bands = [b for det in coeffs.details
+             for b in ((det,) if isinstance(det, torch.Tensor) else det)]
+    host = [b.double().cpu().numpy().ravel() for b in bands]
+    finest = host[0] if isinstance(det0, torch.Tensor) else host[len(det0) - 1]
+    sigma = ops.noise_sigma(coeffs)
+    s64 = float(np.median(np.abs(finest))) / 0.6744897501960817
+    u64 = s64 * math.sqrt(2.0 * math.log(sum(d.size for d in host)))
+    for name, got, want in (("noise_sigma", sigma, s64),
+                            ("universal_threshold", ops.universal_threshold(coeffs), u64)):
+        rel = abs(float(got) - want) / want
+        print(f"operators: {label} {name} {float(got)!r} vs float64 {want!r}: relative "
+              f"{rel:.3e} (limit {EST_RTOL})", flush=True)
+        check(rel <= EST_RTOL, f"operators: {label} {name} disagrees with float64")
+    flat = lambda t: [v for lvl in t for v in (lvl if isinstance(lvl, tuple) else (lvl,))]
+    s2 = float(sigma) ** 2
+    worst_b = worst_s = 0.0
+    for i, (d, tb, ts) in enumerate(zip(host, flat(ops.bayes_thresholds(coeffs)),
+                                        flat(ops.sure_thresholds(coeffs)))):
+        n = d.size
+        m = float(np.dot(d, d)) / n
+        want, cond = ((s2 / math.sqrt(m - s2), 1.0 + m / (m - s2)) if m > s2
+                      else (float(np.abs(d).max()), 1.0))
+        rel_b = abs(float(tb) - want) / want / cond
+        a = np.sort(d * d)
+        cs = np.cumsum(a)
+        k = np.arange(1, n + 1)
+        risk = n * s2 - 2.0 * s2 * k + cs + (n - k) * a
+        t = float(ts)
+        if (cs[-1] / s2 - n) / n <= n ** -0.5 * math.log(max(n, 2)) ** 1.5:
+            # too sparse for SURE: the hybrid rule's universal threshold
+            t_u = math.sqrt(s2 * 2.0 * math.log(max(n, 2)))
+            rel_s = abs(t - t_u) / t_u * SURE_RTOL / EST_RTOL
+        else:
+            r_t = n * s2
+            if t > 0.0:  # the candidate nearest t^2, at the end of its run of ties
+                j = min(int(np.searchsorted(a, t * t)), n - 1)
+                j -= bool(j and abs(a[j - 1] - t * t) < abs(a[j] - t * t))
+                r_t = float(risk[int(np.searchsorted(a, a[j], side="right")) - 1])
+            rel_s = (r_t - min(n * s2, float(risk.min()))) / (n * s2 + float(cs[-1]))
+        check(rel_b <= EST_RTOL, f"operators: {label} bayes_thresholds band {i}: "
+              f"{float(tb)!r} vs float64 {want!r} (condition {cond:.3g})")
+        check(rel_s <= SURE_RTOL, f"operators: {label} sure_thresholds band {i}: {t!r}, "
+              f"risk {rel_s:.3e} above the float64 minimum")
+        worst_b, worst_s = max(worst_b, rel_b), max(worst_s, rel_s)
+    print(f"operators: {label} bayes_thresholds vs float64: worst relative / condition "
+          f"{worst_b:.3e} (limit {EST_RTOL}); sure_thresholds: worst risk excess "
+          f"{worst_s:.3e} (limit {SURE_RTOL})", flush=True)
+
+
+def time_call(label, fn, card, per: int = 1) -> None:
+    """One call's time (CUDA events, median of 20) and device busy time
+    (torch.profiler), per ``per`` (the ISTA loop per iteration)."""
+    ms = cuda_ms(fn) / per
+    busy = device_ms(fn)[0]
+    busy = None if busy is None else busy / per
+    unit = "an iteration" if per > 1 else "a call"
+    print(f"operators timing: {label}: {ms:.4f} ms {unit}, device busy {fmt(busy)} [{card}]",
+          flush=True)
+
+
+def operators_phase(dev, card, dwt_img, ti_img, sig) -> None:
+    """The reference's operator set and the models on it, at the sizes a
+    PDWT user runs, through the facade and the models' entry points, each
+    result held against the same computation on the plain route on the
+    card and each call's kernels read from the launch counters."""
+    import contextlib
+    import io
+    import tempfile
+
+    from pdwt_tpu_torch import Wavelets, demo, dwt2d, get_wavelet, ops, swt2d
+    from pdwt_tpu_torch.models import auto_denoise, cycle_spin_denoise, denoise_step, ista
+    from pdwt_tpu_torch.models import solver
+    from pdwt_tpu_torch.utils import write_dat
+
+    print("=== operators ===", flush=True)
+    wav = get_wavelet(WNAME)
+    x = torch.from_numpy(dwt_img).to(dev)
+    xt = torch.from_numpy(ti_img).to(dev)
+    dwt_k = dwt2d_kernels(N, wav.hlen, LEVELS)
+    swt_k = {"swt_fwd_level_2d", "swt_inv_level_2d"}
+
+    # -- the 2048^2 facade: the operators on the kernels' coefficients
+    # against the same operators on the plain route's
+    W = Wavelets(x, wname=WNAME, levels=LEVELS, device=dev)
+    counted("facade forward 2048^2", W.forward, dwt_k & {"fwd_level_2d", "fwd_tail_2d"})
+    pc = plain_dwt2d(x, wav, LEVELS)
+    hold("facade forward", W.coeffs, pc)
+    # the operators below are at most 2-Lipschitz in each value (the group
+    # threshold over four bands sqrt(4), firm's ramp 24 / 16, the axpy 1.25)
+    op_scale = 2.0 * max_err(W.coeffs, pc)[1]
+    check(W.info()["device"] == f"cuda:{torch.cuda.get_device_name(dev)}",
+          f"operators: info() device {W.info()['device']!r}")
+    G = 12.0
+    facade_ops = [
+        ("group_soft_threshold", lambda F: F.group_soft_threshold(G),
+         lambda c: ops.group_soft_threshold(c, G)),
+        ("group_soft_threshold normalize app",
+         lambda F: F.group_soft_threshold(G, do_thresh_appcoeffs=True, normalize=True),
+         lambda c: ops.group_soft_threshold(c, G, do_thresh_appcoeffs=True, normalize=True)),
+        ("firm_threshold", lambda F: F.firm_threshold(8.0, 24.0),
+         lambda c: ops.firm_threshold(c, 8.0, 24.0)),
+        ("shrink", lambda F: F.shrink(0.5), lambda c: ops.shrink(c, 0.5)),
+        ("proj_linf", lambda F: F.proj_linf(40.0), lambda c: ops.proj_linf(c, 40.0)),
+        ("bayes_shrink", lambda F: F.bayes_shrink(),
+         lambda c: ops.soft_threshold(c, ops.bayes_thresholds(c))),
+    ]
+    for label, op, plain in facade_ops:
+        F = W.copy()
+        counted(f"facade {label}", lambda: op(F), ())
+        hold(f"facade {label}", F.coeffs, plain(pc), scale=op_scale)
+        F = W.copy()
+        time_call(f"facade {label} {N}x{N} {WNAME} {LEVELS} levels", lambda: op(F), card)
+    F = W.copy()
+    F.group_soft_threshold(G)
+    den = counted("facade inverse after group_soft_threshold", F.inverse,
+                  dwt_k & {"inv_level_2d", "inv_tail_2d"})
+    hold("facade inverse after group_soft_threshold", den,
+         plain_idwt2d(ops.group_soft_threshold(pc, G), wav, (N, N)))
+    for label, got, want in (
+            ("norm_l21", W.norm_l21(), ops.norm_l21(pc)),
+            ("norm_l21 app", W.norm_l21(True), ops.norm_l21(pc, do_thresh_appcoeffs=True)),
+            ("noise_sigma", W.noise_sigma(), ops.noise_sigma(pc)),
+            ("universal_threshold", W.universal_threshold(), ops.universal_threshold(pc))):
+        hold_value(f"facade {label}", got, want)
+    fused = ops.thresholded_norm_l21(W.coeffs, G, normalize=True)
+    full = ops.norm_l21(ops.group_soft_threshold(W.coeffs, G, normalize=True))
+    print(f"operators: thresholded_norm_l21 {float(fused)!r} vs norm_l21(group_soft_threshold) "
+          f"{float(full)!r}", flush=True)
+    check(abs(float(fused) - float(full)) <= NORM_RTOL * abs(float(full)),
+          "operators: thresholded_norm_l21")
+    for label, fn in (("norm_l21", W.norm_l21), ("noise_sigma", W.noise_sigma),
+                      ("universal_threshold", W.universal_threshold),
+                      ("thresholded_norm_l21", lambda: ops.thresholded_norm_l21(W.coeffs, G))):
+        time_call(f"facade {label} {N}x{N}", fn, card)
+    # add_wavelet, get_coeff / set_coeff, circshift, copy
+    F, H = W.copy(), W.copy()
+    H.shrink(0.5)
+    check(counted("facade add_wavelet", lambda: F.add_wavelet(H, -0.25), ()) == 0,
+          "operators: add_wavelet did not return 0")
+    hold("facade add_wavelet", F.coeffs, ops.add_coeffs(pc, ops.shrink(pc, 0.5), -0.25),
+         scale=op_scale)
+    time_call(f"facade add_wavelet {N}x{N}", lambda: F.add_wavelet(H, 0.0), card)
+    for num in (0, 1, 3 * LEVELS):
+        band = W.get_coeff(num, copy=False)
+        want = pc.approx if num == 0 else pc.details[(num - 1) // 3][(num - 1) % 3]
+        hold(f"facade get_coeff({num})", band, want, scale=op_scale)
+        check(band.device == dev and np.array_equal(W.get_coeff(num), band.cpu().numpy()),
+              f"operators: get_coeff({num}) copies")
+        F.set_coeff(band * 2.0, num)
+        F.set_coeff(F.get_coeff(num) * 0.5, num)
+        check(torch.equal(F.get_coeff(num, copy=False), band), f"operators: set_coeff({num})")
+    shifted = W.circshift(37, -101, inplace=False)
+    check(torch.equal(shifted, torch.roll(x, (37, -101), (0, 1))), "operators: circshift")
+    time_call(f"facade circshift {N}x{N}", lambda: W.circshift(37, -101, inplace=False), card)
+    C, before = W.copy(), W.coeffs.details[0][0].clone()
+    C.soft_threshold(1e9)
+    check(not bool(C.coeffs.details[0][0].any()) and torch.equal(W.coeffs.details[0][0], before),
+          "operators: copy is not deep")
+    time_call(f"facade copy {N}x{N}", W.copy, card)
+
+    # -- auto_denoise, each method: the DWT at 2048^2, the SWT at 1024^2.
+    # The estimators on the kernels' coefficients are held to float64; the
+    # plain route estimates its thresholds from its own coefficients
+    for swt, img, levels, kern in ((False, x, LEVELS, dwt_k), (True, xt, TI_LEVELS, swt_k)):
+        kind = f"{'SWT' if swt else 'DWT'} {img.shape[0]}^2 {levels} levels"
+        kc = (swt2d if swt else dwt2d)(img, wav, levels)
+        c = (plain_swt2d if swt else plain_dwt2d)(img, wav, levels)
+        hold_estimators(f"estimators {kind}", kc)
+        for method in ("bayes", "sure", "universal"):
+            est = {"bayes": lambda t: list(ops.bayes_thresholds(t)),
+                   "sure": lambda t: list(ops.sure_thresholds(t)),
+                   "universal": ops.universal_threshold}[method]
+            # the output moves by at most the thresholds' difference: held
+            # relative to the largest threshold
+            beta, own = torch.stack(leaves(est(kc))), torch.stack(leaves(est(c)))
+            dev_b = float((beta - own).abs().max() / own.abs().max())
+            print(f"operators: auto_denoise {method} {kind} thresholds from the kernels' and "
+                  f"from the plain route's coefficients: max relative difference {dev_b:.3e} "
+                  f"(limit {PATH_RTOL})", flush=True)
+            check(dev_b <= PATH_RTOL, f"operators: auto_denoise {method} {kind} thresholds")
+            pt = ops.soft_threshold(c, est(c))
+            want = plain_iswt2d(pt, wav) if swt else plain_idwt2d(pt, wav, tuple(img.shape))
+            call = lambda: auto_denoise(img, wav, levels, method=method, swt=swt)
+            out = counted(f"auto_denoise {method} {kind}", call, kern)
+            hold(f"auto_denoise {method} {kind}", out, want)
+            time_call(f"auto_denoise {method} {kind}", call, card)
+
+    # -- the TI step with the group threshold: not fused (threshold, norm1,
+    # the synthesis kernel)
+    call = lambda: denoise_step(xt, None, wav, TI_LEVELS, G, swt=True, mode="group")
+    out, n1 = counted("denoise_step swt group", call, swt_k)
+    pg = ops.group_soft_threshold(plain_swt2d(xt, wav, TI_LEVELS), G)
+    hold("denoise_step swt group", out, plain_iswt2d(pg, wav))
+    hold_value("denoise_step swt group norm1", n1, ops.norm1(pg))
+    time_call(f"denoise_step swt group {TI_N}x{TI_N} {WNAME} {TI_LEVELS} levels", call, card)
+
+    # -- cycle_spin_denoise: 8 spins of the 1024^2 DWT step, shifts from one
+    # generator; the plain route takes the same shifts
+    xc = xt
+    cs_k = dwt2d_kernels(CS_N, wav.hlen, CS_LEVELS)
+    gen = lambda: torch.Generator(device=dev).manual_seed(21)
+    out = counted("cycle_spin_denoise", lambda: cycle_spin_denoise(
+        xc, gen(), wav, CS_LEVELS, CS_BETA, spins=CS_SPINS), cs_k)
+    g, acc = gen(), torch.zeros_like(xc)
+    for _ in range(CS_SPINS):
+        sr, sc = ops.random_shift(g, (CS_N, CS_N))
+        c = ops.soft_threshold(plain_dwt2d(torch.roll(xc, (sr, sc), (0, 1)), wav, CS_LEVELS),
+                               CS_BETA)
+        acc = acc + torch.roll(plain_idwt2d(c, wav, (CS_N, CS_N)), (-sr, -sc), (0, 1))
+    hold("cycle_spin_denoise", out, acc / torch.full((), CS_SPINS, device=dev))
+    time_call(f"cycle_spin_denoise {CS_SPINS} spins {CS_N}x{CS_N} {WNAME} {CS_LEVELS} levels "
+              f"soft beta {CS_BETA}", lambda: cycle_spin_denoise(
+                  xc, gen(), wav, CS_LEVELS, CS_BETA, spins=CS_SPINS), card)
+
+    # -- ista (FISTA), 50 iterations at 1024^2, db7, 4 levels: the identity,
+    # a 7x7 blur (a conv2d: the user's operator) with its adjoint derived,
+    # and the group lasso; the plain route runs the same loop on the plain
+    # transforms
+    k = torch.outer(*(torch.hann_window(9, periodic=False, device=dev)[1:-1],) * 2)
+    k = (k / k.sum())[None, None]
+    blur = lambda v: torch.nn.functional.conv2d(v[None, None], k, padding=3)[0, 0]
+    noise = torch.randn(xt.shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(22))
+    y_blur = blur(xt) + 2.0 * noise
+    is_k = dwt2d_kernels(IS_N, wav.hlen, IS_LEVELS)
+    for label, y, kw in (("identity", xt, {}), ("blur, op_t derived", y_blur, {"op": blur}),
+                         ("group lasso", xt, {"reg": "group"})):
+        call = lambda: ista(y, wav=wav, levels=IS_LEVELS, lam=IS_LAM, iters=IS_ITERS, **kw)
+        got, trace = counted(f"ista {label}", call, is_k)
+        fwd, inv = solver.dwt2d, solver.idwt2d
+        solver.dwt2d = lambda t, w, lv: plain_dwt2d(t, w, lv)
+        solver.idwt2d = lambda c, w, shape: plain_idwt2d(c, w, shape)
+        try:
+            want, want_trace = ista(y, wav=wav, levels=IS_LEVELS, lam=IS_LAM,
+                                    iters=IS_ITERS, **kw)
+        finally:
+            solver.dwt2d, solver.idwt2d = fwd, inv
+        check(trace.shape == (IS_ITERS,), f"operators: ista {label}: trace {trace.shape}")
+        hold(f"ista {label}", got, want)
+        hold(f"ista {label} objective trace", trace, want_trace)
+        time_call(f"ista {label} {IS_N}x{IS_N} {WNAME} {IS_LEVELS} levels", call, card,
+                  per=IS_ITERS)
+
+    # -- the new operators on the batched 1D path's coefficients (1024 x
+    # 4096, sym8, 4 levels), decimated and stationary
+    w8 = get_wavelet(B1_WNAME)
+    xs = torch.from_numpy(sig).to(dev)
+    for swt in (False, True):
+        kind = "SWT" if swt else "DWT"
+        fwd_k, inv_k = ("swt_fwd_level_1d", "swt_inv_level_1d") if swt else ("fwd_level_1d",
+                                                                             "inv_level_1d")
+        S = Wavelets(xs, wname=B1_WNAME, levels=B1_LEVELS, ndim=1, do_swt=swt, device=dev)
+        counted(f"1D {kind} forward", S.forward, {fwd_k})
+        pc1 = (plain_swt1d if swt else plain_dwt1d)(xs, w8, B1_LEVELS)
+        hold(f"1D {kind} forward", S.coeffs, pc1)
+        scale1 = 2.0 * max_err(S.coeffs, pc1)[1]
+        hold_estimators(f"estimators 1D {kind}", S.coeffs)
+        # the signals are noise: a band's mean square m exceeds sigma^2 by
+        # 1e-4 to 3e-3 of itself, and BayesShrink's rule multiplies its
+        # inputs' difference by 1/2 m / (m - sigma^2), up to about 4000, so
+        # the plain route takes the kernels' thresholds (held to float64
+        # just above)
+        betas1 = ops.bayes_thresholds(S.coeffs)
+        b = 0.1
+        for label, op, plain in (
+                ("group_soft_threshold", lambda F: F.group_soft_threshold(b, normalize=True),
+                 lambda c: ops.group_soft_threshold(c, b, normalize=True)),
+                ("firm_threshold", lambda F: F.firm_threshold(b, 3 * b),
+                 lambda c: ops.firm_threshold(c, b, 3 * b)),
+                ("shrink", lambda F: F.shrink(0.5), lambda c: ops.shrink(c, 0.5)),
+                ("proj_linf", lambda F: F.proj_linf(1.0), lambda c: ops.proj_linf(c, 1.0)),
+                ("bayes_shrink", lambda F: F.bayes_shrink(),
+                 lambda c: ops.soft_threshold(c, betas1))):
+            F = S.copy()
+            counted(f"1D {kind} {label}", lambda: op(F), ())
+            hold(f"1D {kind} {label}", F.coeffs, plain(pc1), scale=scale1)
+            F = S.copy()
+            time_call(f"1D {kind} {label} {B1_SIGNALS}x{B1_N} {B1_WNAME} {B1_LEVELS} levels",
+                      lambda: op(F), card)
+        for label, got, want in (("norm_l21", S.norm_l21(), ops.norm_l21(pc1)),
+                                 ("noise_sigma", S.noise_sigma(), ops.noise_sigma(pc1)),
+                                 ("universal_threshold", S.universal_threshold(),
+                                  ops.universal_threshold(pc1))):
+            hold_value(f"1D {kind} {label}", got, want)
+        F, H = S.copy(), S.copy()
+        check(F.add_wavelet(H, 0.5) == 0, "operators: 1D add_wavelet")
+        hold(f"1D {kind} add_wavelet", F.coeffs, ops.add_coeffs(pc1, pc1, 0.5), scale=scale1)
+        check(torch.equal(S.circshift(0, 77, inplace=False), torch.roll(xs, 77, -1)),
+              "operators: 1D circshift")
+        check(torch.equal(S.get_coeff(B1_LEVELS, copy=False), S.coeffs.details[-1]),
+              "operators: 1D get_coeff")
+        F = S.copy()
+        F.group_soft_threshold(b)
+        out = counted(f"1D {kind} inverse after group_soft_threshold", F.inverse, {inv_k})
+        pt = ops.group_soft_threshold(pc1, b)
+        hold(f"1D {kind} inverse after group_soft_threshold", out,
+             plain_iswt1d(pt, w8) if swt else plain_idwt1d(pt, w8, B1_N))
+
+    # -- Haar on the card: the level kernels (the butterflies are the CPU's)
+    hw = get_wavelet("haar")
+    Hh = Wavelets(x, wname="haar", levels=LEVELS, device=dev)
+    hc = counted("Haar 2D forward on the card", Hh.forward,
+                 dwt2d_kernels(N, 2, LEVELS) & {"fwd_level_2d", "fwd_tail_2d"})
+    hold("Haar 2D forward", hc, plain_dwt2d(x, hw, LEVELS))
+    hy = counted("Haar 2D inverse on the card", Hh.inverse,
+                 dwt2d_kernels(N, 2, LEVELS) & {"inv_level_2d", "inv_tail_2d"})
+    hold("Haar 2D roundtrip", hy, x, ROUNDTRIP_ATOL / 255.0)
+    Hs = Wavelets(xs, wname="haar", levels=B1_LEVELS, ndim=1, device=dev)
+    hc1 = counted("Haar 1D forward on the card", Hs.forward, {"fwd_level_1d"})
+    hold("Haar 1D forward", hc1, plain_dwt1d(xs, hw, B1_LEVELS))
+    hy1 = counted("Haar 1D inverse on the card", Hs.inverse, {"inv_level_1d"})
+    hold("Haar 1D inverse", hy1, plain_idwt1d(hc1, hw, B1_N))
+    time_call(f"Haar 2D roundtrip {N}x{N} {LEVELS} levels",
+              lambda: (Hh.forward(), Hh.inverse()), card)
+
+    # -- demo.main, scenarios 1-3, on the 2048^2 image as a .dat file
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "img.dat")
+        write_dat(path, dwt_img)
+        common = [path, "--nr", str(N), "--nc", str(N), "--wavelet", WNAME, "--levels",
+                  str(LEVELS), "--beta", str(BETA)]
+        fwd_only = dwt_k & {"fwd_level_2d", "fwd_tail_2d"}
+        for scenario, kern in (("1", fwd_only), ("2", dwt_k), ("3", dwt_k)):
+            out_path = os.path.join(tmp, f"res{scenario}.dat")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = counted(f"demo scenario {scenario}", lambda: demo.main(
+                    common + ["--scenario", scenario, "--out", out_path]), kern)
+            text = buf.getvalue()
+            check(rc == 0 and f"Running on device : cuda:{torch.cuda.get_device_name(dev)}"
+                  in text, f"operators: demo scenario {scenario}: rc {rc}, output {text!r}")
+            res = torch.from_numpy(np.fromfile(out_path, np.float32)).to(dev)
+            if scenario == "1":
+                hold("demo scenario 1 (approximation)", res.reshape(pc.approx.shape), pc.approx)
+            elif scenario == "2":
+                err = float((res.reshape(N, N) - x).abs().max())
+                print(f"operators: demo scenario 2 max|y - x| {err:.3e} (limit "
+                      f"{ROUNDTRIP_ATOL})", flush=True)
+                check(err <= ROUNDTRIP_ATOL, "operators: demo scenario 2 roundtrip")
+            else:
+                hold("demo scenario 3", res.reshape(N, N),
+                     plain_idwt2d(ops.soft_threshold(pc, BETA), wav, (N, N)))
 
 
 if __name__ == "__main__":

@@ -11,29 +11,42 @@ it is), with the same module names:
   plain reference path (``conv``)
 * ``kernels``  — hand-written CUDA kernels for Hopper (sm_90a), their
   plain PyTorch versions, launch counters and autograd Functions
-* ``ops``      — soft/hard/garrote thresholds, norms (``thresholded_norm1``),
-  circular shift
-* ``models``   — the denoising step, DWT and TI (SWT)
+* ``ops``      — soft, hard, garrote, group and firm thresholds, the L2
+  shrink and the L-infinity projection, the norms (``norm1``, ``norm2sq``,
+  ``norm_l21`` and their thresholded forms), the coefficient axpy, circular
+  shifts and the threshold estimators (noise sigma, universal, BayesShrink,
+  SureShrink)
+* ``models``   — the denoising step (DWT and TI), ``auto_denoise``,
+  ``cycle_spin_denoise`` and the (F)ISTA solver ``ista``
 * ``api``      — the stateful ``Wavelets`` facade
-* ``utils``    — numpy conversions to and from the JAX package
+* ``utils``    — raw ``.dat`` I/O, coefficient checkpoints in the JAX
+  package's ``.npz`` layout, numpy conversions to and from it
+* ``demo``     — the reference demo's scenarios 1-3
+  (``python -m pdwt_tpu_torch.demo``)
 
 The port covers the 2D separable periodization DWT, the 2D stationary
-transform with its TI-denoise step (the threshold fused into the inverse),
-the batched 1D DWT and SWT (``Wavelets(ndim=1)``) and the non-separable 2D
-DWT and SWT (``Wavelets(do_separable=False)``), in the exact tier and the
-precision tiers (``mixed``, ``bf16-fast``, ``bf16-balanced``,
-``bf16-accurate``; ``precision=`` on every entry point, or
-``precision_scope``), on eighteen CUDA kernels.  Importing the package
-needs no GPU and builds nothing; the CUDA kernels are compiled at their
-first launch.
+transform with its TI-denoise step (the threshold fused into the
+inverse), the batched 1D DWT and SWT
+(``Wavelets(ndim=1)``) and the non-separable 2D DWT and SWT
+(``Wavelets(do_separable=False)``), in the exact tier and the precision
+tiers (``mixed``, ``bf16-fast``, ``bf16-balanced``, ``bf16-accurate``;
+``precision=`` on every entry point, or ``precision_scope``), on eighteen
+CUDA kernels, and the reference's whole operator set on them.  Boundary
+modes, 3D, the other transform families and sharding come later (ROADMAP
+queue 1).  Importing the package needs no GPU and builds nothing; the CUDA
+kernels are compiled at their first launch.
 """
-from .api import Wavelets
+from . import core, filters, models, ops, utils
+from .api import Wavelets, WaveletSpec
 from .core.precision import TIERS, precision_scope
 from .core.nonseparable import dwt2d_ns, idwt2d_ns, iswt2d_ns, swt2d_ns
 from .core.separable import (Coeffs1D, Coeffs2D, dwt1d, dwt2d, idwt1d, idwt2d, iswt1d,
                              iswt2d, iswt2d_denoise, swt1d, swt2d)
-from .filters import get_wavelet, quad_filters
+from .filters import (Wavelet, get_wavelet, list_wavelets, make_custom_wavelet, quad_filters,
+                      register_wavelet)
 
-__all__ = ["Wavelets", "get_wavelet", "quad_filters", "dwt2d", "idwt2d", "swt2d", "iswt2d",
-           "iswt2d_denoise", "Coeffs2D", "dwt1d", "idwt1d", "swt1d", "iswt1d", "Coeffs1D",
-           "dwt2d_ns", "idwt2d_ns", "swt2d_ns", "iswt2d_ns", "TIERS", "precision_scope"]
+__all__ = ["Wavelets", "WaveletSpec", "Wavelet", "get_wavelet", "list_wavelets",
+           "make_custom_wavelet", "register_wavelet", "quad_filters", "dwt2d", "idwt2d",
+           "swt2d", "iswt2d", "iswt2d_denoise", "Coeffs2D", "dwt1d", "idwt1d", "swt1d",
+           "iswt1d", "Coeffs1D", "dwt2d_ns", "idwt2d_ns", "swt2d_ns", "iswt2d_ns", "TIERS",
+           "precision_scope", "core", "filters", "models", "ops", "utils"]

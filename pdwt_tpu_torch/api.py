@@ -3,20 +3,29 @@
 The port covers one 2D image or a batch of 1D signals (``ndim=1``, or a
 1D array, or ``nr == 1``), the separable and (2D, ``do_separable=False``)
 non-separable periodization DWT and SWT (``do_swt=True``), and the
-precision tiers (``precision=``): construction with level clamping,
-``forward``, ``inverse``, ``soft_threshold``, ``hard_threshold``,
-``garrote_threshold``, ``norm1``, ``norm2sq``, ``run_denoise`` (the whole
-denoise step, with the threshold fused into the 2D SWT inverse; separable
-only), ``set_filters_forward`` / ``set_filters_inverse`` (two filters, or
-four quads when non-separable), ``get_image``, ``set_image`` and cycle
-spinning (2D).  Other flags raise ``NotImplementedError`` naming the
-ROADMAP item that adds them.
+precision tiers (``precision=``), with the reference's whole method set:
+``forward``, ``inverse``, the thresholds (``soft_threshold``,
+``hard_threshold``, ``garrote_threshold``, ``group_soft_threshold``,
+``firm_threshold``, ``bayes_shrink``), ``shrink`` and ``proj_linf``, the
+norms (``norm1``, ``norm2sq``, ``norm_l21``) and estimators
+(``noise_sigma``, ``universal_threshold``), ``run_denoise`` (the whole
+denoise step, an elementwise threshold fused into the 2D SWT inverse;
+separable only), ``add_wavelet``, ``circshift``, ``copy``, ``get_coeff`` /
+``set_coeff`` on the reference's flat numbering, ``get_image`` /
+``set_image``, ``set_filters_forward`` / ``set_filters_inverse`` (two
+filters, or four quads when non-separable), ``info`` /
+``print_informations`` and cycle spinning (2D).  Haar runs the same
+separable transforms as any other filter (the butterflies of
+``core/haar.py`` are public functions, not a route of the facade).
+Boundary modes and 3D raise
+``NotImplementedError`` naming the ROADMAP item that adds them.
 
 The image and coefficients are tensors on one device: the device of an
 image given as a tensor, else ``device=``, which defaults to the CUDA card
 (without one, ``device="cpu"`` must be asked for).  The facade never moves
-a tensor between devices; ``get_image()`` copies to a host numpy array
-only when asked (``copy=True``).
+a tensor between devices; ``get_image()`` and ``get_coeff()`` copy to a
+host numpy array only when asked (``copy=True``; a bf16 band comes out as
+float32, which holds it exactly).
 
 Precision: ``precision=None`` keeps the environment defaults ("auto");
 ``dtype=None`` means bf16 under a ``bf16-*`` tier, else float32; every
@@ -24,6 +33,7 @@ transform the facade runs runs inside ``precision_scope`` of its tier.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import enum
 import warnings
@@ -39,7 +49,7 @@ from .core.separable import (Coeffs1D, Coeffs2D, all_periodization, dwt1d, dwt2d
                              idwt2d, iswt1d, iswt2d, iswt2d_denoise, swt1d, swt2d)
 from .core.shapes import coeff_shapes_1d, coeff_shapes_2d, max_level
 from .filters import Wavelet, get_wavelet, make_custom_wavelet, quad_filters
-from .utils.convert import tensor_from_numpy, tensor_to_numpy
+from .utils.convert import default_device, tensor_from_numpy, tensor_to_numpy
 
 
 class WState(enum.Enum):
@@ -69,17 +79,6 @@ class WaveletSpec:
 
 def _later(what: str, item: int):
     return NotImplementedError(f"{what} comes with ROADMAP queue 1, item {item}")
-
-
-def _default_device(device) -> torch.device:
-    """``device``, or the CUDA card; never the CPU unless asked for."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("Wavelets runs on the CUDA card unless device= names another "
-                           "device, and torch finds no CUDA card here; pass device=\"cpu\" "
-                           "to run on the CPU")
-    return torch.device("cuda")
 
 
 def _same_device(t: torch.Tensor, device: torch.device) -> bool:
@@ -123,7 +122,7 @@ class Wavelets:
                                      "move it first")
                 img = img.to(dtype=dtype)
             else:
-                img = tensor_from_numpy(img, _default_device(device), dtype)
+                img = tensor_from_numpy(img, default_device(device), dtype)
             if img.ndim == 1:
                 img = img[None, :]
                 ndim = 1
@@ -138,7 +137,7 @@ class Wavelets:
         elif nr is None or nc is None:
             raise ValueError("provide either an image or (nr, nc)")
         else:
-            img = torch.zeros((nr, nc), dtype=dtype, device=_default_device(device))
+            img = torch.zeros((nr, nc), dtype=dtype, device=default_device(device))
 
         if levels < 1:
             warnings.warn("cannot initialize wavelet coefficients with nlevels < 1; "
@@ -205,6 +204,20 @@ class Wavelets:
         self._coeffs = value
         self.state = WState.FORWARD
 
+    def copy(self) -> "Wavelets":
+        """A deep copy: its own image, coefficients and shift generator."""
+        w = object.__new__(Wavelets)
+        w.__dict__.update(self.__dict__)
+        w.d_image = self.d_image.clone()
+        w._coeffs = type(self._coeffs)(self._coeffs.approx.clone(), tuple(
+            d.clone() if isinstance(d, torch.Tensor) else tuple(t.clone() for t in d)
+            for d in self._coeffs.details))
+        w._rng = copy.deepcopy(self._rng)
+        return w
+
+    def __copy__(self) -> "Wavelets":
+        return self.copy()
+
     def _check_not_inverse(self, action: str) -> bool:
         if self.state == WState.INVERSE:
             warnings.warn(f"cannot {action}, as the coefficients were modified "
@@ -270,7 +283,8 @@ class Wavelets:
         JAX facade does.  Returns ``(denoised,
         norm1)`` as tensors on the facade's device and leaves the facade's
         image and coefficients as they were; a shift is drawn as in
-        :meth:`forward`."""
+        :meth:`forward`.  ``mode`` is soft, hard, group or garrote; group
+        is never fused."""
         from .models.denoiser import _THRESH, check_mode
 
         check_mode(mode)
@@ -283,7 +297,7 @@ class Wavelets:
             sr, sc = self._draw_shifts()
             img = ops.circshift2d(img, sr, sc)
         c = self._analysis(img)
-        if s.do_swt and s.ndim != 1:
+        if s.do_swt and s.ndim != 1 and mode in ops.THR_ELEM:
             n1 = ops.thresholded_norm1(c, beta, mode=mode, normalize=normalize,
                                        do_thresh_appcoeffs=do_thresh_appcoeffs)
             with self._tier():
@@ -331,6 +345,52 @@ class Wavelets:
                           normalize: bool = False) -> None:
         self._threshold(ops.garrote_threshold, beta, do_thresh_appcoeffs, normalize)
 
+    def group_soft_threshold(self, beta, do_thresh_appcoeffs: bool = False,
+                             normalize: bool = False) -> None:
+        """Group-lasso soft threshold over each level's bands (``ops``)."""
+        self._threshold(ops.group_soft_threshold, beta, do_thresh_appcoeffs, normalize)
+
+    def firm_threshold(self, beta, beta2, do_thresh_appcoeffs: bool = False,
+                       normalize: bool = False) -> None:
+        """Firm (semisoft) threshold with knees ``beta`` < ``beta2``."""
+        if not self._check_not_inverse("threshold coefficients"):
+            return
+        self._coeffs = ops.firm_threshold(self._coeffs, beta, beta2,
+                                          do_thresh_appcoeffs=do_thresh_appcoeffs,
+                                          normalize=normalize)
+        self.state = WState.THRESHOLD
+
+    def shrink(self, beta, do_thresh_appcoeffs: bool = True) -> None:
+        """L2 proximal operator: scale by 1 / (1 + beta)."""
+        if not self._check_not_inverse("shrink coefficients"):
+            return
+        self._coeffs = ops.shrink(self._coeffs, beta, do_thresh_appcoeffs=do_thresh_appcoeffs)
+        self.state = WState.THRESHOLD
+
+    def proj_linf(self, beta, do_thresh_appcoeffs: bool = True) -> None:
+        """Projection onto the L-infinity ball of radius ``beta``."""
+        if not self._check_not_inverse("project coefficients"):
+            return
+        self._coeffs = ops.proj_linf(self._coeffs, beta, do_thresh_appcoeffs=do_thresh_appcoeffs)
+        self.state = WState.THRESHOLD
+
+    def noise_sigma(self) -> float:
+        """Robust MAD noise estimate from the finest diagonal band."""
+        return float(ops.noise_sigma(self._coeffs))
+
+    def universal_threshold(self) -> float:
+        """VisuShrink sigma sqrt(2 ln N) of the current coefficients."""
+        return float(ops.universal_threshold(self._coeffs))
+
+    def bayes_shrink(self, do_thresh_appcoeffs: bool = False) -> None:
+        """Soft threshold at the BayesShrink thresholds of each band, which
+        stay on the device."""
+        if not self._check_not_inverse("threshold coefficients"):
+            return
+        self._coeffs = ops.soft_threshold(self._coeffs, ops.bayes_thresholds(self._coeffs),
+                                          do_thresh_appcoeffs=do_thresh_appcoeffs)
+        self.state = WState.THRESHOLD
+
     def set_filters_forward(self, filtername: str, filter1, filter2, filter3=None,
                             filter4=None) -> int:
         """Custom analysis filters: (lo, hi) for the separable transform,
@@ -376,6 +436,46 @@ class Wavelets:
     def norm2sq(self) -> float:
         return float(ops.norm2sq(self._coeffs))
 
+    def norm_l21(self, do_thresh_appcoeffs: bool = False) -> float:
+        """Group-lasso (L2,1) norm over ``group_soft_threshold``'s groups."""
+        return float(ops.norm_l21(self._coeffs, do_thresh_appcoeffs=do_thresh_appcoeffs))
+
+    def circshift(self, sr: int, sc: int, inplace: bool = True):
+        """Circular shift of the image (the row shift is ignored in 1D).
+        ``inplace=False`` returns the shifted image and leaves the facade as
+        it was."""
+        if self.spec.ndim == 1:
+            shifted = ops.circshift1d(self.d_image, sc)
+        else:
+            shifted = ops.circshift2d(self.d_image, sr, sc)
+        if inplace:
+            self.d_image = shifted
+            return None
+        return shifted
+
+    def add_wavelet(self, other: "Wavelets", alpha=1.0) -> int:
+        """Coefficient axpy, self += alpha * other: 0 when done, 1 (with a
+        warning) when either operand was just inverted; ValueError when the
+        two are not the same transform."""
+        s, o = self.spec, other.spec
+        if s.nlevels != o.nlevels or s.wname.lower() != o.wname.lower():
+            raise ValueError("add_wavelet(): right operand is not the same transform "
+                             "(wname, level)")
+        if self.state == WState.INVERSE or other.state == WState.INVERSE:
+            warnings.warn("add_wavelet(): this operation makes no sense when wavelet "
+                          "has just been inverted")
+            return 1
+        if (s.nr, s.nc, s.ndim) != (o.nr, o.nc, o.ndim):
+            raise ValueError("add_wavelet(): operands do not have the same geometry")
+        if s.do_swt != o.do_swt:
+            raise ValueError("add_wavelet(): operands should both use SWT or DWT")
+        if (s.do_cycle_spinning and o.do_cycle_spinning
+                and (self.current_shift_r, self.current_shift_c)
+                != (other.current_shift_r, other.current_shift_c)):
+            raise ValueError("add_wavelet(): operands do not have the same current shift")
+        self._coeffs = ops.add_coeffs(self._coeffs, other._coeffs, alpha)
+        return 0
+
     def get_image(self, copy: bool = True):
         """A host numpy copy of the image (``copy=True``), or the tensor
         itself on its device."""
@@ -395,6 +495,115 @@ class Wavelets:
             img = tensor_from_numpy(img, self.device, s.dtype)
         self.d_image = img.reshape(s.nr, s.nc)
         self.state = WState.INIT
+
+    def _coeff_ref(self, num: int):
+        """The reference's flat numbering: 0 the approximation, then H, V, D
+        of level 1 (1, 2, 3), of level 2 (4, 5, 6), ... in 2D; D of level 1,
+        2, ... (1, 2, ...) in 1D.  Returns (level, band or None), level None
+        for the approximation."""
+        s = self.spec
+        if num == 0:
+            return None, None
+        if s.ndim == 2:
+            level, band = divmod(num - 1, 3)
+            if level >= s.nlevels:
+                raise IndexError(f"coefficient {num} out of range")
+            return level, band
+        if num > s.nlevels:
+            raise IndexError(f"coefficient {num} out of range")
+        return num - 1, None
+
+    def get_coeff(self, num: int, copy: bool = True):
+        """One band by the flat numbering: a host numpy copy, or with
+        ``copy=False`` the tensor itself on its device.  None, with a
+        warning, after inverse()."""
+        if self.state == WState.INVERSE:
+            warnings.warn("get_coeff(): inverse() has been performed, the coefficients "
+                          "do not make sense anymore")
+            return None
+        level, band = self._coeff_ref(num)
+        c = self._coeffs
+        out = c.approx if level is None else (c.details[level] if band is None
+                                              else c.details[level][band])
+        return tensor_to_numpy(out) if copy else out
+
+    def set_coeff(self, coeff, num: int) -> None:
+        """Replace one band by the flat numbering, cast to that band's dtype
+        (the bf16 tiers carry a float32 approximation) and shape.  A tensor
+        must lie on the facade's device."""
+        level, band = self._coeff_ref(num)
+        c = self._coeffs
+        old = c.approx if level is None else (c.details[level] if band is None
+                                              else c.details[level][band])
+        if isinstance(coeff, torch.Tensor):
+            if not _same_device(coeff, self.device):
+                raise ValueError(f"coeff lies on {coeff.device}, the facade on "
+                                 f"{self.device}; move it first")
+            coeff = coeff.to(dtype=old.dtype)
+        else:
+            coeff = tensor_from_numpy(coeff, self.device, old.dtype)
+        coeff = coeff.reshape(old.shape)
+        if level is None:
+            self._coeffs = type(c)(coeff, c.details)
+            return
+        details = list(c.details)
+        if band is None:
+            details[level] = coeff
+        else:
+            details[level] = tuple(coeff if j == band else t
+                                   for j, t in enumerate(details[level]))
+        self._coeffs = type(c)(c.approx, tuple(details))
+
+    def info(self) -> dict:
+        """The transform's configuration, its estimated memory footprint (the
+        reference's formula) and the device."""
+        s = self.spec
+        npix = s.nr * s.nc
+        if not s.do_swt:
+            mem = 5 * npix * s.dtype.itemsize
+        elif s.ndim == 2:
+            mem = (3 * s.nlevels + 4) * npix * s.dtype.itemsize
+        else:
+            mem = (s.nlevels + 4) * npix * s.dtype.itemsize
+        dev = self.device
+        return {
+            "dims": (s.nr, s.nc) if s.ndim == 2 else s.nc,
+            "batched_1d": s.ndim == 1 and s.nr > 1,
+            "wavelet": s.wname,
+            "levels": s.nlevels,
+            "stationary": s.do_swt,
+            "cycle_spinning": s.do_cycle_spinning,
+            "separable": s.do_separable,
+            "dtype": s.dtype,
+            "mode": "periodization",
+            "precision": s.precision,
+            "estimated_memory_mb": mem / 1e6,
+            "device": (f"cuda:{torch.cuda.get_device_name(dev)}" if dev.type == "cuda"
+                       else dev.type),
+            "state": self.state.value,
+        }
+
+    def print_informations(self) -> None:
+        i = self.info()
+        print("------------- Wavelet transform infos ------------")
+        if self.spec.ndim == 2:
+            print(f"Data dimensions : {i['dims']}")
+        elif i["batched_1d"]:
+            print(f"Data dimensions : ({self.spec.nr}, {self.spec.nc}) "
+                  "[batched 1D transform]")
+        else:
+            print(f"Data dimensions : {self.spec.nc}")
+        yn = {False: "no", True: "yes"}
+        print(f"Wavelet name : {i['wavelet']}")
+        print(f"Number of levels : {i['levels']}")
+        print(f"Stationary WT : {yn[i['stationary']]}")
+        print(f"Cycle spinning : {yn[i['cycle_spinning']]}")
+        print(f"Separable transform : {yn[i['separable']]}")
+        print(f"Boundary mode : {i['mode']}")
+        print(f"Precision tier : {i['precision']}")
+        print(f"Estimated memory footprint : {i['estimated_memory_mb']:.2f} MB")
+        print(f"Running on device : {i['device']}")
+        print("--------------------------------------------------")
 
     def __repr__(self):
         s = self.spec

@@ -9,7 +9,9 @@ of that package).
   rbio1.1 / rbior1.1 resolve to haar;
 * a ``modwt-`` prefix resolves the base name and rescales it into the
   MODWT-normalised bank;
-* custom filters of any length are accepted;
+* custom filters of any length are accepted (``MAX_FILTER_WIDTH`` only
+  records the reference's 40-tap bound), and ``register_wavelet`` makes one
+  known by name;
 * ``quad_filters`` builds the non-separable transform's outer-product
   quads, and ``factor_quads`` recognises jointly separable quads.
 """
@@ -20,6 +22,10 @@ import os
 from typing import Dict, Tuple
 
 import numpy as np
+
+#: the reference's custom-filter bound (a CUDA constant buffer); the port
+#: takes longer filters, as the JAX package does
+MAX_FILTER_WIDTH = 40
 
 _DATA_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_data.npz")
 
@@ -69,6 +75,7 @@ class Wavelet:
 
 
 _BUILTIN: Dict[str, Wavelet] = {}
+_USER: Dict[str, Wavelet] = {}
 
 
 def _load_builtin() -> None:
@@ -81,15 +88,18 @@ def _load_builtin() -> None:
 
 
 def list_wavelets() -> Tuple[str, ...]:
-    """All built-in wavelet names (72 banks) and the haar aliases."""
+    """All known wavelet names: the 72 built-in banks, the haar aliases and
+    those registered with :func:`register_wavelet`."""
     _load_builtin()
-    return tuple(sorted(set(_BUILTIN) | set(_HAAR_ALIASES)))
+    return tuple(sorted(set(_BUILTIN) | set(_HAAR_ALIASES) | set(_USER)))
 
 
 def get_wavelet(name: str) -> Wavelet:
     """Case-insensitive lookup; ``modwt-<name>`` gives the MODWT bank."""
     _load_builtin()
     key = name.lower()
+    if key in _USER:
+        return _USER[key]
     if key.startswith("modwt-"):
         return modwt_wavelet(get_wavelet(key[len("modwt-"):]))
     if key in _HAAR_ALIASES:
@@ -105,6 +115,13 @@ def get_wavelet(name: str) -> Wavelet:
 def make_custom_wavelet(name: str, dec_lo, dec_hi, rec_lo, rec_hi) -> Wavelet:
     """A custom filter bank of any length."""
     return Wavelet(name.lower(), dec_lo, dec_hi, rec_lo, rec_hi)
+
+
+def register_wavelet(w: Wavelet) -> None:
+    """Make ``w`` known to :func:`get_wavelet` under its lower-cased name
+    (ahead of a built-in bank of that name)."""
+    _load_builtin()
+    _USER[w.name.lower()] = w
 
 
 def modwt_wavelet(wav) -> Wavelet:

@@ -1,7 +1,9 @@
-"""Wavelet denoising step (counterpart of ``denoise_step`` in
-``pdwt_tpu/models/denoiser.py``): random circular shift, DWT or SWT,
-threshold, norm, inverse, unshift.  On the SWT branch the TI-denoise step
-fuses the threshold into the inverse."""
+"""Wavelet denoising (counterpart of ``pdwt_tpu/models/denoiser.py``):
+the denoising step (random circular shift, DWT or SWT, threshold, norm,
+inverse, unshift; on the SWT branch an elementwise threshold fuses into
+the inverse), the fully data-driven ``auto_denoise`` and the averaged
+``cycle_spin_denoise``.  Shifts come from a ``torch.Generator`` where JAX
+takes a PRNG key."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -11,15 +13,24 @@ import torch
 from .. import ops
 from ..core.separable import all_periodization, dwt2d, idwt2d, iswt2d, iswt2d_denoise, swt2d
 from ..filters import get_wavelet
+from ..ops.threshold import THR_ELEM
 from ..ops.threshold import THRESHOLD_OPS as _THRESH
 
 
 def check_mode(mode: str) -> None:
-    """Raise on a threshold type the port does not have yet."""
+    """Raise on a threshold type neither package has."""
     if mode not in _THRESH:
+        raise ValueError(f"unknown mode {mode!r}; pick from {sorted(_THRESH)}")
+
+
+def _check_boundary(boundary) -> None:
+    if not all_periodization(boundary):
         raise NotImplementedError(
-            f"threshold mode {mode!r}: the port has {sorted(_THRESH)}; the "
-            "others come with ROADMAP queue 1, item 4")
+            f"boundary={boundary!r} comes with ROADMAP queue 1, item 10")
+
+
+def _resolve(wav):
+    return get_wavelet(wav) if isinstance(wav, str) else wav
 
 
 def denoise_step(img: torch.Tensor, generator: Optional[torch.Generator], wav,
@@ -30,23 +41,20 @@ def denoise_step(img: torch.Tensor, generator: Optional[torch.Generator], wav,
 
     ``generator=None`` disables cycle spinning.  Otherwise the row and
     column shifts are drawn, in that order, uniformly in [0, Nr) and
-    [0, Nc) from ``generator``.  ``mode`` is the threshold type.  With
-    ``swt=True`` and a scalar ``beta`` the threshold runs inside the
+    [0, Nc) from ``generator`` (``ops.random_shift``).  ``mode`` is the
+    threshold type (soft, hard, group or garrote).  With ``swt=True``, an
+    elementwise mode and a scalar ``beta`` the threshold runs inside the
     inverse's kernel and the norm comes from the un-thresholded
     coefficients (``ops.thresholded_norm1``): the thresholded tree is never
     built."""
-    if not all_periodization(boundary):
-        raise NotImplementedError(
-            f"boundary={boundary!r} comes with ROADMAP queue 1, item 10")
+    _check_boundary(boundary)
     check_mode(mode)
-    wav = get_wavelet(wav) if isinstance(wav, str) else wav
+    wav = _resolve(wav)
     nr, nc = img.shape[-2:]
     if generator is not None:
-        draw = lambda n: int(torch.randint(0, n, (), generator=generator,
-                                           device=generator.device))
-        sr, sc = draw(nr), draw(nc)
+        sr, sc = ops.random_shift(generator, (nr, nc))
         img = ops.circshift2d(img, sr, sc)
-    if swt and not isinstance(beta, (list, tuple)):
+    if swt and mode in THR_ELEM and not isinstance(beta, (list, tuple)):
         coeffs = swt2d(img, wav, levels)
         n1 = ops.thresholded_norm1(coeffs, beta, mode=mode, normalize=normalize)
         out = iswt2d_denoise(coeffs, wav, beta, mode=mode, normalize=normalize)
@@ -61,3 +69,50 @@ def denoise_step(img: torch.Tensor, generator: Optional[torch.Generator], wav,
     if generator is not None:
         out = ops.circshift2d(out, -sr, -sc)
     return out, n1
+
+
+def _auto_betas(coeffs, method: str):
+    """A per-level (per-band) list (bayes, sure) or a 0-dim tensor
+    (universal), on the coefficients' device."""
+    if method == "bayes":
+        return list(ops.bayes_thresholds(coeffs))
+    if method == "sure":
+        return list(ops.sure_thresholds(coeffs))
+    if method == "universal":
+        return ops.universal_threshold(coeffs)
+    raise ValueError(f"unknown method {method!r}")
+
+
+def auto_denoise(img: torch.Tensor, wav, levels: int, *, method: str = "bayes",
+                 mode: str = "soft", swt: bool = False, boundary="periodization"
+                 ) -> torch.Tensor:
+    """Data-driven 2D denoise: the noise level and the thresholds come from
+    the coefficients (``method``: ``"bayes"`` per band, ``"sure"`` hybrid
+    SureShrink per band, ``"universal"`` one VisuShrink threshold), then
+    threshold and invert.  On the SWT a universal threshold with an
+    elementwise mode runs inside the inverse's kernel."""
+    _check_boundary(boundary)
+    check_mode(mode)
+    wav = _resolve(wav)
+    coeffs = (swt2d if swt else dwt2d)(img, wav, levels)
+    beta = _auto_betas(coeffs, method)
+    if swt and mode in THR_ELEM and not isinstance(beta, list):
+        return iswt2d_denoise(coeffs, wav, beta, mode=mode)
+    coeffs = _THRESH[mode](coeffs, beta)
+    if swt:
+        return iswt2d(coeffs, wav)
+    return idwt2d(coeffs, wav, tuple(img.shape[-2:]))
+
+
+def cycle_spin_denoise(img: torch.Tensor, generator: torch.Generator, wav, levels: int,
+                       beta, *, spins: int = 8, mode: str = "soft",
+                       normalize: bool = False) -> torch.Tensor:
+    """The mean of ``spins`` randomly shifted DWT denoising steps (TI
+    denoising), their shifts drawn in turn from ``generator``; summed in
+    order, then divided once, as JAX's scan does."""
+    wav = _resolve(wav)
+    acc = torch.zeros_like(img)
+    for _ in range(spins):
+        out, _ = denoise_step(img, generator, wav, levels, beta, mode=mode, normalize=normalize)
+        acc = acc + out
+    return acc / torch.full((), spins, dtype=acc.dtype, device=acc.device)

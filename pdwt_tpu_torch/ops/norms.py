@@ -1,13 +1,14 @@
-"""Norms over a whole coefficient tree, 2D or 1D (counterpart of
-``pdwt_tpu/ops/norms.py``): one 0-dim tensor on the coefficients' device,
-summed over the approximation and every detail band.  bf16 bands are
-summed in float32, as JAX does (``pdwt_tpu/ops/norms.py:27-28``).  ``norm_l21`` and the
-algebra ops come with ROADMAP queue 1, item 4."""
+"""Norms and coefficient algebra over a whole coefficient tree, 2D or 1D
+(counterpart of ``pdwt_tpu/ops/norms.py``): each norm is one 0-dim tensor
+on the coefficients' device, summed over the approximation and every
+detail band.  bf16 bands are summed in float32, as JAX does
+(``pdwt_tpu/ops/norms.py:27-28``); so are the group norms of ``norm_l21``,
+unlike the group threshold, which squares in the bands' dtype."""
 from __future__ import annotations
 
 import torch
 
-from .threshold import Coeffs, detail_bands
+from .threshold import _SQRT2, Coeffs, _const, detail_bands
 
 
 def _leaves(coeffs: Coeffs):
@@ -29,6 +30,64 @@ def norm1(coeffs: Coeffs) -> torch.Tensor:
 def norm2sq(coeffs: Coeffs) -> torch.Tensor:
     """Squared L2 norm over all subbands, approximation included."""
     return sum(torch.sum(torch.square(x.to(_accum(x)))) for x in _leaves(coeffs))
+
+
+def add_coeffs(dst: Coeffs, src: Coeffs, alpha=1.0) -> Coeffs:
+    """dst + alpha * src, band by band (the coefficient axpy).  alpha is
+    rounded to each dst band's dtype; the product and the sum take the two
+    bands' promoted dtype, as in JAX."""
+    def axpy(a, b):
+        dt = torch.promote_types(a.dtype, b.dtype)
+        al = (alpha.to(a.dtype) if isinstance(alpha, torch.Tensor)
+              else torch.tensor(alpha, dtype=a.dtype))
+        return a.to(dt) + al.to(dt) * b.to(dt)
+
+    return type(dst)(axpy(dst.approx, src.approx),
+                     tuple(axpy(a, b) if isinstance(a, torch.Tensor)
+                           else tuple(axpy(x, y) for x, y in zip(a, b))
+                           for a, b in zip(dst.details, src.details)))
+
+
+def _group_norms(coeffs: Coeffs, i: int, do_thresh_appcoeffs: bool) -> torch.Tensor:
+    """The L2 norm at each position of level i's group (its detail bands,
+    and the approximation at the coarsest level under
+    ``do_thresh_appcoeffs``), summed in float32 for bf16 bands."""
+    det = coeffs.details[i]
+    bands = (det,) if isinstance(det, torch.Tensor) else det
+    acc = _accum(bands[0])
+    norm2 = sum(torch.square(x.to(acc)) for x in bands)
+    if do_thresh_appcoeffs and i == coeffs.levels - 1:
+        norm2 = norm2 + torch.square(coeffs.approx.to(acc))
+    return torch.sqrt(norm2)
+
+
+def _approx_l1(coeffs: Coeffs) -> torch.Tensor:
+    a = coeffs.approx
+    return torch.sum(a.abs().to(_accum(a)))
+
+
+def norm_l21(coeffs: Coeffs, *, do_thresh_appcoeffs: bool = False) -> torch.Tensor:
+    """Group-lasso (L2,1) norm: the sum over positions of each level's
+    group norm, with ``group_soft_threshold``'s groups (that threshold is
+    the proximal operator of beta times this norm).  The approximation
+    joins the coarsest group under ``do_thresh_appcoeffs``, else adds its
+    L1 norm."""
+    total = 0.0
+    for i in range(coeffs.levels):
+        total = total + torch.sum(_group_norms(coeffs, i, do_thresh_appcoeffs))
+    return total if do_thresh_appcoeffs else total + _approx_l1(coeffs)
+
+
+def thresholded_norm_l21(coeffs: Coeffs, beta, *, normalize: bool = False,
+                         do_thresh_appcoeffs: bool = False) -> torch.Tensor:
+    """``norm_l21(group_soft_threshold(coeffs, beta))`` without building
+    the thresholded tree: sum max(||g|| - b, 0) over the groups g."""
+    total = 0.0
+    for i in range(coeffs.levels):
+        norm = _group_norms(coeffs, i, do_thresh_appcoeffs)
+        b = beta / (_SQRT2 ** (i + 1)) if normalize else beta
+        total = total + torch.clamp_min(norm - _const(b, norm), 0).sum()
+    return total if do_thresh_appcoeffs else total + _approx_l1(coeffs)
 
 
 def thresholded_norm1(coeffs: Coeffs, beta, *, mode: str = "soft",

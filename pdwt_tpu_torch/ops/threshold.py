@@ -10,9 +10,11 @@
   a bf16 beta on its details.
 
 ``THR_ELEM`` holds the elementwise forms, which the fused
-threshold-in-inverse kernel (``kernels/swt.py``) also applies.  The other
-thresholds of the JAX package (group, firm, linf, shrink) come with
-ROADMAP queue 1, item 4.
+threshold-in-inverse kernel (``kernels/swt.py``) also applies.  Beside
+them: the group (joint L2 over a level's bands) soft threshold, the firm
+threshold, the L-infinity projection and the L2 shrink, in JAX's dtypes
+(the group threshold squares and sums in the band's own dtype).  Every
+division is tensor by tensor (``_const``).
 """
 from __future__ import annotations
 
@@ -75,6 +77,28 @@ def beta_squared(b, x: torch.Tensor):
     return float(b * b)
 
 
+def _const(b, x: torch.Tensor) -> torch.Tensor:
+    """beta as a 0-dim tensor of ``x``'s dtype on its device (a fill, no
+    copy from the host).  A divisor must be one: PyTorch divides by a
+    number, or on the card by a CPU scalar, as a product with its
+    reciprocal, which rounds twice, and JAX divides."""
+    if isinstance(b, torch.Tensor):
+        return b.to(device=x.device, dtype=x.dtype)
+    return torch.full((), b, dtype=x.dtype, device=x.device)
+
+
+def _clip_linf(x: torch.Tensor, b) -> torch.Tensor:
+    return torch.sign(x) * torch.minimum(x.abs(), _const(b, x))
+
+
+def _firm(x: torch.Tensor, b1, b2) -> torch.Tensor:
+    """0 below b1, x above b2, a linear ramp between."""
+    b1, b2 = _const(b1, x), _const(b2, x)
+    ax = x.abs()
+    ramp = torch.sign(x) * b2 * (ax - b1) / (b2 - b1)
+    return torch.where(ax <= b1, 0.0, torch.where(ax >= b2, x, ramp))
+
+
 def _garrote(x: torch.Tensor, b) -> torch.Tensor:
     """Non-negative garrote, x * max(1 - (b/x)^2, 0).  b^2 is a 0-dim
     tensor: a number divided by a tensor would be its reciprocal times the
@@ -99,11 +123,15 @@ def detail_bands(coeffs: Coeffs):
                 yield i, j, x
 
 
+def _map_details(coeffs: Coeffs, fn) -> tuple:
+    """``fn(x, i, j)`` of every detail band, nested as the details are."""
+    return tuple(fn(det, i, None) if isinstance(det, torch.Tensor)
+                 else tuple(fn(x, i, j) for j, x in enumerate(det))
+                 for i, det in enumerate(coeffs.details))
+
+
 def _apply(fn, coeffs: Coeffs, beta, do_thresh_appcoeffs, normalize):
-    thr = lambda x, i, j: fn(x, _resolve_beta(beta, i, j, normalize))
-    details = tuple(thr(det, i, None) if isinstance(det, torch.Tensor)
-                    else tuple(thr(x, i, j) for j, x in enumerate(det))
-                    for i, det in enumerate(coeffs.details))
+    details = _map_details(coeffs, lambda x, i, j: fn(x, _resolve_beta(beta, i, j, normalize)))
     approx = coeffs.approx
     if do_thresh_appcoeffs:
         approx = fn(approx, _app_beta(beta, coeffs.levels, normalize))
@@ -129,6 +157,64 @@ def garrote_threshold(coeffs: Coeffs, beta, *, do_thresh_appcoeffs: bool = False
     return _apply(_garrote, coeffs, beta, do_thresh_appcoeffs, normalize)
 
 
+def firm_threshold(coeffs: Coeffs, beta, beta2, *, do_thresh_appcoeffs: bool = False,
+                   normalize: bool = False) -> Coeffs:
+    """Firm (semisoft) threshold (Gao & Bruce 1997): zero below ``beta``,
+    identity above ``beta2`` (> ``beta``), a linear ramp between; both
+    scalars or per-level (per-band) sequences of one structure."""
+    details = _map_details(coeffs, lambda x, i, j: _firm(
+        x, _resolve_beta(beta, i, j, normalize), _resolve_beta(beta2, i, j, normalize)))
+    approx = coeffs.approx
+    if do_thresh_appcoeffs:
+        n = coeffs.levels
+        approx = _firm(approx, _app_beta(beta, n, normalize), _app_beta(beta2, n, normalize))
+    return type(coeffs)(approx, details)
+
+
+def proj_linf(coeffs: Coeffs, beta, *, do_thresh_appcoeffs: bool = True) -> Coeffs:
+    """Projection onto the L-infinity ball of radius ``beta`` (a scalar),
+    the approximation included by default."""
+    details = _map_details(coeffs, lambda x, i, j: _clip_linf(x, beta))
+    approx = _clip_linf(coeffs.approx, beta) if do_thresh_appcoeffs else coeffs.approx
+    return type(coeffs)(approx, details)
+
+
+def shrink(coeffs: Coeffs, beta, *, do_thresh_appcoeffs: bool = True) -> Coeffs:
+    """L2 proximal operator: every band scaled by 1 / (1 + beta), formed
+    before it is cast to the band's dtype."""
+    f = 1.0 / (1.0 + beta)
+    scale = lambda x: x * _const(f, x)
+    details = _map_details(coeffs, lambda x, i, j: scale(x))
+    approx = scale(coeffs.approx) if do_thresh_appcoeffs else coeffs.approx
+    return type(coeffs)(approx, details)
+
+
+def group_soft_threshold(coeffs: Coeffs, beta, *, do_thresh_appcoeffs: bool = False,
+                         normalize: bool = False) -> Coeffs:
+    """Group-lasso soft threshold: each position of a level shrinks its
+    bands by the joint L2 norm over them, the approximation joining the
+    coarsest level's group under ``do_thresh_appcoeffs``.  ``beta`` is a
+    scalar (a number or a 0-dim tensor).  The squares are summed in the
+    bands' own dtype; where a float32 approximation joins bf16 details,
+    the factor and the details come out float32."""
+    n = coeffs.levels
+    details, approx = [], coeffs.approx
+    for i, det in enumerate(coeffs.details):
+        b = beta / (_SQRT2 ** (i + 1)) if normalize else beta
+        include_a = do_thresh_appcoeffs and i == n - 1
+        bands = (det,) if isinstance(det, torch.Tensor) else det
+        norm2 = sum(x * x for x in bands)
+        if include_a:
+            norm2 = norm2 + approx * approx
+        norm = torch.sqrt(norm2)
+        fac = torch.where(norm > 0, torch.clamp_min(1 - _const(b, norm) / norm, 0), 0.0)
+        details.append(det * fac if isinstance(det, torch.Tensor)
+                       else tuple(x * fac for x in bands))
+        if include_a:
+            approx = approx * fac
+    return type(coeffs)(approx, tuple(details))
+
+
 #: the threshold ops on a coefficient tree, by mode name
 THRESHOLD_OPS = {"soft": soft_threshold, "hard": hard_threshold,
-                 "garrote": garrote_threshold}
+                 "group": group_soft_threshold, "garrote": garrote_threshold}

@@ -31,6 +31,17 @@ def wavelet_from_arrays(obj_or_name, dec_lo=None, dec_hi=None, rec_lo=None,
                      for f in ("dec_lo", "dec_hi", "rec_lo", "rec_hi")))
 
 
+def default_device(device) -> torch.device:
+    """``device``, or the CUDA card; never the CPU unless asked for."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("the port runs on the CUDA card unless device= names another "
+                           "device, and torch finds no CUDA card here; pass device=\"cpu\" "
+                           "to run on the CPU")
+    return torch.device("cuda")
+
+
 def tensor_from_numpy(arr, device="cpu", dtype=None) -> torch.Tensor:
     """A tensor on ``device`` copied from an array-like, in ``dtype`` (None
     keeps the array's); a bfloat16 numpy array comes in bit for bit."""

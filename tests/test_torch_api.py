@@ -191,8 +191,12 @@ def test_unsupported_flags_name_their_roadmap_item():
     with pytest.raises(ValueError, match="unknown precision tier"):
         Wavelets(img, wname="db2", levels=1, precision="fast", device="cpu")
     x = torch.from_numpy(img)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        denoise_step(x, None, "db2", 1, 1.0, mode="group")
+    # the group threshold is ported: the step matches JAX's
+    out, n1 = denoise_step(x, None, "db2", 1, 40.0, mode="group")
+    jout, jn1 = jax.jit(lambda v: jdenoise_step(v, None, "db2", 1, 40.0, mode="group",
+                                                backend="fma"))(img)
+    _close(out, jout)
+    assert np.isclose(float(n1), float(jn1), rtol=NORM_RTOL, atol=0)
     with pytest.raises(NotImplementedError, match="item 10"):
         denoise_step(x, None, "db2", 1, 1.0, boundary="symmetric")
 
@@ -213,6 +217,8 @@ def test_import_needs_no_jax_and_builds_nothing():
     code = (
         "import os, sys\n"
         "import pdwt_tpu_torch\n"
+        "import pdwt_tpu_torch.demo, pdwt_tpu_torch.models.solver, pdwt_tpu_torch.ops.estimate\n"
+        "import pdwt_tpu_torch.utils.io, pdwt_tpu_torch.utils.checkpoint\n"
         "from pdwt_tpu_torch.kernels import _build\n"
         "before = set(os.listdir(_build.BUILD_DIR)) if os.path.isdir(_build.BUILD_DIR) else set()\n"
         "import numpy as np, torch\n"
