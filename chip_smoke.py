@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It builds the CUDA kernels from
-``pdwt_tpu_torch/kernels/csrc`` and drives the port's seven paths, each
+``pdwt_tpu_torch/kernels/csrc`` and drives the port's eight paths, each
 with the launch counters set to 0 just before it and read just after:
 
 * the DWT path: each of its four kernels against its plain PyTorch version
@@ -67,7 +67,18 @@ with the launch counters set to 0 just before it and read just after:
   scenarios 1-3 on a 2048x2048 ``.dat``): each result against the same
   computation on the plain route on the card, each call between a reset
   and a read of the launch counters (exactly the exact kernels its
-  transform dispatches), each call's time and device busy time.
+  transform dispatches), each call's time and device busy time;
+* the boundary modes: the padded entry points of kernels 1, 2, 7 and 8
+  against their plain versions (every mode, odd sides, signals shorter
+  than the filter, 2 to 20 taps, per-axis tuples mixing in periodization,
+  an odd-length bank's forward; timed at the paths' shapes), then the
+  2048x2048 db7 5-level symmetric roundtrip and the 1024 x 4096 sym8
+  4-level one through ``dwt2d``/``idwt2d``, ``dwt1d``/``idwt1d`` and the
+  facade, every level on the padded kernels (the launch counters), held to
+  the same route on plain versions and to the plain extension route (JAX's
+  fma formulation), timed beside it; the 2048x2048 roundtrip under each
+  other mode, ``Wavelets(mode=("symmetric", "periodization"))`` and
+  ``denoise_step(boundary="symmetric")`` at 1024x1024.
 
 The banded-product kernels redesigned for Hopper's CUDA cores (kernels 14
 and 18: ``swt_inv_level_2d_mxu``, ``ns_inv_level_2d_mxu``,
@@ -224,13 +235,20 @@ REPLACES = {
     "ns_swt_fwd_level_2d_mxu": "pdwt_tpu/kernels/ns_matmul_pallas.py:100",
     "ns_inv_level_2d_mxu": "pdwt_tpu/kernels/ns_matmul_pallas.py:206",
     "ns_swt_inv_level_2d_mxu": "pdwt_tpu/kernels/ns_matmul_pallas.py:206",
+    # the padded entry points of kernels 1, 2, 7 and 8 (the boundary modes)
+    "fwd_level_2d_padded": "pdwt_tpu/kernels/separable_pallas.py:355",
+    "inv_level_2d_padded": "pdwt_tpu/kernels/separable_pallas.py:498",
+    "fwd_level_1d_padded": "pdwt_tpu/kernels/swt_pallas.py:995",
+    "inv_level_1d_padded": "pdwt_tpu/kernels/swt_pallas.py:1018",
 }
 
 
 def _source(name: str) -> str:
     """The file that holds the kernel's body (kernel 6 runs 14's, 12 runs
     2's, 10 and 8 run 16's, 11, 5 and 1 run 13's, 9 and 7 run 15's; the
-    tails 3 and 4 run 1's and 2's level by level, 3 in swt_matmul.cu)."""
+    tails 3 and 4 run 1's and 2's level by level, 3 in swt_matmul.cu; the
+    padded entry points run their kernel's)."""
+    name = name.removesuffix("_padded")
     if name.startswith("ns_"):
         return "ns_matmul.cu"
     if name == "inv_level_2d_mxu":
@@ -409,7 +427,9 @@ REDESIGNED = ("swt_inv_level_2d_mxu", "ns_inv_level_2d_mxu", "ns_swt_inv_level_2
               "ns_fwd_level_2d_mxu", "ns_swt_fwd_level_2d_mxu", "swt_fwd_level_2d_mxu",
               "fwd_level_1d_mxu", "swt_fwd_level_1d_mxu", "inv_level_2d_mxu", "swt_inv_level_1d",
               "fwd_level_2d_mxu", "swt_fwd_level_1d", "inv_level_1d", "swt_fwd_level_2d",
-              "fwd_level_2d", "fwd_level_1d", "fwd_tail_2d", "inv_tail_2d")
+              "fwd_level_2d", "fwd_level_1d", "fwd_tail_2d", "inv_tail_2d",
+              "fwd_level_2d_padded", "inv_level_2d_padded", "fwd_level_1d_padded",
+              "inv_level_1d_padded")
 
 
 def run_cases(cases, report, card) -> None:
@@ -1253,6 +1273,7 @@ def main() -> None:
     ti_tier_phase(dev, card, report, launches, ti_img, gen)
     ns_phase(dev, card, report, launches, dwt_img, ti_img, gen)
     operators_phase(dev, card, dwt_img, ti_img, sig)
+    modes_phase(dev, card, report, launches, dwt_img, rt_sig, gen)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
@@ -2865,6 +2886,367 @@ def operators_phase(dev, card, dwt_img, ti_img, sig) -> None:
             else:
                 hold("demo scenario 3", res.reshape(N, N),
                      plain_idwt2d(ops.soft_threshold(pc, BETA), wav, (N, N)))
+
+
+# -- the boundary modes (queue 1 item 10): the padded entry points of kernels
+# 1, 2, 7 and 8 on the mode route of the DWT path's image and the batched 1D
+# path's signals
+MODES_8 = ("zero", "constant", "symmetric", "reflect", "periodic", "smooth", "antisymmetric",
+           "antireflect")
+MIXED_MODE = ("symmetric", "periodization")
+# a mode path against the same route on the padded kernels' plain versions:
+# PATH_RTOL; against the plain extension route (JAX's fma formulation):
+# MODE_ROUTE_RTOL, since the card's route extends both axes before it
+# filters and the plain one extends each axis after the other's filtering,
+# and where the extension is arithmetic (smooth, antireflect) the two round
+# differently: 1.1e-5 of the largest coefficient for smooth at the 2048^2
+# db7 cell on the CPU.  An arithmetic extension is held to MODE_ROUTE_RTOL
+# against the same route too: its corners extrapolate along both axes,
+# values far above the outputs, which the kernel sums rows first and the
+# plain version columns first, and five levels compound it (2.4e-5 of the
+# largest coefficient for smooth on an H100).  The scale of a synthesis is
+# the largest of its inputs and outputs: its float32 roundoff is relative
+# to its largest input
+MODE_ROUTE_RTOL = 1e-4
+ARITHMETIC_MODES = ("smooth", "antireflect")
+# the roundtrip on [0, 255] data: ROUNDTRIP_ATOL, or MODE_RT_REL of the
+# largest coefficient where that is more.  Smooth extrapolates hlen - 2
+# samples along the edge slope at every level, so its coefficients reach
+# 8.3e8 at the 2048^2 db7 cell and its float32 roundtrip 1.0e-2 (plain
+# route) and 2.4e-2 (the padded route) on the CPU, 1.2e-11 and 2.9e-11 of
+# that; every other mode keeps ROUNDTRIP_ATOL
+MODE_RT_REL = 1e-10
+
+
+def plain_mode_dwt2d(t, w, levels, mode, padded=False):
+    """The mode route by plain PyTorch on the card, level by level: the conv
+    passes with mode= (JAX's fma formulation, the CPU's route), or with
+    ``padded`` the card's route on the padded kernels' plain versions."""
+    from pdwt_tpu_torch import Coeffs2D
+    from pdwt_tpu_torch.core import conv, modes
+    from pdwt_tpu_torch.core import separable as sep
+    from pdwt_tpu_torch.kernels import separable as K
+
+    mode_r, mode_c = modes.per_axis(mode, 2)
+    dec, hlen = (w.dec_lo, w.dec_hi), w.hlen
+    a, dets = t[None, None], []
+    for _ in range(levels):
+        if padded:
+            xp = sep.fwd_mode_pad(sep.fwd_mode_pad(a[0], -1, hlen, mode_c), -2, hlen, mode_r)
+            z = torch.stack(K.fwd_level_2d_padded_ref(xp, *dec), 1)
+        else:
+            z = conv.analysis_pass(a, dec, axis=-1, mode=mode_c)
+            z = conv.analysis_pass(z, dec, axis=-2, mode=mode_r)
+        a = z[:, :1]
+        dets.append(tuple(z[0, k] for k in (1, 2, 3)))
+    return Coeffs2D(a[0, 0], tuple(dets))
+
+
+def plain_mode_idwt2d(c, w, shape, mode, padded=False):
+    from pdwt_tpu_torch.core import conv, modes
+    from pdwt_tpu_torch.core import separable as sep
+    from pdwt_tpu_torch.core.shapes import level_sizes
+    from pdwt_tpu_torch.kernels import separable as K
+
+    mode_r, mode_c = modes.per_axis(mode, 2)
+    rec, hlen = (w.rec_lo, w.rec_hi), w.hlen
+    rows = level_sizes(shape[0], c.levels, hlen, mode_r)
+    cols = level_sizes(shape[1], c.levels, hlen, mode_c)
+    a = c.approx
+    for i in range(c.levels - 1, -1, -1):
+        if padded:
+            bands, c0 = [], [0, 0]
+            for t in (a, *c.details[i]):
+                t, c0[0] = sep.inv_mode_pad(t[None], -2, hlen, mode_r, rows[i])
+                t, c0[1] = sep.inv_mode_pad(t, -1, hlen, mode_c, cols[i])
+                bands.append(t)
+            a = K.inv_level_2d_padded_ref(*bands, *rec, tuple(c0), (rows[i], cols[i]))[0]
+            continue
+        z = torch.stack([a, *c.details[i]])[None]
+        t = conv.synthesis_pass(z, rec, -2, out_len=rows[i], mode=mode_r)
+        a = conv.synthesis_pass(t, rec, -1, out_len=cols[i], mode=mode_c)[0, 0]
+    return a
+
+
+def plain_mode_dwt1d(t, w, levels, mode, padded=False):
+    from pdwt_tpu_torch import Coeffs1D
+    from pdwt_tpu_torch.core import conv
+    from pdwt_tpu_torch.core import separable as sep
+    from pdwt_tpu_torch.kernels import batched1d as K1
+
+    a, dets = t, []
+    for _ in range(levels):
+        if padded:
+            a, d = K1.fwd_level_1d_padded_ref(sep.fwd_mode_pad(a, -1, w.hlen, mode), w.dec_lo,
+                                              w.dec_hi)
+        else:
+            z = conv.analysis_pass(a[:, None, None], (w.dec_lo, w.dec_hi), axis=-1, mode=mode)
+            a, d = z[:, 0, 0], z[:, 1, 0]
+        dets.append(d)
+    return Coeffs1D(a, tuple(dets))
+
+
+def plain_mode_idwt1d(c, w, n, mode, padded=False):
+    from pdwt_tpu_torch.core import conv
+    from pdwt_tpu_torch.core.shapes import level_sizes
+    from pdwt_tpu_torch.kernels import batched1d as K1
+
+    sizes = level_sizes(n, c.levels, w.hlen, mode)
+    a = c.approx
+    for i in range(c.levels - 1, -1, -1):
+        if padded:  # a pywt axis: the bands as they are, offset -1
+            a = K1.inv_level_1d_padded_ref(a, c.details[i], w.rec_lo, w.rec_hi, -1, sizes[i])
+            continue
+        z = torch.stack([a, c.details[i]], 1)[:, :, None]
+        a = conv.synthesis_pass(z, (w.rec_lo, w.rec_hi), -1, out_len=sizes[i], mode=mode)[:, 0, 0]
+    return a
+
+
+def padded_band(kind: str, n: int, w, device, c0: int = 0, out: int = 0) -> torch.Tensor:
+    """The dense band matrix of a padded 1D pass from its plain version on
+    the identity: the analysis of n extended samples, x @ M -> [lo | hi];
+    the synthesis of n coefficients a band at offset c0, [lo | hi] @ M."""
+    from pdwt_tpu_torch.kernels import batched1d as K1
+
+    key = ("padded", kind, n, w.name, c0, out, str(device))
+    if key not in _BANDS:
+        eye = torch.eye(n, device=device)
+        if kind == "fwd":
+            m = torch.cat(K1.fwd_level_1d_padded_ref(eye, w.dec_lo, w.dec_hi), 1)
+        else:
+            z = torch.zeros_like(eye)
+            m = torch.cat([K1.inv_level_1d_padded_ref(eye, z, w.rec_lo, w.rec_hi, c0, out),
+                           K1.inv_level_1d_padded_ref(z, eye, w.rec_lo, w.rec_hi, c0, out)], 0)
+        _BANDS[key] = m.contiguous()
+    return _BANDS[key]
+
+
+def padded_yardstick(kind: str, w, c0=(0, 0), out=(0, 0)) -> Callable:
+    """arg -> () -> the dense-band torch.matmul yardstick of a padded call
+    (``yardstick``'s, on ``padded_band``): rows then columns in 2D."""
+    def make(arg):
+        if kind == "fwd2d":
+            A = padded_band("fwd", arg.shape[-2], w, arg.device).t().contiguous()
+            B, xm = padded_band("fwd", arg.shape[-1], w, arg.device), arg[0]
+            return lambda: (A @ xm) @ B
+        if kind == "inv2d":
+            a, h, v, d = (t[0] for t in arg)
+            P = torch.cat([torch.cat([a, v], 1), torch.cat([h, d], 1)], 0)
+            A = padded_band("inv", a.shape[0], w, a.device, c0[0], out[0]).t().contiguous()
+            B = padded_band("inv", a.shape[1], w, a.device, c0[1], out[1])
+            return lambda: (A @ P) @ B
+        if kind == "fwd":
+            Mx = padded_band("fwd", arg.shape[-1], w, arg.device)
+            return lambda: arg @ Mx
+        u = torch.cat(list(arg), 1)
+        Mx = padded_band("inv", arg[0].shape[-1], w, u.device, c0[0], out[0])
+        return lambda: u @ Mx
+    return make
+
+
+def padded_cases(K, K1, sep, w, shape, mode, rand, timed=False, label=""):
+    """Cases of the padded entry points on one level of the mode route:
+    the forward on an image (or signals) extended as the route extends it,
+    and the inverse on random subbands of the forward's sizes, padded as the
+    route pads them, back to ``shape``."""
+    hlen, cases = w.hlen, []
+    if len(shape) == 3:
+        mode_r, mode_c = (mode, mode) if isinstance(mode, str) else mode
+        xp = sep.fwd_mode_pad(sep.fwd_mode_pad(rand(*shape), -1, hlen, mode_c), -2, hlen, mode_r)
+        ro, co = ((n - hlen) // 2 + 1 for n in xp.shape[1:])
+        cases.append(Case("fwd_level_2d_padded", xp,
+                          lambda t: K.fwd_level_2d_padded(t, w.dec_lo, w.dec_hi),
+                          lambda t: K.fwd_level_2d_padded_ref(t, w.dec_lo, w.dec_hi),
+                          f"{label}{w.name} {mode} image {shape}", timed,
+                          flops_2d(2 * ro, 2 * co, hlen), library=padded_yardstick("fwd2d", w)))
+        if hlen % 2:
+            return cases
+        bands, c0 = [], [0, 0]
+        for t in (rand(shape[0], ro, co) for _ in range(4)):
+            t, c0[0] = sep.inv_mode_pad(t, -2, hlen, mode_r, shape[1])
+            t, c0[1] = sep.inv_mode_pad(t, -1, hlen, mode_c, shape[2])
+            bands.append(t.contiguous())
+        out, c0 = tuple(shape[1:]), tuple(c0)
+        cases.append(Case("inv_level_2d_padded", bands,
+                          lambda b: K.inv_level_2d_padded(*b, w.rec_lo, w.rec_hi, c0, out),
+                          lambda b: K.inv_level_2d_padded_ref(*b, w.rec_lo, w.rec_hi, c0, out),
+                          f"{label}{w.name} {mode} subbands {(shape[0], ro, co)} -> {out}",
+                          timed, flops_2d(*out, hlen),
+                          library=padded_yardstick("inv2d", w, c0, out)))
+        return cases
+    xp = sep.fwd_mode_pad(rand(*shape), -1, hlen, mode)
+    n_out = (xp.shape[1] - hlen) // 2 + 1
+    cases.append(Case("fwd_level_1d_padded", xp,
+                      lambda t: K1.fwd_level_1d_padded(t, w.dec_lo, w.dec_hi),
+                      lambda t: K1.fwd_level_1d_padded_ref(t, w.dec_lo, w.dec_hi),
+                      f"{label}{w.name} {mode} signals {shape}", timed,
+                      flops_1d(shape[0], 2 * n_out, hlen), library=padded_yardstick("fwd", w)))
+    if hlen % 2 == 0:
+        padded = [sep.inv_mode_pad(rand(shape[0], n_out), -1, hlen, mode, shape[1])
+                  for _ in range(2)]
+        pair, c0 = [t.contiguous() for t, _ in padded], padded[0][1]
+        cases.append(Case("inv_level_1d_padded", pair,
+                          lambda b: K1.inv_level_1d_padded(*b, w.rec_lo, w.rec_hi, c0, shape[1]),
+                          lambda b: K1.inv_level_1d_padded_ref(*b, w.rec_lo, w.rec_hi, c0,
+                                                               shape[1]),
+                          f"{label}{w.name} {mode} bands {(shape[0], n_out)} -> {shape[1]}",
+                          timed, flops_1d(shape[0], shape[1], hlen),
+                          library=padded_yardstick("inv", w, (c0,), (shape[1],))))
+    return cases
+
+
+def mode_path(label, mode, fwd, inv, plain_fwd, plain_inv, x, per_kernel) -> dict:
+    """One mode transform forward then inverse between a reset and a read
+    of the launch counters: exactly ``per_kernel`` launches of each padded
+    kernel named there (every level on the padded kernels, nothing else);
+    finite outputs, of the plain routes' shapes and dtypes; coefficients and
+    reconstruction held to the same route on the padded kernels' plain
+    versions (``plain_fwd(x, padded=True)``, PATH_RTOL; MODE_ROUTE_RTOL for
+    an arithmetic extension) and to the plain extension route
+    (MODE_ROUTE_RTOL); the roundtrip within ROUNDTRIP_ATOL or
+    MODE_RT_REL of the largest coefficient.  Returns the launches."""
+    from pdwt_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    c = fwd(x)
+    y = inv(c)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in LAUNCHES.items() if v}
+    print(f"modes: {label}: launches {got}", flush=True)
+    check(got == per_kernel, f"modes: {label} launched {got}, expected {per_kernel}")
+    cscale = max_err(c, c)[1]
+    arithmetic = any(m in ARITHMETIC_MODES for m in ((mode,) if isinstance(mode, str) else mode))
+    for route, rtol in (("padded", MODE_ROUTE_RTOL if arithmetic else PATH_RTOL),
+                        ("plain", MODE_ROUTE_RTOL)):
+        pc = plain_fwd(x, padded=route == "padded")
+        py = plain_inv(pc, padded=route == "padded")
+        check(all(g.dtype == w.dtype and g.shape == w.shape and bool(torch.isfinite(g).all())
+                  for g, w in zip(leaves(c) + [y], leaves(pc) + [py])),
+              f"modes: {label}: not finite, or dtypes or shapes differ from the {route} route")
+        err, scale = max_err(c, pc)
+        yerr, yscale = max_err(y, py)
+        yscale = max(yscale, cscale)
+        print(f"modes: {label}: vs the {route} route: coefficients {err:.3e} (limit "
+              f"{rtol * scale:.3e}), inverse {yerr:.3e} (limit {rtol * yscale:.3e})", flush=True)
+        check(err <= rtol * scale and yerr <= rtol * yscale,
+              f"modes: {label} disagrees with the {route} route")
+    rt, limit = float((y - x).abs().max()), max(ROUNDTRIP_ATOL, MODE_RT_REL * cscale)
+    print(f"modes: {label}: roundtrip max|y - x| {rt:.3e} (limit {limit:.3e}; largest "
+          f"coefficient {cscale:.4g})", flush=True)
+    check(rt <= limit, f"modes: {label} roundtrip error {rt:.3e}")
+    return got
+
+
+def modes_phase(dev, card, report, launches, dwt_img, rt_sig, gen) -> None:
+    """The boundary modes: the four padded entry points against their plain
+    versions (every mode, odd sides, signals shorter than the filter, 2 to
+    20 taps, the mixed periodization tuple; timed at the main paths'
+    shapes), then the paths a user drives, each between a reset and a read
+    of the launch counters: the 2048^2 db7 5-level symmetric roundtrip and
+    the 1024 x 4096 sym8 4-level one through ``dwt2d``/``idwt2d``,
+    ``dwt1d``/``idwt1d`` and the facade, timed beside the plain route; the
+    2048^2 roundtrip under each other mode; ``Wavelets`` with a per-axis
+    tuple mixing in periodization; ``denoise_step(boundary=)`` at 1024^2."""
+    from pdwt_tpu_torch import (Wavelets, dwt1d, dwt2d, get_wavelet, idwt1d, idwt2d, ops)
+    from pdwt_tpu_torch.core import separable as sep
+    from pdwt_tpu_torch.core.shapes import level_sizes
+    from pdwt_tpu_torch.filters import make_custom_wavelet
+    from pdwt_tpu_torch.kernels import batched1d as K1
+    from pdwt_tpu_torch.kernels import separable as K
+    from pdwt_tpu_torch.models import denoise_step
+
+    print("=== boundary modes ===", flush=True)
+    wav, w8 = get_wavelet(WNAME), get_wavelet(B1_WNAME)
+    rand = lambda *s: torch.rand(s, device=dev, generator=gen) * 255.0
+    # -- the kernels at the main paths' shapes (timed), then the code paths
+    cases = []
+    for n in level_sizes(N, LEVELS, wav.hlen, "symmetric")[:-1]:
+        cases += padded_cases(K, K1, sep, wav, (1, n, n), "symmetric", rand, True)
+    for n in level_sizes(B1_N, B1_LEVELS, w8.hlen, "symmetric")[:-1]:
+        cases += padded_cases(K, K1, sep, w8, (B1_SIGNALS, n), "symmetric", rand, True)
+    banks = [get_wavelet(n) for n in ("haar", "db2", "db3", "sym4", "db5", "db7", "sym8",
+                                      "db10")]  # 2 to 20 taps
+    odd5 = make_custom_wavelet("odd5", *np.random.default_rng(5).standard_normal((4, 5)))
+    shapes = [(1, 37, 53), (2, 5, 7), (3, 64, 31), (1, 2, 9), (1, 130, 18)]
+    for i, mode in enumerate(MODES_8 + (MIXED_MODE, ("periodization", "zero"))):
+        w = banks[i % len(banks)]
+        cases += padded_cases(K, K1, sep, w, shapes[i % len(shapes)], mode, rand)
+        cases += padded_cases(K, K1, sep, w, ((33, 29), (2, 3), (1, 300))[i % 3],
+                              mode if isinstance(mode, str) else mode[0], rand)
+    cases += padded_cases(K, K1, sep, odd5, (2, 19, 24), "smooth", rand)  # odd taps: forward
+    cases += padded_cases(K, K1, sep, banks[-1], (70000, 2, 2), "reflect", rand)  # past grid z
+    run_cases(cases, report, card)
+
+    # -- the full-width 2D path, as a user drives it
+    x = torch.from_numpy(dwt_img).to(dev)
+    per2 = {"fwd_level_2d_padded": LEVELS, "inv_level_2d_padded": LEVELS}
+    fwd2 = lambda m: (lambda t, **k: plain_mode_dwt2d(t, wav, LEVELS, m, **k))
+    inv2 = lambda m: (lambda c, **k: plain_mode_idwt2d(c, wav, (N, N), m, **k))
+    launches.update(mode_path(f"dwt2d/idwt2d {N}x{N} {WNAME} {LEVELS} levels symmetric",
+                              "symmetric", lambda t: dwt2d(t, wav, LEVELS, mode="symmetric"),
+                              lambda c: idwt2d(c, wav, (N, N), mode="symmetric"),
+                              fwd2("symmetric"), inv2("symmetric"), x, per2))
+    W = Wavelets(x, wname=WNAME, levels=LEVELS, mode="symmetric", device=dev)
+    check(W.info()["mode"] == "symmetric", "modes: info() mode")
+    mode_path("facade symmetric", "symmetric", lambda t: W.forward(), lambda c: W.inverse(),
+              fwd2("symmetric"), inv2("symmetric"), x, per2)
+    time_in_turns(f"mode roundtrip {N}x{N} {WNAME} {LEVELS} levels symmetric",
+                  lambda: idwt2d(dwt2d(x, wav, LEVELS, mode="symmetric"), wav, (N, N),
+                                 mode="symmetric"),
+                  lambda: plain_mode_idwt2d(plain_mode_dwt2d(x, wav, LEVELS, "symmetric"), wav,
+                                            (N, N), "symmetric"), card)
+
+    # -- the batched 1D path
+    xr = torch.from_numpy(rt_sig).to(dev)
+    per1 = {"fwd_level_1d_padded": B1_LEVELS, "inv_level_1d_padded": B1_LEVELS}
+    fwd1 = lambda t, **k: plain_mode_dwt1d(t, w8, B1_LEVELS, "symmetric", **k)
+    inv1 = lambda c, **k: plain_mode_idwt1d(c, w8, B1_N, "symmetric", **k)
+    launches.update(mode_path(f"dwt1d/idwt1d {B1_SIGNALS}x{B1_N} {B1_WNAME} {B1_LEVELS} levels "
+                              "symmetric", "symmetric",
+                              lambda t: dwt1d(t, w8, B1_LEVELS, mode="symmetric"),
+                              lambda c: idwt1d(c, w8, B1_N, mode="symmetric"), fwd1, inv1, xr,
+                              per1))
+    S = Wavelets(xr, wname=B1_WNAME, levels=B1_LEVELS, ndim=1, mode="symmetric", device=dev)
+    mode_path("facade 1D symmetric", "symmetric", lambda t: S.forward(), lambda c: S.inverse(),
+              fwd1, inv1, xr, per1)
+    time_in_turns(f"mode roundtrip {B1_SIGNALS}x{B1_N} {B1_WNAME} {B1_LEVELS} levels symmetric",
+                  lambda: idwt1d(dwt1d(xr, w8, B1_LEVELS, mode="symmetric"), w8, B1_N,
+                                 mode="symmetric"),
+                  lambda: inv1(fwd1(xr)), card)
+
+    # -- once each through the higher layers: the other modes, the mixed
+    # tuple through the facade, the denoise step
+    for mode in MODES_8:
+        if mode != "symmetric":
+            mode_path(f"{N}x{N} roundtrip {mode}", mode,
+                      lambda t, m=mode: dwt2d(t, wav, LEVELS, mode=m),
+                      lambda c, m=mode: idwt2d(c, wav, (N, N), mode=m), fwd2(mode), inv2(mode),
+                      x, per2)
+    T = Wavelets(x, wname=WNAME, levels=LEVELS, mode=MIXED_MODE, device=dev)
+    mode_path(f"facade {MIXED_MODE}", MIXED_MODE, lambda t: T.forward(), lambda c: T.inverse(),
+              fwd2(MIXED_MODE), inv2(MIXED_MODE), x, per2)
+    from pdwt_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+
+    xd = x[:TI_N, :TI_N].contiguous()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out, n1 = denoise_step(xd, None, WNAME, TI_LEVELS, TI_BETA, boundary="symmetric")
+    torch.cuda.synchronize()
+    got = {k: v for k, v in LAUNCHES.items() if v}
+    want = {"fwd_level_2d_padded": TI_LEVELS, "inv_level_2d_padded": TI_LEVELS}
+    print(f"modes: denoise_step {TI_N}x{TI_N} boundary symmetric: launches {got}", flush=True)
+    check(got == want, f"modes: denoise_step launched {got}, expected {want}")
+    pc = ops.soft_threshold(plain_mode_dwt2d(xd, wav, TI_LEVELS, "symmetric"), TI_BETA)
+    err, scale = max_err(out, plain_mode_idwt2d(pc, wav, (TI_N, TI_N), "symmetric"))
+    p_n1 = float(ops.norm1(pc))
+    print(f"modes: denoise_step vs plain route {err:.3e} (limit {PATH_RTOL * scale:.3e}); "
+          f"norm1 {float(n1)!r} vs {p_n1!r}", flush=True)
+    check(err <= PATH_RTOL * scale and abs(float(n1) - p_n1) <= PATH_RTOL * abs(p_n1),
+          "modes: denoise_step disagrees with the plain route")
+    time_call("denoise_step 1024^2 boundary symmetric",
+              lambda: denoise_step(xd, None, WNAME, TI_LEVELS, TI_BETA, boundary="symmetric"),
+              card)
 
 
 if __name__ == "__main__":

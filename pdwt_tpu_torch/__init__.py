@@ -5,7 +5,8 @@ it is), with the same module names:
 
 * ``filters``  — the 72-wavelet bank, custom filters and the non-separable
   quads (numpy)
-* ``core``     — ``dwt2d``/``idwt2d``, ``swt2d``/``iswt2d``/``iswt2d_denoise``,
+* ``core``     — ``dwt2d``/``idwt2d`` (with the boundary modes, ``MODES``),
+  ``swt2d``/``iswt2d``/``iswt2d_denoise``,
   the batched 1D ``dwt1d``/``idwt1d``/``swt1d``/``iswt1d``, the
   non-separable ``dwt2d_ns``/``idwt2d_ns``/``swt2d_ns``/``iswt2d_ns`` and the
   plain reference path (``conv``)
@@ -24,20 +25,23 @@ it is), with the same module names:
 * ``demo``     — the reference demo's scenarios 1-3
   (``python -m pdwt_tpu_torch.demo``)
 
-The port covers the 2D separable periodization DWT, the 2D stationary
+The port covers the 2D separable DWT under every boundary mode of JAX's
+(``mode=``: periodization, the default, and the eight pywt modes, per
+axis too; the decimated 1D DWT likewise), the 2D stationary
 transform with its TI-denoise step (the threshold fused into the
 inverse), the batched 1D DWT and SWT
 (``Wavelets(ndim=1)``) and the non-separable 2D DWT and SWT
 (``Wavelets(do_separable=False)``), in the exact tier and the precision
 tiers (``mixed``, ``bf16-fast``, ``bf16-balanced``, ``bf16-accurate``;
 ``precision=`` on every entry point, or ``precision_scope``), on eighteen
-CUDA kernels, and the reference's whole operator set on them.  Boundary
-modes, 3D, the other transform families and sharding come later (ROADMAP
-queue 1).  Importing the package needs no GPU and builds nothing; the CUDA
+CUDA kernels (and the padded entry points of four of them, which carry
+the boundary modes), and the reference's whole operator set on them.  3D,
+the other transform families and sharding come later (ROADMAP queue 1).  Importing the package needs no GPU and builds nothing; the CUDA
 kernels are compiled at their first launch.
 """
 from . import core, filters, models, ops, utils
 from .api import Wavelets, WaveletSpec
+from .core.modes import MODES
 from .core.precision import TIERS, precision_scope
 from .core.nonseparable import dwt2d_ns, idwt2d_ns, iswt2d_ns, swt2d_ns
 from .core.separable import (Coeffs1D, Coeffs2D, dwt1d, dwt2d, idwt1d, idwt2d, iswt1d,
@@ -48,5 +52,5 @@ from .filters import (Wavelet, get_wavelet, list_wavelets, make_custom_wavelet, 
 __all__ = ["Wavelets", "WaveletSpec", "Wavelet", "get_wavelet", "list_wavelets",
            "make_custom_wavelet", "register_wavelet", "quad_filters", "dwt2d", "idwt2d",
            "swt2d", "iswt2d", "iswt2d_denoise", "Coeffs2D", "dwt1d", "idwt1d", "swt1d",
-           "iswt1d", "Coeffs1D", "dwt2d_ns", "idwt2d_ns", "swt2d_ns", "iswt2d_ns", "TIERS",
+           "iswt1d", "Coeffs1D", "dwt2d_ns", "idwt2d_ns", "swt2d_ns", "iswt2d_ns", "TIERS", "MODES",
            "precision_scope", "core", "filters", "models", "ops", "utils"]

@@ -2,8 +2,10 @@
 
 The port covers one 2D image or a batch of 1D signals (``ndim=1``, or a
 1D array, or ``nr == 1``), the separable and (2D, ``do_separable=False``)
-non-separable periodization DWT and SWT (``do_swt=True``), and the
-precision tiers (``precision=``), with the reference's whole method set:
+non-separable DWT and SWT (``do_swt=True``), the boundary modes of the
+separable DWT (``mode=``: periodization, the default, or any pywt mode, one
+for every axis or one per axis) and the precision tiers (``precision=``),
+with the reference's whole method set:
 ``forward``, ``inverse``, the thresholds (``soft_threshold``,
 ``hard_threshold``, ``garrote_threshold``, ``group_soft_threshold``,
 ``firm_threshold``, ``bayes_shrink``), ``shrink`` and ``proj_linf``, the
@@ -17,8 +19,11 @@ filters, or four quads when non-separable), ``info`` /
 ``print_informations`` and cycle spinning (2D).  Haar runs the same
 separable transforms as any other filter (the butterflies of
 ``core/haar.py`` are public functions, not a route of the facade).
-Boundary modes and 3D raise
-``NotImplementedError`` naming the ROADMAP item that adds them.
+A boundary mode other than periodization takes the decimated separable
+DWT only (``ValueError`` with ``do_swt`` or ``do_separable=False``, a
+warning under cycle spinning, as in JAX) and sizes the coefficients by
+pywt's rule.  3D raises ``NotImplementedError`` naming the ROADMAP item
+that adds it.
 
 The image and coefficients are tensors on one device: the device of an
 image given as a tensor, else ``device=``, which defaults to the CUDA card
@@ -43,6 +48,7 @@ import numpy as np
 import torch
 
 from . import ops
+from .core import modes
 from .core.nonseparable import dwt2d_ns, idwt2d_ns, iswt2d_ns, swt2d_ns
 from .core.precision import check_tier, precision_scope, tier_for
 from .core.separable import (Coeffs1D, Coeffs2D, all_periodization, dwt1d, dwt2d, idwt1d,
@@ -75,6 +81,8 @@ class WaveletSpec:
     #: precision tier (core/precision.py); "auto" = the environment defaults
     precision: str = "auto"
     do_separable: bool = True
+    #: boundary extension (core/modes.py): a mode, or one per axis
+    mode: object = "periodization"
 
 
 def _later(what: str, item: int):
@@ -106,8 +114,22 @@ class Wavelets:
             raise _later("the 3D transform (ndim=3)", 12)
         if ndim not in (1, 2):
             raise ValueError(f"ndim={ndim} is not implemented")
+        # one mode per transformed axis (pywt), its count checked below
+        mode = modes.check_mode(mode) if isinstance(mode, str) else tuple(
+            modes.check_mode(m) for m in mode)
         if not all_periodization(mode):
-            raise _later(f"boundary mode {mode!r}", 10)
+            if do_swt:
+                raise ValueError(
+                    "the stationary transform is periodic by definition (pywt.swt has no "
+                    "mode either); non-periodization boundary modes apply to the decimated "
+                    "DWT only")
+            if not do_separable:
+                raise ValueError("non-separable transforms support mode='periodization' only")
+            if do_cycle_spinning:
+                warnings.warn(
+                    "cycle spinning shifts circularly, which mixes opposite edges — with a "
+                    "non-periodization boundary mode the shifted transforms are not "
+                    "shift-consistent at the borders")
         if precision is not None:
             check_tier(precision)
         if dtype is None:
@@ -170,25 +192,34 @@ class Wavelets:
                 f"nlevels = {max(wmax, 1)}")
             levels = max(wmax, 1)
 
+        if not isinstance(mode, str):
+            mode = modes.per_axis(mode, ndim)  # one per axis of this geometry
         self.spec = WaveletSpec(wname=wname, nr=nr, nc=nc, nlevels=levels,
                                 do_cycle_spinning=do_cycle_spinning, dtype=dtype,
                                 hlen=hlen, do_swt=do_swt, ndim=ndim, precision=tier,
-                                do_separable=do_separable)
+                                do_separable=do_separable, mode=mode)
         self.device = img.device
         self.d_image = img
         self.state = WState.INIT
         self.current_shift_r = 0
         self.current_shift_c = 0
         self._rng = np.random.default_rng(seed)
-        z = lambda s: torch.zeros(s, dtype=dtype, device=self.device)
-        # the bf16 contract carries the approximation in float32
-        za = lambda s: z(s).float() if dtype == torch.bfloat16 else z(s)
-        if ndim == 1:
-            a_len, det_lens = coeff_shapes_1d(nc, levels, do_swt)
-            self._coeffs = Coeffs1D(za((nr, a_len)), tuple(z((nr, n)) for n in det_lens))
-        else:
-            a_shape, det_shapes = coeff_shapes_2d(nr, nc, levels, do_swt)
-            self._coeffs = Coeffs2D(za(a_shape), tuple((z(s), z(s), z(s)) for s in det_shapes))
+        self._coeffs = self._zero_coeffs()
+
+    def _zero_coeffs(self):
+        """Zero coefficients of the spec's geometry.  The bf16 contract
+        carries the approximation in float32; a boundary mode's does not
+        (JAX's mode route keeps every band in the input's dtype) and sizes
+        the bands by pywt's rule, which depends on the filter length."""
+        s = self.spec
+        z = lambda shape: torch.zeros(shape, dtype=s.dtype, device=self.device)
+        bf16_chain = s.dtype == torch.bfloat16 and all_periodization(s.mode)
+        za = lambda shape: z(shape).float() if bf16_chain else z(shape)
+        if s.ndim == 1:
+            a_len, det_lens = coeff_shapes_1d(s.nc, s.nlevels, s.do_swt, s.mode, s.hlen)
+            return Coeffs1D(za((s.nr, a_len)), tuple(z((s.nr, n)) for n in det_lens))
+        a_shape, det_shapes = coeff_shapes_2d(s.nr, s.nc, s.nlevels, s.do_swt, s.mode, s.hlen)
+        return Coeffs2D(za(a_shape), tuple((z(d), z(d), z(d)) for d in det_shapes))
 
     @property
     def wname(self) -> str:
@@ -240,12 +271,13 @@ class Wavelets:
         if not s.do_separable:
             with self._tier():
                 return (swt2d_ns if s.do_swt else dwt2d_ns)(img, self._quads_fwd, s.nlevels)
+        fwd_kw = {} if s.do_swt else {"mode": s.mode}
         if s.ndim == 1:
             fwd = swt1d if s.do_swt else dwt1d
         else:
             fwd = swt2d if s.do_swt else dwt2d
         with self._tier():
-            return fwd(img, self._wavelet, s.nlevels)
+            return fwd(img, self._wavelet, s.nlevels, **fwd_kw)
 
     def _synthesis(self, coeffs) -> torch.Tensor:
         s = self.spec
@@ -257,8 +289,8 @@ class Wavelets:
             if s.do_swt:
                 return (iswt1d if s.ndim == 1 else iswt2d)(coeffs, self._wavelet)
             if s.ndim == 1:
-                return idwt1d(coeffs, self._wavelet, s.nc)
-            return idwt2d(coeffs, self._wavelet, (s.nr, s.nc))
+                return idwt1d(coeffs, self._wavelet, s.nc, mode=s.mode)
+            return idwt2d(coeffs, self._wavelet, (s.nr, s.nc), mode=s.mode)
 
     def forward(self):
         """Compute the coefficients of the current image.  With cycle
@@ -414,6 +446,10 @@ class Wavelets:
                                         for f in (filter1, filter2, filter3, filter4)])
             n = self._quads_fwd.shape[-1]
         self.spec = dataclasses.replace(s, wname=filtername, hlen=n)
+        if n != s.hlen and not all_periodization(s.mode):
+            # a boundary mode's coefficient sizes follow the filter length
+            self._coeffs = self._zero_coeffs()
+            self.state = WState.INIT
         return 0
 
     def set_filters_inverse(self, filter1, filter2, filter3=None, filter4=None) -> int:
@@ -575,7 +611,7 @@ class Wavelets:
             "cycle_spinning": s.do_cycle_spinning,
             "separable": s.do_separable,
             "dtype": s.dtype,
-            "mode": "periodization",
+            "mode": s.mode,
             "precision": s.precision,
             "estimated_memory_mb": mem / 1e6,
             "device": (f"cuda:{torch.cuda.get_device_name(dev)}" if dev.type == "cuda"
@@ -611,5 +647,5 @@ class Wavelets:
                 f"levels={s.nlevels}, "
                 f"swt={s.do_swt}, separable={s.do_separable}, "
                 f"cycle_spinning={s.do_cycle_spinning}, dtype={s.dtype}, "
-                f"precision={s.precision}, "
+                f"mode={s.mode}, precision={s.precision}, "
                 f"device={self.device}, state={self.state.value})")

@@ -1,7 +1,7 @@
-"""Periodic filtering primitives: the port's single plain reference path.
+"""Filtering primitives: the port's single plain reference path.
 
-Counterpart of the periodization part of ``pdwt_tpu/core/conv.py`` (its
-``fma`` formulation).  The index spec is the same:
+Counterpart of ``pdwt_tpu/core/conv.py`` (its ``fma`` formulation).  The
+index spec of periodization, the default, is the same:
 
 Forward analysis::
 
@@ -26,6 +26,14 @@ stride 1, taps dilated by ``f = 2^(level-1)``::
 with ``c = fwd_center(hlen)`` and ``s = swt_inv_center(hlen)``; the caller
 folds the synthesis's 1/2 per pass into the filters.
 
+The other boundary modes (``core/modes.py``, decimated passes only) follow
+pywt: the analysis is a valid decimating correlation over the signal
+extended by (hlen - 2, hlen - 1) samples, ``floor((N + hlen - 1) / 2)``
+outputs; the synthesis is the polyphase form at shift 1 over zero-padded
+coefficients, ``2M - hlen + 2`` outputs (even ``hlen`` only), sliced to the
+stored length.  bfloat16 passes of a mode sum in float32 and round once
+per pass, as JAX's fma formulation does.
+
 Passes work on (B, C, H, W) tensors of float32 or float64.  The CUDA
 kernels (``pdwt_tpu_torch/kernels``) read their offsets from
 :func:`fwd_center` and :func:`poly_geometry`, so the index arithmetic is
@@ -37,6 +45,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from . import modes
 
 
 def fwd_center(hlen: int) -> int:
@@ -69,8 +79,10 @@ class PolyGeometry(NamedTuple):
     hi: int
 
 
-def poly_geometry(hlen: int) -> PolyGeometry:
-    s = inv_shift(hlen)
+def poly_geometry(hlen: int, s: Optional[int] = None) -> PolyGeometry:
+    """The offsets of the synthesis at shift ``s`` (``inv_shift(hlen)``,
+    periodization's, by default; pywt's modes take 1)."""
+    s = inv_shift(hlen) if s is None else s
     p = (s % 2, 1 - s % 2)
     o = (-(s // 2), (1 - s + (1 - s % 2)) // 2)
     nb = tuple(len(range(p[q], hlen, 2)) for q in (0, 1))
@@ -143,15 +155,17 @@ def _fma_analysis(xp: torch.Tensor, taps: np.ndarray, ax: int, *,
     return out.reshape((b, c * k) + tuple(out.shape[3:]))
 
 
-def _fma_synthesis_poly(x: torch.Tensor, taps: np.ndarray, ax: int) -> torch.Tensor:
-    """Stuff-free decimated synthesis: input (B, C*K, ...), where each
-    group of K channels is combined into one output channel; each output
-    parity is a half-length FIR over the coefficients and the two
-    parities interleave."""
+def _fma_synthesis_poly(x: torch.Tensor, taps: np.ndarray, ax: int, pad_fn=wrap_pad,
+                        s: Optional[int] = None) -> torch.Tensor:
+    """Stuff-free decimated synthesis at shift ``s`` (see
+    :func:`poly_geometry`) over ``x`` padded by ``pad_fn``: input
+    (B, C*K, ...), where each group of K channels is combined into one
+    output channel; each output parity is a half-length FIR over the
+    coefficients and the two parities interleave."""
     k, hlen = taps.shape
     m = x.shape[ax]
-    g = poly_geometry(hlen)
-    ap = wrap_pad(x, ax, g.lo, g.hi)
+    g = poly_geometry(hlen, s)
+    ap = pad_fn(x, ax, g.lo, g.hi)
     outs = []
     for q in (0, 1):
         acc = None
@@ -184,54 +198,154 @@ def _fma_synthesis(up: torch.Tensor, taps: np.ndarray, ax: int, dilation: int
 
 
 def _check(x: torch.Tensor) -> None:
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"expected float32 or float64, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.float64, torch.bfloat16):
+        raise TypeError(f"expected float32 or float64 (or bfloat16), got {x.dtype}")
+
+
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """The pass's working dtype: float32 for bfloat16 data."""
+    return x.float() if x.dtype == torch.bfloat16 else x
 
 
 def analysis_pass(x: torch.Tensor, filters: Sequence[np.ndarray], axis: int, *,
-                  dilation: int = 1, decimate: bool = True) -> torch.Tensor:
+                  dilation: int = 1, decimate: bool = True,
+                  mode: str = "periodization") -> torch.Tensor:
     """Filter every channel of ``x`` (B, C, H, W) with each 1D filter
-    along ``axis`` (periodization): decimated by 2, or stationary with the
-    taps ``dilation`` apart (``decimate=False``).  Returns (B, C*K, H', W')
+    along ``axis``: decimated by 2, or stationary with the taps
+    ``dilation`` apart (``decimate=False``).  Returns (B, C*K, H', W')
     with output channel c*K + k = filter k applied to input channel c.
     ``filters`` are forward-convention taps (e.g. ``dec_lo``); the reversal
-    for correlation happens here."""
+    for correlation happens here.  ``mode`` is the boundary extension
+    (``core/modes.py``): periodization by default; the pywt modes apply to
+    the decimated pass only and give ``floor((N + hlen - 1) / 2)``
+    outputs.  bfloat16 data is summed in float32 and rounded once, as
+    JAX's fma formulation does."""
     _check(x)
     filters = [np.asarray(f, dtype=np.float64) for f in filters]
     hlen = len(filters[0])
-    taps = np.stack([f[::-1] for f in filters])
     ax = axis % x.ndim
     if decimate and dilation != 1:
         raise ValueError("the decimated pass takes no dilation")
+    if mode != "periodization":
+        modes.check_mode(mode)
+        if not decimate:
+            raise ValueError("boundary modes other than 'periodization' apply to the "
+                             "decimated DWT only (pywt's swt is periodic by definition)")
+        # out[m] = sum_j f[j] x_ext[2m+1-j] (pywt's downsampling convolution):
+        # a valid correlation of the reversed taps over x extended by
+        # (hlen - 2, hlen - 1)
+        xp = modes.extend(x, ax, hlen - 2, hlen - 1, mode)
+        return padded_analysis_pass(_acc(xp), filters, ax).to(x.dtype)
     c = fwd_center(hlen) * dilation
-    if decimate:
-        x = odd_extend(x, ax)
-    xp = wrap_pad(x, ax, c, (hlen - 1) * dilation - c)
-    return _fma_analysis(xp, taps, ax, decimate=decimate, dilation=dilation)
+    xe = odd_extend(x, ax) if decimate else x
+    xp = wrap_pad(_acc(xe), ax, c, (hlen - 1) * dilation - c)
+    taps = np.stack([f[::-1] for f in filters])
+    return _fma_analysis(xp, taps, ax, decimate=decimate, dilation=dilation).to(x.dtype)
 
 
 def synthesis_pass(x: torch.Tensor, filters: Sequence[np.ndarray], axis: int,
                    *, out_len: Optional[int] = None, dilation: int = 1,
-                   decimated: bool = True) -> torch.Tensor:
+                   decimated: bool = True, mode: str = "periodization") -> torch.Tensor:
     """Inverse of :func:`analysis_pass` along ``axis``: input
     (B, C*K, ...) -> (B, C, ...), output channel c summing the K filter
     syntheses of its group, sliced to ``out_len`` (odd sizes).
     ``decimated=False`` is the stationary synthesis at
     ``swt_inv_center(hlen) * dilation``; the caller scales the filters by
-    the 1/2 per pass."""
+    the 1/2 per pass.  A pywt ``mode`` takes no boundary extension: zero
+    pads and shift 1, ``rec_len`` outputs at most, an even ``hlen``."""
     _check(x)
     filters = [np.asarray(f, dtype=np.float64) for f in filters]
     hlen = len(filters[0])
     taps = np.stack([f[::-1] for f in filters])
     ax = axis % x.ndim
+    if decimated and dilation != 1:
+        raise ValueError("the decimated pass takes no dilation")
+    if mode != "periodization":
+        modes.check_mode(mode)
+        if not decimated:
+            raise ValueError("boundary modes other than 'periodization' apply to the "
+                             "decimated inverse DWT only")
+        out_len = mode_out_len(x.shape[ax], hlen, mode, out_len)
+        # pywt's upsampling_convolution_valid_sf: shift 1, no extension
+        return padded_synthesis_pass(_acc(x), filters, ax, -1, out_len).to(x.dtype)
+    xa = _acc(x)
     if decimated:
-        if dilation != 1:
-            raise ValueError("the decimated pass takes no dilation")
-        out = _fma_synthesis_poly(x, taps, ax)
+        out = _fma_synthesis_poly(xa, taps, ax)
     else:
         s = swt_inv_center(hlen) * dilation
-        out = _fma_synthesis(wrap_pad(x, ax, s, (hlen - 1) * dilation - s), taps, ax,
+        out = _fma_synthesis(wrap_pad(xa, ax, s, (hlen - 1) * dilation - s), taps, ax,
                              dilation)
     if out_len is not None:
         out = _sl(out, ax, 0, out_len)
-    return out
+    return out.to(x.dtype)
+
+
+def mode_out_len(m: int, hlen: int, mode: str, out_len: Optional[int]) -> int:
+    """The output length of a pywt mode's synthesis of ``m`` coefficients
+    (``out_len``, or the full ``rec_len`` when None); raises on an odd
+    filter length (pywt's parity rule) and on an ``out_len`` past
+    ``rec_len``."""
+    if hlen % 2:
+        raise ValueError("non-periodization inverse requires an even filter length "
+                         "(pywt upsampling_convolution_valid_sf parity)")
+    full = modes.rec_len(m, hlen, mode)
+    if out_len is None:
+        return full
+    if out_len > full:
+        raise ValueError(f"out_len {out_len} exceeds the mode's full inverse length {full}")
+    return out_len
+
+
+# ---------------------------------------------------------------------------
+# the passes on an input that holds its boundary: the plain versions of the
+# padded kernel entry points, and the pywt modes' passes
+# ---------------------------------------------------------------------------
+
+def padded_analysis_pass(xp: torch.Tensor, filters: Sequence[np.ndarray],
+                         axis: int) -> torch.Tensor:
+    """The decimated analysis of ``xp`` (B, C, H, W), which holds its
+    boundary extension along ``axis``: a valid correlation, no wrap,
+    ``out[n] = sum_j f[hlen-1-j] xp[2n + j]`` for the ``(N - hlen) // 2 + 1``
+    outputs that the N samples hold.  Returns (B, C*K, ...)."""
+    filters = [np.asarray(f, dtype=np.float64) for f in filters]
+    ax = axis % xp.ndim
+    padded_len(xp.shape[ax], len(filters[0]))
+    return _fma_analysis(xp, np.stack([f[::-1] for f in filters]), ax)
+
+
+def padded_len(n: int, hlen: int) -> int:
+    """The outputs of :func:`padded_analysis_pass` along an axis of ``n``
+    samples that hold their extension; raises below one."""
+    if n < hlen:
+        raise ValueError(f"a padded analysis of {hlen} taps needs at least {hlen} samples "
+                         f"along the axis, got {n}")
+    return (n - hlen) // 2 + 1
+
+
+def check_padded_synthesis(n: int, hlen: int, c0: int, out_len: int) -> None:
+    """Raise unless the ``out_len`` outputs of :func:`padded_synthesis_pass`
+    at offset ``c0`` read only the ``n`` coefficients they are given: its
+    even positions ``i + c0 + j`` run from ``c0`` (rounded up) to
+    ``out_len + c0 + hlen - 2``, coefficient ``position / 2``."""
+    if out_len < 1 or c0 < -1 or (out_len + c0 + hlen - 2) // 2 > n - 1:
+        raise ValueError(f"a padded synthesis of {out_len} outputs at offset {c0} with "
+                         f"{hlen} taps reads outside its {n} coefficients")
+
+
+def padded_synthesis_pass(x: torch.Tensor, filters: Sequence[np.ndarray], axis: int,
+                          c0: int, out_len: int) -> torch.Tensor:
+    """The decimated synthesis of ``x`` (B, C*K, ...), which holds its
+    boundary (zeros, or the periodic halo) along ``axis``, with no wrap:
+    ``out[i] = sum_k sum_j rev_k[j] * U_k[i + c0 + j]`` for ``i < out_len``,
+    ``U_k`` the zero-stuffed band k (``U_k[2e] = x_k[e]``), ``rev_k`` the
+    reversed filter k; every coefficient it reads must lie in ``x``
+    (:func:`check_padded_synthesis`).  pywt's modes take ``c0 = -1``; a
+    periodization axis padded by ``poly_geometry(hlen).lo`` takes ``2 lo -
+    inv_shift(hlen)``.  Returns (B, C, ...)."""
+    filters = [np.asarray(f, dtype=np.float64) for f in filters]
+    hlen = len(filters[0])
+    ax = axis % x.ndim
+    check_padded_synthesis(x.shape[ax], hlen, c0, out_len)
+    taps = np.stack([f[::-1] for f in filters])
+    out = _fma_synthesis_poly(x, taps, ax, pad_fn=modes.zero_pad, s=-c0)
+    return _sl(out, ax, 0, out_len)

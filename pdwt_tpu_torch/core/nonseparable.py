@@ -127,7 +127,7 @@ def dwt2d_ns(x: torch.Tensor, quads, levels: int) -> Coeffs2D:
     q = _check_quads(quads)
     if x.ndim < 2:
         raise ValueError(f"expected at least 2D input, got shape {tuple(x.shape)}")
-    check_supported(x, "periodization")
+    check_supported(x)
     fac = _try_factor(q)
     if fac is not None and fac[4]:
         return sep.dwt2d(x, _factored(fac[0], fac[1]), levels)
@@ -165,7 +165,7 @@ def idwt2d_ns(coeffs: Coeffs2D, quads_inv, shape: Tuple[int, int]) -> torch.Tens
     """Inverse of :func:`dwt2d_ns` with the inverse quads ``quads_inv``;
     ``shape`` = (Nr, Nc) of the original image."""
     q = _check_quads(quads_inv)
-    check_supported(coeffs.approx, "periodization")
+    check_supported(coeffs.approx)
     fac = _try_factor(q)
     if fac is not None and fac[4]:
         return sep.idwt2d(coeffs, _factored(fac[0], fac[1]), shape)
@@ -210,7 +210,7 @@ def swt2d_ns(x: torch.Tensor, quads, levels: int) -> Coeffs2D:
     q = _check_quads(quads)
     if x.ndim < 2:
         raise ValueError(f"expected at least 2D input, got shape {tuple(x.shape)}")
-    check_supported(x, "periodization")
+    check_supported(x)
     fac = _try_factor(q)
     if fac is not None and fac[4]:
         return sep.swt2d(x, _factored(fac[0], fac[1]), levels)
@@ -250,7 +250,7 @@ def iswt2d_ns(coeffs: Coeffs2D, quads_inv) -> torch.Tensor:
     """Inverse of :func:`swt2d_ns` with the inverse quads ``quads_inv``,
     the engine's 1/4 per level."""
     q = _check_quads(quads_inv)
-    check_supported(coeffs.approx, "periodization")
+    check_supported(coeffs.approx)
     fac = _try_factor(q)
     if fac is not None and fac[4]:
         return sep.iswt2d(coeffs, _factored(fac[0], fac[1]))

@@ -1,6 +1,7 @@
-"""Separable multi-level transforms (periodization): the decimated DWT and
-the stationary (a-trous) SWT, forward and inverse, in 2D and batched 1D,
-and the fused threshold-in-inverse of the 2D TI-denoise step.
+"""Separable multi-level transforms: the decimated DWT and the stationary
+(a-trous) SWT, forward and inverse, in 2D and batched 1D, and the fused
+threshold-in-inverse of the 2D TI-denoise step.  The decimated DWT takes
+every boundary mode (``mode=``, ``core/modes.py``); the SWT is periodic.
 
 Counterpart of ``dwt2d``/``idwt2d``/``swt2d``/``iswt2d``/``iswt2d_denoise``
 and ``dwt1d``/``idwt1d``/``swt1d``/``iswt1d`` in
@@ -15,6 +16,22 @@ the batch.
 Every level runs through the kernel wrappers of ``pdwt_tpu_torch.kernels``:
 the CUDA kernels for CUDA tensors, their plain versions for CPU tensors.
 
+Boundary modes (``pdwt_tpu/core/separable.py:350-640, 906-1016``).  A
+string, or one mode per axis (2D: rows, columns); all periodization is the
+periodization path below.  Any other takes the mode route, one level at a
+time (mode sizes do not halve, so no tail), on the rule of
+:func:`mode_route`: float32 on the card with an even filter runs the padded
+entry points of kernels 1 and 2 (7 and 8 in 1D) on every level, under
+every tier, the forward on the signal extended per axis (``modes.extend``;
+a periodization axis odd-extended and wrapped at the periodic center), the
+inverse on the subbands as they are (a periodization axis with its
+periodic halo); everything else runs the plain extension route (the conv
+passes with ``mode=``, JAX's fma formulation, in the input's dtype), whose
+inverse refuses an odd filter as JAX's does.  A per-axis tuple that mixes
+in periodization holds to JAX's fma coefficients, not to JAX's TPU route,
+which pads such an axis at the pywt phase (``ROADMAP.md``, "Open faults
+of the reference").
+
 Precision tiers (``core/precision.py``; ``pdwt_tpu/core/separable.py``'s
 Pallas dispatch).  The MXU mode comes from the dtype: bf16 tensors run
 "bf16", float32 tensors under the ``mixed`` tier "mixed", everything else
@@ -27,11 +44,13 @@ detail dtype.  ``mixed`` runs the stationary transforms exact, as JAX
 does; under "bf16" each a-trous level the route rule
 (``kernels.mxu_route_swt_2d`` / ``mxu_route_1d``) accepts runs the a-trous
 banded-product kernels, the others the exact kernels on float32 with the
-details cast to bf16.  Every entry point takes ``precision=``
-(:func:`precision.takes_precision`).
+details cast to bf16.  The mode route takes no MXU mode: JAX's
+(``_use_mode_pallas``) routes by dtype.  Every entry point takes
+``precision=`` (:func:`precision.takes_precision`).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -39,7 +58,7 @@ import torch
 
 from .. import kernels
 from ..filters import Wavelet
-from . import conv, precision
+from . import conv, modes, precision
 from .precision import takes_precision
 from .shapes import level_sizes
 
@@ -72,18 +91,144 @@ def all_periodization(mode) -> bool:
     return all(m == "periodization" for m in mode)
 
 
-def check_supported(x: torch.Tensor, mode) -> None:
-    """Raise on what this slice of the port does not take."""
-    if not all_periodization(mode):
-        raise NotImplementedError(
-            f"mode={mode!r}: boundary modes other than 'periodization' come "
-            "with ROADMAP queue 1, item 10")
+def check_supported(x: torch.Tensor) -> None:
+    """Raise on a dtype the transforms do not take (float64 on the card)."""
     if x.dtype not in (F32, torch.float64, BF16):
         raise TypeError(f"expected float32 or float64 (or bfloat16 under the precision "
                         f"tiers), got {x.dtype}")
     if x.device.type == "cuda" and x.dtype == torch.float64:
         raise NotImplementedError("the CUDA path takes float32, or bfloat16 under the "
                                   "precision tiers, got float64")
+
+
+def mode_route(dtype: torch.dtype, device: torch.device, hlen: int) -> str:
+    """The route of a boundary-mode transform's levels.  ``"padded"``:
+    float32 on a CUDA card with an even filter, every level on the padded
+    entry points of kernels 1 and 2 (7 and 8 in 1D), under every tier (JAX
+    routes its mode path by dtype, ``pdwt_tpu/core/separable.py:593-608``);
+    the kernels take any side, so there is no size condition.
+    ``"plain"``: CPU tensors, bfloat16 and odd filters, the plain extension
+    route (JAX's fma formulation), whose inverse refuses an odd filter as
+    JAX's does.  float64 on the card was refused before
+    (:func:`check_supported`); a padded launch the kernels refuse raises,
+    and nothing falls back to the plain route."""
+    if device.type == "cuda" and dtype == F32 and hlen % 2 == 0:
+        return "padded"
+    return "plain"
+
+
+def fwd_mode_pad(t: torch.Tensor, axis: int, hlen: int, mode: str) -> torch.Tensor:
+    """A forward level's input to the padded kernel along one axis: the
+    pywt extension by (hlen - 2, hlen - 1), or on a periodization axis the
+    odd extension wrapped at the periodic center (its output n reads
+    samples 2n + j either way)."""
+    if mode == "periodization":
+        c = conv.fwd_center(hlen)
+        return conv.wrap_pad(conv.odd_extend(t, axis), axis, c, hlen - 1 - c)
+    return modes.extend(t, axis, hlen - 2, hlen - 1, mode)
+
+
+def inv_mode_pad(t: torch.Tensor, axis: int, hlen: int, mode: str, out_len: int):
+    """(A synthesis level's bands to the padded kernel along one axis, the
+    offset ``c0`` of ``conv.padded_synthesis_pass``): a pywt axis reads the
+    coefficients as they are at c0 = -1 (shift 1, JAX's checks on the
+    length); a periodization axis takes its periodic halo and c0 = 2 lo -
+    inv_shift(hlen)."""
+    if mode == "periodization":
+        g = conv.poly_geometry(hlen)
+        return conv.wrap_pad(t, axis, g.lo, g.hi), 2 * g.lo - conv.inv_shift(hlen)
+    conv.mode_out_len(t.shape[axis], hlen, mode, out_len)
+    return t, -1
+
+
+def _common(ts) -> torch.dtype:
+    return functools.reduce(torch.promote_types, [t.dtype for t in ts])
+
+
+def _dwt2d_mode(x: torch.Tensor, wav: Wavelet, levels: int, mode_r: str,
+                mode_c: str) -> Coeffs2D:
+    """The mode route of :func:`dwt2d` (:func:`mode_route`), one level at a
+    time: the columns (``mode_c``), then the rows (``mode_r``)."""
+    batch = tuple(x.shape[:-2])
+    dec = (wav.dec_lo, wav.dec_hi)
+    padded = mode_route(x.dtype, x.device, wav.hlen) == "padded"
+    a = _flat(x)
+    details = []
+    for _ in range(levels):
+        if padded:
+            xp = fwd_mode_pad(fwd_mode_pad(a, -1, wav.hlen, mode_c), -2, wav.hlen, mode_r)
+            a, h, v, d = kernels.fwd_level_2d_padded_ad(xp.contiguous(), *dec)
+        else:
+            z = conv.analysis_pass(a[:, None], dec, axis=-1, mode=mode_c)
+            z = conv.analysis_pass(z, dec, axis=-2, mode=mode_r)
+            a, h, v, d = (z[:, k] for k in range(4))
+        details.append(tuple(_unflat(t, batch) for t in (h, v, d)))
+    return Coeffs2D(_unflat(a, batch), tuple(details))
+
+
+def _idwt2d_mode(coeffs: Coeffs2D, wav: Wavelet, shape: Tuple[int, int], mode_r: str,
+                 mode_c: str) -> torch.Tensor:
+    """The mode route of :func:`idwt2d`, deepest level first, each level
+    to its pywt (or periodization) size: the rows, then the columns."""
+    levels, hlen = coeffs.levels, wav.hlen
+    rows = level_sizes(shape[0], levels, hlen, mode_r)
+    cols = level_sizes(shape[1], levels, hlen, mode_c)
+    rec = (wav.rec_lo, wav.rec_hi)
+    batch = tuple(coeffs.approx.shape[:-2])
+    dt = _common([coeffs.approx] + [t for band in coeffs.details for t in band])
+    padded = mode_route(dt, coeffs.approx.device, hlen) == "padded"
+    a = _flat(coeffs.approx).to(dt)
+    for i in range(levels - 1, -1, -1):
+        bands = [a] + [_flat(t).to(dt) for t in coeffs.details[i]]
+        if padded:
+            c0 = [None, None]
+            for k, t in enumerate(bands):
+                t, c0[0] = inv_mode_pad(t, -2, hlen, mode_r, rows[i])
+                t, c0[1] = inv_mode_pad(t, -1, hlen, mode_c, cols[i])
+                bands[k] = t.contiguous()
+            a = kernels.inv_level_2d_padded_ad(*bands, *rec, tuple(c0), (rows[i], cols[i]))
+        else:
+            t = conv.synthesis_pass(torch.stack(bands, 1), rec, axis=-2, out_len=rows[i],
+                                    mode=mode_r)
+            a = conv.synthesis_pass(t, rec, axis=-1, out_len=cols[i], mode=mode_c)[:, 0]
+    return _unflat(a, batch)
+
+
+def _dwt1d_mode(x: torch.Tensor, wav: Wavelet, levels: int, mode: str) -> Coeffs1D:
+    """The mode route of :func:`dwt1d` (:func:`mode_route`)."""
+    batch = tuple(x.shape[:-1])
+    dec = (wav.dec_lo, wav.dec_hi)
+    padded = mode_route(x.dtype, x.device, wav.hlen) == "padded"
+    a = _flat1(x)
+    details = []
+    for _ in range(levels):
+        if padded:
+            a, d = kernels.fwd_level_1d_padded_ad(
+                fwd_mode_pad(a, -1, wav.hlen, mode).contiguous(), *dec)
+        else:
+            z = conv.analysis_pass(a[:, None, None], dec, axis=-1, mode=mode)
+            a, d = z[:, 0, 0], z[:, 1, 0]
+        details.append(_unflat(d, batch))
+    return Coeffs1D(_unflat(a, batch), tuple(details))
+
+
+def _idwt1d_mode(coeffs: Coeffs1D, wav: Wavelet, length: int, mode: str) -> torch.Tensor:
+    """The mode route of :func:`idwt1d`, deepest level first."""
+    sizes = level_sizes(length, coeffs.levels, wav.hlen, mode)
+    rec = (wav.rec_lo, wav.rec_hi)
+    batch = tuple(coeffs.approx.shape[:-1])
+    dt = _common([coeffs.approx, *coeffs.details])
+    padded = mode_route(dt, coeffs.approx.device, wav.hlen) == "padded"
+    a = _flat1(coeffs.approx).to(dt)
+    for i in range(coeffs.levels - 1, -1, -1):
+        d = _flat1(coeffs.details[i]).to(dt)
+        if padded:
+            _, c0 = inv_mode_pad(a, -1, wav.hlen, mode, sizes[i])
+            a = kernels.inv_level_1d_padded_ad(a, d, *rec, c0, sizes[i])
+        else:
+            z = torch.stack([a, d], 1)[:, :, None]
+            a = conv.synthesis_pass(z, rec, axis=-1, out_len=sizes[i], mode=mode)[:, 0, 0]
+    return _unflat(a, batch)
 
 
 def mxu_mode(dtype: torch.dtype) -> Optional[str]:
@@ -107,7 +252,9 @@ def _unflat(t: torch.Tensor, batch: Tuple[int, ...]) -> torch.Tensor:
 @takes_precision
 def dwt2d(x: torch.Tensor, wav: Wavelet, levels: int, *,
           mode="periodization") -> Coeffs2D:
-    """Multi-level separable 2D DWT over the trailing two axes.
+    """Multi-level separable 2D DWT over the trailing two axes.  ``mode``
+    is the boundary extension, a string or (row, column) modes; anything
+    but periodization takes the mode route (module docstring).
 
     Per level, odd sizes are first extended by one sample; in an MXU mode a
     level the route rule accepts runs the banded-product kernel; otherwise
@@ -115,7 +262,10 @@ def dwt2d(x: torch.Tensor, wav: Wavelet, levels: int, *,
     allows it (on float32), else one level kernel takes this level."""
     if x.ndim < 2:
         raise ValueError(f"expected at least 2D input, got shape {tuple(x.shape)}")
-    check_supported(x, mode)
+    check_supported(x)
+    mode_r, mode_c = modes.per_axis(mode, 2)
+    if (mode_r, mode_c) != ("periodization",) * 2:
+        return _dwt2d_mode(x, wav, levels, mode_r, mode_c)
     batch = tuple(x.shape[:-2])
     lo, hi = wav.dec_lo, wav.dec_hi
     mxu = mxu_mode(x.dtype)
@@ -144,13 +294,17 @@ def dwt2d(x: torch.Tensor, wav: Wavelet, levels: int, *,
 @takes_precision
 def idwt2d(coeffs: Coeffs2D, wav: Wavelet, shape: Tuple[int, int], *,
            mode="periodization") -> torch.Tensor:
-    """Inverse of :func:`dwt2d`; ``shape`` = (Nr, Nc) of the original image.
+    """Inverse of :func:`dwt2d`; ``shape`` = (Nr, Nc) of the original image,
+    ``mode`` the forward's.
 
     The deepest k levels whose sizes halve exactly, that ``tail_supported``
     allows and that the MXU route does not cover run as one tail launch;
     each level above runs the banded-product kernel where the route rule
     accepts it, else the level kernel, and is sliced back to odd sizes."""
-    check_supported(coeffs.approx, mode)
+    check_supported(coeffs.approx)
+    mode_r, mode_c = modes.per_axis(mode, 2)
+    if (mode_r, mode_c) != ("periodization",) * 2:
+        return _idwt2d_mode(coeffs, wav, shape, mode_r, mode_c)
     levels = coeffs.levels
     rows = level_sizes(shape[0], levels)
     cols = level_sizes(shape[1], levels)
@@ -205,7 +359,7 @@ def swt2d(x: torch.Tensor, wav: Wavelet, levels: int, *, keep_approx: bool = Fal
     ``(A_1, ..., A_levels)``, as ``(coeffs, approxs)``."""
     if x.ndim < 2:
         raise ValueError(f"expected at least 2D input, got shape {tuple(x.shape)}")
-    check_supported(x, "periodization")
+    check_supported(x)
     batch = tuple(x.shape[:-2])
     mxu = _swt_mxu_mode(x.dtype)
     a = _flat(x)
@@ -253,7 +407,7 @@ def _iswt2d_levels(coeffs: Coeffs2D, wav: Wavelet, level_fn, a_fn=None) -> torch
 @takes_precision
 def iswt2d(coeffs: Coeffs2D, wav: Wavelet) -> torch.Tensor:
     """Inverse of :func:`swt2d`, one kernel launch per level, deepest first."""
-    check_supported(coeffs.approx, "periodization")
+    check_supported(coeffs.approx)
     lo, hi = wav.rec_lo, wav.rec_hi
 
     def level(a, h, v, d, lvl, mxu, out_dt):
@@ -282,7 +436,7 @@ def iswt2d_denoise(coeffs: Coeffs2D, wav: Wavelet, beta, *, mode: str = "soft",
     if isinstance(beta, (list, tuple)):
         return iswt2d(THRESHOLD_OPS[mode](coeffs, beta, normalize=normalize,
                                           do_thresh_appcoeffs=do_thresh_appcoeffs), wav)
-    check_supported(coeffs.approx, "periodization")
+    check_supported(coeffs.approx)
     lo, hi = wav.rec_lo, wav.rec_hi
 
     def level(a, h, v, d, lvl, mxu, out_dt):
@@ -314,11 +468,15 @@ def _check_1d(x: torch.Tensor) -> None:
 @takes_precision
 def dwt1d(x: torch.Tensor, wav: Wavelet, levels: int, *,
           mode="periodization") -> Coeffs1D:
-    """Multi-level 1D DWT along the last axis, one level kernel launch per
+    """Multi-level 1D DWT along the last axis (``mode``: the boundary
+    extension, a string or a one-mode tuple), one level kernel launch per
     level (the banded-product kernel where an MXU mode's route rule
     accepts the level); an odd length is first extended by one sample."""
     _check_1d(x)
-    check_supported(x, mode)
+    check_supported(x)
+    (mode,) = modes.per_axis(mode, 1)
+    if mode != "periodization":
+        return _dwt1d_mode(x, wav, levels, mode)
     batch = tuple(x.shape[:-1])
     mxu = mxu_mode(x.dtype)
     a = _flat1(x)
@@ -337,10 +495,14 @@ def dwt1d(x: torch.Tensor, wav: Wavelet, levels: int, *,
 @takes_precision
 def idwt1d(coeffs: Coeffs1D, wav: Wavelet, length: int, *,
            mode="periodization") -> torch.Tensor:
-    """Inverse of :func:`dwt1d`; ``length`` is the original signal's.  Each
+    """Inverse of :func:`dwt1d`; ``length`` is the original signal's,
+    ``mode`` the forward's.  Each
     level runs one level kernel, deepest first, and is sliced back to its
     odd length."""
-    check_supported(coeffs.approx, mode)
+    check_supported(coeffs.approx)
+    (mode,) = modes.per_axis(mode, 1)
+    if mode != "periodization":
+        return _idwt1d_mode(coeffs, wav, length, mode)
     sizes = level_sizes(length, coeffs.levels)
     batch = tuple(coeffs.approx.shape[:-1])
     mxu = mxu_mode(coeffs.details[-1].dtype if coeffs.levels else coeffs.approx.dtype)
@@ -366,7 +528,7 @@ def swt1d(x: torch.Tensor, wav: Wavelet, levels: int, *, keep_approx: bool = Fal
     """Stationary (a-trous) 1D transform along the last axis, one kernel
     launch per level; ``keep_approx`` as in :func:`swt2d`."""
     _check_1d(x)
-    check_supported(x, "periodization")
+    check_supported(x)
     batch = tuple(x.shape[:-1])
     mxu = _swt_mxu_mode(x.dtype)
     a = _flat1(x)
@@ -388,7 +550,7 @@ def swt1d(x: torch.Tensor, wav: Wavelet, levels: int, *, keep_approx: bool = Fal
 @takes_precision
 def iswt1d(coeffs: Coeffs1D, wav: Wavelet) -> torch.Tensor:
     """Inverse of :func:`swt1d`, one kernel launch per level, deepest first."""
-    check_supported(coeffs.approx, "periodization")
+    check_supported(coeffs.approx)
     batch = tuple(coeffs.approx.shape[:-1])
     mxu = _swt_mxu_mode(coeffs.details[-1].dtype if coeffs.levels else coeffs.approx.dtype)
     a = _flat1(coeffs.approx)

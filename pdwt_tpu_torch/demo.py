@@ -4,7 +4,7 @@ scenario on the CUDA card (``--device cpu`` for the CPU), write the result.
 
     python -m pdwt_tpu_torch.demo image.dat --nr 512 --nc 512 --scenario 3 \
         --wavelet db7 --levels 5 [--swt] [--nonseparable] [--cycle-spinning] \
-        [--beta 90] [--auto-beta {none,universal,bayes}] \
+        [--beta 90] [--auto-beta {none,universal,bayes}] [--mode symmetric] \
         [--precision {exact,mixed,bf16}] [--device cuda]
 
 Scenarios:
@@ -13,9 +13,12 @@ Scenarios:
      with zeros before the inverse, so the reconstruction comes from the
      coefficients alone, as in the reference.
   3  forward + soft threshold (--beta, or --auto-beta) + inverse
-Scenarios 4-6 (packets, starlet, dual-tree), --nd (3D) and boundary modes
-other than periodization are not ported yet and exit with the ROADMAP item
-that brings them; --native (the C++ CPU engine) is left out of the port.
+``--mode`` picks the boundary extension of the separable decimated DWT
+(periodization, the reference's, or a pywt mode: zero, constant, symmetric,
+reflect, periodic, smooth, antisymmetric, antireflect).  Scenarios 4-6
+(packets, starlet, dual-tree) and --nd (3D) are not ported yet and exit
+with the ROADMAP item that brings them; --native (the C++ CPU engine) is
+left out of the port.
 """
 from __future__ import annotations
 
@@ -45,7 +48,9 @@ def main(argv=None) -> int:
     p.add_argument("--native", action="store_true",
                    help="the C++ CPU engine (left out of the port)")
     p.add_argument("--mode", default="periodization",
-                   help="boundary extension; the port has periodization")
+                   help="boundary extension: periodization (the reference scheme) or any "
+                        "pywt mode, zero, constant, symmetric, reflect, periodic, smooth, "
+                        "antisymmetric, antireflect (separable DWT only)")
     p.add_argument("--precision", default="exact", choices=("exact", "mixed", "bf16"),
                    help="mixed = bf16x3 products; bf16 = the bf16-fast tier (bf16 "
                         "details, float32 approximation)")
@@ -61,8 +66,9 @@ def main(argv=None) -> int:
                 "ROADMAP queue 1, item 14")
     if args.nd:
         p.error("--nd (3D volumes) comes with ROADMAP queue 1, item 12")
-    if args.mode != "periodization":
-        p.error(f"--mode {args.mode}: boundary modes come with ROADMAP queue 1, item 10")
+    if args.mode != "periodization" and (args.swt or args.nonseparable):
+        p.error("--mode (pywt boundary extensions) applies to the separable decimated DWT; "
+                "the SWT and non-separable paths are periodization-only")
 
     from pdwt_tpu_torch import Wavelets
     from pdwt_tpu_torch.utils import read_dat, tensor_to_numpy, write_dat
@@ -71,7 +77,7 @@ def main(argv=None) -> int:
     tier = {"exact": "exact", "mixed": "mixed", "bf16": "bf16-fast"}[args.precision]
     W = Wavelets(img, wname=args.wavelet, levels=args.levels, do_swt=args.swt,
                  do_separable=not args.nonseparable, do_cycle_spinning=args.cycle_spinning,
-                 precision=tier, device=args.device)
+                 mode=args.mode, precision=tier, device=args.device)
     W.print_informations()
     W.forward()
     print(f"norm1(coeffs) = {W.norm1():.6e}")

@@ -164,6 +164,21 @@ def load() -> ctypes.CDLL:
         "pdwt_ns_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, P, I, I, I, *[I] * 9, P],
         "pdwt_ns_swt_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, P, I, I, I,
                                          *[I] * 9, P],
+        # x, a, h, v, d, B, R, C (the extended input), Ro, Co (the outputs), taps (4, hlen
+        # on the device), hlen, the launch plan (lr, lc, gc, nph, nt, threads, grid x, y, z,
+        # smem), stream
+        "pdwt_fwd_level_2d_padded": [P, P, P, P, P, I, I, I, I, I, P, I, *[I] * 10, P],
+        # a, h, v, d, out, B, Mr, Mc (the padded subbands), pad (base, off, n_out of the
+        # rows, then of the columns), taps (4, hlen on the device), hlen, geometry, the
+        # launch plan (lr, lc, nt, threads, grid x, y, z, smem), stream
+        "pdwt_inv_level_2d_padded": [P, P, P, P, P, I, I, I, P, P, I, P, *[I] * 8, P],
+        # x, lo, hi, B, N (the extended signals), n_out, taps (4, hlen on the device),
+        # hlen, the launch plan (lc, gc, nt, threads, grid x, y, z, smem), stream
+        "pdwt_fwd_level_1d_padded": [P, P, P, I, I, I, P, I, *[I] * 8, P],
+        # lo, hi, out, B, M (the padded bands), pad (base, off, n_out), taps (4, hlen on
+        # the device), hlen, geometry, the launch plan (lc, gc, nt, threads, grid x, y, z,
+        # smem), stream
+        "pdwt_inv_level_1d_padded": [P, P, P, I, I, P, P, I, P, *[I] * 8, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

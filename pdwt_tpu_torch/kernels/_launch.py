@@ -26,7 +26,9 @@ LAUNCHES: Dict[str, int] = {"fwd_level_2d": 0, "inv_level_2d": 0,
                             "swt_fwd_level_1d_mxu": 0, "swt_inv_level_1d_mxu": 0,
                             "swt_fwd_level_2d_mxu": 0, "swt_inv_level_2d_mxu": 0,
                             "ns_fwd_level_2d_mxu": 0, "ns_inv_level_2d_mxu": 0,
-                            "ns_swt_fwd_level_2d_mxu": 0, "ns_swt_inv_level_2d_mxu": 0}
+                            "ns_swt_fwd_level_2d_mxu": 0, "ns_swt_inv_level_2d_mxu": 0,
+                            "fwd_level_2d_padded": 0, "inv_level_2d_padded": 0,
+                            "fwd_level_1d_padded": 0, "inv_level_1d_padded": 0}
 
 
 def reset_launch_counts() -> None:
@@ -139,6 +141,31 @@ def poly_geo(hlen: int) -> np.ndarray:
     read: p[0], p[1], o[0], o[1], nb[0], nb[1], lo, hi."""
     g = conv.poly_geometry(hlen)
     return np.array([*g.p, *g.o, *g.nb, g.lo, g.hi], dtype=np.int32)
+
+
+class PadAxis(NamedTuple):
+    """One axis of a padded synthesis launch (``band_strip.cuh: PadAxis``):
+    stored output i < ``n_out`` is the periodic body's output i + ``off``,
+    which sums the coefficients ``base + m + o_q + b`` (``poly_geometry``)."""
+    base: int
+    off: int
+    n_out: int
+
+
+def pad_axis(hlen: int, c0: int, n_out: int) -> PadAxis:
+    """The padded synthesis of ``conv.padded_synthesis_pass`` at offset
+    ``c0`` on the periodic body, whose shift is ``s = inv_shift(hlen)``:
+    its output t sums ``U[t - s + j + 2 base]``, so ``base`` whole
+    coefficients and ``off`` (0 or 1) outputs make ``c0 = off - s + 2
+    base``."""
+    t = c0 + conv.inv_shift(hlen)
+    return PadAxis(t // 2, t % 2, n_out)
+
+
+def pad_positions(p: PadAxis) -> int:
+    """``band_strip.cuh: pad_positions``: the coefficient positions the
+    grid covers, two outputs each, up to output ``off + n_out - 1``."""
+    return (p.off + p.n_out + 1) // 2
 
 
 def dilation(level: int) -> int:

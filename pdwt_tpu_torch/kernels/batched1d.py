@@ -4,14 +4,17 @@ Counterpart of the batched 1D part of ``pdwt_tpu/kernels/swt_pallas.py``.
 Four CUDA kernels (entry points in ``csrc/batched1d.cu``) carry the batched
 1D path, each filtering along the last axis of a (B, N) batch of signals:
 
-=====================  ========================================  ============================
-wrapper                computes                                  plain version
-=====================  ========================================  ============================
-``fwd_level_1d``       one decimated analysis level              ``fwd_level_1d_ref``
-``inv_level_1d``       one polyphase synthesis level             ``inv_level_1d_ref``
-``swt_fwd_level_1d``   one a-trous analysis level                ``swt_fwd_level_1d_ref``
-``swt_inv_level_1d``   one a-trous synthesis level               ``swt_inv_level_1d_ref``
-=====================  ========================================  ============================
+=========================  ========================================  ==============================
+wrapper                    computes                                  plain version
+=========================  ========================================  ==============================
+``fwd_level_1d``           one decimated analysis level              ``fwd_level_1d_ref``
+``inv_level_1d``           one polyphase synthesis level             ``inv_level_1d_ref``
+``swt_fwd_level_1d``       one a-trous analysis level                ``swt_fwd_level_1d_ref``
+``swt_inv_level_1d``       one a-trous synthesis level               ``swt_inv_level_1d_ref``
+``fwd_level_1d_padded``    kernel 7 on signals holding their         ``fwd_level_1d_padded_ref``
+                           extension
+``inv_level_1d_padded``    kernel 8 on padded bands, no wrap         ``inv_level_1d_padded_ref``
+=========================  ========================================  ==============================
 
 A wrapper given a CPU tensor returns its plain version, built on
 ``core/conv.py``; given a CUDA tensor it launches its kernel or raises.
@@ -22,6 +25,14 @@ a-trous analysis, the polyphase or a-trous synthesis) in the ``fd`` scheme
 on float32 data, on the plans of ``mxu1d.fwd1d_launch_plan`` and
 ``mxu1d.inv1d_launch_plan``; ``csrc/batched1d.cu`` holds their entry
 points only.
+
+The padded entry points, the counterparts of ``swt_pallas.py:995
+fwd_level_1d_padded`` and ``:1018 inv_level_1d_padded``, carry the boundary
+modes (``core/separable.py``'s mode route): the decimated and polyphase
+bodies with index tables that do not wrap, on the spec of
+``conv.padded_analysis_pass`` and ``conv.padded_synthesis_pass``, as the 2D
+pair of ``kernels/separable.py``; their backward is the exact adjoint
+through the plain versions.
 
 Filters are forward-convention float64 arrays.  A 1D a-trous synthesis is
 one pass, so the wrapper folds ONE 1/2 into the inverse's taps
@@ -41,8 +52,10 @@ import numpy as np
 import torch
 
 from ..core import conv
-from ._launch import check_span, dilation, dual_taps, launch, on_cpu, poly_geo, ptr, rev
+from ._launch import (InvPlan, PadAxis, check_span, dilation, dual_taps, launch, on_cpu,
+                      pad_axis, pad_positions, poly_geo, ptr, rev)
 from .mxu1d import fwd1d_launch_plan, inv1d_launch_plan
+from .separable import meta, plain_vjp
 
 
 def _half(f) -> np.ndarray:
@@ -78,6 +91,41 @@ def swt_inv_level_1d_ref(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi,
     z = torch.stack([lo, hi], dim=1)[:, :, None]
     return conv.synthesis_pass(z, (_half(rec_lo), _half(rec_hi)), axis=-1,
                                dilation=dilation(level), decimated=False)[:, 0, 0].contiguous()
+
+
+def fwd_level_1d_padded_ref(xp: torch.Tensor, dec_lo, dec_hi):
+    """One decimated analysis level on (B, Np) signals that hold their
+    boundary extension, ``out[n] = sum_j frev[j] xp[2n + j]``, no wrap ->
+    (lo, hi), each (B, (Np - hlen) // 2 + 1)."""
+    z = conv.padded_analysis_pass(xp[:, None, None], (dec_lo, dec_hi), axis=-1)
+    return z[:, 0, 0].contiguous(), z[:, 1, 0].contiguous()
+
+
+def inv_level_1d_padded_ref(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, c0: int,
+                            out_len: int) -> torch.Tensor:
+    """One polyphase synthesis level on (B, M) bands that hold their
+    boundary, no wrap: ``out[i] = sum_k sum_j rev_k[j] U_k[i + c0 + j]``
+    for ``i < out_len`` (``conv.padded_synthesis_pass``) -> (B, out_len)."""
+    z = torch.stack([lo, hi], dim=1)[:, :, None]
+    return conv.padded_synthesis_pass(z, (rec_lo, rec_hi), -1, c0,
+                                      out_len)[:, 0, 0].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# launch plans of the padded entry points: kernels 7's and 8's for the
+# padded shapes
+# ---------------------------------------------------------------------------
+
+def fwd1d_padded_launch_plan(B: int, n_out: int, hlen: int) -> InvPlan:
+    """Kernel 7's plan (``fwd1d_launch_plan``, decimated, fd) for ``n_out``
+    outputs a signal."""
+    return fwd1d_launch_plan(B, 2 * n_out, hlen, 1, "fd", True)
+
+
+def inv1d_padded_launch_plan(B: int, pa: PadAxis, hlen: int) -> InvPlan:
+    """Kernel 8's plan (``inv1d_launch_plan``, polyphase, fd) for the
+    positions the padded grid covers (``pad_positions``)."""
+    return inv1d_launch_plan(B, pad_positions(pa), hlen, 1, "fd", True)
 
 
 # ---------------------------------------------------------------------------
@@ -162,8 +210,51 @@ def swt_inv_level_1d(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi,
     return out
 
 
+def fwd_level_1d_padded(xp: torch.Tensor, dec_lo, dec_hi):
+    """One decimated analysis level on (B, Np) float32 signals that hold
+    their boundary extension -> (lo, hi), each (B, (Np - hlen) // 2 + 1),
+    on ``fwd1d_padded_launch_plan``."""
+    if on_cpu(xp, ndim=2):
+        return fwd_level_1d_padded_ref(xp, dec_lo, dec_hi)
+    B, n = xp.shape
+    tp = dual_taps((dec_lo, dec_hi), "fd", xp.device)
+    hlen = tp.shape[1]
+    n_out = conv.padded_len(n, hlen)
+    pl = fwd1d_padded_launch_plan(B, n_out, hlen)
+    lo, hi = (torch.empty((B, n_out), device=xp.device, dtype=xp.dtype) for _ in range(2))
+    launch("fwd_level_1d_padded", xp.device,
+           [ptr(xp), ptr(lo), ptr(hi), B, n, n_out, ptr(tp), hlen, pl.lc, pl.gc, pl.nt,
+            pl.threads, *pl.grid, pl.smem])
+    return lo, hi
+
+
+def inv_level_1d_padded(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, c0: int,
+                        out_len: int) -> torch.Tensor:
+    """One polyphase synthesis level on (B, M) float32 bands that hold their
+    boundary -> (B, out_len), the spec of ``inv_level_1d_padded_ref``, on
+    ``inv1d_padded_launch_plan``.  Raises where an output would read
+    outside the bands."""
+    if on_cpu(lo, hi, ndim=2):
+        return inv_level_1d_padded_ref(lo, hi, rec_lo, rec_hi, c0, out_len)
+    B, m = _pair_shape(lo, hi)
+    tp = dual_taps((rec_lo, rec_hi), "fd", lo.device)
+    hlen = tp.shape[1]
+    conv.check_padded_synthesis(m, hlen, c0, out_len)
+    pa = pad_axis(hlen, c0, out_len)
+    pl = inv1d_padded_launch_plan(B, pa, hlen)
+    pad = np.array(pa, dtype=np.int32)
+    geo = poly_geo(hlen)
+    out = torch.empty((B, out_len), device=lo.device, dtype=lo.dtype)
+    launch("inv_level_1d_padded", lo.device,
+           [ptr(lo), ptr(hi), ptr(out), B, m, ptr(pad), ptr(tp), hlen, ptr(geo), pl.lc, pl.gc,
+            pl.nt, pl.threads, *pl.grid, pl.smem])
+    return out
+
+
 # ---------------------------------------------------------------------------
-# autograd: each backward is the paired kernel with reversed (rescaled) taps
+# autograd: each backward is the paired kernel with reversed (rescaled)
+# taps; the padded entry points' the exact adjoint through their plain
+# versions
 # ---------------------------------------------------------------------------
 
 class _FwdLevel1D(torch.autograd.Function):
@@ -217,6 +308,34 @@ class _SwtInvLevel1D(torch.autograd.Function):
                 None, None, None)
 
 
+class _FwdLevel1DPadded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xp, dec_lo, dec_hi):
+        ctx.filters, ctx.like = (dec_lo, dec_hi), meta(xp)
+        return fwd_level_1d_padded(xp, dec_lo, dec_hi)
+
+    @staticmethod
+    def backward(ctx, glo, ghi):
+        lo, hi = ctx.filters
+        (gx,) = plain_vjp(lambda t: fwd_level_1d_padded_ref(t, lo, hi), ctx.like, (glo, ghi))
+        return gx, None, None
+
+
+class _InvLevel1DPadded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lo, hi, rec_lo, rec_hi, c0, out_len):
+        ctx.args = (rec_lo, rec_hi, c0, out_len)
+        ctx.like = ((2,) + tuple(lo.shape), lo.dtype, lo.device)
+        return inv_level_1d_padded(lo, hi, rec_lo, rec_hi, c0, out_len)
+
+    @staticmethod
+    def backward(ctx, gy):
+        rlo, rhi, c0, n = ctx.args
+        ref = lambda z: inv_level_1d_padded_ref(z[0], z[1], rlo, rhi, c0, n)
+        (g,) = plain_vjp(ref, ctx.like, gy.contiguous())
+        return g[0], g[1], None, None, None, None
+
+
 def fwd_level_1d_ad(x, dec_lo, dec_hi):
     """Differentiable :func:`fwd_level_1d`."""
     return _FwdLevel1D.apply(x, dec_lo, dec_hi)
@@ -235,3 +354,13 @@ def swt_fwd_level_1d_ad(x, dec_lo, dec_hi, level: int):
 def swt_inv_level_1d_ad(lo, hi, rec_lo, rec_hi, level: int):
     """Differentiable :func:`swt_inv_level_1d`."""
     return _SwtInvLevel1D.apply(lo, hi, rec_lo, rec_hi, level)
+
+
+def fwd_level_1d_padded_ad(xp, dec_lo, dec_hi):
+    """Differentiable :func:`fwd_level_1d_padded`."""
+    return _FwdLevel1DPadded.apply(xp, dec_lo, dec_hi)
+
+
+def inv_level_1d_padded_ad(lo, hi, rec_lo, rec_hi, c0: int, out_len: int):
+    """Differentiable :func:`inv_level_1d_padded`."""
+    return _InvLevel1DPadded.apply(lo, hi, rec_lo, rec_hi, c0, out_len)

@@ -112,6 +112,60 @@ __device__ __forceinline__ void fill_index(int* tab, int nw, long long base, lon
   }
 }
 
+// The padded entry points (kernels 1, 2, 7 and 8 on a boundary mode) read
+// the array the caller extended or padded and never wrap: tab[w] = base +
+// step * w, clamped into [0, n).  A clamped entry feeds only outputs that
+// the launch does not store (the entry points refuse a plan whose stored
+// outputs would read outside the input), so every load stays inside it.
+__device__ __forceinline__ void fill_clamped(int* tab, int nw, long long base, long long step,
+                                             int n) {
+  for (int w = threadIdx.x; w < nw; w += blockDim.x) {
+    const long long x = base + step * w;
+    tab[w] = x < 0 ? 0 : (x >= n ? n - 1 : (int)x);
+  }
+}
+
+// The index table of a periodic launch (mod n) or, where PAD, of a padded
+// one: a compile-time choice, so the periodic instances keep their code.
+template <bool PAD>
+__device__ __forceinline__ void fill_table(int* tab, int nw, long long base, long long step,
+                                           int n) {
+  if constexpr (PAD)
+    fill_clamped(tab, nw, base, step, n);
+  else
+    fill_index(tab, nw, base, step, n);
+}
+
+// One axis of a padded polyphase synthesis (kernels 2 and 8 on a boundary
+// mode): stored output i (< n_out) is the periodic body's output t = i +
+// off (off 0 or 1), t = 2m + q summing the coefficients base + m + o_q + b
+// (b < nb_q) of the array it is given, with no wrap.  kernels/_launch.py:
+// pad_axis makes it from the synthesis's offset in the zero-stuffed domain.
+struct PadAxis {
+  int base, off, n_out;
+};
+
+// Do the stored outputs of a padded synthesis read inside the n
+// coefficients of their axis?  (tests/test_torch_modes_kernels.py holds a
+// model of it to core/conv.py: check_padded_synthesis, which the wrappers
+// run first.)
+inline bool pad_axis_ok(const PadAxis& p, const Poly& g, int n) {
+  if (p.off < 0 || p.off > 1 || p.n_out < 1) return false;
+  for (int q = 0; q < 2; ++q) {
+    const long long last = (long long)p.off + p.n_out - 1 - q;  // the last t of parity q, less q
+    if (last < 0) continue;
+    const long long m0 = (p.off - q + 1) / 2, m1 = last / 2;
+    if (m1 < m0) continue;
+    if (p.base + m0 + g.o[q] < 0 || p.base + m1 + g.o[q] + g.nb[q] - 1 > (long long)n - 1)
+      return false;
+  }
+  return true;
+}
+
+// The positions a padded synthesis's grid covers along one axis: t up to
+// off + n_out - 1, two outputs a position.
+inline long long pad_positions(const PadAxis& p) { return ((long long)p.off + p.n_out + 1) / 2; }
+
 // dst[e] = src[idx(e)] (0 where idx(e) < 0) for e < n, around `work`: the
 // loads of the first blockDim.x values are issued before work() runs and
 // stored after it, so their latency hides behind it (the taps, behind the

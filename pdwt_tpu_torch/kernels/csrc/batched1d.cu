@@ -32,6 +32,12 @@
 // a-trous synthesis's single 1/2 (one pass in 1D) into its taps, so the kernels
 // hard-code no offset and no scale.
 //
+// Kernels 7 and 8 also have padded entry points (pdwt_fwd_level_1d_padded,
+// pdwt_inv_level_1d_padded, at the end of this file), the counterparts of
+// swt_pallas.py:995 fwd_level_1d_padded and :1018 inv_level_1d_padded: the
+// same bodies on signals or bands the caller extended or padded, reading
+// no wrapped index, for the boundary modes.
+//
 // The four exact kernels are kernels 15's and 16's functions in the fd scheme
 // on float32 data: every output sums the taps in order, each one FMA into one
 // float32 sum per filter (a synthesis: the low taps on the low band, then the
@@ -121,4 +127,38 @@ extern "C" int pdwt_swt_inv_level_1d(const float* lo, const float* hi, float* ou
                                      void* stream) {
   return pdwt_swt_inv_level_1d_mxu(lo, hi, out, B, N, taps, hlen, f, cen, nullptr, pdwt_mxu::FD,
                                    0, 0, lc, gc, nt, threads, gx, gy, gz, smem, stream);
+}
+
+namespace pdwt_m1d {
+int launch_fwd_padded(const float* x, float* lo, float* hi, int B, int N, int n_out,
+                      const float* taps, int hlen, int lc, int gc, int nt, int threads, int gx,
+                      int gy, int gz, int smem, void* stream);
+int launch_inv_padded(const float* lo, const float* hi, float* out, int B, int M, const int* pad,
+                      const float* taps, int hlen, const int* geo, int lc, int gc, int nt,
+                      int threads, int gx, int gy, int gz, int smem, void* stream);
+}  // namespace pdwt_m1d
+
+// The padded entry points of kernels 7 and 8 (the boundary modes,
+// core/separable.py: the mode route), on the polyphase and decimated
+// bodies of mxu1d.cu with index tables that do not wrap.  Kernel 7's: (B,
+// N) float32 signals that hold their extension -> two (B, n_out) bands,
+// out[n] = sum_j t[j] x[2n + j]; taps as kernel 7's, the plan
+// kernels/batched1d.py: fwd1d_padded_launch_plan's.
+extern "C" int pdwt_fwd_level_1d_padded(const float* x, float* lo, float* hi, int B, int N,
+                                        int n_out, const float* taps, int hlen, int lc, int gc,
+                                        int nt, int threads, int gx, int gy, int gz, int smem,
+                                        void* stream) {
+  return pdwt_m1d::launch_fwd_padded(x, lo, hi, B, N, n_out, taps, hlen, lc, gc, nt, threads, gx,
+                                     gy, gz, smem, stream);
+}
+
+// Kernel 8's: two padded (B, M) float32 bands -> (B, pad[2]); `pad` holds
+// base, off and n_out (band_strip.cuh: PadAxis); taps and geometry as
+// kernel 8's, the plan kernels/batched1d.py: inv1d_padded_launch_plan's.
+extern "C" int pdwt_inv_level_1d_padded(const float* lo, const float* hi, float* out, int B,
+                                        int M, const int* pad, const float* taps, int hlen,
+                                        const int* geo, int lc, int gc, int nt, int threads,
+                                        int gx, int gy, int gz, int smem, void* stream) {
+  return pdwt_m1d::launch_inv_padded(lo, hi, out, B, M, pad, taps, hlen, geo, lc, gc, nt,
+                                     threads, gx, gy, gz, smem, stream);
 }

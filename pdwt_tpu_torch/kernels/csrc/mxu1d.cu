@@ -101,11 +101,18 @@ size_t fwd1d_smem(int os, int lc, int dc, int nt) {
          2 * (size_t)kRows * (lc | 1) * sizeof(float);
 }
 
-template <int S, int OS>
+//
+// PAD: kernel 7's padded entry point (batched1d.cu:
+// pdwt_fwd_level_1d_padded), which replaces fwd_level_1d_padded
+// (swt_pallas.py:995): the decimated instance in fd on signals the caller
+// extended (the pywt extension, core/modes.py), index tables that do not
+// wrap (fill_table, cen = 0: out[n] = sum_j t[j] x[2n + j]) and n_out
+// outputs a signal, N >= 2 (n_out - 1) + hlen.
+template <int S, int OS, bool PAD = false>
 __global__ void __launch_bounds__(256)
 fwd1d_strip_kernel(const void* __restrict__ x, float* __restrict__ lo, void* __restrict__ hi,
                    int in_bf16, int hi_bf16, int B, int N, int hlen, int f, int cen,
-                   const float* __restrict__ taps, int lc, int gc, int nt) {
+                   const float* __restrict__ taps, int lc, int gc, int nt, int n_out_pad) {
   using St = Stage<S>;
   constexpr int P = kRowStrip<S>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -120,10 +127,10 @@ fwd1d_strip_kernel(const void* __restrict__ x, float* __restrict__ lo, void* __r
       reinterpret_cast<unsigned char*>(win) +
       align16((size_t)(kDataLo<S> ? 2 : 1) * kRows * LP * sizeof(St)));  // lo, hi: kRows x OP
 
-  const int n_out = N / OS;
+  const int n_out = PAD ? n_out_pad : N / OS;
   const int frc = gc == 1 ? 1 : (f < n_out ? f : n_out);
   const int rho = blockIdx.x % frc, q0 = (blockIdx.x / frc) * lc;
-  fill_index(cols, W, OS * (rho + (long long)gc * q0) - cen, gc, N);
+  fill_table<PAD>(cols, W, OS * (rho + (long long)gc * q0) - cen, gc, N);
   __syncthreads();
   auto tap = [&](int e) { return dual_tap(e, nt, hlen); };
   const int ngroups = (B + kRows - 1) / kRows;
@@ -209,12 +216,19 @@ size_t inv1d_smem(int nph, int lc, int dc, int nt) {
          (size_t)kRows * ((nph * lc) | 1) * sizeof(float);
 }
 
-template <int S, int NPH>
+//
+// PAD: kernel 8's padded entry point (batched1d.cu:
+// pdwt_inv_level_1d_padded), which replaces inv_level_1d_padded
+// (swt_pallas.py:1018): the polyphase instance in fd on bands the caller
+// padded, index tables that do not wrap, starting pa.base coefficients in,
+// and the outputs from the body's output pa.off on, pa.n_out of them a
+// signal (band_strip.cuh: PadAxis, as kernel 2's padded instance).
+template <int S, int NPH, bool PAD = false>
 __global__ void __launch_bounds__(256)
 inv1d_strip_kernel(const float* __restrict__ lo, const void* __restrict__ hi,
                    void* __restrict__ out, int hi_bf16, int out_bf16, int B, int M, int hlen,
                    int f, int cen, const Poly g, const float* __restrict__ taps, int lc, int gc,
-                   int nt) {
+                   int nt, const PadAxis pa) {
   using St = Stage<S>;
   constexpr int nd = kDataLo<S> ? 2 : 1;
   constexpr int P = kRowStrip<S>;
@@ -236,7 +250,7 @@ inv1d_strip_kernel(const float* __restrict__ lo, const void* __restrict__ hi,
   const int rho = blockIdx.x % frc, q0 = (blockIdx.x / frc) * lc;
   // window entry i <-> position rho + gc (q0 + i) + shift
   const long long shift = NPH == 2 ? (long long)omin - g.lo : -(long long)cen;
-  fill_index(cols, W, rho + (long long)gc * q0 + shift, gc, M);
+  fill_table<PAD>(cols, W, rho + (long long)gc * q0 + shift + (PAD ? pa.base : 0), gc, M);
   __syncthreads();
   // t1 [q][band][nt] then t2, from taps (4, hlen): band k's first values in
   // row 2k, second values in row 2k + 1; parity q's tap b = j - (o_q - omin)
@@ -248,7 +262,7 @@ inv1d_strip_kernel(const float* __restrict__ lo, const void* __restrict__ hi,
     return bb >= 0 && bb < g.nb[q] ? row + g.p[q] + 2 * bb : -1;
   };
   const int ngroups = (B + kRows - 1) / kRows;
-  const int Nout = NPH * M;
+  const int Nout = PAD ? pa.n_out : NPH * M;
   for (int grp = blockIdx.y; grp < ngroups; grp += gridDim.y) {
     const long long row0 = (long long)grp * kRows;
     // one staging per type of the high band, each with the type a constant
@@ -279,6 +293,10 @@ inv1d_strip_kernel(const float* __restrict__ lo, const void* __restrict__ hi,
     __syncthreads();
     auto orow = [&](int i) { return row0 + i; };
     auto ocol = [&](int u) {
+      if constexpr (PAD) {  // output i is the body's output i + off
+        const long long c = 2LL * q0 + u - pa.off;
+        return c < 0 ? (long long)Nout : c;
+      }
       return NPH == 2 ? 2LL * q0 + u : rho + (long long)gc * (q0 + u);
     };
     if (out_bf16)
@@ -320,7 +338,7 @@ cudaError_t launch_fwd(const void* x, float* lo, void* hi, int B, int N, const f
     cudaError_t e = prepare(kernel, smem);
     if (e != cudaSuccess) return e;
     kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-        x, lo, hi, in_bf16, hi_bf16, B, N, hlen, f, cen, taps, lc, gc, nt);
+        x, lo, hi, in_bf16, hi_bf16, B, N, hlen, f, cen, taps, lc, gc, nt, 0);
     return cudaGetLastError();
   });
 }
@@ -357,12 +375,73 @@ cudaError_t launch_inv(const float* lo, const void* hi, void* out, int B, int M,
     cudaError_t e = prepare(kernel, smem);
     if (e != cudaSuccess) return e;
     kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-        lo, hi, out, hi_bf16, out_bf16, B, M, hlen, f, cen, g, taps, lc, gc, nt);
+        lo, hi, out, hi_bf16, out_bf16, B, M, hlen, f, cen, g, taps, lc, gc, nt, PadAxis{});
     return cudaGetLastError();
   });
 }
 
 }  // namespace
+
+namespace pdwt_m1d {
+
+// Launch the padded decimated analysis (fwd1d_strip_kernel<FD, 2, true>) on
+// (B, N) float32 signals that hold their extension, into two (B, n_out)
+// bands; the plan is kernel 7's for n_out outputs (kernels/batched1d.py:
+// fwd1d_padded_launch_plan).  Refused (cudaErrorInvalidValue) where the
+// plan does not add up or the outputs would read past the signal.
+int launch_fwd_padded(const float* x, float* lo, float* hi, int B, int N, int n_out,
+                      const float* taps, int hlen, int lc, int gc, int nt, int threads, int gx,
+                      int gy, int gz, int smem, void* stream) {
+  if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || n_out < 1 ||
+      N < 2LL * (n_out - 1) + hlen)
+    return cudaErrorInvalidValue;
+  if (nt < hlen || nt % kFwdCh || nt > PDWT_MXU_MAX_HLEN || gc != 1 || lc < 1 ||
+      lc % kRowStrip<FD> || threads < 32 || threads > 256 || threads % 32 ||
+      !lines_fit(B, n_out, 1, lc, 1, gx, gy, gz) || (size_t)smem != fwd1d_smem<FD>(2, lc, 1, nt))
+    return cudaErrorInvalidValue;
+  auto kernel = fwd1d_strip_kernel<FD, 2, true>;
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+      x, lo, hi, 0, 0, B, N, hlen, 1, 0, taps, lc, 1, nt, n_out);
+  return cudaGetLastError();
+}
+
+// Launch the padded polyphase synthesis (inv1d_strip_kernel<FD, 2, true>)
+// on two (B, M) float32 bands the caller padded, into (B, pad[2]): `pad`
+// holds base, off and n_out (band_strip.cuh: PadAxis); taps and geometry
+// as kernel 8's, the plan kernel 8's for pad_positions(pad) positions
+// (kernels/batched1d.py: inv1d_padded_launch_plan).  Refused
+// (cudaErrorInvalidValue) where the plan does not add up or a stored
+// output would read outside the bands (pad_axis_ok).
+int launch_inv_padded(const float* lo, const float* hi, float* out, int B, int M, const int* pad,
+                      const float* taps, int hlen, const int* geo, int lc, int gc, int nt,
+                      int threads, int gx, int gy, int gz, int smem, void* stream) {
+  if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || M < 1) return cudaErrorInvalidValue;
+  const Poly g = make_poly(geo);
+  const PadAxis pa = {pad[0], pad[1], pad[2]};
+  const int o0 = g.lo + g.o[0], o1 = g.lo + g.o[1], omin = o0 < o1 ? o0 : o1;
+  for (int q = 0; q < 2; ++q)
+    if ((q ? o1 : o0) < 0 || g.p[q] < 0 || g.nb[q] < 1 || g.p[q] + 2 * (g.nb[q] - 1) >= hlen)
+      return cudaErrorInvalidValue;
+  const int need = (o0 - omin + g.nb[0]) > (o1 - omin + g.nb[1]) ? o0 - omin + g.nb[0]
+                                                                  : o1 - omin + g.nb[1];
+  const long long npos = pad_positions(pa);
+  if (!pad_axis_ok(pa, g, M) || npos > (1LL << 30) || nt < need || nt % kCh<2> ||
+      nt > PDWT_MXU_MAX_HLEN + kCh<2> || gc != 1 || lc < 1 || lc % kRowStrip<FD> ||
+      threads < 32 || threads > 256 || threads % 32 ||
+      !lines_fit(B, (int)npos, 1, lc, 1, gx, gy, gz) ||
+      (size_t)smem != inv1d_smem<FD>(2, lc, 1, nt))
+    return cudaErrorInvalidValue;
+  auto kernel = inv1d_strip_kernel<FD, 2, true>;
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+      lo, hi, out, 0, 0, B, M, hlen, 1, 0, g, taps, lc, 1, nt, pa);
+  return cudaGetLastError();
+}
+
+}  // namespace pdwt_m1d
 
 // Every entry point returns a cudaError_t as int: 0 once the launch has been
 // queued on `stream`, else the reason it was refused (cudaGetLastError()).

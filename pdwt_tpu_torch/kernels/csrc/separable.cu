@@ -110,12 +110,24 @@ size_t inv_smem(int offmax, int lr, int lc, int nt) {
          2 * nd * 2 * (size_t)lr * temp_pitch<St>((int)WC) * sizeof(St);
 }
 
-template <int S>
+//
+// PAD: kernel 2's padded entry point (pdwt_inv_level_2d_padded), which
+// replaces inv_level_2d_padded (separable_pallas.py:498): the same tile
+// work on subbands the caller padded (zeros or nothing on a pywt axis, the
+// periodic halo on a periodization axis), with index tables that do not
+// wrap (fill_table) starting `base` coefficients in, and per axis the
+// outputs from the body's output `off` on, n_out of them, written straight
+// to an n_out_r x n_out_c plane (band_strip.cuh: PadAxis).  The pywt
+// synthesis at shift 1 is the body's at shift inv_shift(hlen) moved by
+// whole coefficients (base) and at most one output (off), so the taps and
+// the geometry stay kernel 2's.
+template <int S, bool PAD = false>
 __global__ void __launch_bounds__(256)
 inv_level_kernel(const float* __restrict__ a, const void* __restrict__ h,
                  const void* __restrict__ v, const void* __restrict__ d, void* __restrict__ out,
                  int det_bf16, int out_bf16, int B, int Mr, int Mc, int hlen, const Poly g,
-                 const float* __restrict__ taps, int lr, int lc, int nt) {
+                 const float* __restrict__ taps, int lr, int lc, int nt, const PadAxis pr,
+                 const PadAxis pc) {
   using St = Stage<S>;
   constexpr int nd = kDataLo<S> ? 2 : 1, nv = kTapLo<S> ? 2 : 1;
   constexpr int PR = kRowStrip<S>, PC = kColStrip;
@@ -137,8 +149,8 @@ inv_level_kernel(const float* __restrict__ a, const void* __restrict__ h,
   const int BS = nd * WR * WC, TS = nd * TR * TP;  // band and temp strides
 
   const int q0r = blockIdx.y * lr, q0c = blockIdx.x * lc;
-  fill_index(rows, WR, (long long)q0r - g.lo, 1, Mr);
-  fill_index(cols, WC, (long long)q0c - g.lo, 1, Mc);
+  fill_table<PAD>(rows, WR, (long long)pr.base + q0r - g.lo, 1, Mr);
+  fill_table<PAD>(cols, WC, (long long)pc.base + q0c - g.lo, 1, Mc);
   __syncthreads();
   // t1[(2 q + k) nt + j] = taps[2 k hlen + p_q + 2 j] (k = 0 low, 1 high), 0
   // past nb_q; t2 the same from row 2 k + 1 (the (4, hlen) buffer's second
@@ -193,6 +205,22 @@ inv_level_kernel(const float* __restrict__ a, const void* __restrict__ h,
       }
     }
     __syncthreads();
+    if constexpr (PAD) {
+      // output i is the body's output i + off; one before 0 maps past n_out
+      // and is not stored
+      auto orow = [&](int r2) {
+        const long long r = 2LL * q0r + r2 - pr.off;
+        return r < 0 ? (long long)pr.n_out : r;
+      };
+      auto ocol = [&](int u) {
+        const long long c = 2LL * q0c + u - pc.off;
+        return c < 0 ? (long long)pc.n_out : c;
+      };
+      store_tile(static_cast<float*>(out), (size_t)b * pr.n_out * pc.n_out, pr.n_out, pc.n_out,
+                 tile, OC, TR, 2 * lc, orow, ocol);
+      __syncthreads();
+      continue;
+    }
     auto orow = [&](int r2) { return 2LL * q0r + r2; };
     auto ocol = [&](int u) { return 2LL * q0c + u; };
     const size_t oplane = (size_t)b * 4 * Mr * Mc;
@@ -365,9 +393,47 @@ int launch_inv_level(const float* a, const void* h, const void* v, const void* d
     cudaError_t e = prepare(kernel, smem);
     if (e != cudaSuccess) return e;
     kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-        a, h, v, d, out, det_bf16, out_bf16, B, Mr, Mc, hlen, g, taps, lr, lc, nt);
+        a, h, v, d, out, det_bf16, out_bf16, B, Mr, Mc, hlen, g, taps, lr, lc, nt, PadAxis{},
+        PadAxis{});
     return cudaGetLastError();
   });
+}
+
+// Launch the padded synthesis level (inv_level_kernel<FD, true>) on
+// float32 (B, Mr, Mc) subbands the caller padded, into (B, n_out_r,
+// n_out_c): `pad` holds base, off and n_out of the rows, then of the
+// columns (PadAxis); taps, geometry and plan as kernel 2's, the plan made
+// for pad_positions(row) x pad_positions(column) positions
+// (kernels/separable.py: inv_padded_launch_plan).  Refused
+// (cudaErrorInvalidValue) where the plan does not add up or a stored
+// output would read outside the subbands (pad_axis_ok).
+int launch_inv_padded(const float* a, const float* h, const float* v, const float* d,
+                      float* out, int B, int Mr, int Mc, const int* pad, const float* taps,
+                      int hlen, const int* geo, int lr, int lc, int nt, int threads, int gx,
+                      int gy, int gz, int smem, void* stream) {
+  if (hlen < 2 || hlen > PDWT_MAX_HLEN || B < 1 || Mr < 1 || Mc < 1)
+    return cudaErrorInvalidValue;
+  const Poly g = make_poly(geo);
+  const PadAxis pr = {pad[0], pad[1], pad[2]}, pc = {pad[3], pad[4], pad[5]};
+  for (int q = 0; q < 2; ++q)
+    if (poly_off(g, q) < 0 || g.p[q] < 0 || g.nb[q] < 1 || g.nb[q] > nt ||
+        g.p[q] + 2 * (g.nb[q] - 1) >= hlen)
+      return cudaErrorInvalidValue;
+  if (!pad_axis_ok(pr, g, Mr) || !pad_axis_ok(pc, g, Mc) || nt % kInvCh || nt > PDWT_MAX_HLEN ||
+      lr < 1 || lc < 1 || lr % kRowStrip<FD> || lc % kColStrip || threads < 32 || threads > 256 ||
+      threads % 32)
+    return cudaErrorInvalidValue;
+  const int offmax = poly_off(g, 0) > poly_off(g, 1) ? poly_off(g, 0) : poly_off(g, 1);
+  if (gx != (pad_positions(pc) + lc - 1) / lc || gy != (pad_positions(pr) + lr - 1) / lr ||
+      gy > 65535 || gz != (B < 65535 ? B : 65535) ||
+      (size_t)smem != inv_smem<FD>(offmax, lr, lc, nt))
+    return cudaErrorInvalidValue;
+  auto kernel = inv_level_kernel<FD, true>;
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+      a, h, v, d, out, 0, 0, B, Mr, Mc, hlen, g, taps, lr, lc, nt, pr, pc);
+  return cudaGetLastError();
 }
 
 // Launch the inverse tail (kernel 4) on (B, Mr, Mc) deepest subbands and
@@ -420,6 +486,10 @@ int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R,
 int launch_fwd_tail(const float* x, float* a, float* scratch, void* const* det, int B, int R,
                     int C, int levels, const float* taps, int hlen, int cen, int nb, int cs,
                     int nt, int threads, int smem, const int* tiles, void* stream);
+int launch_fwd_padded(const float* x, float* a, float* h, float* v, float* d, int B, int R,
+                      int C, int Ro, int Co, const float* taps, int hlen, int lr, int lc, int gc,
+                      int nph, int nt, int threads, int gx, int gy, int gz, int smem,
+                      void* stream);
 }
 
 // Every entry point returns a cudaError_t as int: 0 once the launch has been
@@ -482,6 +552,33 @@ extern "C" int pdwt_inv_tail_2d(const float* a, void* const* det, float* out, fl
                                 const int* tiles, void* stream) {
   return pdwt_sep::launch_inv_tail(a, det, out, scratch, B, Mr, Mc, levels, taps, hlen, geo, nb,
                                    cs, nt, threads, smem, tiles, stream);
+}
+
+// The padded entry points of kernels 1 and 2 (the boundary modes,
+// core/separable.py: the mode route).  Kernel 1's: a (B, R, C) float32
+// input that holds its extension -> four (B, Ro, Co) subbands, out[n] =
+// sum_j t[j] x[2n + j] per axis (swt_matmul.cu: fwd_padded_kernel); taps
+// and plan as kernel 1's (kernels/separable.py: fwd_padded_launch_plan).
+extern "C" int pdwt_fwd_level_2d_padded(const float* x, float* a, float* h, float* v, float* d,
+                                        int B, int R, int C, int Ro, int Co, const float* taps,
+                                        int hlen, int lr, int lc, int gc, int nph, int nt,
+                                        int threads, int gx, int gy, int gz, int smem,
+                                        void* stream) {
+  return pdwt_swtmm::launch_fwd_padded(x, a, h, v, d, B, R, C, Ro, Co, taps, hlen, lr, lc, gc,
+                                       nph, nt, threads, gx, gy, gz, smem, stream);
+}
+
+// Kernel 2's: four padded (B, Mr, Mc) float32 subbands -> (B, n_out_r,
+// n_out_c); `pad` (6 ints: base, off, n_out of the rows, then of the
+// columns), taps, geometry and plan (kernels/separable.py:
+// inv_padded_launch_plan) as pdwt_sep::launch_inv_padded takes them.
+extern "C" int pdwt_inv_level_2d_padded(const float* a, const float* h, const float* v,
+                                        const float* d, float* out, int B, int Mr, int Mc,
+                                        const int* pad, const float* taps, int hlen,
+                                        const int* geo, int lr, int lc, int nt, int threads,
+                                        int gx, int gy, int gz, int smem, void* stream) {
+  return pdwt_sep::launch_inv_padded(a, h, v, d, out, B, Mr, Mc, pad, taps, hlen, geo, lr, lc,
+                                     nt, threads, gx, gy, gz, smem, stream);
 }
 
 extern "C" const char* pdwt_error_string(int code) {

@@ -121,11 +121,12 @@ size_t fwd_smem(int os, int lr, int lc, int dc, int nt, int nph) {
 }
 
 // Geometry of one tile of the forward: an R x C input (plane), (R / OS) x
-// (C / OS) outputs, lr x lc of them in the tile at rows rho_r + f (q0r + i)
-// and columns rho_c + gc (q0c + u).
+// (C / OS) outputs (Ro x Co in a padded launch), lr x lc of them in the
+// tile at rows rho_r + f (q0r + i) and columns rho_c + gc (q0c + u).
 struct FwdTile {
   int R, C, hlen, f, cen, lr, lc, gc, nph, nt;
   int rho_r, q0r, rho_c, q0c;
+  int Ro, Co;  // read where PAD only
 };
 
 // One tile of one batch item, the per-tile work of the level kernel below
@@ -134,8 +135,10 @@ struct FwdTile {
 // are read around it where load_taps), the row pass, the column pass,
 // store the tiles (output plane offset oplane; A float32, H, V, D bf16
 // where det_bf16).  Ends at a block barrier, so the next call may reuse
-// the shared memory; the taps at its start stay.
-template <int S, int OS, typename SW>
+// the shared memory; the taps at its start stay.  PAD (kernel 1's padded
+// entry point): the index tables do not wrap (band_strip.cuh: fill_table)
+// and the outputs are Ro x Co.
+template <int S, int OS, bool PAD = false, typename SW>
 __device__ __forceinline__ void fwd_tile(unsigned char* smem_raw, const FwdTile& g,
                                          const float* __restrict__ taps, bool load_taps,
                                          SW stage_src, float* a, void* h, void* v, void* d,
@@ -147,7 +150,7 @@ __device__ __forceinline__ void fwd_tile(unsigned char* smem_raw, const FwdTile&
   // SM) and 20-30 % more time on an H100 (PERF.md, section 6)
   constexpr int PR = kRowStrip<S>, PC = OS == 2 ? kRowStrip<S> : kColStrip;
   const int R = g.R, C = g.C, f = g.f, lr = g.lr, lc = g.lc, gc = g.gc, nph = g.nph, nt = g.nt;
-  const int Ro = R / OS, Co = C / OS, dc = f / gc;
+  const int Ro = PAD ? g.Ro : R / OS, Co = PAD ? g.Co : C / OS, dc = f / gc;
   const int WR = OS * (lr - 1) + nt, WC = OS * (lc - 1) + (nt - 1) * dc + 1;
   const int TP = temp_pitch<St>(WC), OP = lc + 1;
   float* t1 = reinterpret_cast<float*>(smem_raw);  // lo | hi, first values
@@ -163,8 +166,8 @@ __device__ __forceinline__ void fwd_tile(unsigned char* smem_raw, const FwdTile&
   const int TS = nd * lr * TP;  // temp stride: the low temp, then the high one
 
   // window column w <-> input column OS (rho_c + gc q0c) - cen f + gc w
-  fill_index(rows, WR, OS * (g.rho_r + (long long)f * g.q0r) - (long long)g.cen * f, f, R);
-  fill_index(cols, WC, OS * (g.rho_c + (long long)gc * g.q0c) - (long long)g.cen * f, gc, C);
+  fill_table<PAD>(rows, WR, OS * (g.rho_r + (long long)f * g.q0r) - (long long)g.cen * f, f, R);
+  fill_table<PAD>(cols, WC, OS * (g.rho_c + (long long)gc * g.q0c) - (long long)g.cen * f, gc, C);
   __syncthreads();
   auto tap = [&](int e) { return dual_tap(e, nt, g.hlen); };
   auto stage_win = [&] { stage_src(rows, cols, WR, WC, win); };
@@ -247,6 +250,43 @@ swt_fwd_mxu_kernel(const void* __restrict__ x, float* __restrict__ a, void* __re
     };
     fwd_tile<S, OS>(smem_raw, g, taps, b == (int)blockIdx.z, stage_src, a, h, v, d, det_bf16,
                     (size_t)b * Ro * Co);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Padded forward level: kernel 1's padded entry point (separable.cu:
+// pdwt_fwd_level_2d_padded).  Replaces fwd_level_2d_padded
+// (separable_pallas.py:355), which runs kernel 1's Pallas body on an input
+// whose boundary extension the caller wrote as the pad; the port's boundary
+// modes hand it the pywt extension (core/modes.py: extend by (hlen - 2,
+// hlen - 1)) or, on a periodization axis of a per-axis tuple, the odd
+// extension wrapped at the periodic center.  It is kernel 1's per-tile work
+// (fwd_tile<FD, 2>, rows first, the taps in order, one FMA each) with index
+// tables that do not wrap, on an R x C input that already holds every
+// sample the Ro x Co outputs read:
+//   out[n] = sum_j t[j] * x[2n + j] per axis, n < Ro (Co), R >= 2 (Ro - 1) + hlen.
+// Bound: device memory, as kernel 1: the extended input is read once and
+// the four subbands written once; the extension the caller writes adds
+// one read and one write of the image (a later PR may read the extension
+// straight from index tables, ROADMAP).  Plan: kernels/separable.py:
+// fwd_padded_launch_plan (kernel 1's plan for Ro x Co outputs).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(256)
+fwd_padded_kernel(const float* __restrict__ x, float* __restrict__ a, float* __restrict__ h,
+                  float* __restrict__ v, float* __restrict__ d, int B, int R, int C, int Ro,
+                  int Co, int hlen, const float* __restrict__ taps, int lr, int lc, int nph,
+                  int nt) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const FwdTile g = {R, C, hlen, 1, 0, lr, lc, 1, nph, nt, 0, (int)blockIdx.y * lr, 0,
+                     (int)blockIdx.x * lc, Ro, Co};
+  for (int b = blockIdx.z; b < B; b += gridDim.z) {
+    const size_t plane = (size_t)b * R * C;
+    auto stage_src = [&](const int* rows, const int* cols, int WR, int WC, float* win) {
+      auto row = [&](int i) { return plane + (size_t)rows[i] * C; };
+      stage_window<FD, 1, 6, 3>(Bands{{x}, 0u}, row, cols, WR, WC, win, WC, 0, WR * WC);
+    };
+    fwd_tile<FD, 2, true>(smem_raw, g, taps, b == (int)blockIdx.z, stage_src, a, h, v, d, 0,
+                          (size_t)b * Ro * Co);
   }
 }
 
@@ -479,6 +519,29 @@ int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R,
     };
     return os == 2 ? launch(swt_fwd_mxu_kernel<S, 2>) : launch(swt_fwd_mxu_kernel<S, 1>);
   });
+}
+
+// Launch the padded forward level (fwd_padded_kernel) on its plan: the same
+// plan fields as kernel 1's (gc = 1); refused (cudaErrorInvalidValue) where
+// the plan does not add up or the Ro x Co outputs would read past the R x
+// C input.
+int launch_fwd_padded(const float* x, float* a, float* h, float* v, float* d, int B, int R,
+                      int C, int Ro, int Co, const float* taps, int hlen, int lr, int lc, int gc,
+                      int nph, int nt, int threads, int gx, int gy, int gz, int smem,
+                      void* stream) {
+  if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || Ro < 1 || Co < 1 ||
+      R < 2LL * (Ro - 1) + hlen || C < 2LL * (Co - 1) + hlen)
+    return cudaErrorInvalidValue;
+  if (nt < hlen || nt > PDWT_MXU_MAX_HLEN || nt % kFwdCh || gc != 1 || !(nph == 1 || nph == 2) ||
+      lr < 1 || lc < 1 || lr % kRowStrip<FD> || lc % kColStrip || threads < 32 || threads > 256 ||
+      threads % 32 || !grid_fits(B, Ro, Co, 1, lr, lc, 1, gx, gy, gz) ||
+      (size_t)smem != fwd_smem<FD>(2, lr, lc, 1, nt, nph))
+    return cudaErrorInvalidValue;
+  cudaError_t e = prepare(fwd_padded_kernel, smem);
+  if (e != cudaSuccess) return e;
+  fwd_padded_kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+      x, a, h, v, d, B, R, C, Ro, Co, hlen, taps, lr, lc, nph, nt);
+  return cudaGetLastError();
 }
 
 // Launch the forward tail (kernel 3) on its plan (kernels/separable.py:

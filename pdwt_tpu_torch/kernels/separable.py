@@ -4,14 +4,16 @@ Counterpart of ``pdwt_tpu/kernels/separable_pallas.py``.  Four CUDA
 kernels (entry points in ``csrc/separable.cu``) carry the 2D periodization
 main path:
 
-=================  ==========================================  =======================
-wrapper            computes                                    plain version
-=================  ==========================================  =======================
-``fwd_level_2d``   one analysis level, both passes fused       ``fwd_level_2d_ref``
-``inv_level_2d``   one synthesis level, both passes fused      ``inv_level_2d_ref``
-``fwd_tail_2d``    all remaining analysis levels, one launch   ``fwd_tail_2d_ref``
-``inv_tail_2d``    the k deepest synthesis levels, one launch  ``inv_tail_2d_ref``
-=================  ==========================================  =======================
+=========================  ==========================================  ==============================
+wrapper                    computes                                    plain version
+=========================  ==========================================  ==============================
+``fwd_level_2d``           one analysis level, both passes fused       ``fwd_level_2d_ref``
+``inv_level_2d``           one synthesis level, both passes fused      ``inv_level_2d_ref``
+``fwd_tail_2d``            all remaining analysis levels, one launch   ``fwd_tail_2d_ref``
+``inv_tail_2d``            the k deepest synthesis levels, one launch  ``inv_tail_2d_ref``
+``fwd_level_2d_padded``    kernel 1 on an input holding its extension  ``fwd_level_2d_padded_ref``
+``inv_level_2d_padded``    kernel 2 on padded subbands, no wrap        ``inv_level_2d_padded_ref``
+=========================  ==========================================  ==============================
 
 A wrapper given a CPU tensor returns its plain version, built on
 ``core/conv.py``; given a CUDA tensor it launches its kernel or raises.
@@ -31,6 +33,20 @@ levels spread over the blocks of one thread-block cluster that meet at a
 cluster barrier between levels, on the plan of ``tail_launch_plan``; so
 each tail level equals the level kernel bit for bit on finite data.  All
 four read their taps from ``dual_taps``.
+
+The padded entry points are the counterparts of
+``separable_pallas.py:355 fwd_level_2d_padded`` and ``:498
+inv_level_2d_padded``, for the boundary modes (``core/separable.py``'s
+mode route): the same bodies (``csrc/swt_matmul.cu: fwd_padded_kernel`` on
+``fwd_tile<FD, 2, true>``, ``csrc/separable.cu: inv_level_kernel<FD,
+true>``) with index tables that do not wrap, on the spec of
+``conv.padded_analysis_pass`` and ``conv.padded_synthesis_pass``.  The
+synthesis's offset ``c0`` in the zero-stuffed domain becomes the periodic
+body's ``base`` and ``off`` per axis (``_launch.pad_axis``), and exactly
+the requested outputs are written.  Their autograd Functions run the
+kernels forward; the backward is the exact adjoint through the plain
+versions (``torch.func.vjp``), as JAX's mode route transposes its fma
+formulation (``pdwt_tpu/core/separable.py:437-481``).
 
 Filters are forward-convention float64 arrays (``dec_lo``/``dec_hi`` for
 analysis, ``rec_lo``/``rec_hi`` for synthesis), as in the JAX kernels; the
@@ -53,10 +69,11 @@ import numpy as np
 import torch
 
 from ..core import conv
-from ._launch import LAUNCHES, MAX_HLEN, reset_launch_counts  # noqa: F401 (re-exported)
+from ._launch import LAUNCHES, MAX_HLEN, PadAxis, reset_launch_counts  # noqa: F401 (re-exported)
 from ._launch import (FWD_CHUNK, FWD_TILES, PLAN_TILES, ROW_STRIP, SMEM_LIMIT, SMS, InvPlan,
                       align16, block_target, cdiv, dual_taps, fwd_plan, fwd_smem, launch,
-                      on_cpu, pick_plan, poly_geo, ptr, rev, stage_bytes, temp_pitch)
+                      on_cpu, pad_axis, pad_positions, pick_plan, poly_geo, ptr,
+                      rev, stage_bytes, temp_pitch)
 
 #: Most levels one tail launch fuses (PDWT_MAX_TAIL_LEVELS).
 MAX_TAIL_LEVELS = 16
@@ -102,6 +119,29 @@ def inv_tail_2d_ref(a, details: Sequence[Bands], rec_lo, rec_hi):
     for (h, v, d) in details:
         a = inv_level_2d_ref(a, h, v, d, rec_lo, rec_hi)
     return a
+
+
+def fwd_level_2d_padded_ref(xp: torch.Tensor, dec_lo, dec_hi):
+    """One analysis level on a (B, Rp, Cp) input that holds its boundary
+    extension: ``out[n] = sum_j frev[j] xp[2n + j]`` along the columns,
+    then the rows, no wrap -> four (B, (Rp - hlen) // 2 + 1, (Cp - hlen) //
+    2 + 1) subbands."""
+    dec = (dec_lo, dec_hi)
+    z = conv.padded_analysis_pass(xp[:, None], dec, axis=-1)
+    z = conv.padded_analysis_pass(z, dec, axis=-2)
+    return tuple(z[:, k].contiguous() for k in range(4))
+
+
+def inv_level_2d_padded_ref(a, h, v, d, rec_lo, rec_hi, c0: Tuple[int, int],
+                            out_shape: Tuple[int, int]) -> torch.Tensor:
+    """One synthesis level on (B, Mr, Mc) subbands that hold their boundary
+    (zeros, or the periodic halo), rows then columns, no wrap: along each
+    axis ``out[i] = sum_k sum_j rev_k[j] U_k[i + c0 + j]`` for ``i <
+    out_len`` (``conv.padded_synthesis_pass``) -> (B, *out_shape)."""
+    rec = (rec_lo, rec_hi)
+    z = torch.stack([a, h, v, d], dim=1)
+    t = conv.padded_synthesis_pass(z, rec, -2, c0[0], out_shape[0])
+    return conv.padded_synthesis_pass(t, rec, -1, c0[1], out_shape[1])[:, 0].contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +212,19 @@ def inv_level_launch_plan(B: int, Mr: int, Mc: int, hlen: int, scheme: str = "fd
             continue
         cands.append(InvPlan(lr, lc, 1, 1, nt, 256, grid, _inv_smem(offmax, lr, lc, nt, scheme)))
     return pick_plan(cands, block_target(B, 2 * Mr, 2 * Mc))
+
+
+def fwd_padded_launch_plan(B: int, Ro: int, Co: int, hlen: int) -> InvPlan:
+    """The launch of kernel 1's padded entry point for (Ro, Co) outputs:
+    kernel 1's plan for that output size (``fwd_level_launch_plan`` of a
+    (2 Ro, 2 Co) image)."""
+    return fwd_level_launch_plan(B, 2 * Ro, 2 * Co, hlen)
+
+
+def inv_padded_launch_plan(B: int, rows: PadAxis, cols: PadAxis, hlen: int) -> InvPlan:
+    """The launch of kernel 2's padded entry point: kernel 2's plan for the
+    coefficient positions its grid covers (``pad_positions``)."""
+    return inv_level_launch_plan(B, pad_positions(rows), pad_positions(cols), hlen)
 
 
 # ---------------------------------------------------------------------------
@@ -361,9 +414,69 @@ def inv_tail_2d(a: torch.Tensor, details: Sequence[Bands], rec_lo, rec_hi):
     return out
 
 
+def fwd_level_2d_padded(xp: torch.Tensor, dec_lo, dec_hi):
+    """One analysis level on a (B, Rp, Cp) float32 input that holds its
+    boundary extension -> (a, h, v, d), each (B, (Rp - hlen) // 2 + 1,
+    (Cp - hlen) // 2 + 1), on ``fwd_padded_launch_plan``."""
+    if on_cpu(xp):
+        return fwd_level_2d_padded_ref(xp, dec_lo, dec_hi)
+    B, R, C = xp.shape
+    tp = dual_taps((dec_lo, dec_hi), "fd", xp.device)
+    hlen = tp.shape[1]
+    ro, co = conv.padded_len(R, hlen), conv.padded_len(C, hlen)
+    pl = fwd_padded_launch_plan(B, ro, co, hlen)
+    outs = [torch.empty((B, ro, co), device=xp.device, dtype=xp.dtype) for _ in range(4)]
+    launch("fwd_level_2d_padded", xp.device,
+           [ptr(xp), *map(ptr, outs), B, R, C, ro, co, ptr(tp), hlen, pl.lr, pl.lc, pl.gc,
+            pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
+    return tuple(outs)
+
+
+def inv_level_2d_padded(a, h, v, d, rec_lo, rec_hi, c0: Tuple[int, int],
+                        out_shape: Tuple[int, int]) -> torch.Tensor:
+    """One synthesis level on (B, Mr, Mc) float32 subbands that hold their
+    boundary -> (B, *out_shape), the spec of ``inv_level_2d_padded_ref``,
+    on ``inv_padded_launch_plan``.  Raises where an output would read
+    outside the subbands."""
+    if on_cpu(a, h, v, d):
+        return inv_level_2d_padded_ref(a, h, v, d, rec_lo, rec_hi, c0, out_shape)
+    if not a.shape == h.shape == v.shape == d.shape:
+        raise ValueError("the four subbands must have one shape")
+    B, mr, mc = a.shape
+    tp = dual_taps((rec_lo, rec_hi), "fd", a.device)
+    hlen = tp.shape[1]
+    conv.check_padded_synthesis(mr, hlen, c0[0], out_shape[0])
+    conv.check_padded_synthesis(mc, hlen, c0[1], out_shape[1])
+    rows, cols = (pad_axis(hlen, c, n) for c, n in zip(c0, out_shape))
+    pl = inv_padded_launch_plan(B, rows, cols, hlen)
+    pad = np.array([*rows, *cols], dtype=np.int32)
+    geo = poly_geo(hlen)
+    out = torch.empty((B, *out_shape), device=a.device, dtype=a.dtype)
+    launch("inv_level_2d_padded", a.device,
+           [*map(ptr, (a, h, v, d, out)), B, mr, mc, ptr(pad), ptr(tp), hlen, ptr(geo), pl.lr,
+            pl.lc, pl.nt, pl.threads, *pl.grid, pl.smem])
+    return out
+
+
 # ---------------------------------------------------------------------------
-# autograd: each backward is the paired kernel with reversed taps
+# autograd: each backward is the paired kernel with reversed taps; the
+# padded entry points' the exact adjoint through their plain versions
 # ---------------------------------------------------------------------------
+
+def meta(t: torch.Tensor):
+    """What :func:`plain_vjp` needs of a forward input: shape, dtype, device."""
+    return tuple(t.shape), t.dtype, t.device
+
+
+def plain_vjp(ref, like, cotangents):
+    """The adjoint of a linear plain version ``ref`` (one tensor in, of
+    the shape, dtype and device ``like`` = :func:`meta`) on
+    ``cotangents``."""
+    shape, dtype, device = like
+    _, vjp = torch.func.vjp(ref, torch.zeros(shape, dtype=dtype, device=device))
+    return vjp(cotangents)
+
+
 
 def _c(ts):
     return [t.contiguous() for t in ts]
@@ -425,6 +538,35 @@ class _InvTail2D(torch.autograd.Function):
         return (None, None, ga, *flat)
 
 
+class _FwdLevel2DPadded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xp, dec_lo, dec_hi):
+        ctx.filters = (dec_lo, dec_hi)
+        ctx.like = meta(xp)
+        return fwd_level_2d_padded(xp, dec_lo, dec_hi)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        lo, hi = ctx.filters
+        (gx,) = plain_vjp(lambda t: fwd_level_2d_padded_ref(t, lo, hi), ctx.like, grads)
+        return gx, None, None
+
+
+class _InvLevel2DPadded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, h, v, d, rec_lo, rec_hi, c0, out_shape):
+        ctx.args = (rec_lo, rec_hi, c0, out_shape)
+        ctx.like = ((4,) + tuple(a.shape), a.dtype, a.device)
+        return inv_level_2d_padded(a, h, v, d, rec_lo, rec_hi, c0, out_shape)
+
+    @staticmethod
+    def backward(ctx, gy):
+        lo, hi, c0, shape = ctx.args
+        ref = lambda z: inv_level_2d_padded_ref(*z, lo, hi, c0, shape)
+        (g,) = plain_vjp(ref, ctx.like, gy.contiguous())
+        return (*g, None, None, None, None)
+
+
 def fwd_level_2d_ad(x, dec_lo, dec_hi):
     """Differentiable :func:`fwd_level_2d`."""
     return _FwdLevel2D.apply(x, dec_lo, dec_hi)
@@ -444,3 +586,14 @@ def fwd_tail_2d_ad(x, dec_lo, dec_hi, levels: int):
 def inv_tail_2d_ad(a, details: Sequence[Bands], rec_lo, rec_hi):
     """Differentiable :func:`inv_tail_2d` (``details`` deepest first)."""
     return _InvTail2D.apply(rec_lo, rec_hi, a, *[t for band in details for t in band])
+
+
+def fwd_level_2d_padded_ad(xp, dec_lo, dec_hi):
+    """Differentiable :func:`fwd_level_2d_padded`."""
+    return _FwdLevel2DPadded.apply(xp, dec_lo, dec_hi)
+
+
+def inv_level_2d_padded_ad(a, h, v, d, rec_lo, rec_hi, c0: Tuple[int, int],
+                           out_shape: Tuple[int, int]):
+    """Differentiable :func:`inv_level_2d_padded`."""
+    return _InvLevel2DPadded.apply(a, h, v, d, rec_lo, rec_hi, tuple(c0), tuple(out_shape))

@@ -23,12 +23,6 @@ def check_mode(mode: str) -> None:
         raise ValueError(f"unknown mode {mode!r}; pick from {sorted(_THRESH)}")
 
 
-def _check_boundary(boundary) -> None:
-    if not all_periodization(boundary):
-        raise NotImplementedError(
-            f"boundary={boundary!r} comes with ROADMAP queue 1, item 10")
-
-
 def _resolve(wav):
     return get_wavelet(wav) if isinstance(wav, str) else wav
 
@@ -46,8 +40,14 @@ def denoise_step(img: torch.Tensor, generator: Optional[torch.Generator], wav,
     elementwise mode and a scalar ``beta`` the threshold runs inside the
     inverse's kernel and the norm comes from the un-thresholded
     coefficients (``ops.thresholded_norm1``): the thresholded tree is never
-    built."""
-    _check_boundary(boundary)
+    built.  ``boundary`` is the DWT's boundary extension (``core/modes.py``;
+    ``mode`` names the threshold, as in the reference): anything but
+    periodization on every axis takes the decimated DWT without cycle
+    spinning (``ValueError`` otherwise, as JAX; the port tests
+    ``all_periodization``, so a per-axis tuple of periodizations passes)."""
+    if not all_periodization(boundary) and (swt or generator is not None):
+        raise ValueError("boundary modes other than 'periodization' apply to the "
+                         "decimated DWT without cycle spinning")
     check_mode(mode)
     wav = _resolve(wav)
     nr, nc = img.shape[-2:]
@@ -63,9 +63,10 @@ def denoise_step(img: torch.Tensor, generator: Optional[torch.Generator], wav,
         n1 = ops.norm1(coeffs)
         out = iswt2d(coeffs, wav)
     else:
-        coeffs = _THRESH[mode](dwt2d(img, wav, levels), beta, normalize=normalize)
+        coeffs = _THRESH[mode](dwt2d(img, wav, levels, mode=boundary), beta,
+                               normalize=normalize)
         n1 = ops.norm1(coeffs)
-        out = idwt2d(coeffs, wav, (nr, nc))
+        out = idwt2d(coeffs, wav, (nr, nc), mode=boundary)
     if generator is not None:
         out = ops.circshift2d(out, -sr, -sc)
     return out, n1
@@ -90,18 +91,21 @@ def auto_denoise(img: torch.Tensor, wav, levels: int, *, method: str = "bayes",
     the coefficients (``method``: ``"bayes"`` per band, ``"sure"`` hybrid
     SureShrink per band, ``"universal"`` one VisuShrink threshold), then
     threshold and invert.  On the SWT a universal threshold with an
-    elementwise mode runs inside the inverse's kernel."""
-    _check_boundary(boundary)
+    elementwise mode runs inside the inverse's kernel.  ``boundary``: the
+    DWT's boundary extension, decimated DWT only (``ValueError`` with
+    ``swt``, as JAX)."""
+    if not all_periodization(boundary) and swt:
+        raise ValueError("boundary modes apply to the decimated DWT only")
     check_mode(mode)
     wav = _resolve(wav)
-    coeffs = (swt2d if swt else dwt2d)(img, wav, levels)
+    coeffs = swt2d(img, wav, levels) if swt else dwt2d(img, wav, levels, mode=boundary)
     beta = _auto_betas(coeffs, method)
     if swt and mode in THR_ELEM and not isinstance(beta, list):
         return iswt2d_denoise(coeffs, wav, beta, mode=mode)
     coeffs = _THRESH[mode](coeffs, beta)
     if swt:
         return iswt2d(coeffs, wav)
-    return idwt2d(coeffs, wav, tuple(img.shape[-2:]))
+    return idwt2d(coeffs, wav, tuple(img.shape[-2:]), mode=boundary)
 
 
 def cycle_spin_denoise(img: torch.Tensor, generator: torch.Generator, wav, levels: int,

@@ -179,9 +179,12 @@ def test_denoise_step_cycle_spins_with_the_generator():
 
 def test_unsupported_flags_name_their_roadmap_item():
     img = _img((16, 16))
-    for kwargs, item in [({"ndim": 3}, 12), ({"mode": "symmetric"}, 10)]:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            Wavelets(img, wname="db2", levels=1, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Wavelets(img, wname="db2", levels=1, device="cpu", ndim=3)
+    # the boundary modes are ported: the facade's forward matches JAX's
+    W = Wavelets(img, wname="db2", levels=1, device="cpu", mode="symmetric")
+    J = JWavelets(img, wname="db2", levels=1, mode="symmetric", backend="fma")
+    _close(_leaves(W.forward()), _leaves(J.forward()))
     with pytest.raises(NotImplementedError, match="item 12"):
         Wavelets(np.zeros((4, 16, 16), np.float32), wname="db2", levels=1, device="cpu")
     # the non-separable transform and the bf16 2D SWT are ported
@@ -197,8 +200,12 @@ def test_unsupported_flags_name_their_roadmap_item():
                                                 backend="fma"))(img)
     _close(out, jout)
     assert np.isclose(float(n1), float(jn1), rtol=NORM_RTOL, atol=0)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        denoise_step(x, None, "db2", 1, 1.0, boundary="symmetric")
+    # and the boundary modes: the DWT step matches JAX's, cycle spinning refuses them
+    out = denoise_step(x, None, "db2", 1, 1.0, boundary="symmetric")[0]
+    _close(out, jax.jit(lambda v: jdenoise_step(v, None, "db2", 1, 1.0, boundary="symmetric",
+                                                backend="fma"))(img)[0])
+    with pytest.raises(ValueError, match="without cycle spinning"):
+        denoise_step(x, torch.Generator().manual_seed(0), "db2", 1, 1.0, boundary="symmetric")
 
 
 def test_wavelet_from_arrays_carries_a_jax_bank():

@@ -146,7 +146,9 @@ def test_launch_counters(dev):
                           "swt_fwd_level_1d_mxu": 0, "swt_inv_level_1d_mxu": 0,
                           "swt_fwd_level_2d_mxu": 0, "swt_inv_level_2d_mxu": 0,
                           "ns_fwd_level_2d_mxu": 0, "ns_inv_level_2d_mxu": 0,
-                          "ns_swt_fwd_level_2d_mxu": 0, "ns_swt_inv_level_2d_mxu": 0}
+                          "ns_swt_fwd_level_2d_mxu": 0, "ns_swt_inv_level_2d_mxu": 0,
+                          "fwd_level_2d_padded": 0, "inv_level_2d_padded": 0,
+                          "fwd_level_1d_padded": 0, "inv_level_1d_padded": 0}
 
 
 def test_cuda_rejects_what_the_kernels_do_not_take(dev):
@@ -1633,3 +1635,85 @@ def test_gradients_flow_through_kernels_3_and_4(dev, wname):
         assert launched == 1, name
         for g, gcpu in zip(gd, gc):
             _close_tier(g.cpu(), gcpu, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the padded entry points of kernels 1, 2, 7 and 8 (the boundary modes)
+# ---------------------------------------------------------------------------
+
+def _leaves(c):
+    return [c.approx, *[t for band in c.details for t in band]]
+
+
+MODE_CASES = [("db7", "symmetric", (1, 61, 40)), ("haar", "zero", (2, 1, 5)),
+              ("sym8", ("periodization", "smooth"), (3, 9, 33)),
+              ("db2", ("reflect", "periodization"), (1, 37, 2)),
+              ("db10", "antireflect", (1, 70, 18))]
+
+
+@pytest.mark.parametrize("wname,mode,shape", MODE_CASES)
+def test_padded_kernels_1_and_2_match_their_plain_versions(dev, wname, mode, shape):
+    """One level of the mode route: kernel 1's padded entry point on the
+    extended image and kernel 2's on the padded subbands, against their
+    plain versions on the card (relative to the largest plain output)."""
+    from pdwt_tpu_torch.core import separable as sep
+
+    w = _wavelet(wname)
+    m = (mode, mode) if isinstance(mode, str) else mode
+    x = _rand(dev, *shape) * 10
+    xp = sep.fwd_mode_pad(sep.fwd_mode_pad(x, -1, w.hlen, m[1]), -2, w.hlen, m[0])
+    bands = K.fwd_level_2d_padded(xp, w.dec_lo, w.dec_hi)
+    _close_joint(bands, K.fwd_level_2d_padded_ref(xp, w.dec_lo, w.dec_hi))
+    padded, c0 = [], [0, 0]
+    for t in bands:
+        t, c0[0] = sep.inv_mode_pad(t, -2, w.hlen, m[0], shape[1])
+        t, c0[1] = sep.inv_mode_pad(t, -1, w.hlen, m[1], shape[2])
+        padded.append(t.contiguous())
+    args = (*padded, w.rec_lo, w.rec_hi, tuple(c0), shape[1:])
+    _close(K.inv_level_2d_padded(*args), K.inv_level_2d_padded_ref(*args))
+
+
+@pytest.mark.parametrize("wname,mode,shape", [("sym8", "symmetric", (33, 100)),
+                                              ("haar", "smooth", (5, 1)),
+                                              ("db10", "periodic", (2, 7))])
+def test_padded_kernels_7_and_8_match_their_plain_versions(dev, wname, mode, shape):
+    from pdwt_tpu_torch.core import separable as sep
+
+    w = _wavelet(wname)
+    xp = sep.fwd_mode_pad(_rand(dev, *shape), -1, w.hlen, mode)
+    lo, hi = K1.fwd_level_1d_padded(xp, w.dec_lo, w.dec_hi)
+    _close_joint((lo, hi), K1.fwd_level_1d_padded_ref(xp, w.dec_lo, w.dec_hi))
+    args = (lo, hi, w.rec_lo, w.rec_hi, -1, shape[1])
+    _close(K1.inv_level_1d_padded(*args), K1.inv_level_1d_padded_ref(*args))
+
+
+@pytest.mark.parametrize("mode", ["symmetric", ("zero", "periodization")])
+def test_mode_route_runs_every_level_on_the_padded_kernels(dev, mode):
+    """dwt2d/idwt2d and dwt1d/idwt1d with a mode: one padded launch per
+    level and direction, nothing else; the result against the CPU's route
+    (relative to the largest coefficient: the two routes extend and filter
+    in another order), gradients through the padded Functions too."""
+    from pdwt_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+
+    w = get_wavelet("db4")
+    x = _rand(dev, 2, 45, 38) * 100
+    reset_launch_counts()
+    c = dwt2d(x, w, 3, mode=mode)
+    y = idwt2d(c, w, (45, 38), mode=mode)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in LAUNCHES.items() if v} == {"fwd_level_2d_padded": 3,
+                                                        "inv_level_2d_padded": 3}
+    cc = dwt2d(x.cpu(), w, 3, mode=mode)
+    _close_joint([t.cpu() for t in _leaves(c)], _leaves(cc))
+    _close(y.cpu(), idwt2d(cc, w, (45, 38), mode=mode))
+    s = _rand(dev, 3, 77) * 100
+    reset_launch_counts()
+    c1 = dwt1d(s, w, 2, mode=mode if isinstance(mode, str) else mode[0])
+    idwt1d(c1, w, 77, mode=mode if isinstance(mode, str) else mode[0])
+    assert {k: v for k, v in LAUNCHES.items() if v} == {"fwd_level_1d_padded": 2,
+                                                        "inv_level_1d_padded": 2}
+    xg = x.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(dwt2d(xg, w, 2, mode=mode).approx.sum(), xg)
+    xc = x.cpu().requires_grad_(True)
+    (gc,) = torch.autograd.grad(dwt2d(xc, w, 2, mode=mode).approx.sum(), xc)
+    _close(g.cpu(), gc)

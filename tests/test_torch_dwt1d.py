@@ -208,11 +208,21 @@ def test_gradients_match_jax_grad(wname, swt):
 
 
 def test_1d_transforms_refuse_what_they_do_not_take():
-    w = get_wavelet("db2")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        dwt1d(torch.zeros(8), w, 1, mode="symmetric")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        idwt1d(dwt1d(torch.zeros(8), w, 1), w, 8, mode=("zero",))
+    """The boundary modes are ported: a mode, and a one-mode tuple, give
+    JAX's fma coefficients and invert; two modes for one axis, an unknown
+    mode and a 0-d input are refused."""
+    jw = jget_wavelet("db2")
+    w = wavelet_from_arrays(jw)
+    x = np.random.default_rng(3).standard_normal((2, 11)).astype(np.float32)
+    for mode in ("symmetric", ("zero",)):
+        got = dwt1d(torch.from_numpy(x), w, 2, mode=mode)
+        want = jax.jit(lambda t: jsep.dwt1d(t, jw, 2, mode=mode, backend="fma"))(x)
+        _close(_leaves(got), _leaves(want))
+        np.testing.assert_allclose(idwt1d(got, w, 11, mode=mode).numpy(), x, rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="expected 1 boundary modes"):
+        dwt1d(torch.zeros(8), w, 1, mode=("zero", "zero"))
+    with pytest.raises(ValueError, match="unknown boundary mode"):
+        idwt1d(dwt1d(torch.zeros(8), w, 1), w, 8, mode="zeros")
     with pytest.raises(ValueError, match="at least 1D"):
         swt1d(torch.zeros(()), w, 1)
 

@@ -133,12 +133,23 @@ def test_jax_coeffs_structure_carries_over():
 
 
 def test_dwt2d_rejects_what_this_slice_lacks():
-    w = get_wavelet("db2")
+    """The boundary modes are ported: a mode and a per-axis tuple give JAX's
+    fma coefficients and invert; an unknown mode, a wrong number of modes,
+    integer input and 1D input are refused."""
+    jw = jget_wavelet("db2")
+    w = wavelet_from_arrays(jw)
+    x = np.random.default_rng(3).uniform(0, 255, (9, 8)).astype(np.float32)
+    for mode in ("symmetric", ("periodization", "zero")):
+        got = dwt2d(torch.from_numpy(x), w, 1, mode=mode)
+        want = jax.jit(lambda t: jsep.dwt2d(t, jw, 1, mode=mode, backend="fma"))(x)
+        _close(_leaves(got), _leaves(want), np.float32)
+        y = idwt2d(got, w, (9, 8), mode=mode)
+        assert float((y - torch.from_numpy(x)).abs().max()) <= 1e-3
+    with pytest.raises(ValueError, match="unknown boundary mode"):
+        dwt2d(torch.from_numpy(x), w, 1, mode="symmetri")
+    with pytest.raises(ValueError, match="expected 2 boundary modes"):
+        idwt2d(dwt2d(torch.from_numpy(x), w, 1), w, (9, 8), mode=("zero",))
     x = torch.zeros(8, 8)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        dwt2d(x, w, 1, mode="symmetric")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        idwt2d(dwt2d(x, w, 1), w, (8, 8), mode=("periodization", "zero"))
     with pytest.raises(TypeError, match="float32 or float64"):
         dwt2d(x.to(torch.int64), w, 1)
     with pytest.raises(ValueError, match="at least 2D"):

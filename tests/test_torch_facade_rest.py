@@ -413,7 +413,8 @@ def test_demo_precision_flag(precision, bound, dat_image, tmp_path):
                                            (["--scenario", "5"], "item 14"),
                                            (["--scenario", "6"], "item 14"),
                                            (["--nd", "4"], "item 12"),
-                                           (["--mode", "symmetric"], "item 10"),
+                                           (["--mode", "symmetric", "--swt"],
+                                            "periodization-only"),
                                            (["--native"], "left out of the port")])
 def test_demo_refuses_what_waits(extra, message, dat_image, capsys):
     with pytest.raises(SystemExit) as err:
@@ -442,7 +443,7 @@ LEAVE_OUT = "leave out"
 #: with the ROADMAP queue 1 item that brings it or ROADMAP's "Leave out of
 #: the port" (the C++ engine, the XLA compile cache, the tunnel timing)
 DEFERRED = {
-    "top": {"MODES": 10, "WaveletPackets": 14, "Starlet": 14, "DualTree": 14,
+    "top": {"WaveletPackets": 14, "Starlet": 14, "DualTree": 14,
             "api_extras": 14, "api_packets": 14, "parallel": 16, "native": LEAVE_OUT},
     "Wavelets": {},
     "filters": {},

@@ -80,8 +80,14 @@ def test_auto_denoise_refuses_what_jax_refuses_and_what_waits():
     x = torch.from_numpy(_img((16, 16)))
     with pytest.raises(ValueError, match="unknown method"):
         auto_denoise(x, "db2", 1, method="minimax")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        auto_denoise(x, "db2", 1, boundary="symmetric")
+    with pytest.raises(ValueError, match="decimated DWT only"):
+        auto_denoise(x, "db2", 1, boundary="symmetric", swt=True)
+    with pytest.raises(ValueError, match="decimated DWT only"):
+        jauto_denoise(jnp.asarray(x.numpy()), "db2", 1, boundary="symmetric", swt=True)
+    # a boundary mode on the DWT is ported: it matches JAX's
+    want = jax.jit(lambda v: jauto_denoise(v, "db2", 1, boundary="symmetric",
+                                           backend="fma"))(x.numpy())
+    _close(auto_denoise(x, "db2", 1, boundary="symmetric"), want)
 
 
 @pytest.mark.parametrize("spins,shape", [(3, (24, 40)), (8, (31, 17))])
