@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the repository root.  It builds the CUDA kernels from
-``pdwt_tpu_torch/kernels/csrc`` and drives the port's eight paths, each
+``pdwt_tpu_torch/kernels/csrc`` and drives the port's nine paths, each
 with the launch counters set to 0 just before it and read just after:
 
 * the DWT path: each of its four kernels against its plain PyTorch version
@@ -78,7 +78,23 @@ with the launch counters set to 0 just before it and read just after:
   the same route on plain versions and to the plain extension route (JAX's
   fma formulation), timed beside it; the 2048x2048 roundtrip under each
   other mode, ``Wavelets(mode=("symmetric", "periodization"))`` and
-  ``denoise_step(boundary="symmetric")`` at 1024x1024.
+  ``denoise_step(boundary="symmetric")`` at 1024x1024;
+* the sharded transforms (``pdwt_tpu_torch.parallel``): the padded entry
+  points of kernels 5, 6, 9 and 10 against their plain versions on the
+  shard geometries below (timed there) and on their code paths; then (a)
+  one NCCL rank on a (1, 1, 1) mesh, the 2048x2048 db7 5-level roundtrip
+  through ``parallel.dwt2d``/``idwt2d`` against the single-card
+  transforms, timed; and (b) four gloo ranks sharing the one card, the only
+  way one card sees real ring halos: the same roundtrip on a 2 x 2 mesh,
+  ``sharded_denoise_step(swt=True)`` at 1024x1024 (db7, 3 levels, soft beta
+  10), the 1024 x 4096 sym8 4-level 1D DWT and SWT roundtrips over 4
+  column shards, and a 5-level SWT of 8 x 256 signals whose level-5 halo
+  sides (112 and 128 samples) are wider than a shard (64), two hops each;
+  each rank holds its shards to
+  the same slice of the single-card result and reads exactly the padded
+  launches it predicts.  Four processes on one card that send their halos
+  through the host measure nothing of scaling: only the kernels' own times
+  are kept.
 
 The banded-product kernels redesigned for Hopper's CUDA cores (kernels 14
 and 18: ``swt_inv_level_2d_mxu``, ``ns_inv_level_2d_mxu``,
@@ -120,7 +136,9 @@ It prints one JSON line with the per-kernel results (times, launches, the
 least time the card could take and a PyTorch yardstick), the card's name
 and power limit before it, and, last, one JSON line with ``"ok": true``.
 Any failed check exits non-zero before that line; so does a machine without
-a CUDA device.  Imports no JAX.
+a CUDA device.  Imports no JAX.  It needs one card; the sharded phase
+starts its ranks with ``torch.multiprocessing`` in spawn mode, after the
+kernels are built, and any rank's failure fails the run.
 """
 from __future__ import annotations
 
@@ -240,6 +258,11 @@ REPLACES = {
     "inv_level_2d_padded": "pdwt_tpu/kernels/separable_pallas.py:498",
     "fwd_level_1d_padded": "pdwt_tpu/kernels/swt_pallas.py:995",
     "inv_level_1d_padded": "pdwt_tpu/kernels/swt_pallas.py:1018",
+    # the padded entry points of kernels 5, 6, 9 and 10 (the sharded SWT)
+    "swt_fwd_level_2d_padded": "pdwt_tpu/kernels/swt_pallas.py:935",
+    "swt_inv_level_2d_padded": "pdwt_tpu/kernels/swt_pallas.py:960",
+    "swt_fwd_level_1d_padded": "pdwt_tpu/kernels/swt_pallas.py:1043",
+    "swt_inv_level_1d_padded": "pdwt_tpu/kernels/swt_pallas.py:1069",
 }
 
 
@@ -429,7 +452,8 @@ REDESIGNED = ("swt_inv_level_2d_mxu", "ns_inv_level_2d_mxu", "ns_swt_inv_level_2
               "fwd_level_2d_mxu", "swt_fwd_level_1d", "inv_level_1d", "swt_fwd_level_2d",
               "fwd_level_2d", "fwd_level_1d", "fwd_tail_2d", "inv_tail_2d",
               "fwd_level_2d_padded", "inv_level_2d_padded", "fwd_level_1d_padded",
-              "inv_level_1d_padded")
+              "inv_level_1d_padded", "swt_fwd_level_2d_padded", "swt_inv_level_2d_padded",
+              "swt_fwd_level_1d_padded", "swt_inv_level_1d_padded")
 
 
 def run_cases(cases, report, card) -> None:
@@ -1274,6 +1298,7 @@ def main() -> None:
     ns_phase(dev, card, report, launches, dwt_img, ti_img, gen)
     operators_phase(dev, card, dwt_img, ti_img, sig)
     modes_phase(dev, card, report, launches, dwt_img, rt_sig, gen)
+    sharded_phase(dev, card, report, launches, gen)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
@@ -3248,6 +3273,352 @@ def modes_phase(dev, card, report, launches, dwt_img, rt_sig, gen) -> None:
               lambda: denoise_step(xd, None, WNAME, TI_LEVELS, TI_BETA, boundary="symmetric"),
               card)
 
+
+
+# -- the sharded transforms
+
+# the sharded phase's cases: the 2D DWT roundtrip (N, WNAME, LEVELS), the
+# TI step at TI_N, the batched 1D cell, and halos wider than a shard: sym8
+# over 4 shards of 64 samples, whose level-4 halo sides (56 and 64 samples,
+# a span of 120) take one hop each and level 5's (112 and 128) two
+SHARD_WIDE, SHARD_WIDE_LEVELS = (8, 256), 5
+#: seconds a rank waits on another before the run fails
+SHARD_TIMEOUT_S = 300
+#: the ranks' device (a CPU rehearsal of the phase sets "cpu")
+SHARD_DEVICE = torch.device("cuda", 0)
+
+
+def atrous_band(kind: str, n: int, w, level: int, device) -> torch.Tensor:
+    """The dense band matrix of a padded a-trous 1D pass from its plain
+    version on the identity: the analysis of n samples with their halo, x @
+    M -> [lo | hi]; the synthesis of two such bands, [lo | hi] @ M."""
+    from pdwt_tpu_torch.kernels import batched1d as K1
+
+    key = ("atrous", kind, n, w.name, level, str(device))
+    if key not in _BANDS:
+        eye = torch.eye(n, device=device)
+        if kind == "fwd":
+            m = torch.cat(K1.swt_fwd_level_1d_padded_ref(eye, w.dec_lo, w.dec_hi, level), 1)
+        else:
+            z = torch.zeros_like(eye)
+            m = torch.cat([K1.swt_inv_level_1d_padded_ref(eye, z, w.rec_lo, w.rec_hi, level),
+                           K1.swt_inv_level_1d_padded_ref(z, eye, w.rec_lo, w.rec_hi, level)], 0)
+        _BANDS[key] = m.contiguous()
+    return _BANDS[key]
+
+
+def atrous_yardstick(kind: str, w, level: int) -> Callable:
+    """arg -> () -> the dense-band torch.matmul yardstick of a padded
+    a-trous call (``yardstick``'s, on ``atrous_band``): rows then columns
+    in 2D."""
+    def make(arg):
+        if kind == "fwd2d":
+            A = atrous_band("fwd", arg.shape[-2], w, level, arg.device).t().contiguous()
+            B, xm = atrous_band("fwd", arg.shape[-1], w, level, arg.device), arg[0]
+            return lambda: (A @ xm) @ B
+        if kind == "inv2d":
+            a, h, v, d = (t[0] for t in arg)
+            P = torch.cat([torch.cat([a, v], 1), torch.cat([h, d], 1)], 0)
+            A = atrous_band("inv", a.shape[0], w, level, a.device).t().contiguous()
+            B = atrous_band("inv", a.shape[1], w, level, a.device)
+            return lambda: (A @ P) @ B
+        if kind == "fwd":
+            Mx = atrous_band("fwd", arg.shape[-1], w, level, arg.device)
+            return lambda: arg @ Mx
+        u = torch.cat(list(arg), 1)
+        Mx = atrous_band("inv", arg[0].shape[-1], w, level, u.device)
+        return lambda: u @ Mx
+    return make
+
+
+def atrous_cases(w, shape, level, rand, timed=False, label=""):
+    """The padded a-trous entry points on one level of a sharded SWT: the
+    forward on a shard wrapped by its halo (``kernels.swt_fwd_halo``), the
+    inverse on bands wrapped by theirs; 2D for a (B, r, c) shard, 1D for a
+    (B, n) one."""
+    from pdwt_tpu_torch import kernels as KK
+    from pdwt_tpu_torch.core import conv
+    from pdwt_tpu_torch.kernels import batched1d as K1
+    from pdwt_tpu_torch.kernels import swt as S
+
+    axes = (-1, -2) if len(shape) == 3 else (-1,)
+
+    def halo(t, lohi):
+        for ax in axes:
+            t = conv.wrap_pad(t, ax, *lohi)
+        return t.contiguous()
+
+    fh, ih = KK.swt_fwd_halo(w.hlen, level), KK.swt_inv_halo(w.hlen, level)
+    xp, bands = halo(rand(*shape), fh), [halo(rand(*shape), ih) for _ in range(4)]
+    tag = f"{label}{w.name} level {level} shard {shape}"
+    if len(shape) == 3:
+        return [Case("swt_fwd_level_2d_padded", xp,
+                     lambda t: S.swt_fwd_level_2d_padded(t, w.dec_lo, w.dec_hi, level),
+                     lambda t: S.swt_fwd_level_2d_padded_ref(t, w.dec_lo, w.dec_hi, level),
+                     tag, timed, flops_swt_2d(*shape[1:], w.hlen),
+                     library=atrous_yardstick("fwd2d", w, level)),
+                Case("swt_inv_level_2d_padded", bands,
+                     lambda b: S.swt_inv_level_2d_padded(*b, w.rec_lo, w.rec_hi, level),
+                     lambda b: S.swt_inv_level_2d_padded_ref(*b, w.rec_lo, w.rec_hi, level),
+                     tag, timed, flops_swt_2d(*shape[1:], w.hlen),
+                     library=atrous_yardstick("inv2d", w, level))]
+    return [Case("swt_fwd_level_1d_padded", xp,
+                 lambda t: K1.swt_fwd_level_1d_padded(t, w.dec_lo, w.dec_hi, level),
+                 lambda t: K1.swt_fwd_level_1d_padded_ref(t, w.dec_lo, w.dec_hi, level),
+                 tag, timed, flops_1d(*shape, w.hlen, swt=True),
+                 library=atrous_yardstick("fwd", w, level)),
+            Case("swt_inv_level_1d_padded", bands[:2],
+                 lambda b: K1.swt_inv_level_1d_padded(*b, w.rec_lo, w.rec_hi, level),
+                 lambda b: K1.swt_inv_level_1d_padded_ref(*b, w.rec_lo, w.rec_hi, level),
+                 tag, timed, flops_1d(*shape, w.hlen, swt=True),
+                 library=atrous_yardstick("inv", w, level))]
+
+
+def sharded_call(tag: str, fn, want: dict):
+    """fn() between a reset and a read of the launch counters on this
+    rank: exactly the padded launches ``want``."""
+    from pdwt_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in LAUNCHES.items() if v}
+    print(f"{tag}: launches {got}", flush=True)
+    check(got == want, f"{tag} launched {got}, expected {want}")
+    return out
+
+
+def hold_shards(tag: str, got, want) -> None:
+    """Every band's shard on this rank against the same slice of the
+    single-card result: one dtype and shape, finite, within PATH_RTOL of
+    the call's largest single-card value."""
+    from pdwt_tpu_torch.parallel.sharded import _local  # a full tensor's shard, no gather
+
+    gl, wl = leaves(got), leaves(want)
+    mine = [g.to_local() for g in gl]
+    theirs = [_local(w, g.device_mesh, g.placements) for g, w in zip(gl, wl)]
+    check(len(gl) == len(wl) and all(m.dtype == t.dtype and m.shape == t.shape
+                                     and bool(torch.isfinite(m).all())
+                                     for m, t in zip(mine, theirs)),
+          f"{tag}: not finite, or dtypes or shapes differ from the single-card result")
+    err = max(float((m - t).abs().max()) for m, t in zip(mine, theirs))
+    scale = max(float(w.abs().max()) for w in wl)
+    print(f"{tag} vs single card: max|diff| {err:.3e} (limit {PATH_RTOL * scale:.3e})",
+          flush=True)
+    check(err <= PATH_RTOL * scale, f"{tag} disagrees with the single-card transform")
+
+
+def _rank_image(shape, seed: int, dev) -> torch.Tensor:
+    """The same float32 input on every rank, on [0, 255)."""
+    return torch.from_numpy(np.random.default_rng(seed).uniform(0, 255, shape)
+                            .astype(np.float32)).to(dev)
+
+
+def _sharded_nccl(rank: int, card: str) -> dict:
+    """(a): one rank, NCCL, a (1, 1, 1) mesh on the card (every halo the
+    local wrap): the DWT cell's roundtrip through parallel.dwt2d/idwt2d
+    against the single-card transforms, then timed."""
+    from pdwt_tpu_torch import dwt2d, get_wavelet, idwt2d
+    from pdwt_tpu_torch import parallel as par
+
+    dev, wav = SHARD_DEVICE, get_wavelet(WNAME)
+    mesh = par.make_mesh((1, 1, 1), device_type=dev.type)
+    ax = dict(data_axis=None, row_axis="row", col_axis="col")
+    x = _rank_image((N, N), 0, dev)
+    xs = par.shard_image(x, mesh, **ax)
+    per = {"fwd_level_2d_padded": LEVELS, "inv_level_2d_padded": LEVELS}
+    tag = f"sharded (a) nccl (1, 1, 1): dwt2d/idwt2d {N}x{N} {WNAME} {LEVELS} levels"
+    fwd = lambda: par.dwt2d(xs, wav, LEVELS, mesh, **ax)
+    inv = lambda c: par.idwt2d(c, wav, (N, N), mesh, **ax)
+    c, y = sharded_call(tag, lambda: (lambda c: (c, inv(c)))(fwd()), per)
+    ref = dwt2d(x, wav, LEVELS)
+    hold_shards(tag, c, ref)
+    hold_shards(tag + " inverse", y, idwt2d(ref, wav, (N, N)))
+    rt = float((y.to_local() - x).abs().max())
+    print(f"{tag}: roundtrip max|y - x| {rt:.3e} (limit {ROUNDTRIP_ATOL})", flush=True)
+    check(rt <= ROUNDTRIP_ATOL, f"{tag}: roundtrip error {rt:.3e}")
+    call = lambda: inv(fwd())
+    single = lambda: idwt2d(dwt2d(x, wav, LEVELS), wav, (N, N))
+    out = {}
+    for name, fn in (("sharded", call), ("single card", single)):
+        ms, busy = cuda_ms(fn), device_ms(fn)[0]
+        out[name] = {"ms": ms, "busy_ms": busy}
+        print(f"{tag}: {name} roundtrip {ms:.4f} ms a call (CUDA events, median of 20), device "
+              f"busy {fmt(busy)} (torch.profiler) [{card}]", flush=True)
+    return out
+
+
+def _sharded_gloo(rank: int, card: str) -> dict:
+    """(b): four gloo ranks sharing the one card, real ring halos through
+    the host: each case's shards against the same slice of the single-card
+    result on this rank, exactly the padded launches each call predicts."""
+    from pdwt_tpu_torch import (dwt1d, dwt2d, get_wavelet, idwt1d, idwt2d, iswt1d, iswt2d, ops,
+                                swt1d, swt2d)
+    from pdwt_tpu_torch import parallel as par
+    from pdwt_tpu_torch.models import sharded_denoise_step
+
+    dev, wav, w8 = SHARD_DEVICE, get_wavelet(WNAME), get_wavelet(B1_WNAME)
+    launched = {}
+    m2 = par.make_mesh((1, 2, 2), device_type=dev.type)
+    ax2 = dict(data_axis=None, row_axis="row", col_axis="col")
+    # the DWT cell's roundtrip on (row, col) = (2, 2)
+    x = _rank_image((N, N), 0, dev)
+    xs = par.shard_image(x, m2, **ax2)
+    tag = f"sharded (b) rank {rank} (2, 2): dwt2d/idwt2d {N}x{N} {WNAME} {LEVELS} levels"
+    c = sharded_call(tag + " forward", lambda: par.dwt2d(xs, wav, LEVELS, m2, **ax2),
+                     {"fwd_level_2d_padded": LEVELS})
+    y = sharded_call(tag + " inverse", lambda: par.idwt2d(c, wav, (N, N), m2, **ax2),
+                     {"inv_level_2d_padded": LEVELS})
+    ref = dwt2d(x, wav, LEVELS)
+    hold_shards(tag, c, ref)
+    hold_shards(tag + " inverse", y, idwt2d(ref, wav, (N, N)))
+    # the TI step on (2, 2), against the unsharded swt2d, soft threshold,
+    # norm1 and iswt2d on the card
+    xt = _rank_image((TI_N, TI_N), 1, dev)
+    tag = (f"sharded (b) rank {rank} (2, 2): sharded_denoise_step(swt=True) {TI_N}x{TI_N} "
+           f"{WNAME} {TI_LEVELS} levels soft beta {TI_BETA}")
+    per = {"swt_fwd_level_2d_padded": TI_LEVELS, "swt_inv_level_2d_padded": TI_LEVELS}
+    out, n1 = sharded_call(tag, lambda: sharded_denoise_step(
+        par.shard_image(xt, m2, **ax2), WNAME, TI_LEVELS, TI_BETA, m2, swt=True, **ax2), per)
+    launched.update(per)
+    pc = ops.soft_threshold(swt2d(xt, wav, TI_LEVELS), TI_BETA)
+    p_n1 = float(ops.norm1(pc))
+    hold_shards(tag, out, iswt2d(pc, wav))
+    print(f"{tag}: norm1 {float(n1)!r} vs single card {p_n1!r}", flush=True)
+    check(n1.dim() == 0 and abs(float(n1) - p_n1) <= NORM_RTOL * abs(p_n1), f"{tag}: norm1")
+    # the batched 1D cell over (data, col) = (1, 4)
+    m1 = par.make_mesh((1, 4), ("data", "col"), device_type=dev.type)
+    ax1 = dict(data_axis="data", col_axis="col")
+    s = _rank_image((B1_SIGNALS, B1_N), 2, dev)
+    ss = par.shard_image(s, m1, **ax1)
+    for swt, fwd1, inv1, names in (
+            (False, dwt1d, lambda c: idwt1d(c, w8, B1_N),
+             ("fwd_level_1d_padded", "inv_level_1d_padded")),
+            (True, swt1d, lambda c: iswt1d(c, w8),
+             ("swt_fwd_level_1d_padded", "swt_inv_level_1d_padded"))):
+        tag = (f"sharded (b) rank {rank} (1, 4): {'swt1d' if swt else 'dwt1d'} roundtrip "
+               f"{B1_SIGNALS}x{B1_N} {B1_WNAME} {B1_LEVELS} levels")
+        c = sharded_call(tag + " forward", lambda: par.dwt1d(ss, w8, B1_LEVELS, m1, swt=swt,
+                                                             **ax1), {names[0]: B1_LEVELS})
+        y = sharded_call(tag + " inverse", lambda: par.idwt1d(c, w8, B1_N, m1, swt=swt, **ax1),
+                         {names[1]: B1_LEVELS})
+        ref = fwd1(s, w8, B1_LEVELS)
+        hold_shards(tag, c, ref)
+        hold_shards(tag + " inverse", y, inv1(ref))
+        if swt:
+            launched.update({n: B1_LEVELS for n in names})
+    # halos wider than a shard: 64 samples a shard, two hops a side at level 5
+    sw = _rank_image(SHARD_WIDE, 3, dev)
+    tag = (f"sharded (b) rank {rank} (4): swt1d/iswt1d {SHARD_WIDE} {B1_WNAME} "
+           f"{SHARD_WIDE_LEVELS} levels, a halo wider than a shard")
+    axw = dict(col_axis="col")
+    c = sharded_call(tag + " forward", lambda: par.swt1d(par.shard_image(sw, m1, **axw), w8,
+                                                         SHARD_WIDE_LEVELS, m1, **axw),
+                     {"swt_fwd_level_1d_padded": SHARD_WIDE_LEVELS})
+    y = sharded_call(tag + " inverse", lambda: par.iswt1d(c, w8, SHARD_WIDE[1], m1, **axw),
+                     {"swt_inv_level_1d_padded": SHARD_WIDE_LEVELS})
+    ref = swt1d(sw, w8, SHARD_WIDE_LEVELS)
+    hold_shards(tag, c, ref)
+    hold_shards(tag + " inverse", y, iswt1d(ref, w8))
+    return {"launches": launched}
+
+
+def _sharded_rank(rank: int, world: int, init_file: str, out_dir: str, card: str) -> None:
+    """One rank of the sharded phase: NCCL alone (a), gloo among four on
+    the one card (b); its results into out_dir/rank<k>.json."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)  # every rank on the one card, before its mesh
+    backend = "nccl" if world == 1 else "gloo"
+    extra = {"device_id": torch.device("cuda", 0)} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method="file://" + init_file, rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S),
+                            **extra)
+    try:
+        res = (_sharded_nccl if world == 1 else _sharded_gloo)(rank, card)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, card: str) -> list:
+    """Start ``world`` ranks of ``_sharded_rank`` (spawn: forking after the
+    card is initialised breaks) and return their results; any rank's
+    failure fails the run (the others are ended)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as d:
+        ctx = mp.spawn(_sharded_rank, args=(world, os.path.join(d, "store"), d, card),
+                       nprocs=world, join=False)
+        deadline = time.monotonic() + 2 * SHARD_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=1):
+                if time.monotonic() > deadline:
+                    fail(f"sharded: {world} ranks did not finish in {2 * SHARD_TIMEOUT_S} s")
+        except Exception as e:  # a rank raised or exited non-zero
+            fail(f"sharded: a rank of {world} failed: {e}")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        res = []
+        for r in range(world):
+            with open(os.path.join(d, f"rank{r}.json")) as fh:
+                res.append(json.load(fh))
+    return res
+
+
+def sharded_phase(dev, card, report, launches, gen) -> None:
+    """The sharded transforms: the padded entry points of kernels 5, 6, 9
+    and 10 against their plain versions on the shard geometries of (b)
+    (timed: a rank's launches there, alone on the card) and on their code
+    paths; then (a) one NCCL rank and (b) four gloo ranks on the one card
+    (``_sharded_nccl``, ``_sharded_gloo``).  The kernels were built before
+    any rank starts, so no rank runs nvcc."""
+    from pdwt_tpu_torch import get_wavelet
+    from pdwt_tpu_torch.filters import make_custom_wavelet
+
+    print("=== sharded ===", flush=True)
+    wav, w8 = get_wavelet(WNAME), get_wavelet(B1_WNAME)
+    rand = lambda *s: torch.rand(s, device=dev, generator=gen) * 255.0
+    cases = []
+    # a rank's shards in (b): the TI step's 512^2 (levels 1-3), the 1D
+    # cell's 1024 x 1024 (levels 1-4), the wide halo's 8 x 64 (levels 1-5)
+    for lvl in range(1, TI_LEVELS + 1):
+        cases += atrous_cases(wav, (1, TI_N // 2, TI_N // 2), lvl, rand, True)
+    for lvl in range(1, B1_LEVELS + 1):
+        cases += atrous_cases(w8, (B1_SIGNALS, B1_N // 4), lvl, rand, True)
+    for lvl in range(1, SHARD_WIDE_LEVELS + 1):
+        cases += atrous_cases(w8, (SHARD_WIDE[0], SHARD_WIDE[1] // 4), lvl, rand)
+    # the code paths: odd and tiny shards, dilations past the shard, 2 to
+    # 40 taps and an odd bank, a batch of 3 and one past the grid's limit
+    odd5 = make_custom_wavelet("odd5", *np.random.default_rng(5).standard_normal((4, 5)))
+    w40 = make_custom_wavelet("w40", *np.random.default_rng(40).standard_normal((4, 40)))
+    for w, shape, lvl in [(get_wavelet("haar"), (2, 5, 7), 3), (wav, (3, 37, 53), 2),
+                          (w40, (1, 70, 38), 2), (odd5, (1, 16, 24), 4), (wav, (1, 8, 8), 6),
+                          (get_wavelet("db2"), (70000, 2, 2), 1), (w8, (3, 301), 5),
+                          (get_wavelet("haar"), (2, 1), 1), (w40, (40, 300), 3),
+                          (odd5, (33, 200), 8), (wav, (70000, 8), 2)]:
+        cases += atrous_cases(w, shape, lvl, rand)
+    run_cases(cases, report, card)
+
+    (a,) = spawn_ranks(1, card)
+    print(f"sharded (a): one NCCL rank, roundtrip {a} [{card}]", flush=True)
+    ranks = spawn_ranks(4, card)
+    for r, res in enumerate(ranks):
+        check(res["launches"] == ranks[0]["launches"], f"sharded (b): rank {r} launched "
+              f"{res['launches']}, rank 0 {ranks[0]['launches']}")
+    print(f"sharded (b): each of 4 ranks launched {ranks[0]['launches']} of the new padded "
+          "kernels; their call times measure nothing of scaling (four processes on one card, "
+          "halos through the host) and are not kept", flush=True)
+    launches.update(ranks[0]["launches"])
 
 if __name__ == "__main__":
     main()

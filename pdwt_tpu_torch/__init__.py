@@ -20,6 +20,8 @@ it is), with the same module names:
 * ``models``   — the denoising step (DWT and TI), ``auto_denoise``,
   ``cycle_spin_denoise`` and the (F)ISTA solver ``ista``
 * ``api``      — the stateful ``Wavelets`` facade
+* ``parallel`` — device meshes on ``torch.distributed``, the ring halo
+  exchange and the sharded 2D and batched 1D DWT and SWT (DTensors)
 * ``utils``    — raw ``.dat`` I/O, coefficient checkpoints in the JAX
   package's ``.npz`` layout, numpy conversions to and from it
 * ``demo``     — the reference demo's scenarios 1-3
@@ -35,11 +37,13 @@ inverse), the batched 1D DWT and SWT
 tiers (``mixed``, ``bf16-fast``, ``bf16-balanced``, ``bf16-accurate``;
 ``precision=`` on every entry point, or ``precision_scope``), on eighteen
 CUDA kernels (and the padded entry points of four of them, which carry
-the boundary modes), and the reference's whole operator set on them.  3D,
-the other transform families and sharding come later (ROADMAP queue 1).  Importing the package needs no GPU and builds nothing; the CUDA
+the boundary modes, and of four more, which carry the sharded SWT), the
+reference's whole operator set on them, and the sharded 2D and 1D
+transforms over a device mesh.  3D, the other transform families and the
+rest of sharding come later (ROADMAP queue 1).  Importing the package needs no GPU and builds nothing; the CUDA
 kernels are compiled at their first launch.
 """
-from . import core, filters, models, ops, utils
+from . import core, filters, models, ops, parallel, utils
 from .api import Wavelets, WaveletSpec
 from .core.modes import MODES
 from .core.precision import TIERS, precision_scope
@@ -53,4 +57,4 @@ __all__ = ["Wavelets", "WaveletSpec", "Wavelet", "get_wavelet", "list_wavelets",
            "make_custom_wavelet", "register_wavelet", "quad_filters", "dwt2d", "idwt2d",
            "swt2d", "iswt2d", "iswt2d_denoise", "Coeffs2D", "dwt1d", "idwt1d", "swt1d",
            "iswt1d", "Coeffs1D", "dwt2d_ns", "idwt2d_ns", "swt2d_ns", "iswt2d_ns", "TIERS", "MODES",
-           "precision_scope", "core", "filters", "models", "ops", "utils"]
+           "precision_scope", "core", "filters", "models", "ops", "parallel", "utils"]

@@ -209,7 +209,7 @@ def _acc(x: torch.Tensor) -> torch.Tensor:
 
 def analysis_pass(x: torch.Tensor, filters: Sequence[np.ndarray], axis: int, *,
                   dilation: int = 1, decimate: bool = True,
-                  mode: str = "periodization") -> torch.Tensor:
+                  mode: str = "periodization", pad_fn=None) -> torch.Tensor:
     """Filter every channel of ``x`` (B, C, H, W) with each 1D filter
     along ``axis``: decimated by 2, or stationary with the taps
     ``dilation`` apart (``decimate=False``).  Returns (B, C*K, H', W')
@@ -219,7 +219,10 @@ def analysis_pass(x: torch.Tensor, filters: Sequence[np.ndarray], axis: int, *,
     (``core/modes.py``): periodization by default; the pywt modes apply to
     the decimated pass only and give ``floor((N + hlen - 1) / 2)``
     outputs.  bfloat16 data is summed in float32 and rounded once, as
-    JAX's fma formulation does."""
+    JAX's fma formulation does.  ``pad_fn(x, axis, lo, hi)`` replaces the
+    periodic pad (:func:`wrap_pad`): the sharded transforms pass the ring
+    halo exchange (``pdwt_tpu_torch/parallel/halo.py``); it takes
+    periodization only."""
     _check(x)
     filters = [np.asarray(f, dtype=np.float64) for f in filters]
     hlen = len(filters[0])
@@ -231,6 +234,8 @@ def analysis_pass(x: torch.Tensor, filters: Sequence[np.ndarray], axis: int, *,
         if not decimate:
             raise ValueError("boundary modes other than 'periodization' apply to the "
                              "decimated DWT only (pywt's swt is periodic by definition)")
+        if pad_fn is not None:
+            raise ValueError("sharded halo exchange (pad_fn) requires mode='periodization'")
         # out[m] = sum_j f[j] x_ext[2m+1-j] (pywt's downsampling convolution):
         # a valid correlation of the reversed taps over x extended by
         # (hlen - 2, hlen - 1)
@@ -238,21 +243,23 @@ def analysis_pass(x: torch.Tensor, filters: Sequence[np.ndarray], axis: int, *,
         return padded_analysis_pass(_acc(xp), filters, ax).to(x.dtype)
     c = fwd_center(hlen) * dilation
     xe = odd_extend(x, ax) if decimate else x
-    xp = wrap_pad(_acc(xe), ax, c, (hlen - 1) * dilation - c)
+    xp = (pad_fn or wrap_pad)(_acc(xe), ax, c, (hlen - 1) * dilation - c)
     taps = np.stack([f[::-1] for f in filters])
     return _fma_analysis(xp, taps, ax, decimate=decimate, dilation=dilation).to(x.dtype)
 
 
 def synthesis_pass(x: torch.Tensor, filters: Sequence[np.ndarray], axis: int,
                    *, out_len: Optional[int] = None, dilation: int = 1,
-                   decimated: bool = True, mode: str = "periodization") -> torch.Tensor:
+                   decimated: bool = True, mode: str = "periodization",
+                   pad_fn=None) -> torch.Tensor:
     """Inverse of :func:`analysis_pass` along ``axis``: input
     (B, C*K, ...) -> (B, C, ...), output channel c summing the K filter
     syntheses of its group, sliced to ``out_len`` (odd sizes).
     ``decimated=False`` is the stationary synthesis at
     ``swt_inv_center(hlen) * dilation``; the caller scales the filters by
     the 1/2 per pass.  A pywt ``mode`` takes no boundary extension: zero
-    pads and shift 1, ``rec_len`` outputs at most, an even ``hlen``."""
+    pads and shift 1, ``rec_len`` outputs at most, an even ``hlen``.
+    ``pad_fn``: as in :func:`analysis_pass`."""
     _check(x)
     filters = [np.asarray(f, dtype=np.float64) for f in filters]
     hlen = len(filters[0])
@@ -265,15 +272,17 @@ def synthesis_pass(x: torch.Tensor, filters: Sequence[np.ndarray], axis: int,
         if not decimated:
             raise ValueError("boundary modes other than 'periodization' apply to the "
                              "decimated inverse DWT only")
+        if pad_fn is not None:
+            raise ValueError("sharded halo exchange (pad_fn) requires mode='periodization'")
         out_len = mode_out_len(x.shape[ax], hlen, mode, out_len)
         # pywt's upsampling_convolution_valid_sf: shift 1, no extension
         return padded_synthesis_pass(_acc(x), filters, ax, -1, out_len).to(x.dtype)
-    xa = _acc(x)
+    xa, pad_fn = _acc(x), pad_fn or wrap_pad
     if decimated:
-        out = _fma_synthesis_poly(xa, taps, ax)
+        out = _fma_synthesis_poly(xa, taps, ax, pad_fn)
     else:
         s = swt_inv_center(hlen) * dilation
-        out = _fma_synthesis(wrap_pad(xa, ax, s, (hlen - 1) * dilation - s), taps, ax,
+        out = _fma_synthesis(pad_fn(xa, ax, s, (hlen - 1) * dilation - s), taps, ax,
                              dilation)
     if out_len is not None:
         out = _sl(out, ax, 0, out_len)
@@ -349,3 +358,40 @@ def padded_synthesis_pass(x: torch.Tensor, filters: Sequence[np.ndarray], axis: 
     taps = np.stack([f[::-1] for f in filters])
     out = _fma_synthesis_poly(x, taps, ax, pad_fn=modes.zero_pad, s=-c0)
     return _sl(out, ax, 0, out_len)
+
+
+def padded_atrous_len(n: int, hlen: int, f: int) -> int:
+    """The outputs of the padded a-trous passes along an axis of ``n``
+    samples that hold their halo, ``n - (hlen - 1) f``; raises below one."""
+    span = (hlen - 1) * f
+    if n <= span:
+        raise ValueError(f"a padded a-trous pass of {hlen} taps at dilation {f} needs more "
+                         f"than {span} samples along the axis, got {n}")
+    return n - span
+
+
+def padded_atrous_analysis_pass(xp: torch.Tensor, filters: Sequence[np.ndarray], axis: int,
+                                dilation: int) -> torch.Tensor:
+    """The a-trous analysis of ``xp`` (B, C, H, W), which holds its halo
+    along ``axis`` (the periodic one is ``fwd_center(hlen) * f`` below and
+    the rest of the span above): a valid correlation, no wrap, ``out[n] =
+    sum_j f[hlen-1-j] xp[n + j f]`` for the :func:`padded_atrous_len`
+    outputs.  Returns (B, C*K, ...)."""
+    filters = [np.asarray(f, dtype=np.float64) for f in filters]
+    ax = axis % xp.ndim
+    padded_atrous_len(xp.shape[ax], len(filters[0]), dilation)
+    return _fma_analysis(xp, np.stack([f[::-1] for f in filters]), ax, decimate=False,
+                         dilation=dilation)
+
+
+def padded_atrous_synthesis_pass(x: torch.Tensor, filters: Sequence[np.ndarray], axis: int,
+                                 dilation: int) -> torch.Tensor:
+    """The a-trous synthesis of ``x`` (B, C*K, ...), which holds its halo
+    along ``axis`` (the periodic one is ``swt_inv_center(hlen) * f`` below):
+    ``out[n] = sum_k sum_j rev_k[j] x_k[n + j f]``, no wrap, for the
+    :func:`padded_atrous_len` outputs; the caller folds the 1/2 per pass
+    into the filters.  Returns (B, C, ...)."""
+    filters = [np.asarray(f, dtype=np.float64) for f in filters]
+    ax = axis % x.ndim
+    padded_atrous_len(x.shape[ax], len(filters[0]), dilation)
+    return _fma_synthesis(x, np.stack([f[::-1] for f in filters]), ax, dilation)

@@ -117,26 +117,29 @@ def mode_route(dtype: torch.dtype, device: torch.device, hlen: int) -> str:
     return "plain"
 
 
-def fwd_mode_pad(t: torch.Tensor, axis: int, hlen: int, mode: str) -> torch.Tensor:
+def fwd_mode_pad(t: torch.Tensor, axis: int, hlen: int, mode: str,
+                 pad_fn=conv.wrap_pad) -> torch.Tensor:
     """A forward level's input to the padded kernel along one axis: the
     pywt extension by (hlen - 2, hlen - 1), or on a periodization axis the
-    odd extension wrapped at the periodic center (its output n reads
-    samples 2n + j either way)."""
+    odd extension wrapped at the periodic center by ``pad_fn`` (the ring
+    halo exchange on a sharded axis, ``parallel/halo.py``); its output n
+    reads samples 2n + j either way."""
     if mode == "periodization":
         c = conv.fwd_center(hlen)
-        return conv.wrap_pad(conv.odd_extend(t, axis), axis, c, hlen - 1 - c)
+        return pad_fn(conv.odd_extend(t, axis), axis, c, hlen - 1 - c)
     return modes.extend(t, axis, hlen - 2, hlen - 1, mode)
 
 
-def inv_mode_pad(t: torch.Tensor, axis: int, hlen: int, mode: str, out_len: int):
+def inv_mode_pad(t: torch.Tensor, axis: int, hlen: int, mode: str, out_len: int,
+                 pad_fn=conv.wrap_pad):
     """(A synthesis level's bands to the padded kernel along one axis, the
     offset ``c0`` of ``conv.padded_synthesis_pass``): a pywt axis reads the
     coefficients as they are at c0 = -1 (shift 1, JAX's checks on the
-    length); a periodization axis takes its periodic halo and c0 = 2 lo -
-    inv_shift(hlen)."""
+    length); a periodization axis takes its periodic halo from ``pad_fn``
+    and c0 = 2 lo - inv_shift(hlen)."""
     if mode == "periodization":
         g = conv.poly_geometry(hlen)
-        return conv.wrap_pad(t, axis, g.lo, g.hi), 2 * g.lo - conv.inv_shift(hlen)
+        return pad_fn(t, axis, g.lo, g.hi), 2 * g.lo - conv.inv_shift(hlen)
     conv.mode_out_len(t.shape[axis], hlen, mode, out_len)
     return t, -1
 

@@ -179,6 +179,22 @@ def load() -> ctypes.CDLL:
         # the device), hlen, geometry, the launch plan (lc, gc, nt, threads, grid x, y, z,
         # smem), stream
         "pdwt_inv_level_1d_padded": [P, P, P, I, I, P, P, I, P, *[I] * 8, P],
+        # x, a, h, v, d, B, R, C (the input with its halo), Ro, Co (the outputs), taps
+        # (4, hlen on the device), hlen, dilation, the launch plan (lr, lc, gc, nph, nt,
+        # threads, grid x, y, z, smem), stream
+        "pdwt_swt_fwd_level_2d_padded": [P, P, P, P, P, I, I, I, I, I, P, I, I, *[I] * 10, P],
+        # a, h, v, d, out, B, Ri, Ci (the subbands with their halo), R, C (the output),
+        # taps (4, hlen of the halved filters on the device), hlen, dilation, the launch
+        # plan (lr, lc, gc, nph, nt, threads, grid x, y, z, smem), stream
+        "pdwt_swt_inv_level_2d_padded": [P, P, P, P, P, I, I, I, I, I, P, I, I, *[I] * 10, P],
+        # x, lo, hi, B, N (the signals with their halo), n_out, taps (4, hlen on the
+        # device), hlen, dilation, the launch plan (lc, gc, nt, threads, grid x, y, z,
+        # smem), stream
+        "pdwt_swt_fwd_level_1d_padded": [P, P, P, I, I, I, P, I, I, *[I] * 8, P],
+        # lo, hi, out, B, M (the bands with their halo), n_out, taps (4, hlen of the
+        # halved filters on the device), hlen, dilation, the launch plan (lc, gc, nt,
+        # threads, grid x, y, z, smem), stream
+        "pdwt_swt_inv_level_1d_padded": [P, P, P, I, I, I, P, I, I, *[I] * 8, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

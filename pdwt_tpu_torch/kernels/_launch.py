@@ -28,7 +28,9 @@ LAUNCHES: Dict[str, int] = {"fwd_level_2d": 0, "inv_level_2d": 0,
                             "ns_fwd_level_2d_mxu": 0, "ns_inv_level_2d_mxu": 0,
                             "ns_swt_fwd_level_2d_mxu": 0, "ns_swt_inv_level_2d_mxu": 0,
                             "fwd_level_2d_padded": 0, "inv_level_2d_padded": 0,
-                            "fwd_level_1d_padded": 0, "inv_level_1d_padded": 0}
+                            "fwd_level_1d_padded": 0, "inv_level_1d_padded": 0,
+                            "swt_fwd_level_2d_padded": 0, "swt_inv_level_2d_padded": 0,
+                            "swt_fwd_level_1d_padded": 0, "swt_inv_level_1d_padded": 0}
 
 
 def reset_launch_counts() -> None:
@@ -173,6 +175,26 @@ def dilation(level: int) -> int:
     if level < 1:
         raise ValueError(f"level must be >= 1, got {level}")
     return 1 << (level - 1)
+
+
+def swt_fwd_halo(hlen: int, level: int) -> Tuple[int, int]:
+    """(lo, hi): the samples the padded a-trous analysis of a level (kernels
+    5 and 9's padded entry points) needs below and above a shard along each
+    filtered axis, the bare periodic support: ``fwd_center(hlen) f`` and the
+    rest of the span ``(hlen - 1) f``.  JAX's ``swt_fwd_geometry`` adds
+    Mosaic alignment margins on top (tile tuning, left out)."""
+    f = dilation(level)
+    lo = conv.fwd_center(hlen) * f
+    return lo, (hlen - 1) * f - lo
+
+
+def swt_inv_halo(hlen: int, level: int) -> Tuple[int, int]:
+    """(lo, hi) of the padded a-trous synthesis (kernels 6 and 10's padded
+    entry points) along each filtered axis: ``swt_inv_center(hlen) f`` and
+    the rest of the span."""
+    f = dilation(level)
+    lo = conv.swt_inv_center(hlen) * f
+    return lo, (hlen - 1) * f - lo
 
 
 def check_span(hlen: int, f: int) -> None:

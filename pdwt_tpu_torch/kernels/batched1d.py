@@ -4,17 +4,18 @@ Counterpart of the batched 1D part of ``pdwt_tpu/kernels/swt_pallas.py``.
 Four CUDA kernels (entry points in ``csrc/batched1d.cu``) carry the batched
 1D path, each filtering along the last axis of a (B, N) batch of signals:
 
-=========================  ========================================  ==============================
-wrapper                    computes                                  plain version
-=========================  ========================================  ==============================
-``fwd_level_1d``           one decimated analysis level              ``fwd_level_1d_ref``
-``inv_level_1d``           one polyphase synthesis level             ``inv_level_1d_ref``
-``swt_fwd_level_1d``       one a-trous analysis level                ``swt_fwd_level_1d_ref``
-``swt_inv_level_1d``       one a-trous synthesis level               ``swt_inv_level_1d_ref``
-``fwd_level_1d_padded``    kernel 7 on signals holding their         ``fwd_level_1d_padded_ref``
-                           extension
-``inv_level_1d_padded``    kernel 8 on padded bands, no wrap         ``inv_level_1d_padded_ref``
-=========================  ========================================  ==============================
+===========================  ===========================================  ===============================
+wrapper                      computes                                     plain version
+===========================  ===========================================  ===============================
+``fwd_level_1d``             one decimated analysis level                 ``fwd_level_1d_ref``
+``inv_level_1d``             one polyphase synthesis level                ``inv_level_1d_ref``
+``swt_fwd_level_1d``         one a-trous analysis level                   ``swt_fwd_level_1d_ref``
+``swt_inv_level_1d``         one a-trous synthesis level                  ``swt_inv_level_1d_ref``
+``fwd_level_1d_padded``      kernel 7 on signals holding their extension  ``fwd_level_1d_padded_ref``
+``inv_level_1d_padded``      kernel 8 on padded bands, no wrap            ``inv_level_1d_padded_ref``
+``swt_fwd_level_1d_padded``  kernel 9 on shards holding their halo        ``swt_fwd_level_1d_padded_ref``
+``swt_inv_level_1d_padded``  kernel 10 on bands holding their halo        ``swt_inv_level_1d_padded_ref``
+===========================  ===========================================  ===============================
 
 A wrapper given a CPU tensor returns its plain version, built on
 ``core/conv.py``; given a CUDA tensor it launches its kernel or raises.
@@ -32,7 +33,13 @@ modes (``core/separable.py``'s mode route): the decimated and polyphase
 bodies with index tables that do not wrap, on the spec of
 ``conv.padded_analysis_pass`` and ``conv.padded_synthesis_pass``, as the 2D
 pair of ``kernels/separable.py``; their backward is the exact adjoint
-through the plain versions.
+through the plain versions.  Those of kernels 9 and 10, the counterparts
+of ``swt_pallas.py:1043 swt_fwd_level_1d_padded`` and ``:1069
+swt_inv_level_1d_padded``, carry the sharded SWT (``parallel/sharded.py``):
+the a-trous bodies with index tables that do not wrap, on the spec of
+``conv.padded_atrous_analysis_pass`` and ``padded_atrous_synthesis_pass``
+over the halo of ``_launch.swt_fwd_halo`` / ``swt_inv_halo``; as JAX's,
+they have no gradient.
 
 Filters are forward-convention float64 arrays.  A 1D a-trous synthesis is
 one pass, so the wrapper folds ONE 1/2 into the inverse's taps
@@ -111,8 +118,26 @@ def inv_level_1d_padded_ref(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, 
                                       out_len)[:, 0, 0].contiguous()
 
 
+def swt_fwd_level_1d_padded_ref(xp: torch.Tensor, dec_lo, dec_hi, level: int):
+    """One a-trous analysis level on (B, Np) signals that hold their halo,
+    ``out[n] = sum_j frev[j] xp[n + j f]``, no wrap -> (lo, hi), each (B, Np
+    - (hlen - 1) f)."""
+    z = conv.padded_atrous_analysis_pass(xp[:, None, None], (dec_lo, dec_hi), -1,
+                                         dilation(level))
+    return z[:, 0, 0].contiguous(), z[:, 1, 0].contiguous()
+
+
+def swt_inv_level_1d_padded_ref(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi,
+                                level: int) -> torch.Tensor:
+    """One a-trous synthesis level with one 1/2 on (B, Mp) bands that hold
+    their halo, no wrap -> (B, Mp - (hlen - 1) f)."""
+    z = torch.stack([lo, hi], dim=1)[:, :, None]
+    return conv.padded_atrous_synthesis_pass(z, (_half(rec_lo), _half(rec_hi)), -1,
+                                             dilation(level))[:, 0, 0].contiguous()
+
+
 # ---------------------------------------------------------------------------
-# launch plans of the padded entry points: kernels 7's and 8's for the
+# launch plans of the padded entry points: kernels 7's to 10's for the
 # padded shapes
 # ---------------------------------------------------------------------------
 
@@ -126,6 +151,18 @@ def inv1d_padded_launch_plan(B: int, pa: PadAxis, hlen: int) -> InvPlan:
     """Kernel 8's plan (``inv1d_launch_plan``, polyphase, fd) for the
     positions the padded grid covers (``pad_positions``)."""
     return inv1d_launch_plan(B, pad_positions(pa), hlen, 1, "fd", True)
+
+
+def swt_fwd1d_padded_launch_plan(B: int, n_out: int, hlen: int, f: int) -> InvPlan:
+    """Kernel 9's plan (``fwd1d_launch_plan``, a-trous, fd) for ``n_out``
+    outputs a signal."""
+    return fwd1d_launch_plan(B, n_out, hlen, f, "fd", False)
+
+
+def swt_inv1d_padded_launch_plan(B: int, n_out: int, hlen: int, f: int) -> InvPlan:
+    """Kernel 10's plan (``inv1d_launch_plan``, a-trous, fd) for ``n_out``
+    outputs a signal."""
+    return inv1d_launch_plan(B, n_out, hlen, f, "fd", False)
 
 
 # ---------------------------------------------------------------------------
@@ -248,6 +285,47 @@ def inv_level_1d_padded(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, c0: 
     launch("inv_level_1d_padded", lo.device,
            [ptr(lo), ptr(hi), ptr(out), B, m, ptr(pad), ptr(tp), hlen, ptr(geo), pl.lc, pl.gc,
             pl.nt, pl.threads, *pl.grid, pl.smem])
+    return out
+
+
+def swt_fwd_level_1d_padded(xp: torch.Tensor, dec_lo, dec_hi, level: int):
+    """One a-trous analysis level on (B, Np) float32 signals that hold their
+    halo -> (lo, hi), each (B, Np - (hlen - 1) f), on
+    ``swt_fwd1d_padded_launch_plan``."""
+    if on_cpu(xp, ndim=2):
+        return swt_fwd_level_1d_padded_ref(xp, dec_lo, dec_hi, level)
+    f = dilation(level)
+    B, n = xp.shape
+    tp = dual_taps((dec_lo, dec_hi), "fd", xp.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
+    n_out = conv.padded_atrous_len(n, hlen, f)
+    pl = swt_fwd1d_padded_launch_plan(B, n_out, hlen, f)
+    lo, hi = (torch.empty((B, n_out), device=xp.device, dtype=xp.dtype) for _ in range(2))
+    launch("swt_fwd_level_1d_padded", xp.device,
+           [ptr(xp), ptr(lo), ptr(hi), B, n, n_out, ptr(tp), hlen, f, pl.lc, pl.gc, pl.nt,
+            pl.threads, *pl.grid, pl.smem])
+    return lo, hi
+
+
+def swt_inv_level_1d_padded(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi,
+                            level: int) -> torch.Tensor:
+    """One a-trous synthesis level on two (B, Mp) float32 bands that hold
+    their halo -> (B, Mp - (hlen - 1) f), the one 1/2 of a 1D synthesis
+    folded into the taps, on ``swt_inv1d_padded_launch_plan``."""
+    if on_cpu(lo, hi, ndim=2):
+        return swt_inv_level_1d_padded_ref(lo, hi, rec_lo, rec_hi, level)
+    f = dilation(level)
+    B, m = _pair_shape(lo, hi)
+    tp = dual_taps((_half(rec_lo), _half(rec_hi)), "fd", lo.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
+    n_out = conv.padded_atrous_len(m, hlen, f)
+    pl = swt_inv1d_padded_launch_plan(B, n_out, hlen, f)
+    out = torch.empty((B, n_out), device=lo.device, dtype=lo.dtype)
+    launch("swt_inv_level_1d_padded", lo.device,
+           [ptr(lo), ptr(hi), ptr(out), B, m, n_out, ptr(tp), hlen, f, pl.lc, pl.gc, pl.nt,
+            pl.threads, *pl.grid, pl.smem])
     return out
 
 

@@ -36,7 +36,10 @@
 // pdwt_inv_level_1d_padded, at the end of this file), the counterparts of
 // swt_pallas.py:995 fwd_level_1d_padded and :1018 inv_level_1d_padded: the
 // same bodies on signals or bands the caller extended or padded, reading
-// no wrapped index, for the boundary modes.
+// no wrapped index, for the boundary modes.  So do kernels 9 and 10
+// (pdwt_swt_fwd_level_1d_padded, pdwt_swt_inv_level_1d_padded), the
+// counterparts of swt_pallas.py:1043 and :1069, on local shards that hold
+// their ring halo, for the sharded SWT (parallel/sharded.py).
 //
 // The four exact kernels are kernels 15's and 16's functions in the fd scheme
 // on float32 data: every output sums the taps in order, each one FMA into one
@@ -136,6 +139,12 @@ int launch_fwd_padded(const float* x, float* lo, float* hi, int B, int N, int n_
 int launch_inv_padded(const float* lo, const float* hi, float* out, int B, int M, const int* pad,
                       const float* taps, int hlen, const int* geo, int lc, int gc, int nt,
                       int threads, int gx, int gy, int gz, int smem, void* stream);
+int launch_swt_fwd_padded(const float* x, float* lo, float* hi, int B, int N, int n_out,
+                          const float* taps, int hlen, int f, int lc, int gc, int nt, int threads,
+                          int gx, int gy, int gz, int smem, void* stream);
+int launch_swt_inv_padded(const float* lo, const float* hi, float* out, int B, int M, int n_out,
+                          const float* taps, int hlen, int f, int lc, int gc, int nt, int threads,
+                          int gx, int gy, int gz, int smem, void* stream);
 }  // namespace pdwt_m1d
 
 // The padded entry points of kernels 7 and 8 (the boundary modes,
@@ -161,4 +170,30 @@ extern "C" int pdwt_inv_level_1d_padded(const float* lo, const float* hi, float*
                                         int gx, int gy, int gz, int smem, void* stream) {
   return pdwt_m1d::launch_inv_padded(lo, hi, out, B, M, pad, taps, hlen, geo, lc, gc, nt,
                                      threads, gx, gy, gz, smem, stream);
+}
+
+// The padded entry points of kernels 9 and 10 (the sharded SWT,
+// parallel/sharded.py), on the a-trous bodies of mxu1d.cu with index tables
+// that do not wrap.  Kernel 9's: (B, N) float32 signals that hold their
+// halo -> two (B, n_out) bands, out[n] = sum_j t[j] x[n + j f]; taps as
+// kernel 9's, the plan kernels/batched1d.py: swt_fwd1d_padded_launch_plan's.
+// Refused where n_out + (hlen - 1) f > N: an output would read outside.
+extern "C" int pdwt_swt_fwd_level_1d_padded(const float* x, float* lo, float* hi, int B, int N,
+                                            int n_out, const float* taps, int hlen, int f,
+                                            int lc, int gc, int nt, int threads, int gx, int gy,
+                                            int gz, int smem, void* stream) {
+  return pdwt_m1d::launch_swt_fwd_padded(x, lo, hi, B, N, n_out, taps, hlen, f, lc, gc, nt,
+                                         threads, gx, gy, gz, smem, stream);
+}
+
+// Kernel 10's: two (B, M) float32 bands that hold their halo -> (B, n_out),
+// out[n] = sum_band sum_j t_band[j] x_band[n + j f]; the halved taps as
+// kernel 10's, the plan kernels/batched1d.py: swt_inv1d_padded_launch_plan's.
+// Refused where n_out + (hlen - 1) f > M.
+extern "C" int pdwt_swt_inv_level_1d_padded(const float* lo, const float* hi, float* out, int B,
+                                            int M, int n_out, const float* taps, int hlen, int f,
+                                            int lc, int gc, int nt, int threads, int gx, int gy,
+                                            int gz, int smem, void* stream) {
+  return pdwt_m1d::launch_swt_inv_padded(lo, hi, out, B, M, n_out, taps, hlen, f, lc, gc, nt,
+                                         threads, gx, gy, gz, smem, stream);
 }

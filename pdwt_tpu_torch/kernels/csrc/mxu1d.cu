@@ -107,7 +107,11 @@ size_t fwd1d_smem(int os, int lc, int dc, int nt) {
 // (swt_pallas.py:995): the decimated instance in fd on signals the caller
 // extended (the pywt extension, core/modes.py), index tables that do not
 // wrap (fill_table, cen = 0: out[n] = sum_j t[j] x[2n + j]) and n_out
-// outputs a signal, N >= 2 (n_out - 1) + hlen.
+// outputs a signal, N >= 2 (n_out - 1) + hlen.  Kernel 9's
+// (pdwt_swt_fwd_level_1d_padded), which replaces swt_fwd_level_1d_padded
+// (swt_pallas.py:1043): the a-trous instance in fd on local shards that
+// hold their ring halo (parallel/sharded.py), out[n] = sum_j t[j] x[n + j
+// f], N >= n_out + (hlen - 1) f.
 template <int S, int OS, bool PAD = false>
 __global__ void __launch_bounds__(256)
 fwd1d_strip_kernel(const void* __restrict__ x, float* __restrict__ lo, void* __restrict__ hi,
@@ -223,6 +227,11 @@ size_t inv1d_smem(int nph, int lc, int dc, int nt) {
 // padded, index tables that do not wrap, starting pa.base coefficients in,
 // and the outputs from the body's output pa.off on, pa.n_out of them a
 // signal (band_strip.cuh: PadAxis, as kernel 2's padded instance).
+// Kernel 10's (pdwt_swt_inv_level_1d_padded), which replaces
+// swt_inv_level_1d_padded (swt_pallas.py:1069): the a-trous instance in fd
+// on bands that hold their ring halo, cen = 0 and pa = {0, 0, n_out}:
+// out[n] = sum_band sum_j t_band[j] x_band[n + j f], M >= n_out + (hlen -
+// 1) f; its grid covers the n_out outputs.
 template <int S, int NPH, bool PAD = false>
 __global__ void __launch_bounds__(256)
 inv1d_strip_kernel(const float* __restrict__ lo, const void* __restrict__ hi,
@@ -246,7 +255,8 @@ inv1d_strip_kernel(const float* __restrict__ lo, const void* __restrict__ hi,
 
   // polyphase: the window starts at the earlier parity's first sample
   const int o0 = g.lo + g.o[0], o1 = g.lo + g.o[1], omin = o0 < o1 ? o0 : o1;
-  const int frc = gc == 1 ? 1 : (f < M ? f : M);
+  const int nf = PAD && NPH == 1 ? pa.n_out : M;  // the positions the grid covers
+  const int frc = gc == 1 ? 1 : (f < nf ? f : nf);
   const int rho = blockIdx.x % frc, q0 = (blockIdx.x / frc) * lc;
   // window entry i <-> position rho + gc (q0 + i) + shift
   const long long shift = NPH == 2 ? (long long)omin - g.lo : -(long long)cen;
@@ -293,7 +303,7 @@ inv1d_strip_kernel(const float* __restrict__ lo, const void* __restrict__ hi,
     __syncthreads();
     auto orow = [&](int i) { return row0 + i; };
     auto ocol = [&](int u) {
-      if constexpr (PAD) {  // output i is the body's output i + off
+      if constexpr (PAD && NPH == 2) {  // output i is the body's output i + off
         const long long c = 2LL * q0 + u - pa.off;
         return c < 0 ? (long long)Nout : c;
       }
@@ -438,6 +448,55 @@ int launch_inv_padded(const float* lo, const float* hi, float* out, int B, int M
   if (e != cudaSuccess) return e;
   kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
       lo, hi, out, 0, 0, B, M, hlen, 1, 0, g, taps, lc, 1, nt, pa);
+  return cudaGetLastError();
+}
+
+// Launch the padded a-trous analysis (fwd1d_strip_kernel<FD, 1, true>) on
+// (B, N) float32 signals that hold their halo, into two (B, n_out) bands,
+// on kernel 9's plan for n_out outputs (kernels/batched1d.py:
+// swt_fwd1d_padded_launch_plan).  Refused (cudaErrorInvalidValue) where the
+// plan does not add up or the outputs would read past the signal.
+int launch_swt_fwd_padded(const float* x, float* lo, float* hi, int B, int N, int n_out,
+                          const float* taps, int hlen, int f, int lc, int gc, int nt, int threads,
+                          int gx, int gy, int gz, int smem, void* stream) {
+  if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || n_out < 1 || f < 1 ||
+      N < n_out + (long long)(hlen - 1) * f)
+    return cudaErrorInvalidValue;
+  if (nt < hlen || nt % kFwdCh || nt > PDWT_MXU_MAX_HLEN || !(gc == 1 || gc == f) || lc < 1 ||
+      lc % (kRowStrip<FD> * (f / gc)) || threads < 32 || threads > 256 || threads % 32 ||
+      !lines_fit(B, n_out, f, lc, gc, gx, gy, gz) ||
+      (size_t)smem != fwd1d_smem<FD>(1, lc, f / gc, nt))
+    return cudaErrorInvalidValue;
+  auto kernel = fwd1d_strip_kernel<FD, 1, true>;
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+      x, lo, hi, 0, 0, B, N, hlen, f, 0, taps, lc, gc, nt, n_out);
+  return cudaGetLastError();
+}
+
+// Launch the padded a-trous synthesis (inv1d_strip_kernel<FD, 1, true>) on
+// two (B, M) float32 bands that hold their halo, into (B, n_out), on
+// kernel 10's plan for n_out positions (kernels/batched1d.py:
+// swt_inv1d_padded_launch_plan); the halved taps.  Refused
+// (cudaErrorInvalidValue) where the plan does not add up or the outputs
+// would read past the bands.
+int launch_swt_inv_padded(const float* lo, const float* hi, float* out, int B, int M, int n_out,
+                          const float* taps, int hlen, int f, int lc, int gc, int nt, int threads,
+                          int gx, int gy, int gz, int smem, void* stream) {
+  if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || n_out < 1 || f < 1 ||
+      M < n_out + (long long)(hlen - 1) * f)
+    return cudaErrorInvalidValue;
+  if (nt < hlen || nt % kCh<1> || nt > PDWT_MXU_MAX_HLEN + kCh<1> || !(gc == 1 || gc == f) ||
+      lc < 1 || lc % (kRowStrip<FD> * (f / gc)) || threads < 32 || threads > 256 ||
+      threads % 32 || !lines_fit(B, n_out, f, lc, gc, gx, gy, gz) ||
+      (size_t)smem != inv1d_smem<FD>(1, lc, f / gc, nt))
+    return cudaErrorInvalidValue;
+  auto kernel = inv1d_strip_kernel<FD, 1, true>;
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+      lo, hi, out, 0, 0, B, M, hlen, f, 0, Poly{}, taps, lc, gc, nt, PadAxis{0, 0, n_out});
   return cudaGetLastError();
 }
 

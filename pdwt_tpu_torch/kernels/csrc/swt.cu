@@ -35,6 +35,13 @@
 // float32 roundoff.  The entry points below are kept apart so that their
 // wrappers count their own launches.
 //
+// Kernels 5 and 6 also have padded entry points (pdwt_swt_fwd_level_2d_padded,
+// pdwt_swt_inv_level_2d_padded, at the end of this file), the counterparts of
+// swt_pallas.py:935 swt_fwd_level_2d_padded and :960 swt_inv_level_2d_padded:
+// the same bodies (swt_matmul.cu: swt_fwd_padded_kernel on fwd_tile<FD, 1,
+// true>, swt_inv_mxu_kernel<FD, true>) on local shards that hold their ring
+// halo (parallel/sharded.py), reading no wrapped index.
+//
 // Bound: device memory, per level.  The forward reads the image once and
 // writes four full-size planes; the inverse reads four planes and writes one.
 
@@ -89,4 +96,45 @@ extern "C" int pdwt_swt_inv_level_2d(const float* a, const float* h, const float
   return pdwt_swt_inv_level_2d_mxu(a, h, v, d, out, B, R, C, taps, hlen, f, cen, pdwt_mxu::FD,
                                    0, 0, thresh_mode, beta, lr, lc, gc, nph, nt, threads, gx, gy,
                                    gz, smem, stream);
+}
+
+namespace pdwt_swtmm {
+int launch_swt_fwd_padded(const float* x, float* a, float* h, float* v, float* d, int B, int R,
+                          int C, int Ro, int Co, const float* taps, int hlen, int f, int lr,
+                          int lc, int gc, int nph, int nt, int threads, int gx, int gy, int gz,
+                          int smem, void* stream);
+int launch_swt_inv_padded(const float* a, const float* h, const float* v, const float* d,
+                          float* out, int B, int Ri, int Ci, int R, int C, const float* taps,
+                          int hlen, int f, int lr, int lc, int gc, int nph, int nt, int threads,
+                          int gx, int gy, int gz, int smem, void* stream);
+}  // namespace pdwt_swtmm
+
+// The padded entry points of kernels 5 and 6 (the sharded SWT,
+// parallel/sharded.py), on the a-trous bodies of swt_matmul.cu with index
+// tables that do not wrap.  Kernel 5's: an (B, R, C) float32 input that
+// holds its halo -> four (B, Ro, Co) planes, out[n] = sum_j t[j] x[n + j f]
+// per axis; taps as kernel 5's, the plan kernels/swt.py:
+// swt_fwd_padded_launch_plan's.  Refused where Ro + (hlen - 1) f > R (or
+// the columns'): a stored output would read outside the input.
+extern "C" int pdwt_swt_fwd_level_2d_padded(const float* x, float* a, float* h, float* v,
+                                            float* d, int B, int R, int C, int Ro, int Co,
+                                            const float* taps, int hlen, int f, int lr, int lc,
+                                            int gc, int nph, int nt, int threads, int gx, int gy,
+                                            int gz, int smem, void* stream) {
+  return pdwt_swtmm::launch_swt_fwd_padded(x, a, h, v, d, B, R, C, Ro, Co, taps, hlen, f, lr, lc,
+                                           gc, nph, nt, threads, gx, gy, gz, smem, stream);
+}
+
+// Kernel 6's: four (B, Ri, Ci) float32 subbands that hold their halo ->
+// (B, R, C), out[n] = sum_band sum_j t_band[j] x_band[n + j f] per axis, no
+// threshold; the halved taps as kernel 6's, the plan kernels/swt.py:
+// swt_inv_padded_launch_plan's.  Refused where R + (hlen - 1) f > Ri (or
+// the columns').
+extern "C" int pdwt_swt_inv_level_2d_padded(const float* a, const float* h, const float* v,
+                                            const float* d, float* out, int B, int Ri, int Ci,
+                                            int R, int C, const float* taps, int hlen, int f,
+                                            int lr, int lc, int gc, int nph, int nt, int threads,
+                                            int gx, int gy, int gz, int smem, void* stream) {
+  return pdwt_swtmm::launch_swt_inv_padded(a, h, v, d, out, B, Ri, Ci, R, C, taps, hlen, f, lr,
+                                           lc, gc, nph, nt, threads, gx, gy, gz, smem, stream);
 }

@@ -291,6 +291,42 @@ fwd_padded_kernel(const float* __restrict__ x, float* __restrict__ a, float* __r
 }
 
 // ---------------------------------------------------------------------------
+// Padded a-trous forward level: kernel 5's padded entry point (swt.cu:
+// pdwt_swt_fwd_level_2d_padded).  Replaces swt_fwd_level_2d_padded
+// (swt_pallas.py:935), which the sharded SWT runs on a local shard that
+// holds its ring halo (parallel/sharded.py).  It is kernel 5's per-tile
+// work (fwd_tile<FD, 1>, rows first, the taps in order, one FMA each) with
+// index tables that do not wrap, at dilation f, on an R x C input that
+// already holds every sample the Ro x Co outputs read:
+//   out[n] = sum_j t[j] * x[n + j f] per axis, n < Ro (Co), R >= Ro + (hlen - 1) f.
+// The halo is the bare periodic support, fwd_center(hlen) f rows and
+// columns below and (hlen - 1) f - fwd_center(hlen) f above.  Bound: device
+// memory, as kernel 5: the padded input read once, four Ro x Co planes
+// written once.  Plan: kernels/swt.py: swt_fwd_padded_launch_plan (kernel
+// 5's plan for an Ro x Co image), rows of one residue class mod f as there.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(256)
+swt_fwd_padded_kernel(const float* __restrict__ x, float* __restrict__ a, float* __restrict__ h,
+                      float* __restrict__ v, float* __restrict__ d, int B, int R, int C, int Ro,
+                      int Co, int hlen, int f, const float* __restrict__ taps, int lr, int lc,
+                      int gc, int nph, int nt) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int frr = f < Ro ? f : Ro, frc = gc == 1 ? 1 : (f < Co ? f : Co);
+  const FwdTile g = {R,  C,  hlen, f,  0,  lr, lc, gc, nph, nt, (int)(blockIdx.y % frr),
+                     (int)(blockIdx.y / frr) * lr, (int)(blockIdx.x % frc),
+                     (int)(blockIdx.x / frc) * lc, Ro, Co};
+  for (int b = blockIdx.z; b < B; b += gridDim.z) {
+    const size_t plane = (size_t)b * R * C;
+    auto stage_src = [&](const int* rows, const int* cols, int WR, int WC, float* win) {
+      auto row = [&](int i) { return plane + (size_t)rows[i] * C; };
+      stage_window<FD, 1, 6, 3>(Bands{{x}, 0u}, row, cols, WR, WC, win, WC, 0, WR * WC);
+    };
+    fwd_tile<FD, 1, true>(smem_raw, g, taps, b == (int)blockIdx.z, stage_src, a, h, v, d, 0,
+                          (size_t)b * Ro * Co);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Forward tail (kernel 3).  Replaces _make_tail_fwd_kernel
 // (separable_pallas.py:576): all `levels` remaining analysis levels of a
 // (B, R, C) float32 image in one launch, each level kernel 1's function
@@ -371,6 +407,15 @@ fwd_tail_kernel(const float* __restrict__ x, float* __restrict__ a_out, float* s
 // swt_inv_launch_plan) picks lr, lc, gc, nph, the threads, the grid and the
 // shared-memory bytes, and the entry point refuses a plan that does not add
 // up.
+//
+// PAD: kernel 6's padded entry point (swt.cu: pdwt_swt_inv_level_2d_padded),
+// which replaces swt_inv_level_2d_padded (swt_pallas.py:960): the fd
+// instance on Ri x Ci float32 subbands that hold their ring halo
+// (swt_inv_center(hlen) f rows and columns below, the rest of the span
+// (hlen - 1) f above), index tables that do not wrap (fill_table, cen = 0:
+// out[n] = sum_band sum_j t_band[j] x_band[n + j f] per axis) and R x C
+// outputs, Ri >= R + (hlen - 1) f; no threshold.  A compile-time choice, so
+// the periodic instances (Ri = R, Ci = C) keep their code.
 // ---------------------------------------------------------------------------
 constexpr int kInvCh = 8;       // taps per chunk of the inverse's strips
 constexpr int kStageLoads = 32;  // loads in flight per thread while staging
@@ -389,13 +434,13 @@ size_t inv_smem(int lr, int lc, int dc, int nt, int nph) {
          2 * nd * lr * temp_pitch<St>((int)WC) * sizeof(St);
 }
 
-template <int S>
+template <int S, bool PAD = false>
 __global__ void __launch_bounds__(256)
 swt_inv_mxu_kernel(const float* __restrict__ a, const void* __restrict__ h,
                    const void* __restrict__ v, const void* __restrict__ d, void* __restrict__ out,
                    int det_bf16, int out_bf16, int B, int R, int C, int hlen, int f, int cen,
                    int mode, const float* __restrict__ beta, int lr, int lc, int gc, int nph,
-                   int nt, const float* __restrict__ taps) {
+                   int nt, const float* __restrict__ taps, int Rin, int Cin) {
   using St = Stage<S>;
   constexpr int nd = kDataLo<S> ? 2 : 1;
   constexpr int PR = kRowStrip<S>, PC = kColStrip;
@@ -418,8 +463,9 @@ swt_inv_mxu_kernel(const float* __restrict__ a, const void* __restrict__ h,
   const int frr = f < R ? f : R, frc = gc == 1 ? 1 : (f < C ? f : C);
   const int rho_r = blockIdx.y % frr, q0r = (blockIdx.y / frr) * lr;
   const int rho_c = blockIdx.x % frc, q0c = (blockIdx.x / frc) * lc;
-  fill_index(rows, WR, rho_r + (long long)f * (q0r - cen), f, R);
-  fill_index(cols, WC, rho_c + (long long)gc * q0c - (long long)cen * f, gc, C);
+  const int Ri = PAD ? Rin : R, Ci = PAD ? Cin : C;  // the subbands' sides
+  fill_table<PAD>(rows, WR, rho_r + (long long)f * (q0r - cen), f, Ri);
+  fill_table<PAD>(cols, WC, rho_c + (long long)gc * q0c - (long long)cen * f, gc, Ci);
   const float bt = mode == kNone ? 0.f : __ldg(beta);
   const unsigned tb = det_bf16 ? 0xe : 0;  // H, V, D bf16
   const Bands all = {{a, h, v, d}, tb}, ah = {{a, h}, tb & 3}, vd = {{v, d}, tb >> 2};
@@ -427,15 +473,15 @@ swt_inv_mxu_kernel(const float* __restrict__ a, const void* __restrict__ h,
   auto tap = [&](int e) { return dual_tap(e, nt, hlen); };
 
   for (int b = blockIdx.z; b < B; b += gridDim.z) {
-    const size_t plane = (size_t)b * R * C;
+    const size_t plane = (size_t)b * R * C, iplane = PAD ? (size_t)b * Ri * Ci : plane;
     for (int ph = 0; ph < nph; ++ph) {
       const unsigned thr = mode == kNone ? 0 : (nph == 1 ? 0xe : (ph == 0 ? 2 : 3));
       auto stage_phase = [&] {
         if (nph == 1)
-          stage_bands<S, 4, kStageLoads>(all, thr, plane, C, rows, cols, WR, WC, win, BS,
+          stage_bands<S, 4, kStageLoads>(all, thr, iplane, Ci, rows, cols, WR, WC, win, BS,
                                          WR * WC, mode, bt);
         else
-          stage_bands<S, 2, kStageLoads>(ph == 0 ? ah : vd, thr, plane, C, rows, cols, WR, WC,
+          stage_bands<S, 2, kStageLoads>(ph == 0 ? ah : vd, thr, iplane, Ci, rows, cols, WR, WC,
                                          win, BS, WR * WC, mode, bt);
       };
       if (b == (int)blockIdx.z && ph == 0)
@@ -544,6 +590,56 @@ int launch_fwd_padded(const float* x, float* a, float* h, float* v, float* d, in
   return cudaGetLastError();
 }
 
+// Launch the padded a-trous forward level (swt_fwd_padded_kernel) on its
+// plan: kernel 5's plan fields for Ro x Co outputs at dilation f; refused
+// (cudaErrorInvalidValue) where the plan does not add up or the outputs
+// would read past the R x C input.
+int launch_swt_fwd_padded(const float* x, float* a, float* h, float* v, float* d, int B, int R,
+                          int C, int Ro, int Co, const float* taps, int hlen, int f, int lr,
+                          int lc, int gc, int nph, int nt, int threads, int gx, int gy, int gz,
+                          int smem, void* stream) {
+  if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || Ro < 1 || Co < 1 || f < 1 ||
+      R < Ro + (long long)(hlen - 1) * f || C < Co + (long long)(hlen - 1) * f)
+    return cudaErrorInvalidValue;
+  if (nt < hlen || nt > PDWT_MXU_MAX_HLEN || nt % kFwdCh || !(gc == 1 || gc == f) ||
+      !(nph == 1 || nph == 2) || lr < 1 || lc < 1 || lr % kRowStrip<FD> ||
+      lc % (kColStrip * (f / gc)) || threads < 32 || threads > 256 || threads % 32 ||
+      !grid_fits(B, Ro, Co, f, lr, lc, gc, gx, gy, gz) ||
+      (size_t)smem != fwd_smem<FD>(1, lr, lc, f / gc, nt, nph))
+    return cudaErrorInvalidValue;
+  cudaError_t e = prepare(swt_fwd_padded_kernel, smem);
+  if (e != cudaSuccess) return e;
+  swt_fwd_padded_kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+      x, a, h, v, d, B, R, C, Ro, Co, hlen, f, taps, lr, lc, gc, nph, nt);
+  return cudaGetLastError();
+}
+
+// Launch the padded a-trous synthesis (swt_inv_mxu_kernel<FD, true>, no
+// threshold) on four Ri x Ci float32 subbands into an R x C output, on
+// kernel 6's plan for R x C; refused (cudaErrorInvalidValue) where the plan
+// does not add up or the outputs would read past the subbands.
+int launch_swt_inv_padded(const float* a, const float* h, const float* v, const float* d,
+                          float* out, int B, int Ri, int Ci, int R, int C, const float* taps,
+                          int hlen, int f, int lr, int lc, int gc, int nph, int nt, int threads,
+                          int gx, int gy, int gz, int smem, void* stream) {
+  if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || R < 1 || C < 1 || f < 1 ||
+      Ri < R + (long long)(hlen - 1) * f || Ci < C + (long long)(hlen - 1) * f)
+    return cudaErrorInvalidValue;
+  if (nt < hlen || nt > PDWT_MXU_MAX_HLEN || nt % kInvCh || !(gc == 1 || gc == f) ||
+      !(nph == 1 || nph == 2) || lr < 1 || lc < 1 || lr % kRowStrip<FD> ||
+      lc % (kColStrip * (f / gc)) || threads < 32 || threads > 256 || threads % 32 ||
+      !grid_fits(B, R, C, f, lr, lc, gc, gx, gy, gz) ||
+      (size_t)smem != inv_smem<FD>(lr, lc, f / gc, nt, nph))
+    return cudaErrorInvalidValue;
+  auto kernel = swt_inv_mxu_kernel<FD, true>;
+  cudaError_t e = prepare(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+      a, h, v, d, out, 0, 0, B, R, C, hlen, f, 0, kNone, nullptr, lr, lc, gc, nph, nt, taps, Ri,
+      Ci);
+  return cudaGetLastError();
+}
+
 // Launch the forward tail (kernel 3) on its plan (kernels/separable.py:
 // tail_launch_plan): nb blocks per batch item in clusters of cs, threads,
 // dynamic shared-memory bytes (the largest level's), and each level's tile
@@ -630,7 +726,7 @@ extern "C" int pdwt_swt_inv_level_2d_mxu(const float* a, const void* h, const vo
     if (e2 != cudaSuccess) return e2;
     kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
         a, h, v, d, out, det_bf16, out_bf16, B, R, C, hlen, f, cen, thresh_mode, beta, lr, lc, gc,
-        nph, nt, taps);
+        nph, nt, taps, R, C);
     return cudaGetLastError();
   });
 }

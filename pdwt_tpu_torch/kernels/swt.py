@@ -15,6 +15,27 @@ wrapper               computes                                         plain ver
                       soft/hard/garrote threshold of H, V, D fused
 ====================  ===============================================  ===========================
 
+and two padded entry points for the sharded SWT (``parallel/sharded.py``),
+the counterparts of ``swt_pallas.py:935 swt_fwd_level_2d_padded`` and
+``:960 swt_inv_level_2d_padded``:
+
+===========================  ==========================================  ==================================
+wrapper                      computes                                    plain version
+===========================  ==========================================  ==================================
+``swt_fwd_level_2d_padded``  kernel 5 on a shard that holds its halo     ``swt_fwd_level_2d_padded_ref``
+``swt_inv_level_2d_padded``  kernel 6 on subbands that hold their halo,  ``swt_inv_level_2d_padded_ref``
+                             no threshold
+===========================  ==========================================  ==================================
+
+They run the same bodies (``swt_matmul.cu: swt_fwd_padded_kernel`` on
+``fwd_tile<FD, 1, true>``, ``swt_inv_mxu_kernel<FD, true>``) with index
+tables that do not wrap, on the spec of ``conv.padded_atrous_analysis_pass``
+and ``conv.padded_atrous_synthesis_pass``: a valid correlation at dilation
+f over the halo the caller exchanged, ``_launch.swt_fwd_halo`` /
+``swt_inv_halo`` per axis, and the C entry refuses a plan whose outputs
+would read outside it.  As JAX's padded functions, they have no gradient:
+the ring exchange around them is not differentiable.
+
 Level L dilates the taps by ``f = 2^(L-1)``; every output is full size.  A
 wrapper given a CPU tensor returns its plain version, built on
 ``core/conv.py``; given a CUDA tensor it launches its kernel or raises.
@@ -46,7 +67,7 @@ import numpy as np
 import torch
 
 from ..core import conv
-from ._launch import check_span, dilation, launch, on_cpu, ptr, rev
+from ._launch import InvPlan, check_span, dilation, launch, on_cpu, ptr, rev
 from .matmul import dual_taps
 from .mxu1d import _half
 
@@ -83,6 +104,45 @@ def swt_inv_level_2d_ref(a, h, v, d, rec_lo, rec_hi, level: int,
     z = torch.stack([a, h, v, d], dim=1)
     t = conv.synthesis_pass(z, rec, axis=-2, dilation=f, decimated=False)
     return conv.synthesis_pass(t, rec, axis=-1, dilation=f, decimated=False)[:, 0].contiguous()
+
+
+def swt_fwd_level_2d_padded_ref(xp: torch.Tensor, dec_lo, dec_hi, level: int):
+    """One a-trous analysis level on a (B, Rp, Cp) shard that holds its
+    halo: ``out[n] = sum_j frev[j] xp[n + j f]`` along the columns, then
+    the rows, no wrap -> four (B, Rp - (hlen - 1) f, Cp - (hlen - 1) f)
+    planes."""
+    f, dec = dilation(level), (dec_lo, dec_hi)
+    z = conv.padded_atrous_analysis_pass(xp[:, None], dec, -1, f)
+    z = conv.padded_atrous_analysis_pass(z, dec, -2, f)
+    return tuple(z[:, k].contiguous() for k in range(4))
+
+
+def swt_inv_level_2d_padded_ref(a, h, v, d, rec_lo, rec_hi, level: int) -> torch.Tensor:
+    """One a-trous synthesis level on (B, Rp, Cp) subbands that hold their
+    halo, rows then columns, 1/2 per pass, no wrap -> (B, Rp - (hlen - 1)
+    f, Cp - (hlen - 1) f)."""
+    f = dilation(level)
+    rec = (0.5 * np.asarray(rec_lo, np.float64), 0.5 * np.asarray(rec_hi, np.float64))
+    t = conv.padded_atrous_synthesis_pass(torch.stack([a, h, v, d], dim=1), rec, -2, f)
+    return conv.padded_atrous_synthesis_pass(t, rec, -1, f)[:, 0].contiguous()
+
+
+def swt_fwd_padded_launch_plan(B: int, Ro: int, Co: int, hlen: int, f: int) -> InvPlan:
+    """The launch of kernel 5's padded entry point for (Ro, Co) outputs:
+    kernel 5's plan for an (Ro, Co) image (``swt_matmul.swt_fwd_launch_plan``
+    in fd)."""
+    from .swt_matmul import swt_fwd_launch_plan  # swt_matmul imports this module
+
+    return swt_fwd_launch_plan(B, Ro, Co, hlen, f, "fd")
+
+
+def swt_inv_padded_launch_plan(B: int, R: int, C: int, hlen: int, f: int) -> InvPlan:
+    """The launch of kernel 6's padded entry point for an (R, C) output:
+    kernel 6's plan for (R, C) subbands (``swt_matmul.swt_inv_launch_plan``
+    in fd)."""
+    from .swt_matmul import swt_inv_launch_plan  # swt_matmul imports this module
+
+    return swt_inv_launch_plan(B, R, C, hlen, f, "fd")
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +205,48 @@ def swt_inv_level_2d(a, h, v, d, rec_lo, rec_hi, level: int,
            [*map(ptr, (a, h, v, d, out)), B, R, C, ptr(tp), hlen, f, conv.swt_inv_center(hlen),
             THRESH_CODES[mode], None if buf is None else ptr(buf), pl.lr, pl.lc, pl.gc, pl.nph,
             pl.nt, pl.threads, *pl.grid, pl.smem])
+    return out
+
+
+def swt_fwd_level_2d_padded(xp: torch.Tensor, dec_lo, dec_hi, level: int):
+    """One a-trous analysis level on a (B, Rp, Cp) float32 shard that holds
+    its halo -> (a, h, v, d), each (B, Rp - (hlen - 1) f, Cp - (hlen - 1)
+    f), on ``swt_fwd_padded_launch_plan``."""
+    if on_cpu(xp):
+        return swt_fwd_level_2d_padded_ref(xp, dec_lo, dec_hi, level)
+    f = dilation(level)
+    tp = dual_taps((dec_lo, dec_hi), "fd", xp.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
+    B, R, C = xp.shape
+    ro, co = conv.padded_atrous_len(R, hlen, f), conv.padded_atrous_len(C, hlen, f)
+    pl = swt_fwd_padded_launch_plan(B, ro, co, hlen, f)
+    outs = [torch.empty((B, ro, co), device=xp.device, dtype=xp.dtype) for _ in range(4)]
+    launch("swt_fwd_level_2d_padded", xp.device,
+           [ptr(xp), *map(ptr, outs), B, R, C, ro, co, ptr(tp), hlen, f, pl.lr, pl.lc, pl.gc,
+            pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
+    return tuple(outs)
+
+
+def swt_inv_level_2d_padded(a, h, v, d, rec_lo, rec_hi, level: int) -> torch.Tensor:
+    """One a-trous synthesis level on four (B, Rp, Cp) float32 subbands
+    that hold their halo -> (B, Rp - (hlen - 1) f, Cp - (hlen - 1) f), the
+    1/2 per pass folded into the taps, on ``swt_inv_padded_launch_plan``."""
+    if on_cpu(a, h, v, d):
+        return swt_inv_level_2d_padded_ref(a, h, v, d, rec_lo, rec_hi, level)
+    if not a.shape == h.shape == v.shape == d.shape:
+        raise ValueError("the four subbands must have one shape")
+    f = dilation(level)
+    tp = dual_taps((_half(rec_lo), _half(rec_hi)), "fd", a.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
+    B, Ri, Ci = a.shape
+    R, C = conv.padded_atrous_len(Ri, hlen, f), conv.padded_atrous_len(Ci, hlen, f)
+    pl = swt_inv_padded_launch_plan(B, R, C, hlen, f)
+    out = torch.empty((B, R, C), device=a.device, dtype=a.dtype)
+    launch("swt_inv_level_2d_padded", a.device,
+           [*map(ptr, (a, h, v, d, out)), B, Ri, Ci, R, C, ptr(tp), hlen, f, pl.lr, pl.lc,
+            pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
     return out
 
 

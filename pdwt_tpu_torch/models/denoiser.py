@@ -1,8 +1,9 @@
 """Wavelet denoising (counterpart of ``pdwt_tpu/models/denoiser.py``):
 the denoising step (random circular shift, DWT or SWT, threshold, norm,
 inverse, unshift; on the SWT branch an elementwise threshold fuses into
-the inverse), the fully data-driven ``auto_denoise`` and the averaged
-``cycle_spin_denoise``.  Shifts come from a ``torch.Generator`` where JAX
+the inverse), the fully data-driven ``auto_denoise``, the averaged
+``cycle_spin_denoise`` and the denoising step over a device mesh,
+``sharded_denoise_step``.  Shifts come from a ``torch.Generator`` where JAX
 takes a PRNG key."""
 from __future__ import annotations
 
@@ -120,3 +121,37 @@ def cycle_spin_denoise(img: torch.Tensor, generator: torch.Generator, wav, level
         out, _ = denoise_step(img, generator, wav, levels, beta, mode=mode, normalize=normalize)
         acc = acc + out
     return acc / torch.full((), spins, dtype=acc.dtype, device=acc.device)
+
+
+def sharded_denoise_step(img, wav, levels: int, beta, mesh, *, data_axis: Optional[str] = None,
+                         row_axis: Optional[str] = None, col_axis: Optional[str] = None,
+                         mode: str = "soft", swt: bool = False):
+    """One denoising step over a (data, row, col) device mesh (no cycle
+    spinning): the sharded DWT (or SWT) of ``img`` (a DTensor, or a full
+    tensor that every rank passes alike), the threshold, the norm and the
+    sharded inverse.  Returns ``(denoised, norm1)``: a DTensor sharded as
+    the input, and a 0-dim tensor equal on every rank.
+
+    The threshold is elementwise (group: per position over the bands), so
+    it runs on each rank's shards as they are, with JAX's values; the norm
+    is each rank's sum followed by ``dist.all_reduce`` over the mesh axes
+    that shard the image (a replicated axis holds copies, not more of the
+    image).  The ops run on the local tensors, not through DTensor
+    dispatch."""
+    from ..core.separable import Coeffs2D
+    from ..parallel import sharded as par
+
+    check_mode(mode)
+    wav = _resolve(wav)
+    nr, nc = img.shape[-2:]
+    axes = dict(data_axis=data_axis, row_axis=row_axis, col_axis=col_axis)
+    coeffs = par.dwt2d(img, wav, levels, mesh, swt=swt, **axes)
+    loc = lambda t: t.to_local()
+    coeffs = _THRESH[mode](Coeffs2D(loc(coeffs.approx),
+                                    tuple(tuple(map(loc, b)) for b in coeffs.details)), beta)
+    n1 = par.all_reduce_sum(ops.norm1(coeffs), mesh, (data_axis, row_axis, col_axis))
+    placements = par._placements(mesh, img.ndim, **axes)
+    glob = lambda t: par._global(t, mesh, placements)
+    coeffs = Coeffs2D(glob(coeffs.approx), tuple(tuple(map(glob, b)) for b in coeffs.details))
+    out = par.idwt2d(coeffs, wav, (nr, nc), mesh, swt=swt, **axes)
+    return out, n1

@@ -1,0 +1,437 @@
+"""Sharded 2D and batched 1D wavelet transforms over a (data, row, col)
+device mesh: counterpart of the 2D and 1D parts of
+``pdwt_tpu/parallel/sharded.py`` on ``torch.distributed``.
+
+Inputs and outputs are ``DTensor``s, the counterpart of JAX's globally
+sharded arrays (:func:`shard_image` places a tensor).  Each entry point runs
+the local composition on every rank's shard (``to_local()``) and wraps each
+band back with ``DTensor.from_local``, its global shape given.  The batch
+is sharded over ``data_axis``; the rows and columns of an image over
+``row_axis`` and ``col_axis``, the samples of a signal over ``col_axis``.
+
+Every level exchanges the periodic halo its filter window needs with the
+ring neighbours (``parallel/halo.py``) and runs on the local shard, JAX's
+local Pallas composition (``sharded.py:181-349, 441-615``) whatever the
+device: float32 with an even filter on the padded entry points of the
+card's kernels (decimated 2D: kernels 1 and 2; a-trous 2D: 5 and 6;
+decimated 1D: 7 and 8; a-trous 1D: 9 and 10), which launch their CUDA
+kernels on a CUDA shard and run their plain versions on a CPU shard; every
+other level (an odd filter, float64 on the CPU) the conv passes with the
+ring ``pad_fn``, JAX's own route (``sharded.py:125-131, 247-256``).  The
+decimated pads are the periodization branches of
+``core/separable.py: fwd_mode_pad`` and ``inv_mode_pad`` with the ring in
+place of ``wrap_pad``; the a-trous halos are the bare periodic support
+(``kernels.swt_fwd_halo``, ``swt_inv_halo``).  An odd size on an unsharded
+axis is extended as on one card.
+
+A decimated transform needs every sharded size divisible by ``n_shards *
+2^levels`` (each shard's sizes stay even at every level and the stride-2
+phase is the same on every shard), the SWT by ``n_shards``; both raise
+JAX's errors before any exchange.  An MXU mode (a bf16 input, or float32
+under ``mixed`` for the decimated DWT) raises ``NotImplementedError``:
+those levels would run the banded-product kernels with the ring as their
+pad, still to port (ROADMAP queue 2, part A2, row 6).  ``mixed`` runs the
+SWT exact, as JAX does.  No level falls back to another route.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .. import kernels
+from ..core import conv
+from ..core.separable import (Coeffs1D, Coeffs2D, _swt_mxu_mode, check_supported,
+                              fwd_mode_pad, inv_mode_pad, mxu_mode)
+from ..core.shapes import level_sizes
+from ..filters import Wavelet
+from .halo import make_pad_fn
+
+PER = "periodization"
+
+
+# ---------------------------------------------------------------------------
+# validation
+# ---------------------------------------------------------------------------
+
+def _check_div(name: str, size: int, shards: int, levels: int, swt: bool):
+    need = shards * (1 if swt else (1 << levels))
+    if size % need != 0:
+        kind = "n_shards" if swt else "n_shards * 2^levels"
+        raise ValueError(
+            f"sharded {name} size {size} must be divisible by {kind} = {need} "
+            f"({shards} shards, {levels} levels)")
+
+
+def _axis_size(mesh, axis: Optional[str]) -> int:
+    if axis is None:
+        return 1
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"the mesh has no axis {axis!r}; its axes are {names}")
+    return mesh.shape[names.index(axis)]
+
+
+def _validate2d(shape, mesh, data_axis, row_axis, col_axis, levels, swt):
+    if len(shape) < 2:
+        raise ValueError(f"expected at least a 2D array, got shape {tuple(shape)}")
+    if data_axis is not None:
+        if len(shape) < 3:
+            raise ValueError("data_axis given but input has no batch dim")
+        n = _axis_size(mesh, data_axis)
+        if shape[0] % n != 0:
+            raise ValueError(f"batch {shape[0]} not divisible by mesh axis {data_axis!r} ({n})")
+    if row_axis is not None:
+        _check_div("row", shape[-2], _axis_size(mesh, row_axis), levels, swt)
+    if col_axis is not None:
+        _check_div("col", shape[-1], _axis_size(mesh, col_axis), levels, swt)
+
+
+def _check_mxu(mode: Optional[str]) -> None:
+    if mode is not None:
+        raise NotImplementedError(
+            f"the sharded transforms under an MXU mode ({mode!r}: a bf16 input, or float32 "
+            "under 'mixed' for the decimated DWT) run the banded-product kernels with the ring "
+            "halo as their pad, which come with ROADMAP queue 2, part A2, row 6")
+
+
+# ---------------------------------------------------------------------------
+# placement: DTensors <-> local shards
+# ---------------------------------------------------------------------------
+
+def _placements(mesh, ndim: int, data_axis, row_axis, col_axis):
+    """Shard(0) on ``data_axis`` (input rank above 2, or above 1 with no
+    row axis: a batch of signals), Shard(ndim - 2) on ``row_axis``,
+    Shard(ndim - 1) on ``col_axis``, Replicate on every other mesh axis."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = {data_axis: 0, row_axis: ndim - 2, col_axis: ndim - 1}
+    return tuple(Shard(dims[n]) if n is not None and n in dims else Replicate()
+                 for n in mesh.mesh_dim_names)
+
+
+def _local(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's shard of ``t``: a DTensor's local tensor (redistributed
+    first where it is placed otherwise), or the slice of a full tensor
+    that :func:`shard_image` would place here."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if isinstance(t, DTensor):
+        if tuple(t.placements) != tuple(placements):
+            t = t.redistribute(mesh, placements)
+        return t.to_local()
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            t = torch.chunk(t, mesh.shape[i], dim=p.dim)[coord[i]]
+    return t.contiguous()
+
+
+def _global(t: torch.Tensor, mesh, placements):
+    """``t``, this rank's shard, as a DTensor of the global shape its
+    placements give (each sharded size times its mesh axis)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    shape = list(t.shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            shape[p.dim] *= mesh.shape[i]
+    stride, acc = [0] * len(shape), 1
+    for d in range(len(shape) - 1, -1, -1):
+        stride[d], acc = acc, acc * shape[d]
+    return DTensor.from_local(t.contiguous(), mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
+def shard_image(x: torch.Tensor, mesh, *, data_axis: Optional[str] = None,
+                row_axis: Optional[str] = None, col_axis: Optional[str] = None):
+    """Place a full tensor on the mesh with the transforms' input sharding:
+    ``Shard`` on the named mesh axes (the batch over ``data_axis``, the rows
+    and columns of a 2D input, or the samples of a 1D one, over
+    ``row_axis`` / ``col_axis``), ``Replicate`` elsewhere.  What
+    ``distribute_tensor(x, mesh, placements, src_data_rank=None)`` gives:
+    every rank passes the same full tensor, as every process of JAX's
+    program does, and keeps its own slice, with no communication."""
+    if x.ndim < 2:
+        if data_axis is not None:
+            raise ValueError("data_axis given but input has no batch dim")
+        row_axis = None
+    placements = _placements(mesh, x.ndim, data_axis, row_axis, col_axis)
+    return _global(_local(x, mesh, placements), mesh, placements)
+
+
+def all_reduce_sum(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``t`` summed over the ranks of each named mesh axis (None skipped)
+    with ``dist.all_reduce``: equal on every rank.  A gloo group sums a
+    card tensor through host memory."""
+    import torch.distributed as dist
+
+    for axis in axes:
+        if axis is None or _axis_size(mesh, axis) == 1:
+            continue
+        group = mesh.get_group(axis)
+        host = t.device.type != "cpu" and dist.get_backend(group) == "gloo"
+        s = t.detach().cpu().clone() if host else t.detach().clone()
+        dist.all_reduce(s, group=group)
+        t = s.to(t.device) if host else s
+    return t
+
+
+def _flat(t: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, trailing k axes), the leading axes flattened."""
+    return t.reshape((-1,) + tuple(t.shape[t.ndim - k:])).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# one level of each local composition
+# ---------------------------------------------------------------------------
+
+def _padded_route(a: torch.Tensor, wav: Wavelet) -> bool:
+    """float32 with an even filter: the padded kernel entry points; else
+    the conv passes with the ring pad_fn (JAX's route either way)."""
+    check_supported(a)
+    return a.dtype == torch.float32 and wav.hlen % 2 == 0
+
+
+def _fwd_level_2d_local(a, wav, pad_fn):
+    """One decimated 2D level on (B, r, c) -> the raw four subbands."""
+    dec, hlen = (wav.dec_lo, wav.dec_hi), wav.hlen
+    if _padded_route(a, wav):
+        xp = fwd_mode_pad(fwd_mode_pad(a, -1, hlen, PER, pad_fn), -2, hlen, PER, pad_fn)
+        return kernels.fwd_level_2d_padded(xp.contiguous(), *dec)
+    z = conv.analysis_pass(a[:, None], dec, axis=-1, pad_fn=pad_fn)
+    z = conv.analysis_pass(z, dec, axis=-2, pad_fn=pad_fn)
+    return tuple(z[:, k] for k in range(4))
+
+
+def _inv_level_2d_local(a, h, v, d, wav, pad_fn, out_rc):
+    """One decimated 2D inverse level on (B, mr, mc) subbands -> (B,
+    *out_rc): 2m, or 2m - 1 on an odd unsharded axis."""
+    rec, hlen = (wav.rec_lo, wav.rec_hi), wav.hlen
+    if _padded_route(a, wav):
+        bands, c0 = [], [0, 0]
+        for t in (a, h, v, d):
+            t, c0[0] = inv_mode_pad(t, -2, hlen, PER, out_rc[0], pad_fn)
+            t, c0[1] = inv_mode_pad(t, -1, hlen, PER, out_rc[1], pad_fn)
+            bands.append(t.contiguous())
+        return kernels.inv_level_2d_padded(*bands, *rec, tuple(c0), tuple(out_rc))
+    z = torch.stack([a, h, v, d], 1)
+    t = conv.synthesis_pass(z, rec, axis=-2, out_len=out_rc[0], pad_fn=pad_fn)
+    return conv.synthesis_pass(t, rec, axis=-1, out_len=out_rc[1], pad_fn=pad_fn)[:, 0]
+
+
+def _pad2(t, lohi, pad_fn):
+    lo, hi = lohi
+    return pad_fn(pad_fn(t, -1, lo, hi), -2, lo, hi).contiguous()
+
+
+def _swt_fwd_level_2d_local(a, wav, lvl, pad_fn):
+    """One a-trous 2D level on (B, r, c) -> the raw four subbands."""
+    dec = (wav.dec_lo, wav.dec_hi)
+    if _padded_route(a, wav):
+        return kernels.swt_fwd_level_2d_padded(
+            _pad2(a, kernels.swt_fwd_halo(wav.hlen, lvl), pad_fn), *dec, lvl)
+    f = 1 << (lvl - 1)
+    z = conv.analysis_pass(a[:, None], dec, axis=-1, dilation=f, decimate=False, pad_fn=pad_fn)
+    z = conv.analysis_pass(z, dec, axis=-2, dilation=f, decimate=False, pad_fn=pad_fn)
+    return tuple(z[:, k] for k in range(4))
+
+
+def _swt_inv_level_2d_local(a, h, v, d, wav, lvl, pad_fn):
+    """One a-trous 2D inverse level on (B, r, c) subbands (the 1/2 per
+    pass in the taps)."""
+    if _padded_route(a, wav):
+        halo = kernels.swt_inv_halo(wav.hlen, lvl)
+        return kernels.swt_inv_level_2d_padded(*(_pad2(t, halo, pad_fn) for t in (a, h, v, d)),
+                                               wav.rec_lo, wav.rec_hi, lvl)
+    f = 1 << (lvl - 1)
+    rec = (wav.rec_lo * 0.5, wav.rec_hi * 0.5)
+    z = torch.stack([a, h, v, d], 1)
+    t = conv.synthesis_pass(z, rec, axis=-2, dilation=f, decimated=False, pad_fn=pad_fn)
+    return conv.synthesis_pass(t, rec, axis=-1, dilation=f, decimated=False, pad_fn=pad_fn)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# the local compositions: 2D
+# ---------------------------------------------------------------------------
+
+def _local_dwt2d(xl, wav, levels, pad_fn, swt):
+    batch = tuple(xl.shape[:-2])
+    _check_mxu(_swt_mxu_mode(xl.dtype) if swt else mxu_mode(xl.dtype))
+    a = _flat(xl, 2)
+    details = []
+    for lvl in range(1, levels + 1):
+        if swt:
+            a, h, v, d = _swt_fwd_level_2d_local(a, wav, lvl, pad_fn)
+        else:
+            a, h, v, d = _fwd_level_2d_local(a, wav, pad_fn)
+        details.append(tuple(t.reshape(batch + tuple(t.shape[1:])) for t in (h, v, d)))
+    return Coeffs2D(a.reshape(batch + tuple(a.shape[1:])), tuple(details))
+
+
+def _local_idwt2d(cl, wav, local_shape, pad_fn, swt):
+    levels = cl.levels
+    batch = tuple(cl.approx.shape[:-2])
+    ddt = cl.details[-1][0].dtype if levels else cl.approx.dtype
+    _check_mxu(_swt_mxu_mode(ddt) if swt else mxu_mode(ddt))
+    rows = level_sizes(local_shape[0], levels)
+    cols = level_sizes(local_shape[1], levels)
+    a = _flat(cl.approx, 2)
+    for i in range(levels - 1, -1, -1):
+        h, v, d = (_flat(t, 2) for t in cl.details[i])
+        if swt:
+            a = _swt_inv_level_2d_local(a, h, v, d, wav, i + 1, pad_fn)
+        else:
+            a = _inv_level_2d_local(a, h, v, d, wav, pad_fn, (rows[i], cols[i]))
+    return a.reshape(batch + tuple(a.shape[1:]))
+
+
+def dwt2d(x, wav: Wavelet, levels: int, mesh, *, data_axis: Optional[str] = None,
+          row_axis: Optional[str] = None, col_axis: Optional[str] = None,
+          swt: bool = False) -> Coeffs2D:
+    """Sharded multi-level separable 2D DWT (or SWT with ``swt=True``) of
+    ``x``, a DTensor (or a full tensor, placed by :func:`shard_image`)
+    -> a ``Coeffs2D`` of DTensors sharded as the input."""
+    _validate2d(tuple(x.shape), mesh, data_axis, row_axis, col_axis, levels, swt)
+    placements = _placements(mesh, x.ndim, data_axis, row_axis, col_axis)
+    pad_fn = make_pad_fn(mesh, row_axis, col_axis)
+    cl = _local_dwt2d(_local(x, mesh, placements), wav, levels, pad_fn, swt)
+    g = lambda t: _global(t, mesh, placements)
+    return Coeffs2D(g(cl.approx), tuple(tuple(map(g, band)) for band in cl.details))
+
+
+def idwt2d(coeffs: Coeffs2D, wav: Wavelet, shape: Tuple[int, int], mesh, *,
+           data_axis: Optional[str] = None, row_axis: Optional[str] = None,
+           col_axis: Optional[str] = None, swt: bool = False):
+    """Sharded inverse of :func:`dwt2d`; ``shape`` is the global (Nr, Nc).
+    Returns a DTensor sharded as the forward's input."""
+    levels = coeffs.levels
+    a = coeffs.approx
+    _validate2d(tuple(a.shape), mesh, data_axis, None, None, levels, swt)
+    if row_axis is not None:
+        _check_div("row", shape[0], _axis_size(mesh, row_axis), levels, swt)
+    if col_axis is not None:
+        _check_div("col", shape[1], _axis_size(mesh, col_axis), levels, swt)
+    placements = _placements(mesh, a.ndim, data_axis, row_axis, col_axis)
+    pad_fn = make_pad_fn(mesh, row_axis, col_axis)
+    local_shape = (shape[0] // _axis_size(mesh, row_axis), shape[1] // _axis_size(mesh, col_axis))
+    loc = lambda t: _local(t, mesh, placements)
+    cl = Coeffs2D(loc(a), tuple(tuple(map(loc, band)) for band in coeffs.details))
+    return _global(_local_idwt2d(cl, wav, local_shape, pad_fn, swt), mesh, placements)
+
+
+def swt2d(x, wav, levels, mesh, **kw) -> Coeffs2D:
+    return dwt2d(x, wav, levels, mesh, swt=True, **kw)
+
+
+def iswt2d(coeffs, wav, shape, mesh, **kw):
+    return idwt2d(coeffs, wav, shape, mesh, swt=True, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the local compositions: batched 1D, the batch over data_axis, the
+# samples over col_axis
+# ---------------------------------------------------------------------------
+
+def _local_dwt1d(xl, wav, levels, pad_fn, swt):
+    batch = tuple(xl.shape[:-1])
+    _check_mxu(_swt_mxu_mode(xl.dtype) if swt else mxu_mode(xl.dtype))
+    dec, hlen = (wav.dec_lo, wav.dec_hi), wav.hlen
+    a = _flat(xl, 1)
+    details = []
+    for lvl in range(1, levels + 1):
+        f = 1 << (lvl - 1)
+        if _padded_route(a, wav):
+            if swt:
+                lo, hi = kernels.swt_fwd_halo(hlen, lvl)
+                a, d = kernels.swt_fwd_level_1d_padded(pad_fn(a, -1, lo, hi).contiguous(), *dec,
+                                                       lvl)
+            else:
+                a, d = kernels.fwd_level_1d_padded(
+                    fwd_mode_pad(a, -1, hlen, PER, pad_fn).contiguous(), *dec)
+        else:
+            z = conv.analysis_pass(a[:, None, None], dec, axis=-1, dilation=f if swt else 1,
+                                   decimate=not swt, pad_fn=pad_fn)
+            a, d = z[:, 0, 0], z[:, 1, 0]
+        details.append(d.reshape(batch + tuple(d.shape[1:])))
+    return Coeffs1D(a.reshape(batch + tuple(a.shape[1:])), tuple(details))
+
+
+def _local_idwt1d(cl, wav, local_len, pad_fn, swt):
+    levels = cl.levels
+    batch = tuple(cl.approx.shape[:-1])
+    ddt = cl.details[-1].dtype if levels else cl.approx.dtype
+    _check_mxu(_swt_mxu_mode(ddt) if swt else mxu_mode(ddt))
+    rec, hlen = (wav.rec_lo, wav.rec_hi), wav.hlen
+    sizes = level_sizes(local_len, levels)
+    a = _flat(cl.approx, 1)
+    for i in range(levels - 1, -1, -1):
+        d = _flat(cl.details[i], 1)
+        if _padded_route(a, wav):
+            if swt:
+                lo, hi = kernels.swt_inv_halo(hlen, i + 1)
+                a = kernels.swt_inv_level_1d_padded(*(pad_fn(t, -1, lo, hi).contiguous()
+                                                      for t in (a, d)), *rec, i + 1)
+            else:
+                (ap, c0), (dp, _) = (inv_mode_pad(t, -1, hlen, PER, sizes[i], pad_fn)
+                                     for t in (a, d))
+                a = kernels.inv_level_1d_padded(ap.contiguous(), dp.contiguous(), *rec, c0,
+                                                sizes[i])
+        else:
+            z = torch.stack([a, d], 1)[:, :, None]
+            if swt:
+                half = (wav.rec_lo * 0.5, wav.rec_hi * 0.5)
+                a = conv.synthesis_pass(z, half, axis=-1, dilation=1 << i, decimated=False,
+                                        pad_fn=pad_fn)[:, 0, 0]
+            else:
+                a = conv.synthesis_pass(z, rec, axis=-1, out_len=sizes[i],
+                                        pad_fn=pad_fn)[:, 0, 0]
+    return a.reshape(batch + tuple(a.shape[1:]))
+
+
+def _placements1d(mesh, ndim, data_axis, col_axis):
+    if data_axis is not None and ndim < 2:
+        raise ValueError("data_axis given but input has no batch dim")
+    return _placements(mesh, ndim, data_axis, None, col_axis)
+
+
+def dwt1d(x, wav: Wavelet, levels: int, mesh, *, data_axis: Optional[str] = None,
+          col_axis: Optional[str] = None, swt: bool = False) -> Coeffs1D:
+    """Sharded multi-level 1D DWT (or SWT with ``swt=True``) along the last
+    axis of ``x``, a DTensor or a full tensor -> a ``Coeffs1D`` of
+    DTensors."""
+    placements = _placements1d(mesh, x.ndim, data_axis, col_axis)
+    if data_axis is not None and x.shape[0] % _axis_size(mesh, data_axis) != 0:
+        raise ValueError(f"batch {x.shape[0]} not divisible by mesh axis {data_axis!r} "
+                         f"({_axis_size(mesh, data_axis)})")
+    if col_axis is not None:
+        _check_div("signal", x.shape[-1], _axis_size(mesh, col_axis), levels, swt)
+    pad_fn = make_pad_fn(mesh, None, col_axis)
+    cl = _local_dwt1d(_local(x, mesh, placements), wav, levels, pad_fn, swt)
+    g = lambda t: _global(t, mesh, placements)
+    return Coeffs1D(g(cl.approx), tuple(map(g, cl.details)))
+
+
+def idwt1d(coeffs: Coeffs1D, wav: Wavelet, length: int, mesh, *,
+           data_axis: Optional[str] = None, col_axis: Optional[str] = None,
+           swt: bool = False):
+    """Sharded inverse of :func:`dwt1d`; ``length`` is the global signal
+    length."""
+    levels = coeffs.levels
+    a = coeffs.approx
+    if col_axis is not None:
+        _check_div("signal", length, _axis_size(mesh, col_axis), levels, swt)
+    placements = _placements1d(mesh, a.ndim, data_axis, col_axis)
+    pad_fn = make_pad_fn(mesh, None, col_axis)
+    local_len = length // _axis_size(mesh, col_axis)
+    loc = lambda t: _local(t, mesh, placements)
+    cl = Coeffs1D(loc(a), tuple(map(loc, coeffs.details)))
+    return _global(_local_idwt1d(cl, wav, local_len, pad_fn, swt), mesh, placements)
+
+
+def swt1d(x, wav, levels, mesh, **kw) -> Coeffs1D:
+    return dwt1d(x, wav, levels, mesh, swt=True, **kw)
+
+
+def iswt1d(coeffs, wav, length, mesh, **kw):
+    return idwt1d(coeffs, wav, length, mesh, swt=True, **kw)

@@ -51,7 +51,11 @@ to 256^2) and the exact 1D DWT cell's analysis levels on kernel 7 (sym8,
 1024 float32 signals of 4096 down to 512 samples), and per call the tails
 3 and 4 at the DWT cell's shape (db7: a 128^2 image into 64^2 subbands and
 back, one level) and at 4 levels (down to 8^2 and back), these also at
-clusters of 8 and 16 where the checkout has ``tail_launch_plan``.  Beside
+clusters of 8 and 16 where the checkout has ``tail_launch_plan``; the
+padded entry points of kernels 1, 2, 7 and 8 at one level of the mode
+cells (symmetric), and where the checkout has them those of 5, 6, 9 and 10
+at a rank's shards of the sharded cells (db7 512^2, levels 1-3; sym8 1024
+x 1024, levels 1-4).  Beside
 1, 3, 4, 5, 7, 8, 9, 11, 12, 13 and 15 it times their PyTorch yardsticks
 in the same call, by CUDA events: the dense-band ``torch.matmul`` products
 of ``chip_smoke.yardstick`` (a pair per 2D level, one per 1D level; bf16,
@@ -117,7 +121,7 @@ torch.cuda.synchronize()
 
 
 KERNELS = ("inv_mxu", "inv_level", "inv1d", "ns_fwd", "fwd_mxu", "fwd1d", "swt_fwd_level",
-           "fwd_level", "tail")
+           "fwd_level", "tail", "padded")
 
 
 def digest(t):
@@ -327,10 +331,51 @@ for levels in (1, 4):
             res[f"k4 {levels}L cs{cs}"] = dev_ms(inv)
         K._tail_cluster = pick
         tail_plan.cache_clear()
+# the padded entry points of kernels 1, 2, 7 and 8 (the boundary modes:
+# db7 symmetric levels of a 2048^2 image and of 1024^2 subbands, sym8
+# symmetric levels of 1024 x 4096 signals and 1024 x 2048 bands) and, on a
+# checkout that has them, of 5, 6, 9 and 10 at a rank's shards of the
+# sharded cells (db7 512^2 shards of the TI step, levels 1-3; sym8 1024 x
+# 1024 shards of the 1D cell, levels 1-4; each wrapped by its halo)
+from pdwt_tpu_torch.core import conv as CV  # noqa: E402
+from pdwt_tpu_torch.core import separable as SEP  # noqa: E402
+
+gen = torch.Generator(device=dev).manual_seed(16)
+w8 = get_wavelet("sym8")
+sym = "symmetric"
+xp = SEP.fwd_mode_pad(SEP.fwd_mode_pad(rand(1, 2048, 2048), -1, 14, sym), -2, 14, sym).contiguous()
+timed("k1p 2048", lambda: K.fwd_level_2d_padded(xp, w7.dec_lo, w7.dec_hi))
+sb = [rand(1, 1030, 1030) for _ in range(4)]
+timed("k2p 1030", lambda: K.inv_level_2d_padded(*sb, w7.rec_lo, w7.rec_hi, (-1, -1), (2048, 2048)))
+sp = SEP.fwd_mode_pad(rand(1024, 4096), -1, 16, sym).contiguous()
+timed("k7p 4096", lambda: K1.fwd_level_1d_padded(sp, w8.dec_lo, w8.dec_hi))
+lb, hb = rand(1024, 2055), rand(1024, 2055)
+timed("k8p 2055", lambda: K1.inv_level_1d_padded(lb, hb, w8.rec_lo, w8.rec_hi, -1, 4096))
+if hasattr(S, "swt_fwd_level_2d_padded"):
+    import pdwt_tpu_torch.kernels as KK  # noqa: E402
+
+    def halo(t, lohi, axes):
+        for ax in axes:
+            t = CV.wrap_pad(t, ax, *lohi)
+        return t.contiguous()
+
+    for lvl in (1, 2, 3):
+        xs = halo(rand(1, 512, 512), KK.swt_fwd_halo(14, lvl), (-1, -2))
+        timed(f"k5p L{lvl}", lambda: S.swt_fwd_level_2d_padded(xs, w7.dec_lo, w7.dec_hi, lvl))
+        bs = [halo(rand(1, 512, 512), KK.swt_inv_halo(14, lvl), (-1, -2)) for _ in range(4)]
+        timed(f"k6p L{lvl}", lambda: S.swt_inv_level_2d_padded(*bs, w7.rec_lo, w7.rec_hi, lvl))
+    for lvl in (1, 2, 3, 4):
+        ss = halo(torch.randn(1024, 1024, device=dev, generator=gen), KK.swt_fwd_halo(16, lvl),
+                  (-1,))
+        timed(f"k9p L{lvl}", lambda: K1.swt_fwd_level_1d_padded(ss, w8.dec_lo, w8.dec_hi, lvl))
+        ls, hs = (halo(torch.randn(1024, 1024, device=dev, generator=gen),
+                       KK.swt_inv_halo(16, lvl), (-1,)) for _ in range(2))
+        timed(f"k10p L{lvl}", lambda: K1.swt_inv_level_1d_padded(ls, hs, w8.rec_lo, w8.rec_hi,
+                                                                 lvl))
 for k in ("k14", "k14b", "k18s", "k18p", "k6", "k2", "k17d", "k17s", "k17b", "k16d", "k16a",
           "k13", "k13b", "y13", "k15d", "y15d", "k15a", "y15a", "k12f", "k12m", "k12b", "y12",
           "k10", "k11f", "k11m", "k11b", "y11", "k9", "y9", "k8", "y8", "k5", "y5", "k1", "y1",
-          "k7", "y7"):
+          "k7", "y7", "k1p", "k2p", "k7p", "k8p", "k5p", "k6p", "k9p", "k10p"):
     res[k + " pass"] = sum(v for n, v in res.items() if n.startswith(k + " ") and v)
 print("RESULT", root, json.dumps({k: None if v is None else round(v, 5) for k, v in res.items()}))
 print("SUMS", root, json.dumps(sums))

@@ -148,7 +148,9 @@ def test_launch_counters(dev):
                           "ns_fwd_level_2d_mxu": 0, "ns_inv_level_2d_mxu": 0,
                           "ns_swt_fwd_level_2d_mxu": 0, "ns_swt_inv_level_2d_mxu": 0,
                           "fwd_level_2d_padded": 0, "inv_level_2d_padded": 0,
-                          "fwd_level_1d_padded": 0, "inv_level_1d_padded": 0}
+                          "fwd_level_1d_padded": 0, "inv_level_1d_padded": 0,
+                          "swt_fwd_level_2d_padded": 0, "swt_inv_level_2d_padded": 0,
+                          "swt_fwd_level_1d_padded": 0, "swt_inv_level_1d_padded": 0}
 
 
 def test_cuda_rejects_what_the_kernels_do_not_take(dev):
@@ -1717,3 +1719,55 @@ def test_mode_route_runs_every_level_on_the_padded_kernels(dev, mode):
     xc = x.cpu().requires_grad_(True)
     (gc,) = torch.autograd.grad(dwt2d(xc, w, 2, mode=mode).approx.sum(), xc)
     _close(g.cpu(), gc)
+
+
+# the padded entry points of kernels 5, 6, 9 and 10 (the sharded SWT)
+
+PAD_SWT_CASES = [("db7", (1, 64, 96), 1), ("db7", (2, 37, 53), 3), ("haar", (2, 5, 7), 4),
+                 ("odd5", (1, 16, 24), 2), ("sym8", (1, 8, 8), 6), ("db2", (70000, 2, 2), 1)]
+
+
+def _halo(t, lohi, axes):
+    from pdwt_tpu_torch.core import conv
+
+    for ax in axes:
+        t = conv.wrap_pad(t, ax, *lohi)
+    return t.contiguous()
+
+
+@pytest.mark.parametrize("wname,shape,level", PAD_SWT_CASES)
+def test_padded_kernels_5_and_6_match_their_plain_versions(dev, wname, shape, level):
+    """A sharded SWT level: kernel 5's padded entry point on a shard wrapped
+    by its halo and kernel 6's on subbands wrapped by theirs, against their
+    plain versions and, on a periodic halo, against kernels 5 and 6."""
+    from pdwt_tpu_torch import kernels as KK
+
+    w = _wavelet(wname)
+    x = _rand(dev, *shape)
+    xp = _halo(x, KK.swt_fwd_halo(w.hlen, level), (-1, -2))
+    got = S.swt_fwd_level_2d_padded(xp, w.dec_lo, w.dec_hi, level)
+    _close_joint(got, S.swt_fwd_level_2d_padded_ref(xp, w.dec_lo, w.dec_hi, level))
+    _close_joint(got, S.swt_fwd_level_2d(x, w.dec_lo, w.dec_hi, level))
+    bands = [_rand(dev, *shape, seed=k) for k in range(4)]
+    bp = [_halo(t, KK.swt_inv_halo(w.hlen, level), (-1, -2)) for t in bands]
+    y = S.swt_inv_level_2d_padded(*bp, w.rec_lo, w.rec_hi, level)
+    _close(y, S.swt_inv_level_2d_padded_ref(*bp, w.rec_lo, w.rec_hi, level))
+    _close(y, S.swt_inv_level_2d(*bands, w.rec_lo, w.rec_hi, level))
+
+
+@pytest.mark.parametrize("wname,shape,level", [("sym8", (33, 200), 3), ("haar", (3, 7), 4),
+                                               ("odd5", (40, 64), 2), ("db7", (2, 1), 5),
+                                               ("sym8", (70000, 8), 1)])
+def test_padded_kernels_9_and_10_match_their_plain_versions(dev, wname, shape, level):
+    from pdwt_tpu_torch import kernels as KK
+
+    w = _wavelet(wname)
+    x = _rand(dev, *shape)
+    xp = _halo(x, KK.swt_fwd_halo(w.hlen, level), (-1,))
+    got = K1.swt_fwd_level_1d_padded(xp, w.dec_lo, w.dec_hi, level)
+    _close_joint(got, K1.swt_fwd_level_1d_padded_ref(xp, w.dec_lo, w.dec_hi, level))
+    _close_joint(got, K1.swt_fwd_level_1d(x, w.dec_lo, w.dec_hi, level))
+    lo, hi = (_halo(_rand(dev, *shape, seed=k), KK.swt_inv_halo(w.hlen, level), (-1,))
+              for k in (1, 2))
+    y = K1.swt_inv_level_1d_padded(lo, hi, w.rec_lo, w.rec_hi, level)
+    _close(y, K1.swt_inv_level_1d_padded_ref(lo, hi, w.rec_lo, w.rec_hi, level))

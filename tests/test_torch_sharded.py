@@ -1,0 +1,176 @@
+"""The port's sharded 2D and 1D transforms and ``sharded_denoise_step``
+on 4 gloo ranks on the CPU, against the JAX package.
+
+One module-scoped ``torch.multiprocessing`` spawn runs every case
+(``tests/torch_sharded_worker.py``, which imports the port only) over a
+``FileStore`` under the test's temporary directory, and rank 0 saves the
+gathered results.  Each is held to JAX's single-device transform of the
+same seeded input, as JAX's own sharded tests hold JAX's
+(``tests/test_parallel.py:38-56``); the 2D DWT also to JAX's ``par.dwt2d``
+on its 8-device virtual mesh, and the denoising step to JAX's
+``sharded_denoise_step`` there.  Tolerance: max|port - jax| <= 1e-5 *
+max|jax| over a case's outputs in float32 (the norm 1e-5 relative); the
+port's sharded levels run the padded kernels' plain versions, JAX's CPU
+route its conv passes, the same sums in float32.  The float64 cases run
+the conv passes with the ring on both sides.  The JAX references run under
+``jax.jit`` (op by op, its fma passes take seconds a case).
+"""
+import time
+
+import numpy as np
+import pytest
+import torch.multiprocessing as mp
+
+import jax
+import jax.numpy as jnp
+import torch_sharded_worker as W
+from pdwt_tpu import parallel as jpar
+from pdwt_tpu.core import separable as jsep
+from pdwt_tpu.filters import get_wavelet, make_custom_wavelet
+from pdwt_tpu.models.denoiser import sharded_denoise_step
+
+RTOL = 1e-5
+
+
+#: seconds the ranks may take together (about 8 on one core)
+RANKS_TIMEOUT_S = 240
+
+
+@pytest.fixture(scope="module")
+def got(tmp_path_factory):
+    d = tmp_path_factory.mktemp("sharded")
+    ctx = mp.spawn(W.run, args=(str(d / "store"), str(d)), nprocs=W.WORLD, join=False)
+    deadline = time.monotonic() + RANKS_TIMEOUT_S
+    while not ctx.join(timeout=1):  # raises if a rank failed
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail(f"the sharded ranks did not finish in {RANKS_TIMEOUT_S} s")
+    with np.load(d / "sharded.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+def _case(got, name):
+    return [got[f"{name}/{k}"] for k in range(sum(k.startswith(name + "/") for k in got))]
+
+
+def _leaves(c):
+    return [c.approx] + [t for band in c.details
+                         for t in (band if isinstance(band, tuple) else (band,))]
+
+
+def _jit(fn, *args):
+    return jax.jit(fn)(*args)
+
+
+def _close(mine, want, dtype=np.float32):
+    want = [np.asarray(w) for w in want]
+    assert len(mine) == len(want)
+    scale = max(float(np.abs(w).max()) for w in want)
+    for m, w in zip(mine, want):
+        assert m.shape == w.shape and m.dtype == w.dtype == dtype
+        assert float(np.abs(m - w).max()) <= RTOL * scale
+
+
+@pytest.mark.parametrize("swt", [False, True], ids=["dwt", "swt"])
+def test_2d_db7_matches_jax(got, swt):
+    w, x = get_wavelet("db7"), jnp.asarray(W.image((64, 64), 0))
+    c = _jit(lambda v: (jsep.swt2d if swt else jsep.dwt2d)(v, w, 3), x)
+    y = _jit(lambda c: jsep.iswt2d(c, w) if swt else jsep.idwt2d(c, w, (64, 64)), c)
+    _close(_case(got, f"2d_{'swt' if swt else 'dwt'}"), _leaves(c) + [y])
+
+
+def test_2d_dwt_matches_jax_sharded_on_its_mesh(got):
+    """JAX's own sharded DWT, on (data, row, col) = (2, 2, 2) virtual CPU
+    devices of a batch of two copies of the image."""
+    w, x = get_wavelet("db7"), W.image((64, 64), 0)
+    mesh = jpar.make_mesh((2, 2, 2))
+    axes = dict(data_axis="data", row_axis="row", col_axis="col")
+    xs = jpar.shard_image(np.stack([x, x]), mesh, **axes)
+    c = _jit(lambda v: jpar.dwt2d(v, w, 3, mesh, **axes), xs)
+    y = _jit(lambda c: jpar.idwt2d(c, w, (64, 64), mesh, **axes), c)
+    _close(_case(got, "2d_dwt"), [t[0] for t in _leaves(c)] + [y[0]])
+
+
+@pytest.mark.parametrize("swt", [False, True], ids=["dwt", "swt"])
+def test_sharded_denoise_step_matches_jax(got, swt):
+    x = W.image((64, 64), 0)
+    mesh = jpar.make_mesh((2, 2, 2))
+    axes = dict(data_axis="data", row_axis="row", col_axis="col")
+    xs = jpar.shard_image(np.stack([x, x]), mesh, **axes)
+    out, n1 = _jit(lambda v: sharded_denoise_step(v, "db7", 3, 10.0, mesh, swt=swt, **axes), xs)
+    den, norm = _case(got, f"step_{'swt' if swt else 'dwt'}")
+    _close([den], [out[0]])
+    assert norm.shape == () and norm.dtype == np.float32
+    assert abs(float(norm) - float(n1) / 2) <= RTOL * abs(float(n1) / 2)
+
+
+@pytest.mark.parametrize("swt", [False, True], ids=["dwt", "swt"])
+def test_2d_float64_conv_route_matches_jax(got, swt):
+    w, x = get_wavelet("db7"), jnp.asarray(W.image((64, 64), 0).astype(np.float64))
+    c = _jit(lambda v: (jsep.swt2d if swt else jsep.dwt2d)(v, w, 3), x)
+    y = _jit(lambda c: jsep.iswt2d(c, w) if swt else jsep.idwt2d(c, w, (64, 64)), c)
+    _close(_case(got, f"f64_{'swt' if swt else 'dwt'}"), _leaves(c) + [y], np.float64)
+
+
+def test_odd_filter_conv_route_matches_jax(got):
+    w = make_custom_wavelet("odd5", *W.ODD5)
+    x = jnp.asarray(W.image((64, 64), 0))
+    _close(_case(got, "odd_filter"), _leaves(_jit(lambda v: jsep.swt2d(v, w, 2), x))
+           + _leaves(_jit(lambda v: jsep.dwt2d(v, w, 2), x)))
+
+
+def test_odd_unsharded_axis_matches_jax(got):
+    w, x = get_wavelet("db4"), jnp.asarray(W.image((2, 63, 64), 1))
+    c = _jit(lambda v: jsep.dwt2d(v, w, 2), x)
+    _close(_case(got, "odd_rows"), _leaves(c) + [_jit(lambda c: jsep.idwt2d(c, w, (63, 64)), c)])
+
+
+def test_batch_over_data_matches_jax(got):
+    w, x = get_wavelet("db4"), jnp.asarray(W.image((4, 32, 32), 2))
+    c = _jit(lambda v: jsep.swt2d(v, w, 2), x)
+    _close(_case(got, "batch_swt"), _leaves(c) + [_jit(lambda c: jsep.iswt2d(c, w), c)])
+
+
+@pytest.mark.parametrize("swt", [False, True], ids=["dwt", "swt"])
+def test_1d_sym8_matches_jax(got, swt):
+    w, x = get_wavelet("sym8"), jnp.asarray(W.image((4, 256), 3))
+    c = _jit(lambda v: (jsep.swt1d if swt else jsep.dwt1d)(v, w, 4), x)
+    y = _jit(lambda c: jsep.iswt1d(c, w) if swt else jsep.idwt1d(c, w, 256), c)
+    _close(_case(got, f"1d_{'swt' if swt else 'dwt'}"), _leaves(c) + [y])
+
+
+@pytest.mark.parametrize("n", [256, 128])
+def test_halo_wider_than_a_shard_matches_jax(got, n):
+    """Level 5 of sym8 (a span of 15 * 16 = 240) over 4 shards of n / 4
+    samples: two hops a side, or four, the last back to the shard itself."""
+    w, x = get_wavelet("sym8"), jnp.asarray(W.image((8, n), 4))
+    c = _jit(lambda v: jsep.swt1d(v, w, 5), x)
+    _close(_case(got, f"wide_halo_{n}"), _leaves(c) + [_jit(lambda c: jsep.iswt1d(c, w), c)])
+
+
+@pytest.mark.parametrize("name,call", [
+    ("err_row", lambda m, w: jpar.dwt2d(jnp.zeros((60, 64)), w["db7"], 3, m,
+                                        row_axis="row", col_axis="col")),
+    ("err_col_swt", lambda m, w: jpar.swt2d(jnp.zeros((64, 65)), w["db7"], 2, m,
+                                            row_axis="row", col_axis="col")),
+    ("err_signal", lambda m, w: jpar.dwt1d(jnp.zeros((4, 100)), w["sym8"], 4,
+                                           jpar.make_mesh((2, 4), ("data", "col")),
+                                           col_axis="col")),
+    ("err_batch", lambda m, w: jpar.dwt2d(jnp.zeros((3, 32, 32)), w["db4"], 1, m,
+                                          data_axis="data", row_axis="row", col_axis="col")),
+])
+def test_divisibility_errors_are_jaxs(got, name, call):
+    """The port raises JAX's ValueError, with JAX's message, on meshes of
+    the port's shapes (2 x 2 for the 2D cases, 4 for the signal, a data
+    axis of 2), before any exchange."""
+    ws = {n: get_wavelet(n) for n in ("db7", "sym8", "db4")}
+    with pytest.raises(ValueError) as e:
+        call(jpar.make_mesh((2, 2, 2)), ws)
+    assert str(got[name]) == f"ValueError: {e.value}"
+
+
+@pytest.mark.parametrize("name", ["err_bf16", "err_mixed"])
+def test_mxu_modes_raise_naming_the_next_slice(got, name):
+    msg = str(got[name])
+    assert msg.startswith("NotImplementedError:") and "part A2, row 6" in msg
