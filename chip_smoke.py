@@ -81,7 +81,9 @@ with the launch counters set to 0 just before it and read just after:
   ``denoise_step(boundary="symmetric")`` at 1024x1024;
 * the sharded transforms (``pdwt_tpu_torch.parallel``): the padded entry
   points of kernels 5, 6, 9 and 10 against their plain versions on the
-  shard geometries below (timed there) and on their code paths; then (a)
+  shard geometries below (timed there) and on their code paths, and those
+  of kernels 11-16 likewise under each precision tier's schemes and dtypes
+  (``bf16-fast``'s timed), then on their code paths in every scheme; then (a)
   one NCCL rank on a (1, 1, 1) mesh, the 2048x2048 db7 5-level roundtrip
   through ``parallel.dwt2d``/``idwt2d`` against the single-card
   transforms, timed; and (b) four gloo ranks sharing the one card, the only
@@ -90,9 +92,11 @@ with the launch counters set to 0 just before it and read just after:
   10), the 1024 x 4096 sym8 4-level 1D DWT and SWT roundtrips over 4
   column shards, and a 5-level SWT of 8 x 256 signals whose level-5 halo
   sides (112 and 128 samples) are wider than a shard (64), two hops each;
-  each rank holds its shards to
-  the same slice of the single-card result and reads exactly the padded
-  launches it predicts.  Four processes on one card that send their halos
+  then under each tier the same 2D roundtrip and the 1D cell's DWT and
+  SWT roundtrips, and under the bf16 tiers the TI step on a bf16 image;
+  each rank holds its shards to the same slice of the single-card result
+  (under a tier within the tier path limits) and reads exactly the padded
+  launches the route rule predicts on its shard.  Four processes on one card that send their halos
   through the host measure nothing of scaling: only the kernels' own times
   are kept.
 
@@ -263,6 +267,16 @@ REPLACES = {
     "swt_inv_level_2d_padded": "pdwt_tpu/kernels/swt_pallas.py:960",
     "swt_fwd_level_1d_padded": "pdwt_tpu/kernels/swt_pallas.py:1043",
     "swt_inv_level_1d_padded": "pdwt_tpu/kernels/swt_pallas.py:1069",
+    # the padded entry points of kernels 11-16 (the sharded tiers): the
+    # pad_fn= of the banded-product wrappers
+    "fwd_level_2d_mxu_padded": "pdwt_tpu/kernels/matmul_pallas.py:306",
+    "inv_level_2d_mxu_padded": "pdwt_tpu/kernels/matmul_pallas.py:442",
+    "swt_fwd_level_2d_mxu_padded": "pdwt_tpu/kernels/swt_matmul_pallas.py:252",
+    "swt_inv_level_2d_mxu_padded": "pdwt_tpu/kernels/swt_matmul_pallas.py:402",
+    "fwd_level_1d_mxu_padded": "pdwt_tpu/kernels/mxu1d_pallas.py:211",
+    "inv_level_1d_mxu_padded": "pdwt_tpu/kernels/mxu1d_pallas.py:236",
+    "swt_fwd_level_1d_mxu_padded": "pdwt_tpu/kernels/mxu1d_pallas.py:272",
+    "swt_inv_level_1d_mxu_padded": "pdwt_tpu/kernels/mxu1d_pallas.py:301",
 }
 
 
@@ -453,7 +467,10 @@ REDESIGNED = ("swt_inv_level_2d_mxu", "ns_inv_level_2d_mxu", "ns_swt_inv_level_2
               "fwd_level_2d", "fwd_level_1d", "fwd_tail_2d", "inv_tail_2d",
               "fwd_level_2d_padded", "inv_level_2d_padded", "fwd_level_1d_padded",
               "inv_level_1d_padded", "swt_fwd_level_2d_padded", "swt_inv_level_2d_padded",
-              "swt_fwd_level_1d_padded", "swt_inv_level_1d_padded")
+              "swt_fwd_level_1d_padded", "swt_inv_level_1d_padded", "fwd_level_2d_mxu_padded",
+              "inv_level_2d_mxu_padded", "swt_fwd_level_2d_mxu_padded",
+              "swt_inv_level_2d_mxu_padded", "fwd_level_1d_mxu_padded", "inv_level_1d_mxu_padded",
+              "swt_fwd_level_1d_mxu_padded", "swt_inv_level_1d_mxu_padded")
 
 
 def run_cases(cases, report, card) -> None:
@@ -3046,25 +3063,29 @@ def padded_band(kind: str, n: int, w, device, c0: int = 0, out: int = 0) -> torc
     return _BANDS[key]
 
 
-def padded_yardstick(kind: str, w, c0=(0, 0), out=(0, 0)) -> Callable:
+def padded_yardstick(kind: str, w, c0=(0, 0), out=(0, 0), dtype=torch.float32) -> Callable:
     """arg -> () -> the dense-band torch.matmul yardstick of a padded call
-    (``yardstick``'s, on ``padded_band``): rows then columns in 2D."""
+    (``yardstick``'s, on ``padded_band``): rows then columns in 2D; bands
+    and inputs in ``dtype``."""
+    def band(k, n, dev, i=0):
+        return padded_band(k, n, w, dev, c0[i], out[i]).to(dtype)
+
     def make(arg):
         if kind == "fwd2d":
-            A = padded_band("fwd", arg.shape[-2], w, arg.device).t().contiguous()
-            B, xm = padded_band("fwd", arg.shape[-1], w, arg.device), arg[0]
+            A = band("fwd", arg.shape[-2], arg.device).t().contiguous()
+            B, xm = band("fwd", arg.shape[-1], arg.device), arg[0].to(dtype)
             return lambda: (A @ xm) @ B
         if kind == "inv2d":
-            a, h, v, d = (t[0] for t in arg)
+            a, h, v, d = (t[0].to(dtype) for t in arg)
             P = torch.cat([torch.cat([a, v], 1), torch.cat([h, d], 1)], 0)
-            A = padded_band("inv", a.shape[0], w, a.device, c0[0], out[0]).t().contiguous()
-            B = padded_band("inv", a.shape[1], w, a.device, c0[1], out[1])
+            A = band("inv", a.shape[0], a.device, 0).t().contiguous()
+            B = band("inv", a.shape[1], a.device, 1)
             return lambda: (A @ P) @ B
         if kind == "fwd":
-            Mx = padded_band("fwd", arg.shape[-1], w, arg.device)
-            return lambda: arg @ Mx
-        u = torch.cat(list(arg), 1)
-        Mx = padded_band("inv", arg[0].shape[-1], w, u.device, c0[0], out[0])
+            xm, Mx = arg.to(dtype), band("fwd", arg.shape[-1], arg.device)
+            return lambda: xm @ Mx
+        u = torch.cat([t.to(dtype) for t in arg], 1)
+        Mx = band("inv", arg[0].shape[-1], u.device)
         return lambda: u @ Mx
     return make
 
@@ -3307,26 +3328,29 @@ def atrous_band(kind: str, n: int, w, level: int, device) -> torch.Tensor:
     return _BANDS[key]
 
 
-def atrous_yardstick(kind: str, w, level: int) -> Callable:
+def atrous_yardstick(kind: str, w, level: int, dtype=torch.float32) -> Callable:
     """arg -> () -> the dense-band torch.matmul yardstick of a padded
     a-trous call (``yardstick``'s, on ``atrous_band``): rows then columns
-    in 2D."""
+    in 2D; bands and inputs in ``dtype``."""
+    def band(k, n, dev):
+        return atrous_band(k, n, w, level, dev).to(dtype)
+
     def make(arg):
         if kind == "fwd2d":
-            A = atrous_band("fwd", arg.shape[-2], w, level, arg.device).t().contiguous()
-            B, xm = atrous_band("fwd", arg.shape[-1], w, level, arg.device), arg[0]
+            A = band("fwd", arg.shape[-2], arg.device).t().contiguous()
+            B, xm = band("fwd", arg.shape[-1], arg.device), arg[0].to(dtype)
             return lambda: (A @ xm) @ B
         if kind == "inv2d":
-            a, h, v, d = (t[0] for t in arg)
+            a, h, v, d = (t[0].to(dtype) for t in arg)
             P = torch.cat([torch.cat([a, v], 1), torch.cat([h, d], 1)], 0)
-            A = atrous_band("inv", a.shape[0], w, level, a.device).t().contiguous()
-            B = atrous_band("inv", a.shape[1], w, level, a.device)
+            A = band("inv", a.shape[0], a.device).t().contiguous()
+            B = band("inv", a.shape[1], a.device)
             return lambda: (A @ P) @ B
         if kind == "fwd":
-            Mx = atrous_band("fwd", arg.shape[-1], w, level, arg.device)
-            return lambda: arg @ Mx
-        u = torch.cat(list(arg), 1)
-        Mx = atrous_band("inv", arg[0].shape[-1], w, level, u.device)
+            xm, Mx = arg.to(dtype), band("fwd", arg.shape[-1], arg.device)
+            return lambda: xm @ Mx
+        u = torch.cat([t.to(dtype) for t in arg], 1)
+        Mx = band("inv", arg[0].shape[-1], u.device)
         return lambda: u @ Mx
     return make
 
@@ -3374,6 +3398,169 @@ def atrous_cases(w, shape, level, rand, timed=False, label=""):
                  library=atrous_yardstick("inv", w, level))]
 
 
+def mxu_padded_cases(w, shape, rand, schemes, dts, level=0, timed=False, row=False, label=""):
+    """The padded entry points of kernels 11-16 on one level of a sharded
+    transform: the forward on a shard of ``shape`` ((B, r, c): 11p, or 13p
+    at ``level`` > 0; (B, n): 15p) wrapped as the sharded compositions wrap
+    it (the periodic wrap standing in for the ring), the inverse (12p or
+    14p; 16p) on random subbands of the forward's output size wrapped as
+    theirs.  ``schemes`` = (forward, inverse); ``dts`` = (the forward's
+    input, its details, the inverse's details, its output) dtypes."""
+    from pdwt_tpu_torch import kernels as KK
+    from pdwt_tpu_torch.core import conv
+    from pdwt_tpu_torch.core.separable import fwd_mode_pad, inv_mode_pad
+    from pdwt_tpu_torch.kernels import matmul as M
+    from pdwt_tpu_torch.kernels import mxu1d as M1
+    from pdwt_tpu_torch.kernels import swt_matmul as SM
+
+    (fs, isch), (in_dt, det, idet, out) = schemes, dts
+    f32, two, hlen = torch.float32, len(shape) == 3, w.hlen
+    axes = (-2, -1) if two else (-1,)
+    dn = lambda t: str(t).split(".")[-1]
+    tag = (f"{label}{w.name} {fs}/{isch}{f' level {level}' if level else ''} shard {shape}: "
+           f"{dn(in_dt)} in, {dn(det)} details; {dn(idet)} details, {dn(out)} out")
+    nb = 3 if two else 1
+    bf16 = torch.bfloat16  # the tier rows' yardstick dtype
+    lib = (lambda kind, **kw: None if not row else
+           atrous_yardstick(kind, w, level, bf16) if level else
+           padded_yardstick(kind, w, dtype=bf16, **kw))
+    kinds = ("fwd2d", "inv2d") if two else ("fwd", "inv")
+    if level:
+        def wrap(t, lohi):
+            for ax in axes:
+                t = conv.wrap_pad(t, ax, *lohi)
+            return t.contiguous()
+
+        fh, ih = KK.swt_fwd_halo(hlen, level), KK.swt_inv_halo(hlen, level)
+        xp = wrap(rand(*shape).to(in_dt), fh)
+        bands = [wrap(rand(*shape), ih)] + [wrap((rand(*shape) - 127.5).to(idet), ih)
+                                            for _ in range(nb)]
+        flops = (flops_swt_2d(*shape[1:], hlen) if two
+                 else flops_1d(*shape, hlen, swt=True))
+        flops_f, flops_i = flops * TERMS[fs], flops * TERMS[isch]
+        if two:
+            fwd = ("swt_fwd_level_2d_mxu_padded",
+                   lambda t: SM.swt_fwd_level_2d_mxu_padded(t, w.dec_lo, w.dec_hi, level, fs,
+                                                            (f32, det)),
+                   lambda t: SM.swt_fwd_level_2d_mxu_padded_ref(t, w.dec_lo, w.dec_hi, level,
+                                                                fs, (f32, det)))
+            inv = ("swt_inv_level_2d_mxu_padded",
+                   lambda b: SM.swt_inv_level_2d_mxu_padded(*b, w.rec_lo, w.rec_hi, level, isch,
+                                                            out),
+                   lambda b: SM.swt_inv_level_2d_mxu_padded_ref(*b, w.rec_lo, w.rec_hi, level,
+                                                                isch, out))
+        else:
+            fwd = ("swt_fwd_level_1d_mxu_padded",
+                   lambda t: M1.swt_fwd_level_1d_mxu_padded(t, w.dec_lo, w.dec_hi, level, fs,
+                                                            det),
+                   lambda t: M1.swt_fwd_level_1d_mxu_padded_ref(t, w.dec_lo, w.dec_hi, level,
+                                                                fs, det))
+            inv = ("swt_inv_level_1d_mxu_padded",
+                   lambda b: M1.swt_inv_level_1d_mxu_padded(*b, w.rec_lo, w.rec_hi, level, isch,
+                                                            out),
+                   lambda b: M1.swt_inv_level_1d_mxu_padded_ref(*b, w.rec_lo, w.rec_hi, level,
+                                                                isch, out))
+        yf, yi = lib(kinds[0]), lib(kinds[1])
+    else:
+        xp = rand(*shape).to(in_dt)
+        for ax in axes[::-1]:
+            xp = fwd_mode_pad(xp, ax, hlen, "periodization")
+        xp = xp.contiguous()
+        sub = shape[:1] + tuple((n + 1) // 2 for n in shape[1:])
+        bands, c0 = [], ()
+        for t in [rand(*sub)] + [(rand(*sub) - 127.5).to(idet) for _ in range(nb)]:
+            c0 = []
+            for ax, n in zip(axes, shape[1:]):
+                t, c = inv_mode_pad(t, ax, hlen, "periodization", n)
+                c0.append(c)
+            bands.append(t.contiguous())
+        c0, o = tuple(c0), tuple(shape[1:])
+        if two:
+            fwd = ("fwd_level_2d_mxu_padded",
+                   lambda t: M.fwd_level_2d_mxu_padded(t, w.dec_lo, w.dec_hi, fs, (f32, det)),
+                   lambda t: M.fwd_level_2d_mxu_padded_ref(t, w.dec_lo, w.dec_hi, fs,
+                                                           (f32, det)))
+            inv = ("inv_level_2d_mxu_padded",
+                   lambda b: M.inv_level_2d_mxu_padded(*b, w.rec_lo, w.rec_hi, isch, c0, o, out),
+                   lambda b: M.inv_level_2d_mxu_padded_ref(*b, w.rec_lo, w.rec_hi, isch, c0, o,
+                                                           out))
+            flops_f, flops_i = (flops_2d(*shape[1:], hlen, TERMS[fs]),
+                                flops_2d(*shape[1:], hlen, TERMS[isch]))
+        else:
+            fwd = ("fwd_level_1d_mxu_padded",
+                   lambda t: M1.fwd_level_1d_mxu_padded(t, w.dec_lo, w.dec_hi, fs, det),
+                   lambda t: M1.fwd_level_1d_mxu_padded_ref(t, w.dec_lo, w.dec_hi, fs, det))
+            inv = ("inv_level_1d_mxu_padded",
+                   lambda b: M1.inv_level_1d_mxu_padded(*b, w.rec_lo, w.rec_hi, isch, c0[0],
+                                                        o[0], out),
+                   lambda b: M1.inv_level_1d_mxu_padded_ref(*b, w.rec_lo, w.rec_hi, isch,
+                                                            c0[0], o[0], out))
+            flops_f, flops_i = (flops_1d(*shape, hlen, TERMS[fs]),
+                                flops_1d(*shape, hlen, TERMS[isch]))
+        yf, yi = lib(kinds[0]), lib(kinds[1], c0=c0 + (0,) * (2 - len(c0)),
+                                    out=o + (0,) * (2 - len(o)))
+    return [Case(fwd[0], xp, fwd[1], fwd[2], tag, timed, flops_f, scheme_peak(fs),
+                 scheme_limit(fs), yf, row),
+            Case(inv[0], bands, inv[1], inv[2], tag, timed, flops_i, scheme_peak(isch),
+                 scheme_limit(isch), yi, row)]
+
+
+def tier_shard_cases(rand, timed_tier=ROW_TIER) -> list:
+    """Every call of kernels 11-16 a rank makes in (b), under each tier, on
+    its shards: the DWT cell's 1024^2 (levels 1-5), the TI step's 512^2
+    (levels 1-3) and the 1D cell's 1024 x 1024 (levels 1-4), each level
+    the route rule accepts on the shard, in the schemes and dtypes the
+    tier's rules (kernels/matmul.py's, swt_matmul.swt2d_inv_plan,
+    mxu1d._swt_inv_plan) give it; ``timed_tier``'s calls timed, in their
+    kernels' rows.  A call two tiers make alike is held once."""
+    from pdwt_tpu_torch import get_wavelet, precision_scope
+    from pdwt_tpu_torch import kernels as KK
+    from pdwt_tpu_torch.kernels import matmul as M
+    from pdwt_tpu_torch.kernels import mxu1d as M1
+    from pdwt_tpu_torch.kernels import swt_matmul as SM
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    wav, w8 = get_wavelet(WNAME), get_wavelet(B1_WNAME)
+    cases, seen = [], set()
+    for tier in TIERS:
+        row = tier == timed_tier
+        bf, mode = tier != "mixed", ("bf16" if tier != "mixed" else "mixed")
+        det = bf16 if bf else f32
+
+        def add(w, shape, level, in_dt, out_dt, fwd_rule, inv_rule):
+            fs, (isch, out) = fwd_rule(mode, in_dt), inv_rule(mode, out_dt)
+            key = (tier if row else "", w.name, shape, level, fs, isch, in_dt, out)
+            if key not in seen:
+                seen.add(key)
+                cases.extend(mxu_padded_cases(w, shape, rand, (fs, isch), (in_dt, det, det, out),
+                                              level, row, row, f"{tier} "))
+
+        with precision_scope(tier):
+            for lvl in range(1, LEVELS + 1):  # the DWT cell, 2 x 2 shards
+                n = (N // 2) >> (lvl - 1)
+                if KK.mxu_route_2d(n // 2, n // 2, wav.hlen):
+                    first = bf16 if bf and lvl == 1 else f32
+                    add(wav, (1, n, n), 0, first, first, M.mode_scheme, M.inv_plan)
+            for lvl in range(1, B1_LEVELS + 1):  # the 1D cell, 4 column shards
+                n = (B1_N // 4) >> (lvl - 1)
+                if KK.mxu_route_1d(B1_SIGNALS, n, w8.hlen):
+                    first = bf16 if bf and lvl == 1 else f32
+                    add(w8, (B1_SIGNALS, n), 0, first, first, M.mode_scheme, M.inv_plan)
+            if not bf:
+                continue  # mixed runs the stationary transforms exact
+            for lvl in range(1, TI_LEVELS + 1):  # the TI step, 2 x 2 shards
+                if KK.mxu_route_swt_2d(TI_N // 2, TI_N // 2, wav.hlen, lvl):
+                    first = bf16 if lvl == 1 else f32
+                    add(wav, (1, TI_N // 2, TI_N // 2), lvl, first, first, M.swt_scheme,
+                        SM.swt2d_inv_plan)
+            for lvl in range(1, B1_LEVELS + 1):
+                if KK.mxu_route_1d(B1_SIGNALS, B1_N // 4, w8.hlen, level=lvl):
+                    first = bf16 if lvl == 1 else f32
+                    add(w8, (B1_SIGNALS, B1_N // 4), lvl, first, first, M.swt_scheme,
+                        M1._swt_inv_plan)
+    return cases
+
+
 def sharded_call(tag: str, fn, want: dict):
     """fn() between a reset and a read of the launch counters on this
     rank: exactly the padded launches ``want``."""
@@ -3389,10 +3576,13 @@ def sharded_call(tag: str, fn, want: dict):
     return out
 
 
-def hold_shards(tag: str, got, want) -> None:
+def hold_shards(tag: str, got, want, tier: bool = False) -> None:
     """Every band's shard on this rank against the same slice of the
     single-card result: one dtype and shape, finite, within PATH_RTOL of
-    the call's largest single-card value."""
+    the call's largest single-card value; under a tier (``tier``) each band
+    within the tier path limits of its own largest value (PATH_TIER_RTOL
+    float32, PATH_BF16_RTOL bf16: a level the route rule sends to the
+    banded-product kernel on one card may run exact on the shard)."""
     from pdwt_tpu_torch.parallel.sharded import _local  # a full tensor's shard, no gather
 
     gl, wl = leaves(got), leaves(want)
@@ -3402,6 +3592,16 @@ def hold_shards(tag: str, got, want) -> None:
                                      and bool(torch.isfinite(m).all())
                                      for m, t in zip(mine, theirs)),
           f"{tag}: not finite, or dtypes or shapes differ from the single-card result")
+    if tier:
+        worst = 0.0
+        for m, t, w in zip(mine, theirs, wl):
+            err, scale = max_err(m, t)[0], float(w.float().abs().max())
+            lim = PATH_BF16_RTOL if w.dtype == torch.bfloat16 else PATH_TIER_RTOL
+            check(err <= lim * scale, f"{tag} disagrees with the single-card transform: "
+                  f"{err:.3e} > {lim * scale:.3e} ({w.dtype})")
+            worst = max(worst, err / max(scale, 1e-30))
+        print(f"{tag} vs single card: worst relative {worst:.3e}", flush=True)
+        return
     err = max(float((m - t).abs().max()) for m, t in zip(mine, theirs))
     scale = max(float(w.abs().max()) for w in wl)
     print(f"{tag} vs single card: max|diff| {err:.3e} (limit {PATH_RTOL * scale:.3e})",
@@ -3521,7 +3721,102 @@ def _sharded_gloo(rank: int, card: str) -> dict:
     ref = swt1d(sw, w8, SHARD_WIDE_LEVELS)
     hold_shards(tag, c, ref)
     hold_shards(tag + " inverse", y, iswt1d(ref, w8))
-    return {"launches": launched}
+    tiers = _sharded_gloo_tiers(rank, m2, ax2, m1, ax1, x, xt, s)
+    return {"launches": launched, "tier_launches": tiers}
+
+
+def _routed(names, flags) -> dict:
+    """{kernel: launches} of levels whose route flag picks names[1] (the
+    banded-product padded entry point) or names[0] (the exact one)."""
+    out = {}
+    for f in flags:
+        out[names[bool(f)]] = out.get(names[bool(f)], 0) + 1
+    return out
+
+
+def _sharded_gloo_tiers(rank, m2, ax2, m1, ax1, x, xt, s) -> dict:
+    """(b) under the precision tiers: on (2, 2) the DWT cell's roundtrip
+    under each tier and the TI step on a bf16 image under the bf16 tiers,
+    on (1, 4) the 1D cell's DWT and SWT roundtrips under each tier.  Each
+    call holds exactly the launches the route rule predicts on this rank's
+    shard (kernels.mxu_route_*), each rank's shards the single-card tier
+    transform's slice within the tier path limits (a level can be banded on
+    one card and exact on a shard), the TI norm its single-card value
+    within NORM_RTOL.  Returns this rank's launches of kernels 11-16 (and of
+    the exact padded ones beside them), summed over the calls."""
+    from pdwt_tpu_torch import (dwt1d, dwt2d, get_wavelet, idwt1d, idwt2d, iswt1d, iswt2d, ops,
+                                precision_scope, swt1d, swt2d)
+    from pdwt_tpu_torch import kernels as KK
+    from pdwt_tpu_torch import parallel as par
+    from pdwt_tpu_torch.models import sharded_denoise_step
+
+    wav, w8 = get_wavelet(WNAME), get_wavelet(B1_WNAME)
+    total = {}
+
+    def count(got):
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+
+    r, ti, n1d = N // 2, TI_N // 2, B1_N // 4  # a rank's shard sides
+    for tier in TIERS:
+        bf = tier != "mixed"
+        cast = (lambda t: t.bfloat16()) if bf else (lambda t: t)
+        with precision_scope(tier):
+            tag = (f"sharded (b) rank {rank} (2, 2) {tier}: dwt2d/idwt2d {N}x{N} {WNAME} "
+                   f"{LEVELS} levels")
+            routes = [KK.mxu_route_2d(r >> lvl, r >> lvl, wav.hlen) for lvl in range(1, LEVELS + 1)]
+            fw = _routed(("fwd_level_2d_padded", "fwd_level_2d_mxu_padded"), routes)
+            iv = _routed(("inv_level_2d_padded", "inv_level_2d_mxu_padded"), routes)
+            xs = par.shard_image(cast(x), m2, **ax2)
+            c = sharded_call(tag + " forward", lambda: par.dwt2d(xs, wav, LEVELS, m2, **ax2), fw)
+            y = sharded_call(tag + " inverse", lambda: par.idwt2d(c, wav, (N, N), m2, **ax2), iv)
+            count(fw), count(iv)
+            ref = dwt2d(cast(x), wav, LEVELS)
+            hold_shards(tag, c, ref, tier=True)
+            hold_shards(tag + " inverse", y, idwt2d(ref, wav, (N, N)), tier=True)
+            ss = par.shard_image(cast(s), m1, **ax1)
+            for swt in (False, True):
+                tag = (f"sharded (b) rank {rank} (1, 4) {tier}: {'swt1d' if swt else 'dwt1d'} "
+                       f"roundtrip {B1_SIGNALS}x{B1_N} {B1_WNAME} {B1_LEVELS} levels")
+                if swt:
+                    routes = [bf and KK.mxu_route_1d(B1_SIGNALS, n1d, w8.hlen, level=lvl)
+                              for lvl in range(1, B1_LEVELS + 1)]
+                    names = ("swt_fwd_level_1d", "swt_inv_level_1d")
+                else:
+                    routes = [KK.mxu_route_1d(B1_SIGNALS, n1d >> (lvl - 1), w8.hlen)
+                              for lvl in range(1, B1_LEVELS + 1)]
+                    names = ("fwd_level_1d", "inv_level_1d")
+                fw, iv = (_routed((f"{k}_padded", f"{k}_mxu_padded"), routes) for k in names)
+                c = sharded_call(tag + " forward", lambda: par.dwt1d(ss, w8, B1_LEVELS, m1,
+                                                                     swt=swt, **ax1), fw)
+                y = sharded_call(tag + " inverse", lambda: par.idwt1d(c, w8, B1_N, m1, swt=swt,
+                                                                      **ax1), iv)
+                count(fw), count(iv)
+                ref = (swt1d if swt else dwt1d)(cast(s), w8, B1_LEVELS)
+                hold_shards(tag, c, ref, tier=True)
+                hold_shards(tag + " inverse", y,
+                            iswt1d(ref, w8) if swt else idwt1d(ref, w8, B1_N), tier=True)
+            if not bf:
+                continue
+            tag = (f"sharded (b) rank {rank} (2, 2) {tier}: sharded_denoise_step(swt=True) on a "
+                   f"bf16 {TI_N}x{TI_N} image, {WNAME} {TI_LEVELS} levels soft beta {TI_BETA}")
+            routes = [KK.mxu_route_swt_2d(ti, ti, wav.hlen, lvl) for lvl in range(1, TI_LEVELS + 1)]
+            per = _routed(("swt_fwd_level_2d_padded", "swt_fwd_level_2d_mxu_padded"), routes)
+            for k, v in _routed(("swt_inv_level_2d_padded", "swt_inv_level_2d_mxu_padded"),
+                                routes).items():
+                per[k] = v
+            xb = cast(xt)
+            out, n1 = sharded_call(tag, lambda: sharded_denoise_step(
+                par.shard_image(xb, m2, **ax2), WNAME, TI_LEVELS, TI_BETA, m2, swt=True, **ax2),
+                per)
+            count(per)
+            pc = ops.soft_threshold(swt2d(xb, wav, TI_LEVELS), TI_BETA)
+            p_n1 = float(ops.norm1(pc))
+            hold_shards(tag, out, iswt2d(pc, wav), tier=True)
+            print(f"{tag}: norm1 {float(n1)!r} ({n1.dtype}) vs single card {p_n1!r}", flush=True)
+            check(n1.dim() == 0 and n1.dtype == torch.float32
+                  and abs(float(n1) - p_n1) <= NORM_RTOL * abs(p_n1), f"{tag}: norm1")
+    return total
 
 
 def _sharded_rank(rank: int, world: int, init_file: str, out_dir: str, card: str) -> None:
@@ -3584,6 +3879,7 @@ def sharded_phase(dev, card, report, launches, gen) -> None:
     any rank starts, so no rank runs nvcc."""
     from pdwt_tpu_torch import get_wavelet
     from pdwt_tpu_torch.filters import make_custom_wavelet
+    from pdwt_tpu_torch.kernels.matmul import SCHEMES
 
     print("=== sharded ===", flush=True)
     wav, w8 = get_wavelet(WNAME), get_wavelet(B1_WNAME)
@@ -3607,6 +3903,23 @@ def sharded_phase(dev, card, report, launches, gen) -> None:
                           (get_wavelet("haar"), (2, 1), 1), (w40, (40, 300), 3),
                           (odd5, (33, 200), 8), (wav, (70000, 8), 2)]:
         cases += atrous_cases(w, shape, lvl, rand)
+    # kernels 11-16's padded entry points on a rank's shards under each tier
+    # (bf16-fast's timed), then their code paths in every scheme: odd and
+    # tiny shards, 2 to 40 taps, a batch past the grid's limit, dilated
+    # spans past the shard; bf16 and float32 storage in turn
+    cases += tier_shard_cases(rand)
+    haar, db2 = get_wavelet("haar"), get_wavelet("db2")
+    paths = [(haar, (1, 2, 6), 0), (wav, (3, 37, 53), 0), (w40, (1, 70, 38), 0),
+             (db2, (70000, 2, 2), 0), (haar, (2, 5, 7), 4), (wav, (2, 37, 53), 3),
+             (w40, (1, 24, 40), 2), (db2, (70000, 2, 2), 1), (wav, (1, 8, 8), 6),
+             (haar, (3, 7), 0), (wav, (33, 201), 0), (w40, (40, 300), 0), (w8, (70000, 8), 0),
+             (haar, (3, 7), 4), (wav, (33, 201), 3), (w40, (40, 300), 2), (w8, (70000, 8), 1),
+             (db2, (2, 5), 5)]
+    for i, sch in enumerate(SCHEMES):
+        for j, (w, shape, lvl) in enumerate(paths):
+            dt = torch.bfloat16 if (i + j) % 2 == 0 else torch.float32
+            cases += mxu_padded_cases(w, shape, rand, (sch, sch), (dt,) * 4, lvl,
+                                      label="code path ")
     run_cases(cases, report, card)
 
     (a,) = spawn_ranks(1, card)
@@ -3619,6 +3932,15 @@ def sharded_phase(dev, card, report, launches, gen) -> None:
           "kernels; their call times measure nothing of scaling (four processes on one card, "
           "halos through the host) and are not kept", flush=True)
     launches.update(ranks[0]["launches"])
+    for r, res in enumerate(ranks):
+        check(res["tier_launches"] == ranks[0]["tier_launches"], f"sharded (b): rank {r}'s tier "
+              f"launches {res['tier_launches']}, rank 0's {ranks[0]['tier_launches']}")
+    tl = ranks[0]["tier_launches"]
+    print(f"sharded (b) under the tiers: each of 4 ranks launched {tl}", flush=True)
+    for name in REPLACES:
+        if name.endswith("_mxu_padded"):
+            check(tl.get(name, 0) > 0, f"sharded (b): the tiers never launched {name}")
+            launches[name] = tl[name]
 
 if __name__ == "__main__":
     main()

@@ -30,7 +30,11 @@ LAUNCHES: Dict[str, int] = {"fwd_level_2d": 0, "inv_level_2d": 0,
                             "fwd_level_2d_padded": 0, "inv_level_2d_padded": 0,
                             "fwd_level_1d_padded": 0, "inv_level_1d_padded": 0,
                             "swt_fwd_level_2d_padded": 0, "swt_inv_level_2d_padded": 0,
-                            "swt_fwd_level_1d_padded": 0, "swt_inv_level_1d_padded": 0}
+                            "swt_fwd_level_1d_padded": 0, "swt_inv_level_1d_padded": 0,
+                            "fwd_level_2d_mxu_padded": 0, "inv_level_2d_mxu_padded": 0,
+                            "swt_fwd_level_2d_mxu_padded": 0, "swt_inv_level_2d_mxu_padded": 0,
+                            "fwd_level_1d_mxu_padded": 0, "inv_level_1d_mxu_padded": 0,
+                            "swt_fwd_level_1d_mxu_padded": 0, "swt_inv_level_1d_mxu_padded": 0}
 
 
 def reset_launch_counts() -> None:

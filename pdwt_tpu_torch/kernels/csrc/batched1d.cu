@@ -133,18 +133,22 @@ extern "C" int pdwt_swt_inv_level_1d(const float* lo, const float* hi, float* ou
 }
 
 namespace pdwt_m1d {
-int launch_fwd_padded(const float* x, float* lo, float* hi, int B, int N, int n_out,
-                      const float* taps, int hlen, int lc, int gc, int nt, int threads, int gx,
-                      int gy, int gz, int smem, void* stream);
-int launch_inv_padded(const float* lo, const float* hi, float* out, int B, int M, const int* pad,
-                      const float* taps, int hlen, const int* geo, int lc, int gc, int nt,
-                      int threads, int gx, int gy, int gz, int smem, void* stream);
-int launch_swt_fwd_padded(const float* x, float* lo, float* hi, int B, int N, int n_out,
-                          const float* taps, int hlen, int f, int lc, int gc, int nt, int threads,
-                          int gx, int gy, int gz, int smem, void* stream);
-int launch_swt_inv_padded(const float* lo, const float* hi, float* out, int B, int M, int n_out,
-                          const float* taps, int hlen, int f, int lc, int gc, int nt, int threads,
-                          int gx, int gy, int gz, int smem, void* stream);
+int launch_fwd_padded(const void* x, float* lo, void* hi, int B, int N, int n_out,
+                      const float* taps, int hlen, int scheme, int in_bf16, int hi_bf16, int lc,
+                      int gc, int nt, int threads, int gx, int gy, int gz, int smem,
+                      void* stream);
+int launch_inv_padded(const float* lo, const void* hi, void* out, int B, int M, const int* pad,
+                      const float* taps, int hlen, const int* geo, int scheme, int hi_bf16,
+                      int out_bf16, int lc, int gc, int nt, int threads, int gx, int gy, int gz,
+                      int smem, void* stream);
+int launch_swt_fwd_padded(const void* x, float* lo, void* hi, int B, int N, int n_out,
+                          const float* taps, int hlen, int f, int scheme, int in_bf16,
+                          int hi_bf16, int lc, int gc, int nt, int threads, int gx, int gy,
+                          int gz, int smem, void* stream);
+int launch_swt_inv_padded(const float* lo, const void* hi, void* out, int B, int M, int n_out,
+                          const float* taps, int hlen, int f, int scheme, int hi_bf16,
+                          int out_bf16, int lc, int gc, int nt, int threads, int gx, int gy,
+                          int gz, int smem, void* stream);
 }  // namespace pdwt_m1d
 
 // The padded entry points of kernels 7 and 8 (the boundary modes,
@@ -157,8 +161,8 @@ extern "C" int pdwt_fwd_level_1d_padded(const float* x, float* lo, float* hi, in
                                         int n_out, const float* taps, int hlen, int lc, int gc,
                                         int nt, int threads, int gx, int gy, int gz, int smem,
                                         void* stream) {
-  return pdwt_m1d::launch_fwd_padded(x, lo, hi, B, N, n_out, taps, hlen, lc, gc, nt, threads, gx,
-                                     gy, gz, smem, stream);
+  return pdwt_m1d::launch_fwd_padded(x, lo, hi, B, N, n_out, taps, hlen, pdwt_mxu::FD, 0, 0, lc,
+                                     gc, nt, threads, gx, gy, gz, smem, stream);
 }
 
 // Kernel 8's: two padded (B, M) float32 bands -> (B, pad[2]); `pad` holds
@@ -168,8 +172,8 @@ extern "C" int pdwt_inv_level_1d_padded(const float* lo, const float* hi, float*
                                         int M, const int* pad, const float* taps, int hlen,
                                         const int* geo, int lc, int gc, int nt, int threads,
                                         int gx, int gy, int gz, int smem, void* stream) {
-  return pdwt_m1d::launch_inv_padded(lo, hi, out, B, M, pad, taps, hlen, geo, lc, gc, nt,
-                                     threads, gx, gy, gz, smem, stream);
+  return pdwt_m1d::launch_inv_padded(lo, hi, out, B, M, pad, taps, hlen, geo, pdwt_mxu::FD, 0, 0,
+                                     lc, gc, nt, threads, gx, gy, gz, smem, stream);
 }
 
 // The padded entry points of kernels 9 and 10 (the sharded SWT,
@@ -182,8 +186,8 @@ extern "C" int pdwt_swt_fwd_level_1d_padded(const float* x, float* lo, float* hi
                                             int n_out, const float* taps, int hlen, int f,
                                             int lc, int gc, int nt, int threads, int gx, int gy,
                                             int gz, int smem, void* stream) {
-  return pdwt_m1d::launch_swt_fwd_padded(x, lo, hi, B, N, n_out, taps, hlen, f, lc, gc, nt,
-                                         threads, gx, gy, gz, smem, stream);
+  return pdwt_m1d::launch_swt_fwd_padded(x, lo, hi, B, N, n_out, taps, hlen, f, pdwt_mxu::FD, 0,
+                                         0, lc, gc, nt, threads, gx, gy, gz, smem, stream);
 }
 
 // Kernel 10's: two (B, M) float32 bands that hold their halo -> (B, n_out),
@@ -194,6 +198,6 @@ extern "C" int pdwt_swt_inv_level_1d_padded(const float* lo, const float* hi, fl
                                             int M, int n_out, const float* taps, int hlen, int f,
                                             int lc, int gc, int nt, int threads, int gx, int gy,
                                             int gz, int smem, void* stream) {
-  return pdwt_m1d::launch_swt_inv_padded(lo, hi, out, B, M, n_out, taps, hlen, f, lc, gc, nt,
-                                         threads, gx, gy, gz, smem, stream);
+  return pdwt_m1d::launch_swt_inv_padded(lo, hi, out, B, M, n_out, taps, hlen, f, pdwt_mxu::FD,
+                                         0, 0, lc, gc, nt, threads, gx, gy, gz, smem, stream);
 }

@@ -20,6 +20,10 @@
 // Types: the analysis reads float32 or bf16 and writes a float32
 // approximation and float32 or bf16 details; the synthesis reads a float32
 // approximation with float32 or bf16 details and writes float32 or bf16.
+// Each also has a padded entry point (at the end of this file), the
+// counterpart of its wrapper's pad_fn= (matmul_pallas.py:306, :442): the
+// same body on an input the caller padded with the ring halo, reading no
+// wrapped index.
 
 namespace pdwt_swtmm {
 int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R, int C,
@@ -28,7 +32,18 @@ int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R,
                int gy, int gz, int smem, void* stream);
 }
 
+namespace pdwt_swtmm {
+int launch_fwd_padded(const void* x, float* a, void* h, void* v, void* d, int B, int R, int C,
+                      int Ro, int Co, const float* taps, int hlen, int os, int f, int scheme,
+                      int in_bf16, int det_bf16, int lr, int lc, int gc, int nph, int nt,
+                      int threads, int gx, int gy, int gz, int smem, void* stream);
+}
+
 namespace pdwt_sep {
+int launch_inv_padded(const float* a, const void* h, const void* v, const void* d, void* out,
+                      int B, int Mr, int Mc, const int* pad, const float* taps, int hlen,
+                      const int* geo, int scheme, int det_bf16, int out_bf16, int lr, int lc,
+                      int nt, int threads, int gx, int gy, int gz, int smem, void* stream);
 int launch_inv_level(const float* a, const void* h, const void* v, const void* d, void* out,
                      int B, int Mr, int Mc, const float* taps, int hlen, const int* geo,
                      int scheme, int det_bf16, int out_bf16, int lr, int lc, int nt, int threads,
@@ -72,4 +87,41 @@ extern "C" int pdwt_inv_level_2d_mxu(const float* a, const void* h, const void* 
   return pdwt_sep::launch_inv_level(a, h, v, d, out, B, Mr, Mc, taps, hlen, geo, scheme,
                                     det_bf16, out_bf16, lr, lc, nt, threads, gx, gy, gz, smem,
                                     stream);
+}
+
+// The padded entry points of kernels 11 and 12 (the sharded DWT under the
+// precision tiers, parallel/sharded.py: the ring halo is the pad), on the
+// same bodies with index tables that do not wrap.  Kernel 11's: a (B, R, C)
+// input (bf16 where in_bf16) that holds its odd extension and halo -> four
+// (B, Ro, Co) subbands, A float32 and H, V, D bf16 where det_bf16, out[n] =
+// sum_j t[j] x[2n + j] per axis (swt_matmul.cu: fwd_padded_kernel<S,
+// true>); taps as kernel 11's, the plan kernels/matmul.py:
+// fwd_padded_launch_plan's.  Refused where 2 (Ro - 1) + hlen > R (or the
+// columns'): a stored output would read outside the input.
+extern "C" int pdwt_fwd_level_2d_mxu_padded(const void* x, float* a, void* h, void* v, void* d,
+                                            int B, int R, int C, int Ro, int Co,
+                                            const float* taps, int hlen, int scheme, int in_bf16,
+                                            int det_bf16, int lr, int lc, int gc, int nph, int nt,
+                                            int threads, int gx, int gy, int gz, int smem,
+                                            void* stream) {
+  return pdwt_swtmm::launch_fwd_padded(x, a, h, v, d, B, R, C, Ro, Co, taps, hlen, 2, 1, scheme,
+                                       in_bf16, det_bf16, lr, lc, gc, nph, nt, threads, gx, gy,
+                                       gz, smem, stream);
+}
+
+// Kernel 12's: four padded (B, Mr, Mc) subbands (A float32, H, V, D bf16
+// where det_bf16) -> (B, n_out_r, n_out_c), bf16 where out_bf16
+// (separable.cu: inv_level_kernel<S, true, true>); `pad` (6 ints: base, off,
+// n_out of the rows, then of the columns), taps, geometry and plan
+// (kernels/matmul.py: inv_padded_launch_plan) as pdwt_sep::launch_inv_padded
+// takes them.
+extern "C" int pdwt_inv_level_2d_mxu_padded(const float* a, const void* h, const void* v,
+                                            const void* d, void* out, int B, int Mr, int Mc,
+                                            const int* pad, const float* taps, int hlen,
+                                            const int* geo, int scheme, int det_bf16,
+                                            int out_bf16, int lr, int lc, int nt, int threads,
+                                            int gx, int gy, int gz, int smem, void* stream) {
+  return pdwt_sep::launch_inv_padded(a, h, v, d, out, B, Mr, Mc, pad, taps, hlen, geo, scheme,
+                                     det_bf16, out_bf16, lr, lc, nt, threads, gx, gy, gz, smem,
+                                     stream);
 }

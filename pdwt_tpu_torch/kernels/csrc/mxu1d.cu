@@ -111,7 +111,10 @@ size_t fwd1d_smem(int os, int lc, int dc, int nt) {
 // (pdwt_swt_fwd_level_1d_padded), which replaces swt_fwd_level_1d_padded
 // (swt_pallas.py:1043): the a-trous instance in fd on local shards that
 // hold their ring halo (parallel/sharded.py), out[n] = sum_j t[j] x[n + j
-// f], N >= n_out + (hlen - 1) f.
+// f], N >= n_out + (hlen - 1) f.  Kernel 15's
+// (pdwt_fwd_level_1d_mxu_padded, pdwt_swt_fwd_level_1d_mxu_padded), which
+// replace the pad_fn= of mxu1d_pallas.py:211 and :272: the same instances
+// in the tiers' schemes on the ring halo of the sharded 1D transforms.
 template <int S, int OS, bool PAD = false>
 __global__ void __launch_bounds__(256)
 fwd1d_strip_kernel(const void* __restrict__ x, float* __restrict__ lo, void* __restrict__ hi,
@@ -231,7 +234,10 @@ size_t inv1d_smem(int nph, int lc, int dc, int nt) {
 // swt_inv_level_1d_padded (swt_pallas.py:1069): the a-trous instance in fd
 // on bands that hold their ring halo, cen = 0 and pa = {0, 0, n_out}:
 // out[n] = sum_band sum_j t_band[j] x_band[n + j f], M >= n_out + (hlen -
-// 1) f; its grid covers the n_out outputs.
+// 1) f; its grid covers the n_out outputs.  Kernel 16's
+// (pdwt_inv_level_1d_mxu_padded, pdwt_swt_inv_level_1d_mxu_padded), which
+// replace the pad_fn= of mxu1d_pallas.py:236 and :301: the same instances
+// in the tiers' schemes.
 template <int S, int NPH, bool PAD = false>
 __global__ void __launch_bounds__(256)
 inv1d_strip_kernel(const float* __restrict__ lo, const void* __restrict__ hi,
@@ -394,39 +400,55 @@ cudaError_t launch_inv(const float* lo, const void* hi, void* out, int B, int M,
 
 namespace pdwt_m1d {
 
-// Launch the padded decimated analysis (fwd1d_strip_kernel<FD, 2, true>) on
-// (B, N) float32 signals that hold their extension, into two (B, n_out)
-// bands; the plan is kernel 7's for n_out outputs (kernels/batched1d.py:
-// fwd1d_padded_launch_plan).  Refused (cudaErrorInvalidValue) where the
-// plan does not add up or the outputs would read past the signal.
-int launch_fwd_padded(const float* x, float* lo, float* hi, int B, int N, int n_out,
-                      const float* taps, int hlen, int lc, int gc, int nt, int threads, int gx,
-                      int gy, int gz, int smem, void* stream) {
+// The padded launchers take the scheme and the storage flags of their
+// unpadded siblings (launch_fwd, launch_inv above) and run the PAD
+// instances of the two bodies: kernels 7-10's padded entry points
+// (batched1d.cu) call them in fd on float32, kernels 15 and 16's (the
+// pdwt_*_1d_mxu_padded entry points below) in the tiers' schemes.
+
+// Launch the padded decimated analysis (fwd1d_strip_kernel<S, 2, true>) on
+// (B, N) signals (bf16 where in_bf16) that hold their extension, into two
+// (B, n_out) bands (the high one bf16 where hi_bf16); the plan is kernel
+// 15's for n_out outputs (kernel 7's in fd: kernels/batched1d.py:
+// fwd1d_padded_launch_plan; kernels/mxu1d.py: fwd1d_padded_launch_plan).
+// Refused (cudaErrorInvalidValue) where the plan does not add up or the
+// outputs would read past the signal.
+int launch_fwd_padded(const void* x, float* lo, void* hi, int B, int N, int n_out,
+                      const float* taps, int hlen, int scheme, int in_bf16, int hi_bf16, int lc,
+                      int gc, int nt, int threads, int gx, int gy, int gz, int smem,
+                      void* stream) {
   if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || n_out < 1 ||
       N < 2LL * (n_out - 1) + hlen)
     return cudaErrorInvalidValue;
-  if (nt < hlen || nt % kFwdCh || nt > PDWT_MXU_MAX_HLEN || gc != 1 || lc < 1 ||
-      lc % kRowStrip<FD> || threads < 32 || threads > 256 || threads % 32 ||
-      !lines_fit(B, n_out, 1, lc, 1, gx, gy, gz) || (size_t)smem != fwd1d_smem<FD>(2, lc, 1, nt))
+  if (nt < hlen || nt % kFwdCh || nt > PDWT_MXU_MAX_HLEN || gc != 1 || lc < 1 || threads < 32 ||
+      threads > 256 || threads % 32 || !lines_fit(B, n_out, 1, lc, 1, gx, gy, gz))
     return cudaErrorInvalidValue;
-  auto kernel = fwd1d_strip_kernel<FD, 2, true>;
-  cudaError_t e = prepare(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-      x, lo, hi, 0, 0, B, N, hlen, 1, 0, taps, lc, 1, nt, n_out);
-  return cudaGetLastError();
+  return with_scheme(scheme, [&](auto sc) -> cudaError_t {
+    constexpr int S = decltype(sc)::value;
+    if (lc % kRowStrip<S> || (size_t)smem != fwd1d_smem<S>(2, lc, 1, nt))
+      return cudaErrorInvalidValue;
+    auto kernel = fwd1d_strip_kernel<S, 2, true>;
+    cudaError_t e = prepare(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+        x, lo, hi, in_bf16, hi_bf16, B, N, hlen, 1, 0, taps, lc, 1, nt, n_out);
+    return cudaGetLastError();
+  });
 }
 
-// Launch the padded polyphase synthesis (inv1d_strip_kernel<FD, 2, true>)
-// on two (B, M) float32 bands the caller padded, into (B, pad[2]): `pad`
-// holds base, off and n_out (band_strip.cuh: PadAxis); taps and geometry
-// as kernel 8's, the plan kernel 8's for pad_positions(pad) positions
-// (kernels/batched1d.py: inv1d_padded_launch_plan).  Refused
+// Launch the padded polyphase synthesis (inv1d_strip_kernel<S, 2, true>)
+// on two (B, M) bands the caller padded (the low one float32, the high one
+// bf16 where hi_bf16), into (B, pad[2]), bf16 where out_bf16: `pad` holds
+// base, off and n_out (band_strip.cuh: PadAxis); taps and geometry as
+// kernel 16's, the plan kernel 16's for pad_positions(pad) positions
+// (kernel 8's in fd: kernels/batched1d.py: inv1d_padded_launch_plan;
+// kernels/mxu1d.py: inv1d_padded_launch_plan).  Refused
 // (cudaErrorInvalidValue) where the plan does not add up or a stored
 // output would read outside the bands (pad_axis_ok).
-int launch_inv_padded(const float* lo, const float* hi, float* out, int B, int M, const int* pad,
-                      const float* taps, int hlen, const int* geo, int lc, int gc, int nt,
-                      int threads, int gx, int gy, int gz, int smem, void* stream) {
+int launch_inv_padded(const float* lo, const void* hi, void* out, int B, int M, const int* pad,
+                      const float* taps, int hlen, const int* geo, int scheme, int hi_bf16,
+                      int out_bf16, int lc, int gc, int nt, int threads, int gx, int gy, int gz,
+                      int smem, void* stream) {
   if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || M < 1) return cudaErrorInvalidValue;
   const Poly g = make_poly(geo);
   const PadAxis pa = {pad[0], pad[1], pad[2]};
@@ -438,66 +460,84 @@ int launch_inv_padded(const float* lo, const float* hi, float* out, int B, int M
                                                                   : o1 - omin + g.nb[1];
   const long long npos = pad_positions(pa);
   if (!pad_axis_ok(pa, g, M) || npos > (1LL << 30) || nt < need || nt % kCh<2> ||
-      nt > PDWT_MXU_MAX_HLEN + kCh<2> || gc != 1 || lc < 1 || lc % kRowStrip<FD> ||
-      threads < 32 || threads > 256 || threads % 32 ||
-      !lines_fit(B, (int)npos, 1, lc, 1, gx, gy, gz) ||
-      (size_t)smem != inv1d_smem<FD>(2, lc, 1, nt))
+      nt > PDWT_MXU_MAX_HLEN + kCh<2> || gc != 1 || lc < 1 || threads < 32 || threads > 256 ||
+      threads % 32 || !lines_fit(B, (int)npos, 1, lc, 1, gx, gy, gz))
     return cudaErrorInvalidValue;
-  auto kernel = inv1d_strip_kernel<FD, 2, true>;
-  cudaError_t e = prepare(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-      lo, hi, out, 0, 0, B, M, hlen, 1, 0, g, taps, lc, 1, nt, pa);
-  return cudaGetLastError();
+  return with_scheme(scheme, [&](auto sc) -> cudaError_t {
+    constexpr int S = decltype(sc)::value;
+    if (lc % kRowStrip<S> || (size_t)smem != inv1d_smem<S>(2, lc, 1, nt))
+      return cudaErrorInvalidValue;
+    auto kernel = inv1d_strip_kernel<S, 2, true>;
+    cudaError_t e = prepare(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+        lo, hi, out, hi_bf16, out_bf16, B, M, hlen, 1, 0, g, taps, lc, 1, nt, pa);
+    return cudaGetLastError();
+  });
 }
 
-// Launch the padded a-trous analysis (fwd1d_strip_kernel<FD, 1, true>) on
-// (B, N) float32 signals that hold their halo, into two (B, n_out) bands,
-// on kernel 9's plan for n_out outputs (kernels/batched1d.py:
+// Launch the padded a-trous analysis (fwd1d_strip_kernel<S, 1, true>) on
+// (B, N) signals (bf16 where in_bf16) that hold their halo, into two (B,
+// n_out) bands (the high one bf16 where hi_bf16), on kernel 15's plan for
+// n_out outputs (kernel 9's in fd: kernels/batched1d.py:
+// swt_fwd1d_padded_launch_plan; kernels/mxu1d.py:
 // swt_fwd1d_padded_launch_plan).  Refused (cudaErrorInvalidValue) where the
 // plan does not add up or the outputs would read past the signal.
-int launch_swt_fwd_padded(const float* x, float* lo, float* hi, int B, int N, int n_out,
-                          const float* taps, int hlen, int f, int lc, int gc, int nt, int threads,
-                          int gx, int gy, int gz, int smem, void* stream) {
+int launch_swt_fwd_padded(const void* x, float* lo, void* hi, int B, int N, int n_out,
+                          const float* taps, int hlen, int f, int scheme, int in_bf16,
+                          int hi_bf16, int lc, int gc, int nt, int threads, int gx, int gy,
+                          int gz, int smem, void* stream) {
   if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || n_out < 1 || f < 1 ||
       N < n_out + (long long)(hlen - 1) * f)
     return cudaErrorInvalidValue;
   if (nt < hlen || nt % kFwdCh || nt > PDWT_MXU_MAX_HLEN || !(gc == 1 || gc == f) || lc < 1 ||
-      lc % (kRowStrip<FD> * (f / gc)) || threads < 32 || threads > 256 || threads % 32 ||
-      !lines_fit(B, n_out, f, lc, gc, gx, gy, gz) ||
-      (size_t)smem != fwd1d_smem<FD>(1, lc, f / gc, nt))
+      threads < 32 || threads > 256 || threads % 32 ||
+      !lines_fit(B, n_out, f, lc, gc, gx, gy, gz))
     return cudaErrorInvalidValue;
-  auto kernel = fwd1d_strip_kernel<FD, 1, true>;
-  cudaError_t e = prepare(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-      x, lo, hi, 0, 0, B, N, hlen, f, 0, taps, lc, gc, nt, n_out);
-  return cudaGetLastError();
+  return with_scheme(scheme, [&](auto sc) -> cudaError_t {
+    constexpr int S = decltype(sc)::value;
+    if (lc % (kRowStrip<S> * (f / gc)) || (size_t)smem != fwd1d_smem<S>(1, lc, f / gc, nt))
+      return cudaErrorInvalidValue;
+    auto kernel = fwd1d_strip_kernel<S, 1, true>;
+    cudaError_t e = prepare(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+        x, lo, hi, in_bf16, hi_bf16, B, N, hlen, f, 0, taps, lc, gc, nt, n_out);
+    return cudaGetLastError();
+  });
 }
 
-// Launch the padded a-trous synthesis (inv1d_strip_kernel<FD, 1, true>) on
-// two (B, M) float32 bands that hold their halo, into (B, n_out), on
-// kernel 10's plan for n_out positions (kernels/batched1d.py:
+// Launch the padded a-trous synthesis (inv1d_strip_kernel<S, 1, true>) on
+// two (B, M) bands that hold their halo (the low one float32, the high one
+// bf16 where hi_bf16), into (B, n_out), bf16 where out_bf16, on kernel 16's
+// plan for n_out positions (kernel 10's in fd: kernels/batched1d.py:
+// swt_inv1d_padded_launch_plan; kernels/mxu1d.py:
 // swt_inv1d_padded_launch_plan); the halved taps.  Refused
 // (cudaErrorInvalidValue) where the plan does not add up or the outputs
 // would read past the bands.
-int launch_swt_inv_padded(const float* lo, const float* hi, float* out, int B, int M, int n_out,
-                          const float* taps, int hlen, int f, int lc, int gc, int nt, int threads,
-                          int gx, int gy, int gz, int smem, void* stream) {
+int launch_swt_inv_padded(const float* lo, const void* hi, void* out, int B, int M, int n_out,
+                          const float* taps, int hlen, int f, int scheme, int hi_bf16,
+                          int out_bf16, int lc, int gc, int nt, int threads, int gx, int gy,
+                          int gz, int smem, void* stream) {
   if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || n_out < 1 || f < 1 ||
       M < n_out + (long long)(hlen - 1) * f)
     return cudaErrorInvalidValue;
   if (nt < hlen || nt % kCh<1> || nt > PDWT_MXU_MAX_HLEN + kCh<1> || !(gc == 1 || gc == f) ||
-      lc < 1 || lc % (kRowStrip<FD> * (f / gc)) || threads < 32 || threads > 256 ||
-      threads % 32 || !lines_fit(B, n_out, f, lc, gc, gx, gy, gz) ||
-      (size_t)smem != inv1d_smem<FD>(1, lc, f / gc, nt))
+      lc < 1 || threads < 32 || threads > 256 || threads % 32 ||
+      !lines_fit(B, n_out, f, lc, gc, gx, gy, gz))
     return cudaErrorInvalidValue;
-  auto kernel = inv1d_strip_kernel<FD, 1, true>;
-  cudaError_t e = prepare(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-      lo, hi, out, 0, 0, B, M, hlen, f, 0, Poly{}, taps, lc, gc, nt, PadAxis{0, 0, n_out});
-  return cudaGetLastError();
+  return with_scheme(scheme, [&](auto sc) -> cudaError_t {
+    constexpr int S = decltype(sc)::value;
+    if (lc % (kRowStrip<S> * (f / gc)) || (size_t)smem != inv1d_smem<S>(1, lc, f / gc, nt))
+      return cudaErrorInvalidValue;
+    auto kernel = inv1d_strip_kernel<S, 1, true>;
+    cudaError_t e = prepare(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+        lo, hi, out, hi_bf16, out_bf16, B, M, hlen, f, 0, Poly{}, taps, lc, gc, nt,
+        PadAxis{0, 0, n_out});
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace pdwt_m1d
@@ -553,4 +593,57 @@ extern "C" int pdwt_swt_inv_level_1d_mxu(const float* lo, const void* hi, void* 
                                          int gz, int smem, void* stream) {
   return launch_inv<false>(lo, hi, out, B, M, taps, hlen, f, cen, geo, scheme, hi_bf16,
                            out_bf16, lc, gc, nt, threads, gx, gy, gz, smem, stream);
+}
+
+// The padded entry points of kernels 15 and 16 (the sharded 1D transforms
+// under the precision tiers, parallel/sharded.py), the counterparts of the
+// pad_fn= of mxu1d_pallas.py:211 fwd_level_1d_mxu, :236 inv_level_1d_mxu,
+// :272 swt_fwd_level_1d_mxu and :301 swt_inv_level_1d_mxu: the PAD
+// instances of the two bodies in `scheme`, on signals or bands that hold
+// their ring halo (the decimated ones: the odd extension and halo, and the
+// polyphase pad with base, off and n_out in `pad`), reading no wrapped
+// index.  The analyses: (B, N) (bf16 where in_bf16) -> two (B, n_out)
+// bands, the high one bf16 where hi_bf16, out[n] = sum_j t[j] x[2n + j]
+// (decimated) or x[n + j f] (a-trous); the syntheses: a float32 low band and
+// a high band (bf16 where hi_bf16) -> (B, n_out), bf16 where out_bf16.
+// Taps as kernels 15's and 16's (the a-trous synthesis's halved); the
+// plans kernels/mxu1d.py: fwd1d_padded_launch_plan,
+// inv1d_padded_launch_plan, swt_fwd1d_padded_launch_plan,
+// swt_inv1d_padded_launch_plan.  Each is refused where an output would
+// read outside its input.
+extern "C" int pdwt_fwd_level_1d_mxu_padded(const void* x, float* lo, void* hi, int B, int N,
+                                            int n_out, const float* taps, int hlen, int scheme,
+                                            int in_bf16, int hi_bf16, int lc, int gc, int nt,
+                                            int threads, int gx, int gy, int gz, int smem,
+                                            void* stream) {
+  return pdwt_m1d::launch_fwd_padded(x, lo, hi, B, N, n_out, taps, hlen, scheme, in_bf16,
+                                     hi_bf16, lc, gc, nt, threads, gx, gy, gz, smem, stream);
+}
+
+extern "C" int pdwt_inv_level_1d_mxu_padded(const float* lo, const void* hi, void* out, int B,
+                                            int M, const int* pad, const float* taps, int hlen,
+                                            const int* geo, int scheme, int hi_bf16,
+                                            int out_bf16, int lc, int gc, int nt, int threads,
+                                            int gx, int gy, int gz, int smem, void* stream) {
+  return pdwt_m1d::launch_inv_padded(lo, hi, out, B, M, pad, taps, hlen, geo, scheme, hi_bf16,
+                                     out_bf16, lc, gc, nt, threads, gx, gy, gz, smem, stream);
+}
+
+extern "C" int pdwt_swt_fwd_level_1d_mxu_padded(const void* x, float* lo, void* hi, int B, int N,
+                                                int n_out, const float* taps, int hlen, int f,
+                                                int scheme, int in_bf16, int hi_bf16, int lc,
+                                                int gc, int nt, int threads, int gx, int gy,
+                                                int gz, int smem, void* stream) {
+  return pdwt_m1d::launch_swt_fwd_padded(x, lo, hi, B, N, n_out, taps, hlen, f, scheme, in_bf16,
+                                         hi_bf16, lc, gc, nt, threads, gx, gy, gz, smem, stream);
+}
+
+extern "C" int pdwt_swt_inv_level_1d_mxu_padded(const float* lo, const void* hi, void* out,
+                                                int B, int M, int n_out, const float* taps,
+                                                int hlen, int f, int scheme, int hi_bf16,
+                                                int out_bf16, int lc, int gc, int nt, int threads,
+                                                int gx, int gy, int gz, int smem, void* stream) {
+  return pdwt_m1d::launch_swt_inv_padded(lo, hi, out, B, M, n_out, taps, hlen, f, scheme,
+                                         hi_bf16, out_bf16, lc, gc, nt, threads, gx, gy, gz,
+                                         smem, stream);
 }

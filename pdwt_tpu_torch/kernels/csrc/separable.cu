@@ -112,16 +112,22 @@ size_t inv_smem(int offmax, int lr, int lc, int nt) {
 
 //
 // PAD: kernel 2's padded entry point (pdwt_inv_level_2d_padded), which
-// replaces inv_level_2d_padded (separable_pallas.py:498): the same tile
-// work on subbands the caller padded (zeros or nothing on a pywt axis, the
+// replaces inv_level_2d_padded (separable_pallas.py:498), in fd on float32,
+// and kernel 12's (matmul.cu: pdwt_inv_level_2d_mxu_padded), which replaces
+// the pad_fn= of inv_level_2d_mxu (matmul_pallas.py:442) on the ring halo
+// of the sharded DWT, in the tiers' schemes: the same tile work on
+// subbands the caller padded (zeros or nothing on a pywt axis, the
 // periodic halo on a periodization axis), with index tables that do not
 // wrap (fill_table) starting `base` coefficients in, and per axis the
 // outputs from the body's output `off` on, n_out of them, written straight
 // to an n_out_r x n_out_c plane (band_strip.cuh: PadAxis).  The pywt
 // synthesis at shift 1 is the body's at shift inv_shift(hlen) moved by
 // whole coefficients (base) and at most one output (off), so the taps and
-// the geometry stay kernel 2's.
-template <int S, bool PAD = false>
+// the geometry stay kernel 2's.  TIER (with PAD) also stores a bf16
+// output where out_bf16: kernel 12's padded entry point in the tiers; the
+// float32 store alone is kernel 2's padded instance (TIER false), whose
+// code it keeps.
+template <int S, bool PAD = false, bool TIER = false>
 __global__ void __launch_bounds__(256)
 inv_level_kernel(const float* __restrict__ a, const void* __restrict__ h,
                  const void* __restrict__ v, const void* __restrict__ d, void* __restrict__ out,
@@ -216,8 +222,13 @@ inv_level_kernel(const float* __restrict__ a, const void* __restrict__ h,
         const long long c = 2LL * q0c + u - pc.off;
         return c < 0 ? (long long)pc.n_out : c;
       };
-      store_tile(static_cast<float*>(out), (size_t)b * pr.n_out * pc.n_out, pr.n_out, pc.n_out,
-                 tile, OC, TR, 2 * lc, orow, ocol);
+      const size_t op = (size_t)b * pr.n_out * pc.n_out;
+      if (TIER && out_bf16)
+        store_tile(static_cast<__nv_bfloat16*>(out), op, pr.n_out, pc.n_out, tile, OC, TR,
+                   2 * lc, orow, ocol);
+      else
+        store_tile(static_cast<float*>(out), op, pr.n_out, pc.n_out, tile, OC, TR, 2 * lc, orow,
+                   ocol);
       __syncthreads();
       continue;
     }
@@ -399,18 +410,24 @@ int launch_inv_level(const float* a, const void* h, const void* v, const void* d
   });
 }
 
-// Launch the padded synthesis level (inv_level_kernel<FD, true>) on
-// float32 (B, Mr, Mc) subbands the caller padded, into (B, n_out_r,
-// n_out_c): `pad` holds base, off and n_out of the rows, then of the
-// columns (PadAxis); taps, geometry and plan as kernel 2's, the plan made
-// for pad_positions(row) x pad_positions(column) positions
-// (kernels/separable.py: inv_padded_launch_plan).  Refused
+// Launch the padded synthesis level (inv_level_kernel<S, true, ...>) in compute
+// scheme `scheme` on (B, Mr, Mc) subbands the caller padded (A float32, H,
+// V, D bf16 where det_bf16), into (B, n_out_r, n_out_c), bf16 where
+// out_bf16: `pad` holds base, off and n_out of the rows, then of the
+// columns (PadAxis); taps, geometry and plan as kernel 12's (kernel 2's in
+// fd), the plan made for pad_positions(row) x pad_positions(column)
+// positions (kernels/separable.py: inv_padded_launch_plan, kernels/
+// matmul.py: inv_padded_launch_plan).  Kernel 2's padded entry point
+// (below) calls it in fd on float32, kernel 12's (matmul.cu:
+// pdwt_inv_level_2d_mxu_padded) in the tiers' schemes: a float32 output in
+// fd takes kernel 2's padded instance (inv_level_kernel<FD, true>), every
+// other call the scheme's TIER instance, which also stores bf16.  Refused
 // (cudaErrorInvalidValue) where the plan does not add up or a stored
 // output would read outside the subbands (pad_axis_ok).
-int launch_inv_padded(const float* a, const float* h, const float* v, const float* d,
-                      float* out, int B, int Mr, int Mc, const int* pad, const float* taps,
-                      int hlen, const int* geo, int lr, int lc, int nt, int threads, int gx,
-                      int gy, int gz, int smem, void* stream) {
+int launch_inv_padded(const float* a, const void* h, const void* v, const void* d, void* out,
+                      int B, int Mr, int Mc, const int* pad, const float* taps, int hlen,
+                      const int* geo, int scheme, int det_bf16, int out_bf16, int lr, int lc,
+                      int nt, int threads, int gx, int gy, int gz, int smem, void* stream) {
   if (hlen < 2 || hlen > PDWT_MAX_HLEN || B < 1 || Mr < 1 || Mc < 1)
     return cudaErrorInvalidValue;
   const Poly g = make_poly(geo);
@@ -420,20 +437,27 @@ int launch_inv_padded(const float* a, const float* h, const float* v, const floa
         g.p[q] + 2 * (g.nb[q] - 1) >= hlen)
       return cudaErrorInvalidValue;
   if (!pad_axis_ok(pr, g, Mr) || !pad_axis_ok(pc, g, Mc) || nt % kInvCh || nt > PDWT_MAX_HLEN ||
-      lr < 1 || lc < 1 || lr % kRowStrip<FD> || lc % kColStrip || threads < 32 || threads > 256 ||
-      threads % 32)
+      lr < 1 || lc < 1 || lc % kColStrip || threads < 32 || threads > 256 || threads % 32)
     return cudaErrorInvalidValue;
   const int offmax = poly_off(g, 0) > poly_off(g, 1) ? poly_off(g, 0) : poly_off(g, 1);
   if (gx != (pad_positions(pc) + lc - 1) / lc || gy != (pad_positions(pr) + lr - 1) / lr ||
-      gy > 65535 || gz != (B < 65535 ? B : 65535) ||
-      (size_t)smem != inv_smem<FD>(offmax, lr, lc, nt))
+      gy > 65535 || gz != (B < 65535 ? B : 65535))
     return cudaErrorInvalidValue;
-  auto kernel = inv_level_kernel<FD, true>;
-  cudaError_t e = prepare(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-      a, h, v, d, out, 0, 0, B, Mr, Mc, hlen, g, taps, lr, lc, nt, pr, pc);
-  return cudaGetLastError();
+  return with_scheme(scheme, [&](auto sc) -> cudaError_t {
+    constexpr int S = decltype(sc)::value;
+    if (lr % kRowStrip<S> || (size_t)smem != inv_smem<S>(offmax, lr, lc, nt))
+      return cudaErrorInvalidValue;
+    auto launch = [&](auto kernel) -> cudaError_t {
+      cudaError_t e = prepare(kernel, smem);
+      if (e != cudaSuccess) return e;
+      kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+          a, h, v, d, out, det_bf16, out_bf16, B, Mr, Mc, hlen, g, taps, lr, lc, nt, pr, pc);
+      return cudaGetLastError();
+    };
+    if constexpr (S == FD)
+      if (!out_bf16) return launch(inv_level_kernel<FD, true>);
+    return launch(inv_level_kernel<S, true, true>);
+  });
 }
 
 // Launch the inverse tail (kernel 4) on (B, Mr, Mc) deepest subbands and
@@ -486,10 +510,10 @@ int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R,
 int launch_fwd_tail(const float* x, float* a, float* scratch, void* const* det, int B, int R,
                     int C, int levels, const float* taps, int hlen, int cen, int nb, int cs,
                     int nt, int threads, int smem, const int* tiles, void* stream);
-int launch_fwd_padded(const float* x, float* a, float* h, float* v, float* d, int B, int R,
-                      int C, int Ro, int Co, const float* taps, int hlen, int lr, int lc, int gc,
-                      int nph, int nt, int threads, int gx, int gy, int gz, int smem,
-                      void* stream);
+int launch_fwd_padded(const void* x, float* a, void* h, void* v, void* d, int B, int R, int C,
+                      int Ro, int Co, const float* taps, int hlen, int os, int f, int scheme,
+                      int in_bf16, int det_bf16, int lr, int lc, int gc, int nph, int nt,
+                      int threads, int gx, int gy, int gz, int smem, void* stream);
 }
 
 // Every entry point returns a cudaError_t as int: 0 once the launch has been
@@ -564,8 +588,9 @@ extern "C" int pdwt_fwd_level_2d_padded(const float* x, float* a, float* h, floa
                                         int hlen, int lr, int lc, int gc, int nph, int nt,
                                         int threads, int gx, int gy, int gz, int smem,
                                         void* stream) {
-  return pdwt_swtmm::launch_fwd_padded(x, a, h, v, d, B, R, C, Ro, Co, taps, hlen, lr, lc, gc,
-                                       nph, nt, threads, gx, gy, gz, smem, stream);
+  return pdwt_swtmm::launch_fwd_padded(x, a, h, v, d, B, R, C, Ro, Co, taps, hlen, 2, 1, FD, 0,
+                                       0, lr, lc, gc, nph, nt, threads, gx, gy, gz, smem,
+                                       stream);
 }
 
 // Kernel 2's: four padded (B, Mr, Mc) float32 subbands -> (B, n_out_r,
@@ -577,8 +602,8 @@ extern "C" int pdwt_inv_level_2d_padded(const float* a, const float* h, const fl
                                         const int* pad, const float* taps, int hlen,
                                         const int* geo, int lr, int lc, int nt, int threads,
                                         int gx, int gy, int gz, int smem, void* stream) {
-  return pdwt_sep::launch_inv_padded(a, h, v, d, out, B, Mr, Mc, pad, taps, hlen, geo, lr, lc,
-                                     nt, threads, gx, gy, gz, smem, stream);
+  return pdwt_sep::launch_inv_padded(a, h, v, d, out, B, Mr, Mc, pad, taps, hlen, geo, FD, 0, 0,
+                                     lr, lc, nt, threads, gx, gy, gz, smem, stream);
 }
 
 extern "C" const char* pdwt_error_string(int code) {

@@ -38,9 +38,11 @@
 // Kernels 5 and 6 also have padded entry points (pdwt_swt_fwd_level_2d_padded,
 // pdwt_swt_inv_level_2d_padded, at the end of this file), the counterparts of
 // swt_pallas.py:935 swt_fwd_level_2d_padded and :960 swt_inv_level_2d_padded:
-// the same bodies (swt_matmul.cu: swt_fwd_padded_kernel on fwd_tile<FD, 1,
-// true>, swt_inv_mxu_kernel<FD, true>) on local shards that hold their ring
-// halo (parallel/sharded.py), reading no wrapped index.
+// the same bodies (swt_matmul.cu: swt_fwd_padded_kernel<FD, false> on
+// fwd_tile<FD, 1, true>, swt_inv_mxu_kernel<FD, true>) on local shards that
+// hold their ring halo (parallel/sharded.py), reading no wrapped index; the
+// tiers' padded entry points of kernels 13 and 14 (swt_matmul.cu) run the
+// other instances of those bodies.
 //
 // Bound: device memory, per level.  The forward reads the image once and
 // writes four full-size planes; the inverse reads four planes and writes one.
@@ -99,14 +101,15 @@ extern "C" int pdwt_swt_inv_level_2d(const float* a, const float* h, const float
 }
 
 namespace pdwt_swtmm {
-int launch_swt_fwd_padded(const float* x, float* a, float* h, float* v, float* d, int B, int R,
-                          int C, int Ro, int Co, const float* taps, int hlen, int f, int lr,
-                          int lc, int gc, int nph, int nt, int threads, int gx, int gy, int gz,
-                          int smem, void* stream);
-int launch_swt_inv_padded(const float* a, const float* h, const float* v, const float* d,
-                          float* out, int B, int Ri, int Ci, int R, int C, const float* taps,
-                          int hlen, int f, int lr, int lc, int gc, int nph, int nt, int threads,
-                          int gx, int gy, int gz, int smem, void* stream);
+int launch_fwd_padded(const void* x, float* a, void* h, void* v, void* d, int B, int R, int C,
+                      int Ro, int Co, const float* taps, int hlen, int os, int f, int scheme,
+                      int in_bf16, int det_bf16, int lr, int lc, int gc, int nph, int nt,
+                      int threads, int gx, int gy, int gz, int smem, void* stream);
+int launch_swt_inv_padded(const float* a, const void* h, const void* v, const void* d, void* out,
+                          int B, int Ri, int Ci, int R, int C, const float* taps, int hlen, int f,
+                          int scheme, int det_bf16, int out_bf16, int lr, int lc, int gc,
+                          int nph, int nt, int threads, int gx, int gy, int gz, int smem,
+                          void* stream);
 }  // namespace pdwt_swtmm
 
 // The padded entry points of kernels 5 and 6 (the sharded SWT,
@@ -121,8 +124,9 @@ extern "C" int pdwt_swt_fwd_level_2d_padded(const float* x, float* a, float* h, 
                                             const float* taps, int hlen, int f, int lr, int lc,
                                             int gc, int nph, int nt, int threads, int gx, int gy,
                                             int gz, int smem, void* stream) {
-  return pdwt_swtmm::launch_swt_fwd_padded(x, a, h, v, d, B, R, C, Ro, Co, taps, hlen, f, lr, lc,
-                                           gc, nph, nt, threads, gx, gy, gz, smem, stream);
+  return pdwt_swtmm::launch_fwd_padded(x, a, h, v, d, B, R, C, Ro, Co, taps, hlen, 1, f,
+                                       pdwt_mxu::FD, 0, 0, lr, lc, gc, nph, nt, threads, gx, gy,
+                                       gz, smem, stream);
 }
 
 // Kernel 6's: four (B, Ri, Ci) float32 subbands that hold their halo ->
@@ -135,6 +139,7 @@ extern "C" int pdwt_swt_inv_level_2d_padded(const float* a, const float* h, cons
                                             int R, int C, const float* taps, int hlen, int f,
                                             int lr, int lc, int gc, int nph, int nt, int threads,
                                             int gx, int gy, int gz, int smem, void* stream) {
-  return pdwt_swtmm::launch_swt_inv_padded(a, h, v, d, out, B, Ri, Ci, R, C, taps, hlen, f, lr,
-                                           lc, gc, nph, nt, threads, gx, gy, gz, smem, stream);
+  return pdwt_swtmm::launch_swt_inv_padded(a, h, v, d, out, B, Ri, Ci, R, C, taps, hlen, f,
+                                           pdwt_mxu::FD, 0, 0, lr, lc, gc, nph, nt, threads, gx,
+                                           gy, gz, smem, stream);
 }

@@ -255,74 +255,98 @@ swt_fwd_mxu_kernel(const void* __restrict__ x, float* __restrict__ a, void* __re
 
 // ---------------------------------------------------------------------------
 // Padded forward level: kernel 1's padded entry point (separable.cu:
-// pdwt_fwd_level_2d_padded).  Replaces fwd_level_2d_padded
+// pdwt_fwd_level_2d_padded) and kernel 11's (matmul.cu:
+// pdwt_fwd_level_2d_mxu_padded).  Replaces fwd_level_2d_padded
 // (separable_pallas.py:355), which runs kernel 1's Pallas body on an input
-// whose boundary extension the caller wrote as the pad; the port's boundary
-// modes hand it the pywt extension (core/modes.py: extend by (hlen - 2,
-// hlen - 1)) or, on a periodization axis of a per-axis tuple, the odd
-// extension wrapped at the periodic center.  It is kernel 1's per-tile work
-// (fwd_tile<FD, 2>, rows first, the taps in order, one FMA each) with index
-// tables that do not wrap, on an R x C input that already holds every
-// sample the Ro x Co outputs read:
+// whose boundary extension the caller wrote as the pad, and the pad_fn= of
+// fwd_level_2d_mxu (matmul_pallas.py:306), which runs kernel 11's on a
+// local shard that the sharded DWT wrapped in its ring halo
+// (parallel/sharded.py).  The port's boundary modes hand it the pywt
+// extension (core/modes.py: extend by (hlen - 2, hlen - 1)) or, on a
+// periodization axis, the odd extension wrapped at the periodic center (by
+// the ring on a sharded axis).  It is kernel 11's per-tile work
+// (fwd_tile<S, 2>, rows first, the taps in order, the row-pass result
+// split per scheme) with index tables that do not wrap, on an R x C input
+// that already holds every sample the Ro x Co outputs read:
 //   out[n] = sum_j t[j] * x[2n + j] per axis, n < Ro (Co), R >= 2 (Ro - 1) + hlen.
-// Bound: device memory, as kernel 1: the extended input is read once and
-// the four subbands written once; the extension the caller writes adds
-// one read and one write of the image (a later PR may read the extension
-// straight from index tables, ROADMAP).  Plan: kernels/separable.py:
-// fwd_padded_launch_plan (kernel 1's plan for Ro x Co outputs).
+// TIER false is kernel 1's instance (fd, float32 in and out: both storage
+// types constants, the code kernel 1's padded entry point had); TIER true
+// reads the input and writes H, V, D in the types of the flags, as kernel
+// 11 does.  Bound: device memory, as kernels 1 and 11: the extended input
+// is read once and the four subbands written once; the extension the
+// caller writes adds one read and one write of the image (a later PR may
+// read the extension straight from index tables, ROADMAP).  Plan:
+// kernels/separable.py: fwd_padded_launch_plan (kernel 1's plan for Ro x
+// Co outputs), kernels/matmul.py: fwd_padded_launch_plan (kernel 11's).
 // ---------------------------------------------------------------------------
+template <int S, bool TIER>
 __global__ void __launch_bounds__(256)
-fwd_padded_kernel(const float* __restrict__ x, float* __restrict__ a, float* __restrict__ h,
-                  float* __restrict__ v, float* __restrict__ d, int B, int R, int C, int Ro,
-                  int Co, int hlen, const float* __restrict__ taps, int lr, int lc, int nph,
-                  int nt) {
+fwd_padded_kernel(const void* __restrict__ x, float* __restrict__ a, void* __restrict__ h,
+                  void* __restrict__ v, void* __restrict__ d, int in_bf16, int det_bf16, int B,
+                  int R, int C, int Ro, int Co, int hlen, const float* __restrict__ taps, int lr,
+                  int lc, int nph, int nt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int xb = TIER ? in_bf16 : 0, db = TIER ? det_bf16 : 0;
   const FwdTile g = {R, C, hlen, 1, 0, lr, lc, 1, nph, nt, 0, (int)blockIdx.y * lr, 0,
                      (int)blockIdx.x * lc, Ro, Co};
   for (int b = blockIdx.z; b < B; b += gridDim.z) {
     const size_t plane = (size_t)b * R * C;
-    auto stage_src = [&](const int* rows, const int* cols, int WR, int WC, float* win) {
+    // one staging per input type, each with the type a constant (Bands)
+    auto stage_src = [&](const int* rows, const int* cols, int WR, int WC, Stage<S>* win) {
       auto row = [&](int i) { return plane + (size_t)rows[i] * C; };
-      stage_window<FD, 1, 6, 3>(Bands{{x}, 0u}, row, cols, WR, WC, win, WC, 0, WR * WC);
+      if (xb)
+        stage_window<S, 1, 6, 3>(Bands{{x}, 1u}, row, cols, WR, WC, win, WC, 0, WR * WC);
+      else
+        stage_window<S, 1, 6, 3>(Bands{{x}, 0u}, row, cols, WR, WC, win, WC, 0, WR * WC);
     };
-    fwd_tile<FD, 2, true>(smem_raw, g, taps, b == (int)blockIdx.z, stage_src, a, h, v, d, 0,
-                          (size_t)b * Ro * Co);
+    fwd_tile<S, 2, true>(smem_raw, g, taps, b == (int)blockIdx.z, stage_src, a, h, v, d, db,
+                         (size_t)b * Ro * Co);
   }
 }
 
 // ---------------------------------------------------------------------------
 // Padded a-trous forward level: kernel 5's padded entry point (swt.cu:
-// pdwt_swt_fwd_level_2d_padded).  Replaces swt_fwd_level_2d_padded
-// (swt_pallas.py:935), which the sharded SWT runs on a local shard that
-// holds its ring halo (parallel/sharded.py).  It is kernel 5's per-tile
-// work (fwd_tile<FD, 1>, rows first, the taps in order, one FMA each) with
-// index tables that do not wrap, at dilation f, on an R x C input that
-// already holds every sample the Ro x Co outputs read:
+// pdwt_swt_fwd_level_2d_padded) and kernel 13's (pdwt_swt_fwd_level_2d_mxu_padded,
+// below).  Replaces swt_fwd_level_2d_padded (swt_pallas.py:935) and the
+// pad_fn= of swt_fwd_level_2d_mxu (swt_matmul_pallas.py:252), which the
+// sharded SWT runs on a local shard that holds its ring halo
+// (parallel/sharded.py), exact or under a bf16 tier.  It is kernel 13's
+// per-tile work (fwd_tile<S, 1>, rows first, the taps in order) with index
+// tables that do not wrap, at dilation f, on an R x C input that already
+// holds every sample the Ro x Co outputs read:
 //   out[n] = sum_j t[j] * x[n + j f] per axis, n < Ro (Co), R >= Ro + (hlen - 1) f.
 // The halo is the bare periodic support, fwd_center(hlen) f rows and
-// columns below and (hlen - 1) f - fwd_center(hlen) f above.  Bound: device
-// memory, as kernel 5: the padded input read once, four Ro x Co planes
-// written once.  Plan: kernels/swt.py: swt_fwd_padded_launch_plan (kernel
-// 5's plan for an Ro x Co image), rows of one residue class mod f as there.
+// columns below and (hlen - 1) f - fwd_center(hlen) f above.  TIER as in
+// fwd_padded_kernel (false: kernel 5's fd float32 instance).  Bound: device
+// memory, as kernels 5 and 13: the padded input read once, four Ro x Co
+// planes written once.  Plan: kernels/swt.py: swt_fwd_padded_launch_plan
+// (kernel 5's plan for an Ro x Co image), kernels/swt_matmul.py:
+// swt_fwd_padded_launch_plan (kernel 13's), rows of one residue class mod f
+// as there.
 // ---------------------------------------------------------------------------
+template <int S, bool TIER>
 __global__ void __launch_bounds__(256)
-swt_fwd_padded_kernel(const float* __restrict__ x, float* __restrict__ a, float* __restrict__ h,
-                      float* __restrict__ v, float* __restrict__ d, int B, int R, int C, int Ro,
-                      int Co, int hlen, int f, const float* __restrict__ taps, int lr, int lc,
-                      int gc, int nph, int nt) {
+swt_fwd_padded_kernel(const void* __restrict__ x, float* __restrict__ a, void* __restrict__ h,
+                      void* __restrict__ v, void* __restrict__ d, int in_bf16, int det_bf16,
+                      int B, int R, int C, int Ro, int Co, int hlen, int f,
+                      const float* __restrict__ taps, int lr, int lc, int gc, int nph, int nt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int xb = TIER ? in_bf16 : 0, db = TIER ? det_bf16 : 0;
   const int frr = f < Ro ? f : Ro, frc = gc == 1 ? 1 : (f < Co ? f : Co);
   const FwdTile g = {R,  C,  hlen, f,  0,  lr, lc, gc, nph, nt, (int)(blockIdx.y % frr),
                      (int)(blockIdx.y / frr) * lr, (int)(blockIdx.x % frc),
                      (int)(blockIdx.x / frc) * lc, Ro, Co};
   for (int b = blockIdx.z; b < B; b += gridDim.z) {
     const size_t plane = (size_t)b * R * C;
-    auto stage_src = [&](const int* rows, const int* cols, int WR, int WC, float* win) {
+    auto stage_src = [&](const int* rows, const int* cols, int WR, int WC, Stage<S>* win) {
       auto row = [&](int i) { return plane + (size_t)rows[i] * C; };
-      stage_window<FD, 1, 6, 3>(Bands{{x}, 0u}, row, cols, WR, WC, win, WC, 0, WR * WC);
+      if (xb)
+        stage_window<S, 1, 6, 3>(Bands{{x}, 1u}, row, cols, WR, WC, win, WC, 0, WR * WC);
+      else
+        stage_window<S, 1, 6, 3>(Bands{{x}, 0u}, row, cols, WR, WC, win, WC, 0, WR * WC);
     };
-    fwd_tile<FD, 1, true>(smem_raw, g, taps, b == (int)blockIdx.z, stage_src, a, h, v, d, 0,
-                          (size_t)b * Ro * Co);
+    fwd_tile<S, 1, true>(smem_raw, g, taps, b == (int)blockIdx.z, stage_src, a, h, v, d, db,
+                         (size_t)b * Ro * Co);
   }
 }
 
@@ -409,13 +433,17 @@ fwd_tail_kernel(const float* __restrict__ x, float* __restrict__ a_out, float* s
 // up.
 //
 // PAD: kernel 6's padded entry point (swt.cu: pdwt_swt_inv_level_2d_padded),
-// which replaces swt_inv_level_2d_padded (swt_pallas.py:960): the fd
-// instance on Ri x Ci float32 subbands that hold their ring halo
-// (swt_inv_center(hlen) f rows and columns below, the rest of the span
-// (hlen - 1) f above), index tables that do not wrap (fill_table, cen = 0:
-// out[n] = sum_band sum_j t_band[j] x_band[n + j f] per axis) and R x C
-// outputs, Ri >= R + (hlen - 1) f; no threshold.  A compile-time choice, so
-// the periodic instances (Ri = R, Ci = C) keep their code.
+// which replaces swt_inv_level_2d_padded (swt_pallas.py:960), in fd on
+// float32 subbands, and kernel 14's (pdwt_swt_inv_level_2d_mxu_padded,
+// below), which replaces the pad_fn= of swt_inv_level_2d_mxu
+// (swt_matmul_pallas.py:402), in the tiers' schemes: Ri x Ci subbands that
+// hold their ring halo (swt_inv_center(hlen) f rows and columns below, the
+// rest of the span (hlen - 1) f above), index tables that do not wrap
+// (fill_table, cen = 0: out[n] = sum_band sum_j t_band[j] x_band[n + j f]
+// per axis) and R x C outputs, Ri >= R + (hlen - 1) f; no threshold
+// (the sharded denoising step thresholds apart, as JAX's does).  A
+// compile-time choice, so the periodic instances (Ri = R, Ci = C) keep
+// their code.
 // ---------------------------------------------------------------------------
 constexpr int kInvCh = 8;       // taps per chunk of the inverse's strips
 constexpr int kStageLoads = 32;  // loads in flight per thread while staging
@@ -567,77 +595,85 @@ int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R,
   });
 }
 
-// Launch the padded forward level (fwd_padded_kernel) on its plan: the same
-// plan fields as kernel 1's (gc = 1); refused (cudaErrorInvalidValue) where
-// the plan does not add up or the Ro x Co outputs would read past the R x
-// C input.
-int launch_fwd_padded(const float* x, float* a, float* h, float* v, float* d, int B, int R,
-                      int C, int Ro, int Co, const float* taps, int hlen, int lr, int lc, int gc,
-                      int nph, int nt, int threads, int gx, int gy, int gz, int smem,
-                      void* stream) {
-  if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || Ro < 1 || Co < 1 ||
-      R < 2LL * (Ro - 1) + hlen || C < 2LL * (Co - 1) + hlen)
-    return cudaErrorInvalidValue;
-  if (nt < hlen || nt > PDWT_MXU_MAX_HLEN || nt % kFwdCh || gc != 1 || !(nph == 1 || nph == 2) ||
-      lr < 1 || lc < 1 || lr % kRowStrip<FD> || lc % kColStrip || threads < 32 || threads > 256 ||
-      threads % 32 || !grid_fits(B, Ro, Co, 1, lr, lc, 1, gx, gy, gz) ||
-      (size_t)smem != fwd_smem<FD>(2, lr, lc, 1, nt, nph))
-    return cudaErrorInvalidValue;
-  cudaError_t e = prepare(fwd_padded_kernel, smem);
-  if (e != cudaSuccess) return e;
-  fwd_padded_kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-      x, a, h, v, d, B, R, C, Ro, Co, hlen, taps, lr, lc, nph, nt);
-  return cudaGetLastError();
-}
-
-// Launch the padded a-trous forward level (swt_fwd_padded_kernel) on its
-// plan: kernel 5's plan fields for Ro x Co outputs at dilation f; refused
+// Launch a padded forward (fwd_padded_kernel at output step os = 2,
+// swt_fwd_padded_kernel at os = 1 and dilation f) in compute scheme
+// `scheme`, the input bf16 where in_bf16, H, V, D bf16 where det_bf16: the
+// fd float32 call takes TIER false (kernels 1 and 5's instance), every
+// other one the scheme's TIER instance.  The plan fields are kernel 11's
+// (os = 2, gc = 1) or 13's for Ro x Co outputs; refused
 // (cudaErrorInvalidValue) where the plan does not add up or the outputs
 // would read past the R x C input.
-int launch_swt_fwd_padded(const float* x, float* a, float* h, float* v, float* d, int B, int R,
-                          int C, int Ro, int Co, const float* taps, int hlen, int f, int lr,
-                          int lc, int gc, int nph, int nt, int threads, int gx, int gy, int gz,
-                          int smem, void* stream) {
+int launch_fwd_padded(const void* x, float* a, void* h, void* v, void* d, int B, int R, int C,
+                      int Ro, int Co, const float* taps, int hlen, int os, int f, int scheme,
+                      int in_bf16, int det_bf16, int lr, int lc, int gc, int nph, int nt,
+                      int threads, int gx, int gy, int gz, int smem, void* stream) {
   if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || Ro < 1 || Co < 1 || f < 1 ||
-      R < Ro + (long long)(hlen - 1) * f || C < Co + (long long)(hlen - 1) * f)
+      !(os == 1 || (os == 2 && f == 1)) ||
+      R < (long long)os * (Ro - 1) + (long long)(hlen - 1) * f + 1 ||
+      C < (long long)os * (Co - 1) + (long long)(hlen - 1) * f + 1)
     return cudaErrorInvalidValue;
   if (nt < hlen || nt > PDWT_MXU_MAX_HLEN || nt % kFwdCh || !(gc == 1 || gc == f) ||
-      !(nph == 1 || nph == 2) || lr < 1 || lc < 1 || lr % kRowStrip<FD> ||
-      lc % (kColStrip * (f / gc)) || threads < 32 || threads > 256 || threads % 32 ||
-      !grid_fits(B, Ro, Co, f, lr, lc, gc, gx, gy, gz) ||
-      (size_t)smem != fwd_smem<FD>(1, lr, lc, f / gc, nt, nph))
+      !(nph == 1 || nph == 2) || lr < 1 || lc < 1 || lc % (kColStrip * (f / gc)) ||
+      threads < 32 || threads > 256 || threads % 32 ||
+      !grid_fits(B, Ro, Co, f, lr, lc, gc, gx, gy, gz))
     return cudaErrorInvalidValue;
-  cudaError_t e = prepare(swt_fwd_padded_kernel, smem);
-  if (e != cudaSuccess) return e;
-  swt_fwd_padded_kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-      x, a, h, v, d, B, R, C, Ro, Co, hlen, f, taps, lr, lc, gc, nph, nt);
-  return cudaGetLastError();
+  return with_scheme(scheme, [&](auto sc) -> cudaError_t {
+    constexpr int S = decltype(sc)::value;
+    if (lr % kRowStrip<S> || (size_t)smem != fwd_smem<S>(os, lr, lc, f / gc, nt, nph))
+      return cudaErrorInvalidValue;
+    auto launch = [&](auto k2, auto k1) -> cudaError_t {
+      if (os == 2) {
+        cudaError_t e = prepare(k2, smem);
+        if (e != cudaSuccess) return e;
+        k2<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+            x, a, h, v, d, in_bf16, det_bf16, B, R, C, Ro, Co, hlen, taps, lr, lc, nph, nt);
+      } else {
+        cudaError_t e = prepare(k1, smem);
+        if (e != cudaSuccess) return e;
+        k1<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+            x, a, h, v, d, in_bf16, det_bf16, B, R, C, Ro, Co, hlen, f, taps, lr, lc, gc, nph,
+            nt);
+      }
+      return cudaGetLastError();
+    };
+    if constexpr (S == FD)
+      if (!in_bf16 && !det_bf16)
+        return launch(fwd_padded_kernel<FD, false>, swt_fwd_padded_kernel<FD, false>);
+    return launch(fwd_padded_kernel<S, true>, swt_fwd_padded_kernel<S, true>);
+  });
 }
 
-// Launch the padded a-trous synthesis (swt_inv_mxu_kernel<FD, true>, no
-// threshold) on four Ri x Ci float32 subbands into an R x C output, on
-// kernel 6's plan for R x C; refused (cudaErrorInvalidValue) where the plan
-// does not add up or the outputs would read past the subbands.
-int launch_swt_inv_padded(const float* a, const float* h, const float* v, const float* d,
-                          float* out, int B, int Ri, int Ci, int R, int C, const float* taps,
-                          int hlen, int f, int lr, int lc, int gc, int nph, int nt, int threads,
-                          int gx, int gy, int gz, int smem, void* stream) {
+// Launch the padded a-trous synthesis (swt_inv_mxu_kernel<S, true>, no
+// threshold) in compute scheme `scheme` on four Ri x Ci subbands (a
+// float32, H, V, D bf16 where det_bf16) into an R x C output (bf16 where
+// out_bf16), on kernel 14's plan for R x C (kernel 6's in fd); refused
+// (cudaErrorInvalidValue) where the plan does not add up or the outputs
+// would read past the subbands.
+int launch_swt_inv_padded(const float* a, const void* h, const void* v, const void* d, void* out,
+                          int B, int Ri, int Ci, int R, int C, const float* taps, int hlen, int f,
+                          int scheme, int det_bf16, int out_bf16, int lr, int lc, int gc,
+                          int nph, int nt, int threads, int gx, int gy, int gz, int smem,
+                          void* stream) {
   if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || R < 1 || C < 1 || f < 1 ||
       Ri < R + (long long)(hlen - 1) * f || Ci < C + (long long)(hlen - 1) * f)
     return cudaErrorInvalidValue;
   if (nt < hlen || nt > PDWT_MXU_MAX_HLEN || nt % kInvCh || !(gc == 1 || gc == f) ||
-      !(nph == 1 || nph == 2) || lr < 1 || lc < 1 || lr % kRowStrip<FD> ||
-      lc % (kColStrip * (f / gc)) || threads < 32 || threads > 256 || threads % 32 ||
-      !grid_fits(B, R, C, f, lr, lc, gc, gx, gy, gz) ||
-      (size_t)smem != inv_smem<FD>(lr, lc, f / gc, nt, nph))
+      !(nph == 1 || nph == 2) || lr < 1 || lc < 1 || lc % (kColStrip * (f / gc)) ||
+      threads < 32 || threads > 256 || threads % 32 ||
+      !grid_fits(B, R, C, f, lr, lc, gc, gx, gy, gz))
     return cudaErrorInvalidValue;
-  auto kernel = swt_inv_mxu_kernel<FD, true>;
-  cudaError_t e = prepare(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-      a, h, v, d, out, 0, 0, B, R, C, hlen, f, 0, kNone, nullptr, lr, lc, gc, nph, nt, taps, Ri,
-      Ci);
-  return cudaGetLastError();
+  return with_scheme(scheme, [&](auto sc) -> cudaError_t {
+    constexpr int S = decltype(sc)::value;
+    if (lr % kRowStrip<S> || (size_t)smem != inv_smem<S>(lr, lc, f / gc, nt, nph))
+      return cudaErrorInvalidValue;
+    auto kernel = swt_inv_mxu_kernel<S, true>;
+    cudaError_t e = prepare(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+        a, h, v, d, out, det_bf16, out_bf16, B, R, C, hlen, f, 0, kNone, nullptr, lr, lc, gc, nph,
+        nt, taps, Ri, Ci);
+    return cudaGetLastError();
+  });
 }
 
 // Launch the forward tail (kernel 3) on its plan (kernels/separable.py:
@@ -729,4 +765,40 @@ extern "C" int pdwt_swt_inv_level_2d_mxu(const float* a, const void* h, const vo
         nph, nt, taps, R, C);
     return cudaGetLastError();
   });
+}
+
+// The padded entry points of kernels 13 and 14 (the sharded SWT under the
+// bf16 tiers, parallel/sharded.py), on the a-trous bodies above with index
+// tables that do not wrap, in compute scheme `scheme`.  Kernel 13's: a (B,
+// R, C) input (bf16 where in_bf16) that holds its halo -> four (B, Ro, Co)
+// planes, A float32 and H, V, D bf16 where det_bf16, out[n] = sum_j t[j]
+// x[n + j f] per axis; taps as kernel 13's, the plan kernels/swt_matmul.py:
+// swt_fwd_padded_launch_plan's.  Refused where Ro + (hlen - 1) f > R (or
+// the columns'): a stored output would read outside the input.
+extern "C" int pdwt_swt_fwd_level_2d_mxu_padded(const void* x, float* a, void* h, void* v,
+                                                void* d, int B, int R, int C, int Ro, int Co,
+                                                const float* taps, int hlen, int f, int scheme,
+                                                int in_bf16, int det_bf16, int lr, int lc,
+                                                int gc, int nph, int nt, int threads, int gx,
+                                                int gy, int gz, int smem, void* stream) {
+  return pdwt_swtmm::launch_fwd_padded(x, a, h, v, d, B, R, C, Ro, Co, taps, hlen, 1, f, scheme,
+                                       in_bf16, det_bf16, lr, lc, gc, nph, nt, threads, gx, gy,
+                                       gz, smem, stream);
+}
+
+// Kernel 14's: four (B, Ri, Ci) subbands that hold their halo (A float32,
+// H, V, D bf16 where det_bf16) -> (B, R, C), bf16 where out_bf16, out[n] =
+// sum_band sum_j t_band[j] x_band[n + j f] per axis, no threshold; the
+// halved taps as kernel 14's, the plan kernels/swt_matmul.py:
+// swt_inv_padded_launch_plan's.  Refused where R + (hlen - 1) f > Ri (or
+// the columns').
+extern "C" int pdwt_swt_inv_level_2d_mxu_padded(const float* a, const void* h, const void* v,
+                                                const void* d, void* out, int B, int Ri, int Ci,
+                                                int R, int C, const float* taps, int hlen, int f,
+                                                int scheme, int det_bf16, int out_bf16, int lr,
+                                                int lc, int gc, int nph, int nt, int threads,
+                                                int gx, int gy, int gz, int smem, void* stream) {
+  return pdwt_swtmm::launch_swt_inv_padded(a, h, v, d, out, B, Ri, Ci, R, C, taps, hlen, f,
+                                           scheme, det_bf16, out_bf16, lr, lc, gc, nph, nt,
+                                           threads, gx, gy, gz, smem, stream);
 }

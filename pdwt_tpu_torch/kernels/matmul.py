@@ -9,12 +9,23 @@ kernels (entry points in ``csrc/matmul.cu``: the analysis runs kernel 13's
 body at output step 2 in ``csrc/swt_matmul.cu``, the synthesis kernel 2's
 body in ``csrc/separable.cu``) and the plain versions here reproduce:
 
-=======================  ====================================  =========================
-wrapper                  computes                              plain version
-=======================  ====================================  =========================
-``fwd_level_2d_mxu``     one analysis level, rows then columns ``fwd_level_2d_mxu_ref``
-``inv_level_2d_mxu``     one synthesis level, rows then cols   ``inv_level_2d_mxu_ref``
-=======================  ====================================  =========================
+===========================  ====================================  =============================
+wrapper                      computes                              plain version
+===========================  ====================================  =============================
+``fwd_level_2d_mxu``         one analysis level, rows then columns ``fwd_level_2d_mxu_ref``
+``inv_level_2d_mxu``         one synthesis level, rows then cols   ``inv_level_2d_mxu_ref``
+``fwd_level_2d_mxu_padded``  11 on an input holding its halo       ``fwd_level_2d_mxu_padded_ref``
+``inv_level_2d_mxu_padded``  12 on padded subbands, no wrap        ``inv_level_2d_mxu_padded_ref``
+===========================  ====================================  =============================
+
+The padded entry points are the counterparts of the ``pad_fn=`` of
+``matmul_pallas.py:306 fwd_level_2d_mxu`` and ``:442 inv_level_2d_mxu``,
+which JAX's sharded DWT passes its ring halo exchange: the same bodies
+with index tables that do not wrap, on inputs the caller padded, on the
+spec of ``conv.padded_analysis_pass`` and ``conv.padded_synthesis_pass``
+(kernels 1's and 2's padded entry points, ``kernels/separable.py``, are
+their fd instances on float32).  No autograd: JAX's ``*_mxu_ad`` take no
+``pad_fn``.
 
 Schemes.  Each pass pairs constant taps f with data x; every product of
 two bf16 values is exact in float32 and every sum is float32.  h() rounds
@@ -54,8 +65,8 @@ import numpy as np
 import torch
 
 from ..core import conv, precision
-from ._launch import (InvPlan, dual_taps, fwd_plan, launch, on_cpu, poly_geo, ptr, rev,
-                      scheme_taps)
+from ._launch import (InvPlan, PadAxis, dual_taps, fwd_plan, launch, on_cpu, pad_axis,
+                      pad_positions, poly_geo, ptr, rev, scheme_taps)
 from ._launch import kernel_taps  # noqa: F401 -- the plan tests' model of the taps
 from .separable import _c, inv_level_launch_plan
 
@@ -181,28 +192,31 @@ def scheme_pass(x: torch.Tensor, filters: Sequence, scheme: str, pass_fn) -> tor
     return out
 
 
-def fwd2d_ref(x: torch.Tensor, filters, scheme: str, out_dtypes, **kw):
+def fwd2d_ref(x: torch.Tensor, filters, scheme: str, out_dtypes, pass_fn=None, **kw):
     """A 2D analysis level under ``scheme``: rows then columns with the
-    ``core/conv.py`` analysis pass (``kw``: its dilation / decimate) ->
-    (a, h, v, d), a in ``out_dtypes[0]``, h, v, d in ``out_dtypes[1]``."""
+    ``core/conv.py`` analysis pass (``kw``: its dilation / decimate), or
+    ``pass_fn(data, filters, axis)`` (a padded pass) -> (a, h, v, d), a in
+    ``out_dtypes[0]``, h, v, d in ``out_dtypes[1]``."""
     _check_scheme(scheme)
-    t = scheme_pass(x[:, None], filters, scheme,
-                    lambda d, f: conv.analysis_pass(d, f, axis=-2, **kw))
-    z = scheme_pass(t, filters, scheme, lambda d, f: conv.analysis_pass(d, f, axis=-1, **kw))
+    pass_fn = pass_fn or (lambda d, f, ax: conv.analysis_pass(d, f, axis=ax, **kw))
+    t = scheme_pass(x[:, None], filters, scheme, lambda d, f: pass_fn(d, f, -2))
+    z = scheme_pass(t, filters, scheme, lambda d, f: pass_fn(d, f, -1))
     a_dt, d_dt = out_dtypes
     # channels: lo rows lo cols, lo rows hi cols (V), hi rows lo cols (H), hi hi
     return (z[:, 0].to(a_dt).contiguous(), z[:, 2].to(d_dt).contiguous(),
             z[:, 1].to(d_dt).contiguous(), z[:, 3].to(d_dt).contiguous())
 
 
-def inv2d_ref(bands, filters, scheme: str, out_dtype, **kw) -> torch.Tensor:
+def inv2d_ref(bands, filters, scheme: str, out_dtype, pass_fn=None, **kw) -> torch.Tensor:
     """A 2D synthesis level under ``scheme``: (A, H) and (V, D) along the
     rows, then the two along the columns, with the ``core/conv.py``
-    synthesis pass (``kw``: its dilation / decimated)."""
+    synthesis pass (``kw``: its dilation / decimated), or ``pass_fn(data,
+    filters, axis)`` (a padded pass)."""
     _check_scheme(scheme)
+    pass_fn = pass_fn or (lambda u, f, ax: conv.synthesis_pass(u, f, axis=ax, **kw))
     z = torch.stack([t.float() for t in bands], dim=1)
-    t = scheme_pass(z, filters, scheme, lambda u, f: conv.synthesis_pass(u, f, axis=-2, **kw))
-    y = scheme_pass(t, filters, scheme, lambda u, f: conv.synthesis_pass(u, f, axis=-1, **kw))
+    t = scheme_pass(z, filters, scheme, lambda u, f: pass_fn(u, f, -2))
+    y = scheme_pass(t, filters, scheme, lambda u, f: pass_fn(u, f, -1))
     return y[:, 0].to(out_dtype).contiguous()
 
 
@@ -218,6 +232,27 @@ def inv_level_2d_mxu_ref(a, h, v, d, rec_lo, rec_hi, scheme: str,
     """One synthesis level, (B, Mr, Mc) subbands -> (B, 2Mr, 2Mc), rows
     then columns."""
     return inv2d_ref((a, h, v, d), (rec_lo, rec_hi), scheme, out_dtype)
+
+
+def fwd_level_2d_mxu_padded_ref(xp: torch.Tensor, dec_lo, dec_hi, scheme: str,
+                                out_dtypes=(F32, F32)):
+    """One analysis level on a (B, Rp, Cp) input that holds its extension
+    (on a shard: the odd extension and the ring halo), rows then columns
+    under ``scheme``, ``out[n] = sum_j frev[j] xp[2n + j]`` per axis, no
+    wrap -> (a, h, v, d), each (B, (Rp - hlen) // 2 + 1, (Cp - hlen) // 2 +
+    1), in ``out_dtypes`` as :func:`fwd_level_2d_mxu_ref`."""
+    return fwd2d_ref(xp, (dec_lo, dec_hi), scheme, out_dtypes, conv.padded_analysis_pass)
+
+
+def inv_level_2d_mxu_padded_ref(a, h, v, d, rec_lo, rec_hi, scheme: str, c0: Tuple[int, int],
+                                out_shape: Tuple[int, int], out_dtype=F32) -> torch.Tensor:
+    """One synthesis level on (B, Mr, Mc) subbands that hold their periodic
+    halo, rows then columns under ``scheme``, no wrap: along each axis
+    ``conv.padded_synthesis_pass`` at offset ``c0`` for ``out_shape``
+    outputs -> (B, *out_shape) in ``out_dtype``."""
+    return inv2d_ref((a, h, v, d), (rec_lo, rec_hi), scheme, out_dtype,
+                     lambda u, f, ax: conv.padded_synthesis_pass(u, f, ax, c0[ax + 2],
+                                                                 out_shape[ax + 2]))
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +304,86 @@ def fwd_level_2d_mxu(x: torch.Tensor, dec_lo, dec_hi, scheme: str, out_dtypes=(F
     return (a, *dets)
 
 
+def fwd_padded_launch_plan(B: int, Ro: int, Co: int, hlen: int, scheme: str) -> InvPlan:
+    """The launch of kernel 11's padded entry point for (Ro, Co) outputs:
+    kernel 11's plan for that output size (``fwd_launch_plan`` of a (2 Ro,
+    2 Co) image; in fd, kernel 1's padded plan)."""
+    return fwd_launch_plan(B, 2 * Ro, 2 * Co, hlen, scheme)
+
+
+def inv_padded_launch_plan(B: int, rows: PadAxis, cols: PadAxis, hlen: int,
+                           scheme: str) -> InvPlan:
+    """The launch of kernel 12's padded entry point: kernel 12's plan for
+    the coefficient positions its grid covers (``pad_positions``; in fd,
+    kernel 2's padded plan)."""
+    return inv_level_launch_plan(B, pad_positions(rows), pad_positions(cols), hlen, scheme)
+
+
+def fwd_level_2d_mxu_padded(xp: torch.Tensor, dec_lo, dec_hi, scheme: str,
+                            out_dtypes=(F32, F32)):
+    """One analysis level under ``scheme`` on a (B, Rp, Cp) input (float32
+    or bf16) that holds its extension -> (a, h, v, d), each (B, (Rp - hlen)
+    // 2 + 1, (Cp - hlen) // 2 + 1); a float32, h, v, d ``out_dtypes[1]``.
+    The kernel is kernel 11's body with index tables that do not wrap
+    (``csrc/swt_matmul.cu: fwd_padded_kernel``), on
+    ``fwd_padded_launch_plan``."""
+    if on_cpu(xp, dtypes=_DT):
+        return fwd_level_2d_mxu_padded_ref(xp, dec_lo, dec_hi, scheme, out_dtypes)
+    _check_scheme(scheme)
+    if out_dtypes[0] != F32:
+        raise ValueError("the banded-product kernels keep the approximation in float32")
+    B, R, C = xp.shape
+    tp = dual_taps((dec_lo, dec_hi), scheme, xp.device)
+    hlen = tp.shape[1]
+    ro, co = conv.padded_len(R, hlen), conv.padded_len(C, hlen)
+    pl = fwd_padded_launch_plan(B, ro, co, hlen, scheme)
+    a = torch.empty((B, ro, co), device=xp.device, dtype=F32)
+    dets = [torch.empty((B, ro, co), device=xp.device, dtype=out_dtypes[1]) for _ in range(3)]
+    launch("fwd_level_2d_mxu_padded", xp.device,
+           [ptr(xp), ptr(a), *map(ptr, dets), B, R, C, ro, co, ptr(tp), hlen,
+            SCHEMES.index(scheme), _is_bf16(xp.dtype), _is_bf16(out_dtypes[1]), pl.lr, pl.lc,
+            pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
+    return (a, *dets)
+
+
+def _check_bands(a, h, v, d, name: str) -> None:
+    if not a.shape == h.shape == v.shape == d.shape:
+        raise ValueError("the four subbands must have one shape")
+    if a.dtype != F32 or not h.dtype == v.dtype == d.dtype:
+        raise ValueError(f"{name} takes a float32 approximation and details of one dtype")
+
+
+def inv_level_2d_mxu_padded(a, h, v, d, rec_lo, rec_hi, scheme: str, c0: Tuple[int, int],
+                            out_shape: Tuple[int, int], out_dtype=F32) -> torch.Tensor:
+    """One synthesis level under ``scheme`` on a float32 (B, Mr, Mc)
+    approximation and h, v, d of one dtype that hold their periodic halo
+    -> (B, *out_shape) in ``out_dtype``, the spec of
+    :func:`inv_level_2d_mxu_padded_ref`.  The kernel is kernel 12's body
+    with index tables that do not wrap (``csrc/separable.cu:
+    inv_level_kernel<S, true, true>``), on ``inv_padded_launch_plan``.  Raises
+    where an output would read outside the subbands."""
+    if on_cpu(a, h, v, d, dtypes=_DT):
+        return inv_level_2d_mxu_padded_ref(a, h, v, d, rec_lo, rec_hi, scheme, c0, out_shape,
+                                           out_dtype)
+    _check_scheme(scheme)
+    _check_bands(a, h, v, d, "inv_level_2d_mxu_padded")
+    B, mr, mc = a.shape
+    tp = dual_taps((rec_lo, rec_hi), scheme, a.device)
+    hlen = tp.shape[1]
+    conv.check_padded_synthesis(mr, hlen, c0[0], out_shape[0])
+    conv.check_padded_synthesis(mc, hlen, c0[1], out_shape[1])
+    rows, cols = (pad_axis(hlen, c, n) for c, n in zip(c0, out_shape))
+    pl = inv_padded_launch_plan(B, rows, cols, hlen, scheme)
+    pad = np.array([*rows, *cols], dtype=np.int32)
+    geo = poly_geo(hlen)
+    out = torch.empty((B, *out_shape), device=a.device, dtype=out_dtype)
+    launch("inv_level_2d_mxu_padded", a.device,
+           [*map(ptr, (a, h, v, d, out)), B, mr, mc, ptr(pad), ptr(tp), hlen, ptr(geo),
+            SCHEMES.index(scheme), _is_bf16(h.dtype), _is_bf16(out_dtype), pl.lr, pl.lc, pl.nt,
+            pl.threads, *pl.grid, pl.smem])
+    return out
+
+
 def inv_level_2d_mxu(a, h, v, d, rec_lo, rec_hi, scheme: str, out_dtype=F32) -> torch.Tensor:
     """One synthesis level under ``scheme``: a float32 (B, Mr, Mc)
     approximation and h, v, d of one dtype (float32 or bf16) ->
@@ -278,11 +393,7 @@ def inv_level_2d_mxu(a, h, v, d, rec_lo, rec_hi, scheme: str, out_dtype=F32) -> 
     if on_cpu(a, h, v, d, dtypes=_DT):
         return inv_level_2d_mxu_ref(a, h, v, d, rec_lo, rec_hi, scheme, out_dtype)
     _check_scheme(scheme)
-    if not a.shape == h.shape == v.shape == d.shape:
-        raise ValueError("the four subbands must have one shape")
-    if a.dtype != F32 or not h.dtype == v.dtype == d.dtype:
-        raise ValueError("inv_level_2d_mxu takes a float32 approximation and details "
-                         "of one dtype")
+    _check_bands(a, h, v, d, "inv_level_2d_mxu")
     B, mr, mc = a.shape
     tp = dual_taps((rec_lo, rec_hi), scheme, a.device)
     hlen = tp.shape[1]

@@ -16,7 +16,16 @@ wrapper                     computes                                kernel
 ``swt_fwd_level_1d_mxu``    a-trous analysis at dilation f          analysis
 ``inv_level_1d_mxu``        polyphase synthesis, 2 (B, M) -> (B, 2M)  synthesis
 ``swt_inv_level_1d_mxu``    a-trous synthesis, one 1/2 in the taps  synthesis
+``*_mxu_padded``            each of the four on an input holding    the same
+                            its halo (the ring's), no wrap
 ==========================  ======================================  ==============
+
+The ``*_mxu_padded`` wrappers are the counterparts of the ``pad_fn=`` of
+the four JAX wrappers (``mxu1d_pallas.py:211, 236, 272, 301``), which
+JAX's sharded 1D transforms pass their ring halo exchange: the same
+bodies with an index table that does not wrap, on the spec of the
+``conv.padded_*`` passes (kernels 7-10's padded entry points,
+``kernels/batched1d.py``, are their fd instances on float32).
 
 The low band is float32; the high band is float32 or bf16 (the bf16
 tiers' detail dtype).  The a-trous synthesis folds its 1/2 into the taps
@@ -36,9 +45,9 @@ import numpy as np
 import torch
 
 from ..core import conv
-from ._launch import (ROW_STRIP, InvPlan, align16, axis_blocks, block_target, cdiv, check_span,
-                      dilation, launch, on_cpu, pick_plan, poly_geo, ptr, rev, stage_bytes,
-                      temp_pitch)
+from ._launch import (ROW_STRIP, InvPlan, PadAxis, align16, axis_blocks, block_target, cdiv,
+                      check_span, dilation, launch, on_cpu, pad_axis, pad_positions, pick_plan,
+                      poly_geo, ptr, rev, stage_bytes, temp_pitch)
 from .matmul import (_DT, BF16, F32, MXU_COLS, MXU_MAX_HLEN, SCHEMES, _check_scheme, _is_bf16,
                      dual_taps, inv_plan, mode_out_dtypes, mode_scheme, scheme_pass, swt_scheme)
 
@@ -70,17 +79,21 @@ def _half(f) -> np.ndarray:
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _fwd_ref(x, dec_lo, dec_hi, scheme, hi_dtype, **kw):
+def _fwd_ref(x, dec_lo, dec_hi, scheme, hi_dtype, pass_fn=None, **kw):
+    """The analysis under ``scheme`` with the ``core/conv.py`` pass
+    (``kw``: its dilation / decimate) or ``pass_fn(data, filters, axis)``."""
     _check_scheme(scheme)
-    z = scheme_pass(x[:, None, None], (dec_lo, dec_hi), scheme,
-                    lambda d, f: conv.analysis_pass(d, f, axis=-1, **kw))
+    pass_fn = pass_fn or (lambda d, f, ax: conv.analysis_pass(d, f, axis=ax, **kw))
+    z = scheme_pass(x[:, None, None], (dec_lo, dec_hi), scheme, lambda d, f: pass_fn(d, f, -1))
     return z[:, 0, 0].contiguous(), z[:, 1, 0].to(hi_dtype).contiguous()
 
 
-def _inv_ref(lo, hi, filters, scheme, out_dtype, **kw):
+def _inv_ref(lo, hi, filters, scheme, out_dtype, pass_fn=None, **kw):
+    """The synthesis under ``scheme``, its pass as :func:`_fwd_ref`'s."""
     _check_scheme(scheme)
+    pass_fn = pass_fn or (lambda u, f, ax: conv.synthesis_pass(u, f, axis=ax, **kw))
     z = torch.stack([lo.float(), hi.float()], dim=1)[:, :, None]
-    y = scheme_pass(z, filters, scheme, lambda u, f: conv.synthesis_pass(u, f, axis=-1, **kw))
+    y = scheme_pass(z, filters, scheme, lambda u, f: pass_fn(u, f, -1))
     return y[:, 0, 0].to(out_dtype).contiguous()
 
 
@@ -104,6 +117,40 @@ def swt_inv_level_1d_mxu_ref(lo, hi, rec_lo, rec_hi, level: int, scheme: str, ou
     """A-trous synthesis with one 1/2, 2 x (B, N) -> (B, N)."""
     return _inv_ref(lo, hi, (_half(rec_lo), _half(rec_hi)), scheme, out_dtype,
                     dilation=dilation(level), decimated=False)
+
+
+def fwd_level_1d_mxu_padded_ref(xp, dec_lo, dec_hi, scheme: str, hi_dtype=F32):
+    """Decimated analysis on (B, Np) signals that hold their extension,
+    ``out[n] = sum_j frev[j] xp[2n + j]``, no wrap -> (lo float32, hi
+    ``hi_dtype``), each (B, (Np - hlen) // 2 + 1)."""
+    return _fwd_ref(xp, dec_lo, dec_hi, scheme, hi_dtype, conv.padded_analysis_pass)
+
+
+def swt_fwd_level_1d_mxu_padded_ref(xp, dec_lo, dec_hi, level: int, scheme: str,
+                                    hi_dtype=F32):
+    """A-trous analysis on (B, Np) signals that hold their halo, ``out[n] =
+    sum_j frev[j] xp[n + j f]``, no wrap -> two (B, Np - (hlen - 1) f)."""
+    f = dilation(level)
+    return _fwd_ref(xp, dec_lo, dec_hi, scheme, hi_dtype,
+                    lambda d, fl, ax: conv.padded_atrous_analysis_pass(d, fl, ax, f))
+
+
+def inv_level_1d_mxu_padded_ref(lo, hi, rec_lo, rec_hi, scheme: str, c0: int, out_len: int,
+                                out_dtype=F32):
+    """Polyphase synthesis of two (B, M) bands that hold their periodic
+    halo, no wrap: ``conv.padded_synthesis_pass`` at offset ``c0`` -> (B,
+    out_len)."""
+    return _inv_ref(lo, hi, (rec_lo, rec_hi), scheme, out_dtype,
+                    lambda u, fl, ax: conv.padded_synthesis_pass(u, fl, ax, c0, out_len))
+
+
+def swt_inv_level_1d_mxu_padded_ref(lo, hi, rec_lo, rec_hi, level: int, scheme: str,
+                                    out_dtype=F32):
+    """A-trous synthesis with one 1/2 of two (B, Mp) bands that hold their
+    halo, no wrap -> (B, Mp - (hlen - 1) f)."""
+    f = dilation(level)
+    return _inv_ref(lo, hi, (_half(rec_lo), _half(rec_hi)), scheme, out_dtype,
+                    lambda u, fl, ax: conv.padded_atrous_synthesis_pass(u, fl, ax, f))
 
 
 # ---------------------------------------------------------------------------
@@ -235,6 +282,32 @@ def fwd1d_launch_plan(B: int, N: int, hlen: int, f: int, scheme: str,
     return pick_plan(cands, block_target(1, B, n_out))
 
 
+def fwd1d_padded_launch_plan(B: int, n_out: int, hlen: int, scheme: str) -> InvPlan:
+    """Kernel 15's decimated plan for ``n_out`` outputs a signal (in fd,
+    kernel 7's padded plan)."""
+    return fwd1d_launch_plan(B, 2 * n_out, hlen, 1, scheme, True)
+
+
+def inv1d_padded_launch_plan(B: int, pa: PadAxis, hlen: int, scheme: str) -> InvPlan:
+    """Kernel 16's polyphase plan for the positions the padded grid covers
+    (``pad_positions``; in fd, kernel 8's padded plan)."""
+    return inv1d_launch_plan(B, pad_positions(pa), hlen, 1, scheme, True)
+
+
+def swt_fwd1d_padded_launch_plan(B: int, n_out: int, hlen: int, f: int,
+                                 scheme: str) -> InvPlan:
+    """Kernel 15's a-trous plan for ``n_out`` outputs a signal (in fd,
+    kernel 9's padded plan)."""
+    return fwd1d_launch_plan(B, n_out, hlen, f, scheme, False)
+
+
+def swt_inv1d_padded_launch_plan(B: int, n_out: int, hlen: int, f: int,
+                                 scheme: str) -> InvPlan:
+    """Kernel 16's a-trous plan for ``n_out`` outputs a signal (in fd,
+    kernel 10's padded plan)."""
+    return inv1d_launch_plan(B, n_out, hlen, f, scheme, False)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -258,11 +331,7 @@ def _fwd_launch(name, x, filters, scheme, hi_dtype, f, cen, decimated: bool):
 
 def _inv_launch(name, lo, hi, filters, scheme, out_dtype, f, cen, decimated: bool):
     _check_scheme(scheme)
-    if lo.shape != hi.shape:
-        raise ValueError(f"the two bands must have one shape, got {tuple(lo.shape)} "
-                         f"and {tuple(hi.shape)}")
-    if lo.dtype != F32:
-        raise ValueError("the banded-product kernels take a float32 low band")
+    _check_pair(lo, hi)
     B, m = lo.shape
     tp = dual_taps(filters, scheme, lo.device)
     hlen = tp.shape[1]
@@ -318,6 +387,119 @@ def swt_inv_level_1d_mxu(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, lev
     f = dilation(level)
     return _inv_launch("swt_inv_level_1d_mxu", lo, hi, (_half(rec_lo), _half(rec_hi)),
                        scheme, out_dtype, f, conv.swt_inv_center(len(rec_lo)) * f, False)
+
+
+def _check_pair(lo: torch.Tensor, hi: torch.Tensor) -> None:
+    if lo.shape != hi.shape:
+        raise ValueError(f"the two bands must have one shape, got {tuple(lo.shape)} "
+                         f"and {tuple(hi.shape)}")
+    if lo.dtype != F32:
+        raise ValueError("the banded-product kernels take a float32 low band")
+
+
+def fwd_level_1d_mxu_padded(xp: torch.Tensor, dec_lo, dec_hi, scheme: str, hi_dtype=F32):
+    """Decimated analysis under ``scheme`` on (B, Np) signals (float32 or
+    bf16) that hold their extension -> (lo, hi), each (B, (Np - hlen) // 2
+    + 1); lo float32, hi ``hi_dtype``.  Kernel 15's decimated body with an
+    index table that does not wrap (``csrc/mxu1d.cu:
+    fwd1d_strip_kernel<S, 2, true>``), on ``fwd1d_padded_launch_plan``."""
+    if on_cpu(xp, ndim=2, dtypes=_DT):
+        return fwd_level_1d_mxu_padded_ref(xp, dec_lo, dec_hi, scheme, hi_dtype)
+    _check_scheme(scheme)
+    B, n = xp.shape
+    tp = dual_taps((dec_lo, dec_hi), scheme, xp.device)
+    hlen = tp.shape[1]
+    n_out = conv.padded_len(n, hlen)
+    pl = fwd1d_padded_launch_plan(B, n_out, hlen, scheme)
+    lo = torch.empty((B, n_out), device=xp.device, dtype=F32)
+    hi = torch.empty((B, n_out), device=xp.device, dtype=hi_dtype)
+    launch("fwd_level_1d_mxu_padded", xp.device,
+           [ptr(xp), ptr(lo), ptr(hi), B, n, n_out, ptr(tp), hlen, SCHEMES.index(scheme),
+            _is_bf16(xp.dtype), _is_bf16(hi_dtype), pl.lc, pl.gc, pl.nt, pl.threads, *pl.grid,
+            pl.smem])
+    return lo, hi
+
+
+def swt_fwd_level_1d_mxu_padded(xp: torch.Tensor, dec_lo, dec_hi, level: int, scheme: str,
+                                hi_dtype=F32):
+    """A-trous analysis under ``scheme`` on (B, Np) signals (float32 or
+    bf16) that hold their halo (``kernels.swt_fwd_halo``) -> (lo, hi), each
+    (B, Np - (hlen - 1) f).  Kernel 15's a-trous body with an index table
+    that does not wrap, on ``swt_fwd1d_padded_launch_plan``."""
+    if on_cpu(xp, ndim=2, dtypes=_DT):
+        return swt_fwd_level_1d_mxu_padded_ref(xp, dec_lo, dec_hi, level, scheme, hi_dtype)
+    _check_scheme(scheme)
+    f = dilation(level)
+    B, n = xp.shape
+    tp = dual_taps((dec_lo, dec_hi), scheme, xp.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
+    n_out = conv.padded_atrous_len(n, hlen, f)
+    pl = swt_fwd1d_padded_launch_plan(B, n_out, hlen, f, scheme)
+    lo = torch.empty((B, n_out), device=xp.device, dtype=F32)
+    hi = torch.empty((B, n_out), device=xp.device, dtype=hi_dtype)
+    launch("swt_fwd_level_1d_mxu_padded", xp.device,
+           [ptr(xp), ptr(lo), ptr(hi), B, n, n_out, ptr(tp), hlen, f, SCHEMES.index(scheme),
+            _is_bf16(xp.dtype), _is_bf16(hi_dtype), pl.lc, pl.gc, pl.nt, pl.threads, *pl.grid,
+            pl.smem])
+    return lo, hi
+
+
+def inv_level_1d_mxu_padded(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, scheme: str,
+                            c0: int, out_len: int, out_dtype=F32) -> torch.Tensor:
+    """Polyphase synthesis under ``scheme`` of a float32 low band and a
+    float32 or bf16 high band, each (B, M), that hold their periodic halo
+    -> (B, out_len) in ``out_dtype``, the spec of
+    :func:`inv_level_1d_mxu_padded_ref`.  Kernel 16's polyphase body with
+    an index table that does not wrap (``csrc/mxu1d.cu:
+    inv1d_strip_kernel<S, 2, true>``), on ``inv1d_padded_launch_plan``.
+    Raises where an output would read outside the bands."""
+    if on_cpu(lo, hi, ndim=2, dtypes=_DT):
+        return inv_level_1d_mxu_padded_ref(lo, hi, rec_lo, rec_hi, scheme, c0, out_len,
+                                           out_dtype)
+    _check_scheme(scheme)
+    _check_pair(lo, hi)
+    B, m = lo.shape
+    tp = dual_taps((rec_lo, rec_hi), scheme, lo.device)
+    hlen = tp.shape[1]
+    conv.check_padded_synthesis(m, hlen, c0, out_len)
+    pa = pad_axis(hlen, c0, out_len)
+    pl = inv1d_padded_launch_plan(B, pa, hlen, scheme)
+    pad = np.array(pa, dtype=np.int32)
+    geo = poly_geo(hlen)
+    out = torch.empty((B, out_len), device=lo.device, dtype=out_dtype)
+    launch("inv_level_1d_mxu_padded", lo.device,
+           [ptr(lo), ptr(hi), ptr(out), B, m, ptr(pad), ptr(tp), hlen, ptr(geo),
+            SCHEMES.index(scheme), _is_bf16(hi.dtype), _is_bf16(out_dtype), pl.lc, pl.gc, pl.nt,
+            pl.threads, *pl.grid, pl.smem])
+    return out
+
+
+def swt_inv_level_1d_mxu_padded(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi,
+                                level: int, scheme: str, out_dtype=F32) -> torch.Tensor:
+    """A-trous synthesis under ``scheme`` of a float32 low band and a
+    float32 or bf16 high band, each (B, Mp), that hold their halo
+    (``kernels.swt_inv_halo``) -> (B, Mp - (hlen - 1) f) in ``out_dtype``,
+    the one 1/2 folded into the taps.  Kernel 16's a-trous body with an
+    index table that does not wrap, on ``swt_inv1d_padded_launch_plan``."""
+    if on_cpu(lo, hi, ndim=2, dtypes=_DT):
+        return swt_inv_level_1d_mxu_padded_ref(lo, hi, rec_lo, rec_hi, level, scheme,
+                                               out_dtype)
+    _check_scheme(scheme)
+    _check_pair(lo, hi)
+    f = dilation(level)
+    B, m = lo.shape
+    tp = dual_taps((_half(rec_lo), _half(rec_hi)), scheme, lo.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
+    n_out = conv.padded_atrous_len(m, hlen, f)
+    pl = swt_inv1d_padded_launch_plan(B, n_out, hlen, f, scheme)
+    out = torch.empty((B, n_out), device=lo.device, dtype=out_dtype)
+    launch("swt_inv_level_1d_mxu_padded", lo.device,
+           [ptr(lo), ptr(hi), ptr(out), B, m, n_out, ptr(tp), hlen, f, SCHEMES.index(scheme),
+            _is_bf16(hi.dtype), _is_bf16(out_dtype), pl.lc, pl.gc, pl.nt, pl.threads, *pl.grid,
+            pl.smem])
+    return out
 
 
 # ---------------------------------------------------------------------------

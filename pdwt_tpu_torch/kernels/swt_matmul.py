@@ -8,14 +8,26 @@ FIR is still a banded matrix product, its band with stride
 versions here compute it under a compute scheme of ``kernels/matmul.py``
 (its docstring states each scheme's arithmetic):
 
-==========================  ==========================================  ======================
-wrapper                     computes                                    plain version
-==========================  ==========================================  ======================
-``swt_fwd_level_2d_mxu``    one a-trous analysis level, rows then cols  ``*_ref``
-``swt_inv_level_2d_mxu``    one a-trous synthesis level, rows then      ``*_ref``
-                            cols, with an optional soft/hard/garrote
-                            threshold of H, V, D fused
-==========================  ==========================================  ======================
+=================================  ==========================================  ===========
+wrapper                            computes                                    plain
+=================================  ==========================================  ===========
+``swt_fwd_level_2d_mxu``           one a-trous analysis level, rows then cols  ``*_ref``
+``swt_inv_level_2d_mxu``           one a-trous synthesis level, rows then      ``*_ref``
+                                   cols, with an optional soft/hard/garrote
+                                   threshold of H, V, D fused
+``swt_fwd_level_2d_mxu_padded``    13 on a shard holding its halo, no wrap     ``*_ref``
+``swt_inv_level_2d_mxu_padded``    14 on subbands holding their halo, no       ``*_ref``
+                                   wrap, no threshold
+=================================  ==========================================  ===========
+
+The padded entry points are the counterparts of the ``pad_fn=`` of
+``swt_matmul_pallas.py:252 swt_fwd_level_2d_mxu`` and ``:402
+swt_inv_level_2d_mxu``, which JAX's sharded SWT passes its ring halo
+exchange: the same bodies with index tables that do not wrap, on a shard
+wrapped by its bare periodic support (``kernels.swt_fwd_halo`` /
+``swt_inv_halo``), on the spec of ``conv.padded_atrous_analysis_pass``
+and ``conv.padded_atrous_synthesis_pass`` (kernels 5's and 6's padded
+entry points, ``kernels/swt.py``, are their fd instances on float32).
 
 The synthesis folds its 1/2 per pass into the taps before they are
 rounded (``swt_matmul_pallas.py:93-108``).  The fused threshold is the TPU
@@ -44,9 +56,9 @@ from ._launch import (COL_STRIP, PLAN_TILES, ROW_STRIP, InvPlan, align16, axis_b
                       block_target, cdiv, check_span, consecutive_columns, dilation, fwd_plan,
                       launch, on_cpu, pick_plan, plan_threads, ptr, rev, stage_bytes,
                       temp_pitch)
-from .matmul import (_DT, BF16, F32, MXU_MAX_HLEN, SCHEMES, _check_scheme, _is_bf16,
-                     dual_taps, fwd2d_ref, inv2d_ref, mode_out_dtypes, swt_bf16_scheme,
-                     swt_scheme, tile_candidates)
+from .matmul import (_DT, BF16, F32, MXU_MAX_HLEN, SCHEMES, _check_bands, _check_scheme,
+                     _is_bf16, dual_taps, fwd2d_ref, inv2d_ref, mode_out_dtypes,
+                     swt_bf16_scheme, swt_scheme, tile_candidates)
 from .mxu1d import _half
 from .separable import _c
 from .swt import THRESH_CODES, Threshold, _beta_buffer, _thresh_vjp_factors
@@ -118,6 +130,29 @@ def swt_inv_level_2d_mxu_ref(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str
                      dilation=dilation(level), decimated=False)
 
 
+def swt_fwd_level_2d_mxu_padded_ref(xp: torch.Tensor, dec_lo, dec_hi, level: int, scheme: str,
+                                    out_dtypes=(F32, F32)):
+    """One a-trous analysis level on a (B, Rp, Cp) shard that holds its
+    halo, rows then columns under ``scheme``, ``out[n] = sum_j frev[j] xp[n
+    + j f]`` per axis, no wrap -> (a, h, v, d), each (B, Rp - (hlen - 1) f,
+    Cp - (hlen - 1) f), in ``out_dtypes`` as
+    :func:`swt_fwd_level_2d_mxu_ref`."""
+    f = dilation(level)
+    return fwd2d_ref(xp, (dec_lo, dec_hi), scheme, out_dtypes,
+                     lambda d, fl, ax: conv.padded_atrous_analysis_pass(d, fl, ax, f))
+
+
+def swt_inv_level_2d_mxu_padded_ref(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str,
+                                    out_dtype=F32) -> torch.Tensor:
+    """One a-trous synthesis level on (B, Rp, Cp) subbands that hold their
+    halo, 1/2 per pass in the taps, rows then columns under ``scheme``, no
+    wrap, no threshold -> (B, Rp - (hlen - 1) f, Cp - (hlen - 1) f) in
+    ``out_dtype``."""
+    f = dilation(level)
+    return inv2d_ref((a, h, v, d), (_half(rec_lo), _half(rec_hi)), scheme, out_dtype,
+                     lambda u, fl, ax: conv.padded_atrous_synthesis_pass(u, fl, ax, f))
+
+
 # ---------------------------------------------------------------------------
 # launch plans of the two kernels (csrc/swt_matmul.cu)
 # ---------------------------------------------------------------------------
@@ -171,6 +206,21 @@ def swt_inv_launch_plan(B: int, R: int, C: int, hlen: int, f: int, scheme: str) 
     return pick_plan(cands, block_target(B, R, C))
 
 
+def swt_fwd_padded_launch_plan(B: int, Ro: int, Co: int, hlen: int, f: int,
+                               scheme: str) -> InvPlan:
+    """The launch of kernel 13's padded entry point for (Ro, Co) outputs:
+    kernel 13's plan for an (Ro, Co) image (in fd, kernel 5's padded
+    plan)."""
+    return swt_fwd_launch_plan(B, Ro, Co, hlen, f, scheme)
+
+
+def swt_inv_padded_launch_plan(B: int, R: int, C: int, hlen: int, f: int,
+                               scheme: str) -> InvPlan:
+    """The launch of kernel 14's padded entry point for an (R, C) output:
+    kernel 14's plan for (R, C) subbands (in fd, kernel 6's padded plan)."""
+    return swt_inv_launch_plan(B, R, C, hlen, f, scheme)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -217,11 +267,7 @@ def swt_inv_level_2d_mxu(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str, ou
         return swt_inv_level_2d_mxu_ref(a, h, v, d, rec_lo, rec_hi, level, scheme, out_dtype,
                                         threshold)
     _check_scheme(scheme)
-    if not a.shape == h.shape == v.shape == d.shape:
-        raise ValueError("the four subbands must have one shape")
-    if a.dtype != F32 or not h.dtype == v.dtype == d.dtype:
-        raise ValueError("swt_inv_level_2d_mxu takes a float32 approximation and details "
-                         "of one dtype")
+    _check_bands(a, h, v, d, "swt_inv_level_2d_mxu")
     f = dilation(level)
     taps = dual_taps((_half(rec_lo), _half(rec_hi)), scheme, a.device)
     hlen = taps.shape[1]
@@ -235,6 +281,64 @@ def swt_inv_level_2d_mxu(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str, ou
             conv.swt_inv_center(hlen), SCHEMES.index(scheme), _is_bf16(h.dtype),
             _is_bf16(out_dtype), THRESH_CODES[mode], None if buf is None else ptr(buf),
             pl.lr, pl.lc, pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
+    return out
+
+
+def swt_fwd_level_2d_mxu_padded(xp: torch.Tensor, dec_lo, dec_hi, level: int, scheme: str,
+                                out_dtypes=(F32, F32)):
+    """One a-trous analysis level under ``scheme`` on a (B, Rp, Cp) shard
+    (float32 or bf16) that holds its halo (``kernels.swt_fwd_halo``) ->
+    (a, h, v, d), each (B, Rp - (hlen - 1) f, Cp - (hlen - 1) f); a float32,
+    h, v, d ``out_dtypes[1]``.  The kernel is kernel 13's body with index
+    tables that do not wrap (``csrc/swt_matmul.cu: swt_fwd_padded_kernel``),
+    on ``swt_fwd_padded_launch_plan``."""
+    if on_cpu(xp, dtypes=_DT):
+        return swt_fwd_level_2d_mxu_padded_ref(xp, dec_lo, dec_hi, level, scheme, out_dtypes)
+    _check_scheme(scheme)
+    if out_dtypes[0] != F32:
+        raise ValueError("the banded-product kernels keep the approximation in float32")
+    f = dilation(level)
+    tp = dual_taps((dec_lo, dec_hi), scheme, xp.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
+    B, R, C = xp.shape
+    ro, co = conv.padded_atrous_len(R, hlen, f), conv.padded_atrous_len(C, hlen, f)
+    pl = swt_fwd_padded_launch_plan(B, ro, co, hlen, f, scheme)
+    a = torch.empty((B, ro, co), device=xp.device, dtype=F32)
+    dets = [torch.empty((B, ro, co), device=xp.device, dtype=out_dtypes[1]) for _ in range(3)]
+    launch("swt_fwd_level_2d_mxu_padded", xp.device,
+           [ptr(xp), ptr(a), *map(ptr, dets), B, R, C, ro, co, ptr(tp), hlen, f,
+            SCHEMES.index(scheme), _is_bf16(xp.dtype), _is_bf16(out_dtypes[1]), pl.lr, pl.lc,
+            pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
+    return (a, *dets)
+
+
+def swt_inv_level_2d_mxu_padded(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str,
+                                out_dtype=F32) -> torch.Tensor:
+    """One a-trous synthesis level under ``scheme`` on a float32 (B, Rp,
+    Cp) approximation and h, v, d of one dtype that hold their halo
+    (``kernels.swt_inv_halo``) -> (B, Rp - (hlen - 1) f, Cp - (hlen - 1) f)
+    in ``out_dtype``, the 1/2 per pass folded into the taps, no threshold.
+    The kernel is kernel 14's body with index tables that do not wrap
+    (``csrc/swt_matmul.cu: swt_inv_mxu_kernel<S, true>``), on
+    ``swt_inv_padded_launch_plan``."""
+    if on_cpu(a, h, v, d, dtypes=_DT):
+        return swt_inv_level_2d_mxu_padded_ref(a, h, v, d, rec_lo, rec_hi, level, scheme,
+                                               out_dtype)
+    _check_scheme(scheme)
+    _check_bands(a, h, v, d, "swt_inv_level_2d_mxu_padded")
+    f = dilation(level)
+    tp = dual_taps((_half(rec_lo), _half(rec_hi)), scheme, a.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
+    B, Ri, Ci = a.shape
+    R, C = conv.padded_atrous_len(Ri, hlen, f), conv.padded_atrous_len(Ci, hlen, f)
+    pl = swt_inv_padded_launch_plan(B, R, C, hlen, f, scheme)
+    out = torch.empty((B, R, C), device=a.device, dtype=out_dtype)
+    launch("swt_inv_level_2d_mxu_padded", a.device,
+           [*map(ptr, (a, h, v, d, out)), B, Ri, Ci, R, C, ptr(tp), hlen, f,
+            SCHEMES.index(scheme), _is_bf16(h.dtype), _is_bf16(out_dtype), pl.lr, pl.lc, pl.gc,
+            pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
     return out
 
 

@@ -11,27 +11,44 @@ is sharded over ``data_axis``; the rows and columns of an image over
 
 Every level exchanges the periodic halo its filter window needs with the
 ring neighbours (``parallel/halo.py``) and runs on the local shard, JAX's
-local Pallas composition (``sharded.py:181-349, 441-615``) whatever the
-device: float32 with an even filter on the padded entry points of the
-card's kernels (decimated 2D: kernels 1 and 2; a-trous 2D: 5 and 6;
-decimated 1D: 7 and 8; a-trous 1D: 9 and 10), which launch their CUDA
-kernels on a CUDA shard and run their plain versions on a CPU shard; every
-other level (an odd filter, float64 on the CPU) the conv passes with the
-ring ``pad_fn``, JAX's own route (``sharded.py:125-131, 247-256``).  The
-decimated pads are the periodization branches of
-``core/separable.py: fwd_mode_pad`` and ``inv_mode_pad`` with the ring in
-place of ``wrap_pad``; the a-trous halos are the bare periodic support
-(``kernels.swt_fwd_halo``, ``swt_inv_halo``).  An odd size on an unsharded
-axis is extended as on one card.
+local Pallas composition (``sharded.py:101-349, 441-615``) whatever the
+device.  The route of each level is decided before it runs, from the
+shard's geometry, as JAX's per-level dispatch decides it:
+
+* in an MXU mode (``mxu_mode`` for the decimated transforms: a bf16
+  input, or float32 under ``mixed``; ``_swt_mxu_mode`` for the stationary
+  ones, which run ``mixed`` exact), a level whose shard the route rule
+  accepts (``kernels.mxu_route_2d``, ``mxu_route_swt_2d``,
+  ``mxu_route_1d``: JAX's ``_pick_*_tiles`` gates on the local shard)
+  runs the padded entry point of its banded-product kernel (decimated 2D:
+  11 and 12; a-trous 2D: 13 and 14; batched 1D: 15 and 16) in the scheme
+  of ``kernels.matmul``'s rules (``mode_scheme``, ``inv_plan``,
+  ``swt_scheme``, ``swt2d_inv_plan``, ``mxu1d._swt_inv_plan``), its halo
+  exchanged in the dtype the level reads (bf16 halos for a bf16 level);
+* every other level runs float32: the padded entry points of the exact
+  kernels (decimated 2D: 1 and 2; a-trous 2D: 5 and 6; decimated 1D: 7
+  and 8; a-trous 1D: 9 and 10) with an even filter, the conv passes with
+  the ring ``pad_fn`` otherwise (an odd filter, float64 on the CPU; JAX's
+  own route, ``sharded.py:125-131, 247-256``), its inputs cast to float32
+  in an MXU mode and its outputs cast as JAX casts them (bf16 details
+  forward, bf16 at the last inverse level under bf16).
+
+The entry points launch their CUDA kernels on a CUDA shard and run their
+plain versions on a CPU shard; no level falls back to another route, and
+a refused launch raises.  The decimated pads are the periodization
+branches of ``core/separable.py: fwd_mode_pad`` and ``inv_mode_pad`` with
+the ring in place of ``wrap_pad``; the a-trous halos are the bare
+periodic support (``kernels.swt_fwd_halo``, ``swt_inv_halo``), not JAX's
+Mosaic margins.  An odd size on an unsharded axis is extended as on one
+card (its decimated forward level runs float32, as JAX's does).
 
 A decimated transform needs every sharded size divisible by ``n_shards *
 2^levels`` (each shard's sizes stay even at every level and the stride-2
 phase is the same on every shard), the SWT by ``n_shards``; both raise
-JAX's errors before any exchange.  An MXU mode (a bf16 input, or float32
-under ``mixed`` for the decimated DWT) raises ``NotImplementedError``:
-those levels would run the banded-product kernels with the ring as their
-pad, still to port (ROADMAP queue 2, part A2, row 6).  ``mixed`` runs the
-SWT exact, as JAX does.  No level falls back to another route.
+JAX's errors before any exchange.  Since the route rule sees the shard,
+a level may take the banded-product kernel on one card and not on the
+shards (a 1024² shard's level 4 has 64-wide subbands): the sharded tiers
+match the single card within the tier's tolerance, as JAX's do.
 """
 from __future__ import annotations
 
@@ -41,10 +58,13 @@ import torch
 
 from .. import kernels
 from ..core import conv
-from ..core.separable import (Coeffs1D, Coeffs2D, _swt_mxu_mode, check_supported,
+from ..core.separable import (BF16, F32, Coeffs1D, Coeffs2D, _swt_mxu_mode, check_supported,
                               fwd_mode_pad, inv_mode_pad, mxu_mode)
 from ..core.shapes import level_sizes
 from ..filters import Wavelet
+from ..kernels.matmul import inv_plan, mode_out_dtypes, mode_scheme, swt_scheme
+from ..kernels.mxu1d import _swt_inv_plan
+from ..kernels.swt_matmul import swt2d_inv_plan
 from .halo import make_pad_fn
 
 PER = "periodization"
@@ -85,14 +105,6 @@ def _validate2d(shape, mesh, data_axis, row_axis, col_axis, levels, swt):
         _check_div("row", shape[-2], _axis_size(mesh, row_axis), levels, swt)
     if col_axis is not None:
         _check_div("col", shape[-1], _axis_size(mesh, col_axis), levels, swt)
-
-
-def _check_mxu(mode: Optional[str]) -> None:
-    if mode is not None:
-        raise NotImplementedError(
-            f"the sharded transforms under an MXU mode ({mode!r}: a bf16 input, or float32 "
-            "under 'mixed' for the decimated DWT) run the banded-product kernels with the ring "
-            "halo as their pad, which come with ROADMAP queue 2, part A2, row 6")
 
 
 # ---------------------------------------------------------------------------
@@ -193,31 +205,67 @@ def _padded_route(a: torch.Tensor, wav: Wavelet) -> bool:
     return a.dtype == torch.float32 and wav.hlen % 2 == 0
 
 
-def _fwd_level_2d_local(a, wav, pad_fn):
-    """One decimated 2D level on (B, r, c) -> the raw four subbands."""
+def _norm(mode: Optional[str], a, *dets):
+    """A forward level's outputs in an MXU mode's dtypes (JAX's
+    ``_norm_mxu_out``): under bf16 a float32 approximation and bf16
+    details; as they are otherwise."""
+    if mode == "bf16":
+        return (a.float(), *(t.to(BF16) for t in dets))
+    return (a, *dets)
+
+
+def _fwd_level_2d_local(a, wav, mode, pad_fn):
+    """One decimated 2D level on (B, r, c) -> the raw four subbands: in an
+    MXU mode, kernel 11's padded entry point where the route rule accepts
+    the shard's even (r, c); else the float32 padded kernel 1 (or the conv
+    passes), its outputs cast as JAX casts them."""
     dec, hlen = (wav.dec_lo, wav.dec_hi), wav.hlen
+    r, c = a.shape[-2:]
+    if mode and r % 2 == 0 and c % 2 == 0 and kernels.mxu_route_2d(r // 2, c // 2, hlen):
+        xp = fwd_mode_pad(fwd_mode_pad(a, -1, hlen, PER, pad_fn), -2, hlen, PER, pad_fn)
+        return kernels.fwd_level_2d_mxu_padded(xp.contiguous(), *dec, mode_scheme(mode, a.dtype),
+                                               mode_out_dtypes(mode))
+    a = a.float() if mode else a
     if _padded_route(a, wav):
         xp = fwd_mode_pad(fwd_mode_pad(a, -1, hlen, PER, pad_fn), -2, hlen, PER, pad_fn)
-        return kernels.fwd_level_2d_padded(xp.contiguous(), *dec)
+        return _norm(mode, *kernels.fwd_level_2d_padded(xp.contiguous(), *dec))
     z = conv.analysis_pass(a[:, None], dec, axis=-1, pad_fn=pad_fn)
     z = conv.analysis_pass(z, dec, axis=-2, pad_fn=pad_fn)
-    return tuple(z[:, k] for k in range(4))
+    return _norm(mode, *(z[:, k] for k in range(4)))
 
 
-def _inv_level_2d_local(a, h, v, d, wav, pad_fn, out_rc):
+def _inv_pad2(t, hlen, out_rc, pad_fn):
+    """A decimated inverse level's band with its periodic halo on both
+    axes, and the offsets c0 of its padded synthesis."""
+    t, c_r = inv_mode_pad(t, -2, hlen, PER, out_rc[0], pad_fn)
+    t, c_c = inv_mode_pad(t, -1, hlen, PER, out_rc[1], pad_fn)
+    return t.contiguous(), (c_r, c_c)
+
+
+def _inv_level_2d_local(a, h, v, d, wav, mode, out_dt, pad_fn, out_rc):
     """One decimated 2D inverse level on (B, mr, mc) subbands -> (B,
-    *out_rc): 2m, or 2m - 1 on an odd unsharded axis."""
+    *out_rc): 2m, or 2m - 1 on an odd unsharded axis.  In an MXU mode,
+    kernel 12's padded entry point where the route rule accepts the
+    shard's (mr, mc), in the scheme of ``inv_plan`` for ``out_dt``; else
+    the float32 route, cast to ``out_dt``."""
     rec, hlen = (wav.rec_lo, wav.rec_hi), wav.hlen
+    if mode and kernels.mxu_route_2d(a.shape[-2], a.shape[-1], hlen):
+        scheme, out_dt = inv_plan(mode, out_dt)
+        dets = [t.float() for t in (h, v, d)] if mode == "mixed" else [h, v, d]
+        padded = [_inv_pad2(t, hlen, out_rc, pad_fn) for t in (a.float(), *dets)]
+        return kernels.inv_level_2d_mxu_padded(*(t for t, _ in padded), *rec, scheme,
+                                               padded[0][1], tuple(out_rc), out_dt)
+    if mode:
+        a, h, v, d = (t.float() for t in (a, h, v, d))
     if _padded_route(a, wav):
-        bands, c0 = [], [0, 0]
-        for t in (a, h, v, d):
-            t, c0[0] = inv_mode_pad(t, -2, hlen, PER, out_rc[0], pad_fn)
-            t, c0[1] = inv_mode_pad(t, -1, hlen, PER, out_rc[1], pad_fn)
-            bands.append(t.contiguous())
-        return kernels.inv_level_2d_padded(*bands, *rec, tuple(c0), tuple(out_rc))
-    z = torch.stack([a, h, v, d], 1)
-    t = conv.synthesis_pass(z, rec, axis=-2, out_len=out_rc[0], pad_fn=pad_fn)
-    return conv.synthesis_pass(t, rec, axis=-1, out_len=out_rc[1], pad_fn=pad_fn)[:, 0]
+        padded = [_inv_pad2(t, hlen, out_rc, pad_fn) for t in (a, h, v, d)]
+        y = kernels.inv_level_2d_padded(*(t for t, _ in padded), *rec, padded[0][1],
+                                        tuple(out_rc))
+    else:
+        z = torch.stack([a, h, v, d], 1)
+        t = conv.synthesis_pass(z, rec, axis=-2, out_len=out_rc[0], pad_fn=pad_fn)
+        y = conv.synthesis_pass(t, rec, axis=-1, out_len=out_rc[1], pad_fn=pad_fn)[:, 0]
+    return y.to(out_dt) if mode else y
 
 
 def _pad2(t, lohi, pad_fn):
@@ -225,46 +273,73 @@ def _pad2(t, lohi, pad_fn):
     return pad_fn(pad_fn(t, -1, lo, hi), -2, lo, hi).contiguous()
 
 
-def _swt_fwd_level_2d_local(a, wav, lvl, pad_fn):
-    """One a-trous 2D level on (B, r, c) -> the raw four subbands."""
+def _swt_fwd_level_2d_local(a, wav, lvl, mode, pad_fn):
+    """One a-trous 2D level on (B, r, c) -> the raw four subbands: in a bf16
+    mode, kernel 13's padded entry point where the route rule accepts the
+    shard at this level; else the float32 padded kernel 5 (or the conv
+    passes), cast as JAX casts."""
     dec = (wav.dec_lo, wav.dec_hi)
+    if mode and kernels.mxu_route_swt_2d(a.shape[-2], a.shape[-1], wav.hlen, lvl):
+        return kernels.swt_fwd_level_2d_mxu_padded(
+            _pad2(a, kernels.swt_fwd_halo(wav.hlen, lvl), pad_fn), *dec, lvl,
+            swt_scheme(mode, a.dtype), mode_out_dtypes(mode))
+    a = a.float() if mode else a
     if _padded_route(a, wav):
-        return kernels.swt_fwd_level_2d_padded(
-            _pad2(a, kernels.swt_fwd_halo(wav.hlen, lvl), pad_fn), *dec, lvl)
+        return _norm(mode, *kernels.swt_fwd_level_2d_padded(
+            _pad2(a, kernels.swt_fwd_halo(wav.hlen, lvl), pad_fn), *dec, lvl))
     f = 1 << (lvl - 1)
     z = conv.analysis_pass(a[:, None], dec, axis=-1, dilation=f, decimate=False, pad_fn=pad_fn)
     z = conv.analysis_pass(z, dec, axis=-2, dilation=f, decimate=False, pad_fn=pad_fn)
-    return tuple(z[:, k] for k in range(4))
+    return _norm(mode, *(z[:, k] for k in range(4)))
 
 
-def _swt_inv_level_2d_local(a, h, v, d, wav, lvl, pad_fn):
+def _swt_inv_level_2d_local(a, h, v, d, wav, lvl, mode, out_dt, pad_fn):
     """One a-trous 2D inverse level on (B, r, c) subbands (the 1/2 per
-    pass in the taps)."""
+    pass in the taps): in a bf16 mode, kernel 14's padded entry point where
+    the route rule accepts the shard (``swt2d_inv_plan``'s scheme); else
+    the float32 route, cast to ``out_dt``."""
+    halo = kernels.swt_inv_halo(wav.hlen, lvl)
+    if mode and kernels.mxu_route_swt_2d(a.shape[-2], a.shape[-1], wav.hlen, lvl):
+        scheme, out_dt = swt2d_inv_plan(mode, out_dt)
+        return kernels.swt_inv_level_2d_mxu_padded(
+            *(_pad2(t, halo, pad_fn) for t in (a.float(), h, v, d)), wav.rec_lo, wav.rec_hi, lvl,
+            scheme, out_dt)
+    if mode:
+        a, h, v, d = (t.float() for t in (a, h, v, d))
     if _padded_route(a, wav):
-        halo = kernels.swt_inv_halo(wav.hlen, lvl)
-        return kernels.swt_inv_level_2d_padded(*(_pad2(t, halo, pad_fn) for t in (a, h, v, d)),
-                                               wav.rec_lo, wav.rec_hi, lvl)
-    f = 1 << (lvl - 1)
-    rec = (wav.rec_lo * 0.5, wav.rec_hi * 0.5)
-    z = torch.stack([a, h, v, d], 1)
-    t = conv.synthesis_pass(z, rec, axis=-2, dilation=f, decimated=False, pad_fn=pad_fn)
-    return conv.synthesis_pass(t, rec, axis=-1, dilation=f, decimated=False, pad_fn=pad_fn)[:, 0]
+        y = kernels.swt_inv_level_2d_padded(*(_pad2(t, halo, pad_fn) for t in (a, h, v, d)),
+                                            wav.rec_lo, wav.rec_hi, lvl)
+    else:
+        f = 1 << (lvl - 1)
+        rec = (wav.rec_lo * 0.5, wav.rec_hi * 0.5)
+        z = torch.stack([a, h, v, d], 1)
+        t = conv.synthesis_pass(z, rec, axis=-2, dilation=f, decimated=False, pad_fn=pad_fn)
+        y = conv.synthesis_pass(t, rec, axis=-1, dilation=f, decimated=False,
+                                pad_fn=pad_fn)[:, 0]
+    return y.to(out_dt) if mode else y
 
 
 # ---------------------------------------------------------------------------
 # the local compositions: 2D
 # ---------------------------------------------------------------------------
 
+def _mode(dtype: torch.dtype, swt: bool) -> Optional[str]:
+    """The MXU mode of a composition: ``mxu_mode`` for the decimated
+    transforms; ``mixed`` runs the stationary ones exact
+    (``_swt_mxu_mode``), as JAX does."""
+    return _swt_mxu_mode(dtype) if swt else mxu_mode(dtype)
+
+
 def _local_dwt2d(xl, wav, levels, pad_fn, swt):
     batch = tuple(xl.shape[:-2])
-    _check_mxu(_swt_mxu_mode(xl.dtype) if swt else mxu_mode(xl.dtype))
+    mode = _mode(xl.dtype, swt)
     a = _flat(xl, 2)
     details = []
     for lvl in range(1, levels + 1):
         if swt:
-            a, h, v, d = _swt_fwd_level_2d_local(a, wav, lvl, pad_fn)
+            a, h, v, d = _swt_fwd_level_2d_local(a, wav, lvl, mode, pad_fn)
         else:
-            a, h, v, d = _fwd_level_2d_local(a, wav, pad_fn)
+            a, h, v, d = _fwd_level_2d_local(a, wav, mode, pad_fn)
         details.append(tuple(t.reshape(batch + tuple(t.shape[1:])) for t in (h, v, d)))
     return Coeffs2D(a.reshape(batch + tuple(a.shape[1:])), tuple(details))
 
@@ -272,17 +347,18 @@ def _local_dwt2d(xl, wav, levels, pad_fn, swt):
 def _local_idwt2d(cl, wav, local_shape, pad_fn, swt):
     levels = cl.levels
     batch = tuple(cl.approx.shape[:-2])
-    ddt = cl.details[-1][0].dtype if levels else cl.approx.dtype
-    _check_mxu(_swt_mxu_mode(ddt) if swt else mxu_mode(ddt))
+    mode = _mode(cl.details[-1][0].dtype if levels else cl.approx.dtype, swt)
     rows = level_sizes(local_shape[0], levels)
     cols = level_sizes(local_shape[1], levels)
     a = _flat(cl.approx, 2)
+    a = a.float() if mode == "bf16" else a
     for i in range(levels - 1, -1, -1):
         h, v, d = (_flat(t, 2) for t in cl.details[i])
+        out_dt = BF16 if mode == "bf16" and i == 0 else F32
         if swt:
-            a = _swt_inv_level_2d_local(a, h, v, d, wav, i + 1, pad_fn)
+            a = _swt_inv_level_2d_local(a, h, v, d, wav, i + 1, mode, out_dt, pad_fn)
         else:
-            a = _inv_level_2d_local(a, h, v, d, wav, pad_fn, (rows[i], cols[i]))
+            a = _inv_level_2d_local(a, h, v, d, wav, mode, out_dt, pad_fn, (rows[i], cols[i]))
     return a.reshape(batch + tuple(a.shape[1:]))
 
 
@@ -333,26 +409,85 @@ def iswt2d(coeffs, wav, shape, mesh, **kw):
 # samples over col_axis
 # ---------------------------------------------------------------------------
 
+def _fwd_level_1d_local(a, wav, lvl, mode, pad_fn, swt):
+    """One batched 1D analysis level (decimated, or a-trous at ``lvl``) on
+    (B, n) -> (lo, hi): in an MXU mode, kernel 15's padded entry point where
+    the route rule accepts the shard; else the float32 padded kernel 7 or 9
+    (or the conv pass), cast as JAX casts."""
+    dec, hlen = (wav.dec_lo, wav.dec_hi), wav.hlen
+    B, n = a.shape
+    if mode and kernels.mxu_route_1d(B, n, hlen, level=lvl if swt else None):
+        scheme, hi_dt = ((swt_scheme if swt else mode_scheme)(mode, a.dtype),
+                         mode_out_dtypes(mode)[1])
+        if swt:
+            lo, hi = kernels.swt_fwd_halo(hlen, lvl)
+            return kernels.swt_fwd_level_1d_mxu_padded(pad_fn(a, -1, lo, hi).contiguous(), *dec,
+                                                       lvl, scheme, hi_dt)
+        return kernels.fwd_level_1d_mxu_padded(
+            fwd_mode_pad(a, -1, hlen, PER, pad_fn).contiguous(), *dec, scheme, hi_dt)
+    a = a.float() if mode else a
+    if _padded_route(a, wav):
+        if swt:
+            lo, hi = kernels.swt_fwd_halo(hlen, lvl)
+            res = kernels.swt_fwd_level_1d_padded(pad_fn(a, -1, lo, hi).contiguous(), *dec, lvl)
+        else:
+            res = kernels.fwd_level_1d_padded(fwd_mode_pad(a, -1, hlen, PER, pad_fn).contiguous(),
+                                              *dec)
+    else:
+        z = conv.analysis_pass(a[:, None, None], dec, axis=-1,
+                               dilation=1 << (lvl - 1) if swt else 1, decimate=not swt,
+                               pad_fn=pad_fn)
+        res = (z[:, 0, 0], z[:, 1, 0])
+    return _norm(mode, *res)
+
+
+def _inv_level_1d_local(a, d, wav, lvl, mode, out_dt, pad_fn, out_len, swt):
+    """One batched 1D synthesis level (polyphase into ``out_len`` samples,
+    or a-trous at ``lvl``) on two (B, m) bands: in an MXU mode, kernel
+    16's padded entry point where the route rule accepts the shard; else
+    the float32 route, cast to ``out_dt``."""
+    rec, hlen = (wav.rec_lo, wav.rec_hi), wav.hlen
+    B, m = a.shape
+    if mode and kernels.mxu_route_1d(B, m if swt else 2 * m, hlen, level=lvl if swt else None):
+        scheme, out_dt = (_swt_inv_plan if swt else inv_plan)(mode, out_dt)
+        d = d.float() if mode == "mixed" else d
+        if swt:
+            lo, hi = kernels.swt_inv_halo(hlen, lvl)
+            return kernels.swt_inv_level_1d_mxu_padded(
+                *(pad_fn(t, -1, lo, hi).contiguous() for t in (a.float(), d)), *rec, lvl, scheme,
+                out_dt)
+        (ap, c0), (dp, _) = (inv_mode_pad(t, -1, hlen, PER, out_len, pad_fn)
+                             for t in (a.float(), d))
+        return kernels.inv_level_1d_mxu_padded(ap.contiguous(), dp.contiguous(), *rec, scheme,
+                                               c0, out_len, out_dt)
+    if mode:
+        a, d = a.float(), d.float()
+    if _padded_route(a, wav):
+        if swt:
+            lo, hi = kernels.swt_inv_halo(hlen, lvl)
+            y = kernels.swt_inv_level_1d_padded(*(pad_fn(t, -1, lo, hi).contiguous()
+                                                  for t in (a, d)), *rec, lvl)
+        else:
+            (ap, c0), (dp, _) = (inv_mode_pad(t, -1, hlen, PER, out_len, pad_fn) for t in (a, d))
+            y = kernels.inv_level_1d_padded(ap.contiguous(), dp.contiguous(), *rec, c0, out_len)
+    else:
+        z = torch.stack([a, d], 1)[:, :, None]
+        if swt:
+            half = (wav.rec_lo * 0.5, wav.rec_hi * 0.5)
+            y = conv.synthesis_pass(z, half, axis=-1, dilation=1 << (lvl - 1), decimated=False,
+                                    pad_fn=pad_fn)[:, 0, 0]
+        else:
+            y = conv.synthesis_pass(z, rec, axis=-1, out_len=out_len, pad_fn=pad_fn)[:, 0, 0]
+    return y.to(out_dt) if mode else y
+
+
 def _local_dwt1d(xl, wav, levels, pad_fn, swt):
     batch = tuple(xl.shape[:-1])
-    _check_mxu(_swt_mxu_mode(xl.dtype) if swt else mxu_mode(xl.dtype))
-    dec, hlen = (wav.dec_lo, wav.dec_hi), wav.hlen
+    mode = _mode(xl.dtype, swt)
     a = _flat(xl, 1)
     details = []
     for lvl in range(1, levels + 1):
-        f = 1 << (lvl - 1)
-        if _padded_route(a, wav):
-            if swt:
-                lo, hi = kernels.swt_fwd_halo(hlen, lvl)
-                a, d = kernels.swt_fwd_level_1d_padded(pad_fn(a, -1, lo, hi).contiguous(), *dec,
-                                                       lvl)
-            else:
-                a, d = kernels.fwd_level_1d_padded(
-                    fwd_mode_pad(a, -1, hlen, PER, pad_fn).contiguous(), *dec)
-        else:
-            z = conv.analysis_pass(a[:, None, None], dec, axis=-1, dilation=f if swt else 1,
-                                   decimate=not swt, pad_fn=pad_fn)
-            a, d = z[:, 0, 0], z[:, 1, 0]
+        a, d = _fwd_level_1d_local(a, wav, lvl, mode, pad_fn, swt)
         details.append(d.reshape(batch + tuple(d.shape[1:])))
     return Coeffs1D(a.reshape(batch + tuple(a.shape[1:])), tuple(details))
 
@@ -360,32 +495,14 @@ def _local_dwt1d(xl, wav, levels, pad_fn, swt):
 def _local_idwt1d(cl, wav, local_len, pad_fn, swt):
     levels = cl.levels
     batch = tuple(cl.approx.shape[:-1])
-    ddt = cl.details[-1].dtype if levels else cl.approx.dtype
-    _check_mxu(_swt_mxu_mode(ddt) if swt else mxu_mode(ddt))
-    rec, hlen = (wav.rec_lo, wav.rec_hi), wav.hlen
+    mode = _mode(cl.details[-1].dtype if levels else cl.approx.dtype, swt)
     sizes = level_sizes(local_len, levels)
     a = _flat(cl.approx, 1)
+    a = a.float() if mode == "bf16" else a
     for i in range(levels - 1, -1, -1):
-        d = _flat(cl.details[i], 1)
-        if _padded_route(a, wav):
-            if swt:
-                lo, hi = kernels.swt_inv_halo(hlen, i + 1)
-                a = kernels.swt_inv_level_1d_padded(*(pad_fn(t, -1, lo, hi).contiguous()
-                                                      for t in (a, d)), *rec, i + 1)
-            else:
-                (ap, c0), (dp, _) = (inv_mode_pad(t, -1, hlen, PER, sizes[i], pad_fn)
-                                     for t in (a, d))
-                a = kernels.inv_level_1d_padded(ap.contiguous(), dp.contiguous(), *rec, c0,
-                                                sizes[i])
-        else:
-            z = torch.stack([a, d], 1)[:, :, None]
-            if swt:
-                half = (wav.rec_lo * 0.5, wav.rec_hi * 0.5)
-                a = conv.synthesis_pass(z, half, axis=-1, dilation=1 << i, decimated=False,
-                                        pad_fn=pad_fn)[:, 0, 0]
-            else:
-                a = conv.synthesis_pass(z, rec, axis=-1, out_len=sizes[i],
-                                        pad_fn=pad_fn)[:, 0, 0]
+        out_dt = BF16 if mode == "bf16" and i == 0 else F32
+        a = _inv_level_1d_local(a, _flat(cl.details[i], 1), wav, i + 1, mode, out_dt, pad_fn,
+                                sizes[i], swt)
     return a.reshape(batch + tuple(a.shape[1:]))
 
 

@@ -55,7 +55,9 @@ clusters of 8 and 16 where the checkout has ``tail_launch_plan``; the
 padded entry points of kernels 1, 2, 7 and 8 at one level of the mode
 cells (symmetric), and where the checkout has them those of 5, 6, 9 and 10
 at a rank's shards of the sharded cells (db7 512^2, levels 1-3; sym8 1024
-x 1024, levels 1-4).  Beside
+x 1024, levels 1-4) and those of 11-16 there under bf16-fast (db7 1024^2
+DWT shards, levels 1-3; the 512^2 and 1024 x 1024 shards as 5p-10p's,
+the 1D decimated pair at levels 1-3).  Beside
 1, 3, 4, 5, 7, 8, 9, 11, 12, 13 and 15 it times their PyTorch yardsticks
 in the same call, by CUDA events: the dense-band ``torch.matmul`` products
 of ``chip_smoke.yardstick`` (a pair per 2D level, one per 1D level; bf16,
@@ -372,10 +374,64 @@ if hasattr(S, "swt_fwd_level_2d_padded"):
                        KK.swt_inv_halo(16, lvl), (-1,)) for _ in range(2))
         timed(f"k10p L{lvl}", lambda: K1.swt_inv_level_1d_padded(ls, hs, w8.rec_lo, w8.rec_hi,
                                                                  lvl))
+# and, on a checkout that has them, those of 11-16 at a rank's shards under
+# bf16-fast (db7 1024^2 shards of the DWT cell, levels 1-3: b1 on bf16,
+# then b3 on float32, bf16 details, and back, fd into bf16 at level 1; the
+# TI step's 512^2 shards, levels 1-3: b1 then fd, fd into bf16 at level 1;
+# sym8 1024 x 1024 shards of the 1D cell, decimated levels 1-3 and a-trous
+# levels 1-4, as under the 2D cells)
+if hasattr(M, "fwd_level_2d_mxu_padded"):  # a checkout with 11p has 5p's halo above
+    def ext(t, axes, hlen):
+        for ax in axes:
+            t = SEP.fwd_mode_pad(t, ax, hlen, "periodization")
+        return t.contiguous()
+
+    def ipad(t, axes, hlen, out):
+        c0 = []
+        for ax, n in zip(axes, out):
+            t, c = SEP.inv_mode_pad(t, ax, hlen, "periodization", n)
+            c0.append(c)
+        return t.contiguous(), tuple(c0)
+
+    for lvl in (1, 2, 3):
+        n, sch, dt = 1024 >> (lvl - 1), ("b1" if lvl == 1 else "b3"), (bf16 if lvl == 1 else f32)
+        xp = ext(rand(1, n, n).to(dt), (-1, -2), 14)
+        timed(f"k11p {n} {sch}", lambda: M.fwd_level_2d_mxu_padded(xp, w7.dec_lo, w7.dec_hi, sch,
+                                                                     (f32, bf16)))
+        isch = "fd" if lvl == 1 else "b3"
+        pb = [ipad(t, (-2, -1), 14, (n, n)) for t in bands(n // 2)]
+        timed(f"k12p {n // 2} {isch}", lambda: M.inv_level_2d_mxu_padded(
+            *(t for t, _ in pb), w7.rec_lo, w7.rec_hi, isch, pb[0][1], (n, n), dt))
+        sch = "b1" if lvl == 1 else "fd"
+        xs = halo(rand(1, 512, 512).to(dt), KK.swt_fwd_halo(14, lvl), (-1, -2))
+        timed(f"k13p L{lvl} {sch}", lambda: SM.swt_fwd_level_2d_mxu_padded(
+            xs, w7.dec_lo, w7.dec_hi, lvl, sch, (f32, bf16)))
+        bs = [halo(t, KK.swt_inv_halo(14, lvl), (-1, -2)) for t in bands(512)]
+        timed(f"k14p L{lvl} fd", lambda: SM.swt_inv_level_2d_mxu_padded(
+            *bs, w7.rec_lo, w7.rec_hi, lvl, "fd", dt))
+        n, sch = 1024 >> (lvl - 1), ("b1" if lvl == 1 else "b3")
+        sp = ext(torch.randn(1024, n, device=dev, generator=gen).to(dt), (-1,), 16)
+        timed(f"k15pd {n} {sch}", lambda: M1.fwd_level_1d_mxu_padded(sp, w8.dec_lo, w8.dec_hi,
+                                                                      sch, bf16))
+        (lp, c0), (hp, _) = (ipad(torch.randn(1024, n // 2, device=dev, generator=gen).to(t),
+                                  (-1,), 16, (n,)) for t in (f32, bf16))
+        timed(f"k16pd {n // 2} {isch}", lambda: M1.inv_level_1d_mxu_padded(
+            lp, hp, w8.rec_lo, w8.rec_hi, isch, c0[0], n, dt))
+    for lvl in (1, 2, 3, 4):
+        sch, dt = ("b1", bf16) if lvl == 1 else ("fd", f32)
+        ss = halo(torch.randn(1024, 1024, device=dev, generator=gen).to(dt),
+                  KK.swt_fwd_halo(16, lvl), (-1,))
+        timed(f"k15pa L{lvl} {sch}", lambda: M1.swt_fwd_level_1d_mxu_padded(
+            ss, w8.dec_lo, w8.dec_hi, lvl, sch, bf16))
+        ls, hs = (halo(torch.randn(1024, 1024, device=dev, generator=gen).to(t),
+                       KK.swt_inv_halo(16, lvl), (-1,)) for t in (f32, bf16))
+        timed(f"k16pa L{lvl} fd", lambda: M1.swt_inv_level_1d_mxu_padded(
+            ls, hs, w8.rec_lo, w8.rec_hi, lvl, "fd", dt))
 for k in ("k14", "k14b", "k18s", "k18p", "k6", "k2", "k17d", "k17s", "k17b", "k16d", "k16a",
           "k13", "k13b", "y13", "k15d", "y15d", "k15a", "y15a", "k12f", "k12m", "k12b", "y12",
           "k10", "k11f", "k11m", "k11b", "y11", "k9", "y9", "k8", "y8", "k5", "y5", "k1", "y1",
-          "k7", "y7", "k1p", "k2p", "k7p", "k8p", "k5p", "k6p", "k9p", "k10p"):
+          "k7", "y7", "k1p", "k2p", "k7p", "k8p", "k5p", "k6p", "k9p", "k10p", "k11p", "k12p",
+          "k13p", "k14p", "k15pd", "k15pa", "k16pd", "k16pa"):
     res[k + " pass"] = sum(v for n, v in res.items() if n.startswith(k + " ") and v)
 print("RESULT", root, json.dumps({k: None if v is None else round(v, 5) for k, v in res.items()}))
 print("SUMS", root, json.dumps(sums))

@@ -150,7 +150,11 @@ def test_launch_counters(dev):
                           "fwd_level_2d_padded": 0, "inv_level_2d_padded": 0,
                           "fwd_level_1d_padded": 0, "inv_level_1d_padded": 0,
                           "swt_fwd_level_2d_padded": 0, "swt_inv_level_2d_padded": 0,
-                          "swt_fwd_level_1d_padded": 0, "swt_inv_level_1d_padded": 0}
+                          "swt_fwd_level_1d_padded": 0, "swt_inv_level_1d_padded": 0,
+                          "fwd_level_2d_mxu_padded": 0, "inv_level_2d_mxu_padded": 0,
+                          "swt_fwd_level_2d_mxu_padded": 0, "swt_inv_level_2d_mxu_padded": 0,
+                          "fwd_level_1d_mxu_padded": 0, "inv_level_1d_mxu_padded": 0,
+                          "swt_fwd_level_1d_mxu_padded": 0, "swt_inv_level_1d_mxu_padded": 0}
 
 
 def test_cuda_rejects_what_the_kernels_do_not_take(dev):
@@ -1771,3 +1775,238 @@ def test_padded_kernels_9_and_10_match_their_plain_versions(dev, wname, shape, l
               for k in (1, 2))
     y = K1.swt_inv_level_1d_padded(lo, hi, w.rec_lo, w.rec_hi, level)
     _close(y, K1.swt_inv_level_1d_padded_ref(lo, hi, w.rec_lo, w.rec_hi, level))
+
+
+# ---------------------------------------------------------------------------
+# the padded entry points of kernels 11-16 (the sharded transforms under the
+# precision tiers): each in every scheme against its plain version, the
+# b-schemes bit for bit (the bodies keep the plain versions' sum order), fd
+# within _close_tier; inputs wrapped by the periodic stand-in of the ring
+# ---------------------------------------------------------------------------
+
+PER = "periodization"
+F32 = torch.float32
+
+
+def _exact_or_tier_all(got, want, scheme):
+    got = got if isinstance(got, (list, tuple)) else [got]
+    want = want if isinstance(want, (list, tuple)) else [want]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _exact_or_tier(g, w, scheme)
+
+
+def _decimated_pads(t, hlen, axes, out=None):
+    """The decimated padded entry points' inputs: the forward's odd
+    extension and halo (out None), or the inverse's periodic halo and c0."""
+    from pdwt_tpu_torch.core import separable as sep
+
+    if out is None:
+        for ax in axes:
+            t = sep.fwd_mode_pad(t, ax, hlen, PER)
+        return t.contiguous()
+    c0 = []
+    for ax, n in zip(axes, out):
+        t, c = sep.inv_mode_pad(t, ax, hlen, PER, n)
+        c0.append(c)
+    return t.contiguous(), tuple(c0)
+
+
+# a shard of the DWT cell's level 1, sizes no tile divides (odd too), 2 and 40
+# taps, a batch past the grid's limit
+PAD_MXU_2D_CASES = [("db7", (1, 128, 256)), ("db4", (2, 37, 53)), ("haar", (1, 2, 6)),
+                    ("w40", (1, 70, 38)), ("db2", (70000, 2, 2))]
+
+
+@pytest.mark.parametrize("scheme", SCHEMES5)
+@pytest.mark.parametrize("wname,shape", PAD_MXU_2D_CASES)
+def test_padded_kernels_11_and_12_match_their_plain_versions(dev, wname, shape, scheme):
+    w = _long_wavelet(wname)
+    R, C = shape[1:]
+    for in_dt in (BF16, F32):
+        x = (_rand(dev, *shape) * 255).to(in_dt)
+        xp = _decimated_pads(x, w.hlen, (-1, -2))
+        got = M.fwd_level_2d_mxu_padded(xp, w.dec_lo, w.dec_hi, scheme, (F32, in_dt))
+        _exact_or_tier_all(got, M.fwd_level_2d_mxu_padded_ref(xp, w.dec_lo, w.dec_hi, scheme,
+                                                                (F32, in_dt)), scheme)
+        padded = [_decimated_pads(t, w.hlen, (-2, -1), (R, C)) for t in got]
+        bands = [t for t, _ in padded]
+        for out in (F32, BF16):
+            args = (*bands, w.rec_lo, w.rec_hi, scheme, padded[0][1], (R, C), out)
+            _exact_or_tier(M.inv_level_2d_mxu_padded(*args), M.inv_level_2d_mxu_padded_ref(*args),
+                           scheme)
+
+
+# a shard of the TI step, sizes no tile divides, dilations past the shard,
+# 2 and 40 taps, a batch past the grid's limit
+PAD_MXU_SWT_CASES = [("db7", (1, 64, 128), 2), ("db7", (2, 37, 53), 3), ("haar", (2, 5, 7), 4),
+                     ("w40", (1, 24, 40), 2), ("db2", (70000, 2, 2), 1)]
+
+
+@pytest.mark.parametrize("scheme", SCHEMES5)
+@pytest.mark.parametrize("wname,shape,level", PAD_MXU_SWT_CASES)
+def test_padded_kernels_13_and_14_match_their_plain_versions(dev, wname, shape, level, scheme):
+    from pdwt_tpu_torch import kernels as KK
+
+    w = _long_wavelet(wname)
+    for in_dt in (BF16, F32):
+        xp = _halo((_rand(dev, *shape) * 255).to(in_dt), KK.swt_fwd_halo(w.hlen, level),
+                   (-1, -2))
+        args = (xp, w.dec_lo, w.dec_hi, level, scheme, (F32, BF16))
+        _exact_or_tier_all(SM.swt_fwd_level_2d_mxu_padded(*args),
+                           SM.swt_fwd_level_2d_mxu_padded_ref(*args), scheme)
+        bands = [_rand(dev, *shape) * 255] + [(_rand(dev, *shape, seed=k) * 127).to(in_dt)
+                                              for k in (1, 2, 3)]
+        bp = [_halo(t, KK.swt_inv_halo(w.hlen, level), (-1, -2)) for t in bands]
+        for out in (F32, BF16):
+            args = (*bp, w.rec_lo, w.rec_hi, level, scheme, out)
+            _exact_or_tier(SM.swt_inv_level_2d_mxu_padded(*args),
+                           SM.swt_inv_level_2d_mxu_padded_ref(*args), scheme)
+
+
+# the 1D cell's shard, odd and short signals, 2 and 40 taps, a batch past the
+# grid's limit, a dilation past the signal
+PAD_MXU_1D_CASES = [("sym8", (64, 1024), 2), ("db7", (33, 201), 3), ("haar", (3, 7), 4),
+                    ("w40", (40, 300), 2), ("sym8", (70000, 8), 1), ("db2", (2, 5), 5)]
+
+
+@pytest.mark.parametrize("scheme", SCHEMES5)
+@pytest.mark.parametrize("wname,shape,level", PAD_MXU_1D_CASES)
+def test_padded_kernels_15_and_16_match_their_plain_versions(dev, wname, shape, level, scheme):
+    from pdwt_tpu_torch import kernels as KK
+
+    w = _long_wavelet(wname)
+    n = shape[1]
+    for in_dt in (BF16, F32):
+        x = (_rand(dev, *shape) * 4).to(in_dt)
+        xp = _decimated_pads(x, w.hlen, (-1,))
+        got = M1.fwd_level_1d_mxu_padded(xp, w.dec_lo, w.dec_hi, scheme, in_dt)
+        _exact_or_tier_all(got, M1.fwd_level_1d_mxu_padded_ref(xp, w.dec_lo, w.dec_hi, scheme,
+                                                                in_dt), scheme)
+        (lo, c0), (hi, _) = (_decimated_pads(t, w.hlen, (-1,), (n,)) for t in got)
+        xs = _halo(x, KK.swt_fwd_halo(w.hlen, level), (-1,))
+        args = (xs, w.dec_lo, w.dec_hi, level, scheme, in_dt)
+        _exact_or_tier_all(M1.swt_fwd_level_1d_mxu_padded(*args),
+                           M1.swt_fwd_level_1d_mxu_padded_ref(*args), scheme)
+        sl, sh = (_halo(t, KK.swt_inv_halo(w.hlen, level), (-1,))
+                  for t in (_rand(dev, *shape, seed=1) * 4, (_rand(dev, *shape, seed=2) * 2)
+                            .to(in_dt)))
+        for out in (F32, BF16):
+            args = (lo, hi, w.rec_lo, w.rec_hi, scheme, c0[0], n, out)
+            _exact_or_tier(M1.inv_level_1d_mxu_padded(*args),
+                           M1.inv_level_1d_mxu_padded_ref(*args), scheme)
+            args = (sl, sh, w.rec_lo, w.rec_hi, level, scheme, out)
+            _exact_or_tier(M1.swt_inv_level_1d_mxu_padded(*args),
+                           M1.swt_inv_level_1d_mxu_padded_ref(*args), scheme)
+
+
+def test_padded_mxu_kernels_refuse_reads_outside_and_bad_plans(dev, monkeypatch):
+    """An input no longer than the span holds no output (the wrappers
+    raise before any launch); a plan whose shared memory does not add up
+    is refused by the C entry (cudaErrorInvalidValue), as the other padded
+    entry points' are."""
+    t8 = np.ones(8)
+    band = torch.rand(1, 14, 14, device=dev)
+    with pytest.raises(ValueError, match="needs more than 14 samples"):
+        SM.swt_fwd_level_2d_mxu_padded(band, t8, t8, 2, "b1")
+    with pytest.raises(ValueError, match="needs more than 14 samples"):
+        M1.swt_inv_level_1d_mxu_padded(band[0], band[0], t8, t8, 2, "fd")
+    with pytest.raises(ValueError, match="reads outside"):
+        M.inv_level_2d_mxu_padded(band, band, band, band, t8, t8, "b3", (0, 0), (40, 40))
+    x = torch.rand(1, 64, 64, device=dev)
+    real = M.fwd_launch_plan
+
+    def bad(*a):
+        return real(*a)._replace(smem=real(*a).smem + 16)
+
+    monkeypatch.setattr(M, "fwd_launch_plan", bad)
+    with pytest.raises(RuntimeError, match="fwd_level_2d_mxu_padded kernel launch failed"):
+        M.fwd_level_2d_mxu_padded(x, t8, t8, "b3")
+
+
+def test_fd_float32_padded_entry_points_are_the_exact_ones(dev):
+    """The tiers' padded entry points in fd on float32 run the exact padded
+    instances (1p, 5p, 7p, 9p: TIER false; 2p, 6p, 8p, 10p: the same
+    template instance): the same results, bit for bit."""
+    from pdwt_tpu_torch import kernels as KK
+
+    w = get_wavelet("db7")
+    x = _rand(dev, 2, 48, 80) * 255
+    xp = _decimated_pads(x, w.hlen, (-1, -2))
+    for g, e in zip(M.fwd_level_2d_mxu_padded(xp, w.dec_lo, w.dec_hi, "fd"),
+                    K.fwd_level_2d_padded(xp, w.dec_lo, w.dec_hi)):
+        assert torch.equal(g, e)
+    xs = _halo(x, KK.swt_fwd_halo(w.hlen, 2), (-1, -2))
+    for g, e in zip(SM.swt_fwd_level_2d_mxu_padded(xs, w.dec_lo, w.dec_hi, 2, "fd"),
+                    S.swt_fwd_level_2d_padded(xs, w.dec_lo, w.dec_hi, 2)):
+        assert torch.equal(g, e)
+    bs = [_halo(_rand(dev, 2, 48, 80, seed=k), KK.swt_inv_halo(w.hlen, 2), (-1, -2))
+          for k in range(4)]
+    assert torch.equal(SM.swt_inv_level_2d_mxu_padded(*bs, w.rec_lo, w.rec_hi, 2, "fd"),
+                       S.swt_inv_level_2d_padded(*bs, w.rec_lo, w.rec_hi, 2))
+    s = x.reshape(96, 80)
+    sp = _decimated_pads(s, w.hlen, (-1,))
+    for g, e in zip(M1.fwd_level_1d_mxu_padded(sp, w.dec_lo, w.dec_hi, "fd"),
+                    K1.fwd_level_1d_padded(sp, w.dec_lo, w.dec_hi)):
+        assert torch.equal(g, e)
+    ss = _halo(s, KK.swt_fwd_halo(w.hlen, 3), (-1,))
+    for g, e in zip(M1.swt_fwd_level_1d_mxu_padded(ss, w.dec_lo, w.dec_hi, 3, "fd"),
+                    K1.swt_fwd_level_1d_padded(ss, w.dec_lo, w.dec_hi, 3)):
+        assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("tier", ["mixed", "bf16-fast", "bf16-balanced", "bf16-accurate"])
+def test_sharded_tiers_on_one_rank_match_the_cpu(dev, tier, tmp_path):
+    """One gloo rank on the card, mesh (1, 1, 1) (every halo the local
+    wrap): the sharded 2D DWT/SWT and 1D DWT/SWT roundtrips under a tier,
+    exactly the padded launches the route rule predicts per level, against
+    the same route on the CPU's plain versions (``PATH`` tolerances of the
+    module docstring)."""
+    import torch.distributed as dist
+
+    from pdwt_tpu_torch import kernels as KK
+    from pdwt_tpu_torch import parallel as par
+    from pdwt_tpu_torch import precision_scope
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        w, w8 = get_wavelet("db7"), get_wavelet("sym8")
+        bf16 = tier.startswith("bf16-")
+        ax = dict(data_axis=None, row_axis="row", col_axis="col")
+        x = _rand(dev, 256, 512) * 255
+        x = x.to(BF16) if bf16 else x
+        s = (_rand(dev, 32, 1024) * 4).to(x.dtype)
+        outs = {}
+        for where in ("cuda", "cpu"):
+            mesh = par.make_mesh((1, 1, 1), device_type=where)
+            m1 = par.make_mesh((1, 1), ("data", "col"), device_type=where)
+            xl, sl = x.to(where), s.to(where)
+            KK.reset_launch_counts()
+            with precision_scope(tier):
+                res = []
+                for swt in (False, True):
+                    c = par.dwt2d(par.shard_image(xl, mesh, **ax), w, 3, mesh, swt=swt, **ax)
+                    y = par.idwt2d(c, w, (256, 512), mesh, swt=swt, **ax)
+                    c1 = par.dwt1d(sl, w8, 3, m1, swt=swt, col_axis="col")
+                    y1 = par.idwt1d(c1, w8, 1024, m1, swt=swt, col_axis="col")
+                    res += [t.to_local() for t in _leaves(c) + [y, c1.approx, *c1.details, y1]]
+            outs[where] = (res, {k: v for k, v in KK.LAUNCHES.items() if v})
+        got, launched = outs["cuda"]
+        want = outs["cpu"][0]
+        for g, c in zip(got, want):
+            _close_tier(g, c, bf16_rtol=2.0 ** -6, rtol=1e-4)
+        # 256 x 512, 3 levels: subbands 128 x 256, 64 x 128, 32 x 64 (the
+        # last off the route); the SWT's levels all on it under bf16
+        mxu = tier != "mixed"
+        want_l = {"fwd_level_2d_mxu_padded": 2, "inv_level_2d_mxu_padded": 2,
+                  "fwd_level_2d_padded": 1, "inv_level_2d_padded": 1,
+                  "fwd_level_1d_mxu_padded": 3, "inv_level_1d_mxu_padded": 3}
+        want_l.update({"swt_fwd_level_2d_mxu_padded": 3, "swt_inv_level_2d_mxu_padded": 3,
+                       "swt_fwd_level_1d_mxu_padded": 3, "swt_inv_level_1d_mxu_padded": 3}
+                      if mxu else
+                      {"swt_fwd_level_2d_padded": 3, "swt_inv_level_2d_padded": 3,
+                       "swt_fwd_level_1d_padded": 3, "swt_inv_level_1d_padded": 3})
+        assert launched == want_l
+    finally:
+        dist.destroy_process_group()

@@ -11,8 +11,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from pdwt_tpu_torch import get_wavelet, make_custom_wavelet, precision_scope
+from pdwt_tpu_torch import TIERS, get_wavelet, make_custom_wavelet, precision_scope
 from pdwt_tpu_torch import parallel as par
+from pdwt_tpu_torch.core import conv
 from pdwt_tpu_torch.models import sharded_denoise_step
 
 WORLD = 4
@@ -27,7 +28,9 @@ def image(shape, seed):
 
 
 def _full(t):
-    return t.full_tensor().numpy()
+    """The gathered global array (bf16 as its float32 values)."""
+    t = t.full_tensor()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def _coeffs(c):
@@ -95,15 +98,69 @@ def cases(rank: int) -> dict:
         sw = torch.from_numpy(image((8, n), 4))
         c = par.swt1d(par.shard_image(sw, m1, **axw), sym8, 5, m1, **axw)
         out[f"wide_halo_{n}"] = _coeffs(c) + [_full(par.iswt1d(c, sym8, n, m1, **axw))]
+    # bf16 through gloo's send and receive, byte for byte: every rank's ring
+    # halo of a bf16 image (5 and 7 columns, 6 and 3 rows, one hop each)
+    # equals the same window of its periodic wrap
+    xb = x.bfloat16()
+    pad = par.make_pad_fn(m2, "row", "col")
+    halo = pad(pad(par.shard_image(xb, m2, **ax2).to_local(), -1, 5, 7), -2, 6, 3)
+    r0, c0 = 32 * m2.get_local_rank("row"), 32 * m2.get_local_rank("col")
+    full = conv.wrap_pad(conv.wrap_pad(xb, -1, 5, 7), -2, 6, 3)
+    ok = torch.tensor([int(halo.dtype == torch.bfloat16
+                           and torch.equal(halo, full[r0:r0 + 41, c0:c0 + 44]))])
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    out["bf16_halo"] = [ok.numpy()]
+    # the precision tiers: each level whose shard the route rule accepts
+    # runs a banded-product padded kernel, bf16 halos for a bf16 level.  The
+    # 2D DWT of 128 x 512 on (row, col) = (2, 2), 2 levels (64 x 256 shards:
+    # level 1 banded, level 2 exact), under each tier (bf16 image under the
+    # bf16 ones); the 2D SWT (levels 1-2 banded) and the TI step on a bf16
+    # image under two rungs; the 1D DWT and SWT of 16 x 1024 over col = 4
+    # (16 x 256 shards: the DWT's level 1 banded, every SWT level banded).
+    # Each case records its dtypes beside its values.
+    xt = torch.from_numpy(image((128, 512), 6))
+    s1 = torch.from_numpy(image((16, 1024), 7))
+    for tier in TIERS[1:]:
+        cast = (lambda t: t.bfloat16()) if tier.startswith("bf16-") else (lambda t: t)
+        with precision_scope(tier):
+            xs_t = par.shard_image(cast(xt), m2, **ax2)
+            c = par.dwt2d(xs_t, db7, 2, m2, **ax2)
+            _tiered(out, f"tier_dwt2d_{tier}", _leaves(c) + [par.idwt2d(c, db7, (128, 512), m2,
+                                                                         **ax2)])
+            ss = par.shard_image(cast(s1), m1, **ax1)
+            for swt in (False, True):
+                c = par.dwt1d(ss, sym8, 3, m1, swt=swt, **ax1)
+                y = par.idwt1d(c, sym8, 1024, m1, swt=swt, **ax1)
+                _tiered(out, f"tier_{'swt' if swt else 'dwt'}1d_{tier}", _leaves(c) + [y])
+            if tier in ("bf16-fast", "bf16-accurate"):
+                c = par.swt2d(xs_t, db7, 2, m2, **ax2)
+                _tiered(out, f"tier_swt2d_{tier}", _leaves(c) + [par.iswt2d(c, db7, (128, 512),
+                                                                           m2, **ax2)])
+                den, n1 = sharded_denoise_step(xs_t, "db7", 2, 10.0, m2, swt=True, **ax2)
+                _tiered(out, f"tier_step_{tier}", [den, n1])
     # the errors, raised before any exchange
     out["err_row"] = _error(lambda: par.dwt2d(torch.zeros(60, 64), db7, 3, m2, **ax2))
     out["err_col_swt"] = _error(lambda: par.swt2d(torch.zeros(64, 65), db7, 2, m2, **ax2))
     out["err_signal"] = _error(lambda: par.dwt1d(torch.zeros(4, 100), sym8, 4, m1, **ax1))
     out["err_batch"] = _error(lambda: par.dwt2d(torch.zeros(3, 32, 32), db4, 1, mb, **axb))
+    # the MXU modes, which raised before the tier route: they run now
     out["err_bf16"] = _error(lambda: par.dwt2d(xs.to_local().bfloat16(), db7, 1, m2, **ax2))
     with precision_scope("mixed"):
         out["err_mixed"] = _error(lambda: par.dwt2d(xs, db7, 1, m2, **ax2))
     return out
+
+
+def _leaves(c):
+    return [c.approx] + [t for band in c.details
+                         for t in (band if isinstance(band, tuple) else (band,))]
+
+
+def _tiered(out: dict, name: str, ts) -> None:
+    """A tier case: the gathered float32 values of each DTensor (a plain
+    tensor, the norm, as it is) under ``name`` and their dtypes under
+    ``name + "#dtypes"``."""
+    out[name] = [_full(t) if hasattr(t, "full_tensor") else t.numpy() for t in ts]
+    out[name + "#dtypes"] = " ".join(str(t.dtype).split(".")[-1] for t in ts)
 
 
 def run(rank: int, store_path: str, out_dir: str) -> None:
