@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (pdwt_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only volume]
 
 Run from the repository root.  It builds the CUDA kernels from
-``pdwt_tpu_torch/kernels/csrc`` and drives the port's nine paths, each
+``pdwt_tpu_torch/kernels/csrc`` and drives the port's ten paths, each
 with the launch counters set to 0 just before it and read just after:
 
 * the DWT path: each of its four kernels against its plain PyTorch version
@@ -99,6 +99,25 @@ with the launch counters set to 0 just before it and read just after:
   launches the route rule predicts on its shard.  Four processes on one card that send their halos
   through the host measure nothing of scaling: only the kernels' own times
   are kept.
+* the 3D transforms (``bench_all.py``'s two 3D configurations): kernels 1,
+  2, 5, 6 and 11-14 against their plain versions at the 3D path's level
+  shapes (64 and 128 planes of 512x512 and 256x256 a launch, every scheme
+  the tiers route there, and a batch of 5 x 3 planes), one pass of each
+  timed; the 128x512x512 db4 2-level roundtrip through ``dwt3d``/``idwt3d``
+  and ``Wavelets(volume)``, held to the same composition on plain versions,
+  to the conv passes (JAX's fma formulation) and to its roundtrip error,
+  again under ``torch.set_float32_matmul_precision("high")`` (the depth
+  product stays FP32), then under each tier (JAX's 3D bounds); the
+  64x512x512 TI step (``denoise_step_3d(swt=True)``, soft, beta 1) exact and
+  under each tier, held to the same route and to the unfused path on plain
+  versions; ``Wavelets(volume, do_swt=True).run_denoise``, the 7-band
+  ``get_coeff``/``set_coeff``, 3D cycle spinning, ``auto_denoise_3d``, a 3D
+  checkpoint and the demo's ``--nd`` on the card.  Every call's launches
+  are exactly the route rule's (11 once a level, 12 and 14 twice a level);
+  each path prints its call time, its device busy time split between the
+  2D kernels, the depth products and the rest, its idle share and its
+  peak memory.  ``--only volume`` runs this phase alone (a development run;
+  it prints no result).
 
 The banded-product kernels redesigned for Hopper's CUDA cores (kernels 14
 and 18: ``swt_inv_level_2d_mxu``, ``ns_inv_level_2d_mxu``,
@@ -146,6 +165,7 @@ kernels are built, and any rank's failure fails the run.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -829,6 +849,17 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
+    if sys.argv[1:]:
+        # a development run of the volume phase alone: no result line
+        check(sys.argv[1:] == ["--only", "volume"], "usage: chip_smoke.py [--only volume]")
+        report = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
+                         "plain_device_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                         "bound_ms": 0.0, "library_ms": 0.0} for name in REPLACES}
+        volume_phase(dev, card, report, {name: 0 for name in REPLACES},
+                     torch.Generator(device=dev).manual_seed(0))
+        print("chip_smoke: --only volume passed; a partial run prints no result", flush=True)
+        return
+
     wav = get_wavelet(WNAME)
     lo, hi, rlo, rhi = wav.dec_lo, wav.dec_hi, wav.rec_lo, wav.rec_hi
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1316,6 +1347,7 @@ def main() -> None:
     operators_phase(dev, card, dwt_img, ti_img, sig)
     modes_phase(dev, card, report, launches, dwt_img, rt_sig, gen)
     sharded_phase(dev, card, report, launches, gen)
+    volume_phase(dev, card, report, launches, gen)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
@@ -3941,6 +3973,493 @@ def sharded_phase(dev, card, report, launches, gen) -> None:
         if name.endswith("_mxu_padded"):
             check(tl.get(name, 0) > 0, f"sharded (b): the tiers never launched {name}")
             launches[name] = tl[name]
+
+# -- the volume phase (queue 1 item 12): bench_all.py's two 3D configurations
+# (bench_all.py:132-153, 254-261), the 3D transforms on the 2D level kernels
+# with depth as their batch
+VOL_SHAPE, VOL_WNAME, VOL_LEVELS = (128, 512, 512), "db4", 2   # the roundtrip (config 6)
+VTI_SHAPE, VTI_BETA = (64, 512, 512), 1.0                      # the TI step (config 7)
+# the port's kernel route against the conv passes (JAX's fma formulation):
+# the depth product and the kernels' FMAs sum in another order
+CONV_RTOL = 1e-5
+# max |inverse(forward(x)) - x| on [0, 255] data under the tiers: the JAX
+# package's own 3D bounds (tests/test_3d.py:340, 349, 357)
+VOL_ROUNDTRIP_LIMIT = {"mixed": 0.05, "bf16-fast": 8.0, "bf16-balanced": 8.0,
+                       "bf16-accurate": 8.0}
+# the fused bf16 TI step against the unfused one: the kernels threshold the
+# bf16 details in float32, the threshold op rounds them to bf16 first
+# (tests/test_3d.py:392-394, on [0, 255] data)
+VTI_UNFUSED_BF16_ATOL = 3.0
+VOL_NAMES = ("fwd_level_2d", "inv_level_2d", "swt_fwd_level_2d", "swt_inv_level_2d",
+             "fwd_level_2d_mxu", "inv_level_2d_mxu", "swt_fwd_level_2d_mxu",
+             "swt_inv_level_2d_mxu")
+
+
+@contextlib.contextmanager
+def plain_route():
+    """The kernel wrappers the 3D transforms reach swapped for their plain
+    versions while the block runs: the same composition (routes, casts,
+    depth products) on plain versions on the card; no launch counts."""
+    from pdwt_tpu_torch.kernels import LAUNCHES
+    from pdwt_tpu_torch.kernels import matmul as M
+    from pdwt_tpu_torch.kernels import separable as K
+    from pdwt_tpu_torch.kernels import swt as S
+    from pdwt_tpu_torch.kernels import swt_matmul as SM
+
+    saved = [(m, n, getattr(m, n)) for m, names in
+             ((K, ("fwd_level_2d", "inv_level_2d")), (S, ("swt_fwd_level_2d", "swt_inv_level_2d")),
+              (M, ("fwd_level_2d_mxu", "inv_level_2d_mxu")),
+              (SM, ("swt_fwd_level_2d_mxu", "swt_inv_level_2d_mxu"))) for n in names]
+    before = sum(LAUNCHES.values())
+    try:
+        for m, n, _ in saved:
+            setattr(m, n, getattr(m, n + "_ref"))
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+    check(sum(LAUNCHES.values()) == before, "volume: the plain route launched a kernel")
+
+
+def counted_exactly(label, fn, want: dict, into: dict):
+    """fn() between a reset and a read of the launch counters: exactly the
+    launches ``want`` (name -> count); adds them to ``into``."""
+    from pdwt_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in LAUNCHES.items() if v}
+    print(f"volume: {label}: launches {got}", flush=True)
+    check(got == want, f"volume: {label} launched {got}, the route rule gives {want}")
+    for k, v in got.items():
+        into[k] = into.get(k, 0) + v
+    return out
+
+
+def vol_timing(label, fn, card) -> None:
+    """One call's time (CUDA events, median of 20), its device busy time
+    from the launch counters (``device_ms``: busy_per_call), that busy time
+    split between the port's 2D kernels, the depth products (cuBLAS GEMMs)
+    and the rest (copies, casts, thresholds, rolls), the idle share, and
+    the peak memory of one call."""
+    ms = cuda_ms(fn)
+    busy, by_name = device_ms(fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    if busy is None:
+        print(f"volume timing: {label}: {ms:.4f} ms a call, device busy not measured, peak "
+              f"{peak:.3f} GiB above the inputs [{card}]", flush=True)
+        return
+    gemm = lambda k: any(s in k.lower() for s in ("gemm", "xmma", "cutlass", "cublas"))
+    kern = sum(v for k, v in by_name.items() if is_port_kernel(k))
+    prod = sum(v for k, v in by_name.items() if not is_port_kernel(k) and gemm(k))
+    print(f"volume timing: {label}: {ms:.4f} ms a call, device busy {busy:.4f} ms (2D kernels "
+          f"{kern:.4f}, depth products {prod:.4f}, copies and the rest "
+          f"{busy - kern - prod:.4f}), idle share {1 - busy / ms:.3f}, peak "
+          f"{peak:.3f} GiB above the inputs [{card}]", flush=True)
+    for kname, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {v:.4f} ms  {kname[:100]}")
+
+
+def vhold(label, got, want, rtol=PATH_RTOL) -> None:
+    """A volume result against another route's on the card: one shape per
+    output, finite, within rtol of the call's largest reference value."""
+    gl, wl = leaves(got), leaves(want)
+    check(len(gl) == len(wl) and all(g.shape == w.shape for g, w in zip(gl, wl)),
+          f"{label}: shapes differ")
+    check(all(bool(torch.isfinite(g).all()) for g in gl), f"{label}: not finite")
+    err, scale = max_err(got, want)
+    print(f"{label}: max|diff| {err:.3e} (limit {rtol * scale:.3e})", flush=True)
+    check(err <= rtol * scale, f"{label}: disagrees")
+
+
+def vhold_value(label, got, want, rtol=NORM_RTOL) -> None:
+    got, want = float(got), float(want)
+    print(f"{label} {got!r} vs {want!r}", flush=True)
+    check(abs(got - want) <= rtol * abs(want), f"{label} disagrees")
+
+
+def volume_phase(dev, card, report, launches, gen) -> None:
+    """The 3D transforms (``core/separable3d.py``) at bench_all.py's two 3D
+    configurations: (a) kernels 1, 2, 5, 6 and 11-14 against their plain
+    versions at the 3D path's level shapes (64-128 planes a launch, and a
+    batch of 5 x 3 planes), one pass of each timed; (b) the 128x512x512 db4
+    2-level roundtrip through dwt3d/idwt3d and the facade, against the same
+    composition on plain versions, against the conv passes (JAX's fma
+    formulation), its roundtrip error, again under
+    set_float32_matmul_precision("high"), its launch counts; (c) the same
+    roundtrip under each tier; (d) the 64x512x512 TI step
+    (denoise_step_3d(swt=True), soft, beta 1) exact and under each tier,
+    against the same route and the unfused path on plain versions; (e)
+    Wavelets(volume, do_swt=True).run_denoise, the 7-band get/set_coeff,
+    3D cycle spinning, auto_denoise_3d, a 3D checkpoint and the demo's --nd
+    on the card.  Each path's launches are added to the kernels' rows."""
+    import io
+    import tempfile
+
+    from pdwt_tpu_torch import Wavelets, demo, dwt3d, get_wavelet, idwt3d, iswt3d, ops, swt3d
+    from pdwt_tpu_torch.core import precision as P
+    from pdwt_tpu_torch.core import separable3d as S3
+    from pdwt_tpu_torch.kernels import matmul as M
+    from pdwt_tpu_torch.kernels import separable as K
+    from pdwt_tpu_torch.kernels import swt as S
+    from pdwt_tpu_torch.kernels import swt_matmul as SM
+    from pdwt_tpu_torch.models import auto_denoise_3d, denoise_step_3d
+    from pdwt_tpu_torch.utils import load_coeffs, save_coeffs, write_dat
+
+    print("=== volume ===", flush=True)
+    t_phase = time.perf_counter()
+    f32, bf16 = torch.float32, torch.bfloat16
+    w = get_wavelet(VOL_WNAME)
+    lo, hi, rlo, rhi, hl = w.dec_lo, w.dec_hi, w.rec_lo, w.rec_hi, w.hlen
+    L = VOL_LEVELS
+    rand = lambda *s: torch.rand(s, device=dev, generator=gen) * 255.0
+    thr = ("soft", VTI_BETA)
+    vol_launches: dict = {}
+
+    # ---------------- (a) the kernels at the 3D geometry ----------------
+    D, R, C = VOL_SHAPE
+    TD = VTI_SHAPE[0]
+    cases = []
+    for n, (b, r) in enumerate(((D, R), (D // 2, R // 2))):   # fwd levels 1, 2
+        cases.append(Case("fwd_level_2d", rand(b, r, r),
+                          lambda x: K.fwd_level_2d(x, lo, hi),
+                          lambda x: K.fwd_level_2d_ref(x, lo, hi),
+                          f"3D level {n + 1} {(b, r, r)}", True, b * flops_2d(r, r, hl)))
+        m = r // 2   # the inverse of that level: depth-synthesized subbands
+        cases.append(Case("inv_level_2d", [rand(b, m, m) for _ in range(4)],
+                          lambda t: K.inv_level_2d(*t, rlo, rhi),
+                          lambda t: K.inv_level_2d_ref(*t, rlo, rhi),
+                          f"3D level {n + 1} subbands {(b, m, m)}", True,
+                          b * flops_2d(r, r, hl)))
+    for lvl in (1, 2):
+        xs = rand(TD, R, R)
+        fl = TD * flops_swt_2d(R, R, hl)
+        cases.append(Case("swt_fwd_level_2d", xs,
+                          lambda x, lv=lvl: S.swt_fwd_level_2d(x, lo, hi, lv),
+                          lambda x, lv=lvl: S.swt_fwd_level_2d_ref(x, lo, hi, lv),
+                          f"3D level {lvl} {(TD, R, R)}", True, fl))
+        bands = S.swt_fwd_level_2d_ref(xs, lo, hi, lvl)
+        for tt in (thr, None):
+            cases.append(Case("swt_inv_level_2d", bands,
+                              lambda t, lv=lvl, tt=tt: S.swt_inv_level_2d(*t, rlo, rhi, lv, tt),
+                              lambda t, lv=lvl, tt=tt: S.swt_inv_level_2d_ref(*t, rlo, rhi, lv,
+                                                                              tt),
+                              f"3D level {lvl} {(TD, R, R)} threshold {tt and tt[0]}",
+                              tt is not None, fl))
+    # the banded-product kernels in every scheme the tiers route here: the
+    # forward's level 1 on the volume's dtype, level 2 on the float32 chain;
+    # the inverse levels write float32 (the depth synthesis follows), so
+    # kernel 12 runs b3 and kernel 14 fd or b2f; the a-slot is float32
+    fwd_l1 = {"mixed": ("b3", f32, f32), "bf16-fast": ("b1", bf16, bf16),
+              "bf16-balanced": ("b2f", bf16, bf16), "bf16-accurate": ("b3", bf16, bf16)}
+    seen = set()
+    for tier, (s1, in_dt, det) in fwd_l1.items():
+        timed = tier == ROW_TIER
+        for lvl, (b, r, sch, idt) in enumerate(((D, R, s1, in_dt), (D // 2, R // 2, "b3", f32))):
+            if (sch, idt, det, lvl) not in seen:
+                seen.add((sch, idt, det, lvl))
+                cases.append(Case("fwd_level_2d_mxu", rand(b, r, r).to(idt),
+                                  lambda x, s=sch, d=det: M.fwd_level_2d_mxu(x, lo, hi, s,
+                                                                             (f32, d)),
+                                  lambda x, s=sch, d=det: M.fwd_level_2d_mxu_ref(x, lo, hi, s,
+                                                                                 (f32, d)),
+                                  f"3D {tier} level {lvl + 1} {sch} {idt} in {(b, r, r)}",
+                                  timed and lvl == 0, b * flops_2d(r, r, hl, TERMS[sch]),
+                                  scheme_peak(sch), scheme_limit(sch)))
+            m = r // 2
+            if ("i", det, lvl) not in seen:
+                seen.add(("i", det, lvl))
+                bands = [rand(b, m, m)] + [(rand(b, m, m) - 127.5).to(det) for _ in range(3)]
+                cases.append(Case("inv_level_2d_mxu", bands,
+                                  lambda t: M.inv_level_2d_mxu(*t, rlo, rhi, "b3", f32),
+                                  lambda t: M.inv_level_2d_mxu_ref(*t, rlo, rhi, "b3", f32),
+                                  f"3D level {lvl + 1} b3 {det} details {(b, m, m)}",
+                                  timed and lvl == 0, b * flops_2d(r, r, hl, 3),
+                                  scheme_peak("b3"), scheme_limit("b3")))
+        if tier == "mixed":
+            continue  # mixed runs the stationary transforms exact
+        for lvl in (1, 2):
+            idt = bf16 if lvl == 1 else f32
+            sch = SWT_SCHEMES[tier][0 if lvl == 1 else 1]
+            inv_sch = "fd" if tier == "bf16-fast" else "b2f"
+            if ("s", sch, lvl) not in seen:
+                seen.add(("s", sch, lvl))
+                xs = rand(TD, R, R).to(idt)
+                cases.append(Case("swt_fwd_level_2d_mxu", xs,
+                                  lambda x, s=sch, lv=lvl: SM.swt_fwd_level_2d_mxu(
+                                      x, lo, hi, lv, s, (f32, bf16)),
+                                  lambda x, s=sch, lv=lvl: SM.swt_fwd_level_2d_mxu_ref(
+                                      x, lo, hi, lv, s, (f32, bf16)),
+                                  f"3D {tier} level {lvl} {sch} {idt} in {(TD, R, R)}",
+                                  timed and lvl == 1, TD * flops_swt_2d(R, R, hl) * TERMS[sch],
+                                  scheme_peak(sch), scheme_limit(sch)))
+            if ("si", inv_sch, lvl) not in seen:
+                seen.add(("si", inv_sch, lvl))
+                bands = list(SM.swt_fwd_level_2d_mxu_ref(rand(TD, R, R).to(bf16), lo, hi, lvl,
+                                                         "b1", (f32, bf16)))
+                for tt in (thr, None):
+                    cases.append(Case(
+                        "swt_inv_level_2d_mxu", bands,
+                        lambda t, s=inv_sch, lv=lvl, tt=tt: SM.swt_inv_level_2d_mxu(
+                            *t, rlo, rhi, lv, s, f32, tt),
+                        lambda t, s=inv_sch, lv=lvl, tt=tt: SM.swt_inv_level_2d_mxu_ref(
+                            *t, rlo, rhi, lv, s, f32, tt),
+                        f"3D {tier} level {lvl} {inv_sch} threshold {tt and tt[0]} {(TD, R, R)}",
+                        timed and lvl == 1 and tt is not None,
+                        TD * flops_swt_2d(R, R, hl) * TERMS[inv_sch], scheme_peak(inv_sch),
+                        scheme_limit(inv_sch)))
+    # a batch of 5 x 3 planes (a batch of 3 volumes of depth 5), odd subbands
+    odd = (15, 37, 53)
+    cases.append(Case("fwd_level_2d", rand(15, 74, 106), lambda x: K.fwd_level_2d(x, lo, hi),
+                      lambda x: K.fwd_level_2d_ref(x, lo, hi), "batch 5x3 (15, 74, 106)"))
+    cases.append(Case("inv_level_2d", [rand(*odd) for _ in range(4)],
+                      lambda t: K.inv_level_2d(*t, rlo, rhi),
+                      lambda t: K.inv_level_2d_ref(*t, rlo, rhi), f"batch 5x3 subbands {odd}"))
+    ob = S.swt_fwd_level_2d_ref(rand(*odd), lo, hi, 2)
+    cases.append(Case("swt_fwd_level_2d", rand(*odd), lambda x: S.swt_fwd_level_2d(x, lo, hi, 2),
+                      lambda x: S.swt_fwd_level_2d_ref(x, lo, hi, 2), f"batch 5x3 {odd} level 2"))
+    cases.append(Case("swt_inv_level_2d", ob,
+                      lambda t: S.swt_inv_level_2d(*t, rlo, rhi, 2, ("hard", 20.0)),
+                      lambda t: S.swt_inv_level_2d_ref(*t, rlo, rhi, 2, ("hard", 20.0)),
+                      f"batch 5x3 {odd} level 2 threshold hard"))
+    cases.append(Case("fwd_level_2d_mxu", rand(15, 64, 256).to(bf16),
+                      lambda x: M.fwd_level_2d_mxu(x, lo, hi, "b1", (f32, bf16)),
+                      lambda x: M.fwd_level_2d_mxu_ref(x, lo, hi, "b1", (f32, bf16)),
+                      "batch 5x3 (15, 64, 256) b1", limit=scheme_limit("b1")))
+    ib = [rand(15, 32, 128)] + [(rand(15, 32, 128) - 127.5).to(bf16) for _ in range(3)]
+    cases.append(Case("inv_level_2d_mxu", ib, lambda t: M.inv_level_2d_mxu(*t, rlo, rhi, "b3", f32),
+                      lambda t: M.inv_level_2d_mxu_ref(*t, rlo, rhi, "b3", f32),
+                      "batch 5x3 subbands (15, 32, 128) b3", limit=scheme_limit("b3")))
+    cases.append(Case("swt_fwd_level_2d_mxu", rand(15, 64, 256),
+                      lambda x: SM.swt_fwd_level_2d_mxu(x, lo, hi, 2, "fd", (f32, bf16)),
+                      lambda x: SM.swt_fwd_level_2d_mxu_ref(x, lo, hi, 2, "fd", (f32, bf16)),
+                      "batch 5x3 (15, 64, 256) level 2 fd", limit=scheme_limit("fd")))
+    sb = list(SM.swt_fwd_level_2d_mxu_ref(rand(15, 64, 256), lo, hi, 1, "fd", (f32, bf16)))
+    cases.append(Case("swt_inv_level_2d_mxu", sb,
+                      lambda t: SM.swt_inv_level_2d_mxu(*t, rlo, rhi, 1, "b2f", f32,
+                                                        ("garrote", 20.0)),
+                      lambda t: SM.swt_inv_level_2d_mxu_ref(*t, rlo, rhi, 1, "b2f", f32,
+                                                            ("garrote", 20.0)),
+                      "batch 5x3 (15, 64, 256) level 1 b2f threshold garrote",
+                      limit=scheme_limit("b2f")))
+    # one pass of each kernel at the 3D path's shapes, in a report of its own
+    # (the JSON rows keep their 2D paths' times); worst errors go to both
+    vrep = {name: dict(report[name], max_abs_err=0.0, ms=0.0, plain_ms=0.0, device_ms=0.0,
+                       plain_device_ms=0.0, bytes_ms=0.0, ops_ms=0.0, bound_ms=0.0,
+                       library_ms=None) for name in VOL_NAMES}
+    run_cases(cases, vrep, card)
+    for name in VOL_NAMES:
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], vrep[name]["max_abs_err"])
+    print("volume kernels, one pass of the 3D path's timed shapes (ms; device ms by "
+          f"torch.profiler) [{card}]: " + json.dumps(
+              {n: {k: vrep[n][k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms",
+                                           "bound_ms", "max_abs_err")} for n in VOL_NAMES}),
+          flush=True)
+    del cases
+    torch.cuda.empty_cache()
+    print(f"volume (a): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---------------- (b) the exact roundtrip ----------------
+    vol = rand(*VOL_SHAPE)
+    exact_rt = {"fwd_level_2d": L, "inv_level_2d": L}
+    rt = lambda x: idwt3d(dwt3d(x, w, L), w, VOL_SHAPE)
+    c = counted_exactly("dwt3d", lambda: dwt3d(vol, w, L), {"fwd_level_2d": L}, vol_launches)
+    y = counted_exactly("idwt3d", lambda: idwt3d(c, w, VOL_SHAPE), {"inv_level_2d": L},
+                        vol_launches)
+    Wv = Wavelets(vol, wname=VOL_WNAME, levels=L, device=dev)
+    wc = counted_exactly("Wavelets(volume).forward", Wv.forward, {"fwd_level_2d": L},
+                         vol_launches)
+    wy = counted_exactly("Wavelets(volume).inverse", Wv.inverse, {"inv_level_2d": L},
+                         vol_launches)
+    check(all(torch.equal(a, b) for a, b in zip(leaves(wc), leaves(c))) and torch.equal(wy, y),
+          "volume: the facade's roundtrip differs from dwt3d/idwt3d's")
+    with plain_route():
+        cp = dwt3d(vol, w, L)
+        yp = idwt3d(cp, w, VOL_SHAPE)
+    vhold("volume roundtrip: coefficients vs the same composition on plain versions", c, cp)
+    vhold("volume roundtrip: image vs the same composition on plain versions", y, yp)
+    per = ("periodization",) * 3
+    cc = S3._dwt3d_mode(vol, w, L, per)
+    yc = S3._idwt3d_mode(cc, w, VOL_SHAPE, per)
+    vhold("volume roundtrip: coefficients vs the conv passes", c, cc, CONV_RTOL)
+    vhold("volume roundtrip: image vs the conv passes", y, yc, CONV_RTOL)
+    err = float((y - vol).abs().max())
+    print(f"volume roundtrip max|idwt3d(dwt3d(x)) - x| = {err:.3e} (limit {ROUNDTRIP_ATOL})",
+          flush=True)
+    check(err <= ROUNDTRIP_ATOL, "volume roundtrip error")
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        yh = counted_exactly("roundtrip under set_float32_matmul_precision('high')",
+                             lambda: rt(vol), exact_rt, vol_launches)
+        check(torch.get_float32_matmul_precision() == "high",
+              "volume: the depth product did not restore the caller's setting")
+        vhold("volume roundtrip (precision 'high') vs the plain composition", yh, yp)
+        vhold("volume roundtrip (precision 'high') vs the conv passes", yh, yc, CONV_RTOL)
+        errh = float((yh - vol).abs().max())
+        print(f"volume roundtrip (precision 'high') max|y - x| = {errh:.3e} (limit "
+              f"{ROUNDTRIP_ATOL})", flush=True)
+        check(errh <= ROUNDTRIP_ATOL, "volume roundtrip error under precision 'high'")
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    del cc, yc, cp, yp, wc, wy
+    label = f"volume roundtrip {VOL_SHAPE} {VOL_WNAME} {L} levels"
+    time_in_turns(label, lambda: rt(vol), lambda: plain_rt(rt, vol), card)
+    vol_timing(label, lambda: rt(vol), card)
+    print(f"volume (b): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---------------- (c) the roundtrip under each tier ----------------
+    for tier in TIERS:
+        xt = vol if tier == "mixed" else vol.to(bf16)
+        det = f32 if tier == "mixed" else bf16
+        ct = counted_exactly(f"dwt3d {tier}", lambda: dwt3d(xt, w, L, precision=tier),
+                             {"fwd_level_2d_mxu": L}, vol_launches)
+        yt = counted_exactly(f"idwt3d {tier}", lambda: idwt3d(ct, w, VOL_SHAPE, precision=tier),
+                             {"inv_level_2d_mxu": 2 * L}, vol_launches)
+        check(ct.approx.dtype == f32 and all(b.dtype == det for d in ct.details for b in d)
+              and yt.dtype == xt.dtype, f"volume {tier}: the dtype contract")
+        with plain_route():
+            cpt = dwt3d(xt, w, L, precision=tier)
+            ypt = idwt3d(cpt, w, VOL_SHAPE, precision=tier)
+        compare_route(f"volume roundtrip {tier}", (ct, yt), (cpt, ypt))
+        errt = float((yt.float() - vol).abs().max())
+        print(f"volume roundtrip {tier} max|y - x| = {errt!r} on [0, 255] (limit "
+              f"{VOL_ROUNDTRIP_LIMIT[tier]})", flush=True)
+        check(errt <= VOL_ROUNDTRIP_LIMIT[tier], f"volume roundtrip error under {tier}")
+        del cpt, ypt
+        vol_timing(f"{label} {tier}", lambda: idwt3d(dwt3d(xt, w, L, precision=tier), w,
+                                                     VOL_SHAPE, precision=tier), card)
+    Wv.forward()
+    print(f"volume (c): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---------------- (d) the TI step ----------------
+    vti = rand(*VTI_SHAPE)
+    for tier in ("exact",) + TIERS:
+        xt = vti.to(bf16) if tier.startswith("bf16") else vti
+        routed = tier.startswith("bf16")
+        want = ({"swt_fwd_level_2d_mxu": L, "swt_inv_level_2d_mxu": 2 * L} if routed
+                else {"swt_fwd_level_2d": L, "swt_inv_level_2d": 2 * L})
+
+        def step(x=xt, tier=tier):
+            with P.precision_scope(tier):
+                return denoise_step_3d(x, torch.Generator(device=dev).manual_seed(7), w, L,
+                                       VTI_BETA, swt=True)
+
+        def unfused(x=xt, tier=tier):
+            g = torch.Generator(device=dev).manual_seed(7)
+            sh = [int(torch.randint(0, n, (), generator=g, device=dev)) for n in VTI_SHAPE]
+            with P.precision_scope(tier):
+                ct = ops.soft_threshold(swt3d(ops.circshift3d(x, *sh), w, L), VTI_BETA)
+                return ops.circshift3d(iswt3d(ct, w), *(-s for s in sh)), ops.norm1(ct)
+
+        out, n1 = counted_exactly(f"TI step {tier}", step, want, vol_launches)
+        check(tuple(out.shape) == VTI_SHAPE and out.dtype == xt.dtype
+              and bool(torch.isfinite(out).all()), f"volume TI step {tier}: shape, dtype, finite")
+        with plain_route():
+            outp, n1p = step()
+            outu, n1u = unfused()
+        compare_route(f"volume TI step {tier}", out, outp)
+        if xt.dtype == bf16:
+            erru = float((out.float() - outu.float()).abs().max())
+            print(f"volume TI step {tier} vs the unfused path on plain versions: max|diff| "
+                  f"{erru:.3e} (limit {VTI_UNFUSED_BF16_ATOL})", flush=True)
+            check(erru <= VTI_UNFUSED_BF16_ATOL, f"volume TI step {tier} vs the unfused path")
+        else:
+            vhold(f"volume TI step {tier} vs the unfused path on plain versions", out, outu)
+        for a, b, what in ((n1, n1p, "the same route"), (n1, n1u, "norm1 of the thresholded "
+                                                                  "tree (unfused)")):
+            print(f"volume TI step {tier} norm {float(a)!r} vs {what} {float(b)!r}", flush=True)
+            check(abs(float(a) - float(b)) <= NORM_RTOL * abs(float(b)),
+                  f"volume TI step {tier}: the fused norm vs {what}")
+        with P.precision_scope(tier):
+            kc = swt3d(xt, w, L)
+            fused = float(ops.thresholded_norm1(kc, VTI_BETA))
+            full = float(ops.norm1(ops.soft_threshold(kc, VTI_BETA)))
+        print(f"volume TI step {tier}: thresholded_norm1 {fused!r} vs norm1(soft_threshold) "
+              f"{full!r}", flush=True)
+        check(abs(fused - full) <= NORM_RTOL * abs(full), f"volume {tier} thresholded_norm1")
+        del outp, outu, kc
+        lab = f"volume TI step {VTI_SHAPE} {VOL_WNAME} {L} levels soft beta {VTI_BETA} {tier}"
+        if tier == "exact":
+            time_in_turns(lab, step, lambda: plain_rt(step), card)
+        vol_timing(lab, step, card)
+    print(f"volume (d): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---------------- (e) the rest of the slice on the card ----------------
+    T = Wavelets(vti, wname=VOL_WNAME, levels=L, do_swt=True, device=dev)
+    run_out, run_n1 = counted_exactly("Wavelets(volume, do_swt=True).run_denoise",
+                                      lambda: T.run_denoise(VTI_BETA),
+                                      {"swt_fwd_level_2d": L, "swt_inv_level_2d": 2 * L},
+                                      vol_launches)
+    ref_out, ref_n1 = denoise_step_3d(vti, None, w, L, VTI_BETA, swt=True)
+    vhold("volume facade run_denoise vs denoise_step_3d", run_out, ref_out)
+    vhold_value("volume facade run_denoise norm vs denoise_step_3d's", run_n1, ref_n1)
+    band = Wv.get_coeff(14, copy=False)
+    check(band is Wv.coeffs.details[1][6], "volume: get_coeff(14) is not level 2's ddd")
+    Wv.set_coeff(torch.zeros_like(band), 14)
+    check(float(Wv.coeffs.details[1][6].abs().max()) == 0.0
+          and Wv.coeffs.details[1][5] is not None, "volume: set_coeff(14)")
+    Wc = Wavelets(vol, wname=VOL_WNAME, levels=L, do_cycle_spinning=True, seed=5, device=dev)
+    Wc.forward()
+    yc = Wc.inverse()
+    errc = float((yc - vol).abs().max())
+    shifts = (Wc.current_shift_d, Wc.current_shift_r, Wc.current_shift_c)
+    print(f"volume cycle spinning, shifts (d, r, c) {shifts}: max|y - x| {errc:.3e} (limit "
+          f"{ROUNDTRIP_ATOL})", flush=True)
+    check(any(shifts) and errc <= ROUNDTRIP_ATOL, "volume cycle spinning roundtrip")
+    for method in ("bayes", "sure", "universal"):
+        got = counted_exactly(f"auto_denoise_3d {method}",
+                              lambda m=method: auto_denoise_3d(vti, w, L, method=m),
+                              {"fwd_level_2d": L, "inv_level_2d": L}, vol_launches)
+        with plain_route():
+            want = auto_denoise_3d(vti, w, L, method=method)
+        vhold(f"volume auto_denoise_3d {method} vs the plain route", got, want)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "v.npz")
+        save_coeffs(path, ct)
+        back = load_coeffs(path, device=dev)
+        check(type(back).__name__ == "Coeffs3D" and back.approx.device.type == "cuda"
+              and all(a.dtype == b.dtype and torch.equal(a, b)
+                      for a, b in zip(leaves(back), leaves(ct))), "volume: 3D checkpoint")
+        print("volume: a bf16 3D checkpoint saved and loaded on the card, equal", flush=True)
+        small = vol[:16, :64, :64].contiguous()
+        dat = os.path.join(tmp, "v.dat")
+        write_dat(dat, small.cpu().numpy())
+        for scenario in ("1", "2", "3"):
+            out_path = os.path.join(tmp, f"r{scenario}.dat")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = demo.main([dat, "--nd", "16", "--nr", "64", "--nc", "64", "--scenario",
+                                scenario, "--wavelet", VOL_WNAME, "--levels", str(L), "--out",
+                                out_path])
+            text = buf.getvalue()
+            check(rc == 0 and "Data dimensions : (16, 64, 64)" in text
+                  and f"cuda:{torch.cuda.get_device_name(dev)}" in text,
+                  f"volume: demo --nd scenario {scenario}: rc {rc}, output {text!r}")
+            if scenario == "2":
+                res = torch.from_numpy(np.fromfile(out_path, np.float32)).to(dev)
+                errd = float((res.reshape(small.shape) - small).abs().max())
+                print(f"volume: demo --nd scenario 2 max|y - x| {errd:.3e}", flush=True)
+                check(errd <= ROUNDTRIP_ATOL, "volume: demo --nd roundtrip")
+    print(f"volume launches: {vol_launches}", flush=True)
+    for name in VOL_NAMES:
+        check(vol_launches.get(name, 0) > 0, f"the volume path never launched {name}")
+        launches[name] += vol_launches[name]
+    print(f"volume phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def plain_rt(fn, *args):
+    """fn(*args) on the plain route (``plain_route``)."""
+    with plain_route():
+        return fn(*args)
+
 
 if __name__ == "__main__":
     main()

@@ -6,7 +6,8 @@ it is), with the same module names:
 * ``filters``  — the 72-wavelet bank, custom filters and the non-separable
   quads (numpy)
 * ``core``     — ``dwt2d``/``idwt2d`` (with the boundary modes, ``MODES``),
-  ``swt2d``/``iswt2d``/``iswt2d_denoise``,
+  ``swt2d``/``iswt2d``/``iswt2d_denoise``, the 3D ``dwt3d``/``idwt3d``/
+  ``swt3d``/``iswt3d``/``iswt3d_denoise`` (``Coeffs3D``),
   the batched 1D ``dwt1d``/``idwt1d``/``swt1d``/``iswt1d``, the
   non-separable ``dwt2d_ns``/``idwt2d_ns``/``swt2d_ns``/``iswt2d_ns`` and the
   plain reference path (``conv``)
@@ -15,17 +16,18 @@ it is), with the same module names:
 * ``ops``      — soft, hard, garrote, group and firm thresholds, the L2
   shrink and the L-infinity projection, the norms (``norm1``, ``norm2sq``,
   ``norm_l21`` and their thresholded forms), the coefficient axpy, circular
-  shifts and the threshold estimators (noise sigma, universal, BayesShrink,
+  shifts (1D, 2D, 3D) and the threshold estimators (noise sigma, universal, BayesShrink,
   SureShrink)
 * ``models``   — the denoising step (DWT and TI), ``auto_denoise``,
-  ``cycle_spin_denoise`` and the (F)ISTA solver ``ista``
+  ``cycle_spin_denoise``, their volume forms ``denoise_step_3d`` and
+  ``auto_denoise_3d``, and the (F)ISTA solver ``ista``
 * ``api``      — the stateful ``Wavelets`` facade
 * ``parallel`` — device meshes on ``torch.distributed``, the ring halo
   exchange and the sharded 2D and batched 1D DWT and SWT (DTensors)
 * ``utils``    — raw ``.dat`` I/O, coefficient checkpoints in the JAX
   package's ``.npz`` layout, numpy conversions to and from it
-* ``demo``     — the reference demo's scenarios 1-3
-  (``python -m pdwt_tpu_torch.demo``)
+* ``demo``     — the reference demo's scenarios 1-3, on an image or (``--nd``)
+  a volume (``python -m pdwt_tpu_torch.demo``)
 
 The port covers the 2D separable DWT under every boundary mode of JAX's
 (``mode=``: periodization, the default, and the eight pywt modes, per
@@ -38,10 +40,14 @@ tiers (``mixed``, ``bf16-fast``, ``bf16-balanced``, ``bf16-accurate``;
 ``precision=`` on every entry point, or ``precision_scope``), on eighteen
 CUDA kernels (and the padded entry points of four of them, which carry
 the boundary modes, and of four more, which carry the sharded SWT), the
-reference's whole operator set on them, and the sharded 2D and 1D
-transforms over a device mesh.  3D, the other transform families and the
-rest of sharding come later (ROADMAP queue 1).  Importing the package needs no GPU and builds nothing; the CUDA
-kernels are compiled at their first launch.
+reference's whole operator set on them, the sharded 2D and 1D transforms
+over a device mesh, and the separable 3D DWT and SWT (with the 3D
+TI-denoise step, ``Wavelets`` on a volume, the volume denoisers and 3D
+checkpoints): the 2D level kernels with depth as their batch, the depth
+pass one matrix product.  The sharded 3D transforms, the other transform
+families and the rest of sharding come later (ROADMAP queue 1).  Importing
+the package needs no GPU and builds nothing; the CUDA kernels are compiled
+at their first launch.
 """
 from . import core, filters, models, ops, parallel, utils
 from .api import Wavelets, WaveletSpec
@@ -50,11 +56,14 @@ from .core.precision import TIERS, precision_scope
 from .core.nonseparable import dwt2d_ns, idwt2d_ns, iswt2d_ns, swt2d_ns
 from .core.separable import (Coeffs1D, Coeffs2D, dwt1d, dwt2d, idwt1d, idwt2d, iswt1d,
                              iswt2d, iswt2d_denoise, swt1d, swt2d)
+from .core.separable3d import (DETAIL_KEYS_3D, Coeffs3D, dwt3d, idwt3d, iswt3d, iswt3d_denoise,
+                               swt3d)
 from .filters import (Wavelet, get_wavelet, list_wavelets, make_custom_wavelet, quad_filters,
                       register_wavelet)
 
 __all__ = ["Wavelets", "WaveletSpec", "Wavelet", "get_wavelet", "list_wavelets",
            "make_custom_wavelet", "register_wavelet", "quad_filters", "dwt2d", "idwt2d",
            "swt2d", "iswt2d", "iswt2d_denoise", "Coeffs2D", "dwt1d", "idwt1d", "swt1d",
-           "iswt1d", "Coeffs1D", "dwt2d_ns", "idwt2d_ns", "swt2d_ns", "iswt2d_ns", "TIERS", "MODES",
+           "iswt1d", "Coeffs1D", "dwt3d", "idwt3d", "swt3d", "iswt3d", "iswt3d_denoise",
+           "Coeffs3D", "DETAIL_KEYS_3D", "dwt2d_ns", "idwt2d_ns", "swt2d_ns", "iswt2d_ns", "TIERS", "MODES",
            "precision_scope", "core", "filters", "models", "ops", "parallel", "utils"]

@@ -1,7 +1,8 @@
 """Stateful ``Wavelets`` facade (counterpart of ``pdwt_tpu/api.py``).
 
-The port covers one 2D image or a batch of 1D signals (``ndim=1``, or a
-1D array, or ``nr == 1``), the separable and (2D, ``do_separable=False``)
+The port covers one 2D image, a batch of 1D signals (``ndim=1``, or a 1D
+array, or ``nr == 1``) or one 3D volume (a 3D array, or ``ndim=3``), the
+separable and (2D, ``do_separable=False``)
 non-separable DWT and SWT (``do_swt=True``), the boundary modes of the
 separable DWT (``mode=``: periodization, the default, or any pywt mode, one
 for every axis or one per axis) and the precision tiers (``precision=``),
@@ -16,14 +17,17 @@ separable only), ``add_wavelet``, ``circshift``, ``copy``, ``get_coeff`` /
 ``set_coeff`` on the reference's flat numbering, ``get_image`` /
 ``set_image``, ``set_filters_forward`` / ``set_filters_inverse`` (two
 filters, or four quads when non-separable), ``info`` /
-``print_informations`` and cycle spinning (2D).  Haar runs the same
+``print_informations`` and cycle spinning (2D and 3D).  Haar runs the same
 separable transforms as any other filter (the butterflies of
 ``core/haar.py`` are public functions, not a route of the facade).
 A boundary mode other than periodization takes the decimated separable
 DWT only (``ValueError`` with ``do_swt`` or ``do_separable=False``, a
 warning under cycle spinning, as in JAX) and sizes the coefficients by
-pywt's rule.  3D raises ``NotImplementedError`` naming the ROADMAP item
-that adds it.
+pywt's rule.  A volume runs the separable 3D transforms
+(``core/separable3d.py``): the non-separable flag is ignored with a
+warning, as in JAX; cycle spinning draws the row, the column, then the
+depth shift; ``get_coeff``/``set_coeff`` number 0 the approximation, then
+the 7 bands of level 1 (daa..ddd) 1..7, of level 2 8..14, and so on.
 
 The image and coefficients are tensors on one device: the device of an
 image given as a tensor, else ``device=``, which defaults to the CUDA card
@@ -53,7 +57,8 @@ from .core.nonseparable import dwt2d_ns, idwt2d_ns, iswt2d_ns, swt2d_ns
 from .core.precision import check_tier, precision_scope, tier_for
 from .core.separable import (Coeffs1D, Coeffs2D, all_periodization, dwt1d, dwt2d, idwt1d,
                              idwt2d, iswt1d, iswt2d, iswt2d_denoise, swt1d, swt2d)
-from .core.shapes import coeff_shapes_1d, coeff_shapes_2d, max_level
+from .core.separable3d import Coeffs3D, dwt3d, idwt3d, iswt3d, iswt3d_denoise, swt3d
+from .core.shapes import coeff_shapes_1d, coeff_shapes_2d, coeff_shapes_3d, max_level
 from .filters import Wavelet, get_wavelet, make_custom_wavelet, quad_filters
 from .utils.convert import default_device, tensor_from_numpy, tensor_to_numpy
 
@@ -83,10 +88,12 @@ class WaveletSpec:
     do_separable: bool = True
     #: boundary extension (core/modes.py): a mode, or one per axis
     mode: object = "periodization"
+    #: depth (ndim == 3 only)
+    nd: int = 1
 
-
-def _later(what: str, item: int):
-    return NotImplementedError(f"{what} comes with ROADMAP queue 1, item {item}")
+    @property
+    def shape(self):
+        return (self.nd, self.nr, self.nc) if self.ndim == 3 else (self.nr, self.nc)
 
 
 def _same_device(t: torch.Tensor, device: torch.device) -> bool:
@@ -103,6 +110,8 @@ class Wavelets:
     >>> img_dn, n1 = T.run_denoise(10.0)   # the TI-denoise step
     >>> S = Wavelets(sig, wname="sym8", levels=4, ndim=1, device="cuda")
     >>> sig_dn, n1 = S.run_denoise(0.1)    # sig: (batch, n) signals or one (n,)
+    >>> V = Wavelets(vol, wname="db4", levels=2, do_swt=True, device="cuda")
+    >>> vol_dn, n1 = V.run_denoise(1.0)    # vol: (nd, nr, nc)
     """
 
     def __init__(self, img=None, nr: Optional[int] = None, nc: Optional[int] = None,
@@ -110,9 +119,7 @@ class Wavelets:
                  do_cycle_spinning: bool = False, do_swt: bool = False,
                  ndim: int = 2, dtype=None, seed: int = 0, mode="periodization",
                  precision: Optional[str] = None, device=None):
-        if ndim == 3:
-            raise _later("the 3D transform (ndim=3)", 12)
-        if ndim not in (1, 2):
+        if ndim not in (1, 2, 3):
             raise ValueError(f"ndim={ndim} is not implemented")
         # one mode per transformed axis (pywt), its count checked below
         mode = modes.check_mode(mode) if isinstance(mode, str) else tuple(
@@ -137,6 +144,7 @@ class Wavelets:
             dtype = torch.bfloat16 if bf16_tier else torch.float32
         tier = "auto" if precision is None else tier_for(dtype, precision)
 
+        nd = 1
         if img is not None:
             if isinstance(img, torch.Tensor):
                 if device is not None and not _same_device(img, torch.device(device)):
@@ -149,26 +157,33 @@ class Wavelets:
                 img = img[None, :]
                 ndim = 1
             if img.ndim == 3:
-                raise _later("3D volumes", 12)
-            if img.ndim != 2:
-                raise ValueError(f"expected a 1D or 2D array, got shape {tuple(img.shape)}")
-            if (nr, nc) != (None, None) and (nr, nc) != tuple(img.shape):
+                ndim = 3
+            elif ndim == 3:
+                raise ValueError(f"ndim=3 takes a 3D volume (nd, nr, nc), got shape "
+                                 f"{tuple(img.shape)}")
+            if img.ndim not in (2, 3):
+                raise ValueError(f"expected a 1D, 2D or 3D array, got shape "
+                                 f"{tuple(img.shape)}")
+            if (nr, nc) != (None, None) and (nr, nc) != tuple(img.shape[-2:]):
                 raise ValueError(f"nr, nc = {nr!r}, {nc!r} contradict the image's shape "
                                  f"{tuple(img.shape)} (pass wname= and levels= by keyword)")
-            nr, nc = img.shape
+            nr, nc = img.shape[-2:]
+            if ndim == 3:
+                nd = img.shape[0]
         elif nr is None or nc is None:
             raise ValueError("provide either an image or (nr, nc)")
         else:
-            img = torch.zeros((nr, nc), dtype=dtype, device=default_device(device))
+            shape = (nd, nr, nc) if ndim == 3 else (nr, nc)
+            img = torch.zeros(shape, dtype=dtype, device=default_device(device))
 
         if levels < 1:
             warnings.warn("cannot initialize wavelet coefficients with nlevels < 1; "
                           "forcing nlevels = 1")
             levels = 1
-        if nr == 1:  # one signal
+        if nr == 1 and ndim == 2:  # one signal
             ndim = 1
-        if not do_separable and ndim == 1:
-            warnings.warn("1D DWT is incompatible with non-separable transform; "
+        if not do_separable and ndim in (1, 3):
+            warnings.warn(f"{ndim}D DWT is incompatible with non-separable transform; "
                           "ignoring do_separable")
             do_separable = True
         if do_cycle_spinning and do_swt:
@@ -183,9 +198,10 @@ class Wavelets:
             w = self._wavelet
             self._quads_fwd = quad_filters(w.dec_lo, w.dec_hi)
             self._quads_inv = quad_filters(w.rec_lo, w.rec_hi)
-        wmax = max_level(nc if ndim == 1 else min(nr, nc), hlen)
+        wmax = max_level({1: nc, 2: min(nr, nc), 3: min(nd, nr, nc)}[ndim], hlen)
         if levels > wmax:
-            dims = f"length-{nc} signal" if ndim == 1 else f"{nr}x{nc} image"
+            dims = {1: f"length-{nc} signal", 2: f"{nr}x{nc} image",
+                    3: f"{nd}x{nr}x{nc} volume"}[ndim]
             warnings.warn(
                 f"required level ({levels}) is greater than the maximum possible "
                 f"level for {wname} ({wmax}) on a {dims}; forcing "
@@ -197,12 +213,13 @@ class Wavelets:
         self.spec = WaveletSpec(wname=wname, nr=nr, nc=nc, nlevels=levels,
                                 do_cycle_spinning=do_cycle_spinning, dtype=dtype,
                                 hlen=hlen, do_swt=do_swt, ndim=ndim, precision=tier,
-                                do_separable=do_separable, mode=mode)
+                                do_separable=do_separable, mode=mode, nd=nd)
         self.device = img.device
         self.d_image = img
         self.state = WState.INIT
         self.current_shift_r = 0
         self.current_shift_c = 0
+        self.current_shift_d = 0  # the depth shift of a volume
         self._rng = np.random.default_rng(seed)
         self._coeffs = self._zero_coeffs()
 
@@ -218,6 +235,11 @@ class Wavelets:
         if s.ndim == 1:
             a_len, det_lens = coeff_shapes_1d(s.nc, s.nlevels, s.do_swt, s.mode, s.hlen)
             return Coeffs1D(za((s.nr, a_len)), tuple(z((s.nr, n)) for n in det_lens))
+        if s.ndim == 3:
+            a_shape, det_shapes = coeff_shapes_3d(s.nd, s.nr, s.nc, s.nlevels, s.do_swt, s.mode,
+                                                  s.hlen)
+            return Coeffs3D(za(a_shape), tuple(tuple(z(d) for _ in range(7))
+                                               for d in det_shapes))
         a_shape, det_shapes = coeff_shapes_2d(s.nr, s.nc, s.nlevels, s.do_swt, s.mode, s.hlen)
         return Coeffs2D(za(a_shape), tuple((z(d), z(d), z(d)) for d in det_shapes))
 
@@ -227,7 +249,8 @@ class Wavelets:
 
     @property
     def coeffs(self):
-        """The coefficient tree: a :class:`Coeffs1D` or a :class:`Coeffs2D`."""
+        """The coefficient tree: a :class:`Coeffs1D`, :class:`Coeffs2D` or
+        :class:`Coeffs3D`."""
         return self._coeffs
 
     @coeffs.setter
@@ -257,9 +280,18 @@ class Wavelets:
         return True
 
     def _draw_shifts(self):
-        """The row then the column shift, from ``numpy.random.default_rng(seed)``."""
+        """(depth, row, column) shifts: the row, the column, then (3D) the
+        depth shift, drawn in that order from
+        ``numpy.random.default_rng(seed)``; the depth shift is 0 in 2D."""
         s = self.spec
-        return int(self._rng.integers(0, s.nr)), int(self._rng.integers(0, s.nc))
+        sr, sc = int(self._rng.integers(0, s.nr)), int(self._rng.integers(0, s.nc))
+        sd = int(self._rng.integers(0, s.nd)) if s.ndim == 3 else 0
+        return sd, sr, sc
+
+    def _shift(self, img: torch.Tensor, sd: int, sr: int, sc: int) -> torch.Tensor:
+        if self.spec.ndim == 3:
+            return ops.circshift3d(img, sd, sr, sc)
+        return ops.circshift2d(img, sr, sc)
 
     def _tier(self):
         """The facade's tier, active for the transforms run inside."""
@@ -274,6 +306,8 @@ class Wavelets:
         fwd_kw = {} if s.do_swt else {"mode": s.mode}
         if s.ndim == 1:
             fwd = swt1d if s.do_swt else dwt1d
+        elif s.ndim == 3:
+            fwd = swt3d if s.do_swt else dwt3d
         else:
             fwd = swt2d if s.do_swt else dwt2d
         with self._tier():
@@ -287,20 +321,24 @@ class Wavelets:
                     return iswt2d_ns(coeffs, self._quads_inv)
                 return idwt2d_ns(coeffs, self._quads_inv, (s.nr, s.nc))
             if s.do_swt:
-                return (iswt1d if s.ndim == 1 else iswt2d)(coeffs, self._wavelet)
+                return {1: iswt1d, 2: iswt2d, 3: iswt3d}[s.ndim](coeffs, self._wavelet)
             if s.ndim == 1:
                 return idwt1d(coeffs, self._wavelet, s.nc, mode=s.mode)
-            return idwt2d(coeffs, self._wavelet, (s.nr, s.nc), mode=s.mode)
+            return (idwt3d if s.ndim == 3 else idwt2d)(coeffs, self._wavelet, s.shape,
+                                                        mode=s.mode)
 
     def forward(self):
         """Compute the coefficients of the current image.  With cycle
-        spinning, the row then the column shift are drawn first from
-        ``numpy.random.default_rng(seed)``."""
+        spinning, the row, the column and (3D) the depth shift are drawn
+        first from ``numpy.random.default_rng(seed)``."""
         s = self.spec
         img = self.d_image
         if s.do_cycle_spinning:
-            self.current_shift_r, self.current_shift_c = self._draw_shifts()
-            img = ops.circshift2d(img, self.current_shift_r, self.current_shift_c)
+            sd, self.current_shift_r, self.current_shift_c = self._draw_shifts()
+            if s.ndim == 3:
+                self.current_shift_d = sd
+            img = self._shift(img, self.current_shift_d, self.current_shift_r,
+                              self.current_shift_c)
         self._coeffs = self._analysis(img)
         self.state = WState.FORWARD
         return self._coeffs
@@ -308,8 +346,8 @@ class Wavelets:
     def run_denoise(self, beta, mode: str = "soft", do_thresh_appcoeffs: bool = False,
                     normalize: bool = False):
         """The whole denoise step: (cycle-spinning shift) -> analysis ->
-        threshold -> norm1 -> synthesis -> unshift.  With ``do_swt`` in 2D,
-        the threshold runs inside the synthesis kernels and the norm comes
+        threshold -> norm1 -> synthesis -> unshift.  With ``do_swt`` in 2D
+        and 3D, the threshold runs inside the synthesis kernels and the norm comes
         from the un-thresholded coefficients (``ops.thresholded_norm1``);
         1D runs the threshold, ``norm1`` and the synthesis in turn, as the
         JAX facade does.  Returns ``(denoised,
@@ -324,24 +362,25 @@ class Wavelets:
         if not s.do_separable:
             raise ValueError("run_denoise supports separable specs only")
         img = self.d_image
-        sr = sc = 0
+        sd = sr = sc = 0
         if s.do_cycle_spinning:
-            sr, sc = self._draw_shifts()
-            img = ops.circshift2d(img, sr, sc)
+            sd, sr, sc = self._draw_shifts()
+            img = self._shift(img, sd, sr, sc)
         c = self._analysis(img)
         if s.do_swt and s.ndim != 1 and mode in ops.THR_ELEM:
             n1 = ops.thresholded_norm1(c, beta, mode=mode, normalize=normalize,
                                        do_thresh_appcoeffs=do_thresh_appcoeffs)
+            inv = iswt3d_denoise if s.ndim == 3 else iswt2d_denoise
             with self._tier():
-                out = iswt2d_denoise(c, self._wavelet, beta, mode=mode, normalize=normalize,
-                                     do_thresh_appcoeffs=do_thresh_appcoeffs)
+                out = inv(c, self._wavelet, beta, mode=mode, normalize=normalize,
+                          do_thresh_appcoeffs=do_thresh_appcoeffs)
         else:
             c = _THRESH[mode](c, beta, normalize=normalize,
                               do_thresh_appcoeffs=do_thresh_appcoeffs)
             n1 = ops.norm1(c)
             out = self._synthesis(c)
         if s.do_cycle_spinning:
-            out = ops.circshift2d(out, -sr, -sc)
+            out = self._shift(out, -sd, -sr, -sc)
         return out, n1
 
     def inverse(self) -> torch.Tensor:
@@ -353,7 +392,8 @@ class Wavelets:
         s = self.spec
         img = self._synthesis(self._coeffs)
         if s.do_cycle_spinning:
-            img = ops.circshift2d(img, -self.current_shift_r, -self.current_shift_c)
+            img = self._shift(img, -self.current_shift_d, -self.current_shift_r,
+                              -self.current_shift_c)
         self.d_image = img
         self.state = WState.INVERSE
         return img
@@ -476,14 +516,14 @@ class Wavelets:
         """Group-lasso (L2,1) norm over ``group_soft_threshold``'s groups."""
         return float(ops.norm_l21(self._coeffs, do_thresh_appcoeffs=do_thresh_appcoeffs))
 
-    def circshift(self, sr: int, sc: int, inplace: bool = True):
-        """Circular shift of the image (the row shift is ignored in 1D).
-        ``inplace=False`` returns the shifted image and leaves the facade as
-        it was."""
+    def circshift(self, sr: int, sc: int, inplace: bool = True, sd: int = 0):
+        """Circular shift of the image (the row shift is ignored in 1D; ``sd``
+        shifts the depth of a volume).  ``inplace=False`` returns the
+        shifted image and leaves the facade as it was."""
         if self.spec.ndim == 1:
             shifted = ops.circshift1d(self.d_image, sc)
         else:
-            shifted = ops.circshift2d(self.d_image, sr, sc)
+            shifted = self._shift(self.d_image, sd, sr, sc)
         if inplace:
             self.d_image = shifted
             return None
@@ -501,7 +541,7 @@ class Wavelets:
             warnings.warn("add_wavelet(): this operation makes no sense when wavelet "
                           "has just been inverted")
             return 1
-        if (s.nr, s.nc, s.ndim) != (o.nr, o.nc, o.ndim):
+        if (s.nd, s.nr, s.nc, s.ndim) != (o.nd, o.nr, o.nc, o.ndim):
             raise ValueError("add_wavelet(): operands do not have the same geometry")
         if s.do_swt != o.do_swt:
             raise ValueError("add_wavelet(): operands should both use SWT or DWT")
@@ -529,19 +569,20 @@ class Wavelets:
             img = img.to(dtype=s.dtype)
         else:
             img = tensor_from_numpy(img, self.device, s.dtype)
-        self.d_image = img.reshape(s.nr, s.nc)
+        self.d_image = img.reshape(s.shape)
         self.state = WState.INIT
 
     def _coeff_ref(self, num: int):
         """The reference's flat numbering: 0 the approximation, then H, V, D
-        of level 1 (1, 2, 3), of level 2 (4, 5, 6), ... in 2D; D of level 1,
-        2, ... (1, 2, ...) in 1D.  Returns (level, band or None), level None
-        for the approximation."""
+        of level 1 (1, 2, 3), of level 2 (4, 5, 6), ... in 2D; the 7 bands
+        daa..ddd of level 1 (1..7), of level 2 (8..14), ... in 3D; D of
+        level 1, 2, ... (1, 2, ...) in 1D.  Returns (level, band or None),
+        level None for the approximation."""
         s = self.spec
         if num == 0:
             return None, None
-        if s.ndim == 2:
-            level, band = divmod(num - 1, 3)
+        if s.ndim in (2, 3):
+            level, band = divmod(num - 1, 7 if s.ndim == 3 else 3)
             if level >= s.nlevels:
                 raise IndexError(f"coefficient {num} out of range")
             return level, band
@@ -594,16 +635,18 @@ class Wavelets:
         """The transform's configuration, its estimated memory footprint (the
         reference's formula) and the device."""
         s = self.spec
-        npix = s.nr * s.nc
+        npix = s.nd * s.nr * s.nc  # nd is 1 unless ndim == 3
         if not s.do_swt:
             mem = 5 * npix * s.dtype.itemsize
+        elif s.ndim == 3:
+            mem = (7 * s.nlevels + 4) * npix * s.dtype.itemsize
         elif s.ndim == 2:
             mem = (3 * s.nlevels + 4) * npix * s.dtype.itemsize
         else:
             mem = (s.nlevels + 4) * npix * s.dtype.itemsize
         dev = self.device
         return {
-            "dims": (s.nr, s.nc) if s.ndim == 2 else s.nc,
+            "dims": s.shape if s.ndim in (2, 3) else s.nc,
             "batched_1d": s.ndim == 1 and s.nr > 1,
             "wavelet": s.wname,
             "levels": s.nlevels,
@@ -622,7 +665,7 @@ class Wavelets:
     def print_informations(self) -> None:
         i = self.info()
         print("------------- Wavelet transform infos ------------")
-        if self.spec.ndim == 2:
+        if self.spec.ndim in (2, 3):
             print(f"Data dimensions : {i['dims']}")
         elif i["batched_1d"]:
             print(f"Data dimensions : ({self.spec.nr}, {self.spec.nc}) "
@@ -643,7 +686,7 @@ class Wavelets:
 
     def __repr__(self):
         s = self.spec
-        return (f"Wavelets({s.wname!r}, shape=({s.nr}, {s.nc}), ndim={s.ndim}, "
+        return (f"Wavelets({s.wname!r}, shape={s.shape}, ndim={s.ndim}, "
                 f"levels={s.nlevels}, "
                 f"swt={s.do_swt}, separable={s.do_separable}, "
                 f"cycle_spinning={s.do_cycle_spinning}, dtype={s.dtype}, "

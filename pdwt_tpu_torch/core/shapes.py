@@ -61,3 +61,17 @@ def coeff_shapes_1d(n: int, levels: int, do_swt: bool = False, mode="periodizati
     (mode,) = modes.per_axis(mode, 1)
     sizes = level_sizes(n, levels, hlen, mode)
     return sizes[-1], sizes[1:]
+
+
+def coeff_shapes_3d(nd: int, nr: int, nc: int, levels: int, do_swt: bool = False,
+                    mode="periodization", hlen: int = 0
+                    ) -> Tuple[Tuple[int, int, int], List[Tuple[int, int, int]]]:
+    """(approx_shape, [detail_shape per level 1..levels]) of an nd x nr x nc
+    volume, by the rules of :func:`coeff_shapes_2d` per axis (``mode``: a
+    string or a (depth, row, column) tuple)."""
+    if do_swt:
+        return (nd, nr, nc), [(nd, nr, nc)] * levels
+    chains = [level_sizes(n, levels, hlen, m)
+              for n, m in zip((nd, nr, nc), modes.per_axis(mode, 3))]
+    details = [tuple(ch[i + 1] for ch in chains) for i in range(levels)]
+    return details[-1], details

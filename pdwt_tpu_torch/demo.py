@@ -5,7 +5,7 @@ scenario on the CUDA card (``--device cpu`` for the CPU), write the result.
     python -m pdwt_tpu_torch.demo image.dat --nr 512 --nc 512 --scenario 3 \
         --wavelet db7 --levels 5 [--swt] [--nonseparable] [--cycle-spinning] \
         [--beta 90] [--auto-beta {none,universal,bayes}] [--mode symmetric] \
-        [--precision {exact,mixed,bf16}] [--device cuda]
+        [--precision {exact,mixed,bf16}] [--device cuda] [--nd 64]
 
 Scenarios:
   1  forward only (writes the approximation)
@@ -15,10 +15,11 @@ Scenarios:
   3  forward + soft threshold (--beta, or --auto-beta) + inverse
 ``--mode`` picks the boundary extension of the separable decimated DWT
 (periodization, the reference's, or a pywt mode: zero, constant, symmetric,
-reflect, periodic, smooth, antisymmetric, antireflect).  Scenarios 4-6
-(packets, starlet, dual-tree) and --nd (3D) are not ported yet and exit
-with the ROADMAP item that brings them; --native (the C++ CPU engine) is
-left out of the port.
+reflect, periodic, smooth, antisymmetric, antireflect).  ``--nd`` reads a
+volume of nd x nr x nc float32 samples and runs the scenario on it (the 3D
+transforms).  Scenarios 4-6 (packets, starlet, dual-tree) are not ported
+yet and exit with the ROADMAP item that brings them; --native (the C++ CPU
+engine) is left out of the port.
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ def main(argv=None) -> int:
     p.add_argument("image", help="raw float32 .dat file")
     p.add_argument("--nr", type=int, required=True)
     p.add_argument("--nc", type=int, required=True)
-    p.add_argument("--nd", type=int, default=0, help="depth of a 3D volume (not ported)")
+    p.add_argument("--nd", type=int, default=0, help="depth of a 3D volume (the .dat holds nd*nr*nc float32); "
+                        "0 = a 2D image")
     p.add_argument("--scenario", type=int, default=2, choices=(1, 2, 3, 4, 5, 6))
     p.add_argument("--wavelet", default="haar")
     p.add_argument("--levels", type=int, default=1)
@@ -64,8 +66,6 @@ def main(argv=None) -> int:
     if args.scenario in (4, 5, 6):
         p.error(f"scenario {args.scenario} (packets, starlet, dual-tree) comes with "
                 "ROADMAP queue 1, item 14")
-    if args.nd:
-        p.error("--nd (3D volumes) comes with ROADMAP queue 1, item 12")
     if args.mode != "periodization" and (args.swt or args.nonseparable):
         p.error("--mode (pywt boundary extensions) applies to the separable decimated DWT; "
                 "the SWT and non-separable paths are periodization-only")
@@ -73,7 +73,7 @@ def main(argv=None) -> int:
     from pdwt_tpu_torch import Wavelets
     from pdwt_tpu_torch.utils import read_dat, tensor_to_numpy, write_dat
 
-    img = read_dat(args.image, (args.nr, args.nc))
+    img = read_dat(args.image, (args.nd, args.nr, args.nc) if args.nd else (args.nr, args.nc))
     tier = {"exact": "exact", "mixed": "mixed", "bf16": "bf16-fast"}[args.precision]
     W = Wavelets(img, wname=args.wavelet, levels=args.levels, do_swt=args.swt,
                  do_separable=not args.nonseparable, do_cycle_spinning=args.cycle_spinning,

@@ -2,8 +2,9 @@
 the denoising step (random circular shift, DWT or SWT, threshold, norm,
 inverse, unshift; on the SWT branch an elementwise threshold fuses into
 the inverse), the fully data-driven ``auto_denoise``, the averaged
-``cycle_spin_denoise`` and the denoising step over a device mesh,
-``sharded_denoise_step``.  Shifts come from a ``torch.Generator`` where JAX
+``cycle_spin_denoise``, the denoising step over a device mesh,
+``sharded_denoise_step``, and the volume step and data-driven denoise,
+``denoise_step_3d`` and ``auto_denoise_3d``.  Shifts come from a ``torch.Generator`` where JAX
 takes a PRNG key."""
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from .. import ops
 from ..core.separable import all_periodization, dwt2d, idwt2d, iswt2d, iswt2d_denoise, swt2d
+from ..core.separable3d import dwt3d, idwt3d, iswt3d, iswt3d_denoise, swt3d
 from ..filters import get_wavelet
 from ..ops.threshold import THR_ELEM
 from ..ops.threshold import THRESHOLD_OPS as _THRESH
@@ -155,3 +157,57 @@ def sharded_denoise_step(img, wav, levels: int, beta, mesh, *, data_axis: Option
     coeffs = Coeffs2D(glob(coeffs.approx), tuple(tuple(map(glob, b)) for b in coeffs.details))
     out = par.idwt2d(coeffs, wav, (nr, nc), mesh, swt=swt, **axes)
     return out, n1
+
+
+def denoise_step_3d(vol: torch.Tensor, generator: Optional[torch.Generator], wav, levels: int,
+                    beta, *, swt: bool = False, mode: str = "soft", normalize: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One volume denoising step over the trailing three axes (random
+    circular shift, 3D DWT or SWT, threshold, norm, inverse, unshift);
+    returns ``(denoised, norm1_of_thresholded_coeffs)``.
+
+    ``generator=None`` disables cycle spinning.  Otherwise the depth, row
+    and column shifts are drawn, in that order, uniformly in [0, Nd),
+    [0, Nr) and [0, Nc) from ``generator`` (JAX splits its key in three in
+    that order).  With ``swt=True``, an elementwise mode and a scalar
+    ``beta`` the threshold runs inside the inverse's kernels
+    (:func:`iswt3d_denoise`) and the norm comes from the un-thresholded
+    coefficients (``ops.thresholded_norm1``)."""
+    check_mode(mode)
+    wav = _resolve(wav)
+    nd, nr, nc = vol.shape[-3:]
+    if generator is not None:
+        draw = lambda n: int(torch.randint(0, n, (), generator=generator,
+                                           device=generator.device))
+        sd, sr, sc = draw(nd), draw(nr), draw(nc)
+        vol = ops.circshift3d(vol, sd, sr, sc)
+    if swt and mode in THR_ELEM and not isinstance(beta, (list, tuple)):
+        coeffs = swt3d(vol, wav, levels)
+        n1 = ops.thresholded_norm1(coeffs, beta, mode=mode, normalize=normalize)
+        out = iswt3d_denoise(coeffs, wav, beta, mode=mode, normalize=normalize)
+    elif swt:
+        coeffs = _THRESH[mode](swt3d(vol, wav, levels), beta, normalize=normalize)
+        n1 = ops.norm1(coeffs)
+        out = iswt3d(coeffs, wav)
+    else:
+        coeffs = _THRESH[mode](dwt3d(vol, wav, levels), beta, normalize=normalize)
+        n1 = ops.norm1(coeffs)
+        out = idwt3d(coeffs, wav, (nd, nr, nc))
+    if generator is not None:
+        out = ops.circshift3d(out, -sd, -sr, -sc)
+    return out, n1
+
+
+def auto_denoise_3d(vol: torch.Tensor, wav, levels: int, *, method: str = "bayes",
+                    mode: str = "soft", swt: bool = False) -> torch.Tensor:
+    """Data-driven volume denoise: the noise level from the finest
+    all-high-pass band (ddd), the thresholds per band (``"bayes"``,
+    ``"sure"``) or one for the tree (``"universal"``), then the threshold
+    and the inverse (unfused, as JAX's)."""
+    check_mode(mode)
+    wav = _resolve(wav)
+    coeffs = swt3d(vol, wav, levels) if swt else dwt3d(vol, wav, levels)
+    coeffs = _THRESH[mode](coeffs, _auto_betas(coeffs, method))
+    if swt:
+        return iswt3d(coeffs, wav)
+    return idwt3d(coeffs, wav, tuple(vol.shape[-3:]))

@@ -1,4 +1,4 @@
-"""Data-driven thresholds on coefficient trees, 2D or 1D, DWT or SWT
+"""Data-driven thresholds on coefficient trees, 3D, 2D or 1D, DWT or SWT
 (counterpart of ``pdwt_tpu/ops/estimate.py``).
 
 * :func:`noise_sigma`: Donoho and Johnstone's robust noise estimate, the
@@ -27,7 +27,8 @@ F32 = torch.float32
 
 
 def _finest_diag(coeffs: Coeffs) -> torch.Tensor:
-    """The finest all-highpass band: D of level 1 in 2D, its detail in 1D."""
+    """The finest all-highpass band: ddd of level 1 in 3D, D in 2D, its
+    detail in 1D."""
     det = coeffs.details[0]
     return det if isinstance(det, torch.Tensor) else det[-1]
 

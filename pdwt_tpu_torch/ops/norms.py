@@ -1,4 +1,4 @@
-"""Norms and coefficient algebra over a whole coefficient tree, 2D or 1D
+"""Norms and coefficient algebra over a whole coefficient tree, 3D, 2D or 1D
 (counterpart of ``pdwt_tpu/ops/norms.py``): each norm is one 0-dim tensor
 on the coefficients' device, summed over the approximation and every
 detail band.  bf16 bands are summed in float32, as JAX does

@@ -14,6 +14,12 @@ def circshift2d(x: torch.Tensor, sr: int, sc: int) -> torch.Tensor:
     return torch.roll(x, (int(sr), int(sc)), dims=(-2, -1))
 
 
+def circshift3d(x: torch.Tensor, sd: int, sr: int, sc: int) -> torch.Tensor:
+    """out[z, y, x] = in[(z - sd) mod Nd, (y - sr) mod Nr, (x - sc) mod Nc]
+    over the trailing three axes."""
+    return torch.roll(x, (int(sd), int(sr), int(sc)), dims=(-3, -2, -1))
+
+
 def circshift1d(x: torch.Tensor, sc: int) -> torch.Tensor:
     """Circular shift along the last axis (1D data has no row shift)."""
     return torch.roll(x, int(sc), dims=-1)

@@ -1,4 +1,4 @@
-"""Soft, hard and garrote thresholds on coefficient trees, 2D or 1D
+"""Soft, hard and garrote thresholds on coefficient trees, 3D, 2D or 1D
 (counterpart of ``pdwt_tpu/ops/threshold.py``).
 
 * ``normalize``: beta is divided by sqrt(2) per level from level 1, and
@@ -24,8 +24,9 @@ from typing import Union
 import torch
 
 from ..core.separable import Coeffs1D, Coeffs2D
+from ..core.separable3d import Coeffs3D
 
-Coeffs = Union[Coeffs1D, Coeffs2D]
+Coeffs = Union[Coeffs1D, Coeffs2D, Coeffs3D]
 
 _SQRT2 = math.sqrt(2.0)
 
@@ -113,7 +114,8 @@ THR_ELEM = {"soft": _soft, "hard": _hard, "garrote": _garrote}
 
 def detail_bands(coeffs: Coeffs):
     """(level i, band j, tensor) of every detail band: (H, V, D) of each 2D
-    level with j = 0, 1, 2; the one band of each 1D level with j = None,
+    level with j = 0, 1, 2 (the 7 bands of a 3D level, daa..ddd, with j =
+    0..6); the one band of each 1D level with j = None,
     as JAX's ``_map_details`` numbers them."""
     for i, det in enumerate(coeffs.details):
         if isinstance(det, torch.Tensor):
@@ -193,10 +195,14 @@ def group_soft_threshold(coeffs: Coeffs, beta, *, do_thresh_appcoeffs: bool = Fa
                          normalize: bool = False) -> Coeffs:
     """Group-lasso soft threshold: each position of a level shrinks its
     bands by the joint L2 norm over them, the approximation joining the
-    coarsest level's group under ``do_thresh_appcoeffs``.  ``beta`` is a
-    scalar (a number or a 0-dim tensor).  The squares are summed in the
+    coarsest level's group under ``do_thresh_appcoeffs`` (a 3D level's group
+    is its 7 bands).  ``beta`` is a scalar (a number or a 0-dim tensor); a
+    sequence raises ``ValueError``.  The squares are summed in the
     bands' own dtype; where a float32 approximation joins bf16 details,
     the factor and the details come out float32."""
+    if isinstance(beta, (list, tuple)):
+        raise ValueError("group_soft_threshold takes a scalar beta (a number or a 0-dim "
+                         "tensor), not a per-level or per-band sequence")
     n = coeffs.levels
     details, approx = [], coeffs.approx
     for i, det in enumerate(coeffs.details):

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..core.separable import Coeffs1D, Coeffs2D
+from ..core.separable3d import Coeffs3D
 from ..filters import Wavelet
 
 
@@ -89,3 +90,18 @@ def coeffs1d_to_numpy(coeffs) -> Tuple[np.ndarray, List[np.ndarray]]:
     port :class:`Coeffs1D` or any pair of array-likes in the same layout
     (such as a JAX ``Coeffs1D``)."""
     return _host(coeffs[0]), [_host(x) for x in coeffs[1]]
+
+
+def coeffs3d_from_numpy(approx, details: Sequence[Sequence], device="cpu") -> Coeffs3D:
+    """A :class:`Coeffs3D` of tensors on ``device`` from numpy arrays
+    (``details[i]`` the 7 bands daa..ddd of level i+1), copied, dtypes
+    kept."""
+    t = lambda arr: tensor_from_numpy(arr, device)
+    return Coeffs3D(t(approx), tuple(tuple(t(x) for x in band) for band in details))
+
+
+def coeffs3d_to_numpy(coeffs) -> Tuple[np.ndarray, List[Tuple[np.ndarray, ...]]]:
+    """(approx, [(daa, ..., ddd), ...]) as host numpy arrays, from a port
+    :class:`Coeffs3D` or any pair of array-likes in the same layout (such as
+    a JAX ``Coeffs3D``)."""
+    return _host(coeffs[0]), [tuple(_host(x) for x in band) for band in coeffs[1]]

@@ -179,14 +179,15 @@ def test_denoise_step_cycle_spins_with_the_generator():
 
 def test_unsupported_flags_name_their_roadmap_item():
     img = _img((16, 16))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # the 3D transform is ported: ndim=3 takes a volume, not an image
+    with pytest.raises(ValueError, match="3D volume"):
         Wavelets(img, wname="db2", levels=1, device="cpu", ndim=3)
     # the boundary modes are ported: the facade's forward matches JAX's
     W = Wavelets(img, wname="db2", levels=1, device="cpu", mode="symmetric")
     J = JWavelets(img, wname="db2", levels=1, mode="symmetric", backend="fma")
     _close(_leaves(W.forward()), _leaves(J.forward()))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Wavelets(np.zeros((4, 16, 16), np.float32), wname="db2", levels=1, device="cpu")
+    V = Wavelets(np.zeros((4, 16, 16), np.float32), wname="db2", levels=1, device="cpu")
+    assert V.spec.ndim == 3 and V.spec.shape == (4, 16, 16)
     # the non-separable transform and the bf16 2D SWT are ported
     for kwargs in ({"do_separable": False}, {"do_swt": True, "precision": "bf16-fast"}):
         W = Wavelets(img, wname="db2", levels=1, device="cpu", **kwargs)

@@ -332,10 +332,14 @@ def test_checkpoints_load_across_packages(tree, tmp_path):
 
 
 def test_a_3d_checkpoint_names_its_roadmap_item(tmp_path):
-    z = np.zeros((2, 2, 2), np.float32)
-    jckpt.save_coeffs(str(tmp_path / "v.npz"), JC3(z, ((z,) * 7,)))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        load_coeffs(str(tmp_path / "v.npz"), device="cpu")
+    """3D checkpoints came with ROADMAP item 12: a JAX-written volume tree
+    loads as a ``Coeffs3D`` (``tests/test_torch_3d_rest.py`` crosses them
+    both ways)."""
+    z = np.arange(8, dtype=np.float32).reshape(2, 2, 2)
+    jckpt.save_coeffs(str(tmp_path / "v.npz"), JC3(z, (tuple(z + j for j in range(7)),)))
+    c = load_coeffs(str(tmp_path / "v.npz"), device="cpu")
+    assert type(c).__name__ == "Coeffs3D" and c.levels == 1 and len(c.details[0]) == 7
+    assert [float(b[0, 0, 0]) for b in c.details[0]] == [float(j) for j in range(7)]
 
 
 def test_dat_files_cross_packages(tmp_path):
@@ -412,7 +416,7 @@ def test_demo_precision_flag(precision, bound, dat_image, tmp_path):
 @pytest.mark.parametrize("extra,message", [(["--scenario", "4"], "item 14"),
                                            (["--scenario", "5"], "item 14"),
                                            (["--scenario", "6"], "item 14"),
-                                           (["--nd", "4"], "item 12"),
+                                           (["--nd", "4", "--scenario", "5"], "item 14"),
                                            (["--mode", "symmetric", "--swt"],
                                             "periodization-only"),
                                            (["--native"], "left out of the port")])
@@ -447,9 +451,8 @@ DEFERRED = {
             "api_extras": 14, "api_packets": 14, "native": LEAVE_OUT},
     "Wavelets": {},
     "filters": {},
-    "ops": {"circshift3d": 12},
-    "models": {"auto_denoise_3d": 12, "denoise_step_3d": 12, "packet_denoise": 14,
-               "starlet_auto_denoise": 14, "sharded_denoise_step_3d": 12},
+    "ops": {},
+    "models": {"packet_denoise": 14, "starlet_auto_denoise": 14, "sharded_denoise_step_3d": 16},
     "parallel": {n: 16 for n in ("dwt3d", "idwt3d", "swt3d", "iswt3d", "dwt2d_ns", "idwt2d_ns",
                                  "swt2d_ns", "iswt2d_ns", "fs_dwt", "fs_idwt", "packets",
                                  "starlet", "istarlet")},
@@ -487,7 +490,7 @@ def test_public_names_the_port_lacks_are_the_documented_deferrals(ns):
 
 def test_facade_methods_take_jax_arguments():
     """Every Wavelets method the port shares with JAX takes its arguments,
-    but JAX's ``backend`` and the 3D ``sd``."""
+    but JAX's ``backend``."""
     import inspect
 
     for name in _public("Wavelets", pdwt_tpu_torch):
@@ -495,5 +498,5 @@ def test_facade_methods_take_jax_arguments():
             continue
         mine, theirs = (inspect.signature(getattr(cls, name))
                         for cls in (Wavelets, JWavelets))
-        assert [p for p in theirs.parameters if p not in ("backend", "sd")] == \
+        assert [p for p in theirs.parameters if p != "backend"] == \
             list(mine.parameters), name
