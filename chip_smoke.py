@@ -96,9 +96,22 @@ with the launch counters set to 0 just before it and read just after:
   SWT roundtrips, and under the bf16 tiers the TI step on a bf16 image;
   each rank holds its shards to the same slice of the single-card result
   (under a tier within the tier path limits) and reads exactly the padded
-  launches the route rule predicts on its shard.  Four processes on one card that send their halos
-  through the host measure nothing of scaling: only the kernels' own times
-  are kept.
+  launches the route rule predicts on its shard.  The sharded volumes and
+  non-separable transforms join both: (a) on a (1, 1, 1, 1) (data, dep,
+  row, col) mesh the 128x512x512 db4 2-level roundtrip through
+  ``parallel.dwt3d``/``idwt3d`` and ``sharded_denoise_step_3d(swt=True)`` at
+  64x512x512 (soft, beta 1), against the single-card calls, with exactly
+  the padded launches (1p, 2p twice a level; 5p, 6p twice) and depth
+  products (four a level forward, one inverse) the route gives, each timed
+  beside the single card (call, busy split, peak memory); (b) the 3D DWT
+  and SWT of 16x64x64 on (dep, row) = (2, 2) and on dep = 4 (halos of
+  several hops), of a 8x128x512 volume under bf16-fast and mixed (11p-14p
+  where the route accepts the shard), ``sharded_denoise_step_3d``, and the
+  rank-3 8x8 quads' DWT and SWT on (row, col) = (2, 2) (the conv passes
+  with the ring) and, under bf16-fast, on a bf16 batch of 4 over the data
+  axis alone (kernels 17 and 18 on each rank).  Four processes on one card
+  that send their halos through the host measure nothing of scaling: only
+  the kernels' own times are kept.
 * the 3D transforms (``bench_all.py``'s two 3D configurations): kernels 1,
   2, 5, 6 and 11-14 against their plain versions at the 3D path's level
   shapes (64 and 128 planes of 512x512 and 256x256 a launch, every scheme
@@ -3339,6 +3352,14 @@ SHARD_WIDE, SHARD_WIDE_LEVELS = (8, 256), 5
 SHARD_TIMEOUT_S = 300
 #: the ranks' device (a CPU rehearsal of the phase sets "cpu")
 SHARD_DEVICE = torch.device("cuda", 0)
+# the sharded volumes and non-separable transforms in (b): a volume whose
+# 4-plane shards on dep = 4 take level 2's halos in several hops, one whose
+# (2, 2) shards (4 x 64 x 512) put level 1 on the banded-product kernels;
+# an image for the ring, a bf16 batch whose 64 x 256 images put level 1 on
+# kernels 17 and 18
+SH3_SMALL, SH3_TIER = (16, 64, 64), (8, 128, 512)
+SHNS_N, SHNS_BATCH = 64, (4, 64, 256)
+AXES4 = ("data", "dep", "row", "col")
 
 
 def atrous_band(kind: str, n: int, w, level: int, device) -> torch.Tensor:
@@ -3678,6 +3699,92 @@ def _sharded_nccl(rank: int, card: str) -> dict:
         out[name] = {"ms": ms, "busy_ms": busy}
         print(f"{tag}: {name} roundtrip {ms:.4f} ms a call (CUDA events, median of 20), device "
               f"busy {fmt(busy)} (torch.profiler) [{card}]", flush=True)
+    del c, y, ref, xs, x
+    torch.cuda.empty_cache()
+    out.update(_sharded_nccl_volume(card))
+    return out
+
+
+@contextlib.contextmanager
+def depth_products():
+    """Count the depth products (``_DepthProduct`` applications: one a
+    subband forward, one a level's pair of groups inverse) while the block
+    runs; yields a one-element list."""
+    from pdwt_tpu_torch.core import depth_matmul as DM
+
+    n, apply = [0], DM._DepthProduct.apply
+
+    def counted(*args):
+        n[0] += 1
+        return apply(*args)
+
+    DM._DepthProduct.apply = counted
+    try:
+        yield n
+    finally:
+        del DM._DepthProduct.apply  # the inherited classmethod again
+
+
+def _sharded_nccl_volume(card: str) -> dict:
+    """(a) for the volumes, on a (1, 1, 1, 1) (data, dep, row, col) mesh
+    with every spatial axis named (each halo the local wrap): the volume
+    cell's roundtrip through parallel.dwt3d/idwt3d and
+    sharded_denoise_step_3d(swt=True) on the TI cell, each against the
+    single-card call, with exactly the padded launches and depth products
+    the route gives, then both timed beside the single card."""
+    from pdwt_tpu_torch import dwt3d, get_wavelet, idwt3d
+    from pdwt_tpu_torch import parallel as par
+    from pdwt_tpu_torch.models import denoise_step_3d, sharded_denoise_step_3d
+
+    dev, w, L = SHARD_DEVICE, get_wavelet(VOL_WNAME), VOL_LEVELS
+    mesh = par.make_mesh((1, 1, 1, 1), AXES4, device_type=dev.type)
+    ax = dict(dep_axis="dep", row_axis="row", col_axis="col")
+    vol = _rank_image(VOL_SHAPE, 4, dev)
+    xs = par.shard_image(vol, mesh, **ax)
+    tag = f"sharded (a) nccl (1, 1, 1, 1): dwt3d/idwt3d {VOL_SHAPE} {VOL_WNAME} {L} levels"
+    launched = {"fwd_level_2d_padded": L, "inv_level_2d_padded": 2 * L}
+    with depth_products() as n:
+        c = sharded_call(tag + " forward", lambda: par.dwt3d(xs, w, L, mesh, **ax),
+                         {"fwd_level_2d_padded": L})
+        n_fwd = n[0]
+        y = sharded_call(tag + " inverse", lambda: par.idwt3d(c, w, VOL_SHAPE, mesh, **ax),
+                         {"inv_level_2d_padded": 2 * L})
+    print(f"{tag}: depth products {n_fwd} forward, {n[0] - n_fwd} inverse", flush=True)
+    check(n_fwd == 4 * L and n[0] - n_fwd == L, f"{tag}: depth products {n_fwd} and "
+          f"{n[0] - n_fwd}, the route gives {4 * L} and {L}")
+    ref = dwt3d(vol, w, L)
+    hold_shards(tag, c, ref)
+    hold_shards(tag + " inverse", y, idwt3d(ref, w, VOL_SHAPE))
+    rt = float((y.to_local() - vol).abs().max())
+    print(f"{tag}: roundtrip max|y - x| {rt:.3e} (limit {ROUNDTRIP_ATOL})", flush=True)
+    check(rt <= ROUNDTRIP_ATOL, f"{tag}: roundtrip error {rt:.3e}")
+    del c, y, ref
+    out = {"volume": {}, "volume_step": {}}
+    for name, fn in (("sharded", lambda: par.idwt3d(par.dwt3d(xs, w, L, mesh, **ax), w,
+                                                    VOL_SHAPE, mesh, **ax)),
+                     ("single card", lambda: idwt3d(dwt3d(vol, w, L), w, VOL_SHAPE))):
+        out["volume"][name] = vol_timing(f"{tag}: {name} roundtrip", fn, card)
+    del xs, vol
+    torch.cuda.empty_cache()
+    vti = _rank_image(VTI_SHAPE, 5, dev)
+    ts = par.shard_image(vti, mesh, **ax)
+    tag = (f"sharded (a) nccl (1, 1, 1, 1): sharded_denoise_step_3d(swt=True) {VTI_SHAPE} "
+           f"{VOL_WNAME} {L} levels soft beta {VTI_BETA}")
+    per = {"swt_fwd_level_2d_padded": L, "swt_inv_level_2d_padded": 2 * L}
+    step = lambda: sharded_denoise_step_3d(ts, w, L, VTI_BETA, mesh, swt=True, **ax)
+    den, n1 = sharded_call(tag, step, per)
+    single = lambda: denoise_step_3d(vti, None, w, L, VTI_BETA, swt=True)
+    ref, ref_n1 = single()
+    hold_shards(tag, den, ref)
+    print(f"{tag}: norm1 {float(n1)!r} vs single card {float(ref_n1)!r}", flush=True)
+    check(n1.dim() == 0 and abs(float(n1) - float(ref_n1)) <= NORM_RTOL * abs(float(ref_n1)),
+          f"{tag}: norm1")
+    del den, ref
+    for name, fn in (("sharded", step), ("single card", single)):
+        out["volume_step"][name] = vol_timing(f"{tag}: {name}", fn, card)
+    for k, v in per.items():
+        launched[k] = launched.get(k, 0) + v
+    out["vol_launches"] = launched
     return out
 
 
@@ -3754,7 +3861,152 @@ def _sharded_gloo(rank: int, card: str) -> dict:
     hold_shards(tag, c, ref)
     hold_shards(tag + " inverse", y, iswt1d(ref, w8))
     tiers = _sharded_gloo_tiers(rank, m2, ax2, m1, ax1, x, xt, s)
-    return {"launches": launched, "tier_launches": tiers}
+    return {"launches": launched, "tier_launches": tiers,
+            "vol_launches": _sharded_gloo_volumes(rank), "ns_launches": _sharded_gloo_ns(rank)}
+
+
+def _sharded_gloo_volumes(rank: int) -> dict:
+    """(b) for the volumes: the 3D DWT and SWT roundtrips of SH3_SMALL on
+    (dep, row) = (2, 2) and on dep = 4 (4-plane shards, whose level-2 halos
+    take several hops: 14 planes for the SWT), exact; on (2, 2) the
+    SH3_TIER volume under bf16-fast and mixed (kernels 11p-14p where the
+    route rule accepts the shard); sharded_denoise_step_3d(swt=True) on
+    (2, 2).  Each call holds exactly the padded launches the route gives on
+    this rank's shard, each rank's shards the single-card result's slice.
+    Returns this rank's launches, summed over the calls."""
+    from pdwt_tpu_torch import (dwt3d, get_wavelet, idwt3d, iswt3d, ops, precision_scope,
+                                swt3d)
+    from pdwt_tpu_torch import kernels as KK
+    from pdwt_tpu_torch import parallel as par
+    from pdwt_tpu_torch.models import sharded_denoise_step_3d
+
+    dev, w, L = SHARD_DEVICE, get_wavelet(VOL_WNAME), VOL_LEVELS
+    ax = dict(dep_axis="dep", row_axis="row", col_axis="col")
+    total = {}
+
+    def call(tag, fn, want):
+        for k, v in want.items():
+            total[k] = total.get(k, 0) + v
+        return sharded_call(tag, fn, want)
+
+    def inverse(ref, swt, shape):
+        return iswt3d(ref, w) if swt else idwt3d(ref, w, shape)
+
+    m22 = par.make_mesh((1, 2, 2, 1), AXES4, device_type=dev.type)
+    m4 = par.make_mesh((1, 4, 1, 1), AXES4, device_type=dev.type)
+    x = _rank_image(SH3_SMALL, 6, dev)
+    for where, mesh in (("(dep, row) = (2, 2)", m22), ("dep = 4", m4)):
+        xs = par.shard_image(x, mesh, **ax)
+        for swt in (False, True):
+            k = "swt_" if swt else ""
+            tag = (f"sharded (b) rank {rank} {where}: {'swt' if swt else 'dwt'}3d roundtrip "
+                   f"{SH3_SMALL} {VOL_WNAME} {L} levels")
+            c = call(tag + " forward", lambda: par.dwt3d(xs, w, L, mesh, swt=swt, **ax),
+                     {f"{k}fwd_level_2d_padded": L})
+            y = call(tag + " inverse", lambda: par.idwt3d(c, w, SH3_SMALL, mesh, swt=swt, **ax),
+                     {f"{k}inv_level_2d_padded": 2 * L})
+            ref = (swt3d if swt else dwt3d)(x, w, L)
+            hold_shards(tag, c, ref)
+            hold_shards(tag + " inverse", y, inverse(ref, swt, SH3_SMALL))
+    xt = _rank_image(SH3_TIER, 7, dev)
+    r, cc = SH3_TIER[1] // 2, SH3_TIER[2]  # a rank's rows and columns on (2, 2)
+    for tier in ("bf16-fast", "mixed"):
+        xx = xt if tier == "mixed" else xt.bfloat16()
+        with precision_scope(tier):
+            xs = par.shard_image(xx, m22, **ax)
+            for swt in (False, True):
+                k = "swt_" if swt else ""
+                if swt:
+                    flags = [tier != "mixed" and KK.mxu_route_swt_2d(r, cc, w.hlen, lvl)
+                             for lvl in range(1, L + 1)]
+                else:
+                    flags = [KK.mxu_route_2d(r >> lvl, cc >> lvl, w.hlen)
+                             for lvl in range(1, L + 1)]
+                fw = _routed((f"{k}fwd_level_2d_padded", f"{k}fwd_level_2d_mxu_padded"), flags)
+                iv = _routed((f"{k}inv_level_2d_padded", f"{k}inv_level_2d_mxu_padded"),
+                             flags + flags)
+                tag = (f"sharded (b) rank {rank} (dep, row) = (2, 2) {tier}: "
+                       f"{'swt' if swt else 'dwt'}3d roundtrip {SH3_TIER} {VOL_WNAME} {L} levels")
+                c = call(tag + " forward", lambda: par.dwt3d(xs, w, L, m22, swt=swt, **ax), fw)
+                y = call(tag + " inverse", lambda: par.idwt3d(c, w, SH3_TIER, m22, swt=swt,
+                                                              **ax), iv)
+                ref = (swt3d if swt else dwt3d)(xx, w, L)
+                hold_shards(tag, c, ref, tier=True)
+                hold_shards(tag + " inverse", y, inverse(ref, swt, SH3_TIER), tier=True)
+    tag = (f"sharded (b) rank {rank} (dep, row) = (2, 2): sharded_denoise_step_3d(swt=True) "
+           f"{SH3_SMALL} {VOL_WNAME} {L} levels soft beta {VTI_BETA}")
+    out, n1 = call(tag, lambda: sharded_denoise_step_3d(par.shard_image(x, m22, **ax), w, L,
+                                                        VTI_BETA, m22, swt=True, **ax),
+                   {"swt_fwd_level_2d_padded": L, "swt_inv_level_2d_padded": 2 * L})
+    pc = ops.soft_threshold(swt3d(x, w, L), VTI_BETA)
+    p_n1 = float(ops.norm1(pc))
+    hold_shards(tag, out, iswt3d(pc, w))
+    print(f"{tag}: norm1 {float(n1)!r} vs single card {p_n1!r}", flush=True)
+    check(n1.dim() == 0 and abs(float(n1) - p_n1) <= NORM_RTOL * abs(p_n1), f"{tag}: norm1")
+    return total
+
+
+def _sharded_gloo_ns(rank: int) -> dict:
+    """(b) for the non-separable transforms, the rank-3 8x8 quads: the DWT
+    and SWT roundtrips of an SHNS_N^2 image on (row, col) = (2, 2), the conv
+    passes with the ring (no launch); on the data axis alone, a bf16 batch
+    of SHNS_BATCH under bf16-fast, each shard the single-card call: kernels
+    17 and 18 on the levels the route rule accepts.  Each rank's shards
+    against the single-card result's slice.  Returns this rank's launches."""
+    from pdwt_tpu_torch import kernels as KK
+    from pdwt_tpu_torch import parallel as par
+    from pdwt_tpu_torch import precision_scope
+    from pdwt_tpu_torch.core import nonseparable as ns
+
+    dev, q, L = SHARD_DEVICE, rank3_quads(), 2
+    rk, hl = ns._rank_decomp(q)[1].shape
+    total = {}
+    m2 = par.make_mesh((1, 2, 2), device_type=dev.type)
+    ax2 = dict(row_axis="row", col_axis="col")
+    x = _rank_image((SHNS_N, SHNS_N), 8, dev)
+    xs = par.shard_image(x, m2, **ax2)
+    for swt in (False, True):
+        tag = (f"sharded (b) rank {rank} (row, col) = (2, 2): {'swt' if swt else 'dwt'}2d_ns "
+               f"roundtrip {SHNS_N}x{SHNS_N} rank-{rk} {hl}x{hl} quads {L} levels")
+        c = sharded_call(tag + " forward", lambda: par.dwt2d_ns(xs, q, L, m2, swt=swt, **ax2),
+                         {})
+        y = sharded_call(tag + " inverse", lambda: par.idwt2d_ns(c, q, (SHNS_N, SHNS_N), m2,
+                                                                 swt=swt, **ax2), {})
+        ref = (ns.swt2d_ns if swt else ns.dwt2d_ns)(x, q, L)
+        hold_shards(tag, c, ref)
+        hold_shards(tag + " inverse", y, ns.iswt2d_ns(ref, q) if swt
+                    else ns.idwt2d_ns(ref, q, (SHNS_N, SHNS_N)))
+    md = par.make_mesh((4, 1, 1), device_type=dev.type)
+    xb = _rank_image(SHNS_BATCH, 9, dev).bfloat16()
+    r, cc = SHNS_BATCH[1:]
+    with precision_scope("bf16-fast"):
+        xbs = par.shard_image(xb, md, data_axis="data")
+        for swt in (False, True):
+            if swt:
+                fl = [KK.mxu_route_ns_swt_2d(r, cc, hl, rk, lvl, KK.swt_scheme(
+                    "bf16", torch.bfloat16 if lvl == 1 else torch.float32))
+                      for lvl in range(1, L + 1)]
+                il = [KK.mxu_route_ns_swt_2d(r, cc, hl, rk, lvl, "fd") for lvl in range(1, L + 1)]
+            else:
+                fl = il = [KK.mxu_route_ns_2d(r >> lvl, cc >> lvl, hl, rk)
+                           for lvl in range(1, L + 1)]
+            k = "ns_swt_" if swt else "ns_"
+            fw = {f"{k}fwd_level_2d_mxu": sum(fl)} if any(fl) else {}
+            iv = {f"{k}inv_level_2d_mxu": sum(il)} if any(il) else {}
+            for d in (fw, iv):
+                for name, v in d.items():
+                    total[name] = total.get(name, 0) + v
+            tag = (f"sharded (b) rank {rank} data = 4 bf16-fast: {'swt' if swt else 'dwt'}2d_ns "
+                   f"roundtrip bf16 {SHNS_BATCH} rank-{rk} {hl}x{hl} quads {L} levels")
+            c = sharded_call(tag + " forward", lambda: par.dwt2d_ns(xbs, q, L, md, swt=swt,
+                                                                    data_axis="data"), fw)
+            y = sharded_call(tag + " inverse", lambda: par.idwt2d_ns(c, q, (r, cc), md, swt=swt,
+                                                                     data_axis="data"), iv)
+            ref = (ns.swt2d_ns if swt else ns.dwt2d_ns)(xb, q, L)
+            hold_shards(tag, c, ref, tier=True)
+            hold_shards(tag + " inverse", y, ns.iswt2d_ns(ref, q) if swt
+                        else ns.idwt2d_ns(ref, q, (r, cc)), tier=True)
+    return total
 
 
 def _routed(names, flags) -> dict:
@@ -3973,6 +4225,28 @@ def sharded_phase(dev, card, report, launches, gen) -> None:
         if name.endswith("_mxu_padded"):
             check(tl.get(name, 0) > 0, f"sharded (b): the tiers never launched {name}")
             launches[name] = tl[name]
+    # the volumes and the non-separable transforms
+    for key in ("vol_launches", "ns_launches"):
+        for r, res in enumerate(ranks):
+            check(res[key] == ranks[0][key], f"sharded (b): rank {r}'s {key} {res[key]}, "
+                  f"rank 0's {ranks[0][key]}")
+    vl, nl = ranks[0]["vol_launches"], ranks[0]["ns_launches"]
+    print(f"sharded volumes: (a) launched {a['vol_launches']}; (b) each of 4 ranks {vl}",
+          flush=True)
+    print(f"sharded non-separable (b): each of 4 ranks launched {nl}", flush=True)
+    for name in ("fwd_level_2d_padded", "inv_level_2d_padded", "swt_fwd_level_2d_padded",
+                 "swt_inv_level_2d_padded", "fwd_level_2d_mxu_padded", "inv_level_2d_mxu_padded",
+                 "swt_fwd_level_2d_mxu_padded", "swt_inv_level_2d_mxu_padded"):
+        check(vl.get(name, 0) > 0, f"sharded (b): the volumes never launched {name}")
+    for name in ("ns_fwd_level_2d_mxu", "ns_inv_level_2d_mxu"):
+        check(nl.get(name, 0) > 0, f"sharded (b): the non-separable shards never launched {name}")
+    for d in (a["vol_launches"], vl, nl):
+        for name, v in d.items():
+            launches[name] = launches.get(name, 0) + v
+    for key, what in (("volume", "roundtrip"), ("volume_step", "TI step")):
+        sh, one = a[key]["sharded"], a[key]["single card"]
+        print(f"sharded (a) volume {what}: sharded {sh} vs single card {one} [{card}]",
+              flush=True)
 
 # -- the volume phase (queue 1 item 12): bench_all.py's two 3D configurations
 # (bench_all.py:132-153, 254-261), the 3D transforms on the 2D level kernels
@@ -4043,7 +4317,7 @@ def vol_timing(label, fn, card) -> None:
     from the launch counters (``device_ms``: busy_per_call), that busy time
     split between the port's 2D kernels, the depth products (cuBLAS GEMMs)
     and the rest (copies, casts, thresholds, rolls), the idle share, and
-    the peak memory of one call."""
+    the peak memory of one call; printed, and returned as a dict."""
     ms = cuda_ms(fn)
     busy, by_name = device_ms(fn)
     torch.cuda.synchronize()
@@ -4052,10 +4326,11 @@ def vol_timing(label, fn, card) -> None:
     fn()
     torch.cuda.synchronize()
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    out = {"ms": ms, "busy_ms": busy, "peak_gib": peak}
     if busy is None:
         print(f"volume timing: {label}: {ms:.4f} ms a call, device busy not measured, peak "
               f"{peak:.3f} GiB above the inputs [{card}]", flush=True)
-        return
+        return out
     gemm = lambda k: any(s in k.lower() for s in ("gemm", "xmma", "cutlass", "cublas"))
     kern = sum(v for k, v in by_name.items() if is_port_kernel(k))
     prod = sum(v for k, v in by_name.items() if not is_port_kernel(k) and gemm(k))
@@ -4065,6 +4340,7 @@ def vol_timing(label, fn, card) -> None:
           f"{peak:.3f} GiB above the inputs [{card}]", flush=True)
     for kname, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {v:.4f} ms  {kname[:100]}")
+    return dict(out, kernels_ms=kern, products_ms=prod)
 
 
 def vhold(label, got, want, rtol=PATH_RTOL) -> None:

@@ -21,6 +21,17 @@ synthesised with the inverse quads, the stationary one with the engine's
   passes on float32.  Exact float32 always runs the conv passes: JAX runs
   them as XLA convolutions with no Pallas kernel.
 
+``pad_fn=`` (the ring halo exchange of ``parallel/halo.py``, which the
+sharded transforms pass when rows or columns are sharded) replaces the
+periodic wrap, as in JAX (``pdwt_tpu/core/nonseparable.py:132-270``), and
+then no tier applies: JAX skips kernels 17-18 under a ``pad_fn``, so the
+rank-r and anisotropic levels run the conv passes with the ring in the
+input's dtype (bf16 summed in float32 and rounded per pass, the rank terms
+added in bf16).  Isotropic quads run the sharded 2D composition of
+``parallel/sharded.py`` with no MXU mode, JAX's separable call with the
+``pad_fn`` on its conv backends: float32 reaches the padded kernels 1p/2p
+(5p/6p for the SWT), bf16 and float64 the conv passes in their dtype.
+
 Every entry point takes ``precision=`` (:func:`precision.takes_precision`).
 """
 from __future__ import annotations
@@ -83,11 +94,12 @@ def _cat(ts) -> torch.Tensor:
     return torch.cat([t.to(dt) for t in ts], dim=1)
 
 
-def _rank_fwd_level(a, A, Bc, f: int = 1, decimate: bool = True):
+def _rank_fwd_level(a, A, Bc, f: int = 1, decimate: bool = True, pad_fn=None):
     """One level of the rank-r sum on (B, 1, H, W): one column pass with
     the r filters b_k, then per k the four row filters a_k^(s), summed over
     k."""
-    kw = {} if decimate else {"dilation": f, "decimate": False}
+    kw = {"pad_fn": pad_fn} if decimate else {"dilation": f, "decimate": False,
+                                                "pad_fn": pad_fn}
     t = conv.analysis_pass(a, list(Bc), axis=-1, **kw)
     z = None
     for k in range(Bc.shape[0]):
@@ -96,11 +108,13 @@ def _rank_fwd_level(a, A, Bc, f: int = 1, decimate: bool = True):
     return z
 
 
-def _rank_inv_level(z, A, Bc, out_shape=None, f: int = 1, decimated: bool = True):
+def _rank_inv_level(z, A, Bc, out_shape=None, f: int = 1, decimated: bool = True,
+                    pad_fn=None):
     """The synthesis of the rank-r sum on (B, 4, m, n): per k one row
     synthesis summing the four subbands, then one column synthesis summing
     the k terms."""
-    kw = {} if decimated else {"dilation": f, "decimated": False}
+    kw = {"pad_fn": pad_fn} if decimated else {"dilation": f, "decimated": False,
+                                                 "pad_fn": pad_fn}
     rows, cols = out_shape if out_shape is not None else (None, None)
     t = torch.cat([conv.synthesis_pass(z, list(A[:, k]), axis=-2, out_len=rows, **kw)
                    for k in range(A.shape[1])], dim=1)
@@ -121,15 +135,19 @@ def _dets(z, batch):
 
 
 @takes_precision
-def dwt2d_ns(x: torch.Tensor, quads, levels: int) -> Coeffs2D:
+def dwt2d_ns(x: torch.Tensor, quads, levels: int, *, pad_fn=None) -> Coeffs2D:
     """Non-separable 2D DWT with the forward quads ``quads`` (4, hlen,
-    hlen), periodization, ``levels`` levels, over the trailing two axes."""
+    hlen), periodization, ``levels`` levels, over the trailing two axes;
+    ``pad_fn``: the ring halo (module docstring)."""
     q = _check_quads(quads)
     if x.ndim < 2:
         raise ValueError(f"expected at least 2D input, got shape {tuple(x.shape)}")
     check_supported(x)
     fac = _try_factor(q)
     if fac is not None and fac[4]:
+        if pad_fn is not None:
+            from ..parallel.sharded import _local_dwt2d
+            return _local_dwt2d(x, _factored(fac[0], fac[1]), levels, pad_fn, False, exact=True)
         return sep.dwt2d(x, _factored(fac[0], fac[1]), levels)
     batch = tuple(x.shape[:-2])
     a = _flat(x)[:, None]
@@ -137,21 +155,23 @@ def dwt2d_ns(x: torch.Tensor, quads, levels: int) -> Coeffs2D:
     if fac is not None:
         lo_r, hi_r, lo_c, hi_c, _ = fac
         for _ in range(levels):
-            t = _in_dtype(lambda u: conv.analysis_pass(u, (lo_c, hi_c), axis=-1), a)
-            z = _in_dtype(lambda u: conv.analysis_pass(u, (lo_r, hi_r), axis=-2), t)
+            t = _in_dtype(lambda u: conv.analysis_pass(u, (lo_c, hi_c), axis=-1,
+                                                       pad_fn=pad_fn), a)
+            z = _in_dtype(lambda u: conv.analysis_pass(u, (lo_r, hi_r), axis=-2,
+                                                       pad_fn=pad_fn), t)
             a = z[:, 0:1]
             details.append(_dets(z, batch))
         return Coeffs2D(_unflat(a[:, 0], batch), tuple(details))
     A, Bc = _rank_decomp(q)
     rank, hlen = Bc.shape
-    mxu = mxu_mode(x.dtype)
+    mxu = None if pad_fn is not None else mxu_mode(x.dtype)
     for _ in range(levels):
         r, c = a.shape[-2:]
         if mxu and r % 2 == 0 and c % 2 == 0 and kernels.mxu_route_ns_2d(r // 2, c // 2, hlen,
                                                                          rank):
             aa, h, v, d = kernels.ns_fwd_level_2d_mxu_ad(*_bands(a), A, Bc, mxu)
         else:
-            z = _rank_fwd_level(a.float() if mxu else a, A, Bc)
+            z = _rank_fwd_level(a.float() if mxu else a, A, Bc, pad_fn=pad_fn)
             aa, h, v, d = (z[:, k] for k in range(4))
             if mxu == "bf16":
                 h, v, d = (t.to(BF16) for t in (h, v, d))
@@ -161,13 +181,19 @@ def dwt2d_ns(x: torch.Tensor, quads, levels: int) -> Coeffs2D:
 
 
 @takes_precision
-def idwt2d_ns(coeffs: Coeffs2D, quads_inv, shape: Tuple[int, int]) -> torch.Tensor:
+def idwt2d_ns(coeffs: Coeffs2D, quads_inv, shape: Tuple[int, int], *,
+              pad_fn=None) -> torch.Tensor:
     """Inverse of :func:`dwt2d_ns` with the inverse quads ``quads_inv``;
-    ``shape`` = (Nr, Nc) of the original image."""
+    ``shape`` = (Nr, Nc) of the original image (of the local shard under a
+    ``pad_fn``)."""
     q = _check_quads(quads_inv)
     check_supported(coeffs.approx)
     fac = _try_factor(q)
     if fac is not None and fac[4]:
+        if pad_fn is not None:
+            from ..parallel.sharded import _local_idwt2d
+            return _local_idwt2d(coeffs, _factored(fac[0], fac[1]), tuple(shape), pad_fn, False,
+                                 exact=True)
         return sep.idwt2d(coeffs, _factored(fac[0], fac[1]), shape)
     levels = coeffs.levels
     rows, cols = level_sizes(shape[0], levels), level_sizes(shape[1], levels)
@@ -179,13 +205,14 @@ def idwt2d_ns(coeffs: Coeffs2D, quads_inv, shape: Tuple[int, int]) -> torch.Tens
         for i in range(levels - 1, -1, -1):
             z = _cat([a, *flat(i)])
             t = _in_dtype(lambda u: conv.synthesis_pass(u, (lo_r, hi_r), axis=-2,
-                                                        out_len=rows[i]), z)
+                                                        out_len=rows[i], pad_fn=pad_fn), z)
             a = _in_dtype(lambda u: conv.synthesis_pass(u, (lo_c, hi_c), axis=-1,
-                                                        out_len=cols[i]), t)
+                                                        out_len=cols[i], pad_fn=pad_fn), t)
         return _unflat(a[:, 0], batch)
     A, Bc = _rank_decomp(q)
     rank, hlen = Bc.shape
-    mxu = mxu_mode(coeffs.details[-1][0].dtype if levels else coeffs.approx.dtype)
+    mxu = None if pad_fn is not None else mxu_mode(coeffs.details[-1][0].dtype if levels
+                                                   else coeffs.approx.dtype)
     if mxu == "bf16":
         a = a.float()
     for i in range(levels - 1, -1, -1):
@@ -198,21 +225,25 @@ def idwt2d_ns(coeffs: Coeffs2D, quads_inv, shape: Tuple[int, int]) -> torch.Tens
             a = y[:, None, :rows[i], :cols[i]].contiguous()
         else:
             parts = [t.float() for t in (a, h, v, d)] if mxu else [a, h, v, d]
-            a = _rank_inv_level(_cat(parts), A, Bc, (rows[i], cols[i]))
+            a = _rank_inv_level(_cat(parts), A, Bc, (rows[i], cols[i]), pad_fn=pad_fn)
             a = a.to(BF16) if last_bf16 else a
     return _unflat(a[:, 0], batch)
 
 
 @takes_precision
-def swt2d_ns(x: torch.Tensor, quads, levels: int) -> Coeffs2D:
+def swt2d_ns(x: torch.Tensor, quads, levels: int, *, pad_fn=None) -> Coeffs2D:
     """Non-separable stationary (a-trous) 2D transform with the forward
-    quads ``quads``; every band keeps the input's size."""
+    quads ``quads``; every band keeps the input's size.  ``pad_fn``: the
+    ring halo (module docstring)."""
     q = _check_quads(quads)
     if x.ndim < 2:
         raise ValueError(f"expected at least 2D input, got shape {tuple(x.shape)}")
     check_supported(x)
     fac = _try_factor(q)
     if fac is not None and fac[4]:
+        if pad_fn is not None:
+            from ..parallel.sharded import _local_dwt2d
+            return _local_dwt2d(x, _factored(fac[0], fac[1]), levels, pad_fn, True, exact=True)
         return sep.swt2d(x, _factored(fac[0], fac[1]), levels)
     batch = tuple(x.shape[:-2])
     a = _flat(x)[:, None]
@@ -220,7 +251,7 @@ def swt2d_ns(x: torch.Tensor, quads, levels: int) -> Coeffs2D:
     if fac is not None:
         lo_r, hi_r, lo_c, hi_c, _ = fac
         for lvl in range(1, levels + 1):
-            kw = {"dilation": 1 << (lvl - 1), "decimate": False}
+            kw = {"dilation": 1 << (lvl - 1), "decimate": False, "pad_fn": pad_fn}
             t = _in_dtype(lambda u: conv.analysis_pass(u, (lo_c, hi_c), axis=-1, **kw), a)
             z = _in_dtype(lambda u: conv.analysis_pass(u, (lo_r, hi_r), axis=-2, **kw), t)
             a = z[:, 0:1]
@@ -229,14 +260,14 @@ def swt2d_ns(x: torch.Tensor, quads, levels: int) -> Coeffs2D:
     A, Bc = _rank_decomp(q)
     rank, hlen = Bc.shape
     # mixed runs the a-trous levels exact (pdwt_tpu/core/nonseparable.py:331-333)
-    mxu = sep._swt_mxu_mode(x.dtype)
+    mxu = None if pad_fn is not None else sep._swt_mxu_mode(x.dtype)
     for lvl in range(1, levels + 1):
         r, c = a.shape[-2:]
         if mxu and kernels.mxu_route_ns_swt_2d(r, c, hlen, rank, lvl,
                                                 kernels.swt_scheme(mxu, a.dtype)):
             aa, h, v, d = kernels.ns_swt_fwd_level_2d_mxu_ad(*_bands(a), A, Bc, lvl, mxu)
         else:
-            z = _rank_fwd_level(a.float() if mxu else a, A, Bc, 1 << (lvl - 1), False)
+            z = _rank_fwd_level(a.float() if mxu else a, A, Bc, 1 << (lvl - 1), False, pad_fn)
             aa, h, v, d = (z[:, k] for k in range(4))
             if mxu == "bf16":
                 h, v, d = (t.to(BF16) for t in (h, v, d))
@@ -246,13 +277,17 @@ def swt2d_ns(x: torch.Tensor, quads, levels: int) -> Coeffs2D:
 
 
 @takes_precision
-def iswt2d_ns(coeffs: Coeffs2D, quads_inv) -> torch.Tensor:
+def iswt2d_ns(coeffs: Coeffs2D, quads_inv, *, pad_fn=None) -> torch.Tensor:
     """Inverse of :func:`swt2d_ns` with the inverse quads ``quads_inv``,
-    the engine's 1/4 per level."""
+    the engine's 1/4 per level; ``pad_fn``: the ring halo."""
     q = _check_quads(quads_inv)
     check_supported(coeffs.approx)
     fac = _try_factor(q)
     if fac is not None and fac[4]:
+        if pad_fn is not None:
+            from ..parallel.sharded import _local_idwt2d
+            return _local_idwt2d(coeffs, _factored(fac[0], fac[1]),
+                                 tuple(coeffs.approx.shape[-2:]), pad_fn, True, exact=True)
         return sep.iswt2d(coeffs, _factored(fac[0], fac[1]))
     batch = tuple(coeffs.approx.shape[:-2])
     a = _flat(coeffs.approx)[:, None]
@@ -261,15 +296,15 @@ def iswt2d_ns(coeffs: Coeffs2D, quads_inv) -> torch.Tensor:
         lo_r, hi_r, lo_c, hi_c, _ = fac
         rec_r, rec_c = (0.5 * lo_r, 0.5 * hi_r), (0.5 * lo_c, 0.5 * hi_c)
         for i in range(coeffs.levels - 1, -1, -1):
-            kw = {"dilation": 1 << i, "decimated": False}
+            kw = {"dilation": 1 << i, "decimated": False, "pad_fn": pad_fn}
             z = _cat([a, *flat(i)])
             t = _in_dtype(lambda u: conv.synthesis_pass(u, rec_r, axis=-2, **kw), z)
             a = _in_dtype(lambda u: conv.synthesis_pass(u, rec_c, axis=-1, **kw), t)
         return _unflat(a[:, 0], batch)
     A, Bc = _rank_decomp(q)
     rank, hlen = Bc.shape
-    mxu = sep._swt_mxu_mode(coeffs.details[-1][0].dtype if coeffs.levels
-                            else coeffs.approx.dtype)
+    mxu = None if pad_fn is not None else sep._swt_mxu_mode(
+        coeffs.details[-1][0].dtype if coeffs.levels else coeffs.approx.dtype)
     if mxu == "bf16":
         a = a.float()
     for i in range(coeffs.levels - 1, -1, -1):
@@ -282,6 +317,7 @@ def iswt2d_ns(coeffs: Coeffs2D, quads_inv) -> torch.Tensor:
                                                    BF16 if last_bf16 else F32)[:, None]
         else:
             parts = [t.float() for t in (a, h, v, d)] if mxu else [a, h, v, d]
-            a = _rank_inv_level(_cat(parts), A, 0.25 * Bc, f=1 << i, decimated=False)
+            a = _rank_inv_level(_cat(parts), A, 0.25 * Bc, f=1 << i, decimated=False,
+                                pad_fn=pad_fn)
             a = a.to(BF16) if last_bf16 else a
     return _unflat(a[:, 0], batch)

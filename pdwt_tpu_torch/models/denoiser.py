@@ -3,8 +3,9 @@ the denoising step (random circular shift, DWT or SWT, threshold, norm,
 inverse, unshift; on the SWT branch an elementwise threshold fuses into
 the inverse), the fully data-driven ``auto_denoise``, the averaged
 ``cycle_spin_denoise``, the denoising step over a device mesh,
-``sharded_denoise_step``, and the volume step and data-driven denoise,
-``denoise_step_3d`` and ``auto_denoise_3d``.  Shifts come from a ``torch.Generator`` where JAX
+``sharded_denoise_step``, the volume step and data-driven denoise,
+``denoise_step_3d`` and ``auto_denoise_3d``, and the volume step over a
+device mesh, ``sharded_denoise_step_3d``.  Shifts come from a ``torch.Generator`` where JAX
 takes a PRNG key."""
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 
 from .. import ops
 from ..core.separable import all_periodization, dwt2d, idwt2d, iswt2d, iswt2d_denoise, swt2d
-from ..core.separable3d import dwt3d, idwt3d, iswt3d, iswt3d_denoise, swt3d
+from ..core.separable3d import Coeffs3D, dwt3d, idwt3d, iswt3d, iswt3d_denoise, swt3d
 from ..filters import get_wavelet
 from ..ops.threshold import THR_ELEM
 from ..ops.threshold import THRESHOLD_OPS as _THRESH
@@ -145,18 +146,28 @@ def sharded_denoise_step(img, wav, levels: int, beta, mesh, *, data_axis: Option
 
     check_mode(mode)
     wav = _resolve(wav)
-    nr, nc = img.shape[-2:]
     axes = dict(data_axis=data_axis, row_axis=row_axis, col_axis=col_axis)
-    coeffs = par.dwt2d(img, wav, levels, mesh, swt=swt, **axes)
+    return _sharded_step(par.dwt2d, par.idwt2d, Coeffs2D, img, tuple(img.shape[-2:]), wav,
+                         levels, beta, mesh, axes, par._placements(mesh, img.ndim, **axes),
+                         mode, swt)
+
+
+def _sharded_step(fwd, inv, tree, img, shape, wav, levels, beta, mesh, axes, placements,
+                  mode, swt):
+    """The sharded steps' body: the sharded forward ``fwd``, the threshold
+    and the norm on each rank's shards (the norm all-reduced over the mesh
+    axes that shard the input), the sharded inverse ``inv`` to ``shape``;
+    ``tree`` is the coefficients' type."""
+    from ..parallel import sharded as par
+
+    coeffs = fwd(img, wav, levels, mesh, swt=swt, **axes)
     loc = lambda t: t.to_local()
-    coeffs = _THRESH[mode](Coeffs2D(loc(coeffs.approx),
-                                    tuple(tuple(map(loc, b)) for b in coeffs.details)), beta)
-    n1 = par.all_reduce_sum(ops.norm1(coeffs), mesh, (data_axis, row_axis, col_axis))
-    placements = par._placements(mesh, img.ndim, **axes)
+    coeffs = _THRESH[mode](tree(loc(coeffs.approx),
+                                tuple(tuple(map(loc, b)) for b in coeffs.details)), beta)
+    n1 = par.all_reduce_sum(ops.norm1(coeffs), mesh, tuple(axes.values()))
     glob = lambda t: par._global(t, mesh, placements)
-    coeffs = Coeffs2D(glob(coeffs.approx), tuple(tuple(map(glob, b)) for b in coeffs.details))
-    out = par.idwt2d(coeffs, wav, (nr, nc), mesh, swt=swt, **axes)
-    return out, n1
+    coeffs = tree(glob(coeffs.approx), tuple(tuple(map(glob, b)) for b in coeffs.details))
+    return inv(coeffs, wav, shape, mesh, swt=swt, **axes), n1
 
 
 def denoise_step_3d(vol: torch.Tensor, generator: Optional[torch.Generator], wav, levels: int,
@@ -211,3 +222,24 @@ def auto_denoise_3d(vol: torch.Tensor, wav, levels: int, *, method: str = "bayes
     if swt:
         return iswt3d(coeffs, wav)
     return idwt3d(coeffs, wav, tuple(vol.shape[-3:]))
+
+
+def sharded_denoise_step_3d(vol, wav, levels: int, beta, mesh, *,
+                            data_axis: Optional[str] = None, dep_axis: Optional[str] = None,
+                            row_axis: Optional[str] = None, col_axis: Optional[str] = None,
+                            mode: str = "soft", swt: bool = False):
+    """One volume denoising step over a (data, depth, row, col) device mesh
+    (no cycle spinning), :func:`sharded_denoise_step` of the volume: the
+    sharded 3D DWT (or SWT) of ``vol`` (a DTensor, or a full tensor that
+    every rank passes alike), the threshold on each rank's shards, the norm
+    as each rank's sum all-reduced over the mesh axes that shard the volume,
+    and the sharded inverse.  Returns ``(denoised, norm1)``: a DTensor
+    sharded as the input, and a 0-dim tensor equal on every rank."""
+    from ..parallel import sharded as par
+
+    check_mode(mode)
+    wav = _resolve(wav)
+    axes = dict(data_axis=data_axis, dep_axis=dep_axis, row_axis=row_axis, col_axis=col_axis)
+    return _sharded_step(par.dwt3d, par.idwt3d, Coeffs3D, vol, tuple(vol.shape[-3:]), wav,
+                         levels, beta, mesh, axes, par._placements3d(mesh, vol.ndim, **axes),
+                         mode, swt)

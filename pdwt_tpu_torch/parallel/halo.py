@@ -90,16 +90,18 @@ def ring_wrap_pad(x: torch.Tensor, axis: int, lo: int, hi: int, *, mesh,
     return torch.cat(left + [x] + right, dim=ax)
 
 
-def make_pad_fn(mesh, row_axis: Optional[str] = None, col_axis: Optional[str] = None):
+def make_pad_fn(mesh, row_axis: Optional[str] = None, col_axis: Optional[str] = None,
+                dep_axis: Optional[str] = None):
     """A ``pad_fn(x, axis, lo, hi)`` dispatching per trailing axis: the ring
-    exchange over ``row_axis`` on axis -2 and over ``col_axis`` on axis -1,
+    exchange over ``dep_axis`` on axis -3 (the depth of a (B, D, R, C)
+    volume), over ``row_axis`` on axis -2 and over ``col_axis`` on axis -1,
     :func:`wrap_pad` on an axis that no mesh axis shards."""
+    rings = {3: dep_axis, 2: row_axis, 1: col_axis}
+
     def pad_fn(x, axis, lo, hi):
-        ax = axis % x.ndim
-        if ax == x.ndim - 2 and row_axis is not None:
-            return ring_wrap_pad(x, axis, lo, hi, mesh=mesh, axis_name=row_axis)
-        if ax == x.ndim - 1 and col_axis is not None:
-            return ring_wrap_pad(x, axis, lo, hi, mesh=mesh, axis_name=col_axis)
+        name = rings.get(x.ndim - axis % x.ndim)
+        if name is not None:
+            return ring_wrap_pad(x, axis, lo, hi, mesh=mesh, axis_name=name)
         return wrap_pad(x, axis, lo, hi)
 
     return pad_fn

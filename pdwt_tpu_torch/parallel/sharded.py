@@ -1,6 +1,6 @@
-"""Sharded 2D and batched 1D wavelet transforms over a (data, row, col)
-device mesh: counterpart of the 2D and 1D parts of
-``pdwt_tpu/parallel/sharded.py`` on ``torch.distributed``.
+"""Sharded 2D, batched 1D, 3D and non-separable wavelet transforms over a
+(data, row, col) device mesh, or (data, dep, row, col) for volumes:
+counterpart of ``pdwt_tpu/parallel/sharded.py`` on ``torch.distributed``.
 
 Inputs and outputs are ``DTensor``s, the counterpart of JAX's globally
 sharded arrays (:func:`shard_image` places a tensor).  Each entry point runs
@@ -49,17 +49,29 @@ JAX's errors before any exchange.  Since the route rule sees the shard,
 a level may take the banded-product kernel on one card and not on the
 shards (a 1024² shard's level 4 has 64-wide subbands): the sharded tiers
 match the single card within the tier's tolerance, as JAX's do.
+
+A volume's level is the 2D level above on (B*D, r, c), depth as the
+batch, then the depth pass of each subband over the depth ring
+(``core/depth_matmul.py: depth_analysis_ring``); its inverse is always the
+depth-bit regrouping (two 2D inverses a level, then
+``depth_synthesis_ring``), as JAX's sharded inverse is, so it matches the
+single-card exact inverse (depth synthesis first) to roundoff.  The
+non-separable transforms run ``core/nonseparable.py`` on each shard with
+the ring ``pad_fn``, or with none where only the batch is sharded.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from .. import kernels
 from ..core import conv
+from ..core.depth_matmul import depth_analysis_ring, depth_synthesis_ring
 from ..core.separable import (BF16, F32, Coeffs1D, Coeffs2D, _swt_mxu_mode, check_supported,
                               fwd_mode_pad, inv_mode_pad, mxu_mode)
+from ..core.separable3d import Coeffs3D, depth_split, inv_level_regrouped
 from ..core.shapes import level_sizes
 from ..filters import Wavelet
 from ..kernels.matmul import inv_plan, mode_out_dtypes, mode_scheme, swt_scheme
@@ -111,13 +123,14 @@ def _validate2d(shape, mesh, data_axis, row_axis, col_axis, levels, swt):
 # placement: DTensors <-> local shards
 # ---------------------------------------------------------------------------
 
-def _placements(mesh, ndim: int, data_axis, row_axis, col_axis):
+def _placements(mesh, ndim: int, data_axis, row_axis, col_axis, dep_axis=None):
     """Shard(0) on ``data_axis`` (input rank above 2, or above 1 with no
-    row axis: a batch of signals), Shard(ndim - 2) on ``row_axis``,
-    Shard(ndim - 1) on ``col_axis``, Replicate on every other mesh axis."""
+    row axis: a batch of signals; above 3 for a volume), Shard(ndim - 3) on
+    ``dep_axis``, Shard(ndim - 2) on ``row_axis``, Shard(ndim - 1) on
+    ``col_axis``, Replicate on every other mesh axis."""
     from torch.distributed.tensor import Replicate, Shard
 
-    dims = {data_axis: 0, row_axis: ndim - 2, col_axis: ndim - 1}
+    dims = {data_axis: 0, dep_axis: ndim - 3, row_axis: ndim - 2, col_axis: ndim - 1}
     return tuple(Shard(dims[n]) if n is not None and n in dims else Replicate()
                  for n in mesh.mesh_dim_names)
 
@@ -156,14 +169,21 @@ def _global(t: torch.Tensor, mesh, placements):
 
 
 def shard_image(x: torch.Tensor, mesh, *, data_axis: Optional[str] = None,
-                row_axis: Optional[str] = None, col_axis: Optional[str] = None):
+                row_axis: Optional[str] = None, col_axis: Optional[str] = None,
+                dep_axis: Optional[str] = None):
     """Place a full tensor on the mesh with the transforms' input sharding:
     ``Shard`` on the named mesh axes (the batch over ``data_axis``, the rows
     and columns of a 2D input, or the samples of a 1D one, over
-    ``row_axis`` / ``col_axis``), ``Replicate`` elsewhere.  What
+    ``row_axis`` / ``col_axis``; with ``dep_axis`` the input is a volume,
+    its depth over ``dep_axis`` and its batch, if it has one, over
+    ``data_axis``), ``Replicate`` elsewhere.  A 3D tensor without
+    ``dep_axis`` is a batch of 2D images, as :func:`dwt2d` takes it.  What
     ``distribute_tensor(x, mesh, placements, src_data_rank=None)`` gives:
     every rank passes the same full tensor, as every process of JAX's
     program does, and keeps its own slice, with no communication."""
+    if dep_axis is not None:
+        placements = _placements3d(mesh, x.ndim, data_axis, dep_axis, row_axis, col_axis)
+        return _global(_local(x, mesh, placements), mesh, placements)
     if x.ndim < 2:
         if data_axis is not None:
             raise ValueError("data_axis given but input has no batch dim")
@@ -330,9 +350,12 @@ def _mode(dtype: torch.dtype, swt: bool) -> Optional[str]:
     return _swt_mxu_mode(dtype) if swt else mxu_mode(dtype)
 
 
-def _local_dwt2d(xl, wav, levels, pad_fn, swt):
+def _local_dwt2d(xl, wav, levels, pad_fn, swt, exact=False):
+    """The local 2D forward composition; ``exact`` runs no MXU mode, every
+    level in the input's dtype (the ring route of the non-separable
+    transforms, as JAX's conv backends run it)."""
     batch = tuple(xl.shape[:-2])
-    mode = _mode(xl.dtype, swt)
+    mode = None if exact else _mode(xl.dtype, swt)
     a = _flat(xl, 2)
     details = []
     for lvl in range(1, levels + 1):
@@ -344,10 +367,11 @@ def _local_dwt2d(xl, wav, levels, pad_fn, swt):
     return Coeffs2D(a.reshape(batch + tuple(a.shape[1:])), tuple(details))
 
 
-def _local_idwt2d(cl, wav, local_shape, pad_fn, swt):
+def _local_idwt2d(cl, wav, local_shape, pad_fn, swt, exact=False):
     levels = cl.levels
     batch = tuple(cl.approx.shape[:-2])
-    mode = _mode(cl.details[-1][0].dtype if levels else cl.approx.dtype, swt)
+    mode = None if exact else _mode(cl.details[-1][0].dtype if levels else cl.approx.dtype,
+                                    swt)
     rows = level_sizes(local_shape[0], levels)
     cols = level_sizes(local_shape[1], levels)
     a = _flat(cl.approx, 2)
@@ -552,3 +576,192 @@ def swt1d(x, wav, levels, mesh, **kw) -> Coeffs1D:
 
 def iswt1d(coeffs, wav, length, mesh, **kw):
     return idwt1d(coeffs, wav, length, mesh, swt=True, **kw)
+
+
+# ---------------------------------------------------------------------------
+# 3D: volumes sharded over (depth, row, col), JAX's sharded.py:687-912
+# ---------------------------------------------------------------------------
+
+def _placements3d(mesh, ndim, data_axis, dep_axis, row_axis, col_axis):
+    """JAX's ``_spec3d``: the batch over ``data_axis`` where the volume has
+    one, its depth, rows and columns over the other three."""
+    return _placements(mesh, ndim, data_axis if ndim > 3 else None, row_axis, col_axis,
+                       dep_axis)
+
+
+def _validate3d(shape, mesh, data_axis, dep_axis, row_axis, col_axis, levels, swt):
+    if len(shape) < 3:
+        raise ValueError(f"expected at least a 3D array, got shape {tuple(shape)}")
+    if data_axis is not None:
+        if len(shape) < 4:
+            raise ValueError("data_axis given but input has no batch dim")
+        n = _axis_size(mesh, data_axis)
+        if shape[0] % n != 0:
+            raise ValueError(f"batch {shape[0]} not divisible by mesh axis {data_axis!r} ({n})")
+    for name, ax, dim in (("depth", dep_axis, -3), ("row", row_axis, -2), ("col", col_axis, -1)):
+        if ax is not None:
+            _check_div(name, shape[dim], _axis_size(mesh, ax), levels, swt)
+
+
+def _local_dwt3d(xl, wav, levels, pad_fn, swt):
+    """Each level: the local 2D level on (B*D, r, c), depth as its batch
+    (1p or 5p float32, 11p or 13p where the route rule accepts the shard
+    under a tier, the conv passes with the ring otherwise), its outputs in
+    the mode's dtypes, then the depth analysis of each subband over the
+    depth ring (``depth_analysis_ring``)."""
+    batch = tuple(xl.shape[:-3])
+    mode = _mode(xl.dtype, swt)
+    analysis = functools.partial(depth_analysis_ring, pad_fn=pad_fn)
+    a = _flat(xl, 3)
+    details = []
+    for lvl in range(1, levels + 1):
+        b, dd, r, c = a.shape
+        flat = a.reshape(b * dd, r, c)
+        if swt:
+            res = _swt_fwd_level_2d_local(flat, wav, lvl, mode, pad_fn)
+        else:
+            res = _fwd_level_2d_local(flat, wav, mode, pad_fn)
+        bands = depth_split(res, wav, b, dd, dilation=1 << (lvl - 1) if swt else 1,
+                            decimate=not swt, mxu=mode, analysis=analysis)
+        a = bands[0].contiguous()
+        details.append(tuple(t.reshape(batch + tuple(t.shape[1:])) for t in bands[1:]))
+    return Coeffs3D(a.reshape(batch + tuple(a.shape[1:])), tuple(details))
+
+
+def _local_idwt3d(cl, wav, local_shape, pad_fn, swt):
+    """Each level by the depth-bit regrouping, as JAX's sharded inverse
+    (sharded.py:742-831): two local 2D inverses (2p/6p, 12p/14p where the
+    route rule accepts the shard) writing float32, then the depth
+    synthesis over the depth ring; in bf16 the last level is cast to bf16."""
+    levels = cl.levels
+    deps, rows, cols = (level_sizes(n, levels) for n in local_shape)
+    batch = tuple(cl.approx.shape[:-3])
+    mode = _mode(cl.details[-1][0].dtype if levels else cl.approx.dtype, swt)
+    synthesis = functools.partial(depth_synthesis_ring, pad_fn=pad_fn)
+    a = _flat(cl.approx, 3)
+    a = a.float() if mode == "bf16" else a
+    for i in range(levels - 1, -1, -1):
+        if swt:
+            inv2d = functools.partial(_swt_inv_level_2d_local, wav=wav, lvl=i + 1, mode=mode,
+                                      out_dt=F32, pad_fn=pad_fn)
+        else:
+            inv2d = functools.partial(_inv_level_2d_local, wav=wav, mode=mode, out_dt=F32,
+                                      pad_fn=pad_fn, out_rc=(rows[i], cols[i]))
+        a = inv_level_regrouped(a, [_flat(t, 3) for t in cl.details[i]], inv2d, wav,
+                                out_dep=deps[i], swt_level=i + 1 if swt else 0,
+                                synthesis=synthesis)
+        if mode:
+            a = a.to(BF16 if mode == "bf16" and i == 0 else F32)
+    return a.reshape(batch + tuple(a.shape[1:]))
+
+
+def dwt3d(x, wav: Wavelet, levels: int, mesh, *, data_axis: Optional[str] = None,
+          dep_axis: Optional[str] = None, row_axis: Optional[str] = None,
+          col_axis: Optional[str] = None, swt: bool = False) -> Coeffs3D:
+    """Sharded multi-level separable 3D DWT (or SWT with ``swt=True``) of
+    ``x`` (..., D, R, C), a DTensor (or a full tensor, placed by
+    :func:`shard_image` with ``dep_axis``) -> a ``Coeffs3D`` of DTensors
+    sharded as the input."""
+    _validate3d(tuple(x.shape), mesh, data_axis, dep_axis, row_axis, col_axis, levels, swt)
+    placements = _placements3d(mesh, x.ndim, data_axis, dep_axis, row_axis, col_axis)
+    pad_fn = make_pad_fn(mesh, row_axis, col_axis, dep_axis)
+    cl = _local_dwt3d(_local(x, mesh, placements), wav, levels, pad_fn, swt)
+    g = lambda t: _global(t, mesh, placements)
+    return Coeffs3D(g(cl.approx), tuple(tuple(map(g, band)) for band in cl.details))
+
+
+def idwt3d(coeffs: Coeffs3D, wav: Wavelet, shape: Tuple[int, int, int], mesh, *,
+           data_axis: Optional[str] = None, dep_axis: Optional[str] = None,
+           row_axis: Optional[str] = None, col_axis: Optional[str] = None,
+           swt: bool = False):
+    """Sharded inverse of :func:`dwt3d`; ``shape`` is the global (Nd, Nr,
+    Nc).  Returns a DTensor sharded as the forward's input."""
+    levels = coeffs.levels
+    a = coeffs.approx
+    _validate3d(tuple(a.shape), mesh, data_axis, None, None, None, levels, swt)
+    axes = (dep_axis, row_axis, col_axis)
+    for name, ax, n in zip(("depth", "row", "col"), axes, shape):
+        if ax is not None:
+            _check_div(name, n, _axis_size(mesh, ax), levels, swt)
+    placements = _placements3d(mesh, a.ndim, data_axis, dep_axis, row_axis, col_axis)
+    pad_fn = make_pad_fn(mesh, row_axis, col_axis, dep_axis)
+    local_shape = tuple(n // _axis_size(mesh, ax) for n, ax in zip(shape, axes))
+    loc = lambda t: _local(t, mesh, placements)
+    cl = Coeffs3D(loc(a), tuple(tuple(map(loc, band)) for band in coeffs.details))
+    return _global(_local_idwt3d(cl, wav, local_shape, pad_fn, swt), mesh, placements)
+
+
+def swt3d(x, wav, levels, mesh, **kw) -> Coeffs3D:
+    return dwt3d(x, wav, levels, mesh, swt=True, **kw)
+
+
+def iswt3d(coeffs, wav, shape, mesh, **kw):
+    return idwt3d(coeffs, wav, shape, mesh, swt=True, **kw)
+
+
+# ---------------------------------------------------------------------------
+# non-separable (true 2D quads), JAX's sharded.py:934-1001
+# ---------------------------------------------------------------------------
+
+def _ns_pad_fn(mesh, row_axis, col_axis):
+    """The ring where rows or columns are sharded; None where only the
+    batch is, so that each shard is the single-card call (kernels 17-18 and
+    the separable kernels stay on its route, as JAX's comment at
+    sharded.py:949-952 says)."""
+    if row_axis is None and col_axis is None:
+        return None
+    return make_pad_fn(mesh, row_axis, col_axis)
+
+
+def dwt2d_ns(x, quads, levels: int, mesh, *, data_axis: Optional[str] = None,
+             row_axis: Optional[str] = None, col_axis: Optional[str] = None,
+             swt: bool = False) -> Coeffs2D:
+    """Sharded non-separable 2D DWT (or SWT with ``swt=True``) with the
+    forward quads ``quads``: ``core.nonseparable`` on each shard with the
+    ring ``pad_fn``."""
+    from ..core import nonseparable as ns
+
+    _validate2d(tuple(x.shape), mesh, data_axis, row_axis, col_axis, levels, swt)
+    placements = _placements(mesh, x.ndim, data_axis, row_axis, col_axis)
+    core = ns.swt2d_ns if swt else ns.dwt2d_ns
+    cl = core(_local(x, mesh, placements), quads, levels,
+              pad_fn=_ns_pad_fn(mesh, row_axis, col_axis))
+    g = lambda t: _global(t, mesh, placements)
+    return Coeffs2D(g(cl.approx), tuple(tuple(map(g, band)) for band in cl.details))
+
+
+def idwt2d_ns(coeffs: Coeffs2D, quads_inv, shape: Tuple[int, int], mesh, *,
+              data_axis: Optional[str] = None, row_axis: Optional[str] = None,
+              col_axis: Optional[str] = None, swt: bool = False):
+    """Sharded inverse of :func:`dwt2d_ns` with the inverse quads
+    ``quads_inv``; ``shape`` is the global (Nr, Nc)."""
+    from ..core import nonseparable as ns
+
+    levels = coeffs.levels
+    a = coeffs.approx
+    _validate2d(tuple(a.shape), mesh, data_axis, None, None, levels, swt)
+    if row_axis is not None:
+        _check_div("row", shape[0], _axis_size(mesh, row_axis), levels, swt)
+    if col_axis is not None:
+        _check_div("col", shape[1], _axis_size(mesh, col_axis), levels, swt)
+    placements = _placements(mesh, a.ndim, data_axis, row_axis, col_axis)
+    pad_fn = _ns_pad_fn(mesh, row_axis, col_axis)
+    loc = lambda t: _local(t, mesh, placements)
+    cl = Coeffs2D(loc(a), tuple(tuple(map(loc, band)) for band in coeffs.details))
+    if swt:
+        y = ns.iswt2d_ns(cl, quads_inv, pad_fn=pad_fn)
+    else:
+        local_shape = (shape[0] // _axis_size(mesh, row_axis),
+                       shape[1] // _axis_size(mesh, col_axis))
+        y = ns.idwt2d_ns(cl, quads_inv, local_shape, pad_fn=pad_fn)
+    return _global(y, mesh, placements)
+
+
+def swt2d_ns(x, quads, levels, mesh, **kw) -> Coeffs2D:
+    return dwt2d_ns(x, quads, levels, mesh, swt=True, **kw)
+
+
+def iswt2d_ns(coeffs, quads_inv, mesh, *, shape=None, **kw):
+    return idwt2d_ns(coeffs, quads_inv,
+                     tuple(coeffs.approx.shape[-2:]) if shape is None else shape, mesh,
+                     swt=True, **kw)

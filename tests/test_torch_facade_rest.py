@@ -452,10 +452,8 @@ DEFERRED = {
     "Wavelets": {},
     "filters": {},
     "ops": {},
-    "models": {"packet_denoise": 14, "starlet_auto_denoise": 14, "sharded_denoise_step_3d": 16},
-    "parallel": {n: 16 for n in ("dwt3d", "idwt3d", "swt3d", "iswt3d", "dwt2d_ns", "idwt2d_ns",
-                                 "swt2d_ns", "iswt2d_ns", "fs_dwt", "fs_idwt", "packets",
-                                 "starlet", "istarlet")},
+    "models": {"packet_denoise": 14, "starlet_auto_denoise": 14},
+    "parallel": {n: 16 for n in ("fs_dwt", "fs_idwt", "packets", "starlet", "istarlet")},
     "utils": {**{n: 15 for n in ("assert_finite", "checked", "validate_coeffs", "to_pywt",
                                  "from_pywt", "dwt_max_level", "dwt", "idwt", "dwt2", "idwt2",
                                  "wavedec", "wavedec2", "wavedecn", "waverec", "waverec2",
