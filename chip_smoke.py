@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (pdwt_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--only volume]
+    python3 chip_smoke.py [--only volume|families]
 
 Run from the repository root.  It builds the CUDA kernels from
-``pdwt_tpu_torch/kernels/csrc`` and drives the port's ten paths, each
+``pdwt_tpu_torch/kernels/csrc`` and drives the port's eleven paths, each
 with the launch counters set to 0 just before it and read just after:
 
 * the DWT path: each of its four kernels against its plain PyTorch version
@@ -131,6 +131,22 @@ with the launch counters set to 0 just before it and read just after:
   2D kernels, the depth products and the rest, its idle share and its
   peak memory.  ``--only volume`` runs this phase alone (a development run;
   it prints no result).
+* the packet, starlet and dual-tree families, on the existing kernels: the
+  DWT cell's image (2048x2048 db7, 5 levels) as a full packet tree
+  (``wp2d``/``iwp2d``, kernels 1-4), its best basis under each of the four
+  costs and ``wp_reconstruct`` on that cover with and without a soft beta
+  (``map_fn`` a leaf at a time beside one threshold pass a depth, equal to
+  the bit), ``packet_denoise`` with the automatic beta, ``WaveletPackets``;
+  the tree under ``bf16-fast`` and ``mixed`` (11, 12); 1D packets of 1024
+  x 4096 sym8 to 4 levels (7, 8; 15, 16 under the tiers); 3D packets of
+  64x512x512 db4 to 2 levels and ``WaveletPackets`` on the volume; the
+  starlet of the image (4 scales, gen 2), ``starlet_auto_denoise`` and
+  ``Starlet`` on the volume (conv passes, no kernel: held to float64 on
+  the card); the dual tree of the image (4 levels) and of the signals,
+  ``dtcwt_auto_denoise`` and ``DualTree``; the demo's scenarios 4-6.  One
+  best-basis cover serves both routes (their float32 cost sums may split
+  a near-tie otherwise); launches exactly ``wp_launches``/``dt_launches``;
+  every path timed as the volume's.  ``--only families`` runs it alone.
 
 The banded-product kernels redesigned for Hopper's CUDA cores (kernels 14
 and 18: ``swt_inv_level_2d_mxu``, ``ns_inv_level_2d_mxu``,
@@ -253,6 +269,11 @@ JAX_CPU_ROUNDTRIP = {
                "bf16-balanced": 3.490936279296875, "bf16-accurate": 1.7311477661132812},
     "NS SWT": {"mixed": 9.1552734375e-05, "bf16-fast": 1.4998626708984375,
                "bf16-balanced": 1.4998931884765625, "bf16-accurate": 1.4998931884765625},
+    # the packet trees (the DWT image, db7, 5 levels; 1024 x 4096 uniform
+    # [0, 255] signals from default_rng(2), sym8, 4 levels), whose A-chain
+    # JAX casts to bf16 at every depth under a bf16 tier
+    "2D packets": {"mixed": 0.0248260498046875, "bf16-fast": 8.496826171875},
+    "1D packets": {"mixed": 0.0090484619140625, "bf16-fast": 4.4781341552734375},
 }
 # README.md:239: the 2D SWT roundtrip in bf16, one pass (6.5) and b2f (2.4);
 # under mixed the SWT is exact.  The non-separable cells take the 2D
@@ -863,14 +884,17 @@ def main() -> None:
             print("  ptxas:", line.strip())
 
     if sys.argv[1:]:
-        # a development run of the volume phase alone: no result line
-        check(sys.argv[1:] == ["--only", "volume"], "usage: chip_smoke.py [--only volume]")
+        # a development run of one phase alone: no result line
+        only = {"volume": volume_phase, "families": families_phase}
+        check(len(sys.argv) == 3 and sys.argv[1] == "--only" and sys.argv[2] in only,
+              "usage: chip_smoke.py [--only volume|families]")
         report = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
                          "plain_device_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                          "bound_ms": 0.0, "library_ms": 0.0} for name in REPLACES}
-        volume_phase(dev, card, report, {name: 0 for name in REPLACES},
-                     torch.Generator(device=dev).manual_seed(0))
-        print("chip_smoke: --only volume passed; a partial run prints no result", flush=True)
+        only[sys.argv[2]](dev, card, report, {name: 0 for name in REPLACES},
+                          torch.Generator(device=dev).manual_seed(0))
+        print(f"chip_smoke: --only {sys.argv[2]} passed; a partial run prints no result",
+              flush=True)
         return
 
     wav = get_wavelet(WNAME)
@@ -1361,6 +1385,7 @@ def main() -> None:
     modes_phase(dev, card, report, launches, dwt_img, rt_sig, gen)
     sharded_phase(dev, card, report, launches, gen)
     volume_phase(dev, card, report, launches, gen)
+    families_phase(dev, card, report, launches, gen)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
@@ -4271,18 +4296,24 @@ VOL_NAMES = ("fwd_level_2d", "inv_level_2d", "swt_fwd_level_2d", "swt_inv_level_
 
 @contextlib.contextmanager
 def plain_route():
-    """The kernel wrappers the 3D transforms reach swapped for their plain
-    versions while the block runs: the same composition (routes, casts,
-    depth products) on plain versions on the card; no launch counts."""
+    """The kernel wrappers the 3D transforms and the families reach (1-8,
+    11-16) swapped for their plain versions while the block runs: the same
+    composition (routes, casts, depth products) on plain versions on the
+    card; no launch counts."""
     from pdwt_tpu_torch.kernels import LAUNCHES
+    from pdwt_tpu_torch.kernels import batched1d as B1
     from pdwt_tpu_torch.kernels import matmul as M
+    from pdwt_tpu_torch.kernels import mxu1d as MX
     from pdwt_tpu_torch.kernels import separable as K
     from pdwt_tpu_torch.kernels import swt as S
     from pdwt_tpu_torch.kernels import swt_matmul as SM
 
     saved = [(m, n, getattr(m, n)) for m, names in
-             ((K, ("fwd_level_2d", "inv_level_2d")), (S, ("swt_fwd_level_2d", "swt_inv_level_2d")),
+             ((K, ("fwd_level_2d", "inv_level_2d", "fwd_tail_2d", "inv_tail_2d")),
+              (S, ("swt_fwd_level_2d", "swt_inv_level_2d")),
+              (B1, ("fwd_level_1d", "inv_level_1d")),
               (M, ("fwd_level_2d_mxu", "inv_level_2d_mxu")),
+              (MX, ("fwd_level_1d_mxu", "inv_level_1d_mxu")),
               (SM, ("swt_fwd_level_2d_mxu", "swt_inv_level_2d_mxu"))) for n in names]
     before = sum(LAUNCHES.values())
     try:
@@ -4292,10 +4323,10 @@ def plain_route():
     finally:
         for m, n, f in saved:
             setattr(m, n, f)
-    check(sum(LAUNCHES.values()) == before, "volume: the plain route launched a kernel")
+    check(sum(LAUNCHES.values()) == before, "the plain route launched a kernel")
 
 
-def counted_exactly(label, fn, want: dict, into: dict):
+def counted_exactly(label, fn, want: dict, into: dict, phase: str = "volume"):
     """fn() between a reset and a read of the launch counters: exactly the
     launches ``want`` (name -> count); adds them to ``into``."""
     from pdwt_tpu_torch.kernels import LAUNCHES, reset_launch_counts
@@ -4305,19 +4336,20 @@ def counted_exactly(label, fn, want: dict, into: dict):
     out = fn()
     torch.cuda.synchronize()
     got = {k: v for k, v in LAUNCHES.items() if v}
-    print(f"volume: {label}: launches {got}", flush=True)
-    check(got == want, f"volume: {label} launched {got}, the route rule gives {want}")
+    print(f"{phase}: {label}: launches {got}", flush=True)
+    check(got == want, f"{phase}: {label} launched {got}, the route rule gives {want}")
     for k, v in got.items():
         into[k] = into.get(k, 0) + v
     return out
 
 
-def vol_timing(label, fn, card) -> None:
+def vol_timing(label, fn, card, phase: str = "volume") -> dict:
     """One call's time (CUDA events, median of 20), its device busy time
     from the launch counters (``device_ms``: busy_per_call), that busy time
-    split between the port's 2D kernels, the depth products (cuBLAS GEMMs)
-    and the rest (copies, casts, thresholds, rolls), the idle share, and
-    the peak memory of one call; printed, and returned as a dict."""
+    split between the port's kernels, the depth products (cuBLAS GEMMs)
+    and the rest (copies, casts, thresholds, rolls, conv passes), the idle
+    share, and the peak memory of one call; printed, and returned as a
+    dict."""
     ms = cuda_ms(fn)
     busy, by_name = device_ms(fn)
     torch.cuda.synchronize()
@@ -4328,13 +4360,13 @@ def vol_timing(label, fn, card) -> None:
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     out = {"ms": ms, "busy_ms": busy, "peak_gib": peak}
     if busy is None:
-        print(f"volume timing: {label}: {ms:.4f} ms a call, device busy not measured, peak "
+        print(f"{phase} timing: {label}: {ms:.4f} ms a call, device busy not measured, peak "
               f"{peak:.3f} GiB above the inputs [{card}]", flush=True)
         return out
     gemm = lambda k: any(s in k.lower() for s in ("gemm", "xmma", "cutlass", "cublas"))
     kern = sum(v for k, v in by_name.items() if is_port_kernel(k))
     prod = sum(v for k, v in by_name.items() if not is_port_kernel(k) and gemm(k))
-    print(f"volume timing: {label}: {ms:.4f} ms a call, device busy {busy:.4f} ms (2D kernels "
+    print(f"{phase} timing: {label}: {ms:.4f} ms a call, device busy {busy:.4f} ms (kernels "
           f"{kern:.4f}, depth products {prod:.4f}, copies and the rest "
           f"{busy - kern - prod:.4f}), idle share {1 - busy / ms:.3f}, peak "
           f"{peak:.3f} GiB above the inputs [{card}]", flush=True)
@@ -4729,6 +4761,496 @@ def volume_phase(dev, card, report, launches, gen) -> None:
         check(vol_launches.get(name, 0) > 0, f"the volume path never launched {name}")
         launches[name] += vol_launches[name]
     print(f"volume phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the packet, starlet and dual-tree families (ROADMAP items 14a-14b)
+# ---------------------------------------------------------------------------
+
+# 2D packets at the DWT cell's image and wavelet, 1D at the 1D cell's
+# signals and wavelet, 3D at the TI volume's shape with the 3D cells'
+# wavelet; the soft beta of the best-basis reconstruct; the starlet's
+# scales, the dual tree's levels (2048 and 4096 divide by 2^4)
+FAM_LEVELS, FAM_1D_LEVELS, FAM_3D_LEVELS, FAM_BETA = 5, 4, 2, 10.0
+STARLET_SCALES, DT_LEVELS = 4, 4
+PACKET_TIERS = ("bf16-fast", "mixed")
+# JAX's packets cast the A-chain to the details' dtype at every depth, so a
+# bf16 tier rounds the deep approximations (up to 32 x 255 at depth 5) to
+# bf16: the roundtrip limit is the larger of README's tier figure and the
+# JAX package's error on the same input (scripts/jax_roundtrip_figures.py)
+FAM_KERNELS = ("fwd_level_2d", "inv_level_2d", "fwd_tail_2d", "inv_tail_2d", "fwd_level_1d",
+               "inv_level_1d", "fwd_level_2d_mxu", "inv_level_2d_mxu", "fwd_level_1d_mxu",
+               "inv_level_1d_mxu")
+
+
+def _bump(d: dict, name: str, k: int = 1) -> dict:
+    d[name] = d.get(name, 0) + k
+    return d
+
+
+def level_kernel_2d(r: int, c: int, hlen: int, mxu=None, bf16: bool = False) -> str:
+    """The kernel one single-level dwt2d launches on (B, r, c) nodes
+    (core/separable.py: the banded product where the tier's route accepts
+    the subbands, else the one-level tail where it fits, on float32 only,
+    else the level kernel)."""
+    from pdwt_tpu_torch import kernels as KK
+
+    r, c = r + r % 2, c + c % 2
+    if mxu and KK.mxu_route_2d(r // 2, c // 2, hlen):
+        return "fwd_level_2d_mxu"
+    if not bf16 and KK.tail_supported((r, c), hlen, 1):
+        return "fwd_tail_2d"
+    return "fwd_level_2d"
+
+
+def inv_kernel_2d(out_r: int, out_c: int, hlen: int, mxu=None) -> str:
+    """The kernel one single-level idwt2d launches into (out_r, out_c)."""
+    from pdwt_tpu_torch import kernels as KK
+
+    mr, mc = (out_r + 1) // 2, (out_c + 1) // 2
+    banded = bool(mxu) and KK.mxu_route_2d(mr, mc, hlen)
+    if (out_r, out_c) == (2 * mr, 2 * mc) and KK.tail_supported((out_r, out_c), hlen, 1) \
+            and not banded:
+        return "inv_tail_2d"
+    return "inv_level_2d_mxu" if banded else "inv_level_2d"
+
+
+def wp_launches(sd: int, shape, hlen: int, levels: int, deepest: Optional[int] = None,
+                mxu=None, bf16: bool = False):
+    """({kernel: launches} of wp2d / wp1d to ``levels``, of the inverse from
+    depth ``deepest`` (default ``levels``) up): one single-level transform a
+    depth, the node axis its batch.  ``shape``: (rows, cols) in 2D,
+    (signals, length) in 1D."""
+    from pdwt_tpu_torch import kernels as KK
+    from pdwt_tpu_torch.core.shapes import level_sizes
+
+    deepest = levels if deepest is None else deepest
+    fwd, inv = {}, {}
+    if sd == 2:
+        rows, cols = (level_sizes(n, levels) for n in shape)
+        for j in range(levels):
+            _bump(fwd, level_kernel_2d(rows[j], cols[j], hlen, mxu, bf16))
+        for j in range(deepest, 0, -1):
+            _bump(inv, inv_kernel_2d(rows[j - 1], cols[j - 1], hlen, mxu))
+        return fwd, inv
+    sig, n = shape
+    lens = level_sizes(n, levels)
+    for j in range(levels):
+        banded = mxu and KK.mxu_route_1d(sig << j, lens[j] + lens[j] % 2, hlen)
+        _bump(fwd, "fwd_level_1d_mxu" if banded else "fwd_level_1d")
+    for j in range(deepest, 0, -1):
+        banded = mxu and KK.mxu_route_1d(sig << (j - 1), 2 * lens[j], hlen)
+        _bump(inv, "inv_level_1d_mxu" if banded else "inv_level_1d")
+    return fwd, inv
+
+
+def dt_launches(shape, hlen: int, levels: int):
+    """({kernel: launches} of dtcwt2d / dtcwt1d, of their inverse): level 1
+    runs tree A's bank on the four (two in 1D) tree combos, deeper levels
+    the uniform combos (AA, BB) on the level kernels and the mixed ones on
+    the conv passes; ``shape``: (rows, cols), or (signals, length) in 1D
+    (``dwt1d(x, wa, levels)`` for tree A, single levels for tree B)."""
+    if len(shape) == 1:
+        return ({"fwd_level_1d": 2 * levels}, {"inv_level_1d": 2 * levels})
+    r, c = shape
+    fwd, inv = {}, {}
+    _bump(fwd, level_kernel_2d(r, c, hlen), 4)
+    _bump(inv, inv_kernel_2d(r, c, hlen), 4)
+    for lvl in range(1, levels):
+        _bump(fwd, level_kernel_2d(r >> lvl, c >> lvl, hlen), 2)
+        _bump(inv, inv_kernel_2d(r >> lvl, c >> lvl, hlen), 2)
+    return fwd, inv
+
+
+def _merged(*ds) -> dict:
+    out = {}
+    for d in ds:
+        for k, v in d.items():
+            _bump(out, k, v)
+    return out
+
+
+def real_view(t):
+    """Complex bands as (..., 2) real views: their real and imaginary parts
+    are held like any other output."""
+    if isinstance(t, torch.Tensor):
+        return torch.view_as_real(t) if t.is_complex() else t
+    return [real_view(x) for x in t]
+
+
+def fhold(label, got, want, rtol=PATH_RTOL) -> None:
+    vhold(f"families: {label}", real_view(got), real_view(want), rtol)
+
+
+def count_device_kernels(fn) -> Optional[int]:
+    """The device events (kernels, copies, fills) one fn() call records in
+    torch.profiler: the launches a call costs the host, the port's and
+    PyTorch's together (a window that drops events reads low)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def families_phase(dev, card, report, launches, gen) -> None:
+    """The packet, starlet and dual-tree families at full width on the
+    existing kernels: (a) the 2048x2048 db7 5-level packet tree (wp2d,
+    iwp2d, the best basis under each cost, wp_reconstruct on that cover
+    with and without a soft beta, map_fn a leaf at a time beside one
+    threshold pass a depth, packet_denoise with the automatic beta,
+    WaveletPackets); (b) its roundtrip under bf16-fast and mixed; (c) 1D
+    packets of 1024 x 4096 sym8 to 4 levels, also under bf16-fast and
+    mixed; (d) 3D packets of 64 x 512 x 512 db4 to 2 levels and
+    WaveletPackets(ndim=3); (e) the starlet of the image (4 scales, gen 2),
+    starlet_auto_denoise and Starlet on the volume; (f) the dual tree of
+    the image (4 levels) and of the signals, dtcwt_auto_denoise, DualTree;
+    (g) the demo's scenarios 4-6 on the card.  Every call between a reset
+    and a read of the launch counters (exactly the route's launches), held
+    to the same composition on the plain route (one best-basis cover for
+    both routes: their float32 cost sums may split a near-tie otherwise),
+    or where no kernel runs (the starlet) to the same call in float64;
+    each path timed (call, busy split, idle share, peak)."""
+    import importlib
+    import io
+    import tempfile
+
+    from pdwt_tpu_torch import DualTree, Starlet, WaveletPackets, demo, get_wavelet
+    from pdwt_tpu_torch.core import dualtree as DT
+    from pdwt_tpu_torch.core import packets as PK
+    from pdwt_tpu_torch.core.precision import precision_scope
+    from pdwt_tpu_torch.models import packet_denoise, starlet_auto_denoise
+    from pdwt_tpu_torch.ops.estimate import _MAD_TO_SIGMA, median
+    from pdwt_tpu_torch.ops.threshold import THR_ELEM, _const
+    from pdwt_tpu_torch.utils import write_dat
+
+    ST = importlib.import_module("pdwt_tpu_torch.core.starlet")
+    print("=== families ===", flush=True)
+    t_phase = time.perf_counter()
+    fam: dict = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    counted = lambda label, fn, want: counted_exactly(label, fn, want, fam, "families")
+    timing = lambda label, fn: vol_timing(label, fn, card, "families")
+    soft = THR_ELEM["soft"]
+    w = get_wavelet(WNAME)
+    hl, L, shape = w.hlen, FAM_LEVELS, (N, N)
+    img_np = np.random.default_rng(0).uniform(0, 255, shape).astype(np.float32)
+    img = torch.from_numpy(img_np).to(dev)
+
+    # ---------------- (a) 2D packets, exact ----------------
+    pf, pi = wp_launches(2, shape, hl, L)
+    p = counted("wp2d", lambda: PK.wp2d(img, w, L), pf)
+    y = counted("iwp2d", lambda: PK.iwp2d(p.nodes[-1], w, shape), pi)
+    with plain_route():
+        pp = PK.wp2d(img, w, L)
+        yp = PK.iwp2d(pp.nodes[-1], w, shape)
+    fhold("wp2d nodes vs the plain route", list(p.nodes), list(pp.nodes))
+    fhold("iwp2d vs the plain route", y, yp)
+    err = float((y - img).abs().max())
+    print(f"families: 2D packet roundtrip {shape} {WNAME} {L} levels max|y - x| {err!r} "
+          f"(limit {ROUNDTRIP_ATOL})", flush=True)
+    check(err <= ROUNDTRIP_ATOL, "families: the 2D packet roundtrip error")
+    del yp
+    timing(f"2D packets wp2d + iwp2d {shape} {WNAME} {L} levels",
+           lambda: PK.iwp2d(PK.wp2d(img, w, L).nodes[-1], w, shape))
+    covers = {}
+    for cost in PK.COSTS:
+        cov, total = counted(f"best_basis {cost}", lambda c=cost: PK.best_basis(p, c, FAM_BETA),
+                             {})
+        covers[cost] = cov
+        same = PK.best_basis(pp, cost, FAM_BETA)[0] == cov
+        deep = max(j for j, _ in cov)
+        print(f"families: best_basis {cost}: {len(cov)} leaves, depths "
+              f"{sorted({j for j, _ in cov})}, cost {total!r}; the plain route's nodes give "
+              f"{'the same cover' if same else 'another cover (a near-tie)'}", flush=True)
+        _, inv = wp_launches(2, shape, hl, L, deep)
+        r0 = counted(f"wp_reconstruct ({cost} cover)",
+                     lambda lv=cov: PK.wp_reconstruct(p, lv, w), inv)
+        r1 = counted(f"wp_reconstruct ({cost} cover, soft beta {FAM_BETA})",
+                     lambda lv=cov: PK.wp_reconstruct(
+                         PK.threshold_details(p, lv, soft, FAM_BETA), lv, w), inv)
+        with plain_route():
+            r0p = PK.wp_reconstruct(pp, cov, w)
+            r1p = PK.wp_reconstruct(PK.threshold_details(pp, cov, soft, FAM_BETA), cov, w)
+        fhold(f"wp_reconstruct ({cost} cover) vs the plain route", r0, r0p)
+        fhold(f"wp_reconstruct ({cost} cover, soft) vs the plain route", r1, r1p)
+        err = float((r0 - img).abs().max())
+        check(err <= ROUNDTRIP_ATOL, f"families: wp_reconstruct ({cost} cover) max|y - x| {err}")
+        check(bool(torch.isfinite(r1).all()) and float((r1 - img).abs().max()) > 0,
+              f"families: the soft reconstruct ({cost} cover) thresholded nothing")
+    cover = covers["shannon"]
+    _, inv = wp_launches(2, shape, hl, L, max(j for j, _ in cover))
+    per_leaf = lambda: PK.wp_reconstruct(p, cover, w, map_fn=lambda v, j, i: v if i == 0
+                                         else soft(v, FAM_BETA))
+    stacked = lambda: PK.wp_reconstruct(PK.threshold_details(p, cover, soft, FAM_BETA), cover, w)
+    a = counted("wp_reconstruct, map_fn a leaf at a time", per_leaf, inv)
+    check(torch.equal(a, stacked()), "families: map_fn a leaf at a time differs from one "
+          "threshold pass a depth")
+    for how, fn in (("map_fn a leaf at a time", per_leaf), ("one threshold pass a depth", stacked)):
+        print(f"families: wp_reconstruct (shannon cover, {len(cover)} leaves, soft) {how}: "
+              f"{count_device_kernels(fn)} device launches a call", flush=True)
+        timing(f"wp_reconstruct shannon cover soft beta {FAM_BETA}, {how}", fn)
+    # packet_denoise: its own basis is the shannon cover of these nodes (the
+    # same code on the same card); the plain route gets that cover and beta
+    d1 = p.nodes[1][..., 3, :, :].float()
+    beta = median(d1.abs()) * _const(_MAD_TO_SIGMA, d1) * _const(
+        math.sqrt(2.0 * math.log(N * N)), d1)
+    out = counted("packet_denoise (automatic beta)", lambda: packet_denoise(img, WNAME, L),
+                  _merged(pf, inv))
+    with plain_route():
+        want = PK.wp_reconstruct(PK.threshold_details(pp, cover, soft, beta), cover, w)
+    print(f"families: packet_denoise beta {float(beta)!r}", flush=True)
+    fhold("packet_denoise vs the plain route (one cover, one beta)", out, want)
+    timing(f"packet_denoise {shape} {WNAME} {L} levels", lambda: packet_denoise(img, WNAME, L))
+    WP = WaveletPackets(img, wname=WNAME, levels=L, device=dev)
+    wp = counted("WaveletPackets.forward", WP.forward, pf)
+    check(all(torch.equal(u, v) for u, v in zip(wp.nodes, p.nodes)),
+          "families: WaveletPackets.forward differs from wp2d")
+    check(counted("WaveletPackets.best_basis", WP.best_basis, {})[0] == cover,
+          "families: WaveletPackets.best_basis differs from best_basis")
+    check(torch.equal(counted("WaveletPackets.reconstruct(beta)",
+                              lambda: WP.reconstruct(beta=FAM_BETA), inv), a),
+          "families: WaveletPackets.reconstruct differs from wp_reconstruct")
+    del pp, WP, wp, want
+    torch.cuda.empty_cache()
+    print(f"families (a): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---------------- (b) 2D packets under the tiers ----------------
+    for tier in PACKET_TIERS:
+        is_bf = tier.startswith("bf16")
+        xt = img.to(bf16) if is_bf else img
+        mxu = "bf16" if is_bf else "mixed"
+        tf, ti = wp_launches(2, shape, hl, L, mxu=mxu, bf16=is_bf)
+        with precision_scope(tier):
+            pt = counted(f"wp2d {tier}", lambda: PK.wp2d(xt, w, L), tf)
+            yt = counted(f"iwp2d {tier}", lambda: PK.iwp2d(pt.nodes[-1], w, shape), ti)
+        with plain_route(), precision_scope(tier):
+            ptp = PK.wp2d(xt, w, L)
+            ytp = PK.iwp2d(ptp.nodes[-1], w, shape)
+        check(all(t.dtype == xt.dtype for t in pt.nodes) and yt.dtype == xt.dtype,
+              f"families: 2D packets {tier}: the dtype contract (every node in the input's)")
+        compare_route(f"families: 2D packets {tier}", (list(pt.nodes), yt),
+                      (list(ptp.nodes), ytp))
+        limit = max(ROUNDTRIP_LIMIT[tier], JAX_CPU_ROUNDTRIP["2D packets"][tier])
+        err = float((yt.float() - img).abs().max())
+        print(f"families: 2D packet roundtrip {tier} max|y - x| {err!r} on [0, 255] (limit "
+              f"{limit})", flush=True)
+        check(err <= limit, f"families: the 2D packet roundtrip error under {tier}")
+        del pt, yt, ptp, ytp
+
+        def rt(x=xt, tier=tier):
+            with precision_scope(tier):
+                return PK.iwp2d(PK.wp2d(x, w, L).nodes[-1], w, shape)
+
+        timing(f"2D packets wp2d + iwp2d {shape} {WNAME} {L} levels {tier}", rt)
+    del p
+    torch.cuda.empty_cache()
+    print(f"families (b): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---------------- (c) 1D packets ----------------
+    w8 = get_wavelet(B1_WNAME)
+    L1, sshape = FAM_1D_LEVELS, (B1_SIGNALS, B1_N)
+    sig = torch.randn(sshape, device=dev, generator=gen)
+    qf, qi = wp_launches(1, sshape, w8.hlen, L1)
+    q = counted("wp1d", lambda: PK.wp1d(sig, w8, L1), qf)
+    ys = counted("iwp1d", lambda: PK.iwp1d(q.nodes[-1], w8, B1_N), qi)
+    with plain_route():
+        qp = PK.wp1d(sig, w8, L1)
+        ysp = PK.iwp1d(qp.nodes[-1], w8, B1_N)
+    fhold("wp1d nodes vs the plain route", list(q.nodes), list(qp.nodes))
+    fhold("iwp1d vs the plain route", ys, ysp)
+    err = float((ys - sig).abs().max())
+    print(f"families: 1D packet roundtrip {sshape} {B1_WNAME} {L1} levels max|y - x| {err!r} "
+          f"(limit {ROUNDTRIP_ATOL})", flush=True)
+    check(err <= ROUNDTRIP_ATOL, "families: the 1D packet roundtrip error")
+    leaves1, _ = PK.best_basis(q, "shannon")
+    _, qinv = wp_launches(1, sshape, w8.hlen, L1, max(j for j, _ in leaves1))
+    rec1 = lambda: PK.wp_reconstruct(PK.threshold_details(q, leaves1, soft, B1_BETA), leaves1, w8)
+    r1 = counted(f"wp_reconstruct 1D (shannon cover, {len(leaves1)} leaves, soft beta "
+                 f"{B1_BETA})", rec1, qinv)
+    with plain_route():
+        r1p = PK.wp_reconstruct(PK.threshold_details(qp, leaves1, soft, B1_BETA), leaves1, w8)
+    fhold("wp_reconstruct 1D (shannon cover, soft) vs the plain route", r1, r1p)
+    del qp, ysp, r1p
+    timing(f"1D packets wp1d + iwp1d {sshape} {B1_WNAME} {L1} levels",
+           lambda: PK.iwp1d(PK.wp1d(sig, w8, L1).nodes[-1], w8, B1_N))
+    timing(f"1D packets best-basis reconstruct, soft beta {B1_BETA}", rec1)
+    usig = torch.from_numpy(np.random.default_rng(2).uniform(0, 255, sshape).astype(
+        np.float32)).to(dev)
+    for tier in PACKET_TIERS:
+        is_bf = tier.startswith("bf16")
+        xt = usig.to(bf16) if is_bf else usig
+        tf, ti = wp_launches(1, sshape, w8.hlen, L1, mxu="bf16" if is_bf else "mixed",
+                             bf16=is_bf)
+        with precision_scope(tier):
+            qt = counted(f"wp1d {tier}", lambda: PK.wp1d(xt, w8, L1), tf)
+            yt = counted(f"iwp1d {tier}", lambda: PK.iwp1d(qt.nodes[-1], w8, B1_N), ti)
+        with plain_route(), precision_scope(tier):
+            qtp = PK.wp1d(xt, w8, L1)
+            ytp = PK.iwp1d(qtp.nodes[-1], w8, B1_N)
+        compare_route(f"families: 1D packets {tier}", (list(qt.nodes), yt),
+                      (list(qtp.nodes), ytp))
+        limit = max(ROUNDTRIP_LIMIT[tier], JAX_CPU_ROUNDTRIP["1D packets"][tier])
+        err = float((yt.float() - usig).abs().max())
+        print(f"families: 1D packet roundtrip {tier} max|y - x| {err!r} on [0, 255] (limit "
+              f"{limit})", flush=True)
+        check(err <= limit, f"families: the 1D packet roundtrip error under {tier}")
+        del qt, yt, qtp, ytp
+
+        def rt1(x=xt, tier=tier):
+            with precision_scope(tier):
+                return PK.iwp1d(PK.wp1d(x, w8, L1).nodes[-1], w8, B1_N)
+
+        timing(f"1D packets wp1d + iwp1d {sshape} {B1_WNAME} {L1} levels {tier}", rt1)
+    del q, usig
+    torch.cuda.empty_cache()
+    print(f"families (c): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---------------- (d) 3D packets ----------------
+    w4, L3 = get_wavelet(VOL_WNAME), FAM_3D_LEVELS
+    vol = torch.rand(VTI_SHAPE, device=dev, generator=gen) * 255.0
+    # dwt3d / idwt3d to one level, exact: one 2D level kernel (depth the
+    # batch) and the depth products a depth
+    v = counted("wp3d", lambda: PK.wp3d(vol, w4, L3), {"fwd_level_2d": L3})
+    yv = counted("iwp3d", lambda: PK.iwp3d(v.nodes[-1], w4, VTI_SHAPE), {"inv_level_2d": L3})
+    with plain_route():
+        vp = PK.wp3d(vol, w4, L3)
+        yvp = PK.iwp3d(vp.nodes[-1], w4, VTI_SHAPE)
+    fhold("wp3d nodes vs the plain route", list(v.nodes), list(vp.nodes))
+    fhold("iwp3d vs the plain route", yv, yvp)
+    err = float((yv - vol).abs().max())
+    print(f"families: 3D packet roundtrip {VTI_SHAPE} {VOL_WNAME} {L3} levels max|y - x| "
+          f"{err!r} (limit {ROUNDTRIP_ATOL})", flush=True)
+    check(err <= ROUNDTRIP_ATOL, "families: the 3D packet roundtrip error")
+    del vp, yvp
+    WV = WaveletPackets(vol, wname=VOL_WNAME, levels=L3, device=dev)
+    check(WV.ndim == 3, "families: WaveletPackets on a volume is not 3D")
+    wv = counted("WaveletPackets(ndim=3).forward", WV.forward, {"fwd_level_2d": L3})
+    check(all(torch.equal(u, t) for u, t in zip(wv.nodes, v.nodes)),
+          "families: WaveletPackets(ndim=3).forward differs from wp3d")
+    yw = counted("WaveletPackets(ndim=3).reconstruct", WV.reconstruct, {"inv_level_2d": L3})
+    check(torch.equal(yw, yv), "families: WaveletPackets(ndim=3).reconstruct differs from iwp3d")
+    timing(f"3D packets wp3d + iwp3d {VTI_SHAPE} {VOL_WNAME} {L3} levels",
+           lambda: PK.iwp3d(PK.wp3d(vol, w4, L3).nodes[-1], w4, VTI_SHAPE))
+    del v, yv, WV, wv, yw
+    torch.cuda.empty_cache()
+    print(f"families (d): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---------------- (e) starlet: the conv passes, no kernel ----------------
+    S = STARLET_SCALES
+    c = counted("starlet", lambda: ST.starlet(img, S), {})
+    ys = counted("istarlet", lambda: ST.istarlet(c), {})
+    c64 = ST.starlet(img.double(), S)
+    fhold("starlet vs float64 on the card", leaves(c), [t.float() for t in leaves(c64)])
+    err = float((ys - img).abs().max())
+    print(f"families: starlet roundtrip {shape} {S} scales max|y - x| {err!r} (limit "
+          f"{ROUNDTRIP_ATOL})", flush=True)
+    check(err <= ROUNDTRIP_ATOL, "families: the starlet roundtrip error")
+    sd = counted("starlet_auto_denoise", lambda: starlet_auto_denoise(img, S), {})
+    fhold("starlet_auto_denoise vs float64 on the card", sd,
+          starlet_auto_denoise(img.double(), S).float())
+    del c, c64, ys
+    timing(f"starlet + istarlet {shape} {S} scales gen 2",
+           lambda: ST.istarlet(ST.starlet(img, S)))
+    timing(f"starlet_auto_denoise {shape} {S} scales", lambda: starlet_auto_denoise(img, S))
+    SV = Starlet(vol, levels=S, device=dev)
+    check(SV.ndim == 3, "families: Starlet on a volume is not 3D")
+    cv = counted("Starlet(volume).forward", SV.forward, {})
+    yv = counted("Starlet(volume).inverse", SV.inverse, {})
+    err = float((yv - vol).abs().max())
+    print(f"families: Starlet roundtrip {VTI_SHAPE} {S} scales max|y - x| {err!r} (limit "
+          f"{ROUNDTRIP_ATOL})", flush=True)
+    check(err <= ROUNDTRIP_ATOL, "families: the 3D starlet roundtrip error")
+    cv64 = ST.starlet(vol.double(), S, ndim=3)
+    fhold("Starlet(volume) vs float64 on the card", leaves(cv),
+          [t.float() for t in leaves(cv64)])
+    del cv, cv64, yv
+    dv = counted("Starlet(volume).denoise", SV.denoise, {})
+    fhold("Starlet(volume).denoise vs float64 on the card", dv,
+          starlet_auto_denoise(vol.double(), S, ndim=3).float())
+    del dv
+    timing(f"Starlet(volume) forward + inverse {VTI_SHAPE} {S} scales",
+           lambda: (SV.forward(), SV.inverse())[1])
+    del SV, vol
+    torch.cuda.empty_cache()
+    print(f"families (e): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---------------- (f) the dual tree ----------------
+    hd = DT.dtcwt_wavelets()[0].hlen
+    df, di = dt_launches(shape, hd, DT_LEVELS)
+    z = counted("dtcwt2d", lambda: DT.dtcwt2d(img, DT_LEVELS), df)
+    yz = counted("idtcwt2d", lambda: DT.idtcwt2d(z, shape), di)
+    check(all(t.dtype == torch.complex64 for t in z.details) and z.approx.dtype == f32,
+          "families: dtcwt2d's dtypes")
+    with plain_route():
+        zp = DT.dtcwt2d(img, DT_LEVELS)
+        yzp = DT.idtcwt2d(zp, shape)
+        dnp = DT.dtcwt_auto_denoise(img, DT_LEVELS)
+    fhold("dtcwt2d (real and imaginary parts) vs the plain route", list(z), list(zp))
+    fhold("idtcwt2d vs the plain route", yz, yzp)
+    err = float((yz - img).abs().max())
+    print(f"families: dual-tree roundtrip {shape} {DT_LEVELS} levels max|y - x| {err!r} (limit "
+          f"{ROUNDTRIP_ATOL})", flush=True)
+    check(err <= ROUNDTRIP_ATOL, "families: the dual-tree roundtrip error")
+    dn = counted("dtcwt_auto_denoise", lambda: DT.dtcwt_auto_denoise(img, DT_LEVELS),
+                 _merged(df, di))
+    fhold("dtcwt_auto_denoise vs the plain route", dn, dnp)
+    D = DualTree(img, levels=DT_LEVELS, device=dev)
+    check(torch.equal(counted("DualTree.denoise", D.denoise, _merged(df, di)), dn),
+          "families: DualTree.denoise differs from dtcwt_auto_denoise")
+    del z, zp, yz, yzp, dnp, D
+    timing(f"dtcwt2d + idtcwt2d {shape} {DT_LEVELS} levels",
+           lambda: DT.idtcwt2d(DT.dtcwt2d(img, DT_LEVELS), shape))
+    timing(f"dtcwt_auto_denoise {shape} {DT_LEVELS} levels",
+           lambda: DT.dtcwt_auto_denoise(img, DT_LEVELS))
+    ef, ei = dt_launches((B1_N,), hd, DT_LEVELS)
+    z1 = counted("dtcwt1d", lambda: DT.dtcwt1d(sig, DT_LEVELS), ef)
+    y1 = counted("idtcwt1d", lambda: DT.idtcwt1d(z1, B1_N), ei)
+    with plain_route():
+        z1p = DT.dtcwt1d(sig, DT_LEVELS)
+        y1p = DT.idtcwt1d(z1p, B1_N)
+    fhold("dtcwt1d (real and imaginary parts) vs the plain route", list(z1), list(z1p))
+    fhold("idtcwt1d vs the plain route", y1, y1p)
+    err = float((y1 - sig).abs().max())
+    print(f"families: 1D dual-tree roundtrip {sshape} {DT_LEVELS} levels max|y - x| {err!r} "
+          f"(limit {ROUNDTRIP_ATOL})", flush=True)
+    check(err <= ROUNDTRIP_ATOL, "families: the 1D dual-tree roundtrip error")
+    del z1, y1, z1p, y1p
+    timing(f"dtcwt1d + idtcwt1d {sshape} {DT_LEVELS} levels",
+           lambda: DT.idtcwt1d(DT.dtcwt1d(sig, DT_LEVELS), B1_N))
+    print(f"families (f): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---------------- (g) the demo's scenarios 4-6 on the card ----------------
+    with tempfile.TemporaryDirectory() as tmp:
+        small = img_np[:256, :256]
+        dat = os.path.join(tmp, "i.dat")
+        write_dat(dat, small)
+        for scenario, first in (("4", "best-basis packet denoise applied (beta = universal"),
+                                ("5", "starlet k-sigma auto denoise applied"),
+                                ("6", "dual-tree complex magnitude denoise applied")):
+            out_path = os.path.join(tmp, f"r{scenario}.dat")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = demo.main([dat, "--nr", "256", "--nc", "256", "--scenario", scenario,
+                                "--wavelet", WNAME, "--levels", "4", "--auto-beta",
+                                "universal", "--out", out_path])
+            text = buf.getvalue()
+            res = np.fromfile(out_path, np.float32)
+            check(rc == 0 and text.startswith(first) and res.size == small.size
+                  and bool(np.isfinite(res).all()),
+                  f"families: demo scenario {scenario}: rc {rc}, output {text!r}")
+            print(f"families: demo scenario {scenario} on the card: {text.splitlines()[0]}",
+                  flush=True)
+
+    print(f"families launches: {fam}", flush=True)
+    for name in FAM_KERNELS:
+        check(fam.get(name, 0) > 0, f"the families path never launched {name}")
+    for name, k in fam.items():
+        launches[name] += k
+    print(f"families phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def plain_rt(fn, *args):

@@ -9,8 +9,11 @@ it is), with the same module names:
   ``swt2d``/``iswt2d``/``iswt2d_denoise``, the 3D ``dwt3d``/``idwt3d``/
   ``swt3d``/``iswt3d``/``iswt3d_denoise`` (``Coeffs3D``),
   the batched 1D ``dwt1d``/``idwt1d``/``swt1d``/``iswt1d``, the
-  non-separable ``dwt2d_ns``/``idwt2d_ns``/``swt2d_ns``/``iswt2d_ns`` and the
-  plain reference path (``conv``)
+  non-separable ``dwt2d_ns``/``idwt2d_ns``/``swt2d_ns``/``iswt2d_ns``, the
+  wavelet packets (``wp1d``/``wp2d``/``wp3d``, their inverses, the best
+  basis, ``wp_reconstruct``), the starlet (``starlet``/``istarlet``), the
+  dual-tree complex DWT (``dtcwt1d``/``dtcwt2d``, their inverses and
+  denoisers) and the plain reference path (``conv``)
 * ``kernels``  — hand-written CUDA kernels for Hopper (sm_90a), their
   plain PyTorch versions, launch counters and autograd Functions
 * ``ops``      — soft, hard, garrote, group and firm thresholds, the L2
@@ -20,14 +23,17 @@ it is), with the same module names:
   SureShrink)
 * ``models``   — the denoising step (DWT and TI), ``auto_denoise``,
   ``cycle_spin_denoise``, their volume forms ``denoise_step_3d`` and
-  ``auto_denoise_3d``, and the (F)ISTA solver ``ista``
-* ``api``      — the stateful ``Wavelets`` facade
+  ``auto_denoise_3d``, ``starlet_auto_denoise``, ``packet_denoise`` and the
+  (F)ISTA solver ``ista``
+* ``api``      — the stateful ``Wavelets`` facade; ``api_packets``
+  (``WaveletPackets``) and ``api_extras`` (``Starlet``, ``DualTree``)
 * ``parallel`` — device meshes on ``torch.distributed``, the ring halo
   exchange and the sharded 2D and batched 1D DWT and SWT (DTensors)
 * ``utils``    — raw ``.dat`` I/O, coefficient checkpoints in the JAX
   package's ``.npz`` layout, numpy conversions to and from it
 * ``demo``     — the reference demo's scenarios 1-3, on an image or (``--nd``)
-  a volume (``python -m pdwt_tpu_torch.demo``)
+  a volume, and the packet, starlet and dual-tree denoisers (scenarios 4-6;
+  ``python -m pdwt_tpu_torch.demo``)
 
 The port covers the 2D separable DWT under every boundary mode of JAX's
 (``mode=``: periodization, the default, and the eight pywt modes, per
@@ -44,13 +50,17 @@ reference's whole operator set on them, the sharded 2D and 1D transforms
 over a device mesh, and the separable 3D DWT and SWT (with the 3D
 TI-denoise step, ``Wavelets`` on a volume, the volume denoisers and 3D
 checkpoints): the 2D level kernels with depth as their batch, the depth
-pass one matrix product.  The sharded 3D transforms, the other transform
-families and the rest of sharding come later (ROADMAP queue 1).  Importing
-the package needs no GPU and builds nothing; the CUDA kernels are compiled
-at their first launch.
+pass one matrix product; the sharded volumes and non-separable
+transforms; the packet, starlet and dual-tree families on those
+transforms and the conv passes.  The anisotropic and continuous families,
+the pywt drop-ins and the sharded packets and starlet come later (ROADMAP
+queue 1).  Importing the package needs no GPU and builds nothing; the CUDA
+kernels are compiled at their first launch.
 """
 from . import core, filters, models, ops, parallel, utils
 from .api import Wavelets, WaveletSpec
+from .api_extras import DualTree, Starlet
+from .api_packets import WaveletPackets
 from .core.modes import MODES
 from .core.precision import TIERS, precision_scope
 from .core.nonseparable import dwt2d_ns, idwt2d_ns, iswt2d_ns, swt2d_ns
@@ -61,9 +71,10 @@ from .core.separable3d import (DETAIL_KEYS_3D, Coeffs3D, dwt3d, idwt3d, iswt3d, 
 from .filters import (Wavelet, get_wavelet, list_wavelets, make_custom_wavelet, quad_filters,
                       register_wavelet)
 
-__all__ = ["Wavelets", "WaveletSpec", "Wavelet", "get_wavelet", "list_wavelets",
-           "make_custom_wavelet", "register_wavelet", "quad_filters", "dwt2d", "idwt2d",
-           "swt2d", "iswt2d", "iswt2d_denoise", "Coeffs2D", "dwt1d", "idwt1d", "swt1d",
-           "iswt1d", "Coeffs1D", "dwt3d", "idwt3d", "swt3d", "iswt3d", "iswt3d_denoise",
-           "Coeffs3D", "DETAIL_KEYS_3D", "dwt2d_ns", "idwt2d_ns", "swt2d_ns", "iswt2d_ns", "TIERS", "MODES",
-           "precision_scope", "core", "filters", "models", "ops", "parallel", "utils"]
+__all__ = ["Wavelets", "WaveletSpec", "WaveletPackets", "Starlet", "DualTree", "Wavelet",
+           "get_wavelet", "list_wavelets", "make_custom_wavelet", "register_wavelet",
+           "quad_filters", "dwt2d", "idwt2d", "swt2d", "iswt2d", "iswt2d_denoise", "Coeffs2D",
+           "dwt1d", "idwt1d", "swt1d", "iswt1d", "Coeffs1D", "dwt3d", "idwt3d", "swt3d",
+           "iswt3d", "iswt3d_denoise", "Coeffs3D", "DETAIL_KEYS_3D", "dwt2d_ns", "idwt2d_ns",
+           "swt2d_ns", "iswt2d_ns", "TIERS", "MODES", "precision_scope", "core", "filters",
+           "models", "ops", "parallel", "utils"]

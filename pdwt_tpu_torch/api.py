@@ -60,7 +60,8 @@ from .core.separable import (Coeffs1D, Coeffs2D, all_periodization, dwt1d, dwt2d
 from .core.separable3d import Coeffs3D, dwt3d, idwt3d, iswt3d, iswt3d_denoise, swt3d
 from .core.shapes import coeff_shapes_1d, coeff_shapes_2d, coeff_shapes_3d, max_level
 from .filters import Wavelet, get_wavelet, make_custom_wavelet, quad_filters
-from .utils.convert import default_device, tensor_from_numpy, tensor_to_numpy
+from .utils.convert import (default_device, image_tensor, same_device, tensor_from_numpy,
+                            tensor_to_numpy)
 
 
 class WState(enum.Enum):
@@ -94,11 +95,6 @@ class WaveletSpec:
     @property
     def shape(self):
         return (self.nd, self.nr, self.nc) if self.ndim == 3 else (self.nr, self.nc)
-
-
-def _same_device(t: torch.Tensor, device: torch.device) -> bool:
-    return t.device.type == device.type and (
-        device.index is None or t.device.index == device.index)
 
 
 class Wavelets:
@@ -146,13 +142,7 @@ class Wavelets:
 
         nd = 1
         if img is not None:
-            if isinstance(img, torch.Tensor):
-                if device is not None and not _same_device(img, torch.device(device)):
-                    raise ValueError(f"img lies on {img.device}, not on device={device}; "
-                                     "move it first")
-                img = img.to(dtype=dtype)
-            else:
-                img = tensor_from_numpy(img, default_device(device), dtype)
+            img = image_tensor(img, device, dtype)
             if img.ndim == 1:
                 img = img[None, :]
                 ndim = 1
@@ -563,7 +553,7 @@ class Wavelets:
         """Replace the image.  A tensor must lie on the facade's device."""
         s = self.spec
         if isinstance(img, torch.Tensor):
-            if not _same_device(img, self.device):
+            if not same_device(img, self.device):
                 raise ValueError(f"img lies on {img.device}, the facade on "
                                  f"{self.device}; move it first")
             img = img.to(dtype=s.dtype)
@@ -613,7 +603,7 @@ class Wavelets:
         old = c.approx if level is None else (c.details[level] if band is None
                                               else c.details[level][band])
         if isinstance(coeff, torch.Tensor):
-            if not _same_device(coeff, self.device):
+            if not same_device(coeff, self.device):
                 raise ValueError(f"coeff lies on {coeff.device}, the facade on "
                                  f"{self.device}; move it first")
             coeff = coeff.to(dtype=old.dtype)

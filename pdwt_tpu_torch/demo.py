@@ -1,11 +1,12 @@
-"""Demo CLI of the PyTorch port, scenarios 1-3 of the reference demo (and
-of ``pdwt_tpu/demo.py``): load a raw float32 ``.dat`` image, run one
-scenario on the CUDA card (``--device cpu`` for the CPU), write the result.
+"""Demo CLI of the PyTorch port, the scenarios of ``pdwt_tpu/demo.py``
+(1-3 those of the reference demo): load a raw float32 ``.dat`` image, run
+one scenario on the CUDA card (``--device cpu`` for the CPU), write the
+result.
 
     python -m pdwt_tpu_torch.demo image.dat --nr 512 --nc 512 --scenario 3 \
         --wavelet db7 --levels 5 [--swt] [--nonseparable] [--cycle-spinning] \
         [--beta 90] [--auto-beta {none,universal,bayes}] [--mode symmetric] \
-        [--precision {exact,mixed,bf16}] [--device cuda] [--nd 64]
+        [--precision {exact,mixed,bf16}] [--device cuda] [--nd 64] [--interactive]
 
 Scenarios:
   1  forward only (writes the approximation)
@@ -13,13 +14,18 @@ Scenarios:
      with zeros before the inverse, so the reconstruction comes from the
      coefficients alone, as in the reference.
   3  forward + soft threshold (--beta, or --auto-beta) + inverse
-``--mode`` picks the boundary extension of the separable decimated DWT
-(periodization, the reference's, or a pywt mode: zero, constant, symmetric,
-reflect, periodic, smooth, antisymmetric, antireflect).  ``--nd`` reads a
-volume of nd x nr x nc float32 samples and runs the scenario on it (the 3D
-transforms).  Scenarios 4-6 (packets, starlet, dual-tree) are not ported
-yet and exit with the ROADMAP item that brings them; --native (the C++ CPU
-engine) is left out of the port.
+  4  best-basis wavelet-packet denoise (2D; --auto-beta other than none
+     takes the threshold from the data, else --beta)
+  5  starlet k-sigma denoise (a volume under --nd)
+  6  dual-tree complex magnitude denoise (2D)
+``--interactive`` asks for the configuration as the reference demo does
+when run without arguments.  ``--mode`` picks the boundary extension of
+the separable decimated DWT (periodization, the reference's, or a pywt
+mode: zero, constant, symmetric, reflect, periodic, smooth, antisymmetric,
+antireflect).  ``--nd`` reads a volume of nd x nr x nc float32 samples and
+runs the scenario on it (the 3D transforms; scenarios 4 and 6 refuse it,
+as JAX's demo does).  --native (the C++ CPU engine) is left out of the
+port.
 """
 from __future__ import annotations
 
@@ -27,6 +33,61 @@ import argparse
 import sys
 
 import numpy as np
+
+
+def _ask_config(args) -> None:
+    """The reference demo's questions, each keeping its default on an empty
+    line or an invalid value."""
+    def ask(label, default, cast):
+        raw = input(f"{label} [{default}]: ").strip()
+        try:
+            return cast(raw) if raw else default
+        except ValueError:
+            print(f"  invalid value {raw!r}; keeping {default}")
+            return default
+
+    print("Interactive configuration (empty line keeps the default)")
+    args.scenario = ask("Scenario (1=fwd, 2=fwd+inv, 3=fwd+thresh+inv, 4=packets, 5=starlet, "
+                        "6=dual-tree)", args.scenario, int)
+    args.wavelet = ask("Wavelet name", args.wavelet, str)
+    args.levels = ask("Number of levels", args.levels, int)
+    args.swt = bool(ask("Use SWT (0/1)", int(args.swt), int))
+    args.cycle_spinning = bool(ask("Use cycle spinning (0/1)", int(args.cycle_spinning), int))
+    if args.scenario == 3:
+        args.beta = ask("Threshold beta", args.beta, float)
+
+
+def _denoise_scenario(p, args, img) -> int:
+    """Scenarios 4-6: the packet, starlet and dual-tree denoisers on the
+    image (scenario 5 also on a volume)."""
+    from pdwt_tpu_torch.core import dtcwt_auto_denoise
+    from pdwt_tpu_torch.models import packet_denoise, starlet_auto_denoise
+    from pdwt_tpu_torch.utils import tensor_to_numpy, write_dat
+    from pdwt_tpu_torch.utils.convert import image_tensor
+
+    if args.scenario == 6:
+        if args.nd:
+            p.error("scenario 6 (dual-tree denoise) needs the 2D JAX engine")
+        rec = dtcwt_auto_denoise(image_tensor(img, args.device), args.levels)
+        print("dual-tree complex magnitude denoise applied "
+              f"({args.levels} levels, 6 oriented bands)")
+    elif args.scenario == 5:
+        rec = starlet_auto_denoise(image_tensor(img, args.device), args.levels,
+                                   ndim=3 if args.nd else 2)
+        print(f"starlet k-sigma auto denoise applied ({args.levels} isotropic scales)")
+    else:
+        if args.nd:
+            p.error("scenario 4 (packet denoise) needs the 2D JAX engine")
+        beta = None if args.auto_beta != "none" else args.beta
+        rec = packet_denoise(image_tensor(img, args.device), args.wavelet, args.levels, beta)
+        which = "universal (auto)" if beta is None else f"{beta:g}"
+        print(f"best-basis packet denoise applied (beta = {which})")
+    rec = tensor_to_numpy(rec).astype(np.float32)
+    err = float(np.abs(rec - img).max())
+    print(f"max |denoised - input| = {err:.3e} (expected nonzero)")
+    write_dat(args.out, rec)
+    print(f"result written to {args.out}")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -58,22 +119,27 @@ def main(argv=None) -> int:
                         "details, float32 approximation)")
     p.add_argument("--device", default=None,
                    help="torch device; the CUDA card unless another is named")
+    p.add_argument("--interactive", action="store_true",
+                   help="prompt for the configuration as the reference demo does when run "
+                        "without arguments")
     args = p.parse_args(argv)
 
     if args.native:
         p.error("--native: the C++ CPU engine is left out of the port (ROADMAP, "
                 "\"Leave out of the port\"); run pdwt_tpu.demo for it")
-    if args.scenario in (4, 5, 6):
-        p.error(f"scenario {args.scenario} (packets, starlet, dual-tree) comes with "
-                "ROADMAP queue 1, item 14")
     if args.mode != "periodization" and (args.swt or args.nonseparable):
         p.error("--mode (pywt boundary extensions) applies to the separable decimated DWT; "
                 "the SWT and non-separable paths are periodization-only")
+
+    if args.interactive:
+        _ask_config(args)
 
     from pdwt_tpu_torch import Wavelets
     from pdwt_tpu_torch.utils import read_dat, tensor_to_numpy, write_dat
 
     img = read_dat(args.image, (args.nd, args.nr, args.nc) if args.nd else (args.nr, args.nc))
+    if args.scenario in (4, 5, 6):
+        return _denoise_scenario(p, args, img)
     tier = {"exact": "exact", "mixed": "mixed", "bf16": "bf16-fast"}[args.precision]
     W = Wavelets(img, wname=args.wavelet, levels=args.levels, do_swt=args.swt,
                  do_separable=not args.nonseparable, do_cycle_spinning=args.cycle_spinning,

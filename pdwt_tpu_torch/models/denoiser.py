@@ -4,11 +4,14 @@ inverse, unshift; on the SWT branch an elementwise threshold fuses into
 the inverse), the fully data-driven ``auto_denoise``, the averaged
 ``cycle_spin_denoise``, the denoising step over a device mesh,
 ``sharded_denoise_step``, the volume step and data-driven denoise,
-``denoise_step_3d`` and ``auto_denoise_3d``, and the volume step over a
-device mesh, ``sharded_denoise_step_3d``.  Shifts come from a ``torch.Generator`` where JAX
+``denoise_step_3d`` and ``auto_denoise_3d``, the volume step over a
+device mesh, ``sharded_denoise_step_3d``, the starlet k-sigma denoise
+``starlet_auto_denoise`` and the best-basis packet denoise
+``packet_denoise``.  Shifts come from a ``torch.Generator`` where JAX
 takes a PRNG key."""
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -17,7 +20,8 @@ from .. import ops
 from ..core.separable import all_periodization, dwt2d, idwt2d, iswt2d, iswt2d_denoise, swt2d
 from ..core.separable3d import Coeffs3D, dwt3d, idwt3d, iswt3d, iswt3d_denoise, swt3d
 from ..filters import get_wavelet
-from ..ops.threshold import THR_ELEM
+from ..ops.estimate import _MAD_TO_SIGMA, median
+from ..ops.threshold import THR_ELEM, _const
 from ..ops.threshold import THRESHOLD_OPS as _THRESH
 
 
@@ -243,3 +247,48 @@ def sharded_denoise_step_3d(vol, wav, levels: int, beta, mesh, *,
     return _sharded_step(par.dwt3d, par.idwt3d, Coeffs3D, vol, tuple(vol.shape[-3:]), wav,
                          levels, beta, mesh, axes, par._placements3d(mesh, vol.ndim, **axes),
                          mode, swt)
+
+
+def starlet_auto_denoise(x: torch.Tensor, levels: int, *, k: float = 3.0, ndim: int = 2,
+                         gen: int = 2, mode: str = "soft") -> torch.Tensor:
+    """Knob-free starlet denoise (Starck's k-sigma rule): the white-noise
+    sigma is the MAD of the finest detail plane over 0.6745 divided by that
+    plane's exact gain (``core.starlet.starlet_noise_gains``), and every
+    plane is thresholded at ``k * sigma * gain_j`` before the exact gen-1/2
+    reconstruction.  ``k`` is a scalar or a per-level sequence (finest
+    first).  The noise estimate is the port's ``median`` (jnp's two-middle
+    median), divided tensor by tensor."""
+    from ..core.starlet import StarletCoeffs, istarlet, starlet, starlet_noise_gains
+
+    thr = THR_ELEM[mode]
+    c = starlet(x, levels, ndim=ndim, gen=gen)
+    gains = starlet_noise_gains(levels, ndim, gen)
+    ks = list(k) if isinstance(k, (list, tuple)) else [k] * levels
+    if len(ks) != levels:
+        raise ValueError(f"need {levels} k values, got {len(ks)}")
+    m = median(c.details[0].abs())
+    sigma = m / _const(0.6745, m) / _const(gains[0], m)
+    details = tuple(thr(w, kj * sigma * g) for w, kj, g in zip(c.details, ks, gains))
+    return istarlet(StarletCoeffs(c.approx, details), ndim=ndim, gen=gen)
+
+
+def packet_denoise(img: torch.Tensor, wav, levels: int, beta=None, *, cost: str = "shannon",
+                   mode: str = "soft") -> torch.Tensor:
+    """Best-basis wavelet-packet denoise: the full packet tree, the
+    Coifman-Wickerhauser best basis, every detail leaf thresholded (node 0
+    of its depth, the pure approximation chain, kept), the reconstruction.
+    ``beta=None`` takes VisuShrink's universal threshold from the depth-1
+    diagonal node's MAD noise estimate, in float32.  The threshold runs
+    once over each depth's node tensor (``core.packets.threshold_details``,
+    the same bits as one pass a leaf)."""
+    from ..core import packets as pk_mod
+
+    wav = _resolve(wav)
+    thr = THR_ELEM[mode]
+    pk = pk_mod.wp2d(img, wav, levels)
+    if beta is None:
+        d1 = pk.nodes[1][..., 3, :, :].to(torch.float32)
+        sigma = median(d1.abs()) * _const(_MAD_TO_SIGMA, d1)
+        beta = sigma * _const(math.sqrt(2.0 * math.log(img.shape[-2] * img.shape[-1])), d1)
+    leaves, _ = pk_mod.best_basis(pk, cost)
+    return pk_mod.wp_reconstruct(pk_mod.threshold_details(pk, leaves, thr, beta), leaves, wav)

@@ -2,8 +2,8 @@
 device meshes, the ring halo exchange, and the sharded 2D, batched 1D, 3D
 and non-separable transforms (counterpart of ``pdwt_tpu/parallel``).  The
 JAX package's sharded packet, starlet and anisotropic transforms wait for
-ROADMAP queue 1 item 14, then the rest of item 16; naming one raises
-``NotImplementedError``."""
+the rest of ROADMAP queue 1 item 16 (the anisotropic one also for item
+14c); naming one raises ``NotImplementedError``."""
 from .halo import make_pad_fn, ring_wrap_pad
 from .mesh import init_distributed, make_mesh
 from .sharded import (dwt1d, dwt2d, dwt2d_ns, dwt3d, idwt1d, idwt2d, idwt2d_ns, idwt3d, iswt1d,
@@ -16,8 +16,8 @@ __all__ = [
 ]
 
 #: the JAX package's sharded transforms still to port, by the ROADMAP queue
-#: 1 item that brings them (the end of item 16: packets, starlet and the
-#: anisotropic transform run on item 14's modules)
+#: 1 item that brings them (the end of item 16: packets and starlet run on
+#: item 14's modules, the anisotropic transform on item 14c's)
 DEFERRED = {n: 16 for n in ("fs_dwt", "fs_idwt", "packets", "starlet", "istarlet")}
 
 

@@ -43,6 +43,24 @@ def default_device(device) -> torch.device:
     return torch.device("cuda")
 
 
+def same_device(t: torch.Tensor, device: torch.device) -> bool:
+    """Does ``t`` lie on ``device`` (any index if ``device`` names none)?"""
+    return t.device.type == device.type and (
+        device.index is None or t.device.index == device.index)
+
+
+def image_tensor(img, device=None, dtype=None) -> torch.Tensor:
+    """A facade's input as a tensor in ``dtype`` (None keeps its dtype): a
+    tensor stays on its device (``ValueError`` if ``device`` names another),
+    host data goes to ``default_device(device)``."""
+    if isinstance(img, torch.Tensor):
+        if device is not None and not same_device(img, torch.device(device)):
+            raise ValueError(f"img lies on {img.device}, not on device={device}; "
+                             "move it first")
+        return img.to(dtype=dtype)
+    return tensor_from_numpy(img, default_device(device), dtype)
+
+
 def tensor_from_numpy(arr, device="cpu", dtype=None) -> torch.Tensor:
     """A tensor on ``device`` copied from an array-like, in ``dtype`` (None
     keeps the array's); a bfloat16 numpy array comes in bit for bit."""

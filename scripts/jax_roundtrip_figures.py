@@ -1,5 +1,6 @@
-"""Roundtrip errors of the JAX package on the CPU for the bf16 2D SWT and the
-non-separable cells, on the inputs ``chip_smoke.py`` uses on the card.
+"""Roundtrip errors of the JAX package on the CPU for the bf16 2D SWT, the
+non-separable cells and the wavelet packets, on the inputs ``chip_smoke.py``
+uses on the card.
 
     JAX_PLATFORMS=cpu python scripts/jax_roundtrip_figures.py [--small]
 
@@ -8,10 +9,14 @@ inside ``precision_scope``) under each tier.  Inputs: the TI image (1024 x
 1024 uniform [0, 255] from ``default_rng(1)``), db7 SWT with 3 levels; the
 DWT image (2048 x 2048 from ``default_rng(0)``), the rank-3 quads of
 ``chip_smoke.pr_quads`` with 5 levels, and the same quads' SWT of the TI
-image with 3 levels.  Prints one JSON line, max |inverse(forward(x)) - x|
-per cell and tier: ``chip_smoke.py`` keeps it as ``JAX_CPU_ROUNDTRIP``.
-``--small`` cuts both images to 256 x 256 for a quick look.  Takes about a
-minute on the CPU.
+image with 3 levels; the packet tree of the DWT image (db7, 5 levels,
+``iwp2d(wp2d(x))``) and of 1024 signals of 4096 uniform [0, 255] samples
+from ``default_rng(2)`` (sym8, 4 levels) under ``mixed`` and
+``bf16-fast``, whose A-chain JAX casts to bf16 at every depth.  Prints one
+JSON line, max |inverse(forward(x)) - x| per cell and tier:
+``chip_smoke.py`` keeps it as ``JAX_CPU_ROUNDTRIP``.  ``--small`` cuts the
+images to 256 x 256 and the signals to 64 x 1024 for a quick look.  Takes
+a few minutes on the CPU.
 """
 import json
 import os
@@ -24,11 +29,13 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from pdwt_tpu.core import nonseparable as jns  # noqa: E402
+from pdwt_tpu.core import packets as jpk  # noqa: E402
 from pdwt_tpu.core import precision as jprec  # noqa: E402
 from pdwt_tpu.core import separable as jsep  # noqa: E402
 from pdwt_tpu.filters import get_wavelet  # noqa: E402
 
 TIERS = ("mixed", "bf16-fast", "bf16-balanced", "bf16-accurate")
+PACKET_TIERS = ("mixed", "bf16-fast")
 
 
 def pr_quads(seed: int = 3):
@@ -46,7 +53,8 @@ def pr_quads(seed: int = 3):
 
 
 def main() -> None:
-    n_ti, n_ns = (256, 256) if "--small" in sys.argv else (1024, 2048)
+    small = "--small" in sys.argv
+    n_ti, n_ns = (256, 256) if small else (1024, 2048)
     ti_img = np.random.default_rng(1).uniform(0, 255, (n_ti, n_ti)).astype(np.float32)
     ns_img = np.random.default_rng(0).uniform(0, 255, (n_ns, n_ns)).astype(np.float32)
     w7 = get_wavelet("db7")
@@ -64,6 +72,19 @@ def main() -> None:
             out["NS DWT"][tier] = err(y, ns_img)
             y = jns.iswt2d_ns(jns.swt2d_ns(xt, qf, 3, backend="pallas"), qi, backend="pallas")
             out["NS SWT"][tier] = err(y, ti_img)
+    sig = np.random.default_rng(2).uniform(0, 255, (64, 1024) if small else (1024, 4096))
+    sig = sig.astype(np.float32)
+    w8 = get_wavelet("sym8")
+    out.update({"2D packets": {}, "1D packets": {}})
+    for tier in PACKET_TIERS:
+        dt = jnp.bfloat16 if tier.startswith("bf16-") else jnp.float32
+        with jprec.precision_scope(tier):
+            p = jpk.wp2d(jnp.asarray(ns_img).astype(dt), w7, 5, backend="pallas")
+            out["2D packets"][tier] = err(jpk.iwp2d(p.nodes[-1], w7, ns_img.shape,
+                                                    backend="pallas"), ns_img)
+            p = jpk.wp1d(jnp.asarray(sig).astype(dt), w8, 4, backend="pallas")
+            out["1D packets"][tier] = err(jpk.iwp1d(p.nodes[-1], w8, sig.shape[-1],
+                                                    backend="pallas"), sig)
     print(json.dumps(out))
 
 

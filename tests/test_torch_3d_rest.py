@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from pdwt_tpu import Wavelets as JWavelets
+from pdwt_tpu import demo as jdemo
 from pdwt_tpu import ops as jops
 from pdwt_tpu.core import separable3d as jsep3
 from pdwt_tpu.filters import get_wavelet as jget_wavelet
@@ -365,12 +366,32 @@ def test_demo_nd_runs_scenarios_1_to_3(scenario, dat_volume, tmp_path, capsys):
         assert err < 1e-3 if scenario == "2" else err > 1e-3
 
 
-@pytest.mark.parametrize("scenario", ["4", "5", "6"])
-def test_demo_nd_refuses_scenarios_4_to_6(scenario, dat_volume, capsys):
-    with pytest.raises(SystemExit) as err:
-        demo.main([dat_volume[0], "--nd", "6", "--nr", "16", "--nc", "12", "--scenario",
-                   scenario, "--device", "cpu"])
-    assert err.value.code == 2 and "item 14" in capsys.readouterr().err
+@pytest.mark.parametrize("scenario", ["4", "6"])
+def test_demo_nd_refuses_scenarios_4_and_6(scenario, dat_volume, capsys):
+    """The 2D-only denoisers refuse a volume with JAX's message."""
+    args = [dat_volume[0], "--nd", "6", "--nr", "16", "--nc", "12", "--scenario", scenario]
+    errs = []
+    for main, extra in ((demo.main, ["--device", "cpu"]), (jdemo.main, [])):
+        with pytest.raises(SystemExit) as err:
+            main(args + extra)
+        assert err.value.code == 2
+        errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert errs[0] == errs[1] and "needs the 2D" in errs[0]
+
+
+def test_demo_nd_runs_scenario_5(dat_volume, tmp_path, capsys):
+    """The starlet denoise of a volume (ndim=3), JAX's lines and result."""
+    path, vol = dat_volume
+    args = [path, "--nd", "6", "--nr", "16", "--nc", "12", "--scenario", "5", "--levels", "2"]
+    assert demo.main(args + ["--device", "cpu", "--out", str(tmp_path / "p.dat")]) == 0
+    mine = capsys.readouterr().out
+    assert jdemo.main(args + ["--out", str(tmp_path / "j.dat")]) == 0
+    theirs = capsys.readouterr().out
+    assert mine.splitlines()[0] == theirs.splitlines()[0] == (
+        "starlet k-sigma auto denoise applied (2 isotropic scales)")
+    got, want = (np.fromfile(tmp_path / f, np.float32) for f in ("p.dat", "j.dat"))
+    assert got.shape == want.shape == (vol.size,)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 def test_demo_nd_runs_as_a_module(dat_volume, tmp_path):

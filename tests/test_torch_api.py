@@ -226,6 +226,7 @@ def test_import_needs_no_jax_and_builds_nothing():
         "import os, sys\n"
         "import pdwt_tpu_torch\n"
         "import pdwt_tpu_torch.demo, pdwt_tpu_torch.models.solver, pdwt_tpu_torch.ops.estimate\n"
+        "import pdwt_tpu_torch.api_packets, pdwt_tpu_torch.api_extras\n"
         "import pdwt_tpu_torch.utils.io, pdwt_tpu_torch.utils.checkpoint\n"
         "from pdwt_tpu_torch.kernels import _build\n"
         "before = set(os.listdir(_build.BUILD_DIR)) if os.path.isdir(_build.BUILD_DIR) else set()\n"

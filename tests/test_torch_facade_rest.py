@@ -2,7 +2,8 @@
 ``Wavelets`` methods on the same coefficients, 1D and 2D, DWT and SWT,
 exact and under ``bf16-fast``; the Haar butterflies; checkpoints and raw
 ``.dat`` files across the two packages; the wavelet registry; the demo's
-scenarios 1-3; and the public names the port still lacks, which must be
+scenarios (4-6 and the prompt since the packet, starlet and dual-tree
+families came); and the public names the port still lacks, which must be
 exactly the documented deferrals.
 
 The JAX facade is handed the port's coefficients (its ``coeffs`` setter)
@@ -413,11 +414,47 @@ def test_demo_precision_flag(precision, bound, dat_image, tmp_path):
     assert np.abs(np.fromfile(tmp_path / "p.dat", np.float32).reshape(64, 48) - img).max() < bound
 
 
-@pytest.mark.parametrize("extra,message", [(["--scenario", "4"], "item 14"),
-                                           (["--scenario", "5"], "item 14"),
-                                           (["--scenario", "6"], "item 14"),
-                                           (["--nd", "4", "--scenario", "5"], "item 14"),
-                                           (["--mode", "symmetric", "--swt"],
+@pytest.mark.parametrize("extra", [["--scenario", "4", "--wavelet", "db4", "--levels", "2"],
+                                   ["--scenario", "4", "--wavelet", "sym4", "--levels", "2",
+                                    "--auto-beta", "universal"],
+                                   ["--scenario", "5", "--levels", "3"],
+                                   ["--scenario", "6", "--levels", "3"]])
+def test_demo_scenarios_4_to_6_match_jax(extra, dat_image, tmp_path, capsys):
+    """The packet, starlet and dual-tree denoisers: JAX's printed lines and
+    its result within RTOL of its largest value."""
+    path, img = dat_image
+    args = [path, "--nr", "64", "--nc", "48", *extra]
+    assert demo.main(args + ["--out", str(tmp_path / "p.dat"), "--device", "cpu"]) == 0
+    mine = capsys.readouterr().out
+    assert jdemo.main(args + ["--out", str(tmp_path / "j.dat")]) == 0
+    theirs = capsys.readouterr().out
+    assert mine.replace("p.dat", "j.dat").splitlines()[0] == theirs.splitlines()[0]
+    assert len(mine.splitlines()) == len(theirs.splitlines()) == 3
+    got, want = (np.fromfile(tmp_path / f, np.float32) for f in ("p.dat", "j.dat"))
+    _close(got, want)
+    assert np.abs(got.reshape(img.shape) - img).max() > 0
+
+
+def test_demo_interactive_matches_jax(dat_image, tmp_path, capsys, monkeypatch):
+    """The prompt's questions, defaults and "invalid value ... keeping"
+    rule, JAX's lines; the answers choose the packet scenario."""
+    path, _ = dat_image
+    out = {}
+    for name, main in (("p", demo.main), ("j", jdemo.main)):
+        answers = iter(["4", "db2", "two", "", "1"])
+        monkeypatch.setattr("builtins.input", lambda prompt, a=answers: print(prompt) or next(a))
+        extra = ["--device", "cpu"] if name == "p" else []
+        assert main([path, "--nr", "64", "--nc", "48", "--interactive", "--levels", "2",
+                     "--out", str(tmp_path / f"{name}.dat"), *extra]) == 0
+        out[name] = capsys.readouterr().out
+    assert "invalid value 'two'; keeping 2" in out["p"]
+    lines = {n: [ln for ln in t.replace("p.dat", "j.dat").splitlines()
+                 if not ln.startswith("max |")] for n, t in out.items()}
+    assert lines["p"] == lines["j"]
+    _close(*(np.fromfile(tmp_path / f"{n}.dat", np.float32) for n in ("p", "j")))
+
+
+@pytest.mark.parametrize("extra,message", [(["--mode", "symmetric", "--swt"],
                                             "periodization-only"),
                                            (["--native"], "left out of the port")])
 def test_demo_refuses_what_waits(extra, message, dat_image, capsys):
@@ -447,12 +484,13 @@ LEAVE_OUT = "leave out"
 #: with the ROADMAP queue 1 item that brings it or ROADMAP's "Leave out of
 #: the port" (the C++ engine, the XLA compile cache, the tunnel timing)
 DEFERRED = {
-    "top": {"WaveletPackets": 14, "Starlet": 14, "DualTree": 14,
-            "api_extras": 14, "api_packets": 14, "native": LEAVE_OUT},
+    "top": {"native": LEAVE_OUT},
     "Wavelets": {},
     "filters": {},
     "ops": {},
-    "models": {"packet_denoise": 14, "starlet_auto_denoise": 14},
+    "models": {},
+    "core": {n: 14 for n in ("fs_dwt", "fs_idwt", "fs_slices", "cwt", "cwt2d", "icwt",
+                             "log_scales", "fourier_wavelength", "cone_of_influence")},
     "parallel": {n: 16 for n in ("fs_dwt", "fs_idwt", "packets", "starlet", "istarlet")},
     "utils": {**{n: 15 for n in ("assert_finite", "checked", "validate_coeffs", "to_pywt",
                                  "from_pywt", "dwt_max_level", "dwt", "idwt", "dwt2", "idwt2",
@@ -475,7 +513,7 @@ def _public(ns, pkg):
 def test_public_names_the_port_lacks_are_the_documented_deferrals(ns):
     lacking = _public(ns, pdwt_tpu) - _public(ns, pdwt_tpu_torch)
     assert lacking == set(DEFERRED[ns])
-    if ns in ("models", "parallel"):
+    if ns == "parallel":
         assert getattr(pdwt_tpu_torch, ns).DEFERRED == DEFERRED[ns]
         for name in DEFERRED[ns]:
             with pytest.raises(NotImplementedError, match=f"item {DEFERRED[ns][name]}"):
