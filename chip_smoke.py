@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (pdwt_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--only volume|families]
+    python3 chip_smoke.py [--only volume|families|extras|sharded]
 
 Run from the repository root.  It builds the CUDA kernels from
-``pdwt_tpu_torch/kernels/csrc`` and drives the port's eleven paths, each
+``pdwt_tpu_torch/kernels/csrc`` and drives the port's twelve paths, each
 with the launch counters set to 0 just before it and read just after:
 
 * the DWT path: each of its four kernels against its plain PyTorch version
@@ -147,6 +147,21 @@ with the launch counters set to 0 just before it and read just after:
   best-basis cover serves both routes (their float32 cost sums may split
   a near-tie otherwise); launches exactly ``wp_launches``/``dt_launches``;
   every path timed as the volume's.  ``--only families`` runs it alone.
+* the last modules ("extras"): ``core.anisotropic`` (fs_dwt/fs_idwt of
+  the DWT cell's image at levels (5, 5), periodization on kernels 7 and 8
+  and symmetric on 7p and 8p, of the 3D cell's volume at (2, 4, 4), whose
+  depth pass hands kernels 7 and 8 262144 lines, held to their plain
+  versions there, and of the bf16 image under bf16-fast on 15 and 16),
+  ``core.continuous`` (cwt of 64 x 4096 signals on 45 scales for each
+  mother, icwt, cwt2d of a 512x512 image: cuFFT, held to numpy float64),
+  ``utils.interop`` (wavedec2/waverec2 at the DWT cell, symmetric and
+  periodization, wavedec/waverec at the 1D cell, wavedecn/waverecn at the
+  TI volume, swt2/iswt2 at 1024x1024, each equal to the port's core call)
+  and ``utils.debug`` (assert_finite and checked on a tree with one NaN);
+  launches exactly ``fs_launches`` and the route's, every path timed as
+  the volume's.  The sharded phase drives the sharded fs_dwt, starlet and
+  packets on the gloo ranks and times the fs and packet roundtrips on the
+  NCCL rank.  ``--only extras`` and ``--only sharded`` run a phase alone.
 
 The banded-product kernels redesigned for Hopper's CUDA cores (kernels 14
 and 18: ``swt_inv_level_2d_mxu``, ``ns_inv_level_2d_mxu``,
@@ -885,9 +900,10 @@ def main() -> None:
 
     if sys.argv[1:]:
         # a development run of one phase alone: no result line
-        only = {"volume": volume_phase, "families": families_phase}
+        only = {"volume": volume_phase, "families": families_phase, "extras": extras_phase,
+                "sharded": sharded_phase}
         check(len(sys.argv) == 3 and sys.argv[1] == "--only" and sys.argv[2] in only,
-              "usage: chip_smoke.py [--only volume|families]")
+              "usage: chip_smoke.py [--only volume|families|extras|sharded]")
         report = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
                          "plain_device_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                          "bound_ms": 0.0, "library_ms": 0.0} for name in REPLACES}
@@ -1386,6 +1402,7 @@ def main() -> None:
     sharded_phase(dev, card, report, launches, gen)
     volume_phase(dev, card, report, launches, gen)
     families_phase(dev, card, report, launches, gen)
+    extras_phase(dev, card, report, launches, gen)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
@@ -3383,6 +3400,9 @@ SHARD_DEVICE = torch.device("cuda", 0)
 # an image for the ring, a bf16 batch whose 64 x 256 images put level 1 on
 # kernels 17 and 18
 SH3_SMALL, SH3_TIER = (16, 64, 64), (8, 128, 512)
+# the sharded 1D starlet and packets in (b): 64 signals of the 1D cell's
+# length over 4 column shards
+SHARD_SIG = (64, 4096)
 SHNS_N, SHNS_BATCH = 64, (4, 64, 256)
 AXES4 = ("data", "dep", "row", "col")
 
@@ -3727,6 +3747,7 @@ def _sharded_nccl(rank: int, card: str) -> dict:
     del c, y, ref, xs, x
     torch.cuda.empty_cache()
     out.update(_sharded_nccl_volume(card))
+    out.update(_sharded_nccl_families(card))
     return out
 
 
@@ -3887,7 +3908,8 @@ def _sharded_gloo(rank: int, card: str) -> dict:
     hold_shards(tag + " inverse", y, iswt1d(ref, w8))
     tiers = _sharded_gloo_tiers(rank, m2, ax2, m1, ax1, x, xt, s)
     return {"launches": launched, "tier_launches": tiers,
-            "vol_launches": _sharded_gloo_volumes(rank), "ns_launches": _sharded_gloo_ns(rank)}
+            "vol_launches": _sharded_gloo_volumes(rank), "ns_launches": _sharded_gloo_ns(rank),
+            "fam_launches": _sharded_gloo_families(rank)}
 
 
 def _sharded_gloo_volumes(rank: int) -> dict:
@@ -4031,6 +4053,166 @@ def _sharded_gloo_ns(rank: int) -> dict:
             hold_shards(tag, c, ref, tier=True)
             hold_shards(tag + " inverse", y, ns.iswt2d_ns(ref, q) if swt
                         else ns.idwt2d_ns(ref, q, (r, cc)), tier=True)
+    return total
+
+
+def _sharded_nccl_families(card: str) -> dict:
+    """(a) for the last modules, on a (1, 1, 1) mesh (each halo the local
+    wrap, each pack the local one: no collective): the DWT cell's image
+    through parallel.fs_dwt/fs_idwt at levels (5, 5) and through
+    parallel.packets.wp2d/iwp2d to 5 levels, each against the single-card
+    call with exactly the padded launches, then timed beside it."""
+    from pdwt_tpu_torch import get_wavelet
+    from pdwt_tpu_torch import parallel as par
+    from pdwt_tpu_torch.core import anisotropic as AN
+    from pdwt_tpu_torch.core import packets as PK
+    from pdwt_tpu_torch.parallel import anisotropic as PA
+
+    dev, w, L2 = SHARD_DEVICE, get_wavelet(WNAME), FS_LEVELS_2D
+    mesh = par.make_mesh((1, 1, 1), device_type=dev.type)
+    ax = dict(row_axis="row", col_axis="col")
+    x = _rank_image((N, N), 0, dev)
+    xs = par.shard_image(x, mesh, **ax)
+    out = {"fs": {}, "wp2d": {}}
+    tag = f"sharded (a) nccl (1, 1, 1): fs_dwt/fs_idwt {N}x{N} {WNAME} {L2}"
+    n0 = PA.COLLECTIVES["all_gather"]
+    fwd = lambda: par.fs_dwt(xs, w, L2, mesh, axes=("row", "col"))
+    inv = lambda y: par.fs_idwt(y, w, (N, N), L2, mesh, axes=("row", "col"))
+    y = sharded_call(tag + " forward", fwd, {"fwd_level_1d_padded": sum(L2)})
+    r = sharded_call(tag + " inverse", lambda: inv(y), {"inv_level_1d_padded": sum(L2)})
+    gathers = PA.COLLECTIVES["all_gather"] - n0
+    print(f"{tag}: {gathers} all-gathers (one-shard axes pack locally)", flush=True)
+    check(gathers == 0, f"{tag}: {gathers} all-gathers on one rank")
+    ref = AN.fs_dwt(x, w, L2)
+    hold_shards(tag, y, ref)
+    hold_shards(tag + " inverse", r, AN.fs_idwt(ref, w, (N, N), L2))
+    del y, r, ref
+    for name, fn in (("sharded", lambda: inv(fwd())),
+                     ("single card", lambda: AN.fs_idwt(AN.fs_dwt(x, w, L2), w, (N, N), L2))):
+        out["fs"][name] = vol_timing(f"{tag}: {name} roundtrip", fn, card, "sharded")
+    tag = f"sharded (a) nccl (1, 1, 1): packets.wp2d/iwp2d {N}x{N} {WNAME} {LEVELS} levels"
+    fwd = lambda: par.packets.wp2d(xs, w, LEVELS, mesh, **ax)
+    inv = lambda p: par.packets.iwp2d(p.nodes[-1], w, (N, N), mesh, **ax)
+    p = sharded_call(tag + " forward", fwd, {"fwd_level_2d_padded": LEVELS})
+    r = sharded_call(tag + " inverse", lambda: inv(p), {"inv_level_2d_padded": LEVELS})
+    ref = PK.wp2d(x, w, LEVELS)
+    hold_shards(tag, list(p.nodes), list(ref.nodes))
+    hold_shards(tag + " inverse", r, PK.iwp2d(ref.nodes[-1], w, (N, N)))
+    del p, r, ref
+    for name, fn in (("sharded", lambda: inv(fwd())),
+                     ("single card", lambda: PK.iwp2d(PK.wp2d(x, w, LEVELS).nodes[-1], w,
+                                                      (N, N)))):
+        out["wp2d"][name] = vol_timing(f"{tag}: {name} roundtrip", fn, card, "sharded")
+    out["fam_launches"] = {"fwd_level_1d_padded": sum(L2), "inv_level_1d_padded": sum(L2),
+                           "fwd_level_2d_padded": LEVELS, "inv_level_2d_padded": LEVELS}
+    return out
+
+
+def _sharded_gloo_families(rank: int) -> dict:
+    """(b) for the last modules, each rank's shards against the single-card
+    call's slice and exactly the padded launches the route gives: fs_dwt/
+    fs_idwt of the DWT cell's image on (row, col) = (2, 2) (one all-gather
+    a pass each way, counted), the starlet of the TI image on (2, 2) and of
+    signals over 4 column shards (conv passes, no launch), the 2D packets
+    of the TI image on (2, 2) with the full inverse and a best-basis
+    reconstruction (the single card's cover), 1D packets over 4 column
+    shards, 3D packets on (dep, row) = (2, 2).  Returns this rank's
+    launches."""
+    import importlib
+
+    from pdwt_tpu_torch import get_wavelet
+    from pdwt_tpu_torch import parallel as par
+    from pdwt_tpu_torch.core import anisotropic as AN
+    from pdwt_tpu_torch.core import packets as PK
+    from pdwt_tpu_torch.parallel import anisotropic as PA
+
+    ST = importlib.import_module("pdwt_tpu_torch.core.starlet")
+    dev, w7, w8, w4 = SHARD_DEVICE, get_wavelet(WNAME), get_wavelet(B1_WNAME), \
+        get_wavelet(VOL_WNAME)
+    total = {}
+
+    def call(tag, fn, want):
+        for k, v in want.items():
+            total[k] = total.get(k, 0) + v
+        return sharded_call(tag, fn, want)
+
+    m2 = par.make_mesh((1, 2, 2), device_type=dev.type)
+    m1 = par.make_mesh((1, 4), ("data", "col"), device_type=dev.type)
+    ax2 = dict(row_axis="row", col_axis="col")
+    L2, pre = FS_LEVELS_2D, f"sharded (b) rank {rank}"
+    x = _rank_image((N, N), 0, dev)
+    tag = f"{pre} (2, 2): fs_dwt/fs_idwt {N}x{N} {WNAME} {L2}"
+    n0 = PA.COLLECTIVES["all_gather"]
+    y = call(tag + " forward", lambda: par.fs_dwt(par.shard_image(x, m2, **ax2), w7, L2, m2,
+                                                  axes=("row", "col")),
+             {"fwd_level_1d_padded": sum(L2)})
+    n1 = PA.COLLECTIVES["all_gather"]
+    r = call(tag + " inverse", lambda: par.fs_idwt(y, w7, (N, N), L2, m2, axes=("row", "col")),
+             {"inv_level_1d_padded": sum(L2)})
+    n2 = PA.COLLECTIVES["all_gather"]
+    print(f"{tag}: all-gathers {n1 - n0} forward, {n2 - n1} inverse", flush=True)
+    check((n1 - n0, n2 - n1) == (2, 2), f"{tag}: the packs took {n1 - n0} and {n2 - n1} "
+          "all-gathers, one a sharded pass expected")
+    ref = AN.fs_dwt(x, w7, L2)
+    hold_shards(tag, y, ref)
+    hold_shards(tag + " inverse", r, AN.fs_idwt(ref, w7, (N, N), L2))
+    del y, r, ref
+    xt = _rank_image((TI_N, TI_N), 1, dev)
+    tag = f"{pre} (2, 2): starlet/istarlet {TI_N}x{TI_N} {STARLET_SCALES} scales"
+    c = call(tag + " forward", lambda: par.starlet(par.shard_image(xt, m2, **ax2),
+                                                   STARLET_SCALES, m2,
+                                                   spatial_axes=("row", "col")), {})
+    r = call(tag + " inverse", lambda: par.istarlet(c, m2, spatial_axes=("row", "col")), {})
+    ref = ST.starlet(xt, STARLET_SCALES)
+    hold_shards(tag, list(c), list(ref))
+    hold_shards(tag + " inverse", r, ST.istarlet(ref))
+    s = _rank_image(SHARD_SIG, 2, dev)
+    tag = f"{pre} (4): starlet/istarlet {SHARD_SIG} 3 scales, 1D"
+    ax1 = dict(data_axis="data", spatial_axes=("col",))
+    c = call(tag + " forward", lambda: par.starlet(par.shard_image(s, m1, data_axis="data",
+                                                                   col_axis="col"), 3, m1,
+                                                   **ax1), {})
+    r = call(tag + " inverse", lambda: par.istarlet(c, m1, **ax1), {})
+    ref = ST.starlet(s, 3, ndim=1)
+    hold_shards(tag, list(c), list(ref))
+    hold_shards(tag + " inverse", r, ST.istarlet(ref, ndim=1))
+    L = TI_LEVELS
+    tag = f"{pre} (2, 2): packets.wp2d/iwp2d {TI_N}x{TI_N} {WNAME} {L} levels"
+    p = call(tag + " forward", lambda: par.packets.wp2d(par.shard_image(xt, m2, **ax2), w7, L,
+                                                        m2, **ax2),
+             {"fwd_level_2d_padded": L})
+    r = call(tag + " inverse", lambda: par.packets.iwp2d(p.nodes[-1], w7, (TI_N, TI_N), m2,
+                                                         **ax2), {"inv_level_2d_padded": L})
+    ref = PK.wp2d(xt, w7, L)
+    hold_shards(tag, list(p.nodes), list(ref.nodes))
+    hold_shards(tag + " inverse", r, PK.iwp2d(ref.nodes[-1], w7, (TI_N, TI_N)))
+    cover, _ = PK.best_basis(ref, "shannon")
+    deep = max(j for j, _ in cover)
+    tag = f"{pre} (2, 2): packets.wp_reconstruct ({len(cover)}-leaf shannon cover, depth {deep})"
+    r = call(tag, lambda: par.packets.wp_reconstruct(p, cover, w7, m2, **ax2),
+             {"inv_level_2d_padded": deep})
+    hold_shards(tag, r, PK.wp_reconstruct(ref, cover, w7))
+    del p, r, ref
+    tag = f"{pre} (4): packets.wp1d/iwp1d {SHARD_SIG} {B1_WNAME} 3 levels"
+    axp = dict(data_axis="data", col_axis="col")
+    p = call(tag + " forward", lambda: par.packets.wp1d(par.shard_image(s, m1, **axp), w8, 3, m1,
+                                                        **axp), {"fwd_level_1d_padded": 3})
+    r = call(tag + " inverse", lambda: par.packets.iwp1d(p.nodes[-1], w8, SHARD_SIG[1], m1,
+                                                         **axp), {"inv_level_1d_padded": 3})
+    ref = PK.wp1d(s, w8, 3)
+    hold_shards(tag, list(p.nodes), list(ref.nodes))
+    hold_shards(tag + " inverse", r, PK.iwp1d(ref.nodes[-1], w8, SHARD_SIG[1]))
+    m22 = par.make_mesh((1, 2, 2, 1), AXES4, device_type=dev.type)
+    ax3 = dict(dep_axis="dep", row_axis="row", col_axis="col")
+    v = _rank_image(SH3_SMALL, 6, dev)
+    tag = f"{pre} (dep, row) = (2, 2): packets.wp3d/iwp3d {SH3_SMALL} {VOL_WNAME} 2 levels"
+    p = call(tag + " forward", lambda: par.packets.wp3d(par.shard_image(v, m22, **ax3), w4, 2,
+                                                        m22, **ax3), {"fwd_level_2d_padded": 2})
+    r = call(tag + " inverse", lambda: par.packets.iwp3d(p.nodes[-1], w4, SH3_SMALL, m22, **ax3),
+             {"inv_level_2d_padded": 4})
+    ref = PK.wp3d(v, w4, 2)
+    hold_shards(tag, list(p.nodes), list(ref.nodes))
+    hold_shards(tag + " inverse", r, PK.iwp3d(ref.nodes[-1], w4, SH3_SMALL))
     return total
 
 
@@ -4272,6 +4454,22 @@ def sharded_phase(dev, card, report, launches, gen) -> None:
         sh, one = a[key]["sharded"], a[key]["single card"]
         print(f"sharded (a) volume {what}: sharded {sh} vs single card {one} [{card}]",
               flush=True)
+    # the fully separable, starlet and packet transforms
+    for r, res in enumerate(ranks):
+        check(res["fam_launches"] == ranks[0]["fam_launches"], f"sharded (b): rank {r}'s "
+              f"fam_launches {res['fam_launches']}, rank 0's {ranks[0]['fam_launches']}")
+    fl = ranks[0]["fam_launches"]
+    print(f"sharded families: (a) launched {a['fam_launches']}; (b) each of 4 ranks {fl}",
+          flush=True)
+    for name in ("fwd_level_1d_padded", "inv_level_1d_padded", "fwd_level_2d_padded",
+                 "inv_level_2d_padded"):
+        check(fl.get(name, 0) > 0, f"sharded (b): the families never launched {name}")
+    for d in (a["fam_launches"], fl):
+        for name, v in d.items():
+            launches[name] = launches.get(name, 0) + v
+    for key, what in (("fs", "fs_dwt + fs_idwt"), ("wp2d", "wp2d + iwp2d")):
+        sh, one = a[key]["sharded"], a[key]["single card"]
+        print(f"sharded (a) {what}: sharded {sh} vs single card {one} [{card}]", flush=True)
 
 # -- the volume phase (queue 1 item 12): bench_all.py's two 3D configurations
 # (bench_all.py:132-153, 254-261), the 3D transforms on the 2D level kernels
@@ -5251,6 +5449,388 @@ def families_phase(dev, card, report, launches, gen) -> None:
     for name, k in fam.items():
         launches[name] += k
     print(f"families phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# -- the extras phase (ROADMAP items 14c, 15): the fully separable transform,
+# the CWT, the pywt drop-ins and the sanitizers at the repo's own sizes
+FS_LEVELS_2D, FS_LEVELS_3D = (5, 5), (2, 4, 4)
+# bench_all.py:181-211: 64 x 4096 signals on log_scales(4096, dj=0.25) (45
+# scales); a 512^2 image at scales (2, 4, 8, 16), 4 angles
+CWT_SIGNALS, CWT_N, CWT_DJ, CWT2D_N, CWT2D_SCALES = 64, 4096, 0.25, 512, (2.0, 4.0, 8.0, 16.0)
+# the interop cells: 1024^2 db7 SWT to 3 levels, the 3D cell's db4 at 64 planes
+IO_SWT_N, IO_SWT_LEVELS = 1024, 3
+# the CWT against numpy float64 on the same float32 bank: max|port - numpy|
+# <= CWT_RTOL * max|W| (float32 FFTs, cuFFT's sums in another order)
+CWT_RTOL = 1e-5
+EXTRA_KERNELS = ("fwd_level_1d", "inv_level_1d", "fwd_level_1d_padded", "inv_level_1d_padded",
+                 "fwd_level_1d_mxu", "inv_level_1d_mxu", "fwd_level_2d", "fwd_tail_2d",
+                 "inv_tail_2d", "fwd_level_2d_padded", "inv_level_2d_padded",
+                 "swt_fwd_level_2d", "swt_inv_level_2d")
+
+
+def fs_launches(shape, hlen: int, levels, mode: str = "periodization", bf16: bool = False,
+                inverse: bool = False) -> dict:
+    """{kernel: launches} of fs_dwt (fs_idwt with ``inverse``) of a tensor
+    of even ``shape``: one dwt1d a transformed axis, its lines the batch;
+    each level on kernel 7 or 8 (7p, 8p under ``mode``), or 15 or 16 where
+    a bf16 level's route rule accepts it.  Forward, only the first pass
+    reads bf16 (the pack promotes to float32); an inverse of a bf16 array
+    reads bf16 in every pass (each pass writes bf16)."""
+    from pdwt_tpu_torch import kernels as KK
+    from pdwt_tpu_torch.core.shapes import level_sizes
+
+    out, total = {}, math.prod(shape)
+    suffix = "" if mode == "periodization" else "_padded"
+    order = range(len(shape) - 1, -1, -1) if inverse else range(len(shape))
+    first = True
+    for k in order:
+        lv = levels[k]
+        if lv == 0:
+            continue
+        B, sizes = total // shape[k], level_sizes(shape[k], lv)
+        for j in range(lv):
+            if inverse:
+                banded = bf16 and KK.mxu_route_1d(B, 2 * sizes[j + 1], hlen)
+                name = "inv_level_1d_mxu" if banded else "inv_level_1d" + suffix
+            else:
+                n = sizes[j] + sizes[j] % 2
+                banded = bf16 and first and KK.mxu_route_1d(B, n, hlen)
+                name = "fwd_level_1d_mxu" if banded else "fwd_level_1d" + suffix
+            _bump(out, name)
+        first = False
+    return out
+
+
+@contextlib.contextmanager
+def plain_padded_1d():
+    """The padded 1D wrappers (7p, 8p) swapped for their plain versions
+    while the block runs (``plain_route`` swaps the others)."""
+    from pdwt_tpu_torch.kernels import batched1d as B1
+
+    saved = [(n, getattr(B1, n)) for n in ("fwd_level_1d_padded", "inv_level_1d_padded")]
+    try:
+        for n, _ in saved:
+            setattr(B1, n, getattr(B1, n + "_ref"))
+        yield
+    finally:
+        for n, f in saved:
+            setattr(B1, n, f)
+
+
+def _np_cwt(x: np.ndarray, bank: np.ndarray, real: bool) -> np.ndarray:
+    """T&C eq. 4 in numpy float64: ifft(fft(x) * bank) over the last axis."""
+    W = np.fft.ifft(np.fft.fft(x.astype(np.float64), axis=-1)[..., None, :] * bank, axis=-1)
+    return W.real if real else W
+
+
+def extras_phase(dev, card, report, launches, gen) -> None:
+    """The last modules of the port on the card at the repo's sizes, every
+    call between a reset and a read of the launch counters (exactly the
+    route's launches) and timed (call, busy split, idle share, peak):
+    (a) ``core.anisotropic``: fs_dwt/fs_idwt of the DWT cell's 2048^2 db7
+    image at levels (5, 5), periodization and symmetric, of the 3D cell's
+    128x512x512 db4 volume at levels (2, 4, 4) (its depth pass hands kernel
+    7 262144 lines, held to the plain version), and of the bf16 image under
+    bf16-fast; each against the same composition on plain versions, the
+    exact ones to their roundtrip; (b) ``core.continuous``: cwt of 64 x 4096
+    signals on 45 log scales for each mother, icwt, cwt2d of a 512^2 image
+    (4 scales, 4 angles), against the same formula in numpy float64 (no
+    port kernel: cuFFT); (c) ``utils.interop``: wavedec2/waverec2 at 2048^2
+    db7 level 5 (symmetric, periodization), wavedec/waverec on 1024 x 4096
+    sym8 level 4, wavedecn/waverecn on 64x512x512 db4 level 2 (symmetric:
+    the conv passes; periodization), swt2/iswt2 on 1024^2 db7 level 3, each
+    against the port's own core call on the same route and its roundtrip;
+    (d) ``utils.debug``: assert_finite and checked on a coefficient tree
+    with one NaN raise, on a clean one pass, and the one host sync timed."""
+    from pdwt_tpu_torch import (dwt1d, dwt2d, dwt3d, get_wavelet, idwt1d, idwt2d, idwt3d,
+                                iswt2d, swt2d)
+    from pdwt_tpu_torch.core import anisotropic as AN
+    from pdwt_tpu_torch.core import continuous as CW
+    from pdwt_tpu_torch.core.precision import precision_scope
+    from pdwt_tpu_torch.kernels import batched1d as B1
+    from pdwt_tpu_torch.kernels import separable as KS
+    from pdwt_tpu_torch.utils import debug as DBG
+    from pdwt_tpu_torch.utils import interop as IO
+
+    print("=== extras ===", flush=True)
+    t_phase = time.perf_counter()
+    ext: dict = {}
+    counted = lambda label, fn, want: counted_exactly(label, fn, want, ext, "extras")
+    timing = lambda label, fn: vol_timing(label, fn, card, "extras")
+    xhold = lambda label, got, want: vhold(f"extras: {label}", real_view(got), real_view(want))
+    w7, w4, w8 = get_wavelet(WNAME), get_wavelet(VOL_WNAME), get_wavelet(B1_WNAME)
+    shape = (N, N)
+    img = torch.from_numpy(np.random.default_rng(0).uniform(0, 255, shape)
+                           .astype(np.float32)).to(dev)
+
+    # ---------------- (a) the fully separable transform ----------------
+    L2 = FS_LEVELS_2D
+    for mode in ("periodization", "symmetric"):
+        fwd = lambda m=mode: AN.fs_dwt(img, w7, L2, mode=m)
+        inv = lambda y, m=mode: AN.fs_idwt(y, w7, shape, L2, mode=m)
+        y = counted(f"fs_dwt {shape} {WNAME} {L2} {mode}", fwd,
+                    fs_launches(shape, w7.hlen, L2, mode))
+        r = counted(f"fs_idwt {shape} {WNAME} {L2} {mode}", lambda: inv(y),
+                    fs_launches(shape, w7.hlen, L2, mode, inverse=True))
+        with plain_route(), plain_padded_1d():
+            yp = fwd()
+            rp = inv(yp)
+        xhold(f"fs_dwt {mode} vs the plain route", y, yp)
+        xhold(f"fs_idwt {mode} vs the plain route", r, rp)
+        err = float((r - img).abs().max())
+        print(f"extras: fs roundtrip {shape} {WNAME} {L2} {mode} max|y - x| {err!r} (limit "
+              f"{ROUNDTRIP_ATOL})", flush=True)
+        check(err <= ROUNDTRIP_ATOL, f"extras: the fs roundtrip error ({mode})")
+        del y, r, yp, rp
+        timing(f"fs_dwt + fs_idwt {shape} {WNAME} {L2} {mode}", lambda: inv(fwd()))
+    # the volume: the depth pass hands kernel 7 512 * 512 lines of 128
+    L3 = FS_LEVELS_3D
+    vol = torch.rand(VOL_SHAPE, device=dev, generator=gen) * 255.0
+    lines = vol.movedim(0, -1).reshape(-1, VOL_SHAPE[0]).contiguous()
+    for x in (lines, lines[:, ::2].contiguous()):
+        got, want = B1.fwd_level_1d(x, w4.dec_lo, w4.dec_hi), B1.fwd_level_1d_ref(
+            x, w4.dec_lo, w4.dec_hi)
+        err, scale = max_err(list(got), list(want))
+        print(f"extras: kernel 7 on {tuple(x.shape)} (past gridDim.y, grid-stride) vs its plain "
+              f"version: max|diff| {err:.3e} (limit {KERNEL_RTOL * scale:.3e})", flush=True)
+        check(err <= KERNEL_RTOL * scale, "extras: kernel 7 on the depth pass's lines")
+        a, d = want
+        got = B1.inv_level_1d(a, d, w4.rec_lo, w4.rec_hi)
+        err, scale = max_err(got, B1.inv_level_1d_ref(a, d, w4.rec_lo, w4.rec_hi))
+        print(f"extras: kernel 8 into {tuple(x.shape)} vs its plain version: max|diff| "
+              f"{err:.3e} (limit {KERNEL_RTOL * scale:.3e})", flush=True)
+        check(err <= KERNEL_RTOL * scale, "extras: kernel 8 on the depth pass's lines")
+    del lines, got, want, a, d
+    y = counted(f"fs_dwt {VOL_SHAPE} {VOL_WNAME} {L3}", lambda: AN.fs_dwt(vol, w4, L3),
+                fs_launches(VOL_SHAPE, w4.hlen, L3))
+    r = counted(f"fs_idwt {VOL_SHAPE} {VOL_WNAME} {L3}",
+                lambda: AN.fs_idwt(y, w4, VOL_SHAPE, L3),
+                fs_launches(VOL_SHAPE, w4.hlen, L3, inverse=True))
+    with plain_route():
+        yp = AN.fs_dwt(vol, w4, L3)
+        rp = AN.fs_idwt(yp, w4, VOL_SHAPE, L3)
+    xhold("fs_dwt volume vs the plain route", y, yp)
+    xhold("fs_idwt volume vs the plain route", r, rp)
+    err = float((r - vol).abs().max())
+    print(f"extras: fs roundtrip {VOL_SHAPE} {VOL_WNAME} {L3} max|y - x| {err!r} (limit "
+          f"{ROUNDTRIP_ATOL})", flush=True)
+    check(err <= ROUNDTRIP_ATOL, "extras: the volume's fs roundtrip error")
+    del y, r, yp, rp
+    timing(f"fs_dwt + fs_idwt {VOL_SHAPE} {VOL_WNAME} {L3}",
+           lambda: AN.fs_idwt(AN.fs_dwt(vol, w4, L3), w4, VOL_SHAPE, L3))
+    del vol
+    torch.cuda.empty_cache()
+    # the bf16 image under bf16-fast: kernel 15 on the first pass's levels
+    # the route accepts; the packed result is float32, so the inverse reads
+    # its bf16 cast (kernel 16 where the route accepts)
+    xb = img.to(torch.bfloat16)
+
+    def bf_rt():
+        with precision_scope("bf16-fast"):
+            y = AN.fs_dwt(xb, w7, L2)
+            return y, AN.fs_idwt(y.to(torch.bfloat16), w7, shape, L2)
+
+    with precision_scope("bf16-fast"):
+        y = counted(f"fs_dwt bf16 {shape} {WNAME} {L2} bf16-fast",
+                    lambda: AN.fs_dwt(xb, w7, L2), fs_launches(shape, w7.hlen, L2, bf16=True))
+        r = counted(f"fs_idwt bf16 {shape} {WNAME} {L2} bf16-fast",
+                    lambda: AN.fs_idwt(y.to(torch.bfloat16), w7, shape, L2),
+                    fs_launches(shape, w7.hlen, L2, bf16=True, inverse=True))
+    check(y.dtype == torch.float32 and r.dtype == torch.bfloat16,
+          f"extras: fs bf16 dtypes {y.dtype}, {r.dtype} (float32 packed, bf16 inverse)")
+    with plain_route():
+        yp, rp = bf_rt()
+    compare_route("extras: fs bf16-fast", (y, r), (yp, rp))
+    err = float((r.float() - img).abs().max())
+    print(f"extras: fs roundtrip bf16-fast max|y - x| {err!r} on [0, 255] (recorded)", flush=True)
+    del y, r, yp, rp
+    timing(f"fs_dwt + fs_idwt bf16 {shape} {WNAME} {L2} bf16-fast",
+           lambda: bf_rt()[1])
+    print(f"extras (a): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---------------- (b) the CWT: cuFFT, no port kernel ----------------
+    sig_np = np.random.default_rng(3).standard_normal((CWT_SIGNALS, CWT_N)).astype(np.float32)
+    sig = torch.from_numpy(sig_np).to(dev)
+    scales = CW.log_scales(CWT_N, dj=CWT_DJ)  # 45 scales at 4096 samples
+    for mother in ("morlet", "ricker", "paul"):
+        W = counted(f"cwt {mother} {tuple(sig.shape)} {len(scales)} scales",
+                    lambda m=mother: CW.cwt(sig, scales, m), {})
+        bank = CW._psi_hat(mother, np.asarray(scales), CW._ang_freq(CWT_N, 1.0), 1.0)
+        Wn = _np_cwt(sig_np, bank.astype(np.float64), mother == "ricker")
+        want_dt = torch.float32 if mother == "ricker" else torch.complex64
+        check(W.dtype == want_dt and tuple(W.shape) == Wn.shape,
+              f"extras: cwt {mother}: {W.dtype} {tuple(W.shape)}")
+        err = float(np.abs(W.cpu().numpy() - Wn).max())
+        scale = float(np.abs(Wn).max())
+        print(f"extras: cwt {mother} vs numpy float64: max|diff| {err:.3e} (limit "
+              f"{CWT_RTOL * scale:.3e})", flush=True)
+        check(err <= CWT_RTOL * scale, f"extras: cwt {mother} disagrees with numpy")
+        x_rec = counted(f"icwt {mother}", lambda m=mother, W=W: CW.icwt(W, scales, m, dj=CWT_DJ),
+                        {})
+        s = np.asarray(scales)[:, None]
+        fac = CWT_DJ / (CW._CDELTA[mother] * CW._PSI00[mother])
+        xn = fac * np.sum(np.real(Wn) / np.sqrt(s), axis=-2)
+        err, scale = float(np.abs(x_rec.cpu().numpy() - xn).max()), float(np.abs(xn).max())
+        print(f"extras: icwt {mother} vs numpy float64: max|diff| {err:.3e} (limit "
+              f"{CWT_RTOL * scale:.3e}); its T&C reconstruction error max|x' - x| "
+              f"{float(np.abs(xn - sig_np).max())!r} (recorded)", flush=True)
+        check(x_rec.dtype == torch.float32 and err <= CWT_RTOL * scale,
+              f"extras: icwt {mother} disagrees with numpy")
+        del W, Wn, x_rec
+        timing(f"cwt {mother} {tuple(sig.shape)} {len(scales)} scales",
+               lambda m=mother: CW.cwt(sig, scales, m))
+    timing(f"cwt + icwt morlet {tuple(sig.shape)}",
+           lambda: CW.icwt(CW.cwt(sig, scales), scales, dj=CWT_DJ))
+    im_np = np.random.default_rng(4).uniform(0, 255, (CWT2D_N, CWT2D_N)).astype(np.float32)
+    im = torch.from_numpy(im_np).to(dev)
+    W2 = counted(f"cwt2d {tuple(im.shape)} scales {CWT2D_SCALES}",
+                 lambda: CW.cwt2d(im, CWT2D_SCALES), {})
+    th = np.linspace(0.0, math.pi, 4, endpoint=False)
+    bank2 = CW._psi_hat_2d(np.asarray(CWT2D_SCALES), th, CWT2D_N, CWT2D_N, 1.0, 1.0)
+    Wn2 = np.fft.ifft2(np.fft.fft2(im_np.astype(np.float64))[None, None] * bank2)
+    check(W2.dtype == torch.complex64 and tuple(W2.shape) == Wn2.shape, "extras: cwt2d shape")
+    err, scale = float(np.abs(W2.cpu().numpy() - Wn2).max()), float(np.abs(Wn2).max())
+    print(f"extras: cwt2d vs numpy float64: max|diff| {err:.3e} (limit {CWT_RTOL * scale:.3e})",
+          flush=True)
+    check(err <= CWT_RTOL * scale, "extras: cwt2d disagrees with numpy")
+    del W2, Wn2
+    timing(f"cwt2d {tuple(im.shape)} 4 scales 4 angles", lambda: CW.cwt2d(im, CWT2D_SCALES))
+    print(f"extras (b): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---------------- (c) the pywt drop-ins ----------------
+    def same_bits(label, got, want):
+        gl, wl = leaves(got), leaves(want)
+        check(len(gl) == len(wl) and all(torch.equal(g, w) for g, w in zip(gl, wl)),
+              f"extras: {label} differs from the core call")
+        print(f"extras: {label}: the core call's bits", flush=True)
+
+    flat = lambda cl: [t for item in cl for t in (
+        item.values() if isinstance(item, dict) else item if isinstance(item, tuple) else [item])]
+    for mode in ("symmetric", "periodization"):
+        L = LEVELS
+        if mode == "symmetric":
+            fwd = {"fwd_level_2d_padded": L}
+            inv = {"inv_level_2d_padded": L}
+        else:
+            fwd, r = {}, N
+            for lvl in range(L):
+                if KS.tail_supported((r, r), w7.hlen, L - lvl):
+                    _bump(fwd, "fwd_tail_2d")
+                    break
+                _bump(fwd, "fwd_level_2d")
+                r //= 2
+            inv = {}
+            for j in range(L, 0, -1):
+                _bump(inv, inv_kernel_2d(N >> (j - 1), N >> (j - 1), w7.hlen))
+        cl = counted(f"wavedec2 {shape} {WNAME} level {L} {mode}",
+                     lambda m=mode: IO.wavedec2(img, WNAME, m, L), fwd)
+        same_bits(f"wavedec2 {mode}", flat(cl),
+                  flat(IO.to_pywt(dwt2d(img, w7, L, mode=mode))))
+        y = counted(f"waverec2 {mode}", lambda m=mode: IO.waverec2(cl, WNAME, m), inv)
+        yc = idwt2d(IO.from_pywt(cl), w7, shape, mode=mode)
+        xhold(f"waverec2 {mode} vs the core idwt2d", y[..., :N, :N], yc)
+        err = float((y[..., :N, :N] - img).abs().max())
+        print(f"extras: wavedec2/waverec2 {mode} roundtrip max|y - x| {err!r} (limit "
+              f"{ROUNDTRIP_ATOL}); bits equal to the core inverse: "
+              f"{torch.equal(y[..., :N, :N], yc)}", flush=True)
+        check(err <= ROUNDTRIP_ATOL, f"extras: the wavedec2 roundtrip error ({mode})")
+        del cl, y, yc
+        timing(f"wavedec2 + waverec2 {shape} {WNAME} level {L} {mode}",
+               lambda m=mode: IO.waverec2(IO.wavedec2(img, WNAME, m, L), WNAME, m))
+    s1 = torch.from_numpy(np.random.default_rng(2).uniform(0, 255, (B1_SIGNALS, B1_N))
+                          .astype(np.float32)).to(dev)
+    cl = counted(f"wavedec {tuple(s1.shape)} {B1_WNAME} level {B1_LEVELS}",
+                 lambda: IO.wavedec(s1, B1_WNAME, level=B1_LEVELS),
+                 {"fwd_level_1d_padded": B1_LEVELS})
+    same_bits("wavedec symmetric", cl, IO.to_pywt(dwt1d(s1, w8, B1_LEVELS, mode="symmetric")))
+    y = counted("waverec", lambda: IO.waverec(cl, B1_WNAME), {"inv_level_1d_padded": B1_LEVELS})
+    xhold("waverec vs the core idwt1d", y[..., :B1_N],
+          idwt1d(IO.from_pywt(cl), w8, B1_N, mode="symmetric"))
+    err = float((y[..., :B1_N] - s1).abs().max())
+    print(f"extras: wavedec/waverec roundtrip max|y - x| {err!r} (limit {ROUNDTRIP_ATOL})",
+          flush=True)
+    check(err <= ROUNDTRIP_ATOL, "extras: the wavedec roundtrip error")
+    del cl, y
+    timing(f"wavedec + waverec {tuple(s1.shape)} {B1_WNAME} level {B1_LEVELS} symmetric",
+           lambda: IO.waverec(IO.wavedec(s1, B1_WNAME, level=B1_LEVELS), B1_WNAME))
+    del s1
+    vol = torch.rand(VTI_SHAPE, device=dev, generator=gen) * 255.0
+    for mode, fwd, inv in (("symmetric", {}, {}),
+                           ("periodization", {"fwd_level_2d": VOL_LEVELS},
+                            {"inv_level_2d": VOL_LEVELS})):
+        cl = counted(f"wavedecn {VTI_SHAPE} {VOL_WNAME} level {VOL_LEVELS} {mode}",
+                     lambda m=mode: IO.wavedecn(vol, VOL_WNAME, m, VOL_LEVELS), fwd)
+        same_bits(f"wavedecn {mode}", flat(cl),
+                  flat(IO.to_pywt(dwt3d(vol, w4, VOL_LEVELS, mode=mode))))
+        y = counted(f"waverecn {mode}", lambda m=mode: IO.waverecn(cl, VOL_WNAME, m), inv)
+        sl = (Ellipsis,) + tuple(slice(0, n) for n in VTI_SHAPE)
+        xhold(f"waverecn {mode} vs the core idwt3d", y[sl],
+              idwt3d(IO.from_pywt(cl), w4, VTI_SHAPE, mode=mode))
+        err = float((y[sl] - vol).abs().max())
+        print(f"extras: wavedecn/waverecn {mode} roundtrip max|y - x| {err!r} (limit "
+              f"{ROUNDTRIP_ATOL})", flush=True)
+        check(err <= ROUNDTRIP_ATOL, f"extras: the wavedecn roundtrip error ({mode})")
+        del cl, y
+        timing(f"wavedecn + waverecn {VTI_SHAPE} {VOL_WNAME} level {VOL_LEVELS} {mode}",
+               lambda m=mode: IO.waverecn(IO.wavedecn(vol, VOL_WNAME, m, VOL_LEVELS),
+                                          VOL_WNAME, m))
+    del vol
+    torch.cuda.empty_cache()
+    ti = img[:IO_SWT_N, :IO_SWT_N].contiguous()
+    cl = counted(f"swt2 {tuple(ti.shape)} {WNAME} level {IO_SWT_LEVELS}",
+                 lambda: IO.swt2(ti, WNAME, IO_SWT_LEVELS), {"swt_fwd_level_2d": IO_SWT_LEVELS})
+    c_core, approxs = swt2d(ti, w7, IO_SWT_LEVELS, keep_approx=True)
+    same_bits("swt2", [t for a, hvd in cl for t in (a, *hvd)],
+              [t for i in range(IO_SWT_LEVELS - 1, -1, -1)
+               for t in (approxs[i], *c_core.details[i])])
+    y = counted("iswt2", lambda: IO.iswt2(cl, WNAME), {"swt_inv_level_2d": IO_SWT_LEVELS})
+    same_bits("iswt2", y, iswt2d(c_core, w7))
+    err = float((y - ti).abs().max())
+    print(f"extras: swt2/iswt2 roundtrip max|y - x| {err!r} (limit {ROUNDTRIP_ATOL})",
+          flush=True)
+    check(err <= ROUNDTRIP_ATOL, "extras: the swt2 roundtrip error")
+    del cl, y, c_core, approxs
+    timing(f"swt2 + iswt2 {tuple(ti.shape)} {WNAME} level {IO_SWT_LEVELS}",
+           lambda: IO.iswt2(IO.swt2(ti, WNAME, IO_SWT_LEVELS), WNAME))
+    print(f"extras (c): {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---------------- (d) the sanitizers ----------------
+    tree = dwt2d(img, w7, LEVELS)
+    n_leaves = len(leaves(tree))
+    counted("assert_finite on a clean tree", lambda: DBG.assert_finite(tree, "c"), {})
+    run = DBG.checked(lambda c: (DBG.assert_finite(c, "c"), c.approx * 2)[1])
+    check(torch.equal(run(tree), tree.approx * 2), "extras: checked changed the result")
+    dets = [list(t) for t in tree.details]
+    dets[2][0] = dets[2][0].clone()  # leaf 7: the approximation, H, V, D a level
+    dets[2][0][3, 5] = float("nan")
+    poisoned = type(tree)(tree.approx, tuple(tuple(t) for t in dets))
+    for how, fn in (("assert_finite", lambda: DBG.assert_finite(poisoned, "c")),
+                    ("checked", lambda: run(poisoned))):
+        try:
+            fn()
+            fail(f"extras: {how} on a tree with one NaN raised nothing")
+        except DBG.CheckError as e:
+            check(isinstance(e, ValueError) and str(e) ==
+                  "c: leaf 7 contains NaN/Inf (`check` failed)", f"extras: {how} said {e}")
+            print(f"extras: {how} on one NaN raised {type(e).__name__}: {e}", flush=True)
+    host = []
+    for _ in range(21):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        DBG.assert_finite(tree, "c")
+        host.append((time.perf_counter() - t0) * 1e3)
+    print(f"extras: assert_finite on the {n_leaves}-leaf {N}^2 tree: "
+          f"{float(np.median(host)):.4f} ms a call by the host clock (median of 21, one "
+          f"host sync); {count_device_kernels(lambda: DBG.assert_finite(tree, 'c'))} device "
+          f"launches a call [{card}]", flush=True)
+    timing(f"assert_finite {n_leaves}-leaf tree", lambda: DBG.assert_finite(tree, "c"))
+
+    print(f"extras launches: {ext}", flush=True)
+    for name in EXTRA_KERNELS:
+        check(ext.get(name, 0) > 0, f"the extras path never launched {name}")
+    for name, k in ext.items():
+        launches[name] += k
+    print(f"extras phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def plain_rt(fn, *args):

@@ -13,7 +13,9 @@ it is), with the same module names:
   wavelet packets (``wp1d``/``wp2d``/``wp3d``, their inverses, the best
   basis, ``wp_reconstruct``), the starlet (``starlet``/``istarlet``), the
   dual-tree complex DWT (``dtcwt1d``/``dtcwt2d``, their inverses and
-  denoisers) and the plain reference path (``conv``)
+  denoisers), the fully separable ``fs_dwt``/``fs_idwt``/``fs_slices``,
+  the continuous ``cwt``/``icwt``/``cwt2d`` and the plain reference path
+  (``conv``)
 * ``kernels``  — hand-written CUDA kernels for Hopper (sm_90a), their
   plain PyTorch versions, launch counters and autograd Functions
 * ``ops``      — soft, hard, garrote, group and firm thresholds, the L2
@@ -28,9 +30,11 @@ it is), with the same module names:
 * ``api``      — the stateful ``Wavelets`` facade; ``api_packets``
   (``WaveletPackets``) and ``api_extras`` (``Starlet``, ``DualTree``)
 * ``parallel`` — device meshes on ``torch.distributed``, the ring halo
-  exchange and the sharded 2D and batched 1D DWT and SWT (DTensors)
+  exchange and the sharded 2D, batched 1D, 3D, non-separable, fully
+  separable, starlet and packet transforms (DTensors)
 * ``utils``    — raw ``.dat`` I/O, coefficient checkpoints in the JAX
-  package's ``.npz`` layout, numpy conversions to and from it
+  package's ``.npz`` layout, numpy conversions to and from it, the pywt
+  drop-ins and containers (``interop``) and the sanitizers (``debug``)
 * ``demo``     — the reference demo's scenarios 1-3, on an image or (``--nd``)
   a volume, and the packet, starlet and dual-tree denoisers (scenarios 4-6;
   ``python -m pdwt_tpu_torch.demo``)
@@ -52,10 +56,11 @@ TI-denoise step, ``Wavelets`` on a volume, the volume denoisers and 3D
 checkpoints): the 2D level kernels with depth as their batch, the depth
 pass one matrix product; the sharded volumes and non-separable
 transforms; the packet, starlet and dual-tree families on those
-transforms and the conv passes.  The anisotropic and continuous families,
-the pywt drop-ins and the sharded packets and starlet come later (ROADMAP
-queue 1).  Importing the package needs no GPU and builds nothing; the CUDA
-kernels are compiled at their first launch.
+transforms and the conv passes; the fully separable transform on the
+batched 1D kernels, the CWT on ``torch.fft``, the pywt drop-ins, and the
+sharded fully separable, starlet and packet transforms.  Importing the
+package needs no GPU and builds nothing; the CUDA kernels are compiled at
+their first launch.
 """
 from . import core, filters, models, ops, parallel, utils
 from .api import Wavelets, WaveletSpec

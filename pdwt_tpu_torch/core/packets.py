@@ -220,9 +220,12 @@ def best_basis(packets, cost: str = "shannon",
     a disjoint cover of the root, to pass to :func:`wp_reconstruct`.  The
     costs (:func:`wp_costs`) come to the host in one copy; a node splits
     when its children's best sum is strictly below its own cost (float64),
-    one shared basis for the whole batch."""
+    one shared basis for the whole batch.  Sharded nodes (DTensors, from
+    ``parallel.packets``) reduce to partial sums that ``full_tensor()``
+    all-reduces, a collective a depth and sharded mesh axis."""
     _, fan, _ = _geom(packets)
-    per_depth = wp_costs(packets, cost, thresh)
+    per_depth = [c.full_tensor() if hasattr(c, "full_tensor") else c
+                 for c in wp_costs(packets, cost, thresh)]
     flat = torch.cat(per_depth).cpu().numpy().astype(np.float64)
     costs = np.split(flat, np.cumsum([c.numel() for c in per_depth])[:-1])
     levels = packets.levels

@@ -489,14 +489,9 @@ DEFERRED = {
     "filters": {},
     "ops": {},
     "models": {},
-    "core": {n: 14 for n in ("fs_dwt", "fs_idwt", "fs_slices", "cwt", "cwt2d", "icwt",
-                             "log_scales", "fourier_wavelength", "cone_of_influence")},
-    "parallel": {n: 16 for n in ("fs_dwt", "fs_idwt", "packets", "starlet", "istarlet")},
-    "utils": {**{n: 15 for n in ("assert_finite", "checked", "validate_coeffs", "to_pywt",
-                                 "from_pywt", "dwt_max_level", "dwt", "idwt", "dwt2", "idwt2",
-                                 "wavedec", "wavedec2", "wavedecn", "waverec", "waverec2",
-                                 "waverecn", "swt", "iswt", "swt2", "iswt2")},
-              "enable_compile_cache": LEAVE_OUT, "device_time": LEAVE_OUT,
+    "core": {},
+    "parallel": {},
+    "utils": {"enable_compile_cache": LEAVE_OUT, "device_time": LEAVE_OUT,
               "device_time_any": LEAVE_OUT, "trace": LEAVE_OUT},
 }
 

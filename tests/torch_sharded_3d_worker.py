@@ -1,6 +1,7 @@
-"""The ranks of ``tests/test_torch_sharded_3d.py`` and
-``tests/test_torch_sharded_ns.py``: every case of the port's sharded volume
-and non-separable transforms on 4 gloo processes on the CPU.  Imports the
+"""The ranks of ``tests/test_torch_sharded_3d.py``,
+``tests/test_torch_sharded_ns.py`` and ``tests/test_torch_sharded_families.py``:
+every case of the port's sharded volume, non-separable, fully separable,
+starlet and packet transforms on 4 gloo processes on the CPU.  Imports the
 port only (no JAX), so that spawned ranks stay light; rank 0 saves each
 result as numpy arrays for the tests to hold against the JAX package."""
 from __future__ import annotations
@@ -143,7 +144,104 @@ def cases_ns(rank: int) -> dict:
     return out
 
 
-SUITES = {"3d": cases_3d, "ns": cases_ns}
+#: the families' inputs: fs_dwt on (row, col) and on (None, col), the
+#: starlet in 2D and 1D, the 2D, 1D and 3D packets
+FS_IMG, FS_ODD, ST_IMG, ST_SIG = (2, 64, 128), (2, 45, 128), (2, 64, 64), (2, 256)
+WP_IMG, WP_SIG, WP_VOL = (2, 64, 128), (4, 256), (16, 32, 64)
+
+
+def cases_families(rank: int) -> dict:
+    from pdwt_tpu_torch.core import packets as PK
+    from pdwt_tpu_torch.parallel import anisotropic as PA
+    from pdwt_tpu_torch.parallel import packets as PP
+
+    out = {}
+    m2 = par.make_mesh((1, 2, 2), device_type="cpu")
+    m1 = par.make_mesh((2, 2), ("data", "col"), device_type="cpu")
+    db4, db3, db2 = get_wavelet("db4"), get_wavelet("db3"), get_wavelet("db2")
+    full = lambda t: t.full_tensor()
+    # fs_dwt / fs_idwt: (row, col) = (2, 2), levels (2, 1); the rows
+    # unsharded and odd, the columns over col, levels (1, 2); the
+    # all-gathers of the packs and unpacks counted
+    for tag, shape, lv, axes, w, seed in (("22", FS_IMG, (2, 1), ("row", "col"), db4, 30),
+                                          ("none_col", FS_ODD, (1, 2), (None, "col"), db3, 31)):
+        x = torch.from_numpy(image(shape, seed))
+        n0 = PA.COLLECTIVES["all_gather"]
+        y = par.fs_dwt(x, w, lv, m2, axes=axes)
+        n1 = PA.COLLECTIVES["all_gather"]
+        r = par.fs_idwt(y, w, shape[-2:], lv, m2, axes=axes)
+        n2 = PA.COLLECTIVES["all_gather"]
+        _tiered(out, f"fs_{tag}", [y, r])
+        out[f"fs_{tag}_gathers"] = f"{n1 - n0} {n2 - n1}"
+    # the 2D case again as a bf16 image under bf16-fast, against the port's
+    # own single-device call on the same image
+    from pdwt_tpu_torch.core.anisotropic import fs_dwt as fs_single
+
+    xb = torch.from_numpy(image(FS_IMG, 30)).bfloat16()
+    with precision_scope("bf16-fast"):
+        y = par.fs_dwt(xb, db4, (2, 1), m2, axes=("row", "col"))
+        _tiered(out, "fs_bf16", [y, fs_single(xb, db4, (2, 1))])
+    # the starlet: 2D over (row, col), gen 2 and gen 1; 1D over (data, col)
+    for gen in (2, 1):
+        x = torch.from_numpy(image(ST_IMG, 32))
+        c = par.starlet(x, 3, m2, spatial_axes=("row", "col"), gen=gen)
+        y = par.istarlet(c, m2, spatial_axes=("row", "col"), gen=gen)
+        _tiered(out, f"starlet2d_gen{gen}", _leaves(c) + [y])
+    s = torch.from_numpy(image(ST_SIG, 33))
+    c = par.starlet(s, 3, m1, data_axis="data", spatial_axes=("col",))
+    y = par.istarlet(c, m1, data_axis="data", spatial_axes=("col",))
+    _tiered(out, "starlet1d", _leaves(c) + [y])
+    # the packets: the tree, a best-basis reconstruction (the cover from the
+    # gathered nodes, saved for the test), the full inverse
+    ax2 = dict(row_axis="row", col_axis="col")
+    x = torch.from_numpy(image(WP_IMG, 34))
+    pk = PP.wp2d(x, db3, 2, m2, **ax2)
+    leaves, _ = PK.best_basis(pk, "shannon")  # the DTensor nodes: cost sums all-reduced
+    soft = lambda v, j, i: v if i == 0 else torch.sign(v) * torch.clamp(v.abs() - 20.0, min=0)
+    _tiered(out, "wp2d", list(pk.nodes) + [PP.wp_reconstruct(pk, leaves, db3, m2, **ax2),
+                                           PP.wp_reconstruct(pk, leaves, db3, m2, map_fn=soft,
+                                                             **ax2),
+                                           PP.iwp2d(pk.nodes[-1], db3, WP_IMG[-2:], m2, **ax2)])
+    out["wp2d_leaves"] = np.asarray(leaves, np.int64)
+    with precision_scope("bf16-fast"):
+        xb = x.bfloat16()
+        pk = PP.wp2d(xb, db3, 2, m2, **ax2)
+        one = PK.wp2d(xb, db3, 2)
+        _tiered(out, "wp2d_bf16", list(pk.nodes) + [PP.iwp2d(pk.nodes[-1], db3, WP_IMG[-2:],
+                                                             m2, **ax2)])
+        _tiered(out, "wp2d_bf16_one", [t.float() for t in list(one.nodes) + [
+            PK.iwp2d(one.nodes[-1], db3, WP_IMG[-2:])]])
+    ax1 = dict(data_axis="data", col_axis="col")
+    s = torch.from_numpy(image(WP_SIG, 35))
+    pk = PP.wp1d(s, db2, 3, m1, **ax1)
+    _tiered(out, "wp1d", list(pk.nodes) + [PP.iwp1d(pk.nodes[-1], db2, WP_SIG[-1], m1, **ax1)])
+    v = torch.from_numpy(image(WP_VOL, 36))
+    pk = PP.wp3d(v, db2, 2, m2, **ax2)
+    leaves, _ = PK.best_basis(PK.Packets3D(tuple(map(full, pk.nodes))), "l1")
+    _tiered(out, "wp3d", list(pk.nodes) + [PP.wp_reconstruct(pk, leaves, db2, m2, **ax2),
+                                           PP.iwp3d(pk.nodes[-1], db2, WP_VOL, m2, **ax2)])
+    out["wp3d_leaves"] = np.asarray(leaves, np.int64)
+    m22 = par.make_mesh((1, 2, 2, 1), AXES4, device_type="cpu")
+    ax3 = dict(dep_axis="dep", row_axis="row")
+    pk = PP.wp3d(v, db2, 2, m22, **ax3)
+    _tiered(out, "wp3d_dep", list(pk.nodes) + [PP.iwp3d(pk.nodes[-1], db2, WP_VOL, m22, **ax3)])
+    # the errors, raised before any exchange
+    out["err_fs_div"] = _error(lambda: par.fs_dwt(torch.zeros(2, 60, 128), db4, (2, 1), m2,
+                                                  axes=("row", "col")))
+    out["err_fs_batch"] = _error(lambda: par.fs_dwt(torch.zeros(64, 128), db4, (1, 1), m2,
+                                                    axes=("row", "col"), data_axis="data"))
+    out["err_fs_axes"] = _error(lambda: par.fs_dwt(torch.zeros(64, 128), db4, (1, 1, 1), m2,
+                                                   axes=("row", "col")))
+    out["err_starlet_div"] = _error(lambda: par.starlet(torch.zeros(2, 63, 64), 2, m2,
+                                                        spatial_axes=("row", "col")))
+    out["err_starlet_batch"] = _error(lambda: par.starlet(torch.zeros(3, 64), 2, m1,
+                                                          data_axis="data",
+                                                          spatial_axes=("col",)))
+    out["err_wp2d_div"] = _error(lambda: PP.wp2d(torch.zeros(2, 60, 128), db3, 2, m2, **ax2))
+    return out
+
+
+SUITES = {"3d": cases_3d, "ns": cases_ns, "families": cases_families}
 
 
 def run(rank: int, store_path: str, out_dir: str, suite: str) -> None:
