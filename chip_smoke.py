@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (pdwt_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--only volume|families|extras|sharded]
+    python3 chip_smoke.py [--only volume|families|extras|sharded|backends]
 
 Run from the repository root.  It builds the CUDA kernels from
-``pdwt_tpu_torch/kernels/csrc`` and drives the port's twelve paths, each
+``pdwt_tpu_torch/kernels/csrc`` and drives the port's thirteen paths, each
 with the launch counters set to 0 just before it and read just after:
 
 * the DWT path: each of its four kernels against its plain PyTorch version
@@ -162,6 +162,18 @@ with the launch counters set to 0 just before it and read just after:
   the volume's.  The sharded phase drives the sharded fs_dwt, starlet and
   packets on the gloo ranks and times the fs and packet roundtrips on the
   NCCL rank.  ``--only extras`` and ``--only sharded`` run a phase alone.
+* ``backend=`` ("backends", ``--only backends``): six cells (the DWT
+  roundtrip, the TI step, the batched 1D step, the exact rank-3
+  non-separable DWT at 2048x2048 5 levels, the starlet at 2048x2048 4
+  scales, the 3D roundtrip) under ``None``, ``"pallas"`` (bit for bit to
+  ``None``, the same launches) and JAX's conv formulations "fma", "xla"
+  and "gather" (no launch of the port's kernels; 1e-5 of each output's
+  largest value against ``None``, and "xla" against the cell's float64
+  computation), each timed; then the C++ engine (``pdwt_tpu_torch.native``)
+  in float32 and float64 on the DWT cell against the port's float64
+  transform on the card, ``utils.device_time`` (CUDA-graph slope, the
+  replay equal to the eager call), ``utils.trace`` and the build
+  directory.
 
 The banded-product kernels redesigned for Hopper's CUDA cores (kernels 14
 and 18: ``swt_inv_level_2d_mxu``, ``ns_inv_level_2d_mxu``,
@@ -217,6 +229,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -901,9 +914,9 @@ def main() -> None:
     if sys.argv[1:]:
         # a development run of one phase alone: no result line
         only = {"volume": volume_phase, "families": families_phase, "extras": extras_phase,
-                "sharded": sharded_phase}
+                "sharded": sharded_phase, "backends": backends_phase}
         check(len(sys.argv) == 3 and sys.argv[1] == "--only" and sys.argv[2] in only,
-              "usage: chip_smoke.py [--only volume|families|extras|sharded]")
+              "usage: chip_smoke.py [--only volume|families|extras|sharded|backends]")
         report = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
                          "plain_device_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                          "bound_ms": 0.0, "library_ms": 0.0} for name in REPLACES}
@@ -1403,6 +1416,7 @@ def main() -> None:
     volume_phase(dev, card, report, launches, gen)
     families_phase(dev, card, report, launches, gen)
     extras_phase(dev, card, report, launches, gen)
+    backends_phase(dev, card, report, launches, gen)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
@@ -2903,8 +2917,8 @@ def operators_phase(dev, card, dwt_img, ti_img, sig) -> None:
         call = lambda: ista(y, wav=wav, levels=IS_LEVELS, lam=IS_LAM, iters=IS_ITERS, **kw)
         got, trace = counted(f"ista {label}", call, is_k)
         fwd, inv = solver.dwt2d, solver.idwt2d
-        solver.dwt2d = lambda t, w, lv: plain_dwt2d(t, w, lv)
-        solver.idwt2d = lambda c, w, shape: plain_idwt2d(c, w, shape)
+        solver.dwt2d = lambda t, w, lv, **kw: plain_dwt2d(t, w, lv)
+        solver.idwt2d = lambda c, w, shape, **kw: plain_idwt2d(c, w, shape)
         try:
             want, want_trace = ista(y, wav=wav, levels=IS_LEVELS, lam=IS_LAM,
                                     iters=IS_ITERS, **kw)
@@ -5831,6 +5845,192 @@ def extras_phase(dev, card, report, launches, gen) -> None:
     for name, k in ext.items():
         launches[name] += k
     print(f"extras phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+BACKENDS = (None, "pallas", "fma", "xla", "gather")
+#: starlet cell: 2048^2, 4 scales (the families phase's starlet size)
+ST_LEVELS = 4
+
+
+def bhold(label, got, want, rtol=PATH_RTOL) -> None:
+    """A call's outputs within rtol of the largest value among its tensor
+    outputs (``max_err``'s scale), a scalar output (the TI step's norm)
+    within rtol of itself; finite and of the reference's shapes."""
+    gl, wl = leaves(got), leaves(want)
+    check(len(gl) == len(wl) and all(g.shape == w.shape for g, w in zip(gl, wl)),
+          f"{label}: shapes differ")
+    check(all(bool(torch.isfinite(g).all()) for g in gl), f"{label}: not finite")
+    scale = max(float(w.double().abs().max()) for w in wl if w.dim())
+    worst = 0.0
+    for g, w in zip(gl, wl):
+        err = float((g.double() - w.double()).abs().max())
+        ref = scale if w.dim() else abs(float(w))
+        check(err <= rtol * ref, f"{label}: max|diff| {err:.3e} over {rtol * ref:.3e}")
+        worst = max(worst, err / ref)
+    print(f"{label}: worst max|diff| / max|ref| {worst:.3e} (limit {rtol})", flush=True)
+
+
+def backends_phase(dev, card, report, launches, gen) -> None:
+    """``backend=`` on the card: six cells under ``None``, ``"pallas"`` and
+    JAX's three conv formulations (the DWT roundtrip 2048^2 db7 5 levels,
+    the TI step 1024^2 db7 3 levels soft beta 10, the batched 1D step
+    1024 x 4096 sym8 4 levels, the exact rank-3 non-separable DWT 2048^2 5
+    levels, the starlet 2048^2 4 scales forward and inverse, the 3D
+    roundtrip 128 x 512^2 db4 2 levels).  ``"pallas"`` equals ``None`` bit
+    for bit with the same launches; "fma", "xla" and "gather" launch none
+    of the port's kernels and hold 1e-5 of each output's largest value
+    against ``None``; "xla" holds the same against the float64 computation
+    of the cell ("fma" in float64 on the card), which TF32 would miss.
+    Each call is timed (call, busy, idle share, peak).  Then the C++ engine
+    in float32 and float64 on the DWT cell against the port's float64
+    transform, ``utils.device_time`` on the DWT roundtrip (its CUDA-graph
+    replay equal to the eager call bit for bit) beside the busy and call
+    times, ``utils.trace`` naming the port's kernels, and the build
+    directory of ``enable_compile_cache``."""
+    from pdwt_tpu_torch import (dwt1d, dwt2d, dwt2d_ns, dwt3d, get_wavelet, idwt1d, idwt2d,
+                                idwt3d, native, ops)
+    from pdwt_tpu_torch.core import istarlet, starlet
+    from pdwt_tpu_torch.models import denoise_step
+    from pdwt_tpu_torch.utils import device_time, enable_compile_cache, profiling, trace
+
+    print("=== backends ===", flush=True)
+    t_phase = time.perf_counter()
+    seen: dict = {}
+    w7, w8, w4 = get_wavelet(WNAME), get_wavelet(B1_WNAME), get_wavelet(VOL_WNAME)
+    q = rank3_quads()
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.uniform(0, 255, (N, N)).astype(np.float32)).to(dev)
+    ti = torch.from_numpy(rng.uniform(0, 255, (TI_N, TI_N)).astype(np.float32)).to(dev)
+    sig = torch.from_numpy(rng.standard_normal((B1_SIGNALS, B1_N)).astype(np.float32)).to(dev)
+    vol = torch.rand(VOL_SHAPE, device=dev, generator=gen) * 255.0
+
+    def b1(x, be):
+        c = ops.soft_threshold(dwt1d(x, w8, B1_LEVELS, backend=be), B1_BETA)
+        return c, ops.norm1(c), idwt1d(c, w8, B1_N, backend=be)
+
+    def st(x, be):
+        c = starlet(x, ST_LEVELS, backend=be)
+        return c, istarlet(c, backend=be)
+
+    def dwt_rt(x, be):
+        c = dwt2d(x, w7, LEVELS, backend=be)
+        return c, idwt2d(c, w7, (N, N), backend=be)
+
+    def vol_rt(x, be):
+        c = dwt3d(x, w4, VOL_LEVELS, backend=be)
+        return c, idwt3d(c, w4, VOL_SHAPE, backend=be)
+
+    cells = [
+        (f"DWT roundtrip {N}^2 {WNAME} {LEVELS} levels", img, dwt_rt),
+        (f"TI step {TI_N}^2 {WNAME} {TI_LEVELS} levels soft beta {TI_BETA}", ti,
+         lambda x, be: denoise_step(x, None, w7, TI_LEVELS, TI_BETA, swt=True, backend=be)),
+        (f"batched 1D step {B1_SIGNALS}x{B1_N} {B1_WNAME} {B1_LEVELS} levels", sig, b1),
+        (f"exact rank-3 NS DWT {NS_N}^2 {NS_LEVELS} levels", img,
+         lambda x, be: dwt2d_ns(x, q, NS_LEVELS, backend=be)),
+        (f"starlet {N}^2 {ST_LEVELS} scales forward + inverse", img, st),
+        (f"3D roundtrip {'x'.join(map(str, VOL_SHAPE))} {VOL_WNAME} {VOL_LEVELS} levels", vol,
+         vol_rt),
+    ]
+    table = []
+    for label, x, fn in cells:
+        outs = {}
+        for be in BACKENDS:
+            want = None if be in (None, "pallas") else {}
+            if be == "pallas":
+                want = outs["counts", None]
+            from pdwt_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            out = fn(x, be)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in LAUNCHES.items() if v}
+            print(f"backends: {label} backend={be}: launches {got}", flush=True)
+            if want is not None:
+                check(got == want, f"backends: {label} backend={be} launched {got}, want {want}")
+            for k, v in got.items():
+                seen[k] = seen.get(k, 0) + v
+            outs["counts", be], outs[be] = got, out
+        base = outs[None]
+        pg, pb = leaves(outs["pallas"]), leaves(base)
+        check(len(pg) == len(pb) and all(torch.equal(g, b) for g, b in zip(pg, pb)),
+              f"backends: {label}: backend='pallas' differs from backend=None")
+        print(f"backends: {label}: 'pallas' equals None bit for bit", flush=True)
+        for be in ("fma", "xla", "gather"):
+            bhold(f"backends: {label}: {be} vs None", outs[be], base)
+        ref64 = fn(x.double(), "fma")
+        bhold(f"backends: {label}: xla vs float64", outs["xla"], ref64)
+        del ref64, outs
+        for be in BACKENDS:
+            t = vol_timing(f"{label} backend={be}", lambda: fn(x, be), card, "backends")
+            table.append((label, be, t))
+    print("backends table (call ms, busy ms, idle share, peak GiB) "
+          f"[{card}]:", flush=True)
+    for label, be, t in table:
+        busy = t["busy_ms"]
+        idle = "not measured" if busy is None else f"{1 - busy / t['ms']:.3f}"
+        print(f"  {label} | {be} | {t['ms']:.4f} | {fmt(busy)} | {idle} | "
+              f"{t['peak_gib']:.3f}", flush=True)
+
+    # ---------------- the C++ engine on the DWT cell ----------------
+    check(native.is_available(), "backends: no C++ compiler for the native engine")
+    x64 = img.double()
+    c64 = dwt2d(x64, w7, LEVELS, backend="fma")
+    y64 = idwt2d(c64, w7, (N, N), backend="fma")
+    host = img.cpu()
+    for dt, rtol in ((np.float32, PATH_RTOL), (np.float64, 1e-10)):
+        native.lib.set_dtype(dt)
+        try:
+            native.dwt2d(host[:64, :64], w7, 2)  # build and load
+            t0 = time.perf_counter()
+            cn = native.dwt2d(host, w7, LEVELS)
+            t1 = time.perf_counter()
+            yn = native.idwt2d(cn, w7, (N, N))
+            t2 = time.perf_counter()
+        finally:
+            native.lib.set_dtype(np.float32)
+        print(f"backends: native {np.dtype(dt).name} DWT {N}^2 {WNAME} {LEVELS} levels: "
+              f"forward {(t1 - t0) * 1e3:.1f} ms, inverse {(t2 - t1) * 1e3:.1f} ms by the host "
+              f"clock (one call, {os.cpu_count()} cores)", flush=True)
+        bhold(f"backends: native {np.dtype(dt).name} vs the port's float64 on the card",
+              [cn, yn], [leaves(c64)[i].cpu() for i in range(len(leaves(c64)))] + [y64.cpu()],
+              rtol)
+
+    # ---------------- the slope timing, the graph, the trace ----------------
+    rt = lambda t: idwt2d(dwt2d(t, w7, LEVELS), w7, (N, N))
+    slope = device_time(rt, img)
+    call = cuda_ms(lambda: rt(img))
+    busy, _ = device_ms(lambda: rt(img))
+    print(f"backends: device_time of the DWT roundtrip {slope * 1e3:.4f} ms (CUDA-graph slope) "
+          f"vs busy {fmt(busy)}, eager call {call:.4f} ms [{card}]", flush=True)
+    check(slope > 0, "backends: device_time gave no positive slope")
+    run = profiling._graph_runner(lambda: rt(img), 1)
+    run()
+    torch.cuda.synchronize()
+    check(torch.equal(run.out, rt(img)), "backends: the graph replay differs from the eager call")
+    print("backends: the CUDA-graph replay equals the eager call bit for bit", flush=True)
+    # Kineto now and then records no device event in a window late in a
+    # long run (device_ms's note): three windows of three calls, as there
+    for attempt in range(3):
+        with tempfile.TemporaryDirectory() as out_dir:
+            with trace(out_dir):
+                for _ in range(3):
+                    rt(img)
+            with open(os.path.join(out_dir, "trace.json")) as fh:
+                events = json.load(fh)["traceEvents"]
+        names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+        ours = sorted(n for n in names if is_port_kernel(n))
+        print(f"backends: trace window {attempt + 1} wrote {len(events)} events, "
+              f"{len(names)} kernel names, the port's: {[n[:60] for n in ours]}", flush=True)
+        if ours:
+            break
+    check(bool(ours), "backends: the trace names none of the port's kernels in three windows")
+    print(f"backends: enable_compile_cache() -> {enable_compile_cache()}", flush=True)
+
+    print(f"backends launches: {seen}", flush=True)
+    for name, k in seen.items():
+        launches[name] += k
+    print(f"backends phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def plain_rt(fn, *args):

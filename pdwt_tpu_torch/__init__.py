@@ -34,7 +34,11 @@ it is), with the same module names:
   separable, starlet and packet transforms (DTensors)
 * ``utils``    — raw ``.dat`` I/O, coefficient checkpoints in the JAX
   package's ``.npz`` layout, numpy conversions to and from it, the pywt
-  drop-ins and containers (``interop``) and the sanitizers (``debug``)
+  drop-ins and containers (``interop``), the sanitizers (``debug``), the
+  slope timing and traces (``profiling``) and the build directory
+  (``cache``)
+* ``native``   — ctypes binding of the C++ CPU engine (``cpp/``), compiled
+  on first use
 * ``demo``     — the reference demo's scenarios 1-3, on an image or (``--nd``)
   a volume, and the packet, starlet and dual-tree denoisers (scenarios 4-6;
   ``python -m pdwt_tpu_torch.demo``)
@@ -60,9 +64,11 @@ transforms and the conv passes; the fully separable transform on the
 batched 1D kernels, the CWT on ``torch.fft``, the pywt drop-ins, and the
 sharded fully separable, starlet and packet transforms.  Importing the
 package needs no GPU and builds nothing; the CUDA kernels are compiled at
-their first launch.
+their first launch.  ``backend=`` on every transform picks JAX's route:
+the kernels (``None``, ``"pallas"``) or one of JAX's three conv
+formulations (``"fma"``, ``"xla"``, ``"gather"``; ``core/conv.py``).
 """
-from . import core, filters, models, ops, parallel, utils
+from . import core, filters, models, native, ops, parallel, utils
 from .api import Wavelets, WaveletSpec
 from .api_extras import DualTree, Starlet
 from .api_packets import WaveletPackets
@@ -82,4 +88,4 @@ __all__ = ["Wavelets", "WaveletSpec", "WaveletPackets", "Starlet", "DualTree", "
            "dwt1d", "idwt1d", "swt1d", "iswt1d", "Coeffs1D", "dwt3d", "idwt3d", "swt3d",
            "iswt3d", "iswt3d_denoise", "Coeffs3D", "DETAIL_KEYS_3D", "dwt2d_ns", "idwt2d_ns",
            "swt2d_ns", "iswt2d_ns", "TIERS", "MODES", "precision_scope", "core", "filters",
-           "models", "ops", "parallel", "utils"]
+           "models", "native", "ops", "parallel", "utils"]

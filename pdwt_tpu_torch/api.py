@@ -29,6 +29,12 @@ warning, as in JAX; cycle spinning draws the row, the column, then the
 depth shift; ``get_coeff``/``set_coeff`` number 0 the approximation, then
 the 7 bands of level 1 (daa..ddd) 1..7, of level 2 8..14, and so on.
 
+``backend=`` is passed to every separable transform the facade runs
+(``core/separable.py``'s route: ``None`` or ``"pallas"`` the kernels,
+``"fma"``, ``"xla"`` or ``"gather"`` JAX's conv formulations), as JAX's
+facade passes it; the non-separable transforms take their default, as in
+JAX.
+
 The image and coefficients are tensors on one device: the device of an
 image given as a tensor, else ``device=``, which defaults to the CUDA card
 (without one, ``device="cpu"`` must be asked for).  The facade never moves
@@ -113,8 +119,8 @@ class Wavelets:
     def __init__(self, img=None, nr: Optional[int] = None, nc: Optional[int] = None,
                  wname: str = "haar", levels: int = 1, do_separable: bool = True,
                  do_cycle_spinning: bool = False, do_swt: bool = False,
-                 ndim: int = 2, dtype=None, seed: int = 0, mode="periodization",
-                 precision: Optional[str] = None, device=None):
+                 ndim: int = 2, dtype=None, seed: int = 0, backend: Optional[str] = None,
+                 mode="periodization", precision: Optional[str] = None, device=None):
         if ndim not in (1, 2, 3):
             raise ValueError(f"ndim={ndim} is not implemented")
         # one mode per transformed axis (pywt), its count checked below
@@ -211,6 +217,7 @@ class Wavelets:
         self.current_shift_c = 0
         self.current_shift_d = 0  # the depth shift of a volume
         self._rng = np.random.default_rng(seed)
+        self._backend = backend
         self._coeffs = self._zero_coeffs()
 
     def _zero_coeffs(self):
@@ -293,7 +300,8 @@ class Wavelets:
         if not s.do_separable:
             with self._tier():
                 return (swt2d_ns if s.do_swt else dwt2d_ns)(img, self._quads_fwd, s.nlevels)
-        fwd_kw = {} if s.do_swt else {"mode": s.mode}
+        fwd_kw = {"backend": self._backend} if s.do_swt else {"backend": self._backend,
+                                                              "mode": s.mode}
         if s.ndim == 1:
             fwd = swt1d if s.do_swt else dwt1d
         elif s.ndim == 3:
@@ -310,12 +318,14 @@ class Wavelets:
                 if s.do_swt:
                     return iswt2d_ns(coeffs, self._quads_inv)
                 return idwt2d_ns(coeffs, self._quads_inv, (s.nr, s.nc))
+            be = self._backend
             if s.do_swt:
-                return {1: iswt1d, 2: iswt2d, 3: iswt3d}[s.ndim](coeffs, self._wavelet)
+                return {1: iswt1d, 2: iswt2d, 3: iswt3d}[s.ndim](coeffs, self._wavelet,
+                                                                 backend=be)
             if s.ndim == 1:
-                return idwt1d(coeffs, self._wavelet, s.nc, mode=s.mode)
+                return idwt1d(coeffs, self._wavelet, s.nc, backend=be, mode=s.mode)
             return (idwt3d if s.ndim == 3 else idwt2d)(coeffs, self._wavelet, s.shape,
-                                                        mode=s.mode)
+                                                        backend=be, mode=s.mode)
 
     def forward(self):
         """Compute the coefficients of the current image.  With cycle
@@ -363,7 +373,7 @@ class Wavelets:
             inv = iswt3d_denoise if s.ndim == 3 else iswt2d_denoise
             with self._tier():
                 out = inv(c, self._wavelet, beta, mode=mode, normalize=normalize,
-                          do_thresh_appcoeffs=do_thresh_appcoeffs)
+                          do_thresh_appcoeffs=do_thresh_appcoeffs, backend=self._backend)
         else:
             c = _THRESH[mode](c, beta, normalize=normalize,
                               do_thresh_appcoeffs=do_thresh_appcoeffs)

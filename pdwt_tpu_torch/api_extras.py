@@ -6,7 +6,8 @@
     >>> D = DualTree(img, levels=4, device="cuda")
     >>> den = D.denoise(k=3.0)            # complex magnitude k-sigma
 
-The image lies on one device, as in ``WaveletPackets``; the port runs
+``backend=`` is passed to every transform a facade runs, as JAX's facades
+pass it.  The image lies on one device, as in ``WaveletPackets``; the port runs
 eagerly, so JAX's per-configuration jit cache has no counterpart.  The CWT
 stays functional-only, as in JAX.
 """
@@ -30,7 +31,7 @@ class Starlet:
     axes).  ``gen`` selects the generation (``core/starlet.py``)."""
 
     def __init__(self, img, levels: int = 4, *, ndim: Optional[int] = None, gen: int = 2,
-                 dtype=None, device=None):
+                 dtype=None, backend: Optional[str] = None, device=None):
         img = image_tensor(img, device, dtype)
         self.ndim = int(ndim) if ndim is not None else min(img.ndim, 3)
         if not 1 <= self.ndim <= 3:
@@ -41,17 +42,19 @@ class Starlet:
             raise ValueError(f"gen must be 1 or 2, got {gen}")
         self.levels = int(levels)
         self.gen = gen
+        self.backend = backend
         self.d_image = img
         self.coeffs: Optional[StarletCoeffs] = None
 
     def forward(self) -> StarletCoeffs:
-        self.coeffs = _starlet(self.d_image, self.levels, ndim=self.ndim, gen=self.gen)
+        self.coeffs = _starlet(self.d_image, self.levels, ndim=self.ndim, gen=self.gen,
+                               backend=self.backend)
         return self.coeffs
 
     def inverse(self) -> torch.Tensor:
         if self.coeffs is None:
             raise ValueError("run forward() first (or assign .coeffs)")
-        return istarlet(self.coeffs, ndim=self.ndim, gen=self.gen)
+        return istarlet(self.coeffs, ndim=self.ndim, gen=self.gen, backend=self.backend)
 
     def denoise(self, k=3.0, *, mode: str = "soft") -> torch.Tensor:
         """Knob-free k-sigma denoise (``models.starlet_auto_denoise``) of
@@ -60,7 +63,7 @@ class Starlet:
 
         kk = tuple(k) if isinstance(k, (list, tuple)) else float(k)
         return starlet_auto_denoise(self.d_image, self.levels, k=kk, ndim=self.ndim,
-                                    gen=self.gen, mode=mode)
+                                    gen=self.gen, mode=mode, backend=self.backend)
 
 
 class DualTree:
@@ -69,7 +72,7 @@ class DualTree:
     shift-invariant; ``core/dualtree.py``)."""
 
     def __init__(self, img, levels: int = 4, *, order: Tuple[int, int] = (2, 4), dtype=None,
-                 device=None):
+                 backend: Optional[str] = None, device=None):
         img = image_tensor(img, device, dtype)
         if img.ndim not in (1, 2):
             raise ValueError(
@@ -80,12 +83,13 @@ class DualTree:
         self.ndim = img.ndim
         self.levels = int(levels)
         self.order = tuple(order)
+        self.backend = backend
         self.d_image = img
         self.coeffs = None
 
     def forward(self):
         fwd = dt_mod.dtcwt2d if self.ndim == 2 else dt_mod.dtcwt1d
-        self.coeffs = fwd(self.d_image, self.levels, order=self.order)
+        self.coeffs = fwd(self.d_image, self.levels, order=self.order, backend=self.backend)
         return self.coeffs
 
     def inverse(self) -> torch.Tensor:
@@ -93,8 +97,9 @@ class DualTree:
             raise ValueError("run forward() first (or assign .coeffs)")
         if self.ndim == 2:
             return dt_mod.idtcwt2d(self.coeffs, tuple(self.d_image.shape[-2:]),
-                                   order=self.order)
-        return dt_mod.idtcwt1d(self.coeffs, self.d_image.shape[-1], order=self.order)
+                                   order=self.order, backend=self.backend)
+        return dt_mod.idtcwt1d(self.coeffs, self.d_image.shape[-1], order=self.order,
+                               backend=self.backend)
 
     def magnitudes(self):
         """Per-level oriented magnitude stacks |c| (the DT-CWT's
@@ -108,4 +113,4 @@ class DualTree:
         (``core.dtcwt_auto_denoise``) of the held image."""
         kk = tuple(k) if isinstance(k, (list, tuple)) else float(k)
         return dt_mod.dtcwt_auto_denoise(self.d_image, self.levels, k=kk, mode=mode,
-                                         order=self.order)
+                                         order=self.order, backend=self.backend)

@@ -26,10 +26,12 @@ class WaveletPackets:
     """Full wavelet-packet tree of a 1D signal, 2D image or 3D volume
     (spatial rank inferred from ``img.ndim``; construct with an extra
     leading axis and ``ndim=`` for batched data).  ``dtype=None`` keeps the
-    image's dtype."""
+    image's dtype; ``backend`` is every transform's route
+    (``core/separable.py``)."""
 
     def __init__(self, img, wname: str = "haar", levels: int = 1, *,
-                 ndim: Optional[int] = None, dtype=None, device=None):
+                 ndim: Optional[int] = None, dtype=None, backend: Optional[str] = None,
+                 device=None):
         img = image_tensor(img, device, dtype)
         self.ndim = int(ndim) if ndim is not None else min(img.ndim, 3)
         if not 1 <= self.ndim <= 3:
@@ -38,6 +40,7 @@ class WaveletPackets:
             raise ValueError("levels must be >= 1")
         self.wavelet: Wavelet = get_wavelet(wname) if isinstance(wname, str) else wname
         self.levels = int(levels)
+        self.backend = backend
         self.d_image = img
         self.packets = None
         self.leaves: Optional[Tuple[Tuple[int, int], ...]] = None
@@ -51,7 +54,7 @@ class WaveletPackets:
         """Decompose the image into the full packet tree (one batched
         single-level transform per depth)."""
         fwd = {1: pk_mod.wp1d, 2: pk_mod.wp2d, 3: pk_mod.wp3d}[self.ndim]
-        self.packets = fwd(self.d_image, self.wavelet, self.levels)
+        self.packets = fwd(self.d_image, self.wavelet, self.levels, backend=self.backend)
         self.leaves = None
         return self.packets
 
@@ -74,7 +77,7 @@ class WaveletPackets:
         thr = THR_ELEM[mode]
         pk = (self.packets if beta is None
               else pk_mod.threshold_details(self.packets, leaves, thr, beta))
-        return pk_mod.wp_reconstruct(pk, leaves, self.wavelet)
+        return pk_mod.wp_reconstruct(pk, leaves, self.wavelet, backend=self.backend)
 
     # -- access --------------------------------------------------------
     def get_node(self, depth: int, index: int, copy: bool = True):

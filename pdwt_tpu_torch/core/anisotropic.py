@@ -90,12 +90,13 @@ def unpack1d(arr: torch.Tensor, n: int, lv: int, hlen: int = 2,
 
 
 def fs_dwt(x: torch.Tensor, wav: Wavelet, levels: Levels, *, ndim_spatial: Optional[int] = None,
-           mode="periodization") -> torch.Tensor:
+           backend: Optional[str] = None, mode="periodization") -> torch.Tensor:
     """Fully separable forward transform over the trailing ``len(levels)``
     axes (or ``ndim_spatial`` with a scalar ``levels``; a per-axis level of
     0 leaves that axis untransformed; ``mode`` a string or one per axis).
     Returns the packed coefficient tensor (larger than the input along an
-    odd or non-periodization axis: block sizes from :func:`fs_slices`)."""
+    odd or non-periodization axis: block sizes from :func:`fs_slices`).
+    ``backend``: each ``dwt1d``'s route (``core/separable.py``)."""
     lvls = _per_axis_levels(levels, ndim_spatial)
     nd = len(lvls)
     modes_ax = per_axis(mode, nd)
@@ -106,13 +107,13 @@ def fs_dwt(x: torch.Tensor, wav: Wavelet, levels: Levels, *, ndim_spatial: Optio
         if lv == 0:
             continue
         axis = k - nd  # negative index among the trailing axes
-        c = dwt1d(y.movedim(axis, -1), wav, lv, mode=modes_ax[k])
+        c = dwt1d(y.movedim(axis, -1), wav, lv, backend=backend, mode=modes_ax[k])
         y = pack1d(c).movedim(-1, axis)
     return y
 
 
 def fs_idwt(arr: torch.Tensor, wav: Wavelet, shape: Sequence[int], levels: Levels, *,
-            mode="periodization") -> torch.Tensor:
+            backend: Optional[str] = None, mode="periodization") -> torch.Tensor:
     """Inverse of :func:`fs_dwt`; ``shape`` is the original size of the
     trailing spatial axes."""
     lvls = _per_axis_levels(levels, len(shape))
@@ -125,5 +126,5 @@ def fs_idwt(arr: torch.Tensor, wav: Wavelet, shape: Sequence[int], levels: Level
             continue
         axis = k - nd
         c = unpack1d(y.movedim(axis, -1), shape[k], lv, wav.hlen, modes_ax[k])
-        y = idwt1d(c, wav, shape[k], mode=modes_ax[k]).movedim(-1, axis)
+        y = idwt1d(c, wav, shape[k], backend=backend, mode=modes_ax[k]).movedim(-1, axis)
     return y

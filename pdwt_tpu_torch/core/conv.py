@@ -1,7 +1,29 @@
-"""Filtering primitives: the port's single plain reference path.
+"""Filtering primitives: the conv passes in JAX's three formulations.
 
-Counterpart of ``pdwt_tpu/core/conv.py`` (its ``fma`` formulation).  The
-index spec of periodization, the default, is the same:
+Counterpart of ``pdwt_tpu/core/conv.py``.  ``backend=`` on
+:func:`analysis_pass` and :func:`synthesis_pass` picks one of JAX's three
+independent formulations of the same index spec:
+
+* ``"fma"``: slice-FMA, one scaled contiguous slice a tap (decimation an
+  even/odd split, the decimated synthesis stuff-free polyphase), the
+  port's plain path and the default on every device;
+* ``"xla"``: ``torch.nn.functional.conv1d/2d/3d`` with one group a
+  channel, a stride and a dilation, laid out as JAX's
+  ``lax.conv_general_dilated`` call (``_kernel_nd``/``_conv_nchw``), the
+  synthesis on the zero-stuffed input; float32 runs in IEEE FP32 (no
+  TF32) in both directions, as JAX runs ``Precision.HIGHEST``;
+* ``"gather"``: a window gather (``index_select``) and one contraction
+  with the taps (``tensordot`` at IEEE FP32), the synthesis taking the
+  ``(k, k)`` diagonal of the band-by-filter products.
+
+bfloat16 data is summed in float32 and rounded once a pass in all three,
+as JAX's ``preferred_element_type`` does.  ``backend=None`` takes
+:func:`get_default_backend`: an override (:func:`set_default_backend`,
+or the ``PDWT_TPU_BACKEND`` environment variable read at import) when it
+names one of the three, else ``"fma"``.  JAX picks ``"xla"`` off a TPU;
+the port takes JAX's TPU route on every device.
+
+The index spec of periodization, the default, is the same in all three:
 
 Forward analysis::
 
@@ -41,12 +63,46 @@ defined here once.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import modes
+
+BACKENDS = ("fma", "xla", "gather")
+#: the override of ``backend=None``: one of :data:`BACKENDS`, ``"pallas"``
+#: (the transforms' kernel route; the passes map it to ``"fma"``) or None
+_default_backend: Optional[str] = os.environ.get("PDWT_TPU_BACKEND") or None
+
+
+def set_default_backend(name: Optional[str]) -> None:
+    """Set (or with None clear) the override that ``backend=None``
+    resolves to, here and in the transforms (``core/separable.py``)."""
+    global _default_backend
+    if name is not None and name not in BACKENDS + ("pallas",):
+        raise ValueError(f"unknown backend {name!r}; expected one of {BACKENDS + ('pallas',)}")
+    _default_backend = name
+
+
+def get_default_backend() -> str:
+    """The formulation of a pass called with ``backend=None``: the override
+    when it names a formulation, else ``"fma"`` (a ``"pallas"`` override
+    applies to the transforms only; the passes take ``"fma"``, the
+    formulation JAX's kernels fall back to)."""
+    if _default_backend in BACKENDS:
+        return _default_backend
+    return "fma"
+
+
+def check_backend(backend: Optional[str]) -> str:
+    """``backend`` resolved for a pass; raises on an unknown name."""
+    backend = backend or get_default_backend()
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+    return backend
 
 
 def fwd_center(hlen: int) -> int:
@@ -125,6 +181,15 @@ def wrap_pad(x: torch.Tensor, axis: int, lo: int, hi: int) -> torch.Tensor:
         if rem:
             parts.append(_sl(x, ax, 0, rem))
     return torch.cat(parts, dim=ax)
+
+
+def zero_stuff(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Interleave zeros along ``axis``: [a0, a1, ...] -> [a0, 0, a1, 0, ...]."""
+    ax = axis % x.ndim
+    y = torch.stack([x, torch.zeros_like(x)], dim=ax + 1)
+    shape = list(x.shape)
+    shape[ax] *= 2
+    return y.reshape(shape)
 
 
 def _fma_analysis(xp: torch.Tensor, taps: np.ndarray, ax: int, *,
@@ -207,26 +272,164 @@ def _acc(x: torch.Tensor) -> torch.Tensor:
     return x.float() if x.dtype == torch.bfloat16 else x
 
 
+# ---------------------------------------------------------------------------
+# the "xla" and "gather" formulations (JAX's ``_conv_nchw``, ``_gather_corr``)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """float32 convolutions and products in IEEE FP32 (no TF32) while the
+    block runs; the caller's settings come back after it."""
+    cd = torch.backends.cudnn
+    new_api = getattr(getattr(cd, "conv", None), "fp32_precision", None) is not None
+    prev_conv = cd.conv.fp32_precision if new_api else cd.allow_tf32
+    prev_mm = torch.get_float32_matmul_precision()
+    if new_api:
+        cd.conv.fp32_precision = "ieee"
+    else:
+        cd.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev_mm)
+        if new_api:
+            cd.conv.fp32_precision = prev_conv
+        else:
+            cd.allow_tf32 = prev_conv
+
+
+_CONV = {1: torch.nn.functional.conv1d, 2: torch.nn.functional.conv2d,
+         3: torch.nn.functional.conv3d}
+_CONV_INPUT = {1: torch.nn.grad.conv1d_input, 2: torch.nn.grad.conv2d_input,
+               3: torch.nn.grad.conv3d_input}
+
+
+class _IeeeConv(torch.autograd.Function):
+    """A grouped valid convolution with constant taps, in IEEE FP32 both
+    ways (the backward is the input gradient under the same setting)."""
+
+    @staticmethod
+    def forward(ctx, x, kern, stride, dilation, groups):
+        ctx.save_for_backward(kern)
+        ctx.conf = (tuple(x.shape), stride, dilation, groups)
+        with ieee_fp32():
+            return _CONV[x.ndim - 2](x, kern, stride=stride, dilation=dilation, groups=groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        (kern,) = ctx.saved_tensors
+        shape, stride, dilation, groups = ctx.conf
+        with ieee_fp32():
+            gx = _CONV_INPUT[len(shape) - 2](shape, kern, g.contiguous(), stride=stride,
+                                             dilation=dilation, groups=groups)
+        return gx, None, None, None, None
+
+
+def _conv_nchw(x: torch.Tensor, kern: np.ndarray, ax: int, stride: int, dilation: int,
+               groups: int) -> torch.Tensor:
+    """JAX's ``_conv_nchw``: the valid correlation of (B, C, *spatial) ``x``
+    with ``kern`` (O, I, hlen), its taps along spatial axis ``ax``."""
+    sd = x.ndim - 2
+    shape = [kern.shape[0], kern.shape[1]] + [1] * sd
+    shape[ax] = kern.shape[2]
+    k = torch.from_numpy(np.array(kern).reshape(shape)).to(x.device, x.dtype)
+    strides, dils = [1] * sd, [1] * sd
+    strides[ax - 2], dils[ax - 2] = stride, dilation
+    return _IeeeConv.apply(x, k, tuple(strides), tuple(dils), groups)
+
+
+def _xla_analysis(xp: torch.Tensor, taps: np.ndarray, ax: int, *, decimate: bool,
+                  dilation: int) -> torch.Tensor:
+    """The "xla" analysis: one group a channel, its K filters the group's
+    outputs c*K + k."""
+    k, hlen = taps.shape
+    ch = xp.shape[1]
+    kern = np.broadcast_to(taps[None], (ch, k, hlen)).reshape(ch * k, 1, hlen)
+    return _conv_nchw(xp, kern, ax, 2 if decimate else 1, dilation, ch)
+
+
+def _xla_synthesis(up: torch.Tensor, taps: np.ndarray, ax: int, dilation: int) -> torch.Tensor:
+    """The "xla" synthesis of padded (zero-stuffed) ``up`` (B, C*K, ...):
+    group c's K channels correlated with the K filters and summed."""
+    k, hlen = taps.shape
+    ch = up.shape[1] // k
+    kern = np.broadcast_to(taps[None], (ch, k, hlen))
+    return _conv_nchw(up, kern, ax, 1, dilation, ch)
+
+
+def _gather_corr(xp: torch.Tensor, taps: np.ndarray, ax: int, *, stride: int,
+                 dilation: int) -> torch.Tensor:
+    """JAX's ``_gather_corr``: the valid correlation of every channel of
+    ``xp`` with every row of ``taps`` (K, hlen) as a window gather and one
+    contraction.  Returns (B, C*K, ...)."""
+    k, hlen = taps.shape
+    n_out = (xp.shape[ax] - (hlen - 1) * dilation - 1) // stride + 1
+    idx = stride * np.arange(n_out)[:, None] + dilation * np.arange(hlen)[None, :]
+    win = xp.index_select(ax, torch.from_numpy(idx.reshape(-1)).to(xp.device))
+    win = win.reshape(tuple(xp.shape[:ax]) + (n_out, hlen) + tuple(xp.shape[ax + 1:]))
+    t = torch.from_numpy(np.array(taps.T)).to(xp.device, xp.dtype)
+    with ieee_fp32():
+        out = torch.tensordot(win, t, dims=([ax + 1], [0]))
+    out = out.movedim(-1, 2)  # (B, C, K, ...)
+    return out.reshape((out.shape[0], out.shape[1] * k) + tuple(out.shape[3:]))
+
+
+def _gather_synthesis(up: torch.Tensor, taps: np.ndarray, ax: int, dilation: int
+                      ) -> torch.Tensor:
+    """The "gather" synthesis: every band with every filter, then the
+    (k, k) diagonal summed within each group of K channels."""
+    k = taps.shape[0]
+    corr = _gather_corr(up, taps, ax, stride=1, dilation=dilation)
+    b, ch = corr.shape[0], up.shape[1] // k
+    corr = corr.reshape((b, ch, k, k) + tuple(corr.shape[2:]))
+    return corr.diagonal(dim1=2, dim2=3).sum(-1)
+
+
+def _analysis(xp: torch.Tensor, taps: np.ndarray, ax: int, backend: str, *,
+              decimate: bool = True, dilation: int = 1) -> torch.Tensor:
+    """The valid analysis of padded ``xp`` in one formulation."""
+    if backend == "fma":
+        return _fma_analysis(xp, taps, ax, decimate=decimate, dilation=dilation)
+    if backend == "xla":
+        return _xla_analysis(xp, taps, ax, decimate=decimate, dilation=dilation)
+    return _gather_corr(xp, taps, ax, stride=2 if decimate else 1, dilation=dilation)
+
+
+def _synthesis(up: torch.Tensor, taps: np.ndarray, ax: int, backend: str,
+               dilation: int = 1) -> torch.Tensor:
+    """The valid synthesis of padded (zero-stuffed) ``up`` in "xla" or
+    "gather", or "fma" over the stuffed input (the stationary pass)."""
+    if backend == "fma":
+        return _fma_synthesis(up, taps, ax, dilation)
+    if backend == "xla":
+        return _xla_synthesis(up, taps, ax, dilation)
+    return _gather_synthesis(up, taps, ax, dilation)
+
+
 def analysis_pass(x: torch.Tensor, filters: Sequence[np.ndarray], axis: int, *,
-                  dilation: int = 1, decimate: bool = True,
-                  mode: str = "periodization", pad_fn=None) -> torch.Tensor:
+                  dilation: int = 1, decimate: bool = True, backend: Optional[str] = None,
+                  pad_fn=None, mode: str = "periodization") -> torch.Tensor:
     """Filter every channel of ``x`` (B, C, H, W) with each 1D filter
     along ``axis``: decimated by 2, or stationary with the taps
     ``dilation`` apart (``decimate=False``).  Returns (B, C*K, H', W')
     with output channel c*K + k = filter k applied to input channel c.
     ``filters`` are forward-convention taps (e.g. ``dec_lo``); the reversal
-    for correlation happens here.  ``mode`` is the boundary extension
+    for correlation happens here.  ``backend``: the formulation (module
+    docstring).  ``mode`` is the boundary extension
     (``core/modes.py``): periodization by default; the pywt modes apply to
     the decimated pass only and give ``floor((N + hlen - 1) / 2)``
     outputs.  bfloat16 data is summed in float32 and rounded once, as
-    JAX's fma formulation does.  ``pad_fn(x, axis, lo, hi)`` replaces the
+    JAX's formulations do.  ``pad_fn(x, axis, lo, hi)`` replaces the
     periodic pad (:func:`wrap_pad`): the sharded transforms pass the ring
     halo exchange (``pdwt_tpu_torch/parallel/halo.py``); it takes
     periodization only."""
     _check(x)
+    backend = check_backend(backend)
     filters = [np.asarray(f, dtype=np.float64) for f in filters]
     hlen = len(filters[0])
     ax = axis % x.ndim
+    taps = np.stack([f[::-1] for f in filters])
     if decimate and dilation != 1:
         raise ValueError("the decimated pass takes no dilation")
     if mode != "periodization":
@@ -240,18 +443,17 @@ def analysis_pass(x: torch.Tensor, filters: Sequence[np.ndarray], axis: int, *,
         # a valid correlation of the reversed taps over x extended by
         # (hlen - 2, hlen - 1)
         xp = modes.extend(x, ax, hlen - 2, hlen - 1, mode)
-        return padded_analysis_pass(_acc(xp), filters, ax).to(x.dtype)
+        return _analysis(_acc(xp), taps, ax, backend).to(x.dtype)
     c = fwd_center(hlen) * dilation
     xe = odd_extend(x, ax) if decimate else x
     xp = (pad_fn or wrap_pad)(_acc(xe), ax, c, (hlen - 1) * dilation - c)
-    taps = np.stack([f[::-1] for f in filters])
-    return _fma_analysis(xp, taps, ax, decimate=decimate, dilation=dilation).to(x.dtype)
+    return _analysis(xp, taps, ax, backend, decimate=decimate, dilation=dilation).to(x.dtype)
 
 
 def synthesis_pass(x: torch.Tensor, filters: Sequence[np.ndarray], axis: int,
                    *, out_len: Optional[int] = None, dilation: int = 1,
-                   decimated: bool = True, mode: str = "periodization",
-                   pad_fn=None) -> torch.Tensor:
+                   decimated: bool = True, backend: Optional[str] = None, pad_fn=None,
+                   mode: str = "periodization") -> torch.Tensor:
     """Inverse of :func:`analysis_pass` along ``axis``: input
     (B, C*K, ...) -> (B, C, ...), output channel c summing the K filter
     syntheses of its group, sliced to ``out_len`` (odd sizes).
@@ -259,14 +461,18 @@ def synthesis_pass(x: torch.Tensor, filters: Sequence[np.ndarray], axis: int,
     ``swt_inv_center(hlen) * dilation``; the caller scales the filters by
     the 1/2 per pass.  A pywt ``mode`` takes no boundary extension: zero
     pads and shift 1, ``rec_len`` outputs at most, an even ``hlen``.
-    ``pad_fn``: as in :func:`analysis_pass`."""
+    ``backend``, ``pad_fn``: as in :func:`analysis_pass` ("fma" runs the
+    decimated synthesis stuff-free, "xla" and "gather" on the zero-stuffed
+    coefficients padded by ``pad_fn``)."""
     _check(x)
+    backend = check_backend(backend)
     filters = [np.asarray(f, dtype=np.float64) for f in filters]
     hlen = len(filters[0])
     taps = np.stack([f[::-1] for f in filters])
     ax = axis % x.ndim
     if decimated and dilation != 1:
         raise ValueError("the decimated pass takes no dilation")
+    s = None
     if mode != "periodization":
         modes.check_mode(mode)
         if not decimated:
@@ -276,14 +482,20 @@ def synthesis_pass(x: torch.Tensor, filters: Sequence[np.ndarray], axis: int,
             raise ValueError("sharded halo exchange (pad_fn) requires mode='periodization'")
         out_len = mode_out_len(x.shape[ax], hlen, mode, out_len)
         # pywt's upsampling_convolution_valid_sf: shift 1, no extension
-        return padded_synthesis_pass(_acc(x), filters, ax, -1, out_len).to(x.dtype)
+        if backend == "fma":
+            return padded_synthesis_pass(_acc(x), filters, ax, -1, out_len).to(x.dtype)
+        s, pad_fn = 1, modes.zero_pad
     xa, pad_fn = _acc(x), pad_fn or wrap_pad
-    if decimated:
+    if decimated and backend == "fma":
         out = _fma_synthesis_poly(xa, taps, ax, pad_fn)
     else:
-        s = swt_inv_center(hlen) * dilation
-        out = _fma_synthesis(pad_fn(xa, ax, s, (hlen - 1) * dilation - s), taps, ax,
-                             dilation)
+        if decimated:
+            s = inv_shift(hlen) if s is None else s
+            xa = zero_stuff(xa, ax)
+        else:
+            s = swt_inv_center(hlen) * dilation
+        out = _synthesis(pad_fn(xa, ax, s, (hlen - 1) * dilation - s), taps, ax, backend,
+                         dilation)
     if out_len is not None:
         out = _sl(out, ax, 0, out_len)
     return out.to(x.dtype)

@@ -32,14 +32,13 @@ geometry ``conv.analysis_pass`` and ``conv.synthesis_pass`` pad by
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .conv import fwd_center, inv_shift, odd_extend, poly_geometry, swt_inv_center
+from .conv import fwd_center, ieee_fp32, inv_shift, odd_extend, poly_geometry, swt_inv_center
 
 
 def _ftup(f) -> Tuple[float, ...]:
@@ -183,27 +182,13 @@ def _matrices(make, args, parts: int, x: torch.Tensor) -> Tuple[torch.Tensor, ..
     return _on(make, args, parts, dt, str(x.device))
 
 
-@contextlib.contextmanager
-def _ieee_fp32():
-    """float32 products in IEEE FP32 (no TF32) while the block runs."""
-    prev = torch.get_float32_matmul_precision()
-    if prev == "highest":
-        yield
-        return
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
-
-
 def _products(mats, xs) -> torch.Tensor:
     """sum_k mats[k] @ xs[k] over (B, Dk, N) views, summed in float32 (or
     float64) and rounded once to the inputs' dtype: the first product
     allocates the output, the others accumulate into it (``baddbmm_``,
     beta 1), so no input is copied to stack it."""
     dt = xs[0].dtype
-    with _ieee_fp32():
+    with ieee_fp32():
         y = None
         for mat, x in zip(mats, xs):
             xw = x.float() if dt == torch.bfloat16 else x

@@ -30,7 +30,7 @@ from __future__ import annotations
 import functools
 import math
 from math import comb
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -174,7 +174,8 @@ class DTCoeffs1D(NamedTuple):
         return len(self.details)
 
 
-def dtcwt1d(x: torch.Tensor, levels: int, *, order: Tuple[int, int] = (2, 4)) -> DTCoeffs1D:
+def dtcwt1d(x: torch.Tensor, levels: int, *, order: Tuple[int, int] = (2, 4),
+            backend: Optional[str] = None) -> DTCoeffs1D:
     """Dual-tree complex 1D DWT over the trailing axis (leading axes are
     batch).  The length must be divisible by 2^levels (the two trees'
     grids must stay aligned)."""
@@ -184,12 +185,12 @@ def dtcwt1d(x: torch.Tensor, levels: int, *, order: Tuple[int, int] = (2, 4)) ->
     if n % (1 << levels):
         raise ValueError(f"size {n} not divisible by 2^{levels} "
                          "(the dual trees' grids would desynchronize)")
-    ca = dwt1d(x, wa, levels)
-    c1 = dwt1d(torch.roll(x, 1, dims=-1), wa, 1)
+    ca = dwt1d(x, wa, levels, backend=backend)
+    c1 = dwt1d(torch.roll(x, 1, dims=-1), wa, 1, backend=backend)
     b_details = [c1.details[0]]
     b_approx = c1.approx
     for _ in range(1, levels):
-        c = dwt1d(b_approx, wb, 1)
+        c = dwt1d(b_approx, wb, 1, backend=backend)
         # undo the allpass's integer delay (L input samples = L/2 out)
         b_approx = torch.roll(c.approx, roll, dims=-1)
         b_details.append(torch.roll(c.details[0], roll, dims=-1))
@@ -197,22 +198,22 @@ def dtcwt1d(x: torch.Tensor, levels: int, *, order: Tuple[int, int] = (2, 4)) ->
     return DTCoeffs1D(torch.stack([ca.approx, b_approx], dim=0), details)
 
 
-def idtcwt1d(coeffs: DTCoeffs1D, length: int, *,
-             order: Tuple[int, int] = (2, 4)) -> torch.Tensor:
+def idtcwt1d(coeffs: DTCoeffs1D, length: int, *, order: Tuple[int, int] = (2, 4),
+             backend: Optional[str] = None) -> torch.Tensor:
     """Inverse of :func:`dtcwt1d` (exact: each tree is PR; the two
     reconstructions are averaged)."""
     wa, wb = dtcwt_wavelets(*order)
     roll = -_treeB_roll(order[0])
     da = tuple(_mul_sq2(c.real) for c in coeffs.details)
     db = tuple(_mul_sq2(c.imag) for c in coeffs.details)
-    ya = idwt1d(Coeffs1D(coeffs.approx[0], da), wa, length)
+    ya = idwt1d(Coeffs1D(coeffs.approx[0], da), wa, length, backend=backend)
     lens = level_sizes(length, coeffs.levels)
     a = coeffs.approx[1]
     for j in range(coeffs.levels - 1, 0, -1):
         a = torch.roll(a, -roll, dims=-1)
         d = torch.roll(db[j], -roll, dims=-1)
-        a = idwt1d(Coeffs1D(a, (d,)), wb, lens[j])
-    yb = idwt1d(Coeffs1D(a, db[:1]), wa, length)
+        a = idwt1d(Coeffs1D(a, (d,)), wb, lens[j], backend=backend)
+    yb = idwt1d(Coeffs1D(a, db[:1]), wa, length, backend=backend)
     yb = torch.roll(yb, -1, dims=-1)
     return (ya + yb) * 0.5
 
@@ -238,21 +239,30 @@ class DTCoeffs2D(NamedTuple):
 _COMBOS = ((0, 0), (0, 1), (1, 0), (1, 1))    # (row tree, column tree)
 
 
-def _level_fwd_mixed(a: torch.Tensor, wr: Wavelet, wc: Wavelet) -> Tuple[torch.Tensor, ...]:
+def _conv_backend(backend: Optional[str]) -> Optional[str]:
+    """The mixed combos' passes have no kernel form: ``"pallas"`` runs the
+    default formulation."""
+    return None if backend == "pallas" else backend
+
+
+def _level_fwd_mixed(a: torch.Tensor, wr: Wavelet, wc: Wavelet, backend=None
+                     ) -> Tuple[torch.Tensor, ...]:
     """One decimated 2D level with per-axis wavelets on (..., r, c), on the
     conv passes: (a, h, v, d) in the package's channel convention."""
     batch = tuple(a.shape[:-2])
+    be = _conv_backend(backend)
     z = a.reshape((-1, 1) + tuple(a.shape[-2:]))
-    z = conv.analysis_pass(z, (wc.dec_lo, wc.dec_hi), axis=-1)
-    z = conv.analysis_pass(z, (wr.dec_lo, wr.dec_hi), axis=-2)
+    z = conv.analysis_pass(z, (wc.dec_lo, wc.dec_hi), axis=-1, backend=be)
+    z = conv.analysis_pass(z, (wr.dec_lo, wr.dec_hi), axis=-2, backend=be)
     return tuple(z[:, k].reshape(batch + tuple(z.shape[-2:])) for k in range(4))
 
 
-def _level_inv_mixed(bands, wr: Wavelet, wc: Wavelet, out_rc) -> torch.Tensor:
+def _level_inv_mixed(bands, wr: Wavelet, wc: Wavelet, out_rc, backend=None) -> torch.Tensor:
     batch = tuple(bands[0].shape[:-2])
+    be = _conv_backend(backend)
     z = torch.stack([t.reshape((-1,) + tuple(t.shape[-2:])) for t in bands], dim=1)
-    z = conv.synthesis_pass(z, (wr.rec_lo, wr.rec_hi), axis=-2, out_len=out_rc[0])
-    z = conv.synthesis_pass(z, (wc.rec_lo, wc.rec_hi), axis=-1, out_len=out_rc[1])
+    z = conv.synthesis_pass(z, (wr.rec_lo, wr.rec_hi), axis=-2, out_len=out_rc[0], backend=be)
+    z = conv.synthesis_pass(z, (wc.rec_lo, wc.rec_hi), axis=-1, out_len=out_rc[1], backend=be)
     return z[:, 0].reshape(batch + tuple(z.shape[-2:]))
 
 
@@ -275,7 +285,8 @@ def _roll_axes(t: torch.Tensor, shift: int, rt: int, ct: int) -> torch.Tensor:
     return torch.roll(t, (shift,) * len(dims), dims=dims) if dims else t
 
 
-def dtcwt2d(x: torch.Tensor, levels: int, *, order: Tuple[int, int] = (2, 4)) -> DTCoeffs2D:
+def dtcwt2d(x: torch.Tensor, levels: int, *, order: Tuple[int, int] = (2, 4),
+            backend: Optional[str] = None) -> DTCoeffs2D:
     """Dual-tree complex 2D DWT over the trailing two axes: six oriented
     complex subbands per level at 4x redundancy."""
     wa, wb = dtcwt_wavelets(*order)
@@ -286,7 +297,7 @@ def dtcwt2d(x: torch.Tensor, levels: int, *, order: Tuple[int, int] = (2, 4)) ->
     approxes = []
     lvl1 = []
     for rt, ct in _COMBOS:
-        c = dwt2d(_roll_axes(x, 1, rt, ct), wa, 1)
+        c = dwt2d(_roll_axes(x, 1, rt, ct), wa, 1, backend=backend)
         approxes.append(c.approx)
         lvl1.append(c.details[0])
     details = [lvl1]
@@ -296,10 +307,10 @@ def dtcwt2d(x: torch.Tensor, levels: int, *, order: Tuple[int, int] = (2, 4)) ->
         nxt, lvl = [], []
         for (rt, ct), a in zip(_COMBOS, approxes):
             if rt == ct:
-                c = dwt2d(a, wsel[rt], 1)
+                c = dwt2d(a, wsel[rt], 1, backend=backend)
                 aa, bands = c.approx, c.details[0]
             else:
-                aa, h, v, d = _level_fwd_mixed(a, wsel[rt], wsel[ct])
+                aa, h, v, d = _level_fwd_mixed(a, wsel[rt], wsel[ct], backend)
                 bands = (h, v, d)
             # undo the tree-B allpass's integer delay per tree-B axis
             nxt.append(_roll_axes(aa, roll, rt, ct))
@@ -315,8 +326,8 @@ def dtcwt2d(x: torch.Tensor, levels: int, *, order: Tuple[int, int] = (2, 4)) ->
     return DTCoeffs2D(torch.stack([_real(a) for a in approxes], dim=0), tuple(out))
 
 
-def idtcwt2d(coeffs: DTCoeffs2D, shape: Tuple[int, int], *,
-             order: Tuple[int, int] = (2, 4)) -> torch.Tensor:
+def idtcwt2d(coeffs: DTCoeffs2D, shape: Tuple[int, int], *, order: Tuple[int, int] = (2, 4),
+             backend: Optional[str] = None) -> torch.Tensor:
     """Inverse of :func:`dtcwt2d` (exact; averages the four combos)."""
     wa, wb = dtcwt_wavelets(*order)
     rows = level_sizes(shape[0], coeffs.levels)
@@ -336,15 +347,15 @@ def idtcwt2d(coeffs: DTCoeffs2D, shape: Tuple[int, int], *,
                           for t in (approxes[i], q[0][i], q[1][i], q[2][i]))
             out_rc = (rows[j], cols[j])
             if rt == ct:
-                y = idwt2d(Coeffs2D(bands[0], (bands[1:],)), wsel[rt], out_rc)
+                y = idwt2d(Coeffs2D(bands[0], (bands[1:],)), wsel[rt], out_rc, backend=backend)
             else:
-                y = _level_inv_mixed(bands, wsel[rt], wsel[ct], out_rc)
+                y = _level_inv_mixed(bands, wsel[rt], wsel[ct], out_rc, backend)
             nxt.append(y)
         approxes = nxt
     # level 1: tree A's bank everywhere, then unroll the tree-B axes
     q = quads(coeffs.details[0])
     ys = [_roll_axes(idwt2d(Coeffs2D(approxes[i], ((q[0][i], q[1][i], q[2][i]),)), wa,
-                            tuple(shape)), -1, rt, ct)
+                            tuple(shape), backend=backend), -1, rt, ct)
           for i, (rt, ct) in enumerate(_COMBOS)]
     return (ys[0] + ys[1] + ys[2] + ys[3]) * 0.25
 
@@ -359,16 +370,17 @@ def _magnitude_threshold(z: torch.Tensor, thr, b) -> torch.Tensor:
     return thr(z.abs(), b) * torch.exp(1j * torch.angle(z))
 
 
-def _dt_pair(x: torch.Tensor, order):
+def _dt_pair(x: torch.Tensor, order, backend):
     if x.ndim >= 2:
-        return (lambda t, lv: dtcwt2d(t, lv, order=order),
-                lambda c: idtcwt2d(c, tuple(x.shape[-2:]), order=order))
-    return (lambda t, lv: dtcwt1d(t, lv, order=order),
-            lambda c: idtcwt1d(c, x.shape[-1], order=order))
+        return (lambda t, lv: dtcwt2d(t, lv, order=order, backend=backend),
+                lambda c: idtcwt2d(c, tuple(x.shape[-2:]), order=order, backend=backend))
+    return (lambda t, lv: dtcwt1d(t, lv, order=order, backend=backend),
+            lambda c: idtcwt1d(c, x.shape[-1], order=order, backend=backend))
 
 
 def dtcwt_denoise(x: torch.Tensor, levels: int, beta, *, mode: str = "soft",
-                  order: Tuple[int, int] = (2, 4)) -> torch.Tensor:
+                  order: Tuple[int, int] = (2, 4), backend: Optional[str] = None
+                  ) -> torch.Tensor:
     """Magnitude thresholding in the dual-tree domain: shrink |c| and keep
     the phase.  ``beta`` is a scalar or a per-level sequence (finest
     first).  An input of two or more axes is an image (leading axes
@@ -376,7 +388,7 @@ def dtcwt_denoise(x: torch.Tensor, levels: int, beta, *, mode: str = "soft",
     from ..ops.threshold import THR_ELEM
 
     thr = THR_ELEM[mode]
-    fwd, inv = _dt_pair(x, order)
+    fwd, inv = _dt_pair(x, order, backend)
     c = fwd(x, levels)
     betas = list(beta) if isinstance(beta, (list, tuple)) else [beta] * levels
     if len(betas) != levels:
@@ -386,7 +398,8 @@ def dtcwt_denoise(x: torch.Tensor, levels: int, beta, *, mode: str = "soft",
 
 
 def dtcwt_auto_denoise(x: torch.Tensor, levels: int, *, k: float = 3.0, mode: str = "soft",
-                       order: Tuple[int, int] = (2, 4)) -> torch.Tensor:
+                       order: Tuple[int, int] = (2, 4), backend: Optional[str] = None
+                       ) -> torch.Tensor:
     """Knob-free dual-tree magnitude denoise: the white-noise sigma is the
     median of the finest complex band's magnitudes over sqrt(ln 4) (the
     median of |c| of circular complex noise is sigma sqrt(ln 4)), and every
@@ -397,7 +410,7 @@ def dtcwt_auto_denoise(x: torch.Tensor, levels: int, *, k: float = 3.0, mode: st
     from ..ops.threshold import THR_ELEM
 
     thr = THR_ELEM[mode]
-    fwd, inv = _dt_pair(x, order)
+    fwd, inv = _dt_pair(x, order, backend)
     c = fwd(x, levels)
     m1 = c.details[0].abs()
     sigma = median(m1) / torch.full((), math.sqrt(math.log(4.0)), dtype=m1.dtype,

@@ -32,11 +32,18 @@ added in bf16).  Isotropic quads run the sharded 2D composition of
 ``pad_fn`` on its conv backends: float32 reaches the padded kernels 1p/2p
 (5p/6p for the SWT), bf16 and float64 the conv passes in their dtype.
 
+``backend=`` (:func:`separable.auto_backend`): isotropic quads pass it to
+the separable transforms; otherwise the tiers and kernels 17-18 need the
+kernel route (``None`` or ``"pallas"``, as JAX's ``_auto_backend(...) !=
+"pallas"`` rule), and the conv passes of the other routes take the named
+formulation (``"fma"`` for ``None`` and ``"pallas"``).  Those routes run no
+kernel, so float64 runs them on the card too.
+
 Every entry point takes ``precision=`` (:func:`precision.takes_precision`).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,7 +53,7 @@ from ..filters import Wavelet, factor_quads
 from . import conv
 from . import separable as sep
 from .precision import takes_precision
-from .separable import BF16, F32, Coeffs2D, _flat, _unflat, check_supported, mxu_mode
+from .separable import BF16, F32, Coeffs2D, _flat, _unflat, auto_backend, check_dtype, mxu_mode
 from .shapes import level_sizes
 
 
@@ -94,12 +101,13 @@ def _cat(ts) -> torch.Tensor:
     return torch.cat([t.to(dt) for t in ts], dim=1)
 
 
-def _rank_fwd_level(a, A, Bc, f: int = 1, decimate: bool = True, pad_fn=None):
+def _rank_fwd_level(a, A, Bc, f: int = 1, decimate: bool = True, pad_fn=None, backend=None):
     """One level of the rank-r sum on (B, 1, H, W): one column pass with
     the r filters b_k, then per k the four row filters a_k^(s), summed over
     k."""
-    kw = {"pad_fn": pad_fn} if decimate else {"dilation": f, "decimate": False,
-                                                "pad_fn": pad_fn}
+    kw = {"pad_fn": pad_fn, "backend": backend}
+    if not decimate:
+        kw.update(dilation=f, decimate=False)
     t = conv.analysis_pass(a, list(Bc), axis=-1, **kw)
     z = None
     for k in range(Bc.shape[0]):
@@ -109,12 +117,13 @@ def _rank_fwd_level(a, A, Bc, f: int = 1, decimate: bool = True, pad_fn=None):
 
 
 def _rank_inv_level(z, A, Bc, out_shape=None, f: int = 1, decimated: bool = True,
-                    pad_fn=None):
+                    pad_fn=None, backend=None):
     """The synthesis of the rank-r sum on (B, 4, m, n): per k one row
     synthesis summing the four subbands, then one column synthesis summing
     the k terms."""
-    kw = {"pad_fn": pad_fn} if decimated else {"dilation": f, "decimated": False,
-                                                 "pad_fn": pad_fn}
+    kw = {"pad_fn": pad_fn, "backend": backend}
+    if not decimated:
+        kw.update(dilation=f, decimated=False)
     rows, cols = out_shape if out_shape is not None else (None, None)
     t = torch.cat([conv.synthesis_pass(z, list(A[:, k]), axis=-2, out_len=rows, **kw)
                    for k in range(A.shape[1])], dim=1)
@@ -134,21 +143,35 @@ def _dets(z, batch):
     return tuple(_unflat(z[:, k], batch) for k in (1, 2, 3))
 
 
+def _routes(backend, pad_fn):
+    """(whether the tiers' kernels may run, the conv passes' formulation,
+    whether isotropic quads take the sharded local composition): the tiers
+    need the kernel route and no ``pad_fn`` (JAX skips kernels 17-18 under
+    one); a ``pad_fn`` with no backend named keeps ``parallel/sharded.py``'s
+    composition."""
+    resolved = auto_backend(backend, pad_fn)
+    return (resolved == "pallas" and pad_fn is None, None if resolved == "pallas" else resolved,
+            pad_fn is not None and resolved is None)
+
+
 @takes_precision
-def dwt2d_ns(x: torch.Tensor, quads, levels: int, *, pad_fn=None) -> Coeffs2D:
+def dwt2d_ns(x: torch.Tensor, quads, levels: int, *, backend: Optional[str] = None,
+             pad_fn=None) -> Coeffs2D:
     """Non-separable 2D DWT with the forward quads ``quads`` (4, hlen,
     hlen), periodization, ``levels`` levels, over the trailing two axes;
-    ``pad_fn``: the ring halo (module docstring)."""
+    ``backend``, ``pad_fn``: the route and the ring halo (module
+    docstring)."""
     q = _check_quads(quads)
     if x.ndim < 2:
         raise ValueError(f"expected at least 2D input, got shape {tuple(x.shape)}")
-    check_supported(x)
+    check_dtype(x)
+    tiers, cb, local = _routes(backend, pad_fn)
     fac = _try_factor(q)
     if fac is not None and fac[4]:
-        if pad_fn is not None:
+        if local:
             from ..parallel.sharded import _local_dwt2d
             return _local_dwt2d(x, _factored(fac[0], fac[1]), levels, pad_fn, False, exact=True)
-        return sep.dwt2d(x, _factored(fac[0], fac[1]), levels)
+        return sep.dwt2d(x, _factored(fac[0], fac[1]), levels, backend=backend, pad_fn=pad_fn)
     batch = tuple(x.shape[:-2])
     a = _flat(x)[:, None]
     details = []
@@ -156,22 +179,22 @@ def dwt2d_ns(x: torch.Tensor, quads, levels: int, *, pad_fn=None) -> Coeffs2D:
         lo_r, hi_r, lo_c, hi_c, _ = fac
         for _ in range(levels):
             t = _in_dtype(lambda u: conv.analysis_pass(u, (lo_c, hi_c), axis=-1,
-                                                       pad_fn=pad_fn), a)
+                                                       pad_fn=pad_fn, backend=cb), a)
             z = _in_dtype(lambda u: conv.analysis_pass(u, (lo_r, hi_r), axis=-2,
-                                                       pad_fn=pad_fn), t)
+                                                       pad_fn=pad_fn, backend=cb), t)
             a = z[:, 0:1]
             details.append(_dets(z, batch))
         return Coeffs2D(_unflat(a[:, 0], batch), tuple(details))
     A, Bc = _rank_decomp(q)
     rank, hlen = Bc.shape
-    mxu = None if pad_fn is not None else mxu_mode(x.dtype)
+    mxu = mxu_mode(x.dtype) if tiers else None
     for _ in range(levels):
         r, c = a.shape[-2:]
         if mxu and r % 2 == 0 and c % 2 == 0 and kernels.mxu_route_ns_2d(r // 2, c // 2, hlen,
                                                                          rank):
             aa, h, v, d = kernels.ns_fwd_level_2d_mxu_ad(*_bands(a), A, Bc, mxu)
         else:
-            z = _rank_fwd_level(a.float() if mxu else a, A, Bc, pad_fn=pad_fn)
+            z = _rank_fwd_level(a.float() if mxu else a, A, Bc, pad_fn=pad_fn, backend=cb)
             aa, h, v, d = (z[:, k] for k in range(4))
             if mxu == "bf16":
                 h, v, d = (t.to(BF16) for t in (h, v, d))
@@ -182,19 +205,21 @@ def dwt2d_ns(x: torch.Tensor, quads, levels: int, *, pad_fn=None) -> Coeffs2D:
 
 @takes_precision
 def idwt2d_ns(coeffs: Coeffs2D, quads_inv, shape: Tuple[int, int], *,
-              pad_fn=None) -> torch.Tensor:
+              backend: Optional[str] = None, pad_fn=None) -> torch.Tensor:
     """Inverse of :func:`dwt2d_ns` with the inverse quads ``quads_inv``;
     ``shape`` = (Nr, Nc) of the original image (of the local shard under a
     ``pad_fn``)."""
     q = _check_quads(quads_inv)
-    check_supported(coeffs.approx)
+    check_dtype(coeffs.approx)
+    tiers, cb, local = _routes(backend, pad_fn)
     fac = _try_factor(q)
     if fac is not None and fac[4]:
-        if pad_fn is not None:
+        if local:
             from ..parallel.sharded import _local_idwt2d
             return _local_idwt2d(coeffs, _factored(fac[0], fac[1]), tuple(shape), pad_fn, False,
                                  exact=True)
-        return sep.idwt2d(coeffs, _factored(fac[0], fac[1]), shape)
+        return sep.idwt2d(coeffs, _factored(fac[0], fac[1]), shape, backend=backend,
+                          pad_fn=pad_fn)
     levels = coeffs.levels
     rows, cols = level_sizes(shape[0], levels), level_sizes(shape[1], levels)
     batch = tuple(coeffs.approx.shape[:-2])
@@ -205,14 +230,16 @@ def idwt2d_ns(coeffs: Coeffs2D, quads_inv, shape: Tuple[int, int], *,
         for i in range(levels - 1, -1, -1):
             z = _cat([a, *flat(i)])
             t = _in_dtype(lambda u: conv.synthesis_pass(u, (lo_r, hi_r), axis=-2,
-                                                        out_len=rows[i], pad_fn=pad_fn), z)
+                                                        out_len=rows[i], pad_fn=pad_fn,
+                                                        backend=cb), z)
             a = _in_dtype(lambda u: conv.synthesis_pass(u, (lo_c, hi_c), axis=-1,
-                                                        out_len=cols[i], pad_fn=pad_fn), t)
+                                                        out_len=cols[i], pad_fn=pad_fn,
+                                                        backend=cb), t)
         return _unflat(a[:, 0], batch)
     A, Bc = _rank_decomp(q)
     rank, hlen = Bc.shape
-    mxu = None if pad_fn is not None else mxu_mode(coeffs.details[-1][0].dtype if levels
-                                                   else coeffs.approx.dtype)
+    mxu = mxu_mode(coeffs.details[-1][0].dtype if levels else coeffs.approx.dtype
+                   ) if tiers else None
     if mxu == "bf16":
         a = a.float()
     for i in range(levels - 1, -1, -1):
@@ -225,33 +252,37 @@ def idwt2d_ns(coeffs: Coeffs2D, quads_inv, shape: Tuple[int, int], *,
             a = y[:, None, :rows[i], :cols[i]].contiguous()
         else:
             parts = [t.float() for t in (a, h, v, d)] if mxu else [a, h, v, d]
-            a = _rank_inv_level(_cat(parts), A, Bc, (rows[i], cols[i]), pad_fn=pad_fn)
+            a = _rank_inv_level(_cat(parts), A, Bc, (rows[i], cols[i]), pad_fn=pad_fn,
+                                backend=cb)
             a = a.to(BF16) if last_bf16 else a
     return _unflat(a[:, 0], batch)
 
 
 @takes_precision
-def swt2d_ns(x: torch.Tensor, quads, levels: int, *, pad_fn=None) -> Coeffs2D:
+def swt2d_ns(x: torch.Tensor, quads, levels: int, *, backend: Optional[str] = None,
+             pad_fn=None) -> Coeffs2D:
     """Non-separable stationary (a-trous) 2D transform with the forward
-    quads ``quads``; every band keeps the input's size.  ``pad_fn``: the
-    ring halo (module docstring)."""
+    quads ``quads``; every band keeps the input's size.  ``backend``,
+    ``pad_fn``: the route and the ring halo (module docstring)."""
     q = _check_quads(quads)
     if x.ndim < 2:
         raise ValueError(f"expected at least 2D input, got shape {tuple(x.shape)}")
-    check_supported(x)
+    check_dtype(x)
+    tiers, cb, local = _routes(backend, pad_fn)
     fac = _try_factor(q)
     if fac is not None and fac[4]:
-        if pad_fn is not None:
+        if local:
             from ..parallel.sharded import _local_dwt2d
             return _local_dwt2d(x, _factored(fac[0], fac[1]), levels, pad_fn, True, exact=True)
-        return sep.swt2d(x, _factored(fac[0], fac[1]), levels)
+        return sep.swt2d(x, _factored(fac[0], fac[1]), levels, backend=backend, pad_fn=pad_fn)
     batch = tuple(x.shape[:-2])
     a = _flat(x)[:, None]
     details = []
     if fac is not None:
         lo_r, hi_r, lo_c, hi_c, _ = fac
         for lvl in range(1, levels + 1):
-            kw = {"dilation": 1 << (lvl - 1), "decimate": False, "pad_fn": pad_fn}
+            kw = {"dilation": 1 << (lvl - 1), "decimate": False, "pad_fn": pad_fn,
+                  "backend": cb}
             t = _in_dtype(lambda u: conv.analysis_pass(u, (lo_c, hi_c), axis=-1, **kw), a)
             z = _in_dtype(lambda u: conv.analysis_pass(u, (lo_r, hi_r), axis=-2, **kw), t)
             a = z[:, 0:1]
@@ -260,14 +291,15 @@ def swt2d_ns(x: torch.Tensor, quads, levels: int, *, pad_fn=None) -> Coeffs2D:
     A, Bc = _rank_decomp(q)
     rank, hlen = Bc.shape
     # mixed runs the a-trous levels exact (pdwt_tpu/core/nonseparable.py:331-333)
-    mxu = None if pad_fn is not None else sep._swt_mxu_mode(x.dtype)
+    mxu = sep._swt_mxu_mode(x.dtype) if tiers else None
     for lvl in range(1, levels + 1):
         r, c = a.shape[-2:]
         if mxu and kernels.mxu_route_ns_swt_2d(r, c, hlen, rank, lvl,
                                                 kernels.swt_scheme(mxu, a.dtype)):
             aa, h, v, d = kernels.ns_swt_fwd_level_2d_mxu_ad(*_bands(a), A, Bc, lvl, mxu)
         else:
-            z = _rank_fwd_level(a.float() if mxu else a, A, Bc, 1 << (lvl - 1), False, pad_fn)
+            z = _rank_fwd_level(a.float() if mxu else a, A, Bc, 1 << (lvl - 1), False, pad_fn,
+                                cb)
             aa, h, v, d = (z[:, k] for k in range(4))
             if mxu == "bf16":
                 h, v, d = (t.to(BF16) for t in (h, v, d))
@@ -277,18 +309,21 @@ def swt2d_ns(x: torch.Tensor, quads, levels: int, *, pad_fn=None) -> Coeffs2D:
 
 
 @takes_precision
-def iswt2d_ns(coeffs: Coeffs2D, quads_inv, *, pad_fn=None) -> torch.Tensor:
+def iswt2d_ns(coeffs: Coeffs2D, quads_inv, *, backend: Optional[str] = None,
+              pad_fn=None) -> torch.Tensor:
     """Inverse of :func:`swt2d_ns` with the inverse quads ``quads_inv``,
-    the engine's 1/4 per level; ``pad_fn``: the ring halo."""
+    the engine's 1/4 per level; ``backend``, ``pad_fn``: the route and the
+    ring halo."""
     q = _check_quads(quads_inv)
-    check_supported(coeffs.approx)
+    check_dtype(coeffs.approx)
+    tiers, cb, local = _routes(backend, pad_fn)
     fac = _try_factor(q)
     if fac is not None and fac[4]:
-        if pad_fn is not None:
+        if local:
             from ..parallel.sharded import _local_idwt2d
             return _local_idwt2d(coeffs, _factored(fac[0], fac[1]),
                                  tuple(coeffs.approx.shape[-2:]), pad_fn, True, exact=True)
-        return sep.iswt2d(coeffs, _factored(fac[0], fac[1]))
+        return sep.iswt2d(coeffs, _factored(fac[0], fac[1]), backend=backend, pad_fn=pad_fn)
     batch = tuple(coeffs.approx.shape[:-2])
     a = _flat(coeffs.approx)[:, None]
     flat = lambda i: [_flat(t)[:, None] for t in coeffs.details[i]]
@@ -296,15 +331,15 @@ def iswt2d_ns(coeffs: Coeffs2D, quads_inv, *, pad_fn=None) -> torch.Tensor:
         lo_r, hi_r, lo_c, hi_c, _ = fac
         rec_r, rec_c = (0.5 * lo_r, 0.5 * hi_r), (0.5 * lo_c, 0.5 * hi_c)
         for i in range(coeffs.levels - 1, -1, -1):
-            kw = {"dilation": 1 << i, "decimated": False, "pad_fn": pad_fn}
+            kw = {"dilation": 1 << i, "decimated": False, "pad_fn": pad_fn, "backend": cb}
             z = _cat([a, *flat(i)])
             t = _in_dtype(lambda u: conv.synthesis_pass(u, rec_r, axis=-2, **kw), z)
             a = _in_dtype(lambda u: conv.synthesis_pass(u, rec_c, axis=-1, **kw), t)
         return _unflat(a[:, 0], batch)
     A, Bc = _rank_decomp(q)
     rank, hlen = Bc.shape
-    mxu = None if pad_fn is not None else sep._swt_mxu_mode(
-        coeffs.details[-1][0].dtype if coeffs.levels else coeffs.approx.dtype)
+    mxu = sep._swt_mxu_mode(coeffs.details[-1][0].dtype if coeffs.levels
+                            else coeffs.approx.dtype) if tiers else None
     if mxu == "bf16":
         a = a.float()
     for i in range(coeffs.levels - 1, -1, -1):
@@ -318,6 +353,6 @@ def iswt2d_ns(coeffs: Coeffs2D, quads_inv, *, pad_fn=None) -> torch.Tensor:
         else:
             parts = [t.float() for t in (a, h, v, d)] if mxu else [a, h, v, d]
             a = _rank_inv_level(_cat(parts), A, 0.25 * Bc, f=1 << i, decimated=False,
-                                pad_fn=pad_fn)
+                                pad_fn=pad_fn, backend=cb)
             a = a.to(BF16) if last_bf16 else a
     return _unflat(a[:, 0], batch)

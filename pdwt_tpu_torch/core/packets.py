@@ -23,7 +23,7 @@ pick different bases; both are bases of the same tree.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -86,32 +86,35 @@ def _split(a: torch.Tensor, dets, sd: int) -> torch.Tensor:
     return stk.reshape(tuple(a.shape[:-sd - 1]) + (-1,) + tuple(a.shape[-sd:]))
 
 
-def wp2d(x: torch.Tensor, wav: Wavelet, levels: int) -> Packets2D:
+def wp2d(x: torch.Tensor, wav: Wavelet, levels: int, *,
+         backend: Optional[str] = None) -> Packets2D:
     """Full 2D wavelet packet decomposition over the trailing two axes
     (leading axes are batch); one single-level ``dwt2d`` per depth."""
     nodes = [x.unsqueeze(-3)]
     for _ in range(levels):
-        c = dwt2d(nodes[-1], wav, 1)
+        c = dwt2d(nodes[-1], wav, 1, backend=backend)
         nodes.append(_split(c.approx, c.details[0], 2))
     return Packets2D(tuple(nodes))
 
 
-def wp1d(x: torch.Tensor, wav: Wavelet, levels: int) -> Packets1D:
+def wp1d(x: torch.Tensor, wav: Wavelet, levels: int, *,
+         backend: Optional[str] = None) -> Packets1D:
     """Full 1D wavelet packet decomposition over the trailing axis."""
     nodes = [x.unsqueeze(-2)]
     for _ in range(levels):
-        c = dwt1d(nodes[-1], wav, 1)
+        c = dwt1d(nodes[-1], wav, 1, backend=backend)
         nodes.append(_split(c.approx, (c.details[0],), 1))
     return Packets1D(tuple(nodes))
 
 
-def wp3d(x: torch.Tensor, wav: Wavelet, levels: int) -> Packets3D:
+def wp3d(x: torch.Tensor, wav: Wavelet, levels: int, *,
+         backend: Optional[str] = None) -> Packets3D:
     """Full 3D wavelet packet decomposition over the trailing three axes:
     one single-level ``dwt3d`` per depth (node axis = batch, 8 children
     per node)."""
     nodes = [x.unsqueeze(-4)]
     for _ in range(levels):
-        c = dwt3d(nodes[-1], wav, 1)
+        c = dwt3d(nodes[-1], wav, 1, backend=backend)
         nodes.append(_split(c.approx, c.details[0], 3))
     return Packets3D(tuple(nodes))
 
@@ -136,13 +139,13 @@ def _coeffs(g: torch.Tensor, sd: int):
     return Coeffs1D(_band(g, 0, 1), (_band(g, 1, 1),))
 
 
-def _inv1(wav: Wavelet, sd: int):
+def _inv1(wav: Wavelet, sd: int, backend: Optional[str] = None):
     """The single-level inverse of ``sd`` spatial axes: (coeffs, out_shape)."""
     if sd == 3:
-        return lambda cfs, out: idwt3d(cfs, wav, out)
+        return lambda cfs, out: idwt3d(cfs, wav, out, backend=backend)
     if sd == 2:
-        return lambda cfs, out: idwt2d(cfs, wav, out)
-    return lambda cfs, out: idwt1d(cfs, wav, out[0])
+        return lambda cfs, out: idwt2d(cfs, wav, out, backend=backend)
+    return lambda cfs, out: idwt1d(cfs, wav, out[0], backend=backend)
 
 
 def _group(kids: torch.Tensor, fan: int, sd: int) -> torch.Tensor:
@@ -150,33 +153,37 @@ def _group(kids: torch.Tensor, fan: int, sd: int) -> torch.Tensor:
     return kids.reshape(tuple(kids.shape[:-sd - 1]) + (n // fan, fan) + tuple(kids.shape[-sd:]))
 
 
-def _iwp(leaf_nodes: torch.Tensor, wav: Wavelet, shape, sd: int, fan: int) -> torch.Tensor:
+def _iwp(leaf_nodes: torch.Tensor, wav: Wavelet, shape, sd: int, fan: int,
+         backend: Optional[str]) -> torch.Tensor:
     x = leaf_nodes
     levels = _depth_of(x.shape[-sd - 1], fan)
     sizes = [level_sizes(n, levels) for n in shape]
-    inv1 = _inv1(wav, sd)
+    inv1 = _inv1(wav, sd, backend)
     for j in range(levels - 1, -1, -1):
         x = inv1(_coeffs(_group(x, fan, sd), sd), tuple(s[j] for s in sizes))
     return x[(Ellipsis, 0) + (slice(None),) * sd]
 
 
-def iwp2d(leaf_nodes: torch.Tensor, wav: Wavelet, shape: Tuple[int, int]) -> torch.Tensor:
+def iwp2d(leaf_nodes: torch.Tensor, wav: Wavelet, shape: Tuple[int, int], *,
+          backend: Optional[str] = None) -> torch.Tensor:
     """Inverse of the FULL packet decomposition from the deepest node
     tensor (``packets.nodes[-1]``); ``shape`` is the original (rows, cols).
     For a pruned (best-basis) tree use :func:`wp_reconstruct`."""
-    return _iwp(leaf_nodes, wav, tuple(shape), 2, 4)
+    return _iwp(leaf_nodes, wav, tuple(shape), 2, 4, backend)
 
 
-def iwp1d(leaf_nodes: torch.Tensor, wav: Wavelet, length: int) -> torch.Tensor:
+def iwp1d(leaf_nodes: torch.Tensor, wav: Wavelet, length: int, *,
+          backend: Optional[str] = None) -> torch.Tensor:
     """Inverse of the full 1D packet decomposition from
     ``packets.nodes[-1]``."""
-    return _iwp(leaf_nodes, wav, (length,), 1, 2)
+    return _iwp(leaf_nodes, wav, (length,), 1, 2, backend)
 
 
-def iwp3d(leaf_nodes: torch.Tensor, wav: Wavelet, shape: Tuple[int, int, int]) -> torch.Tensor:
+def iwp3d(leaf_nodes: torch.Tensor, wav: Wavelet, shape: Tuple[int, int, int], *,
+          backend: Optional[str] = None) -> torch.Tensor:
     """Inverse of the full 3D packet decomposition from
     ``packets.nodes[-1]``."""
-    return _iwp(leaf_nodes, wav, tuple(shape), 3, 8)
+    return _iwp(leaf_nodes, wav, tuple(shape), 3, 8, backend)
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +258,7 @@ def best_basis(packets, cost: str = "shannon",
 
 
 def wp_reconstruct(packets, leaves: Sequence[Tuple[int, int]], wav: Wavelet, *,
-                   map_fn=None, inv1_fn=None) -> torch.Tensor:
+                   backend: Optional[str] = None, map_fn=None, inv1_fn=None) -> torch.Tensor:
     """Reconstruct the signal, image or volume from a pruned packet tree:
     the coefficients of the ``leaves`` cover (as from :func:`best_basis`),
     each optionally transformed by ``map_fn(node, depth, index)`` (a
@@ -260,11 +267,12 @@ def wp_reconstruct(packets, leaves: Sequence[Tuple[int, int]], wav: Wavelet, *,
     inverse.
 
     ``inv1_fn(coeffs, out_shape)`` overrides that single-level inverse;
-    ``coeffs`` is the matching ``Coeffs1D``/``2D``/``3D``."""
+    ``coeffs`` is the matching ``Coeffs1D``/``2D``/``3D``; ``backend`` is
+    the default inverse's route (``core/separable.py``)."""
     sd, fan, axis = _geom(packets)
     levels = packets.levels
     sizes = [level_sizes(n, levels) for n in packets.nodes[0].shape[-sd:]]
-    inv1 = inv1_fn if inv1_fn is not None else _inv1(wav, sd)
+    inv1 = inv1_fn if inv1_fn is not None else _inv1(wav, sd, backend)
 
     def sl(nd, i):
         return nd[(Ellipsis, i) + (slice(None),) * sd]

@@ -16,6 +16,20 @@ the batch.
 Every level runs through the kernel wrappers of ``pdwt_tpu_torch.kernels``:
 the CUDA kernels for CUDA tensors, their plain versions for CPU tensors.
 
+``backend=`` and ``pad_fn=`` (``pdwt_tpu/core/separable.py:129-160``,
+:func:`auto_backend`).  ``None`` resolves to the override of
+``conv.set_default_backend`` (or ``PDWT_TPU_BACKEND``) when one is set,
+else to ``"pallas"``: the kernel route above, on every device (JAX takes
+it on a TPU, and runs Pallas in interpret mode on the CPU; the port runs
+the kernels' plain versions there).  ``"fma"``, ``"xla"`` and ``"gather"``
+run the conv passes of ``core/conv.py`` level by level in that
+formulation, on whatever device the input is on, and launch no kernel, as
+JAX's conv route runs no Pallas body; float64 runs there on the card too.
+``pad_fn(x, axis, lo, hi)`` replaces the periodic wrap of those passes (the
+sharded transforms' ring halo): with ``backend=None`` it takes the conv
+passes, and ``"pallas"`` with a ``pad_fn`` raises, as in JAX.  The conv
+route takes no tier: a bf16 input stays bf16 pass by pass, as in JAX.
+
 Boundary modes (``pdwt_tpu/core/separable.py:350-640, 906-1016``).  A
 string, or one mode per axis (2D: rows, columns); all periodization is the
 periodization path below.  Any other takes the mode route, one level at a
@@ -25,9 +39,11 @@ entry points of kernels 1 and 2 (7 and 8 in 1D) on every level, under
 every tier, the forward on the signal extended per axis (``modes.extend``;
 a periodization axis odd-extended and wrapped at the periodic center), the
 inverse on the subbands as they are (a periodization axis with its
-periodic halo); everything else runs the plain extension route (the conv
-passes with ``mode=``, JAX's fma formulation, in the input's dtype), whose
-inverse refuses an odd filter as JAX's does.  A per-axis tuple that mixes
+periodic halo), when ``backend`` is None or ``"pallas"`` and no
+``pad_fn`` rides; everything else runs the plain extension route (the conv
+passes with ``mode=``, JAX's fma formulation unless ``backend`` names
+another, in the input's dtype), whose inverse refuses an odd filter as
+JAX's does.  A per-axis tuple that mixes
 in periodization holds to JAX's fma coefficients, not to JAX's TPU route,
 which pads such an axis at the pywt phase (``ROADMAP.md``, "Open faults
 of the reference").
@@ -91,14 +107,54 @@ def all_periodization(mode) -> bool:
     return all(m == "periodization" for m in mode)
 
 
-def check_supported(x: torch.Tensor) -> None:
-    """Raise on a dtype the transforms do not take (float64 on the card)."""
+def check_dtype(x: torch.Tensor) -> None:
+    """Raise on a dtype no route takes."""
     if x.dtype not in (F32, torch.float64, BF16):
         raise TypeError(f"expected float32 or float64 (or bfloat16 under the precision "
                         f"tiers), got {x.dtype}")
+
+
+def check_supported(x: torch.Tensor) -> None:
+    """Raise on a dtype the kernel route does not take (float64 on the
+    card; the conv route takes it)."""
+    check_dtype(x)
     if x.device.type == "cuda" and x.dtype == torch.float64:
         raise NotImplementedError("the CUDA path takes float32, or bfloat16 under the "
                                   "precision tiers, got float64")
+
+
+def auto_backend(backend: Optional[str], pad_fn, mode="periodization") -> Optional[str]:
+    """JAX's ``_auto_backend`` (``pdwt_tpu/core/separable.py:129-165``):
+    ``backend`` as given, else the override of ``conv.set_default_backend``,
+    else ``"pallas"`` (the kernel route, on every device) unless a
+    ``pad_fn`` rides (then None: the conv passes' default formulation).  A
+    ``"pallas"`` override with a ``pad_fn`` falls through to None.  Under a
+    boundary mode other than periodization an explicit ``"pallas"`` raises
+    and a ``"pallas"`` override falls through to None (the mode route's
+    kernels are :func:`_mode_padded`'s choice)."""
+    override = conv._default_backend
+    if not all_periodization(mode):
+        if backend == "pallas":
+            raise ValueError("backend='pallas' supports mode='periodization' only; "
+                             "other boundary modes run on the conv backends")
+        if backend is not None:
+            return backend
+        return None if override == "pallas" else override
+    if backend is not None:
+        return backend
+    if override is not None:
+        return None if override == "pallas" and pad_fn is not None else override
+    return "pallas" if pad_fn is None else None
+
+
+def kernel_route(backend: Optional[str], pad_fn, mode="periodization") -> Optional[str]:
+    """The resolved backend of a periodization call: ``"pallas"`` (the
+    kernel route) or the conv passes' formulation (None: the default);
+    ``"pallas"`` with a ``pad_fn`` raises, as in JAX."""
+    backend = auto_backend(backend, pad_fn, mode)
+    if backend == "pallas" and pad_fn is not None:
+        raise ValueError("pallas backend does not support pad_fn")
+    return backend
 
 
 def mode_route(dtype: torch.dtype, device: torch.device, hlen: int) -> str:
@@ -150,88 +206,165 @@ def _common(ts) -> torch.dtype:
 
 def _dwt2d_mode(x: torch.Tensor, wav: Wavelet, levels: int, mode_r: str,
                 mode_c: str) -> Coeffs2D:
-    """The mode route of :func:`dwt2d` (:func:`mode_route`), one level at a
-    time: the columns (``mode_c``), then the rows (``mode_r``)."""
+    """The padded mode route of :func:`dwt2d` (:func:`mode_route`), one
+    level at a time: the columns (``mode_c``), then the rows (``mode_r``)."""
     batch = tuple(x.shape[:-2])
     dec = (wav.dec_lo, wav.dec_hi)
-    padded = mode_route(x.dtype, x.device, wav.hlen) == "padded"
     a = _flat(x)
     details = []
     for _ in range(levels):
-        if padded:
-            xp = fwd_mode_pad(fwd_mode_pad(a, -1, wav.hlen, mode_c), -2, wav.hlen, mode_r)
-            a, h, v, d = kernels.fwd_level_2d_padded_ad(xp.contiguous(), *dec)
-        else:
-            z = conv.analysis_pass(a[:, None], dec, axis=-1, mode=mode_c)
-            z = conv.analysis_pass(z, dec, axis=-2, mode=mode_r)
-            a, h, v, d = (z[:, k] for k in range(4))
+        xp = fwd_mode_pad(fwd_mode_pad(a, -1, wav.hlen, mode_c), -2, wav.hlen, mode_r)
+        a, h, v, d = kernels.fwd_level_2d_padded_ad(xp.contiguous(), *dec)
         details.append(tuple(_unflat(t, batch) for t in (h, v, d)))
     return Coeffs2D(_unflat(a, batch), tuple(details))
 
 
 def _idwt2d_mode(coeffs: Coeffs2D, wav: Wavelet, shape: Tuple[int, int], mode_r: str,
                  mode_c: str) -> torch.Tensor:
-    """The mode route of :func:`idwt2d`, deepest level first, each level
-    to its pywt (or periodization) size: the rows, then the columns."""
+    """The padded mode route of :func:`idwt2d`, deepest level first, each
+    level to its pywt (or periodization) size: the rows, then the columns."""
     levels, hlen = coeffs.levels, wav.hlen
     rows = level_sizes(shape[0], levels, hlen, mode_r)
     cols = level_sizes(shape[1], levels, hlen, mode_c)
     rec = (wav.rec_lo, wav.rec_hi)
     batch = tuple(coeffs.approx.shape[:-2])
     dt = _common([coeffs.approx] + [t for band in coeffs.details for t in band])
-    padded = mode_route(dt, coeffs.approx.device, hlen) == "padded"
     a = _flat(coeffs.approx).to(dt)
     for i in range(levels - 1, -1, -1):
         bands = [a] + [_flat(t).to(dt) for t in coeffs.details[i]]
-        if padded:
-            c0 = [None, None]
-            for k, t in enumerate(bands):
-                t, c0[0] = inv_mode_pad(t, -2, hlen, mode_r, rows[i])
-                t, c0[1] = inv_mode_pad(t, -1, hlen, mode_c, cols[i])
-                bands[k] = t.contiguous()
-            a = kernels.inv_level_2d_padded_ad(*bands, *rec, tuple(c0), (rows[i], cols[i]))
-        else:
-            t = conv.synthesis_pass(torch.stack(bands, 1), rec, axis=-2, out_len=rows[i],
-                                    mode=mode_r)
-            a = conv.synthesis_pass(t, rec, axis=-1, out_len=cols[i], mode=mode_c)[:, 0]
+        c0 = [None, None]
+        for k, t in enumerate(bands):
+            t, c0[0] = inv_mode_pad(t, -2, hlen, mode_r, rows[i])
+            t, c0[1] = inv_mode_pad(t, -1, hlen, mode_c, cols[i])
+            bands[k] = t.contiguous()
+        a = kernels.inv_level_2d_padded_ad(*bands, *rec, tuple(c0), (rows[i], cols[i]))
     return _unflat(a, batch)
 
 
 def _dwt1d_mode(x: torch.Tensor, wav: Wavelet, levels: int, mode: str) -> Coeffs1D:
-    """The mode route of :func:`dwt1d` (:func:`mode_route`)."""
+    """The padded mode route of :func:`dwt1d` (:func:`mode_route`)."""
     batch = tuple(x.shape[:-1])
     dec = (wav.dec_lo, wav.dec_hi)
-    padded = mode_route(x.dtype, x.device, wav.hlen) == "padded"
     a = _flat1(x)
     details = []
     for _ in range(levels):
-        if padded:
-            a, d = kernels.fwd_level_1d_padded_ad(
-                fwd_mode_pad(a, -1, wav.hlen, mode).contiguous(), *dec)
-        else:
-            z = conv.analysis_pass(a[:, None, None], dec, axis=-1, mode=mode)
-            a, d = z[:, 0, 0], z[:, 1, 0]
+        a, d = kernels.fwd_level_1d_padded_ad(
+            fwd_mode_pad(a, -1, wav.hlen, mode).contiguous(), *dec)
         details.append(_unflat(d, batch))
     return Coeffs1D(_unflat(a, batch), tuple(details))
 
 
 def _idwt1d_mode(coeffs: Coeffs1D, wav: Wavelet, length: int, mode: str) -> torch.Tensor:
-    """The mode route of :func:`idwt1d`, deepest level first."""
+    """The padded mode route of :func:`idwt1d`, deepest level first."""
     sizes = level_sizes(length, coeffs.levels, wav.hlen, mode)
     rec = (wav.rec_lo, wav.rec_hi)
     batch = tuple(coeffs.approx.shape[:-1])
     dt = _common([coeffs.approx, *coeffs.details])
-    padded = mode_route(dt, coeffs.approx.device, wav.hlen) == "padded"
     a = _flat1(coeffs.approx).to(dt)
     for i in range(coeffs.levels - 1, -1, -1):
         d = _flat1(coeffs.details[i]).to(dt)
-        if padded:
-            _, c0 = inv_mode_pad(a, -1, wav.hlen, mode, sizes[i])
-            a = kernels.inv_level_1d_padded_ad(a, d, *rec, c0, sizes[i])
-        else:
-            z = torch.stack([a, d], 1)[:, :, None]
-            a = conv.synthesis_pass(z, rec, axis=-1, out_len=sizes[i], mode=mode)[:, 0, 0]
+        _, c0 = inv_mode_pad(a, -1, wav.hlen, mode, sizes[i])
+        a = kernels.inv_level_1d_padded_ad(a, d, *rec, c0, sizes[i])
     return _unflat(a, batch)
+
+
+# ---------------------------------------------------------------------------
+# the conv route: JAX's conv backends, level by level
+# ---------------------------------------------------------------------------
+
+def _cat(ts) -> torch.Tensor:
+    """Concatenate channels, promoting the dtypes as JAX does."""
+    dt = _common(ts)
+    return torch.cat([t.to(dt) for t in ts], dim=1)
+
+
+def _dwt_conv(x: torch.Tensor, wav: Wavelet, levels: int, axes, modes_ax, *,
+              stationary: bool = False, backend=None, pad_fn=None, keep_approx=False):
+    """The conv route of the forward transforms over the trailing
+    ``len(axes)`` axes of ``x`` (as (B, 1, *spatial)): per level one
+    analysis pass an axis, in ``axes`` order (columns first), under
+    ``modes_ax`` (one mode an axis); the stationary levels with the taps
+    2^(level-1) apart.  Returns the approximation, the details (channels
+    1.. of each level) and the approximations of every level, each
+    (B, 1, *spatial)."""
+    dec = (wav.dec_lo, wav.dec_hi)
+    a, details, approxs = x, [], []
+    for lvl in range(1, levels + 1):
+        kw = ({"dilation": 1 << (lvl - 1), "decimate": False} if stationary else {})
+        z = a
+        for ax, m in zip(axes, modes_ax):
+            z = conv.analysis_pass(z, dec, axis=ax, backend=backend, pad_fn=pad_fn, mode=m,
+                                   **kw)
+        a = z[:, :1]
+        details.append([z[:, k:k + 1] for k in range(1, z.shape[1])])
+        if keep_approx:
+            approxs.append(a)
+    return a, details, approxs
+
+
+def _idwt_conv(a: torch.Tensor, details, wav: Wavelet, axes, modes_ax, sizes=None, *,
+               stationary: bool = False, backend=None, pad_fn=None) -> torch.Tensor:
+    """The conv route of the inverse transforms: ``a`` and each level's
+    detail bands (B, 1, *spatial), deepest level first, one synthesis pass
+    an axis in ``axes`` order (the forward's reversed), each to
+    ``sizes[k][i]`` of its axis (decimated), or the stationary passes with
+    the taps halved."""
+    rec = ((wav.rec_lo * 0.5, wav.rec_hi * 0.5) if stationary else (wav.rec_lo, wav.rec_hi))
+    for i in range(len(details) - 1, -1, -1):
+        z = _cat([a, *details[i]])
+        for k, (ax, m) in enumerate(zip(axes, modes_ax)):
+            if stationary:
+                z = conv.synthesis_pass(z, rec, axis=ax, dilation=1 << i, decimated=False,
+                                        backend=backend, pad_fn=pad_fn)
+            else:
+                z = conv.synthesis_pass(z, rec, axis=ax, out_len=sizes[k][i], backend=backend,
+                                        pad_fn=pad_fn, mode=m)
+        a = z
+    return a
+
+
+def _dwt2d_conv(x, wav, levels, backend, pad_fn, per=("periodization",) * 2, *,
+                stationary=False, keep_approx=False):
+    batch = tuple(x.shape[:-2])
+    a, dets, apx = _dwt_conv(_flat(x)[:, None], wav, levels, (-1, -2), (per[1], per[0]),
+                             stationary=stationary, backend=backend, pad_fn=pad_fn,
+                             keep_approx=keep_approx)
+    un = lambda t: _unflat(t[:, 0], batch)
+    coeffs = Coeffs2D(un(a), tuple(tuple(un(t) for t in band) for band in dets))
+    return (coeffs, tuple(un(t) for t in apx)) if keep_approx else coeffs
+
+
+def _idwt2d_conv(coeffs, wav, shape, backend, pad_fn, per=("periodization",) * 2, *,
+                 stationary=False):
+    batch = tuple(coeffs.approx.shape[:-2])
+    sizes = None
+    if not stationary:
+        sizes = [level_sizes(n, coeffs.levels, wav.hlen, m) for n, m in zip(shape, per)]
+    dets = [[_flat(t)[:, None] for t in band] for band in coeffs.details]
+    a = _idwt_conv(_flat(coeffs.approx)[:, None], dets, wav, (-2, -1), per, sizes,
+                   stationary=stationary, backend=backend, pad_fn=pad_fn)
+    return _unflat(a[:, 0], batch)
+
+
+def _dwt1d_conv(x, wav, levels, backend, pad_fn, mode="periodization", *,
+                stationary=False, keep_approx=False):
+    batch = tuple(x.shape[:-1])
+    a, dets, apx = _dwt_conv(_flat1(x)[:, None, None], wav, levels, (-1,), (mode,),
+                             stationary=stationary, backend=backend, pad_fn=pad_fn,
+                             keep_approx=keep_approx)
+    un = lambda t: _unflat(t[:, 0, 0], batch)
+    coeffs = Coeffs1D(un(a), tuple(un(band[0]) for band in dets))
+    return (coeffs, tuple(un(t) for t in apx)) if keep_approx else coeffs
+
+
+def _idwt1d_conv(coeffs, wav, length, backend, pad_fn, mode="periodization", *,
+                 stationary=False):
+    batch = tuple(coeffs.approx.shape[:-1])
+    sizes = None if stationary else [level_sizes(length, coeffs.levels, wav.hlen, mode)]
+    dets = [[_flat1(t)[:, None, None]] for t in coeffs.details]
+    a = _idwt_conv(_flat1(coeffs.approx)[:, None, None], dets, wav, (-1,), (mode,), sizes,
+                   stationary=stationary, backend=backend, pad_fn=pad_fn)
+    return _unflat(a[:, 0, 0], batch)
 
 
 def mxu_mode(dtype: torch.dtype) -> Optional[str]:
@@ -252,12 +385,23 @@ def _unflat(t: torch.Tensor, batch: Tuple[int, ...]) -> torch.Tensor:
     return t.reshape(batch + tuple(t.shape[1:]))
 
 
+def _mode_padded(backend, pad_fn, dtype: torch.dtype, device: torch.device, hlen: int) -> bool:
+    """A boundary-mode call takes the padded kernels: JAX's
+    ``_use_mode_pallas`` (``pdwt_tpu/core/separable.py:593-608``) asks for
+    no ``pad_fn`` and a None or ``"pallas"`` preference (the explicit one,
+    else the override), and :func:`mode_route` for the card's route."""
+    pref = backend if backend is not None else conv._default_backend
+    return (pad_fn is None and pref in (None, "pallas")
+            and mode_route(dtype, device, hlen) == "padded")
+
+
 @takes_precision
-def dwt2d(x: torch.Tensor, wav: Wavelet, levels: int, *,
-          mode="periodization") -> Coeffs2D:
+def dwt2d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] = None,
+          pad_fn=None, mode="periodization") -> Coeffs2D:
     """Multi-level separable 2D DWT over the trailing two axes.  ``mode``
     is the boundary extension, a string or (row, column) modes; anything
     but periodization takes the mode route (module docstring).
+    ``backend``, ``pad_fn``: the route (module docstring).
 
     Per level, odd sizes are first extended by one sample; in an MXU mode a
     level the route rule accepts runs the banded-product kernel; otherwise
@@ -265,10 +409,16 @@ def dwt2d(x: torch.Tensor, wav: Wavelet, levels: int, *,
     allows it (on float32), else one level kernel takes this level."""
     if x.ndim < 2:
         raise ValueError(f"expected at least 2D input, got shape {tuple(x.shape)}")
+    check_dtype(x)
+    per = modes.per_axis(mode, 2)
+    if per != ("periodization",) * 2:
+        if _mode_padded(backend, pad_fn, x.dtype, x.device, wav.hlen):
+            return _dwt2d_mode(x, wav, levels, *per)
+        return _dwt2d_conv(x, wav, levels, auto_backend(backend, pad_fn, mode), pad_fn, per)
+    backend = kernel_route(backend, pad_fn)
+    if backend != "pallas":
+        return _dwt2d_conv(x, wav, levels, backend, pad_fn)
     check_supported(x)
-    mode_r, mode_c = modes.per_axis(mode, 2)
-    if (mode_r, mode_c) != ("periodization",) * 2:
-        return _dwt2d_mode(x, wav, levels, mode_r, mode_c)
     batch = tuple(x.shape[:-2])
     lo, hi = wav.dec_lo, wav.dec_hi
     mxu = mxu_mode(x.dtype)
@@ -296,7 +446,7 @@ def dwt2d(x: torch.Tensor, wav: Wavelet, levels: int, *,
 
 @takes_precision
 def idwt2d(coeffs: Coeffs2D, wav: Wavelet, shape: Tuple[int, int], *,
-           mode="periodization") -> torch.Tensor:
+           backend: Optional[str] = None, pad_fn=None, mode="periodization") -> torch.Tensor:
     """Inverse of :func:`dwt2d`; ``shape`` = (Nr, Nc) of the original image,
     ``mode`` the forward's.
 
@@ -304,10 +454,18 @@ def idwt2d(coeffs: Coeffs2D, wav: Wavelet, shape: Tuple[int, int], *,
     allows and that the MXU route does not cover run as one tail launch;
     each level above runs the banded-product kernel where the route rule
     accepts it, else the level kernel, and is sliced back to odd sizes."""
+    check_dtype(coeffs.approx)
+    per = modes.per_axis(mode, 2)
+    if per != ("periodization",) * 2:
+        dt = _common([coeffs.approx] + [t for band in coeffs.details for t in band])
+        if _mode_padded(backend, pad_fn, dt, coeffs.approx.device, wav.hlen):
+            return _idwt2d_mode(coeffs, wav, shape, *per)
+        return _idwt2d_conv(coeffs, wav, shape, auto_backend(backend, pad_fn, mode), pad_fn,
+                            per)
+    backend = kernel_route(backend, pad_fn)
+    if backend != "pallas":
+        return _idwt2d_conv(coeffs, wav, shape, backend, pad_fn)
     check_supported(coeffs.approx)
-    mode_r, mode_c = modes.per_axis(mode, 2)
-    if (mode_r, mode_c) != ("periodization",) * 2:
-        return _idwt2d_mode(coeffs, wav, shape, mode_r, mode_c)
     levels = coeffs.levels
     rows = level_sizes(shape[0], levels)
     cols = level_sizes(shape[1], levels)
@@ -354,14 +512,21 @@ def _swt_mxu_mode(dtype: torch.dtype) -> Optional[str]:
 
 
 @takes_precision
-def swt2d(x: torch.Tensor, wav: Wavelet, levels: int, *, keep_approx: bool = False):
+def swt2d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] = None,
+          pad_fn=None, keep_approx: bool = False):
     """Stationary (a-trous) 2D transform over the trailing two axes: level
     L filters with taps ``2^(L-1)`` apart, one kernel launch per level (in
     bf16, the a-trous banded-product kernel where the route rule accepts
     the level).  ``keep_approx=True`` also returns the approximations
-    ``(A_1, ..., A_levels)``, as ``(coeffs, approxs)``."""
+    ``(A_1, ..., A_levels)``, as ``(coeffs, approxs)``.  ``backend``,
+    ``pad_fn``: the route (module docstring)."""
     if x.ndim < 2:
         raise ValueError(f"expected at least 2D input, got shape {tuple(x.shape)}")
+    check_dtype(x)
+    backend = kernel_route(backend, pad_fn)
+    if backend != "pallas":
+        return _dwt2d_conv(x, wav, levels, backend, pad_fn, stationary=True,
+                           keep_approx=keep_approx)
     check_supported(x)
     batch = tuple(x.shape[:-2])
     mxu = _swt_mxu_mode(x.dtype)
@@ -408,8 +573,14 @@ def _iswt2d_levels(coeffs: Coeffs2D, wav: Wavelet, level_fn, a_fn=None) -> torch
 
 
 @takes_precision
-def iswt2d(coeffs: Coeffs2D, wav: Wavelet) -> torch.Tensor:
-    """Inverse of :func:`swt2d`, one kernel launch per level, deepest first."""
+def iswt2d(coeffs: Coeffs2D, wav: Wavelet, *, backend: Optional[str] = None,
+           pad_fn=None) -> torch.Tensor:
+    """Inverse of :func:`swt2d`, one kernel launch per level, deepest first
+    (``backend``, ``pad_fn``: the route, module docstring)."""
+    check_dtype(coeffs.approx)
+    backend = kernel_route(backend, pad_fn)
+    if backend != "pallas":
+        return _idwt2d_conv(coeffs, wav, None, backend, pad_fn, stationary=True)
     check_supported(coeffs.approx)
     lo, hi = wav.rec_lo, wav.rec_hi
 
@@ -423,22 +594,25 @@ def iswt2d(coeffs: Coeffs2D, wav: Wavelet) -> torch.Tensor:
 
 @takes_precision
 def iswt2d_denoise(coeffs: Coeffs2D, wav: Wavelet, beta, *, mode: str = "soft",
-                   normalize: bool = False, do_thresh_appcoeffs: bool = False
-                   ) -> torch.Tensor:
+                   normalize: bool = False, do_thresh_appcoeffs: bool = False,
+                   backend: Optional[str] = None) -> torch.Tensor:
     """Threshold the details and invert the SWT in one pass per level: the
     same values as ``<mode>_threshold`` followed by :func:`iswt2d`, with
     the threshold inside the synthesis kernel, so thresholded details are
     never stored.  ``mode`` is soft, hard or garrote; a scalar ``beta`` (a
     number or a one-element tensor, differentiable) is divided by
     sqrt(2)^(i+1) at level i+1 under ``normalize``; a per-level (per-band)
-    sequence goes through the threshold ops and :func:`iswt2d`."""
+    sequence goes through the threshold ops and :func:`iswt2d`, and so does
+    every ``backend`` but the kernel route (JAX's rule)."""
     from ..ops.threshold import THR_ELEM, THRESHOLD_OPS, _app_beta
 
     if mode not in THR_ELEM:
         raise ValueError(f"the fused denoise takes {sorted(THR_ELEM)}, got {mode!r}")
-    if isinstance(beta, (list, tuple)):
+    backend = auto_backend(backend, None)
+    if backend != "pallas" or isinstance(beta, (list, tuple)):
         return iswt2d(THRESHOLD_OPS[mode](coeffs, beta, normalize=normalize,
-                                          do_thresh_appcoeffs=do_thresh_appcoeffs), wav)
+                                          do_thresh_appcoeffs=do_thresh_appcoeffs), wav,
+                      backend=backend)
     check_supported(coeffs.approx)
     lo, hi = wav.rec_lo, wav.rec_hi
 
@@ -469,17 +643,24 @@ def _check_1d(x: torch.Tensor) -> None:
 
 
 @takes_precision
-def dwt1d(x: torch.Tensor, wav: Wavelet, levels: int, *,
-          mode="periodization") -> Coeffs1D:
+def dwt1d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] = None,
+          pad_fn=None, mode="periodization") -> Coeffs1D:
     """Multi-level 1D DWT along the last axis (``mode``: the boundary
     extension, a string or a one-mode tuple), one level kernel launch per
     level (the banded-product kernel where an MXU mode's route rule
-    accepts the level); an odd length is first extended by one sample."""
+    accepts the level); an odd length is first extended by one sample.
+    ``backend``, ``pad_fn``: the route (module docstring)."""
     _check_1d(x)
+    check_dtype(x)
+    (m,) = modes.per_axis(mode, 1)
+    if m != "periodization":
+        if _mode_padded(backend, pad_fn, x.dtype, x.device, wav.hlen):
+            return _dwt1d_mode(x, wav, levels, m)
+        return _dwt1d_conv(x, wav, levels, auto_backend(backend, pad_fn, m), pad_fn, m)
+    backend = kernel_route(backend, pad_fn)
+    if backend != "pallas":
+        return _dwt1d_conv(x, wav, levels, backend, pad_fn)
     check_supported(x)
-    (mode,) = modes.per_axis(mode, 1)
-    if mode != "periodization":
-        return _dwt1d_mode(x, wav, levels, mode)
     batch = tuple(x.shape[:-1])
     mxu = mxu_mode(x.dtype)
     a = _flat1(x)
@@ -496,16 +677,23 @@ def dwt1d(x: torch.Tensor, wav: Wavelet, levels: int, *,
 
 
 @takes_precision
-def idwt1d(coeffs: Coeffs1D, wav: Wavelet, length: int, *,
-           mode="periodization") -> torch.Tensor:
+def idwt1d(coeffs: Coeffs1D, wav: Wavelet, length: int, *, backend: Optional[str] = None,
+           pad_fn=None, mode="periodization") -> torch.Tensor:
     """Inverse of :func:`dwt1d`; ``length`` is the original signal's,
     ``mode`` the forward's.  Each
     level runs one level kernel, deepest first, and is sliced back to its
-    odd length."""
+    odd length.  ``backend``, ``pad_fn``: the route (module docstring)."""
+    check_dtype(coeffs.approx)
+    (m,) = modes.per_axis(mode, 1)
+    if m != "periodization":
+        dt = _common([coeffs.approx, *coeffs.details])
+        if _mode_padded(backend, pad_fn, dt, coeffs.approx.device, wav.hlen):
+            return _idwt1d_mode(coeffs, wav, length, m)
+        return _idwt1d_conv(coeffs, wav, length, auto_backend(backend, pad_fn, m), pad_fn, m)
+    backend = kernel_route(backend, pad_fn)
+    if backend != "pallas":
+        return _idwt1d_conv(coeffs, wav, length, backend, pad_fn)
     check_supported(coeffs.approx)
-    (mode,) = modes.per_axis(mode, 1)
-    if mode != "periodization":
-        return _idwt1d_mode(coeffs, wav, length, mode)
     sizes = level_sizes(length, coeffs.levels)
     batch = tuple(coeffs.approx.shape[:-1])
     mxu = mxu_mode(coeffs.details[-1].dtype if coeffs.levels else coeffs.approx.dtype)
@@ -527,10 +715,17 @@ def idwt1d(coeffs: Coeffs1D, wav: Wavelet, length: int, *,
 
 
 @takes_precision
-def swt1d(x: torch.Tensor, wav: Wavelet, levels: int, *, keep_approx: bool = False):
+def swt1d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] = None,
+          pad_fn=None, keep_approx: bool = False):
     """Stationary (a-trous) 1D transform along the last axis, one kernel
-    launch per level; ``keep_approx`` as in :func:`swt2d`."""
+    launch per level; ``keep_approx`` as in :func:`swt2d`; ``backend``,
+    ``pad_fn``: the route (module docstring)."""
     _check_1d(x)
+    check_dtype(x)
+    backend = kernel_route(backend, pad_fn)
+    if backend != "pallas":
+        return _dwt1d_conv(x, wav, levels, backend, pad_fn, stationary=True,
+                           keep_approx=keep_approx)
     check_supported(x)
     batch = tuple(x.shape[:-1])
     mxu = _swt_mxu_mode(x.dtype)
@@ -551,8 +746,14 @@ def swt1d(x: torch.Tensor, wav: Wavelet, levels: int, *, keep_approx: bool = Fal
 
 
 @takes_precision
-def iswt1d(coeffs: Coeffs1D, wav: Wavelet) -> torch.Tensor:
-    """Inverse of :func:`swt1d`, one kernel launch per level, deepest first."""
+def iswt1d(coeffs: Coeffs1D, wav: Wavelet, *, backend: Optional[str] = None,
+           pad_fn=None) -> torch.Tensor:
+    """Inverse of :func:`swt1d`, one kernel launch per level, deepest first
+    (``backend``, ``pad_fn``: the route, module docstring)."""
+    check_dtype(coeffs.approx)
+    backend = kernel_route(backend, pad_fn)
+    if backend != "pallas":
+        return _idwt1d_conv(coeffs, wav, None, backend, pad_fn, stationary=True)
     check_supported(coeffs.approx)
     batch = tuple(coeffs.approx.shape[:-1])
     mxu = _swt_mxu_mode(coeffs.details[-1].dtype if coeffs.levels else coeffs.approx.dtype)

@@ -43,12 +43,19 @@ the conv passes with ``mode=`` (JAX's fma formulation), columns, rows,
 then depth (the inverse depth, rows, columns), in the input's dtype, on
 the card too.
 
+``backend=`` and ``pad_fn=`` follow the 2D transforms
+(``core/separable.py``, :func:`separable.auto_backend`): the kernel route
+above for ``None`` or ``"pallas"``; ``"fma"``, ``"xla"`` and ``"gather"``
+(and ``None`` with a ``pad_fn``) run the conv passes of that formulation
+along columns, rows, then depth (the inverse depth, rows, columns), as JAX
+does (``pdwt_tpu/core/separable3d.py:178-520``), and launch no kernel.
+
 Every entry point takes ``precision=`` (:func:`precision.takes_precision`).
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, List, NamedTuple, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,7 +64,8 @@ from ..filters import Wavelet
 from . import conv, modes
 from .depth_matmul import depth_analysis_mm, depth_synthesis_mm
 from .precision import takes_precision
-from .separable import BF16, F32, _common, _swt_mxu_mode, check_supported, mxu_mode
+from .separable import (BF16, F32, _dwt_conv, _idwt_conv, _swt_mxu_mode, auto_backend,
+                        check_dtype, check_supported, kernel_route, mxu_mode)
 from .shapes import level_sizes
 
 #: pywt-style keys (axis order depth, row, column) of ``details[i][j]``
@@ -84,7 +92,7 @@ def _unflat(t: torch.Tensor, batch: Tuple[int, ...]) -> torch.Tensor:
 def _check_3d(x: torch.Tensor) -> None:
     if x.ndim < 3:
         raise ValueError(f"expected at least 3D input, got shape {tuple(x.shape)}")
-    check_supported(x)
+    check_dtype(x)
 
 
 # ---------------------------------------------------------------------------
@@ -184,53 +192,56 @@ def _inv_level_exact(a, bands7, wav: Wavelet, drc, level: int = 0) -> torch.Tens
     return y.reshape((b, dd) + tuple(y.shape[-2:])).contiguous()
 
 
-def _dwt3d_mode(x: torch.Tensor, wav: Wavelet, levels: int, per: Tuple[str, str, str]
-                ) -> Coeffs3D:
-    """The mode route of :func:`dwt3d`: the conv passes with ``mode=`` along
-    columns, rows, then depth, in the input's dtype."""
-    mode_d, mode_r, mode_c = per
+def _dwt3d_mode(x: torch.Tensor, wav: Wavelet, levels: int, per: Tuple[str, str, str],
+                backend: Optional[str] = None, pad_fn=None, *, stationary: bool = False,
+                keep_approx: bool = False):
+    """The conv route of :func:`dwt3d` (and, ``stationary``, of
+    :func:`swt3d`): the conv passes with ``mode=`` along columns, rows,
+    then depth, in the input's dtype."""
     batch = tuple(x.shape[:-3])
-    dec = (wav.dec_lo, wav.dec_hi)
-    a, details = _flat3(x)[:, None], []
-    for _ in range(levels):
-        z = conv.analysis_pass(a, dec, axis=-1, mode=mode_c)
-        z = conv.analysis_pass(z, dec, axis=-2, mode=mode_r)
-        z = conv.analysis_pass(z, dec, axis=-3, mode=mode_d)
-        a = z[:, :1]
-        details.append(tuple(_unflat(z[:, k], batch) for k in range(1, 8)))
-    return Coeffs3D(_unflat(a[:, 0], batch), tuple(details))
+    a, dets, apx = _dwt_conv(_flat3(x)[:, None], wav, levels, (-1, -2, -3),
+                             (per[2], per[1], per[0]), stationary=stationary, backend=backend,
+                             pad_fn=pad_fn, keep_approx=keep_approx)
+    un = lambda t: _unflat(t[:, 0], batch)
+    coeffs = Coeffs3D(un(a), tuple(tuple(un(t) for t in band) for band in dets))
+    return (coeffs, tuple(un(t) for t in apx)) if keep_approx else coeffs
 
 
-def _idwt3d_mode(coeffs: Coeffs3D, wav: Wavelet, shape, per: Tuple[str, str, str]
+def _idwt3d_mode(coeffs: Coeffs3D, wav: Wavelet, shape, per: Tuple[str, str, str],
+                 backend: Optional[str] = None, pad_fn=None, *, stationary: bool = False
                  ) -> torch.Tensor:
-    """The mode route of :func:`idwt3d`: depth, rows, then columns, each
-    level to its pywt (or periodization) size."""
-    levels = coeffs.levels
-    sizes = [level_sizes(n, levels, wav.hlen, m) for n, m in zip(shape, per)]
-    rec = (wav.rec_lo, wav.rec_hi)
+    """The conv route of :func:`idwt3d` (and, ``stationary``, of
+    :func:`iswt3d`): depth, rows, then columns, each level to its pywt (or
+    periodization) size."""
     batch = tuple(coeffs.approx.shape[:-3])
-    dt = _common([coeffs.approx] + [t for band in coeffs.details for t in band])
-    a = _flat3(coeffs.approx).to(dt)
-    for i in range(levels - 1, -1, -1):
-        z = torch.stack([a] + [_flat3(t).to(dt) for t in coeffs.details[i]], 1)
-        for ax, s, m in ((-3, sizes[0], per[0]), (-2, sizes[1], per[1]),
-                         (-1, sizes[2], per[2])):
-            z = conv.synthesis_pass(z, rec, axis=ax, out_len=s[i], mode=m)
-        a = z[:, 0]
-    return _unflat(a, batch)
+    sizes = None
+    if not stationary:
+        sizes = [level_sizes(n, coeffs.levels, wav.hlen, m) for n, m in zip(shape, per)]
+    dets = [[_flat3(t)[:, None] for t in band] for band in coeffs.details]
+    a = _idwt_conv(_flat3(coeffs.approx)[:, None], dets, wav, (-3, -2, -1), per, sizes,
+                   stationary=stationary, backend=backend, pad_fn=pad_fn)
+    return _unflat(a[:, 0], batch)
+
+
+_PER3 = ("periodization",) * 3
 
 
 @takes_precision
-def dwt3d(x: torch.Tensor, wav: Wavelet, levels: int, *, mode="periodization") -> Coeffs3D:
+def dwt3d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] = None,
+          pad_fn=None, mode="periodization") -> Coeffs3D:
     """Multi-level separable 3D DWT over the trailing three axes: per level
     one 2D level kernel with depth as its batch, then the depth pass
     (module docstring).  ``mode``: the boundary extension, a string or
     (depth, row, column) modes; anything but periodization takes the conv
-    passes."""
+    passes; ``backend``, ``pad_fn``: the route (module docstring)."""
     _check_3d(x)
     per = modes.per_axis(mode, 3)
-    if per != ("periodization",) * 3:
-        return _dwt3d_mode(x, wav, levels, per)
+    if per != _PER3:
+        return _dwt3d_mode(x, wav, levels, per, auto_backend(backend, pad_fn, mode), pad_fn)
+    backend = kernel_route(backend, pad_fn)
+    if backend != "pallas":
+        return _dwt3d_mode(x, wav, levels, per, backend, pad_fn)
+    check_supported(x)
     batch = tuple(x.shape[:-3])
     mxu = mxu_mode(x.dtype)
     a, details = _flat3(x), []
@@ -243,15 +254,21 @@ def dwt3d(x: torch.Tensor, wav: Wavelet, levels: int, *, mode="periodization") -
 
 @takes_precision
 def idwt3d(coeffs: Coeffs3D, wav: Wavelet, shape: Tuple[int, int, int], *,
-           mode="periodization") -> torch.Tensor:
+           backend: Optional[str] = None, pad_fn=None, mode="periodization") -> torch.Tensor:
     """Inverse of :func:`dwt3d`; ``shape`` = (Nd, Nr, Nc) of the volume,
     ``mode`` the forward's.  An exact level runs the depth synthesis, then
     kernel 2; a level the MXU route accepts runs two kernel-12 launches
-    (the depth-bit regrouping), then the depth synthesis."""
+    (the depth-bit regrouping), then the depth synthesis.  ``backend``,
+    ``pad_fn``: the route (module docstring)."""
     _check_3d(coeffs.approx)
     per = modes.per_axis(mode, 3)
-    if per != ("periodization",) * 3:
-        return _idwt3d_mode(coeffs, wav, shape, per)
+    if per != _PER3:
+        return _idwt3d_mode(coeffs, wav, shape, per, auto_backend(backend, pad_fn, mode),
+                            pad_fn)
+    backend = kernel_route(backend, pad_fn)
+    if backend != "pallas":
+        return _idwt3d_mode(coeffs, wav, shape, per, backend, pad_fn)
+    check_supported(coeffs.approx)
     levels = coeffs.levels
     deps, rows, cols = (level_sizes(n, levels) for n in shape)
     lo, hi = wav.rec_lo, wav.rec_hi
@@ -281,13 +298,20 @@ def idwt3d(coeffs: Coeffs3D, wav: Wavelet, shape: Tuple[int, int, int], *,
 # ---------------------------------------------------------------------------
 
 @takes_precision
-def swt3d(x: torch.Tensor, wav: Wavelet, levels: int, *, keep_approx: bool = False):
+def swt3d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] = None,
+          pad_fn=None, keep_approx: bool = False):
     """Stationary (a-trous) 3D transform over the trailing three axes: level
     L filters with taps ``2^(L-1)`` apart, no subsampling; one 2D a-trous
     kernel launch a level (kernel 5, or 13 in bf16 where the route accepts
     the level), then the dilated depth pass.  ``keep_approx=True`` also
-    returns the approximations ``(A_1, ..., A_levels)``."""
+    returns the approximations ``(A_1, ..., A_levels)``.  ``backend``,
+    ``pad_fn``: the route (module docstring)."""
     _check_3d(x)
+    backend = kernel_route(backend, pad_fn)
+    if backend != "pallas":
+        return _dwt3d_mode(x, wav, levels, _PER3, backend, pad_fn, stationary=True,
+                           keep_approx=keep_approx)
+    check_supported(x)
     batch = tuple(x.shape[:-3])
     mxu = _swt_mxu_mode(x.dtype)
     lo, hi = wav.dec_lo, wav.dec_hi
@@ -332,12 +356,18 @@ def _iswt3d_levels(coeffs: Coeffs3D, wav: Wavelet, level_fn, a_fn=None) -> torch
 
 
 @takes_precision
-def iswt3d(coeffs: Coeffs3D, wav: Wavelet) -> torch.Tensor:
+def iswt3d(coeffs: Coeffs3D, wav: Wavelet, *, backend: Optional[str] = None,
+           pad_fn=None) -> torch.Tensor:
     """Inverse of :func:`swt3d`.  Each separable synthesis pass halves the
     taps (three passes give the 1/8 that averages the 3D redundancy).  An
     exact level runs the depth synthesis, then kernel 6; a bf16 level the
-    route accepts runs two kernel-14 launches, then the depth synthesis."""
+    route accepts runs two kernel-14 launches, then the depth synthesis.
+    ``backend``, ``pad_fn``: the route (module docstring)."""
     _check_3d(coeffs.approx)
+    backend = kernel_route(backend, pad_fn)
+    if backend != "pallas":
+        return _idwt3d_mode(coeffs, wav, None, _PER3, backend, pad_fn, stationary=True)
+    check_supported(coeffs.approx)
     lo, hi = wav.rec_lo, wav.rec_hi
 
     def level(a, bands, lvl, mxu):
@@ -354,8 +384,8 @@ def iswt3d(coeffs: Coeffs3D, wav: Wavelet) -> torch.Tensor:
 
 @takes_precision
 def iswt3d_denoise(coeffs: Coeffs3D, wav: Wavelet, beta, *, mode: str = "soft",
-                   normalize: bool = False, do_thresh_appcoeffs: bool = False
-                   ) -> torch.Tensor:
+                   normalize: bool = False, do_thresh_appcoeffs: bool = False,
+                   backend: Optional[str] = None) -> torch.Tensor:
     """Threshold the details and invert the 3D SWT: the same values as
     ``<mode>_threshold`` followed by :func:`iswt3d`.  Every level inverts by
     the depth-bit regrouping, two 2D inverses whose kernels threshold their
@@ -365,15 +395,19 @@ def iswt3d_denoise(coeffs: Coeffs3D, wav: Wavelet, beta, *, mode: str = "soft",
     thresholded first.  ``mode`` is soft, hard or garrote; a scalar ``beta``
     (a number or a one-element tensor) is divided by sqrt(2)^(i+1) at level
     i+1 under ``normalize``; a per-level (per-band) sequence goes through
-    the threshold ops and :func:`iswt3d`."""
+    the threshold ops and :func:`iswt3d`, and so does every ``backend`` but
+    the kernel route (JAX's rule)."""
     from ..ops.threshold import THR_ELEM, THRESHOLD_OPS, _app_beta
 
     if mode not in THR_ELEM:
         raise ValueError(f"the fused denoise takes {sorted(THR_ELEM)}, got {mode!r}")
-    if isinstance(beta, (list, tuple)):
+    backend = auto_backend(backend, None)
+    if backend != "pallas" or isinstance(beta, (list, tuple)):
         return iswt3d(THRESHOLD_OPS[mode](coeffs, beta, normalize=normalize,
-                                          do_thresh_appcoeffs=do_thresh_appcoeffs), wav)
+                                          do_thresh_appcoeffs=do_thresh_appcoeffs), wav,
+                      backend=backend)
     _check_3d(coeffs.approx)
+    check_supported(coeffs.approx)
     thr = THR_ELEM[mode]
     lo, hi = wav.rec_lo, wav.rec_hi
 

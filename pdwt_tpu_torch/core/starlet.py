@@ -14,13 +14,14 @@ Gen 1 inverts as ``x = a_J + sum_j w_j``, gen 2 level by level as
 Every pass is the lowpass-only stationary ``conv.analysis_pass`` (5 odd
 taps), as JAX runs its fma passes here: JAX has no Pallas form of it
 (``backend="pallas"`` maps to ``"fma"``), so the port has no kernel for it
-either.  The passes take ``pad_fn`` for a sharded halo ring; the index
-semantics are ``core/conv.py``'s (periodic, centered).
+either; ``backend=`` picks the passes' formulation (``core/conv.py``).
+The passes take ``pad_fn`` for a sharded halo ring; the index semantics
+are ``core/conv.py``'s (periodic, centered).
 """
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,13 +52,19 @@ def _to_nc(x: torch.Tensor, sd: int):
     return x.reshape((-1, 1) + tuple(x.shape[-sd:])), batch
 
 
-def _smooth(a: torch.Tensor, sd: int, dilation: int, pad_fn) -> torch.Tensor:
+def _smooth(a: torch.Tensor, sd: int, dilation: int, pad_fn, backend=None) -> torch.Tensor:
     """One B3 smoothing: the dilated lowpass along each of the ``sd``
     trailing axes."""
     for ax in range(-sd, 0):
         a = conv.analysis_pass(a, (B3_SPLINE,), axis=ax, dilation=dilation, decimate=False,
-                               pad_fn=pad_fn)
+                               pad_fn=pad_fn, backend=backend)
     return a
+
+
+def _pass_backend(backend: Optional[str]) -> Optional[str]:
+    """The lowpass-only passes have no kernel form: ``"pallas"`` runs
+    ``"fma"``."""
+    return "fma" if backend == "pallas" else backend
 
 
 def _check(ndim: int, gen: int) -> None:
@@ -68,25 +75,26 @@ def _check(ndim: int, gen: int) -> None:
 
 
 def starlet(x: torch.Tensor, levels: int, *, ndim: int = 2, gen: int = 2,
-            pad_fn=None) -> StarletCoeffs:
+            backend: Optional[str] = None, pad_fn=None) -> StarletCoeffs:
     """Isotropic a-trous decomposition over the trailing ``ndim`` axes
     (leading axes are batch).  ``gen`` selects the detail definition (1:
     ``a_{j-1} - a_j``; 2: ``a_{j-1} - h*a_j``, the default)."""
     _check(ndim, gen)
+    backend = _pass_backend(backend)
     arr, batch = _to_nc(x, ndim)
     spatial = tuple(x.shape[-ndim:])
     details = []
     a = arr
     for j in range(levels):
-        nxt = _smooth(a, ndim, 1 << j, pad_fn)
-        ref = nxt if gen == 1 else _smooth(nxt, ndim, 1 << j, pad_fn)
+        nxt = _smooth(a, ndim, 1 << j, pad_fn, backend)
+        ref = nxt if gen == 1 else _smooth(nxt, ndim, 1 << j, pad_fn, backend)
         details.append((a - ref).reshape(batch + spatial))
         a = nxt
     return StarletCoeffs(a.reshape(batch + spatial), tuple(details))
 
 
 def istarlet(coeffs: StarletCoeffs, *, ndim: int = 2, gen: int = 2,
-             pad_fn=None) -> torch.Tensor:
+             backend: Optional[str] = None, pad_fn=None) -> torch.Tensor:
     """Exact inverse of :func:`starlet` (same ``gen``/``ndim``)."""
     if gen == 1:
         out = coeffs.approx
@@ -97,7 +105,7 @@ def istarlet(coeffs: StarletCoeffs, *, ndim: int = 2, gen: int = 2,
     spatial = tuple(coeffs.approx.shape[-ndim:])
     for j in range(len(coeffs.details) - 1, -1, -1):
         w, _ = _to_nc(coeffs.details[j], ndim)
-        a = _smooth(a, ndim, 1 << j, pad_fn) + w
+        a = _smooth(a, ndim, 1 << j, pad_fn, _pass_backend(backend)) + w
     return a.reshape(batch + spatial)
 
 
@@ -125,15 +133,15 @@ def starlet_noise_gains(levels: int, ndim: int = 2, gen: int = 2) -> Tuple[float
 
 
 def starlet_denoise(x: torch.Tensor, levels: int, beta, *, mode: str = "soft", ndim: int = 2,
-                    gen: int = 2) -> torch.Tensor:
+                    gen: int = 2, backend: Optional[str] = None) -> torch.Tensor:
     """Threshold the starlet detail planes and reconstruct.  ``beta`` is a
     scalar or a per-level sequence (finest first)."""
     from ..ops.threshold import THR_ELEM
 
     thr = THR_ELEM[mode]
-    c = starlet(x, levels, ndim=ndim, gen=gen)
+    c = starlet(x, levels, ndim=ndim, gen=gen, backend=backend)
     betas = list(beta) if isinstance(beta, (list, tuple)) else [beta] * levels
     if len(betas) != levels:
         raise ValueError(f"need {levels} betas, got {len(betas)}")
     details = tuple(thr(w, b) for w, b in zip(c.details, betas))
-    return istarlet(StarletCoeffs(c.approx, details), ndim=ndim, gen=gen)
+    return istarlet(StarletCoeffs(c.approx, details), ndim=ndim, gen=gen, backend=backend)

@@ -24,8 +24,9 @@ the separable decimated DWT (periodization, the reference's, or a pywt
 mode: zero, constant, symmetric, reflect, periodic, smooth, antisymmetric,
 antireflect).  ``--nd`` reads a volume of nd x nr x nc float32 samples and
 runs the scenario on it (the 3D transforms; scenarios 4 and 6 refuse it,
-as JAX's demo does).  --native (the C++ CPU engine) is left out of the
-port.
+as JAX's demo does).  ``--native`` runs scenarios 1-3 on the C++ CPU
+engine (``pdwt_tpu_torch.native``) in place of the facade, as JAX's demo
+does.
 """
 from __future__ import annotations
 
@@ -66,17 +67,19 @@ def _denoise_scenario(p, args, img) -> int:
     from pdwt_tpu_torch.utils.convert import image_tensor
 
     if args.scenario == 6:
-        if args.nd:
+        if args.native or args.nd:
             p.error("scenario 6 (dual-tree denoise) needs the 2D JAX engine")
         rec = dtcwt_auto_denoise(image_tensor(img, args.device), args.levels)
         print("dual-tree complex magnitude denoise applied "
               f"({args.levels} levels, 6 oriented bands)")
     elif args.scenario == 5:
+        if args.native:
+            p.error("scenario 5 (starlet denoise) needs the JAX engine")
         rec = starlet_auto_denoise(image_tensor(img, args.device), args.levels,
                                    ndim=3 if args.nd else 2)
         print(f"starlet k-sigma auto denoise applied ({args.levels} isotropic scales)")
     else:
-        if args.nd:
+        if args.native or args.nd:
             p.error("scenario 4 (packet denoise) needs the 2D JAX engine")
         beta = None if args.auto_beta != "none" else args.beta
         rec = packet_denoise(image_tensor(img, args.device), args.wavelet, args.levels, beta)
@@ -85,6 +88,34 @@ def _denoise_scenario(p, args, img) -> int:
     rec = tensor_to_numpy(rec).astype(np.float32)
     err = float(np.abs(rec - img).max())
     print(f"max |denoised - input| = {err:.3e} (expected nonzero)")
+    write_dat(args.out, rec)
+    print(f"result written to {args.out}")
+    return 0
+
+
+def _native(args, img, shape) -> int:
+    """Scenarios 1-3 on the C++ CPU engine, as JAX's demo runs them."""
+    from pdwt_tpu_torch import native
+    from pdwt_tpu_torch.filters import get_wavelet
+    from pdwt_tpu_torch.utils import tensor_to_numpy, write_dat
+
+    w = get_wavelet(args.wavelet)
+    fwd = native.dwt3d if args.nd else native.dwt2d
+    inv = native.idwt3d if args.nd else native.idwt2d
+    coeffs = fwd(img, w, args.levels, swt=args.swt)
+    print(f"forward done (native): {args.wavelet}, {args.levels} levels")
+    if args.scenario == 1:
+        write_dat(args.out, tensor_to_numpy(coeffs.approx))
+        print(f"approximation written to {args.out}")
+        return 0
+    if args.scenario == 3:
+        det = tuple(tuple(native.soft_threshold(b, args.beta) for b in lvl)
+                    for lvl in coeffs.details)
+        coeffs = type(coeffs)(coeffs.approx, det)
+    rec = tensor_to_numpy(inv(coeffs, w, shape, swt=args.swt)).astype(np.float32)
+    err = float(np.abs(rec - img).max())
+    note = " (thresholded: expected nonzero)" if args.scenario == 3 else ""
+    print(f"max |reconstruction - input| = {err:.3e}{note}")
     write_dat(args.out, rec)
     print(f"result written to {args.out}")
     return 0
@@ -109,7 +140,7 @@ def main(argv=None) -> int:
                         "scalar, or BayesShrink per band) instead of --beta")
     p.add_argument("--out", default="res.dat")
     p.add_argument("--native", action="store_true",
-                   help="the C++ CPU engine (left out of the port)")
+                   help="run on the C++ CPU engine (cpp/, compiled on first use)")
     p.add_argument("--mode", default="periodization",
                    help="boundary extension: periodization (the reference scheme) or any "
                         "pywt mode, zero, constant, symmetric, reflect, periodic, smooth, "
@@ -124,9 +155,6 @@ def main(argv=None) -> int:
                         "without arguments")
     args = p.parse_args(argv)
 
-    if args.native:
-        p.error("--native: the C++ CPU engine is left out of the port (ROADMAP, "
-                "\"Leave out of the port\"); run pdwt_tpu.demo for it")
     if args.mode != "periodization" and (args.swt or args.nonseparable):
         p.error("--mode (pywt boundary extensions) applies to the separable decimated DWT; "
                 "the SWT and non-separable paths are periodization-only")
@@ -137,9 +165,14 @@ def main(argv=None) -> int:
     from pdwt_tpu_torch import Wavelets
     from pdwt_tpu_torch.utils import read_dat, tensor_to_numpy, write_dat
 
-    img = read_dat(args.image, (args.nd, args.nr, args.nc) if args.nd else (args.nr, args.nc))
+    if args.auto_beta != "none" and args.native:
+        p.error("--auto-beta needs the JAX engine (drop --native)")
+    shape = (args.nd, args.nr, args.nc) if args.nd else (args.nr, args.nc)
+    img = read_dat(args.image, shape)
     if args.scenario in (4, 5, 6):
         return _denoise_scenario(p, args, img)
+    if args.native:
+        return _native(args, img, shape)
     tier = {"exact": "exact", "mixed": "mixed", "bf16": "bf16-fast"}[args.precision]
     W = Wavelets(img, wname=args.wavelet, levels=args.levels, do_swt=args.swt,
                  do_separable=not args.nonseparable, do_cycle_spinning=args.cycle_spinning,

@@ -2,11 +2,14 @@
 
 Each source is compiled with ``nvcc`` into an object file, all of them at
 once in parallel, and the objects are linked into one shared library with
-a plain C interface, on first use, into ``kernels/_build/`` (listed in
-``.gitignore``), and loaded with ctypes.  The library's file name carries a
-hash of every source, header and flag, so editing any of them rebuilds it.
-Nothing is built when the package is imported, and a failed build or load
-raises.
+a plain C interface, on first use, into the build directory of
+``utils/cache.py`` (``kernels/_build/`` in a checkout, listed in
+``.gitignore``; the user's cache directory for a read-only install;
+``enable_compile_cache`` or ``PDWT_TPU_COMPILE_CACHE`` to choose), and
+loaded with ctypes.  The library's file name carries a hash of every
+source, header and flag, so editing any of them rebuilds it, and it is
+moved into place with an atomic rename.  Nothing is built when the package
+is imported, and a failed build or load raises.
 """
 from __future__ import annotations
 
@@ -15,6 +18,9 @@ import functools
 import hashlib
 import os
 import subprocess
+import time
+
+from ..utils import cache
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(os.path.join(_HERE, "csrc", name)
@@ -22,7 +28,8 @@ SOURCES = tuple(os.path.join(_HERE, "csrc", name)
                              "swt_matmul.cu", "ns_matmul.cu"))
 #: headers the sources include; hashed with them, so editing one rebuilds
 HEADERS = tuple(os.path.join(_HERE, "csrc", name) for name in ("mxu_common.cuh", "band_strip.cuh"))
-BUILD_DIR = os.path.join(_HERE, "_build")
+#: the in-tree build directory (``cache.build_dir()`` is where builds go)
+BUILD_DIR = cache.TREE_DIR
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,7 +51,7 @@ def library_path() -> str:
     for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             digest.update(f.read())
-    return os.path.join(BUILD_DIR, f"libpdwt_kernels_{digest.hexdigest()[:16]}.so")
+    return os.path.join(cache.build_dir(), f"libpdwt_kernels_{digest.hexdigest()[:16]}.so")
 
 
 def build_log() -> str:
@@ -69,27 +76,34 @@ def _run_all(cmds):
     return "".join(outs)
 
 
-def _build(so: str) -> None:
-    os.makedirs(BUILD_DIR, exist_ok=True)
+def _build(so: str) -> str:
+    """Build the library; returns the path to load (``so``, or the
+    temporary file of a build too quick to keep, ``cache.keep``)."""
+    os.makedirs(os.path.dirname(so), exist_ok=True)
     tmp = f"{so}.{os.getpid()}"
+    t0 = time.perf_counter()
     nvcc = _nvcc()
     objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
     log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, src] for o, src in zip(objs, SOURCES)])
     log += _run_all([[nvcc, *ARCH, "-shared", "-o", tmp + ".tmp", *objs]])
     for o in objs:
         os.remove(o)
+    if not cache.keep(time.perf_counter() - t0):
+        return tmp + ".tmp"
     with open(so + ".log", "w") as f:
         f.write(log)
     os.replace(tmp + ".tmp", so)
+    return so
 
 
 @functools.cache
 def load() -> ctypes.CDLL:
     """The kernel library, built first if a source changed."""
     so = library_path()
-    if not os.path.isfile(so):
-        _build(so)
-    lib = ctypes.CDLL(so)
+    path = so if os.path.isfile(so) else _build(so)
+    lib = ctypes.CDLL(path)
+    if path != so:
+        os.remove(path)
     P, I = ctypes.c_void_p, ctypes.c_int
     sigs = {
         # x, a, h, v, d, B, R, C, taps (4, hlen on the device), hlen, center, the launch

@@ -8,7 +8,8 @@ the inverse), the fully data-driven ``auto_denoise``, the averaged
 device mesh, ``sharded_denoise_step_3d``, the starlet k-sigma denoise
 ``starlet_auto_denoise`` and the best-basis packet denoise
 ``packet_denoise``.  Shifts come from a ``torch.Generator`` where JAX
-takes a PRNG key."""
+takes a PRNG key.  Every entry point takes ``backend=`` and passes it to
+each transform it runs (``core/separable.py``'s route rule)."""
 from __future__ import annotations
 
 import math
@@ -37,8 +38,8 @@ def _resolve(wav):
 
 def denoise_step(img: torch.Tensor, generator: Optional[torch.Generator], wav,
                  levels: int, beta, *, swt: bool = False, mode: str = "soft",
-                 normalize: bool = False, boundary="periodization"
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 normalize: bool = False, boundary="periodization",
+                 backend: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One denoising step; returns ``(denoised, norm1_of_thresholded_coeffs)``.
 
     ``generator=None`` disables cycle spinning.  Otherwise the row and
@@ -63,18 +64,19 @@ def denoise_step(img: torch.Tensor, generator: Optional[torch.Generator], wav,
         sr, sc = ops.random_shift(generator, (nr, nc))
         img = ops.circshift2d(img, sr, sc)
     if swt and mode in THR_ELEM and not isinstance(beta, (list, tuple)):
-        coeffs = swt2d(img, wav, levels)
+        coeffs = swt2d(img, wav, levels, backend=backend)
         n1 = ops.thresholded_norm1(coeffs, beta, mode=mode, normalize=normalize)
-        out = iswt2d_denoise(coeffs, wav, beta, mode=mode, normalize=normalize)
+        out = iswt2d_denoise(coeffs, wav, beta, mode=mode, normalize=normalize, backend=backend)
     elif swt:
-        coeffs = _THRESH[mode](swt2d(img, wav, levels), beta, normalize=normalize)
-        n1 = ops.norm1(coeffs)
-        out = iswt2d(coeffs, wav)
-    else:
-        coeffs = _THRESH[mode](dwt2d(img, wav, levels, mode=boundary), beta,
+        coeffs = _THRESH[mode](swt2d(img, wav, levels, backend=backend), beta,
                                normalize=normalize)
         n1 = ops.norm1(coeffs)
-        out = idwt2d(coeffs, wav, (nr, nc), mode=boundary)
+        out = iswt2d(coeffs, wav, backend=backend)
+    else:
+        coeffs = _THRESH[mode](dwt2d(img, wav, levels, backend=backend, mode=boundary), beta,
+                               normalize=normalize)
+        n1 = ops.norm1(coeffs)
+        out = idwt2d(coeffs, wav, (nr, nc), backend=backend, mode=boundary)
     if generator is not None:
         out = ops.circshift2d(out, -sr, -sc)
     return out, n1
@@ -93,8 +95,8 @@ def _auto_betas(coeffs, method: str):
 
 
 def auto_denoise(img: torch.Tensor, wav, levels: int, *, method: str = "bayes",
-                 mode: str = "soft", swt: bool = False, boundary="periodization"
-                 ) -> torch.Tensor:
+                 mode: str = "soft", swt: bool = False, boundary="periodization",
+                 backend: Optional[str] = None) -> torch.Tensor:
     """Data-driven 2D denoise: the noise level and the thresholds come from
     the coefficients (``method``: ``"bayes"`` per band, ``"sure"`` hybrid
     SureShrink per band, ``"universal"`` one VisuShrink threshold), then
@@ -106,33 +108,35 @@ def auto_denoise(img: torch.Tensor, wav, levels: int, *, method: str = "bayes",
         raise ValueError("boundary modes apply to the decimated DWT only")
     check_mode(mode)
     wav = _resolve(wav)
-    coeffs = swt2d(img, wav, levels) if swt else dwt2d(img, wav, levels, mode=boundary)
+    coeffs = (swt2d(img, wav, levels, backend=backend) if swt
+              else dwt2d(img, wav, levels, backend=backend, mode=boundary))
     beta = _auto_betas(coeffs, method)
     if swt and mode in THR_ELEM and not isinstance(beta, list):
-        return iswt2d_denoise(coeffs, wav, beta, mode=mode)
+        return iswt2d_denoise(coeffs, wav, beta, mode=mode, backend=backend)
     coeffs = _THRESH[mode](coeffs, beta)
     if swt:
-        return iswt2d(coeffs, wav)
-    return idwt2d(coeffs, wav, tuple(img.shape[-2:]), mode=boundary)
+        return iswt2d(coeffs, wav, backend=backend)
+    return idwt2d(coeffs, wav, tuple(img.shape[-2:]), backend=backend, mode=boundary)
 
 
 def cycle_spin_denoise(img: torch.Tensor, generator: torch.Generator, wav, levels: int,
                        beta, *, spins: int = 8, mode: str = "soft",
-                       normalize: bool = False) -> torch.Tensor:
+                       normalize: bool = False, backend: Optional[str] = None) -> torch.Tensor:
     """The mean of ``spins`` randomly shifted DWT denoising steps (TI
     denoising), their shifts drawn in turn from ``generator``; summed in
     order, then divided once, as JAX's scan does."""
     wav = _resolve(wav)
     acc = torch.zeros_like(img)
     for _ in range(spins):
-        out, _ = denoise_step(img, generator, wav, levels, beta, mode=mode, normalize=normalize)
+        out, _ = denoise_step(img, generator, wav, levels, beta, mode=mode, normalize=normalize,
+                              backend=backend)
         acc = acc + out
     return acc / torch.full((), spins, dtype=acc.dtype, device=acc.device)
 
 
 def sharded_denoise_step(img, wav, levels: int, beta, mesh, *, data_axis: Optional[str] = None,
                          row_axis: Optional[str] = None, col_axis: Optional[str] = None,
-                         mode: str = "soft", swt: bool = False):
+                         mode: str = "soft", swt: bool = False, backend: Optional[str] = None):
     """One denoising step over a (data, row, col) device mesh (no cycle
     spinning): the sharded DWT (or SWT) of ``img`` (a DTensor, or a full
     tensor that every rank passes alike), the threshold, the norm and the
@@ -153,30 +157,30 @@ def sharded_denoise_step(img, wav, levels: int, beta, mesh, *, data_axis: Option
     axes = dict(data_axis=data_axis, row_axis=row_axis, col_axis=col_axis)
     return _sharded_step(par.dwt2d, par.idwt2d, Coeffs2D, img, tuple(img.shape[-2:]), wav,
                          levels, beta, mesh, axes, par._placements(mesh, img.ndim, **axes),
-                         mode, swt)
+                         mode, swt, backend)
 
 
 def _sharded_step(fwd, inv, tree, img, shape, wav, levels, beta, mesh, axes, placements,
-                  mode, swt):
+                  mode, swt, backend):
     """The sharded steps' body: the sharded forward ``fwd``, the threshold
     and the norm on each rank's shards (the norm all-reduced over the mesh
     axes that shard the input), the sharded inverse ``inv`` to ``shape``;
     ``tree`` is the coefficients' type."""
     from ..parallel import sharded as par
 
-    coeffs = fwd(img, wav, levels, mesh, swt=swt, **axes)
+    coeffs = fwd(img, wav, levels, mesh, swt=swt, backend=backend, **axes)
     loc = lambda t: t.to_local()
     coeffs = _THRESH[mode](tree(loc(coeffs.approx),
                                 tuple(tuple(map(loc, b)) for b in coeffs.details)), beta)
     n1 = par.all_reduce_sum(ops.norm1(coeffs), mesh, tuple(axes.values()))
     glob = lambda t: par._global(t, mesh, placements)
     coeffs = tree(glob(coeffs.approx), tuple(tuple(map(glob, b)) for b in coeffs.details))
-    return inv(coeffs, wav, shape, mesh, swt=swt, **axes), n1
+    return inv(coeffs, wav, shape, mesh, swt=swt, backend=backend, **axes), n1
 
 
 def denoise_step_3d(vol: torch.Tensor, generator: Optional[torch.Generator], wav, levels: int,
-                    beta, *, swt: bool = False, mode: str = "soft", normalize: bool = False
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    beta, *, swt: bool = False, mode: str = "soft", normalize: bool = False,
+                    backend: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One volume denoising step over the trailing three axes (random
     circular shift, 3D DWT or SWT, threshold, norm, inverse, unshift);
     returns ``(denoised, norm1_of_thresholded_coeffs)``.
@@ -197,41 +201,45 @@ def denoise_step_3d(vol: torch.Tensor, generator: Optional[torch.Generator], wav
         sd, sr, sc = draw(nd), draw(nr), draw(nc)
         vol = ops.circshift3d(vol, sd, sr, sc)
     if swt and mode in THR_ELEM and not isinstance(beta, (list, tuple)):
-        coeffs = swt3d(vol, wav, levels)
+        coeffs = swt3d(vol, wav, levels, backend=backend)
         n1 = ops.thresholded_norm1(coeffs, beta, mode=mode, normalize=normalize)
-        out = iswt3d_denoise(coeffs, wav, beta, mode=mode, normalize=normalize)
+        out = iswt3d_denoise(coeffs, wav, beta, mode=mode, normalize=normalize, backend=backend)
     elif swt:
-        coeffs = _THRESH[mode](swt3d(vol, wav, levels), beta, normalize=normalize)
+        coeffs = _THRESH[mode](swt3d(vol, wav, levels, backend=backend), beta,
+                               normalize=normalize)
         n1 = ops.norm1(coeffs)
-        out = iswt3d(coeffs, wav)
+        out = iswt3d(coeffs, wav, backend=backend)
     else:
-        coeffs = _THRESH[mode](dwt3d(vol, wav, levels), beta, normalize=normalize)
+        coeffs = _THRESH[mode](dwt3d(vol, wav, levels, backend=backend), beta,
+                               normalize=normalize)
         n1 = ops.norm1(coeffs)
-        out = idwt3d(coeffs, wav, (nd, nr, nc))
+        out = idwt3d(coeffs, wav, (nd, nr, nc), backend=backend)
     if generator is not None:
         out = ops.circshift3d(out, -sd, -sr, -sc)
     return out, n1
 
 
 def auto_denoise_3d(vol: torch.Tensor, wav, levels: int, *, method: str = "bayes",
-                    mode: str = "soft", swt: bool = False) -> torch.Tensor:
+                    mode: str = "soft", swt: bool = False, backend: Optional[str] = None
+                    ) -> torch.Tensor:
     """Data-driven volume denoise: the noise level from the finest
     all-high-pass band (ddd), the thresholds per band (``"bayes"``,
     ``"sure"``) or one for the tree (``"universal"``), then the threshold
     and the inverse (unfused, as JAX's)."""
     check_mode(mode)
     wav = _resolve(wav)
-    coeffs = swt3d(vol, wav, levels) if swt else dwt3d(vol, wav, levels)
+    coeffs = (swt3d if swt else dwt3d)(vol, wav, levels, backend=backend)
     coeffs = _THRESH[mode](coeffs, _auto_betas(coeffs, method))
     if swt:
-        return iswt3d(coeffs, wav)
-    return idwt3d(coeffs, wav, tuple(vol.shape[-3:]))
+        return iswt3d(coeffs, wav, backend=backend)
+    return idwt3d(coeffs, wav, tuple(vol.shape[-3:]), backend=backend)
 
 
 def sharded_denoise_step_3d(vol, wav, levels: int, beta, mesh, *,
                             data_axis: Optional[str] = None, dep_axis: Optional[str] = None,
                             row_axis: Optional[str] = None, col_axis: Optional[str] = None,
-                            mode: str = "soft", swt: bool = False):
+                            mode: str = "soft", swt: bool = False,
+                            backend: Optional[str] = None):
     """One volume denoising step over a (data, depth, row, col) device mesh
     (no cycle spinning), :func:`sharded_denoise_step` of the volume: the
     sharded 3D DWT (or SWT) of ``vol`` (a DTensor, or a full tensor that
@@ -246,11 +254,12 @@ def sharded_denoise_step_3d(vol, wav, levels: int, beta, mesh, *,
     axes = dict(data_axis=data_axis, dep_axis=dep_axis, row_axis=row_axis, col_axis=col_axis)
     return _sharded_step(par.dwt3d, par.idwt3d, Coeffs3D, vol, tuple(vol.shape[-3:]), wav,
                          levels, beta, mesh, axes, par._placements3d(mesh, vol.ndim, **axes),
-                         mode, swt)
+                         mode, swt, backend)
 
 
 def starlet_auto_denoise(x: torch.Tensor, levels: int, *, k: float = 3.0, ndim: int = 2,
-                         gen: int = 2, mode: str = "soft") -> torch.Tensor:
+                         gen: int = 2, mode: str = "soft", backend: Optional[str] = None
+                         ) -> torch.Tensor:
     """Knob-free starlet denoise (Starck's k-sigma rule): the white-noise
     sigma is the MAD of the finest detail plane over 0.6745 divided by that
     plane's exact gain (``core.starlet.starlet_noise_gains``), and every
@@ -261,7 +270,7 @@ def starlet_auto_denoise(x: torch.Tensor, levels: int, *, k: float = 3.0, ndim: 
     from ..core.starlet import StarletCoeffs, istarlet, starlet, starlet_noise_gains
 
     thr = THR_ELEM[mode]
-    c = starlet(x, levels, ndim=ndim, gen=gen)
+    c = starlet(x, levels, ndim=ndim, gen=gen, backend=backend)
     gains = starlet_noise_gains(levels, ndim, gen)
     ks = list(k) if isinstance(k, (list, tuple)) else [k] * levels
     if len(ks) != levels:
@@ -269,11 +278,11 @@ def starlet_auto_denoise(x: torch.Tensor, levels: int, *, k: float = 3.0, ndim: 
     m = median(c.details[0].abs())
     sigma = m / _const(0.6745, m) / _const(gains[0], m)
     details = tuple(thr(w, kj * sigma * g) for w, kj, g in zip(c.details, ks, gains))
-    return istarlet(StarletCoeffs(c.approx, details), ndim=ndim, gen=gen)
+    return istarlet(StarletCoeffs(c.approx, details), ndim=ndim, gen=gen, backend=backend)
 
 
 def packet_denoise(img: torch.Tensor, wav, levels: int, beta=None, *, cost: str = "shannon",
-                   mode: str = "soft") -> torch.Tensor:
+                   mode: str = "soft", backend: Optional[str] = None) -> torch.Tensor:
     """Best-basis wavelet-packet denoise: the full packet tree, the
     Coifman-Wickerhauser best basis, every detail leaf thresholded (node 0
     of its depth, the pure approximation chain, kept), the reconstruction.
@@ -285,10 +294,11 @@ def packet_denoise(img: torch.Tensor, wav, levels: int, beta=None, *, cost: str 
 
     wav = _resolve(wav)
     thr = THR_ELEM[mode]
-    pk = pk_mod.wp2d(img, wav, levels)
+    pk = pk_mod.wp2d(img, wav, levels, backend=backend)
     if beta is None:
         d1 = pk.nodes[1][..., 3, :, :].to(torch.float32)
         sigma = median(d1.abs()) * _const(_MAD_TO_SIGMA, d1)
         beta = sigma * _const(math.sqrt(2.0 * math.log(img.shape[-2] * img.shape[-1])), d1)
     leaves, _ = pk_mod.best_basis(pk, cost)
-    return pk_mod.wp_reconstruct(pk_mod.threshold_details(pk, leaves, thr, beta), leaves, wav)
+    return pk_mod.wp_reconstruct(pk_mod.threshold_details(pk, leaves, thr, beta), leaves, wav,
+                                 backend=backend)

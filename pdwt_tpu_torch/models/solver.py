@@ -23,8 +23,8 @@ from ..ops.norms import _group_norms
 
 def ista(y: torch.Tensor, op: Optional[Callable] = None, op_t: Optional[Callable] = None, *,
          wav="db7", levels: int = 4, lam: float = 1.0, step: float = 1.0, iters: int = 50,
-         fista: bool = True, x0: Optional[torch.Tensor] = None, reg: str = "l1"
-         ) -> Tuple[torch.Tensor, torch.Tensor]:
+         fista: bool = True, x0: Optional[torch.Tensor] = None, reg: str = "l1",
+         backend: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(F)ISTA in the analysis form: x <- W^-1 prox(W(v - step op^T(op(v) -
     y)), step lam), with Nesterov momentum under ``fista``.
 
@@ -32,7 +32,8 @@ def ista(y: torch.Tensor, op: Optional[Callable] = None, op_t: Optional[Callable
     the linear ``op``, from ``torch.func.vjp`` at ``x0`` (else ``y``).
     ``reg="l1"`` soft-thresholds, ``reg="group"`` group-soft-thresholds;
     both act on the detail bands only, and the objective's lam R term sums
-    exactly those.  Returns ``(x, objective per iteration)``."""
+    exactly those.  ``backend``: the transforms' route
+    (``core/separable.py``).  Returns ``(x, objective per iteration)``."""
     if reg not in ("l1", "group"):
         raise ValueError(f"reg must be 'l1' or 'group', got {reg!r}")
     wav = get_wavelet(wav) if isinstance(wav, str) else wav
@@ -50,8 +51,8 @@ def ista(y: torch.Tensor, op: Optional[Callable] = None, op_t: Optional[Callable
     t = torch.ones((), dtype=y.dtype, device=y.device)
     trace = []
     for _ in range(iters):
-        c = prox(dwt2d(v - step * op_t(op(v) - y), wav, levels), step * lam)
-        x_new = idwt2d(c, wav, shape)
+        c = prox(dwt2d(v - step * op_t(op(v) - y), wav, levels, backend=backend), step * lam)
+        x_new = idwt2d(c, wav, shape, backend=backend)
         if fista:
             t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
             v = x_new + ((t - 1.0) / t_new) * (x_new - x)

@@ -35,10 +35,11 @@ import torch
 import torch.distributed as dist
 
 from ..core.anisotropic import _axis_blocks, _per_axis_levels, pack1d, unpack1d
-from ..core.separable import Coeffs1D
+from ..core.separable import Coeffs1D, dwt1d, idwt1d
 from ..filters import Wavelet
 from .halo import make_pad_fn
-from .sharded import _axis_size, _check_div, _global, _local, _local_dwt1d, _local_idwt1d
+from .sharded import (_axis_size, _check_div, _global, _local, _local_dwt1d, _local_idwt1d,
+                      _use_local_kernels)
 
 Levels = Union[int, Sequence[int]]
 
@@ -115,13 +116,14 @@ def _unpack_sharded(y: torch.Tensor, n_global: int, lv: int, mesh,
 
 
 def fs_dwt(x, wav: Wavelet, levels: Levels, mesh, *, axes: Sequence[Optional[str]],
-           data_axis: Optional[str] = None):
+           data_axis: Optional[str] = None, backend: Optional[str] = None):
     """Sharded fully separable forward transform over the trailing
     ``len(axes)`` axes of ``x`` (a DTensor, or a full tensor, placed with
     the input sharding): ``axes[k]`` names the mesh axis the k-th spatial
     dim is sharded over (None: unsharded).  Returns the packed coefficient
     DTensor, sharded as the input, globally equal to the single-device
-    :func:`core.anisotropic.fs_dwt`."""
+    :func:`core.anisotropic.fs_dwt`.  ``backend``: each axis's 1D route
+    (``parallel/sharded.py``, JAX's ``_use_local_pallas``)."""
     axes, lvls = _norm_axes(axes, levels)
     nd = len(axes)
     if nd > x.ndim:
@@ -136,13 +138,18 @@ def fs_dwt(x, wav: Wavelet, levels: Levels, mesh, *, axes: Sequence[Optional[str
         if lv == 0:
             continue
         ax = x.ndim - nd + k
-        c = _local_dwt1d(y.movedim(ax, -1), wav, lv, make_pad_fn(mesh, None, axes[k]), False)
+        pad_fn = make_pad_fn(mesh, None, axes[k])
+        if _use_local_kernels(backend):
+            c = _local_dwt1d(y.movedim(ax, -1), wav, lv, pad_fn, False)
+        else:
+            c = dwt1d(y.movedim(ax, -1), wav, lv, backend=backend, pad_fn=pad_fn)
         y = _pack_sharded(c, mesh, axes[k]).movedim(-1, ax)
     return _global(y, mesh, placements)
 
 
 def fs_idwt(arr, wav: Wavelet, shape: Sequence[int], levels: Levels, mesh, *,
-            axes: Sequence[Optional[str]], data_axis: Optional[str] = None):
+            axes: Sequence[Optional[str]], data_axis: Optional[str] = None,
+            backend: Optional[str] = None):
     """Inverse of :func:`fs_dwt`; ``shape`` is the original size of the
     trailing spatial axes."""
     axes, lvls = _norm_axes(axes, levels)
@@ -158,6 +165,10 @@ def fs_idwt(arr, wav: Wavelet, shape: Sequence[int], levels: Levels, mesh, *,
             continue
         ax = arr.ndim - nd + k
         c = _unpack_sharded(y.movedim(ax, -1), shape[k], lv, mesh, axes[k])
-        y = _local_idwt1d(c, wav, shape[k] // _axis_size(mesh, axes[k]),
-                          make_pad_fn(mesh, None, axes[k]), False).movedim(-1, ax)
+        n, pad_fn = shape[k] // _axis_size(mesh, axes[k]), make_pad_fn(mesh, None, axes[k])
+        if _use_local_kernels(backend):
+            y = _local_idwt1d(c, wav, n, pad_fn, False)
+        else:
+            y = idwt1d(c, wav, n, backend=backend, pad_fn=pad_fn)
+        y = y.movedim(-1, ax)
     return _global(y, mesh, placements)

@@ -61,22 +61,26 @@ def _validate(x, mesh, sd: int, data_axis, spatial_axes) -> None:
 
 
 def starlet(x, levels: int, mesh, *, data_axis: Optional[str] = None,
-            spatial_axes: Tuple[Optional[str], ...] = (None, None), gen: int = 2):
+            spatial_axes: Tuple[Optional[str], ...] = (None, None), gen: int = 2,
+            backend: Optional[str] = None):
     """Sharded isotropic a-trous decomposition of ``x`` (a DTensor, or a
     full tensor placed with the input sharding); ``spatial_axes`` names the
     mesh axis (or None) per trailing spatial dim.  A ``StarletCoeffs`` of
-    DTensors sharded as the input."""
+    DTensors sharded as the input.  ``backend``: the passes' formulation
+    (``None`` and ``"pallas"`` take ``"fma"``, as JAX's sharded starlet
+    does)."""
     sd = len(spatial_axes)
     _validate(x, mesh, sd, data_axis, spatial_axes)
     placements = _placements(mesh, x.ndim, sd, data_axis, spatial_axes)
     c = _core.starlet(_local(x, mesh, placements), levels, ndim=sd, gen=gen,
-                      pad_fn=_pad_fn(mesh, sd, spatial_axes))
+                      backend=backend, pad_fn=_pad_fn(mesh, sd, spatial_axes))
     g = lambda t: _global(t, mesh, placements)
     return StarletCoeffs(g(c.approx), tuple(map(g, c.details)))
 
 
 def istarlet(coeffs, mesh, *, data_axis: Optional[str] = None,
-             spatial_axes: Tuple[Optional[str], ...] = (None, None), gen: int = 2):
+             spatial_axes: Tuple[Optional[str], ...] = (None, None), gen: int = 2,
+             backend: Optional[str] = None):
     """Sharded inverse of :func:`starlet` (the same axes and ``gen``)."""
     sd = len(spatial_axes)
     a = coeffs.approx
@@ -84,5 +88,5 @@ def istarlet(coeffs, mesh, *, data_axis: Optional[str] = None,
     placements = _placements(mesh, a.ndim, sd, data_axis, spatial_axes)
     loc = lambda t: _local(t, mesh, placements)
     cl = StarletCoeffs(loc(a), tuple(map(loc, coeffs.details)))
-    return _global(_core.istarlet(cl, ndim=sd, gen=gen, pad_fn=_pad_fn(mesh, sd, spatial_axes)),
-                   mesh, placements)
+    return _global(_core.istarlet(cl, ndim=sd, gen=gen, backend=backend,
+                                  pad_fn=_pad_fn(mesh, sd, spatial_axes)), mesh, placements)

@@ -49,6 +49,24 @@ def _pad(mesh, axes: dict):
     return make_pad_fn(mesh, axes.get("row_axis"), axes.get("col_axis"), axes.get("dep_axis"))
 
 
+_CORE_FWD = {1: "dwt1d", 2: "dwt2d", 3: "dwt3d"}
+_CORE_INV = {1: "idwt1d", 2: "idwt2d", 3: "idwt3d"}
+
+
+def _core_module(sd: int):
+    from ..core import separable, separable3d
+    return separable3d if sd == 3 else separable
+
+
+def _level_fn(sd: int, local_fn, backend):
+    """A depth's single-level forward: the local composition, or under a
+    conv formulation the core transform with the ring ``pad_fn``."""
+    if S._use_local_kernels(backend):
+        return local_fn
+    fwd = getattr(_core_module(sd), _CORE_FWD[sd])
+    return lambda x, wav, lv, pad_fn, swt: fwd(x, wav, lv, backend=backend, pad_fn=pad_fn)
+
+
 def _wp(container, sd: int, x, wav, levels, mesh, axes: dict, level_fn):
     xl = S._local(x, mesh, _node_placements(sd, mesh, x.ndim, axes))
     pad_fn = _pad(mesh, axes)
@@ -62,27 +80,28 @@ def _wp(container, sd: int, x, wav, levels, mesh, axes: dict, level_fn):
 
 
 def wp2d(x, wav: Wavelet, levels: int, mesh, *, data_axis: Optional[str] = None,
-         row_axis: Optional[str] = None, col_axis: Optional[str] = None) -> Packets2D:
+         row_axis: Optional[str] = None, col_axis: Optional[str] = None,
+         backend: Optional[str] = None) -> Packets2D:
     """Sharded full 2D packet decomposition of ``x`` (a DTensor, or a full
     tensor placed with the input sharding): one ring-halo single-level DWT
     a depth, the node axis the replicated batch.  Nodes are DTensors."""
     S._validate2d(tuple(x.shape), mesh, data_axis, row_axis, col_axis, levels, swt=False)
     axes = dict(data_axis=data_axis, row_axis=row_axis, col_axis=col_axis)
-    return _wp(Packets2D, 2, x, wav, levels, mesh, axes, S._local_dwt2d)
+    return _wp(Packets2D, 2, x, wav, levels, mesh, axes, _level_fn(2, S._local_dwt2d, backend))
 
 
 def wp1d(x, wav: Wavelet, levels: int, mesh, *, data_axis: Optional[str] = None,
-         col_axis: Optional[str] = None) -> Packets1D:
+         col_axis: Optional[str] = None, backend: Optional[str] = None) -> Packets1D:
     """Sharded full 1D packet decomposition over the trailing axis."""
     if col_axis is not None:
         S._check_div("signal", x.shape[-1], S._axis_size(mesh, col_axis), levels, swt=False)
     axes = dict(data_axis=data_axis, col_axis=col_axis)
-    return _wp(Packets1D, 1, x, wav, levels, mesh, axes, S._local_dwt1d)
+    return _wp(Packets1D, 1, x, wav, levels, mesh, axes, _level_fn(1, S._local_dwt1d, backend))
 
 
 def wp3d(x, wav: Wavelet, levels: int, mesh, *, data_axis: Optional[str] = None,
          dep_axis: Optional[str] = None, row_axis: Optional[str] = None,
-         col_axis: Optional[str] = None) -> Packets3D:
+         col_axis: Optional[str] = None, backend: Optional[str] = None) -> Packets3D:
     """Sharded full 3D packet decomposition (octree): a depth is one
     ring-halo single-level 3D DWT over (depth, row, col), each depth's
     nodes checked as the sharded ``dwt3d`` checks its input."""
@@ -91,12 +110,18 @@ def wp3d(x, wav: Wavelet, levels: int, mesh, *, data_axis: Optional[str] = None,
         S._validate3d(tuple(x.shape[:-3]) + (8 ** j,) + tuple(s[j] for s in sizes), mesh,
                       data_axis, dep_axis, row_axis, col_axis, 1, False)
     axes = dict(data_axis=data_axis, dep_axis=dep_axis, row_axis=row_axis, col_axis=col_axis)
-    return _wp(Packets3D, 3, x, wav, levels, mesh, axes, S._local_dwt3d)
+    return _wp(Packets3D, 3, x, wav, levels, mesh, axes, _level_fn(3, S._local_dwt3d, backend))
 
 
-def _local_inv1(sd: int, wav, pad_fn):
+def _local_inv1(sd: int, wav, pad_fn, backend=None):
     """The ring-halo single-level inverse on local shards: (coeffs, local
-    out_shape) -> this rank's shard."""
+    out_shape) -> this rank's shard (the core inverse with the ring under a
+    conv formulation)."""
+    if not S._use_local_kernels(backend):
+        inv = getattr(_core_module(sd), _CORE_INV[sd])
+        if sd == 1:
+            return lambda cfs, out: inv(cfs, wav, out[0], backend=backend, pad_fn=pad_fn)
+        return lambda cfs, out: inv(cfs, wav, out, backend=backend, pad_fn=pad_fn)
     if sd == 3:
         return lambda cfs, out: S._local_idwt3d(cfs, wav, out, pad_fn, False)
     if sd == 2:
@@ -104,7 +129,8 @@ def _local_inv1(sd: int, wav, pad_fn):
     return lambda cfs, out: S._local_idwt1d(cfs, wav, out[0], pad_fn, False)
 
 
-def _reconstruct_local(packets_l, leaves, wav, mesh, axes: dict, out_ndim: int, map_fn=None):
+def _reconstruct_local(packets_l, leaves, wav, mesh, axes: dict, out_ndim: int, map_fn=None,
+                       backend=None):
     """``core.packets.wp_reconstruct`` on local shards (their shapes give
     the local per-depth sizes); ``map_fn`` sees each leaf as a DTensor."""
     sd, _, _ = _geom(packets_l)
@@ -114,7 +140,7 @@ def _reconstruct_local(packets_l, leaves, wav, mesh, axes: dict, out_ndim: int, 
         def fn(v, j, i):
             return S._local(map_fn(S._global(v, mesh, pl), j, i), mesh, pl)
     y = _core_wp_reconstruct(packets_l, leaves, wav, map_fn=fn,
-                             inv1_fn=_local_inv1(sd, wav, _pad(mesh, axes)))
+                             inv1_fn=_local_inv1(sd, wav, _pad(mesh, axes), backend))
     return S._global(y, mesh, pl)
 
 
@@ -129,7 +155,7 @@ def _axes_of(sd: int, data_axis, dep_axis, row_axis, col_axis) -> dict:
 def wp_reconstruct(packets, leaves: Sequence[Tuple[int, int]], wav: Wavelet, mesh, *,
                    data_axis: Optional[str] = None, dep_axis: Optional[str] = None,
                    row_axis: Optional[str] = None, col_axis: Optional[str] = None,
-                   map_fn=None):
+                   backend: Optional[str] = None, map_fn=None):
     """Sharded pruned-tree reconstruction: the core cover walk with every
     batched single-level inverse replaced by its ring-halo sharded
     counterpart.  A DTensor sharded as the decomposition's input."""
@@ -139,10 +165,11 @@ def wp_reconstruct(packets, leaves: Sequence[Tuple[int, int]], wav: Wavelet, mes
     pl = _node_placements(sd, mesh, ndim, axes)
     local = type(packets)(tuple(None if t is None else S._local(t, mesh, pl)
                                 for t in packets.nodes))
-    return _reconstruct_local(local, leaves, wav, mesh, axes, ndim - 1, map_fn)
+    return _reconstruct_local(local, leaves, wav, mesh, axes, ndim - 1, map_fn, backend)
 
 
-def _iwp_full(container, fan: int, sd: int, leaf_nodes, wav, shape, mesh, axes: dict):
+def _iwp_full(container, fan: int, sd: int, leaf_nodes, wav, shape, mesh, axes: dict,
+              backend=None):
     """The full-tree inverse: ``wp_reconstruct`` over the complete deepest
     cover; the root entry is a shape-only ``meta`` tensor (only its shape
     feeds the per-depth sizes), of this rank's local shape."""
@@ -158,30 +185,31 @@ def _iwp_full(container, fan: int, sd: int, leaf_nodes, wav, shape, mesh, axes: 
     root = torch.empty(tuple(leaf_l.shape[:-(sd + 1)]) + (1,) + local_shape, device="meta")
     pk = container((root,) + (None,) * (levels - 1) + (leaf_l,))
     leaves = [(levels, i) for i in range(n_nodes)]
-    return _reconstruct_local(pk, leaves, wav, mesh, axes, leaf_nodes.ndim - 1)
+    return _reconstruct_local(pk, leaves, wav, mesh, axes, leaf_nodes.ndim - 1, backend=backend)
 
 
 def iwp1d(leaf_nodes, wav: Wavelet, length: int, mesh, *, data_axis: Optional[str] = None,
-          col_axis: Optional[str] = None):
+          col_axis: Optional[str] = None, backend: Optional[str] = None):
     """Sharded inverse of the full 1D packet decomposition from
     ``packets.nodes[-1]``."""
     return _iwp_full(Packets1D, 2, 1, leaf_nodes, wav, (length,), mesh,
-                     dict(data_axis=data_axis, col_axis=col_axis))
+                     dict(data_axis=data_axis, col_axis=col_axis), backend)
 
 
 def iwp2d(leaf_nodes, wav: Wavelet, shape: Tuple[int, int], mesh, *,
           data_axis: Optional[str] = None, row_axis: Optional[str] = None,
-          col_axis: Optional[str] = None):
+          col_axis: Optional[str] = None, backend: Optional[str] = None):
     """Sharded inverse of the full 2D packet decomposition from
     ``packets.nodes[-1]``; ``shape`` the global (rows, cols)."""
     return _iwp_full(Packets2D, 4, 2, leaf_nodes, wav, shape, mesh,
-                     dict(data_axis=data_axis, row_axis=row_axis, col_axis=col_axis))
+                     dict(data_axis=data_axis, row_axis=row_axis, col_axis=col_axis), backend)
 
 
 def iwp3d(leaf_nodes, wav: Wavelet, shape: Tuple[int, int, int], mesh, *,
           data_axis: Optional[str] = None, dep_axis: Optional[str] = None,
-          row_axis: Optional[str] = None, col_axis: Optional[str] = None):
+          row_axis: Optional[str] = None, col_axis: Optional[str] = None,
+          backend: Optional[str] = None):
     """Sharded inverse of the full 3D packet decomposition."""
     return _iwp_full(Packets3D, 8, 3, leaf_nodes, wav, shape, mesh,
                      dict(data_axis=data_axis, dep_axis=dep_axis, row_axis=row_axis,
-                          col_axis=col_axis))
+                          col_axis=col_axis), backend)

@@ -58,6 +58,14 @@ depth-bit regrouping (two 2D inverses a level, then
 single-card exact inverse (depth synthesis first) to roundoff.  The
 non-separable transforms run ``core/nonseparable.py`` on each shard with
 the ring ``pad_fn``, or with none where only the batch is sharded.
+
+``backend=`` (JAX's ``_use_local_pallas``, ``sharded.py:91-94``): ``None``
+or ``"pallas"`` takes the local composition above, JAX's TPU route, on
+every device; ``"fma"``, ``"xla"`` or ``"gather"`` runs the core
+transform of that formulation on each shard with the ring ``pad_fn``
+(``core/separable.py``'s conv route, no kernel), as JAX's conv route
+does.  The composition's own conv-pass levels keep ``"fma"``, as JAX's
+hard-code it (``sharded.py:128-129, 173-175, 257``).
 """
 from __future__ import annotations
 
@@ -68,6 +76,8 @@ import torch
 
 from .. import kernels
 from ..core import conv
+from ..core import separable as sep_core
+from ..core import separable3d as sep3
 from ..core.depth_matmul import depth_analysis_ring, depth_synthesis_ring
 from ..core.separable import (BF16, F32, Coeffs1D, Coeffs2D, _swt_mxu_mode, check_supported,
                               fwd_mode_pad, inv_mode_pad, mxu_mode)
@@ -85,6 +95,13 @@ PER = "periodization"
 # ---------------------------------------------------------------------------
 # validation
 # ---------------------------------------------------------------------------
+
+def _use_local_kernels(backend: Optional[str]) -> bool:
+    """JAX's ``_use_local_pallas`` on the TPU: ``None`` or ``"pallas"``
+    takes the local composition; a conv formulation the core transform
+    with the ring ``pad_fn``."""
+    return backend in (None, "pallas")
+
 
 def _check_div(name: str, size: int, shards: int, levels: int, swt: bool):
     need = shards * (1 if swt else (1 << levels))
@@ -388,21 +405,26 @@ def _local_idwt2d(cl, wav, local_shape, pad_fn, swt, exact=False):
 
 def dwt2d(x, wav: Wavelet, levels: int, mesh, *, data_axis: Optional[str] = None,
           row_axis: Optional[str] = None, col_axis: Optional[str] = None,
-          swt: bool = False) -> Coeffs2D:
+          backend: Optional[str] = None, swt: bool = False) -> Coeffs2D:
     """Sharded multi-level separable 2D DWT (or SWT with ``swt=True``) of
     ``x``, a DTensor (or a full tensor, placed by :func:`shard_image`)
     -> a ``Coeffs2D`` of DTensors sharded as the input."""
     _validate2d(tuple(x.shape), mesh, data_axis, row_axis, col_axis, levels, swt)
     placements = _placements(mesh, x.ndim, data_axis, row_axis, col_axis)
     pad_fn = make_pad_fn(mesh, row_axis, col_axis)
-    cl = _local_dwt2d(_local(x, mesh, placements), wav, levels, pad_fn, swt)
+    xl = _local(x, mesh, placements)
+    if _use_local_kernels(backend):
+        cl = _local_dwt2d(xl, wav, levels, pad_fn, swt)
+    else:
+        core = sep_core.swt2d if swt else sep_core.dwt2d
+        cl = core(xl, wav, levels, backend=backend, pad_fn=pad_fn)
     g = lambda t: _global(t, mesh, placements)
     return Coeffs2D(g(cl.approx), tuple(tuple(map(g, band)) for band in cl.details))
 
 
 def idwt2d(coeffs: Coeffs2D, wav: Wavelet, shape: Tuple[int, int], mesh, *,
            data_axis: Optional[str] = None, row_axis: Optional[str] = None,
-           col_axis: Optional[str] = None, swt: bool = False):
+           col_axis: Optional[str] = None, backend: Optional[str] = None, swt: bool = False):
     """Sharded inverse of :func:`dwt2d`; ``shape`` is the global (Nr, Nc).
     Returns a DTensor sharded as the forward's input."""
     levels = coeffs.levels
@@ -417,7 +439,13 @@ def idwt2d(coeffs: Coeffs2D, wav: Wavelet, shape: Tuple[int, int], mesh, *,
     local_shape = (shape[0] // _axis_size(mesh, row_axis), shape[1] // _axis_size(mesh, col_axis))
     loc = lambda t: _local(t, mesh, placements)
     cl = Coeffs2D(loc(a), tuple(tuple(map(loc, band)) for band in coeffs.details))
-    return _global(_local_idwt2d(cl, wav, local_shape, pad_fn, swt), mesh, placements)
+    if _use_local_kernels(backend):
+        y = _local_idwt2d(cl, wav, local_shape, pad_fn, swt)
+    elif swt:
+        y = sep_core.iswt2d(cl, wav, backend=backend, pad_fn=pad_fn)
+    else:
+        y = sep_core.idwt2d(cl, wav, local_shape, backend=backend, pad_fn=pad_fn)
+    return _global(y, mesh, placements)
 
 
 def swt2d(x, wav, levels, mesh, **kw) -> Coeffs2D:
@@ -537,7 +565,8 @@ def _placements1d(mesh, ndim, data_axis, col_axis):
 
 
 def dwt1d(x, wav: Wavelet, levels: int, mesh, *, data_axis: Optional[str] = None,
-          col_axis: Optional[str] = None, swt: bool = False) -> Coeffs1D:
+          col_axis: Optional[str] = None, backend: Optional[str] = None,
+          swt: bool = False) -> Coeffs1D:
     """Sharded multi-level 1D DWT (or SWT with ``swt=True``) along the last
     axis of ``x``, a DTensor or a full tensor -> a ``Coeffs1D`` of
     DTensors."""
@@ -548,14 +577,19 @@ def dwt1d(x, wav: Wavelet, levels: int, mesh, *, data_axis: Optional[str] = None
     if col_axis is not None:
         _check_div("signal", x.shape[-1], _axis_size(mesh, col_axis), levels, swt)
     pad_fn = make_pad_fn(mesh, None, col_axis)
-    cl = _local_dwt1d(_local(x, mesh, placements), wav, levels, pad_fn, swt)
+    xl = _local(x, mesh, placements)
+    if _use_local_kernels(backend):
+        cl = _local_dwt1d(xl, wav, levels, pad_fn, swt)
+    else:
+        core = sep_core.swt1d if swt else sep_core.dwt1d
+        cl = core(xl, wav, levels, backend=backend, pad_fn=pad_fn)
     g = lambda t: _global(t, mesh, placements)
     return Coeffs1D(g(cl.approx), tuple(map(g, cl.details)))
 
 
 def idwt1d(coeffs: Coeffs1D, wav: Wavelet, length: int, mesh, *,
            data_axis: Optional[str] = None, col_axis: Optional[str] = None,
-           swt: bool = False):
+           backend: Optional[str] = None, swt: bool = False):
     """Sharded inverse of :func:`dwt1d`; ``length`` is the global signal
     length."""
     levels = coeffs.levels
@@ -567,7 +601,13 @@ def idwt1d(coeffs: Coeffs1D, wav: Wavelet, length: int, mesh, *,
     local_len = length // _axis_size(mesh, col_axis)
     loc = lambda t: _local(t, mesh, placements)
     cl = Coeffs1D(loc(a), tuple(map(loc, coeffs.details)))
-    return _global(_local_idwt1d(cl, wav, local_len, pad_fn, swt), mesh, placements)
+    if _use_local_kernels(backend):
+        y = _local_idwt1d(cl, wav, local_len, pad_fn, swt)
+    elif swt:
+        y = sep_core.iswt1d(cl, wav, backend=backend, pad_fn=pad_fn)
+    else:
+        y = sep_core.idwt1d(cl, wav, local_len, backend=backend, pad_fn=pad_fn)
+    return _global(y, mesh, placements)
 
 
 def swt1d(x, wav, levels, mesh, **kw) -> Coeffs1D:
@@ -657,7 +697,8 @@ def _local_idwt3d(cl, wav, local_shape, pad_fn, swt):
 
 def dwt3d(x, wav: Wavelet, levels: int, mesh, *, data_axis: Optional[str] = None,
           dep_axis: Optional[str] = None, row_axis: Optional[str] = None,
-          col_axis: Optional[str] = None, swt: bool = False) -> Coeffs3D:
+          col_axis: Optional[str] = None, backend: Optional[str] = None,
+          swt: bool = False) -> Coeffs3D:
     """Sharded multi-level separable 3D DWT (or SWT with ``swt=True``) of
     ``x`` (..., D, R, C), a DTensor (or a full tensor, placed by
     :func:`shard_image` with ``dep_axis``) -> a ``Coeffs3D`` of DTensors
@@ -665,7 +706,12 @@ def dwt3d(x, wav: Wavelet, levels: int, mesh, *, data_axis: Optional[str] = None
     _validate3d(tuple(x.shape), mesh, data_axis, dep_axis, row_axis, col_axis, levels, swt)
     placements = _placements3d(mesh, x.ndim, data_axis, dep_axis, row_axis, col_axis)
     pad_fn = make_pad_fn(mesh, row_axis, col_axis, dep_axis)
-    cl = _local_dwt3d(_local(x, mesh, placements), wav, levels, pad_fn, swt)
+    xl = _local(x, mesh, placements)
+    if _use_local_kernels(backend):
+        cl = _local_dwt3d(xl, wav, levels, pad_fn, swt)
+    else:
+        core = sep3.swt3d if swt else sep3.dwt3d
+        cl = core(xl, wav, levels, backend=backend, pad_fn=pad_fn)
     g = lambda t: _global(t, mesh, placements)
     return Coeffs3D(g(cl.approx), tuple(tuple(map(g, band)) for band in cl.details))
 
@@ -673,7 +719,7 @@ def dwt3d(x, wav: Wavelet, levels: int, mesh, *, data_axis: Optional[str] = None
 def idwt3d(coeffs: Coeffs3D, wav: Wavelet, shape: Tuple[int, int, int], mesh, *,
            data_axis: Optional[str] = None, dep_axis: Optional[str] = None,
            row_axis: Optional[str] = None, col_axis: Optional[str] = None,
-           swt: bool = False):
+           backend: Optional[str] = None, swt: bool = False):
     """Sharded inverse of :func:`dwt3d`; ``shape`` is the global (Nd, Nr,
     Nc).  Returns a DTensor sharded as the forward's input."""
     levels = coeffs.levels
@@ -688,7 +734,13 @@ def idwt3d(coeffs: Coeffs3D, wav: Wavelet, shape: Tuple[int, int, int], mesh, *,
     local_shape = tuple(n // _axis_size(mesh, ax) for n, ax in zip(shape, axes))
     loc = lambda t: _local(t, mesh, placements)
     cl = Coeffs3D(loc(a), tuple(tuple(map(loc, band)) for band in coeffs.details))
-    return _global(_local_idwt3d(cl, wav, local_shape, pad_fn, swt), mesh, placements)
+    if _use_local_kernels(backend):
+        y = _local_idwt3d(cl, wav, local_shape, pad_fn, swt)
+    elif swt:
+        y = sep3.iswt3d(cl, wav, backend=backend, pad_fn=pad_fn)
+    else:
+        y = sep3.idwt3d(cl, wav, local_shape, backend=backend, pad_fn=pad_fn)
+    return _global(y, mesh, placements)
 
 
 def swt3d(x, wav, levels, mesh, **kw) -> Coeffs3D:

@@ -17,14 +17,15 @@ The drop-ins (``wavedec*``/``waverec*``, ``dwt``/``idwt``, ``dwt2``/
 defaults (``mode="symmetric"``, pywt's, not the reference's
 periodization) and transform the trailing axes.  A tensor keeps its
 device; numpy input goes to the card unless ``device=`` names another
-(``utils/convert.py: image_tensor``).  Outputs stay tensors.  The
+(``utils/convert.py: image_tensor``); ``backend=`` is the transforms'
+route (``core/separable.py``).  Outputs stay tensors.  The
 symmetric default runs the padded kernels 1p, 2p, 7p and 8p (and the depth
 products for ``wavedecn``), ``mode="periodization"`` kernels 1-4, 7 and 8,
 the stationary pairs kernels 5, 6, 9 and 10 (``keep_approx=True``).
 """
 from __future__ import annotations
 
-from typing import Any, List
+from typing import Any, List, Optional
 
 import torch
 
@@ -96,17 +97,17 @@ def _levels(shape, wav, level, ndim) -> int:
     return level
 
 
-def wavedec(data, wavelet, mode: str = "symmetric", level=None, *, device=None) -> List[Any]:
+def wavedec(data, wavelet, mode: str = "symmetric", level=None, *, backend: Optional[str] = None, device=None) -> List[Any]:
     """pywt.wavedec over the trailing axis: [cA_n, cD_n, ..., cD_1]."""
     data = image_tensor(data, device)
     wav = _wav(wavelet)
     level = _levels(data.shape, wav, level, 1)
     if level == 0:
         return [data]
-    return to_pywt(dwt1d(data, wav, level, mode=mode))
+    return to_pywt(dwt1d(data, wav, level, backend=backend, mode=mode))
 
 
-def wavedec2(data, wavelet, mode: str = "symmetric", level=None, *, device=None) -> List[Any]:
+def wavedec2(data, wavelet, mode: str = "symmetric", level=None, *, backend: Optional[str] = None, device=None) -> List[Any]:
     """pywt.wavedec2 over the trailing two axes: [cA_n, (cH_n, cV_n,
     cD_n), ..., level 1]."""
     data = image_tensor(data, device)
@@ -114,10 +115,10 @@ def wavedec2(data, wavelet, mode: str = "symmetric", level=None, *, device=None)
     level = _levels(data.shape, wav, level, 2)
     if level == 0:
         return [data]
-    return to_pywt(dwt2d(data, wav, level, mode=mode))
+    return to_pywt(dwt2d(data, wav, level, backend=backend, mode=mode))
 
 
-def wavedecn(data, wavelet, mode: str = "symmetric", level=None, *, device=None) -> List[Any]:
+def wavedecn(data, wavelet, mode: str = "symmetric", level=None, *, backend: Optional[str] = None, device=None) -> List[Any]:
     """pywt.wavedecn for 3D volumes (trailing three axes): [cA_n, {'aad':
     ..., ..., 'ddd': ...}, ..., level 1].  For 1D and 2D use
     :func:`wavedec` / :func:`wavedec2`."""
@@ -128,7 +129,7 @@ def wavedecn(data, wavelet, mode: str = "symmetric", level=None, *, device=None)
     level = _levels(data.shape, wav, level, 3)
     if level == 0:
         return [data]
-    return to_pywt(dwt3d(data, wav, level, mode=mode))
+    return to_pywt(dwt3d(data, wav, level, backend=backend, mode=mode))
 
 
 def _crop_like(a: torch.Tensor, shape, ndim: int) -> torch.Tensor:
@@ -143,7 +144,7 @@ def _crop_like(a: torch.Tensor, shape, ndim: int) -> torch.Tensor:
     return a
 
 
-def waverec(coeffs, wavelet, mode: str = "symmetric", *, device=None) -> torch.Tensor:
+def waverec(coeffs, wavelet, mode: str = "symmetric", *, backend: Optional[str] = None, device=None) -> torch.Tensor:
     """pywt.waverec: inverse of :func:`wavedec`.  The output length is the
     finest level's full ``2M - F + 2`` (``2M`` for periodization), as
     pywt's: slice to the original length if it was odd."""
@@ -152,11 +153,12 @@ def waverec(coeffs, wavelet, mode: str = "symmetric", *, device=None) -> torch.T
     for d in coeffs[1:]:  # coarsest -> finest
         d = image_tensor(d, device)
         a = _crop_like(a, d.shape, 1)
-        a = idwt1d(Coeffs1D(a, (d,)), wav, rec_len(d.shape[-1], wav.hlen, mode), mode=mode)
+        a = idwt1d(Coeffs1D(a, (d,)), wav, rec_len(d.shape[-1], wav.hlen, mode), backend=backend,
+                   mode=mode)
     return a
 
 
-def waverec2(coeffs, wavelet, mode: str = "symmetric", *, device=None) -> torch.Tensor:
+def waverec2(coeffs, wavelet, mode: str = "symmetric", *, backend: Optional[str] = None, device=None) -> torch.Tensor:
     """pywt.waverec2: inverse of :func:`wavedec2`."""
     wav = _wav(wavelet)
     a = image_tensor(coeffs[0], device)
@@ -164,11 +166,11 @@ def waverec2(coeffs, wavelet, mode: str = "symmetric", *, device=None) -> torch.
         h, v, d = (image_tensor(t, device) for t in lvl)
         a = _crop_like(a, h.shape, 2)
         shape = tuple(rec_len(n, wav.hlen, mode) for n in h.shape[-2:])
-        a = idwt2d(Coeffs2D(a, ((h, v, d),)), wav, shape, mode=mode)
+        a = idwt2d(Coeffs2D(a, ((h, v, d),)), wav, shape, backend=backend, mode=mode)
     return a
 
 
-def waverecn(coeffs, wavelet, mode: str = "symmetric", *, device=None) -> torch.Tensor:
+def waverecn(coeffs, wavelet, mode: str = "symmetric", *, backend: Optional[str] = None, device=None) -> torch.Tensor:
     """pywt.waverecn (3D): inverse of :func:`wavedecn`."""
     wav = _wav(wavelet)
     a = image_tensor(coeffs[0], device)
@@ -176,17 +178,17 @@ def waverecn(coeffs, wavelet, mode: str = "symmetric", *, device=None) -> torch.
         bands = tuple(image_tensor(lvl[k], device) for k in DETAIL_KEYS_3D)
         a = _crop_like(a, bands[0].shape, 3)
         shape = tuple(rec_len(n, wav.hlen, mode) for n in bands[0].shape[-3:])
-        a = idwt3d(Coeffs3D(a, (bands,)), wav, shape, mode=mode)
+        a = idwt3d(Coeffs3D(a, (bands,)), wav, shape, backend=backend, mode=mode)
     return a
 
 
-def dwt(data, wavelet, mode: str = "symmetric", *, device=None):
+def dwt(data, wavelet, mode: str = "symmetric", *, backend: Optional[str] = None, device=None):
     """pywt.dwt: single-level 1D decomposition -> ``(cA, cD)``."""
-    cl = wavedec(data, wavelet, mode, level=1, device=device)
+    cl = wavedec(data, wavelet, mode, level=1, backend=backend, device=device)
     return cl[0], cl[1]
 
 
-def idwt(cA, cD, wavelet, mode: str = "symmetric", *, device=None) -> torch.Tensor:
+def idwt(cA, cD, wavelet, mode: str = "symmetric", *, backend: Optional[str] = None, device=None) -> torch.Tensor:
     """pywt.idwt: single-level 1D reconstruction; either of ``cA``/``cD``
     may be None (pywt: the missing branch is zeros)."""
     if cA is None and cD is None:
@@ -195,16 +197,16 @@ def idwt(cA, cD, wavelet, mode: str = "symmetric", *, device=None) -> torch.Tens
         cA = torch.zeros_like(image_tensor(cD, device))
     if cD is None:
         cD = torch.zeros_like(image_tensor(cA, device))
-    return waverec([cA, cD], wavelet, mode, device=device)
+    return waverec([cA, cD], wavelet, mode, backend=backend, device=device)
 
 
-def dwt2(data, wavelet, mode: str = "symmetric", *, device=None):
+def dwt2(data, wavelet, mode: str = "symmetric", *, backend: Optional[str] = None, device=None):
     """pywt.dwt2: single-level 2D decomposition -> ``(cA, (cH, cV, cD))``."""
-    cl = wavedec2(data, wavelet, mode, level=1, device=device)
+    cl = wavedec2(data, wavelet, mode, level=1, backend=backend, device=device)
     return cl[0], cl[1]
 
 
-def idwt2(coeffs, wavelet, mode: str = "symmetric", *, device=None) -> torch.Tensor:
+def idwt2(coeffs, wavelet, mode: str = "symmetric", *, backend: Optional[str] = None, device=None) -> torch.Tensor:
     """pywt.idwt2: inverse of :func:`dwt2`; ``coeffs = (cA, (cH, cV, cD))``
     with None entries as zeros (pywt)."""
     cA, hvd = coeffs
@@ -215,33 +217,37 @@ def idwt2(coeffs, wavelet, mode: str = "symmetric", *, device=None) -> torch.Ten
     ref = image_tensor(ref, device)
     cA = torch.zeros_like(ref) if cA is None else cA
     bands = [torch.zeros_like(ref) if b is None else b for b in bands]
-    return waverec2([cA, tuple(bands)], wavelet, mode, device=device)
+    return waverec2([cA, tuple(bands)], wavelet, mode, backend=backend, device=device)
 
 
-def swt(data, wavelet, level: int, *, device=None) -> List[Any]:
+def swt(data, wavelet, level: int, *, backend: Optional[str] = None, device=None) -> List[Any]:
     """pywt.swt-shaped stationary transform: coarsest-first ``[(cA_n,
     cD_n), ..., (cA_1, cD_1)]`` (the per-level approximations are
     ``swt1d(keep_approx=True)``'s).  The values follow this package's
     a-trous phase, which may differ from pywt's by a shift a level."""
-    c, approxs = swt1d(image_tensor(data, device), _wav(wavelet), level, keep_approx=True)
+    c, approxs = swt1d(image_tensor(data, device), _wav(wavelet), level, backend=backend,
+                       keep_approx=True)
     return [(approxs[i], c.details[i]) for i in range(level - 1, -1, -1)]
 
 
-def iswt(coeffs, wavelet, *, device=None) -> torch.Tensor:
+def iswt(coeffs, wavelet, *, backend: Optional[str] = None, device=None) -> torch.Tensor:
     """Inverse of :func:`swt` (the deepest approximation and every
     detail, as pywt.iswt)."""
     details = tuple(image_tensor(d, device) for _, d in reversed(coeffs))  # finest first
-    return iswt1d(Coeffs1D(image_tensor(coeffs[0][0], device), details), _wav(wavelet))
+    return iswt1d(Coeffs1D(image_tensor(coeffs[0][0], device), details), _wav(wavelet),
+                  backend=backend)
 
 
-def swt2(data, wavelet, level: int, *, device=None) -> List[Any]:
+def swt2(data, wavelet, level: int, *, backend: Optional[str] = None, device=None) -> List[Any]:
     """pywt.swt2-shaped 2D stationary transform: coarsest-first ``[(cA_i,
     (cH_i, cV_i, cD_i)), ...]`` (phase as :func:`swt`)."""
-    c, approxs = swt2d(image_tensor(data, device), _wav(wavelet), level, keep_approx=True)
+    c, approxs = swt2d(image_tensor(data, device), _wav(wavelet), level, backend=backend,
+                       keep_approx=True)
     return [(approxs[i], tuple(c.details[i])) for i in range(level - 1, -1, -1)]
 
 
-def iswt2(coeffs, wavelet, *, device=None) -> torch.Tensor:
+def iswt2(coeffs, wavelet, *, backend: Optional[str] = None, device=None) -> torch.Tensor:
     """Inverse of :func:`swt2`."""
     details = tuple(tuple(image_tensor(b, device) for b in hvd) for _, hvd in reversed(coeffs))
-    return iswt2d(Coeffs2D(image_tensor(coeffs[0][0], device), details), _wav(wavelet))
+    return iswt2d(Coeffs2D(image_tensor(coeffs[0][0], device), details), _wav(wavelet),
+                  backend=backend)

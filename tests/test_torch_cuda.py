@@ -2010,3 +2010,27 @@ def test_sharded_tiers_on_one_rank_match_the_cpu(dev, tier, tmp_path):
         assert launched == want_l
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("backend", ["fma", "xla", "gather"])
+def test_conv_formulations_on_the_card_launch_nothing_and_match(backend, dev):
+    """JAX's conv formulations on the card: no kernel of the port launches,
+    the 2D and 1D roundtrips match ``backend=None`` within 1e-5 of the
+    largest output, and float64 runs (the conv route takes it)."""
+    from pdwt_tpu_torch.kernels import LAUNCHES, reset_launch_counts
+
+    w = get_wavelet("db7")
+    x = _rand(dev, 2, 96, 80)
+    want = dwt2d(x, w, 3)
+    reset_launch_counts()
+    got = dwt2d(x, w, 3, backend=backend)
+    y = idwt2d(got, w, (96, 80), backend=backend)
+    y1 = idwt1d(dwt1d(x[0], w, 2, backend=backend), w, 80, backend=backend)
+    torch.cuda.synchronize()
+    assert sum(LAUNCHES.values()) == 0
+    peak = float(want.approx.abs().max())
+    for a, b in zip([got.approx, *got.details[0]], [want.approx, *want.details[0]]):
+        assert float((a - b).abs().max()) <= 1e-5 * peak
+    assert float((y - x).abs().max()) < 1e-3 and float((y1 - x[0]).abs().max()) < 1e-3
+    y64 = idwt2d(dwt2d(x.double(), w, 3, backend=backend), w, (96, 80), backend=backend)
+    assert y64.dtype == torch.float64 and float((y64 - x.double()).abs().max()) < 1e-9

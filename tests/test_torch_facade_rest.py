@@ -456,7 +456,8 @@ def test_demo_interactive_matches_jax(dat_image, tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("extra,message", [(["--mode", "symmetric", "--swt"],
                                             "periodization-only"),
-                                           (["--native"], "left out of the port")])
+                                           (["--native", "--scenario", "5"],
+                                            "needs the JAX engine")])
 def test_demo_refuses_what_waits(extra, message, dat_image, capsys):
     with pytest.raises(SystemExit) as err:
         demo.main([dat_image[0], "--nr", "64", "--nc", "48", "--device", "cpu", *extra])
@@ -479,20 +480,17 @@ def test_demo_runs_as_a_module(dat_image, tmp_path):
 # the public names the port still lacks
 # ---------------------------------------------------------------------------
 
-LEAVE_OUT = "leave out"
 #: every public name of the JAX package that the port lacks, by namespace,
-#: with the ROADMAP queue 1 item that brings it or ROADMAP's "Leave out of
-#: the port" (the C++ engine, the XLA compile cache, the tunnel timing)
+#: with the ROADMAP queue 1 item that brings it: none is left
 DEFERRED = {
-    "top": {"native": LEAVE_OUT},
+    "top": {},
     "Wavelets": {},
     "filters": {},
     "ops": {},
     "models": {},
     "core": {},
     "parallel": {},
-    "utils": {"enable_compile_cache": LEAVE_OUT, "device_time": LEAVE_OUT,
-              "device_time_any": LEAVE_OUT, "trace": LEAVE_OUT},
+    "utils": {},
 }
 
 
@@ -521,7 +519,7 @@ def test_public_names_the_port_lacks_are_the_documented_deferrals(ns):
 
 def test_facade_methods_take_jax_arguments():
     """Every Wavelets method the port shares with JAX takes its arguments,
-    but JAX's ``backend``."""
+    ``backend`` included."""
     import inspect
 
     for name in _public("Wavelets", pdwt_tpu_torch):
@@ -529,5 +527,4 @@ def test_facade_methods_take_jax_arguments():
             continue
         mine, theirs = (inspect.signature(getattr(cls, name))
                         for cls in (Wavelets, JWavelets))
-        assert [p for p in theirs.parameters if p != "backend"] == \
-            list(mine.parameters), name
+        assert list(theirs.parameters) == list(mine.parameters), name
