@@ -1,0 +1,8 @@
+"""The benchmark's tests import ``wavebench`` and the program from the
+checkout's root."""
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
