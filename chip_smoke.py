@@ -226,7 +226,6 @@ import functools
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -235,6 +234,8 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from wavebench import tracing
 
 N, WNAME, LEVELS, BETA = 2048, "db7", 5, 10.0
 # the TI-denoise step (bench.py:126-145)
@@ -429,45 +430,24 @@ def cuda_ms(fn, reps: int = 20) -> float:
 @functools.lru_cache(maxsize=1)
 def port_kernels() -> frozenset:
     """The names of the port's CUDA kernels, the ``__global__`` functions
-    of its sources."""
+    of its sources (``wavebench.tracing.port_kernels``)."""
     from pdwt_tpu_torch.kernels import _build
 
-    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)")
-    names = set()
-    for src in _build.SOURCES:
-        with open(src) as fh:
-            names.update(pat.findall(fh.read()))
-    return frozenset(names)
+    return tracing.port_kernels(_build.SOURCES)
 
 
 def is_port_kernel(event_name: str) -> bool:
-    """Is a profiler event one of the port's kernels?  They sit in the
-    sources' top-level anonymous namespace."""
-    m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)[<(]", event_name)
-    return m is not None and m.group(1) in port_kernels()
+    """Is a profiler event one of the port's kernels?
+    (``wavebench.tracing.is_port_kernel``)"""
+    return tracing.is_port_kernel(event_name, port_kernels())
 
 
 def busy_per_call(events, reps: int, launched: int):
     """(busy ms per call, {kernel name: ms per call}) from one profiler
-    window over ``reps`` calls: ``events`` are its device events as (name,
-    ms), ``launched`` what the port's launch counters gained over it.  The
-    profiler now and then drops a few of a kernel's events, so a name's
-    time per call is its mean per recorded event times its launches per
-    call: its recorded events over ``reps``, rounded up (every call
-    launches the same kernels, and a drop only lowers the count; exact
-    while a name loses fewer than ``reps`` events in the window).  The
-    port's own kernels are held to the counters: None where their launches
-    per call do not add up to ``launched / reps`` (a count read low) or
-    the window recorded nothing."""
-    sums, counts = {}, {}
-    for name, ms in events:
-        sums[name] = sums.get(name, 0.0) + ms
-        counts[name] = counts.get(name, 0) + 1
-    per_call = {k: -(-n // reps) for k, n in counts.items()}
-    if not sums or reps * sum(n for k, n in per_call.items() if is_port_kernel(k)) != launched:
-        return None
-    by_name = {k: sums[k] / counts[k] * per_call[k] for k in sums}
-    return sum(by_name.values()), by_name
+    window over ``reps`` calls, or None where the port's kernels fall short
+    of the ``launched`` count (``wavebench.tracing.busy_per_call``)."""
+    busy = tracing.busy_per_call(events, reps, launched, port_kernels())
+    return None if busy is None else busy[:2]
 
 
 def device_ms(fn, reps: int = 10):

@@ -68,7 +68,10 @@ their first launch.  ``backend=`` on every transform picks JAX's route:
 the kernels (``None``, ``"pallas"``) or one of JAX's three conv
 formulations (``"fma"``, ``"xla"``, ``"gather"``; ``core/conv.py``).
 """
-from . import core, filters, models, native, ops, parallel, utils
+# utils first: the layers below take their spans from utils/profiling.py, and
+# utils' other modules import core
+from . import utils
+from . import core, filters, models, native, ops, parallel
 from .api import Wavelets, WaveletSpec
 from .api_extras import DualTree, Starlet
 from .api_packets import WaveletPackets

@@ -68,6 +68,7 @@ from .core.shapes import coeff_shapes_1d, coeff_shapes_2d, coeff_shapes_3d, max_
 from .filters import Wavelet, get_wavelet, make_custom_wavelet, quad_filters
 from .utils.convert import (default_device, image_tensor, same_device, tensor_from_numpy,
                             tensor_to_numpy)
+from .utils.profiling import spanned
 
 
 class WState(enum.Enum):
@@ -327,6 +328,7 @@ class Wavelets:
             return (idwt3d if s.ndim == 3 else idwt2d)(coeffs, self._wavelet, s.shape,
                                                         backend=be, mode=s.mode)
 
+    @spanned("facade")
     def forward(self):
         """Compute the coefficients of the current image.  With cycle
         spinning, the row, the column and (3D) the depth shift are drawn
@@ -343,6 +345,7 @@ class Wavelets:
         self.state = WState.FORWARD
         return self._coeffs
 
+    @spanned("facade")
     def run_denoise(self, beta, mode: str = "soft", do_thresh_appcoeffs: bool = False,
                     normalize: bool = False):
         """The whole denoise step: (cycle-spinning shift) -> analysis ->
@@ -383,6 +386,7 @@ class Wavelets:
             out = self._shift(out, -sd, -sr, -sc)
         return out, n1
 
+    @spanned("facade")
     def inverse(self) -> torch.Tensor:
         """Reconstruct the image from the coefficients."""
         if self.state == WState.INVERSE:

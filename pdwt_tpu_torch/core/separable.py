@@ -74,6 +74,7 @@ import torch
 
 from .. import kernels
 from ..filters import Wavelet
+from ..utils.profiling import spanned
 from . import conv, modes, precision
 from .precision import takes_precision
 from .shapes import level_sizes
@@ -395,6 +396,7 @@ def _mode_padded(backend, pad_fn, dtype: torch.dtype, device: torch.device, hlen
             and mode_route(dtype, device, hlen) == "padded")
 
 
+@spanned("transform")
 @takes_precision
 def dwt2d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] = None,
           pad_fn=None, mode="periodization") -> Coeffs2D:
@@ -444,6 +446,7 @@ def dwt2d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] 
                     tuple(tuple(_unflat(t, batch) for t in band) for band in details))
 
 
+@spanned("transform")
 @takes_precision
 def idwt2d(coeffs: Coeffs2D, wav: Wavelet, shape: Tuple[int, int], *,
            backend: Optional[str] = None, pad_fn=None, mode="periodization") -> torch.Tensor:
@@ -511,6 +514,7 @@ def _swt_mxu_mode(dtype: torch.dtype) -> Optional[str]:
     return None if mxu == "mixed" else mxu
 
 
+@spanned("transform")
 @takes_precision
 def swt2d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] = None,
           pad_fn=None, keep_approx: bool = False):
@@ -572,6 +576,7 @@ def _iswt2d_levels(coeffs: Coeffs2D, wav: Wavelet, level_fn, a_fn=None) -> torch
     return _unflat(a, batch)
 
 
+@spanned("transform")
 @takes_precision
 def iswt2d(coeffs: Coeffs2D, wav: Wavelet, *, backend: Optional[str] = None,
            pad_fn=None) -> torch.Tensor:
@@ -592,6 +597,7 @@ def iswt2d(coeffs: Coeffs2D, wav: Wavelet, *, backend: Optional[str] = None,
     return _iswt2d_levels(coeffs, wav, level)
 
 
+@spanned("transform")
 @takes_precision
 def iswt2d_denoise(coeffs: Coeffs2D, wav: Wavelet, beta, *, mode: str = "soft",
                    normalize: bool = False, do_thresh_appcoeffs: bool = False,
@@ -642,6 +648,7 @@ def _check_1d(x: torch.Tensor) -> None:
         raise ValueError(f"expected at least 1D input, got shape {tuple(x.shape)}")
 
 
+@spanned("transform")
 @takes_precision
 def dwt1d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] = None,
           pad_fn=None, mode="periodization") -> Coeffs1D:
@@ -676,6 +683,7 @@ def dwt1d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] 
     return Coeffs1D(_unflat(a, batch), tuple(details))
 
 
+@spanned("transform")
 @takes_precision
 def idwt1d(coeffs: Coeffs1D, wav: Wavelet, length: int, *, backend: Optional[str] = None,
            pad_fn=None, mode="periodization") -> torch.Tensor:
@@ -714,6 +722,7 @@ def idwt1d(coeffs: Coeffs1D, wav: Wavelet, length: int, *, backend: Optional[str
     return _unflat(a, batch)
 
 
+@spanned("transform")
 @takes_precision
 def swt1d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] = None,
           pad_fn=None, keep_approx: bool = False):
@@ -745,6 +754,7 @@ def swt1d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] 
     return (coeffs, tuple(approxs)) if keep_approx else coeffs
 
 
+@spanned("transform")
 @takes_precision
 def iswt1d(coeffs: Coeffs1D, wav: Wavelet, *, backend: Optional[str] = None,
            pad_fn=None) -> torch.Tensor:

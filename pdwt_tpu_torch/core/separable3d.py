@@ -61,6 +61,7 @@ import torch
 
 from .. import kernels
 from ..filters import Wavelet
+from ..utils.profiling import spanned
 from . import conv, modes
 from .depth_matmul import depth_analysis_mm, depth_synthesis_mm
 from .precision import takes_precision
@@ -226,6 +227,7 @@ def _idwt3d_mode(coeffs: Coeffs3D, wav: Wavelet, shape, per: Tuple[str, str, str
 _PER3 = ("periodization",) * 3
 
 
+@spanned("transform")
 @takes_precision
 def dwt3d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] = None,
           pad_fn=None, mode="periodization") -> Coeffs3D:
@@ -252,6 +254,7 @@ def dwt3d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] 
     return Coeffs3D(_unflat(a, batch), tuple(details))
 
 
+@spanned("transform")
 @takes_precision
 def idwt3d(coeffs: Coeffs3D, wav: Wavelet, shape: Tuple[int, int, int], *,
            backend: Optional[str] = None, pad_fn=None, mode="periodization") -> torch.Tensor:
@@ -297,6 +300,7 @@ def idwt3d(coeffs: Coeffs3D, wav: Wavelet, shape: Tuple[int, int, int], *,
 # stationary (a-trous)
 # ---------------------------------------------------------------------------
 
+@spanned("transform")
 @takes_precision
 def swt3d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] = None,
           pad_fn=None, keep_approx: bool = False):
@@ -355,6 +359,7 @@ def _iswt3d_levels(coeffs: Coeffs3D, wav: Wavelet, level_fn, a_fn=None) -> torch
     return _unflat(a.contiguous(), batch)
 
 
+@spanned("transform")
 @takes_precision
 def iswt3d(coeffs: Coeffs3D, wav: Wavelet, *, backend: Optional[str] = None,
            pad_fn=None) -> torch.Tensor:
@@ -382,6 +387,7 @@ def iswt3d(coeffs: Coeffs3D, wav: Wavelet, *, backend: Optional[str] = None,
     return _iswt3d_levels(coeffs, wav, level)
 
 
+@spanned("transform")
 @takes_precision
 def iswt3d_denoise(coeffs: Coeffs3D, wav: Wavelet, beta, *, mode: str = "soft",
                    normalize: bool = False, do_thresh_appcoeffs: bool = False,

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from ..core import conv
+from ..utils.profiling import spanned
 from ._launch import (InvPlan, PadAxis, check_span, dilation, dual_taps, launch, on_cpu,
                       pad_axis, pad_positions, poly_geo, ptr, rev)
 from .mxu1d import fwd1d_launch_plan, inv1d_launch_plan
@@ -176,6 +177,7 @@ def _pair_shape(lo: torch.Tensor, hi: torch.Tensor):
     return lo.shape
 
 
+@spanned("kernels")
 def fwd_level_1d(x: torch.Tensor, dec_lo, dec_hi):
     """One decimated analysis level on (B, N), N even -> (lo, hi), each
     (B, N/2)."""
@@ -194,6 +196,7 @@ def fwd_level_1d(x: torch.Tensor, dec_lo, dec_hi):
     return lo, hi
 
 
+@spanned("kernels")
 def inv_level_1d(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi) -> torch.Tensor:
     """One polyphase synthesis level: 2 x (B, M) -> (B, 2M)."""
     if on_cpu(lo, hi, ndim=2):
@@ -210,6 +213,7 @@ def inv_level_1d(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi) -> torch.Te
     return out
 
 
+@spanned("kernels")
 def swt_fwd_level_1d(x: torch.Tensor, dec_lo, dec_hi, level: int):
     """One a-trous analysis level: (B, N) -> (lo, hi), each (B, N).  Any
     length, including one shorter than the dilated support."""
@@ -228,6 +232,7 @@ def swt_fwd_level_1d(x: torch.Tensor, dec_lo, dec_hi, level: int):
     return lo, hi
 
 
+@spanned("kernels")
 def swt_inv_level_1d(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi,
                      level: int) -> torch.Tensor:
     """One a-trous synthesis level: 2 x (B, N) -> (B, N), the one 1/2 of a
@@ -247,6 +252,7 @@ def swt_inv_level_1d(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi,
     return out
 
 
+@spanned("kernels")
 def fwd_level_1d_padded(xp: torch.Tensor, dec_lo, dec_hi):
     """One decimated analysis level on (B, Np) float32 signals that hold
     their boundary extension -> (lo, hi), each (B, (Np - hlen) // 2 + 1),
@@ -265,6 +271,7 @@ def fwd_level_1d_padded(xp: torch.Tensor, dec_lo, dec_hi):
     return lo, hi
 
 
+@spanned("kernels")
 def inv_level_1d_padded(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, c0: int,
                         out_len: int) -> torch.Tensor:
     """One polyphase synthesis level on (B, M) float32 bands that hold their
@@ -288,6 +295,7 @@ def inv_level_1d_padded(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, c0: 
     return out
 
 
+@spanned("kernels")
 def swt_fwd_level_1d_padded(xp: torch.Tensor, dec_lo, dec_hi, level: int):
     """One a-trous analysis level on (B, Np) float32 signals that hold their
     halo -> (lo, hi), each (B, Np - (hlen - 1) f), on
@@ -308,6 +316,7 @@ def swt_fwd_level_1d_padded(xp: torch.Tensor, dec_lo, dec_hi, level: int):
     return lo, hi
 
 
+@spanned("kernels")
 def swt_inv_level_1d_padded(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi,
                             level: int) -> torch.Tensor:
     """One a-trous synthesis level on two (B, Mp) float32 bands that hold

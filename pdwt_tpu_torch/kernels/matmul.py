@@ -65,6 +65,7 @@ import numpy as np
 import torch
 
 from ..core import conv, precision
+from ..utils.profiling import spanned
 from ._launch import (InvPlan, PadAxis, dual_taps, fwd_plan, launch, on_cpu, pad_axis,
                       pad_positions, poly_geo, ptr, rev, scheme_taps)
 from ._launch import kernel_taps  # noqa: F401 -- the plan tests' model of the taps
@@ -277,6 +278,7 @@ def fwd_launch_plan(B: int, R: int, C: int, hlen: int, scheme: str) -> InvPlan:
     return fwd_plan(B, R, C, hlen, 1, scheme, 2)
 
 
+@spanned("kernels")
 def fwd_level_2d_mxu(x: torch.Tensor, dec_lo, dec_hi, scheme: str, out_dtypes=(F32, F32)):
     """One analysis level on an even-sized (B, R, C) image (float32 or
     bf16) under ``scheme`` -> (a, h, v, d), each (B, R/2, C/2); a is
@@ -319,6 +321,7 @@ def inv_padded_launch_plan(B: int, rows: PadAxis, cols: PadAxis, hlen: int,
     return inv_level_launch_plan(B, pad_positions(rows), pad_positions(cols), hlen, scheme)
 
 
+@spanned("kernels")
 def fwd_level_2d_mxu_padded(xp: torch.Tensor, dec_lo, dec_hi, scheme: str,
                             out_dtypes=(F32, F32)):
     """One analysis level under ``scheme`` on a (B, Rp, Cp) input (float32
@@ -353,6 +356,7 @@ def _check_bands(a, h, v, d, name: str) -> None:
         raise ValueError(f"{name} takes a float32 approximation and details of one dtype")
 
 
+@spanned("kernels")
 def inv_level_2d_mxu_padded(a, h, v, d, rec_lo, rec_hi, scheme: str, c0: Tuple[int, int],
                             out_shape: Tuple[int, int], out_dtype=F32) -> torch.Tensor:
     """One synthesis level under ``scheme`` on a float32 (B, Mr, Mc)
@@ -384,6 +388,7 @@ def inv_level_2d_mxu_padded(a, h, v, d, rec_lo, rec_hi, scheme: str, c0: Tuple[i
     return out
 
 
+@spanned("kernels")
 def inv_level_2d_mxu(a, h, v, d, rec_lo, rec_hi, scheme: str, out_dtype=F32) -> torch.Tensor:
     """One synthesis level under ``scheme``: a float32 (B, Mr, Mc)
     approximation and h, v, d of one dtype (float32 or bf16) ->

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..core import conv
+from ..utils.profiling import spanned
 from ._launch import (ROW_STRIP, InvPlan, PadAxis, align16, axis_blocks, block_target, cdiv,
                       check_span, dilation, launch, on_cpu, pad_axis, pad_positions, pick_plan,
                       poly_geo, ptr, rev, stage_bytes, temp_pitch)
@@ -346,6 +347,7 @@ def _inv_launch(name, lo, hi, filters, scheme, out_dtype, f, cen, decimated: boo
     return out
 
 
+@spanned("kernels")
 def fwd_level_1d_mxu(x: torch.Tensor, dec_lo, dec_hi, scheme: str, hi_dtype=F32):
     """Decimated analysis on (B, N), N even, float32 or bf16 -> (lo, hi),
     each (B, N/2); lo float32, hi ``hi_dtype``."""
@@ -358,6 +360,7 @@ def fwd_level_1d_mxu(x: torch.Tensor, dec_lo, dec_hi, scheme: str, hi_dtype=F32)
                        conv.fwd_center(len(dec_lo)), True)
 
 
+@spanned("kernels")
 def swt_fwd_level_1d_mxu(x: torch.Tensor, dec_lo, dec_hi, level: int, scheme: str,
                          hi_dtype=F32):
     """A-trous analysis on (B, N), any N -> (lo, hi), each (B, N)."""
@@ -368,6 +371,7 @@ def swt_fwd_level_1d_mxu(x: torch.Tensor, dec_lo, dec_hi, level: int, scheme: st
                        conv.fwd_center(len(dec_lo)) * f, False)
 
 
+@spanned("kernels")
 def inv_level_1d_mxu(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, scheme: str,
                      out_dtype=F32) -> torch.Tensor:
     """Polyphase synthesis: a float32 low band and a float32 or bf16 high
@@ -378,6 +382,7 @@ def inv_level_1d_mxu(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, scheme:
                        True)
 
 
+@spanned("kernels")
 def swt_inv_level_1d_mxu(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, level: int,
                          scheme: str, out_dtype=F32) -> torch.Tensor:
     """A-trous synthesis, 2 x (B, N) -> (B, N), the one 1/2 of a 1D
@@ -397,6 +402,7 @@ def _check_pair(lo: torch.Tensor, hi: torch.Tensor) -> None:
         raise ValueError("the banded-product kernels take a float32 low band")
 
 
+@spanned("kernels")
 def fwd_level_1d_mxu_padded(xp: torch.Tensor, dec_lo, dec_hi, scheme: str, hi_dtype=F32):
     """Decimated analysis under ``scheme`` on (B, Np) signals (float32 or
     bf16) that hold their extension -> (lo, hi), each (B, (Np - hlen) // 2
@@ -420,6 +426,7 @@ def fwd_level_1d_mxu_padded(xp: torch.Tensor, dec_lo, dec_hi, scheme: str, hi_dt
     return lo, hi
 
 
+@spanned("kernels")
 def swt_fwd_level_1d_mxu_padded(xp: torch.Tensor, dec_lo, dec_hi, level: int, scheme: str,
                                 hi_dtype=F32):
     """A-trous analysis under ``scheme`` on (B, Np) signals (float32 or
@@ -445,6 +452,7 @@ def swt_fwd_level_1d_mxu_padded(xp: torch.Tensor, dec_lo, dec_hi, level: int, sc
     return lo, hi
 
 
+@spanned("kernels")
 def inv_level_1d_mxu_padded(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, scheme: str,
                             c0: int, out_len: int, out_dtype=F32) -> torch.Tensor:
     """Polyphase synthesis under ``scheme`` of a float32 low band and a
@@ -475,6 +483,7 @@ def inv_level_1d_mxu_padded(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, 
     return out
 
 
+@spanned("kernels")
 def swt_inv_level_1d_mxu_padded(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi,
                                 level: int, scheme: str, out_dtype=F32) -> torch.Tensor:
     """A-trous synthesis under ``scheme`` of a float32 low band and a

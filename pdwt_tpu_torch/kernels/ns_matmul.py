@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..core import conv
+from ..utils.profiling import spanned
 from ._launch import (COL_STRIP, PLAN_TILES, ROW_STRIP, InvPlan, align16, axis_blocks,
                       block_target, cdiv, check_span, consecutive_columns, dilation, launch,
                       on_cpu, pick_plan, plan_threads, ptr, rev, stage_bytes, temp_pitch)
@@ -393,6 +394,7 @@ def _inv_launch(name, bands, A, Bc, scheme, out_dtype, f: Optional[int]):
     return out
 
 
+@spanned("kernels")
 def ns_fwd_level_2d_mxu(x: torch.Tensor, A, Bc, scheme: str, out_dtypes=(F32, F32)):
     """Decimated rank-r analysis of an even (B, R, C) image (float32 or
     bf16) under ``scheme`` -> (a, h, v, d), each (B, R/2, C/2); a is float32,
@@ -402,6 +404,7 @@ def ns_fwd_level_2d_mxu(x: torch.Tensor, A, Bc, scheme: str, out_dtypes=(F32, F3
     return _fwd_launch("ns_fwd_level_2d_mxu", x, A, Bc, scheme, out_dtypes, 2, 1)
 
 
+@spanned("kernels")
 def ns_swt_fwd_level_2d_mxu(x: torch.Tensor, A, Bc, level: int, scheme: str,
                             out_dtypes=(F32, F32)):
     """A-trous rank-r analysis of a (B, R, C) image at ``level``, any size
@@ -412,6 +415,7 @@ def ns_swt_fwd_level_2d_mxu(x: torch.Tensor, A, Bc, level: int, scheme: str,
                        dilation(level))
 
 
+@spanned("kernels")
 def ns_inv_level_2d_mxu(a, h, v, d, A, Bc, scheme: str, out_dtype=F32) -> torch.Tensor:
     """Polyphase rank-r synthesis: a float32 (B, M, N) approximation and h,
     v, d of one dtype -> (B, 2M, 2N) in ``out_dtype``."""
@@ -420,6 +424,7 @@ def ns_inv_level_2d_mxu(a, h, v, d, A, Bc, scheme: str, out_dtype=F32) -> torch.
     return _inv_launch("ns_inv_level_2d_mxu", (a, h, v, d), A, Bc, scheme, out_dtype, None)
 
 
+@spanned("kernels")
 def ns_swt_inv_level_2d_mxu(a, h, v, d, A, Bc, level: int, scheme: str,
                             out_dtype=F32) -> torch.Tensor:
     """A-trous rank-r synthesis at ``level``, four (B, R, C) subbands ->

@@ -69,6 +69,7 @@ import numpy as np
 import torch
 
 from ..core import conv
+from ..utils.profiling import spanned
 from ._launch import LAUNCHES, MAX_HLEN, PadAxis, reset_launch_counts  # noqa: F401 (re-exported)
 from ._launch import (FWD_CHUNK, FWD_TILES, PLAN_TILES, ROW_STRIP, SMEM_LIMIT, SMS, InvPlan,
                       align16, block_target, cdiv, dual_taps, fwd_plan, fwd_smem, launch,
@@ -315,6 +316,7 @@ def _tail_args(pl: TailPlan) -> list:
 # wrappers
 # ---------------------------------------------------------------------------
 
+@spanned("kernels")
 def fwd_level_2d(x: torch.Tensor, dec_lo, dec_hi):
     """One analysis level on an even-sized (B, R, C) image -> (a, h, v, d),
     each (B, R/2, C/2).  The CUDA kernel takes filters of 2..128 taps;
@@ -335,6 +337,7 @@ def fwd_level_2d(x: torch.Tensor, dec_lo, dec_hi):
     return tuple(outs)
 
 
+@spanned("kernels")
 def inv_level_2d(a, h, v, d, rec_lo, rec_hi) -> torch.Tensor:
     """One synthesis level: (B, Mr, Mc) subbands -> (B, 2Mr, 2Mc).  The
     CUDA kernel takes filters of 2..128 taps; ``inv_level_launch_plan``
@@ -355,6 +358,7 @@ def inv_level_2d(a, h, v, d, rec_lo, rec_hi) -> torch.Tensor:
     return out
 
 
+@spanned("kernels")
 def fwd_tail_2d(x: torch.Tensor, dec_lo, dec_hi, levels: int):
     """All ``levels`` remaining analysis levels of a (B, R, C) image in one
     launch -> (a, [(h, v, d) of level 1, level 2, ...]), on the plan of
@@ -381,6 +385,7 @@ def fwd_tail_2d(x: torch.Tensor, dec_lo, dec_hi, levels: int):
     return a, dets
 
 
+@spanned("kernels")
 def inv_tail_2d(a: torch.Tensor, details: Sequence[Bands], rec_lo, rec_hi):
     """Inverse of :func:`fwd_tail_2d`: ``a`` (B, m, m') and ``details``
     (deepest level first) -> (B, m << k, m' << k), k = len(details), on the
@@ -414,6 +419,7 @@ def inv_tail_2d(a: torch.Tensor, details: Sequence[Bands], rec_lo, rec_hi):
     return out
 
 
+@spanned("kernels")
 def fwd_level_2d_padded(xp: torch.Tensor, dec_lo, dec_hi):
     """One analysis level on a (B, Rp, Cp) float32 input that holds its
     boundary extension -> (a, h, v, d), each (B, (Rp - hlen) // 2 + 1,
@@ -432,6 +438,7 @@ def fwd_level_2d_padded(xp: torch.Tensor, dec_lo, dec_hi):
     return tuple(outs)
 
 
+@spanned("kernels")
 def inv_level_2d_padded(a, h, v, d, rec_lo, rec_hi, c0: Tuple[int, int],
                         out_shape: Tuple[int, int]) -> torch.Tensor:
     """One synthesis level on (B, Mr, Mc) float32 subbands that hold their

@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from ..core import conv
+from ..utils.profiling import spanned
 from ._launch import InvPlan, check_span, dilation, launch, on_cpu, ptr, rev
 from .matmul import dual_taps
 from .mxu1d import _half
@@ -149,6 +150,7 @@ def swt_inv_padded_launch_plan(B: int, R: int, C: int, hlen: int, f: int) -> Inv
 # wrappers
 # ---------------------------------------------------------------------------
 
+@spanned("kernels")
 def swt_fwd_level_2d(x: torch.Tensor, dec_lo, dec_hi, level: int):
     """One a-trous analysis level: (B, R, C) -> (a, h, v, d), each (B, R, C).
     Any size, including one smaller than the dilated support."""
@@ -178,6 +180,7 @@ def _beta_buffer(beta, device: torch.device) -> torch.Tensor:
     return torch.full((1,), float(beta), dtype=torch.float32, device=device)
 
 
+@spanned("kernels")
 def swt_inv_level_2d(a, h, v, d, rec_lo, rec_hi, level: int,
                      threshold: Threshold = None) -> torch.Tensor:
     """One a-trous synthesis level: four (B, R, C) subbands -> (B, R, C).
@@ -208,6 +211,7 @@ def swt_inv_level_2d(a, h, v, d, rec_lo, rec_hi, level: int,
     return out
 
 
+@spanned("kernels")
 def swt_fwd_level_2d_padded(xp: torch.Tensor, dec_lo, dec_hi, level: int):
     """One a-trous analysis level on a (B, Rp, Cp) float32 shard that holds
     its halo -> (a, h, v, d), each (B, Rp - (hlen - 1) f, Cp - (hlen - 1)
@@ -228,6 +232,7 @@ def swt_fwd_level_2d_padded(xp: torch.Tensor, dec_lo, dec_hi, level: int):
     return tuple(outs)
 
 
+@spanned("kernels")
 def swt_inv_level_2d_padded(a, h, v, d, rec_lo, rec_hi, level: int) -> torch.Tensor:
     """One a-trous synthesis level on four (B, Rp, Cp) float32 subbands
     that hold their halo -> (B, Rp - (hlen - 1) f, Cp - (hlen - 1) f), the

@@ -52,6 +52,7 @@ from typing import Optional
 import torch
 
 from ..core import conv
+from ..utils.profiling import spanned
 from ._launch import (COL_STRIP, PLAN_TILES, ROW_STRIP, InvPlan, align16, axis_blocks,
                       block_target, cdiv, check_span, consecutive_columns, dilation, fwd_plan,
                       launch, on_cpu, pick_plan, plan_threads, ptr, rev, stage_bytes,
@@ -225,6 +226,7 @@ def swt_inv_padded_launch_plan(B: int, R: int, C: int, hlen: int, f: int,
 # wrappers
 # ---------------------------------------------------------------------------
 
+@spanned("kernels")
 def swt_fwd_level_2d_mxu(x: torch.Tensor, dec_lo, dec_hi, level: int, scheme: str,
                          out_dtypes=(F32, F32)):
     """One a-trous analysis level on a (B, R, C) image (float32 or bf16),
@@ -251,6 +253,7 @@ def swt_fwd_level_2d_mxu(x: torch.Tensor, dec_lo, dec_hi, level: int, scheme: st
     return (a, *dets)
 
 
+@spanned("kernels")
 def swt_inv_level_2d_mxu(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str, out_dtype=F32,
                          threshold: Threshold = None) -> torch.Tensor:
     """One a-trous synthesis level under ``scheme``: a float32 (B, R, C)
@@ -284,6 +287,7 @@ def swt_inv_level_2d_mxu(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str, ou
     return out
 
 
+@spanned("kernels")
 def swt_fwd_level_2d_mxu_padded(xp: torch.Tensor, dec_lo, dec_hi, level: int, scheme: str,
                                 out_dtypes=(F32, F32)):
     """One a-trous analysis level under ``scheme`` on a (B, Rp, Cp) shard
@@ -313,6 +317,7 @@ def swt_fwd_level_2d_mxu_padded(xp: torch.Tensor, dec_lo, dec_hi, level: int, sc
     return (a, *dets)
 
 
+@spanned("kernels")
 def swt_inv_level_2d_mxu_padded(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str,
                                 out_dtype=F32) -> torch.Tensor:
     """One a-trous synthesis level under ``scheme`` on a float32 (B, Rp,

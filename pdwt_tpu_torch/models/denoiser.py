@@ -24,6 +24,7 @@ from ..filters import get_wavelet
 from ..ops.estimate import _MAD_TO_SIGMA, median
 from ..ops.threshold import THR_ELEM, _const
 from ..ops.threshold import THRESHOLD_OPS as _THRESH
+from ..utils.profiling import spanned
 
 
 def check_mode(mode: str) -> None:
@@ -36,6 +37,7 @@ def _resolve(wav):
     return get_wavelet(wav) if isinstance(wav, str) else wav
 
 
+@spanned("models")
 def denoise_step(img: torch.Tensor, generator: Optional[torch.Generator], wav,
                  levels: int, beta, *, swt: bool = False, mode: str = "soft",
                  normalize: bool = False, boundary="periodization",
@@ -94,6 +96,7 @@ def _auto_betas(coeffs, method: str):
     raise ValueError(f"unknown method {method!r}")
 
 
+@spanned("models")
 def auto_denoise(img: torch.Tensor, wav, levels: int, *, method: str = "bayes",
                  mode: str = "soft", swt: bool = False, boundary="periodization",
                  backend: Optional[str] = None) -> torch.Tensor:
@@ -119,6 +122,7 @@ def auto_denoise(img: torch.Tensor, wav, levels: int, *, method: str = "bayes",
     return idwt2d(coeffs, wav, tuple(img.shape[-2:]), backend=backend, mode=boundary)
 
 
+@spanned("models")
 def cycle_spin_denoise(img: torch.Tensor, generator: torch.Generator, wav, levels: int,
                        beta, *, spins: int = 8, mode: str = "soft",
                        normalize: bool = False, backend: Optional[str] = None) -> torch.Tensor:
@@ -134,6 +138,7 @@ def cycle_spin_denoise(img: torch.Tensor, generator: torch.Generator, wav, level
     return acc / torch.full((), spins, dtype=acc.dtype, device=acc.device)
 
 
+@spanned("models")
 def sharded_denoise_step(img, wav, levels: int, beta, mesh, *, data_axis: Optional[str] = None,
                          row_axis: Optional[str] = None, col_axis: Optional[str] = None,
                          mode: str = "soft", swt: bool = False, backend: Optional[str] = None):
@@ -178,6 +183,7 @@ def _sharded_step(fwd, inv, tree, img, shape, wav, levels, beta, mesh, axes, pla
     return inv(coeffs, wav, shape, mesh, swt=swt, backend=backend, **axes), n1
 
 
+@spanned("models")
 def denoise_step_3d(vol: torch.Tensor, generator: Optional[torch.Generator], wav, levels: int,
                     beta, *, swt: bool = False, mode: str = "soft", normalize: bool = False,
                     backend: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -219,6 +225,7 @@ def denoise_step_3d(vol: torch.Tensor, generator: Optional[torch.Generator], wav
     return out, n1
 
 
+@spanned("models")
 def auto_denoise_3d(vol: torch.Tensor, wav, levels: int, *, method: str = "bayes",
                     mode: str = "soft", swt: bool = False, backend: Optional[str] = None
                     ) -> torch.Tensor:
@@ -235,6 +242,7 @@ def auto_denoise_3d(vol: torch.Tensor, wav, levels: int, *, method: str = "bayes
     return idwt3d(coeffs, wav, tuple(vol.shape[-3:]), backend=backend)
 
 
+@spanned("models")
 def sharded_denoise_step_3d(vol, wav, levels: int, beta, mesh, *,
                             data_axis: Optional[str] = None, dep_axis: Optional[str] = None,
                             row_axis: Optional[str] = None, col_axis: Optional[str] = None,
@@ -257,6 +265,7 @@ def sharded_denoise_step_3d(vol, wav, levels: int, beta, mesh, *,
                          mode, swt, backend)
 
 
+@spanned("models")
 def starlet_auto_denoise(x: torch.Tensor, levels: int, *, k: float = 3.0, ndim: int = 2,
                          gen: int = 2, mode: str = "soft", backend: Optional[str] = None
                          ) -> torch.Tensor:
@@ -281,6 +290,7 @@ def starlet_auto_denoise(x: torch.Tensor, levels: int, *, k: float = 3.0, ndim: 
     return istarlet(StarletCoeffs(c.approx, details), ndim=ndim, gen=gen, backend=backend)
 
 
+@spanned("models")
 def packet_denoise(img: torch.Tensor, wav, levels: int, beta=None, *, cost: str = "shannon",
                    mode: str = "soft", backend: Optional[str] = None) -> torch.Tensor:
     """Best-basis wavelet-packet denoise: the full packet tree, the

@@ -19,8 +19,10 @@ from .. import ops
 from ..core.separable import dwt2d, idwt2d
 from ..filters import get_wavelet
 from ..ops.norms import _group_norms
+from ..utils.profiling import spanned
 
 
+@spanned("models")
 def ista(y: torch.Tensor, op: Optional[Callable] = None, op_t: Optional[Callable] = None, *,
          wav="db7", levels: int = 4, lam: float = 1.0, step: float = 1.0, iters: int = 50,
          fista: bool = True, x0: Optional[torch.Tensor] = None, reg: str = "l1",

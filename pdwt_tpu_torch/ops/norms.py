@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import spanned
 from .threshold import _SQRT2, Coeffs, _const, detail_bands
 
 
@@ -22,16 +23,19 @@ def _accum(x: torch.Tensor) -> torch.dtype:
     return torch.float32 if x.dtype == torch.bfloat16 else x.dtype
 
 
+@spanned("ops")
 def norm1(coeffs: Coeffs) -> torch.Tensor:
     """Sum of |coeff| over all subbands, approximation included."""
     return sum(torch.sum(torch.abs(x), dtype=_accum(x)) for x in _leaves(coeffs))
 
 
+@spanned("ops")
 def norm2sq(coeffs: Coeffs) -> torch.Tensor:
     """Squared L2 norm over all subbands, approximation included."""
     return sum(torch.sum(torch.square(x.to(_accum(x)))) for x in _leaves(coeffs))
 
 
+@spanned("ops")
 def add_coeffs(dst: Coeffs, src: Coeffs, alpha=1.0) -> Coeffs:
     """dst + alpha * src, band by band (the coefficient axpy).  alpha is
     rounded to each dst band's dtype; the product and the sum take the two
@@ -66,6 +70,7 @@ def _approx_l1(coeffs: Coeffs) -> torch.Tensor:
     return torch.sum(a.abs().to(_accum(a)))
 
 
+@spanned("ops")
 def norm_l21(coeffs: Coeffs, *, do_thresh_appcoeffs: bool = False) -> torch.Tensor:
     """Group-lasso (L2,1) norm: the sum over positions of each level's
     group norm, with ``group_soft_threshold``'s groups (that threshold is
@@ -78,6 +83,7 @@ def norm_l21(coeffs: Coeffs, *, do_thresh_appcoeffs: bool = False) -> torch.Tens
     return total if do_thresh_appcoeffs else total + _approx_l1(coeffs)
 
 
+@spanned("ops")
 def thresholded_norm_l21(coeffs: Coeffs, beta, *, normalize: bool = False,
                          do_thresh_appcoeffs: bool = False) -> torch.Tensor:
     """``norm_l21(group_soft_threshold(coeffs, beta))`` without building
@@ -90,6 +96,7 @@ def thresholded_norm_l21(coeffs: Coeffs, beta, *, normalize: bool = False,
     return total if do_thresh_appcoeffs else total + _approx_l1(coeffs)
 
 
+@spanned("ops")
 def thresholded_norm1(coeffs: Coeffs, beta, *, mode: str = "soft",
                       normalize: bool = False,
                       do_thresh_appcoeffs: bool = False) -> torch.Tensor:

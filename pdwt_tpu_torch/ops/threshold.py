@@ -25,6 +25,7 @@ import torch
 
 from ..core.separable import Coeffs1D, Coeffs2D
 from ..core.separable3d import Coeffs3D
+from ..utils.profiling import spanned
 
 Coeffs = Union[Coeffs1D, Coeffs2D, Coeffs3D]
 
@@ -140,18 +141,21 @@ def _apply(fn, coeffs: Coeffs, beta, do_thresh_appcoeffs, normalize):
     return type(coeffs)(approx, details)
 
 
+@spanned("ops")
 def soft_threshold(coeffs: Coeffs, beta, *, do_thresh_appcoeffs: bool = False,
                    normalize: bool = False) -> Coeffs:
     """Elementwise soft threshold (the L1 proximal operator)."""
     return _apply(_soft, coeffs, beta, do_thresh_appcoeffs, normalize)
 
 
+@spanned("ops")
 def hard_threshold(coeffs: Coeffs, beta, *, do_thresh_appcoeffs: bool = False,
                    normalize: bool = False) -> Coeffs:
     """Elementwise hard threshold."""
     return _apply(_hard, coeffs, beta, do_thresh_appcoeffs, normalize)
 
 
+@spanned("ops")
 def garrote_threshold(coeffs: Coeffs, beta, *, do_thresh_appcoeffs: bool = False,
                       normalize: bool = False) -> Coeffs:
     """Elementwise non-negative garrote threshold (Gao 1998): continuous
@@ -159,6 +163,7 @@ def garrote_threshold(coeffs: Coeffs, beta, *, do_thresh_appcoeffs: bool = False
     return _apply(_garrote, coeffs, beta, do_thresh_appcoeffs, normalize)
 
 
+@spanned("ops")
 def firm_threshold(coeffs: Coeffs, beta, beta2, *, do_thresh_appcoeffs: bool = False,
                    normalize: bool = False) -> Coeffs:
     """Firm (semisoft) threshold (Gao & Bruce 1997): zero below ``beta``,
@@ -173,6 +178,7 @@ def firm_threshold(coeffs: Coeffs, beta, beta2, *, do_thresh_appcoeffs: bool = F
     return type(coeffs)(approx, details)
 
 
+@spanned("ops")
 def proj_linf(coeffs: Coeffs, beta, *, do_thresh_appcoeffs: bool = True) -> Coeffs:
     """Projection onto the L-infinity ball of radius ``beta`` (a scalar),
     the approximation included by default."""
@@ -181,6 +187,7 @@ def proj_linf(coeffs: Coeffs, beta, *, do_thresh_appcoeffs: bool = True) -> Coef
     return type(coeffs)(approx, details)
 
 
+@spanned("ops")
 def shrink(coeffs: Coeffs, beta, *, do_thresh_appcoeffs: bool = True) -> Coeffs:
     """L2 proximal operator: every band scaled by 1 / (1 + beta), formed
     before it is cast to the band's dtype."""
@@ -191,6 +198,7 @@ def shrink(coeffs: Coeffs, beta, *, do_thresh_appcoeffs: bool = True) -> Coeffs:
     return type(coeffs)(approx, details)
 
 
+@spanned("ops")
 def group_soft_threshold(coeffs: Coeffs, beta, *, do_thresh_appcoeffs: bool = False,
                          normalize: bool = False) -> Coeffs:
     """Group-lasso soft threshold: each position of a level shrinks its

@@ -14,14 +14,34 @@
   ``time.perf_counter`` reads.
 * :func:`trace`: ``torch.profiler`` over a block (CPU activity, and CUDA
   activity where a card is present), written as a Chrome trace into
-  ``log_dir``.
+  ``log_dir`` (a fresh temporary directory by default).
+* The span recorder: :func:`spanned` marks the port's functions at its
+  layer boundaries, each span named ``pdwt.<layer>.<function>`` --
+  ``facade`` (``Wavelets.forward``, ``inverse``, ``run_denoise``),
+  ``models`` (the denoising steps and denoisers, ``ista``),
+  ``transform`` (the entry points of ``core/separable.py`` and
+  ``core/separable3d.py``), ``ops`` (the norms and thresholds) and
+  ``kernels`` (each CUDA kernel wrapper, under its ``LAUNCHES`` key); :func:`span` marks a
+  block.  The recorder is on while a ``torch.profiler`` session runs
+  and inside :func:`record_spans`, the host-only reading, and off
+  otherwise, where a span is one check of that state and a plain call.
+  On, a span opens a ``torch.profiler.record_function`` range of its
+  name while the profiler runs (on the profiler's clock, the one the
+  device events use), and adds its count, its time and its self time
+  (its time less its child spans') to the table :func:`span_table`
+  reads and :func:`reset_spans` clears.  A kernel span also adds the
+  operand bytes of its call -- every tensor the wrapper takes and returns,
+  each once -- to ``OPERAND_BYTES[<kernel>]``.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import tempfile
+import threading
 import time
+from typing import Dict, List, Optional
 
 import torch
 
@@ -137,12 +157,16 @@ def device_time_any(fn, *args, K: int = 24, M1: int = 1, M2: int = 4, reps: int 
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = os.path.join(tempfile.gettempdir(), "pdwt_trace")):
+def trace(log_dir: Optional[str] = None):
     """Profile a block: ``with trace("dir"): run()`` writes
-    ``dir/trace.json`` (a Chrome trace: CPU ops, and the card's kernels
-    where one is present) and yields ``dir``."""
+    ``dir/trace.json`` (a Chrome trace: CPU ops and the port's spans, and
+    the card's kernels where one is present) and yields ``dir``; without a
+    ``log_dir``, a new directory ``pdwt_trace_*`` under the system's
+    temporary directory."""
     from torch.profiler import ProfilerActivity, profile
 
+    if log_dir is None:
+        log_dir = tempfile.mkdtemp(prefix="pdwt_trace_")
     os.makedirs(log_dir, exist_ok=True)
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -156,3 +180,136 @@ def trace(log_dir: str = os.path.join(tempfile.gettempdir(), "pdwt_trace")):
             torch.cuda.synchronize()
         prof.__exit__(None, None, None)
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# ---------------------------------------------------------------------------
+# the span recorder (module docstring)
+# ---------------------------------------------------------------------------
+
+#: the profiler's state: True while a ``torch.profiler`` session runs
+_profiler_on = torch.autograd._profiler_enabled
+#: open :func:`record_spans` blocks
+_explicit = 0
+#: name -> [count, total ns, self ns]
+_TABLE: Dict[str, List[int]] = {}
+#: operand bytes by kernel wrapper (the keys of ``kernels.LAUNCHES``),
+#: counted while the recorder is on
+OPERAND_BYTES: Dict[str, int] = {}
+_local = threading.local()
+
+
+def recording() -> bool:
+    """Is the recorder on?"""
+    return _explicit > 0 or _profiler_on()
+
+
+@contextlib.contextmanager
+def record_spans():
+    """Turn the recorder on for a block, without the profiler."""
+    global _explicit
+    _explicit += 1
+    try:
+        yield
+    finally:
+        _explicit -= 1
+
+
+def span_table() -> Dict[str, Dict[str, int]]:
+    """{span name: {"count", "total_ns", "self_ns"}} since the last
+    :func:`reset_spans`."""
+    return {k: {"count": c, "total_ns": t, "self_ns": s} for k, (c, t, s) in _TABLE.items()}
+
+
+def reset_spans() -> None:
+    """Clear the span table and ``OPERAND_BYTES``."""
+    _TABLE.clear()
+    OPERAND_BYTES.clear()
+
+
+class _Span:
+    """One recorded span (the recorder on)."""
+
+    __slots__ = ("name", "range", "stack", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.range = None
+        if _profiler_on():
+            self.range = torch.autograd.profiler.record_function(self.name)
+            self.range.__enter__()
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        stack.append(0)  # the time of this span's children
+        self.stack = stack
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter_ns() - self.t0
+        child = self.stack.pop()
+        if self.stack:
+            self.stack[-1] += dt
+        row = _TABLE.get(self.name)
+        if row is None:
+            row = _TABLE[self.name] = [0, 0, 0]
+        row[0] += 1
+        row[1] += dt
+        row[2] += dt - child
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A span over a block: ``with span("pdwt.<layer>.<block>"): ...``;
+    with the recorder off, one shared no-op context."""
+    return _Span(name) if recording() else _OFF
+
+
+def operand_bytes(*objs) -> int:
+    """The ``nbytes`` of every tensor in ``objs`` (tuples, lists and dict
+    values flattened), each tensor once."""
+    seen, total, todo = set(), 0, list(objs)
+    while todo:
+        o = todo.pop()
+        if isinstance(o, torch.Tensor):
+            if id(o) not in seen:
+                seen.add(id(o))
+                total += o.nbytes
+        elif isinstance(o, (tuple, list)):
+            todo.extend(o)
+        elif isinstance(o, dict):
+            todo.extend(o.values())
+    return total
+
+
+def spanned(layer: str):
+    """Decorate a function of the port's ``layer`` with a span named
+    ``pdwt.<layer>.<qualified name>`` (the wrapper's ``span_name``); a
+    ``kernels`` span also counts the operand bytes of its call in
+    ``OPERAND_BYTES[<name>]``."""
+    def deco(fn):
+        name = f"pdwt.{layer}.{fn.__qualname__}"
+        key = fn.__name__ if layer == "kernels" else None
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not (_explicit or _profiler_on()):
+                return fn(*args, **kwargs)
+            with _Span(name):
+                out = fn(*args, **kwargs)
+                if key is not None:
+                    OPERAND_BYTES[key] = (OPERAND_BYTES.get(key, 0)
+                                          + operand_bytes(args, kwargs, out))
+            return out
+
+        wrapper.span_name = name
+        return wrapper
+
+    return deco

@@ -2034,3 +2034,65 @@ def test_conv_formulations_on_the_card_launch_nothing_and_match(backend, dev):
     assert float((y - x).abs().max()) < 1e-3 and float((y1 - x[0]).abs().max()) < 1e-3
     y64 = idwt2d(dwt2d(x.double(), w, 3, backend=backend), w, (96, 80), backend=backend)
     assert y64.dtype == torch.float64 and float((y64 - x.double()).abs().max()) < 1e-9
+
+
+@pytest.mark.parametrize("op", ["roundtrip", "ti_step"])
+def test_kernel_spans_hold_the_launches_under_the_profiler(op, dev):
+    """Profiled, every launch of a port kernel (its runtime call, matched to
+    the kernel by the profiler's correlation id) lies inside the host range
+    of a ``pdwt.kernels.*`` span, one span a launch; no ``pdwt.`` name is
+    device work in the benchmark's reading (``wavebench.tracing``), and the
+    operand bytes are those of the shapes."""
+    import os
+    import sys
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pdwt_tpu_torch import models
+    from pdwt_tpu_torch.kernels import LAUNCHES, OPERAND_BYTES, _build
+    from pdwt_tpu_torch.utils import profiling
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from wavebench import tracing
+
+    names = tracing.port_kernels(_build.SOURCES)
+    w = get_wavelet("db7")
+    if op == "roundtrip":  # the benchmark's launches: four levels and a tail, each way
+        x = _rand(dev, 1, 2048, 2048)
+        call = lambda: idwt2d(dwt2d(x, w, 5), w, (2048, 2048))  # noqa: E731
+        # levels 1-4: the image and its four bands; level 5 (the tail) likewise
+        planes = 2 * (2 * (1 + 1 / 4 + 1 / 16 + 1 / 64) + 2 / 256)
+    else:
+        x = _rand(dev, 4, 256, 256)
+        call = lambda: models.denoise_step(x, None, w, 5, 10.0, swt=True)  # noqa: E731
+        planes = 5 * 5 * 2  # five planes a launch, five levels each way
+    call()
+    torch.cuda.synchronize()
+    profiling.reset_spans()
+    before = sum(LAUNCHES.values())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        call()
+        torch.cuda.synchronize()
+    launched = sum(LAUNCHES.values()) - before
+    assert launched == 10
+    assert sum(OPERAND_BYTES.values()) == planes * x.nbytes
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = p.events()
+    spans = [e.time_range for e in events
+             if e.device_type == cpu and e.name.startswith("pdwt.kernels.")]
+    assert len(spans) == launched
+    runtime = {e.id: e.time_range for e in events
+               if e.device_type == cpu and e.name.startswith("cuda") and "Launch" in e.name}
+    port = [e for e in events if e.device_type == cuda and tracing.is_port_kernel(e.name, names)]
+    assert 0 < len(port) <= launched
+    for e in port:
+        rt = runtime[e.id]
+        assert any(s.start <= rt.start and rt.end <= s.end for s in spans), e.name
+    mirrors = [e for e in events if e.device_type == cuda and e.name.startswith("pdwt.")]
+    assert all(tracing.is_annotation(e) for e in mirrors)
+    dev_events = [(e.name, e.time_range.elapsed_us() / 1e3) for e in events
+                  if e.device_type == cuda and not tracing.is_annotation(e)]
+    assert not any(n.startswith("pdwt.") for n, _ in dev_events)
+    busy = tracing.busy_per_call(dev_events, 1, launched, names)
+    if busy is not None:  # None where the profiler dropped a kernel's event
+        assert not any(n.startswith("pdwt.") for n in busy[1])

@@ -1,10 +1,12 @@
 """``utils.profiling`` on the CPU: the slope method of ``device_time`` and
 ``device_time_any`` (the eager chains between ``time.perf_counter`` reads)
-cancels a fixed cost of each chain, and ``trace`` writes its Chrome trace.
+cancels a fixed cost of each chain, and ``trace`` writes its Chrome trace
+(by default into a directory of its own).
 The CUDA-graph timing runs on the card (``chip_smoke.py``'s backends
 phase)."""
 import json
 import os
+import shutil
 import time
 
 import pytest
@@ -63,3 +65,18 @@ def test_trace_closes_on_an_error(tmp_path):
         with trace(str(tmp_path)):
             raise RuntimeError("inside")
     assert os.path.isfile(tmp_path / "trace.json")
+
+
+def test_two_default_traces_land_apart():
+    dirs = []
+    try:
+        for _ in range(2):
+            with trace() as d:
+                torch.ones(3).sum()
+            dirs.append(d)
+        assert dirs[0] != dirs[1]
+        assert all(os.path.basename(d).startswith("pdwt_trace_") for d in dirs)
+        assert all(os.path.isfile(os.path.join(d, "trace.json")) for d in dirs)
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
