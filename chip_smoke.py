@@ -16,7 +16,12 @@ with the launch counters set to 0 just before it and read just after:
   every threshold, small, odd and batched shapes), then
   ``Wavelets(do_swt=True)`` through ``run_denoise`` and through
   forward/threshold/norm1/inverse, a roundtrip, the fused norm, and the
-  TI step's timings;
+  TI step's timings; then the 2D TI step as the benchmark runs it (a 64 x
+  512 x 512 stack, db7, 5 levels, soft beta 90): kernel 5's norm launches
+  (levels 1-5, each mode) against the plain version's bands and a float64
+  norm, the sum of their partials against a float64 sum, and
+  ``denoise_step(swt=True)`` on the fused norm route against the plain
+  path, timed beside the torch norm route;
 * the batched 1D path (``bench_all.py``'s third configuration: sym8, 4
   levels, 1024 signals of 4096 float32 samples, soft threshold at beta
   0.1, ``norm1``, inverse): the four 1D kernels against their plain
@@ -252,6 +257,14 @@ ROUNDTRIP_ATOL = 1e-3
 # thresholded_norm1(c) against norm1(soft_threshold(c)): float32 sums in
 # another order
 NORM_RTOL = 1e-5
+# the 2D TI step of the benchmark's TI cell (wavebench/workloads/
+# db7_2d.ti_step.json), where denoise_step takes the norm in kernel 5
+FN_BATCH, FN_N, FN_LEVELS, FN_BETA = 64, 512, 5, 90.0
+# kernel 5's norm against a float64 norm of the same bands: each thread
+# sums its terms in float32, a block its threads' sums in float32, and only
+# then are the partials added in float64; chains of n float32 additions
+# bound the relative error by n 2^-24, 6e-6 at n = 100
+FUSED_NORM_RTOL = 1e-5
 # the precision tiers.  A banded-product kernel against its plain version:
 # float32-stored outputs within 1e-5 (products of bf16 values are exact and
 # both sum in one order, so only fd's FMAs differ), bf16-stored outputs
@@ -360,6 +373,12 @@ REPLACES = {
     "inv_level_1d_mxu_padded": "pdwt_tpu/kernels/mxu1d_pallas.py:236",
     "swt_fwd_level_1d_mxu_padded": "pdwt_tpu/kernels/mxu1d_pallas.py:272",
     "swt_inv_level_1d_mxu_padded": "pdwt_tpu/kernels/mxu1d_pallas.py:301",
+    # the 2D TI step's fused norm: kernel 5's norm launches (under the
+    # launch counter of swt_fwd_level_2d, counted apart here) and the sum of
+    # their partials, which take the place of the plain norm of JAX's
+    # thresholded_norm1
+    "swt_fwd_level_2d_norm": "pdwt_tpu/kernels/swt_pallas.py:95 + pdwt_tpu/ops/norms.py:104",
+    "swt_norm_sum_2d": "pdwt_tpu/ops/norms.py:104",
 }
 
 
@@ -367,8 +386,11 @@ def _source(name: str) -> str:
     """The file that holds the kernel's body (kernel 6 runs 14's, 12 runs
     2's, 10 and 8 run 16's, 11, 5 and 1 run 13's, 9 and 7 run 15's; the
     tails 3 and 4 run 1's and 2's level by level, 3 in swt_matmul.cu; the
-    padded entry points run their kernel's)."""
-    name = name.removesuffix("_padded")
+    padded entry points and kernel 5's norm launches run their kernel's;
+    the sum of the norm's partials is in swt.cu)."""
+    if name == "swt_norm_sum_2d":
+        return "swt.cu"
+    name = name.removesuffix("_padded").removesuffix("_norm")
     if name.startswith("ns_"):
         return "ns_matmul.cu"
     if name == "inv_level_2d_mxu":
@@ -876,6 +898,7 @@ def main() -> None:
     from pdwt_tpu_torch.kernels import batched1d as K1
     from pdwt_tpu_torch.kernels import separable as K
     from pdwt_tpu_torch.kernels import swt as S
+    from pdwt_tpu_torch.models import denoise_step
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1139,7 +1162,58 @@ def main() -> None:
                              lambda t, w=w, lv=level: S.swt_fwd_level_2d_ref(t, w.dec_lo,
                                                                              w.dec_hi, lv),
                              f"{w.name} {shape} level {level}"))
+    # kernel 5's norm launches at the benchmark's TI step: levels 1-5 of a
+    # 64 x 512^2 stack, each on its level's input, each mode, beta 90 from
+    # a buffer on the card (as denoise_step passes it).  The bands against
+    # the plain version here; the norm after the cases.  Timed: soft
+    g_norm = torch.Generator(device=dev).manual_seed(11)
+    fn_beta = S.beta_buffer(FN_BETA, dev)
+    fn_x = fn_in = torch.rand((FN_BATCH, FN_N, FN_N), device=dev, generator=g_norm) * 255.0
+    norm_runs = []
+    for lvl in range(1, FN_LEVELS + 1):
+        for fm in ("soft", "hard", "garrote"):
+            parts = torch.empty(S.swt_norm_slots(*fn_in.shape, wav.hlen, lvl), device=dev)
+            norm_runs.append((fn_in, lvl, fm, parts))
+            ti_cases.append(Case(
+                "swt_fwd_level_2d_norm", fn_in,
+                lambda t, lv=lvl, m=fm, p=parts: S.swt_fwd_level_2d(
+                    t, wav.dec_lo, wav.dec_hi, lv, norm=(m, fn_beta, p, lv == FN_LEVELS)),
+                lambda t, lv=lvl: S.swt_fwd_level_2d_ref(t, wav.dec_lo, wav.dec_hi, lv),
+                f"{wav.name} {tuple(fn_in.shape)} level {lvl} {fm} beta {FN_BETA}",
+                fm == "soft", flops_swt_2d(FN_N, FN_N, wav.hlen) * FN_BATCH))
+        fn_in = S.swt_fwd_level_2d_ref(fn_in, wav.dec_lo, wav.dec_hi, lvl)[0]
+    del fn_in
     run_cases(ti_cases, report, card)
+
+    # -- the norm of each norm launch: its partials' float64 sum against
+    # swt_norm_partials_ref's float64 norm of the plain launch's bands, which
+    # the norm launch stores bit for bit
+    for t, lvl, fm, parts in norm_runs:
+        fb = S.swt_fwd_level_2d(t, wav.dec_lo, wav.dec_hi, lvl)
+        again = torch.empty_like(parts)
+        fg = S.swt_fwd_level_2d(t, wav.dec_lo, wav.dec_hi, lvl,
+                                 norm=(fm, fn_beta, again, lvl == FN_LEVELS))
+        check(all(torch.equal(g, b) for g, b in zip(fg, fb)),
+              f"kernel 5's norm launch at level {lvl} {fm}: bands differ from the plain launch's")
+        check(torch.equal(again, parts), f"kernel 5's norm launch at level {lvl} {fm}: "
+              "partials differ from call to call")
+        want = torch.zeros(1, dtype=torch.float64, device=dev)
+        S.swt_norm_partials_ref([b.double() for b in fb], fm, FN_BETA, want,
+                                lvl == FN_LEVELS)
+        got_n, want_n = float(parts.double().sum()), float(want[0])
+        rel = abs(got_n - want_n) / want_n
+        print(f"kernel swt_fwd_level_2d_norm at level {lvl} {fm}: partials' sum {got_n!r} vs "
+              f"float64 {want_n!r}, relative {rel:.3e} (limit {FUSED_NORM_RTOL:.0e}); "
+              f"{parts.numel()} partials", flush=True)
+        check(rel <= FUSED_NORM_RTOL, f"kernel 5's norm at level {lvl} {fm}")
+        del fb, fg
+    # -- the sum of a step's partials (soft, levels 1-5) against a float64 sum
+    fn_parts = torch.cat([p for _, _, m, p in norm_runs if m == "soft"])
+    del norm_runs
+    run_cases([Case("swt_norm_sum_2d", fn_parts, S.swt_norm_sum_2d,
+                    lambda p: p.sum(dtype=torch.float64).to(torch.float32),
+                    f"{fn_parts.numel()} partials of a step", True, float(fn_parts.numel()))],
+              report, card)
 
     # -- the TI path, as a user drives it
     ti_img = np.random.default_rng(1).uniform(0, 255, (TI_N, TI_N)).astype(np.float32)
@@ -1183,6 +1257,49 @@ def main() -> None:
     print(f"thresholded_norm1 {fused!r} vs norm1(soft_threshold) {full!r} "
           f"(limit {NORM_RTOL * abs(full):.3e})")
     check(abs(fused - full) <= NORM_RTOL * abs(full), "thresholded_norm1")
+
+    # -- the 2D TI step as the benchmark's TI cell runs it: denoise_step on
+    # the fused norm route (kernel 5's norm launches, the sum of their
+    # partials, kernel 6 thresholding), against the plain path: the plain
+    # versions level by level and a float64 thresholded_norm1
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    s_out, s_n1 = denoise_step(fn_x, None, wav, FN_LEVELS, FN_BETA, swt=True)
+    torch.cuda.synchronize()
+    step_launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    print(f"TI step {tuple(fn_x.shape)} launches: {step_launches}", flush=True)
+    check(step_launches == {"swt_fwd_level_2d": FN_LEVELS, "swt_norm_sum_2d": 1,
+                            "swt_inv_level_2d": FN_LEVELS},
+          "the TI step did not take the fused norm route")
+    launches["swt_fwd_level_2d_norm"] = step_launches["swt_fwd_level_2d"]
+    launches["swt_norm_sum_2d"] = step_launches["swt_norm_sum_2d"]
+    fa, fdets = fn_x, []
+    for lvl in range(1, FN_LEVELS + 1):
+        fa, *fbands = S.swt_fwd_level_2d_ref(fa, wav.dec_lo, wav.dec_hi, lvl)
+        fdets.append(tuple(fbands))
+    p_n1 = float(ops.thresholded_norm1(
+        Coeffs2D(fa.double(), tuple(tuple(t.double() for t in b) for b in fdets)), FN_BETA))
+    for i in range(FN_LEVELS - 1, -1, -1):
+        fa = S.swt_inv_level_2d_ref(fa, *fdets[i], wav.rec_lo, wav.rec_hi, i + 1,
+                                   ("soft", FN_BETA))
+    del fdets, fbands
+    err, scale = max_err(s_out, fa)
+    n_rel = abs(float(s_n1) - p_n1) / p_n1
+    print(f"TI step {tuple(fn_x.shape)} vs plain path: max|diff| {err:.3e} (limit "
+          f"{PATH_RTOL * scale:.3e}); norm {float(s_n1)!r} vs float64 {p_n1!r}, relative "
+          f"{n_rel:.3e} (limit {FUSED_NORM_RTOL:.0e})", flush=True)
+    check(err <= PATH_RTOL * scale, "the TI step disagrees with the plain path")
+    check(n_rel <= FUSED_NORM_RTOL, "the TI step's norm disagrees with the plain path")
+    del fa, s_out
+
+    def torch_norm_step():
+        c = swt2d(fn_x, wav, FN_LEVELS)
+        return iswt2d_denoise(c, wav, FN_BETA), ops.thresholded_norm1(c, FN_BETA)
+
+    time_in_turns(f"TI step {tuple(fn_x.shape)} {WNAME} {FN_LEVELS} levels soft beta {FN_BETA}",
+                  lambda: denoise_step(fn_x, None, wav, FN_LEVELS, FN_BETA, swt=True),
+                  torch_norm_step, card, names=("fused norm", "torch norm"))
+    del fn_x
 
     # -- the TI step (bench.py's ti_swt_mpix_s), kernels and plain path, in turns
     time_in_turns(f"TI step {TI_N}x{TI_N} {WNAME} {TI_LEVELS} levels soft beta {TI_BETA}",

@@ -48,6 +48,15 @@ in periodization holds to JAX's fma coefficients, not to JAX's TPU route,
 which pads such an axis at the pywt phase (``ROADMAP.md``, "Open faults
 of the reference").
 
+The 2D TI step's norm (:func:`_swt2d_denoise_norm1`, which
+``models.denoise_step`` takes): where every level runs kernel 5
+(:func:`norm_route`: float32 on the card in the kernel route) and no
+gradient is wanted, kernel 5 takes the thresholded L1 norm of the details
+as it stores them, one partial a block, and
+``ops.norms.sum_norm_partials`` adds the partials; the JAX package takes
+the norm apart, in ``ops.thresholded_norm1``, which stays the route
+everywhere else.
+
 Precision tiers (``core/precision.py``; ``pdwt_tpu/core/separable.py``'s
 Pallas dispatch).  The MXU mode comes from the dtype: bf16 tensors run
 "bf16", float32 tensors under the ``mixed`` tier "mixed", everything else
@@ -551,6 +560,57 @@ def swt2d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] 
     return (coeffs, tuple(approxs)) if keep_approx else coeffs
 
 
+def norm_route(x: torch.Tensor, backend: Optional[str]) -> bool:
+    """Does every level of ``swt2d(x, backend=backend)`` run kernel 5, so
+    that its epilogue can take the thresholded L1 norm?  float32 on the
+    card in the kernel route: the exact tier, or ``mixed``, which runs the
+    stationary transforms exact.  bf16 (the tiers), the conv backends and
+    CPU tensors take the plain route."""
+    return x.is_cuda and x.dtype == F32 and kernel_route(backend, None) == "pallas"
+
+
+@spanned("transform")
+def _swt2d_denoise_norm1(x: torch.Tensor, wav: Wavelet, levels: int, beta, mode: str,
+                         normalize: bool, backend: Optional[str] = None):
+    """``denoise_step``'s SWT step with the norm taken by kernel 5:
+    ``(iswt2d_denoise(swt2d(x), beta), thresholded_norm1(swt2d(x), beta))``
+    for a scalar ``beta`` (a number or a one-element tensor, divided by
+    sqrt(2)^(i+1) at level i+1 under ``normalize``).  Kernel 5 sums each
+    level's thresholded H, V and D (and |A| at the last level) as it
+    stores them, and each level's beta is made on the card once for both
+    the norm and kernel 6's threshold.  None where the fused route does
+    not serve: autograd wants a gradient of ``x`` or ``beta``,
+    :func:`norm_route` refuses ``x``, or there is no level; the caller
+    then takes the plain route."""
+    from ..ops.norms import sum_norm_partials
+
+    grad = torch.is_grad_enabled() and (
+        x.requires_grad or (isinstance(beta, torch.Tensor) and beta.requires_grad))
+    if grad or x.ndim < 2 or levels < 1 or not norm_route(x, backend):
+        return None
+    batch = tuple(x.shape[:-2])
+    a = _flat(x)
+    B, R, C = a.shape
+    if normalize:
+        betas = [kernels.beta_buffer(beta / math.sqrt(2.0) ** lvl, a.device)
+                 for lvl in range(1, levels + 1)]
+    else:
+        betas = [kernels.beta_buffer(beta, a.device)] * levels
+    slots = [kernels.swt_norm_slots(B, R, C, wav.hlen, lvl) for lvl in range(1, levels + 1)]
+    partials = torch.empty(sum(slots), dtype=F32, device=a.device)
+    details, off = [], 0
+    for lvl, n, b in zip(range(1, levels + 1), slots, betas):
+        a, h, v, d = kernels.swt_fwd_level_2d(a, wav.dec_lo, wav.dec_hi, lvl,
+                                              norm=(mode, b, partials[off:off + n],
+                                                    lvl == levels))
+        details.append((h, v, d))
+        off += n
+    n1 = sum_norm_partials(partials)
+    out = _iswt2d_thresholded(Coeffs2D(a, tuple(details)), wav, lambda lvl: betas[lvl - 1],
+                              mode)
+    return _unflat(out, batch), n1
+
+
 def _iswt2d_levels(coeffs: Coeffs2D, wav: Wavelet, level_fn, a_fn=None) -> torch.Tensor:
     """Invert a 2D SWT deepest level first.  ``level_fn(a, h, v, d, level,
     mxu, out_dtype)`` runs one level on the banded-product kernel (``mxu``
@@ -620,18 +680,25 @@ def iswt2d_denoise(coeffs: Coeffs2D, wav: Wavelet, beta, *, mode: str = "soft",
                                           do_thresh_appcoeffs=do_thresh_appcoeffs), wav,
                       backend=backend)
     check_supported(coeffs.approx)
+    app = None
+    if do_thresh_appcoeffs:
+        app = lambda a: THR_ELEM[mode](a, _app_beta(beta, coeffs.levels, normalize))
+    return _iswt2d_thresholded(
+        coeffs, wav, lambda lvl: beta / math.sqrt(2.0) ** lvl if normalize else beta, mode, app)
+
+
+def _iswt2d_thresholded(coeffs: Coeffs2D, wav: Wavelet, beta_at, mode: str, app=None):
+    """:func:`iswt2d_denoise`'s kernel route: ``beta_at(level)`` thresholds
+    the details of each level; ``app`` maps the approximation first."""
     lo, hi = wav.rec_lo, wav.rec_hi
 
     def level(a, h, v, d, lvl, mxu, out_dt):
-        bi = beta / math.sqrt(2.0) ** lvl if normalize else beta
+        bi = beta_at(lvl)
         if mxu:
             return kernels.swt_inv_level_2d_mxu_denoise_ad(a, h, v, d, bi, lo, hi, lvl, mxu,
                                                            mode, out_dt)
         return kernels.swt_inv_level_2d_denoise_ad(a, h, v, d, bi, lo, hi, lvl, mode)
 
-    app = None
-    if do_thresh_appcoeffs:
-        app = lambda a: THR_ELEM[mode](a, _app_beta(beta, coeffs.levels, normalize))
     return _iswt2d_levels(coeffs, wav, level, app)
 
 

@@ -121,8 +121,11 @@ def load() -> ctypes.CDLL:
         # smem, tiles), stream
         "pdwt_inv_tail_2d": [P, P, P, P, I, I, I, I, P, I, P, *[I] * 5, P, P],
         # x, a, h, v, d, B, R, C, taps (4, hlen on the device), hlen, dilation, center,
-        # the launch plan (lr, lc, gc, nph, nt, threads, grid x, y, z, smem), stream
-        "pdwt_swt_fwd_level_2d": [P, P, P, P, P, I, I, I, P, I, I, I, *[I] * 10, P],
+        # the launch plan (lr, lc, gc, nph, nt, threads, grid x, y, z, smem), norm mode,
+        # beta (one float on the device), partials, approx, stream
+        "pdwt_swt_fwd_level_2d": [P, P, P, P, P, I, I, I, P, I, I, I, *[I] * 10, I, P, P, I, P],
+        # partials, their count, out (one float on the device), stream
+        "pdwt_swt_norm_sum_2d": [P, I, P, P],
         # a, h, v, d, out, B, R, C, taps (4, hlen on the device), hlen, dilation, center,
         # thresh_mode, beta (one float on the device), the launch plan (lr, lc, gc, nph,
         # nt, threads, grid x, y, z, smem), stream

@@ -301,12 +301,18 @@ __device__ __forceinline__ void stage_window(const Bands& src, FR row_base, cons
   }
 }
 
+// A store_tile callback that does nothing.
+struct NoSeen {
+  __device__ __forceinline__ void operator()(float) const {}
+};
+
 // Copy an nr x nc float tile (pitch `pitch`) to the output rows orow(i) and
 // columns ocol(u) where they fall inside (n_r, n_c); lanes along the columns.
-template <typename TO, typename FR, typename FC>
+// seen(v) is called with each value stored, by the thread that stores it.
+template <typename TO, typename FR, typename FC, typename FV = NoSeen>
 __device__ __forceinline__ void store_tile(TO* __restrict__ out, size_t plane, int n_r, int n_c,
                                            const float* ob, int pitch, int nr, int nc, FR orow,
-                                           FC ocol) {
+                                           FC ocol, FV seen = {}) {
   const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
   for (int i = threadIdx.x >> 5; i < nr; i += nw) {
     const long long r = orow(i);
@@ -314,7 +320,11 @@ __device__ __forceinline__ void store_tile(TO* __restrict__ out, size_t plane, i
     TO* dst = out + plane + (size_t)r * n_c;
     for (int u = lane; u < nc; u += 32) {
       const long long c = ocol(u);
-      if (c < n_c) dst[c] = from_f<TO>(ob[i * pitch + u]);
+      if (c < n_c) {
+        const float v = ob[i * pitch + u];
+        dst[c] = from_f<TO>(v);
+        seen(v);
+      }
     }
   }
 }

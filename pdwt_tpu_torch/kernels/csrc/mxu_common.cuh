@@ -168,6 +168,33 @@ __device__ __forceinline__ float thresh(float x, int mode, float b) {
   return x;
 }
 
+// The thresholded L1 norm that kernel 5's norm launches take as they store
+// (swt_matmul.cu: swt_fwd_mxu_kernel<FD, 1, mode>): the threshold mode of H,
+// V and D (kNone: no norm) at the float at `beta` (device memory), |A| added
+// too where `approx` (the last level), and one float32 partial a block into
+// partials[block], the blocks numbered x fastest, then y, then z.
+struct NormOut {
+  int mode;
+  const float* beta;
+  float* partials;
+  int approx;
+};
+
+// |thresh(x, M, b)|, the term of the fused thresholded L1 norm
+// (ops/norms.py: thresholded_norm1): soft max(|x| - b, 0), hard |x| where
+// |x| > b, garrote |x| - b2 / |x| where |x| > b, each else 0; b2 = b * b in
+// float32, as ops/threshold.py: beta_squared rounds it.  The mode is a
+// constant: a run-time one cost kernel 5's norm launches a third more time
+// in their stores.
+template <int M>
+__device__ __forceinline__ float thresh_l1(float x, float b, float b2) {
+  const float ax = fabsf(x);
+  if constexpr (M == kSoft) return fmaxf(ax - b, 0.f);
+  if constexpr (M == kHard) return ax > b ? ax : 0.f;
+  if constexpr (M == kGarrote) return ax > b ? ax - b2 / ax : 0.f;
+  return ax;
+}
+
 // A block's share of one axis of an a-trous level at dilation f: it owns the
 // LT positions rho + (q0 + t) * f, t < LT, of residue class rho mod f, so a
 // dilated tap of any of them lands in the same class and a window of

@@ -35,6 +35,17 @@
 // float32 roundoff.  The entry points below are kept apart so that their
 // wrappers count their own launches.
 //
+// Kernel 5 also takes the TI step's thresholded L1 norm as it stores (the
+// norm launches of pdwt_swt_fwd_level_2d, onto swt_fwd_mxu_kernel<FD, 1,
+// mode>, one instance a threshold mode): each block sums max(|x| - b, 0)
+// (soft; hard and garrote likewise, mxu_common.cuh: thresh_l1) over the H,
+// V, D values it writes, and |A| on the last level, into one float32
+// partial; pdwt_swt_norm_sum_2d (below) then adds a call's partials.  It
+// replaces the ~95 plain torch launches of ops/norms.py: thresholded_norm1
+// (abs, sub, clamp_min, sum a band), which read each band four times and
+// wrote it three times; the epilogue reads nothing more than the stores, so
+// it adds no device memory traffic.
+//
 // Kernels 5 and 6 also have padded entry points (pdwt_swt_fwd_level_2d_padded,
 // pdwt_swt_inv_level_2d_padded, at the end of this file), the counterparts of
 // swt_pallas.py:935 swt_fwd_level_2d_padded and :960 swt_inv_level_2d_padded:
@@ -55,24 +66,64 @@
 // dual_taps in the fd scheme (the second values 0); `cen` is the center in
 // taps, undilated.
 
-extern "C" int pdwt_swt_fwd_level_2d_mxu(const void* x, float* a, void* h, void* v, void* d,
-                                         int B, int R, int C, const float* taps, int hlen, int f,
-                                         int cen, int scheme, int in_bf16, int det_bf16, int lr,
-                                         int lc, int gc, int nph, int nt, int threads, int gx,
-                                         int gy, int gz, int smem, void* stream);
+namespace pdwt_swtmm {
+int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R, int C,
+               const float* taps, int hlen, int os, int f, int cen, int scheme, int in_bf16,
+               int det_bf16, int lr, int lc, int gc, int nph, int nt, int threads, int gx,
+               int gy, int gz, int smem, void* stream, pdwt_mxu::NormOut nrm);
+}  // namespace pdwt_swtmm
 
 // Kernel 5 runs kernel 13's body (swt_matmul.cu: swt_fwd_mxu_kernel, output
 // step 1) in the fd scheme on a float32 image into four float32 planes.
 // `cen` = fwd_center(hlen); the launch plan is
 // kernels/swt_matmul.py:swt_fwd_launch_plan's for fd, checked by the
-// launcher it calls (pdwt_swtmm::launch_fwd).
+// launcher it calls (pdwt_swtmm::launch_fwd).  norm_mode 0 is the plain
+// launch; 1 soft, 2 hard, 3 garrote a norm launch, which also writes the
+// thresholded L1 norm of H, V and D at the float at `beta` (device memory),
+// plus |A| where `approx`, as gx gy gz float32 partials to `partials`.
 extern "C" int pdwt_swt_fwd_level_2d(const float* x, float* a, float* h, float* v, float* d,
                                      int B, int R, int C, const float* taps, int hlen, int f,
                                      int cen, int lr, int lc, int gc, int nph, int nt,
                                      int threads, int gx, int gy, int gz, int smem,
-                                     void* stream) {
-  return pdwt_swt_fwd_level_2d_mxu(x, a, h, v, d, B, R, C, taps, hlen, f, cen, pdwt_mxu::FD, 0,
-                                   0, lr, lc, gc, nph, nt, threads, gx, gy, gz, smem, stream);
+                                     int norm_mode, const float* beta, float* partials,
+                                     int approx, void* stream) {
+  return pdwt_swtmm::launch_fwd(x, a, h, v, d, B, R, C, taps, hlen, 1, f, cen, pdwt_mxu::FD, 0, 0,
+                                lr, lc, gc, nph, nt, threads, gx, gy, gz, smem, stream,
+                                {norm_mode, beta, partials, approx});
+}
+
+namespace {
+
+constexpr int kSumThreads = 1024;
+
+// The fused norm's last step (no TPU kernel: JAX sums the norm in XLA): the
+// n partials of a call's kernel-5 norm launches, each thread a fixed strided
+// share in float64, then a tree over the block in shared memory, into one
+// float32.  The order never changes, so neither does the sum.  Bound:
+// latency, one block reading about 20,000 floats that kernel 5 just wrote
+// (L2), a few microseconds.
+__global__ void __launch_bounds__(kSumThreads)
+swt_norm_sum_kernel(const float* __restrict__ partials, int n, float* __restrict__ out) {
+  __shared__ double s[kSumThreads];
+  double t = 0.0;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < n; i += kSumThreads) t += partials[i];
+  s[threadIdx.x] = t;
+  __syncthreads();
+  for (int w = kSumThreads / 2; w > 0; w >>= 1) {
+    if ((int)threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *out = (float)s[0];
+}
+
+}  // namespace
+
+// The sum of n >= 1 float32 partials (device memory) into the float at `out`.
+extern "C" int pdwt_swt_norm_sum_2d(const float* partials, int n, float* out, void* stream) {
+  if (n < 1 || !partials || !out) return cudaErrorInvalidValue;
+  swt_norm_sum_kernel<<<1, kSumThreads, 0, (cudaStream_t)stream>>>(partials, n, out);
+  return cudaGetLastError();
 }
 
 extern "C" int pdwt_swt_inv_level_2d_mxu(const float* a, const void* h, const void* v,

@@ -137,12 +137,18 @@ struct FwdTile {
 // where det_bf16).  Ends at a block barrier, so the next call may reuse
 // the shared memory; the taps at its start stay.  PAD (kernel 1's padded
 // entry point): the index tables do not wrap (band_strip.cuh: fill_table)
-// and the outputs are Ro x Co.
-template <int S, int OS, bool PAD = false, typename SW>
+// and the outputs are Ro x Co.  NM (kernel 5's norm launches, float32
+// details: soft, hard or garrote; kNone otherwise): each thread also adds to
+// *nsum the term
+// (thresh_l1<NM> at nrm's beta; |A| where nrm.approx) of every value it
+// stores, so the sum counts each stored output once and nothing store_tile
+// skips.
+template <int S, int OS, bool PAD = false, int NM = kNone, typename SW>
 __device__ __forceinline__ void fwd_tile(unsigned char* smem_raw, const FwdTile& g,
                                          const float* __restrict__ taps, bool load_taps,
                                          SW stage_src, float* a, void* h, void* v, void* d,
-                                         int det_bf16, size_t oplane) {
+                                         int det_bf16, size_t oplane, NormOut nrm = {},
+                                         float* nsum = nullptr) {
   using St = Stage<S>;
   constexpr int nd = kDataLo<S> ? 2 : 1;
   // at step 2 the column strips of the two- and three-term schemes hold
@@ -213,31 +219,51 @@ __device__ __forceinline__ void fwd_tile(unsigned char* smem_raw, const FwdTile&
     for (int t = 0; t < 4 / nph; ++t) {
       const int o = nph == 1 ? t : ph + 2 * t;
       const float* tt = tile + t * lr * OP;
-      if (o == 0)
+      if constexpr (NM != kNone) {
+        const float b = __ldg(nrm.beta), b2 = b * b;
+        float s = 0.f;
+        if (o > 0)
+          store_tile(static_cast<float*>(outs[o]), oplane, Ro, Co, tt, OP, lr, lc, orow, ocol,
+                     [&](float x) { s += thresh_l1<NM>(x, b, b2); });
+        else if (nrm.approx)
+          store_tile(a, oplane, Ro, Co, tt, OP, lr, lc, orow, ocol,
+                     [&](float x) { s += fabsf(x); });
+        else
+          store_tile(a, oplane, Ro, Co, tt, OP, lr, lc, orow, ocol);
+        *nsum += s;
+      } else if (o == 0) {
         store_tile(a, oplane, Ro, Co, tt, OP, lr, lc, orow, ocol);
-      else if (det_bf16)
+      } else if (det_bf16) {
         store_tile(static_cast<__nv_bfloat16*>(outs[o]), oplane, Ro, Co, tt, OP, lr, lc, orow,
                    ocol);
-      else
+      } else {
         store_tile(static_cast<float*>(outs[o]), oplane, Ro, Co, tt, OP, lr, lc, orow, ocol);
+      }
     }
     __syncthreads();
   }
 }
 
-// R x C is the input, (R / OS) x (C / OS) each output.
-template <int S, int OS>
+// R x C is the input, (R / OS) x (C / OS) each output.  NM (kernel 5's norm
+// launches, fd at step 1 only, the threshold mode; `nrm` unread at kNone):
+// every thread sums the terms of what it stores over the block's batch
+// items, and the block reduces the sums (warp shuffles, then shared memory)
+// to one float32 partial in its own slot of nrm.partials.  Each slot is
+// written by one block and nothing else, so no atomics and the same sum
+// every call.
+template <int S, int OS, int NM = kNone>
 __global__ void __launch_bounds__(256)
 swt_fwd_mxu_kernel(const void* __restrict__ x, float* __restrict__ a, void* __restrict__ h,
                    void* __restrict__ v, void* __restrict__ d, int in_bf16, int det_bf16, int B,
                    int R, int C, int hlen, int f, int cen, const float* __restrict__ taps, int lr,
-                   int lc, int gc, int nph, int nt) {
+                   int lc, int gc, int nph, int nt, const NormOut nrm) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Ro = R / OS, Co = C / OS;
   const int frr = f < Ro ? f : Ro, frc = gc == 1 ? 1 : (f < Co ? f : Co);
   const FwdTile g = {R,  C,  hlen, f,  cen, lr, lc, gc, nph, nt, (int)(blockIdx.y % frr),
                      (int)(blockIdx.y / frr) * lr, (int)(blockIdx.x % frc),
                      (int)(blockIdx.x / frc) * lc};
+  float s = 0.f;  // NM: this thread's sum of the terms of what it stored
   for (int b = blockIdx.z; b < B; b += gridDim.z) {
     const size_t plane = (size_t)b * R * C;
     // one staging per input type, each with the type a constant (Bands)
@@ -248,8 +274,20 @@ swt_fwd_mxu_kernel(const void* __restrict__ x, float* __restrict__ a, void* __re
       else
         stage_window<S, 1, 6, 3>(Bands{{x}, 0u}, row, cols, WR, WC, win, WC, 0, WR * WC);
     };
-    fwd_tile<S, OS>(smem_raw, g, taps, b == (int)blockIdx.z, stage_src, a, h, v, d, det_bf16,
-                    (size_t)b * Ro * Co);
+    fwd_tile<S, OS, false, NM>(smem_raw, g, taps, b == (int)blockIdx.z, stage_src, a, h, v, d,
+                               det_bf16, (size_t)b * Ro * Co, nrm, &s);
+  }
+  if constexpr (NM != kNone) {  // fwd_tile ended at a barrier: the shared memory is free
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+    float* ws = reinterpret_cast<float*>(smem_raw);  // a float a warp (16 nt bytes of taps)
+    if ((threadIdx.x & 31) == 0) ws[threadIdx.x >> 5] = s;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float t = 0.f;
+      for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t += ws[w];
+      nrm.partials[((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = t;
+    }
   }
 }
 
@@ -566,11 +604,13 @@ namespace pdwt_swtmm {
 // Kernels 13 (pdwt_swt_fwd_level_2d_mxu, below) and 5 (swt.cu:
 // pdwt_swt_fwd_level_2d, fd) run it at os = 1, kernels 11 (matmul.cu:
 // pdwt_fwd_level_2d_mxu) and 1 (separable.cu: pdwt_fwd_level_2d, fd) at os =
-// 2.
+// 2.  A norm mode other than kNone (kernel 5's norm launches: fd, os = 1,
+// float32 in and out) runs that mode's instance, which writes gx gy gz
+// partials.
 int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R, int C,
                const float* taps, int hlen, int os, int f, int cen, int scheme, int in_bf16,
                int det_bf16, int lr, int lc, int gc, int nph, int nt, int threads, int gx,
-               int gy, int gz, int smem, void* stream) {
+               int gy, int gz, int smem, void* stream, NormOut nrm) {
   if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || R < 1 || C < 1 || f < 1 ||
       !(os == 1 || (os == 2 && f == 1 && !((R | C) & 1))))
     return cudaErrorInvalidValue;
@@ -580,6 +620,10 @@ int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R,
       threads % 32 || lc % (kColStrip * (f / gc)) ||
       !grid_fits(B, Ro, Co, f, lr, lc, gc, gx, gy, gz))
     return cudaErrorInvalidValue;
+  const bool norm = nrm.mode != kNone;
+  if (norm && (nrm.mode < kSoft || nrm.mode > kGarrote || !nrm.beta || !nrm.partials ||
+               scheme != FD || os != 1 || in_bf16 || det_bf16))
+    return cudaErrorInvalidValue;
   return with_scheme(scheme, [&](auto sc) {
     constexpr int S = decltype(sc)::value;
     if (lr % kRowStrip<S> || (size_t)smem != fwd_smem<S>(os, lr, lc, f / gc, nt, nph))
@@ -588,11 +632,26 @@ int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R,
       cudaError_t e = prepare(kernel, smem);
       if (e != cudaSuccess) return e;
       kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-          x, a, h, v, d, in_bf16, det_bf16, B, R, C, hlen, f, cen, taps, lr, lc, gc, nph, nt);
+          x, a, h, v, d, in_bf16, det_bf16, B, R, C, hlen, f, cen, taps, lr, lc, gc, nph, nt,
+          nrm);
       return cudaGetLastError();
     };
+    if constexpr (S == FD) {
+      if (nrm.mode == kSoft) return launch(swt_fwd_mxu_kernel<FD, 1, kSoft>);
+      if (nrm.mode == kHard) return launch(swt_fwd_mxu_kernel<FD, 1, kHard>);
+      if (nrm.mode == kGarrote) return launch(swt_fwd_mxu_kernel<FD, 1, kGarrote>);
+    }
     return os == 2 ? launch(swt_fwd_mxu_kernel<S, 2>) : launch(swt_fwd_mxu_kernel<S, 1>);
   });
+}
+
+// launch_fwd without a norm: kernels 1, 11 and 13, and kernel 5's plain launches.
+int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R, int C,
+               const float* taps, int hlen, int os, int f, int cen, int scheme, int in_bf16,
+               int det_bf16, int lr, int lc, int gc, int nph, int nt, int threads, int gx,
+               int gy, int gz, int smem, void* stream) {
+  return launch_fwd(x, a, h, v, d, B, R, C, taps, hlen, os, f, cen, scheme, in_bf16, det_bf16,
+                    lr, lc, gc, nph, nt, threads, gx, gy, gz, smem, stream, NormOut{});
 }
 
 // Launch a padded forward (fwd_padded_kernel at output step os = 2,

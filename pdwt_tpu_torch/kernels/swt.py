@@ -15,6 +15,12 @@ wrapper               computes                                         plain ver
                       soft/hard/garrote threshold of H, V, D fused
 ====================  ===============================================  ===========================
 
+The forward also takes the TI step's thresholded L1 norm as it stores
+(``swt_fwd_level_2d(..., norm=(mode, beta, partials, approx))``: kernel
+5's norm launches, ``swt_fwd_mxu_kernel<FD, 1, mode>``), one float32
+partial a block (``swt_norm_slots``), which ``swt_norm_sum_2d`` adds in
+float64 into the norm (``core/separable.py: _swt2d_denoise_norm1``).
+
 and two padded entry points for the sharded SWT (``parallel/sharded.py``),
 the counterparts of ``swt_pallas.py:935 swt_fwd_level_2d_padded`` and
 ``:960 swt_inv_level_2d_padded``:
@@ -61,6 +67,7 @@ the threshold's a.e. derivative, masked by the un-thresholded details
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -76,6 +83,8 @@ from .mxu1d import _half
 THRESH_CODES = {None: 0, "soft": 1, "hard": 2, "garrote": 3}
 
 Threshold = Optional[Tuple[str, object]]
+#: (mode, beta, partials, approx) of a norm launch of kernel 5
+Norm = Optional[Tuple[str, object, torch.Tensor, bool]]
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +114,20 @@ def swt_inv_level_2d_ref(a, h, v, d, rec_lo, rec_hi, level: int,
     z = torch.stack([a, h, v, d], dim=1)
     t = conv.synthesis_pass(z, rec, axis=-2, dilation=f, decimated=False)
     return conv.synthesis_pass(t, rec, axis=-1, dilation=f, decimated=False)[:, 0].contiguous()
+
+
+def swt_norm_partials_ref(bands, mode: str, beta, partials: torch.Tensor, approx: bool) -> None:
+    """The plain version of a norm launch's partials: the thresholded L1
+    norm of H, V and D (``ops.norms.thresholded_l1``, float32 sums), plus
+    sum |A| where ``approx``, in ``partials[0]``, zeros after."""
+    from ..ops.norms import thresholded_l1
+
+    a, h, v, d = bands
+    total = sum(thresholded_l1(t, beta, mode) for t in (h, v, d))
+    if approx:
+        total = total + a.abs().sum()
+    partials.zero_()
+    partials[0] = total
 
 
 def swt_fwd_level_2d_padded_ref(xp: torch.Tensor, dec_lo, dec_hi, level: int):
@@ -146,16 +169,33 @@ def swt_inv_padded_launch_plan(B: int, R: int, C: int, hlen: int, f: int) -> Inv
     return swt_inv_launch_plan(B, R, C, hlen, f, "fd")
 
 
+def swt_norm_slots(B: int, R: int, C: int, hlen: int, level: int) -> int:
+    """The partials a norm launch of kernel 5 writes on a (B, R, C) image:
+    one a block of its plan."""
+    from .swt_matmul import swt_fwd_launch_plan  # swt_matmul imports this module
+
+    return math.prod(swt_fwd_launch_plan(B, R, C, hlen, dilation(level), "fd").grid)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
 @spanned("kernels")
-def swt_fwd_level_2d(x: torch.Tensor, dec_lo, dec_hi, level: int):
+def swt_fwd_level_2d(x: torch.Tensor, dec_lo, dec_hi, level: int, *, norm: Norm = None):
     """One a-trous analysis level: (B, R, C) -> (a, h, v, d), each (B, R, C).
-    Any size, including one smaller than the dilated support."""
+    Any size, including one smaller than the dilated support.
+    ``norm=(mode, beta, partials, approx)`` also writes the thresholded L1
+    norm of H, V and D (mode soft, hard or garrote; beta a number or a
+    one-element tensor), plus sum |A| where ``approx``, into ``partials``:
+    ``swt_norm_slots`` float32s, one a block, for ``swt_norm_sum_2d``."""
+    if norm is not None and norm[0] not in ("soft", "hard", "garrote"):
+        raise ValueError(f"norm mode {norm[0]!r}: the kernel takes soft, hard or garrote")
     if on_cpu(x):
-        return swt_fwd_level_2d_ref(x, dec_lo, dec_hi, level)
+        bands = swt_fwd_level_2d_ref(x, dec_lo, dec_hi, level)
+        if norm is not None:
+            swt_norm_partials_ref(bands, *norm)
+        return bands
     from .swt_matmul import swt_fwd_launch_plan  # swt_matmul imports this module
 
     f = dilation(level)
@@ -164,14 +204,35 @@ def swt_fwd_level_2d(x: torch.Tensor, dec_lo, dec_hi, level: int):
     check_span(hlen, f)
     B, R, C = x.shape
     pl = swt_fwd_launch_plan(B, R, C, hlen, f, "fd")
+    nargs = [0, None, None, 0]
+    if norm is not None:
+        mode, beta, partials, approx = norm
+        if (partials.device != x.device or partials.dtype != torch.float32
+                or not partials.is_contiguous() or partials.numel() != math.prod(pl.grid)):
+            raise ValueError(f"a norm launch writes {math.prod(pl.grid)} contiguous float32 "
+                             f"partials on {x.device}")
+        buf = beta_buffer(beta, x.device)
+        nargs = [THRESH_CODES[mode], ptr(buf), ptr(partials), int(approx)]
     outs = [torch.empty_like(x) for _ in range(4)]
     launch("swt_fwd_level_2d", x.device,
            [ptr(x), *map(ptr, outs), B, R, C, ptr(tp), hlen, f, conv.fwd_center(hlen), pl.lr,
-            pl.lc, pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
+            pl.lc, pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem, *nargs])
     return tuple(outs)
 
 
-def _beta_buffer(beta, device: torch.device) -> torch.Tensor:
+@spanned("kernels")
+def swt_norm_sum_2d(partials: torch.Tensor) -> torch.Tensor:
+    """The sum of kernel 5's norm partials (a 1-D float32 tensor), taken in
+    float64 in a fixed order: a 0-dim float32 tensor, the same bits every
+    call."""
+    if on_cpu(partials, ndim=1):
+        return partials.sum(dtype=torch.float64).to(torch.float32)
+    out = torch.empty((), dtype=torch.float32, device=partials.device)
+    launch("swt_norm_sum_2d", partials.device, [ptr(partials), partials.numel(), ptr(out)])
+    return out
+
+
+def beta_buffer(beta, device: torch.device) -> torch.Tensor:
     """beta as one float32 on ``device``, with no host synchronisation."""
     if isinstance(beta, torch.Tensor):
         if beta.numel() != 1:
@@ -202,7 +263,7 @@ def swt_inv_level_2d(a, h, v, d, rec_lo, rec_hi, level: int,
     check_span(hlen, f)
     B, R, C = a.shape
     out = torch.empty_like(a)
-    buf = None if mode is None else _beta_buffer(beta, a.device)
+    buf = None if mode is None else beta_buffer(beta, a.device)
     pl = swt_inv_launch_plan(B, R, C, hlen, f, "fd")
     launch("swt_inv_level_2d", a.device,
            [*map(ptr, (a, h, v, d, out)), B, R, C, ptr(tp), hlen, f, conv.swt_inv_center(hlen),

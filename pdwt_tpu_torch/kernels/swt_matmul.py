@@ -62,7 +62,7 @@ from .matmul import (_DT, BF16, F32, MXU_MAX_HLEN, SCHEMES, _check_bands, _check
                      swt_bf16_scheme, swt_scheme, tile_candidates)
 from .mxu1d import _half
 from .separable import _c
-from .swt import THRESH_CODES, Threshold, _beta_buffer, _thresh_vjp_factors
+from .swt import THRESH_CODES, Threshold, _thresh_vjp_factors, beta_buffer
 
 
 def mxu_route_swt_2d(r: int, c: int, hlen: int, level: int) -> bool:
@@ -95,7 +95,7 @@ def swt2d_inv_plan(mode: str, out_dtype: Optional[torch.dtype]):
 def fused_threshold(x: torch.Tensor, mode: str, beta) -> torch.Tensor:
     """The fused threshold of the TPU kernels (``swt_pallas.py:206-214``)
     on a float32 tensor, with beta rounded to float32."""
-    b = _beta_buffer(beta, x.device).reshape(())
+    b = beta_buffer(beta, x.device).reshape(())
     if mode == "soft":
         return torch.sign(x) * torch.clamp(x.abs() - b, min=0.0)
     if mode == "hard":
@@ -277,7 +277,7 @@ def swt_inv_level_2d_mxu(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str, ou
     check_span(hlen, f)
     B, R, C = a.shape
     out = torch.empty(a.shape, device=a.device, dtype=out_dtype)
-    buf = None if mode is None else _beta_buffer(beta, a.device)
+    buf = None if mode is None else beta_buffer(beta, a.device)
     pl = swt_inv_launch_plan(B, R, C, hlen, f, scheme)
     launch("swt_inv_level_2d_mxu", a.device,
            [*map(ptr, (a, h, v, d, out)), B, R, C, ptr(taps), hlen, f,
@@ -410,7 +410,7 @@ class _SwtInvLevel2DMxuDenoise(torch.autograd.Function):
         h, v, d, *rest = ctx.saved_tensors
         beta = rest[0] if ctx.beta_is_tensor else ctx.beta
         ga, *gbands = _inv_backward(ctx, gy)
-        b = _beta_buffer(beta, gy.device).reshape(())
+        b = beta_buffer(beta, gy.device).reshape(())
         outs, gbeta = [], None
         for t, g in zip((h, v, d), gbands):
             tf, gf = t.float(), g.float()

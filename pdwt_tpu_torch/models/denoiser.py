@@ -18,7 +18,8 @@ from typing import Optional, Tuple
 import torch
 
 from .. import ops
-from ..core.separable import all_periodization, dwt2d, idwt2d, iswt2d, iswt2d_denoise, swt2d
+from ..core.separable import (_swt2d_denoise_norm1, all_periodization, dwt2d, idwt2d, iswt2d,
+                              iswt2d_denoise, swt2d)
 from ..core.separable3d import Coeffs3D, dwt3d, idwt3d, iswt3d, iswt3d_denoise, swt3d
 from ..filters import get_wavelet
 from ..ops.estimate import _MAD_TO_SIGMA, median
@@ -50,8 +51,12 @@ def denoise_step(img: torch.Tensor, generator: Optional[torch.Generator], wav,
     threshold type (soft, hard, group or garrote).  With ``swt=True``, an
     elementwise mode and a scalar ``beta`` the threshold runs inside the
     inverse's kernel and the norm comes from the un-thresholded
-    coefficients (``ops.thresholded_norm1``): the thresholded tree is never
-    built.  ``boundary`` is the DWT's boundary extension (``core/modes.py``;
+    coefficients: the thresholded tree is never built.  Where every level
+    runs kernel 5 (float32 on the card, the kernel route) and no gradient
+    is wanted, kernel 5 takes the norm as it stores the coefficients
+    (``core/separable.py: _swt2d_denoise_norm1``); otherwise
+    ``ops.thresholded_norm1`` takes it in plain torch.  ``boundary`` is
+    the DWT's boundary extension (``core/modes.py``;
     ``mode`` names the threshold, as in the reference): anything but
     periodization on every axis takes the decimated DWT without cycle
     spinning (``ValueError`` otherwise, as JAX; the port tests
@@ -66,9 +71,14 @@ def denoise_step(img: torch.Tensor, generator: Optional[torch.Generator], wav,
         sr, sc = ops.random_shift(generator, (nr, nc))
         img = ops.circshift2d(img, sr, sc)
     if swt and mode in THR_ELEM and not isinstance(beta, (list, tuple)):
-        coeffs = swt2d(img, wav, levels, backend=backend)
-        n1 = ops.thresholded_norm1(coeffs, beta, mode=mode, normalize=normalize)
-        out = iswt2d_denoise(coeffs, wav, beta, mode=mode, normalize=normalize, backend=backend)
+        fused = _swt2d_denoise_norm1(img, wav, levels, beta, mode, normalize, backend)
+        if fused is None:
+            coeffs = swt2d(img, wav, levels, backend=backend)
+            n1 = ops.thresholded_norm1(coeffs, beta, mode=mode, normalize=normalize)
+            out = iswt2d_denoise(coeffs, wav, beta, mode=mode, normalize=normalize,
+                                 backend=backend)
+        else:
+            out, n1 = fused
     elif swt:
         coeffs = _THRESH[mode](swt2d(img, wav, levels, backend=backend), beta,
                                normalize=normalize)

@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.profiling import spanned
+from .. import kernels
+from ..utils.profiling import NORM_PATHS, recording, span, spanned
 from .threshold import _SQRT2, Coeffs, _const, detail_bands
 
 
@@ -96,36 +97,57 @@ def thresholded_norm_l21(coeffs: Coeffs, beta, *, normalize: bool = False,
     return total if do_thresh_appcoeffs else total + _approx_l1(coeffs)
 
 
+def thresholded_l1(x: torch.Tensor, b, mode: str) -> torch.Tensor:
+    """The L1 norm of ``x`` thresholded at ``b`` (a number or a tensor):
+    soft sum max(|x| - b, 0), hard sum |x| [|x| > b], garrote
+    sum (|x| - b^2 / |x|) [|x| > b]; summed in float32 for bf16."""
+    from .threshold import beta_squared
+
+    ax = x.abs().to(_accum(x))
+    if isinstance(b, torch.Tensor):
+        b = b.to(ax.dtype)
+    if mode == "soft":
+        return torch.clamp_min(ax - b, 0).sum()
+    if mode == "hard":
+        return torch.where(ax > b, ax, 0.0).sum()
+    if mode == "garrote":
+        keep = ax > b
+        safe = torch.where(keep, ax, 1.0)
+        b2 = torch.as_tensor(beta_squared(b, ax), dtype=ax.dtype)
+        return torch.where(keep, ax - b2 / safe, 0.0).sum()
+    raise ValueError(f"thresholded_norm1 takes soft, hard or garrote, got {mode!r}")
+
+
 @spanned("ops")
 def thresholded_norm1(coeffs: Coeffs, beta, *, mode: str = "soft",
                       normalize: bool = False,
                       do_thresh_appcoeffs: bool = False) -> torch.Tensor:
-    """``norm1(threshold(coeffs))`` without building the thresholded tree:
-    soft gives sum max(|x| - b, 0), hard sum |x| [|x| > b], garrote
-    sum (|x| - b^2 / |x|) [|x| > b].  ``beta`` is a scalar or a per-level
+    """``norm1(threshold(coeffs))`` without building the thresholded tree
+    (:func:`thresholded_l1` a band).  ``beta`` is a scalar or a per-level
     (per-band) sequence, as for the threshold ops; ``mode`` is soft, hard
-    or garrote."""
-    from .threshold import _app_beta, _resolve_beta, beta_squared
+    or garrote.  This is the plain route, counted in ``NORM_PATHS["plain"]``
+    while the span recorder is on; the 2D TI step's fused route takes the
+    norm in kernel 5's epilogue and ends in :func:`sum_norm_partials`."""
+    from .threshold import _app_beta, _resolve_beta
 
-    def term(x, b):
-        ax = x.abs().to(_accum(x))
-        if isinstance(b, torch.Tensor):
-            b = b.to(ax.dtype)
-        if mode == "soft":
-            return torch.clamp_min(ax - b, 0).sum()
-        if mode == "hard":
-            return torch.where(ax > b, ax, 0.0).sum()
-        if mode == "garrote":
-            keep = ax > b
-            safe = torch.where(keep, ax, 1.0)
-            b2 = torch.as_tensor(beta_squared(b, ax), dtype=ax.dtype)
-            return torch.where(keep, ax - b2 / safe, 0.0).sum()
-        raise ValueError(f"thresholded_norm1 takes soft, hard or garrote, got {mode!r}")
-
+    if recording():
+        NORM_PATHS["plain"] += 1
     total = 0.0
     for i, j, x in detail_bands(coeffs):
-        total = total + term(x, _resolve_beta(beta, i, j, normalize))
+        total = total + thresholded_l1(x, _resolve_beta(beta, i, j, normalize), mode)
     a = coeffs.approx
     if do_thresh_appcoeffs:
-        return total + term(a, _app_beta(beta, coeffs.levels, normalize))
+        return total + thresholded_l1(a, _app_beta(beta, coeffs.levels, normalize), mode)
     return total + a.abs().sum(dtype=_accum(a))
+
+
+def sum_norm_partials(partials: torch.Tensor) -> torch.Tensor:
+    """The fused route's thresholded L1 norm (``core/separable.py:
+    _swt2d_denoise_norm1``): the partials of kernel 5's norm launches, one
+    a block, added by ``kernels.swt_norm_sum_2d``.  Under the plain
+    route's span name, and counted in ``NORM_PATHS["fused"]`` while the
+    span recorder is on."""
+    with span("pdwt.ops.thresholded_norm1"):
+        if recording():
+            NORM_PATHS["fused"] += 1
+        return kernels.swt_norm_sum_2d(partials)

@@ -31,7 +31,8 @@
   (its time less its child spans') to the table :func:`span_table`
   reads and :func:`reset_spans` clears.  A kernel span also adds the
   operand bytes of its call -- every tensor the wrapper takes and returns,
-  each once -- to ``OPERAND_BYTES[<kernel>]``.
+  each once -- to ``OPERAND_BYTES[<kernel>]``.  ``NORM_PATHS`` counts the
+  thresholded L1 norms by route, fused into kernel 5 or plain torch.
 """
 from __future__ import annotations
 
@@ -195,6 +196,10 @@ _TABLE: Dict[str, List[int]] = {}
 #: operand bytes by kernel wrapper (the keys of ``kernels.LAUNCHES``),
 #: counted while the recorder is on
 OPERAND_BYTES: Dict[str, int] = {}
+#: thresholded L1 norms by route, counted while the recorder is on: "fused"
+#: (kernel 5's epilogue, ``ops.norms.sum_norm_partials``)
+#: and "plain" (``ops.thresholded_norm1``)
+NORM_PATHS: Dict[str, int] = {"fused": 0, "plain": 0}
 _local = threading.local()
 
 
@@ -221,9 +226,11 @@ def span_table() -> Dict[str, Dict[str, int]]:
 
 
 def reset_spans() -> None:
-    """Clear the span table and ``OPERAND_BYTES``."""
+    """Clear the span table and ``OPERAND_BYTES``, and zero ``NORM_PATHS``."""
     _TABLE.clear()
     OPERAND_BYTES.clear()
+    for k in NORM_PATHS:
+        NORM_PATHS[k] = 0
 
 
 class _Span:

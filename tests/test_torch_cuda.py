@@ -18,6 +18,8 @@ and the next b3 level's split of it then differs by up to 2^-17 per pass)
 and 2^-6 on bf16 outputs (such a flip inside a level moves its output by
 up to one more bf16 ulp).
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -139,6 +141,7 @@ def test_launch_counters(dev):
     assert K.LAUNCHES == {"fwd_level_2d": 2, "inv_level_2d": 2,
                           "fwd_tail_2d": 1, "inv_tail_2d": 1,
                           "swt_fwd_level_2d": 0, "swt_inv_level_2d": 0,
+                          "swt_norm_sum_2d": 0,
                           "fwd_level_1d": 0, "inv_level_1d": 0,
                           "swt_fwd_level_1d": 0, "swt_inv_level_1d": 0,
                           "fwd_level_2d_mxu": 0, "inv_level_2d_mxu": 0,
@@ -2074,8 +2077,16 @@ def test_kernel_spans_hold_the_launches_under_the_profiler(op, dev):
         call()
         torch.cuda.synchronize()
     launched = sum(LAUNCHES.values()) - before
-    assert launched == 10
-    assert sum(OPERAND_BYTES.values()) == planes * x.nbytes
+    nbytes = planes * x.nbytes
+    if op == "roundtrip":
+        assert launched == 10
+    else:  # the norm in kernel 5's epilogue: ten levels and the sum of the partials,
+        # which each forward level takes and the sum takes whole; every level
+        # each way takes the one beta buffer, and the sum writes one float
+        assert launched == 11 and profiling.NORM_PATHS == {"fused": 1, "plain": 0}
+        slots = sum(S.swt_norm_slots(4, 256, 256, w.hlen, lvl) for lvl in range(1, 6))
+        nbytes += 4 * (2 * slots + 10 + 1)
+    assert sum(OPERAND_BYTES.values()) == nbytes
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     events = p.events()
     spans = [e.time_range for e in events
@@ -2096,3 +2107,97 @@ def test_kernel_spans_hold_the_launches_under_the_profiler(op, dev):
     busy = tracing.busy_per_call(dev_events, 1, launched, names)
     if busy is not None:  # None where the profiler dropped a kernel's event
         assert not any(n.startswith("pdwt.") for n in busy[1])
+
+
+# ---------------------------------------------------------------------------
+# the 2D TI step's norm in kernel 5's store epilogue
+# ---------------------------------------------------------------------------
+
+#: the fused norm against a float64 ``thresholded_norm1`` of the same
+#: coefficients: each thread sums its terms in float32 (up to a few hundred
+#: of them where a block loops over batch items), a block its threads' sums
+#: in float32, and only then the partials in float64; n float32 additions in
+#: a chain bound the relative error by n 2^-24, 6e-6 at n = 100, and the
+#: float64 reference sums in yet another order
+FUSED_NORM_RTOL = 1e-5
+
+#: (wavelet, shape, levels): the benchmark's frame, odd and non-square sizes,
+#: levels whose dilation passes the image (24 x 40 at level 5 dilates by 16,
+#: 8 x 12 at level 6 by 32), and a batch past the grid's z of 65535
+FUSED_NORM_CASES = [("db7", (2, 512, 512), 5), ("db7", (3, 37, 53), 4),
+                    ("db4", (2, 24, 40), 5), ("db2", (1, 8, 12), 6),
+                    ("haar", (70000, 8, 8), 2)]
+
+
+def _norm64(c, beta, mode, normalize):
+    c64 = type(c)(c.approx.double(), tuple(tuple(t.double() for t in d) for d in c.details))
+    return float(ops.thresholded_norm1(c64, beta, mode=mode, normalize=normalize))
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("mode", ["soft", "hard", "garrote"])
+@pytest.mark.parametrize("wname,shape,levels", FUSED_NORM_CASES)
+def test_fused_norm_matches_float64_and_the_plain_coefficients(dev, wname, shape, levels,
+                                                               mode, normalize):
+    """Kernel 5's norm launches store the plain launches' coefficients bit
+    for bit; the fused step gives the plain route's denoised image bit for
+    bit and takes the thresholded L1 norm within FUSED_NORM_RTOL of a
+    float64 norm of the coefficients; two calls give the same bits."""
+    from pdwt_tpu_torch.core.separable import _swt2d_denoise_norm1
+
+    w = get_wavelet(wname)
+    x = _rand(dev, *shape) * 255
+    beta = 40.0
+    a = x
+    for lvl in range(1, levels + 1):
+        b = beta / math.sqrt(2.0) ** lvl if normalize else beta
+        p = torch.empty(S.swt_norm_slots(*a.shape, w.hlen, lvl), device=dev)
+        got = S.swt_fwd_level_2d(a, w.dec_lo, w.dec_hi, lvl, norm=(mode, b, p, lvl == levels))
+        for g, r in zip(got, S.swt_fwd_level_2d(a, w.dec_lo, w.dec_hi, lvl)):
+            assert torch.equal(g, r)
+        a = got[0]
+    K.reset_launch_counts()
+    out, n1 = _swt2d_denoise_norm1(x, w, levels, beta, mode, normalize)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["swt_fwd_level_2d"], K.LAUNCHES["swt_norm_sum_2d"],
+            K.LAUNCHES["swt_inv_level_2d"]) == (levels, 1, levels)
+    c = swt2d(x, w, levels)
+    assert torch.equal(out, iswt2d_denoise(c, w, beta, mode=mode, normalize=normalize))
+    assert n1.dtype == torch.float32 and n1.shape == () and n1.device == x.device
+    ref = _norm64(c, beta, mode, normalize)
+    assert abs(float(n1) - ref) <= FUSED_NORM_RTOL * ref, (float(n1), ref)
+    _, again = _swt2d_denoise_norm1(x, w, levels, beta, mode, normalize)
+    assert torch.equal(again, n1)
+
+
+def test_fused_norm_takes_a_device_beta_and_the_step_uses_it(dev):
+    """A 0-dim beta on the card (no host round trip) gives the number's
+    norm; ``denoise_step`` takes the fused route and the plain route's
+    output."""
+    from pdwt_tpu_torch import models
+    from pdwt_tpu_torch.core.separable import _swt2d_denoise_norm1
+
+    w = get_wavelet("db7")
+    x = _rand(dev, 4, 128, 96) * 255
+    _, n_num = _swt2d_denoise_norm1(x, w, 3, 25.0, "garrote", True)
+    _, n_dev = _swt2d_denoise_norm1(x, w, 3, torch.tensor(25.0, device=dev), "garrote", True)
+    assert torch.equal(n_num, n_dev)
+    K.reset_launch_counts()
+    out, n1 = models.denoise_step(x, None, w, 3, 25.0, swt=True, mode="garrote", normalize=True)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["swt_norm_sum_2d"] == 1 and K.LAUNCHES["swt_fwd_level_2d"] == 3
+    c = swt2d(x, w, 3)
+    _close(out, iswt2d_denoise(c, w, 25.0, mode="garrote", normalize=True))
+    assert torch.equal(n1, n_num)
+
+
+def test_fused_norm_launches_refuse_what_they_do_not_take(dev):
+    w = get_wavelet("db2")
+    x = _rand(dev, 1, 16, 16)
+    n = S.swt_norm_slots(1, 16, 16, w.hlen, 1)
+    with pytest.raises(ValueError, match="partials"):
+        S.swt_fwd_level_2d(x, w.dec_lo, w.dec_hi, 1,
+                           norm=("soft", 1.0, torch.zeros(n + 1, device=dev), False))
+    with pytest.raises(ValueError, match="norm mode"):
+        S.swt_fwd_level_2d(x, w.dec_lo, w.dec_hi, 1,
+                           norm=("firm", 1.0, torch.zeros(n, device=dev), False))
