@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (pdwt_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--only volume|families|extras|sharded|backends]
+    python3 chip_smoke.py [--only volume|families|extras|sharded|backends|batch_cell]
 
 Run from the repository root.  It builds the CUDA kernels from
 ``pdwt_tpu_torch/kernels/csrc`` and drives the port's thirteen paths, each
@@ -30,6 +30,14 @@ with the launch counters set to 0 just before it and read just after:
   through forward/threshold/norm1/inverse and ``run_denoise``, for the
   batch and for one signal, roundtrips, the golden 1D coefficients, and
   the denoise step's timings;
+* the benchmark's batched 1D cell (``sym8_1d.batch_step``, the same step
+  on 65536 signals, last of the run; ``--only batch_cell`` runs it alone):
+  kernels 7 and 8 on the shapes ``dwt1d`` and ``idwt1d`` hand each level
+  against their plain versions, timed into rows of their own
+  (``fwd_level_1d_cell``, ``inv_level_1d_cell``), then one
+  ``Wavelets(nr=65536, nc=4096, ndim=1)``'s ``run_denoise`` with its
+  launches counted from zero (four of each kernel), held to the plain
+  levels, ``soft_threshold`` and ``norm1``, and timed beside them;
 * the precision tiers (``mixed``, ``bf16-fast``, ``bf16-balanced``,
   ``bf16-accurate``) on the DWT path's image and the batched 1D path's
   signals: the four banded-product kernels against their plain versions in
@@ -247,6 +255,9 @@ N, WNAME, LEVELS, BETA = 2048, "db7", 5, 10.0
 TI_N, TI_LEVELS, TI_BETA = 1024, 3, 10.0
 # the batched 1D denoise step (bench_all.py:87-97): standard normal signals
 B1_SIGNALS, B1_N, B1_WNAME, B1_LEVELS, B1_BETA = 1024, 4096, "sym8", 4, 0.1
+# the same step as the benchmark's batched 1D cell runs it
+# (wavebench/workloads/sym8_1d.batch_step.json): 64 of those batches a call
+BC_SIGNALS = 65536
 # kernel vs plain version: max|diff| <= KERNEL_RTOL * max|plain|.  nvcc
 # contracts each multiply-add into one FMA, the plain version rounds twice.
 KERNEL_RTOL = 1e-5
@@ -379,6 +390,11 @@ REPLACES = {
     # thresholded_norm1
     "swt_fwd_level_2d_norm": "pdwt_tpu/kernels/swt_pallas.py:95 + pdwt_tpu/ops/norms.py:104",
     "swt_norm_sum_2d": "pdwt_tpu/ops/norms.py:104",
+    # kernels 7 and 8 at the benchmark's batched 1D cell (BC_SIGNALS
+    # signals, the shapes dwt1d and idwt1d hand each level), apart from
+    # their rows at the 1024-signal path
+    "fwd_level_1d_cell": "pdwt_tpu/kernels/swt_pallas.py:395",
+    "inv_level_1d_cell": "pdwt_tpu/kernels/swt_pallas.py:455",
 }
 
 
@@ -386,11 +402,12 @@ def _source(name: str) -> str:
     """The file that holds the kernel's body (kernel 6 runs 14's, 12 runs
     2's, 10 and 8 run 16's, 11, 5 and 1 run 13's, 9 and 7 run 15's; the
     tails 3 and 4 run 1's and 2's level by level, 3 in swt_matmul.cu; the
-    padded entry points and kernel 5's norm launches run their kernel's;
-    the sum of the norm's partials is in swt.cu)."""
+    padded entry points, kernel 5's norm launches and the rows of the 1D
+    cell run their kernel's; the sum of the norm's partials is in
+    swt.cu)."""
     if name == "swt_norm_sum_2d":
         return "swt.cu"
-    name = name.removesuffix("_padded").removesuffix("_norm")
+    name = name.removesuffix("_padded").removesuffix("_norm").removesuffix("_cell")
     if name.startswith("ns_"):
         return "ns_matmul.cu"
     if name == "inv_level_2d_mxu":
@@ -917,9 +934,10 @@ def main() -> None:
     if sys.argv[1:]:
         # a development run of one phase alone: no result line
         only = {"volume": volume_phase, "families": families_phase, "extras": extras_phase,
-                "sharded": sharded_phase, "backends": backends_phase}
+                "sharded": sharded_phase, "backends": backends_phase,
+                "batch_cell": batch_cell_phase}
         check(len(sys.argv) == 3 and sys.argv[1] == "--only" and sys.argv[2] in only,
-              "usage: chip_smoke.py [--only volume|families|extras|sharded|backends]")
+              "usage: chip_smoke.py [--only volume|families|extras|sharded|backends|batch_cell]")
         report = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
                          "plain_device_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                          "bound_ms": 0.0, "library_ms": 0.0} for name in REPLACES}
@@ -1514,6 +1532,7 @@ def main() -> None:
     families_phase(dev, card, report, launches, gen)
     extras_phase(dev, card, report, launches, gen)
     backends_phase(dev, card, report, launches, gen)
+    batch_cell_phase(dev, card, report, launches, gen)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
@@ -1530,6 +1549,69 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+
+
+def batch_cell_phase(dev, card, report, launches, gen) -> None:
+    """The benchmark's batched 1D cell: kernels 7 and 8 on the shapes
+    ``dwt1d`` and ``idwt1d`` hand each level of BC_SIGNALS x B1_N signals
+    (the inverses on the plain forwards' bands) against their plain
+    versions, timed into the rows ``fwd_level_1d_cell`` and
+    ``inv_level_1d_cell``; then ``Wavelets(ndim=1).run_denoise`` at that
+    size as the cell calls it, its launches counted from zero, held to the
+    plain levels, ``soft_threshold`` and ``norm1`` and timed beside them."""
+    from pdwt_tpu_torch import Wavelets, get_wavelet, ops
+    from pdwt_tpu_torch.core import conv
+    from pdwt_tpu_torch.kernels import batched1d as K1
+    from pdwt_tpu_torch.kernels import separable as K
+
+    w = get_wavelet(B1_WNAME)
+    x = torch.randn((BC_SIGNALS, B1_N), device=dev, generator=gen)
+    cases, a = [], x
+    for lvl in range(1, B1_LEVELS + 1):
+        xe = conv.odd_extend(a, -1)
+        fl = flops_1d(BC_SIGNALS, xe.shape[1], w.hlen)
+        cases.append(Case("fwd_level_1d_cell", xe,
+                          lambda t: K1.fwd_level_1d(t, w.dec_lo, w.dec_hi),
+                          lambda t: K1.fwd_level_1d_ref(t, w.dec_lo, w.dec_hi),
+                          f"{w.name} {tuple(xe.shape)} level {lvl}", True, fl))
+        bands = K1.fwd_level_1d_ref(xe, w.dec_lo, w.dec_hi)
+        cases.append(Case("inv_level_1d_cell", bands,
+                          lambda b: K1.inv_level_1d(*b, w.rec_lo, w.rec_hi),
+                          lambda b: K1.inv_level_1d_ref(*b, w.rec_lo, w.rec_hi),
+                          f"{w.name} bands {tuple(bands[0].shape)} level {lvl}", True, fl))
+        a = bands[0]
+    run_cases(cases, report, card)
+    del cases, a, bands, xe
+
+    W = Wavelets(nr=BC_SIGNALS, nc=B1_N, wname=B1_WNAME, levels=B1_LEVELS, ndim=1, device=dev)
+    W.set_image(x)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    out, n1 = W.run_denoise(B1_BETA)
+    torch.cuda.synchronize()
+    step = {k: v for k, v in K.LAUNCHES.items() if v}
+    label = f"batched 1D step {BC_SIGNALS}x{B1_N} {B1_WNAME} {B1_LEVELS} levels soft beta {B1_BETA}"
+    print(f"{label} launches: {step}", flush=True)
+    check(step == {"fwd_level_1d": B1_LEVELS, "inv_level_1d": B1_LEVELS},
+          f"{label}: run_denoise did not launch kernels 7 and 8 {B1_LEVELS} times each")
+    launches["fwd_level_1d_cell"] = step["fwd_level_1d"]
+    launches["inv_level_1d_cell"] = step["inv_level_1d"]
+
+    def plain_step():
+        c = ops.soft_threshold(plain_dwt1d(x, w, B1_LEVELS), B1_BETA)
+        return plain_idwt1d(c, w, B1_N), ops.norm1(c)
+
+    p_out, p_n1 = plain_step()
+    err, scale = max_err(out, p_out)
+    print(f"{label} run_denoise vs plain path: max|diff| {err:.3e} (limit "
+          f"{PATH_RTOL * scale:.3e}); norm1 {float(n1)!r} vs plain {float(p_n1)!r}", flush=True)
+    check(tuple(out.shape) == (BC_SIGNALS, B1_N) and bool(torch.isfinite(out).all()),
+          f"{label}: run_denoise output not finite or the wrong shape")
+    check(err <= PATH_RTOL * scale, f"{label}: run_denoise disagrees with the plain path")
+    check(abs(float(n1) - float(p_n1)) <= PATH_RTOL * abs(float(p_n1)),
+          f"{label}: run_denoise norm1 disagrees with the plain path")
+    del out, p_out
+    time_in_turns(label, lambda: W.run_denoise(B1_BETA), plain_step, card)
 
 
 def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> None:

@@ -31,8 +31,12 @@
   (its time less its child spans') to the table :func:`span_table`
   reads and :func:`reset_spans` clears.  A kernel span also adds the
   operand bytes of its call -- every tensor the wrapper takes and returns,
-  each once -- to ``OPERAND_BYTES[<kernel>]``.  ``NORM_PATHS`` counts the
-  thresholded L1 norms by route, fused into kernel 5 or plain torch.
+  each once -- to ``OPERAND_BYTES[<kernel>]``, and an ``ops`` span that no
+  other ops span holds adds its call's, counted alike, to
+  ``OPS_OPERAND_BYTES[<function>]`` (an ops function run inside another's
+  span is not counted twice).
+  ``NORM_PATHS`` counts the thresholded L1 norms by route, fused into
+  kernel 5 or plain torch.
 """
 from __future__ import annotations
 
@@ -196,6 +200,9 @@ _TABLE: Dict[str, List[int]] = {}
 #: operand bytes by kernel wrapper (the keys of ``kernels.LAUNCHES``),
 #: counted while the recorder is on
 OPERAND_BYTES: Dict[str, int] = {}
+#: operand bytes by ops function (``soft_threshold``, ``norm1``, ...), of
+#: the outermost ops span of a call, counted while the recorder is on
+OPS_OPERAND_BYTES: Dict[str, int] = {}
 #: thresholded L1 norms by route, counted while the recorder is on: "fused"
 #: (kernel 5's epilogue, ``ops.norms.sum_norm_partials``)
 #: and "plain" (``ops.thresholded_norm1``)
@@ -226,9 +233,11 @@ def span_table() -> Dict[str, Dict[str, int]]:
 
 
 def reset_spans() -> None:
-    """Clear the span table and ``OPERAND_BYTES``, and zero ``NORM_PATHS``."""
+    """Clear the span table, ``OPERAND_BYTES`` and ``OPS_OPERAND_BYTES``, and
+    zero ``NORM_PATHS``."""
     _TABLE.clear()
     OPERAND_BYTES.clear()
+    OPS_OPERAND_BYTES.clear()
     for k in NORM_PATHS:
         NORM_PATHS[k] = 0
 
@@ -300,20 +309,30 @@ def spanned(layer: str):
     """Decorate a function of the port's ``layer`` with a span named
     ``pdwt.<layer>.<qualified name>`` (the wrapper's ``span_name``); a
     ``kernels`` span also counts the operand bytes of its call in
-    ``OPERAND_BYTES[<name>]``."""
+    ``OPERAND_BYTES[<name>]``, and an ``ops`` span outside any other ops
+    span in ``OPS_OPERAND_BYTES[<name>]``."""
     def deco(fn):
         name = f"pdwt.{layer}.{fn.__qualname__}"
-        key = fn.__name__ if layer == "kernels" else None
+        counts = {"kernels": OPERAND_BYTES, "ops": OPS_OPERAND_BYTES}.get(layer)
+        key = fn.__name__
 
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
             if not (_explicit or _profiler_on()):
                 return fn(*args, **kwargs)
             with _Span(name):
-                out = fn(*args, **kwargs)
-                if key is not None:
-                    OPERAND_BYTES[key] = (OPERAND_BYTES.get(key, 0)
-                                          + operand_bytes(args, kwargs, out))
+                if layer != "ops":
+                    out = fn(*args, **kwargs)
+                elif getattr(_local, "in_ops", False):  # counted by the outer ops span
+                    return fn(*args, **kwargs)
+                else:
+                    _local.in_ops = True
+                    try:
+                        out = fn(*args, **kwargs)
+                    finally:
+                        _local.in_ops = False
+                if counts is not None:
+                    counts[key] = counts.get(key, 0) + operand_bytes(args, kwargs, out)
             return out
 
         wrapper.span_name = name

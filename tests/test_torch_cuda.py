@@ -2201,3 +2201,42 @@ def test_fused_norm_launches_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="norm mode"):
         S.swt_fwd_level_2d(x, w.dec_lo, w.dec_hi, 1,
                            norm=("firm", 1.0, torch.zeros(n, device=dev), False))
+
+
+# ---------------------------------------------------------------------------
+# the batched 1D denoising step through the facade (the benchmark's
+# sym8_1d.batch_step at 4096 of its 65536 signals)
+# ---------------------------------------------------------------------------
+
+def test_batched_1d_denoise_step_matches_the_float64_reference(dev):
+    """``Wavelets(ndim=1).set_image`` then ``run_denoise(0.1)`` at 4096 x
+    4096 sym8, 4 levels: kernels 7 and 8 four times each; the output and
+    the norm bit for bit those of ``dwt1d``, ``soft_threshold``, ``norm1``
+    and ``idwt1d`` called in turn; and both within the benchmark cell's
+    limits (1e-4 of the largest value, 3e-5 of the norm) of the plain
+    levels in float64."""
+    from pdwt_tpu_torch import Coeffs1D
+
+    w, n, levels, beta = get_wavelet("sym8"), 4096, 4, 0.1
+    x = (_rand(dev, n, n, seed=28) + 1) / 2
+    W = Wavelets(nr=n, nc=n, wname="sym8", levels=levels, ndim=1, device=dev)
+    W.set_image(x)
+    W.run_denoise(beta)
+    K.reset_launch_counts()
+    out, n1 = W.run_denoise(beta)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {"fwd_level_1d": levels,
+                                                         "inv_level_1d": levels}
+    c = ops.soft_threshold(dwt1d(x, w, levels), beta)
+    assert torch.equal(out, idwt1d(c, w, n)) and torch.equal(n1, ops.norm1(c))
+    a, dets = x.double(), []
+    for _ in range(levels):
+        a, d = K1.fwd_level_1d_ref(a, w.dec_lo, w.dec_hi)
+        dets.append(d)
+    c64 = ops.soft_threshold(Coeffs1D(a, tuple(dets)), beta)
+    want = c64.approx
+    for d in reversed(c64.details):
+        want = K1.inv_level_1d_ref(want, d, w.rec_lo, w.rec_hi)
+    want_n1 = float(ops.norm1(c64))
+    assert float((out.double() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert abs(float(n1) - want_n1) <= 3e-5 * want_n1
