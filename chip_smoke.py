@@ -34,10 +34,16 @@ with the launch counters set to 0 just before it and read just after:
   on 65536 signals, last of the run; ``--only batch_cell`` runs it alone):
   kernels 7 and 8 on the shapes ``dwt1d`` and ``idwt1d`` hand each level
   against their plain versions, timed into rows of their own
-  (``fwd_level_1d_cell``, ``inv_level_1d_cell``), then one
+  (``fwd_level_1d_cell``, ``inv_level_1d_cell``), and kernel 7's norm
+  launches (the details thresholded and their L1 norm summed as they are
+  stored) on the same shapes, timed into ``fwd_level_1d_norm_cell`` so that
+  the epilogue's cost shows beside the plain launch's, their bands against
+  the plain launch's and their partials against a float64 norm; then one
   ``Wavelets(nr=65536, nc=4096, ndim=1)``'s ``run_denoise`` with its
-  launches counted from zero (four of each kernel), held to the plain
-  levels, ``soft_threshold`` and ``norm1``, and timed beside them;
+  launches counted from zero (four norm launches of kernel 7, one sum of
+  the partials, four of kernel 8), held bit for bit to the kernels with
+  the torch threshold and ``norm1`` and to the plain levels, and timed
+  beside the torch threshold route;
 * the precision tiers (``mixed``, ``bf16-fast``, ``bf16-balanced``,
   ``bf16-accurate``) on the DWT path's image and the batched 1D path's
   signals: the four banded-product kernels against their plain versions in
@@ -276,6 +282,11 @@ FN_BATCH, FN_N, FN_LEVELS, FN_BETA = 64, 512, 5, 90.0
 # then are the partials added in float64; chains of n float32 additions
 # bound the relative error by n 2^-24, 6e-6 at n = 100
 FUSED_NORM_RTOL = 1e-5
+# kernel 7's norm at the batch cell's 65536 signals, each level's partials
+# against a float64 norm and run_denoise's against norm1: one signal left
+# out of the sum moves the norm by about 1.5e-5, so the limit lies well
+# under that and well above the readings (1e-8 and 8.4e-8 on an H100)
+FUSED_1D_NORM_RTOL = 2e-6
 # the precision tiers.  A banded-product kernel against its plain version:
 # float32-stored outputs within 1e-5 (products of bf16 values are exact and
 # both sum in one order, so only fd's FMAs differ), bf16-stored outputs
@@ -395,6 +406,10 @@ REPLACES = {
     # their rows at the 1024-signal path
     "fwd_level_1d_cell": "pdwt_tpu/kernels/swt_pallas.py:395",
     "inv_level_1d_cell": "pdwt_tpu/kernels/swt_pallas.py:455",
+    # kernel 7's norm launches at the cell, which take the place of the
+    # threshold ops and norm1 of the JAX facade's batched 1D step
+    "fwd_level_1d_norm_cell": ("pdwt_tpu/kernels/swt_pallas.py:395 + pdwt_tpu/ops/threshold.py"
+                               " + pdwt_tpu/ops/norms.py"),
 }
 
 
@@ -402,12 +417,12 @@ def _source(name: str) -> str:
     """The file that holds the kernel's body (kernel 6 runs 14's, 12 runs
     2's, 10 and 8 run 16's, 11, 5 and 1 run 13's, 9 and 7 run 15's; the
     tails 3 and 4 run 1's and 2's level by level, 3 in swt_matmul.cu; the
-    padded entry points, kernel 5's norm launches and the rows of the 1D
-    cell run their kernel's; the sum of the norm's partials is in
+    padded entry points, kernels 5's and 7's norm launches and the rows of
+    the 1D cell run their kernel's; the sum of the norm's partials is in
     swt.cu)."""
     if name == "swt_norm_sum_2d":
         return "swt.cu"
-    name = name.removesuffix("_padded").removesuffix("_norm").removesuffix("_cell")
+    name = name.removesuffix("_cell").removesuffix("_padded").removesuffix("_norm")
     if name.startswith("ns_"):
         return "ns_matmul.cu"
     if name == "inv_level_2d_mxu":
@@ -1556,17 +1571,28 @@ def batch_cell_phase(dev, card, report, launches, gen) -> None:
     ``dwt1d`` and ``idwt1d`` hand each level of BC_SIGNALS x B1_N signals
     (the inverses on the plain forwards' bands) against their plain
     versions, timed into the rows ``fwd_level_1d_cell`` and
-    ``inv_level_1d_cell``; then ``Wavelets(ndim=1).run_denoise`` at that
-    size as the cell calls it, its launches counted from zero, held to the
-    plain levels, ``soft_threshold`` and ``norm1`` and timed beside them."""
-    from pdwt_tpu_torch import Wavelets, get_wavelet, ops
+    ``inv_level_1d_cell``, and kernel 7's norm launches on the same inputs,
+    timed into ``fwd_level_1d_norm_cell``: their low band bit for bit the
+    plain launch's, their high band the plain launch's thresholded by the
+    threshold ops, their partials' sum against a float64 norm.  Then
+    ``Wavelets(ndim=1).run_denoise`` at that size as the cell calls it, its
+    launches counted from zero (kernel 7's norm launches, the sum of their
+    partials, kernel 8), held bit for bit to the kernels with the torch
+    threshold and ``norm1`` (the norm within FUSED_1D_NORM_RTOL), to the plain
+    levels, and timed beside the torch threshold route.  The three rows'
+    launches are that call's: kernel 7's plain launch reads 0 there, as the
+    step takes its norm launches."""
+    from pdwt_tpu_torch import Wavelets, dwt1d, get_wavelet, idwt1d, ops
     from pdwt_tpu_torch.core import conv
     from pdwt_tpu_torch.kernels import batched1d as K1
     from pdwt_tpu_torch.kernels import separable as K
+    from pdwt_tpu_torch.kernels import swt as S
 
     w = get_wavelet(B1_WNAME)
     x = torch.randn((BC_SIGNALS, B1_N), device=dev, generator=gen)
-    cases, a = [], x
+    beta = S.beta_buffer(B1_BETA, dev)
+    soft = ops.THR_ELEM["soft"]
+    cases, norm_runs, a = [], [], x
     for lvl in range(1, B1_LEVELS + 1):
         xe = conv.odd_extend(a, -1)
         fl = flops_1d(BC_SIGNALS, xe.shape[1], w.hlen)
@@ -1574,6 +1600,13 @@ def batch_cell_phase(dev, card, report, launches, gen) -> None:
                           lambda t: K1.fwd_level_1d(t, w.dec_lo, w.dec_hi),
                           lambda t: K1.fwd_level_1d_ref(t, w.dec_lo, w.dec_hi),
                           f"{w.name} {tuple(xe.shape)} level {lvl}", True, fl))
+        norm_runs.append((xe, lvl))
+        cases.append(Case(
+            "fwd_level_1d_norm_cell", xe,
+            lambda t: K1.fwd_level_1d_norm(t, w.dec_lo, w.dec_hi, norm=("soft", beta))[:2],
+            lambda t: (lambda lo, hi: (lo, soft(hi, B1_BETA)))(
+                *K1.fwd_level_1d_ref(t, w.dec_lo, w.dec_hi)),
+            f"{w.name} {tuple(xe.shape)} level {lvl} soft beta {B1_BETA}", True, fl))
         bands = K1.fwd_level_1d_ref(xe, w.dec_lo, w.dec_hi)
         cases.append(Case("inv_level_1d_cell", bands,
                           lambda b: K1.inv_level_1d(*b, w.rec_lo, w.rec_hi),
@@ -1581,7 +1614,29 @@ def batch_cell_phase(dev, card, report, launches, gen) -> None:
                           f"{w.name} bands {tuple(bands[0].shape)} level {lvl}", True, fl))
         a = bands[0]
     run_cases(cases, report, card)
-    del cases, a, bands, xe
+    del cases, a, bands
+
+    # -- each norm launch against the plain launch on the card: the low band
+    # bit for bit, the high band thresholded by the threshold ops bit for
+    # bit, the partials the same every call, their sum against float64
+    for xe, lvl in norm_runs:
+        plo, phi = K1.fwd_level_1d(xe, w.dec_lo, w.dec_hi)
+        nlo, nhi, parts = K1.fwd_level_1d_norm(xe, w.dec_lo, w.dec_hi, norm=("soft", beta))
+        again = K1.fwd_level_1d_norm(xe, w.dec_lo, w.dec_hi, norm=("soft", beta))[2]
+        tag = f"kernel 7's norm launch at {tuple(xe.shape)} level {lvl}"
+        check(torch.equal(nlo, plo), f"{tag}: the low band differs from the plain launch's")
+        check(torch.equal(nhi, soft(phi, B1_BETA)),
+              f"{tag}: the high band differs from the plain launch's, thresholded")
+        check(torch.equal(again, parts), f"{tag}: partials differ from call to call")
+        want_n = float(soft(phi.double(), B1_BETA).abs().sum())
+        got_n = float(parts.double().sum())
+        rel = abs(got_n - want_n) / want_n
+        print(f"kernel fwd_level_1d_norm_cell at level {lvl}: partials' sum {got_n!r} vs "
+              f"float64 {want_n!r}, relative {rel:.3e} (limit {FUSED_1D_NORM_RTOL:.0e}); "
+              f"{parts.numel()} partials", flush=True)
+        check(rel <= FUSED_1D_NORM_RTOL, f"{tag}: the norm")
+        del plo, phi, nlo, nhi, parts, again
+    del norm_runs, xe
 
     W = Wavelets(nr=BC_SIGNALS, nc=B1_N, wname=B1_WNAME, levels=B1_LEVELS, ndim=1, device=dev)
     W.set_image(x)
@@ -1592,10 +1647,27 @@ def batch_cell_phase(dev, card, report, launches, gen) -> None:
     step = {k: v for k, v in K.LAUNCHES.items() if v}
     label = f"batched 1D step {BC_SIGNALS}x{B1_N} {B1_WNAME} {B1_LEVELS} levels soft beta {B1_BETA}"
     print(f"{label} launches: {step}", flush=True)
-    check(step == {"fwd_level_1d": B1_LEVELS, "inv_level_1d": B1_LEVELS},
-          f"{label}: run_denoise did not launch kernels 7 and 8 {B1_LEVELS} times each")
-    launches["fwd_level_1d_cell"] = step["fwd_level_1d"]
+    check(step == {"fwd_level_1d_norm": B1_LEVELS, "swt_norm_sum_2d": 1,
+                   "inv_level_1d": B1_LEVELS},
+          f"{label}: run_denoise did not take kernel 7's norm launches {B1_LEVELS} times, one "
+          f"sum of their partials and kernel 8 {B1_LEVELS} times")
+    launches["fwd_level_1d_cell"] = step.get("fwd_level_1d", 0)
+    launches["fwd_level_1d_norm_cell"] = step["fwd_level_1d_norm"]
     launches["inv_level_1d_cell"] = step["inv_level_1d"]
+
+    def torch_threshold_step():
+        c = ops.soft_threshold(dwt1d(x, w, B1_LEVELS), B1_BETA)
+        return idwt1d(c, w, B1_N), ops.norm1(c)
+
+    t_out, t_n1 = torch_threshold_step()
+    n_rel = abs(float(n1) - float(t_n1)) / float(t_n1)
+    print(f"{label} run_denoise vs the kernels with the torch threshold: equal bits "
+          f"{torch.equal(out, t_out)}; norm1 {float(n1)!r} vs {float(t_n1)!r}, relative "
+          f"{n_rel:.3e} (limit {FUSED_1D_NORM_RTOL:.0e})", flush=True)
+    check(torch.equal(out, t_out), f"{label}: run_denoise differs from the kernels with the "
+          "torch threshold")
+    check(n_rel <= FUSED_1D_NORM_RTOL, f"{label}: run_denoise norm1 disagrees with norm1")
+    del t_out
 
     def plain_step():
         c = ops.soft_threshold(plain_dwt1d(x, w, B1_LEVELS), B1_BETA)
@@ -1611,7 +1683,8 @@ def batch_cell_phase(dev, card, report, launches, gen) -> None:
     check(abs(float(n1) - float(p_n1)) <= PATH_RTOL * abs(float(p_n1)),
           f"{label}: run_denoise norm1 disagrees with the plain path")
     del out, p_out
-    time_in_turns(label, lambda: W.run_denoise(B1_BETA), plain_step, card)
+    time_in_turns(label, lambda: W.run_denoise(B1_BETA), torch_threshold_step, card,
+                  names=("fused threshold", "torch threshold"))
 
 
 def precision_phase(dev, card, report, launches, x, img, xr, rt_sig, gen) -> None:

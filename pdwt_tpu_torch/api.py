@@ -61,14 +61,15 @@ from . import ops
 from .core import modes
 from .core.nonseparable import dwt2d_ns, idwt2d_ns, iswt2d_ns, swt2d_ns
 from .core.precision import check_tier, precision_scope, tier_for
-from .core.separable import (Coeffs1D, Coeffs2D, all_periodization, dwt1d, dwt2d, idwt1d,
-                             idwt2d, iswt1d, iswt2d, iswt2d_denoise, swt1d, swt2d)
+from .core.separable import (Coeffs1D, Coeffs2D, _dwt1d_denoise_norm1, all_periodization,
+                             dwt1d, dwt2d, idwt1d, idwt2d, iswt1d, iswt2d, iswt2d_denoise,
+                             swt1d, swt2d, thresholds_in_kernel)
 from .core.separable3d import Coeffs3D, dwt3d, idwt3d, iswt3d, iswt3d_denoise, swt3d
 from .core.shapes import coeff_shapes_1d, coeff_shapes_2d, coeff_shapes_3d, max_level
 from .filters import Wavelet, get_wavelet, make_custom_wavelet, quad_filters
 from .utils.convert import (default_device, image_tensor, same_device, tensor_from_numpy,
                             tensor_to_numpy)
-from .utils.profiling import spanned
+from .utils.profiling import DENOISE_PATHS, recording, spanned
 
 
 class WState(enum.Enum):
@@ -351,13 +352,19 @@ class Wavelets:
         """The whole denoise step: (cycle-spinning shift) -> analysis ->
         threshold -> norm1 -> synthesis -> unshift.  With ``do_swt`` in 2D
         and 3D, the threshold runs inside the synthesis kernels and the norm comes
-        from the un-thresholded coefficients (``ops.thresholded_norm1``);
-        1D runs the threshold, ``norm1`` and the synthesis in turn, as the
-        JAX facade does.  Returns ``(denoised,
+        from the un-thresholded coefficients (``ops.thresholded_norm1``).
+        The 1D DWT takes kernel 7's norm launches where they serve
+        (``core/separable.py: _dwt1d_denoise_norm1``: float32 on the card,
+        the exact tier, periodization, a scalar ``beta``, no gradient): the
+        analysis stores the details thresholded and sums their L1 norm, and
+        the approximation's is added apart (``ops.norms.add_approx_norm1``);
+        everywhere else 1D runs the threshold, ``norm1`` and the synthesis in
+        turn, as the JAX facade does.  Returns ``(denoised,
         norm1)`` as tensors on the facade's device and leaves the facade's
         image and coefficients as they were; a shift is drawn as in
         :meth:`forward`.  ``mode`` is soft, hard, group or garrote; group
-        is never fused."""
+        is never fused.  While the span recorder is on, the call counts in
+        ``utils.profiling.DENOISE_PATHS`` by where the threshold ran."""
         from .models.denoiser import _THRESH, check_mode
 
         check_mode(mode)
@@ -369,19 +376,35 @@ class Wavelets:
         if s.do_cycle_spinning:
             sd, sr, sc = self._draw_shifts()
             img = self._shift(img, sd, sr, sc)
-        c = self._analysis(img)
-        if s.do_swt and s.ndim != 1 and mode in ops.THR_ELEM:
+        fused = None
+        if s.ndim == 1 and not s.do_swt and all_periodization(s.mode):
+            with self._tier():
+                fused = _dwt1d_denoise_norm1(img, self._wavelet, s.nlevels, beta, mode,
+                                             normalize, self._backend)
+        if fused is not None:
+            c, n1 = fused
+            a, n1 = ops.norms.add_approx_norm1(n1, c.approx, beta, levels=c.levels, mode=mode,
+                                               normalize=normalize,
+                                               do_thresh_appcoeffs=do_thresh_appcoeffs)
+            out = self._synthesis(Coeffs1D(a, c.details))
+            in_kernel = True
+        elif s.do_swt and s.ndim != 1 and mode in ops.THR_ELEM:
+            c = self._analysis(img)
             n1 = ops.thresholded_norm1(c, beta, mode=mode, normalize=normalize,
                                        do_thresh_appcoeffs=do_thresh_appcoeffs)
             inv = iswt3d_denoise if s.ndim == 3 else iswt2d_denoise
             with self._tier():
                 out = inv(c, self._wavelet, beta, mode=mode, normalize=normalize,
                           do_thresh_appcoeffs=do_thresh_appcoeffs, backend=self._backend)
+            in_kernel = thresholds_in_kernel(beta, self._backend)
         else:
-            c = _THRESH[mode](c, beta, normalize=normalize,
+            c = _THRESH[mode](self._analysis(img), beta, normalize=normalize,
                               do_thresh_appcoeffs=do_thresh_appcoeffs)
             n1 = ops.norm1(c)
             out = self._synthesis(c)
+            in_kernel = False
+        if recording():
+            DENOISE_PATHS["fused" if in_kernel else "plain"] += 1
         if s.do_cycle_spinning:
             out = self._shift(out, -sd, -sr, -sc)
         return out, n1

@@ -55,6 +55,12 @@ gradient is wanted, kernel 5 takes the thresholded L1 norm of the details
 as it stores them, one partial a block, and
 ``ops.norms.sum_norm_partials`` adds the partials; the JAX package takes
 the norm apart, in ``ops.thresholded_norm1``, which stays the route
+everywhere else.  The batched 1D step's (:func:`_dwt1d_denoise_norm1`,
+which ``Wavelets.run_denoise`` takes in 1D): where every level runs
+kernel 7 (float32 on the card in the kernel route and the exact tier) and
+no gradient is wanted, kernel 7 stores the details thresholded and takes
+their L1 norm as it stores them, one partial a block; the JAX facade
+thresholds the tree and takes ``norm1`` apart, which stays the route
 everywhere else.
 
 Precision tiers (``core/precision.py``; ``pdwt_tpu/core/separable.py``'s
@@ -560,6 +566,14 @@ def swt2d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] 
     return (coeffs, tuple(approxs)) if keep_approx else coeffs
 
 
+def thresholds_in_kernel(beta, backend: Optional[str]) -> bool:
+    """Do :func:`iswt2d_denoise` and ``iswt3d_denoise`` threshold inside
+    their synthesis kernels?  The kernel route with a scalar ``beta``; a
+    per-level (per-band) sequence and the conv backends take the threshold
+    ops (JAX's rule)."""
+    return auto_backend(backend, None) == "pallas" and not isinstance(beta, (list, tuple))
+
+
 def norm_route(x: torch.Tensor, backend: Optional[str]) -> bool:
     """Does every level of ``swt2d(x, backend=backend)`` run kernel 5, so
     that its epilogue can take the thresholded L1 norm?  float32 on the
@@ -675,7 +689,7 @@ def iswt2d_denoise(coeffs: Coeffs2D, wav: Wavelet, beta, *, mode: str = "soft",
     if mode not in THR_ELEM:
         raise ValueError(f"the fused denoise takes {sorted(THR_ELEM)}, got {mode!r}")
     backend = auto_backend(backend, None)
-    if backend != "pallas" or isinstance(beta, (list, tuple)):
+    if not thresholds_in_kernel(beta, backend):
         return iswt2d(THRESHOLD_OPS[mode](coeffs, beta, normalize=normalize,
                                           do_thresh_appcoeffs=do_thresh_appcoeffs), wav,
                       backend=backend)
@@ -748,6 +762,50 @@ def dwt1d(x: torch.Tensor, wav: Wavelet, levels: int, *, backend: Optional[str] 
             d = d.to(BF16) if mxu == "bf16" else d
         details.append(_unflat(d, batch))
     return Coeffs1D(_unflat(a, batch), tuple(details))
+
+
+@spanned("transform")
+def _dwt1d_denoise_norm1(x: torch.Tensor, wav: Wavelet, levels: int, beta, mode: str,
+                         normalize: bool, backend: Optional[str] = None):
+    """``Wavelets.run_denoise``'s 1D DWT step with the threshold and the
+    details' norm taken by kernel 7: ``(c, n)`` where ``c`` is
+    ``dwt1d(x)`` with its details thresholded (``mode`` soft, hard or
+    garrote at a scalar ``beta``, a number or a one-element tensor, divided
+    by sqrt(2)^(i+1) at level i+1 under ``normalize``; the approximation as
+    it is) and ``n`` the L1 norm of those details.  The levels run as
+    :func:`dwt1d`'s exact ones, and each level's beta is made on the card
+    once.  None where the fused route does not serve: autograd wants a
+    gradient of ``x`` or ``beta``, ``beta`` is a sequence or has more than
+    one element, ``mode`` is another threshold, there is no level, or ``x``
+    is not float32 on the card in the kernel route and the exact tier
+    (:func:`norm_route`, and no MXU mode: ``mixed`` runs kernel 15); the
+    caller then takes the plain route."""
+    from ..ops.norms import sum_norm_partials
+    from ..ops.threshold import THR_ELEM
+
+    if (isinstance(beta, (list, tuple)) or mode not in THR_ELEM
+            or (isinstance(beta, torch.Tensor) and beta.numel() != 1)):
+        return None
+    grad = torch.is_grad_enabled() and (
+        x.requires_grad or (isinstance(beta, torch.Tensor) and beta.requires_grad))
+    if (grad or x.ndim < 1 or levels < 1 or not norm_route(x, backend)
+            or mxu_mode(x.dtype) is not None):
+        return None
+    batch = tuple(x.shape[:-1])
+    a = _flat1(x)
+    if normalize:
+        betas = [kernels.beta_buffer(beta / math.sqrt(2.0) ** lvl, a.device)
+                 for lvl in range(1, levels + 1)]
+    else:
+        betas = [kernels.beta_buffer(beta, a.device)] * levels
+    details, partials = [], []
+    for b in betas:
+        a = conv.odd_extend(a, -1)
+        a, d, p = kernels.fwd_level_1d_norm(a, wav.dec_lo, wav.dec_hi, norm=(mode, b))
+        details.append(_unflat(d, batch))
+        partials.append(p)
+    return (Coeffs1D(_unflat(a, batch), tuple(details)),
+            sum_norm_partials(torch.cat(partials)))
 
 
 @spanned("transform")

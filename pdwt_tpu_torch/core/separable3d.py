@@ -66,7 +66,8 @@ from . import conv, modes
 from .depth_matmul import depth_analysis_mm, depth_synthesis_mm
 from .precision import takes_precision
 from .separable import (BF16, F32, _dwt_conv, _idwt_conv, _swt_mxu_mode, auto_backend,
-                        check_dtype, check_supported, kernel_route, mxu_mode)
+                        check_dtype, check_supported, kernel_route, mxu_mode,
+                        thresholds_in_kernel)
 from .shapes import level_sizes
 
 #: pywt-style keys (axis order depth, row, column) of ``details[i][j]``
@@ -408,7 +409,7 @@ def iswt3d_denoise(coeffs: Coeffs3D, wav: Wavelet, beta, *, mode: str = "soft",
     if mode not in THR_ELEM:
         raise ValueError(f"the fused denoise takes {sorted(THR_ELEM)}, got {mode!r}")
     backend = auto_backend(backend, None)
-    if backend != "pallas" or isinstance(beta, (list, tuple)):
+    if not thresholds_in_kernel(beta, backend):
         return iswt3d(THRESHOLD_OPS[mode](coeffs, beta, normalize=normalize,
                                           do_thresh_appcoeffs=do_thresh_appcoeffs), wav,
                       backend=backend)

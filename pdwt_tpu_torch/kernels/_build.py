@@ -133,6 +133,8 @@ def load() -> ctypes.CDLL:
         # x, lo, hi, B, N, taps (4, hlen on the device), hlen, center, the launch plan
         # (lc, gc, nt, threads, grid x, y, z, smem), stream
         "pdwt_fwd_level_1d": [P, P, P, I, I, P, I, I, *[I] * 8, P],
+        # the same, then norm mode, beta (one float on the device), partials, stream
+        "pdwt_fwd_level_1d_norm": [P, P, P, I, I, P, I, I, *[I] * 8, I, P, P, P],
         # lo, hi, out, B, M, taps (4, hlen on the device), hlen, geometry, the launch
         # plan (lc, gc, nt, threads, grid x, y, z, smem), stream
         "pdwt_inv_level_1d": [P, P, P, I, I, P, I, P, *[I] * 8, P],

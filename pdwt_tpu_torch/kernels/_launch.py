@@ -20,7 +20,7 @@ LAUNCHES: Dict[str, int] = {"fwd_level_2d": 0, "inv_level_2d": 0,
                             "fwd_tail_2d": 0, "inv_tail_2d": 0,
                             "swt_fwd_level_2d": 0, "swt_inv_level_2d": 0,
                             "swt_norm_sum_2d": 0,
-                            "fwd_level_1d": 0, "inv_level_1d": 0,
+                            "fwd_level_1d": 0, "fwd_level_1d_norm": 0, "inv_level_1d": 0,
                             "swt_fwd_level_1d": 0, "swt_inv_level_1d": 0,
                             "fwd_level_2d_mxu": 0, "inv_level_2d_mxu": 0,
                             "fwd_level_1d_mxu": 0, "inv_level_1d_mxu": 0,

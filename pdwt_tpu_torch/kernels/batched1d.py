@@ -8,6 +8,8 @@ Four CUDA kernels (entry points in ``csrc/batched1d.cu``) carry the batched
 wrapper                      computes                                     plain version
 ===========================  ===========================================  ===============================
 ``fwd_level_1d``             one decimated analysis level                 ``fwd_level_1d_ref``
+``fwd_level_1d_norm``        kernel 7, the high band thresholded and its  ``fwd_level_1d_ref``, the
+                             L1 norm summed as it is stored               threshold and norm ops
 ``inv_level_1d``             one polyphase synthesis level                ``inv_level_1d_ref``
 ``swt_fwd_level_1d``         one a-trous analysis level                   ``swt_fwd_level_1d_ref``
 ``swt_inv_level_1d``         one a-trous synthesis level                  ``swt_inv_level_1d_ref``
@@ -26,6 +28,12 @@ a-trous analysis, the polyphase or a-trous synthesis) in the ``fd`` scheme
 on float32 data, on the plans of ``mxu1d.fwd1d_launch_plan`` and
 ``mxu1d.inv1d_launch_plan``; ``csrc/batched1d.cu`` holds their entry
 points only.
+
+Kernel 7 also thresholds the batched 1D denoising step's details as it
+stores them and takes their L1 norm (``fwd_level_1d_norm(..., norm=(mode,
+beta))``: its norm launches, ``fwd1d_strip_kernel<FD, 2, false, mode>``),
+one float32 partial a block of its plan, which ``swt_norm_sum_2d`` adds
+(``core/separable.py: _dwt1d_denoise_norm1``).
 
 The padded entry points, the counterparts of ``swt_pallas.py:995
 fwd_level_1d_padded`` and ``:1018 inv_level_1d_padded``, carry the boundary
@@ -55,6 +63,9 @@ a-trous synthesis's backward the a-trous analysis kernel with
 """
 from __future__ import annotations
 
+import math
+from typing import Tuple
+
 import numpy as np
 import torch
 
@@ -64,6 +75,10 @@ from ._launch import (InvPlan, PadAxis, check_span, dilation, dual_taps, launch,
                       pad_axis, pad_positions, poly_geo, ptr, rev)
 from .mxu1d import fwd1d_launch_plan, inv1d_launch_plan
 from .separable import meta, plain_vjp
+from .swt import THRESH_CODES, beta_buffer
+
+#: (mode, beta) of a norm launch of kernel 7
+Norm1D = Tuple[str, object]
 
 
 def _half(f) -> np.ndarray:
@@ -177,23 +192,55 @@ def _pair_shape(lo: torch.Tensor, hi: torch.Tensor):
     return lo.shape
 
 
+def _fwd1d_launch(name: str, x: torch.Tensor, dec_lo, dec_hi, norm=None):
+    """Launch kernel 7 (``name``: its plain or, with ``norm=(mode, beta)``,
+    its norm entry point) on (B, N), N even -> (lo, hi), and the norm
+    launch's partials after them, one a block of the plan."""
+    B, n = x.shape
+    if n % 2:
+        raise ValueError(f"{name} takes an even length, got {n}")
+    tp = dual_taps((dec_lo, dec_hi), "fd", x.device)
+    hlen = tp.shape[1]
+    pl = fwd1d_launch_plan(B, n, hlen, 1, "fd", True)
+    out = tuple(torch.empty((B, n // 2), device=x.device, dtype=x.dtype) for _ in range(2))
+    nargs = ()
+    if norm is not None:
+        out += (torch.empty(math.prod(pl.grid), device=x.device, dtype=torch.float32),)
+        nargs = (THRESH_CODES[norm[0]], ptr(beta_buffer(norm[1], x.device)), ptr(out[2]))
+    launch(name, x.device,
+           [ptr(x), ptr(out[0]), ptr(out[1]), B, n, ptr(tp), hlen, conv.fwd_center(hlen), pl.lc,
+            pl.gc, pl.nt, pl.threads, *pl.grid, pl.smem, *nargs])
+    return out
+
+
 @spanned("kernels")
 def fwd_level_1d(x: torch.Tensor, dec_lo, dec_hi):
     """One decimated analysis level on (B, N), N even -> (lo, hi), each
     (B, N/2)."""
     if on_cpu(x, ndim=2):
         return fwd_level_1d_ref(x, dec_lo, dec_hi)
-    B, n = x.shape
-    if n % 2:
-        raise ValueError(f"fwd_level_1d takes an even length, got {n}")
-    tp = dual_taps((dec_lo, dec_hi), "fd", x.device)
-    hlen = tp.shape[1]
-    pl = fwd1d_launch_plan(B, n, hlen, 1, "fd", True)
-    lo, hi = (torch.empty((B, n // 2), device=x.device, dtype=x.dtype) for _ in range(2))
-    launch("fwd_level_1d", x.device,
-           [ptr(x), ptr(lo), ptr(hi), B, n, ptr(tp), hlen, conv.fwd_center(hlen), pl.lc, pl.gc,
-            pl.nt, pl.threads, *pl.grid, pl.smem])
-    return lo, hi
+    return _fwd1d_launch("fwd_level_1d", x, dec_lo, dec_hi)
+
+
+@spanned("kernels")
+def fwd_level_1d_norm(x: torch.Tensor, dec_lo, dec_hi, *, norm: Norm1D):
+    """Kernel 7's norm launch: :func:`fwd_level_1d` with ``norm=(mode,
+    beta)`` (mode soft, hard or garrote; beta a number or a one-element
+    tensor) -> (lo, hi thresholded at beta, partials): the float32 partials
+    of the thresholded band's L1 norm, one a block of the launch's plan, for
+    ``swt_norm_sum_2d``.  The plain version gives one partial, the threshold
+    ops' band and ``ops.norms.thresholded_l1``'s float32 sum.  A wrapper of
+    its own, as its launch counter is."""
+    mode, beta = norm
+    if mode not in ("soft", "hard", "garrote"):
+        raise ValueError(f"norm mode {mode!r}: the kernel takes soft, hard or garrote")
+    if on_cpu(x, ndim=2):
+        from ..ops.norms import thresholded_l1
+        from ..ops.threshold import THR_ELEM
+
+        lo, hi = fwd_level_1d_ref(x, dec_lo, dec_hi)
+        return lo, THR_ELEM[mode](hi, beta), thresholded_l1(hi, beta, mode).reshape(1)
+    return _fwd1d_launch("fwd_level_1d_norm", x, dec_lo, dec_hi, norm)
 
 
 @spanned("kernels")

@@ -306,13 +306,19 @@ struct NoSeen {
   __device__ __forceinline__ void operator()(float) const {}
 };
 
+// A store_tile map that stores each tile value as it is.
+struct AsIs {
+  __device__ __forceinline__ float operator()(float v) const { return v; }
+};
+
 // Copy an nr x nc float tile (pitch `pitch`) to the output rows orow(i) and
 // columns ocol(u) where they fall inside (n_r, n_c); lanes along the columns.
-// seen(v) is called with each value stored, by the thread that stores it.
-template <typename TO, typename FR, typename FC, typename FV = NoSeen>
+// map(v) is stored in place of each tile value v, and seen(v) is called
+// with each value stored, by the thread that stores it.
+template <typename TO, typename FR, typename FC, typename FV = NoSeen, typename FM = AsIs>
 __device__ __forceinline__ void store_tile(TO* __restrict__ out, size_t plane, int n_r, int n_c,
                                            const float* ob, int pitch, int nr, int nc, FR orow,
-                                           FC ocol, FV seen = {}) {
+                                           FC ocol, FV seen = {}, FM map = {}) {
   const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
   for (int i = threadIdx.x >> 5; i < nr; i += nw) {
     const long long r = orow(i);
@@ -321,7 +327,7 @@ __device__ __forceinline__ void store_tile(TO* __restrict__ out, size_t plane, i
     for (int u = lane; u < nc; u += 32) {
       const long long c = ocol(u);
       if (c < n_c) {
-        const float v = ob[i * pitch + u];
+        const float v = map(ob[i * pitch + u]);
         dst[c] = from_f<TO>(v);
         seen(v);
       }

@@ -76,6 +76,31 @@ extern "C" int pdwt_fwd_level_1d(const float* x, float* lo, float* hi, int B, in
   return pdwt_fwd_level_1d_mxu(x, lo, hi, B, N, taps, hlen, 1, cen, pdwt_mxu::FD, 0, 0, lc, gc,
                                nt, threads, gx, gy, gz, smem, stream);
 }
+namespace pdwt_m1d {
+int launch_fwd_norm(const float* x, float* lo, float* hi, int B, int N, const float* taps,
+                    int hlen, int cen, int lc, int gc, int nt, int threads, int gx, int gy,
+                    int gz, int smem, void* stream, pdwt_mxu::NormOut nrm);
+}  // namespace pdwt_m1d
+
+// Kernel 7's norm launches: pdwt_fwd_level_1d's arguments and plan, then
+// norm_mode (1 soft, 2 hard, 3 garrote), beta (one float on the device)
+// and partials.  The high band is stored thresholded at beta, and the L1
+// norm of what is stored goes to gx gy float32 partials, one a block
+// (mxu1d.cu: fwd1d_strip_kernel<FD, 2, false, mode>), which
+// pdwt_swt_norm_sum_2d (swt.cu) adds.  It takes the place of the plain
+// threshold and the norm of the details in the batched 1D denoising step
+// (the five torch passes a band of ops/threshold.py and the abs and sum of
+// ops/norms.py: norm1), which read each band about seven times and wrote
+// it four; the epilogue moves no byte more than the plain launch.
+extern "C" int pdwt_fwd_level_1d_norm(const float* x, float* lo, float* hi, int B, int N,
+                                      const float* taps, int hlen, int cen, int lc, int gc,
+                                      int nt, int threads, int gx, int gy, int gz, int smem,
+                                      int norm_mode, const float* beta, float* partials,
+                                      void* stream) {
+  return pdwt_m1d::launch_fwd_norm(x, lo, hi, B, N, taps, hlen, cen, lc, gc, nt, threads, gx, gy,
+                                   gz, smem, stream, {norm_mode, beta, partials, 0});
+}
+
 extern "C" int pdwt_inv_level_1d_mxu(const float* lo, const void* hi, void* out, int B, int M,
                                      const float* taps, int hlen, int f, int cen, const int* geo,
                                      int scheme, int hi_bf16, int out_bf16, int lc, int gc,

@@ -115,11 +115,25 @@ size_t fwd1d_smem(int os, int lc, int dc, int nt) {
 // (pdwt_fwd_level_1d_mxu_padded, pdwt_swt_fwd_level_1d_mxu_padded), which
 // replace the pad_fn= of mxu1d_pallas.py:211 and :272: the same instances
 // in the tiers' schemes on the ring halo of the sharded 1D transforms.
-template <int S, int OS, bool PAD = false>
+//
+// NM: kernel 7's norm launches (batched1d.cu: pdwt_fwd_level_1d_norm), the
+// decimated instance in fd on a float32 input and high band, one instance
+// a threshold mode (soft, hard, garrote; kNone, every other instance:
+// `nrm` unread).  The high band is stored thresholded at the float at
+// nrm.beta (mxu_common.cuh: thresh, the float32 operations of
+// ops/threshold.py), and every thread sums |v| of each thresholded value v
+// it stores, so the sum counts each stored output once and nothing
+// store_tile skips (rows past B, the repeated last signal of a partial
+// group, positions past n_out), over the block's groups.  The block then
+// reduces the sums (warp shuffles, then shared memory) into one float32
+// partial in its own slot of nrm.partials, x fastest: no atomics, and the
+// same sum every call.  The low band is stored as it is.
+template <int S, int OS, bool PAD = false, int NM = kNone>
 __global__ void __launch_bounds__(256)
 fwd1d_strip_kernel(const void* __restrict__ x, float* __restrict__ lo, void* __restrict__ hi,
                    int in_bf16, int hi_bf16, int B, int N, int hlen, int f, int cen,
-                   const float* __restrict__ taps, int lc, int gc, int nt, int n_out_pad) {
+                   const float* __restrict__ taps, int lc, int gc, int nt, int n_out_pad,
+                   const NormOut nrm) {
   using St = Stage<S>;
   constexpr int P = kRowStrip<S>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -141,6 +155,8 @@ fwd1d_strip_kernel(const void* __restrict__ x, float* __restrict__ lo, void* __r
   __syncthreads();
   auto tap = [&](int e) { return dual_tap(e, nt, hlen); };
   const int ngroups = (B + kRows - 1) / kRows;
+  float beta = 0.f, nsum = 0.f;  // NM: the threshold, this thread's sum of what it stored
+  if constexpr (NM != kNone) beta = __ldg(nrm.beta);
   for (int grp = blockIdx.y; grp < ngroups; grp += gridDim.y) {
     const long long row0 = (long long)grp * kRows;
     // one staging per input type, each with the type a constant
@@ -171,13 +187,29 @@ fwd1d_strip_kernel(const void* __restrict__ x, float* __restrict__ lo, void* __r
     auto orow = [&](int i) { return row0 + i; };
     auto ocol = [&](int u) { return rho + (long long)gc * (q0 + u); };
     store_tile(lo, 0, B, n_out, tile, OP, kRows, lc, orow, ocol);
-    if (hi_bf16)
+    if constexpr (NM != kNone)
+      store_tile(static_cast<float*>(hi), 0, B, n_out, tile + kRows * OP, OP, kRows, lc, orow,
+                 ocol, [&](float v) { nsum += fabsf(v); },
+                 [&](float v) { return thresh(v, NM, beta); });
+    else if (hi_bf16)
       store_tile(static_cast<__nv_bfloat16*>(hi), 0, B, n_out, tile + kRows * OP, OP, kRows, lc,
                  orow, ocol);
     else
       store_tile(static_cast<float*>(hi), 0, B, n_out, tile + kRows * OP, OP, kRows, lc, orow,
                  ocol);
     __syncthreads();
+  }
+  if constexpr (NM != kNone) {  // the loop ended at a barrier: the shared memory is free
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) nsum += __shfl_down_sync(0xffffffffu, nsum, o);
+    float* ws = reinterpret_cast<float*>(smem_raw);  // a float a warp (16 nt bytes of taps)
+    if ((threadIdx.x & 31) == 0) ws[threadIdx.x >> 5] = nsum;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float t = 0.f;
+      for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t += ws[w];
+      nrm.partials[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = t;
+    }
   }
 }
 
@@ -333,11 +365,14 @@ bool lines_fit(int B, int n, int f, int lc, int gc, int gx, int gy, int gz) {
 }
 
 // Launch the analysis on its plan, after checking that the plan adds up.
+// A norm mode other than kNone (kernel 7's norm launches: decimated, fd,
+// float32 in and out) runs that mode's instance, which writes gx gy
+// partials.
 template <bool DECIM>
 cudaError_t launch_fwd(const void* x, float* lo, void* hi, int B, int N, const float* taps,
                        int hlen, int f, int cen, int scheme, int in_bf16, int hi_bf16, int lc,
                        int gc, int nt, int threads, int gx, int gy, int gz, int smem,
-                       void* stream) {
+                       void* stream, NormOut nrm = {}) {
   if (hlen < 2 || hlen > PDWT_MXU_MAX_HLEN || B < 1 || N < 1 || f < 1 ||
       (DECIM && (f != 1 || N % 2)))
     return cudaErrorInvalidValue;
@@ -346,16 +381,26 @@ cudaError_t launch_fwd(const void* x, float* lo, void* hi, int B, int N, const f
       threads < 32 || threads > 256 || threads % 32 ||
       !lines_fit(B, N / OS, f, lc, gc, gx, gy, gz))
     return cudaErrorInvalidValue;
+  if (nrm.mode != kNone && (!DECIM || nrm.mode < kSoft || nrm.mode > kGarrote || !nrm.beta ||
+                            !nrm.partials || scheme != FD || in_bf16 || hi_bf16))
+    return cudaErrorInvalidValue;
   return with_scheme(scheme, [&](auto sc) -> cudaError_t {
     constexpr int S = decltype(sc)::value;
     if (lc % (kRowStrip<S> * (f / gc)) || (size_t)smem != fwd1d_smem<S>(OS, lc, f / gc, nt))
       return cudaErrorInvalidValue;
-    auto kernel = fwd1d_strip_kernel<S, OS>;
-    cudaError_t e = prepare(kernel, smem);
-    if (e != cudaSuccess) return e;
-    kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-        x, lo, hi, in_bf16, hi_bf16, B, N, hlen, f, cen, taps, lc, gc, nt, 0);
-    return cudaGetLastError();
+    auto launch = [&](auto kernel) -> cudaError_t {
+      cudaError_t e = prepare(kernel, smem);
+      if (e != cudaSuccess) return e;
+      kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
+          x, lo, hi, in_bf16, hi_bf16, B, N, hlen, f, cen, taps, lc, gc, nt, 0, nrm);
+      return cudaGetLastError();
+    };
+    if constexpr (S == FD && DECIM) {
+      if (nrm.mode == kSoft) return launch(fwd1d_strip_kernel<FD, 2, false, kSoft>);
+      if (nrm.mode == kHard) return launch(fwd1d_strip_kernel<FD, 2, false, kHard>);
+      if (nrm.mode == kGarrote) return launch(fwd1d_strip_kernel<FD, 2, false, kGarrote>);
+    }
+    return launch(fwd1d_strip_kernel<S, OS>);
   });
 }
 
@@ -400,6 +445,21 @@ cudaError_t launch_inv(const float* lo, const void* hi, void* out, int B, int M,
 
 namespace pdwt_m1d {
 
+// Launch kernel 7's norm instance (fwd1d_strip_kernel<FD, 2, false, mode>)
+// on (B, N) float32 signals, N even, into the low band and the high band
+// thresholded at the float at nrm.beta (device memory), and gx gy float32
+// partials of the thresholded band's L1 norm into nrm.partials; taps,
+// center and plan as pdwt_fwd_level_1d's.  Refused
+// (cudaErrorInvalidValue) where the mode is not soft, hard or garrote or
+// the plan does not add up.
+int launch_fwd_norm(const float* x, float* lo, float* hi, int B, int N, const float* taps,
+                    int hlen, int cen, int lc, int gc, int nt, int threads, int gx, int gy,
+                    int gz, int smem, void* stream, NormOut nrm) {
+  if (nrm.mode == kNone) return cudaErrorInvalidValue;
+  return launch_fwd<true>(x, lo, hi, B, N, taps, hlen, 1, cen, FD, 0, 0, lc, gc, nt, threads, gx,
+                          gy, gz, smem, stream, nrm);
+}
+
 // The padded launchers take the scheme and the storage flags of their
 // unpadded siblings (launch_fwd, launch_inv above) and run the PAD
 // instances of the two bodies: kernels 7-10's padded entry points
@@ -431,7 +491,7 @@ int launch_fwd_padded(const void* x, float* lo, void* hi, int B, int N, int n_ou
     cudaError_t e = prepare(kernel, smem);
     if (e != cudaSuccess) return e;
     kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-        x, lo, hi, in_bf16, hi_bf16, B, N, hlen, 1, 0, taps, lc, 1, nt, n_out);
+        x, lo, hi, in_bf16, hi_bf16, B, N, hlen, 1, 0, taps, lc, 1, nt, n_out, NormOut{});
     return cudaGetLastError();
   });
 }
@@ -502,7 +562,7 @@ int launch_swt_fwd_padded(const void* x, float* lo, void* hi, int B, int N, int 
     cudaError_t e = prepare(kernel, smem);
     if (e != cudaSuccess) return e;
     kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-        x, lo, hi, in_bf16, hi_bf16, B, N, hlen, f, 0, taps, lc, gc, nt, n_out);
+        x, lo, hi, in_bf16, hi_bf16, B, N, hlen, f, 0, taps, lc, gc, nt, n_out, NormOut{});
     return cudaGetLastError();
   });
 }

@@ -142,12 +142,29 @@ def thresholded_norm1(coeffs: Coeffs, beta, *, mode: str = "soft",
 
 
 def sum_norm_partials(partials: torch.Tensor) -> torch.Tensor:
-    """The fused route's thresholded L1 norm (``core/separable.py:
-    _swt2d_denoise_norm1``): the partials of kernel 5's norm launches, one
-    a block, added by ``kernels.swt_norm_sum_2d``.  Under the plain
-    route's span name, and counted in ``NORM_PATHS["fused"]`` while the
-    span recorder is on."""
+    """The fused routes' thresholded L1 norm (``core/separable.py:
+    _swt2d_denoise_norm1``, ``_dwt1d_denoise_norm1``): the partials of
+    kernel 5's or kernel 7's norm launches, one a block, added by
+    ``kernels.swt_norm_sum_2d``.  Under the plain route's span name, and
+    counted in ``NORM_PATHS["fused"]`` while the span recorder is on."""
     with span("pdwt.ops.thresholded_norm1"):
         if recording():
             NORM_PATHS["fused"] += 1
         return kernels.swt_norm_sum_2d(partials)
+
+
+@spanned("ops")
+def add_approx_norm1(total: torch.Tensor, approx: torch.Tensor, beta=None, *, levels: int = 0,
+                     mode: str = "soft", normalize: bool = False,
+                     do_thresh_appcoeffs: bool = False):
+    """The rest of the fused 1D step's norm (``Wavelets.run_denoise``):
+    ``total``, the thresholded details' L1 norm from kernel 7's norm
+    launches, plus sum |A| of the approximation.  Under
+    ``do_thresh_appcoeffs`` A is first thresholded as the threshold ops
+    threshold it (``mode`` at ``beta / sqrt(2)^levels`` under
+    ``normalize``).  Returns (A as the synthesis takes it, the norm)."""
+    from .threshold import THR_ELEM, _app_beta
+
+    if do_thresh_appcoeffs:
+        approx = THR_ELEM[mode](approx, _app_beta(beta, levels, normalize))
+    return approx, total + torch.sum(torch.abs(approx), dtype=_accum(approx))

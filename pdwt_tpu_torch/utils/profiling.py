@@ -36,7 +36,9 @@
   ``OPS_OPERAND_BYTES[<function>]`` (an ops function run inside another's
   span is not counted twice).
   ``NORM_PATHS`` counts the thresholded L1 norms by route, fused into
-  kernel 5 or plain torch.
+  kernel 5 or 7 or plain torch, and ``DENOISE_PATHS`` the
+  ``Wavelets.run_denoise`` calls by where the threshold ran, in a kernel
+  or in the threshold ops.
 """
 from __future__ import annotations
 
@@ -204,9 +206,14 @@ OPERAND_BYTES: Dict[str, int] = {}
 #: the outermost ops span of a call, counted while the recorder is on
 OPS_OPERAND_BYTES: Dict[str, int] = {}
 #: thresholded L1 norms by route, counted while the recorder is on: "fused"
-#: (kernel 5's epilogue, ``ops.norms.sum_norm_partials``)
+#: (kernel 5's or kernel 7's epilogue, ``ops.norms.sum_norm_partials``)
 #: and "plain" (``ops.thresholded_norm1``)
 NORM_PATHS: Dict[str, int] = {"fused": 0, "plain": 0}
+#: ``Wavelets.run_denoise`` calls by where the threshold ran, counted while
+#: the recorder is on: "fused" (in a kernel: kernel 7's norm launches in
+#: 1D, the thresholding syntheses of ``iswt2d_denoise``/``iswt3d_denoise``)
+#: and "plain" (the threshold ops)
+DENOISE_PATHS: Dict[str, int] = {"fused": 0, "plain": 0}
 _local = threading.local()
 
 
@@ -234,12 +241,13 @@ def span_table() -> Dict[str, Dict[str, int]]:
 
 def reset_spans() -> None:
     """Clear the span table, ``OPERAND_BYTES`` and ``OPS_OPERAND_BYTES``, and
-    zero ``NORM_PATHS``."""
+    zero ``NORM_PATHS`` and ``DENOISE_PATHS``."""
     _TABLE.clear()
     OPERAND_BYTES.clear()
     OPS_OPERAND_BYTES.clear()
-    for k in NORM_PATHS:
-        NORM_PATHS[k] = 0
+    for paths in (NORM_PATHS, DENOISE_PATHS):
+        for k in paths:
+            paths[k] = 0
 
 
 class _Span:

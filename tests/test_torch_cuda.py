@@ -142,7 +142,7 @@ def test_launch_counters(dev):
                           "fwd_tail_2d": 1, "inv_tail_2d": 1,
                           "swt_fwd_level_2d": 0, "swt_inv_level_2d": 0,
                           "swt_norm_sum_2d": 0,
-                          "fwd_level_1d": 0, "inv_level_1d": 0,
+                          "fwd_level_1d": 0, "fwd_level_1d_norm": 0, "inv_level_1d": 0,
                           "swt_fwd_level_1d": 0, "swt_inv_level_1d": 0,
                           "fwd_level_2d_mxu": 0, "inv_level_2d_mxu": 0,
                           "fwd_level_1d_mxu": 0, "inv_level_1d_mxu": 0,
@@ -322,7 +322,8 @@ def test_1d_transforms_match_cpu(dev, wname, shape, levels, swt):
 
 def test_1d_path_launches_the_kernels_and_no_plain_version(dev, monkeypatch):
     """On a CUDA tensor the facade's 1D steps run on the kernels, one launch
-    per level each way, and no plain version."""
+    per level each way (the DWT's analysis in kernel 7's norm launches, and
+    one sum of their partials), and no plain version."""
     def boom(*args, **kwargs):
         raise AssertionError("a plain version ran on the CUDA path")
 
@@ -337,7 +338,8 @@ def test_1d_path_launches_the_kernels_and_no_plain_version(dev, monkeypatch):
         assert out.shape == sig.shape and bool(torch.isfinite(out).all())
     torch.cuda.synchronize()
     assert {k: v for k, v in K.LAUNCHES.items() if v} == {
-        "fwd_level_1d": 4, "inv_level_1d": 4, "swt_fwd_level_1d": 4, "swt_inv_level_1d": 4}
+        "fwd_level_1d_norm": 4, "swt_norm_sum_2d": 1, "inv_level_1d": 4, "swt_fwd_level_1d": 4,
+        "swt_inv_level_1d": 4}
 
 
 def test_1d_facade_matches_cpu(dev):
@@ -2210,11 +2212,12 @@ def test_fused_norm_launches_refuse_what_they_do_not_take(dev):
 
 def test_batched_1d_denoise_step_matches_the_float64_reference(dev):
     """``Wavelets(ndim=1).set_image`` then ``run_denoise(0.1)`` at 4096 x
-    4096 sym8, 4 levels: kernels 7 and 8 four times each; the output and
-    the norm bit for bit those of ``dwt1d``, ``soft_threshold``, ``norm1``
-    and ``idwt1d`` called in turn; and both within the benchmark cell's
-    limits (1e-4 of the largest value, 3e-5 of the norm) of the plain
-    levels in float64."""
+    4096 sym8, 4 levels: kernel 7's norm launches and kernel 8 four times
+    each and one sum of the partials; the output bit for bit that of
+    ``dwt1d``, ``soft_threshold`` and ``idwt1d`` called in turn, the norm
+    within FUSED_1D_NORM_RTOL of their ``norm1``; and both within the
+    benchmark cell's limits (1e-4 of the largest value, 3e-5 of the norm)
+    of the plain levels in float64."""
     from pdwt_tpu_torch import Coeffs1D
 
     w, n, levels, beta = get_wavelet("sym8"), 4096, 4, 0.1
@@ -2225,10 +2228,12 @@ def test_batched_1d_denoise_step_matches_the_float64_reference(dev):
     K.reset_launch_counts()
     out, n1 = W.run_denoise(beta)
     torch.cuda.synchronize()
-    assert {k: v for k, v in K.LAUNCHES.items() if v} == {"fwd_level_1d": levels,
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {"fwd_level_1d_norm": levels,
+                                                         "swt_norm_sum_2d": 1,
                                                          "inv_level_1d": levels}
     c = ops.soft_threshold(dwt1d(x, w, levels), beta)
-    assert torch.equal(out, idwt1d(c, w, n)) and torch.equal(n1, ops.norm1(c))
+    assert torch.equal(out, idwt1d(c, w, n))
+    torch.testing.assert_close(n1, ops.norm1(c), rtol=FUSED_1D_NORM_RTOL, atol=0)
     a, dets = x.double(), []
     for _ in range(levels):
         a, d = K1.fwd_level_1d_ref(a, w.dec_lo, w.dec_hi)
@@ -2240,3 +2245,96 @@ def test_batched_1d_denoise_step_matches_the_float64_reference(dev):
     want_n1 = float(ops.norm1(c64))
     assert float((out.double() - want).abs().max()) <= 1e-4 * float(want.abs().max())
     assert abs(float(n1) - want_n1) <= 3e-5 * want_n1
+
+
+# ---------------------------------------------------------------------------
+# the batched 1D step's fused threshold and norm: kernel 7's norm launches
+# ---------------------------------------------------------------------------
+
+#: the fused norm against ``norm1`` of the thresholded tree, both float32
+#: sums in different orders
+FUSED_1D_NORM_RTOL = 2e-6
+
+#: (wavelet, shape): batches of 1, 33 and 1000 signals; 4096 samples and
+#: 1000 (level 4 is 125 long, odd); sym8, db7 and an odd-length bank
+FUSED_1D_CASES = [("sym8", (1, 4096)), ("sym8", (33, 1000)), ("db7", (1000, 4096)),
+                  ("db7", (1, 1000)), ("odd5", (33, 4096)), ("odd5", (1000, 1000))]
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("mode", ["soft", "hard", "garrote"])
+@pytest.mark.parametrize("wname,shape", FUSED_1D_CASES)
+def test_fused_1d_denoise_matches_the_plain_route(dev, wname, shape, mode, normalize):
+    """``Wavelets(ndim=1).run_denoise`` on kernel 7's norm launches: the
+    denoised signals bit for bit those of ``dwt1d``, the threshold ops and
+    ``idwt1d``; the norm within FUSED_1D_NORM_RTOL of ``norm1`` of the
+    thresholded tree; the launches of the route; two calls equal."""
+    from pdwt_tpu_torch.filters.bank import register_wavelet
+    from pdwt_tpu_torch.ops.threshold import THRESHOLD_OPS
+
+    w = _wavelet(wname)
+    register_wavelet(w)  # the odd bank by name, as the built-in ones (the same bank)
+    x = _rand(dev, *shape, seed=29)
+    levels, beta = 4, 0.3
+    W = Wavelets(x, wname=wname, levels=levels, ndim=1, device=dev)
+    K.reset_launch_counts()
+    out, n1 = W.run_denoise(beta, mode=mode, normalize=normalize)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {"fwd_level_1d_norm": levels,
+                                                         "swt_norm_sum_2d": 1,
+                                                         "inv_level_1d": levels}
+    c = THRESHOLD_OPS[mode](dwt1d(x, w, levels), beta, normalize=normalize)
+    assert torch.equal(out, idwt1d(c, w, shape[-1]))
+    assert n1.dtype == torch.float32 and n1.shape == () and n1.device == x.device
+    torch.testing.assert_close(n1, ops.norm1(c), rtol=FUSED_1D_NORM_RTOL, atol=0)
+    again, n2 = W.run_denoise(beta, mode=mode, normalize=normalize)
+    assert torch.equal(again, out) and torch.equal(n2, n1)
+
+
+@pytest.mark.parametrize("mode", ["soft", "hard", "garrote"])
+@pytest.mark.parametrize("wname,shape", [("sym8", (65, 4096)), ("odd5", (70000, 64)),
+                                         ("haar", (3, 2))])
+def test_fused_1d_norm_launches_match_the_plain_launch(dev, monkeypatch, wname, shape, mode):
+    """Kernel 7's norm launch: the low band bit for bit the plain launch's,
+    the high band the plain launch's thresholded by the threshold ops bit
+    for bit, one partial a block of the launch's plan, their sum within
+    FUSED_1D_NORM_RTOL of a float64 norm of it.  The wrapper's outputs are
+    made NaN first, so that a block's slot or a band value left unwritten
+    shows."""
+    import math
+
+    from pdwt_tpu_torch.kernels.mxu1d import fwd1d_launch_plan
+    from pdwt_tpu_torch.ops.threshold import THR_ELEM
+
+    class NaNEmpty:
+        """``torch``, with ``empty`` filled with NaN."""
+
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        @staticmethod
+        def empty(*a, **k):
+            return torch.empty(*a, **k).fill_(float("nan"))
+
+    w = _wavelet(wname)
+    x = _rand(dev, *shape, seed=30)
+    beta = torch.tensor(0.25, device=dev)
+    with monkeypatch.context() as m:
+        m.setattr(K1, "torch", NaNEmpty())
+        lo, hi, parts = K1.fwd_level_1d_norm(x, w.dec_lo, w.dec_hi, norm=(mode, beta))
+    plo, phi = K1.fwd_level_1d(x, w.dec_lo, w.dec_hi)
+    assert torch.equal(lo, plo) and torch.equal(hi, THR_ELEM[mode](phi, beta))
+    hlen = K1.dual_taps((w.dec_lo, w.dec_hi), "fd", dev).shape[1]
+    blocks = math.prod(fwd1d_launch_plan(*shape, hlen, 1, "fd", True).grid)
+    assert parts.shape == (blocks,) and parts.dtype == torch.float32
+    assert bool(torch.isfinite(parts).all())
+    ref = float(ops.norms.thresholded_l1(phi.double(), 0.25, mode))
+    assert abs(float(parts.double().sum()) - ref) <= FUSED_1D_NORM_RTOL * ref
+
+
+def test_fused_1d_norm_launches_refuse_what_they_do_not_take(dev):
+    w = get_wavelet("db2")
+    with pytest.raises(ValueError, match="even length"):
+        K1.fwd_level_1d_norm(_rand(dev, 4, 15), w.dec_lo, w.dec_hi, norm=("soft", 1.0))
+    with pytest.raises(ValueError, match="norm mode"):
+        K1.fwd_level_1d_norm(_rand(dev, 4, 16), w.dec_lo, w.dec_hi, norm=("firm", 1.0))
