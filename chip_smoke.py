@@ -926,7 +926,7 @@ def main() -> None:
     from pdwt_tpu_torch.core import conv
     from pdwt_tpu_torch.core.shapes import level_sizes
     from pdwt_tpu_torch.filters import make_custom_wavelet
-    from pdwt_tpu_torch.kernels import _build
+    from pdwt_tpu_torch.kernels import _build, beta_buffer
     from pdwt_tpu_torch.kernels import batched1d as K1
     from pdwt_tpu_torch.kernels import separable as K
     from pdwt_tpu_torch.kernels import swt as S
@@ -1200,7 +1200,7 @@ def main() -> None:
     # a buffer on the card (as denoise_step passes it).  The bands against
     # the plain version here; the norm after the cases.  Timed: soft
     g_norm = torch.Generator(device=dev).manual_seed(11)
-    fn_beta = S.beta_buffer(FN_BETA, dev)
+    fn_beta = beta_buffer(FN_BETA, dev)
     fn_x = fn_in = torch.rand((FN_BATCH, FN_N, FN_N), device=dev, generator=g_norm) * 255.0
     norm_runs = []
     for lvl in range(1, FN_LEVELS + 1):
@@ -1585,12 +1585,13 @@ def batch_cell_phase(dev, card, report, launches, gen) -> None:
     from pdwt_tpu_torch import Wavelets, dwt1d, get_wavelet, idwt1d, ops
     from pdwt_tpu_torch.core import conv
     from pdwt_tpu_torch.kernels import batched1d as K1
+    from pdwt_tpu_torch.kernels import beta_buffer
     from pdwt_tpu_torch.kernels import separable as K
     from pdwt_tpu_torch.kernels import swt as S
 
     w = get_wavelet(B1_WNAME)
     x = torch.randn((BC_SIGNALS, B1_N), device=dev, generator=gen)
-    beta = S.beta_buffer(B1_BETA, dev)
+    beta = beta_buffer(B1_BETA, dev)
     soft = ops.THR_ELEM["soft"]
     cases, norm_runs, a = [], [], x
     for lvl in range(1, B1_LEVELS + 1):

@@ -24,14 +24,112 @@ from ..utils import cache
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(os.path.join(_HERE, "csrc", name)
-                for name in ("separable.cu", "swt.cu", "batched1d.cu", "matmul.cu", "mxu1d.cu",
-                             "swt_matmul.cu", "ns_matmul.cu"))
+                for name in ("separable.cu", "swt.cu", "matmul.cu", "mxu1d.cu", "swt_matmul.cu",
+                             "ns_matmul.cu"))
 #: headers the sources include; hashed with them, so editing one rebuilds
 HEADERS = tuple(os.path.join(_HERE, "csrc", name) for name in ("mxu_common.cuh", "band_strip.cuh"))
 #: the in-tree build directory (``cache.build_dir()`` is where builds go)
 BUILD_DIR = cache.TREE_DIR
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+P, I = ctypes.c_void_p, ctypes.c_int
+#: ctypes argument types of each ``extern "C" int`` entry point of SOURCES
+#: (every one returns a cudaError_t as int), the stream last
+SIGNATURES = {
+    # x, a, scratch, det (3 * levels pointers), B, R, C, levels, taps (4, hlen on the
+    # device), hlen, center, the launch plan (nb, cs, nt, threads, smem, tiles: lr, lc,
+    # nph per level), stream
+    "pdwt_fwd_tail_2d": [P, P, P, P, I, I, I, I, P, I, I, *[I] * 5, P, P],
+    # a, det (3 * levels pointers, deepest first), out, scratch, B, Mr, Mc, levels, taps
+    # (4, hlen on the device), hlen, geometry, the launch plan (nb, cs, nt, threads,
+    # smem, tiles), stream
+    "pdwt_inv_tail_2d": [P, P, P, P, I, I, I, I, P, I, P, *[I] * 5, P, P],
+    # partials, their count, out (one float on the device), stream
+    "pdwt_swt_norm_sum_2d": [P, I, P, P],
+    # x, a, h, v, d, B, R, C, taps (4, hlen on the device), hlen, center, scheme,
+    # in_bf16, det_bf16, the launch plan (lr, lc, gc, nph, nt, threads, grid x, y, z,
+    # smem), stream
+    "pdwt_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, *[I] * 10, P],
+    # a, h, v, d, out, B, Mr, Mc, taps (4, hlen on the device), hlen, geometry, scheme,
+    # det_bf16, out_bf16, the launch plan (lr, lc, nt, threads, grid x, y, z, smem),
+    # stream
+    "pdwt_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, P, I, I, I, *[I] * 8, P],
+    # x, a, h, v, d, B, R, C (the extended input), Ro, Co (the outputs), taps (4, hlen
+    # on the device), hlen, scheme, in_bf16, det_bf16, the launch plan (lr, lc, gc, nph,
+    # nt, threads, grid x, y, z, smem), stream
+    "pdwt_fwd_level_2d_mxu_padded": [P, P, P, P, P, I, I, I, I, I, P, I, I, I, I, *[I] * 10,
+                                     P],
+    # a, h, v, d, out, B, Mr, Mc (the padded subbands), pad (base, off, n_out of the
+    # rows, then of the columns), taps (4, hlen on the device), hlen, geometry, scheme,
+    # det_bf16, out_bf16, the launch plan (lr, lc, nt, threads, grid x, y, z, smem),
+    # stream
+    "pdwt_inv_level_2d_mxu_padded": [P, P, P, P, P, I, I, I, P, P, I, P, I, I, I, *[I] * 8,
+                                     P],
+    # x, lo, hi, B, N, taps (4, hlen on the device), hlen, dilation, center, scheme,
+    # in_bf16, hi_bf16, the launch plan (lc, gc, nt, threads, grid x, y, z, smem), stream
+    "pdwt_fwd_level_1d_mxu": [P, P, P, I, I, P, I, I, I, I, I, I, *[I] * 8, P],
+    "pdwt_swt_fwd_level_1d_mxu": [P, P, P, I, I, P, I, I, I, I, I, I, *[I] * 8, P],
+    # the same, then norm mode, beta (one float on the device), partials, stream
+    "pdwt_fwd_level_1d_norm": [P, P, P, I, I, P, I, I, I, I, I, I, *[I] * 8, I, P, P, P],
+    # lo, hi, out, B, M, taps (4, hlen on the device), hlen, dilation, center,
+    # geometry, scheme, hi_bf16, out_bf16, the launch plan (lc, gc, nt, threads,
+    # grid x, y, z, smem), stream
+    "pdwt_inv_level_1d_mxu": [P, P, P, I, I, P, I, I, I, P, I, I, I, *[I] * 8, P],
+    "pdwt_swt_inv_level_1d_mxu": [P, P, P, I, I, P, I, I, I, P, I, I, I, *[I] * 8, P],
+    # x, lo, hi, B, N (the extended signals), n_out, taps (4, hlen on the device),
+    # hlen, scheme, in_bf16, hi_bf16, the launch plan (lc, gc, nt, threads, grid x, y,
+    # z, smem), stream
+    "pdwt_fwd_level_1d_mxu_padded": [P, P, P, I, I, I, P, I, I, I, I, *[I] * 8, P],
+    # x, lo, hi, B, N (the signals with their halo), n_out, taps (4, hlen on the
+    # device), hlen, dilation, scheme, in_bf16, hi_bf16, the launch plan (lc, gc, nt,
+    # threads, grid x, y, z, smem), stream
+    "pdwt_swt_fwd_level_1d_mxu_padded": [P, P, P, I, I, I, P, I, I, I, I, I, *[I] * 8, P],
+    # lo, hi, out, B, M (the padded bands), pad (base, off, n_out), taps (4, hlen on
+    # the device), hlen, geometry, scheme, hi_bf16, out_bf16, the launch plan (lc, gc,
+    # nt, threads, grid x, y, z, smem), stream
+    "pdwt_inv_level_1d_mxu_padded": [P, P, P, I, I, P, P, I, P, I, I, I, *[I] * 8, P],
+    # lo, hi, out, B, M (the bands with their halo), n_out, taps (4, hlen of the
+    # halved filters on the device), hlen, dilation, scheme, hi_bf16, out_bf16, the
+    # launch plan (lc, gc, nt, threads, grid x, y, z, smem), stream
+    "pdwt_swt_inv_level_1d_mxu_padded": [P, P, P, I, I, I, P, I, I, I, I, I, *[I] * 8, P],
+    # x, a, h, v, d, B, R, C, taps (4, hlen on the device), hlen, dilation, center,
+    # scheme, in_bf16, det_bf16, the launch plan (lr, lc, gc, nph, nt, threads,
+    # grid x, y, z, smem), norm mode (0: none; fd only), beta (one float on the
+    # device), partials, approx, stream
+    "pdwt_swt_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, I, *[I] * 10,
+                                  I, P, P, I, P],
+    # a, h, v, d, out, B, R, C, taps (4, hlen on the device), hlen, dilation, center,
+    # scheme, det_bf16, out_bf16, thresh_mode, beta (one float on the device), the
+    # launch plan (lr, lc, gc, nph, nt, threads, grid x, y, z, smem), stream
+    "pdwt_swt_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, I, I, P,
+                                  *[I] * 10, P],
+    # x, a, h, v, d, B, R, C (the input with its halo), Ro, Co (the outputs), taps
+    # (4, hlen on the device), hlen, dilation, scheme, in_bf16, det_bf16, the launch
+    # plan (lr, lc, gc, nph, nt, threads, grid x, y, z, smem), stream
+    "pdwt_swt_fwd_level_2d_mxu_padded": [P, P, P, P, P, I, I, I, I, I, P, I, I, I, I, I,
+                                         *[I] * 10, P],
+    # a, h, v, d, out, B, Ri, Ci (the subbands with their halo), R, C (the output),
+    # taps (4, hlen of the halved filters on the device), hlen, dilation, scheme,
+    # det_bf16, out_bf16, the launch plan (lr, lc, gc, nph, nt, threads, grid x, y, z,
+    # smem), stream
+    "pdwt_swt_inv_level_2d_mxu_padded": [P, P, P, P, P, I, I, I, I, I, P, I, I, I, I, I,
+                                         *[I] * 10, P],
+    # x, a, h, v, d, B, R, C, taps (device), hlen, rank, stride, dilation, center,
+    # scheme, in_bf16, det_bf16, the launch plan (lr, lc, gc, nt, threads, grid x, y,
+    # z, smem), stream
+    "pdwt_ns_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, I, I, I,
+                                 *[I] * 9, P],
+    "pdwt_ns_swt_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, I, I, I,
+                                     *[I] * 9, P],
+    # a, h, v, d, out, B, Mr, Mc, taps (device), hlen, rank, dilation, geometry,
+    # scheme, det_bf16, out_bf16, the launch plan (lr, lc, gc, nt, threads, grid x, y, z,
+    # smem), stream
+    "pdwt_ns_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, P, I, I, I, *[I] * 9, P],
+    "pdwt_ns_swt_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, P, I, I, I,
+                                     *[I] * 9, P],
+}
 
 
 def _nvcc() -> str:
@@ -104,121 +202,10 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     if path != so:
         os.remove(path)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    sigs = {
-        # x, a, h, v, d, B, R, C, taps (4, hlen on the device), hlen, center, the launch
-        # plan (lr, lc, gc, nph, nt, threads, grid x, y, z, smem), stream
-        "pdwt_fwd_level_2d": [P, P, P, P, P, I, I, I, P, I, I, *[I] * 10, P],
-        # a, h, v, d, out, B, Mr, Mc, taps (4, hlen on the device), hlen, geometry, the
-        # launch plan (lr, lc, nt, threads, grid x, y, z, smem), stream
-        "pdwt_inv_level_2d": [P, P, P, P, P, I, I, I, P, I, P, *[I] * 8, P],
-        # x, a, scratch, det (3 * levels pointers), B, R, C, levels, taps (4, hlen on the
-        # device), hlen, center, the launch plan (nb, cs, nt, threads, smem, tiles: lr, lc,
-        # nph per level), stream
-        "pdwt_fwd_tail_2d": [P, P, P, P, I, I, I, I, P, I, I, *[I] * 5, P, P],
-        # a, det (3 * levels pointers, deepest first), out, scratch, B, Mr, Mc, levels, taps
-        # (4, hlen on the device), hlen, geometry, the launch plan (nb, cs, nt, threads,
-        # smem, tiles), stream
-        "pdwt_inv_tail_2d": [P, P, P, P, I, I, I, I, P, I, P, *[I] * 5, P, P],
-        # x, a, h, v, d, B, R, C, taps (4, hlen on the device), hlen, dilation, center,
-        # the launch plan (lr, lc, gc, nph, nt, threads, grid x, y, z, smem), norm mode,
-        # beta (one float on the device), partials, approx, stream
-        "pdwt_swt_fwd_level_2d": [P, P, P, P, P, I, I, I, P, I, I, I, *[I] * 10, I, P, P, I, P],
-        # partials, their count, out (one float on the device), stream
-        "pdwt_swt_norm_sum_2d": [P, I, P, P],
-        # a, h, v, d, out, B, R, C, taps (4, hlen on the device), hlen, dilation, center,
-        # thresh_mode, beta (one float on the device), the launch plan (lr, lc, gc, nph,
-        # nt, threads, grid x, y, z, smem), stream
-        "pdwt_swt_inv_level_2d": [P, P, P, P, P, I, I, I, P, I, I, I, I, P, *[I] * 10, P],
-        # x, lo, hi, B, N, taps (4, hlen on the device), hlen, center, the launch plan
-        # (lc, gc, nt, threads, grid x, y, z, smem), stream
-        "pdwt_fwd_level_1d": [P, P, P, I, I, P, I, I, *[I] * 8, P],
-        # the same, then norm mode, beta (one float on the device), partials, stream
-        "pdwt_fwd_level_1d_norm": [P, P, P, I, I, P, I, I, *[I] * 8, I, P, P, P],
-        # lo, hi, out, B, M, taps (4, hlen on the device), hlen, geometry, the launch
-        # plan (lc, gc, nt, threads, grid x, y, z, smem), stream
-        "pdwt_inv_level_1d": [P, P, P, I, I, P, I, P, *[I] * 8, P],
-        # x, lo, hi, B, N, taps (4, hlen on the device), hlen, dilation, center, the
-        # launch plan (lc, gc, nt, threads, grid x, y, z, smem), stream
-        "pdwt_swt_fwd_level_1d": [P, P, P, I, I, P, I, I, I, *[I] * 8, P],
-        # lo, hi, out, B, N, taps (4, hlen on the device), hlen, dilation, center, the
-        # launch plan (lc, gc, nt, threads, grid x, y, z, smem), stream
-        "pdwt_swt_inv_level_1d": [P, P, P, I, I, P, I, I, I, *[I] * 8, P],
-        # x, a, h, v, d, B, R, C, taps (4, hlen on the device), hlen, center, scheme,
-        # in_bf16, det_bf16, the launch plan (lr, lc, gc, nph, nt, threads, grid x, y, z,
-        # smem), stream
-        "pdwt_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, *[I] * 10, P],
-        # a, h, v, d, out, B, Mr, Mc, taps (4, hlen on the device), hlen, geometry, scheme,
-        # det_bf16, out_bf16, the launch plan (lr, lc, nt, threads, grid x, y, z, smem),
-        # stream
-        "pdwt_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, P, I, I, I, *[I] * 8, P],
-        # x, lo, hi, B, N, taps (4, hlen on the device), hlen, dilation, center, scheme,
-        # in_bf16, hi_bf16, the launch plan (lc, gc, nt, threads, grid x, y, z, smem), stream
-        "pdwt_fwd_level_1d_mxu": [P, P, P, I, I, P, I, I, I, I, I, I, *[I] * 8, P],
-        "pdwt_swt_fwd_level_1d_mxu": [P, P, P, I, I, P, I, I, I, I, I, I, *[I] * 8, P],
-        # lo, hi, out, B, M, taps (4, hlen on the device), hlen, dilation, center,
-        # geometry, scheme, hi_bf16, out_bf16, the launch plan (lc, gc, nt, threads,
-        # grid x, y, z, smem), stream
-        "pdwt_inv_level_1d_mxu": [P, P, P, I, I, P, I, I, I, P, I, I, I, *[I] * 8, P],
-        "pdwt_swt_inv_level_1d_mxu": [P, P, P, I, I, P, I, I, I, P, I, I, I, *[I] * 8, P],
-        # x, a, h, v, d, B, R, C, taps (4, hlen on the device), hlen, dilation, center,
-        # scheme, in_bf16, det_bf16, the launch plan (lr, lc, gc, nph, nt, threads,
-        # grid x, y, z, smem), stream
-        "pdwt_swt_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, I, *[I] * 10, P],
-        # a, h, v, d, out, B, R, C, taps (4, hlen on the device), hlen, dilation, center,
-        # scheme, det_bf16, out_bf16, thresh_mode, beta (one float on the device), the
-        # launch plan (lr, lc, gc, nph, nt, threads, grid x, y, z, smem), stream
-        "pdwt_swt_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, I, I, P,
-                                      *[I] * 10, P],
-        # x, a, h, v, d, B, R, C, taps (device), hlen, rank, stride, dilation, center,
-        # scheme, in_bf16, det_bf16, the launch plan (lr, lc, gc, nt, threads, grid x, y,
-        # z, smem), stream
-        "pdwt_ns_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, I, I, I,
-                                     *[I] * 9, P],
-        "pdwt_ns_swt_fwd_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, I, I, I, I, I,
-                                         *[I] * 9, P],
-        # a, h, v, d, out, B, Mr, Mc, taps (device), hlen, rank, dilation, geometry,
-        # scheme, det_bf16, out_bf16, the launch plan (lr, lc, gc, nt, threads, grid x, y, z,
-        # smem), stream
-        "pdwt_ns_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, P, I, I, I, *[I] * 9, P],
-        "pdwt_ns_swt_inv_level_2d_mxu": [P, P, P, P, P, I, I, I, P, I, I, I, P, I, I, I,
-                                         *[I] * 9, P],
-        # x, a, h, v, d, B, R, C (the extended input), Ro, Co (the outputs), taps (4, hlen
-        # on the device), hlen, the launch plan (lr, lc, gc, nph, nt, threads, grid x, y, z,
-        # smem), stream
-        "pdwt_fwd_level_2d_padded": [P, P, P, P, P, I, I, I, I, I, P, I, *[I] * 10, P],
-        # a, h, v, d, out, B, Mr, Mc (the padded subbands), pad (base, off, n_out of the
-        # rows, then of the columns), taps (4, hlen on the device), hlen, geometry, the
-        # launch plan (lr, lc, nt, threads, grid x, y, z, smem), stream
-        "pdwt_inv_level_2d_padded": [P, P, P, P, P, I, I, I, P, P, I, P, *[I] * 8, P],
-        # x, lo, hi, B, N (the extended signals), n_out, taps (4, hlen on the device),
-        # hlen, the launch plan (lc, gc, nt, threads, grid x, y, z, smem), stream
-        "pdwt_fwd_level_1d_padded": [P, P, P, I, I, I, P, I, *[I] * 8, P],
-        # lo, hi, out, B, M (the padded bands), pad (base, off, n_out), taps (4, hlen on
-        # the device), hlen, geometry, the launch plan (lc, gc, nt, threads, grid x, y, z,
-        # smem), stream
-        "pdwt_inv_level_1d_padded": [P, P, P, I, I, P, P, I, P, *[I] * 8, P],
-        # x, a, h, v, d, B, R, C (the input with its halo), Ro, Co (the outputs), taps
-        # (4, hlen on the device), hlen, dilation, the launch plan (lr, lc, gc, nph, nt,
-        # threads, grid x, y, z, smem), stream
-        "pdwt_swt_fwd_level_2d_padded": [P, P, P, P, P, I, I, I, I, I, P, I, I, *[I] * 10, P],
-        # a, h, v, d, out, B, Ri, Ci (the subbands with their halo), R, C (the output),
-        # taps (4, hlen of the halved filters on the device), hlen, dilation, the launch
-        # plan (lr, lc, gc, nph, nt, threads, grid x, y, z, smem), stream
-        "pdwt_swt_inv_level_2d_padded": [P, P, P, P, P, I, I, I, I, I, P, I, I, *[I] * 10, P],
-        # x, lo, hi, B, N (the signals with their halo), n_out, taps (4, hlen on the
-        # device), hlen, dilation, the launch plan (lc, gc, nt, threads, grid x, y, z,
-        # smem), stream
-        "pdwt_swt_fwd_level_1d_padded": [P, P, P, I, I, I, P, I, I, *[I] * 8, P],
-        # lo, hi, out, B, M (the bands with their halo), n_out, taps (4, hlen of the
-        # halved filters on the device), hlen, dilation, the launch plan (lc, gc, nt,
-        # threads, grid x, y, z, smem), stream
-        "pdwt_swt_inv_level_1d_padded": [P, P, P, I, I, I, P, I, I, *[I] * 8, P],
-    }
-    for name, argtypes in sigs.items():
+    for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = I
-    lib.pdwt_error_string.argtypes = [I]
+        fn.restype = ctypes.c_int
+    lib.pdwt_error_string.argtypes = [ctypes.c_int]
     lib.pdwt_error_string.restype = ctypes.c_char_p
     return lib

@@ -120,22 +120,45 @@ def ptr(a) -> ctypes.c_void_p:
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def launch(name: str, device: torch.device, args) -> None:
-    """Call ``pdwt_<name>`` of the kernel library on the current stream of
-    ``device``; raise if the launch was refused, else count it."""
+def launch(key: str, device: torch.device, args, entry: str = "") -> None:
+    """Call ``pdwt_<entry>`` of the kernel library (``pdwt_<key>`` where no
+    entry is given) on the current stream of ``device``; raise if the
+    launch was refused, else count it in ``LAUNCHES[key]``.  An exact
+    kernel's wrapper counts under its own key the launch of its tier
+    twin's entry point in ``fd``."""
     from . import _build
 
     for a in args:
         if isinstance(a, int) and not -2 ** 31 <= a < 2 ** 31:
-            raise ValueError(f"{name}: {a} does not fit the kernels' 32-bit int arguments")
+            raise ValueError(f"{key}: {a} does not fit the kernels' 32-bit int arguments")
     lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, "pdwt_" + name)(*args, ctypes.c_void_p(stream))
+        err = getattr(lib, "pdwt_" + (entry or key))(*args, ctypes.c_void_p(stream))
     if err != 0:
         msg = lib.pdwt_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {err})")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{key} kernel launch failed: {msg} (cudaError {err})")
+    LAUNCHES[key] += 1
+
+
+#: thresh_mode / norm_mode codes of the fused threshold and norm arguments
+#: (mxu_common.cuh: kNone, kSoft, kHard, kGarrote)
+THRESH_CODES = {None: 0, "soft": 1, "hard": 2, "garrote": 3}
+
+
+def beta_buffer(beta, device: torch.device) -> torch.Tensor:
+    """beta as one float32 on ``device``, with no host synchronisation."""
+    if isinstance(beta, torch.Tensor):
+        if beta.numel() != 1:
+            raise ValueError(f"the fused threshold takes one beta, got shape {tuple(beta.shape)}")
+        return beta.detach().to(device=device, dtype=torch.float32).reshape(1).contiguous()
+    return torch.full((1,), float(beta), dtype=torch.float32, device=device)
+
+
+def _c(ts):
+    """Each tensor of ``ts`` made contiguous (the cotangents a backward
+    hands a kernel)."""
+    return [t.contiguous() for t in ts]
 
 
 def rev(f) -> np.ndarray:

@@ -1,8 +1,8 @@
 """Batched 1D level kernels: wrappers, plain versions, gradients.
 
 Counterpart of the batched 1D part of ``pdwt_tpu/kernels/swt_pallas.py``.
-Four CUDA kernels (entry points in ``csrc/batched1d.cu``) carry the batched
-1D path, each filtering along the last axis of a (B, N) batch of signals:
+Four CUDA kernels carry the batched 1D path, each filtering along the
+last axis of a (B, N) batch of signals:
 
 ===========================  ===========================================  ===============================
 wrapper                      computes                                     plain version
@@ -23,19 +23,21 @@ A wrapper given a CPU tensor returns its plain version, built on
 ``core/conv.py``; given a CUDA tensor it launches its kernel or raises.
 Each launch adds one to ``LAUNCHES[<wrapper name>]``.  The kernels take
 any batch, length, filter length (odd included) and dilation.  All four
-run the bodies of kernels 15 and 16 (``csrc/mxu1d.cu``: the decimated or
-a-trous analysis, the polyphase or a-trous synthesis) in the ``fd`` scheme
-on float32 data, on the plans of ``mxu1d.fwd1d_launch_plan`` and
-``mxu1d.inv1d_launch_plan``; ``csrc/batched1d.cu`` holds their entry
-points only.
+are kernels 15's and 16's functions in the ``fd`` scheme on float32 data,
+so on CUDA tensors they are the launches of ``kernels/mxu1d.py``'s
+launchers in ``fd`` (the bodies of ``csrc/mxu1d.cu``: the decimated or
+a-trous analysis, the polyphase or a-trous synthesis, on the plans of
+``mxu1d.fwd1d_launch_plan`` and ``mxu1d.inv1d_launch_plan``), counted
+under their own ``LAUNCHES`` keys.
 
 Kernel 7 also thresholds the batched 1D denoising step's details as it
 stores them and takes their L1 norm (``fwd_level_1d_norm(..., norm=(mode,
-beta))``: its norm launches, ``fwd1d_strip_kernel<FD, 2, false, mode>``),
+beta))``: its norm launches, ``csrc/mxu1d.cu: pdwt_fwd_level_1d_norm``
+onto ``fwd1d_strip_kernel<FD, 2, false, mode>``),
 one float32 partial a block of its plan, which ``swt_norm_sum_2d`` adds
 (``core/separable.py: _dwt1d_denoise_norm1``).
 
-The padded entry points, the counterparts of ``swt_pallas.py:995
+The padded wrappers, the counterparts of ``swt_pallas.py:995
 fwd_level_1d_padded`` and ``:1018 inv_level_1d_padded``, carry the boundary
 modes (``core/separable.py``'s mode route): the decimated and polyphase
 bodies with index tables that do not wrap, on the spec of
@@ -63,26 +65,15 @@ a-trous synthesis's backward the a-trous analysis kernel with
 """
 from __future__ import annotations
 
-import math
-from typing import Tuple
-
-import numpy as np
 import torch
 
 from ..core import conv
 from ..utils.profiling import spanned
-from ._launch import (InvPlan, PadAxis, check_span, dilation, dual_taps, launch, on_cpu,
-                      pad_axis, pad_positions, poly_geo, ptr, rev)
-from .mxu1d import fwd1d_launch_plan, inv1d_launch_plan
+from ._launch import dilation, on_cpu, rev
+from .matmul import F32
+from .mxu1d import (Norm1D, _fwd_launch, _fwd_padded_launch, _half, _inv_launch,
+                    _inv_padded_launch, _swt_fwd_padded_launch, _swt_inv_padded_launch)
 from .separable import meta, plain_vjp
-from .swt import THRESH_CODES, beta_buffer
-
-#: (mode, beta) of a norm launch of kernel 7
-Norm1D = Tuple[str, object]
-
-
-def _half(f) -> np.ndarray:
-    return 0.5 * np.asarray(f, dtype=np.float64)
 
 
 # ---------------------------------------------------------------------------
@@ -153,65 +144,9 @@ def swt_inv_level_1d_padded_ref(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_
 
 
 # ---------------------------------------------------------------------------
-# launch plans of the padded entry points: kernels 7's to 10's for the
-# padded shapes
+# wrappers: on CUDA tensors, the launchers of kernels 15 and 16
+# (kernels/mxu1d.py) in fd
 # ---------------------------------------------------------------------------
-
-def fwd1d_padded_launch_plan(B: int, n_out: int, hlen: int) -> InvPlan:
-    """Kernel 7's plan (``fwd1d_launch_plan``, decimated, fd) for ``n_out``
-    outputs a signal."""
-    return fwd1d_launch_plan(B, 2 * n_out, hlen, 1, "fd", True)
-
-
-def inv1d_padded_launch_plan(B: int, pa: PadAxis, hlen: int) -> InvPlan:
-    """Kernel 8's plan (``inv1d_launch_plan``, polyphase, fd) for the
-    positions the padded grid covers (``pad_positions``)."""
-    return inv1d_launch_plan(B, pad_positions(pa), hlen, 1, "fd", True)
-
-
-def swt_fwd1d_padded_launch_plan(B: int, n_out: int, hlen: int, f: int) -> InvPlan:
-    """Kernel 9's plan (``fwd1d_launch_plan``, a-trous, fd) for ``n_out``
-    outputs a signal."""
-    return fwd1d_launch_plan(B, n_out, hlen, f, "fd", False)
-
-
-def swt_inv1d_padded_launch_plan(B: int, n_out: int, hlen: int, f: int) -> InvPlan:
-    """Kernel 10's plan (``inv1d_launch_plan``, a-trous, fd) for ``n_out``
-    outputs a signal."""
-    return inv1d_launch_plan(B, n_out, hlen, f, "fd", False)
-
-
-# ---------------------------------------------------------------------------
-# wrappers
-# ---------------------------------------------------------------------------
-
-def _pair_shape(lo: torch.Tensor, hi: torch.Tensor):
-    if lo.shape != hi.shape:
-        raise ValueError(f"the two bands must have one shape, got {tuple(lo.shape)} "
-                         f"and {tuple(hi.shape)}")
-    return lo.shape
-
-
-def _fwd1d_launch(name: str, x: torch.Tensor, dec_lo, dec_hi, norm=None):
-    """Launch kernel 7 (``name``: its plain or, with ``norm=(mode, beta)``,
-    its norm entry point) on (B, N), N even -> (lo, hi), and the norm
-    launch's partials after them, one a block of the plan."""
-    B, n = x.shape
-    if n % 2:
-        raise ValueError(f"{name} takes an even length, got {n}")
-    tp = dual_taps((dec_lo, dec_hi), "fd", x.device)
-    hlen = tp.shape[1]
-    pl = fwd1d_launch_plan(B, n, hlen, 1, "fd", True)
-    out = tuple(torch.empty((B, n // 2), device=x.device, dtype=x.dtype) for _ in range(2))
-    nargs = ()
-    if norm is not None:
-        out += (torch.empty(math.prod(pl.grid), device=x.device, dtype=torch.float32),)
-        nargs = (THRESH_CODES[norm[0]], ptr(beta_buffer(norm[1], x.device)), ptr(out[2]))
-    launch(name, x.device,
-           [ptr(x), ptr(out[0]), ptr(out[1]), B, n, ptr(tp), hlen, conv.fwd_center(hlen), pl.lc,
-            pl.gc, pl.nt, pl.threads, *pl.grid, pl.smem, *nargs])
-    return out
-
 
 @spanned("kernels")
 def fwd_level_1d(x: torch.Tensor, dec_lo, dec_hi):
@@ -219,7 +154,8 @@ def fwd_level_1d(x: torch.Tensor, dec_lo, dec_hi):
     (B, N/2)."""
     if on_cpu(x, ndim=2):
         return fwd_level_1d_ref(x, dec_lo, dec_hi)
-    return _fwd1d_launch("fwd_level_1d", x, dec_lo, dec_hi)
+    return _fwd_launch("fwd_level_1d", x, (dec_lo, dec_hi), "fd", F32, 1,
+                       conv.fwd_center(len(dec_lo)), True)
 
 
 @spanned("kernels")
@@ -240,7 +176,8 @@ def fwd_level_1d_norm(x: torch.Tensor, dec_lo, dec_hi, *, norm: Norm1D):
 
         lo, hi = fwd_level_1d_ref(x, dec_lo, dec_hi)
         return lo, THR_ELEM[mode](hi, beta), thresholded_l1(hi, beta, mode).reshape(1)
-    return _fwd1d_launch("fwd_level_1d_norm", x, dec_lo, dec_hi, norm)
+    return _fwd_launch("fwd_level_1d_norm", x, (dec_lo, dec_hi), "fd", F32, 1,
+                       conv.fwd_center(len(dec_lo)), True, norm)
 
 
 @spanned("kernels")
@@ -248,16 +185,7 @@ def inv_level_1d(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi) -> torch.Te
     """One polyphase synthesis level: 2 x (B, M) -> (B, 2M)."""
     if on_cpu(lo, hi, ndim=2):
         return inv_level_1d_ref(lo, hi, rec_lo, rec_hi)
-    B, m = _pair_shape(lo, hi)
-    tp = dual_taps((rec_lo, rec_hi), "fd", lo.device)
-    hlen = tp.shape[1]
-    geo = poly_geo(hlen)
-    pl = inv1d_launch_plan(B, m, hlen, 1, "fd", True)
-    out = torch.empty((B, 2 * m), device=lo.device, dtype=lo.dtype)
-    launch("inv_level_1d", lo.device,
-           [ptr(lo), ptr(hi), ptr(out), B, m, ptr(tp), hlen, ptr(geo), pl.lc, pl.gc, pl.nt,
-            pl.threads, *pl.grid, pl.smem])
-    return out
+    return _inv_launch("inv_level_1d", lo, hi, (rec_lo, rec_hi), "fd", F32, 1, 0, True)
 
 
 @spanned("kernels")
@@ -267,16 +195,8 @@ def swt_fwd_level_1d(x: torch.Tensor, dec_lo, dec_hi, level: int):
     if on_cpu(x, ndim=2):
         return swt_fwd_level_1d_ref(x, dec_lo, dec_hi, level)
     f = dilation(level)
-    B, n = x.shape
-    tp = dual_taps((dec_lo, dec_hi), "fd", x.device)
-    hlen = tp.shape[1]
-    check_span(hlen, f)
-    pl = fwd1d_launch_plan(B, n, hlen, f, "fd", False)
-    lo, hi = torch.empty_like(x), torch.empty_like(x)
-    launch("swt_fwd_level_1d", x.device,
-           [ptr(x), ptr(lo), ptr(hi), B, n, ptr(tp), hlen, f, conv.fwd_center(hlen) * f,
-            pl.lc, pl.gc, pl.nt, pl.threads, *pl.grid, pl.smem])
-    return lo, hi
+    return _fwd_launch("swt_fwd_level_1d", x, (dec_lo, dec_hi), "fd", F32, f,
+                       conv.fwd_center(len(dec_lo)) * f, False)
 
 
 @spanned("kernels")
@@ -287,35 +207,18 @@ def swt_inv_level_1d(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi,
     if on_cpu(lo, hi, ndim=2):
         return swt_inv_level_1d_ref(lo, hi, rec_lo, rec_hi, level)
     f = dilation(level)
-    B, n = _pair_shape(lo, hi)
-    tp = dual_taps((_half(rec_lo), _half(rec_hi)), "fd", lo.device)
-    hlen = tp.shape[1]
-    check_span(hlen, f)
-    pl = inv1d_launch_plan(B, n, hlen, f, "fd", False)
-    out = torch.empty_like(lo)
-    launch("swt_inv_level_1d", lo.device,
-           [ptr(lo), ptr(hi), ptr(out), B, n, ptr(tp), hlen, f, conv.swt_inv_center(hlen) * f,
-            pl.lc, pl.gc, pl.nt, pl.threads, *pl.grid, pl.smem])
-    return out
+    return _inv_launch("swt_inv_level_1d", lo, hi, (_half(rec_lo), _half(rec_hi)), "fd", F32,
+                       f, conv.swt_inv_center(len(rec_lo)) * f, False)
 
 
 @spanned("kernels")
 def fwd_level_1d_padded(xp: torch.Tensor, dec_lo, dec_hi):
     """One decimated analysis level on (B, Np) float32 signals that hold
     their boundary extension -> (lo, hi), each (B, (Np - hlen) // 2 + 1),
-    on ``fwd1d_padded_launch_plan``."""
+    on ``mxu1d.fwd1d_padded_launch_plan``."""
     if on_cpu(xp, ndim=2):
         return fwd_level_1d_padded_ref(xp, dec_lo, dec_hi)
-    B, n = xp.shape
-    tp = dual_taps((dec_lo, dec_hi), "fd", xp.device)
-    hlen = tp.shape[1]
-    n_out = conv.padded_len(n, hlen)
-    pl = fwd1d_padded_launch_plan(B, n_out, hlen)
-    lo, hi = (torch.empty((B, n_out), device=xp.device, dtype=xp.dtype) for _ in range(2))
-    launch("fwd_level_1d_padded", xp.device,
-           [ptr(xp), ptr(lo), ptr(hi), B, n, n_out, ptr(tp), hlen, pl.lc, pl.gc, pl.nt,
-            pl.threads, *pl.grid, pl.smem])
-    return lo, hi
+    return _fwd_padded_launch("fwd_level_1d_padded", xp, (dec_lo, dec_hi), "fd", F32)
 
 
 @spanned("kernels")
@@ -323,44 +226,23 @@ def inv_level_1d_padded(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, c0: 
                         out_len: int) -> torch.Tensor:
     """One polyphase synthesis level on (B, M) float32 bands that hold their
     boundary -> (B, out_len), the spec of ``inv_level_1d_padded_ref``, on
-    ``inv1d_padded_launch_plan``.  Raises where an output would read
+    ``mxu1d.inv1d_padded_launch_plan``.  Raises where an output would read
     outside the bands."""
     if on_cpu(lo, hi, ndim=2):
         return inv_level_1d_padded_ref(lo, hi, rec_lo, rec_hi, c0, out_len)
-    B, m = _pair_shape(lo, hi)
-    tp = dual_taps((rec_lo, rec_hi), "fd", lo.device)
-    hlen = tp.shape[1]
-    conv.check_padded_synthesis(m, hlen, c0, out_len)
-    pa = pad_axis(hlen, c0, out_len)
-    pl = inv1d_padded_launch_plan(B, pa, hlen)
-    pad = np.array(pa, dtype=np.int32)
-    geo = poly_geo(hlen)
-    out = torch.empty((B, out_len), device=lo.device, dtype=lo.dtype)
-    launch("inv_level_1d_padded", lo.device,
-           [ptr(lo), ptr(hi), ptr(out), B, m, ptr(pad), ptr(tp), hlen, ptr(geo), pl.lc, pl.gc,
-            pl.nt, pl.threads, *pl.grid, pl.smem])
-    return out
+    return _inv_padded_launch("inv_level_1d_padded", lo, hi, (rec_lo, rec_hi), "fd", c0,
+                              out_len, F32)
 
 
 @spanned("kernels")
 def swt_fwd_level_1d_padded(xp: torch.Tensor, dec_lo, dec_hi, level: int):
     """One a-trous analysis level on (B, Np) float32 signals that hold their
     halo -> (lo, hi), each (B, Np - (hlen - 1) f), on
-    ``swt_fwd1d_padded_launch_plan``."""
+    ``mxu1d.swt_fwd1d_padded_launch_plan``."""
     if on_cpu(xp, ndim=2):
         return swt_fwd_level_1d_padded_ref(xp, dec_lo, dec_hi, level)
-    f = dilation(level)
-    B, n = xp.shape
-    tp = dual_taps((dec_lo, dec_hi), "fd", xp.device)
-    hlen = tp.shape[1]
-    check_span(hlen, f)
-    n_out = conv.padded_atrous_len(n, hlen, f)
-    pl = swt_fwd1d_padded_launch_plan(B, n_out, hlen, f)
-    lo, hi = (torch.empty((B, n_out), device=xp.device, dtype=xp.dtype) for _ in range(2))
-    launch("swt_fwd_level_1d_padded", xp.device,
-           [ptr(xp), ptr(lo), ptr(hi), B, n, n_out, ptr(tp), hlen, f, pl.lc, pl.gc, pl.nt,
-            pl.threads, *pl.grid, pl.smem])
-    return lo, hi
+    return _swt_fwd_padded_launch("swt_fwd_level_1d_padded", xp, (dec_lo, dec_hi), level, "fd",
+                                  F32)
 
 
 @spanned("kernels")
@@ -368,21 +250,11 @@ def swt_inv_level_1d_padded(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi,
                             level: int) -> torch.Tensor:
     """One a-trous synthesis level on two (B, Mp) float32 bands that hold
     their halo -> (B, Mp - (hlen - 1) f), the one 1/2 of a 1D synthesis
-    folded into the taps, on ``swt_inv1d_padded_launch_plan``."""
+    folded into the taps, on ``mxu1d.swt_inv1d_padded_launch_plan``."""
     if on_cpu(lo, hi, ndim=2):
         return swt_inv_level_1d_padded_ref(lo, hi, rec_lo, rec_hi, level)
-    f = dilation(level)
-    B, m = _pair_shape(lo, hi)
-    tp = dual_taps((_half(rec_lo), _half(rec_hi)), "fd", lo.device)
-    hlen = tp.shape[1]
-    check_span(hlen, f)
-    n_out = conv.padded_atrous_len(m, hlen, f)
-    pl = swt_inv1d_padded_launch_plan(B, n_out, hlen, f)
-    out = torch.empty((B, n_out), device=lo.device, dtype=lo.dtype)
-    launch("swt_inv_level_1d_padded", lo.device,
-           [ptr(lo), ptr(hi), ptr(out), B, m, n_out, ptr(tp), hlen, f, pl.lc, pl.gc, pl.nt,
-            pl.threads, *pl.grid, pl.smem])
-    return out
+    return _swt_inv_padded_launch("swt_inv_level_1d_padded", lo, hi, (rec_lo, rec_hi), level,
+                                  "fd", F32)
 
 
 # ---------------------------------------------------------------------------

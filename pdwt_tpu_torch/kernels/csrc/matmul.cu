@@ -10,11 +10,12 @@
 //   separable.cu:  inv_level_kernel<S>      <- _inv_mxu_kernel  (matmul_pallas.py:360)
 //
 // The analysis is kernel 13's body at output step 2 and dilation 1, the
-// synthesis kernel 2's body; each body already computed its function in the
-// TPU kernel's sum order (rows, axis -2, first, then columns, the float32
-// row-pass result split per scheme in between; every output one float32 sum
-// per scheme term, taps in order), so the b-schemes match their plain
-// versions bit for bit.  The index spec is core/conv.py's:
+// synthesis kernel 2's body; kernels 1 and 2 (and their padded forms) are
+// these entry points with scheme FD on float32 (kernels/separable.py).  Each
+// body already computed its function in the TPU kernel's sum order (rows,
+// axis -2, first, then columns, the float32 row-pass result split per
+// scheme in between; every output one float32 sum per scheme term, taps in
+// order), so the b-schemes match their plain versions bit for bit.  The index spec is core/conv.py's:
 //   analysis   out[n]      = sum_j t[j] * x[(2n - cen + j) mod N]
 //   synthesis  out[2m + q] = sum_band sum_b t_band[p_q + 2b] * x_band[(m + o_q + b) mod M]
 // Types: the analysis reads float32 or bf16 and writes a float32
@@ -75,7 +76,7 @@ extern "C" int pdwt_fwd_level_2d_mxu(const void* x, float* a, void* h, void* v, 
 
 // Kernel 12 runs kernel 2's body (separable.cu: inv_level_kernel) in the
 // scheme.  `geo` is poly_geometry(hlen); the launch plan
-// (kernels/separable.py: inv_level_launch_plan for the scheme: tile lr x lc,
+// (kernels/matmul.py: inv_level_launch_plan for the scheme: tile lr x lc,
 // nt padded taps per parity, threads, grid (gx, gy, gz), dynamic
 // shared-memory bytes) is checked by the launcher, which refuses one that
 // does not add up.

@@ -10,8 +10,11 @@
 //
 // In the fd scheme on float32 data they are also the four exact batched 1D
 // kernels of swt_pallas.py (kernels 7-10: the decimated and a-trous
-// analyses, the polyphase and a-trous syntheses), reached through
-// batched1d.cu's entry points.
+// analyses, the polyphase and a-trous syntheses), which have no entry point
+// of their own: kernels/batched1d.py launches kernels 15's and 16's entry
+// points (below) with scheme FD on float32 and counts the launches under
+// kernels 7-10's names.  Kernel 7's norm launches have an entry point of
+// their own (pdwt_fwd_level_1d_norm, below).
 //
 // Every kernel filters along the last axis of a (B, N) batch under a compute
 // scheme (mxu_common.cuh), with the index spec of core/conv.py, t the
@@ -84,9 +87,8 @@ __device__ __forceinline__ void stage_lines(const Bands& src, long long row0, in
 // multiple of 8, and read around the first staging.  The plan
 // (kernels/mxu1d.py: fwd1d_launch_plan) picks lc and gc, and the entry
 // points refuse a plan that does not add up.  Kernels 7 and 9, the exact
-// decimated and a-trous analyses (batched1d.cu: pdwt_fwd_level_1d,
-// pdwt_swt_fwd_level_1d), run the decimated and the a-trous instance in fd
-// on a float32 input and high band.
+// decimated and a-trous analyses, are the decimated and the a-trous
+// instance in fd on a float32 input and high band.
 // ---------------------------------------------------------------------------
 constexpr int kFwdCh = 8;  // taps per chunk of the analysis's strips
 
@@ -102,21 +104,21 @@ size_t fwd1d_smem(int os, int lc, int dc, int nt) {
 }
 
 //
-// PAD: kernel 7's padded entry point (batched1d.cu:
-// pdwt_fwd_level_1d_padded), which replaces fwd_level_1d_padded
+// PAD: kernel 7's padded launches, which replace fwd_level_1d_padded
 // (swt_pallas.py:995): the decimated instance in fd on signals the caller
 // extended (the pywt extension, core/modes.py), index tables that do not
 // wrap (fill_table, cen = 0: out[n] = sum_j t[j] x[2n + j]) and n_out
-// outputs a signal, N >= 2 (n_out - 1) + hlen.  Kernel 9's
-// (pdwt_swt_fwd_level_1d_padded), which replaces swt_fwd_level_1d_padded
+// outputs a signal, N >= 2 (n_out - 1) + hlen.  Kernel 9's, which replace
+// swt_fwd_level_1d_padded
 // (swt_pallas.py:1043): the a-trous instance in fd on local shards that
 // hold their ring halo (parallel/sharded.py), out[n] = sum_j t[j] x[n + j
-// f], N >= n_out + (hlen - 1) f.  Kernel 15's
-// (pdwt_fwd_level_1d_mxu_padded, pdwt_swt_fwd_level_1d_mxu_padded), which
-// replace the pad_fn= of mxu1d_pallas.py:211 and :272: the same instances
-// in the tiers' schemes on the ring halo of the sharded 1D transforms.
+// f], N >= n_out + (hlen - 1) f.  Kernel 15's, which replace the pad_fn= of
+// mxu1d_pallas.py:211 and :272: the same instances in the tiers' schemes on
+// the ring halo of the sharded 1D transforms.  All through kernel 15's
+// padded entry points (pdwt_fwd_level_1d_mxu_padded,
+// pdwt_swt_fwd_level_1d_mxu_padded), in fd on float32 for kernels 7 and 9.
 //
-// NM: kernel 7's norm launches (batched1d.cu: pdwt_fwd_level_1d_norm), the
+// NM: kernel 7's norm launches (pdwt_fwd_level_1d_norm, below), the
 // decimated instance in fd on a float32 input and high band, one instance
 // a threshold mode (soft, hard, garrote; kNone, every other instance:
 // `nrm` unread).  The high band is stored thresholded at the float at
@@ -236,8 +238,7 @@ fwd1d_strip_kernel(const void* __restrict__ x, float* __restrict__ lo, void* __r
 // inv1d_launch_plan) picks lc and gc, and the entry point refuses a plan
 // that does not add up.  The window never grows with f past 1.4x, so no
 // level needs a kernel that reads past shared memory.  Kernels 8 and 10,
-// the exact polyphase and a-trous syntheses (batched1d.cu:
-// pdwt_inv_level_1d, pdwt_swt_inv_level_1d), run the polyphase and the
+// the exact polyphase and a-trous syntheses, are the polyphase and the
 // a-trous instance in fd on float32 bands.
 // ---------------------------------------------------------------------------
 // taps per chunk of the strips: 8 for the a-trous synthesis (16 taps for
@@ -256,20 +257,20 @@ size_t inv1d_smem(int nph, int lc, int dc, int nt) {
 }
 
 //
-// PAD: kernel 8's padded entry point (batched1d.cu:
-// pdwt_inv_level_1d_padded), which replaces inv_level_1d_padded
+// PAD: kernel 8's padded launches, which replace inv_level_1d_padded
 // (swt_pallas.py:1018): the polyphase instance in fd on bands the caller
 // padded, index tables that do not wrap, starting pa.base coefficients in,
 // and the outputs from the body's output pa.off on, pa.n_out of them a
 // signal (band_strip.cuh: PadAxis, as kernel 2's padded instance).
-// Kernel 10's (pdwt_swt_inv_level_1d_padded), which replaces
-// swt_inv_level_1d_padded (swt_pallas.py:1069): the a-trous instance in fd
+// Kernel 10's, which replace swt_inv_level_1d_padded (swt_pallas.py:1069):
+// the a-trous instance in fd
 // on bands that hold their ring halo, cen = 0 and pa = {0, 0, n_out}:
 // out[n] = sum_band sum_j t_band[j] x_band[n + j f], M >= n_out + (hlen -
-// 1) f; its grid covers the n_out outputs.  Kernel 16's
-// (pdwt_inv_level_1d_mxu_padded, pdwt_swt_inv_level_1d_mxu_padded), which
-// replace the pad_fn= of mxu1d_pallas.py:236 and :301: the same instances
-// in the tiers' schemes.
+// 1) f; its grid covers the n_out outputs.  Kernel 16's, which replace the
+// pad_fn= of mxu1d_pallas.py:236 and :301: the same instances in the tiers'
+// schemes.  All through kernel 16's padded entry points
+// (pdwt_inv_level_1d_mxu_padded, pdwt_swt_inv_level_1d_mxu_padded), in fd
+// on float32 for kernels 8 and 10.
 template <int S, int NPH, bool PAD = false>
 __global__ void __launch_bounds__(256)
 inv1d_strip_kernel(const float* __restrict__ lo, const void* __restrict__ hi,
@@ -445,32 +446,17 @@ cudaError_t launch_inv(const float* lo, const void* hi, void* out, int B, int M,
 
 namespace pdwt_m1d {
 
-// Launch kernel 7's norm instance (fwd1d_strip_kernel<FD, 2, false, mode>)
-// on (B, N) float32 signals, N even, into the low band and the high band
-// thresholded at the float at nrm.beta (device memory), and gx gy float32
-// partials of the thresholded band's L1 norm into nrm.partials; taps,
-// center and plan as pdwt_fwd_level_1d's.  Refused
-// (cudaErrorInvalidValue) where the mode is not soft, hard or garrote or
-// the plan does not add up.
-int launch_fwd_norm(const float* x, float* lo, float* hi, int B, int N, const float* taps,
-                    int hlen, int cen, int lc, int gc, int nt, int threads, int gx, int gy,
-                    int gz, int smem, void* stream, NormOut nrm) {
-  if (nrm.mode == kNone) return cudaErrorInvalidValue;
-  return launch_fwd<true>(x, lo, hi, B, N, taps, hlen, 1, cen, FD, 0, 0, lc, gc, nt, threads, gx,
-                          gy, gz, smem, stream, nrm);
-}
-
 // The padded launchers take the scheme and the storage flags of their
 // unpadded siblings (launch_fwd, launch_inv above) and run the PAD
-// instances of the two bodies: kernels 7-10's padded entry points
-// (batched1d.cu) call them in fd on float32, kernels 15 and 16's (the
-// pdwt_*_1d_mxu_padded entry points below) in the tiers' schemes.
+// instances of the two bodies: kernels 15 and 16's padded entry points (the
+// pdwt_*_1d_mxu_padded entry points below) call them, in the tiers'
+// schemes and, for kernels 7-10's padded launches, in fd on float32.
 
 // Launch the padded decimated analysis (fwd1d_strip_kernel<S, 2, true>) on
 // (B, N) signals (bf16 where in_bf16) that hold their extension, into two
 // (B, n_out) bands (the high one bf16 where hi_bf16); the plan is kernel
-// 15's for n_out outputs (kernel 7's in fd: kernels/batched1d.py:
-// fwd1d_padded_launch_plan; kernels/mxu1d.py: fwd1d_padded_launch_plan).
+// 15's for n_out outputs (kernel 7's in fd: kernels/mxu1d.py:
+// fwd1d_padded_launch_plan).
 // Refused (cudaErrorInvalidValue) where the plan does not add up or the
 // outputs would read past the signal.
 int launch_fwd_padded(const void* x, float* lo, void* hi, int B, int N, int n_out,
@@ -501,8 +487,7 @@ int launch_fwd_padded(const void* x, float* lo, void* hi, int B, int N, int n_ou
 // bf16 where hi_bf16), into (B, pad[2]), bf16 where out_bf16: `pad` holds
 // base, off and n_out (band_strip.cuh: PadAxis); taps and geometry as
 // kernel 16's, the plan kernel 16's for pad_positions(pad) positions
-// (kernel 8's in fd: kernels/batched1d.py: inv1d_padded_launch_plan;
-// kernels/mxu1d.py: inv1d_padded_launch_plan).  Refused
+// (kernel 8's in fd: kernels/mxu1d.py: inv1d_padded_launch_plan).  Refused
 // (cudaErrorInvalidValue) where the plan does not add up or a stored
 // output would read outside the bands (pad_axis_ok).
 int launch_inv_padded(const float* lo, const void* hi, void* out, int B, int M, const int* pad,
@@ -539,8 +524,7 @@ int launch_inv_padded(const float* lo, const void* hi, void* out, int B, int M, 
 // Launch the padded a-trous analysis (fwd1d_strip_kernel<S, 1, true>) on
 // (B, N) signals (bf16 where in_bf16) that hold their halo, into two (B,
 // n_out) bands (the high one bf16 where hi_bf16), on kernel 15's plan for
-// n_out outputs (kernel 9's in fd: kernels/batched1d.py:
-// swt_fwd1d_padded_launch_plan; kernels/mxu1d.py:
+// n_out outputs (kernel 9's in fd: kernels/mxu1d.py:
 // swt_fwd1d_padded_launch_plan).  Refused (cudaErrorInvalidValue) where the
 // plan does not add up or the outputs would read past the signal.
 int launch_swt_fwd_padded(const void* x, float* lo, void* hi, int B, int N, int n_out,
@@ -570,8 +554,7 @@ int launch_swt_fwd_padded(const void* x, float* lo, void* hi, int B, int N, int 
 // Launch the padded a-trous synthesis (inv1d_strip_kernel<S, 1, true>) on
 // two (B, M) bands that hold their halo (the low one float32, the high one
 // bf16 where hi_bf16), into (B, n_out), bf16 where out_bf16, on kernel 16's
-// plan for n_out positions (kernel 10's in fd: kernels/batched1d.py:
-// swt_inv1d_padded_launch_plan; kernels/mxu1d.py:
+// plan for n_out positions (kernel 10's in fd: kernels/mxu1d.py:
 // swt_inv1d_padded_launch_plan); the halved taps.  Refused
 // (cudaErrorInvalidValue) where the plan does not add up or the outputs
 // would read past the bands.
@@ -622,6 +605,27 @@ extern "C" int pdwt_fwd_level_1d_mxu(const void* x, float* lo, void* hi, int B, 
                                      int gx, int gy, int gz, int smem, void* stream) {
   return launch_fwd<true>(x, lo, hi, B, N, taps, hlen, f, cen, scheme, in_bf16, hi_bf16, lc, gc,
                           nt, threads, gx, gy, gz, smem, stream);
+}
+
+// Kernel 7's norm launches: pdwt_fwd_level_1d_mxu's arguments (scheme FD,
+// float32 in and out, else refused), then norm_mode (1 soft, 2 hard, 3
+// garrote), beta (one float on the device) and partials.  The high band is
+// stored thresholded at beta, and the L1 norm of what is stored goes to gx
+// gy float32 partials, one a block (fwd1d_strip_kernel<FD, 2, false, mode>),
+// which pdwt_swt_norm_sum_2d (swt.cu) adds.  It takes the place of the
+// plain threshold and the norm of the details in the batched 1D denoising
+// step (the five torch passes a band of ops/threshold.py and the abs and sum
+// of ops/norms.py: norm1), which read each band about seven times and wrote
+// it four; the epilogue moves no byte more than the plain launch.
+extern "C" int pdwt_fwd_level_1d_norm(const void* x, float* lo, void* hi, int B, int N,
+                                      const float* taps, int hlen, int f, int cen, int scheme,
+                                      int in_bf16, int hi_bf16, int lc, int gc, int nt,
+                                      int threads, int gx, int gy, int gz, int smem,
+                                      int norm_mode, const float* beta, float* partials,
+                                      void* stream) {
+  if (norm_mode == kNone) return cudaErrorInvalidValue;
+  return launch_fwd<true>(x, lo, hi, B, N, taps, hlen, f, cen, scheme, in_bf16, hi_bf16, lc, gc,
+                          nt, threads, gx, gy, gz, smem, stream, {norm_mode, beta, partials, 0});
 }
 
 extern "C" int pdwt_swt_fwd_level_1d_mxu(const void* x, float* lo, void* hi, int B, int N,

@@ -1,8 +1,9 @@
 // The compute schemes of the precision tiers, shared by separable.cu (2D;
 // kernel 12 runs its synthesis), swt_matmul.cu (2D a-trous; kernels 11 and 1
 // run its analysis at step 2), mxu1d.cu (batched 1D) and ns_matmul.cu (rank-r
-// non-separable); the entry points of separable.cu, swt.cu and batched1d.cu
-// take the scheme index from here too.  The scheme table is pdwt_tpu_torch/kernels/matmul.py's:
+// non-separable); the exact kernels (1, 2 and 5-10) are their fd instances,
+// launched through the tiers' entry points with scheme FD.  The scheme table
+// is pdwt_tpu_torch/kernels/matmul.py's:
 //
 //   b1   sum h(f) h(x)                       (one term)
 //   fd   sum f x in float32                  (one term)
@@ -149,7 +150,8 @@ __device__ __forceinline__ int wrapl(long long i, int n) {
   return r < 0 ? r + n : r;
 }
 
-// thresh_mode of the fused a-trous syntheses (kernels/swt.py:THRESH_CODES).
+// thresh_mode of the fused a-trous syntheses and norm_mode of the fused
+// norms (kernels/_launch.py:THRESH_CODES).
 enum Thresh { kNone = 0, kSoft = 1, kHard = 2, kGarrote = 3 };
 
 // The elementwise thresholds of the TPU kernels (swt_pallas.py:206-214) in

@@ -23,10 +23,13 @@
 //
 // The analysis level (kernel 1) is kernel 11's function in the fd scheme on
 // float32 data: one float32 sum per output and pass, the taps in order, one
-// FMA each.  So its entry point (pdwt_fwd_level_2d, below) runs kernel 13's
-// body at output step 2 (swt_matmul.cu: swt_fwd_mxu_kernel<FD, 2>, through
-// pdwt_swtmm::launch_fwd), on a launch plan made on the host
-// (kernels/separable.py: fwd_level_launch_plan): rows (axis -2) first, then
+// FMA each, and the synthesis level (kernel 2) kernel 12's.  So neither has
+// an entry point of its own: kernels/separable.py launches kernel 11's and
+// 12's (matmul.cu: pdwt_fwd_level_2d_mxu, pdwt_inv_level_2d_mxu, and their
+// padded forms) with scheme FD on float32, on their launch plans in fd
+// (kernels/matmul.py), and counts the launches under kernels 1's and 2's
+// names.  The analysis runs kernel 13's body at output step 2
+// (swt_matmul.cu: swt_fwd_mxu_kernel<FD, 2>): rows (axis -2) first, then
 // the columns, as the Pallas kernel (separable_pallas.py:272-283); its plain
 // version runs the columns first, so the two differ by float32 roundoff.
 //
@@ -67,7 +70,7 @@ using namespace pdwt_strip;
 // polyphase synthesis (ns_matmul.cu; its body would sum all four subbands
 // into each temp, twice this row pass's work, and takes 40 taps at most): a
 // block owns lr x lc subband positions, and its launch plan
-// (kernels/separable.py:inv_level_launch_plan) shrinks the tile on the deep
+// (kernels/matmul.py:inv_level_launch_plan) shrinks the tile on the deep
 // levels so that they still get about two blocks per SM.  Per batch item:
 // stage the windows of the four subbands (lr + offmax + nt - 1 rows by lc +
 // offmax + nt - 1 columns, wrapped through 32-bit index tables, 16 loads per
@@ -97,7 +100,7 @@ __host__ __device__ inline int poly_off(const Poly& g, int q) { return g.lo + g.
 
 // Shared-memory bytes of the inverse level: taps, index tables, the four band
 // windows (which hold the output tile once the row pass is done), the two
-// temps.  kernels/separable.py:_inv_smem mirrors it.
+// temps.  kernels/matmul.py:_inv_smem mirrors it.
 template <int S>
 size_t inv_smem(int offmax, int lr, int lc, int nt) {
   using St = Stage<S>;
@@ -111,11 +114,11 @@ size_t inv_smem(int offmax, int lr, int lc, int nt) {
 }
 
 //
-// PAD: kernel 2's padded entry point (pdwt_inv_level_2d_padded), which
-// replaces inv_level_2d_padded (separable_pallas.py:498), in fd on float32,
-// and kernel 12's (matmul.cu: pdwt_inv_level_2d_mxu_padded), which replaces
-// the pad_fn= of inv_level_2d_mxu (matmul_pallas.py:442) on the ring halo
-// of the sharded DWT, in the tiers' schemes: the same tile work on
+// PAD: kernel 12's padded entry point (matmul.cu:
+// pdwt_inv_level_2d_mxu_padded): in fd on float32 kernel 2's padded launch,
+// which replaces inv_level_2d_padded (separable_pallas.py:498); in the
+// tiers' schemes the replacement of the pad_fn= of inv_level_2d_mxu
+// (matmul_pallas.py:442) on the ring halo of the sharded DWT: the same tile work on
 // subbands the caller padded (zeros or nothing on a pywt axis, the
 // periodic halo on a periodization axis), with index tables that do not
 // wrap (fill_table) starting `base` coefficients in, and per axis the
@@ -370,14 +373,14 @@ namespace pdwt_sep {
 
 // Launch the inverse level in compute scheme `scheme` (the index in
 // kernels/matmul.py:SCHEMES; H, V, D bf16 where det_bf16, the output bf16
-// where out_bf16) on its launch plan (kernels/separable.py:
+// where out_bf16) on its launch plan (kernels/matmul.py:
 // inv_level_launch_plan): tile lr x lc subband positions, nt padded taps per
 // parity, threads, grid (gx, gy, gz) and dynamic shared-memory bytes; a plan
 // that does not add up is refused (cudaErrorInvalidValue).  `taps` is a (4,
 // hlen) float32 device buffer: the low filter's first and second values,
 // then the high filter's, correlation order; `geo` is poly_geometry(hlen).
-// Kernel 2 (pdwt_inv_level_2d, below) runs it in fd on float32, kernel 12
-// (matmul.cu: pdwt_inv_level_2d_mxu) in the tiers' schemes.
+// Kernel 12's entry point (matmul.cu: pdwt_inv_level_2d_mxu) calls it, in
+// the tiers' schemes and, for kernel 2, in fd on float32.
 int launch_inv_level(const float* a, const void* h, const void* v, const void* d, void* out,
                      int B, int Mr, int Mc, const float* taps, int hlen, const int* geo,
                      int scheme, int det_bf16, int out_bf16, int lr, int lc, int nt, int threads,
@@ -416,10 +419,9 @@ int launch_inv_level(const float* a, const void* h, const void* v, const void* d
 // out_bf16: `pad` holds base, off and n_out of the rows, then of the
 // columns (PadAxis); taps, geometry and plan as kernel 12's (kernel 2's in
 // fd), the plan made for pad_positions(row) x pad_positions(column)
-// positions (kernels/separable.py: inv_padded_launch_plan, kernels/
-// matmul.py: inv_padded_launch_plan).  Kernel 2's padded entry point
-// (below) calls it in fd on float32, kernel 12's (matmul.cu:
-// pdwt_inv_level_2d_mxu_padded) in the tiers' schemes: a float32 output in
+// positions (kernels/matmul.py: inv_padded_launch_plan).  Kernel 12's
+// padded entry point (matmul.cu: pdwt_inv_level_2d_mxu_padded) calls it, in
+// the tiers' schemes and, for kernel 2, in fd on float32: a float32 output in
 // fd takes kernel 2's padded instance (inv_level_kernel<FD, true>), every
 // other call the scheme's TIER instance, which also stores bf16.  Refused
 // (cudaErrorInvalidValue) where the plan does not add up or a stored
@@ -503,52 +505,13 @@ int launch_inv_tail(const float* a, void* const* det, float* out, float* scratch
 }  // namespace pdwt_sep
 
 namespace pdwt_swtmm {
-int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R, int C,
-               const float* taps, int hlen, int os, int f, int cen, int scheme, int in_bf16,
-               int det_bf16, int lr, int lc, int gc, int nph, int nt, int threads, int gx,
-               int gy, int gz, int smem, void* stream);
 int launch_fwd_tail(const float* x, float* a, float* scratch, void* const* det, int B, int R,
                     int C, int levels, const float* taps, int hlen, int cen, int nb, int cs,
                     int nt, int threads, int smem, const int* tiles, void* stream);
-int launch_fwd_padded(const void* x, float* a, void* h, void* v, void* d, int B, int R, int C,
-                      int Ro, int Co, const float* taps, int hlen, int os, int f, int scheme,
-                      int in_bf16, int det_bf16, int lr, int lc, int gc, int nph, int nt,
-                      int threads, int gx, int gy, int gz, int smem, void* stream);
 }
 
 // Every entry point returns a cudaError_t as int: 0 once the launch has been
 // queued on `stream`, else the reason it was refused (cudaGetLastError()).
-
-// Kernel 1 runs kernel 13's body (swt_matmul.cu: swt_fwd_mxu_kernel) at
-// output step 2 in the fd scheme, on an even (B, R, C) float32 image into
-// four float32 subbands.  `taps` is the (4, hlen) float32 device buffer of
-// kernels/_launch.py: dual_taps in fd (the second values 0); `cen` =
-// fwd_center(hlen); the launch plan (kernels/separable.py:
-// fwd_level_launch_plan: tile lr x lc subband positions, column stride gc =
-// 1, nph output phases, nt padded taps, threads, grid (gx, gy, gz), dynamic
-// shared-memory bytes) is checked by the launcher, which refuses one that
-// does not add up.
-extern "C" int pdwt_fwd_level_2d(const float* x, float* a, float* h, float* v, float* d, int B,
-                                 int R, int C, const float* taps, int hlen, int cen, int lr,
-                                 int lc, int gc, int nph, int nt, int threads, int gx, int gy,
-                                 int gz, int smem, void* stream) {
-  return pdwt_swtmm::launch_fwd(x, a, h, v, d, B, R, C, taps, hlen, 2, 1, cen, pdwt_mxu::FD, 0,
-                                0, lr, lc, gc, nph, nt, threads, gx, gy, gz, smem, stream);
-}
-
-// `taps` is the (4, hlen) float32 device buffer of kernels/_launch.py:
-// dual_taps in fd (the second values 0); `geo` is poly_geometry(hlen)
-// (kernels/_launch.py:poly_geo); the launch plan is
-// kernels/separable.py:inv_level_launch_plan's for fd, checked by the
-// launcher.
-extern "C" int pdwt_inv_level_2d(const float* a, const float* h, const float* v,
-                                 const float* d, float* out, int B, int Mr, int Mc,
-                                 const float* taps, int hlen, const int* geo, int lr, int lc,
-                                 int nt, int threads, int gx, int gy, int gz, int smem,
-                                 void* stream) {
-  return pdwt_sep::launch_inv_level(a, h, v, d, out, B, Mr, Mc, taps, hlen, geo, FD, 0, 0, lr,
-                                    lc, nt, threads, gx, gy, gz, smem, stream);
-}
 
 // Kernel 3: `levels` analysis levels of a (B, R, C) float32 image in one
 // launch -> a_out (B, R >> levels, C >> levels) and the detail planes
@@ -576,34 +539,6 @@ extern "C" int pdwt_inv_tail_2d(const float* a, void* const* det, float* out, fl
                                 const int* tiles, void* stream) {
   return pdwt_sep::launch_inv_tail(a, det, out, scratch, B, Mr, Mc, levels, taps, hlen, geo, nb,
                                    cs, nt, threads, smem, tiles, stream);
-}
-
-// The padded entry points of kernels 1 and 2 (the boundary modes,
-// core/separable.py: the mode route).  Kernel 1's: a (B, R, C) float32
-// input that holds its extension -> four (B, Ro, Co) subbands, out[n] =
-// sum_j t[j] x[2n + j] per axis (swt_matmul.cu: fwd_padded_kernel); taps
-// and plan as kernel 1's (kernels/separable.py: fwd_padded_launch_plan).
-extern "C" int pdwt_fwd_level_2d_padded(const float* x, float* a, float* h, float* v, float* d,
-                                        int B, int R, int C, int Ro, int Co, const float* taps,
-                                        int hlen, int lr, int lc, int gc, int nph, int nt,
-                                        int threads, int gx, int gy, int gz, int smem,
-                                        void* stream) {
-  return pdwt_swtmm::launch_fwd_padded(x, a, h, v, d, B, R, C, Ro, Co, taps, hlen, 2, 1, FD, 0,
-                                       0, lr, lc, gc, nph, nt, threads, gx, gy, gz, smem,
-                                       stream);
-}
-
-// Kernel 2's: four padded (B, Mr, Mc) float32 subbands -> (B, n_out_r,
-// n_out_c); `pad` (6 ints: base, off, n_out of the rows, then of the
-// columns), taps, geometry and plan (kernels/separable.py:
-// inv_padded_launch_plan) as pdwt_sep::launch_inv_padded takes them.
-extern "C" int pdwt_inv_level_2d_padded(const float* a, const float* h, const float* v,
-                                        const float* d, float* out, int B, int Mr, int Mc,
-                                        const int* pad, const float* taps, int hlen,
-                                        const int* geo, int lr, int lc, int nt, int threads,
-                                        int gx, int gy, int gz, int smem, void* stream) {
-  return pdwt_sep::launch_inv_padded(a, h, v, d, out, B, Mr, Mc, pad, taps, hlen, geo, FD, 0, 0,
-                                     lr, lc, nt, threads, gx, gy, gz, smem, stream);
 }
 
 extern "C" const char* pdwt_error_string(int code) {

@@ -98,8 +98,7 @@ using namespace pdwt_strip;
 // result split in between.  The taps (the (4, hlen) device buffer) are
 // padded with zeros to nt, a multiple of 8, and read around the first
 // staging.  The plans (kernels/swt_matmul.py: swt_fwd_launch_plan at OS =
-// 1; kernels/matmul.py: fwd_launch_plan and kernels/separable.py:
-// fwd_level_launch_plan at OS = 2) pick the tile so that the deep levels and
+// 1; kernels/matmul.py: fwd_launch_plan at OS = 2) pick the tile so that the deep levels and
 // small images still fill the card, and the launcher refuses a plan that
 // does not add up.
 // ---------------------------------------------------------------------------
@@ -292,9 +291,9 @@ swt_fwd_mxu_kernel(const void* __restrict__ x, float* __restrict__ a, void* __re
 }
 
 // ---------------------------------------------------------------------------
-// Padded forward level: kernel 1's padded entry point (separable.cu:
-// pdwt_fwd_level_2d_padded) and kernel 11's (matmul.cu:
-// pdwt_fwd_level_2d_mxu_padded).  Replaces fwd_level_2d_padded
+// Padded forward level: kernel 11's padded entry point (matmul.cu:
+// pdwt_fwd_level_2d_mxu_padded), in fd on float32 kernel 1's padded
+// launch.  Replaces fwd_level_2d_padded
 // (separable_pallas.py:355), which runs kernel 1's Pallas body on an input
 // whose boundary extension the caller wrote as the pad, and the pad_fn= of
 // fwd_level_2d_mxu (matmul_pallas.py:306), which runs kernel 11's on a
@@ -308,14 +307,14 @@ swt_fwd_mxu_kernel(const void* __restrict__ x, float* __restrict__ a, void* __re
 // that already holds every sample the Ro x Co outputs read:
 //   out[n] = sum_j t[j] * x[2n + j] per axis, n < Ro (Co), R >= 2 (Ro - 1) + hlen.
 // TIER false is kernel 1's instance (fd, float32 in and out: both storage
-// types constants, the code kernel 1's padded entry point had); TIER true
+// types constants, the code kernel 1's padded launch had); TIER true
 // reads the input and writes H, V, D in the types of the flags, as kernel
 // 11 does.  Bound: device memory, as kernels 1 and 11: the extended input
 // is read once and the four subbands written once; the extension the
 // caller writes adds one read and one write of the image (a later PR may
 // read the extension straight from index tables, ROADMAP).  Plan:
-// kernels/separable.py: fwd_padded_launch_plan (kernel 1's plan for Ro x
-// Co outputs), kernels/matmul.py: fwd_padded_launch_plan (kernel 11's).
+// kernels/matmul.py: fwd_padded_launch_plan (kernel 11's plan for Ro x Co
+// outputs, kernel 1's in fd).
 // ---------------------------------------------------------------------------
 template <int S, bool TIER>
 __global__ void __launch_bounds__(256)
@@ -343,9 +342,9 @@ fwd_padded_kernel(const void* __restrict__ x, float* __restrict__ a, void* __res
 }
 
 // ---------------------------------------------------------------------------
-// Padded a-trous forward level: kernel 5's padded entry point (swt.cu:
-// pdwt_swt_fwd_level_2d_padded) and kernel 13's (pdwt_swt_fwd_level_2d_mxu_padded,
-// below).  Replaces swt_fwd_level_2d_padded (swt_pallas.py:935) and the
+// Padded a-trous forward level: kernel 13's padded entry point
+// (pdwt_swt_fwd_level_2d_mxu_padded, below), in fd on float32 kernel 5's
+// padded launch.  Replaces swt_fwd_level_2d_padded (swt_pallas.py:935) and the
 // pad_fn= of swt_fwd_level_2d_mxu (swt_matmul_pallas.py:252), which the
 // sharded SWT runs on a local shard that holds its ring halo
 // (parallel/sharded.py), exact or under a bf16 tier.  It is kernel 13's
@@ -357,10 +356,9 @@ fwd_padded_kernel(const void* __restrict__ x, float* __restrict__ a, void* __res
 // columns below and (hlen - 1) f - fwd_center(hlen) f above.  TIER as in
 // fwd_padded_kernel (false: kernel 5's fd float32 instance).  Bound: device
 // memory, as kernels 5 and 13: the padded input read once, four Ro x Co
-// planes written once.  Plan: kernels/swt.py: swt_fwd_padded_launch_plan
-// (kernel 5's plan for an Ro x Co image), kernels/swt_matmul.py:
-// swt_fwd_padded_launch_plan (kernel 13's), rows of one residue class mod f
-// as there.
+// planes written once.  Plan: kernels/swt_matmul.py:
+// swt_fwd_padded_launch_plan (kernel 13's plan for an Ro x Co image, kernel
+// 5's in fd), rows of one residue class mod f as there.
 // ---------------------------------------------------------------------------
 template <int S, bool TIER>
 __global__ void __launch_bounds__(256)
@@ -470,11 +468,11 @@ fwd_tail_kernel(const float* __restrict__ x, float* __restrict__ a_out, float* s
 // shared-memory bytes, and the entry point refuses a plan that does not add
 // up.
 //
-// PAD: kernel 6's padded entry point (swt.cu: pdwt_swt_inv_level_2d_padded),
-// which replaces swt_inv_level_2d_padded (swt_pallas.py:960), in fd on
-// float32 subbands, and kernel 14's (pdwt_swt_inv_level_2d_mxu_padded,
-// below), which replaces the pad_fn= of swt_inv_level_2d_mxu
-// (swt_matmul_pallas.py:402), in the tiers' schemes: Ri x Ci subbands that
+// PAD: kernel 14's padded entry point (pdwt_swt_inv_level_2d_mxu_padded,
+// below): in fd on float32 subbands kernel 6's padded launch, which
+// replaces swt_inv_level_2d_padded (swt_pallas.py:960); in the tiers'
+// schemes the replacement of the pad_fn= of swt_inv_level_2d_mxu
+// (swt_matmul_pallas.py:402): Ri x Ci subbands that
 // hold their ring halo (swt_inv_center(hlen) f rows and columns below, the
 // rest of the span (hlen - 1) f above), index tables that do not wrap
 // (fill_table, cen = 0: out[n] = sum_band sum_j t_band[j] x_band[n + j f]
@@ -601,12 +599,11 @@ namespace pdwt_swtmm {
 // does not add up is refused (cudaErrorInvalidValue).  `taps` is a (4,
 // hlen) float32 device buffer: the low filter's first and second values,
 // then the high filter's, correlation order; `cen` is fwd_center(hlen).
-// Kernels 13 (pdwt_swt_fwd_level_2d_mxu, below) and 5 (swt.cu:
-// pdwt_swt_fwd_level_2d, fd) run it at os = 1, kernels 11 (matmul.cu:
-// pdwt_fwd_level_2d_mxu) and 1 (separable.cu: pdwt_fwd_level_2d, fd) at os =
-// 2.  A norm mode other than kNone (kernel 5's norm launches: fd, os = 1,
-// float32 in and out) runs that mode's instance, which writes gx gy gz
-// partials.
+// Kernel 13's entry point (pdwt_swt_fwd_level_2d_mxu, below; kernel 5's
+// launches in fd) runs it at os = 1, kernel 11's (matmul.cu:
+// pdwt_fwd_level_2d_mxu; kernel 1's in fd) at os = 2.  A norm mode other
+// than kNone (kernel 5's norm launches: fd, os = 1, float32 in and out)
+// runs that mode's instance, which writes gx gy gz partials.
 int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R, int C,
                const float* taps, int hlen, int os, int f, int cen, int scheme, int in_bf16,
                int det_bf16, int lr, int lc, int gc, int nph, int nt, int threads, int gx,
@@ -645,7 +642,7 @@ int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R,
   });
 }
 
-// launch_fwd without a norm: kernels 1, 11 and 13, and kernel 5's plain launches.
+// launch_fwd without a norm: kernel 11's entry point (kernel 1's launches).
 int launch_fwd(const void* x, float* a, void* h, void* v, void* d, int B, int R, int C,
                const float* taps, int hlen, int os, int f, int cen, int scheme, int in_bf16,
                int det_bf16, int lr, int lc, int gc, int nph, int nt, int threads, int gx,
@@ -777,15 +774,22 @@ int launch_fwd_tail(const float* x, float* a, float* scratch, void* const* det, 
 // (fwd_center(hlen) forward, swt_inv_center(hlen) inverse), f the dilation.
 
 // The forward at dilation f on the launch plan of
-// kernels/swt_matmul.py:swt_fwd_launch_plan (pdwt_swtmm::launch_fwd, os = 1).
+// kernels/swt_matmul.py:swt_fwd_launch_plan (pdwt_swtmm::launch_fwd, os = 1):
+// kernel 13, and kernel 5 in fd on float32.  norm_mode 0 is the plain
+// launch; 1 soft, 2 hard, 3 garrote a norm launch of kernel 5 (scheme FD,
+// float32 in and out, else refused), which also writes the thresholded L1
+// norm of H, V and D at the float at `beta` (device memory), plus |A| where
+// `approx`, as gx gy gz float32 partials to `partials`.
 extern "C" int pdwt_swt_fwd_level_2d_mxu(const void* x, float* a, void* h, void* v, void* d,
                                          int B, int R, int C, const float* taps, int hlen, int f,
                                          int cen, int scheme, int in_bf16, int det_bf16, int lr,
                                          int lc, int gc, int nph, int nt, int threads, int gx,
-                                         int gy, int gz, int smem, void* stream) {
+                                         int gy, int gz, int smem, int norm_mode,
+                                         const float* beta, float* partials, int approx,
+                                         void* stream) {
   return pdwt_swtmm::launch_fwd(x, a, h, v, d, B, R, C, taps, hlen, 1, f, cen, scheme, in_bf16,
-                                det_bf16, lr, lc, gc, nph, nt, threads, gx, gy, gz, smem,
-                                stream);
+                                det_bf16, lr, lc, gc, nph, nt, threads, gx, gy, gz, smem, stream,
+                                {norm_mode, beta, partials, approx});
 }
 
 // `taps` is a (4, hlen) float32 device buffer: the low filter's first and

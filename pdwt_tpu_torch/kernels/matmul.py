@@ -22,10 +22,14 @@ The padded entry points are the counterparts of the ``pad_fn=`` of
 ``matmul_pallas.py:306 fwd_level_2d_mxu`` and ``:442 inv_level_2d_mxu``,
 which JAX's sharded DWT passes its ring halo exchange: the same bodies
 with index tables that do not wrap, on inputs the caller padded, on the
-spec of ``conv.padded_analysis_pass`` and ``conv.padded_synthesis_pass``
-(kernels 1's and 2's padded entry points, ``kernels/separable.py``, are
-their fd instances on float32).  No autograd: JAX's ``*_mxu_ad`` take no
-``pad_fn``.
+spec of ``conv.padded_analysis_pass`` and ``conv.padded_synthesis_pass``.
+No autograd: JAX's ``*_mxu_ad`` take no ``pad_fn``.
+
+Each body and geometry has one launcher here (``_fwd_launch``,
+``_inv_launch``, ``_fwd_padded_launch``, ``_inv_padded_launch``), which
+takes the scheme and the ``LAUNCHES`` key: the wrappers below call them in
+their scheme, the exact wrappers of kernels 1 and 2 and their padded forms
+(``kernels/separable.py``) in ``fd`` on float32.
 
 Schemes.  Each pass pairs constant taps f with data x; every product of
 two bf16 values is exact in float32 and every sum is float32.  h() rounds
@@ -66,10 +70,10 @@ import torch
 
 from ..core import conv, precision
 from ..utils.profiling import spanned
-from ._launch import (InvPlan, PadAxis, dual_taps, fwd_plan, launch, on_cpu, pad_axis,
-                      pad_positions, poly_geo, ptr, rev, scheme_taps)
+from ._launch import (PLAN_TILES, ROW_STRIP, InvPlan, PadAxis, _c, align16, block_target, cdiv,
+                      dual_taps, fwd_plan, launch, on_cpu, pad_axis, pad_positions, pick_plan,
+                      poly_geo, ptr, rev, scheme_taps, stage_bytes, temp_pitch)
 from ._launch import kernel_taps  # noqa: F401 -- the plan tests' model of the taps
-from .separable import _c, inv_level_launch_plan
 
 F32, BF16 = torch.float32, torch.bfloat16
 SCHEMES = ("b1", "fd", "b2f", "b2d", "b3")
@@ -257,7 +261,77 @@ def inv_level_2d_mxu_padded_ref(a, h, v, d, rec_lo, rec_hi, scheme: str, c0: Tup
 
 
 # ---------------------------------------------------------------------------
-# wrappers
+# launch plans of the two bodies: kernel 13's at output step 2 (kernels 11
+# and 1) and inv_level_kernel (csrc/separable.cu: kernels 12 and 2)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=256)
+def fwd_launch_plan(B: int, R: int, C: int, hlen: int, scheme: str) -> InvPlan:
+    """The launch of one decimated analysis level on an even (B, R, C)
+    image (kernels 11 and, in fd, 1 on kernel 13's body: output step 2,
+    dilation 1, (R/2, C/2) subbands; ``_launch.fwd_plan``): the DWT cells'
+    levels (2048^2 down to 256^2 images) get 128-512 blocks."""
+    return fwd_plan(B, R, C, hlen, 1, scheme, 2)
+
+
+#: taps per chunk of the inverse level's strips (separable.cu: kInvCh)
+INV_CHUNK = 4
+
+
+def _inv_smem(offmax: int, lr: int, lc: int, nt: int, scheme: str = "fd") -> int:
+    """separable.cu: inv_smem<S> -- taps (first values, and second values
+    where the scheme reads them), index tables, the four band windows (the
+    output tile after the row pass), the two temps."""
+    nd, es = stage_bytes(scheme)
+    nv = 2 if scheme in ("b2f", "b3") else 1
+    wr, wc = lr + offmax + nt - 1, lc + offmax + nt - 1
+    return (16 * nv * nt + align16(4 * (wr + wc))
+            + align16(max(4 * nd * es * wr * wc, 8 * lr * (2 * lc + 1)))
+            + 4 * nd * lr * temp_pitch(wc, es) * es)
+
+
+@functools.lru_cache(maxsize=256)
+def inv_level_launch_plan(B: int, Mr: int, Mc: int, hlen: int, scheme: str = "fd") -> InvPlan:
+    """The launch of one polyphase synthesis level on (B, Mr, Mc) subbands
+    under ``scheme`` (kernel 12; kernel 2 in fd): a tile of lr x lc
+    consecutive subband positions, largest first, taps padded to nt per
+    parity.  The first that fits two blocks on an SM and gives
+    ``block_target`` blocks (kernels/_launch.py: pick_plan), so the deep
+    levels take smaller tiles.  Always 256 threads: on the deep levels'
+    small tiles, more warps keep more staging loads in flight than the work
+    items need threads (timed 20 % faster at 256^2 and 128^2 subbands on an
+    H100, PERF.md section 6)."""
+    g = conv.poly_geometry(hlen)
+    nt = cdiv(max(g.nb), INV_CHUNK) * INV_CHUNK
+    offmax = g.lo + max(g.o)
+    cands = []
+    for lr, lc in PLAN_TILES:
+        grid = (cdiv(Mc, lc), cdiv(Mr, lr), min(B, 65535))
+        if lr % ROW_STRIP[scheme] or grid[1] > 65535:
+            continue
+        cands.append(InvPlan(lr, lc, 1, 1, nt, 256, grid, _inv_smem(offmax, lr, lc, nt, scheme)))
+    return pick_plan(cands, block_target(B, 2 * Mr, 2 * Mc))
+
+
+def fwd_padded_launch_plan(B: int, Ro: int, Co: int, hlen: int, scheme: str) -> InvPlan:
+    """The launch of kernel 11's padded entry point (kernel 1's in fd) for
+    (Ro, Co) outputs: kernel 11's plan for that output size
+    (``fwd_launch_plan`` of a (2 Ro, 2 Co) image)."""
+    return fwd_launch_plan(B, 2 * Ro, 2 * Co, hlen, scheme)
+
+
+def inv_padded_launch_plan(B: int, rows: PadAxis, cols: PadAxis, hlen: int,
+                           scheme: str) -> InvPlan:
+    """The launch of kernel 12's padded entry point (kernel 2's in fd):
+    kernel 12's plan for the coefficient positions its grid covers
+    (``pad_positions``)."""
+    return inv_level_launch_plan(B, pad_positions(rows), pad_positions(cols), hlen, scheme)
+
+
+# ---------------------------------------------------------------------------
+# launchers: one a body and geometry, for every scheme; the exact wrappers
+# of kernels/separable.py call them in fd on float32, under their own
+# LAUNCHES keys
 # ---------------------------------------------------------------------------
 
 _DT = (F32, BF16)
@@ -269,13 +343,105 @@ def _is_bf16(dtype: torch.dtype) -> int:
     return int(dtype == BF16)
 
 
-@functools.lru_cache(maxsize=256)
-def fwd_launch_plan(B: int, R: int, C: int, hlen: int, scheme: str) -> InvPlan:
-    """The launch of one decimated analysis level on an even (B, R, C)
-    image (kernel 11 on kernel 13's body: output step 2, dilation 1,
-    (R/2, C/2) subbands; ``_launch.fwd_plan``): the tier DWT's levels
-    (2048^2 down to 256^2 images) get 128-256 blocks."""
-    return fwd_plan(B, R, C, hlen, 1, scheme, 2)
+def _check_bands(a, h, v, d, name: str) -> None:
+    if not a.shape == h.shape == v.shape == d.shape:
+        raise ValueError("the four subbands must have one shape")
+    if a.dtype != F32 or not h.dtype == v.dtype == d.dtype:
+        raise ValueError(f"{name} takes a float32 approximation and details of one dtype")
+
+
+def _fwd_launch(key: str, x: torch.Tensor, filters, scheme: str, det_dtype):
+    """Kernel 13's body at output step 2 (``csrc/swt_matmul.cu:
+    swt_fwd_mxu_kernel``) on an even (B, R, C) CUDA image, counted under
+    ``key`` -> (a float32, h, v, d ``det_dtype``), each (B, R/2, C/2)."""
+    _check_scheme(scheme)
+    B, R, C = x.shape
+    if R % 2 or C % 2:
+        raise ValueError(f"{key} takes even sizes, got {(R, C)}")
+    tp = dual_taps(filters, scheme, x.device)
+    hlen = tp.shape[1]
+    pl = fwd_launch_plan(B, R, C, hlen, scheme)
+    a = torch.empty((B, R // 2, C // 2), device=x.device, dtype=F32)
+    dets = [torch.empty((B, R // 2, C // 2), device=x.device, dtype=det_dtype)
+            for _ in range(3)]
+    launch(key, x.device,
+           [ptr(x), ptr(a), *map(ptr, dets), B, R, C, ptr(tp), hlen, conv.fwd_center(hlen),
+            SCHEMES.index(scheme), _is_bf16(x.dtype), _is_bf16(det_dtype), pl.lr, pl.lc,
+            pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem], "fwd_level_2d_mxu")
+    return (a, *dets)
+
+
+def _inv_launch(key: str, a, h, v, d, filters, scheme: str, out_dtype) -> torch.Tensor:
+    """``inv_level_kernel`` (``csrc/separable.cu``) on (B, Mr, Mc) CUDA
+    subbands, counted under ``key`` -> (B, 2Mr, 2Mc) in ``out_dtype``."""
+    _check_scheme(scheme)
+    _check_bands(a, h, v, d, key)
+    B, mr, mc = a.shape
+    tp = dual_taps(filters, scheme, a.device)
+    hlen = tp.shape[1]
+    geo = poly_geo(hlen)
+    pl = inv_level_launch_plan(B, mr, mc, hlen, scheme)
+    out = torch.empty((B, 2 * mr, 2 * mc), device=a.device, dtype=out_dtype)
+    launch(key, a.device,
+           [*map(ptr, (a, h, v, d, out)), B, mr, mc, ptr(tp), hlen, ptr(geo),
+            SCHEMES.index(scheme), _is_bf16(h.dtype), _is_bf16(out_dtype), pl.lr, pl.lc, pl.nt,
+            pl.threads, *pl.grid, pl.smem], "inv_level_2d_mxu")
+    return out
+
+
+def _fwd_padded_launch(key: str, xp: torch.Tensor, filters, scheme: str, det_dtype):
+    """Kernel 11's body with index tables that do not wrap
+    (``csrc/swt_matmul.cu: fwd_padded_kernel``) on a (B, Rp, Cp) CUDA input
+    that holds its extension, counted under ``key`` -> (a float32, h, v, d
+    ``det_dtype``), each (B, (Rp - hlen) // 2 + 1, (Cp - hlen) // 2 + 1)."""
+    _check_scheme(scheme)
+    B, R, C = xp.shape
+    tp = dual_taps(filters, scheme, xp.device)
+    hlen = tp.shape[1]
+    ro, co = conv.padded_len(R, hlen), conv.padded_len(C, hlen)
+    pl = fwd_padded_launch_plan(B, ro, co, hlen, scheme)
+    a = torch.empty((B, ro, co), device=xp.device, dtype=F32)
+    dets = [torch.empty((B, ro, co), device=xp.device, dtype=det_dtype) for _ in range(3)]
+    launch(key, xp.device,
+           [ptr(xp), ptr(a), *map(ptr, dets), B, R, C, ro, co, ptr(tp), hlen,
+            SCHEMES.index(scheme), _is_bf16(xp.dtype), _is_bf16(det_dtype), pl.lr, pl.lc,
+            pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem], "fwd_level_2d_mxu_padded")
+    return (a, *dets)
+
+
+def _inv_padded_launch(key: str, a, h, v, d, filters, scheme: str, c0: Tuple[int, int],
+                       out_shape: Tuple[int, int], out_dtype) -> torch.Tensor:
+    """Kernel 12's body with index tables that do not wrap
+    (``csrc/separable.cu: inv_level_kernel<S, true, true>``) on (B, Mr, Mc)
+    CUDA subbands that hold their boundary, counted under ``key`` -> (B,
+    *out_shape) in ``out_dtype``.  Raises where an output would read
+    outside the subbands."""
+    _check_scheme(scheme)
+    _check_bands(a, h, v, d, key)
+    B, mr, mc = a.shape
+    tp = dual_taps(filters, scheme, a.device)
+    hlen = tp.shape[1]
+    conv.check_padded_synthesis(mr, hlen, c0[0], out_shape[0])
+    conv.check_padded_synthesis(mc, hlen, c0[1], out_shape[1])
+    rows, cols = (pad_axis(hlen, c, n) for c, n in zip(c0, out_shape))
+    pl = inv_padded_launch_plan(B, rows, cols, hlen, scheme)
+    pad = np.array([*rows, *cols], dtype=np.int32)
+    geo = poly_geo(hlen)
+    out = torch.empty((B, *out_shape), device=a.device, dtype=out_dtype)
+    launch(key, a.device,
+           [*map(ptr, (a, h, v, d, out)), B, mr, mc, ptr(pad), ptr(tp), hlen, ptr(geo),
+            SCHEMES.index(scheme), _is_bf16(h.dtype), _is_bf16(out_dtype), pl.lr, pl.lc, pl.nt,
+            pl.threads, *pl.grid, pl.smem], "inv_level_2d_mxu_padded")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _check_approx(out_dtypes) -> None:
+    if out_dtypes[0] != F32:
+        raise ValueError("the banded-product kernels keep the approximation in float32")
 
 
 @spanned("kernels")
@@ -287,38 +453,8 @@ def fwd_level_2d_mxu(x: torch.Tensor, dec_lo, dec_hi, scheme: str, out_dtypes=(F
     plan of ``fwd_launch_plan``; it takes filters of up to 128 taps."""
     if on_cpu(x, dtypes=_DT):
         return fwd_level_2d_mxu_ref(x, dec_lo, dec_hi, scheme, out_dtypes)
-    _check_scheme(scheme)
-    B, R, C = x.shape
-    if R % 2 or C % 2:
-        raise ValueError(f"fwd_level_2d_mxu takes even sizes, got {(R, C)}")
-    if out_dtypes[0] != F32:
-        raise ValueError("the banded-product kernels keep the approximation in float32")
-    tp = dual_taps((dec_lo, dec_hi), scheme, x.device)
-    hlen = tp.shape[1]
-    pl = fwd_launch_plan(B, R, C, hlen, scheme)
-    a = torch.empty((B, R // 2, C // 2), device=x.device, dtype=F32)
-    dets = [torch.empty((B, R // 2, C // 2), device=x.device, dtype=out_dtypes[1])
-            for _ in range(3)]
-    launch("fwd_level_2d_mxu", x.device,
-           [ptr(x), ptr(a), *map(ptr, dets), B, R, C, ptr(tp), hlen, conv.fwd_center(hlen),
-            SCHEMES.index(scheme), _is_bf16(x.dtype), _is_bf16(out_dtypes[1]), pl.lr, pl.lc,
-            pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
-    return (a, *dets)
-
-
-def fwd_padded_launch_plan(B: int, Ro: int, Co: int, hlen: int, scheme: str) -> InvPlan:
-    """The launch of kernel 11's padded entry point for (Ro, Co) outputs:
-    kernel 11's plan for that output size (``fwd_launch_plan`` of a (2 Ro,
-    2 Co) image; in fd, kernel 1's padded plan)."""
-    return fwd_launch_plan(B, 2 * Ro, 2 * Co, hlen, scheme)
-
-
-def inv_padded_launch_plan(B: int, rows: PadAxis, cols: PadAxis, hlen: int,
-                           scheme: str) -> InvPlan:
-    """The launch of kernel 12's padded entry point: kernel 12's plan for
-    the coefficient positions its grid covers (``pad_positions``; in fd,
-    kernel 2's padded plan)."""
-    return inv_level_launch_plan(B, pad_positions(rows), pad_positions(cols), hlen, scheme)
+    _check_approx(out_dtypes)
+    return _fwd_launch("fwd_level_2d_mxu", x, (dec_lo, dec_hi), scheme, out_dtypes[1])
 
 
 @spanned("kernels")
@@ -332,28 +468,9 @@ def fwd_level_2d_mxu_padded(xp: torch.Tensor, dec_lo, dec_hi, scheme: str,
     ``fwd_padded_launch_plan``."""
     if on_cpu(xp, dtypes=_DT):
         return fwd_level_2d_mxu_padded_ref(xp, dec_lo, dec_hi, scheme, out_dtypes)
-    _check_scheme(scheme)
-    if out_dtypes[0] != F32:
-        raise ValueError("the banded-product kernels keep the approximation in float32")
-    B, R, C = xp.shape
-    tp = dual_taps((dec_lo, dec_hi), scheme, xp.device)
-    hlen = tp.shape[1]
-    ro, co = conv.padded_len(R, hlen), conv.padded_len(C, hlen)
-    pl = fwd_padded_launch_plan(B, ro, co, hlen, scheme)
-    a = torch.empty((B, ro, co), device=xp.device, dtype=F32)
-    dets = [torch.empty((B, ro, co), device=xp.device, dtype=out_dtypes[1]) for _ in range(3)]
-    launch("fwd_level_2d_mxu_padded", xp.device,
-           [ptr(xp), ptr(a), *map(ptr, dets), B, R, C, ro, co, ptr(tp), hlen,
-            SCHEMES.index(scheme), _is_bf16(xp.dtype), _is_bf16(out_dtypes[1]), pl.lr, pl.lc,
-            pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
-    return (a, *dets)
-
-
-def _check_bands(a, h, v, d, name: str) -> None:
-    if not a.shape == h.shape == v.shape == d.shape:
-        raise ValueError("the four subbands must have one shape")
-    if a.dtype != F32 or not h.dtype == v.dtype == d.dtype:
-        raise ValueError(f"{name} takes a float32 approximation and details of one dtype")
+    _check_approx(out_dtypes)
+    return _fwd_padded_launch("fwd_level_2d_mxu_padded", xp, (dec_lo, dec_hi), scheme,
+                              out_dtypes[1])
 
 
 @spanned("kernels")
@@ -369,23 +486,8 @@ def inv_level_2d_mxu_padded(a, h, v, d, rec_lo, rec_hi, scheme: str, c0: Tuple[i
     if on_cpu(a, h, v, d, dtypes=_DT):
         return inv_level_2d_mxu_padded_ref(a, h, v, d, rec_lo, rec_hi, scheme, c0, out_shape,
                                            out_dtype)
-    _check_scheme(scheme)
-    _check_bands(a, h, v, d, "inv_level_2d_mxu_padded")
-    B, mr, mc = a.shape
-    tp = dual_taps((rec_lo, rec_hi), scheme, a.device)
-    hlen = tp.shape[1]
-    conv.check_padded_synthesis(mr, hlen, c0[0], out_shape[0])
-    conv.check_padded_synthesis(mc, hlen, c0[1], out_shape[1])
-    rows, cols = (pad_axis(hlen, c, n) for c, n in zip(c0, out_shape))
-    pl = inv_padded_launch_plan(B, rows, cols, hlen, scheme)
-    pad = np.array([*rows, *cols], dtype=np.int32)
-    geo = poly_geo(hlen)
-    out = torch.empty((B, *out_shape), device=a.device, dtype=out_dtype)
-    launch("inv_level_2d_mxu_padded", a.device,
-           [*map(ptr, (a, h, v, d, out)), B, mr, mc, ptr(pad), ptr(tp), hlen, ptr(geo),
-            SCHEMES.index(scheme), _is_bf16(h.dtype), _is_bf16(out_dtype), pl.lr, pl.lc, pl.nt,
-            pl.threads, *pl.grid, pl.smem])
-    return out
+    return _inv_padded_launch("inv_level_2d_mxu_padded", a, h, v, d, (rec_lo, rec_hi), scheme,
+                              c0, out_shape, out_dtype)
 
 
 @spanned("kernels")
@@ -394,22 +496,10 @@ def inv_level_2d_mxu(a, h, v, d, rec_lo, rec_hi, scheme: str, out_dtype=F32) -> 
     approximation and h, v, d of one dtype (float32 or bf16) ->
     (B, 2Mr, 2Mc) in ``out_dtype``.  The kernel is kernel 2's body in the
     scheme (``csrc/separable.cu: inv_level_kernel``), on the plan of
-    ``separable.inv_level_launch_plan``."""
+    ``inv_level_launch_plan``."""
     if on_cpu(a, h, v, d, dtypes=_DT):
         return inv_level_2d_mxu_ref(a, h, v, d, rec_lo, rec_hi, scheme, out_dtype)
-    _check_scheme(scheme)
-    _check_bands(a, h, v, d, "inv_level_2d_mxu")
-    B, mr, mc = a.shape
-    tp = dual_taps((rec_lo, rec_hi), scheme, a.device)
-    hlen = tp.shape[1]
-    geo = poly_geo(hlen)
-    pl = inv_level_launch_plan(B, mr, mc, hlen, scheme)
-    out = torch.empty((B, 2 * mr, 2 * mc), device=a.device, dtype=out_dtype)
-    launch("inv_level_2d_mxu", a.device,
-           [*map(ptr, (a, h, v, d, out)), B, mr, mc, ptr(tp), hlen, ptr(geo),
-            SCHEMES.index(scheme), _is_bf16(h.dtype), _is_bf16(out_dtype), pl.lr, pl.lc, pl.nt,
-            pl.threads, *pl.grid, pl.smem])
-    return out
+    return _inv_launch("inv_level_2d_mxu", a, h, v, d, (rec_lo, rec_hi), scheme, out_dtype)
 
 
 # ---------------------------------------------------------------------------

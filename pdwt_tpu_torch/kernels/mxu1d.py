@@ -24,8 +24,13 @@ The ``*_mxu_padded`` wrappers are the counterparts of the ``pad_fn=`` of
 the four JAX wrappers (``mxu1d_pallas.py:211, 236, 272, 301``), which
 JAX's sharded 1D transforms pass their ring halo exchange: the same
 bodies with an index table that does not wrap, on the spec of the
-``conv.padded_*`` passes (kernels 7-10's padded entry points,
-``kernels/batched1d.py``, are their fd instances on float32).
+``conv.padded_*`` passes.
+
+Each body and geometry has one launcher here (``_fwd_launch``,
+``_inv_launch`` and the four padded ones), which takes the scheme and the
+``LAUNCHES`` key: the wrappers below call them in their scheme, the exact
+wrappers of kernels 7-10 and their padded forms (``kernels/batched1d.py``)
+in ``fd`` on float32.
 
 The low band is float32; the high band is float32 or bf16 (the bf16
 tiers' detail dtype).  The a-trous synthesis folds its 1/2 into the taps
@@ -39,16 +44,18 @@ its output in the forward input's dtype.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core import conv
 from ..utils.profiling import spanned
-from ._launch import (ROW_STRIP, InvPlan, PadAxis, align16, axis_blocks, block_target, cdiv,
-                      check_span, dilation, launch, on_cpu, pad_axis, pad_positions, pick_plan,
-                      poly_geo, ptr, rev, stage_bytes, temp_pitch)
+from ._launch import (ROW_STRIP, THRESH_CODES, InvPlan, PadAxis, align16, axis_blocks,
+                      beta_buffer, block_target, cdiv, check_span, dilation, launch, on_cpu,
+                      pad_axis, pad_positions, pick_plan, poly_geo, ptr, rev, stage_bytes,
+                      temp_pitch)
 from .matmul import (_DT, BF16, F32, MXU_COLS, MXU_MAX_HLEN, SCHEMES, _check_scheme, _is_bf16,
                      dual_taps, inv_plan, mode_out_dtypes, mode_scheme, scheme_pass, swt_scheme)
 
@@ -310,27 +317,50 @@ def swt_inv1d_padded_launch_plan(B: int, n_out: int, hlen: int, f: int,
 
 
 # ---------------------------------------------------------------------------
-# wrappers
+# launchers: one a body and geometry, for every scheme; the exact wrappers
+# of kernels/batched1d.py call them in fd on float32, under their own
+# LAUNCHES keys
 # ---------------------------------------------------------------------------
 
-def _fwd_launch(name, x, filters, scheme, hi_dtype, f, cen, decimated: bool):
+#: (mode, beta) of a norm launch of kernel 7
+Norm1D = Tuple[str, object]
+
+
+def _fwd_launch(key: str, x, filters, scheme, hi_dtype, f, cen, decimated: bool,
+                norm: Optional[Norm1D] = None):
+    """The analysis body (``csrc/mxu1d.cu: fwd1d_strip_kernel``),
+    decimated (N even) or a-trous at dilation f, on (B, N) CUDA signals,
+    counted under ``key`` -> (lo float32, hi ``hi_dtype``).
+    ``norm=(mode, beta)`` (decimated, fd on float32 only: kernel 7's norm
+    launches, ``pdwt_fwd_level_1d_norm``) stores hi thresholded at beta and
+    appends the float32 partials of its L1 norm, one a block of the plan."""
     _check_scheme(scheme)
     B, n = x.shape
+    if decimated and n % 2:
+        raise ValueError(f"{key} takes an even length, got {n}")
     tp = dual_taps(filters, scheme, x.device)
     hlen = tp.shape[1]
     check_span(hlen, f)
     pl = fwd1d_launch_plan(B, n, hlen, f, scheme, decimated)
     n_out = n // 2 if decimated else n
-    lo = torch.empty((B, n_out), device=x.device, dtype=F32)
-    hi = torch.empty((B, n_out), device=x.device, dtype=hi_dtype)
-    launch(name, x.device,
-           [ptr(x), ptr(lo), ptr(hi), B, n, ptr(tp), hlen, f, cen, SCHEMES.index(scheme),
-            _is_bf16(x.dtype), _is_bf16(hi_dtype), pl.lc, pl.gc, pl.nt, pl.threads, *pl.grid,
-            pl.smem])
-    return lo, hi
+    out = (torch.empty((B, n_out), device=x.device, dtype=F32),
+           torch.empty((B, n_out), device=x.device, dtype=hi_dtype))
+    entry, nargs = ("fwd_level_1d_mxu" if decimated else "swt_fwd_level_1d_mxu"), ()
+    if norm is not None:
+        out += (torch.empty(math.prod(pl.grid), device=x.device, dtype=F32),)
+        entry = "fwd_level_1d_norm"
+        nargs = (THRESH_CODES[norm[0]], ptr(beta_buffer(norm[1], x.device)), ptr(out[2]))
+    launch(key, x.device,
+           [ptr(x), ptr(out[0]), ptr(out[1]), B, n, ptr(tp), hlen, f, cen,
+            SCHEMES.index(scheme), _is_bf16(x.dtype), _is_bf16(hi_dtype), pl.lc, pl.gc, pl.nt,
+            pl.threads, *pl.grid, pl.smem, *nargs], entry)
+    return out
 
 
-def _inv_launch(name, lo, hi, filters, scheme, out_dtype, f, cen, decimated: bool):
+def _inv_launch(key: str, lo, hi, filters, scheme, out_dtype, f, cen, decimated: bool):
+    """The synthesis body (``csrc/mxu1d.cu: inv1d_strip_kernel``),
+    polyphase or a-trous at dilation f, on two (B, M) CUDA bands, counted
+    under ``key`` -> (B, 2M) or (B, M) in ``out_dtype``."""
     _check_scheme(scheme)
     _check_pair(lo, hi)
     B, m = lo.shape
@@ -340,12 +370,112 @@ def _inv_launch(name, lo, hi, filters, scheme, out_dtype, f, cen, decimated: boo
     pl = inv1d_launch_plan(B, m, hlen, f, scheme, decimated)
     out = torch.empty((B, 2 * m if decimated else m), device=lo.device, dtype=out_dtype)
     geo = poly_geo(hlen)  # read by the polyphase kernel only
-    launch(name, lo.device,
+    launch(key, lo.device,
            [ptr(lo), ptr(hi), ptr(out), B, m, ptr(tp), hlen, f, cen, ptr(geo),
             SCHEMES.index(scheme), _is_bf16(hi.dtype), _is_bf16(out_dtype), pl.lc, pl.gc, pl.nt,
-            pl.threads, *pl.grid, pl.smem])
+            pl.threads, *pl.grid, pl.smem],
+           "inv_level_1d_mxu" if decimated else "swt_inv_level_1d_mxu")
     return out
 
+
+def _check_pair(lo: torch.Tensor, hi: torch.Tensor) -> None:
+    if lo.shape != hi.shape:
+        raise ValueError(f"the two bands must have one shape, got {tuple(lo.shape)} "
+                         f"and {tuple(hi.shape)}")
+    if lo.dtype != F32:
+        raise ValueError("the banded-product kernels take a float32 low band")
+
+
+def _fwd_padded_launch(key: str, xp, filters, scheme, hi_dtype):
+    """Kernel 15's decimated body with an index table that does not wrap
+    (``csrc/mxu1d.cu: fwd1d_strip_kernel<S, 2, true>``) on (B, Np) CUDA
+    signals that hold their extension, counted under ``key`` -> (lo
+    float32, hi ``hi_dtype``), each (B, (Np - hlen) // 2 + 1)."""
+    _check_scheme(scheme)
+    B, n = xp.shape
+    tp = dual_taps(filters, scheme, xp.device)
+    hlen = tp.shape[1]
+    n_out = conv.padded_len(n, hlen)
+    pl = fwd1d_padded_launch_plan(B, n_out, hlen, scheme)
+    lo = torch.empty((B, n_out), device=xp.device, dtype=F32)
+    hi = torch.empty((B, n_out), device=xp.device, dtype=hi_dtype)
+    launch(key, xp.device,
+           [ptr(xp), ptr(lo), ptr(hi), B, n, n_out, ptr(tp), hlen, SCHEMES.index(scheme),
+            _is_bf16(xp.dtype), _is_bf16(hi_dtype), pl.lc, pl.gc, pl.nt, pl.threads, *pl.grid,
+            pl.smem], "fwd_level_1d_mxu_padded")
+    return lo, hi
+
+
+def _swt_fwd_padded_launch(key: str, xp, filters, level: int, scheme, hi_dtype):
+    """Kernel 15's a-trous body with an index table that does not wrap on
+    (B, Np) CUDA signals that hold their halo, counted under ``key`` -> (lo
+    float32, hi ``hi_dtype``), each (B, Np - (hlen - 1) f)."""
+    _check_scheme(scheme)
+    f = dilation(level)
+    B, n = xp.shape
+    tp = dual_taps(filters, scheme, xp.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
+    n_out = conv.padded_atrous_len(n, hlen, f)
+    pl = swt_fwd1d_padded_launch_plan(B, n_out, hlen, f, scheme)
+    lo = torch.empty((B, n_out), device=xp.device, dtype=F32)
+    hi = torch.empty((B, n_out), device=xp.device, dtype=hi_dtype)
+    launch(key, xp.device,
+           [ptr(xp), ptr(lo), ptr(hi), B, n, n_out, ptr(tp), hlen, f, SCHEMES.index(scheme),
+            _is_bf16(xp.dtype), _is_bf16(hi_dtype), pl.lc, pl.gc, pl.nt, pl.threads, *pl.grid,
+            pl.smem], "swt_fwd_level_1d_mxu_padded")
+    return lo, hi
+
+
+def _inv_padded_launch(key: str, lo, hi, filters, scheme, c0: int, out_len: int, out_dtype):
+    """Kernel 16's polyphase body with an index table that does not wrap
+    (``csrc/mxu1d.cu: inv1d_strip_kernel<S, 2, true>``) on two (B, M) CUDA
+    bands that hold their boundary, counted under ``key`` -> (B, out_len)
+    in ``out_dtype``.  Raises where an output would read outside the
+    bands."""
+    _check_scheme(scheme)
+    _check_pair(lo, hi)
+    B, m = lo.shape
+    tp = dual_taps(filters, scheme, lo.device)
+    hlen = tp.shape[1]
+    conv.check_padded_synthesis(m, hlen, c0, out_len)
+    pa = pad_axis(hlen, c0, out_len)
+    pl = inv1d_padded_launch_plan(B, pa, hlen, scheme)
+    pad = np.array(pa, dtype=np.int32)
+    geo = poly_geo(hlen)
+    out = torch.empty((B, out_len), device=lo.device, dtype=out_dtype)
+    launch(key, lo.device,
+           [ptr(lo), ptr(hi), ptr(out), B, m, ptr(pad), ptr(tp), hlen, ptr(geo),
+            SCHEMES.index(scheme), _is_bf16(hi.dtype), _is_bf16(out_dtype), pl.lc, pl.gc, pl.nt,
+            pl.threads, *pl.grid, pl.smem], "inv_level_1d_mxu_padded")
+    return out
+
+
+def _swt_inv_padded_launch(key: str, lo, hi, filters, level: int, scheme, out_dtype):
+    """Kernel 16's a-trous body with an index table that does not wrap on
+    two (B, Mp) CUDA bands that hold their halo, the one 1/2 folded into
+    the taps here, counted under ``key`` -> (B, Mp - (hlen - 1) f) in
+    ``out_dtype``."""
+    _check_scheme(scheme)
+    _check_pair(lo, hi)
+    f = dilation(level)
+    B, m = lo.shape
+    tp = dual_taps((_half(filters[0]), _half(filters[1])), scheme, lo.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
+    n_out = conv.padded_atrous_len(m, hlen, f)
+    pl = swt_inv1d_padded_launch_plan(B, n_out, hlen, f, scheme)
+    out = torch.empty((B, n_out), device=lo.device, dtype=out_dtype)
+    launch(key, lo.device,
+           [ptr(lo), ptr(hi), ptr(out), B, m, n_out, ptr(tp), hlen, f, SCHEMES.index(scheme),
+            _is_bf16(hi.dtype), _is_bf16(out_dtype), pl.lc, pl.gc, pl.nt, pl.threads, *pl.grid,
+            pl.smem], "swt_inv_level_1d_mxu_padded")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
 
 @spanned("kernels")
 def fwd_level_1d_mxu(x: torch.Tensor, dec_lo, dec_hi, scheme: str, hi_dtype=F32):
@@ -353,9 +483,6 @@ def fwd_level_1d_mxu(x: torch.Tensor, dec_lo, dec_hi, scheme: str, hi_dtype=F32)
     each (B, N/2); lo float32, hi ``hi_dtype``."""
     if on_cpu(x, ndim=2, dtypes=_DT):
         return fwd_level_1d_mxu_ref(x, dec_lo, dec_hi, scheme, hi_dtype)
-    B, n = x.shape
-    if n % 2:
-        raise ValueError(f"fwd_level_1d_mxu takes an even length, got {n}")
     return _fwd_launch("fwd_level_1d_mxu", x, (dec_lo, dec_hi), scheme, hi_dtype, 1,
                        conv.fwd_center(len(dec_lo)), True)
 
@@ -394,14 +521,6 @@ def swt_inv_level_1d_mxu(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, lev
                        scheme, out_dtype, f, conv.swt_inv_center(len(rec_lo)) * f, False)
 
 
-def _check_pair(lo: torch.Tensor, hi: torch.Tensor) -> None:
-    if lo.shape != hi.shape:
-        raise ValueError(f"the two bands must have one shape, got {tuple(lo.shape)} "
-                         f"and {tuple(hi.shape)}")
-    if lo.dtype != F32:
-        raise ValueError("the banded-product kernels take a float32 low band")
-
-
 @spanned("kernels")
 def fwd_level_1d_mxu_padded(xp: torch.Tensor, dec_lo, dec_hi, scheme: str, hi_dtype=F32):
     """Decimated analysis under ``scheme`` on (B, Np) signals (float32 or
@@ -411,19 +530,8 @@ def fwd_level_1d_mxu_padded(xp: torch.Tensor, dec_lo, dec_hi, scheme: str, hi_dt
     fwd1d_strip_kernel<S, 2, true>``), on ``fwd1d_padded_launch_plan``."""
     if on_cpu(xp, ndim=2, dtypes=_DT):
         return fwd_level_1d_mxu_padded_ref(xp, dec_lo, dec_hi, scheme, hi_dtype)
-    _check_scheme(scheme)
-    B, n = xp.shape
-    tp = dual_taps((dec_lo, dec_hi), scheme, xp.device)
-    hlen = tp.shape[1]
-    n_out = conv.padded_len(n, hlen)
-    pl = fwd1d_padded_launch_plan(B, n_out, hlen, scheme)
-    lo = torch.empty((B, n_out), device=xp.device, dtype=F32)
-    hi = torch.empty((B, n_out), device=xp.device, dtype=hi_dtype)
-    launch("fwd_level_1d_mxu_padded", xp.device,
-           [ptr(xp), ptr(lo), ptr(hi), B, n, n_out, ptr(tp), hlen, SCHEMES.index(scheme),
-            _is_bf16(xp.dtype), _is_bf16(hi_dtype), pl.lc, pl.gc, pl.nt, pl.threads, *pl.grid,
-            pl.smem])
-    return lo, hi
+    return _fwd_padded_launch("fwd_level_1d_mxu_padded", xp, (dec_lo, dec_hi), scheme,
+                              hi_dtype)
 
 
 @spanned("kernels")
@@ -435,21 +543,8 @@ def swt_fwd_level_1d_mxu_padded(xp: torch.Tensor, dec_lo, dec_hi, level: int, sc
     that does not wrap, on ``swt_fwd1d_padded_launch_plan``."""
     if on_cpu(xp, ndim=2, dtypes=_DT):
         return swt_fwd_level_1d_mxu_padded_ref(xp, dec_lo, dec_hi, level, scheme, hi_dtype)
-    _check_scheme(scheme)
-    f = dilation(level)
-    B, n = xp.shape
-    tp = dual_taps((dec_lo, dec_hi), scheme, xp.device)
-    hlen = tp.shape[1]
-    check_span(hlen, f)
-    n_out = conv.padded_atrous_len(n, hlen, f)
-    pl = swt_fwd1d_padded_launch_plan(B, n_out, hlen, f, scheme)
-    lo = torch.empty((B, n_out), device=xp.device, dtype=F32)
-    hi = torch.empty((B, n_out), device=xp.device, dtype=hi_dtype)
-    launch("swt_fwd_level_1d_mxu_padded", xp.device,
-           [ptr(xp), ptr(lo), ptr(hi), B, n, n_out, ptr(tp), hlen, f, SCHEMES.index(scheme),
-            _is_bf16(xp.dtype), _is_bf16(hi_dtype), pl.lc, pl.gc, pl.nt, pl.threads, *pl.grid,
-            pl.smem])
-    return lo, hi
+    return _swt_fwd_padded_launch("swt_fwd_level_1d_mxu_padded", xp, (dec_lo, dec_hi), level,
+                                  scheme, hi_dtype)
 
 
 @spanned("kernels")
@@ -465,22 +560,8 @@ def inv_level_1d_mxu_padded(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_hi, 
     if on_cpu(lo, hi, ndim=2, dtypes=_DT):
         return inv_level_1d_mxu_padded_ref(lo, hi, rec_lo, rec_hi, scheme, c0, out_len,
                                            out_dtype)
-    _check_scheme(scheme)
-    _check_pair(lo, hi)
-    B, m = lo.shape
-    tp = dual_taps((rec_lo, rec_hi), scheme, lo.device)
-    hlen = tp.shape[1]
-    conv.check_padded_synthesis(m, hlen, c0, out_len)
-    pa = pad_axis(hlen, c0, out_len)
-    pl = inv1d_padded_launch_plan(B, pa, hlen, scheme)
-    pad = np.array(pa, dtype=np.int32)
-    geo = poly_geo(hlen)
-    out = torch.empty((B, out_len), device=lo.device, dtype=out_dtype)
-    launch("inv_level_1d_mxu_padded", lo.device,
-           [ptr(lo), ptr(hi), ptr(out), B, m, ptr(pad), ptr(tp), hlen, ptr(geo),
-            SCHEMES.index(scheme), _is_bf16(hi.dtype), _is_bf16(out_dtype), pl.lc, pl.gc, pl.nt,
-            pl.threads, *pl.grid, pl.smem])
-    return out
+    return _inv_padded_launch("inv_level_1d_mxu_padded", lo, hi, (rec_lo, rec_hi), scheme, c0,
+                              out_len, out_dtype)
 
 
 @spanned("kernels")
@@ -494,21 +575,8 @@ def swt_inv_level_1d_mxu_padded(lo: torch.Tensor, hi: torch.Tensor, rec_lo, rec_
     if on_cpu(lo, hi, ndim=2, dtypes=_DT):
         return swt_inv_level_1d_mxu_padded_ref(lo, hi, rec_lo, rec_hi, level, scheme,
                                                out_dtype)
-    _check_scheme(scheme)
-    _check_pair(lo, hi)
-    f = dilation(level)
-    B, m = lo.shape
-    tp = dual_taps((_half(rec_lo), _half(rec_hi)), scheme, lo.device)
-    hlen = tp.shape[1]
-    check_span(hlen, f)
-    n_out = conv.padded_atrous_len(m, hlen, f)
-    pl = swt_inv1d_padded_launch_plan(B, n_out, hlen, f, scheme)
-    out = torch.empty((B, n_out), device=lo.device, dtype=out_dtype)
-    launch("swt_inv_level_1d_mxu_padded", lo.device,
-           [ptr(lo), ptr(hi), ptr(out), B, m, n_out, ptr(tp), hlen, f, SCHEMES.index(scheme),
-            _is_bf16(hi.dtype), _is_bf16(out_dtype), pl.lc, pl.gc, pl.nt, pl.threads, *pl.grid,
-            pl.smem])
-    return out
+    return _swt_inv_padded_launch("swt_inv_level_1d_mxu_padded", lo, hi, (rec_lo, rec_hi),
+                                  level, scheme, out_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -45,13 +45,12 @@ import torch
 
 from ..core import conv
 from ..utils.profiling import spanned
-from ._launch import (COL_STRIP, PLAN_TILES, ROW_STRIP, InvPlan, align16, axis_blocks,
+from ._launch import (COL_STRIP, PLAN_TILES, ROW_STRIP, InvPlan, _c, align16, axis_blocks,
                       block_target, cdiv, check_span, consecutive_columns, dilation, launch,
                       on_cpu, pick_plan, plan_threads, ptr, rev, stage_bytes, temp_pitch)
 from .matmul import (_DT, BF16, F32, MXU_MAX_HLEN, SCHEMES, _check_scheme, _is_bf16, inv_plan,
                      mode_out_dtypes, mode_scheme, mxu_route_2d, scheme_pass, scheme_taps,
                      swt_scheme, tile_candidates)
-from .separable import _c
 
 #: the largest rank the kernels take (``ns_matmul_pallas.py:42``)
 MAX_RANK = 4

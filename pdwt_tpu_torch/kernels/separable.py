@@ -1,8 +1,7 @@
 """Fused separable DWT level kernels: wrappers, plain versions, gradients.
 
 Counterpart of ``pdwt_tpu/kernels/separable_pallas.py``.  Four CUDA
-kernels (entry points in ``csrc/separable.cu``) carry the 2D periodization
-main path:
+kernels carry the 2D periodization main path:
 
 =========================  ==========================================  ==============================
 wrapper                    computes                                    plain version
@@ -20,13 +19,17 @@ A wrapper given a CPU tensor returns its plain version, built on
 Each launch adds one to ``LAUNCHES[<wrapper name>]`` (one dict for
 every kernel of the package, in ``_launch.py``).
 
-The analysis level runs kernel 13's body at output step 2
-(``csrc/swt_matmul.cu: swt_fwd_mxu_kernel``) in the ``fd`` scheme on
-float32 data, on the plan of ``fwd_level_launch_plan``, rows first as the
-Pallas kernel (``separable_pallas.py:272-283``); its plain version runs
-the columns first, so the two agree to float32 roundoff.  The synthesis
-level runs ``inv_level_kernel`` (``csrc/separable.cu``) on the plan of
-``inv_level_launch_plan``.  The tails run those two levels' per-tile work
+The two levels are kernels 11's and 12's functions in the ``fd`` scheme
+on float32 data, so on CUDA tensors they are those kernels' launches
+(``kernels/matmul.py``: ``_fwd_launch``, ``_inv_launch`` and the padded
+two) in ``fd``, counted under their own ``LAUNCHES`` keys.  The analysis
+level runs kernel 13's body at output step 2 (``csrc/swt_matmul.cu:
+swt_fwd_mxu_kernel``) on the plan of ``matmul.fwd_launch_plan``, rows
+first as the Pallas kernel (``separable_pallas.py:272-283``); its plain
+version runs the columns first, so the two agree to float32 roundoff.  The
+synthesis level runs ``inv_level_kernel`` (``csrc/separable.cu``) on the
+plan of ``matmul.inv_level_launch_plan``.  The tails (entry points in
+``csrc/separable.cu``) run those two levels' per-tile work
 (the forward ``fwd_tile<FD, 2>``, the inverse a copy of
 ``inv_level_kernel<FD>``'s) level by level in one launch, a batch item's
 levels spread over the blocks of one thread-block cluster that meet at a
@@ -34,7 +37,7 @@ cluster barrier between levels, on the plan of ``tail_launch_plan``; so
 each tail level equals the level kernel bit for bit on finite data.  All
 four read their taps from ``dual_taps``.
 
-The padded entry points are the counterparts of
+The padded wrappers are the counterparts of
 ``separable_pallas.py:355 fwd_level_2d_padded`` and ``:498
 inv_level_2d_padded``, for the boundary modes (``core/separable.py``'s
 mode route): the same bodies (``csrc/swt_matmul.cu: fwd_padded_kernel`` on
@@ -71,10 +74,10 @@ import torch
 from ..core import conv
 from ..utils.profiling import spanned
 from ._launch import LAUNCHES, MAX_HLEN, PadAxis, reset_launch_counts  # noqa: F401 (re-exported)
-from ._launch import (FWD_CHUNK, FWD_TILES, PLAN_TILES, ROW_STRIP, SMEM_LIMIT, SMS, InvPlan,
-                      align16, block_target, cdiv, dual_taps, fwd_plan, fwd_smem, launch,
-                      on_cpu, pad_axis, pad_positions, pick_plan, poly_geo, ptr,
-                      rev, stage_bytes, temp_pitch)
+from ._launch import (FWD_CHUNK, FWD_TILES, PLAN_TILES, SMEM_LIMIT, SMS, InvPlan, _c, cdiv,
+                      dual_taps, fwd_smem, launch, on_cpu, poly_geo, ptr, rev)
+from .matmul import (F32, INV_CHUNK, _fwd_launch, _fwd_padded_launch, _inv_launch,
+                     _inv_padded_launch, _inv_smem, fwd_launch_plan, inv_level_launch_plan)
 
 #: Most levels one tail launch fuses (PDWT_MAX_TAIL_LEVELS).
 MAX_TAIL_LEVELS = 16
@@ -161,73 +164,6 @@ def tail_supported(shape: Tuple[int, int], hlen: int, levels: int) -> bool:
     return 2 * r * c * 4 <= SMEM_PER_BLOCK
 
 
-@functools.lru_cache(maxsize=256)
-def fwd_level_launch_plan(B: int, R: int, C: int, hlen: int) -> InvPlan:
-    """The launch of one analysis level on an even (B, R, C) float32 image
-    (kernel 1 on kernel 13's body: output step 2, dilation 1, ``fd``,
-    (R/2, C/2) subbands; ``_launch.fwd_plan``), the plan kernel 11 takes
-    in ``fd``: the DWT cell's levels (2048^2 down to 256^2 images) get
-    128-512 blocks."""
-    return fwd_plan(B, R, C, hlen, 1, "fd", 2)
-
-
-# ---------------------------------------------------------------------------
-# launch plan of the inverse level (csrc/separable.cu: inv_level_kernel),
-# kernel 2 in fd and kernel 12 (matmul.inv_level_2d_mxu) in every scheme
-# ---------------------------------------------------------------------------
-
-#: taps per chunk of the inverse level's strips (separable.cu: kInvCh)
-INV_CHUNK = 4
-
-
-def _inv_smem(offmax: int, lr: int, lc: int, nt: int, scheme: str = "fd") -> int:
-    """separable.cu: inv_smem<S> -- taps (first values, and second values
-    where the scheme reads them), index tables, the four band windows (the
-    output tile after the row pass), the two temps."""
-    nd, es = stage_bytes(scheme)
-    nv = 2 if scheme in ("b2f", "b3") else 1
-    wr, wc = lr + offmax + nt - 1, lc + offmax + nt - 1
-    return (16 * nv * nt + align16(4 * (wr + wc))
-            + align16(max(4 * nd * es * wr * wc, 8 * lr * (2 * lc + 1)))
-            + 4 * nd * lr * temp_pitch(wc, es) * es)
-
-
-@functools.lru_cache(maxsize=256)
-def inv_level_launch_plan(B: int, Mr: int, Mc: int, hlen: int, scheme: str = "fd") -> InvPlan:
-    """The launch of one polyphase synthesis level on (B, Mr, Mc) subbands
-    under ``scheme`` (kernel 2: fd): a tile of lr x lc consecutive subband
-    positions, largest first, taps padded to nt per parity.  The first that
-    fits two blocks on an SM and gives ``block_target`` blocks
-    (kernels/_launch.py: pick_plan), so the deep levels take smaller tiles.
-    Always 256 threads: on the deep levels' small tiles, more warps keep
-    more staging loads in flight than the work items need threads (timed
-    20 % faster at 256^2 and 128^2 subbands on an H100, PERF.md section
-    6)."""
-    g = conv.poly_geometry(hlen)
-    nt = cdiv(max(g.nb), INV_CHUNK) * INV_CHUNK
-    offmax = g.lo + max(g.o)
-    cands = []
-    for lr, lc in PLAN_TILES:
-        grid = (cdiv(Mc, lc), cdiv(Mr, lr), min(B, 65535))
-        if lr % ROW_STRIP[scheme] or grid[1] > 65535:
-            continue
-        cands.append(InvPlan(lr, lc, 1, 1, nt, 256, grid, _inv_smem(offmax, lr, lc, nt, scheme)))
-    return pick_plan(cands, block_target(B, 2 * Mr, 2 * Mc))
-
-
-def fwd_padded_launch_plan(B: int, Ro: int, Co: int, hlen: int) -> InvPlan:
-    """The launch of kernel 1's padded entry point for (Ro, Co) outputs:
-    kernel 1's plan for that output size (``fwd_level_launch_plan`` of a
-    (2 Ro, 2 Co) image)."""
-    return fwd_level_launch_plan(B, 2 * Ro, 2 * Co, hlen)
-
-
-def inv_padded_launch_plan(B: int, rows: PadAxis, cols: PadAxis, hlen: int) -> InvPlan:
-    """The launch of kernel 2's padded entry point: kernel 2's plan for the
-    coefficient positions its grid covers (``pad_positions``)."""
-    return inv_level_launch_plan(B, pad_positions(rows), pad_positions(cols), hlen)
-
-
 # ---------------------------------------------------------------------------
 # launch plan of the tails (kernels 3 and 4)
 # ---------------------------------------------------------------------------
@@ -274,7 +210,7 @@ def tail_launch_plan(B: int, R: int, C: int, hlen: int, levels: int,
                      inverse: bool = False) -> TailPlan:
     """The launch of a tail over ``levels`` levels of (B, R, C) images (the
     forward's input, the inverse's output): with one level, the level
-    kernel's own plan (``fwd_level_launch_plan`` / ``inv_level_launch_plan``:
+    kernel's own plan (``matmul.fwd_launch_plan`` / ``inv_level_launch_plan`` in fd:
     a block per tile, no barrier, cs = 1); with more, one cluster of
     ``_tail_cluster`` blocks per item sharing each level's tiles
     (``_tail_level``: the 128^2 db7 level gets 16 x 16 output tiles, one
@@ -284,7 +220,7 @@ def tail_launch_plan(B: int, R: int, C: int, hlen: int, levels: int,
                          f"got {(R, C)}")
     if levels == 1:
         pl = (inv_level_launch_plan(B, R // 2, C // 2, hlen) if inverse
-              else fwd_level_launch_plan(B, R, C, hlen))
+              else fwd_launch_plan(B, R, C, hlen, "fd"))
         return TailPlan(pl.grid[0] * pl.grid[1], 1, pl.threads, pl.smem, (pl,))
     cs = _tail_cluster(B, cdiv(R // 2, 8) * cdiv(C // 2, 8))
     g = conv.poly_geometry(hlen)
@@ -319,43 +255,21 @@ def _tail_args(pl: TailPlan) -> list:
 @spanned("kernels")
 def fwd_level_2d(x: torch.Tensor, dec_lo, dec_hi):
     """One analysis level on an even-sized (B, R, C) image -> (a, h, v, d),
-    each (B, R/2, C/2).  The CUDA kernel takes filters of 2..128 taps;
-    ``fwd_level_launch_plan`` picks its tile."""
+    each (B, R/2, C/2).  On a CUDA tensor, kernel 11's launch in fd
+    (``matmul.fwd_launch_plan`` picks its tile); filters of 2..128 taps."""
     if on_cpu(x):
         return fwd_level_2d_ref(x, dec_lo, dec_hi)
-    B, R, C = x.shape
-    if R % 2 or C % 2:
-        raise ValueError(f"fwd_level_2d takes even sizes, got {(R, C)}")
-    tp = dual_taps((dec_lo, dec_hi), "fd", x.device)
-    hlen = tp.shape[1]
-    pl = fwd_level_launch_plan(B, R, C, hlen)
-    outs = [torch.empty((B, R // 2, C // 2), device=x.device, dtype=x.dtype)
-            for _ in range(4)]
-    launch("fwd_level_2d", x.device,
-           [ptr(x), *map(ptr, outs), B, R, C, ptr(tp), hlen, conv.fwd_center(hlen), pl.lr,
-            pl.lc, pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
-    return tuple(outs)
+    return _fwd_launch("fwd_level_2d", x, (dec_lo, dec_hi), "fd", F32)
 
 
 @spanned("kernels")
 def inv_level_2d(a, h, v, d, rec_lo, rec_hi) -> torch.Tensor:
-    """One synthesis level: (B, Mr, Mc) subbands -> (B, 2Mr, 2Mc).  The
-    CUDA kernel takes filters of 2..128 taps; ``inv_level_launch_plan``
-    picks its tile."""
+    """One synthesis level: (B, Mr, Mc) subbands -> (B, 2Mr, 2Mc).  On CUDA
+    tensors, kernel 12's launch in fd (``inv_level_launch_plan`` picks its
+    tile); filters of 2..128 taps."""
     if on_cpu(a, h, v, d):
         return inv_level_2d_ref(a, h, v, d, rec_lo, rec_hi)
-    if not a.shape == h.shape == v.shape == d.shape:
-        raise ValueError("the four subbands must have one shape")
-    B, mr, mc = a.shape
-    tp = dual_taps((rec_lo, rec_hi), "fd", a.device)
-    hlen = tp.shape[1]
-    geo = poly_geo(hlen)
-    pl = inv_level_launch_plan(B, mr, mc, hlen)
-    out = torch.empty((B, 2 * mr, 2 * mc), device=a.device, dtype=a.dtype)
-    launch("inv_level_2d", a.device,
-           [*map(ptr, (a, h, v, d, out)), B, mr, mc, ptr(tp), hlen, ptr(geo), pl.lr, pl.lc,
-            pl.nt, pl.threads, *pl.grid, pl.smem])
-    return out
+    return _inv_launch("inv_level_2d", a, h, v, d, (rec_lo, rec_hi), "fd", F32)
 
 
 @spanned("kernels")
@@ -423,46 +337,25 @@ def inv_tail_2d(a: torch.Tensor, details: Sequence[Bands], rec_lo, rec_hi):
 def fwd_level_2d_padded(xp: torch.Tensor, dec_lo, dec_hi):
     """One analysis level on a (B, Rp, Cp) float32 input that holds its
     boundary extension -> (a, h, v, d), each (B, (Rp - hlen) // 2 + 1,
-    (Cp - hlen) // 2 + 1), on ``fwd_padded_launch_plan``."""
+    (Cp - hlen) // 2 + 1): on a CUDA tensor, kernel 11's padded launch in
+    fd (``matmul.fwd_padded_launch_plan``)."""
     if on_cpu(xp):
         return fwd_level_2d_padded_ref(xp, dec_lo, dec_hi)
-    B, R, C = xp.shape
-    tp = dual_taps((dec_lo, dec_hi), "fd", xp.device)
-    hlen = tp.shape[1]
-    ro, co = conv.padded_len(R, hlen), conv.padded_len(C, hlen)
-    pl = fwd_padded_launch_plan(B, ro, co, hlen)
-    outs = [torch.empty((B, ro, co), device=xp.device, dtype=xp.dtype) for _ in range(4)]
-    launch("fwd_level_2d_padded", xp.device,
-           [ptr(xp), *map(ptr, outs), B, R, C, ro, co, ptr(tp), hlen, pl.lr, pl.lc, pl.gc,
-            pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
-    return tuple(outs)
+    return _fwd_padded_launch("fwd_level_2d_padded", xp, (dec_lo, dec_hi), "fd", F32)
 
 
 @spanned("kernels")
 def inv_level_2d_padded(a, h, v, d, rec_lo, rec_hi, c0: Tuple[int, int],
                         out_shape: Tuple[int, int]) -> torch.Tensor:
     """One synthesis level on (B, Mr, Mc) float32 subbands that hold their
-    boundary -> (B, *out_shape), the spec of ``inv_level_2d_padded_ref``,
-    on ``inv_padded_launch_plan``.  Raises where an output would read
+    boundary -> (B, *out_shape), the spec of ``inv_level_2d_padded_ref``:
+    on CUDA tensors, kernel 12's padded launch in fd
+    (``matmul.inv_padded_launch_plan``).  Raises where an output would read
     outside the subbands."""
     if on_cpu(a, h, v, d):
         return inv_level_2d_padded_ref(a, h, v, d, rec_lo, rec_hi, c0, out_shape)
-    if not a.shape == h.shape == v.shape == d.shape:
-        raise ValueError("the four subbands must have one shape")
-    B, mr, mc = a.shape
-    tp = dual_taps((rec_lo, rec_hi), "fd", a.device)
-    hlen = tp.shape[1]
-    conv.check_padded_synthesis(mr, hlen, c0[0], out_shape[0])
-    conv.check_padded_synthesis(mc, hlen, c0[1], out_shape[1])
-    rows, cols = (pad_axis(hlen, c, n) for c, n in zip(c0, out_shape))
-    pl = inv_padded_launch_plan(B, rows, cols, hlen)
-    pad = np.array([*rows, *cols], dtype=np.int32)
-    geo = poly_geo(hlen)
-    out = torch.empty((B, *out_shape), device=a.device, dtype=a.dtype)
-    launch("inv_level_2d_padded", a.device,
-           [*map(ptr, (a, h, v, d, out)), B, mr, mc, ptr(pad), ptr(tp), hlen, ptr(geo), pl.lr,
-            pl.lc, pl.nt, pl.threads, *pl.grid, pl.smem])
-    return out
+    return _inv_padded_launch("inv_level_2d_padded", a, h, v, d, (rec_lo, rec_hi), "fd", c0,
+                              out_shape, F32)
 
 
 # ---------------------------------------------------------------------------
@@ -483,10 +376,6 @@ def plain_vjp(ref, like, cotangents):
     _, vjp = torch.func.vjp(ref, torch.zeros(shape, dtype=dtype, device=device))
     return vjp(cotangents)
 
-
-
-def _c(ts):
-    return [t.contiguous() for t in ts]
 
 
 class _FwdLevel2D(torch.autograd.Function):

@@ -1,11 +1,14 @@
 """Stationary (a-trous) 2D level kernels: wrappers, plain versions, gradients.
 
 Counterpart of the 2D part of ``pdwt_tpu/kernels/swt_pallas.py``.  Two
-CUDA kernels carry the TI-denoise path, entry points in ``csrc/swt.cu``
-onto the bodies of kernels 13 and 14 (``csrc/swt_matmul.cu``:
-``swt_fwd_mxu_kernel`` at output step 1, ``swt_inv_mxu_kernel``) in the
-``fd`` scheme on float32 data, with the geometry of
-``swt_matmul.swt_fwd_launch_plan`` and ``swt_inv_launch_plan``:
+CUDA kernels carry the TI-denoise path: kernels 13's and 14's functions
+in the ``fd`` scheme on float32 data, so on CUDA tensors they are the
+launches of ``kernels/swt_matmul.py``'s launchers (``_fwd_launch``,
+``_inv_launch`` and the padded two) in ``fd``, counted under their own
+``LAUNCHES`` keys: the bodies of ``csrc/swt_matmul.cu``
+(``swt_fwd_mxu_kernel`` at output step 1, ``swt_inv_mxu_kernel``), with
+the geometry of ``swt_matmul.swt_fwd_launch_plan`` and
+``swt_inv_launch_plan``:
 
 ====================  ===============================================  ===========================
 wrapper               computes                                         plain version
@@ -19,9 +22,10 @@ The forward also takes the TI step's thresholded L1 norm as it stores
 (``swt_fwd_level_2d(..., norm=(mode, beta, partials, approx))``: kernel
 5's norm launches, ``swt_fwd_mxu_kernel<FD, 1, mode>``), one float32
 partial a block (``swt_norm_slots``), which ``swt_norm_sum_2d`` adds in
-float64 into the norm (``core/separable.py: _swt2d_denoise_norm1``).
+float64 into the norm (``core/separable.py: _swt2d_denoise_norm1``;
+``csrc/swt.cu``).
 
-and two padded entry points for the sharded SWT (``parallel/sharded.py``),
+and two padded wrappers for the sharded SWT (``parallel/sharded.py``),
 the counterparts of ``swt_pallas.py:935 swt_fwd_level_2d_padded`` and
 ``:960 swt_inv_level_2d_padded``:
 
@@ -68,23 +72,16 @@ the threshold's a.e. derivative, masked by the un-thresholded details
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core import conv
 from ..utils.profiling import spanned
-from ._launch import InvPlan, check_span, dilation, launch, on_cpu, ptr, rev
-from .matmul import dual_taps
-from .mxu1d import _half
-
-#: thresh_mode codes of pdwt_swt_inv_level_2d (csrc/swt.cu)
-THRESH_CODES = {None: 0, "soft": 1, "hard": 2, "garrote": 3}
-
-Threshold = Optional[Tuple[str, object]]
-#: (mode, beta, partials, approx) of a norm launch of kernel 5
-Norm = Optional[Tuple[str, object, torch.Tensor, bool]]
+from ._launch import THRESH_CODES, _c, dilation, launch, on_cpu, ptr, rev
+from .matmul import F32
+from .swt_matmul import (Norm, Threshold, _fwd_launch, _fwd_padded_launch, _inv_launch,
+                         _inv_padded_launch, swt_fwd_launch_plan, thresh_vjp)
 
 
 # ---------------------------------------------------------------------------
@@ -151,29 +148,9 @@ def swt_inv_level_2d_padded_ref(a, h, v, d, rec_lo, rec_hi, level: int) -> torch
     return conv.padded_atrous_synthesis_pass(t, rec, -1, f)[:, 0].contiguous()
 
 
-def swt_fwd_padded_launch_plan(B: int, Ro: int, Co: int, hlen: int, f: int) -> InvPlan:
-    """The launch of kernel 5's padded entry point for (Ro, Co) outputs:
-    kernel 5's plan for an (Ro, Co) image (``swt_matmul.swt_fwd_launch_plan``
-    in fd)."""
-    from .swt_matmul import swt_fwd_launch_plan  # swt_matmul imports this module
-
-    return swt_fwd_launch_plan(B, Ro, Co, hlen, f, "fd")
-
-
-def swt_inv_padded_launch_plan(B: int, R: int, C: int, hlen: int, f: int) -> InvPlan:
-    """The launch of kernel 6's padded entry point for an (R, C) output:
-    kernel 6's plan for (R, C) subbands (``swt_matmul.swt_inv_launch_plan``
-    in fd)."""
-    from .swt_matmul import swt_inv_launch_plan  # swt_matmul imports this module
-
-    return swt_inv_launch_plan(B, R, C, hlen, f, "fd")
-
-
 def swt_norm_slots(B: int, R: int, C: int, hlen: int, level: int) -> int:
     """The partials a norm launch of kernel 5 writes on a (B, R, C) image:
     one a block of its plan."""
-    from .swt_matmul import swt_fwd_launch_plan  # swt_matmul imports this module
-
     return math.prod(swt_fwd_launch_plan(B, R, C, hlen, dilation(level), "fd").grid)
 
 
@@ -196,28 +173,7 @@ def swt_fwd_level_2d(x: torch.Tensor, dec_lo, dec_hi, level: int, *, norm: Norm 
         if norm is not None:
             swt_norm_partials_ref(bands, *norm)
         return bands
-    from .swt_matmul import swt_fwd_launch_plan  # swt_matmul imports this module
-
-    f = dilation(level)
-    tp = dual_taps((dec_lo, dec_hi), "fd", x.device)
-    hlen = tp.shape[1]
-    check_span(hlen, f)
-    B, R, C = x.shape
-    pl = swt_fwd_launch_plan(B, R, C, hlen, f, "fd")
-    nargs = [0, None, None, 0]
-    if norm is not None:
-        mode, beta, partials, approx = norm
-        if (partials.device != x.device or partials.dtype != torch.float32
-                or not partials.is_contiguous() or partials.numel() != math.prod(pl.grid)):
-            raise ValueError(f"a norm launch writes {math.prod(pl.grid)} contiguous float32 "
-                             f"partials on {x.device}")
-        buf = beta_buffer(beta, x.device)
-        nargs = [THRESH_CODES[mode], ptr(buf), ptr(partials), int(approx)]
-    outs = [torch.empty_like(x) for _ in range(4)]
-    launch("swt_fwd_level_2d", x.device,
-           [ptr(x), *map(ptr, outs), B, R, C, ptr(tp), hlen, f, conv.fwd_center(hlen), pl.lr,
-            pl.lc, pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem, *nargs])
-    return tuple(outs)
+    return _fwd_launch("swt_fwd_level_2d", x, (dec_lo, dec_hi), level, "fd", F32, norm)
 
 
 @spanned("kernels")
@@ -232,15 +188,6 @@ def swt_norm_sum_2d(partials: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def beta_buffer(beta, device: torch.device) -> torch.Tensor:
-    """beta as one float32 on ``device``, with no host synchronisation."""
-    if isinstance(beta, torch.Tensor):
-        if beta.numel() != 1:
-            raise ValueError(f"the fused threshold takes one beta, got shape {tuple(beta.shape)}")
-        return beta.detach().to(device=device, dtype=torch.float32).reshape(1).contiguous()
-    return torch.full((1,), float(beta), dtype=torch.float32, device=device)
-
-
 @spanned("kernels")
 def swt_inv_level_2d(a, h, v, d, rec_lo, rec_hi, level: int,
                      threshold: Threshold = None) -> torch.Tensor:
@@ -253,76 +200,36 @@ def swt_inv_level_2d(a, h, v, d, rec_lo, rec_hi, level: int,
         raise ValueError(f"threshold mode {mode!r}: the kernel takes soft, hard or garrote")
     if on_cpu(a, h, v, d):
         return swt_inv_level_2d_ref(a, h, v, d, rec_lo, rec_hi, level, threshold)
-    if not a.shape == h.shape == v.shape == d.shape:
-        raise ValueError("the four subbands must have one shape")
-    from .swt_matmul import swt_inv_launch_plan  # swt_matmul imports this module
-
-    f = dilation(level)
-    tp = dual_taps((_half(rec_lo), _half(rec_hi)), "fd", a.device)
-    hlen = tp.shape[1]
-    check_span(hlen, f)
-    B, R, C = a.shape
-    out = torch.empty_like(a)
-    buf = None if mode is None else beta_buffer(beta, a.device)
-    pl = swt_inv_launch_plan(B, R, C, hlen, f, "fd")
-    launch("swt_inv_level_2d", a.device,
-           [*map(ptr, (a, h, v, d, out)), B, R, C, ptr(tp), hlen, f, conv.swt_inv_center(hlen),
-            THRESH_CODES[mode], None if buf is None else ptr(buf), pl.lr, pl.lc, pl.gc, pl.nph,
-            pl.nt, pl.threads, *pl.grid, pl.smem])
-    return out
+    return _inv_launch("swt_inv_level_2d", a, h, v, d, (rec_lo, rec_hi), level, "fd", F32,
+                       threshold)
 
 
 @spanned("kernels")
 def swt_fwd_level_2d_padded(xp: torch.Tensor, dec_lo, dec_hi, level: int):
     """One a-trous analysis level on a (B, Rp, Cp) float32 shard that holds
     its halo -> (a, h, v, d), each (B, Rp - (hlen - 1) f, Cp - (hlen - 1)
-    f), on ``swt_fwd_padded_launch_plan``."""
+    f): on a CUDA tensor, kernel 13's padded launch in fd
+    (``swt_matmul.swt_fwd_padded_launch_plan``)."""
     if on_cpu(xp):
         return swt_fwd_level_2d_padded_ref(xp, dec_lo, dec_hi, level)
-    f = dilation(level)
-    tp = dual_taps((dec_lo, dec_hi), "fd", xp.device)
-    hlen = tp.shape[1]
-    check_span(hlen, f)
-    B, R, C = xp.shape
-    ro, co = conv.padded_atrous_len(R, hlen, f), conv.padded_atrous_len(C, hlen, f)
-    pl = swt_fwd_padded_launch_plan(B, ro, co, hlen, f)
-    outs = [torch.empty((B, ro, co), device=xp.device, dtype=xp.dtype) for _ in range(4)]
-    launch("swt_fwd_level_2d_padded", xp.device,
-           [ptr(xp), *map(ptr, outs), B, R, C, ro, co, ptr(tp), hlen, f, pl.lr, pl.lc, pl.gc,
-            pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
-    return tuple(outs)
+    return _fwd_padded_launch("swt_fwd_level_2d_padded", xp, (dec_lo, dec_hi), level, "fd", F32)
 
 
 @spanned("kernels")
 def swt_inv_level_2d_padded(a, h, v, d, rec_lo, rec_hi, level: int) -> torch.Tensor:
     """One a-trous synthesis level on four (B, Rp, Cp) float32 subbands
     that hold their halo -> (B, Rp - (hlen - 1) f, Cp - (hlen - 1) f), the
-    1/2 per pass folded into the taps, on ``swt_inv_padded_launch_plan``."""
+    1/2 per pass folded into the taps: on CUDA tensors, kernel 14's padded
+    launch in fd (``swt_matmul.swt_inv_padded_launch_plan``)."""
     if on_cpu(a, h, v, d):
         return swt_inv_level_2d_padded_ref(a, h, v, d, rec_lo, rec_hi, level)
-    if not a.shape == h.shape == v.shape == d.shape:
-        raise ValueError("the four subbands must have one shape")
-    f = dilation(level)
-    tp = dual_taps((_half(rec_lo), _half(rec_hi)), "fd", a.device)
-    hlen = tp.shape[1]
-    check_span(hlen, f)
-    B, Ri, Ci = a.shape
-    R, C = conv.padded_atrous_len(Ri, hlen, f), conv.padded_atrous_len(Ci, hlen, f)
-    pl = swt_inv_padded_launch_plan(B, R, C, hlen, f)
-    out = torch.empty((B, R, C), device=a.device, dtype=a.dtype)
-    launch("swt_inv_level_2d_padded", a.device,
-           [*map(ptr, (a, h, v, d, out)), B, Ri, Ci, R, C, ptr(tp), hlen, f, pl.lr, pl.lc,
-            pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
-    return out
+    return _inv_padded_launch("swt_inv_level_2d_padded", a, h, v, d, (rec_lo, rec_hi), level,
+                              "fd", F32)
 
 
 # ---------------------------------------------------------------------------
 # autograd
 # ---------------------------------------------------------------------------
-
-def _c(ts):
-    return [t.contiguous() for t in ts]
-
 
 class _SwtFwdLevel2D(torch.autograd.Function):
     @staticmethod
@@ -350,20 +257,6 @@ class _SwtInvLevel2D(torch.autograd.Function):
                 None, None, None)
 
 
-def _thresh_vjp_factors(mode: str, t: torch.Tensor, b):
-    """(d thresh / d x, d thresh / d beta) where |t| > b, the a.e.
-    derivatives of the thresholds (``swt_pallas.py:217-228``); None for a
-    zero derivative."""
-    if mode == "soft":
-        return None, -torch.sign(t)
-    if mode == "hard":
-        return None, None
-    if mode == "garrote":
-        safe = torch.where(t == 0, 1.0, t)
-        return 1.0 + (b * b) / (safe * safe), -2.0 * b / safe
-    raise ValueError(mode)
-
-
 class _SwtInvLevel2DDenoise(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, h, v, d, beta, rec_lo, rec_hi, level, mode):
@@ -381,17 +274,7 @@ class _SwtInvLevel2DDenoise(torch.autograd.Function):
         ga, *gbands = swt_fwd_level_2d(gy.contiguous(), 0.5 * rev(lo), 0.5 * rev(hi), level)
         b = (beta.detach().to(h.dtype) if ctx.beta_is_tensor
              else torch.tensor(beta, dtype=h.dtype))
-        outs, gbeta = [], None
-        for t, g in zip((h, v, d), gbands):
-            mask = t.abs() > b
-            dfdx, dfdb = _thresh_vjp_factors(mode, t, b)
-            outs.append(torch.where(mask, g if dfdx is None else g * dfdx, 0.0))
-            if dfdb is not None and ctx.beta_is_tensor:
-                term = torch.where(mask, g * dfdb, 0.0).sum()
-                gbeta = term if gbeta is None else gbeta + term
-        if ctx.beta_is_tensor:
-            gbeta = (torch.zeros_like(beta) if gbeta is None
-                     else gbeta.to(beta.dtype).reshape(beta.shape))
+        outs, gbeta = thresh_vjp(mode, (h, v, d), gbands, b, beta)
         return (ga, *outs, gbeta, None, None, None, None)
 
 

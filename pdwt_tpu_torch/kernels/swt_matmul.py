@@ -26,8 +26,14 @@ swt_inv_level_2d_mxu``, which JAX's sharded SWT passes its ring halo
 exchange: the same bodies with index tables that do not wrap, on a shard
 wrapped by its bare periodic support (``kernels.swt_fwd_halo`` /
 ``swt_inv_halo``), on the spec of ``conv.padded_atrous_analysis_pass``
-and ``conv.padded_atrous_synthesis_pass`` (kernels 5's and 6's padded
-entry points, ``kernels/swt.py``, are their fd instances on float32).
+and ``conv.padded_atrous_synthesis_pass``.
+
+Each body and geometry has one launcher here (``_fwd_launch``,
+``_inv_launch``, ``_fwd_padded_launch``, ``_inv_padded_launch``), which
+takes the scheme and the ``LAUNCHES`` key: the wrappers below call them in
+their scheme, the exact wrappers of kernels 5 and 6 and their padded forms
+(``kernels/swt.py``) in ``fd`` on float32, kernel 5's norm launches
+included.
 
 The synthesis folds its 1/2 per pass into the taps before they are
 rounded (``swt_matmul_pallas.py:93-108``).  The fused threshold is the TPU
@@ -47,22 +53,26 @@ un-thresholded details.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
 from ..core import conv
 from ..utils.profiling import spanned
-from ._launch import (COL_STRIP, PLAN_TILES, ROW_STRIP, InvPlan, align16, axis_blocks,
-                      block_target, cdiv, check_span, consecutive_columns, dilation, fwd_plan,
-                      launch, on_cpu, pick_plan, plan_threads, ptr, rev, stage_bytes,
-                      temp_pitch)
-from .matmul import (_DT, BF16, F32, MXU_MAX_HLEN, SCHEMES, _check_bands, _check_scheme,
-                     _is_bf16, dual_taps, fwd2d_ref, inv2d_ref, mode_out_dtypes,
+from ._launch import (COL_STRIP, PLAN_TILES, ROW_STRIP, THRESH_CODES, InvPlan, _c, align16,
+                      axis_blocks, beta_buffer, block_target, cdiv, check_span,
+                      consecutive_columns, dilation, fwd_plan, launch, on_cpu, pick_plan,
+                      plan_threads, ptr, rev, stage_bytes, temp_pitch)
+from .matmul import (_DT, BF16, F32, MXU_MAX_HLEN, SCHEMES, _check_approx, _check_bands,
+                     _check_scheme, _is_bf16, dual_taps, fwd2d_ref, inv2d_ref, mode_out_dtypes,
                      swt_bf16_scheme, swt_scheme, tile_candidates)
 from .mxu1d import _half
-from .separable import _c
-from .swt import THRESH_CODES, Threshold, _thresh_vjp_factors, beta_buffer
+
+#: (mode, beta) of a fused threshold
+Threshold = Optional[Tuple[str, object]]
+#: (mode, beta, partials, approx) of a norm launch of kernel 5
+Norm = Optional[Tuple[str, object, torch.Tensor, bool]]
 
 
 def mxu_route_swt_2d(r: int, c: int, hlen: int, level: int) -> bool:
@@ -209,17 +219,128 @@ def swt_inv_launch_plan(B: int, R: int, C: int, hlen: int, f: int, scheme: str) 
 
 def swt_fwd_padded_launch_plan(B: int, Ro: int, Co: int, hlen: int, f: int,
                                scheme: str) -> InvPlan:
-    """The launch of kernel 13's padded entry point for (Ro, Co) outputs:
-    kernel 13's plan for an (Ro, Co) image (in fd, kernel 5's padded
-    plan)."""
+    """The launch of kernel 13's padded entry point (kernel 5's in fd) for
+    (Ro, Co) outputs: kernel 13's plan for an (Ro, Co) image."""
     return swt_fwd_launch_plan(B, Ro, Co, hlen, f, scheme)
 
 
 def swt_inv_padded_launch_plan(B: int, R: int, C: int, hlen: int, f: int,
                                scheme: str) -> InvPlan:
-    """The launch of kernel 14's padded entry point for an (R, C) output:
-    kernel 14's plan for (R, C) subbands (in fd, kernel 6's padded plan)."""
+    """The launch of kernel 14's padded entry point (kernel 6's in fd) for
+    an (R, C) output: kernel 14's plan for (R, C) subbands."""
     return swt_inv_launch_plan(B, R, C, hlen, f, scheme)
+
+
+# ---------------------------------------------------------------------------
+# launchers: one a body and geometry, for every scheme; the exact wrappers
+# of kernels/swt.py call them in fd on float32, under their own LAUNCHES
+# keys
+# ---------------------------------------------------------------------------
+
+def _fwd_launch(key: str, x: torch.Tensor, filters, level: int, scheme: str, det_dtype,
+                norm: Norm = None):
+    """Kernel 13's body at output step 1 (``csrc/swt_matmul.cu:
+    swt_fwd_mxu_kernel``) on a (B, R, C) CUDA image, counted under ``key``
+    -> (a float32, h, v, d ``det_dtype``), each (B, R, C).
+    ``norm=(mode, beta, partials, approx)`` (fd on float32 only: kernel 5's
+    norm launches) also writes the thresholded L1 norm of H, V and D, plus
+    sum |A| where ``approx``, into ``partials``, one float32 a block."""
+    _check_scheme(scheme)
+    f = dilation(level)
+    tp = dual_taps(filters, scheme, x.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
+    B, R, C = x.shape
+    pl = swt_fwd_launch_plan(B, R, C, hlen, f, scheme)
+    nargs = [0, None, None, 0]
+    if norm is not None:
+        mode, beta, partials, approx = norm
+        if (partials.device != x.device or partials.dtype != F32
+                or not partials.is_contiguous() or partials.numel() != math.prod(pl.grid)):
+            raise ValueError(f"a norm launch writes {math.prod(pl.grid)} contiguous float32 "
+                             f"partials on {x.device}")
+        buf = beta_buffer(beta, x.device)
+        nargs = [THRESH_CODES[mode], ptr(buf), ptr(partials), int(approx)]
+    a = torch.empty_like(x, dtype=F32)
+    dets = [torch.empty_like(x, dtype=det_dtype) for _ in range(3)]
+    launch(key, x.device,
+           [ptr(x), ptr(a), *map(ptr, dets), B, R, C, ptr(tp), hlen, f, conv.fwd_center(hlen),
+            SCHEMES.index(scheme), _is_bf16(x.dtype), _is_bf16(det_dtype), pl.lr, pl.lc,
+            pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem, *nargs], "swt_fwd_level_2d_mxu")
+    return (a, *dets)
+
+
+def _inv_launch(key: str, a, h, v, d, filters, level: int, scheme: str, out_dtype,
+                threshold: Threshold = None) -> torch.Tensor:
+    """Kernel 14's body (``csrc/swt_matmul.cu: swt_inv_mxu_kernel``) on
+    (B, R, C) CUDA subbands, the 1/2 per pass folded into the taps here,
+    ``threshold=(mode, beta)`` fused on H, V and D, counted under ``key``
+    -> (B, R, C) in ``out_dtype``."""
+    mode, beta = (None, None) if threshold is None else threshold
+    _check_scheme(scheme)
+    _check_bands(a, h, v, d, key)
+    f = dilation(level)
+    tp = dual_taps((_half(filters[0]), _half(filters[1])), scheme, a.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
+    B, R, C = a.shape
+    out = torch.empty_like(a, dtype=out_dtype)
+    buf = None if mode is None else beta_buffer(beta, a.device)
+    pl = swt_inv_launch_plan(B, R, C, hlen, f, scheme)
+    launch(key, a.device,
+           [*map(ptr, (a, h, v, d, out)), B, R, C, ptr(tp), hlen, f,
+            conv.swt_inv_center(hlen), SCHEMES.index(scheme), _is_bf16(h.dtype),
+            _is_bf16(out_dtype), THRESH_CODES[mode], None if buf is None else ptr(buf),
+            pl.lr, pl.lc, pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem],
+           "swt_inv_level_2d_mxu")
+    return out
+
+
+def _fwd_padded_launch(key: str, xp: torch.Tensor, filters, level: int, scheme: str,
+                       det_dtype):
+    """Kernel 13's body with index tables that do not wrap
+    (``csrc/swt_matmul.cu: swt_fwd_padded_kernel``) on a (B, Rp, Cp) CUDA
+    shard that holds its halo, counted under ``key`` -> (a float32, h, v, d
+    ``det_dtype``), each (B, Rp - (hlen - 1) f, Cp - (hlen - 1) f)."""
+    _check_scheme(scheme)
+    f = dilation(level)
+    tp = dual_taps(filters, scheme, xp.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
+    B, R, C = xp.shape
+    ro, co = conv.padded_atrous_len(R, hlen, f), conv.padded_atrous_len(C, hlen, f)
+    pl = swt_fwd_padded_launch_plan(B, ro, co, hlen, f, scheme)
+    a = torch.empty((B, ro, co), device=xp.device, dtype=F32)
+    dets = [torch.empty((B, ro, co), device=xp.device, dtype=det_dtype) for _ in range(3)]
+    launch(key, xp.device,
+           [ptr(xp), ptr(a), *map(ptr, dets), B, R, C, ro, co, ptr(tp), hlen, f,
+            SCHEMES.index(scheme), _is_bf16(xp.dtype), _is_bf16(det_dtype), pl.lr, pl.lc,
+            pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem], "swt_fwd_level_2d_mxu_padded")
+    return (a, *dets)
+
+
+def _inv_padded_launch(key: str, a, h, v, d, filters, level: int, scheme: str,
+                       out_dtype) -> torch.Tensor:
+    """Kernel 14's body with index tables that do not wrap
+    (``csrc/swt_matmul.cu: swt_inv_mxu_kernel<S, true>``) on (B, Rp, Cp)
+    CUDA subbands that hold their halo, the 1/2 per pass folded into the
+    taps, no threshold, counted under ``key`` -> (B, Rp - (hlen - 1) f, Cp
+    - (hlen - 1) f) in ``out_dtype``."""
+    _check_scheme(scheme)
+    _check_bands(a, h, v, d, key)
+    f = dilation(level)
+    tp = dual_taps((_half(filters[0]), _half(filters[1])), scheme, a.device)
+    hlen = tp.shape[1]
+    check_span(hlen, f)
+    B, Ri, Ci = a.shape
+    R, C = conv.padded_atrous_len(Ri, hlen, f), conv.padded_atrous_len(Ci, hlen, f)
+    pl = swt_inv_padded_launch_plan(B, R, C, hlen, f, scheme)
+    out = torch.empty((B, R, C), device=a.device, dtype=out_dtype)
+    launch(key, a.device,
+           [*map(ptr, (a, h, v, d, out)), B, Ri, Ci, R, C, ptr(tp), hlen, f,
+            SCHEMES.index(scheme), _is_bf16(h.dtype), _is_bf16(out_dtype), pl.lr, pl.lc, pl.gc,
+            pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem], "swt_inv_level_2d_mxu_padded")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -235,22 +356,9 @@ def swt_fwd_level_2d_mxu(x: torch.Tensor, dec_lo, dec_hi, level: int, scheme: st
     filters of up to 128 taps; ``swt_fwd_launch_plan`` picks its tile."""
     if on_cpu(x, dtypes=_DT):
         return swt_fwd_level_2d_mxu_ref(x, dec_lo, dec_hi, level, scheme, out_dtypes)
-    _check_scheme(scheme)
-    if out_dtypes[0] != F32:
-        raise ValueError("the banded-product kernels keep the approximation in float32")
-    f = dilation(level)
-    tp = dual_taps((dec_lo, dec_hi), scheme, x.device)
-    hlen = tp.shape[1]
-    check_span(hlen, f)
-    B, R, C = x.shape
-    pl = swt_fwd_launch_plan(B, R, C, hlen, f, scheme)
-    a = torch.empty(x.shape, device=x.device, dtype=F32)
-    dets = [torch.empty(x.shape, device=x.device, dtype=out_dtypes[1]) for _ in range(3)]
-    launch("swt_fwd_level_2d_mxu", x.device,
-           [ptr(x), ptr(a), *map(ptr, dets), B, R, C, ptr(tp), hlen, f, conv.fwd_center(hlen),
-            SCHEMES.index(scheme), _is_bf16(x.dtype), _is_bf16(out_dtypes[1]), pl.lr, pl.lc,
-            pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
-    return (a, *dets)
+    _check_approx(out_dtypes)
+    return _fwd_launch("swt_fwd_level_2d_mxu", x, (dec_lo, dec_hi), level, scheme,
+                       out_dtypes[1])
 
 
 @spanned("kernels")
@@ -269,22 +377,8 @@ def swt_inv_level_2d_mxu(a, h, v, d, rec_lo, rec_hi, level: int, scheme: str, ou
     if on_cpu(a, h, v, d, dtypes=_DT):
         return swt_inv_level_2d_mxu_ref(a, h, v, d, rec_lo, rec_hi, level, scheme, out_dtype,
                                         threshold)
-    _check_scheme(scheme)
-    _check_bands(a, h, v, d, "swt_inv_level_2d_mxu")
-    f = dilation(level)
-    taps = dual_taps((_half(rec_lo), _half(rec_hi)), scheme, a.device)
-    hlen = taps.shape[1]
-    check_span(hlen, f)
-    B, R, C = a.shape
-    out = torch.empty(a.shape, device=a.device, dtype=out_dtype)
-    buf = None if mode is None else beta_buffer(beta, a.device)
-    pl = swt_inv_launch_plan(B, R, C, hlen, f, scheme)
-    launch("swt_inv_level_2d_mxu", a.device,
-           [*map(ptr, (a, h, v, d, out)), B, R, C, ptr(taps), hlen, f,
-            conv.swt_inv_center(hlen), SCHEMES.index(scheme), _is_bf16(h.dtype),
-            _is_bf16(out_dtype), THRESH_CODES[mode], None if buf is None else ptr(buf),
-            pl.lr, pl.lc, pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
-    return out
+    return _inv_launch("swt_inv_level_2d_mxu", a, h, v, d, (rec_lo, rec_hi), level, scheme,
+                       out_dtype, threshold)
 
 
 @spanned("kernels")
@@ -298,23 +392,9 @@ def swt_fwd_level_2d_mxu_padded(xp: torch.Tensor, dec_lo, dec_hi, level: int, sc
     on ``swt_fwd_padded_launch_plan``."""
     if on_cpu(xp, dtypes=_DT):
         return swt_fwd_level_2d_mxu_padded_ref(xp, dec_lo, dec_hi, level, scheme, out_dtypes)
-    _check_scheme(scheme)
-    if out_dtypes[0] != F32:
-        raise ValueError("the banded-product kernels keep the approximation in float32")
-    f = dilation(level)
-    tp = dual_taps((dec_lo, dec_hi), scheme, xp.device)
-    hlen = tp.shape[1]
-    check_span(hlen, f)
-    B, R, C = xp.shape
-    ro, co = conv.padded_atrous_len(R, hlen, f), conv.padded_atrous_len(C, hlen, f)
-    pl = swt_fwd_padded_launch_plan(B, ro, co, hlen, f, scheme)
-    a = torch.empty((B, ro, co), device=xp.device, dtype=F32)
-    dets = [torch.empty((B, ro, co), device=xp.device, dtype=out_dtypes[1]) for _ in range(3)]
-    launch("swt_fwd_level_2d_mxu_padded", xp.device,
-           [ptr(xp), ptr(a), *map(ptr, dets), B, R, C, ro, co, ptr(tp), hlen, f,
-            SCHEMES.index(scheme), _is_bf16(xp.dtype), _is_bf16(out_dtypes[1]), pl.lr, pl.lc,
-            pl.gc, pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
-    return (a, *dets)
+    _check_approx(out_dtypes)
+    return _fwd_padded_launch("swt_fwd_level_2d_mxu_padded", xp, (dec_lo, dec_hi), level,
+                              scheme, out_dtypes[1])
 
 
 @spanned("kernels")
@@ -330,21 +410,8 @@ def swt_inv_level_2d_mxu_padded(a, h, v, d, rec_lo, rec_hi, level: int, scheme: 
     if on_cpu(a, h, v, d, dtypes=_DT):
         return swt_inv_level_2d_mxu_padded_ref(a, h, v, d, rec_lo, rec_hi, level, scheme,
                                                out_dtype)
-    _check_scheme(scheme)
-    _check_bands(a, h, v, d, "swt_inv_level_2d_mxu_padded")
-    f = dilation(level)
-    tp = dual_taps((_half(rec_lo), _half(rec_hi)), scheme, a.device)
-    hlen = tp.shape[1]
-    check_span(hlen, f)
-    B, Ri, Ci = a.shape
-    R, C = conv.padded_atrous_len(Ri, hlen, f), conv.padded_atrous_len(Ci, hlen, f)
-    pl = swt_inv_padded_launch_plan(B, R, C, hlen, f, scheme)
-    out = torch.empty((B, R, C), device=a.device, dtype=out_dtype)
-    launch("swt_inv_level_2d_mxu_padded", a.device,
-           [*map(ptr, (a, h, v, d, out)), B, Ri, Ci, R, C, ptr(tp), hlen, f,
-            SCHEMES.index(scheme), _is_bf16(h.dtype), _is_bf16(out_dtype), pl.lr, pl.lc, pl.gc,
-            pl.nph, pl.nt, pl.threads, *pl.grid, pl.smem])
-    return out
+    return _inv_padded_launch("swt_inv_level_2d_mxu_padded", a, h, v, d, (rec_lo, rec_hi),
+                              level, scheme, out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -395,6 +462,40 @@ class _SwtInvLevel2DMxu(torch.autograd.Function):
         return (*(t.to(dt) for t, dt in zip(res, ctx.in_dtypes)), None, None, None, None, None)
 
 
+def _thresh_vjp_factors(mode: str, t: torch.Tensor, b):
+    """(d thresh / d x, d thresh / d beta) where |t| > b, the a.e.
+    derivatives of the thresholds (``swt_pallas.py:217-228``); None for a
+    zero derivative."""
+    if mode == "soft":
+        return None, -torch.sign(t)
+    if mode == "hard":
+        return None, None
+    if mode == "garrote":
+        safe = torch.where(t == 0, 1.0, t)
+        return 1.0 + (b * b) / (safe * safe), -2.0 * b / safe
+    raise ValueError(mode)
+
+
+def thresh_vjp(mode: str, bands, grads, b, beta):
+    """The fused threshold's backward (``swt_pallas.py:767-786``): each
+    cotangent of ``grads`` through the threshold's a.e. derivative at the
+    un-thresholded detail of ``bands``, masked where |detail| > b, and
+    beta's gradient where ``beta`` is a tensor (else None), in the dtype of
+    ``bands``, ``grads`` and ``b``."""
+    outs, gbeta = [], None
+    for t, g in zip(bands, grads):
+        mask = t.abs() > b
+        dfdx, dfdb = _thresh_vjp_factors(mode, t, b)
+        outs.append(torch.where(mask, g if dfdx is None else g * dfdx, 0.0))
+        if dfdb is not None and isinstance(beta, torch.Tensor):
+            term = torch.where(mask, g * dfdb, 0.0).sum()
+            gbeta = term if gbeta is None else gbeta + term
+    if isinstance(beta, torch.Tensor):
+        gbeta = (torch.zeros_like(beta) if gbeta is None
+                 else gbeta.to(beta.dtype).reshape(beta.shape))
+    return outs, gbeta
+
+
 class _SwtInvLevel2DMxuDenoise(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, h, v, d, beta, rec_lo, rec_hi, level, mode, thr_mode, out_dtype):
@@ -411,18 +512,9 @@ class _SwtInvLevel2DMxuDenoise(torch.autograd.Function):
         beta = rest[0] if ctx.beta_is_tensor else ctx.beta
         ga, *gbands = _inv_backward(ctx, gy)
         b = beta_buffer(beta, gy.device).reshape(())
-        outs, gbeta = [], None
-        for t, g in zip((h, v, d), gbands):
-            tf, gf = t.float(), g.float()
-            mask = tf.abs() > b
-            dfdx, dfdb = _thresh_vjp_factors(ctx.thr_mode, tf, b)
-            outs.append(torch.where(mask, gf if dfdx is None else gf * dfdx, 0.0).to(t.dtype))
-            if dfdb is not None and ctx.beta_is_tensor:
-                term = torch.where(mask, gf * dfdb, 0.0).sum()
-                gbeta = term if gbeta is None else gbeta + term
-        if ctx.beta_is_tensor:
-            gbeta = (torch.zeros_like(beta) if gbeta is None
-                     else gbeta.to(beta.dtype).reshape(beta.shape))
+        outs, gbeta = thresh_vjp(ctx.thr_mode, [t.float() for t in (h, v, d)],
+                                 [g.float() for g in gbands], b, beta)
+        outs = [g.to(t.dtype) for g, t in zip(outs, (h, v, d))]
         return (ga.to(ctx.in_dtypes[0]), *outs, gbeta, None, None, None, None, None, None)
 
 

@@ -53,24 +53,29 @@ def dev_ms(fn, reps=50):
 w8 = get_wavelet("sym8")
 gen = torch.Generator(device=dev).manual_seed(7)
 res = {}
-plans = hasattr(K1, "fwd1d_launch_plan")
+try:
+    from pdwt_tpu_torch.kernels import mxu1d as M1
+except ImportError:  # a checkout before kernel 15
+    M1 = None
+# the module whose fwd1d_launch_plan kernel 7's wrapper reads: batched1d
+# where it launches kernel 7 itself, mxu1d where kernel 15's launcher does
+owner = K1 if hasattr(K1, "fwd1d_launch_plan") else M1
+plans = hasattr(owner, "fwd1d_launch_plan")
 for n in (4096, 2048, 1024, 512):
     x = torch.randn(1024, n, device=dev, generator=gen)
     res[f"default {n}"] = dev_ms(lambda: K1.fwd_level_1d(x, w8.dec_lo, w8.dec_hi))
     if not plans:
         continue
-    from pdwt_tpu_torch.kernels import mxu1d as M1
-
     base = M1.fwd1d_launch_plan(1024, n, 16, 1, "fd", True)
     res[f"default plan {n}"] = f"lc {base.lc} threads {base.threads}"
-    own = K1.fwd1d_launch_plan
+    own = owner.fwd1d_launch_plan
     for lc in (16, 32, 64, 128, 256):
         if lc > n // 2:
             continue
         for th in (64, 128, 256):
             pl = base._replace(lc=lc, threads=th, grid=(-(-(n // 2) // lc), base.grid[1], 1),
                                smem=M1._fwd1d_smem("fd", 2, lc, 1, base.nt))
-            K1.fwd1d_launch_plan = lambda *a, pl=pl: pl
+            owner.fwd1d_launch_plan = lambda *a, pl=pl: pl
             res[f"lc{lc} t{th} {n}"] = dev_ms(lambda: K1.fwd_level_1d(x, w8.dec_lo, w8.dec_hi))
-    K1.fwd1d_launch_plan = own
+    owner.fwd1d_launch_plan = own
 print("PROBE7", root, json.dumps(res))

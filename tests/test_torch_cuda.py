@@ -853,7 +853,7 @@ def test_exact_inverses_refuse_a_bad_launch_plan(dev, monkeypatch):
     for bad in (good._replace(smem=good.smem + 16), good._replace(lr=good.lr + 1),
                 good._replace(grid=(good.grid[0] + 1, *good.grid[1:])),
                 good._replace(threads=48), good._replace(nt=2)):
-        monkeypatch.setattr(K, "inv_level_launch_plan", lambda *a, bad=bad: bad)
+        monkeypatch.setattr(M, "inv_level_launch_plan", lambda *a, bad=bad: bad)
         with pytest.raises(RuntimeError, match="launch failed"):
             K.inv_level_2d(*bands, w.rec_lo, w.rec_hi)
     good = SM.swt_inv_launch_plan(1, 64, 64, 14, 2, "fd")
@@ -1206,7 +1206,7 @@ def test_redesigned_12_10_refuse_a_bad_launch_plan(dev, monkeypatch):
     for bad in (good._replace(smem=good.smem + 16), good._replace(lc=good.lc + 1),
                 good._replace(grid=(good.grid[0] + 1, *good.grid[1:])),
                 good._replace(threads=48), good._replace(nt=4), good._replace(gc=3)):
-        monkeypatch.setattr(K1, "inv1d_launch_plan", lambda *a, bad=bad: bad)
+        monkeypatch.setattr(M1, "inv1d_launch_plan", lambda *a, bad=bad: bad)
         with pytest.raises(RuntimeError, match="launch failed"):
             K1.swt_inv_level_1d(lo, hi, w8.rec_lo, w8.rec_hi, 2)
 
@@ -1277,7 +1277,7 @@ def test_redesigned_11_9_refuse_a_bad_launch_plan(dev, monkeypatch):
     for bad in (good._replace(smem=good.smem + 16), good._replace(lc=good.lc + 1),
                 good._replace(grid=(good.grid[0] + 1, *good.grid[1:])),
                 good._replace(threads=48), good._replace(nt=12), good._replace(gc=3)):
-        monkeypatch.setattr(K1, "fwd1d_launch_plan", lambda *a, bad=bad: bad)
+        monkeypatch.setattr(M1, "fwd1d_launch_plan", lambda *a, bad=bad: bad)
         with pytest.raises(RuntimeError, match="launch failed"):
             K1.swt_fwd_level_1d(s, w8.dec_lo, w8.dec_hi, 2)
 
@@ -1366,7 +1366,7 @@ def test_redesigned_8_5_refuse_a_bad_launch_plan(dev, monkeypatch):
                 good._replace(grid=(good.grid[0] + 1, *good.grid[1:])),
                 good._replace(threads=48), good._replace(nt=4),
                 M1.inv1d_launch_plan(32, 256, 16, 1, "fd", False)):
-        monkeypatch.setattr(K1, "inv1d_launch_plan", lambda *a, bad=bad: bad)
+        monkeypatch.setattr(M1, "inv1d_launch_plan", lambda *a, bad=bad: bad)
         with pytest.raises(RuntimeError, match="launch failed"):
             K1.inv_level_1d(lo, hi, w8.rec_lo, w8.rec_hi)
     x = _rand(dev, 1, 128, 128)
@@ -1489,12 +1489,12 @@ def test_redesigned_1_7_refuse_a_bad_launch_plan(dev, monkeypatch):
     a-trous plan is not one of 7's, a b3 plan not one of 1's)."""
     w7, w8 = get_wavelet("db7"), get_wavelet("sym8")
     x = _rand(dev, 1, 256, 256)
-    good = K.fwd_level_launch_plan(1, 256, 256, 14)
+    good = M.fwd_launch_plan(1, 256, 256, 14, "fd")
     for bad in (good._replace(smem=good.smem + 16), good._replace(lr=good.lr + 1),
                 good._replace(grid=(good.grid[0], good.grid[1] + 1, 1)),
                 good._replace(threads=48), good._replace(nt=8), good._replace(gc=3),
                 M.fwd_launch_plan(1, 256, 256, 14, "b3")):
-        monkeypatch.setattr(K, "fwd_level_launch_plan", lambda *a, bad=bad: bad)
+        monkeypatch.setattr(M, "fwd_launch_plan", lambda *a, bad=bad: bad)
         with pytest.raises(RuntimeError, match="launch failed"):
             K.fwd_level_2d(x, w7.dec_lo, w7.dec_hi)
     s = _rand(dev, 64, 512)
@@ -1503,7 +1503,7 @@ def test_redesigned_1_7_refuse_a_bad_launch_plan(dev, monkeypatch):
                 good._replace(grid=(good.grid[0] + 1, *good.grid[1:])),
                 good._replace(threads=48), good._replace(nt=8),
                 M1.fwd1d_launch_plan(64, 512, 16, 2, "fd", False)):
-        monkeypatch.setattr(K1, "fwd1d_launch_plan", lambda *a, bad=bad: bad)
+        monkeypatch.setattr(M1, "fwd1d_launch_plan", lambda *a, bad=bad: bad)
         with pytest.raises(RuntimeError, match="launch failed"):
             K1.fwd_level_1d(s, w8.dec_lo, w8.dec_hi)
 
@@ -2320,11 +2320,11 @@ def test_fused_1d_norm_launches_match_the_plain_launch(dev, monkeypatch, wname, 
     x = _rand(dev, *shape, seed=30)
     beta = torch.tensor(0.25, device=dev)
     with monkeypatch.context() as m:
-        m.setattr(K1, "torch", NaNEmpty())
+        m.setattr(M1, "torch", NaNEmpty())
         lo, hi, parts = K1.fwd_level_1d_norm(x, w.dec_lo, w.dec_hi, norm=(mode, beta))
     plo, phi = K1.fwd_level_1d(x, w.dec_lo, w.dec_hi)
     assert torch.equal(lo, plo) and torch.equal(hi, THR_ELEM[mode](phi, beta))
-    hlen = K1.dual_taps((w.dec_lo, w.dec_hi), "fd", dev).shape[1]
+    hlen = M1.dual_taps((w.dec_lo, w.dec_hi), "fd", dev).shape[1]
     blocks = math.prod(fwd1d_launch_plan(*shape, hlen, 1, "fd", True).grid)
     assert parts.shape == (blocks,) and parts.dtype == torch.float32
     assert bool(torch.isfinite(parts).all())

@@ -26,6 +26,8 @@ from pdwt_tpu.filters import get_wavelet as jget_wavelet
 from pdwt_tpu_torch.core import conv
 from pdwt_tpu_torch.kernels import _launch
 from pdwt_tpu_torch.kernels import batched1d as K1
+from pdwt_tpu_torch.kernels import matmul as M
+from pdwt_tpu_torch.kernels import mxu1d as M1
 from pdwt_tpu_torch.kernels import separable as K
 from pdwt_tpu_torch.utils import wavelet_from_arrays
 
@@ -173,16 +175,16 @@ def test_padded_launch_plans_cover_the_outputs(hlen, mshape, c0, out):
     positions ``pad_positions`` (every stored output, two a position); the
     1D plans likewise, on 32-signal groups."""
     ro, co = (conv.padded_len(2 * n + hlen, hlen) for n in mshape)
-    pl = K.fwd_padded_launch_plan(2, ro, co, hlen)
+    pl = M.fwd_padded_launch_plan(2, ro, co, hlen, "fd")
     assert pl.grid[0] * pl.lc >= co and pl.grid[1] * pl.lr >= ro and pl.gc == 1
     rows, cols = (_launch.pad_axis(hlen, c, n) for c, n in zip(c0, out))
-    pl = K.inv_padded_launch_plan(2, rows, cols, hlen)
+    pl = M.inv_padded_launch_plan(2, rows, cols, hlen, "fd")
     for axis, lt, g in ((rows, pl.lr, pl.grid[1]), (cols, pl.lc, pl.grid[0])):
         assert 2 * g * lt >= axis.off + axis.n_out
         assert g == -(-_launch.pad_positions(axis) // lt)
-    pl1 = K1.fwd1d_padded_launch_plan(33, co, hlen)
+    pl1 = M1.fwd1d_padded_launch_plan(33, co, hlen, "fd")
     assert pl1.grid[0] * pl1.lc >= co and pl1.grid[1] == 2
-    pl1 = K1.inv1d_padded_launch_plan(33, cols, hlen)
+    pl1 = M1.inv1d_padded_launch_plan(33, cols, hlen, "fd")
     assert 2 * pl1.grid[0] * pl1.lc >= cols.off + cols.n_out
 
 

@@ -24,7 +24,9 @@ from pdwt_tpu_torch import kernels as K
 from pdwt_tpu_torch.core import conv
 from pdwt_tpu_torch.kernels import _launch
 from pdwt_tpu_torch.kernels import batched1d as K1
+from pdwt_tpu_torch.kernels import mxu1d as M1
 from pdwt_tpu_torch.kernels import swt as S
+from pdwt_tpu_torch.kernels import swt_matmul as SM
 from pdwt_tpu_torch.utils import wavelet_from_arrays
 
 RTOL = 1e-5
@@ -183,11 +185,11 @@ def test_padded_plans_cover_the_outputs(B, R, C, hlen, level):
     """The plans are the periodic kernels' for the output size, and their
     grids pass the C entries' checks for it (not for the padded input)."""
     f = 1 << (level - 1)
-    fwd = S.swt_fwd_padded_launch_plan(B, R, C, hlen, f)
-    inv = S.swt_inv_padded_launch_plan(B, R, C, hlen, f)
+    fwd = SM.swt_fwd_padded_launch_plan(B, R, C, hlen, f, "fd")
+    inv = SM.swt_inv_padded_launch_plan(B, R, C, hlen, f, "fd")
     assert _grid_fits(fwd, B, R, C, f) and _grid_fits(inv, B, R, C, f)
     assert fwd.lc % (8 * (f // fwd.gc)) == 0 and inv.lc % (8 * (f // inv.gc)) == 0
-    f1 = K1.swt_fwd1d_padded_launch_plan(B * R, C, hlen, f)
-    i1 = K1.swt_inv1d_padded_launch_plan(B * R, C, hlen, f)
+    f1 = M1.swt_fwd1d_padded_launch_plan(B * R, C, hlen, f, "fd")
+    i1 = M1.swt_inv1d_padded_launch_plan(B * R, C, hlen, f, "fd")
     assert _lines_fit(f1, B * R, C, f) and _lines_fit(i1, B * R, C, f)
     assert f1.lc % (8 * (f // f1.gc)) == 0 and i1.lc % (8 * (f // i1.gc)) == 0

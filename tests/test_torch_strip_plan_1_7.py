@@ -4,7 +4,7 @@ checked on the CPU:
 
 * kernel 1, the exact decimated 2D analysis (``separable.fwd_level_2d``),
   runs kernel 13's body at output step 2 in ``fd`` on float32 data, on
-  ``separable.fwd_level_launch_plan`` (kernel 11's plan in ``fd``): the
+  ``matmul.fwd_launch_plan`` in ``fd`` (kernel 11's plan): the
   plan covers every subband output once and fits shared memory for 2 to
   128 taps (3, 5 and 127 included) on 2 x 2, odd-half (74 x 106) and
   2048^2 images and batches of 1, 3 and 70000; the DWT cell's levels get
@@ -62,7 +62,7 @@ def _within(got, want, rtol):
         assert float(np.abs(g - w).max()) <= rtol * scale
 
 
-# -- kernel 1: fwd_level_launch_plan, kernel 13 at step 2 in fd ---------------
+# -- kernel 1: fwd_launch_plan in fd, kernel 13 at step 2 ---------------------
 
 # (B, R, C) images: 2 x 2, odd subband sizes (37 x 53, 35 x 67), the DWT
 # cell's first and last levels, batches of 3
@@ -73,7 +73,7 @@ COVER_1 = [(1, 2, 2), (3, 2, 2), (1, 74, 106), (3, 70, 134), (2, 16, 16), (1, 25
 @pytest.mark.parametrize("B,R,C", COVER_1)
 @pytest.mark.parametrize("hlen", [2, 3, 5, 14, 127, 128])
 def test_kernel_1_plan_covers_every_subband_output_once(B, R, C, hlen):
-    plan = K.fwd_level_launch_plan(B, R, C, hlen)
+    plan = M.fwd_launch_plan(B, R, C, hlen, "fd")
     _check_13(plan, "fd", 1)
     assert plan.gc == 1 and hlen <= plan.nt <= L.MAX_HLEN  # swt_matmul.cu: launch_fwd
     assert plan.smem == _c_fwd_smem("fd", 2, plan.lr, plan.lc, 1, plan.nt, plan.nph)
@@ -88,7 +88,7 @@ def test_kernel_1_plan_fits_for_every_filter_length(shape):
     no size, tap count or batch kernel 1 took before is refused.  The plan
     is kernel 11's in fd, so kernel 11's tiling model is kernel 1's."""
     for hlen in range(2, L.MAX_HLEN + 1):
-        plan = K.fwd_level_launch_plan(*shape, hlen)
+        plan = M.fwd_launch_plan(*shape, hlen, "fd")
         _check_13(plan, "fd", 1)
         assert plan.nt >= hlen and plan.nt <= L.MAX_HLEN and plan.gc == 1
         assert plan.smem == L.fwd_smem("fd", plan.lr, plan.lc, 1, plan.nt, plan.nph, 2)
@@ -102,7 +102,7 @@ def test_kernel_1_cell_levels_get_their_block_target(r, blocks):
     the block target of the level's four subbands together, at most the
     shared memory that lets two blocks share an SM (the fixed 32 x 32
     subband tiles of the body before gave 1024, 256, 64 and 16 blocks)."""
-    plan = K.fwd_level_launch_plan(1, r, r, 14)
+    plan = M.fwd_launch_plan(1, r, r, 14, "fd")
     assert _blocks(plan) >= L.block_target(1, r, r)
     assert _blocks(plan) == blocks
     assert plan.smem <= L.SMEM_TWO_BLOCKS

@@ -21,6 +21,7 @@ from pdwt_tpu import kernels as jk
 from pdwt_tpu.filters import get_wavelet as jget_wavelet
 from pdwt_tpu.filters import make_custom_wavelet as jmake_custom_wavelet
 from pdwt_tpu_torch.kernels import swt as S
+from pdwt_tpu_torch.kernels import swt_matmul as SM
 from pdwt_tpu_torch.kernels._launch import LAUNCHES, reset_launch_counts, rev
 from pdwt_tpu_torch.utils import wavelet_from_arrays
 
@@ -137,7 +138,7 @@ def test_swt_inv_level_denoise_ad_matches_jax_vjp(mode):
     scale = 0.0
     for t, g in zip(bands[1:], g_bands):
         t = torch.from_numpy(t)
-        dfdb = S._thresh_vjp_factors(mode, t, torch.tensor(beta))[1]
+        dfdb = SM._thresh_vjp_factors(mode, t, torch.tensor(beta))[1]
         if dfdb is not None:
             scale += float(torch.where(t.abs() > 60.0, g * dfdb, 0.0).abs().sum())
     assert got[4].dtype == torch.float32 and got[4].shape == ()

@@ -142,7 +142,7 @@ def test_cell_tail_fills_more_than_one_sm(inverse):
     one = K.tail_launch_plan(1, 128, 128, 14, 1, inverse)
     assert one.nb >= 16 and one.cs == 1
     assert one.levels[0] == (K.inv_level_launch_plan(1, 64, 64, 14) if inverse
-                             else K.fwd_level_launch_plan(1, 128, 128, 14))
+                             else M.fwd_launch_plan(1, 128, 128, 14, "fd"))
     four = K.tail_launch_plan(1, 128, 128, 14, 4, inverse)
     first = four.levels[-1 if inverse else 0]
     assert four.nb == four.cs == 16 and first.grid[0] * first.grid[1] == 16
